@@ -1,15 +1,18 @@
 """SceneDINO in PyTorch for NVIDIA Hopper.
 
 A port of the JAX package `scenedino_tpu` (the reference, which stays in
-the repository unchanged). This slice covers the novel-view serving path:
+the repository unchanged). It covers two paths:
 
-    models.factory.make_model -> SceneField.encode (DINO ViT + DPT)
-    -> ops.fast_field.build_fast_state -> ops.fast_field.render_novel_view_fused
+    serving:  models.factory.make_model -> SceneField.encode (DINO ViT + DPT)
+              -> ops.fast_field.build_fast_state -> ops.fast_field.render_novel_view_fused
+    training: models.factory.make_model(training=True)
+              -> training.trainer.make_train_step (the stage-1 step)
 
-Two hand-written CUDA kernels carry it (`kernels/`, sources in `csrc/`):
-the ViT attention and the fused point render. Entry points run on the
-GPU unless the caller asks for the CPU with `device="cpu"`; on the CPU
-every kernel wrapper takes its plain PyTorch version.
+Hand-written CUDA kernels carry them (`kernels/`, sources in `csrc/`):
+the ViT attention forward and its backward (dq; dk and dv), and the
+fused point render of serving. Entry points run on the GPU unless the
+caller asks for the CPU with `device="cpu"`; on the CPU every kernel
+wrapper takes its plain PyTorch version.
 """
 from __future__ import annotations
 

@@ -10,6 +10,8 @@ from typing import NamedTuple
 
 import torch
 
+from scenedino_torch.core import maximum
+
 
 class CompositeOut(NamedTuple):
     weights: torch.Tensor  # (..., K)
@@ -28,14 +30,16 @@ def alpha_composite(sigmas: torch.Tensor, deltas: torch.Tensor, hard_alpha_cap: 
 
     The floor is max(1 - a, 1e-10), not 1 - a + 1e-10: the second form
     loses its epsilon in fp32 and saturated alphas then give exact zeros.
+    Both maxima split the gradient at a tie as `jnp.maximum` does: at
+    sigma = 0 (a softplus that underflowed) sigma gets half of it.
     """
     sigmas = sigmas.float()
     deltas = deltas.float()
-    alphas = 1.0 - torch.exp(-torch.abs(deltas) * torch.clamp_min(sigmas, 0.0))
+    alphas = 1.0 - torch.exp(-torch.abs(deltas) * maximum(sigmas, 0.0))
     if hard_alpha_cap:
         alphas = torch.cat([alphas[..., :-1], torch.ones_like(alphas[..., -1:])], -1)
     shifted = torch.cat(
-        [torch.ones_like(alphas[..., :1]), torch.clamp_min(1.0 - alphas[..., :-1], 1e-10)], -1
+        [torch.ones_like(alphas[..., :1]), maximum(1.0 - alphas[..., :-1], 1e-10)], -1
     )
     T = torch.cumprod(shifted, -1)
     return alphas * T, alphas
@@ -48,7 +52,7 @@ def weight_median_depth(weights: torch.Tensor, z_samp: torch.Tensor, q: float = 
     picks that sample (the reference's tie rule).
     """
     w = weights.float()
-    cdf = torch.cumsum(w, -1) / torch.clamp_min(w.sum(-1, keepdim=True), 1e-10)
+    cdf = torch.cumsum(w, -1) / maximum(w.sum(-1, keepdim=True), 1e-10)
     idx = torch.sum(cdf < q, -1).clamp(0, z_samp.shape[-1] - 1)
     return torch.gather(z_samp.float(), -1, idx[..., None])[..., 0]
 

@@ -10,6 +10,8 @@ import math
 
 import torch
 
+from scenedino_torch.core import maximum
+
 EPS = 1e-3
 
 
@@ -17,10 +19,18 @@ def normalize_z(z: torch.Tensor, d_min: float, d_max: float, inv_z: bool = True,
                 eps: float = EPS) -> torch.Tensor:
     """Depth to [-1, 1], warped to inverse depth when inv_z."""
     if inv_z:
-        zn = (1.0 / torch.clamp_min(z, eps) - 1.0 / d_max) / (1.0 / d_min - 1.0 / d_max)
+        zn = (1.0 / maximum(z, eps) - 1.0 / d_max) / (1.0 / d_min - 1.0 / d_max)
     else:
         zn = (z - d_min) / (d_max - d_min)
     return 2.0 * zn - 1.0
+
+
+def encode_coords(xy: torch.Tensor, z: torch.Tensor, distance: torch.Tensor, d_min: float,
+                  d_max: float, mode: str = "z", inv_z: bool = True, eps: float = EPS) -> torch.Tensor:
+    """NDC xy with the normalized depth ("z") or camera distance
+    ("distance") -> (..., 3)."""
+    depth_like = z if mode == "z" else distance
+    return torch.cat([xy, normalize_z(depth_like, d_min, d_max, inv_z=inv_z, eps=eps)], -1)
 
 
 def positional_encoding_dims(num_freqs: int = 6, d_in: int = 3, include_input: bool = True) -> int:

@@ -21,6 +21,10 @@
 // logits never reach device memory. The ragged tail is masked in the
 // kernel: key rows past N are zero-filled and given zero probability,
 // query rows past N are not written, so nothing is padded to 512.
+// When the caller needs a gradient it passes an fp32 (B, H, N) buffer
+// and the kernel also writes each row's log-sum-exp of the scaled logits
+// (natural log), which the backward kernels (attention_bwd.cu) read
+// instead of recomputing the softmax statistics.
 // Not yet used: wgmma, TMA, double-buffered tiles (later work).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -68,7 +72,7 @@ __device__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat16* src, int b, i
 __global__ void __launch_bounds__(THREADS)
 attention_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                      const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
-                     int N, int H, float scale_log2) {
+                     float* __restrict__ lse, int N, int H, float scale_log2) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
   const int q0 = blockIdx.x * BQ;
@@ -160,14 +164,18 @@ attention_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
     for (int c = half * (D / 2); c < (half + 1) * (D / 2); ++c) {
       dst[c] = __float2bfloat16(orow[c] * inv);
     }
+    if (lse != nullptr && half == 0) {
+      lse[((size_t)b * H + h) * N + n] = (m + log2f(l)) * 0.6931471805599453f;
+    }
   }
 }
 
 }  // namespace
 
-// q, k, v, out: (B, N, H, D) bf16, contiguous, on the current device.
+// q, k, v, out: (B, N, H, D) bf16, contiguous, on the current device;
+// lse: (B, H, N) fp32 or null (not written).
 // Returns a cudaError_t (0 = launched).
-extern "C" int attention_fwd(const void* q, const void* k, const void* v, void* out,
+extern "C" int attention_fwd(const void* q, const void* k, const void* v, void* out, void* lse,
                              int B, int N, int H, int head_dim, float scale, void* stream) {
   if (head_dim != D || B <= 0 || N <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
   const int smem = (int)sizeof(Smem);
@@ -177,6 +185,6 @@ extern "C" int attention_fwd(const void* q, const void* k, const void* v, void* 
   const dim3 grid((N + BQ - 1) / BQ, H, B);
   attention_fwd_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v,
-      (__nv_bfloat16*)out, N, H, scale * 1.4426950408889634f);
+      (__nv_bfloat16*)out, (float*)lse, N, H, scale * 1.4426950408889634f);
   return (int)cudaGetLastError();
 }

@@ -5,10 +5,15 @@ its plain PyTorch version for CPU tensors. Each keeps `launches`, the
 number of kernel launches it made, so a run can show that its path went
 through the kernel.
 """
-from scenedino_torch.kernels.attention import attention
+from scenedino_torch.kernels.attention import attention, attention_bwd_dkv, attention_bwd_dq
 from scenedino_torch.kernels.point_render import point_render
 
-WRAPPERS = {"attention": attention, "point_render": point_render}
+WRAPPERS = {
+    "attention": attention,
+    "attention_bwd_dq": attention_bwd_dq,
+    "attention_bwd_dkv": attention_bwd_dkv,
+    "point_render": point_render,
+}
 
 
 def reset_launches() -> None:

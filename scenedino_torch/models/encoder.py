@@ -1,9 +1,13 @@
-"""The DINO encoder's student path (counterpart of `scenedino_tpu/models/encoder.py`).
+"""The DINO encoder stack (counterpart of `scenedino_tpu/models/encoder.py`).
 
-Inputs are images in [-1, 1]; the ViT sees ImageNet-normalized [0, 1]
-images. `DinoModule` here is the student (ViT + DPT decoder) that serving
-runs. The frozen teacher, the downsampler and the dimension reduction are
-used only in training and come with a later slice of the port.
+Inputs are images in [-1, 1]; the ViTs see ImageNet-normalized [0, 1]
+images. `DinoModule` is the student (ViT + DPT decoder) that serving runs;
+built with `training=True` it also holds the training-only parts: the
+frozen teacher ViT (`gt_encoder`, run without a graph like the
+reference's `stop_gradient`), the FeatUp `PatchSalienceDownsampler` that
+pools rendered pixel features back to the teacher's patch grid, and the
+`MlpDimReduction` that expands the 64-d field feature to the 768-d DINO
+space.
 """
 from __future__ import annotations
 
@@ -80,12 +84,73 @@ class DinoViTEncoder(nn.Module):
         return result
 
 
+class MlpDimReduction(nn.Module):
+    """64 -> 128 -> 768 with a ReLU, then L2-normalized (encoder.py:130-142)."""
+
+    def __init__(self, reduced_channels: int = 64, full_channels: int = 768, latent_channels: int = 128):
+        super().__init__()
+        self.linear_in = nn.Linear(reduced_channels, latent_channels)
+        self.linear_out = nn.Linear(latent_channels, full_channels)
+
+    def forward(self, features: torch.Tensor) -> torch.Tensor:
+        h = torch.relu(self.linear_in(features.float()))
+        return safe_normalize(self.linear_out(h), eps=1e-12)
+
+
+class PatchSalienceDownsampler(nn.Module):
+    """FeatUp salience pooling (encoder.py:187-242): a 1x1-conv salience
+    map, a learned per-patch-pixel weight and bias, a softmax over the
+    patch's pixels, the weighted sum, then an L2 normalization."""
+
+    def __init__(self, channels: int = 768, patch_size: int = 16):
+        super().__init__()
+        self.channels = channels
+        self.patch_size = patch_size
+        self.patch_weight = nn.Parameter(1.0 + 0.01 * torch.randn(patch_size, patch_size))
+        self.patch_bias = nn.Parameter(0.01 * torch.randn(patch_size, patch_size))
+        self.salience_conv = nn.Conv2d(channels, 1, 1)
+        nn.init.kaiming_normal_(self.salience_conv.weight, mode="fan_in", nonlinearity="linear")
+        nn.init.zeros_(self.salience_conv.bias)
+
+    def forward(self, x: torch.Tensor, mode: str = "image") -> torch.Tensor:
+        """"patch": x (B, Pn, P, P, 1, C) -> (B, Pn, C); "image": x (B, V, H, W, 1, C)
+        -> (B, V, H/P, W/P, C)."""
+        P, C = self.patch_size, x.shape[-1]
+        if C != self.channels:
+            raise ValueError(f"PatchSalienceDownsampler built for {self.channels}-d features, got {C}-d")
+        x = x.float()
+        if mode == "patch":
+            B, Pn = x.shape[:2]
+        elif mode == "image":
+            B, V, H, W = x.shape[:4]
+            gh, gw = H // P, W // P
+            x = x.reshape(B, V, gh, P, gw, P, 1, C).transpose(3, 4).reshape(B, V * gh * gw, P, P, 1, C)
+            Pn = V * gh * gw
+        else:
+            raise ValueError(f"mode must be 'patch' or 'image', got {mode!r}")
+        w = self.salience_conv.weight.reshape(C).float()
+        sal = x[..., 0, :] @ w + self.salience_conv.bias.float()  # (B, Pn, P, P)
+        sal = sal * self.patch_weight + self.patch_bias
+        wts = torch.softmax(sal.reshape(B, Pn, -1), -1).reshape(B, Pn, x.shape[2], x.shape[3], 1, 1)
+        pooled = safe_normalize(torch.sum(wts * x, dim=(2, 3)), eps=1e-12)  # (B, Pn, 1, C)
+        if mode == "patch":
+            return pooled[..., 0, :]
+        return pooled.reshape(B, V, gh, gw, C)
+
+
 @dataclasses.dataclass(frozen=True)
 class DinoModuleConfig:
-    """The fields of the configs/model/dino_downsampler.yaml `encoder:`
-    block that the student path reads; the training-only ones (teacher,
-    downsampler, dimension reduction) come with the training slice."""
+    """The configs/model/dino_downsampler.yaml `encoder:` block. The
+    teacher, downsampler and dimension-reduction fields are read only
+    when the module is built for training."""
 
+    mode: str = "downsample-prediction"
+    downsampler_arch: Optional[str] = "featup"
+    separate_gt_version: Optional[str] = "v1"
+    dim_reduction_arch: str = "mlp"
+    dino_pca_dim: int = 64
+    encoder_freeze: bool = False
+    flip_avg_gt: bool = False
     decoder_arch: str = "dpt"
     encoder_arch: str = "vit-b"
     version: str = "v1"
@@ -98,9 +163,11 @@ class DinoModuleConfig:
 
 
 class DinoModule(nn.Module):
-    """Student encoder: forward(x (B, 3, H, W) in [-1, 1]) -> [(B, d_out, Hf, Wf)]."""
+    """Student encoder: forward(x (B, 3, H, W) in [-1, 1]) -> [(B, d_out, Hf, Wf)];
+    with `training=True` also the teacher (`forward(x, ground_truth=True)`),
+    `downsample` and `expand_dim`."""
 
-    def __init__(self, cfg: DinoModuleConfig):
+    def __init__(self, cfg: DinoModuleConfig, training: bool = False):
         super().__init__()
         if cfg.decoder_arch != "dpt":
             raise NotImplementedError(f"the port covers the DPT decoder, got {cfg.decoder_arch!r}")
@@ -115,12 +182,55 @@ class DinoModule(nn.Module):
         )
         self.decoder = DPTHead(self.vit_encoder.latent_size, tuple(cfg.num_ch_enc),
                                cfg.decoder_out_dim, cfg.dtype)
+        if not training:
+            return
+        unsupported = {
+            "mode": cfg.mode != "downsample-prediction",
+            "downsampler_arch": cfg.downsampler_arch != "featup",
+            "separate_gt_version": cfg.separate_gt_version is None,
+            "dim_reduction_arch": cfg.dim_reduction_arch != "mlp",
+            "encoder_freeze": cfg.encoder_freeze,
+            "flip_avg_gt": cfg.flip_avg_gt,
+        }
+        bad = [name for name, is_bad in unsupported.items() if is_bad]
+        if bad:
+            raise NotImplementedError(
+                f"the port trains the downsample-prediction featup configuration with a separate "
+                f"teacher and the MLP expansion; unsupported: {[(n, getattr(cfg, n)) for n in bad]}"
+            )
+        self.gt_encoder = DinoViTEncoder(
+            backbone=cfg.encoder_arch,
+            version=cfg.separate_gt_version,
+            intermediate_features=(),
+            key_features=cfg.key_features,
+            dtype=cfg.dtype,
+            vit_overrides=cfg.vit_overrides,
+        )
+        self.gt_encoder.requires_grad_(False)
+        self.downsampler = PatchSalienceDownsampler(self.gt_encoder.latent_size, self.gt_patch_size)
+        self.dim_reduction = MlpDimReduction(cfg.dino_pca_dim, self.vit_encoder.latent_size)
 
     @property
     def latent_size(self) -> int:
         return self.cfg.decoder_out_dim
 
-    def forward(self, x: torch.Tensor, fold_matrix: Optional[torch.Tensor] = None) -> List[torch.Tensor]:
+    @property
+    def gt_patch_size(self) -> int:
+        """External patch size of the teacher (8 for DINO v1)."""
+        return self.gt_encoder.vit.cfg.patch_size
+
+    def forward(self, x: torch.Tensor, ground_truth: bool = False,
+                fold_matrix: Optional[torch.Tensor] = None) -> List[torch.Tensor]:
+        if ground_truth:
+            if not hasattr(self, "gt_encoder"):
+                raise RuntimeError("the teacher exists only in a DinoModule built with training=True")
+            with torch.no_grad():
+                return [self.gt_encoder(x)[-1]]
         feats = self.vit_encoder(x)
         return self.decoder(feats, fold_matrix=fold_matrix)
 
+    def downsample(self, x: torch.Tensor, mode: str = "patch") -> torch.Tensor:
+        return self.downsampler(x, mode)
+
+    def expand_dim(self, features: torch.Tensor) -> torch.Tensor:
+        return self.dim_reduction(features)

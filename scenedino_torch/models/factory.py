@@ -20,9 +20,15 @@ def _dtype(value):
 
 
 def encoder_config_from_dict(conf: Dict[str, Any]) -> DinoModuleConfig:
-    """The student-path fields of an `encoder:` config block; the
-    training-only fields are not read."""
+    """An `encoder:` config block; the defaults are the reference's."""
     return DinoModuleConfig(
+        mode=conf.get("mode", "downsample-prediction"),
+        downsampler_arch=conf.get("downsampler_arch", "featup"),
+        separate_gt_version=conf.get("separate_gt_version", "v1"),
+        dim_reduction_arch=conf.get("dim_reduction_arch", "mlp"),
+        dino_pca_dim=conf.get("dino_pca_dim", 64),
+        encoder_freeze=conf.get("encoder_freeze", False),
+        flip_avg_gt=conf.get("flip_avg_gt", False),
         decoder_arch=conf.get("decoder_arch", "dpt"),
         encoder_arch=conf.get("encoder_arch", "vit-b"),
         version=conf.get("version", "v1"),
@@ -35,9 +41,12 @@ def encoder_config_from_dict(conf: Dict[str, Any]) -> DinoModuleConfig:
     )
 
 
-def make_model(conf: Dict[str, Any], device=None, seed: int = 0) -> SceneField:
+def make_model(conf: Dict[str, Any], device=None, seed: int = 0, training: bool = False) -> SceneField:
     """Build SceneField from a model config dict, with parameters drawn from
-    `seed`, in eval mode on `device` (CUDA unless "cpu" is asked for)."""
+    `seed`, on `device` (CUDA unless "cpu" is asked for). Serving models
+    (`training=False`, in eval mode) hold the student only; training
+    models also hold the frozen teacher, the downsampler and the
+    dimension reduction, drawn after the student's parameters."""
     device = resolve_device(device)
     enc_conf = conf.get("encoder", {})
     if enc_conf.get("type", "dino") not in ("dino", "dinov2"):
@@ -67,10 +76,10 @@ def make_model(conf: Dict[str, Any], device=None, seed: int = 0) -> SceneField:
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
         field = SceneField(
-            DinoModule(encoder_config_from_dict(enc_conf)), fcfg, head_confs,
+            DinoModule(encoder_config_from_dict(enc_conf), training=training), fcfg, head_confs,
             final_pred_head=conf.get("final_prediction_head", head_confs[0][0]),
         )
-    return field.to(device).eval()
+    return field.to(device).train(training)
 
 
 # The shipped SceneDINO flagship (configs/model/dino_downsampler.yaml)
@@ -102,4 +111,26 @@ SCENEDINO_KITTI_360 = {
         {"type": "resnet", "name": "normal_head", "args": {"n_blocks": 0, "d_hidden": 128}}
     ],
     "final_prediction_head": "normal_head",
+}
+
+
+# The shipped stage-1 recipe (configs/train_scenedino_kitti_360.yaml): the
+# model block with the artifact field on, and the blocks the training step
+# reads. Data paths and validation are not part of the step.
+SCENEDINO_KITTI_360_TRAIN = {
+    "seed": 0,
+    "with_amp": True,
+    "batch_size": 4,
+    "model": {**SCENEDINO_KITTI_360, "compensate_artifacts": True},
+    "renderer": {"n_coarse": 32, "n_fine": 0, "lindisp": True, "hard_alpha_cap": True},
+    "training": {
+        "optimizer": {"args": {"lr": 1.0e-4}},
+        "scheduler": {"step_size": 50000, "gamma": 0.1},
+        "ray_sampler": {
+            "z_near": 3,
+            "z_far": 80,
+            "sample_mode": "patch",
+            "args": {"patch_size": 8, "ray_batch_size": 2048, "snap_to_grid": True, "dino_upscaled": False},
+        },
+    },
 }

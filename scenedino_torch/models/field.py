@@ -1,9 +1,16 @@
 """SceneField: encoder + positional code + field head (counterpart of
-`scenedino_tpu/models/field.py`), inference encode only.
+`scenedino_tpu/models/field.py`).
 
 `encode` runs the image encoder once and returns a `SceneState` of
-per-view feature grids, colour images and cameras; the serving path
-(ops/fast_field.py) folds the head into that state.
+per-view feature grids, colour images and cameras (and, for training, the
+frozen teacher's loss features). The serving path (ops/fast_field.py)
+folds the head into that state; training queries the field directly:
+`forward(state, xyz)` projects world points into the encode views,
+samples pixel-aligned features, appends the positional code, runs the
+head, and samples the render views' colours.
+
+`encode` builds an autograd graph like any module call; serving callers
+wrap their request in `torch.inference_mode()`.
 """
 from __future__ import annotations
 
@@ -11,16 +18,18 @@ import dataclasses
 from typing import Any, Optional, Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
-from scenedino_torch.core import encoding
+from scenedino_torch.core import cameras, encoding, grid_sample
 from scenedino_torch.models.heads import make_head
 
 
 @dataclasses.dataclass
 class SceneState:
     """feat_grid (B, Ve, C, Hf, Wf); color_imgs (B, Vr, 3, H, W) in [0, 1];
-    ks normalized intrinsics (B, V, 3, 3); poses world->camera (B, V, 4, 4)."""
+    ks normalized intrinsics (B, V, 3, 3); poses world->camera (B, V, 4, 4);
+    loss_feats the teacher's maps (B, Vl, Cd, Gh, Gw), or None."""
 
     feat_grid: torch.Tensor
     feat_ks: torch.Tensor
@@ -28,6 +37,7 @@ class SceneState:
     color_imgs: torch.Tensor
     color_ks: torch.Tensor
     color_w2c: torch.Tensor
+    loss_feats: Optional[torch.Tensor] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,6 +72,15 @@ class FieldConfig:
 _DEFAULT_HEADS = (("normal_head", {"type": "resnet", "args": {"n_blocks": 0, "d_hidden": 128}}),)
 
 
+def shift_pad_crop(imgs: torch.Tensor, shift: Tuple[int, int], pad: int = 8) -> torch.Tensor:
+    """Edge-pad by `pad`, then crop at offset (pad + shift): the DINO
+    patch-grid shift augmentation (field.py:380-389). imgs (B, V, C, H, W)."""
+    B, V, C, H, W = imgs.shape
+    x = F.pad(imgs.reshape(B * V, C, H, W), (pad, pad, pad, pad), mode="replicate")
+    i, j = pad + int(shift[0]), pad + int(shift[1])
+    return x[:, :, i:i + H, j:j + W].reshape(B, V, C, H, W)
+
+
 class SceneField(nn.Module):
     """Encoder + field heads (`heads.<name>` like the reference's `heads_<name>`)."""
 
@@ -79,23 +98,37 @@ class SceneField(nn.Module):
             {name: make_head(dict(conf), d_in, cfg.d_out) for name, conf in head_confs}
         )
 
-    @torch.no_grad()
     def encode(self, images: torch.Tensor, ks: torch.Tensor, poses_c2w: torch.Tensor,
                ids_encoder: Optional[Sequence[int]] = None,
-               ids_render: Optional[Sequence[int]] = None) -> SceneState:
+               ids_render: Optional[Sequence[int]] = None,
+               ids_loss: Optional[Sequence[int]] = None,
+               with_loss_feats: bool = False,
+               loss_feature_grid_shift: Optional[Tuple[int, int]] = None,
+               flip: bool = False) -> SceneState:
         """images (B, V, 3, H, W) in [-1, 1]; ks (B, V, 3, 3); poses_c2w (B, V, 4, 4).
 
-        The encoder sees the `ids_encoder` views (all by default); the colour
-        views are `ids_render` (all by default). Poses are inverted to
-        world->camera in fp32.
+        The student sees the `ids_encoder` views (all by default); the colour
+        views are `ids_render` and the teacher's are `ids_loss` (all by
+        default). `flip` (the augmentation coin, an explicit input) mirrors
+        the student's input images and un-mirrors its feature grid; the
+        teacher's images are shifted by `loss_feature_grid_shift` and never
+        flipped. Poses are inverted to world->camera in fp32.
         """
         B, V = images.shape[:2]
-        ids_encoder = list(ids_encoder) if ids_encoder is not None else list(range(V))
-        ids_render = list(ids_render) if ids_render is not None else list(range(V))
+        all_ids = list(range(V))
+        ids_encoder = list(ids_encoder) if ids_encoder is not None else all_ids
+        ids_render = list(ids_render) if ids_render is not None else all_ids
+        ids_loss = list(ids_loss) if ids_loss is not None else all_ids
         poses_w2c = torch.linalg.inv(poses_c2w.float())
         imgs_enc = images[:, ids_encoder]
         ne = imgs_enc.shape[1]
+        if flip:
+            imgs_enc = imgs_enc.flip(-1)
         feats = self.encoder(imgs_enc.reshape(B * ne, *imgs_enc.shape[2:]))[0]
+        if flip:
+            feats = feats.flip(-1)
+
+        loss_feats = self.loss_features(images, ids_loss, loss_feature_grid_shift) if with_loss_feats else None
         return SceneState(
             feat_grid=feats.reshape(B, ne, *feats.shape[1:]),
             feat_ks=ks[:, ids_encoder],
@@ -103,4 +136,61 @@ class SceneField(nn.Module):
             color_imgs=images[:, ids_render] * 0.5 + 0.5,
             color_ks=ks[:, ids_render],
             color_w2c=poses_w2c[:, ids_render],
+            loss_feats=loss_feats,
         )
+
+    def loss_features(self, images: torch.Tensor, ids_loss: Sequence[int],
+                      shift: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+        """The frozen teacher's feature maps of the `ids_loss` views, the
+        images shifted by `shift` first: (B, Vl, Cd, Gh, Gw), no graph."""
+        imgs = images[:, list(ids_loss)]
+        if shift is not None:
+            imgs = shift_pad_crop(imgs, shift)
+        B, nl = imgs.shape[:2]
+        lf = self.encoder(imgs.reshape(B * nl, *imgs.shape[2:]), ground_truth=True)[0]
+        return lf.reshape(B, nl, *lf.shape[1:])
+
+    def sample_features(self, state: SceneState, xyz: torch.Tensor):
+        """xyz (B, P, 3) -> (features (B, P, V, C + code) fp32, invalid (B, P, V) bool)."""
+        cfg = self.cfg
+        xy, z, dist, invalid = cameras.project_points(xyz, state.feat_w2c, state.feat_ks)
+        coords = encoding.encode_coords(xy, z, dist, cfg.z_near, cfg.z_far, mode=cfg.code_mode, inv_z=cfg.inv_z)
+        code = encoding.positional_encoding(coords, cfg.num_freqs, cfg.freq_factor, cfg.include_input)
+        sampled = grid_sample.grid_sample_views(state.feat_grid, xy)  # (B, V, P, C)
+        feats = torch.cat([sampled, code.to(sampled.dtype)], -1)
+        return feats.transpose(1, 2), invalid[..., 0].transpose(1, 2)
+
+    def sample_colors(self, state: SceneState, xyz: torch.Tensor):
+        """Colours of world points in the render views: (colors (B, Vr, P, 3),
+        invalid (B, Vr, P, 1))."""
+        xy, _, _, invalid = cameras.project_points(xyz, state.color_w2c, state.color_ks)
+        return grid_sample.grid_sample_views(state.color_imgs, xy), invalid
+
+    def forward(self, state: SceneState, xyz: torch.Tensor, only_density: bool = False):
+        """Field query: xyz (B, P, 3) -> (rgb (B, P, Vr*3) or None,
+        invalid (B, P, Vr) fp32, sigma (B, P) fp32, dino (B, P, dino_dims))."""
+        if self.cfg.learn_empty or not (self.cfg.sample_color and self.cfg.predict_dino):
+            raise NotImplementedError("the port's field query samples colours and predicts DINO features, "
+                                      "without a learned empty feature")
+        feats, invalid_features = self.sample_features(state, xyz)
+        mlp_out = self.heads[self.final_pred_head](feats)
+        B, P = xyz.shape[:2]
+        mlp_out = mlp_out.reshape(B, P, -1, mlp_out.shape[-1]).mean(2)
+        sigma = F.softplus(mlp_out[..., 0].float())
+        dino = mlp_out[..., 1:]
+        if only_density:
+            return None, invalid_features.float(), sigma, dino
+        colors, invalid_colors = self.sample_colors(state, xyz)
+        Vr = colors.shape[1]
+        rgb = colors.transpose(1, 2).reshape(B, P, Vr * colors.shape[-1])
+        inv_c = invalid_colors[..., 0].transpose(1, 2)  # (B, P, Vr)
+        invalid = (inv_c | invalid_features.all(-1, keepdim=True)).to(rgb.dtype)
+        return rgb, invalid, sigma, dino
+
+    def expand_dim(self, features: torch.Tensor) -> torch.Tensor:
+        """64-d field feature -> 768-d DINO space."""
+        return self.encoder.expand_dim(features)
+
+    def downsample(self, features: torch.Tensor, mode: str = "patch") -> torch.Tensor:
+        """Pool rendered pixel features back to the teacher's patch grid."""
+        return self.encoder.downsample(features, mode)

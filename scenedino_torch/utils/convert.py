@@ -12,9 +12,11 @@ as in tests/goldens/s1b_field_params.npz). Layouts:
 
 Module paths keep the JAX names except `VisionTransformer_0` -> `vit`,
 `blocks_<i>` -> `blocks.<i>` and `heads_<name>` -> `heads.<name>`.
-The mapping is strict: every leaf maps to one port tensor, except the
-training-only subtrees in TRAINING_ONLY, which are skipped and returned
-by name.
+The mapping is strict: every leaf maps to one port tensor. A serving
+model holds no training-only subtree (TRAINING_ONLY: the frozen teacher,
+the FeatUp downsampler, the 64 -> 768 expansion); `load_jax_params`
+skips those subtrees for it and returns them by name. The artifact field
+of a train state is an array beside the tree (`artifact_from_jax`).
 """
 from __future__ import annotations
 
@@ -25,7 +27,7 @@ import numpy as np
 import torch
 
 # used by training only (frozen teacher, feature downsampler, 64 -> 768
-# expansion); the serving path does not build them
+# expansion); a serving model does not build them
 TRAINING_ONLY = ("encoder/gt_encoder", "encoder/downsampler", "encoder/dim_reduction")
 
 
@@ -75,9 +77,9 @@ def _torch_value(path: str, value: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(np.array(value, dtype=np.float32, order="C"))
 
 
-def from_jax_params(params: Mapping, skip=TRAINING_ONLY) -> Tuple[Dict[str, torch.Tensor], List[str]]:
+def from_jax_params(params: Mapping, skip=()) -> Tuple[Dict[str, torch.Tensor], List[str]]:
     """Returns (state_dict, skipped): the port's tensors by name, and the
-    JAX leaf paths of the skipped training-only subtrees."""
+    JAX leaf paths under the `skip` subtrees."""
     state: Dict[str, torch.Tensor] = {}
     skipped: List[str] = []
     for path, value in sorted(flatten_params(params).items()):
@@ -91,10 +93,20 @@ def from_jax_params(params: Mapping, skip=TRAINING_ONLY) -> Tuple[Dict[str, torc
     return state, skipped
 
 
-def load_jax_params(module: torch.nn.Module, params: Mapping, skip=TRAINING_ONLY) -> List[str]:
+def load_jax_params(module: torch.nn.Module, params: Mapping, skip=None) -> List[str]:
     """Load a JAX tree into `module`, strictly: every mapped leaf must be a
     tensor of the module and every tensor of the module must be given.
+    `skip=None` skips the TRAINING_ONLY subtrees the module does not hold
+    (all of them for a serving model, none for a training model).
     Returns the skipped leaf paths."""
+    if skip is None:
+        names = {name for name, _ in module.named_modules()}
+        skip = tuple(p for p in TRAINING_ONLY if p.replace("/", ".") not in names)
     state, skipped = from_jax_params(params, skip)
     module.load_state_dict(state, strict=True)
     return skipped
+
+
+def artifact_from_jax(artifact_field) -> torch.Tensor:
+    """A train state's artifact field (Cd, Gh, Gw): same layout, fp32."""
+    return torch.from_numpy(np.array(artifact_field, dtype=np.float32, order="C"))

@@ -15,11 +15,13 @@ import torch.nn.functional as F
 from scenedino_tpu.core import cameras as jcam
 from scenedino_tpu.core import compositing as jcomp
 from scenedino_tpu.core import encoding as jenc
+from scenedino_tpu.core import grid_sample as jgs
+from scenedino_tpu.core import ray_sampler as jrs
 from scenedino_tpu.core import rays as jrays
 from scenedino_tpu.core import safe_normalize as j_safe_normalize
 from scenedino_tpu.core import sampling as jsamp
 from scenedino_tpu.core.resize import torch_interpolate
-from scenedino_torch.core import cameras, compositing, encoding, rays, safe_normalize, sampling
+from scenedino_torch.core import cameras, compositing, encoding, grid_sample, ray_sampler, rays, safe_normalize, sampling
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 
@@ -165,3 +167,89 @@ def test_f_interpolate_matches_the_references_twin(mode, size):
     ref = torch_interpolate(jnp.asarray(x), size, mode=mode)
     out = F.interpolate(_t(x).permute(0, 3, 1, 2), size=size, mode=mode, align_corners=False, antialias=False)
     np.testing.assert_allclose(out.permute(0, 2, 3, 1).numpy(), np.asarray(ref), **TOL)
+
+
+def test_alpha_composite_gradient_at_zero_sigma_is_the_references():
+    """sigma exactly 0 (a softplus that underflowed in fp32) sits on the tie
+    of max(sigma, 0): JAX gives each side half the gradient, and so must
+    the port (`torch.clamp` passed all of it: [0.236, 0.236, 0.236, 0.236]
+    against the reference's [0.118, 0.236, 0.118, 0.236])."""
+    sigma = np.array([0.0, 0.3, 0.0, 1.2], np.float32)
+    delta = np.full(4, 0.5, np.float32)
+    coeff = np.arange(1, 5, dtype=np.float32)
+
+    def jloss(s):
+        w, a = jcomp.alpha_composite(s, jnp.asarray(delta), hard_alpha_cap=False)
+        return jnp.sum(w * coeff) + jnp.sum(a)
+
+    ref = np.asarray(jax.grad(jloss)(jnp.asarray(sigma)))
+    st = _t(sigma).requires_grad_(True)
+    w, a = compositing.alpha_composite(st, _t(delta), hard_alpha_cap=False)
+    (torch.sum(w * _t(coeff)) + torch.sum(a)).backward()
+    np.testing.assert_allclose(st.grad.numpy(), ref, **TOL)
+    # the old form gives the tie the whole gradient: twice the reference's
+    sc = _t(sigma).requires_grad_(True)
+    alphas = 1.0 - torch.exp(-_t(delta) * torch.clamp_min(sc, 0.0))
+    shifted = torch.cat([torch.ones(1), torch.clamp_min(1.0 - alphas[:-1], 1e-10)])
+    (torch.sum(alphas * torch.cumprod(shifted, 0) * _t(coeff)) + torch.sum(alphas)).backward()
+    np.testing.assert_allclose(sc.grad.numpy()[[0, 2]], 2 * ref[[0, 2]], **TOL)
+    assert ref[0] != 0.0
+
+
+def test_project_points_matches_reference():
+    rng = np.random.default_rng(7)
+    pts = (rng.normal(size=(2, 50, 3)) * [3, 1, 10] + [0, 0, 8]).astype(np.float32)
+    w2c = np.stack([np.stack([_pose(rng, 0.2, 0.5) for _ in range(3)]) for _ in range(2)])
+    ks = np.broadcast_to(K_NDC, (2, 3, 3, 3)).copy()
+    ref = jcam.project_points(jnp.asarray(pts), jnp.asarray(w2c), jnp.asarray(ks))
+    out = cameras.project_points(_t(pts), _t(w2c), _t(ks))
+    for o, r, name in zip(out, ref, ("xy", "z", "distance", "invalid")):
+        if name == "invalid":
+            np.testing.assert_array_equal(o.numpy(), np.asarray(r))
+        else:
+            np.testing.assert_allclose(o.numpy(), np.asarray(r), err_msg=name, atol=1e-4, rtol=1e-5)
+    assert 0 < int(np.asarray(ref[3]).sum()) < ref[3].size  # both inside and outside points
+
+
+@pytest.mark.parametrize("mode", ["bilinear", "nearest"])
+def test_grid_sample_views_matches_reference(mode):
+    """Including points past the border (clamped) and exact pixel-centre ties."""
+    rng = np.random.default_rng(8)
+    feats = rng.normal(size=(2, 3, 5, 6, 9)).astype(np.float32)
+    xy = rng.uniform(-1.3, 1.3, size=(2, 3, 40, 2)).astype(np.float32)
+    xy[0, 0, :9, 0] = (np.arange(9) + 0.5) / 9 * 2 - 1  # pixel centres
+    xy[0, 0, :9, 1] = (np.arange(9) % 6) / 6 * 2 - 1  # pixel edges (nearest ties)
+    ref = jgs.grid_sample_views(jnp.asarray(feats), jnp.asarray(xy), mode=mode)
+    out = grid_sample.grid_sample_views(_t(feats), _t(xy), mode=mode)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
+
+
+@pytest.mark.parametrize("shift", [None, (-3, 2), (0, -4)])
+def test_patch_ray_sampler_matches_reference_on_the_same_picks(shift):
+    """The same key on the JAX side and the picks it draws
+    (ray_sampler.py:79-89) handed to the port."""
+    rng = np.random.default_rng(9)
+    B, V, H, W, P, R = 2, 2, 32, 48, 8, 128
+    imgs = rng.uniform(size=(B, V, 3, H, W)).astype(np.float32)
+    poses = np.stack([np.stack([_pose(rng, 0.1, 0.3) for _ in range(V)]) for _ in range(B)])
+    ks = np.broadcast_to(K_NDC, (B, V, 3, 3)).copy()
+    dino = rng.normal(size=(B, V, 5, H // P, W // P)).astype(np.float32)
+    key = jax.random.PRNGKey(4)
+    jshift = None if shift is None else jnp.asarray(shift)
+    jsampler = jrs.PatchRaySampler(3.0, 80.0, ray_batch_size=R, patch_size=P)
+    ref = jsampler.sample(key, jnp.asarray(imgs), jnp.asarray(poses), jnp.asarray(ks),
+                          frame_ids=jnp.asarray([1.0, 2.0]), dino_features=jnp.asarray(dino), grid_shift=jshift)
+    k_v, k_y, k_x = jax.random.split(key, 3)
+    s = int(shift is not None)
+    picks = [torch.from_numpy(np.asarray(jax.random.randint(k, (B, R // P ** 2), 0, hi)).astype(np.int64))
+             for k, hi in ((k_v, V), (k_y, H // P - s), (k_x, W // P - s))]
+    sampler = ray_sampler.PatchRaySampler(3.0, 80.0, ray_batch_size=R, patch_size=P)
+    out = sampler.sample(_t(imgs), _t(poses), _t(ks), *picks, frame_ids=_t([1.0, 2.0]),
+                         dino_features=_t(dino), grid_shift=shift)
+    for o, r, name in zip(out, ref, ("rays", "rgb_gt", "dino_gt")):
+        np.testing.assert_allclose(o.numpy(), np.asarray(r), err_msg=name, **TOL)
+    np.testing.assert_array_equal(sampler.reconstruct(out[1]).numpy(),
+                                  np.asarray(jsampler.reconstruct(ref[1])))
+    drawn = sampler.draw(B, V, H, W, shift is not None, torch.Generator().manual_seed(0))
+    for d, hi in zip(drawn, (V, H // P - s, W // P - s)):
+        assert d.shape == (B, R // P ** 2) and 0 <= int(d.min()) and int(d.max()) < hi

@@ -178,7 +178,8 @@ def test_whole_slice_on_the_trained_s1b_fixture(s1b):
     model = make_model(config["model"], device="cpu")
     skipped = load_jax_params(model, flat)
     assert skipped and all(any(s.startswith(p + "/") for p in TRAINING_ONLY) for s in skipped)
-    state = model.encode(_t(imgs), _t(projs), _t(poses), ids_encoder=(0,))
+    with torch.inference_mode():  # a serving request builds no graph
+        state = model.encode(_t(imgs), _t(projs), _t(poses), ids_encoder=(0,))
     _assert_fp32_close(state.feat_grid, jstate.feat_grid)
     fs = build_fast_state(model, state, compute_dtype=torch.float32)
     _assert_fp32_close(fs.folded_grid, jfs.folded_grid)

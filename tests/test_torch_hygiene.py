@@ -14,7 +14,7 @@ import pytest
 import torch
 
 from scenedino_torch.models.factory import SCENEDINO_KITTI_360, make_model
-from scenedino_torch.utils.convert import TRAINING_ONLY, flatten_params, from_jax_params
+from scenedino_torch.utils.convert import TRAINING_ONLY, flatten_params, from_jax_params, load_jax_params
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "scenedino_tpu")
@@ -42,7 +42,9 @@ def test_port_imports_nothing_of_jax(path):
 def test_the_scan_sees_the_whole_package():
     names = {str(p.relative_to(ROOT)) for p in SOURCES}
     assert {"chip_smoke.py", "scenedino_torch/kernels/attention.py",
-            "scenedino_torch/ops/fast_field.py", "scenedino_torch/utils/convert.py"} <= names
+            "scenedino_torch/ops/fast_field.py", "scenedino_torch/utils/convert.py",
+            "scenedino_torch/training/trainer.py", "scenedino_torch/renderer/nerf.py",
+            "scenedino_torch/losses/reconstruction.py"} <= names
 
 
 def test_entry_point_without_a_device_refuses_the_cpu():
@@ -53,17 +55,30 @@ def test_entry_point_without_a_device_refuses_the_cpu():
 
 
 def test_converter_consumes_every_leaf_of_the_s1b_fixture():
+    """Every leaf maps to one tensor, the training-only subtrees too: a
+    training model takes the whole tree strictly, a serving model skips
+    exactly the TRAINING_ONLY subtrees, all of each."""
+    import yaml
+
     npz = np.load(ROOT / "tests" / "goldens" / "s1b_field_params.npz")
     flat = {k: npz[k] for k in npz.files}
     state, skipped = from_jax_params(flat)
     leaves = flatten_params(flat)
-    assert len(state) + len(skipped) == len(leaves) == len(flat)
-    # only the documented training-only subtrees are skipped, all of each
+    assert not skipped and len(state) == len(leaves) == len(flat)
+    conf = yaml.safe_load((ROOT / "configs" / "train_synthetic_convergence.yaml").read_text())["model"]
+    assert load_jax_params(make_model(conf, device="cpu", training=True), flat) == []
+    serving_skipped = load_jax_params(make_model(conf, device="cpu"), flat)
     for path in leaves:
         training_only = any(path.startswith(p + "/") for p in TRAINING_ONLY)
-        assert (path in skipped) == training_only, path
-    assert {p.split("/")[1] for p in skipped} == {"gt_encoder", "downsampler", "dim_reduction"}
+        assert (path in serving_skipped) == training_only, path
+    assert {p.split("/")[1] for p in serving_skipped} == {"gt_encoder", "downsampler", "dim_reduction"}
     # Dense kernels arrive transposed, conv kernels as OIHW, LN scale as weight
     assert state["heads.normal_head.lin_in.weight"].shape == (64, 71)
     assert state["encoder.decoder.conv_0.weight"].shape == (32, 16, 3, 3)
     assert "encoder.vit_encoder.vit.blocks.0.norm1.weight" in state
+    # the training-only subtrees, in the same layouts
+    assert state["encoder.gt_encoder.vit.blocks.2.attn.qkv.weight"].shape == (192, 64)
+    assert state["encoder.downsampler.salience_conv.weight"].shape == (1, 64, 1, 1)
+    assert state["encoder.downsampler.patch_weight"].shape == (8, 8)
+    assert state["encoder.dim_reduction.linear_in.weight"].shape == (128, 16)
+    assert state["encoder.dim_reduction.linear_out.weight"].shape == (64, 128)

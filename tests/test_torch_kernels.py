@@ -1,14 +1,20 @@
 """The port's hand-written kernels against their plain PyTorch versions on
 the card, at shapes beyond the main path's: ragged token counts, other
 sample counts and widths, both code modes, rays that leave the encode
-view. The `cuda` tests skip without a card; on one, run them with
+view; and the attention backward kernels against the plain backward.
+The `cuda` tests skip without a card; on one, run them with
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels.py
 
 (`--noconftest` because the suite's conftest imports JAX). This file
 imports no JAX. Bounds are those of chip_smoke.py and the same reasons:
 K1 2e-2 (bf16 output, P rounded to bf16 for P @ V); K2 depth 5e-2 m,
-feature and colour 5e-3 (bf16 rounding flips of the hidden layer).
+feature and colour 5e-3 (bf16 rounding flips of the hidden layer); the
+log-sum-exp 1e-3 (fp32 statistics of bf16 inputs, summed in another
+order); the backward's dq, dk, dv K1_BWD_REL of the largest magnitude of
+the plain result plus 1e-3 (P and dS are rounded to bf16 for the
+products, the results to bf16; at N = 1 dq and dk are round-off around
+0).
 """
 import numpy as np
 import pytest
@@ -17,8 +23,17 @@ import torch
 from scenedino_torch.core import rays as rays_mod
 from scenedino_torch.core.sampling import sample_coarse
 from scenedino_torch.kernels import build, launches, reset_launches
-from scenedino_torch.kernels.attention import attention, attention_plain
+from scenedino_torch.kernels.attention import (
+    attention,
+    attention_bwd_plain,
+    attention_fwd,
+    attention_lse_plain,
+    attention_plain,
+)
 from scenedino_torch.kernels.point_render import PointRenderConfig, point_render, point_render_plain
+
+
+K1_BWD_REL = 2e-2
 
 
 @pytest.fixture
@@ -31,7 +46,7 @@ def cuda():
 
 def test_build_targets_hopper_and_keys_libraries_by_source():
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
-    for name in ("attention", "point_render"):
+    for name in ("attention", "attention_bwd", "point_render"):
         path = build.library_path(name)
         assert path.parent == build.BUILD_DIR and path.name.startswith(f"lib{name}-")
         assert (build.CSRC / f"{name}.cu").exists()
@@ -41,7 +56,9 @@ def test_launch_counters_reset_and_ignore_cpu_calls():
     reset_launches()
     q = torch.randn(1, 5, 2, 64)
     attention(q, q, q)
-    assert launches() == {"attention": 0, "point_render": 0}
+    q.requires_grad_(True)
+    attention(q, q, q).sum().backward()
+    assert launches() == {"attention": 0, "attention_bwd_dq": 0, "attention_bwd_dkv": 0, "point_render": 0}
 
 
 @pytest.mark.cuda
@@ -64,6 +81,32 @@ def test_attention_kernel_refuses_what_it_does_not_take(cuda):
     for q in (q80, q32, qnc):
         with pytest.raises(ValueError):
             attention(q, q, q)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 63, 64, 65, 200])
+def test_attention_backward_kernels_match_plain(cuda, n):
+    g = torch.Generator(device=cuda).manual_seed(100 + n)
+    q, k, v, do = (torch.randn(2, n, 3, 64, generator=g, device=cuda).to(torch.bfloat16) for _ in range(4))
+    out, lse = attention_fwd(q, k, v, with_lse=True)
+    assert (lse - attention_lse_plain(q, k)).abs().max().item() <= 1e-3
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    before = launches()
+    attention(*leaves).backward(do)
+    torch.cuda.synchronize()
+    after = launches()
+    assert after["attention_bwd_dq"] == before["attention_bwd_dq"] + 1
+    assert after["attention_bwd_dkv"] == before["attention_bwd_dkv"] + 1
+    for got, ref in zip((t.grad for t in leaves), attention_bwd_plain(q, k, v, out, do, lse)):
+        assert torch.isfinite(got).all()
+        err = (got.float() - ref.float()).abs().max().item()
+        assert err <= K1_BWD_REL * ref.float().abs().max().item() + 1e-3, err
+
+
+@pytest.mark.cuda
+def test_attention_forward_result_does_not_depend_on_the_lse(cuda):
+    q, k, v = (torch.randn(1, 130, 2, 64, device=cuda).to(torch.bfloat16) for _ in range(3))
+    assert torch.equal(attention_fwd(q, k, v)[0], attention_fwd(q, k, v, with_lse=True)[0])
 
 
 def _pose(angle, shift):
