@@ -1,16 +1,19 @@
 """SceneDINO in PyTorch for NVIDIA Hopper.
 
 A port of the JAX package `scenedino_tpu` (the reference, which stays in
-the repository unchanged). It covers two paths:
+the repository unchanged). It covers these paths:
 
     serving:  models.factory.make_model -> SceneField.encode (DINO ViT + DPT)
-              -> ops.fast_field.build_fast_state -> ops.fast_field.render_novel_view_fused
+              -> ops.fast_field.build_fast_state -> ops.fast_field.render_novel_view_fused,
+              or ops.fast_field.encode_prefolded -> render_novel_view_probe,
+              fast_query_fused (the SSCBench voxel query) or render_encode_view
     training: models.factory.make_model(training=True)
               -> training.trainer.make_train_step (the stage-1 step)
 
 Hand-written CUDA kernels carry them (`kernels/`, sources in `csrc/`):
-the ViT attention forward and its backward (dq; dk and dv), and the
-fused point render of serving. Entry points run on the GPU unless the
+the ViT attention forward and its backward (dq; dk and dv), the fused
+point pipeline of serving in three output modes (render, probe, query),
+and a row gather. Entry points run on the GPU unless the
 caller asks for the CPU with `device="cpu"`; on the CPU every kernel
 wrapper takes its plain PyTorch version.
 """

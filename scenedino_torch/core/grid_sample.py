@@ -1,5 +1,5 @@
 """Bilinear / nearest NDC sampling of per-view maps (counterpart of
-`scenedino_tpu/core/grid_sample.py:27-98`).
+`scenedino_tpu/core/grid_sample.py:27-98`), channels first and last.
 
 The reference reimplements `F.grid_sample(align_corners=False,
 padding_mode="border")` as four gathers; here it is that call. The map is
@@ -28,3 +28,9 @@ def grid_sample_views(feats: torch.Tensor, xy: torch.Tensor, mode: str = "biline
     out = F.grid_sample(feats.reshape(B * V, C, H, W).float(), grid, mode=mode,
                         padding_mode="border", align_corners=False)
     return out[:, :, 0].transpose(1, 2).reshape(B, V, -1, C)
+
+
+def grid_sample_views_hwc(feats: torch.Tensor, xy: torch.Tensor, mode: str = "bilinear") -> torch.Tensor:
+    """Channels-last `grid_sample_views` (reference :87): feats (B, V, H, W, C);
+    xy (B, V, P, 2) NDC. Returns (B, V, P, C) fp32."""
+    return grid_sample_views(feats.permute(0, 1, 4, 2, 3), xy, mode)

@@ -1,10 +1,21 @@
-// Fused point query + volume compositing for the novel-view renderer.
+// Fused point query of the folded field, in three output modes that share
+// one per-point pipeline (projection, code, 4-corner gather, both head
+// products):
 //
-// Replaces: scenedino_tpu/ops/fast_field.py:825 `_make_point_eval` and
-// :927 `_fused_rows_body`, the XLA-fused `lax.map` body of
-// `render_novel_view_fused` (:532). The TPU build could not write it in
-// Pallas (Mosaic cannot lower a gather), so it had no TPU kernel; on
-// Hopper it is one kernel.
+//   K2 `point_render`: volume compositing for the novel-view renderer.
+//     Replaces scenedino_tpu/ops/fast_field.py:825 `_make_point_eval` and
+//     :927 `_fused_rows_body`, the XLA-fused `lax.map` body of
+//     `render_novel_view_fused` (:532).
+//   K3 `probe_weights`: the sigma-only probe of the probe-guided render.
+//     Replaces `_probe_weights_body` (:792), driven by
+//     `render_novel_view_probe` (:750-761): only the density column of W2,
+//     and the compositing weights (R, K) are the output.
+//   K4 `point_query`: the voxel query, no compositing. Replaces
+//     `fast_query_fused` (:990) over `_make_point_eval` (:856-922): per
+//     point sigma = softplus(out[0]) and the feature out[1:].
+//
+// The TPU build could not write these in Pallas (Mosaic cannot lower a
+// gather), so they had no TPU kernel; on Hopper each is one kernel.
 //
 // Per ray (origin o, unit direction d) and per sample depth z_k:
 //   p = o + z_k d, projected into the encode camera (NDC clamped to +-2);
@@ -14,10 +25,13 @@
 //   h = bf16(relu(g + code @ W_code + b1)), out = h @ W2 + b2 (fp32 sums);
 //   sigma = softplus(out[0]);
 // then along the K samples: alpha compositing with the max(1-a, 1e-10)
-// floor and the optional hard cap on the last sample, depth = E[z], the
-// weighted feature out[1:], and the weighted colour from a second
-// projection into the colour camera (bilinear, weights collapsed where
-// the clamped corners coincide). Only per-ray outputs reach memory.
+// floor and the optional hard cap on the last sample, depth = E[z] or the
+// weight median (the first sample whose normalized weight CDF reaches
+// 0.5, clamped; scenedino_tpu/core/compositing.py:61-78), the weighted
+// feature out[1:], and the weighted colour from a second projection into
+// the colour camera (bilinear, weights collapsed where the clamped corners
+// coincide). Only per-ray outputs reach memory. K3 stops at the weights,
+// K4 at the head output, and neither projects into the colour camera.
 //
 // Bound on the H100 at the flagship shape (122,880 rays x 32 samples,
 // 384x1280x128 bf16 grid, W_code 39x128, W2 128x65): the two products are
@@ -25,7 +39,11 @@
 // 989 TFLOP/s bf16 tensor-core peak; the grid is 126 MB, about 38 us at
 // 3.35 TB/s if read once. So it is bound by operations at peak, but the
 // four gathers per point (1 KB of grid rows each, mostly from L2) and the
-// fp32 blend on the CUDA cores sit in front of that.
+// fp32 blend on the CUDA cores sit in front of that. K3 at the probe
+// shape (7,680 rays x 16 samples, one output column padded to 16) is
+// bound by the 126 MB grid, about 38 us if read once. K4 at the SSCBench
+// grid (2,097,152 points, W2 128x65) is bound by bytes: the (P, 64) fp32
+// feature output alone is 537 MB, about 0.16 ms.
 //
 // Design: a block of 4 warps walks over tiles of 64 points (64/K rays).
 // The weights (W_code, W2, zero-padded to multiples of 16) sit in shared
@@ -34,7 +52,10 @@
 // tensor cores (WMMA, bf16 in, fp32 out) into a shared fp32 tile; the
 // threads then gather the corner rows as 16-byte loads, blend, add bias,
 // ReLU and round to bf16; the second product runs on the tensor cores
-// into the same fp32 tile; one warp per ray composites. Not yet used:
+// into the same fp32 tile; one warp per ray composites (K2, K3), or the
+// block writes the tile's head outputs with coalesced stores (K4, a tile
+// of 64 points with K = 1). The output mode is a template argument, so
+// the three kernels are compiled from one copy of the pipeline. Not yet used:
 // wgmma, TMA, overlap of the gathers with the products (later work).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -46,6 +67,8 @@ using namespace nvcuda;
 
 namespace {
 
+enum Mode { RENDER = 0, PROBE = 1, QUERY = 2 };
+
 constexpr int TP = 64;        // points per tile
 constexpr int THREADS = 128;  // 4 warps
 constexpr int NWARPS = THREADS / 32;
@@ -53,8 +76,8 @@ constexpr float EPS = 1e-3f;
 constexpr float HALF_PI = 1.57079637f;
 
 struct Params {
-  const float* rays;            // (R, 8)
-  const float* z;               // (R, K)
+  const float* rays;            // (R, 8); the points (R, 3) in QUERY
+  const float* z;               // (R, K); unused in QUERY
   const __nv_bfloat16* grid;    // (Hg, Wg, D)
   const __nv_bfloat16* w_code;  // (C, D)
   const float* b1;              // (D,)
@@ -62,14 +85,15 @@ struct Params {
   const float* b2;              // (E,)
   const float* feat_w2c;        // (4, 4)
   const float* feat_k;          // (3, 3)
-  const __nv_bfloat16* color;   // (Hc, Wc, 3)
-  const float* color_w2c;       // (4, 4)
-  const float* color_k;         // (3, 3)
-  float* depth;                 // (R,)
-  float* dino;                  // (R, E - 1)
-  float* rgb;                   // (R, 3)
+  const __nv_bfloat16* color;   // (Hc, Wc, 3); RENDER only
+  const float* color_w2c;       // (4, 4); RENDER only
+  const float* color_k;         // (3, 3); RENDER only
+  float* depth;                 // (R,) RENDER
+  float* dino;                  // (R, E - 1) RENDER, QUERY
+  float* rgb;                   // (R, 3) RENDER
+  float* out;                   // weights (R, K) PROBE; sigma (R,) QUERY
   int R, K, Hg, Wg, D, E, C, Hc, Wc;
-  int num_freqs, include_input, inv_z, code_distance, hard_cap;
+  int num_freqs, include_input, inv_z, code_distance, hard_cap, median;
   float zn_sub, zn_den, freq_factor;
 };
 
@@ -143,6 +167,7 @@ __device__ inline float to_pixel(float v, int n) {
 __device__ inline int clampi(int v, int lo, int hi) { return v < lo ? lo : (v > hi ? hi : v); }
 
 // one thread per point: code row, feature corners, colour sample, depth
+template <int MODE>
 __device__ void setup_point(const Params& P, const Layout& L, unsigned char* smem, int p,
                             int ray0, int rpt) {
   __nv_bfloat16* code = reinterpret_cast<__nv_bfloat16*>(smem + L.code) + p * L.ldc;
@@ -164,12 +189,18 @@ __device__ void setup_point(const Params& P, const Layout& L, unsigned char* sme
     s_z[p] = 0.f;
     return;
   }
-  const float* ray = P.rays + (size_t)r * 8;
-  const float zv = P.z[(size_t)r * P.K + k];
   float pt[3];
+  if (MODE == QUERY) {
 #pragma unroll
-  for (int i = 0; i < 3; ++i) pt[i] = __fadd_rn(ray[i], __fmul_rn(zv, ray[3 + i]));
-  s_z[p] = zv;
+    for (int i = 0; i < 3; ++i) pt[i] = P.rays[(size_t)r * 3 + i];
+    s_z[p] = 0.f;
+  } else {
+    const float* ray = P.rays + (size_t)r * 8;
+    const float zv = P.z[(size_t)r * P.K + k];
+#pragma unroll
+    for (int i = 0; i < 3; ++i) pt[i] = __fadd_rn(ray[i], __fmul_rn(zv, ray[3 + i]));
+    s_z[p] = zv;
+  }
 
   float x, y, zc, pc[3];
   project(fcam, pt, x, y, zc, pc);
@@ -199,6 +230,7 @@ __device__ void setup_point(const Params& P, const Layout& L, unsigned char* sme
   s_idx[p] = make_int4(y0 * P.Wg + x0, y0 * P.Wg + x1, y1 * P.Wg + x0, y1 * P.Wg + x1);
   s_wxy[p] = make_float2(__fsub_rn(px, fx0), __fsub_rn(py, fy0));
 
+  if (MODE != RENDER) return;
   // colour: second projection, bilinear with the border weight collapse
   float cx, cy, czc, cpc[3];
   project(ccam, pt, cx, cy, czc, cpc);
@@ -239,7 +271,10 @@ __device__ void tile_matmul(const __nv_bfloat16* A, int lda_, const __nv_bfloat1
   }
 }
 
-__global__ void __launch_bounds__(THREADS) point_render_kernel(const Params P) {
+__device__ inline float softplus(float x) { return fmaxf(x, 0.f) + log1pf(expf(-fabsf(x))); }
+
+template <int MODE>
+__global__ void __launch_bounds__(THREADS) point_kernel(const Params P) {
   extern __shared__ __align__(128) unsigned char smem[];
   const Layout L = make_layout(P.C, P.D, P.E);
   __nv_bfloat16* s_wc = reinterpret_cast<__nv_bfloat16*>(smem + L.wc);
@@ -269,7 +304,7 @@ __global__ void __launch_bounds__(THREADS) point_render_kernel(const Params P) {
   }
   for (int i = tid; i < L.DP; i += THREADS) s_b1[i] = i < P.D ? P.b1[i] : 0.f;
   for (int i = tid; i < L.EP; i += THREADS) s_b2[i] = i < P.E ? P.b2[i] : 0.f;
-  if (tid < 42) {
+  if (tid < (MODE == RENDER ? 42 : 21)) {
     const int cam = tid / 21, j = tid % 21;
     const float* w2c = cam ? P.color_w2c : P.feat_w2c;
     const float* kmat = cam ? P.color_k : P.feat_k;
@@ -281,7 +316,7 @@ __global__ void __launch_bounds__(THREADS) point_render_kernel(const Params P) {
   const int ntiles = (P.R + rpt - 1) / rpt;
   for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
     const int ray0 = tile * rpt;
-    if (tid < TP) setup_point(P, L, smem, tid, ray0, rpt);
+    if (tid < TP) setup_point<MODE>(P, L, smem, tid, ray0, rpt);
     __syncthreads();
 
     tile_matmul(s_code, L.ldc, s_wc, L.ldwc, s_acc, L.lda, L.DP, L.CP, warp);
@@ -322,6 +357,23 @@ __global__ void __launch_bounds__(THREADS) point_render_kernel(const Params P) {
     tile_matmul(s_h, L.ldh, s_w2, L.ldw2, s_acc, L.lda, L.EP, L.DP, warp);
     __syncthreads();
 
+    if (MODE == QUERY) {
+      // head outputs of the tile's points (K = 1): sigma and the feature row
+      for (int i = tid; i < TP * P.E; i += THREADS) {
+        const int p = i / P.E, e = i - p * P.E;
+        const int r = ray0 + p;
+        if (r >= P.R) continue;
+        const float x = s_acc[p * L.lda + e] + s_b2[e];
+        if (e == 0) {
+          P.out[r] = softplus(x);
+        } else {
+          P.dino[(size_t)r * (P.E - 1) + e - 1] = x;
+        }
+      }
+      __syncthreads();
+      continue;
+    }
+
     // compositing: one warp per ray
     for (int rl = warp; rl < rpt; rl += NWARPS) {
       const int r = ray0 + rl;
@@ -330,18 +382,32 @@ __global__ void __launch_bounds__(THREADS) point_render_kernel(const Params P) {
       if (lane == 0) {
         float T = 1.f, depth = 0.f;
         for (int k = 0; k < P.K; ++k) {
-          const float x = s_acc[(pb + k) * L.lda] + s_b2[0];
-          const float sigma = fmaxf(x, 0.f) + log1pf(expf(-fabsf(x)));
+          const float sigma = softplus(s_acc[(pb + k) * L.lda] + s_b2[0]);
           const float delta = k + 1 < P.K ? s_z[pb + k + 1] - s_z[pb + k] : 1e10f;
           float alpha = 1.f - expf(-fabsf(delta) * fmaxf(sigma, 0.f));
           if (P.hard_cap && k == P.K - 1) alpha = 1.f;
           const float w = alpha * T;
           s_wts[pb + k] = w;
+          if (MODE == PROBE) P.out[(size_t)r * P.K + k] = w;
           depth += w * s_z[pb + k];
           T *= fmaxf(1.f - alpha, 1e-10f);
         }
-        P.depth[r] = depth;
+        if (MODE == RENDER && P.median) {
+          // first sample whose normalized weight CDF reaches 0.5, clamped
+          float total = 0.f;
+          for (int k = 0; k < P.K; ++k) total += s_wts[pb + k];
+          const float den = fmaxf(total, 1e-10f);
+          float cdf = 0.f;
+          int idx = 0;
+          for (int k = 0; k < P.K; ++k) {
+            cdf += s_wts[pb + k];
+            if (__fdiv_rn(cdf, den) < 0.5f) ++idx;
+          }
+          depth = s_z[pb + (idx < P.K ? idx : P.K - 1)];
+        }
+        if (MODE == RENDER) P.depth[r] = depth;
       }
+      if (MODE != RENDER) continue;
       __syncwarp();
       for (int d = lane; d < P.E - 1; d += 32) {
         float acc = 0.f;
@@ -360,33 +426,11 @@ __global__ void __launch_bounds__(THREADS) point_render_kernel(const Params P) {
   }
 }
 
-}  // namespace
-
-// Pointers are device pointers on the current device; the wrapper checks
-// dtypes, shapes and contiguity. Returns a cudaError_t (0 = launched).
-extern "C" int point_render(
-    const void* rays, const void* z, const void* grid, const void* w_code, const void* b1,
-    const void* w2, const void* b2, const void* feat_w2c, const void* feat_k,
-    const void* color, const void* color_w2c, const void* color_k,
-    void* depth, void* dino, void* rgb,
-    int R, int K, int Hg, int Wg, int D, int E, int C, int Hc, int Wc,
-    int num_freqs, int include_input, int inv_z, int code_distance, int hard_cap,
-    float zn_sub, float zn_den, float freq_factor, void* stream) {
-  if (R <= 0 || K <= 0 || K > TP || D <= 0 || D > 128 || D % 8 || E < 2 || E > 128 ||
-      C <= 0 || C > 64 || C != 3 * (include_input ? 1 : 0) + 6 * num_freqs) {
-    return (int)cudaErrorInvalidValue;
-  }
-  Params P = {(const float*)rays, (const float*)z, (const __nv_bfloat16*)grid,
-              (const __nv_bfloat16*)w_code, (const float*)b1, (const __nv_bfloat16*)w2,
-              (const float*)b2, (const float*)feat_w2c, (const float*)feat_k,
-              (const __nv_bfloat16*)color, (const float*)color_w2c, (const float*)color_k,
-              (float*)depth, (float*)dino, (float*)rgb,
-              R, K, Hg, Wg, D, E, C, Hc, Wc,
-              num_freqs, include_input, inv_z, code_distance, hard_cap,
-              zn_sub, zn_den, freq_factor};
-  const Layout L = make_layout(C, D, E);
+template <int MODE>
+int launch(const Params& P, void* stream) {
+  const Layout L = make_layout(P.C, P.D, P.E);
   const int smem = (int)L.total;
-  cudaError_t err = cudaFuncSetAttribute(point_render_kernel,
+  cudaError_t err = cudaFuncSetAttribute(point_kernel<MODE>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   int dev = 0, sms = 0, per_sm = 0;
@@ -394,12 +438,78 @@ extern "C" int point_render(
   if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess) {
     return (int)err;
   }
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, point_render_kernel, THREADS, smem);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, point_kernel<MODE>, THREADS, smem);
   if (err != cudaSuccess) return (int)err;
-  const int rpt = TP / K;
-  const int ntiles = (R + rpt - 1) / rpt;
+  const int rpt = TP / P.K;
+  const int ntiles = (P.R + rpt - 1) / rpt;
   int blocks = (per_sm > 0 ? per_sm : 1) * sms;
   if (blocks > ntiles) blocks = ntiles;
-  point_render_kernel<<<blocks, THREADS, smem, (cudaStream_t)stream>>>(P);
+  point_kernel<MODE><<<blocks, THREADS, smem, (cudaStream_t)stream>>>(P);
   return (int)cudaGetLastError();
+}
+
+bool bad_field(int R, int K, int D, int E, int C, int num_freqs, int include_input, int min_e) {
+  return R <= 0 || K <= 0 || K > TP || D <= 0 || D > 128 || D % 8 || E < min_e || E > 128 ||
+         C <= 0 || C > 64 || C != 3 * (include_input ? 1 : 0) + 6 * num_freqs;
+}
+
+}  // namespace
+
+// Pointers are device pointers on the current device; the wrappers check
+// dtypes, shapes and contiguity. Each returns a cudaError_t (0 = launched).
+extern "C" int point_render(
+    const void* rays, const void* z, const void* grid, const void* w_code, const void* b1,
+    const void* w2, const void* b2, const void* feat_w2c, const void* feat_k,
+    const void* color, const void* color_w2c, const void* color_k,
+    void* depth, void* dino, void* rgb,
+    int R, int K, int Hg, int Wg, int D, int E, int C, int Hc, int Wc,
+    int num_freqs, int include_input, int inv_z, int code_distance, int hard_cap, int median,
+    float zn_sub, float zn_den, float freq_factor, void* stream) {
+  if (bad_field(R, K, D, E, C, num_freqs, include_input, 2)) return (int)cudaErrorInvalidValue;
+  Params P = {(const float*)rays, (const float*)z, (const __nv_bfloat16*)grid,
+              (const __nv_bfloat16*)w_code, (const float*)b1, (const __nv_bfloat16*)w2,
+              (const float*)b2, (const float*)feat_w2c, (const float*)feat_k,
+              (const __nv_bfloat16*)color, (const float*)color_w2c, (const float*)color_k,
+              (float*)depth, (float*)dino, (float*)rgb, nullptr,
+              R, K, Hg, Wg, D, E, C, Hc, Wc,
+              num_freqs, include_input, inv_z, code_distance, hard_cap, median,
+              zn_sub, zn_den, freq_factor};
+  return launch<RENDER>(P, stream);
+}
+
+// K3: w2 (D, 1) and b2 (1,) are the density column alone; writes the
+// compositing weights (R, K).
+extern "C" int probe_weights(
+    const void* rays, const void* z, const void* grid, const void* w_code, const void* b1,
+    const void* w2, const void* b2, const void* feat_w2c, const void* feat_k, void* weights,
+    int R, int K, int Hg, int Wg, int D, int C,
+    int num_freqs, int include_input, int inv_z, int code_distance, int hard_cap,
+    float zn_sub, float zn_den, float freq_factor, void* stream) {
+  if (bad_field(R, K, D, 1, C, num_freqs, include_input, 1)) return (int)cudaErrorInvalidValue;
+  Params P = {(const float*)rays, (const float*)z, (const __nv_bfloat16*)grid,
+              (const __nv_bfloat16*)w_code, (const float*)b1, (const __nv_bfloat16*)w2,
+              (const float*)b2, (const float*)feat_w2c, (const float*)feat_k,
+              nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, (float*)weights,
+              R, K, Hg, Wg, D, 1, C, 0, 0,
+              num_freqs, include_input, inv_z, code_distance, hard_cap, 0,
+              zn_sub, zn_den, freq_factor};
+  return launch<PROBE>(P, stream);
+}
+
+// K4: points (R, 3); writes sigma (R,) and the feature (R, E - 1).
+extern "C" int point_query(
+    const void* pts, const void* grid, const void* w_code, const void* b1, const void* w2,
+    const void* b2, const void* feat_w2c, const void* feat_k, void* sigma, void* feat,
+    int R, int Hg, int Wg, int D, int E, int C,
+    int num_freqs, int include_input, int inv_z, int code_distance,
+    float zn_sub, float zn_den, float freq_factor, void* stream) {
+  if (bad_field(R, 1, D, E, C, num_freqs, include_input, 2)) return (int)cudaErrorInvalidValue;
+  Params P = {(const float*)pts, nullptr, (const __nv_bfloat16*)grid,
+              (const __nv_bfloat16*)w_code, (const float*)b1, (const __nv_bfloat16*)w2,
+              (const float*)b2, (const float*)feat_w2c, (const float*)feat_k,
+              nullptr, nullptr, nullptr, nullptr, (float*)feat, nullptr, (float*)sigma,
+              R, 1, Hg, Wg, D, E, C, 0, 0,
+              num_freqs, include_input, inv_z, code_distance, 0, 0,
+              zn_sub, zn_den, freq_factor};
+  return launch<QUERY>(P, stream);
 }

@@ -6,13 +6,17 @@ number of kernel launches it made, so a run can show that its path went
 through the kernel.
 """
 from scenedino_torch.kernels.attention import attention, attention_bwd_dkv, attention_bwd_dq
-from scenedino_torch.kernels.point_render import point_render
+from scenedino_torch.kernels.point_render import point_query, point_render, probe_weights
+from scenedino_torch.kernels.row_gather import row_gather
 
 WRAPPERS = {
     "attention": attention,
     "attention_bwd_dq": attention_bwd_dq,
     "attention_bwd_dkv": attention_bwd_dkv,
     "point_render": point_render,
+    "probe_weights": probe_weights,
+    "point_query": point_query,
+    "row_gather": row_gather,
 }
 
 

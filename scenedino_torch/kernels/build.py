@@ -3,21 +3,23 @@
 Each source is compiled by `nvcc` into a shared library with a plain C
 interface and loaded with `ctypes`; nothing includes PyTorch's headers,
 so a build takes seconds. Libraries go to `build/kernels/` in the
-checkout, named by a hash of their source and flags: a changed source is
-rebuilt at its first use, an unchanged one is loaded as it is. Nothing is
-built when a module is imported.
+checkout, named by a hash of their source, the files it includes and the
+flags: a changed source or header is rebuilt at its first use, an
+unchanged one is loaded as it is. Nothing is built when a module is
+imported.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, List
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -40,10 +42,35 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build the kernels")
 
 
+_LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
+
+def sources(name: str) -> List[Path]:
+    """`csrc/<name>.cu` and every file it includes with `#include "..."`,
+    transitively (paths relative to the including file)."""
+    found: List[Path] = []
+    todo = [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop()
+        if path in found:
+            continue
+        found.append(path)
+        todo.extend((path.parent / inc.decode()).resolve() for inc in _LOCAL_INCLUDE.findall(path.read_bytes()))
+    return found
+
+
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """The library of `csrc/<name>.cu`, named by a hash of the flags and of
+    every file the source includes, so a changed header is rebuilt too."""
+    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    for path in sources(name):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
+
+
+def all_names() -> List[str]:
+    """The name of every CUDA source in `csrc/`."""
+    return sorted(p.stem for p in CSRC.glob("*.cu"))
 
 
 def build(names: Iterable[str]) -> Dict[str, float]:

@@ -1,11 +1,21 @@
-"""K2: fused point query + compositing of the novel-view renderer.
+"""K2, K3 and K4: the folded field's per-point pipeline in one CUDA source.
 
-`point_render` takes rays and their sample depths and returns per-ray
-depth (E[z]), feature and colour. On CUDA tensors it launches the
-hand-written kernel of `csrc/point_render.cu` or raises; on CPU tensors
-it takes `point_render_plain`, the same math in torch over chunks of rays
-so that memory stays bounded. It replaces the XLA-fused point pipeline of
-`scenedino_tpu/ops/fast_field.py:825-987`.
+All three run projection -> positional code -> 4-corner bilinear lookup in
+the folded grid -> the head's two products, per point, in the kernels of
+`csrc/point_render.cu` (one copy of the pipeline, three output modes):
+
+- `point_render` (K2): rays and their sample depths -> per-ray depth (E[z]
+  or the weight median), feature and colour. Replaces the XLA-fused point
+  pipeline of `scenedino_tpu/ops/fast_field.py:825-987`.
+- `probe_weights` (K3): the sigma-only probe of the probe-guided render:
+  rays and depths -> compositing weights. Replaces `_probe_weights_body`
+  (fast_field.py:792-822).
+- `point_query` (K4): world points -> sigma and the feature, no
+  compositing. Replaces `fast_query_fused` (fast_field.py:990-1035).
+
+On CUDA tensors each wrapper launches its kernel or raises; on CPU tensors
+it takes its plain version, the same math in torch over chunks so that
+memory stays bounded.
 """
 from __future__ import annotations
 
@@ -16,6 +26,8 @@ import torch
 
 from scenedino_torch.core import cameras, compositing, encoding
 from scenedino_torch.kernels import build
+
+DEPTH_STATISTICS = ("expectation", "median")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -30,6 +42,7 @@ class PointRenderConfig:
     freq_factor: float = 1.5
     include_input: bool = True
     hard_alpha_cap: bool = True
+    depth_statistic: str = "expectation"  # "expectation" | "median"
 
     @property
     def code_dims(self) -> int:
@@ -80,32 +93,39 @@ def _softplus(x: torch.Tensor) -> torch.Tensor:
     return torch.clamp_min(x, 0.0) + torch.log1p(torch.exp(-torch.abs(x)))
 
 
+def _head_out(pts, folded_grid, w_code, b1, w2, b2, feat_w2c, feat_k, cfg: PointRenderConfig):
+    """The per-point pipeline of all three kernels: world points (P, 3) ->
+    the pre-softplus head output (P, E) fp32."""
+    Hg, Wg, _ = folded_grid.shape
+    xy, zc, cam = cameras.project(pts, feat_w2c, feat_k)
+    depth_like = zc if cfg.code_mode == "z" else torch.linalg.vector_norm(cam, dim=-1, keepdim=True)
+    zn = encoding.normalize_z(depth_like, cfg.z_near, cfg.z_far, inv_z=cfg.inv_z)
+    code = encoding.positional_encoding(torch.cat([xy, zn], -1), cfg.num_freqs, cfg.freq_factor, cfg.include_input)
+    g = _sample_grid(folded_grid, _to_pixel(xy[:, 0], Wg), _to_pixel(xy[:, 1], Hg))
+    h = torch.relu(g + code.to(w_code.dtype).float() @ w_code.float() + b1.float())
+    if w2.dtype == torch.bfloat16:
+        h = h.to(torch.bfloat16)
+    return h.float() @ w2.float() + b2.float()
+
+
+def _ray_points(rays: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+    return (rays[:, None, :3] + z[..., None] * rays[:, None, 3:6]).reshape(-1, 3)
+
+
 def point_render_plain(rays, z, folded_grid, w_code, b1, w2, b2, feat_w2c, feat_k,
                        color_img, color_w2c, color_k, cfg: PointRenderConfig,
                        chunk_rays: int = 4096):
-    """The kernel's function in plain torch; see `point_render`."""
+    """The K2 kernel's function in plain torch; see `point_render`."""
     R, K = z.shape
-    Hg, Wg, _ = folded_grid.shape
     Hc, Wc, _ = color_img.shape
-    wc, w2f = w_code.float(), w2.float()
     depth, dino, rgb = [], [], []
     for r0 in range(0, R, chunk_rays):
         rs, zs = rays[r0:r0 + chunk_rays], z[r0:r0 + chunk_rays]
         n = rs.shape[0]
-        pts = (rs[:, None, :3] + zs[..., None] * rs[:, None, 3:6]).reshape(-1, 3)
-        xy, zc, cam = cameras.project(pts, feat_w2c, feat_k)
-        depth_like = zc if cfg.code_mode == "z" else torch.linalg.vector_norm(cam, dim=-1, keepdim=True)
-        zn = encoding.normalize_z(depth_like, cfg.z_near, cfg.z_far, inv_z=cfg.inv_z)
-        code = encoding.positional_encoding(
-            torch.cat([xy, zn], -1), cfg.num_freqs, cfg.freq_factor, cfg.include_input
-        )
-        g = _sample_grid(folded_grid, _to_pixel(xy[:, 0], Wg), _to_pixel(xy[:, 1], Hg))
-        h = torch.relu(g + code.to(w_code.dtype).float() @ wc + b1.float())
-        if w2.dtype == torch.bfloat16:
-            h = h.to(torch.bfloat16)
-        out = h.float() @ w2f + b2.float()
+        pts = _ray_points(rs, zs)
+        out = _head_out(pts, folded_grid, w_code, b1, w2, b2, feat_w2c, feat_k, cfg)
         sigma = _softplus(out[:, 0]).reshape(n, K)
-        comp = compositing.composite_rays(sigma, zs, cfg.hard_alpha_cap)
+        comp = compositing.composite_rays(sigma, zs, cfg.hard_alpha_cap, cfg.depth_statistic)
         depth.append(comp.depth)
         dino.append(compositing.weighted_reduce(comp.weights, out[:, 1:].reshape(n, K, -1)))
         cxy = cameras.project(pts, color_w2c, color_k)[0]
@@ -114,97 +134,211 @@ def point_render_plain(rays, z, folded_grid, w_code, b1, w2, b2, feat_w2c, feat_
     return torch.cat(depth), torch.cat(dino), torch.cat(rgb)
 
 
-def _check(rays, z, folded_grid, w_code, b1, w2, b2, feat_w2c, feat_k,
-           color_img, color_w2c, color_k, cfg):
+def probe_weights_plain(rays, z, folded_grid, w_code, b1, w2, b2, feat_w2c, feat_k,
+                        cfg: PointRenderConfig, chunk_rays: int = 4096):
+    """The K3 kernel's function in plain torch: `point_render_plain`'s
+    steps up to the compositing weights; see `probe_weights`."""
     R, K = z.shape
+    weights = []
+    for r0 in range(0, R, chunk_rays):
+        rs, zs = rays[r0:r0 + chunk_rays], z[r0:r0 + chunk_rays]
+        out = _head_out(_ray_points(rs, zs), folded_grid, w_code, b1, w2, b2, feat_w2c, feat_k, cfg)
+        sigma = _softplus(out[:, 0]).reshape(rs.shape[0], K)
+        weights.append(compositing.composite_rays(sigma, zs, cfg.hard_alpha_cap).weights)
+    return torch.cat(weights)
+
+
+def point_query_plain(pts, folded_grid, w_code, b1, w2, b2, feat_w2c, feat_k,
+                      cfg: PointRenderConfig, chunk_points: int = 1 << 16):
+    """The K4 kernel's function in plain torch; see `point_query`."""
+    sigma, feat = [], []
+    for p0 in range(0, pts.shape[0], chunk_points):
+        out = _head_out(pts[p0:p0 + chunk_points], folded_grid, w_code, b1, w2, b2, feat_w2c, feat_k, cfg)
+        sigma.append(_softplus(out[:, 0]))
+        feat.append(out[:, 1:])
+    return torch.cat(sigma), torch.cat(feat)
+
+
+def _check_shapes(name: str, shapes: dict, tensors) -> None:
+    for arg, (t, shape) in shapes.items():
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name}: {arg} must be {shape}, got {tuple(t.shape)}")
+    if len({t.device for t in tensors}) != 1:
+        raise ValueError(f"{name}'s tensors must share one device")
+
+
+def _check_field(name, folded_grid, w_code, b1, w2, b2, feat_w2c, feat_k, cfg, min_e):
+    """The checks every wrapper shares: the field's shapes and constants."""
+    if folded_grid.ndim != 3:
+        raise ValueError(f"{name}: folded_grid must be (Hg, Wg, D), got {tuple(folded_grid.shape)}")
     D = folded_grid.shape[-1]
     E = w2.shape[-1]
-    shapes = {
-        "rays": (rays, (R, 8)), "w_code": (w_code, (cfg.code_dims, D)), "b1": (b1, (D,)),
-        "w2": (w2, (D, E)), "b2": (b2, (E,)), "feat_w2c": (feat_w2c, (4, 4)),
-        "feat_k": (feat_k, (3, 3)), "color_w2c": (color_w2c, (4, 4)), "color_k": (color_k, (3, 3)),
-    }
-    for name, (t, shape) in shapes.items():
-        if tuple(t.shape) != shape:
-            raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
-    if folded_grid.ndim != 3 or color_img.ndim != 3 or color_img.shape[-1] != 3:
-        raise ValueError("folded_grid must be (Hg, Wg, D) and color_img (Hc, Wc, 3)")
-    if E < 2:
-        raise ValueError("w2 needs a density column and at least one feature column")
+    _check_shapes(name, {
+        "w_code": (w_code, (cfg.code_dims, D)), "b1": (b1, (D,)), "w2": (w2, (D, E)), "b2": (b2, (E,)),
+        "feat_w2c": (feat_w2c, (4, 4)), "feat_k": (feat_k, (3, 3)),
+    }, (folded_grid, w_code, b1, w2, b2, feat_w2c, feat_k))
+    if E < min_e:
+        raise ValueError(f"{name}: w2 needs at least {min_e} output column(s), got {E}")
     if cfg.code_mode not in ("z", "distance"):
         raise ValueError(f"code_mode must be 'z' or 'distance', got {cfg.code_mode!r}")
-    tensors = (rays, z, folded_grid, w_code, b1, w2, b2, feat_w2c, feat_k, color_img, color_w2c, color_k)
-    if len({t.device for t in tensors}) != 1:
-        raise ValueError("point_render's tensors must share one device")
+    if cfg.depth_statistic not in DEPTH_STATISTICS:
+        raise ValueError(f"depth_statistic must be 'expectation' or 'median', got {cfg.depth_statistic!r}")
+
+
+def _cuda_ready(name: str, bf16: dict, f32: dict, D: int, E: int, K: int, cfg: PointRenderConfig) -> None:
+    """Raise on what the CUDA kernels do not take."""
+    for arg, t in bf16.items():
+        if t.dtype != torch.bfloat16:
+            raise ValueError(f"the CUDA {name} kernel takes a bf16 {arg}, got {t.dtype}")
+    for arg, t in f32.items():
+        if t.dtype != torch.float32:
+            raise ValueError(f"the CUDA {name} kernel takes an fp32 {arg}, got {t.dtype}")
+    for arg, t in {**bf16, **f32}.items():
+        if not t.is_contiguous():
+            raise ValueError(f"the CUDA {name} kernel takes a contiguous {arg}")
+    if D > 128 or D % 8 or E > 128 or K > 64 or cfg.code_dims > 64:
+        raise ValueError(
+            f"the CUDA {name} kernel takes D <= 128 (multiple of 8), E <= 128, K <= 64 "
+            f"and code_dims <= 64; got D={D}, E={E}, K={K}, code_dims={cfg.code_dims}"
+        )
+    if bf16["folded_grid"].data_ptr() % 16:
+        raise ValueError(f"the CUDA {name} kernel takes a 16-byte aligned folded_grid")
+
+
+def _field_consts(cfg: PointRenderConfig):
+    """(num_freqs, include_input, inv_z, code_distance) as ints and
+    (zn_sub, zn_den, freq_factor): normalized depth = (x - zn_sub) / zn_den
+    with x = 1/depth under inv_z."""
+    if cfg.inv_z:
+        zn_sub, zn_den = 1.0 / cfg.z_far, 1.0 / cfg.z_near - 1.0 / cfg.z_far
+    else:
+        zn_sub, zn_den = cfg.z_near, cfg.z_far - cfg.z_near
+    ints = (cfg.num_freqs, int(cfg.include_input), int(cfg.inv_z), int(cfg.code_mode == "distance"))
+    return ints, (zn_sub, zn_den, cfg.freq_factor)
+
+
+def _launch(entry: str, device, pointers, ints, floats) -> None:
+    """Call `entry` of the point_render library on the current stream of
+    `device`; raises if the launch was refused."""
+    fn = getattr(build.load("point_render"), entry)
+    fn.argtypes = ([ctypes.c_void_p] * len(pointers) + [ctypes.c_int] * len(ints)
+                   + [ctypes.c_float] * len(floats) + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(device):
+        err = fn(*(t.data_ptr() for t in pointers), *ints, *floats, torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{entry} kernel launch failed: cudaError {err}")
+
+
+def _on_cpu_or_cuda(name: str, t: torch.Tensor) -> bool:
+    """True for CPU tensors (take the plain version); raise on anything but CUDA."""
+    if t.device.type == "cpu":
+        return True
+    if t.device.type != "cuda":
+        raise ValueError(f"{name} runs on cuda or cpu tensors, got {t.device}")
+    return False
 
 
 def point_render(rays, z, folded_grid, w_code, b1, w2, b2, feat_w2c, feat_k,
                  color_img, color_w2c, color_k, cfg: PointRenderConfig):
-    """Render rays through the folded field.
+    """Render rays through the folded field (K2).
 
-    rays (R, 8) fp32; z (R, K) sample depths; folded_grid (Hg, Wg, D);
+    rays (R, 8) fp32; z (R, K) sorted sample depths; folded_grid (Hg, Wg, D);
     w_code (code_dims, D); b1 (D,); w2 (D, E); b2 (E,); feat_w2c / color_w2c
     (4, 4) and feat_k / color_k (3, 3) normalized intrinsics of the encode
     and colour cameras; color_img (Hc, Wc, 3) in [0, 1].
-    Returns depth (R,), feature (R, E - 1) and rgb (R, 3), all fp32.
+    Returns depth (R,) (E[z], or the weight median under
+    cfg.depth_statistic="median"), feature (R, E - 1) and rgb (R, 3), fp32.
 
     On CUDA the kernel takes bf16 grid, weights and colour image, fp32
     rays, depths, biases and cameras, D <= 128 with D % 8 == 0, E <= 128,
     K <= 64, code_dims <= 64, and raises on anything else.
     """
-    _check(rays, z, folded_grid, w_code, b1, w2, b2, feat_w2c, feat_k,
-           color_img, color_w2c, color_k, cfg)
-    args = (rays, z, folded_grid, w_code, b1, w2, b2, feat_w2c, feat_k, color_img, color_w2c, color_k)
-    if rays.device.type == "cpu":
-        return point_render_plain(*args, cfg)
-    if rays.device.type != "cuda":
-        raise ValueError(f"point_render runs on cuda or cpu tensors, got {rays.device}")
+    _check_field("point_render", folded_grid, w_code, b1, w2, b2, feat_w2c, feat_k, cfg, min_e=2)
     R, K = z.shape
+    _check_shapes("point_render", {"rays": (rays, (R, 8)), "color_w2c": (color_w2c, (4, 4)),
+                                   "color_k": (color_k, (3, 3))}, (rays, z, folded_grid, color_img, color_w2c, color_k))
+    if color_img.ndim != 3 or color_img.shape[-1] != 3:
+        raise ValueError("point_render: color_img must be (Hc, Wc, 3)")
+    args = (rays, z, folded_grid, w_code, b1, w2, b2, feat_w2c, feat_k, color_img, color_w2c, color_k)
+    if _on_cpu_or_cuda("point_render", rays):
+        return point_render_plain(*args, cfg)
     Hg, Wg, D = folded_grid.shape
     Hc, Wc, _ = color_img.shape
     E = w2.shape[-1]
-    bf16 = {"folded_grid": folded_grid, "w_code": w_code, "w2": w2, "color_img": color_img}
-    f32 = {"rays": rays, "z": z, "b1": b1, "b2": b2, "feat_w2c": feat_w2c, "feat_k": feat_k,
-           "color_w2c": color_w2c, "color_k": color_k}
-    for name, t in bf16.items():
-        if t.dtype != torch.bfloat16:
-            raise ValueError(f"the CUDA point_render kernel takes a bf16 {name}, got {t.dtype}")
-    for name, t in f32.items():
-        if t.dtype != torch.float32:
-            raise ValueError(f"the CUDA point_render kernel takes an fp32 {name}, got {t.dtype}")
-    for name, t in {**bf16, **f32}.items():
-        if not t.is_contiguous():
-            raise ValueError(f"the CUDA point_render kernel takes a contiguous {name}")
-    if D > 128 or D % 8 or E > 128 or K > 64 or cfg.code_dims > 64:
-        raise ValueError(
-            f"the CUDA point_render kernel takes D <= 128 (multiple of 8), E <= 128, K <= 64 "
-            f"and code_dims <= 64; got D={D}, E={E}, K={K}, code_dims={cfg.code_dims}"
-        )
-    if folded_grid.data_ptr() % 16:
-        raise ValueError("the CUDA point_render kernel takes a 16-byte aligned folded_grid")
-    if cfg.inv_z:
-        zn_sub, zn_den = 1.0 / cfg.z_far, 1.0 / cfg.z_near - 1.0 / cfg.z_far
-    else:
-        zn_sub, zn_den = cfg.z_near, cfg.z_far - cfg.z_near
-    lib = build.load("point_render")
-    fn = lib.point_render
-    fn.argtypes = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 14 + [ctypes.c_float] * 3
-                   + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
+    _cuda_ready("point_render", {"folded_grid": folded_grid, "w_code": w_code, "w2": w2, "color_img": color_img},
+                {"rays": rays, "z": z, "b1": b1, "b2": b2, "feat_w2c": feat_w2c, "feat_k": feat_k,
+                 "color_w2c": color_w2c, "color_k": color_k}, D, E, K, cfg)
     depth = torch.empty(R, device=rays.device, dtype=torch.float32)
     dino = torch.empty(R, E - 1, device=rays.device, dtype=torch.float32)
     rgb = torch.empty(R, 3, device=rays.device, dtype=torch.float32)
-    with torch.cuda.device(rays.device):
-        err = fn(*(t.data_ptr() for t in args), depth.data_ptr(), dino.data_ptr(), rgb.data_ptr(),
-                 R, K, Hg, Wg, D, E, cfg.code_dims, Hc, Wc,
-                 cfg.num_freqs, int(cfg.include_input), int(cfg.inv_z),
-                 int(cfg.code_mode == "distance"), int(cfg.hard_alpha_cap),
-                 zn_sub, zn_den, cfg.freq_factor,
-                 torch.cuda.current_stream(rays.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"point_render kernel launch failed: cudaError {err}")
+    ints, floats = _field_consts(cfg)
+    _launch("point_render", rays.device, (*args, depth, dino, rgb),
+            (R, K, Hg, Wg, D, E, cfg.code_dims, Hc, Wc, *ints, int(cfg.hard_alpha_cap),
+             int(cfg.depth_statistic == "median")), floats)
     point_render.launches += 1
     return depth, dino, rgb
 
 
+def probe_weights(rays, z, folded_grid, w_code, b1, w2, b2, feat_w2c, feat_k, cfg: PointRenderConfig):
+    """Compositing weights of rays through the folded field's density (K3).
+
+    rays (R, 8) fp32; z (R, K) sorted sample depths; w2 (D, 1) and b2 (1,)
+    the head's density column alone (the rest as in `point_render`).
+    Returns the weights (R, K) fp32: alpha compositing of
+    softplus(out[0]) with the max(1 - a, 1e-10) floor and, under
+    cfg.hard_alpha_cap, alpha 1 on the last sample.
+
+    On CUDA the kernel takes what `point_render`'s does and raises on
+    anything else.
+    """
+    _check_field("probe_weights", folded_grid, w_code, b1, w2, b2, feat_w2c, feat_k, cfg, min_e=1)
+    R, K = z.shape
+    _check_shapes("probe_weights", {"rays": (rays, (R, 8)), "w2": (w2, (folded_grid.shape[-1], 1))},
+                  (rays, z, folded_grid))
+    args = (rays, z, folded_grid, w_code, b1, w2, b2, feat_w2c, feat_k)
+    if _on_cpu_or_cuda("probe_weights", rays):
+        return probe_weights_plain(*args, cfg)
+    Hg, Wg, D = folded_grid.shape
+    _cuda_ready("probe_weights", {"folded_grid": folded_grid, "w_code": w_code, "w2": w2},
+                {"rays": rays, "z": z, "b1": b1, "b2": b2, "feat_w2c": feat_w2c, "feat_k": feat_k}, D, 1, K, cfg)
+    weights = torch.empty(R, K, device=rays.device, dtype=torch.float32)
+    ints, floats = _field_consts(cfg)
+    _launch("probe_weights", rays.device, (*args, weights),
+            (R, K, Hg, Wg, D, cfg.code_dims, *ints, int(cfg.hard_alpha_cap)), floats)
+    probe_weights.launches += 1
+    return weights
+
+
+def point_query(pts, folded_grid, w_code, b1, w2, b2, feat_w2c, feat_k, cfg: PointRenderConfig):
+    """Density and feature of world points in the folded field (K4).
+
+    pts (P, 3) fp32 world points (the rest as in `point_render`). Returns
+    sigma = softplus(out[0]) (P,) and the feature out[1:] (P, E - 1), fp32.
+
+    On CUDA the kernel takes what `point_render`'s does and raises on
+    anything else.
+    """
+    _check_field("point_query", folded_grid, w_code, b1, w2, b2, feat_w2c, feat_k, cfg, min_e=2)
+    if pts.ndim != 2 or pts.shape[-1] != 3:
+        raise ValueError(f"point_query: pts must be (P, 3), got {tuple(pts.shape)}")
+    _check_shapes("point_query", {}, (pts, folded_grid))
+    args = (pts, folded_grid, w_code, b1, w2, b2, feat_w2c, feat_k)
+    if _on_cpu_or_cuda("point_query", pts):
+        return point_query_plain(*args, cfg)
+    P = pts.shape[0]
+    Hg, Wg, D = folded_grid.shape
+    E = w2.shape[-1]
+    _cuda_ready("point_query", {"folded_grid": folded_grid, "w_code": w_code, "w2": w2},
+                {"pts": pts, "b1": b1, "b2": b2, "feat_w2c": feat_w2c, "feat_k": feat_k}, D, E, 1, cfg)
+    sigma = torch.empty(P, device=pts.device, dtype=torch.float32)
+    feat = torch.empty(P, E - 1, device=pts.device, dtype=torch.float32)
+    ints, floats = _field_consts(cfg)
+    _launch("point_query", pts.device, (*args, sigma, feat), (P, Hg, Wg, D, E, cfg.code_dims, *ints), floats)
+    point_query.launches += 1
+    return sigma, feat
+
+
 point_render.launches = 0
+probe_weights.launches = 0
+point_query.launches = 0

@@ -93,6 +93,7 @@ class SceneField(nn.Module):
         self.encoder = encoder
         self.cfg = cfg
         self.final_pred_head = final_pred_head
+        self.head_confs = head_confs
         d_in = encoder.latent_size + cfg.code_dims
         self.heads = nn.ModuleDict(
             {name: make_head(dict(conf), d_in, cfg.d_out) for name, conf in head_confs}
@@ -104,7 +105,8 @@ class SceneField(nn.Module):
                ids_loss: Optional[Sequence[int]] = None,
                with_loss_feats: bool = False,
                loss_feature_grid_shift: Optional[Tuple[int, int]] = None,
-               flip: bool = False) -> SceneState:
+               flip: bool = False,
+               fold_matrix: Optional[torch.Tensor] = None) -> SceneState:
         """images (B, V, 3, H, W) in [-1, 1]; ks (B, V, 3, 3); poses_c2w (B, V, 4, 4).
 
         The student sees the `ids_encoder` views (all by default); the colour
@@ -113,6 +115,9 @@ class SceneField(nn.Module):
         the student's input images and un-mirrors its feature grid; the
         teacher's images are shifted by `loss_feature_grid_shift` and never
         flipped. Poses are inverted to world->camera in fp32.
+        `fold_matrix` (C, d) is folded into the decoder's last conv (serving,
+        `ops.fast_field.encode_prefolded`): the grid comes out already
+        projected, (B, Ve, d, Hf, Wf).
         """
         B, V = images.shape[:2]
         all_ids = list(range(V))
@@ -124,7 +129,7 @@ class SceneField(nn.Module):
         ne = imgs_enc.shape[1]
         if flip:
             imgs_enc = imgs_enc.flip(-1)
-        feats = self.encoder(imgs_enc.reshape(B * ne, *imgs_enc.shape[2:]))[0]
+        feats = self.encoder(imgs_enc.reshape(B * ne, *imgs_enc.shape[2:]), fold_matrix=fold_matrix)[0]
         if flip:
             feats = feats.flip(-1)
 

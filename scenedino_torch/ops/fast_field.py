@@ -1,24 +1,30 @@
-"""Serving path of the shipped field head (counterpart of
-`scenedino_tpu/ops/fast_field.py`): the linear fold and the fused
-novel-view render.
+"""Serving paths of the shipped field head (counterpart of
+`scenedino_tpu/ops/fast_field.py`): the linear fold, the novel-view
+renders (exact and probe-guided), the encode-view render and the voxel
+query.
 
 The head is lin_out(relu(lin_in([feat, code]))). Bilinear sampling is
 linear, so the first layer's feature block commutes with the lookup:
 lin_in([sample(F, xy), code]) = sample(F @ W_feat, xy) + code @ W_code + b.
 `build_fast_state` folds W_feat into the feature grid once per image;
-`render_novel_view_fused` then runs the whole per-point pipeline and the
-compositing in the K2 op (`kernels.point_render`).
+`encode_prefolded` folds it into the decoder's last conv instead, so the
+grid comes out folded. The per-point pipeline then runs in the kernels of
+`kernels.point_render`: K2 for the novel-view renders, K3 for the probe,
+K4 for the voxel query. The encode-view render needs no lookup at all.
 """
 from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
 import torch
+import torch.nn.functional as F
 
+from scenedino_torch.core import cameras, compositing, encoding, grid_sample
 from scenedino_torch.core import rays as rays_mod
 from scenedino_torch.core import sampling
-from scenedino_torch.kernels import point_render
+from scenedino_torch.kernels import point_query, point_render, probe_weights, row_gather
 from scenedino_torch.kernels.point_render import PointRenderConfig
+from scenedino_torch.models.dpt import DPTHead
 from scenedino_torch.models.field import FieldConfig, SceneState
 from scenedino_torch.models.heads import ResnetFC
 
@@ -38,35 +44,47 @@ class FastFieldState(NamedTuple):
     color_w2c: torch.Tensor
 
 
-def can_fold(field, head_name: str = "normal_head") -> bool:
+def can_fold(field, head_name: str = "normal_head", head_confs=None) -> bool:
     """True when the fold applies: the single n_blocks=0 ResnetFC head,
-    sampled colours and a predicted DINO feature, no learned empty feature."""
+    sampled colours and a predicted DINO feature, no learned empty feature.
+
+    head_confs (default `field.head_confs`): a relu resnet head only;
+    beta > 0 (softplus activation) and d_latent > 0 (latent row mixing)
+    leave no trace in the parameters but change the math the fold
+    hard-codes, so they refuse it (reference fast_field.py:184-223)."""
     cfg = field.cfg
     if cfg.learn_empty or not (cfg.sample_color and cfg.predict_dino):
         return False
+    if head_confs is None:
+        head_confs = getattr(field, "head_confs", ())
+    for name, conf in head_confs:
+        if name != head_name:
+            continue
+        args = dict(conf).get("args", {}) or {}
+        if dict(conf).get("type", "resnet") != "resnet":
+            return False
+        if args.get("beta", 0.0) > 0 or args.get("d_latent", 0) > 0:
+            return False
     return list(field.heads.keys()) == [head_name] and isinstance(field.heads[head_name], ResnetFC)
 
 
-@torch.no_grad()
-def build_fast_state(field, state: SceneState, head_name: str = "normal_head",
-                     compute_dtype: torch.dtype = torch.bfloat16) -> FastFieldState:
-    """Fold the head's first layer into the feature grid (exact; fp32 fold,
-    stored in `compute_dtype`)."""
+def _refuse_unfoldable(field, head_name: str, caller: str) -> None:
     if not can_fold(field, head_name):
         raise ValueError(
-            "build_fast_state: head/config not foldable (needs the shipped n_blocks=0 "
+            f"{caller}: head/config not foldable (needs the shipped n_blocks=0 relu "
             "ResnetFC single head, sample_color + predict_dino, learn_empty off)"
         )
-    head = field.heads[head_name]
-    k1 = head.lin_in.weight.float().T  # (C + code, d_hidden)
-    C = state.feat_grid.shape[2]
-    folded = torch.einsum("bvchw,cd->bvhwd", state.feat_grid.float(), k1[:C])
+
+
+def _fast_state(head, state: SceneState, folded: torch.Tensor, w_code: torch.Tensor,
+                compute_dtype: torch.dtype) -> FastFieldState:
+    """The state around a folded grid (B, V, Hg, Wg, d_hidden)."""
     return FastFieldState(
         folded_grid=folded.to(compute_dtype).contiguous(),
-        w_code=k1[C:].to(compute_dtype).contiguous(),
-        b1=head.lin_in.bias.float().contiguous(),
-        w2=head.lin_out.weight.float().T.to(compute_dtype).contiguous(),
-        b2=head.lin_out.bias.float().contiguous(),
+        w_code=w_code.to(compute_dtype).contiguous(),
+        b1=head.lin_in.bias.detach().float().contiguous(),
+        w2=head.lin_out.weight.detach().float().T.to(compute_dtype).contiguous(),
+        b2=head.lin_out.bias.detach().float().contiguous(),
         feat_ks=state.feat_ks.float().contiguous(),
         feat_w2c=state.feat_w2c.float().contiguous(),
         color_imgs=state.color_imgs.permute(0, 1, 3, 4, 2).to(compute_dtype).contiguous(),
@@ -76,34 +94,306 @@ def build_fast_state(field, state: SceneState, head_name: str = "normal_head",
 
 
 @torch.no_grad()
+def build_fast_state(field, state: SceneState, head_name: str = "normal_head",
+                     compute_dtype: torch.dtype = torch.bfloat16) -> FastFieldState:
+    """Fold the head's first layer into the feature grid (exact; fp32 fold,
+    stored in `compute_dtype`)."""
+    _refuse_unfoldable(field, head_name, "build_fast_state")
+    head = field.heads[head_name]
+    k1 = head.lin_in.weight.detach().float().T  # (C + code, d_hidden)
+    C = state.feat_grid.shape[2]
+    folded = torch.einsum("bvchw,cd->bvhwd", state.feat_grid.float(), k1[:C])
+    return _fast_state(head, state, folded, k1[C:], compute_dtype)
+
+
+@torch.no_grad()
+def encode_prefolded(field, imgs: torch.Tensor, projs: torch.Tensor, poses_c2w: torch.Tensor,
+                     ids_encoder=(0,), ids_render=None, head_name: str = "normal_head",
+                     compute_dtype: torch.dtype = torch.bfloat16) -> FastFieldState:
+    """`encode` + `build_fast_state` with W_feat folded into the DPT head's
+    final conv (reference fast_field.py:114-181): conv(x, K) @ W ==
+    conv(x, K @ W), so the decoder writes the d_hidden-channel folded grid
+    directly, at half the conv's work, and the full-width grid never
+    reaches memory. Equal to the two-step fold up to fp reassociation; an
+    encoder without a DPT decoder takes the two-step fold.
+    imgs (B, V, 3, H, W) in [-1, 1]; projs (B, V, 3, 3); poses_c2w (B, V, 4, 4).
+    """
+    _refuse_unfoldable(field, head_name, "encode_prefolded")
+    decoder = getattr(field.encoder, "decoder", None)
+    if not isinstance(decoder, DPTHead):
+        state = field.encode(imgs, projs, poses_c2w, ids_encoder=ids_encoder, ids_render=ids_render)
+        return build_fast_state(field, state, head_name, compute_dtype)
+    head = field.heads[head_name]
+    k1 = head.lin_in.weight.detach().float().T
+    C = decoder.head_conv1.weight.shape[0]
+    state = field.encode(imgs, projs, poses_c2w, ids_encoder=ids_encoder, ids_render=ids_render,
+                         fold_matrix=k1[:C])
+    return _fast_state(head, state, state.feat_grid.permute(0, 1, 3, 4, 2), k1[C:], compute_dtype)
+
+
+def _point_config(cfg: FieldConfig, hard_alpha_cap: bool = True,
+                  depth_statistic: str = "expectation") -> PointRenderConfig:
+    return PointRenderConfig(
+        z_near=cfg.z_near, z_far=cfg.z_far, inv_z=cfg.inv_z, code_mode=cfg.code_mode,
+        num_freqs=cfg.num_freqs, freq_factor=cfg.freq_factor, include_input=cfg.include_input,
+        hard_alpha_cap=hard_alpha_cap, depth_statistic=depth_statistic,
+    )
+
+
+def _single_view(fs: FastFieldState, caller: str):
+    """The field tensors of a 1-view state, as the point kernels take them."""
+    B, V = fs.folded_grid.shape[:2]
+    if B != 1 or V != 1:
+        raise ValueError(f"{caller} expects 1 encode view, got B={B}, V={V}")
+    return (fs.folded_grid[0, 0], fs.w_code, fs.b1, fs.w2, fs.b2, fs.feat_w2c[0, 0], fs.feat_ks[0, 0])
+
+
+def _colour_view(fs: FastFieldState):
+    return fs.color_imgs[0, 0], fs.color_w2c[0, 0], fs.color_ks[0, 0]
+
+
+def _target_rays(cfg: FieldConfig, target_pose_c2w: torch.Tensor, target_k: torch.Tensor,
+                 height: int, width: int) -> torch.Tensor:
+    r, _ = rays_mod.rays_from_k(target_pose_c2w[None].float(), target_k[None].float(),
+                                width, height, cfg.z_near, cfg.z_far)
+    return r.reshape(height, width, 8)
+
+
+@torch.no_grad()
 def render_novel_view_fused(fs: FastFieldState, cfg: FieldConfig, target_pose_c2w: torch.Tensor,
                             target_k: torch.Tensor, height: int, width: int,
                             u: Optional[torch.Tensor] = None,
                             generator: Optional[torch.Generator] = None,
                             n_coarse: int = 32, lindisp: bool = True,
-                            hard_alpha_cap: bool = True):
+                            hard_alpha_cap: bool = True, depth_statistic: str = "expectation"):
     """Full-frame render of an arbitrary camera from one encode view.
 
     target_pose_c2w (4, 4); target_k (3, 3) normalized intrinsics. The
     stratum draws `u` (height*width, n_coarse) are an explicit input, drawn
-    from `generator` when None. Returns (depth (H, W) as E[z], dino
-    (H, W, d_out-1), rgb (H, W, 3)), fp32.
+    from `generator` when None. Returns (depth (H, W) as E[z] or the weight
+    median, dino (H, W, d_out-1), rgb (H, W, 3)), fp32.
+    """
+    field_args = _single_view(fs, "render_novel_view_fused")
+    flat = _target_rays(cfg, target_pose_c2w, target_k, height, width).reshape(-1, 8).contiguous()
+    z = sampling.sample_coarse(flat, n_coarse, lindisp, u=u, generator=generator).contiguous()
+    depth, dino, rgb = point_render(flat, z, *field_args, *_colour_view(fs),
+                                    _point_config(cfg, hard_alpha_cap, depth_statistic))
+    return depth.reshape(height, width), dino.reshape(height, width, -1), rgb.reshape(height, width, 3)
+
+
+class ProbeDraws(NamedTuple):
+    """Every draw of one probe-guided render, in [0, 1). The reference
+    splits its key into (kp, kf, ku) (fast_field.py:748) and kf again into
+    the bin picks and their places (sampling.py:81)."""
+
+    u_probe: torch.Tensor  # (Rp, n_probe) strata of the probe rays
+    u_fine: torch.Tensor  # (R, n_fine) bin picks of the importance resampling
+    t_fine: torch.Tensor  # (R, n_fine) places inside the picked bins
+    u_uniform: Optional[torch.Tensor]  # (R, n_uniform) safety strata; None when n_uniform = 0
+
+
+def draw_probe(height: int, width: int, generator: Optional[torch.Generator] = None, device=None,
+               n_probe: int = 16, n_fine: int = 10, n_uniform: int = 2, probe_stride: int = 4) -> ProbeDraws:
+    """Draw a `ProbeDraws` from `generator`."""
+    R, Rp = height * width, (height // probe_stride) * (width // probe_stride)
+
+    def rand(*shape):
+        return torch.rand(shape, generator=generator, device=device)
+
+    return ProbeDraws(rand(Rp, n_probe), rand(R, n_fine), rand(R, n_fine),
+                      rand(R, n_uniform) if n_uniform > 0 else None)
+
+
+@torch.no_grad()
+def render_novel_view_probe(fs: FastFieldState, cfg: FieldConfig, target_pose_c2w: torch.Tensor,
+                            target_k: torch.Tensor, height: int, width: int,
+                            draws: Optional[ProbeDraws] = None,
+                            generator: Optional[torch.Generator] = None,
+                            n_probe: int = 16, n_fine: int = 10, n_uniform: int = 2,
+                            probe_stride: int = 4, lindisp: bool = True, hard_alpha_cap: bool = True,
+                            want_rgb: bool = True, depth_statistic: str = "expectation"):
+    """Two-pass probe-guided novel-view render (reference fast_field.py:678-789).
+
+    Pass 1: a sigma-only probe (K3) of the (H/s) x (W/s) strided rays at
+    `n_probe` stratified samples gives each probe ray its compositing
+    weights, a histogram of where along the ray the mass lies. Every
+    full-resolution ray reads its probe pixel's histogram and depths (a
+    nearest upsample through `row_gather`), resamples `n_fine` depths from
+    it (`sampling.sample_coarse_from_dist`), adds `n_uniform` stratified
+    safety samples, sorts them, and renders through K2 on those
+    n_fine + n_uniform samples. A serving mode, not the exact path: its
+    samples are placed unlike `render_novel_view_fused`'s.
+
+    `draws` holds every draw (drawn from `generator` when None). Returns
+    (depth (H, W), dino (H, W, d_out-1), rgb (H, W, 3) or None), fp32.
+    """
+    field_args = _single_view(fs, "render_novel_view_probe")
+    s = probe_stride
+    if height % s or width % s:
+        raise ValueError(f"render_novel_view_probe: H={height} and W={width} must divide by the stride {s}")
+    Hp, Wp = height // s, width // s
+    device = fs.folded_grid.device
+    if draws is None:
+        draws = draw_probe(height, width, generator, device, n_probe, n_fine, n_uniform, s)
+    prc = _point_config(cfg, hard_alpha_cap, depth_statistic)
+
+    grid_rays = _target_rays(cfg, target_pose_c2w, target_k, height, width)
+    flat = grid_rays.reshape(-1, 8).contiguous()
+    probe_rays = grid_rays[::s, ::s].reshape(-1, 8).contiguous()
+    zp = sampling.sample_coarse(probe_rays, n_probe, lindisp, u=draws.u_probe).contiguous()
+    grid, w_code, b1, w2, b2, feat_w2c, feat_k = field_args
+    w_probe = probe_weights(probe_rays, zp, grid, w_code, b1, w2[:, :1].contiguous(), b2[:1].contiguous(),
+                            feat_w2c, feat_k, prc)  # (Rp, n_probe)
+
+    # nearest upsample: pixel (y, x) reads probe row (y // s) * Wp + x // s
+    rows = torch.arange(height, device=device) // s
+    cols = torch.arange(width, device=device) // s
+    idx = (rows[:, None] * Wp + cols[None]).reshape(-1).to(torch.int32)
+    full = row_gather(torch.cat([w_probe, zp], -1).contiguous(), idx)
+    w_full, z_full = full[:, :n_probe], full[:, n_probe:]
+
+    z = sampling.sample_coarse_from_dist(flat, w_full, z_full, n_fine, lindisp,
+                                         u=draws.u_fine, t=draws.t_fine)
+    if n_uniform > 0:
+        z = torch.cat([z, sampling.sample_coarse(flat, n_uniform, lindisp, u=draws.u_uniform)], -1)
+    z = torch.sort(z, -1).values.contiguous()  # compositing needs sorted depths
+    depth, dino, rgb = point_render(flat, z, *field_args, *_colour_view(fs), prc)
+    rgb = rgb.reshape(height, width, 3) if want_rgb else None
+    return depth.reshape(height, width), dino.reshape(height, width, -1), rgb
+
+
+@torch.no_grad()
+def fast_query_fused(fs: FastFieldState, cfg: FieldConfig, xyz: torch.Tensor,
+                     segments: int = 64, band: int = 128, seg_fn=None):
+    """`fast_query(only_density=True)` of one encode view through K4
+    (reference fast_field.py:990-1035): xyz (P, 3) world points ->
+    (sigma (P,), feature (P, d_out-1)) fp32, or (sigma, seg_fn(feature))
+    when `seg_fn` is given.
+
+    seg_fn: a callable on the (P, d_out-1) feature, applied after the
+    kernel (the reference runs it inside its per-segment map). The
+    stage-2 heads it would call are not ported yet. `segments` and `band`
+    tune the TPU's banded gather; the port takes them and ignores them.
+    """
+    sigma, feat = point_query(xyz.float().contiguous(), *_single_view(fs, "fast_query_fused"),
+                              _point_config(cfg))
+    return sigma, (seg_fn(feat) if seg_fn is not None else feat)
+
+
+@torch.no_grad()
+def fast_query(fs: FastFieldState, cfg: FieldConfig, xyz: torch.Tensor, only_density: bool = False,
+               segments: Optional[int] = None, band: int = 32):
+    """Drop-in for `SceneField.forward` on the fast state (reference
+    fast_field.py:1038-1114), in plain torch as the reference computes it
+    in XLA: xyz (B, P, 3) -> (rgb (B, P, Vr*3) or None, invalid, sigma
+    (B, P), dino (B, P, dino_dims)). `segments` and `band` tune the TPU's
+    banded gather; the port takes them and ignores them.
+    """
+    B, P, _ = xyz.shape
+    xy, z, dist, invalid_f = cameras.project_points(xyz, fs.feat_w2c, fs.feat_ks)
+    coords = encoding.encode_coords(xy, z, dist, cfg.z_near, cfg.z_far, mode=cfg.code_mode, inv_z=cfg.inv_z)
+    code = encoding.positional_encoding(coords, cfg.num_freqs, cfg.freq_factor, cfg.include_input)
+    sampled = grid_sample.grid_sample_views_hwc(fs.folded_grid, xy)  # (B, V, P, d_hidden) fp32
+    h = torch.relu(sampled + code.to(fs.w_code.dtype).float() @ fs.w_code.float() + fs.b1)
+    out = h.to(fs.w2.dtype).float() @ fs.w2.float() + fs.b2
+    out = out.transpose(1, 2).mean(2)  # collapse the (single) view axis
+    sigma = F.softplus(out[..., 0])
+    dino = out[..., 1:] if cfg.predict_dino else None
+    inv_feat = invalid_f[..., 0].transpose(1, 2)  # (B, P, V)
+    if only_density:
+        return None, inv_feat.float(), sigma, dino
+    xy_c, _, _, invalid_c = cameras.project_points(xyz, fs.color_w2c, fs.color_ks)
+    colors = grid_sample.grid_sample_views_hwc(fs.color_imgs, xy_c)
+    Vr, Cc = colors.shape[1], colors.shape[-1]
+    rgb = colors.transpose(1, 2).reshape(B, P, Vr * Cc)
+    inv_c = invalid_c[..., 0].transpose(1, 2)
+    invalid = (inv_c | inv_feat.all(-1, keepdim=True)).to(rgb.dtype)
+    return rgb, invalid, sigma, dino
+
+
+@torch.no_grad()
+def render_encode_view(fs: FastFieldState, cfg: FieldConfig, height: int, width: int,
+                       u: Optional[torch.Tensor] = None, generator: Optional[torch.Generator] = None,
+                       n_coarse: int = 32, lindisp: bool = True, hard_alpha_cap: bool = True,
+                       depth_statistic: str = "expectation"):
+    """Render the encode camera's own view with no feature lookup
+    (reference fast_field.py:254-390).
+
+    Every sample on pixel p's ray projects back to p, so the bilinear
+    lookup reads the folded map at p: a 2x2 mean where the grid is twice
+    the render size, the map itself at equal size, a true NDC lookup
+    (`grid_sample_views_hwc`) at any other ratio. The positional code's
+    x/y channels are constant along a ray: W_code splits into a per-pixel
+    bias (x, y channels) and the per-sample z channels. The colour is the
+    render-view image itself times the ray's total weight, so it must be
+    the render size. The strata `u` (height*width, n_coarse) are an
+    explicit input (the reference draws them from the first of a
+    five-way key split, :294), drawn from `generator` when None.
+    Returns (depth (H, W), dino (H, W, d_out-1), rgb (H, W, 3)), fp32.
     """
     B, V = fs.folded_grid.shape[:2]
     if B != 1 or V != 1:
-        raise ValueError("novel-view fast render expects 1 encode view")
-    r, _ = rays_mod.rays_from_k(target_pose_c2w[None].float(), target_k[None].float(),
-                                width, height, cfg.z_near, cfg.z_far)
-    flat = r.reshape(-1, 8).contiguous()
-    z = sampling.sample_coarse(flat, n_coarse, lindisp, u=u, generator=generator).contiguous()
-    prc = PointRenderConfig(
-        z_near=cfg.z_near, z_far=cfg.z_far, inv_z=cfg.inv_z, code_mode=cfg.code_mode,
-        num_freqs=cfg.num_freqs, freq_factor=cfg.freq_factor, include_input=cfg.include_input,
-        hard_alpha_cap=hard_alpha_cap,
-    )
-    depth, dino, rgb = point_render(
-        flat, z, fs.folded_grid[0, 0], fs.w_code, fs.b1, fs.w2, fs.b2,
-        fs.feat_w2c[0, 0], fs.feat_ks[0, 0], fs.color_imgs[0, 0],
-        fs.color_w2c[0, 0], fs.color_ks[0, 0], prc,
-    )
-    return depth.reshape(height, width), dino.reshape(height, width, -1), rgb.reshape(height, width, 3)
+        raise ValueError(f"render_encode_view expects 1 view, got B={B}, V={V}")
+    rgb_map = fs.color_imgs[0, 0].float()
+    if rgb_map.shape[:2] != (height, width):
+        raise ValueError(f"render_encode_view: color image {tuple(rgb_map.shape[:2])} != render size "
+                         f"{(height, width)}; use the generic renderer")
+    kmat = fs.feat_ks[0, 0].float()
+    pose_c2w = torch.linalg.inv(fs.feat_w2c[0, :1].float())
+    r, xy_img = rays_mod.rays_from_k(pose_c2w, kmat[None], width, height, cfg.z_near, cfg.z_far)
+    flat = r.reshape(-1, 8)
+    z = sampling.sample_coarse(flat, n_coarse, lindisp, u=u, generator=generator)  # (HW, K)
+    focal = torch.stack([kmat[0, 0], kmat[1, 1]])[None]
+    centre = torch.stack([kmat[0, 2], kmat[1, 2]])[None]
+    dirs_cam, _ = rays_mod.unproj_map(width, height, focal, c=centre, device=kmat.device)
+    z_cam = z * dirs_cam[0, ..., 2].reshape(-1, 1)  # camera-space depth; z is the ray distance
+
+    n_code = fs.w_code.shape[0]
+    z_mask = torch.arange(n_code, device=kmat.device) % 3 == 2
+    w_z, w_xy = fs.w_code[z_mask].float(), fs.w_code[~z_mask].float()
+    xy = xy_img.reshape(-1, 2)  # exact NDC pixel centres
+    code_xy = encoding.positional_encoding(torch.cat([xy, torch.zeros_like(xy[:, :1])], -1), cfg.num_freqs,
+                                           cfg.freq_factor, cfg.include_input)[:, ~z_mask]
+    pixel_bias = (code_xy.to(fs.w_code.dtype).float() @ w_xy)[:, None]  # (HW, 1, d_hidden)
+    depth_like = z_cam if cfg.code_mode == "z" else z
+    zn = encoding.normalize_z(depth_like, cfg.z_near, cfg.z_far, inv_z=cfg.inv_z)
+    code_z = encoding.positional_encoding(zn[..., None], cfg.num_freqs, cfg.freq_factor, cfg.include_input)
+
+    g2d = fs.folded_grid[0, 0]
+    Hg, Wg, D = g2d.shape
+    if (Hg, Wg) == (2 * height, 2 * width):
+        # render pixel centres fall midway between grid pixels: a 2x2 mean
+        g2d = g2d.float().reshape(height, 2, width, 2, D).mean((1, 3)).to(g2d.dtype)
+    elif (Hg, Wg) != (height, width):
+        xs = torch.linspace(-1 + 1 / width, 1 - 1 / width, width, device=kmat.device)
+        ys = torch.linspace(-1 + 1 / height, 1 - 1 / height, height, device=kmat.device)
+        gy, gx = torch.meshgrid(ys, xs, indexing="ij")
+        centres = torch.stack([gx, gy], -1).reshape(1, 1, -1, 2)
+        g2d = grid_sample.grid_sample_views_hwc(g2d[None, None], centres)[0, 0]
+    g = g2d.reshape(-1, 1, D).float()
+    h = torch.relu(g + pixel_bias + code_z.to(fs.w_code.dtype).float() @ w_z + fs.b1)
+    out = h.to(fs.w2.dtype).float() @ fs.w2.float() + fs.b2  # (HW, K, d_out)
+    comp = compositing.composite_rays(F.softplus(out[..., 0]), z, hard_alpha_cap, depth_statistic)
+    dino = compositing.weighted_reduce(comp.weights, out[..., 1:]).reshape(height, width, -1)
+    rgb = rgb_map * comp.weights.sum(-1).reshape(height, width)[..., None]
+    return comp.depth.reshape(height, width), dino, rgb
+
+
+@torch.no_grad()
+def render_encode_view_batched(fs: FastFieldState, cfg: FieldConfig, height: int, width: int,
+                               u: Optional[torch.Tensor] = None,
+                               generator: Optional[torch.Generator] = None, **kwargs):
+    """`render_encode_view` of every batch element of a (B, 1)-view state
+    (the stage-2 full-frame render: each sample renders its own encode
+    camera). u (B, height*width, n_coarse) or None. Returns (depth
+    (B, H, W), dino (B, H, W, D), rgb (B, H, W, 3))."""
+    outs = []
+    for b in range(fs.folded_grid.shape[0]):
+        sub = fs._replace(
+            folded_grid=fs.folded_grid[b:b + 1, :1], feat_ks=fs.feat_ks[b:b + 1, :1],
+            feat_w2c=fs.feat_w2c[b:b + 1, :1], color_imgs=fs.color_imgs[b:b + 1, :1],
+            color_ks=fs.color_ks[b:b + 1, :1], color_w2c=fs.color_w2c[b:b + 1, :1],
+        )
+        outs.append(render_encode_view(sub, cfg, height, width, u=None if u is None else u[b],
+                                       generator=generator, **kwargs))
+    return tuple(torch.stack(parts) for parts in zip(*outs))
