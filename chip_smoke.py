@@ -6,14 +6,16 @@ its hand-written kernels against their plain PyTorch versions.
 
 Phases, one line each:
   0 device   the card's name and power limit; TF32 off for fp32 compares
-  1 build    nvcc builds every kernel of the paths from csrc/ (sm_90a)
+  1 build    nvcc builds every kernel of the paths from csrc/ (sm_90a);
+             the K1 backward kernels' registers and spills (none allowed)
   2 K1       attention kernel vs its plain version at ViT-B/8 @192x640
              (1, 1921, 12, 64) bf16; kernel, plain and
              F.scaled_dot_product_attention times (the last only as a
              yardstick: the port never calls it)
   2b K1-bwd  the backward kernels (dq; dk and dv) vs the plain fp32
-             backward at the training shape (4, 1921, 12, 64) bf16;
-             kernel, plain and scaled_dot_product_attention-backward times
+             backward at the training shape (4, 1921, 12, 64) bf16, and
+             two launches bitwise equal; kernel, plain and
+             scaled_dot_product_attention-backward times, the pair's TFLOP/s
   3 K2       point-render kernel vs its plain version at full width:
              192x640 rays x 32 samples, 384x1280x128 bf16 grid, d_out 65;
              then with the weight-median depth
@@ -173,7 +175,12 @@ def phase_k1_bwd(gen):
     o, lse = attention_fwd(q, k, v, with_lse=True)
     dq, di = attention_bwd_dq(q, k, v, o, do, lse)
     dk, dv = attention_bwd_dkv(q, k, v, do, lse, di)
+    # no atomics: a second launch gives the same bits
+    dq2, di2 = attention_bwd_dq(q, k, v, o, do, lse)
+    dk2, dv2 = attention_bwd_dkv(q, k, v, do, lse, di2)
     torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in ((dq, dq2), (di, di2), (dk, dk2), (dv, dv2))):
+        fail("K1 backward: two launches on the same inputs differ")
     ref = attention_bwd_plain(q, k, v, o, do, lse)
     errs, bounds = [], []
     for name, got, r in zip(("dq", "dk", "dv"), (dq, dk, dv), ref):
@@ -200,8 +207,10 @@ def phase_k1_bwd(gen):
     bytes_ms = [n / PEAK_BYTES * 1e3 for n in (6 * t_bytes + 2 * s_bytes, 8 * t_bytes + s_bytes)]
     print(f"phase 2b K1 backward ({B}, {N}, {Hh}, {D}) bf16: max_abs_err dq {errs[0]:.3e} (bound {bounds[0]:.3e}), "
           f"dk {errs[1]:.3e} (bound {bounds[1]:.3e}), dv {errs[2]:.3e} (bound {bounds[2]:.3e}); kernel dq "
-          f"{ms_dq:.4f} ms, dkv {ms_dkv:.4f} ms, together {ms_dq + ms_dkv:.4f} ms; plain backward "
-          f"{plain_ms:.4f} ms; sdpa backward {lib_ms:.4f} ms; bound dq {b_dq:.4f} ms ({by_dq}), dkv "
+          f"{ms_dq:.4f} ms, dkv {ms_dkv:.4f} ms, together {ms_dq + ms_dkv:.4f} ms "
+          f"({7 * unit / (ms_dq + ms_dkv) / 1e9:.1f} TFLOP/s over their 7 products; two launches bitwise equal); "
+          f"plain backward {plain_ms:.4f} ms; sdpa backward {lib_ms:.4f} ms (the pair takes "
+          f"{(ms_dq + ms_dkv) / lib_ms:.2f} of it); bound dq {b_dq:.4f} ms ({by_dq}), dkv "
           f"{b_dkv:.4f} ms ({by_dkv}), the whole backward at 10 N^2 D B H FLOP {b_all:.4f} ms ({by_all}); "
           f"bytes terms: each kernel {bytes_ms[0]:.4f} ms, the whole backward {bytes_ms[1]:.4f} ms",
           flush=True)
@@ -897,10 +906,17 @@ def main():
     secs = build.build(build.all_names())
     ptxas = {}
     for name in secs:
-        log = (build.BUILD_DIR / f"{name}.log").read_text() if (build.BUILD_DIR / f"{name}.log").exists() else ""
-        ptxas[name] = [line.split("ptxas info    : ")[-1] for line in log.splitlines() if "Used" in line]
+        ptxas[name] = [line.split("ptxas info    : ")[-1] for line in build.build_log(name).splitlines()
+                       if "Used" in line]
     print(f"phase 1 build: {time.monotonic() - t0:.1f} s wall, per kernel {json.dumps(secs)}; "
           f"ptxas {json.dumps(ptxas)}", flush=True)
+    # the backward kernels hold four accumulators a thread: a spill would put them in local memory
+    bwd = {("dq" if "bwd_dq" in entry else "dkv"): r
+           for entry, r in build.ptxas_report(build.build_log("attention_bwd")).items()}
+    print(f"phase 1 K1 backward kernels, registers at launch (a consumer warpgroup then takes the producer's, "
+          f"see csrc/attention_bwd.cu) and spills in bytes: {json.dumps(bwd)}", flush=True)
+    if sorted(bwd) != ["dkv", "dq"] or any(r.get("spill_stores", 1) or r.get("spill_loads", 1) for r in bwd.values()):
+        fail(f"ptxas spilled in a K1 backward kernel, or its report is missing: {bwd}")
 
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     entries = [phase_k1(gen), *phase_k1_bwd(gen), phase_k2(gen), *phase_probe(gen), phase_k4(gen)]

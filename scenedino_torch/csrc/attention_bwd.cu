@@ -13,336 +13,625 @@
 // q, k, v, o, dO, dQ, dK, dV are (B, N, H, D) bf16 with D = 64; lse and
 // di are (B, H, N) fp32.
 //
-// Two kernels, as in the TPU design:
-//   * attention_bwd_dq: one block of 4 warps per (query tile of 64, head,
-//     batch). It first computes di for its rows (fp32, written for the
-//     dkv kernel), keeps its Q and dO fragments in registers, then walks
-//     over the key/value tiles: S = Q K^T and dP = dO V^T on the tensor
-//     cores, P and dS in fp32 on the CUDA cores, dQ += dS K accumulated in
-//     fp32 fragments that stay in registers for the whole walk.
-//   * attention_bwd_dkv: one block per (key tile of 64, head, batch). It
-//     keeps its K and V fragments in registers and walks over the query
-//     tiles: S^T = K Q^T and dP^T = V dO^T, then dV += P^T dO and
-//     dK += dS^T Q, both accumulated in fp32 register fragments.
-// Each warp owns 16 rows of its block's tile; its rows of S, dP, P and dS
-// live in shared memory only between the products (WMMA: bf16 inputs,
-// fp32 accumulation; P and dS are rounded to bf16 for the products).
-// The N x N matrices never reach device memory.
+// Bound on the H100: every product is 2 N^2 D B H FLOP, 22.7 GFLOP at the
+// training shape (4, 1921, 12, 64); dq does 3 of them and dkv 4, against
+// about 5.9 MB per tensor, so both kernels are bound by operations: the
+// tensor cores' rate, and beside it the special-function unit's, which
+// computes one exp2 per element of S in either kernel (N^2 B H of them at
+// 16 a cycle an SM: two thirds of the cycles of dq's products at their
+// peak rate).
 //
-// The ragged tail (N = 1921 at ViT-B/8 on 192x640) is masked in the
-// kernels: tile rows past N are zero-filled, their probabilities are 0,
-// and nothing is written past N.
-//
-// Bound on the H100: at (4, 1921, 12, 64) dq does 3 products and dkv 4,
-// each 2 N^2 D B H = 14.2 GFLOP, against about 2.4 MB per tensor, so both
-// are bound by operations (tensor-core peak). Not yet used: wgmma, TMA,
-// double-buffered tiles (later work).
+// What the design does about it (Hopper: wgmma, TMA, mbarriers; the
+// primitives are in hopper.cuh):
+//   * Two kernels, as in the TPU design, no atomics, so the gradients are
+//     the same bits from run to run. attention_bwd_dq owns a tile of query
+//     rows, computes di = rowsum(dO o) for them in fp32 (written for the
+//     dkv kernel) and walks the key/value tiles; attention_bwd_dkv owns a
+//     tile of key rows and walks the query/dO tiles with their lse and di.
+//   * A block is WGS consumer warpgroups, each owning 64 rows of the block's
+//     own tile, and a producer warpgroup of which one warp works. The two
+//     roles part in one if/else and never meet again, so that the producer
+//     can hand its registers to the consumers (setmaxnreg): a dkv consumer
+//     holds four 64 x 64 fp32 accumulators and six bf16 operands a thread.
+//   * All products are wgmma m64n64k16 (bf16 in, fp32 accumulate) with the A
+//     operand in registers. The own rows (Q and dO; K and V) are read from
+//     their TMA-loaded tiles into A-operand registers once and stay there
+//     for the walk. S = Q K^T and dP = dO V^T (dkv: S^T = K Q^T and
+//     dP^T = V dO^T, so no transpose is ever needed) come out in registers;
+//     the exponent, dS and the rounding to bf16 happen on those registers,
+//     and the packed registers are the A operand of the next product
+//     (dQ += dS K; dV += P^T dO, dK += dS^T Q), which reads the walked tile
+//     a second time with the contraction down its rows (the instruction's
+//     transposed-B order). S, dP, P and dS never touch shared memory; dQ
+//     (dK, dV) stay in registers for the whole walk. Independent products
+//     alternate their k-steps, so that no wgmma accumulates onto the one
+//     started just before it.
+//   * The producer warp keeps STAGES walked tiles in flight: TMA loads into
+//     a ring of 128-byte-swizzled tiles, a full and an empty mbarrier per
+//     slot, so the loads of later tiles run under the products of this one.
+//     A walked tile serves every warpgroup of the block. In dq the products
+//     that end a tile (dQ += dS K) stay in flight under the next tile's
+//     first products; the elementwise pass of one warpgroup overlaps the
+//     products of the other.
+//   * N is a dimension of its own in the tensor maps: the ragged tail
+//     (N = 1921 at ViT-B/8 on 192x640) arrives zero-filled and results past
+//     N are cut by the TMA store. Zero key rows give S = 0, not P = 0, so
+//     the last walked tile's columns past N are masked to P = dS = 0 on the
+//     registers (only that tile pays for the mask).
+//   * Results leave through the block's own tiles in shared memory (the
+//     swizzled layout, free of bank conflicts) as TMA stores.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <math.h>
 #include <stdint.h>
 
-using namespace nvcuda;
+#include "hopper.cuh"
+
+// consumer warpgroups per block, slots of the ring, and blocks per SM that
+// the registers are divided for (tools/bench_attention_bwd.py times others)
+#ifndef BWD_DQ_WGS
+#define BWD_DQ_WGS 2
+#endif
+#ifndef BWD_DQ_STAGES
+#define BWD_DQ_STAGES 3
+#endif
+#ifndef BWD_DQ_BLOCKS
+#define BWD_DQ_BLOCKS 1
+#endif
+#ifndef BWD_DKV_WGS
+#define BWD_DKV_WGS 2
+#endif
+#ifndef BWD_DKV_STAGES
+#define BWD_DKV_STAGES 3
+#endif
+#ifndef BWD_DKV_BLOCKS
+#define BWD_DKV_BLOCKS 1
+#endif
 
 namespace {
 
-constexpr int D = 64;        // head dim
-constexpr int BT = 64;       // rows of the block's own tile and of each walked tile
-constexpr int THREADS = 128; // 4 warps x 16 rows
-constexpr int LDH = D + 8;   // bf16 stride of the q, k, v, dO tiles
-constexpr int LDP = BT + 8;  // bf16 stride of P and dS
-constexpr int LDS = BT + 4;  // fp32 stride of S and dP
+using namespace hopper;
+
+constexpr int D = 64;   // head dim
+constexpr int BT = 64;  // rows of a warpgroup's own tile and of each walked tile
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr int MAX_DEVICES = 64;
 
-typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> FragA;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> FragBRow;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> FragBCol;
-typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> FragC;
+static_assert(D == TILE && BT == TILE, "the tiles of hopper.cuh are 64 x 64");
 
-struct Smem {
-  __nv_bfloat16 own0[BT * LDH];  // dq: Q    dkv: K
-  __nv_bfloat16 own1[BT * LDH];  // dq: dO   dkv: V
-  __nv_bfloat16 walk0[BT * LDH]; // dq: K    dkv: Q
-  __nv_bfloat16 walk1[BT * LDH]; // dq: V    dkv: dO
-  __nv_bfloat16 p[BT * LDP];     // dkv: P^T (bf16)
-  __nv_bfloat16 ds[BT * LDP];    // dq: dS   dkv: dS^T (bf16, scale applied)
-  float s[BT * LDS];             // S (or S^T), fp32; the result tile at the end
-  float dp[BT * LDS];            // dP (or dP^T), fp32
-  float lse[BT];                 // dkv: lse of the walked query tile (base 2)
-  float di[BT];                  // di of the query rows in play
+template <int WGS, int STAGES>
+struct DqSmem {
+  alignas(1024) unsigned char q[WGS][TILE_BYTES];     // own; dQ on the way out
+  alignas(1024) unsigned char dout[WGS][TILE_BYTES];  // own
+  alignas(1024) unsigned char k[STAGES][TILE_BYTES];  // walked
+  alignas(1024) unsigned char v[STAGES][TILE_BYTES];  // walked
+  float di[WGS][BT];
+  uint64_t own, full[STAGES], empty[STAGES];
 };
 
-// rows [row0, row0 + 64) of head h of a (B, N, H, D) tensor; rows past N are 0
-__device__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat16* src, int b, int h,
-                          int row0, int N, int H) {
-  for (int i = threadIdx.x; i < BT * (D / 8); i += THREADS) {
-    const int r = i / (D / 8);
-    const int c = (i % (D / 8)) * 8;
-    const int n = row0 + r;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (n < N) {
-      val = *reinterpret_cast<const uint4*>(src + ((size_t)(b * N + n) * H + h) * D + c);
-    }
-    *reinterpret_cast<uint4*>(dst + r * LDH + c) = val;
+template <int WGS, int STAGES>
+struct DkvSmem {
+  alignas(1024) unsigned char k[WGS][TILE_BYTES];        // own; dK on the way out
+  alignas(1024) unsigned char v[WGS][TILE_BYTES];        // own; dV on the way out
+  alignas(1024) unsigned char q[STAGES][TILE_BYTES];     // walked
+  alignas(1024) unsigned char dout[STAGES][TILE_BYTES];  // walked
+  alignas(8) float lse2[STAGES][BT];                     // walked: lse * log2(e), 0 past N
+  alignas(8) float dis[STAGES][BT];                      // walked: di * scale, 0 past N
+  uint64_t own, full[STAGES], empty[STAGES];
+};
+
+// Registers a thread: a block of WGS + 1 warpgroups, BLOCKS of them on an
+// SM, starts with START everywhere (ptxas allots them to whole warpgroups);
+// the producer keeps PRODUCER and each consumer takes CONSUMER, so that all
+// fit into what the block started with.
+template <int WGS, int BLOCKS>
+struct Registers {
+  static constexpr int PER_THREAD = 65536 / (BLOCKS * (WGS + 1) * 128);
+  static constexpr int START = (PER_THREAD > 255 ? 255 : PER_THREAD) / 8 * 8;
+  static constexpr int PRODUCER = 24;
+  static constexpr int SHARE = ((WGS + 1) * START - PRODUCER) / WGS / 8 * 8;
+  static constexpr int CONSUMER = SHARE > 240 ? 240 : SHARE;
+};
+
+template <class Smem>
+__device__ __forceinline__ Smem& aligned_smem(unsigned char* raw) {
+  return *reinterpret_cast<Smem*>((reinterpret_cast<uintptr_t>(raw) + 1023) & ~uintptr_t(1023));
+}
+
+// acc0 = a0 times the transpose of walked tile b0 and acc1 = a1 times that
+// of b1 (all 64 x 64; a0, a1: own rows in registers), k-steps alternating
+__device__ __forceinline__ void products_nt(float (&acc0)[32], const uint32_t (&a0)[16], uint64_t desc_b0,
+                                            float (&acc1)[32], const uint32_t (&a1)[16], uint64_t desc_b1) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    wgmma_m64n64k16_rs<0>(acc0, &a0[4 * kk], desc_b0 + kk * WGMMA_K_STEP, kk > 0);
+    wgmma_m64n64k16_rs<0>(acc1, &a1[4 * kk], desc_b1 + kk * WGMMA_K_STEP, kk > 0);
   }
 }
 
-// the warp's 16 x 64 fp32 accumulator tile -> bf16 rows < N of a (B, N, H, D) tensor
-__device__ void store_rows(FragC (&acc)[D / 16], float* stage, __nv_bfloat16* dst, int b, int h,
-                           int row0, int N, int H) {
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  float* base = stage + warp * 16 * LDS;
+// acc (64 x 64, registers) += A (64 x 64 bf16 in registers) times the walked tile
+__device__ __forceinline__ void product_rows(float (&acc)[32], const uint32_t (&a)[16], uint64_t desc_b) {
 #pragma unroll
-  for (int j = 0; j < D / 16; ++j) {
-    wmma::store_matrix_sync(base + j * 16, acc[j], LDS, wmma::mem_row_major);
+  for (int kk = 0; kk < BT / 16; ++kk) {
+    wgmma_m64n64k16_rs<1>(acc, &a[4 * kk], desc_b + kk * WGMMA_MN_STEP, 1);
   }
-  __syncwarp();
-  const int row = lane / 2;
-  const int half = lane % 2;
-  const int n = row0 + warp * 16 + row;
-  if (n < N) {
-    __nv_bfloat16* out = dst + ((size_t)(b * N + n) * H + h) * D;
-    for (int c = half * (D / 2); c < (half + 1) * (D / 2); ++c) {
-      out[c] = __float2bfloat16(base[row * LDS + c]);
+}
+
+// the same for two independent products, k-steps alternating
+__device__ __forceinline__ void products_rows(float (&acc0)[32], const uint32_t (&a0)[16], uint64_t desc_b0,
+                                              float (&acc1)[32], const uint32_t (&a1)[16], uint64_t desc_b1) {
+#pragma unroll
+  for (int kk = 0; kk < BT / 16; ++kk) {
+    wgmma_m64n64k16_rs<1>(acc0, &a0[4 * kk], desc_b0 + kk * WGMMA_MN_STEP, 1);
+    wgmma_m64n64k16_rs<1>(acc1, &a1[4 * kk], desc_b1 + kk * WGMMA_MN_STEP, 1);
+  }
+}
+
+// where the A operand of a product keeps element (row + 8 hi, 8 j + column)
+// of an accumulator: the pair index in a[16]
+__device__ __forceinline__ constexpr int a_index(int j, int hi) { return 4 * (j / 2) + 2 * (j % 2) + hi; }
+
+// ---------------------------------------------------------------------- dq
+
+struct DqArgs {
+  const __nv_bfloat16* o;
+  const __nv_bfloat16* dout;
+  const float* lse;
+  float* di_out;
+  int N, H;
+  float scale;
+};
+
+// one lane starts every load of the block: its own Q and dO tiles, then the
+// K and V tiles into the ring as its slots come free
+template <int WGS, int STAGES>
+__device__ __forceinline__ void dq_produce(DqSmem<WGS, STAGES>& sm, const CUtensorMap* map_q,
+                                           const CUtensorMap* map_k, const CUtensorMap* map_v,
+                                           const CUtensorMap* map_dout, int row0, int h, int b, int active,
+                                           int tiles) {
+  mbar_arrive_expect_tx(&sm.own, active * 2 * TILE_BYTES);
+  for (int w = 0; w < active; ++w) {
+    tma_load_4d(sm.q[w], map_q, &sm.own, 0, h, row0 + w * BT, b);
+    tma_load_4d(sm.dout[w], map_dout, &sm.own, 0, h, row0 + w * BT, b);
+  }
+  for (int t = 0; t < tiles; ++t) {
+    const int s = t % STAGES;
+    mbar_wait(&sm.empty[s], ((t / STAGES) & 1) ^ 1);  // passes at once in the first round
+    mbar_arrive_expect_tx(&sm.full[s], 2 * TILE_BYTES);
+    tma_load_4d(sm.k[s], map_k, &sm.full[s], 0, h, t * BT, b);
+    tma_load_4d(sm.v[s], map_v, &sm.full[s], 0, h, t * BT, b);
+  }
+}
+
+// dS = P (dP * scale - di * scale) with P = exp2(S * scale * log2(e) - lse * log2(e)),
+// on the accumulators' registers, packed to bf16 as the A operand of
+// dQ += dS K. MASK: columns at or past `nvalid` (key rows past N) give 0.
+template <bool MASK>
+__device__ __forceinline__ void dq_elementwise(const float (&s)[32], const float (&dp)[32], uint32_t (&ds)[16],
+                                               const float (&lse2_r)[2], const float (&dis_r)[2], float scale,
+                                               float scale_log2, int nvalid, int col0) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+#pragma unroll
+    for (int hi = 0; hi < 2; ++hi) {
+      const int i = 4 * j + 2 * hi;
+      float ds0 = fast_exp2(fmaf(s[i], scale_log2, -lse2_r[hi])) * fmaf(dp[i], scale, -dis_r[hi]);
+      float ds1 = fast_exp2(fmaf(s[i + 1], scale_log2, -lse2_r[hi])) * fmaf(dp[i + 1], scale, -dis_r[hi]);
+      if (MASK && 8 * j + col0 >= nvalid) ds0 = 0.f;
+      if (MASK && 8 * j + col0 + 1 >= nvalid) ds1 = 0.f;
+      ds[a_index(j, hi)] = pack_bf16(ds0, ds1);
     }
   }
 }
 
-// acc[j] (16 x 16 block j of a 16 x 64 result) += A (16 x 64, row-major at a)
-// times B (64 x 64, row-major at b)
-__device__ void mma_rows(FragC (&acc)[D / 16], const __nv_bfloat16* a, int lda,
-                         const __nv_bfloat16* b) {
-#pragma unroll
-  for (int j = 0; j < D / 16; ++j) {
-#pragma unroll
-    for (int kk = 0; kk < BT / 16; ++kk) {
-      FragA af;
-      FragBRow bf;
-      wmma::load_matrix_sync(af, a + kk * 16, lda);
-      wmma::load_matrix_sync(bf, b + kk * 16 * LDH + j * 16, LDH);
-      wmma::mma_sync(acc[j], af, bf, acc[j]);
-    }
-  }
-}
+// warpgroup `wg` of the block: dQ of its 64 query rows
+template <int WGS, int STAGES>
+__device__ __forceinline__ void dq_consume(DqSmem<WGS, STAGES>& sm, const CUtensorMap* map_dq, const DqArgs& a,
+                                           int wg, int wg_row0, int h, int b, int tiles) {
+  const int tid = threadIdx.x % 128;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int N = a.N;
+  const size_t bh = (size_t)b * a.H + h;
 
-// out (the warp's 16 x 64 fp32 rows at out) = A (register fragments,
-// 16 x D) times the transpose of the 64 x D tile at t
-__device__ void mma_nt(float* out, const FragA (&a)[D / 16], const __nv_bfloat16* t) {
-#pragma unroll
-  for (int j = 0; j < BT / 16; ++j) {
-    FragC acc;
-    wmma::fill_fragment(acc, 0.f);
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      FragBCol bf;
-      wmma::load_matrix_sync(bf, t + j * 16 * LDH + kk * 16, LDH);
-      wmma::mma_sync(acc, a[kk], bf, acc);
-    }
-    wmma::store_matrix_sync(out + j * 16, acc, LDS, wmma::mem_row_major);
-  }
-}
-
-__global__ void __launch_bounds__(THREADS)
-attention_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                        const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ o,
-                        const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
-                        __nv_bfloat16* __restrict__ dq, float* __restrict__ di_out, int N, int H,
-                        float scale) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
-  const int q0 = blockIdx.x * BT;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const size_t bh = (size_t)b * H + h;
-
-  load_tile(sm.own0, q, b, h, q0, N, H);
-  load_tile(sm.own1, dout, b, h, q0, N, H);
-  // di = rowsum(dO * o) in fp32, two threads per row
+  // di = rowsum(dO * o) in fp32, two threads per row, 16-byte loads
   {
-    const int r = threadIdx.x / 2;
-    const int half = threadIdx.x % 2;
-    const int n = q0 + r;
+    const int r = tid / 2;
+    const int half = tid % 2;
+    const int n = wg_row0 + r;
     float acc = 0.f;
     if (n < N) {
-      const __nv_bfloat16* orow = o + ((size_t)(b * N + n) * H + h) * D;
-      const __nv_bfloat16* drow = dout + ((size_t)(b * N + n) * H + h) * D;
-      for (int c = half * (D / 2); c < (half + 1) * (D / 2); ++c) {
-        acc += __bfloat162float(orow[c]) * __bfloat162float(drow[c]);
+      const size_t at = ((size_t)(b * N + n) * a.H + h) * D + half * (D / 2);
+      const uint4* orow = reinterpret_cast<const uint4*>(a.o + at);
+      const uint4* drow = reinterpret_cast<const uint4*>(a.dout + at);
+#pragma unroll
+      for (int i = 0; i < D / 2 / 8; ++i) {
+        const uint4 ov = orow[i];
+        const uint4 dv = drow[i];
+        const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
+        const __nv_bfloat162* d2 = reinterpret_cast<const __nv_bfloat162*>(&dv);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float2 of = __bfloat1622float2(o2[e]);
+          const float2 df = __bfloat1622float2(d2[e]);
+          acc = fmaf(of.x, df.x, acc);
+          acc = fmaf(of.y, df.y, acc);
+        }
       }
     }
     acc += __shfl_xor_sync(0xffffffffu, acc, 1);
     if (half == 0) {
-      sm.di[r] = acc;
-      if (n < N) di_out[bh * N + n] = acc;
+      sm.di[wg][r] = acc;
+      if (n < N) a.di_out[bh * N + n] = acc;
     }
   }
-  __syncthreads();
+  named_barrier_sync(1 + wg, 128);
 
-  FragA qf[D / 16], df[D / 16];
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    wmma::load_matrix_sync(qf[kk], sm.own0 + warp * 16 * LDH + kk * 16, LDH);
-    wmma::load_matrix_sync(df[kk], sm.own1 + warp * 16 * LDH + kk * 16, LDH);
-  }
-  FragC acc[D / 16];
-#pragma unroll
-  for (int j = 0; j < D / 16; ++j) wmma::fill_fragment(acc[j], 0.f);
-
-  const int row = lane / 2;
-  const int half = lane % 2;
-  const int n = q0 + warp * 16 + row;
-  const float lse2 = n < N ? lse[bh * N + n] * LOG2E : 0.f;
-  const float di = sm.di[warp * 16 + row];
+  // the thread's two rows of the accumulators: row_lo and row_lo + 8
+  const int row_lo = warp * 16 + lane / 4;
+  const int col0 = (lane % 4) * 2;
+  const float scale = a.scale;
   const float scale_log2 = scale * LOG2E;
-  float* srow = sm.s + (warp * 16 + row) * LDS;
-  float* dprow = sm.dp + (warp * 16 + row) * LDS;
-  __nv_bfloat16* dsrow = sm.ds + (warp * 16 + row) * LDP;
-
-  for (int k0 = 0; k0 < N; k0 += BT) {
-    __syncthreads();  // every warp is done with the previous K/V tile
-    load_tile(sm.walk0, k, b, h, k0, N, H);
-    load_tile(sm.walk1, v, b, h, k0, N, H);
-    __syncthreads();
-
-    mma_nt(sm.s + warp * 16 * LDS, qf, sm.walk0);   // S = Q K^T
-    mma_nt(sm.dp + warp * 16 * LDS, df, sm.walk1);  // dP = dO V^T
-    __syncwarp();
-
-    const int nvalid = min(BT, N - k0);
-    for (int c = half * (BT / 2); c < (half + 1) * (BT / 2); ++c) {
-      float ds = 0.f;
-      if (c < nvalid && n < N) {
-        const float p = exp2f(srow[c] * scale_log2 - lse2);
-        ds = p * (dprow[c] - di) * scale;
-      }
-      dsrow[c] = __float2bfloat16(ds);
-    }
-    __syncwarp();
-
-    mma_rows(acc, sm.ds + warp * 16 * LDP, LDP, sm.walk0);  // dQ += dS K
+  float dis_r[2], lse2_r[2];
+#pragma unroll
+  for (int hi = 0; hi < 2; ++hi) {
+    const int n = wg_row0 + row_lo + hi * 8;
+    dis_r[hi] = sm.di[wg][row_lo + hi * 8] * scale;
+    lse2_r[hi] = n < N ? a.lse[bh * N + n] * LOG2E : 0.f;  // rows past N: q = dO = 0, so dS = 0
   }
-  store_rows(acc, sm.s, dq, b, h, q0, N, H);
+
+  float dq[32], s[32], dp[32];
+  uint32_t ds[16];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dq[i] = 0.f;
+  fence_registers(dq);  // zeroed here, not under products in flight
+
+  mbar_wait(&sm.own, 0);
+  uint32_t a_q[16], a_do[16];  // the own rows stay in registers for the whole walk
+  load_a_operand(a_q, sm.q[wg], warp, lane);
+  load_a_operand(a_do, sm.dout[wg], warp, lane);
+
+  for (int t = 0; t < tiles; ++t) {
+    const int slot = t % STAGES;
+    mbar_wait(&sm.full[slot], (t / STAGES) & 1);
+    const uint64_t desc_k = wgmma_desc(sm.k[slot]);
+    const uint64_t desc_v = wgmma_desc(sm.v[slot]);
+
+    fence_registers(s);
+    fence_registers(dp);
+    wgmma_fence();
+    products_nt(s, a_q, desc_k, dp, a_do, desc_v);  // S = Q K^T, dP = dO V^T
+    wgmma_commit();
+    wgmma_wait<0>();  // and the previous tile's dQ += dS K
+    fence_registers(s);
+    fence_registers(dp);
+    if (t > 0 && lane == 0) mbar_arrive(&sm.empty[(t - 1) % STAGES]);
+
+    const int nvalid = N - t * BT;  // columns of this tile below N
+    if (nvalid >= BT) {
+      dq_elementwise<false>(s, dp, ds, lse2_r, dis_r, scale, scale_log2, nvalid, col0);
+    } else {
+      dq_elementwise<true>(s, dp, ds, lse2_r, dis_r, scale, scale_log2, nvalid, col0);
+    }
+
+    fence_registers(dq);
+    wgmma_fence();
+    product_rows(dq, ds, desc_k);  // dQ += dS K, left in flight under the next tile's first products
+    wgmma_commit();
+  }
+  wgmma_wait<0>();
+  fence_registers(dq);
+
+  named_barrier_sync(1 + wg, 128);  // every warp has read its rows of the Q tile
+  store_accumulator(sm.q[wg], dq, warp, lane);
+  fence_proxy_async();
+  named_barrier_sync(1 + wg, 128);
+  if (tid == 0) {
+    tma_store_4d(map_dq, sm.q[wg], 0, h, wg_row0, b);
+    tma_store_commit();
+    tma_store_wait_read();
+  }
 }
 
-__global__ void __launch_bounds__(THREADS)
-attention_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                         const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
-                         const float* __restrict__ lse, const float* __restrict__ di_in,
-                         __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int N,
-                         int H, float scale) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
-  const int k0 = blockIdx.x * BT;
+template <int WGS, int STAGES, int BLOCKS>
+__global__ void __launch_bounds__((WGS + 1) * 128, BLOCKS)
+attention_bwd_dq_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
+                        const __grid_constant__ CUtensorMap map_v, const __grid_constant__ CUtensorMap map_dout,
+                        const __grid_constant__ CUtensorMap map_dq, const DqArgs args) {
+  extern __shared__ unsigned char smem_raw[];
+  DqSmem<WGS, STAGES>& sm = aligned_smem<DqSmem<WGS, STAGES>>(smem_raw);
+  const int row0 = blockIdx.x * (WGS * BT);
   const int h = blockIdx.y;
   const int b = blockIdx.z;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const size_t bh = (size_t)b * H + h;
+  const int tiles = (args.N + BT - 1) / BT;
+  const int active = min(WGS, (args.N - row0 + BT - 1) / BT);  // warpgroups with a row below N
+  const int wg = threadIdx.x / 128;
 
-  load_tile(sm.own0, k, b, h, k0, N, H);
-  load_tile(sm.own1, v, b, h, k0, N, H);
+  if (threadIdx.x == 0) {
+    mbar_init(&sm.own, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&sm.full[s], 1);
+      mbar_init(&sm.empty[s], active * 4);  // one arrival a consumer warp
+    }
+    mbar_init_fence();
+  }
   __syncthreads();
 
-  FragA kf[D / 16], vf[D / 16];
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    wmma::load_matrix_sync(kf[kk], sm.own0 + warp * 16 * LDH + kk * 16, LDH);
-    wmma::load_matrix_sync(vf[kk], sm.own1 + warp * 16 * LDH + kk * 16, LDH);
+  // the two roles never meet again: ptxas then gives each its own registers
+  if (wg == WGS) {
+    registers_release<Registers<WGS, BLOCKS>::PRODUCER>();
+    if (threadIdx.x % 128 == 0) dq_produce(sm, &map_q, &map_k, &map_v, &map_dout, row0, h, b, active, tiles);
+  } else {
+    registers_take<Registers<WGS, BLOCKS>::CONSUMER>();
+    if (wg < active) dq_consume(sm, &map_dq, args, wg, row0 + wg * BT, h, b, tiles);
   }
-  FragC dk_acc[D / 16], dv_acc[D / 16];
-#pragma unroll
-  for (int j = 0; j < D / 16; ++j) {
-    wmma::fill_fragment(dk_acc[j], 0.f);
-    wmma::fill_fragment(dv_acc[j], 0.f);
-  }
-
-  const int row = lane / 2;
-  const int half = lane % 2;
-  const float scale_log2 = scale * LOG2E;
-  float* srow = sm.s + (warp * 16 + row) * LDS;
-  float* dprow = sm.dp + (warp * 16 + row) * LDS;
-  __nv_bfloat16* prow = sm.p + (warp * 16 + row) * LDP;
-  __nv_bfloat16* dsrow = sm.ds + (warp * 16 + row) * LDP;
-
-  for (int q0 = 0; q0 < N; q0 += BT) {
-    __syncthreads();  // every warp is done with the previous Q/dO tile
-    load_tile(sm.walk0, q, b, h, q0, N, H);
-    load_tile(sm.walk1, dout, b, h, q0, N, H);
-    if (threadIdx.x < BT) {
-      const int n = q0 + threadIdx.x;
-      sm.lse[threadIdx.x] = n < N ? lse[bh * N + n] * LOG2E : 0.f;
-      sm.di[threadIdx.x] = n < N ? di_in[bh * N + n] : 0.f;
-    }
-    __syncthreads();
-
-    mma_nt(sm.s + warp * 16 * LDS, kf, sm.walk0);   // S^T = K Q^T
-    mma_nt(sm.dp + warp * 16 * LDS, vf, sm.walk1);  // dP^T = V dO^T
-    __syncwarp();
-
-    const int nvalid = min(BT, N - q0);
-    for (int c = half * (BT / 2); c < (half + 1) * (BT / 2); ++c) {
-      float p = 0.f, ds = 0.f;
-      if (c < nvalid) {
-        p = exp2f(srow[c] * scale_log2 - sm.lse[c]);
-        ds = p * (dprow[c] - sm.di[c]) * scale;
-      }
-      prow[c] = __float2bfloat16(p);
-      dsrow[c] = __float2bfloat16(ds);
-    }
-    __syncwarp();
-
-    mma_rows(dv_acc, sm.p + warp * 16 * LDP, LDP, sm.walk1);   // dV += P^T dO
-    mma_rows(dk_acc, sm.ds + warp * 16 * LDP, LDP, sm.walk0);  // dK += dS^T Q
-  }
-  store_rows(dk_acc, sm.s, dk, b, h, k0, N, H);
-  __syncwarp();
-  store_rows(dv_acc, sm.dp, dv, b, h, k0, N, H);
 }
+
+// --------------------------------------------------------------------- dkv
+
+struct DkvArgs {
+  const float* lse;
+  const float* di;
+  int N, H;
+  float scale;
+};
+
+// one warp: lane 0 starts the loads (the block's own K and V tiles, then the
+// Q and dO tiles into the ring), every lane brings two rows' lse and di of
+// each walked tile, read one tile ahead
+template <int WGS, int STAGES>
+__device__ __forceinline__ void dkv_produce(DkvSmem<WGS, STAGES>& sm, const CUtensorMap* map_q,
+                                            const CUtensorMap* map_k, const CUtensorMap* map_v,
+                                            const CUtensorMap* map_dout, const DkvArgs& a, int row0, int h, int b,
+                                            int active, int tiles) {
+  const int lane = threadIdx.x % 32;
+  const int N = a.N;
+  if (lane == 0) {
+    mbar_arrive_expect_tx(&sm.own, active * 2 * TILE_BYTES);
+    for (int w = 0; w < active; ++w) {
+      tma_load_4d(sm.k[w], map_k, &sm.own, 0, h, row0 + w * BT, b);
+      tma_load_4d(sm.v[w], map_v, &sm.own, 0, h, row0 + w * BT, b);
+    }
+  }
+  const float* lse_bh = a.lse + ((size_t)b * a.H + h) * N;
+  const float* di_bh = a.di + ((size_t)b * a.H + h) * N;
+  float l[2], d[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int n = lane + 32 * i;
+    l[i] = n < N ? lse_bh[n] * LOG2E : 0.f;
+    d[i] = n < N ? di_bh[n] * a.scale : 0.f;
+  }
+  for (int t = 0; t < tiles; ++t) {
+    const int s = t % STAGES;
+    mbar_wait(&sm.empty[s], ((t / STAGES) & 1) ^ 1);
+    if (lane == 0) {
+      mbar_arrive_expect_tx(&sm.full[s], 2 * TILE_BYTES);
+      tma_load_4d(sm.q[s], map_q, &sm.full[s], 0, h, t * BT, b);
+      tma_load_4d(sm.dout[s], map_dout, &sm.full[s], 0, h, t * BT, b);
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      sm.lse2[s][lane + 32 * i] = l[i];
+      sm.dis[s][lane + 32 * i] = d[i];
+    }
+    mbar_arrive(&sm.full[s]);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {  // the next tile's, read while its slot is awaited
+      const int n = (t + 1) * BT + lane + 32 * i;
+      l[i] = n < N ? lse_bh[n] * LOG2E : 0.f;
+      d[i] = n < N ? di_bh[n] * a.scale : 0.f;
+    }
+  }
+}
+
+// P^T and dS^T on the accumulators' registers, packed to bf16 as the A
+// operands of dV += P^T dO and dK += dS^T Q. The statistics belong to the
+// columns (query rows) here. MASK: columns at or past `nvalid` give 0.
+template <bool MASK>
+__device__ __forceinline__ void dkv_elementwise(const float (&st)[32], const float (&dpt)[32], uint32_t (&p)[16],
+                                                uint32_t (&ds)[16], const float* lse2, const float* dis, float scale,
+                                                float scale_log2, int nvalid, int col0) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int c = 8 * j + col0;
+    const float2 l2 = *reinterpret_cast<const float2*>(lse2 + c);
+    const float2 di = *reinterpret_cast<const float2*>(dis + c);
+#pragma unroll
+    for (int hi = 0; hi < 2; ++hi) {
+      const int i = 4 * j + 2 * hi;
+      float p0 = fast_exp2(fmaf(st[i], scale_log2, -l2.x));
+      float p1 = fast_exp2(fmaf(st[i + 1], scale_log2, -l2.y));
+      if (MASK && c >= nvalid) p0 = 0.f;
+      if (MASK && c + 1 >= nvalid) p1 = 0.f;
+      p[a_index(j, hi)] = pack_bf16(p0, p1);
+      ds[a_index(j, hi)] = pack_bf16(p0 * fmaf(dpt[i], scale, -di.x), p1 * fmaf(dpt[i + 1], scale, -di.y));
+    }
+  }
+}
+
+// warpgroup `wg` of the block: dK and dV of its 64 key rows (key rows past N
+// compute values that the store cuts)
+template <int WGS, int STAGES>
+__device__ __forceinline__ void dkv_consume(DkvSmem<WGS, STAGES>& sm, const CUtensorMap* map_dk,
+                                            const CUtensorMap* map_dv, const DkvArgs& a, int wg, int wg_row0,
+                                            int h, int b, int tiles) {
+  const int tid = threadIdx.x % 128;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int col0 = (lane % 4) * 2;
+  const int N = a.N;
+  const float scale = a.scale;
+  const float scale_log2 = scale * LOG2E;
+
+  float dk[32], dv[32], st[32], dpt[32];
+  uint32_t p[16], ds[16];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    dk[i] = 0.f;
+    dv[i] = 0.f;
+  }
+
+  mbar_wait(&sm.own, 0);
+  uint32_t a_k[16], a_v[16];  // the own rows stay in registers for the whole walk
+  load_a_operand(a_k, sm.k[wg], warp, lane);
+  load_a_operand(a_v, sm.v[wg], warp, lane);
+
+  for (int t = 0; t < tiles; ++t) {
+    const int slot = t % STAGES;
+    mbar_wait(&sm.full[slot], (t / STAGES) & 1);
+    const uint64_t desc_q = wgmma_desc(sm.q[slot]);
+    const uint64_t desc_do = wgmma_desc(sm.dout[slot]);
+
+    fence_registers(st);
+    fence_registers(dpt);
+    wgmma_fence();
+    products_nt(st, a_k, desc_q, dpt, a_v, desc_do);  // S^T = K Q^T, dP^T = V dO^T
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_registers(st);
+    fence_registers(dpt);
+
+    const int nvalid = N - t * BT;
+    if (nvalid >= BT) {
+      dkv_elementwise<false>(st, dpt, p, ds, sm.lse2[slot], sm.dis[slot], scale, scale_log2, nvalid, col0);
+    } else {
+      dkv_elementwise<true>(st, dpt, p, ds, sm.lse2[slot], sm.dis[slot], scale, scale_log2, nvalid, col0);
+    }
+
+    fence_registers(dv);
+    fence_registers(dk);
+    wgmma_fence();
+    products_rows(dv, p, desc_do, dk, ds, desc_q);  // dV += P^T dO, dK += dS^T Q
+    wgmma_commit();
+    wgmma_wait<0>();
+    if (lane == 0) mbar_arrive(&sm.empty[slot]);
+  }
+  fence_registers(dv);
+  fence_registers(dk);
+
+  named_barrier_sync(1 + wg, 128);  // every warp has read its rows of the K and V tiles
+  store_accumulator(sm.k[wg], dk, warp, lane);
+  store_accumulator(sm.v[wg], dv, warp, lane);
+  fence_proxy_async();
+  named_barrier_sync(1 + wg, 128);
+  if (tid == 0) {
+    tma_store_4d(map_dk, sm.k[wg], 0, h, wg_row0, b);
+    tma_store_4d(map_dv, sm.v[wg], 0, h, wg_row0, b);
+    tma_store_commit();
+    tma_store_wait_read();
+  }
+}
+
+template <int WGS, int STAGES, int BLOCKS>
+__global__ void __launch_bounds__((WGS + 1) * 128, BLOCKS)
+attention_bwd_dkv_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
+                         const __grid_constant__ CUtensorMap map_v, const __grid_constant__ CUtensorMap map_dout,
+                         const __grid_constant__ CUtensorMap map_dk, const __grid_constant__ CUtensorMap map_dv,
+                         const DkvArgs args) {
+  extern __shared__ unsigned char smem_raw[];
+  DkvSmem<WGS, STAGES>& sm = aligned_smem<DkvSmem<WGS, STAGES>>(smem_raw);
+  const int row0 = blockIdx.x * (WGS * BT);
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int tiles = (args.N + BT - 1) / BT;
+  const int active = min(WGS, (args.N - row0 + BT - 1) / BT);
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    mbar_init(&sm.own, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&sm.full[s], 33);  // the loads' announcement and each producer lane's statistics
+      mbar_init(&sm.empty[s], active * 4);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (wg == WGS) {
+    registers_release<Registers<WGS, BLOCKS>::PRODUCER>();
+    if (threadIdx.x % 128 < 32) dkv_produce(sm, &map_q, &map_k, &map_v, &map_dout, args, row0, h, b, active, tiles);
+  } else {
+    registers_take<Registers<WGS, BLOCKS>::CONSUMER>();
+    if (wg < active) dkv_consume(sm, &map_dk, &map_dv, args, wg, row0 + wg * BT, h, b, tiles);
+  }
+}
+
+// ------------------------------------------------------------------ launch
 
 bool bad_shape(int B, int N, int H, int head_dim) {
   return head_dim != D || B <= 0 || N <= 0 || H <= 0;
 }
 
+// raises the kernel's dynamic shared memory limit, once per device
+template <class Kernel>
+cudaError_t allow_smem(Kernel kernel, int bytes, bool (&done)[MAX_DEVICES]) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  if (!done[dev]) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return err;
+    done[dev] = true;
+  }
+  return cudaSuccess;
+}
+
+// one tensor map per tensor per call (the pointers differ every call)
+template <int COUNT>
+int encode_maps(CUtensorMap (&maps)[COUNT], const void* const (&bases)[COUNT], int B, int N, int H) {
+  for (int i = 0; i < COUNT; ++i) {
+    const int bad = encode_head_tile_map(&maps[i], bases[i], B, N, H);
+    if (bad) return bad;
+  }
+  return 0;
+}
+
 }  // namespace
 
 // q, k, v, o, dout, dq: (B, N, H, D) bf16; lse, di: (B, H, N) fp32; all
-// contiguous on the current device. Writes dq and di.
+// contiguous, 16-byte aligned, on the current device. Writes dq and di.
 // Returns a cudaError_t (0 = launched).
 extern "C" int attention_bwd_dq(const void* q, const void* k, const void* v, const void* o,
                                 const void* dout, const void* lse, void* dq, void* di, int B,
                                 int N, int H, int head_dim, float scale, void* stream) {
   if (bad_shape(B, N, H, head_dim)) return (int)cudaErrorInvalidValue;
-  const int smem = (int)sizeof(Smem);
-  cudaError_t err = cudaFuncSetAttribute(attention_bwd_dq_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const auto kernel = attention_bwd_dq_kernel<BWD_DQ_WGS, BWD_DQ_STAGES, BWD_DQ_BLOCKS>;
+  const int smem = (int)sizeof(DqSmem<BWD_DQ_WGS, BWD_DQ_STAGES>) + 1024;  // room to align the tiles
+  static bool allowed[MAX_DEVICES] = {};
+  const cudaError_t err = allow_smem(kernel, smem, allowed);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((N + BT - 1) / BT, H, B);
-  attention_bwd_dq_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v,
-      (const __nv_bfloat16*)o, (const __nv_bfloat16*)dout, (const float*)lse,
-      (__nv_bfloat16*)dq, (float*)di, N, H, scale);
+  CUtensorMap maps[5];
+  const void* const bases[5] = {q, k, v, dout, dq};
+  const int bad = encode_maps(maps, bases, B, N, H);
+  if (bad) return bad;
+  const dim3 grid((N + BWD_DQ_WGS * BT - 1) / (BWD_DQ_WGS * BT), H, B);
+  kernel<<<grid, (BWD_DQ_WGS + 1) * 128, smem, (cudaStream_t)stream>>>(
+      maps[0], maps[1], maps[2], maps[3], maps[4],
+      DqArgs{(const __nv_bfloat16*)o, (const __nv_bfloat16*)dout, (const float*)lse, (float*)di, N, H, scale});
   return (int)cudaGetLastError();
 }
 
 // q, k, v, dout, dk, dv: (B, N, H, D) bf16; lse, di: (B, H, N) fp32 (di
-// from attention_bwd_dq); all contiguous on the current device. Writes dk
-// and dv. Returns a cudaError_t (0 = launched).
+// from attention_bwd_dq); all contiguous, 16-byte aligned, on the current
+// device. Writes dk and dv. Returns a cudaError_t (0 = launched).
 extern "C" int attention_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
                                  const void* lse, const void* di, void* dk, void* dv, int B,
                                  int N, int H, int head_dim, float scale, void* stream) {
   if (bad_shape(B, N, H, head_dim)) return (int)cudaErrorInvalidValue;
-  const int smem = (int)sizeof(Smem);
-  cudaError_t err = cudaFuncSetAttribute(attention_bwd_dkv_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const auto kernel = attention_bwd_dkv_kernel<BWD_DKV_WGS, BWD_DKV_STAGES, BWD_DKV_BLOCKS>;
+  const int smem = (int)sizeof(DkvSmem<BWD_DKV_WGS, BWD_DKV_STAGES>) + 1024;
+  static bool allowed[MAX_DEVICES] = {};
+  const cudaError_t err = allow_smem(kernel, smem, allowed);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((N + BT - 1) / BT, H, B);
-  attention_bwd_dkv_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v,
-      (const __nv_bfloat16*)dout, (const float*)lse, (const float*)di, (__nv_bfloat16*)dk,
-      (__nv_bfloat16*)dv, N, H, scale);
+  CUtensorMap maps[6];
+  const void* const bases[6] = {q, k, v, dout, dk, dv};
+  const int bad = encode_maps(maps, bases, B, N, H);
+  if (bad) return bad;
+  const dim3 grid((N + BWD_DKV_WGS * BT - 1) / (BWD_DKV_WGS * BT), H, B);
+  kernel<<<grid, (BWD_DKV_WGS + 1) * 128, smem, (cudaStream_t)stream>>>(
+      maps[0], maps[1], maps[2], maps[3], maps[4], maps[5],
+      DkvArgs{(const float*)lse, (const float*)di, N, H, scale});
   return (int)cudaGetLastError();
 }

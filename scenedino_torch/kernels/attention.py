@@ -5,8 +5,10 @@ The ViT calls `attention` for every block. It is a
 `torch.autograd.Function`: on CUDA tensors the forward launches the
 hand-written kernel of `csrc/attention.cu` (bf16, D = 64), which also
 writes the rows' log-sum-exp when a gradient is needed, and the backward
-launches the two kernels of `csrc/attention_bwd.cu`: `attention_bwd_dq`
-(dQ, and di = rowsum(dO o)) then `attention_bwd_dkv` (dK, dV). On CPU
+launches the two kernels of `csrc/attention_bwd.cu` (wgmma products on
+tiles that TMA loads; the primitives are in `csrc/hopper.cuh`):
+`attention_bwd_dq` (dQ, and di = rowsum(dO o)) then `attention_bwd_dkv`
+(dK, dV). On CPU
 tensors the same Function takes `attention_plain` and
 `attention_bwd_plain`. Anything else raises. It replaces the Pallas TPU
 flash attention reached from `scenedino_tpu/models/vit.py:126` and its
@@ -15,7 +17,7 @@ custom VJP (`_flash_attention_bwd_dkv`, `_flash_attention_bwd_dq`).
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -88,12 +90,36 @@ def _check_cuda(*ts: torch.Tensor) -> None:
         )
     if not all(t.is_contiguous() for t in ts):
         raise ValueError("the CUDA attention kernels take contiguous tensors")
+    _check_aligned(*ts)
+
+
+def _check_aligned(*ts: torch.Tensor) -> None:
+    """The kernels read 16 bytes at a time and the backward's tensor maps
+    need a 16-byte aligned base: a view that starts inside an allocation
+    may not be."""
+    for t in ts:
+        if t.data_ptr() % 16:
+            raise ValueError(f"the CUDA attention kernels take 16-byte aligned tensors, got one at "
+                             f"{t.data_ptr():#x} (storage offset {t.storage_offset()})")
+
+
+_functions: Dict[Tuple[str, str], Callable] = {}
+
+
+def _function(lib_name: str, fn_name: str, n_ptrs: int) -> Callable:
+    """The C function `fn_name` of `csrc/<lib_name>.cu`; its ctypes
+    signature is set once, when it is first looked up."""
+    fn = _functions.get((lib_name, fn_name))
+    if fn is None:
+        fn = getattr(build.load(lib_name), fn_name)
+        fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _functions[lib_name, fn_name] = fn
+    return fn
 
 
 def _launch(lib_name: str, fn_name: str, n_ptrs: int, ptrs, dims, device) -> None:
-    fn = getattr(build.load(lib_name), fn_name)
-    fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = _function(lib_name, fn_name, n_ptrs)
     B, N, H, D = dims
     with torch.cuda.device(device):
         err = fn(*ptrs, B, N, H, D, D ** -0.5, torch.cuda.current_stream(device).cuda_stream)

@@ -103,6 +103,39 @@ def build(names: Iterable[str]) -> Dict[str, float]:
     return seconds
 
 
+_PTXAS_ENTRY = re.compile(r"Compiling entry function '([^']+)'")
+_PTXAS_SPILL = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads")
+_PTXAS_USED = re.compile(r"Used (\d+) registers")
+
+
+def ptxas_report(log: str) -> Dict[str, Dict[str, int]]:
+    """What `-Xptxas -v` said of each kernel in nvcc's output `log`: by
+    (mangled) entry name, its `registers`, `stack`, `spill_stores` and
+    `spill_loads` (bytes)."""
+    report: Dict[str, Dict[str, int]] = {}
+    entry = None
+    for line in log.splitlines():
+        m = _PTXAS_ENTRY.search(line)
+        if m:
+            entry = report.setdefault(m.group(1), {})
+            continue
+        if entry is None:
+            continue
+        m = _PTXAS_SPILL.search(line)
+        if m:
+            entry.update(zip(("stack", "spill_stores", "spill_loads"), map(int, m.groups())))
+        m = _PTXAS_USED.search(line)
+        if m:
+            entry["registers"] = int(m.group(1))
+    return report
+
+
+def build_log(name: str) -> str:
+    """nvcc's output of the last build of `csrc/<name>.cu` in this checkout ('' if none)."""
+    path = BUILD_DIR / f"{name}.log"
+    return path.read_text(errors="replace") if path.exists() else ""
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of `csrc/<name>.cu`, built first if needed."""
     with _lock:

@@ -18,7 +18,7 @@ log-sum-exp 1e-3 (fp32 statistics of bf16 inputs, summed in another
 order); the backward's dq, dk, dv K1_BWD_REL of the largest magnitude of
 the plain result plus 1e-3 (P and dS are rounded to bf16 for the
 products, the results to bf16; at N = 1 dq and dk are round-off around
-0).
+0); two launches of the backward kernels give the same bits (no atomics).
 """
 import numpy as np
 import pytest
@@ -126,10 +126,12 @@ def test_attention_kernel_refuses_what_it_does_not_take(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [1, 63, 64, 65, 200])
-def test_attention_backward_kernels_match_plain(cuda, n):
+@pytest.mark.parametrize("n,batch", [(1, 2), (63, 2), (64, 2), (65, 2), (128, 2), (129, 2), (200, 2), (1921, 1)])
+def test_attention_backward_kernels_match_plain(cuda, n, batch):
+    """Ragged token counts around the 64-row tile and the 128-row block of
+    two warpgroups, and the ViT-B/8 count at 192x640."""
     g = torch.Generator(device=cuda).manual_seed(100 + n)
-    q, k, v, do = (torch.randn(2, n, 3, 64, generator=g, device=cuda).to(torch.bfloat16) for _ in range(4))
+    q, k, v, do = (torch.randn(batch, n, 3, 64, generator=g, device=cuda).to(torch.bfloat16) for _ in range(4))
     out, lse = attention_fwd(q, k, v, with_lse=True)
     assert (lse - attention_lse_plain(q, k)).abs().max().item() <= 1e-3
     leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
@@ -143,6 +145,25 @@ def test_attention_backward_kernels_match_plain(cuda, n):
         assert torch.isfinite(got).all()
         err = (got.float() - ref.float()).abs().max().item()
         assert err <= K1_BWD_REL * ref.float().abs().max().item() + 1e-3, err
+
+
+@pytest.mark.cuda
+def test_attention_backward_kernels_repeat_bitwise_and_refuse_misaligned(cuda):
+    from scenedino_torch.kernels.attention import attention_bwd_dkv, attention_bwd_dq
+
+    g = torch.Generator(device=cuda).manual_seed(7)
+    q, k, v, do = (torch.randn(2, 200, 3, 64, generator=g, device=cuda).to(torch.bfloat16) for _ in range(4))
+    o, lse = attention_fwd(q, k, v, with_lse=True)
+    first = attention_bwd_dq(q, k, v, o, do, lse)
+    again = attention_bwd_dq(q, k, v, o, do, lse)
+    first += attention_bwd_dkv(q, k, v, do, lse, first[1])
+    again += attention_bwd_dkv(q, k, v, do, lse, again[1])
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, again))  # no atomics
+    store = torch.zeros(q.numel() + 1, device=cuda, dtype=torch.bfloat16)
+    shifted = store[1:].view(q.shape)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        attention_bwd_dq(shifted, k, v, o, do, lse)
 
 
 @pytest.mark.cuda
