@@ -7,9 +7,13 @@ its hand-written kernels against their plain PyTorch versions.
 Phases, one line each:
   0 device   the card's name and power limit; TF32 off for fp32 compares
   1 build    nvcc builds every kernel of the paths from csrc/ (sm_90a);
-             the K1 backward kernels' registers and spills (none allowed)
-  2 K1       attention kernel vs its plain version at ViT-B/8 @192x640
-             (1, 1921, 12, 64) bf16; kernel, plain and
+             the K1 forward and backward kernels' registers and spills
+             (none allowed)
+  2 K1       the attention forward kernel vs its plain versions (output
+             and log-sum-exp) at the three shapes its paths give it:
+             ViT-B/8 @192x640 serving (1, 1921, 12, 64), the training
+             step's student (4, ...) with the log-sum-exp and teacher
+             (8, ...), bf16; two launches bitwise equal; kernel, plain and
              F.scaled_dot_product_attention times (the last only as a
              yardstick: the port never calls it)
   2b K1-bwd  the backward kernels (dq; dk and dv) vs the plain fp32
@@ -30,7 +34,8 @@ Phases, one line each:
   3d gather  the row-gather kernel at P1's shape (256 rows of a 512x128
              fp32 table) and P2's (2^20 rows of a 32768x128 bf16
              table), exact at both; kernel, plain and torch.index_select
-             times
+             times, and at P1's its C function called alone (the host's
+             floor of a launch)
   Bounds: the larger of the bytes moved (each input read once, each
   output written once; of a folded grid only the distinct rows that the
   points' corner lookups read) over 3.35 TB/s and the FLOP over the bf16
@@ -57,7 +62,8 @@ Phases, one line each:
              profile; then one step at 32x96 is checked against the same
              model run on the CPU
   6 kernels  one JSON line: launches (all serving paths and training
-             together), error, times and bound per kernel
+             together), error, times and bound per kernel; the K1 forward's
+             also at each of its three shapes ("shapes")
 The line before the last is the card's name and power limit as
 nvidia-smi prints them; the last line is {"ok": true, "device": {...}}.
 Any failed phase exits non-zero before that line. Needs one CUDA card;
@@ -79,6 +85,7 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 # bounds of the kernel-vs-plain comparisons
 K1_TOL = 2e-2  # bf16 output (ulp 2^-8 at |x| ~ 1) plus P rounded to bf16 for P @ V
+K1_LSE_TOL = 1e-3  # fp32 statistics of the same bf16 logits, another order, approximate exp2
 K2_DEPTH_TOL = 5e-2  # metres: sample weights move by bf16 rounding flips of h
 K2_FEAT_TOL = 5e-3  # one bf16 ulp of h through W2 (|W2| ~ 0.1)
 K2_RGB_TOL = 5e-3  # fp32 colour blend on both sides; only the weights differ
@@ -138,27 +145,47 @@ def intrinsics(device):
 
 
 def phase_k1(gen):
-    from scenedino_torch.kernels.attention import attention, attention_plain
+    """The forward at the three shapes its paths give it: output and (where
+    the path asks for it) log-sum-exp against the plain versions, two
+    launches bitwise equal, kernel, plain, SDPA and bound times."""
+    from scenedino_torch.kernels.attention import attention_fwd, attention_lse_plain, attention_plain
     from scenedino_torch.utils.timing import time_ms
 
-    B, N, Hh, D = 1, 1921, 12, 64
-    q, k, v = (torch.randn(B, N, Hh, D, generator=gen, device="cuda").to(torch.bfloat16) for _ in range(3))
-    out = attention(q, k, v)
-    torch.cuda.synchronize()
-    err = (out.float() - attention_plain(q, k, v).float()).abs().max().item()
-    if not err <= K1_TOL:
-        fail(f"K1 attention disagrees with its plain version: max abs err {err} > {K1_TOL}")
-    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    ms = time_ms(lambda: attention(q, k, v), inner=10)
-    plain_ms = time_ms(lambda: attention_plain(q, k, v))
-    lib_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt), inner=10)
-    b, by = bound_ms(4.0 * B * Hh * N * N * D, 4 * B * N * Hh * D * 2)
-    print(f"phase 2 K1 attention (1, {N}, {Hh}, {D}) bf16: max_abs_err {err:.3e} (bound {K1_TOL}); "
-          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {b:.4f} ms ({by})",
-          flush=True)
+    shapes = []
+    for B, with_lse, path in ((1, False, "serving"), (4, True, "student"), (8, False, "teacher")):
+        N, Hh, D = 1921, 12, 64
+        q, k, v = (torch.randn(B, N, Hh, D, generator=gen, device="cuda").to(torch.bfloat16) for _ in range(3))
+        out, lse = attention_fwd(q, k, v, with_lse=with_lse)
+        again = attention_fwd(q, k, v, with_lse=with_lse)
+        torch.cuda.synchronize()
+        if not (torch.equal(out, again[0]) and (lse is None or torch.equal(lse, again[1]))):
+            fail(f"K1 forward ({B}, {N}, {Hh}, {D}): two launches on the same inputs differ")
+        err = (out.float() - attention_plain(q, k, v).float()).abs().max().item()
+        lse_err = (lse - attention_lse_plain(q, k)).abs().max().item() if with_lse else None
+        if not (torch.isfinite(out).all() and err <= K1_TOL and (lse_err is None or lse_err <= K1_LSE_TOL)):
+            fail(f"K1 forward ({B}, {N}, {Hh}, {D}) disagrees with its plain version: max abs err {err} (bound "
+                 f"{K1_TOL}), lse {lse_err} (bound {K1_LSE_TOL})")
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        ms = time_ms(lambda: attention_fwd(q, k, v, with_lse=with_lse), inner=10)
+        plain_ms = time_ms(lambda: attention_plain(q, k, v), reps=5)
+        lib_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt), inner=10)
+        flops = 4.0 * B * Hh * N * N * D
+        b, by = bound_ms(flops, (4 * B * N * Hh * D * 2) + (B * Hh * N * 4 if with_lse else 0))
+        lse_text = f", lse {lse_err:.3e} (bound {K1_LSE_TOL})" if with_lse else ""
+        print(f"phase 2 K1 forward ({B}, {N}, {Hh}, {D}) bf16, {path}{' with the lse' if with_lse else ''}: "
+              f"max_abs_err {err:.3e} (bound {K1_TOL}){lse_text}; two launches bitwise equal; kernel {ms:.4f} ms "
+              f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms "
+              f"({flops / lib_ms / 1e9:.1f} TFLOP/s; the kernel takes {ms / lib_ms:.2f} of it), bound {b:.4f} ms "
+              f"({by})", flush=True)
+        shapes.append({"shape": [B, N, Hh, D], "lse": with_lse, "max_abs_err": err, "lse_err": lse_err, "ms": ms,
+                       "plain_ms": plain_ms, "bound_ms": b, "bound_by": by, "library_ms": lib_ms})
+        del q, k, v, qt, kt, vt, out, lse, again
+    serving = shapes[0]
     return {"name": "attention", "route": "cuda", "source": "scenedino_torch/csrc/attention.cu",
-            "replaces": "scenedino_tpu/models/vit.py:126", "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": b, "bound_by": by, "library_ms": lib_ms}
+            "replaces": "scenedino_tpu/models/vit.py:126",
+            "max_abs_err": max(e["max_abs_err"] for e in shapes),
+            **{key: serving[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+            "shapes": shapes}
 
 
 def phase_k1_bwd(gen):
@@ -477,7 +504,8 @@ def phase_k4(gen):
 
 def phase_gather(seed):
     """The row gather at P1's and P2's shapes, through their tools."""
-    from scenedino_torch.kernels.row_gather import row_gather, row_gather_plain
+    from scenedino_torch.kernels import build
+    from scenedino_torch.kernels.row_gather import ARGTYPES, row_gather, row_gather_plain
     from scenedino_torch.tools import bench_gather, probe_gather
     from scenedino_torch.utils.timing import time_ms
 
@@ -486,13 +514,22 @@ def phase_gather(seed):
     rows, C, n = probe_gather.ROWS, probe_gather.C, probe_gather.BLK
     t1 = torch.arange(rows * C, dtype=torch.float32, device="cuda").reshape(rows, C)
     i1 = torch.from_numpy(np.random.RandomState(0).randint(0, rows, n).astype(np.int32)).cuda()
-    p1 = {name: time_ms(fn, reps=20, inner=20) for name, fn in (
-        ("kernel", lambda: row_gather(t1, i1)), ("plain", lambda: row_gather_plain(t1, i1)),
-        ("index_select", lambda: torch.index_select(t1, 0, i1)))}
+    # the C function alone through ctypes, pointers and stream taken before: the launch's own floor
+    fn = build.function("row_gather", "row_gather", ARGTYPES)
+    o1, stream = torch.empty(n, C, device="cuda"), torch.cuda.current_stream().cuda_stream
+    ptrs = (t1.data_ptr(), i1.data_ptr(), o1.data_ptr(), n, rows, C * 4, stream)
+    p1 = {name: time_ms(f, reps=20, inner=20) for name, f in (
+        ("kernel", lambda: row_gather(t1, i1)), ("c_call", lambda: fn(*ptrs)),
+        ("empty", lambda: torch.empty((n, C), dtype=t1.dtype, device=t1.device)),
+        ("plain", lambda: row_gather_plain(t1, i1)), ("index_select", lambda: torch.index_select(t1, 0, i1)))}
+    if not torch.equal(o1, row_gather_plain(t1, i1)):
+        fail("the row gather's C function at P1's shape is not exact")
     b1, by1 = bound_ms(0.0, n * C * 4 + nbytes(t1, i1))
     print(f"phase 3d row_gather at P1's shape ({n} rows of a {rows}x{C} fp32 table, exact): kernel "
-          f"{p1['kernel']:.4f} ms, plain {p1['plain']:.4f} ms, index_select {p1['index_select']:.4f} ms, bound "
-          f"{b1:.5f} ms ({by1})", flush=True)
+          f"{p1['kernel']:.4f} ms per call (the wrapper: checks, torch.empty, ctypes, launch; 20 back to back), "
+          f"its C function alone through ctypes {p1['c_call']:.4f} ms, the output's torch.empty alone "
+          f"{p1['empty']:.4f} ms, plain {p1['plain']:.4f} ms, index_select "
+          f"{p1['index_select']:.4f} ms, bound {b1:.5f} ms ({by1})", flush=True)
     m = bench_gather.measure(seed)
     if not m["equal"]:
         fail("the row gather at P2's shape differs from torch.index_select")
@@ -910,13 +947,15 @@ def main():
                        if "Used" in line]
     print(f"phase 1 build: {time.monotonic() - t0:.1f} s wall, per kernel {json.dumps(secs)}; "
           f"ptxas {json.dumps(ptxas)}", flush=True)
-    # the backward kernels hold four accumulators a thread: a spill would put them in local memory
-    bwd = {("dq" if "bwd_dq" in entry else "dkv"): r
-           for entry, r in build.ptxas_report(build.build_log("attention_bwd")).items()}
-    print(f"phase 1 K1 backward kernels, registers at launch (a consumer warpgroup then takes the producer's, "
-          f"see csrc/attention_bwd.cu) and spills in bytes: {json.dumps(bwd)}", flush=True)
-    if sorted(bwd) != ["dkv", "dq"] or any(r.get("spill_stores", 1) or r.get("spill_loads", 1) for r in bwd.values()):
-        fail(f"ptxas spilled in a K1 backward kernel, or its report is missing: {bwd}")
+    # the K1 kernels hold their accumulators in registers: a spill would put them in local memory
+    k1 = {("fwd" if "fwd" in entry else "dq" if "bwd_dq" in entry else "dkv"): r
+          for name in ("attention", "attention_bwd") for entry, r in build.ptxas_report(build.build_log(name)).items()}
+    print(f"phase 1 K1 kernels (forward, backward dq and dkv), registers at launch (a consumer warpgroup then takes "
+          f"the producer's, see csrc/attention.cu and attention_bwd.cu) and spills in bytes: {json.dumps(k1)}",
+          flush=True)
+    if sorted(k1) != ["dkv", "dq", "fwd"] or any(r.get("spill_stores", 1) or r.get("spill_loads", 1)
+                                                 for r in k1.values()):
+        fail(f"ptxas spilled in a K1 kernel, or its report is missing: {k1}")
 
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     entries = [phase_k1(gen), *phase_k1_bwd(gen), phase_k2(gen), *phase_probe(gen), phase_k4(gen)]
@@ -928,8 +967,8 @@ def main():
     if sorted(e["name"] for e in entries) != sorted(kernels.WRAPPERS):
         fail("the kernels line does not list every kernel")
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
-            "bound_ms", "bound_by", "library_ms"]
-    print(json.dumps({"kernels": [{k: e[k] for k in keys} for e in entries]}), flush=True)
+            "bound_ms", "bound_by", "library_ms", "shapes"]
+    print(json.dumps({"kernels": [{k: e[k] for k in keys if k in e} for e in entries]}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -95,7 +95,6 @@ using namespace hopper;
 constexpr int D = 64;   // head dim
 constexpr int BT = 64;  // rows of a warpgroup's own tile and of each walked tile
 constexpr float LOG2E = 1.4426950408889634f;
-constexpr int MAX_DEVICES = 64;
 
 static_assert(D == TILE && BT == TILE, "the tiles of hopper.cuh are 64 x 64");
 
@@ -119,24 +118,6 @@ struct DkvSmem {
   alignas(8) float dis[STAGES][BT];                      // walked: di * scale, 0 past N
   uint64_t own, full[STAGES], empty[STAGES];
 };
-
-// Registers a thread: a block of WGS + 1 warpgroups, BLOCKS of them on an
-// SM, starts with START everywhere (ptxas allots them to whole warpgroups);
-// the producer keeps PRODUCER and each consumer takes CONSUMER, so that all
-// fit into what the block started with.
-template <int WGS, int BLOCKS>
-struct Registers {
-  static constexpr int PER_THREAD = 65536 / (BLOCKS * (WGS + 1) * 128);
-  static constexpr int START = (PER_THREAD > 255 ? 255 : PER_THREAD) / 8 * 8;
-  static constexpr int PRODUCER = 24;
-  static constexpr int SHARE = ((WGS + 1) * START - PRODUCER) / WGS / 8 * 8;
-  static constexpr int CONSUMER = SHARE > 240 ? 240 : SHARE;
-};
-
-template <class Smem>
-__device__ __forceinline__ Smem& aligned_smem(unsigned char* raw) {
-  return *reinterpret_cast<Smem*>((reinterpret_cast<uintptr_t>(raw) + 1023) & ~uintptr_t(1023));
-}
 
 // acc0 = a0 times the transpose of walked tile b0 and acc1 = a1 times that
 // of b1 (all 64 x 64; a0, a1: own rows in registers), k-steps alternating
@@ -166,10 +147,6 @@ __device__ __forceinline__ void products_rows(float (&acc0)[32], const uint32_t 
     wgmma_m64n64k16_rs<1>(acc1, &a1[4 * kk], desc_b1 + kk * WGMMA_MN_STEP, 1);
   }
 }
-
-// where the A operand of a product keeps element (row + 8 hi, 8 j + column)
-// of an accumulator: the pair index in a[16]
-__device__ __forceinline__ constexpr int a_index(int j, int hi) { return 4 * (j / 2) + 2 * (j % 2) + hi; }
 
 // ---------------------------------------------------------------------- dq
 
@@ -563,31 +540,6 @@ bool bad_shape(int B, int N, int H, int head_dim) {
   return head_dim != D || B <= 0 || N <= 0 || H <= 0;
 }
 
-// raises the kernel's dynamic shared memory limit, once per device
-template <class Kernel>
-cudaError_t allow_smem(Kernel kernel, int bytes, bool (&done)[MAX_DEVICES]) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev < 0 || dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
-  if (!done[dev]) {
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (err != cudaSuccess) return err;
-    done[dev] = true;
-  }
-  return cudaSuccess;
-}
-
-// one tensor map per tensor per call (the pointers differ every call)
-template <int COUNT>
-int encode_maps(CUtensorMap (&maps)[COUNT], const void* const (&bases)[COUNT], int B, int N, int H) {
-  for (int i = 0; i < COUNT; ++i) {
-    const int bad = encode_head_tile_map(&maps[i], bases[i], B, N, H);
-    if (bad) return bad;
-  }
-  return 0;
-}
-
 }  // namespace
 
 // q, k, v, o, dout, dq: (B, N, H, D) bf16; lse, di: (B, H, N) fp32; all
@@ -599,12 +551,12 @@ extern "C" int attention_bwd_dq(const void* q, const void* k, const void* v, con
   if (bad_shape(B, N, H, head_dim)) return (int)cudaErrorInvalidValue;
   const auto kernel = attention_bwd_dq_kernel<BWD_DQ_WGS, BWD_DQ_STAGES, BWD_DQ_BLOCKS>;
   const int smem = (int)sizeof(DqSmem<BWD_DQ_WGS, BWD_DQ_STAGES>) + 1024;  // room to align the tiles
-  static bool allowed[MAX_DEVICES] = {};
-  const cudaError_t err = allow_smem(kernel, smem, allowed);
+  static bool allowed[hopper::MAX_DEVICES] = {};
+  const cudaError_t err = hopper::allow_smem(kernel, smem, allowed);
   if (err != cudaSuccess) return (int)err;
   CUtensorMap maps[5];
   const void* const bases[5] = {q, k, v, dout, dq};
-  const int bad = encode_maps(maps, bases, B, N, H);
+  const int bad = hopper::encode_maps(maps, bases, B, N, H);
   if (bad) return bad;
   const dim3 grid((N + BWD_DQ_WGS * BT - 1) / (BWD_DQ_WGS * BT), H, B);
   kernel<<<grid, (BWD_DQ_WGS + 1) * 128, smem, (cudaStream_t)stream>>>(
@@ -622,12 +574,12 @@ extern "C" int attention_bwd_dkv(const void* q, const void* k, const void* v, co
   if (bad_shape(B, N, H, head_dim)) return (int)cudaErrorInvalidValue;
   const auto kernel = attention_bwd_dkv_kernel<BWD_DKV_WGS, BWD_DKV_STAGES, BWD_DKV_BLOCKS>;
   const int smem = (int)sizeof(DkvSmem<BWD_DKV_WGS, BWD_DKV_STAGES>) + 1024;
-  static bool allowed[MAX_DEVICES] = {};
-  const cudaError_t err = allow_smem(kernel, smem, allowed);
+  static bool allowed[hopper::MAX_DEVICES] = {};
+  const cudaError_t err = hopper::allow_smem(kernel, smem, allowed);
   if (err != cudaSuccess) return (int)err;
   CUtensorMap maps[6];
   const void* const bases[6] = {q, k, v, dout, dk, dv};
-  const int bad = encode_maps(maps, bases, B, N, H);
+  const int bad = hopper::encode_maps(maps, bases, B, N, H);
   if (bad) return bad;
   const dim3 grid((N + BWD_DKV_WGS * BT - 1) / (BWD_DKV_WGS * BT), H, B);
   kernel<<<grid, (BWD_DKV_WGS + 1) * 128, smem, (cudaStream_t)stream>>>(

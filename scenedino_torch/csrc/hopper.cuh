@@ -152,6 +152,26 @@ __device__ __forceinline__ void registers_take() {
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(Regs));
 }
 
+// Registers a thread: a block of WGS consumer warpgroups and one producer
+// warpgroup, BLOCKS of them on an SM, starts with START everywhere; the
+// producer keeps PRODUCER and each consumer takes CONSUMER, so that all fit
+// into what the block started with.
+template <int WGS, int BLOCKS>
+struct Registers {
+  static constexpr int PER_THREAD = 65536 / (BLOCKS * (WGS + 1) * 128);
+  static constexpr int START = (PER_THREAD > 255 ? 255 : PER_THREAD) / 8 * 8;
+  static constexpr int PRODUCER = 24;
+  static constexpr int SHARE = ((WGS + 1) * START - PRODUCER) / WGS / 8 * 8;
+  static constexpr int CONSUMER = SHARE > 240 ? 240 : SHARE;
+};
+
+// the block's shared-memory struct at the first 1024-byte boundary of the
+// dynamic shared memory (launch with sizeof(Smem) + 1024 bytes)
+template <class Smem>
+__device__ __forceinline__ Smem& aligned_smem(unsigned char* raw) {
+  return *reinterpret_cast<Smem*>((reinterpret_cast<uintptr_t>(raw) + 1023) & ~uintptr_t(1023));
+}
+
 // keeps the compiler from moving accesses to an accumulator across a wgmma
 // batch that is in flight
 __device__ __forceinline__ void fence_registers(float (&d)[32]) {
@@ -193,6 +213,10 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], const uint32_
       : HOPPER_ACC32(d)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate), "n"(TransB));
 }
+
+// where the A operand of a product keeps element (row + 8 hi, 8 j + column)
+// of an accumulator: the pair index in a[16]
+__device__ __forceinline__ constexpr int a_index(int j, int hi) { return 4 * (j / 2) + 2 * (j % 2) + hi; }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
@@ -277,6 +301,33 @@ inline int encode_head_tile_map(CUtensorMap* map, const void* base, int B, int N
                               box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                               CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// one tensor map per tensor per call (the pointers differ every call)
+template <int COUNT>
+int encode_maps(CUtensorMap (&maps)[COUNT], const void* const (&bases)[COUNT], int B, int N, int H) {
+  for (int i = 0; i < COUNT; ++i) {
+    const int bad = encode_head_tile_map(&maps[i], bases[i], B, N, H);
+    if (bad) return bad;
+  }
+  return 0;
+}
+
+constexpr int MAX_DEVICES = 64;
+
+// raises the kernel's dynamic shared memory limit, once per device
+template <class Kernel>
+cudaError_t allow_smem(Kernel kernel, int bytes, bool (&done)[MAX_DEVICES]) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  if (!done[dev]) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return err;
+    done[dev] = true;
+  }
+  return cudaSuccess;
 }
 
 }  // namespace hopper

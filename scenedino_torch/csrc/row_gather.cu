@@ -26,6 +26,10 @@
 //
 // An index outside [0, rows) reads nothing: its output row is written as
 // zero bytes.
+//
+// At P1's 394 kB a call is host time, not device time: the launch asks the
+// runtime nothing but the current device (the SM count is kept per device),
+// and the wrapper looks the function up and types it once.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -56,6 +60,23 @@ __global__ void __launch_bounds__(THREADS) row_gather_kernel(
   }
 }
 
+constexpr int MAX_DEVICES = 64;
+
+// the current device's SM count, asked of the runtime once per device
+cudaError_t sm_count(int* sms) {
+  static int known[MAX_DEVICES] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  if (known[dev] == 0) {
+    err = cudaDeviceGetAttribute(&known[dev], cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+  }
+  *sms = known[dev];
+  return cudaSuccess;
+}
+
 }  // namespace
 
 // Pointers are device pointers on the current device, 16-byte aligned; the
@@ -69,12 +90,9 @@ extern "C" int row_gather(const void* table, const void* idx, void* out, long lo
   if (n == 0) return 0;
   const int vpr = row_bytes / 16;
   const int group = 32 / vpr;
-  int dev = 0, sms = 0;
-  cudaError_t err;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess) {
-    return (int)err;
-  }
+  int sms = 0;
+  const cudaError_t err = sm_count(&sms);
+  if (err != cudaSuccess) return (int)err;
   const long long ngroups = (n + group - 1) / group;
   long long blocks = (ngroups + WARPS - 1) / WARPS;
   const long long cap = (long long)sms * 16;

@@ -17,7 +17,7 @@ custom VJP (`_flash_attention_bwd_dkv`, `_flash_attention_bwd_dq`).
 from __future__ import annotations
 
 import ctypes
-from typing import Callable, Dict, Optional, Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -103,26 +103,11 @@ def _check_aligned(*ts: torch.Tensor) -> None:
                              f"{t.data_ptr():#x} (storage offset {t.storage_offset()})")
 
 
-_functions: Dict[Tuple[str, str], Callable] = {}
-
-
-def _function(lib_name: str, fn_name: str, n_ptrs: int) -> Callable:
-    """The C function `fn_name` of `csrc/<lib_name>.cu`; its ctypes
-    signature is set once, when it is first looked up."""
-    fn = _functions.get((lib_name, fn_name))
-    if fn is None:
-        fn = getattr(build.load(lib_name), fn_name)
-        fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _functions[lib_name, fn_name] = fn
-    return fn
-
-
 def _launch(lib_name: str, fn_name: str, n_ptrs: int, ptrs, dims, device) -> None:
-    fn = _function(lib_name, fn_name, n_ptrs)
+    fn = build.function(lib_name, fn_name, [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 4
+                        + [ctypes.c_float, ctypes.c_void_p])
     B, N, H, D = dims
-    with torch.cuda.device(device):
-        err = fn(*ptrs, B, N, H, D, D ** -0.5, torch.cuda.current_stream(device).cuda_stream)
+    err = build.call_on_stream(fn, device, *ptrs, B, N, H, D, D ** -0.5)
     if err != 0:
         raise RuntimeError(f"{fn_name} kernel launch failed: cudaError {err}")
 

@@ -6,7 +6,8 @@ so a build takes seconds. Libraries go to `build/kernels/` in the
 checkout, named by a hash of their source, the files it includes and the
 flags: a changed source or header is rebuilt at its first use, an
 unchanged one is loaded as it is. Nothing is built when a module is
-imported.
+imported. `function` looks a C function up and types it once;
+`call_on_stream` calls it on a device's current stream.
 """
 from __future__ import annotations
 
@@ -19,7 +20,9 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Iterable, List
+from typing import Dict, Iterable, List, Sequence, Tuple
+
+import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -29,6 +32,7 @@ NVCC_FLAGS = (
 )
 
 _libs: Dict[str, ctypes.CDLL] = {}
+_functions: Dict[Tuple[str, str], ctypes._CFuncPtr] = {}
 _lock = threading.Lock()
 
 
@@ -145,3 +149,31 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(library_path(name)))
             _libs[name] = lib
         return lib
+
+
+def function(name: str, fn_name: str, argtypes: Sequence) -> ctypes._CFuncPtr:
+    """The C function `fn_name` of `csrc/<name>.cu`, returning an int (a
+    cudaError_t), with `argtypes` and its result type set once, at its
+    first lookup; later calls take it from a dictionary."""
+    fn = _functions.get((name, fn_name))
+    if fn is None:
+        fn = getattr(load(name), fn_name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        _functions[name, fn_name] = fn
+    return fn
+
+
+def call_on_stream(fn: ctypes._CFuncPtr, device: torch.device, *args) -> int:
+    """`fn(*args, stream)` with the current stream of CUDA `device`, that
+    device made the current one only where it is not already; returns what
+    `fn` returns. A tensor on `device` exists, so CUDA is initialized: the
+    current device and the raw stream handle (what
+    `torch.cuda.current_stream(i).cuda_stream` reads) are asked of torch's C
+    layer directly, without `torch.cuda`'s lazy-init check or a Stream
+    object on every launch."""
+    index = device.index
+    if index == torch._C._cuda_getDevice():
+        return fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    with torch.cuda.device(index):
+        return fn(*args, torch._C._cuda_getCurrentRawStream(index))

@@ -220,12 +220,9 @@ def _field_consts(cfg: PointRenderConfig):
 def _launch(entry: str, device, pointers, ints, floats) -> None:
     """Call `entry` of the point_render library on the current stream of
     `device`; raises if the launch was refused."""
-    fn = getattr(build.load("point_render"), entry)
-    fn.argtypes = ([ctypes.c_void_p] * len(pointers) + [ctypes.c_int] * len(ints)
-                   + [ctypes.c_float] * len(floats) + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(device):
-        err = fn(*(t.data_ptr() for t in pointers), *ints, *floats, torch.cuda.current_stream(device).cuda_stream)
+    fn = build.function("point_render", entry, [ctypes.c_void_p] * len(pointers) + [ctypes.c_int] * len(ints)
+                        + [ctypes.c_float] * len(floats) + [ctypes.c_void_p])
+    err = build.call_on_stream(fn, device, *(t.data_ptr() for t in pointers), *ints, *floats)
     if err != 0:
         raise RuntimeError(f"{entry} kernel launch failed: cudaError {err}")
 

@@ -9,7 +9,10 @@ carries the probe render's nearest upsample of the probe histograms
 (`ops/fast_field.render_novel_view_probe`).
 
 On CUDA tensors `row_gather` launches the kernel or raises; on CPU tensors
-it takes `row_gather_plain`, `table[idx]`.
+it takes `row_gather_plain`, `table[idx]`. At P1's size a call is host
+time: the wrapper makes every check on every call, but looks its C
+function up and types it once and switches device only when it must
+(`build.function`, `build.call_on_stream`).
 """
 from __future__ import annotations
 
@@ -20,6 +23,7 @@ import torch
 from scenedino_torch.kernels import build
 
 DTYPES = (torch.float32, torch.bfloat16)
+ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 
 
 def row_gather_plain(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -41,12 +45,13 @@ def row_gather(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
                          f"{tuple(idx.shape)}")
     if idx.dtype != torch.int32:
         raise ValueError(f"row_gather takes int32 indices, got {idx.dtype}")
-    if table.device != idx.device:
+    device = table.device
+    if device != idx.device:
         raise ValueError("row_gather's table and indices must share one device")
-    if table.device.type == "cpu":
+    if device.type == "cpu":
         return row_gather_plain(table, idx)
-    if table.device.type != "cuda":
-        raise ValueError(f"row_gather runs on cuda or cpu tensors, got {table.device}")
+    if device.type != "cuda":
+        raise ValueError(f"row_gather runs on cuda or cpu tensors, got {device}")
     rows, C = table.shape
     row_bytes = C * table.element_size()
     if table.dtype not in DTYPES:
@@ -58,13 +63,10 @@ def row_gather(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
                          f"at most 512; got {row_bytes} bytes a row")
     if rows >= 2 ** 31:
         raise ValueError(f"the CUDA row_gather kernel takes fewer than 2^31 rows, got {rows}")
-    out = torch.empty(idx.shape[0], C, device=table.device, dtype=table.dtype)
-    fn = build.load("row_gather").row_gather
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(table.device):
-        err = fn(table.data_ptr(), idx.data_ptr(), out.data_ptr(), idx.shape[0], rows, row_bytes,
-                 torch.cuda.current_stream(table.device).cuda_stream)
+    n = idx.shape[0]
+    out = torch.empty((n, C), dtype=table.dtype, device=device)
+    err = build.call_on_stream(build.function("row_gather", "row_gather", ARGTYPES), device, table.data_ptr(),
+                               idx.data_ptr(), out.data_ptr(), n, rows, row_bytes)
     if err != 0:
         raise RuntimeError(f"row_gather kernel launch failed: cudaError {err}")
     row_gather.launches += 1

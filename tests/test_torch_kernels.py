@@ -15,10 +15,11 @@ the CDF across 0.5 only on a near tie), on at most 1% of rays; K3
 weights 5e-3; K4 sigma and feature 1e-2 (per point, not averaged over a
 ray); the row gather exactly; the
 log-sum-exp 1e-3 (fp32 statistics of bf16 inputs, summed in another
-order); the backward's dq, dk, dv K1_BWD_REL of the largest magnitude of
+order, exp2 approximate on the card); the backward's dq, dk, dv K1_BWD_REL of the largest magnitude of
 the plain result plus 1e-3 (P and dS are rounded to bf16 for the
 products, the results to bf16; at N = 1 dq and dk are round-off around
-0); two launches of the backward kernels give the same bits (no atomics).
+0); two launches of the forward or the backward kernels give the same
+bits (no atomics).
 """
 import numpy as np
 import pytest
@@ -170,6 +171,33 @@ def test_attention_backward_kernels_repeat_bitwise_and_refuse_misaligned(cuda):
 def test_attention_forward_result_does_not_depend_on_the_lse(cuda):
     q, k, v = (torch.randn(1, 130, 2, 64, device=cuda).to(torch.bfloat16) for _ in range(3))
     assert torch.equal(attention_fwd(q, k, v)[0], attention_fwd(q, k, v, with_lse=True)[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 4])
+@pytest.mark.parametrize("n", [1, 65, 129, 193, 1921])
+def test_attention_forward_and_lse_match_plain_at_vit_heads(cuda, n, batch):
+    """H = 12 as in ViT-B/8; at these N the last block of a head (three
+    warpgroups of 64 query rows) holds 1, 1, 1, 1 and 1 valid rows, so whole
+    warpgroups lie past N, and the last walked key tile is ragged."""
+    g = torch.Generator(device=cuda).manual_seed(200 + n + batch)
+    q, k, v = (torch.randn(batch, n, 12, 64, generator=g, device=cuda).to(torch.bfloat16) for _ in range(3))
+    before = attention.launches
+    out, lse = attention_fwd(q, k, v, with_lse=True)
+    torch.cuda.synchronize()
+    assert attention.launches == before + 1
+    assert out.shape == q.shape and lse.shape == (batch, 12, n) and torch.isfinite(out).all()
+    assert (out.float() - attention_plain(q, k, v).float()).abs().max().item() <= 2e-2
+    assert (lse - attention_lse_plain(q, k)).abs().max().item() <= 1e-3
+
+
+@pytest.mark.cuda
+def test_attention_forward_repeats_bitwise(cuda):
+    g = torch.Generator(device=cuda).manual_seed(11)
+    q, k, v = (torch.randn(2, 1921, 12, 64, generator=g, device=cuda).to(torch.bfloat16) for _ in range(3))
+    first, again = attention_fwd(q, k, v, with_lse=True), attention_fwd(q, k, v, with_lse=True)
+    torch.cuda.synchronize()
+    assert torch.equal(first[0], again[0]) and torch.equal(first[1], again[1])
 
 
 def _pose(angle, shift):
@@ -332,21 +360,57 @@ def test_row_gather_kernel_writes_zeros_for_an_index_out_of_range(cuda):
     assert torch.equal(out[[0, 3]], table[[0, 9]]) and not out[[1, 2, 4]].any()
 
 
-@pytest.mark.cuda
-def test_row_gather_kernel_refuses_what_it_does_not_take(cuda):
-    table = torch.randn(64, 16, device=cuda)
-    idx = torch.zeros(8, dtype=torch.int32, device=cuda)
-    flat = torch.randn(64 * 16 + 1, device=cuda)
-    bad = [
+def _row_gather_refusals(dev):
+    table = torch.randn(64, 16, device=dev)
+    idx = torch.zeros(8, dtype=torch.int32, device=dev)
+    flat = torch.randn(64 * 16 + 1, device=dev)
+    return [
         (table, idx.long()),  # int64 indices
-        (torch.randn(64, 2, device=cuda), idx),  # 8-byte rows
-        (torch.randn(64, 256, device=cuda), idx),  # 1 KB rows, wider than 512 B
-        (torch.randn(64, 32, device=cuda)[:, ::2], idx),  # not contiguous
+        (torch.randn(64, 2, device=dev), idx),  # 8-byte rows
+        (torch.randn(64, 256, device=dev), idx),  # 1 KB rows, wider than 512 B
+        (torch.randn(64, 32, device=dev)[:, ::2], idx),  # not contiguous
         (table.double(), idx),  # fp64
         (table.half(), idx),  # fp16
         (flat[1:].view(64, 16), idx),  # 4 bytes off 16-byte alignment
         (table, idx.cpu()),  # two devices
+        (table[None], idx),  # a 3-D table
+        (table, idx[None]),  # 2-D indices
     ]
-    for t, i in bad:
+
+
+@pytest.mark.cuda
+def test_row_gather_kernel_refuses_what_it_does_not_take(cuda):
+    for t, i in _row_gather_refusals(cuda):
         with pytest.raises(ValueError):
             row_gather(t, i)
+
+
+@pytest.mark.cuda
+def test_row_gather_refuses_as_before_once_its_function_is_cached(cuda):
+    """The typed C function is looked up once; every check still runs on
+    every call, and a refused call launches nothing."""
+    table = torch.randn(64, 16, device=cuda)
+    row_gather(table, torch.zeros(8, dtype=torch.int32, device=cuda))
+    before = row_gather.launches
+    for t, i in _row_gather_refusals(cuda):
+        with pytest.raises(ValueError):
+            row_gather(t, i)
+    assert row_gather.launches == before
+
+
+@pytest.mark.cuda
+def test_row_gather_launches_on_the_current_stream(cuda):
+    """On a second stream the gather waits for that stream's earlier work:
+    the table is written there behind a long sleep, so a launch on any
+    other stream would read the zeros it held before."""
+    table = torch.zeros(512, 128, device=cuda)
+    source = torch.randn(512, 128, device=cuda)
+    idx = torch.randint(0, 512, (256,), device=cuda, dtype=torch.int32)
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        torch.cuda._sleep(100_000_000)  # tens of milliseconds of the side stream
+        table.copy_(source)
+        out = row_gather(table, idx)
+    side.synchronize()
+    assert torch.equal(out, source[idx.long()])
