@@ -7,8 +7,8 @@ its hand-written kernels against their plain PyTorch versions.
 Phases, one line each:
   0 device   the card's name and power limit; TF32 off for fp32 compares
   1 build    nvcc builds every kernel of the paths from csrc/ (sm_90a);
-             the K1 forward and backward kernels' registers and spills
-             (none allowed)
+             the registers and spills (none allowed) of the K1 forward and
+             backward kernels and of the point kernels' ten instantiations
   2 K1       the attention forward kernel vs its plain versions (output
              and log-sum-exp) at the three shapes its paths give it:
              ViT-B/8 @192x640 serving (1, 1921, 12, 64), the training
@@ -39,7 +39,8 @@ Phases, one line each:
   Bounds: the larger of the bytes moved (each input read once, each
   output written once; of a folded grid only the distinct rows that the
   points' corner lookups read) over 3.35 TB/s and the FLOP over the bf16
-  tensor-core peak.
+  tensor-core peak. Phases 3-3c also print the corner rows the kernels
+  read (points x 4 x D x 2 B) and their time at 3.35 TB/s.
   4 slice    the flagship field (ViT-B/8 + DPT 256, bf16, seeded random
              weights) answers 3 novel-view requests (encode ->
              build_fast_state -> render_novel_view_fused, 32 samples),
@@ -61,6 +62,11 @@ Phases, one line each:
              each backward kernel; stage times, peak memory and a
              profile; then one step at 32x96 is checked against the same
              model run on the CPU
+  5b fp32    one step of the synthetic smoke recipe (configs/
+             train_synthetic_smoke.yaml: fp32, ViT-S/8 cut to width 64,
+             depth 3, 2 heads, 48x96, batch 2): its attention takes the
+             ViT's plain branch, so the step launches no kernel; it must be
+             finite, applied and move every parameter tensor
   6 kernels  one JSON line: launches (all serving paths and training
              together), error, times and bound per kernel; the K1 forward's
              also at each of its three shapes ("shapes")
@@ -73,6 +79,7 @@ import argparse
 import copy
 import dataclasses
 import json
+import re
 import sys
 import time
 
@@ -121,6 +128,9 @@ QUERY_SIGMA_REL = 1e-2
 TRAIN_LOSS_REL = 1e-2
 TRAIN_GRAD_REL = 0.1
 TRAIN_STEPS = 3
+# instantiations of csrc/point_render.cu's kernel: K2 and K4 at 2 hidden x 2
+# output widths each, K3 at 2 hidden widths
+POINT_KERNELS = 10
 
 
 def fail(msg):
@@ -276,6 +286,14 @@ def _ray_points(rays, z):
     return (rays[:, None, :3] + z[..., None] * rays[:, None, 3:6]).reshape(-1, 3)
 
 
+def corner_traffic(points, D):
+    """The corner rows the kernel reads, (points x 4 x D x 2 B), and their
+    time at 3.35 TB/s: a yardstick beside the bound, which counts each
+    distinct grid row once."""
+    n = points * 4 * D * 2
+    return f"corner rows {n / 1e9:.3f} GB, {n / PEAK_BYTES * 1e3:.4f} ms at 3.35 TB/s"
+
+
 def grid_rows_read(pts, grid, w2c, k):
     """Distinct rows of the (Hg, Wg, D) grid that the 4-corner lookups of
     world points `pts` (P, 3) read, from the plain version's corner
@@ -346,7 +364,7 @@ def phase_k2(gen):
                      rows * D * 2 + nbytes(*args[:2], *args[3:]) + R * (1 + (E - 1) + 3) * 4)
     print(f"phase 3 K2 point_render ({R} rays x {K}, grid {H * 2}x{W * 2}x{D} bf16): kernel {ms:.4f} ms "
           f"(median depth {ms_median:.4f} ms), plain {plain_ms:.4f} ms, bound {b:.4f} ms ({by}; {rows} distinct "
-          f"grid rows read)", flush=True)
+          f"grid rows read); {corner_traffic(R * K, D)}", flush=True)
     return {"name": "point_render", "route": "cuda", "source": "scenedino_torch/csrc/point_render.cu",
             "replaces": "scenedino_tpu/ops/fast_field.py:825", "max_abs_err": max(errs), "ms": ms,
             "plain_ms": plain_ms, "bound_ms": b, "bound_by": by, "library_ms": None}
@@ -393,8 +411,8 @@ def phase_probe(gen):
     rows = grid_rows_read(_ray_points(rays, z), grid, *cams)
     b, by = bound_ms(2.0 * R * Kp * (C * D + D), rows * D * 2 + nbytes(*args[:2], *args[3:]) + R * Kp * 4)
     print(f"phase 3b K3 probe_weights ({R} rays x {Kp}, grid {H * 2}x{W * 2}x{D} bf16, density column): kernel "
-          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b:.4f} ms ({by}; {rows} distinct grid rows read)",
-          flush=True)
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b:.4f} ms ({by}; {rows} distinct grid rows read); "
+          f"{corner_traffic(R * Kp, D)}", flush=True)
     k3 = {"name": "probe_weights", "route": "cuda", "source": "scenedino_torch/csrc/point_render.cu",
           "replaces": "scenedino_tpu/ops/fast_field.py:792", "max_abs_err": err, "ms": ms,
           "plain_ms": plain_ms, "bound_ms": b, "bound_by": by, "library_ms": None}
@@ -441,7 +459,7 @@ def phase_probe(gen):
     kb, kby = bound_ms(2.0 * Rf * Kf * (C * D + D * E),
                        rows * D * 2 + nbytes(*args[:2], *args[3:]) + Rf * (1 + (E - 1) + 3) * 4)
     print(f"phase 3b K2 point_render ({Rf} rays x {Kf}): kernel {k2_ms:.4f} ms, plain {k2_plain:.4f} ms, bound "
-          f"{kb:.4f} ms ({kby}; {rows} distinct grid rows read)", flush=True)
+          f"{kb:.4f} ms ({kby}; {rows} distinct grid rows read); {corner_traffic(Rf * Kf, D)}", flush=True)
     return [k3, gather]
 
 
@@ -496,7 +514,8 @@ def phase_k4(gen):
     b, by = bound_ms(2.0 * P * (C * D + D * E), in_bytes + out_bytes)
     print(f"phase 3c K4 point_query ({P} points, grid {H * 2}x{W * 2}x{D} bf16, d_out {E}): kernel {ms:.4f} ms, "
           f"plain {plain_ms:.4f} ms, bound {b:.4f} ms ({by}: inputs {in_bytes / 1e6:.1f} MB read once, of them "
-          f"{rows} distinct grid rows; sigma and feature {out_bytes / 1e6:.1f} MB written once)", flush=True)
+          f"{rows} distinct grid rows; sigma and feature {out_bytes / 1e6:.1f} MB written once); "
+          f"{corner_traffic(P, D)}", flush=True)
     return {"name": "point_query", "route": "cuda", "source": "scenedino_torch/csrc/point_render.cu",
             "replaces": "scenedino_tpu/ops/fast_field.py:990", "max_abs_err": err_abs, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": b, "bound_by": by, "library_ms": None}
@@ -920,6 +939,55 @@ def phase_train(seed):
     return launches
 
 
+def phase_train_fp32(seed):
+    """One stage-1 step of the synthetic smoke recipe (configs/
+    train_synthetic_smoke.yaml, `SYNTHETIC_SMOKE_TRAIN`): fp32, a ViT-S/8 cut
+    to width 64, depth 3, 2 heads (head dim 32, 73 tokens at 48x96), so the
+    ViT takes its plain attention branch and no kernel runs; the step must
+    be finite, applied and move every parameter tensor."""
+    from scenedino_torch import kernels
+    from scenedino_torch.models.factory import SYNTHETIC_SMOKE_TRAIN as conf, make_model
+    from scenedino_torch.training import trainer
+
+    model_conf, tcfg, rcfg, lcfg = trainer.configs_from_dict(conf)
+    (h, w), V, Bt = conf["dataset"]["image_size"], conf["dataset"]["n_views"], conf["batch_size"]
+    model = make_model(model_conf, device="cuda", seed=seed, training=True)
+    enc = model.encoder
+    vit = enc.vit_encoder.vit
+    gp = enc.gt_patch_size
+    g = torch.Generator(device="cuda").manual_seed(seed + 400)
+    state = trainer.init_train_state(model, tcfg, artifact_shape=(enc.gt_encoder.latent_size, h // gp, w // gp),
+                                     generator=g)
+    step = trainer.make_train_step(model, tcfg, rcfg, lcfg)
+    batch = train_batch(g, Bt, h, w, "cuda")
+    draws = trainer.draw_stage1(g, tcfg, rcfg, Bt, V, h, w, gp)
+    trainable = [p for group in state.optimizer.param_groups for p in group["params"]]
+    before = [p.detach().clone() for p in trainable]
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = step(state, batch, draws)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    counts = kernels.launches()
+    loss = losses["rec_loss"].item()
+    unchanged = sum(torch.equal(a, p) for a, p in zip(before, trainable))
+    tokens = 1 + (h // vit.cfg.patch_size) * (w // vit.cfg.patch_size)
+    print(f"phase 5b fp32 train step (configs/train_synthetic_smoke.yaml: batch {Bt}, {V} views, {h}x{w}, ViT width "
+          f"{vit.cfg.width}, depth {vit.cfg.depth}, {vit.cfg.num_heads} heads, head dim "
+          f"{vit.cfg.width // vit.cfg.num_heads}, {tokens} tokens, compute dtype {vit.cfg.dtype or 'fp32'}; its "
+          f"training blocks as the config gives them): loss {loss:.6f}, {ms:.3f} ms (first step), applied "
+          f"{state.applied}, {len(trainable) - unchanged} of {len(trainable)} parameter tensors moved; launches "
+          f"{json.dumps(counts)}", flush=True)
+    if not np.isfinite(loss) or losses["nonfinite_consecutive"] != 0 or state.applied != 1:
+        fail(f"the fp32 smoke training step was not finite and applied: {losses}")
+    if unchanged:
+        fail(f"the fp32 smoke training step left {unchanged} of {len(trainable)} parameter tensors unchanged")
+    if any(counts.values()):
+        fail(f"the fp32 smoke training step launched kernels {counts}: its attention must take the plain branch")
+    return counts
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -956,12 +1024,20 @@ def main():
     if sorted(k1) != ["dkv", "dq", "fwd"] or any(r.get("spill_stores", 1) or r.get("spill_loads", 1)
                                                  for r in k1.values()):
         fail(f"ptxas spilled in a K1 kernel, or its report is missing: {k1}")
+    # the point kernels (K2, K3, K4) in each of their hidden and output widths: mode, DC, EC, ET
+    pk = {",".join(re.findall(r"Li(\d+)E", name.split("point_kernel")[-1])): r
+          for name, r in build.ptxas_report(build.build_log("point_render")).items() if "point_kernel" in name}
+    print(f"phase 1 point kernels by template arguments (mode 0 K2, 1 K3, 2 K4; hidden chunks of 64; output chunks "
+          f"of 64; output tail), registers and spills in bytes: {json.dumps(pk)}", flush=True)
+    if len(pk) != POINT_KERNELS or any(r.get("spill_stores", 1) or r.get("spill_loads", 1) for r in pk.values()):
+        fail(f"ptxas spilled in a point kernel, or a report is missing ({len(pk)} of {POINT_KERNELS}): {pk}")
 
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     entries = [phase_k1(gen), *phase_k1_bwd(gen), phase_k2(gen), *phase_probe(gen), phase_k4(gen)]
     phase_gather(args.seed)
     serving = phase_slice(args.seed)
     training = phase_train(args.seed)
+    phase_train_fp32(args.seed)
     for e in entries:
         e["launches"] = serving[e["name"]] + training[e["name"]]
     if sorted(e["name"] for e in entries) != sorted(kernels.WRAPPERS):

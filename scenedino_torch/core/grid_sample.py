@@ -4,7 +4,11 @@
 The reference reimplements `F.grid_sample(align_corners=False,
 padding_mode="border")` as four gathers; here it is that call. The map is
 sampled in fp32 whatever its dtype (the reference blends bf16 corner
-values with fp32 weights, which promotes to fp32).
+values with fp32 weights, which promotes to fp32). A non-finite
+coordinate (a singular pose) gives NaN in bilinear mode and, in nearest
+mode, pixel 0 for NaN and the edge for +-inf, as the reference's gathers
+do; grid_sample itself would clamp NaN to the border, and its backward
+writes out of bounds for it.
 """
 from __future__ import annotations
 
@@ -18,6 +22,8 @@ def grid_sample_views(feats: torch.Tensor, xy: torch.Tensor, mode: str = "biline
         raise ValueError(f"mode must be 'bilinear' or 'nearest', got {mode!r}")
     B, V, C, H, W = feats.shape
     grid = xy.reshape(B * V, 1, -1, 2).float()
+    finite = torch.isfinite(grid)
+    grid = torch.nan_to_num(grid, nan=-1.0, posinf=1.0, neginf=-1.0)  # NaN: pixel 0, +-inf: the edges
     if mode == "nearest":
         # the reference rounds half up (floor(x + 0.5)) after the border
         # clamp; grid_sample's nearest rounds half to even, so snap the
@@ -27,6 +33,8 @@ def grid_sample_views(feats: torch.Tensor, xy: torch.Tensor, mode: str = "biline
         grid = (px + 0.5) / size * 2.0 - 1.0
     out = F.grid_sample(feats.reshape(B * V, C, H, W).float(), grid, mode=mode,
                         padding_mode="border", align_corners=False)
+    if mode == "bilinear":
+        out = out + torch.where(finite.all(-1), 0.0, float("nan"))[:, None]
     return out[:, :, 0].transpose(1, 2).reshape(B, V, -1, C)
 
 

@@ -122,13 +122,16 @@ __device__ __forceinline__ uint32_t swizzled_offset(int row, int col) {
 
 // ------------------------------------------------------------------- wgmma
 
-__device__ __forceinline__ uint64_t wgmma_desc(const void* tile) {
-  uint64_t d = (smem_u32(tile) & 0x3FFFFu) >> 4;  // start address
+// the descriptor of the tile at shared-memory address `addr`
+__device__ __forceinline__ uint64_t wgmma_desc_at(uint32_t addr) {
+  uint64_t d = (addr & 0x3FFFFu) >> 4;            // start address
   d |= uint64_t(1) << 16;                         // leading offset: unused by a 64-wide swizzled tile
   d |= uint64_t(1024 >> 4) << 32;                 // stride between 8-row groups
   d |= uint64_t(1) << 62;                         // 128-byte swizzle
   return d;
 }
+
+__device__ __forceinline__ uint64_t wgmma_desc(const void* tile) { return wgmma_desc_at(smem_u32(tile)); }
 
 __device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;" ::: "memory"); }
 __device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory"); }
@@ -174,9 +177,10 @@ __device__ __forceinline__ Smem& aligned_smem(unsigned char* raw) {
 
 // keeps the compiler from moving accesses to an accumulator across a wgmma
 // batch that is in flight
-__device__ __forceinline__ void fence_registers(float (&d)[32]) {
+template <int N>
+__device__ __forceinline__ void fence_registers(float (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 #define HOPPER_ACC32(d)                                                                                      \
@@ -212,6 +216,36 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], const uint32_
       "}\n"
       : HOPPER_ACC32(d)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate), "n"(TransB));
+}
+
+// d = or += A (64 x 16 bf16) times B (16 x 64 bf16), both K-major in shared
+// memory (`desc_a` a swizzled tile of 64 rows as `wgmma_desc` describes it,
+// advanced by WGMMA_K_STEP a k-step); d as in wgmma_m64n64k16_rs.
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t desc_a, uint64_t desc_b,
+                                                   int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " HOPPER_ACC32_LIST
+      ", %32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : HOPPER_ACC32(d)
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// wgmma_m64n64k16_ss with an 8-column B (8 x 16 bf16, K-major: the first 8
+// rows of a swizzled tile, one 1024-byte swizzle atom): d is 64 x 8 fp32,
+// d[2 hi + e] is (r + 8 hi, 2 * (t % 4) + e) in the rows of the 64-column form.
+__device__ __forceinline__ void wgmma_m64n8k16_ss(float (&d)[4], uint64_t desc_a, uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {%0, %1, %2, %3}, %4, %5, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
 }
 
 // where the A operand of a product keeps element (row + 8 hi, 8 j + column)

@@ -22,58 +22,112 @@
 //   the positional code of (x, y, normalized depth), rounded to bf16;
 //   g = bilinear blend in fp32 of 4 bf16 rows of the folded feature grid
 //       (border clamp, align_corners=False);
-//   h = bf16(relu(g + code @ W_code + b1)), out = h @ W2 + b2 (fp32 sums);
+//   h = bf16(relu((g + code @ W_code) + b1)), out = h @ W2 + b2 (fp32 sums);
 //   sigma = softplus(out[0]);
 // then along the K samples: alpha compositing with the max(1-a, 1e-10)
 // floor and the optional hard cap on the last sample, depth = E[z] or the
-// weight median (the first sample whose normalized weight CDF reaches
-// 0.5, clamped; scenedino_tpu/core/compositing.py:61-78), the weighted
-// feature out[1:], and the weighted colour from a second projection into
-// the colour camera (bilinear, weights collapsed where the clamped corners
-// coincide). Only per-ray outputs reach memory. K3 stops at the weights,
-// K4 at the head output, and neither projects into the colour camera.
+// weight median (the sample at the count of samples whose normalized weight
+// CDF is below 0.5, clamped; scenedino_tpu/core/compositing.py:61-78), the
+// weighted feature out[1:], and the weighted colour from a second
+// projection into the colour camera (bilinear, weights collapsed where the
+// clamped corners coincide). Only per-ray outputs reach memory. K3 stops at
+// the weights, K4 at the head output, and neither composites colour.
 //
 // Bound on the H100 at the flagship shape (122,880 rays x 32 samples,
 // 384x1280x128 bf16 grid, W_code 39x128, W2 128x65): the two products are
 // 3.93 M points x 2 x (39*128 + 128*65) = 105 GFLOP, about 106 us at the
-// 989 TFLOP/s bf16 tensor-core peak; the grid is 126 MB, about 38 us at
-// 3.35 TB/s if read once. So it is bound by operations at peak, but the
-// four gathers per point (1 KB of grid rows each, mostly from L2) and the
-// fp32 blend on the CUDA cores sit in front of that. K3 at the probe
-// shape (7,680 rays x 16 samples, one output column padded to 16) is
-// bound by the 126 MB grid, about 38 us if read once. K4 at the SSCBench
-// grid (2,097,152 points, W2 128x65) is bound by bytes: the (P, 64) fp32
-// feature output alone is 537 MB, about 0.16 ms.
+// 989 TFLOP/s bf16 tensor-core peak; the grid rows the points read are
+// about 118 MB, about 35 us at 3.35 TB/s if read once. But the four corner
+// rows of every point (1 KB, 4.0 GB in all, mostly from L2) are what the
+// kernel moves, and the code (36 sinf a point) and the blend run on the
+// CUDA cores. K3 at the probe shape (7,680 rays x 16 samples) is bound by
+// the grid rows it reads; K4 at the SSCBench grid (2,097,152 points) by
+// its (P, 64) fp32 feature output, 537 MB, about 0.16 ms.
 //
-// Design: a block of 4 warps walks over tiles of 64 points (64/K rays).
-// The weights (W_code, W2, zero-padded to multiples of 16) sit in shared
-// memory for the block's life. Per tile: one thread per point projects,
-// builds the code and the corner indices; the code product runs on the
-// tensor cores (WMMA, bf16 in, fp32 out) into a shared fp32 tile; the
-// threads then gather the corner rows as 16-byte loads, blend, add bias,
-// ReLU and round to bf16; the second product runs on the tensor cores
-// into the same fp32 tile; one warp per ray composites (K2, K3), or the
-// block writes the tile's head outputs with coalesced stores (K4, a tile
-// of 64 points with K = 1). The output mode is a template argument, so
-// the three kernels are compiled from one copy of the pipeline. Not yet used:
-// wgmma, TMA, overlap of the gathers with the products (later work).
+// Design (Hopper: wgmma; hopper.cuh):
+//   * A warpgroup owns a 64-point tile (wgmma's M = 64): 64 / K rays of K
+//     samples, or 64 query points. Blocks are persistent, PR_WGS
+//     warpgroups each, sharing W_code and W2, which sit in shared memory
+//     for the block's life as 128-byte-swizzled K-major tiles, zero-padded
+//     (code columns to 64, hidden units to 64 or 128, outputs to 64 + 8 or
+//     128). Consecutive tiles run on neighbouring blocks at once, so
+//     neighbouring rays share the grid rows in L2.
+//   * Set-up is spread over the warpgroup: a thread holds rows r and r + 8
+//     of the tile's accumulators; for each it projects the point (the four
+//     lanes of a row each repeat it), computes 16 of the row's 64 code
+//     columns (sinf(fl(x f + pi/2)) for the cosine, as the reference; not
+//     __sinf, which is accurate only in [-pi, pi] while the arguments reach
+//     ~100 rad) into the warpgroup's swizzled code tile, the corner rows and
+//     weights; lanes 0-2 sample one colour channel each, lane 3 keeps z.
+//   * The code product acc = code W_code (K = 64, N = 64 a chunk; both
+//     operands in shared memory) is issued asynchronously from zero and
+//     runs while the chunk's first corner rows load. The hidden layer is
+//     formed one 64-column chunk at a time, so one fp32 accumulator is what
+//     the registers hold of it.
+//   * The hidden units are permuted so that the accumulator columns of a
+//     thread are one contiguous run of D/4 grid channels: the thread holds
+//     columns n = 64c + 8j + 2q + t (q = lane % 4), and n stands for channel
+//     pi(n) = q (16 C) + 16c + 2j + t with C = D/64 chunks. pi is applied to
+//     W_code's columns, b1 and W2's rows as they are copied in; the grid
+//     and the public layouts stay as they are. At D = 128 a thread reads
+//     64 bytes of each 256-byte corner row as four 16-byte loads, and the
+//     four lanes of a row read all of it; batches of 4 loads (a row's
+//     corners of 8 channels) are issued PR_AHEAD batches ahead of the blend,
+//     across chunks.
+//   * h = bf16(relu((g + acc) + b1)) goes chunk by chunk into swizzled
+//     tiles in shared memory, the A operand of out = h W2 (N = 64 + 8 at
+//     E = 65): the fp32 accumulator never leaves the registers, and no
+//     register holds a finished chunk of h while the next one is gathered.
+//   * out + b2 goes through a 64-row fp32 buffer in shared memory (over the
+//     code and h tiles, which are read by then). K2 and K3 composite one
+//     ray a warp, two samples a lane: the transmittance
+//     is an exclusive product scan by shuffles, the median's CDF a prefix
+//     sum and its index a count of ballots, so products and sums are taken
+//     in another order than the plain version's sequential ones (within
+//     chip_smoke.py's K2_*_TOL and K2_MEDIAN_FLIPS). The weights return
+//     through shared memory and the threads form the per-ray sums of the
+//     feature and colour columns, each output one thread, coalesced. K4
+//     writes the buffer out with coalesced stores.
+//   * The host side caches the shared-memory attribute, the SM count and
+//     the blocks an SM per device: a launch is the launch alone.
+// The output mode, the hidden chunks and the output layout are template
+// arguments; the wrappers' shapes map onto ten instantiations.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <math.h>
 #include <stdint.h>
 
-using namespace nvcuda;
+#include "hopper.cuh"
+
+// warpgroups a block, blocks an SM the registers are divided for, and
+// corner-load batches issued ahead of the one being blended
+// (tools/bench_point_render.py builds others side by side). Registers set
+// the time: the walk's dependent chains (sinf, the divides, loads from L2)
+// need warps to switch between. Three warpgroups an SM (168 registers a
+// thread) hold the D = 128 instantiations without a spill; four (128) ran
+// K2 faster on an H100 but spilled there (PERF.md).
+#ifndef PR_WGS
+#define PR_WGS 1
+#endif
+#ifndef PR_BLOCKS
+#define PR_BLOCKS 3
+#endif
+#ifndef PR_AHEAD
+#define PR_AHEAD 1
+#endif
 
 namespace {
 
+using namespace hopper;
+
 enum Mode { RENDER = 0, PROBE = 1, QUERY = 2 };
 
-constexpr int TP = 64;        // points per tile
-constexpr int THREADS = 128;  // 4 warps
-constexpr int NWARPS = THREADS / 32;
+constexpr int TP = 64;          // points a tile: wgmma's M
+constexpr int WG = 128;         // threads a warpgroup
+constexpr int CODE_COLS = 64;   // code columns, zero-padded: four k-steps
 constexpr float EPS = 1e-3f;
 constexpr float HALF_PI = 1.57079637f;
+constexpr unsigned FULL = 0xffffffffu;
 
 struct Params {
   const float* rays;            // (R, 8); the points (R, 3) in QUERY
@@ -97,48 +151,45 @@ struct Params {
   float zn_sub, zn_den, freq_factor;
 };
 
-__host__ __device__ inline int round16(int x) { return (x + 15) / 16 * 16; }
-__host__ __device__ inline size_t align128(size_t x) { return (x + 127) / 128 * 128; }
-
-// shared-memory layout, computed alike on the host (its size) and in the kernel
+// Shared memory of a block: DC hidden chunks of 64, EC output chunks of 64
+// and an 8-column output tail (ET = 8) or none (ET = 0).
+template <int DC, int EC, int ET>
 struct Layout {
-  int CP, DP, EP;                   // code, hidden, output widths padded to 16
-  int ldc, ldwc, ldw2, ldh, lda;    // row strides (elements)
-  size_t wc, w2, code, acc, h, idx, wxy, rgb, z, wts, b1, b2, cam, total;
+  static constexpr int DP = 64 * DC;
+  static constexpr int EP = 64 * EC + ET;
+  static constexpr int LDO = EP + ((8 - EP) % 32 + 32) % 32;  // row stride of the output buffer, = 8 mod 32
+  static constexpr int WC = 0;                                 // DC tiles: rows n (hidden), columns k (code)
+  static constexpr int W2 = WC + DC * TILE_BYTES;              // EC x DC tiles: rows e, columns n
+  static constexpr int W2T = W2 + EC * DC * TILE_BYTES;        // DC tail tiles of 8 rows (1 KB)
+  static constexpr int B1 = W2T + (ET ? DC * 1024 : 0);
+  static constexpr int B2 = B1 + DP * 4;
+  static constexpr int CAM = B2 + EP * 4;
+  static constexpr int CODE_TAB = CAM + 48 * 4;                // per code column: freq, phase, source
+  static constexpr int WG0 = (CODE_TAB + CODE_COLS * 12 + 1023) / 1024 * 1024;
+  // a warpgroup's own: the code tile and the DC tiles of h (the products' A
+  // operands), which the output buffer later overwrites; z, the weights, the
+  // colours
+  static constexpr int OUT_BYTES = TP * LDO * 4 > (1 + DC) * TILE_BYTES ? TP * LDO * 4 : (1 + DC) * TILE_BYTES;
+  static constexpr int CODE = 0;
+  static constexpr int H = TILE_BYTES;
+  static constexpr int OUT = 0;
+  static constexpr int Z = OUT_BYTES;
+  static constexpr int W = Z + TP * 4;
+  static constexpr int RGB = W + TP * 4;
+  static constexpr int WG_BYTES = (RGB + TP * 3 * 4 + 1023) / 1024 * 1024;
+  static constexpr int TOTAL = WG0 + PR_WGS * WG_BYTES;
 };
 
-__host__ __device__ inline Layout make_layout(int C, int D, int E) {
-  Layout L;
-  L.CP = round16(C);
-  L.DP = round16(D);
-  L.EP = round16(E);
-  L.ldc = L.CP + 8;
-  L.ldwc = L.DP + 8;
-  L.ldw2 = L.EP + 8;
-  L.ldh = L.DP + 8;
-  L.lda = (L.DP > L.EP ? L.DP : L.EP) + 4;
-  size_t o = 0;
-  L.wc = o;   o = align128(o + (size_t)L.CP * L.ldwc * 2);
-  L.w2 = o;   o = align128(o + (size_t)L.DP * L.ldw2 * 2);
-  L.code = o; o = align128(o + (size_t)TP * L.ldc * 2);
-  L.acc = o;  o = align128(o + (size_t)TP * L.lda * 4);
-  L.h = o;    o = align128(o + (size_t)TP * L.ldh * 2);
-  L.idx = o;  o = align128(o + (size_t)TP * 16);
-  L.wxy = o;  o = align128(o + (size_t)TP * 8);
-  L.rgb = o;  o = align128(o + (size_t)TP * 12);
-  L.z = o;    o = align128(o + (size_t)TP * 4);
-  L.wts = o;  o = align128(o + (size_t)TP * 4);
-  L.b1 = o;   o = align128(o + (size_t)L.DP * 4);
-  L.b2 = o;   o = align128(o + (size_t)L.EP * 4);
-  L.cam = o;  o = align128(o + 42 * 4);
-  L.total = o;
-  return L;
+// the grid channel that hidden unit n of the kernel stands for
+template <int DC>
+__host__ __device__ inline int hidden_channel(int n) {
+  const int c = n / 64, j = (n % 64) / 8, q = (n % 8) / 2, t = n % 2;
+  return q * 16 * DC + 16 * c + 2 * j + t;
 }
 
 // cam: rot (9), trans (3), K (9). Rounded step by step (no FMA contraction)
 // so the coordinates agree with the plain version's separate products.
-__device__ inline void project(const float* cam, const float* pt, float& x, float& y,
-                               float& zc, float* pc) {
+__device__ inline void project(const float* cam, const float* pt, float& x, float& y, float& zc, float* pc) {
 #pragma unroll
   for (int i = 0; i < 3; ++i) {
     float s = __fmul_rn(cam[i * 3 + 0], pt[0]);
@@ -166,297 +217,515 @@ __device__ inline float to_pixel(float v, int n) {
 
 __device__ inline int clampi(int v, int lo, int hi) { return v < lo ? lo : (v > hi ? hi : v); }
 
-// one thread per point: code row, feature corners, colour sample, depth
-template <int MODE>
-__device__ void setup_point(const Params& P, const Layout& L, unsigned char* smem, int p,
-                            int ray0, int rpt) {
-  __nv_bfloat16* code = reinterpret_cast<__nv_bfloat16*>(smem + L.code) + p * L.ldc;
-  int4* s_idx = reinterpret_cast<int4*>(smem + L.idx);
-  float2* s_wxy = reinterpret_cast<float2*>(smem + L.wxy);
-  float* s_rgb = reinterpret_cast<float*>(smem + L.rgb);
-  float* s_z = reinterpret_cast<float*>(smem + L.z);
-  const float* fcam = reinterpret_cast<const float*>(smem + L.cam);
-  const float* ccam = fcam + 21;
+// `v`, opaque to the compiler where it is called: what is computed from it
+// is computed there, inside the tile loop, and not hoisted out of the loop
+// into a register that lives across the whole walk (ptxas spilled such
+// loop invariants: the grid sizes as floats, the wgmma descriptors)
+__device__ __forceinline__ int fresh(int v) {
+  asm volatile("" : "+r"(v));
+  return v;
+}
 
-  const int rl = p / P.K;
-  const int k = p - rl * P.K;
-  const int r = ray0 + rl;
-  if (rl >= rpt || r >= P.R) {
-    for (int c = 0; c < L.CP; ++c) code[c] = __float2bfloat16(0.f);
-    s_idx[p] = make_int4(0, 0, 0, 0);
-    s_wxy[p] = make_float2(0.f, 0.f);
-    s_rgb[p * 3 + 0] = s_rgb[p * 3 + 1] = s_rgb[p * 3 + 2] = 0.f;
-    s_z[p] = 0.f;
-    return;
+__device__ inline float softplus(float x) { return fmaxf(x, 0.f) + log1pf(expf(-fabsf(x))); }
+
+__device__ inline float pick3(int j, float a, float b, float c) { return j == 0 ? a : (j == 1 ? b : c); }
+
+__device__ __forceinline__ int corner_row(const int4& v, int corner) {
+  return corner == 0 ? v.x : (corner == 1 ? v.y : (corner == 2 ? v.z : v.w));
+}
+
+// bf16 element i of 8 packed in 16 bytes, exactly, as fp32
+__device__ __forceinline__ float bf16_at(const uint4& v, int i) {
+  const uint32_t w = i / 2 == 0 ? v.x : (i / 2 == 1 ? v.y : (i / 2 == 2 ? v.z : v.w));
+  return __uint_as_float(i % 2 ? (w & 0xffff0000u) : (w << 16));
+}
+
+// what code column c is, once a block: sin(in[j] f + phase) of input j (0-2),
+// input j itself (3-5), or 0 past C (6)
+struct CodeColumn {
+  float freq, phase;
+  int source;
+};
+
+__device__ inline CodeColumn code_column(const Params& P, int c) {
+  if (c >= P.C) return {0.f, 0.f, 6};
+  if (P.include_input) {
+    if (c < 3) return {0.f, 0.f, 3 + c};
+    c -= 3;
   }
-  float pt[3];
+  const int f = c / 6, rem = c - 6 * f, s = rem / 3;
+  return {P.freq_factor * (float)(1 << f), s ? HALF_PI : 0.f, rem - 3 * s};
+}
+
+// [input?, sin(f_0 in), cos(f_0 in) = sin(f_0 in + pi/2), sin(f_1 in), ...], 0 past C
+__device__ __forceinline__ float code_value(const CodeColumn& col, float x, float y, float zz) {
+  if (col.source >= 6) return 0.f;
+  const float v = pick3(col.source % 3, x, y, zz);
+  return col.source >= 3 ? v : sinf(__fadd_rn(__fmul_rn(v, col.freq), col.phase));
+}
+
+// One row p of the tile, as thread lane q sees it: the code's inputs
+// (x, y, zz), the corner rows and weights of the feature grid; lanes 0-2
+// the colour channel q (RENDER), lane 3 the sample depth.
+template <int MODE>
+__device__ __forceinline__ void setup_row(const Params& P, const float* cam, int p, int ray0, int rpt, int q,
+                                          float3& in, int4& idx, float2& wxy, float* s_z, float* s_rgb) {
+  const int K = MODE == QUERY ? 1 : P.K;
+  const int rl = p / K;
+  const int k = p - rl * K;
+  const int r = ray0 + rl;
+  const int rr = (rl < rpt && r < P.R) ? r : 0;  // rows past the tile's rays compute ray 0; nobody reads them
+  float pt[3], zv = 0.f;
   if (MODE == QUERY) {
 #pragma unroll
-    for (int i = 0; i < 3; ++i) pt[i] = P.rays[(size_t)r * 3 + i];
-    s_z[p] = 0.f;
+    for (int i = 0; i < 3; ++i) pt[i] = __ldg(P.rays + (size_t)rr * 3 + i);
   } else {
-    const float* ray = P.rays + (size_t)r * 8;
-    const float zv = P.z[(size_t)r * P.K + k];
+    const float* ray = P.rays + (size_t)rr * 8;
+    zv = __ldg(P.z + (size_t)rr * K + k);
 #pragma unroll
-    for (int i = 0; i < 3; ++i) pt[i] = __fadd_rn(ray[i], __fmul_rn(zv, ray[3 + i]));
-    s_z[p] = zv;
+    for (int i = 0; i < 3; ++i) pt[i] = __fadd_rn(__ldg(ray + i), __fmul_rn(zv, __ldg(ray + 3 + i)));
   }
 
+  const int Wg = fresh(P.Wg), Hg = fresh(P.Hg);
   float x, y, zc, pc[3];
-  project(fcam, pt, x, y, zc, pc);
+  project(cam, pt, x, y, zc, pc);
   const float dl = P.code_distance ? sqrtf(pc[0] * pc[0] + pc[1] * pc[1] + pc[2] * pc[2]) : zc;
   const float zn01 = P.inv_z ? __fdiv_rn(__fsub_rn(__fdiv_rn(1.f, fmaxf(dl, EPS)), P.zn_sub), P.zn_den)
                              : __fdiv_rn(__fsub_rn(dl, P.zn_sub), P.zn_den);
-  const float in3[3] = {x, y, __fsub_rn(__fmul_rn(2.f, zn01), 1.f)};
-  int c = 0;
-  if (P.include_input) {
-    for (int j = 0; j < 3; ++j) code[c++] = __float2bfloat16(in3[j]);
-  }
-  for (int f = 0; f < P.num_freqs; ++f) {
-    const float freq = P.freq_factor * (float)(1 << f);
-    for (int s = 0; s < 2; ++s) {
-      for (int j = 0; j < 3; ++j) {
-        code[c++] = __float2bfloat16(sinf(__fadd_rn(__fmul_rn(in3[j], freq), s ? HALF_PI : 0.f)));
-      }
-    }
-  }
-  for (; c < L.CP; ++c) code[c] = __float2bfloat16(0.f);
+  in = make_float3(x, y, __fsub_rn(__fmul_rn(2.f, zn01), 1.f));
 
   // feature-grid corners (no weight collapse: coinciding corners blend to the corner)
-  const float px = to_pixel(x, P.Wg), py = to_pixel(y, P.Hg);
+  const float px = to_pixel(x, Wg), py = to_pixel(y, Hg);
   const float fx0 = floorf(px), fy0 = floorf(py);
-  const int x0 = clampi((int)fx0, 0, P.Wg - 1), x1 = clampi((int)fx0 + 1, 0, P.Wg - 1);
-  const int y0 = clampi((int)fy0, 0, P.Hg - 1), y1 = clampi((int)fy0 + 1, 0, P.Hg - 1);
-  s_idx[p] = make_int4(y0 * P.Wg + x0, y0 * P.Wg + x1, y1 * P.Wg + x0, y1 * P.Wg + x1);
-  s_wxy[p] = make_float2(__fsub_rn(px, fx0), __fsub_rn(py, fy0));
+  const int x0 = clampi((int)fx0, 0, Wg - 1), x1 = clampi((int)fx0 + 1, 0, Wg - 1);
+  const int y0 = clampi((int)fy0, 0, Hg - 1), y1 = clampi((int)fy0 + 1, 0, Hg - 1);
+  idx = make_int4(y0 * Wg + x0, y0 * Wg + x1, y1 * Wg + x0, y1 * Wg + x1);
+  wxy = make_float2(__fsub_rn(px, fx0), __fsub_rn(py, fy0));
 
+  if (q == 3 && MODE != QUERY) s_z[p] = zv;
   if (MODE != RENDER) return;
-  // colour: second projection, bilinear with the border weight collapse
+  // colour: second projection, bilinear with the border weight collapse; one channel a lane
   float cx, cy, czc, cpc[3];
-  project(ccam, pt, cx, cy, czc, cpc);
-  const float qx = to_pixel(cx, P.Wc), qy = to_pixel(cy, P.Hc);
+  project(cam + 21, pt, cx, cy, czc, cpc);
+  if (q == 3) return;
+  const int Wc = fresh(P.Wc), Hc = fresh(P.Hc);
+  const float qx = to_pixel(cx, Wc), qy = to_pixel(cy, Hc);
   const float gx0 = floorf(qx), gy0 = floorf(qy);
-  const int u0 = clampi((int)gx0, 0, P.Wc - 1), u1 = clampi((int)gx0 + 1, 0, P.Wc - 1);
-  const int v0 = clampi((int)gy0, 0, P.Hc - 1), v1 = clampi((int)gy0 + 1, 0, P.Hc - 1);
+  const int u0 = clampi((int)gx0, 0, Wc - 1), u1 = clampi((int)gx0 + 1, 0, Wc - 1);
+  const int v0 = clampi((int)gy0, 0, Hc - 1), v1 = clampi((int)gy0 + 1, 0, Hc - 1);
   const float wx = u1 > u0 ? __fsub_rn(qx, gx0) : 0.f;
   const float wy = v1 > v0 ? __fsub_rn(qy, gy0) : 0.f;
   const float w00 = (1.f - wx) * (1.f - wy), w01 = wx * (1.f - wy);
   const float w10 = (1.f - wx) * wy, w11 = wx * wy;
   const __nv_bfloat16* img = P.color;
-  for (int ch = 0; ch < 3; ++ch) {
-    const float c00 = __bfloat162float(img[(v0 * P.Wc + u0) * 3 + ch]);
-    const float c01 = __bfloat162float(img[(v0 * P.Wc + u1) * 3 + ch]);
-    const float c10 = __bfloat162float(img[(v1 * P.Wc + u0) * 3 + ch]);
-    const float c11 = __bfloat162float(img[(v1 * P.Wc + u1) * 3 + ch]);
-    s_rgb[p * 3 + ch] = c00 * w00 + c01 * w01 + c10 * w10 + c11 * w11;
-  }
+  const float c00 = __bfloat162float(img[(v0 * Wc + u0) * 3 + q]);
+  const float c01 = __bfloat162float(img[(v0 * Wc + u1) * 3 + q]);
+  const float c10 = __bfloat162float(img[(v1 * Wc + u0) * 3 + q]);
+  const float c11 = __bfloat162float(img[(v1 * Wc + u1) * 3 + q]);
+  s_rgb[p * 3 + q] = c00 * w00 + c01 * w01 + c10 * w10 + c11 * w11;
 }
 
-// C (TP x n) = A (TP x kdim) @ B (kdim x n), bf16 in shared memory, fp32 out
-__device__ void tile_matmul(const __nv_bfloat16* A, int lda_, const __nv_bfloat16* B, int ldb,
-                            float* Cm, int ldc_, int n, int kdim, int warp) {
-  const int mt = TP / 16, nt = n / 16, kt = kdim / 16;
-  for (int t = warp; t < mt * nt; t += NWARPS) {
-    const int i = t / nt, j = t % nt;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    wmma::fill_fragment(acc, 0.f);
-    for (int kk = 0; kk < kt; ++kk) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> b;
-      wmma::load_matrix_sync(a, A + i * 16 * lda_ + kk * 16, lda_);
-      wmma::load_matrix_sync(b, B + kk * 16 * ldb + j * 16, ldb);
-      wmma::mma_sync(acc, a, b, acc);
+// the thread's 16 code columns 16 kk + 8 g + 2 q + {0, 1} of rows r and
+// r + 8 (inputs in[0], in[1]) into the swizzled code tile, four sinf
+// chains at a time
+__device__ __forceinline__ void write_code(const Params& P, const CodeColumn* tab, unsigned char* code, int row,
+                                           int q, const float3 (&in)[2]) {
+#pragma unroll 2
+  for (int s = 0; s < 8; ++s) {
+    const int col = 16 * (s >> 1) + 8 * (s & 1);
+    const int c = col + 2 * q;
+    uint32_t v[2] = {0u, 0u};
+    if (c < P.C) {
+      const CodeColumn c0 = tab[c], c1 = tab[c + 1];
+#pragma unroll
+      for (int hi = 0; hi < 2; ++hi) {
+        v[hi] = pack_bf16(code_value(c0, in[hi].x, in[hi].y, in[hi].z), code_value(c1, in[hi].x, in[hi].y, in[hi].z));
+      }
     }
-    wmma::store_matrix_sync(Cm + i * 16 * ldc_ + j * 16, acc, ldc_, wmma::mem_row_major);
+#pragma unroll
+    for (int hi = 0; hi < 2; ++hi) {
+      *reinterpret_cast<uint32_t*>(code + swizzled_offset(row + 8 * hi, col) + 4 * q) = v[hi];
+    }
   }
 }
 
-__device__ inline float softplus(float x) { return fmaxf(x, 0.f) + log1pf(expf(-fabsf(x))); }
+// 16 bytes of the grid through the non-coherent path. As a volatile asm it
+// keeps its place in the ring (each batch's blend is pinned at its end), so
+// the loads in flight are the ring's.
+__device__ __forceinline__ uint4 load16(const void* p) {
+  uint4 v;
+  asm volatile("ld.global.nc.v4.u32 {%0, %1, %2, %3}, [%4];" : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w) : "l"(p));
+  return v;
+}
 
+// batch b of a thread's corner loads: chunk c, row r + 8 hi, 8-channel
+// group g (b = 4 c + 2 hi + g), the four corners (16 bytes each)
+template <int DC>
+__device__ __forceinline__ void load_batch(uint4 (&buf)[4], const Params& P, const int4 (&idx)[2], int b, int q) {
+  const int c = b / 4, hi = (b / 2) % 2, g = b % 2;
+  const int base = q * 16 * DC + 16 * c + 8 * g;
+#pragma unroll
+  for (int corner = 0; corner < 4; ++corner) {
+    buf[corner] = base + 8 <= P.D ? load16(P.grid + (size_t)corner_row(idx[hi], corner) * P.D + base)
+                                  : make_uint4(0u, 0u, 0u, 0u);
+  }
+}
+
+// chunk c's accumulator columns of batch b <- relu((g + acc) + b1), g the blended corners
+template <int DC>
+__device__ __forceinline__ void blend_batch(float (&acc)[32], const uint4 (&buf)[4], const float2 (&wxy)[2],
+                                            const float* s_b1, int b, int q) {
+  const int c = b / 4, hi = (b / 2) % 2, g = b % 2;
+  const int base = q * 16 * DC + 16 * c + 8 * g;
+  const float wx = wxy[hi].x, wy = wxy[hi].y;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const float top = bf16_at(buf[0], i) * (1.f - wx) + bf16_at(buf[1], i) * wx;
+    const float bot = bf16_at(buf[2], i) * (1.f - wx) + bf16_at(buf[3], i) * wx;
+    const float gv = top * (1.f - wy) + bot * wy;
+    float& a = acc[4 * (4 * g + i / 2) + 2 * hi + (i % 2)];
+    a = fmaxf((gv + a) + s_b1[base + i], 0.f);
+  }
+  // the batch's results are done here, before the next load is issued
+#pragma unroll
+  for (int i = 0; i < 8; ++i) asm volatile("" : "+f"(acc[4 * (4 * g + i / 2) + 2 * hi + (i % 2)]));
+}
+
+// One ray's compositing by one warp, two samples a lane: weights into s_w
+// (and the probe's output), the depth (E[z] or the weight median) returned
+// to every lane.
 template <int MODE>
-__global__ void __launch_bounds__(THREADS) point_kernel(const Params P) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const Layout L = make_layout(P.C, P.D, P.E);
-  __nv_bfloat16* s_wc = reinterpret_cast<__nv_bfloat16*>(smem + L.wc);
-  __nv_bfloat16* s_w2 = reinterpret_cast<__nv_bfloat16*>(smem + L.w2);
-  __nv_bfloat16* s_code = reinterpret_cast<__nv_bfloat16*>(smem + L.code);
-  float* s_acc = reinterpret_cast<float*>(smem + L.acc);
-  __nv_bfloat16* s_h = reinterpret_cast<__nv_bfloat16*>(smem + L.h);
-  const int4* s_idx = reinterpret_cast<const int4*>(smem + L.idx);
-  const float2* s_wxy = reinterpret_cast<const float2*>(smem + L.wxy);
-  const float* s_rgb = reinterpret_cast<const float*>(smem + L.rgb);
-  const float* s_z = reinterpret_cast<const float*>(smem + L.z);
-  float* s_wts = reinterpret_cast<float*>(smem + L.wts);
-  float* s_b1 = reinterpret_cast<float*>(smem + L.b1);
-  float* s_b2 = reinterpret_cast<float*>(smem + L.b2);
-  float* s_cam = reinterpret_cast<float*>(smem + L.cam);
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+__device__ __forceinline__ float composite_ray(const Params& P, const float* s_out, int ldo, const float* s_z,
+                                               float* s_w, int pb, int r, int lane) {
+  const int K = P.K;
+  float alpha[2], f[2], zk[2];
+#pragma unroll
+  for (int t = 0; t < 2; ++t) {
+    const int k = 2 * lane + t;
+    alpha[t] = 0.f;
+    f[t] = 1.f;
+    zk[t] = 0.f;
+    if (k < K) {
+      const float sigma = softplus(s_out[(pb + k) * ldo]);
+      zk[t] = s_z[pb + k];
+      const float delta = k + 1 < K ? s_z[pb + k + 1] - zk[t] : 1e10f;
+      alpha[t] = 1.f - expf(-fabsf(delta) * fmaxf(sigma, 0.f));
+      if (P.hard_cap && k == K - 1) alpha[t] = 1.f;
+      f[t] = fmaxf(1.f - alpha[t], 1e-10f);
+    }
+  }
+  // transmittance: the exclusive product of the floors, scanned over the lanes' pairs
+  float incl = f[0] * f[1];
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const float v = __shfl_up_sync(FULL, incl, o);
+    if (lane >= o) incl *= v;
+  }
+  float excl = __shfl_up_sync(FULL, incl, 1);
+  if (lane == 0) excl = 1.f;
+  const float w0 = alpha[0] * excl, w1 = alpha[1] * (excl * f[0]);
+  const int k0 = 2 * lane;
+  if (k0 < K) s_w[pb + k0] = w0;
+  if (k0 + 1 < K) s_w[pb + k0 + 1] = w1;
+  if (MODE == PROBE) {
+    if (k0 < K) P.out[(size_t)r * K + k0] = w0;
+    if (k0 + 1 < K) P.out[(size_t)r * K + k0 + 1] = w1;
+    return 0.f;
+  }
+  if (!P.median) {
+    float d = w0 * zk[0] + w1 * zk[1];
+#pragma unroll
+    for (int o = 16; o >= 1; o >>= 1) d += __shfl_xor_sync(FULL, d, o);
+    return d;
+  }
+  // the median: count the samples whose CDF over the total is below 0.5
+  float total = w0 + w1;
+#pragma unroll
+  for (int o = 16; o >= 1; o >>= 1) total += __shfl_xor_sync(FULL, total, o);
+  const float den = fmaxf(total, 1e-10f);
+  float cum = w0 + w1;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const float v = __shfl_up_sync(FULL, cum, o);
+    if (lane >= o) cum += v;
+  }
+  float before = __shfl_up_sync(FULL, cum, 1);
+  if (lane == 0) before = 0.f;
+  const float cdf0 = before + w0;
+  const unsigned below0 = __ballot_sync(FULL, k0 < K && __fdiv_rn(cdf0, den) < 0.5f);
+  const unsigned below1 = __ballot_sync(FULL, k0 + 1 < K && __fdiv_rn(cum, den) < 0.5f);
+  const int at = min(__popc(below0) + __popc(below1), K - 1);
+  return s_z[pb + at];
+}
+
+template <int MODE, int DC, int EC, int ET>
+__global__ void __launch_bounds__(PR_WGS * WG, PR_BLOCKS) point_kernel(const Params P) {
+  using L = Layout<DC, EC, ET>;
+  constexpr int EN = EC > 0 ? EC : 1;  // extent of the output accumulators (unused at EC = 0)
+  extern __shared__ unsigned char smem_raw[];
+  // the first 1024-byte boundary, reached by indexing the shared array (not
+  // by integer arithmetic on its address, which leaves a generic pointer:
+  // 64-bit addresses and generic loads for every shared-memory access)
+  unsigned char* sm = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
+  float* s_b1 = reinterpret_cast<float*>(sm + L::B1);
+  float* s_b2 = reinterpret_cast<float*>(sm + L::B2);
+  float* s_cam = reinterpret_cast<float*>(sm + L::CAM);
+  const int tid = threadIdx.x;
   const __nv_bfloat16 zero = __float2bfloat16(0.f);
 
-  // weights, biases and both cameras, once per block, zero-padded
-  for (int i = tid; i < L.CP * L.DP; i += THREADS) {
-    const int c = i / L.DP, d = i % L.DP;
-    s_wc[c * L.ldwc + d] = (c < P.C && d < P.D) ? P.w_code[c * P.D + d] : zero;
+  // weights (hidden units permuted, zero-padded), biases and cameras, once a block
+  for (int i = tid; i < DC * 64 * CODE_COLS; i += blockDim.x) {
+    const int n = i / CODE_COLS, k = i % CODE_COLS;
+    const int ch = hidden_channel<DC>(n);
+    *reinterpret_cast<__nv_bfloat16*>(sm + L::WC + (n / 64) * TILE_BYTES + swizzled_offset(n % 64, k) + (k % 8) * 2) =
+        (k < P.C && ch < P.D) ? P.w_code[k * P.D + ch] : zero;
   }
-  for (int i = tid; i < L.DP * L.EP; i += THREADS) {
-    const int d = i / L.EP, e = i % L.EP;
-    s_w2[d * L.ldw2 + e] = (d < P.D && e < P.E) ? P.w2[d * P.E + e] : zero;
+  for (int i = tid; i < L::EP * L::DP; i += blockDim.x) {
+    const int e = i / L::DP, n = i % L::DP;
+    const int ch = hidden_channel<DC>(n);
+    const int kt = n / 64, k = n % 64;
+    unsigned char* tile = e < 64 * EC ? sm + L::W2 + ((e / 64) * DC + kt) * TILE_BYTES : sm + L::W2T + kt * 1024;
+    *reinterpret_cast<__nv_bfloat16*>(tile + swizzled_offset(e % 64, k) + (k % 8) * 2) =
+        (e < P.E && ch < P.D) ? P.w2[ch * P.E + e] : zero;
   }
-  for (int i = tid; i < L.DP; i += THREADS) s_b1[i] = i < P.D ? P.b1[i] : 0.f;
-  for (int i = tid; i < L.EP; i += THREADS) s_b2[i] = i < P.E ? P.b2[i] : 0.f;
+  for (int i = tid; i < L::DP; i += blockDim.x) s_b1[i] = i < P.D ? P.b1[i] : 0.f;
+  for (int i = tid; i < L::EP; i += blockDim.x) s_b2[i] = i < P.E ? P.b2[i] : 0.f;
   if (tid < (MODE == RENDER ? 42 : 21)) {
     const int cam = tid / 21, j = tid % 21;
     const float* w2c = cam ? P.color_w2c : P.feat_w2c;
     const float* kmat = cam ? P.color_k : P.feat_k;
     s_cam[tid] = j < 9 ? w2c[(j / 3) * 4 + j % 3] : (j < 12 ? w2c[(j - 9) * 4 + 3] : kmat[j - 12]);
   }
+  CodeColumn* s_tab = reinterpret_cast<CodeColumn*>(sm + L::CODE_TAB);
+  for (int c = tid; c < CODE_COLS; c += blockDim.x) s_tab[c] = code_column(P, c);
+  fence_proxy_async();  // the tiles were written by threads; wgmma reads them
   __syncthreads();
 
-  const int rpt = TP / P.K;  // rays per tile
+  const int wg = tid / WG, t = tid % WG, warp = t / 32, lane = t % 32, q = lane % 4;
+  unsigned char* own = sm + L::WG0 + wg * L::WG_BYTES;
+  float* s_out = reinterpret_cast<float*>(own + L::OUT);
+  float* s_z = reinterpret_cast<float*>(own + L::Z);
+  float* s_w = reinterpret_cast<float*>(own + L::W);
+  float* s_rgb = reinterpret_cast<float*>(own + L::RGB);
+  const int row0 = warp * 16 + lane / 4;
+  const int K = MODE == QUERY ? 1 : P.K;
+  const int rpt = TP / K;
   const int ntiles = (P.R + rpt - 1) / rpt;
-  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+  constexpr int NB = 4 * DC;  // corner-load batches of a thread
+
+  unsigned char* code = own + L::CODE;
+
+  for (int tile = blockIdx.x * PR_WGS + wg; tile < ntiles; tile += gridDim.x * PR_WGS) {
     const int ray0 = tile * rpt;
-    if (tid < TP) setup_point<MODE>(P, L, smem, tid, ray0, rpt);
-    __syncthreads();
+    const uint32_t s0 = fresh(smem_u32(sm));  // the descriptors below are made here, tile by tile
+    const uint64_t desc_code = wgmma_desc_at(s0 + (uint32_t)(code - sm));
+    int4 idx[2];
+    float2 wxy[2];
+    float3 in[2];
+    setup_row<MODE>(P, s_cam, row0, ray0, rpt, q, in[0], idx[0], wxy[0], s_z, s_rgb);
+    setup_row<MODE>(P, s_cam, row0 + 8, ray0, rpt, q, in[1], idx[1], wxy[1], s_z, s_rgb);
+    write_code(P, s_tab, code, row0, q, in);
+    fence_proxy_async();  // the code tile was written by threads; wgmma reads it
+    named_barrier_sync(1 + wg, WG);
 
-    tile_matmul(s_code, L.ldc, s_wc, L.ldwc, s_acc, L.lda, L.DP, L.CP, warp);
-    __syncthreads();
-
-    // gather 4 corner rows (8 channels = 16 bytes per load), blend, bias, relu, bf16
-    const int chunks = L.DP / 8;
-    for (int i = tid; i < TP * chunks; i += THREADS) {
-      const int p = i / chunks, c0 = (i % chunks) * 8;
-      __align__(16) __nv_bfloat16 hv[8];
-      if (c0 < P.D) {
-        const int4 id = s_idx[p];
-        const float2 w = s_wxy[p];
-        const uint4 r00 = __ldg(reinterpret_cast<const uint4*>(P.grid + (size_t)id.x * P.D + c0));
-        const uint4 r01 = __ldg(reinterpret_cast<const uint4*>(P.grid + (size_t)id.y * P.D + c0));
-        const uint4 r10 = __ldg(reinterpret_cast<const uint4*>(P.grid + (size_t)id.z * P.D + c0));
-        const uint4 r11 = __ldg(reinterpret_cast<const uint4*>(P.grid + (size_t)id.w * P.D + c0));
-        const __nv_bfloat16* a00 = reinterpret_cast<const __nv_bfloat16*>(&r00);
-        const __nv_bfloat16* a01 = reinterpret_cast<const __nv_bfloat16*>(&r01);
-        const __nv_bfloat16* a10 = reinterpret_cast<const __nv_bfloat16*>(&r10);
-        const __nv_bfloat16* a11 = reinterpret_cast<const __nv_bfloat16*>(&r11);
-        const float* accp = s_acc + p * L.lda + c0;
+    // chunk by chunk: acc = code W_code (from zero, in flight while the
+    // chunk's first corner rows load), then the blend into it, then h. The
+    // loads run PR_AHEAD batches ahead through a ring, across chunks.
+    constexpr int SLOTS = PR_AHEAD + 1;
+    float acc[32];  // one 64-column chunk of the hidden layer
+    uint4 buf[SLOTS][4];
+#pragma unroll
+    for (int b = 0; b < NB; ++b) {
+      const int c = b / 4;
+      if (b % 4 == 0) {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) acc[i] = 0.f;  // nothing in flight: zeroed here, not live across the tile
+        fence_registers(acc);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < CODE_COLS / 16; ++kk) {
+          wgmma_m64n64k16_ss(acc, desc_code + kk * WGMMA_K_STEP,
+                             wgmma_desc_at(s0 + L::WC + c * TILE_BYTES) + kk * WGMMA_K_STEP, kk > 0);
+        }
+        wgmma_commit();
+        if (b == 0) {
+#pragma unroll
+          for (int a = 0; a < SLOTS && a < NB; ++a) load_batch<DC>(buf[a], P, idx, a, q);
+        }
+        wgmma_wait<0>();
+        fence_registers(acc);
+      }
+      if (b > 0 && b + PR_AHEAD < NB) load_batch<DC>(buf[(b + PR_AHEAD) % SLOTS], P, idx, b + PR_AHEAD, q);
+      blend_batch<DC>(acc, buf[b % SLOTS], wxy, s_b1, b, q);
+      if (b % 4 == 3) {
+        // chunk c of h to bf16, into its swizzled tile: the A operand of out = h W2
+        unsigned char* ht = own + L::H + c * TILE_BYTES;
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
-          const float top = __bfloat162float(a00[j]) * (1.f - w.x) + __bfloat162float(a01[j]) * w.x;
-          const float bot = __bfloat162float(a10[j]) * (1.f - w.x) + __bfloat162float(a11[j]) * w.x;
-          const float g = top * (1.f - w.y) + bot * w.y;
-          hv[j] = __float2bfloat16(fmaxf(g + accp[j] + s_b1[c0 + j], 0.f));
-        }
-      } else {
 #pragma unroll
-        for (int j = 0; j < 8; ++j) hv[j] = zero;
+          for (int hi = 0; hi < 2; ++hi) {
+            *reinterpret_cast<uint32_t*>(ht + swizzled_offset(row0 + 8 * hi, 8 * j) + 4 * q) =
+                pack_bf16(acc[4 * j + 2 * hi], acc[4 * j + 2 * hi + 1]);
+          }
+        }
       }
-      *reinterpret_cast<uint4*>(s_h + p * L.ldh + c0) = *reinterpret_cast<const uint4*>(hv);
     }
-    __syncthreads();
+    fence_proxy_async();  // h was written by threads; wgmma reads it
+    named_barrier_sync(1 + wg, WG);
 
-    tile_matmul(s_h, L.ldh, s_w2, L.ldw2, s_acc, L.lda, L.EP, L.DP, warp);
-    __syncthreads();
+    // out = h W2 + b2 into the warpgroup's buffer: every 64-column chunk and
+    // the 8-column tail in one batch (the buffer lies over h), then written
+    const uint32_t h0 = s0 + (uint32_t)(own - sm) + L::H;
+    float o[EN][32], ot[4];
+#pragma unroll
+    for (int c = 0; c < EN; ++c) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) o[c][i] = 0.f;
+      if (EC > 0) fence_registers(o[c]);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) ot[i] = 0.f;
+    if (ET > 0) fence_registers(ot);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4 * DC; ++kk) {
+      const uint64_t desc_h = wgmma_desc_at(h0 + (kk / 4) * TILE_BYTES) + (kk % 4) * WGMMA_K_STEP;
+#pragma unroll
+      for (int c = 0; c < EC; ++c) {
+        wgmma_m64n64k16_ss(o[c], desc_h,
+                           wgmma_desc_at(s0 + L::W2 + (c * DC + kk / 4) * TILE_BYTES) + (kk % 4) * WGMMA_K_STEP,
+                           kk > 0);
+      }
+      if (ET > 0) {
+        wgmma_m64n8k16_ss(ot, desc_h, wgmma_desc_at(s0 + L::W2T + (kk / 4) * 1024) + (kk % 4) * WGMMA_K_STEP,
+                          kk > 0);
+      }
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int c = 0; c < EC; ++c) fence_registers(o[c]);
+    if (ET > 0) fence_registers(ot);
+#pragma unroll
+    for (int hi = 0; hi < 2; ++hi) {
+      float* row = s_out + (row0 + 8 * hi) * L::LDO;
+#pragma unroll
+      for (int c = 0; c < EC; ++c) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int col = 64 * c + 8 * j + 2 * q;
+          *reinterpret_cast<float2*>(row + col) =
+              make_float2(o[c][4 * j + 2 * hi] + s_b2[col], o[c][4 * j + 2 * hi + 1] + s_b2[col + 1]);
+        }
+      }
+      if (ET > 0) {
+        const int col = 64 * EC + 2 * q;
+        *reinterpret_cast<float2*>(row + col) = make_float2(ot[2 * hi] + s_b2[col], ot[2 * hi + 1] + s_b2[col + 1]);
+      }
+    }
+    named_barrier_sync(1 + wg, WG);
 
     if (MODE == QUERY) {
-      // head outputs of the tile's points (K = 1): sigma and the feature row
-      for (int i = tid; i < TP * P.E; i += THREADS) {
-        const int p = i / P.E, e = i - p * P.E;
+      // sigma and the feature rows of the tile's points: a warp a row, coalesced
+      const int E = P.E;
+      for (int p = warp; p < TP && ray0 + p < P.R; p += WG / 32) {
         const int r = ray0 + p;
-        if (r >= P.R) continue;
-        const float x = s_acc[p * L.lda + e] + s_b2[e];
-        if (e == 0) {
-          P.out[r] = softplus(x);
-        } else {
-          P.dino[(size_t)r * (P.E - 1) + e - 1] = x;
-        }
-      }
-      __syncthreads();
-      continue;
-    }
-
-    // compositing: one warp per ray
-    for (int rl = warp; rl < rpt; rl += NWARPS) {
-      const int r = ray0 + rl;
-      if (r >= P.R) break;
-      const int pb = rl * P.K;
-      if (lane == 0) {
-        float T = 1.f, depth = 0.f;
-        for (int k = 0; k < P.K; ++k) {
-          const float sigma = softplus(s_acc[(pb + k) * L.lda] + s_b2[0]);
-          const float delta = k + 1 < P.K ? s_z[pb + k + 1] - s_z[pb + k] : 1e10f;
-          float alpha = 1.f - expf(-fabsf(delta) * fmaxf(sigma, 0.f));
-          if (P.hard_cap && k == P.K - 1) alpha = 1.f;
-          const float w = alpha * T;
-          s_wts[pb + k] = w;
-          if (MODE == PROBE) P.out[(size_t)r * P.K + k] = w;
-          depth += w * s_z[pb + k];
-          T *= fmaxf(1.f - alpha, 1e-10f);
-        }
-        if (MODE == RENDER && P.median) {
-          // first sample whose normalized weight CDF reaches 0.5, clamped
-          float total = 0.f;
-          for (int k = 0; k < P.K; ++k) total += s_wts[pb + k];
-          const float den = fmaxf(total, 1e-10f);
-          float cdf = 0.f;
-          int idx = 0;
-          for (int k = 0; k < P.K; ++k) {
-            cdf += s_wts[pb + k];
-            if (__fdiv_rn(cdf, den) < 0.5f) ++idx;
+        for (int e = lane; e < E; e += 32) {
+          const float v = s_out[p * L::LDO + e];
+          if (e == 0) {
+            P.out[r] = softplus(v);
+          } else {
+            P.dino[(size_t)r * (E - 1) + e - 1] = v;
           }
-          depth = s_z[pb + (idx < P.K ? idx : P.K - 1)];
         }
-        if (MODE == RENDER) P.depth[r] = depth;
       }
-      if (MODE != RENDER) continue;
-      __syncwarp();
-      for (int d = lane; d < P.E - 1; d += 32) {
-        float acc = 0.f;
-        for (int k = 0; k < P.K; ++k) {
-          acc += s_wts[pb + k] * (s_acc[(pb + k) * L.lda + 1 + d] + s_b2[1 + d]);
+    } else {
+      for (int rl = warp; rl < rpt; rl += WG / 32) {
+        const int r = ray0 + rl;
+        if (r >= P.R) break;
+        const float depth = composite_ray<MODE>(P, s_out, L::LDO, s_z, s_w, rl * K, r, lane);
+        if (MODE == RENDER && lane == 0) P.depth[r] = depth;
+      }
+      if (MODE == RENDER) {
+        named_barrier_sync(1 + wg, WG);
+        // the weighted feature and colour, one output a thread
+        const int F = P.E - 1, NO = F + 3;
+        for (int i = t; i < rpt * NO; i += WG) {
+          const int rl = i / NO, col = i - rl * NO;
+          const int r = ray0 + rl;
+          if (r >= P.R) break;
+          const int pb = rl * K;
+          float sum = 0.f;
+          if (col < F) {
+            for (int k = 0; k < K; ++k) sum += s_w[pb + k] * s_out[(pb + k) * L::LDO + 1 + col];
+            P.dino[(size_t)r * F + col] = sum;
+          } else {
+            for (int k = 0; k < K; ++k) sum += s_w[pb + k] * s_rgb[(pb + k) * 3 + col - F];
+            P.rgb[(size_t)r * 3 + col - F] = sum;
+          }
         }
-        P.dino[(size_t)r * (P.E - 1) + d] = acc;
-      }
-      if (lane < 3) {
-        float acc = 0.f;
-        for (int k = 0; k < P.K; ++k) acc += s_wts[pb + k] * s_rgb[(pb + k) * 3 + lane];
-        P.rgb[(size_t)r * 3 + lane] = acc;
       }
     }
-    __syncthreads();
+    named_barrier_sync(1 + wg, WG);  // the buffers are free for the next tile
   }
 }
 
+struct Cached {
+  bool ready = false;
+  int blocks = 0;  // blocks a launch: blocks an SM times SMs
+};
+
+template <int MODE, int DC, int EC, int ET>
+int launch_shape(const Params& P, void* stream) {
+  const auto kernel = point_kernel<MODE, DC, EC, ET>;
+  constexpr int smem = Layout<DC, EC, ET>::TOTAL + 1024;  // room to align the tiles
+  static Cached cached[MAX_DEVICES];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev < 0 || dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  Cached& c = cached[dev];
+  if (!c.ready) {
+    if ((err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem)) != cudaSuccess) {
+      return (int)err;
+    }
+    int sms = 0, per_sm = 0;
+    if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess) return (int)err;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, PR_WGS * WG, smem);
+    if (err != cudaSuccess) return (int)err;
+    c.blocks = (per_sm > 0 ? per_sm : 1) * sms;
+    c.ready = true;
+  }
+  const int K = MODE == QUERY ? 1 : P.K;
+  const int rpt = TP / K;
+  const int ntiles = (P.R + rpt - 1) / rpt;
+  int blocks = (ntiles + PR_WGS - 1) / PR_WGS;
+  if (blocks > c.blocks) blocks = c.blocks;
+  kernel<<<blocks, PR_WGS * WG, smem, (cudaStream_t)stream>>>(P);
+  return (int)cudaGetLastError();
+}
+
+// the hidden width to 64 or 128, the output width to 64 + 8 (E <= 72), 128, or 8 (K3's density column)
 template <int MODE>
 int launch(const Params& P, void* stream) {
-  const Layout L = make_layout(P.C, P.D, P.E);
-  const int smem = (int)L.total;
-  cudaError_t err = cudaFuncSetAttribute(point_kernel<MODE>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  int dev = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess) {
-    return (int)err;
+  if constexpr (MODE == PROBE) {
+    return P.D <= 64 ? launch_shape<MODE, 1, 0, 8>(P, stream) : launch_shape<MODE, 2, 0, 8>(P, stream);
+  } else {
+    if (P.D <= 64) return P.E <= 72 ? launch_shape<MODE, 1, 1, 8>(P, stream) : launch_shape<MODE, 1, 2, 0>(P, stream);
+    return P.E <= 72 ? launch_shape<MODE, 2, 1, 8>(P, stream) : launch_shape<MODE, 2, 2, 0>(P, stream);
   }
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, point_kernel<MODE>, THREADS, smem);
-  if (err != cudaSuccess) return (int)err;
-  const int rpt = TP / P.K;
-  const int ntiles = (P.R + rpt - 1) / rpt;
-  int blocks = (per_sm > 0 ? per_sm : 1) * sms;
-  if (blocks > ntiles) blocks = ntiles;
-  point_kernel<MODE><<<blocks, THREADS, smem, (cudaStream_t)stream>>>(P);
-  return (int)cudaGetLastError();
 }
 
 bool bad_field(int R, int K, int D, int E, int C, int num_freqs, int include_input, int min_e) {
   return R <= 0 || K <= 0 || K > TP || D <= 0 || D > 128 || D % 8 || E < min_e || E > 128 ||
-         C <= 0 || C > 64 || C != 3 * (include_input ? 1 : 0) + 6 * num_freqs;
+         C <= 0 || C > CODE_COLS || C != 3 * (include_input ? 1 : 0) + 6 * num_freqs;
 }
 
 }  // namespace
 
 // Pointers are device pointers on the current device; the wrappers check
-// dtypes, shapes and contiguity. Each returns a cudaError_t (0 = launched).
+// dtypes, shapes, contiguity and the grid's 16-byte alignment. Each returns
+// a cudaError_t (0 = launched).
 extern "C" int point_render(
     const void* rays, const void* z, const void* grid, const void* w_code, const void* b1,
     const void* w2, const void* b2, const void* feat_w2c, const void* feat_k,

@@ -134,3 +134,48 @@ SCENEDINO_KITTI_360_TRAIN = {
         },
     },
 }
+
+
+# The synthetic smoke recipe (configs/train_synthetic_smoke.yaml), as the
+# training step reads it: fp32 (no `with_amp`), a ViT-S/8 cut to width 64,
+# depth 3 and 2 heads (head dim 32; 73 tokens at 48x96), 8 coarse samples.
+# Of the dataset block only the shapes; the output and validation blocks
+# are not part of the step.
+SYNTHETIC_SMOKE_TRAIN = {
+    "seed": 0,
+    "batch_size": 2,
+    "dataset": {"type": "synthetic", "n_views": 4, "image_size": (48, 96)},
+    "model": {
+        "predict_dino": True,
+        "dino_dims": 16,
+        "compensate_artifacts": True,
+        "inv_z": True,
+        "code_mode": "z",
+        "z_near": 3,
+        "z_far": 80,
+        "encoder": {
+            "mode": "downsample-prediction",
+            "decoder_arch": "dpt",
+            "downsampler_arch": "featup",
+            "encoder_arch": "vit-s",
+            "version": "v1",
+            "separate_gt_version": "v1",
+            "dim_reduction_arch": "mlp",
+            "num_ch_enc": (16, 16, 32, 32),
+            "intermediate_features": (0, 1, 2),
+            "decoder_out_dim": 32,
+            "dino_pca_dim": 16,
+            "image_size": (48, 96),
+            "vit_overrides": {"width": 64, "depth": 3, "num_heads": 2},
+        },
+        "code": {"num_freqs": 6, "freq_factor": 1.5, "include_input": True},
+        "decoder_heads": [{"type": "resnet", "name": "normal_head", "args": {"n_blocks": 0, "d_hidden": 64}}],
+        "final_prediction_head": "normal_head",
+    },
+    "renderer": {"n_coarse": 8, "lindisp": True, "hard_alpha_cap": True},
+    "training": {
+        "optimizer": {"args": {"lr": 1.0e-4}},
+        "ray_sampler": {"z_near": 3, "z_far": 80, "sample_mode": "patch",
+                        "args": {"patch_size": 8, "ray_batch_size": 256}},
+    },
+}

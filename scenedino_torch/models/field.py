@@ -124,7 +124,7 @@ class SceneField(nn.Module):
         ids_encoder = list(ids_encoder) if ids_encoder is not None else all_ids
         ids_render = list(ids_render) if ids_render is not None else all_ids
         ids_loss = list(ids_loss) if ids_loss is not None else all_ids
-        poses_w2c = torch.linalg.inv(poses_c2w.float())
+        poses_w2c = torch.linalg.inv_ex(poses_c2w.float()).inverse  # a singular pose gives non-finite values, as in JAX
         imgs_enc = images[:, ids_encoder]
         ne = imgs_enc.shape[1]
         if flip:

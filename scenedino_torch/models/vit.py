@@ -8,7 +8,9 @@ and "key_features" (the last block's keys), prefix tokens stripped.
 
 The residual stream is fp32 like the reference's (its fp32 class token
 promotes the concatenated tokens); each sublayer computes in the compute
-dtype. Attention always goes through the K1 op, `kernels.attention`.
+dtype. Attention makes the reference's choice: the K1 kernel
+(`kernels.attention`) for a bf16 ViT at N >= 512 tokens on CUDA, else
+`dot_product_attention`, the counterpart of `jax.nn.dot_product_attention`.
 """
 from __future__ import annotations
 
@@ -85,13 +87,34 @@ def interpolate_pos_embed(pos_embed: torch.Tensor, grid_orig, grid_new,
     return torch.cat([prefix, patch], 1)
 
 
-class Attention(nn.Module):
-    """timm MHSA with a qkv projection; optionally returns the keys."""
+def flash_attention_wanted(use_flash: Optional[bool], dtype, n_tokens: int, device: torch.device) -> bool:
+    """The reference's choice (scenedino_tpu/models/vit.py:183-188): a
+    forced `use_flash`, else the K1 kernel for bf16 compute, N >= 512 and a
+    CUDA tensor (the TPU's counterpart)."""
+    if use_flash is not None:
+        return use_flash
+    return dtype == torch.bfloat16 and n_tokens >= 512 and device.type == "cuda"
 
-    def __init__(self, dim: int, num_heads: int, dtype=None):
+
+def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """softmax(q k^T / sqrt(D)) v over (B, N, H, D), as
+    `jax.nn.dot_product_attention` computes it: logits in fp32, scaled after
+    the product, softmax in fp32, probabilities cast to the input dtype and
+    the product with v in the input dtype."""
+    logits = torch.einsum("bthd,bshd->bhts", q.float(), k.float()) * q.shape[-1] ** -0.5
+    probs = torch.softmax(logits, -1).to(k.dtype)
+    return torch.einsum("bhts,bshd->bthd", probs, v)
+
+
+class Attention(nn.Module):
+    """timm MHSA with a qkv projection; optionally returns the keys.
+    `use_flash`: None chooses as `flash_attention_wanted` does; a bool forces."""
+
+    def __init__(self, dim: int, num_heads: int, dtype=None, use_flash: Optional[bool] = None):
         super().__init__()
         self.num_heads = num_heads
         self.dtype = dtype
+        self.use_flash = use_flash
         self.qkv = nn.Linear(dim, 3 * dim)
         self.proj = nn.Linear(dim, dim)
 
@@ -100,7 +123,11 @@ class Attention(nn.Module):
         H = self.num_heads
         qkv = linear(x, self.qkv, self.dtype).reshape(B, N, 3, H, C // H)
         q, k, v = (qkv[:, :, i].contiguous() for i in range(3))  # (B, N, H, D)
-        out = linear(attention(q, k, v).reshape(B, N, C), self.proj, self.dtype)
+        if flash_attention_wanted(self.use_flash, self.dtype, N, x.device):
+            out = attention(q, k, v)
+        else:
+            out = dot_product_attention(q, k, v)
+        out = linear(out.reshape(B, N, C), self.proj, self.dtype)
         if return_keys:
             return out, k.transpose(1, 2)  # (B, H, N, D) like timm's getitem_4
         return out

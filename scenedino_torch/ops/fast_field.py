@@ -339,7 +339,7 @@ def render_encode_view(fs: FastFieldState, cfg: FieldConfig, height: int, width:
         raise ValueError(f"render_encode_view: color image {tuple(rgb_map.shape[:2])} != render size "
                          f"{(height, width)}; use the generic renderer")
     kmat = fs.feat_ks[0, 0].float()
-    pose_c2w = torch.linalg.inv(fs.feat_w2c[0, :1].float())
+    pose_c2w = torch.linalg.inv_ex(fs.feat_w2c[0, :1].float()).inverse  # no raise, no host sync, as in JAX
     r, xy_img = rays_mod.rays_from_k(pose_c2w, kmat[None], width, height, cfg.z_near, cfg.z_far)
     flat = r.reshape(-1, 8)
     z = sampling.sample_coarse(flat, n_coarse, lindisp, u=u, generator=generator)  # (HW, K)

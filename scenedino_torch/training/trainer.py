@@ -137,7 +137,8 @@ def stage1_forward(field: SceneField, batch: Dict[str, torch.Tensor], draws: Sta
     _check_supported(cfg)
     imgs, poses, projs = batch["imgs"], batch["poses"], batch["projs"]
     B, V = imgs.shape[:2]
-    poses = torch.linalg.inv(poses[:, :1].float()) @ poses.float()
+    # inv_ex: a singular pose gives non-finite values (the step is then skipped), as in JAX
+    poses = torch.linalg.inv_ex(poses[:, :1].float()).inverse @ poses.float()
     ids_loss, ids_render = sample_frame_split(draws.split_coin)
     shift = draws.shift if cfg.grid_shift_augmentation else None
 

@@ -6,7 +6,7 @@ through `scenedino_torch.utils.convert.load_jax_params` (strict), and the
 same numpy inputs go through both sides in fp32. The JAX side runs under
 "highest" matmul precision; on the CPU its attention is
 jax.nn.dot_product_attention, the plain reference of the Pallas kernel,
-and the port's is `attention_plain`. Tolerance: atol 1e-4 / rtol 1e-4 on
+and the port's is its counterpart `vit.dot_product_attention`. Tolerance: atol 1e-4 / rtol 1e-4 on
 activations of order 1 after 3 blocks or a DPT stack (fp32 round-off,
 summed in another order by XLA and by torch's CPU kernels).
 """

@@ -512,6 +512,58 @@ def test_nonfinite_step_is_skipped_like_optax(models, jax_step):
     assert not np.isfinite(np.asarray(jstate.artifact_field)).all()
 
 
+def _singular_pose_batch(seed):
+    """View 0's pose is eye(4) with a zero on the diagonal: its inverse,
+    and so the rebased poses of every view, are not finite."""
+    batch = _batch(seed)
+    batch["poses"][:, 0] = np.diag([1.0, 1.0, 0.0, 1.0]).astype(np.float32)
+    return batch
+
+
+def test_singular_pose_encodes_to_nonfinite_values_like_the_reference(models):
+    """jnp.linalg.inv returns non-finite values for a singular pose; the
+    port's inv_ex gives the same, where the same, and raises nothing."""
+    jfield, params, model = models
+    assert load_jax_params(model, params["params"]) == []  # earlier steps of this module moved the weights
+    batch = _singular_pose_batch(10)
+    jb, tb = _jbatch(batch), _tbatch(batch)
+    ref = jfield.apply(params, jb["imgs"], jb["projs"], jb["poses"], ids_encoder=(0,), method=JSceneField.encode)
+    with torch.no_grad():
+        state = model.encode(tb["imgs"], tb["projs"], tb["poses"], ids_encoder=(0,))
+    for name in ("feat_w2c", "color_w2c", "feat_grid"):
+        r, o = np.asarray(getattr(ref, name)), getattr(state, name).numpy()
+        finite = np.isfinite(r)
+        np.testing.assert_array_equal(np.isfinite(o), finite, err_msg=name)
+        np.testing.assert_allclose(o[finite], r[finite], atol=1e-4, rtol=1e-4, err_msg=name)
+    assert not np.isfinite(np.asarray(ref.feat_w2c)).all()
+
+
+def test_singular_pose_step_is_skipped_like_the_reference(models, jax_step):
+    """A singular pose through the whole step: no exception, a non-finite
+    loss, the step skipped (nonfinite_consecutive 1) and the parameters and
+    the artifact field unchanged, on both packages."""
+    jfield, _, model = models
+    jt, tt, _, rcfg = _configs(skip_nonfinite_steps=1)
+    jstate, jtx = jtrain.init_train_state(jfield, jax_step["state"].params, jt, artifact_shape=ART_SHAPE,
+                                          key=jax.random.PRNGKey(3))
+    jstep = jax.jit(jtrain.make_train_step(jfield, jt, jnerf.RenderConfig(n_coarse=N_COARSE),
+                                           jrec.ReconstructionLossConfig(), jtx))
+    state = _port_state(model, jax_step["state"], tt)
+    step = trainer.make_train_step(model, tt, rcfg, rec.ReconstructionLossConfig())
+    batch = _singular_pose_batch(11)
+    before = [p.detach().clone() for p in model.parameters()] + [state.artifact_field.detach().clone()]
+    losses = step(state, _tbatch(batch), _jax_draws(jax_step["key"], jt, jnerf.RenderConfig(n_coarse=N_COARSE)))
+    new_jstate, jl = jstep(jstate, _jbatch(batch), jax_step["key"])
+    counters = ("nonfinite_consecutive", "nonfinite_total", "nonfinite_gave_up")
+    assert tuple(int(losses[c]) for c in counters) == tuple(int(jl[c]) for c in counters) == (1, 1, 0)
+    assert not np.isfinite(float(losses["rec_loss"])) and not np.isfinite(float(jl["rec_loss"]))
+    after = [p.detach() for p in model.parameters()] + [state.artifact_field.detach()]
+    assert all(torch.equal(a, b) for a, b in zip(after, before))
+    assert state.applied == 0 and state.step == 1
+    for a, b in zip(jax.tree_util.tree_leaves(new_jstate.params), jax.tree_util.tree_leaves(jstate.params)):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+
+
 def test_training_entry_points_refuse_the_cpu_without_a_device():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: make_model() rightly runs on it")
