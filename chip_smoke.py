@@ -67,9 +67,20 @@ Phases, one line each:
              depth 3, 2 heads, 48x96, batch 2): its attention takes the
              ViT's plain branch, so the step launches no kernel; it must be
              finite, applied and move every parameter tensor
-  6 kernels  one JSON line: launches (all serving paths and training
-             together), error, times and bound per kernel; the K1 forward's
-             also at each of its three shapes ("shapes")
+  6 train run the port's stage-1 run (scenedino_torch.cli.train.run_stage1)
+             on configs/train_synthetic_flagship.yaml, read by the port's
+             own YAML reader, at full width with the cuts printed on its
+             first line: 6 steps (each step's loss and host ms), validation
+             renders at 3 and 6 (depth, dino and nvs metrics), checkpoints
+             (write ms), peak memory, the K1 launch counts against what the
+             steps (remat recomputes the student's blocks) and validations
+             need; the checkpoint loaded into a fresh model equals the run's
+             state; the run resumed from it to step 9; the validation render
+             at 32x64 on the GPU against the CPU; 3 steps and a validation of
+             configs/train_synthetic_convergence.yaml (fp32, the fine pass)
+  kernels    one JSON line: launches (all serving paths, training and the
+             train run together), error, times and bound per kernel; the K1
+             forward's also at each of its three shapes ("shapes")
 The line before the last is the card's name and power limit as
 nvidia-smi prints them; the last line is {"ok": true, "device": {...}}.
 Any failed phase exits non-zero before that line. Needs one CUDA card;
@@ -79,6 +90,7 @@ import argparse
 import copy
 import dataclasses
 import json
+import logging
 import re
 import sys
 import time
@@ -128,6 +140,15 @@ QUERY_SIGMA_REL = 1e-2
 TRAIN_LOSS_REL = 1e-2
 TRAIN_GRAD_REL = 0.1
 TRAIN_STEPS = 3
+# phase 6: the flagship run's cuts (dataset items, steps, the resume's last step)
+TRAIN_RUN_ITEMS = 8
+TRAIN_RUN_STEPS = 6
+TRAIN_RUN_RESUME_TO = 9
+# the validation render at 32x64, GPU against CPU, bf16: its depths and colours
+# are the same kind of sums as phase 4's, over 4 views; the 99th percentile
+# allows a few rays whose weights move with bf16 rounding near a surface
+EVAL_DEPTH_REL_P99 = 1e-2
+EVAL_RGB_ABS = 2e-2
 # instantiations of csrc/point_render.cu's kernel: K2 and K4 at 2 hidden x 2
 # output widths each, K3 at 2 hidden widths
 POINT_KERNELS = 10
@@ -988,6 +1009,226 @@ def phase_train_fp32(seed):
     return counts
 
 
+class LogRecords(logging.Handler):
+    """Keeps the training loop's log records that carry numbers
+    (`training.loop` attaches them as record attributes)."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.records = []
+
+    def emit(self, record):
+        self.records.append(record)
+
+    def with_attr(self, name):
+        return [r for r in self.records if hasattr(r, name)]
+
+
+def _state_equal(a, b) -> bool:
+    """Two train-state dicts (tensors, numbers, strings, nested) equal, tensors bitwise."""
+    if isinstance(a, dict):
+        return isinstance(b, dict) and a.keys() == b.keys() and all(_state_equal(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return isinstance(b, (list, tuple)) and len(a) == len(b) and all(map(_state_equal, a, b))
+    if isinstance(a, torch.Tensor):
+        return isinstance(b, torch.Tensor) and a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+            a.cpu(), b.cpu())
+    return a == b
+
+
+def _finite(values) -> bool:
+    return all(np.isfinite(float(v)) for v in values)
+
+
+def phase_train_run(seed):
+    """Phase 6: the port's stage-1 training run (`cli.train.run_stage1`) on
+    configs/train_synthetic_flagship.yaml at full width, with the cuts
+    printed on its first line; the resume from its checkpoint; three steps
+    of configs/train_synthetic_convergence.yaml (the fine pass); the
+    validation render at 32x64 on the GPU against the CPU. Returns the
+    flagship run's launch counts."""
+    import os
+    import tempfile
+
+    from scenedino_torch import kernels
+    from scenedino_torch.cli import train as cli
+    from scenedino_torch.datasets import make_datasets
+    from scenedino_torch.training import trainer
+    from scenedino_torch.utils import config as yaml_config
+    from scenedino_torch.utils.checkpoint import load_checkpoint, train_state_dict
+
+    t_phase = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    conf = yaml_config.load(os.path.join(root, "configs", "train_synthetic_flagship.yaml"))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    conf["dataset"]["length"] = TRAIN_RUN_ITEMS
+    conf["training"].update(stop_iteration=TRAIN_RUN_STEPS, checkpoint_every=3, log_every=1)
+    vconf = conf["validation"]["validation"]
+    vconf["events"][0]["args"]["every"] = 3
+    vconf["subset"]["args"] = {"start": 0, "end": 3}
+    conf["output"]["path"] = os.path.join(tmp, "flagship")
+    conf["num_workers"] = 4
+    enc_conf = conf["model"]["encoder"]
+    print(f"phase 6 train run: configs/train_synthetic_flagship.yaml read by scenedino_torch.utils.config, every width "
+          f"as the file gives it ({enc_conf['encoder_arch']} {enc_conf['version']} student and teacher, "
+          f"{enc_conf['image_size']}, batch {conf['batch_size']}, "
+          f"{conf['dataset']['n_views']} views, {conf['training']['ray_sampler']['args']['ray_batch_size']} rays x "
+          f"{conf['renderer']['n_coarse']} samples, with_amp {conf['with_amp']}, grad_checkpointing "
+          f"{enc_conf['grad_checkpointing']}); cuts: dataset.length 64 -> {TRAIN_RUN_ITEMS}, stop_iteration "
+          f"{TRAIN_RUN_STEPS}, checkpoint_every 1000 -> 3, log_every 50 -> 1, validation every 500 -> 3 over "
+          f"subset 0-2 (file: 0-7), output into {tmp}", flush=True)
+
+    log = logging.getLogger("training")
+    log.setLevel(logging.INFO)
+    records = LogRecords()
+    log.addHandler(records)
+    try:
+        kernels.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        field, state = cli.run_stage1(conf, device="cuda")
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        counts = kernels.launches()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        steps = records.with_attr("losses")
+        vals = records.with_attr("validator")
+        writes = records.with_attr("checkpoint")
+        for r in steps:
+            print(f"phase 6 train step {r.iteration}: loss {r.losses['rec_loss']:.6f}; host {r.step_ms:.1f} ms "
+                  f"(data wait {r.data_ms:.1f} ms)", flush=True)
+        for r in vals:
+            print(f"phase 6 validation at {r.iteration} ({r.ms:.1f} ms): "
+                  f"{json.dumps({k: round(float(v), 6) for k, v in r.metrics.items()})}", flush=True)
+        depth = field.encoder.vit_encoder.vit.cfg.depth
+        n_val_batches = len(vals) * 3
+        expect = {**{name: 0 for name in kernels.WRAPPERS},
+                  # a step: the student's 12 blocks, again under the recompute of
+                  # the backward, and the teacher's 12; a validation batch: the
+                  # student (view 0) and the teacher (4 views in one call)
+                  "attention": TRAIN_RUN_STEPS * 3 * depth + n_val_batches * 2 * depth,
+                  "attention_bwd_dq": TRAIN_RUN_STEPS * depth, "attention_bwd_dkv": TRAIN_RUN_STEPS * depth}
+        print(f"phase 6 flagship run: {len(steps)} steps in {run_s:.1f} s wall (model build, data, steps, "
+              f"validations, checkpoints); checkpoint writes "
+              f"{json.dumps({os.path.basename(r.checkpoint): round(r.ms, 1) for r in writes})} ms, "
+              f"{os.path.getsize(os.path.join(conf['output']['path'], f'training_checkpoint_{TRAIN_RUN_STEPS}.pt'))} "
+              f"bytes each; peak memory "
+              f"allocated {peak:.3f} GiB (remat on; phase 5 gives the step without it); launches "
+              f"{json.dumps(counts)} (expected {json.dumps(expect)})", flush=True)
+        if len(steps) != TRAIN_RUN_STEPS or state.step != TRAIN_RUN_STEPS or state.applied != TRAIN_RUN_STEPS:
+            fail(f"the flagship run took {len(steps)} logged steps, state step {state.step}, applied {state.applied}")
+        if not _finite(v for r in steps for v in r.losses.values()) or len(vals) != 2 or not all(
+                _finite(r.metrics.values()) and "dino_cos_sim" in r.metrics and "nvs_psnr" in r.metrics
+                and "depth_abs_rel" in r.metrics for r in vals):
+            fail("the flagship run gave a non-finite loss or metric, or a validation is missing")
+        if counts != expect:
+            fail(f"the flagship run launched {counts}, expected {expect}")
+
+        out = conf["output"]["path"]
+        ckpt6 = os.path.join(out, f"training_checkpoint_{TRAIN_RUN_STEPS}.pt")
+        snap = train_state_dict(field, state)
+        if not os.path.exists(ckpt6) or not _state_equal(snap, torch.load(ckpt6, map_location="cuda",
+                                                                              weights_only=True)):
+            fail(f"{ckpt6} is missing or differs from the run's final state")
+
+        # the validation render of one item, timed (the second call)
+        vbatch = next(cli.make_val_batches_fn(make_datasets(conf["dataset"])[0], [0], 1, cli.VAL_KEYS, "cuda")())
+        _, tcfg, rcfg, _ = trainer.configs_from_dict(conf)
+        g = torch.Generator(device="cuda").manual_seed(seed + 600)
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            trainer.stage1_eval_forward(field, vbatch, tcfg, rcfg, generator=g)
+            torch.cuda.synchronize()
+            eval_ms = (time.perf_counter() - t0) * 1e3
+
+        # the checkpoint loads into a fresh model and train state, equal to what was saved
+        field3, state3, *_ = cli.init_stage1(conf, "cuda")
+        load_checkpoint(ckpt6, field3, state3)
+        loaded_equal = _state_equal(train_state_dict(field3, state3), snap)
+        print(f"phase 6 validation render of one item (1 x {conf['dataset']['n_views']} views at "
+              f"{enc_conf['image_size']}, {rcfg.n_coarse} samples, chunks of 16384 rays): {eval_ms:.1f} ms; "
+              f"{os.path.basename(ckpt6)} equals the final state and loads into a fresh model equal to it: "
+              f"{loaded_equal}, step {state3.step}", flush=True)
+        if not loaded_equal or state3.step != TRAIN_RUN_STEPS:
+            fail("the checkpoint did not load back to the saved state")
+        del field3, state3, field, state, snap
+
+        # resume: continue from the newest checkpoint to RESUME_TO
+        records.records.clear()
+        conf2 = copy.deepcopy(conf)
+        conf2["training"].update(stop_iteration=TRAIN_RUN_RESUME_TO)
+        conf2["training"]["continue"] = True
+        field, state = cli.run_stage1(conf2, device="cuda")
+        resumed = records.with_attr("resumed_from")
+        its = [r.iteration for r in records.with_attr("losses")]
+        files = sorted(f for f in os.listdir(out) if f.endswith(".pt"))
+        periodic = [f for f in files if f.startswith("training_checkpoint_")]
+        best = [f for f in files if f.startswith("dino_cos_sim_best_")]
+        print(f"phase 6 resume: from {[os.path.basename(r.resumed_from) for r in resumed]} at iteration "
+              f"{[r.iteration for r in resumed]}, then iterations {its}, final step {state.step}; checkpoints "
+              f"left {files}", flush=True)
+        if (len(resumed) != 1 or not resumed[0].resumed_from.endswith(os.path.basename(ckpt6))
+                or resumed[0].iteration != TRAIN_RUN_STEPS
+                or its != list(range(TRAIN_RUN_STEPS + 1, TRAIN_RUN_RESUME_TO + 1))
+                or state.step != TRAIN_RUN_RESUME_TO or periodic != [f"training_checkpoint_{TRAIN_RUN_RESUME_TO}.pt"]
+                or len(best) != 1 or not _finite(v for r in records.with_attr("losses") for v in r.losses.values())):
+            fail("the resumed run did not continue from the checkpoint as expected")
+
+        # the small-input check of the validation render: the flagship field's weights
+        # on the GPU and on the CPU, the same draws
+        h, w, V = 32, 64, conf["dataset"]["n_views"]
+        gc = torch.Generator().manual_seed(seed + 700)
+        small = train_batch(gc, 1, h, w, "cpu")
+        u = torch.rand(V * h * w, rcfg.n_coarse, generator=gc)
+        gpu = trainer.stage1_eval_forward(field, {k: v.cuda() for k, v in small.items()}, tcfg, rcfg, u=u.cuda())
+        cpu_field = copy.deepcopy(field).to("cpu")
+        del field, state
+        cpu = trainer.stage1_eval_forward(cpu_field, small, tcfg, rcfg, u=u)
+        d_rel = ((gpu["depth"].float().cpu() - cpu["depth"]).abs() / cpu["depth"]).flatten()
+        rgb_err = (gpu["rgb"].float().cpu() - cpu["rgb"].float()).abs().max().item()
+        cos = torch.nn.functional.cosine_similarity(gpu["dino_pred_grid"].float().cpu().flatten(0, -2),
+                                                    cpu["dino_pred_grid"].float().flatten(0, -2), dim=-1)
+        p99 = torch.quantile(d_rel, 0.99).item()
+        print(f"phase 6 small-input check of the validation render ({h}x{w}, {V} views, bf16; the ViT takes its "
+              f"plain branch at {1 + (h // 8) * (w // 8)} tokens on both devices): depth rel err p99 {p99:.3e} "
+              f"(bound {EVAL_DEPTH_REL_P99}), max {d_rel.max().item():.3e}; rgb max abs err {rgb_err:.3e} (bound "
+              f"{EVAL_RGB_ABS}); pooled feature median cosine {cos.median().item():.6f} (bound {SLICE_COS})",
+              flush=True)
+        if not (p99 <= EVAL_DEPTH_REL_P99 and rgb_err <= EVAL_RGB_ABS and cos.median().item() >= SLICE_COS):
+            fail("the GPU validation render disagrees with the CPU reference on the small input")
+        del cpu_field
+
+        # the fine pass on the card: 3 steps of the convergence recipe with one validation
+        records.records.clear()
+        conv = yaml_config.load(os.path.join(root, "configs", "train_synthetic_convergence.yaml"))
+        conv["dataset"]["length"] = TRAIN_RUN_ITEMS
+        conv["training"].update(stop_iteration=3, checkpoint_every=3, log_every=1)
+        conv["validation"]["validation"]["events"][0]["args"]["every"] = 3
+        conv["validation"]["validation"]["subset"]["args"] = {"start": 0, "end": 2}
+        conv["output"]["path"] = os.path.join(tmp, "convergence")
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        _, state = cli.run_stage1(conv, device="cuda")
+        conv_s = time.perf_counter() - t0
+        steps = records.with_attr("losses")
+        vals = records.with_attr("validator")
+        print(f"phase 6 fine pass (configs/train_synthetic_convergence.yaml, fp32, {conv['renderer']['n_coarse']} + "
+              f"{conv['renderer']['n_fine']} samples, {conv['dataset']['image_size']}; cuts: dataset.length 64 -> "
+              f"{TRAIN_RUN_ITEMS}, stop_iteration 3, checkpoint_every 3, log_every 1, validation at 3 over subset "
+              f"0-1): losses {[round(r.losses['rec_loss'], 6) for r in steps]}, host ms "
+              f"{[round(r.step_ms, 1) for r in steps]}; validation "
+              f"{json.dumps({k: round(float(v), 6) for r in vals for k, v in r.metrics.items()})}; {conv_s:.1f} s "
+              f"wall; launches {json.dumps(kernels.launches())}", flush=True)
+        if (len(steps) != 3 or state.applied != 3 or len(vals) != 1
+                or not _finite(v for r in steps for v in r.losses.values()) or not _finite(vals[0].metrics.values())):
+            fail("the convergence recipe's run was not 3 finite steps with one finite validation")
+    finally:
+        log.removeHandler(records)
+    print(f"phase 6 wall time {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return counts
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -1038,8 +1279,9 @@ def main():
     serving = phase_slice(args.seed)
     training = phase_train(args.seed)
     phase_train_fp32(args.seed)
+    train_run = phase_train_run(args.seed)
     for e in entries:
-        e["launches"] = serving[e["name"]] + training[e["name"]]
+        e["launches"] = serving[e["name"]] + training[e["name"]] + train_run[e["name"]]
     if sorted(e["name"] for e in entries) != sorted(kernels.WRAPPERS):
         fail("the kernels line does not list every kernel")
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",

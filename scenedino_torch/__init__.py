@@ -8,7 +8,10 @@ the repository unchanged). It covers these paths:
               or ops.fast_field.encode_prefolded -> render_novel_view_probe,
               fast_query_fused (the SSCBench voxel query) or render_encode_view
     training: models.factory.make_model(training=True)
-              -> training.trainer.make_train_step (the stage-1 step)
+              -> training.trainer.make_train_step (the stage-1 step);
+              cli.train (python -m scenedino_torch.cli.train --config ...):
+              the stage-1 run, with training.loop, the validation render
+              (training.trainer.stage1_eval_forward) and checkpoints
 
 Hand-written CUDA kernels carry them (`kernels/`, sources in `csrc/`):
 the ViT attention forward and its backward (dq; dk and dv), the fused

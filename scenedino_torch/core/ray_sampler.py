@@ -1,5 +1,5 @@
-"""Grid-snapped patch ray sampling (counterpart of
-`scenedino_tpu/core/ray_sampler.py:23-143`).
+"""Grid-snapped patch ray sampling and full-frame rays (counterpart of
+`scenedino_tpu/core/ray_sampler.py:23-143,228-255`).
 
 Rays are 11 floats: [origin(3), dir(3), near, far, frame_id, x_ndc,
 y_ndc]. The patch picks `pv` (view), `py`, `px` (patch row and column on
@@ -94,3 +94,25 @@ class PatchRaySampler:
         """(B, R, ...) -> (B, PC, P, P, ...)."""
         return flat.reshape(flat.shape[0], self.patch_count, self.patch_size, self.patch_size,
                             *flat.shape[2:])
+
+
+@dataclasses.dataclass(frozen=True)
+class ImageRaySampler:
+    """All rays of full frames (the validation render's sampler)."""
+
+    z_near: float
+    z_far: float
+    height: int
+    width: int
+
+    def sample(self, poses_c2w: torch.Tensor, ks: torch.Tensor) -> torch.Tensor:
+        """poses_c2w (B, V, 4, 4), ks (B, V, 3, 3) -> rays (B, V*H*W, 11),
+        frame ids 0..V-1."""
+        return torch.stack([
+            build_frame_rays(p, k, self.z_near, self.z_far, self.height, self.width).reshape(-1, 11)
+            for p, k in zip(poses_c2w, ks)
+        ])
+
+    def reconstruct(self, flat: torch.Tensor, n_views: int = 1) -> torch.Tensor:
+        """(B, V*H*W, ...) -> (B*V, H, W, ...)."""
+        return flat.reshape(flat.shape[0] * n_views, self.height, self.width, *flat.shape[2:])

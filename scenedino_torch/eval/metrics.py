@@ -1,0 +1,94 @@
+"""Stage-1 validation metrics on the host (counterpart of
+`scenedino_tpu/eval/metrics.py:33-208`): depth errors, PSNR, the DINO
+cosine similarity and skimage's SSIM.
+
+Inputs are numpy arrays or tensors (copied to the host); the depth and
+image metrics compute in float32 like the reference, SSIM in float64.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+
+def _host(x, dtype=np.float32) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        x = x.detach().float().cpu().numpy()
+    return np.asarray(x, dtype)
+
+
+def scale_depth_median(pred: np.ndarray, gt: np.ndarray, mask: np.ndarray) -> np.ndarray:
+    """pred times the median of gt / pred over the mask (metrics.py:16-40);
+    an even count takes the mean of the two middle ratios, as jnp.nanmedian."""
+    ratio = np.where(mask, gt / np.maximum(pred, np.float32(1e-8)), np.float32(np.nan))
+    return pred * np.nanmedian(ratio).astype(np.float32)
+
+
+def depth_metrics(pred, gt, mask=None, scaling: Optional[str] = "median") -> Dict[str, np.float32]:
+    """abs_rel, sq_rel, rmse, rmse_log, a1, a2, a3 of depths pred, gt (...,)
+    over mask (gt > 0 by default), after median scaling unless `scaling` is
+    None; pred clamped below at 1e-3 (metrics.py:43-113)."""
+    pred, gt = _host(pred), _host(gt)
+    mask = gt > 0 if mask is None else np.asarray(mask, bool)
+    if scaling == "median":
+        pred = scale_depth_median(pred, gt, mask)
+    pred = np.maximum(pred, np.float32(1e-3))
+    n = np.float32(max(int(mask.sum()), 1))
+
+    def masked_mean(x):
+        return np.sum(np.where(mask, x, np.float32(0.0)), dtype=np.float32) / n
+
+    gt_safe = np.maximum(gt, np.float32(1e-8))
+    thresh = np.maximum(gt / pred, pred / gt_safe)
+    return {
+        "abs_rel": masked_mean(np.abs(gt - pred) / gt_safe),
+        "sq_rel": masked_mean((gt - pred) ** 2 / gt_safe),
+        "rmse": np.sqrt(masked_mean((gt - pred) ** 2)),
+        "rmse_log": np.sqrt(masked_mean((np.log(gt_safe) - np.log(pred)) ** 2)),
+        "a1": masked_mean((thresh < 1.25).astype(np.float32)),
+        "a2": masked_mean((thresh < 1.25 ** 2).astype(np.float32)),
+        "a3": masked_mean((thresh < 1.25 ** 3).astype(np.float32)),
+    }
+
+
+def psnr(pred, gt) -> np.float32:
+    mse = np.mean((_host(pred) - _host(gt)) ** 2, dtype=np.float32)
+    return np.float32(-10.0) * np.log10(np.maximum(mse, np.float32(1e-12)))
+
+
+def dino_cosine_similarity(pred, gt, eps: float = 1e-8) -> np.float32:
+    """Mean cosine similarity over the channel axis (metrics.py:195-215)."""
+    pred, gt = _host(pred), _host(gt)
+    pn = pred / np.maximum(np.linalg.norm(pred, axis=-1, keepdims=True), np.float32(eps))
+    gn = gt / np.maximum(np.linalg.norm(gt, axis=-1, keepdims=True), np.float32(eps))
+    return np.mean(np.sum(pn * gn, axis=-1), dtype=np.float32)
+
+
+def ssim_skimage(pred, gt, data_range: float = 1.0, win_size: int = 7) -> float:
+    """`skimage.metrics.structural_similarity(pred, gt, data_range=1,
+    channel_axis=-1)`, the NVS metric the reference reports: per channel a
+    7x7 uniform window, the sample-covariance correction NP / (NP - 1),
+    K1 = 0.01, K2 = 0.03, the mean over the border-cropped region.
+    pred, gt (H, W, C)."""
+    from scipy.ndimage import uniform_filter
+
+    pred, gt = _host(pred, np.float64), _host(gt, np.float64)
+    c1, c2 = (0.01 * data_range) ** 2, (0.03 * data_range) ** 2
+    cov_norm = win_size ** 2 / (win_size ** 2 - 1)
+    pad = (win_size - 1) // 2
+    vals = []
+    for ch in range(pred.shape[-1]):
+        x, y = pred[..., ch], gt[..., ch]
+
+        def f(im):
+            return uniform_filter(im, size=win_size)
+
+        ux, uy = f(x), f(y)
+        vx = cov_norm * (f(x * x) - ux * ux)
+        vy = cov_norm * (f(y * y) - uy * uy)
+        vxy = cov_norm * (f(x * y) - ux * uy)
+        s = ((2 * ux * uy + c1) * (2 * vxy + c2)) / ((ux ** 2 + uy ** 2 + c1) * (vx + vy + c2))
+        vals.append(s[pad:-pad, pad:-pad].mean())
+    return float(np.mean(vals))

@@ -48,16 +48,20 @@ class DinoViTEncoder(nn.Module):
 
     def __init__(self, backbone: str = "vit-b", version: str = "v1",
                  intermediate_features: Tuple[int, ...] = (3, 6, 9), key_features: bool = False,
-                 dtype=None, vit_overrides: Optional[Tuple[Tuple[str, int], ...]] = None):
+                 dtype=None, vit_overrides: Optional[Tuple[Tuple[str, int], ...]] = None,
+                 grad_checkpointing: bool = False):
         super().__init__()
         self.n_taps = len(intermediate_features)
         self.key_features = key_features
+        overrides = dict(vit_overrides or ())
+        if grad_checkpointing:
+            overrides["remat"] = True
         self.vit = make_vit(
             _vit_name(backbone, version),
             intermediate_layers=tuple(intermediate_features),
             want_key_features=key_features,
             dtype=dtype,
-            overrides=dict(vit_overrides) if vit_overrides else None,
+            overrides=overrides or None,
         )
 
     @property
@@ -158,6 +162,7 @@ class DinoModuleConfig:
     intermediate_features: Tuple[int, ...] = (3, 6, 9)
     decoder_out_dim: int = 256
     key_features: bool = False
+    grad_checkpointing: bool = False  # recompute the *student* ViT blocks in the backward
     dtype: Optional[torch.dtype] = None  # compute dtype: None (fp32) or torch.bfloat16
     vit_overrides: Optional[Tuple[Tuple[str, int], ...]] = None  # e.g. (("depth", 3), ("width", 64))
 
@@ -179,6 +184,7 @@ class DinoModule(nn.Module):
             key_features=cfg.key_features,
             dtype=cfg.dtype,
             vit_overrides=cfg.vit_overrides,
+            grad_checkpointing=cfg.grad_checkpointing,
         )
         self.decoder = DPTHead(self.vit_encoder.latent_size, tuple(cfg.num_ch_enc),
                                cfg.decoder_out_dim, cfg.dtype)

@@ -36,6 +36,7 @@ def encoder_config_from_dict(conf: Dict[str, Any]) -> DinoModuleConfig:
         intermediate_features=tuple(conf.get("intermediate_features", (3, 6, 9))),
         decoder_out_dim=conf.get("decoder_out_dim", 256),
         key_features=conf.get("key_features", False),
+        grad_checkpointing=conf.get("grad_checkpointing", False),
         dtype=_dtype(conf.get("dtype")),
         vit_overrides=tuple(sorted(conf["vit_overrides"].items())) if conf.get("vit_overrides") else None,
     )

@@ -20,8 +20,10 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from scenedino_torch.core import safe_normalize
+from scenedino_torch.core.resize import torch_interpolate
 from scenedino_torch.kernels import attention
 from scenedino_torch.models.layers import conv2d, layer_norm, linear
 
@@ -40,6 +42,9 @@ class ViTConfig:
     pos_embed_size: Tuple[int, int] = (224, 224)  # grid the stored pos-embed was trained at
     intermediate_layers: Tuple[int, ...] = (3, 6, 9)
     dtype: Optional[torch.dtype] = None  # compute dtype; parameters stay fp32
+    # recompute each block's activations in the backward (the reference's
+    # nn.remat); parameter names are unchanged
+    remat: bool = False
 
     @property
     def num_pos_prefix_tokens(self) -> int:
@@ -75,16 +80,14 @@ VIT_PRESETS = {
 def interpolate_pos_embed(pos_embed: torch.Tensor, grid_orig, grid_new,
                           num_prefix_tokens: int = 1) -> torch.Tensor:
     """Bicubic-resize the patch position embeddings (1, T + Gh*Gw, C) to a
-    new grid: torch bicubic (a = -0.75), align_corners=False, no antialias."""
+    new grid: torch bicubic (a = -0.75), align_corners=False, no antialias,
+    as two matmuls with cached matrices (`core.resize`)."""
     if tuple(grid_orig) == tuple(grid_new):
         return pos_embed
     prefix, patch = pos_embed[:, :num_prefix_tokens], pos_embed[:, num_prefix_tokens:]
     gh, gw = grid_orig
-    patch = patch.reshape(1, gh, gw, -1).permute(0, 3, 1, 2)
-    patch = F.interpolate(patch, size=tuple(grid_new), mode="bicubic", align_corners=False,
-                          antialias=False)
-    patch = patch.permute(0, 2, 3, 1).reshape(1, grid_new[0] * grid_new[1], -1)
-    return torch.cat([prefix, patch], 1)
+    patch = torch_interpolate(patch.reshape(1, gh, gw, -1), tuple(grid_new), mode="bicubic")
+    return torch.cat([prefix, patch.reshape(1, grid_new[0] * grid_new[1], -1)], 1)
 
 
 def flash_attention_wanted(use_flash: Optional[bool], dtype, n_tokens: int, device: torch.device) -> bool:
@@ -228,6 +231,8 @@ class VisionTransformer(nn.Module):
         for i, blk in enumerate(self.blocks):
             if i == cfg.depth - 1 and self.want_key_features:
                 x, key_feats = blk(x, return_keys=True)
+            elif cfg.remat and torch.is_grad_enabled():
+                x = checkpoint(blk, x, use_reentrant=False)
             else:
                 x = blk(x)
             if i in taps:

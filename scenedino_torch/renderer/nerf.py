@@ -1,16 +1,19 @@
-"""Volume renderer of the training step (counterpart of
-`scenedino_tpu/renderer/nerf.py:29-262`), coarse pass.
+"""Volume renderer of the training step and the validation render
+(counterpart of `scenedino_tpu/renderer/nerf.py:29-262`).
 
 `render_rays` samples `n_coarse` stratified depths per ray, queries the
 field at every sample, and composites weights, depth, colour and DINO
-features in fp32. The stratum draws `u` are an explicit input. Fine
-sampling (`n_fine > 0`) is not ported; every shipped config has
-`n_fine: 0`.
+features in fp32. With `n_fine > 0` it adds a fine pass: `n_fine -
+n_fine_depth` importance samples from the coarse weights and
+`n_fine_depth` gaussian samples around the coarse depth, sorted together
+with the coarse depths and rendered again. `render_rays_chunked` renders
+full frames a chunk of rays at a time. Every draw is an explicit input:
+`u` for the strata, `FineDraws` for the fine pass.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 import torch
 
@@ -32,6 +35,42 @@ class RenderConfig:
     render_mode: str = "volumetric"
     depth_statistic: str = "expectation"
 
+    @property
+    def using_fine(self) -> bool:
+        return self.n_fine > 0
+
+
+@dataclasses.dataclass
+class FineDraws:
+    """The fine pass's draws over the B*R flat rays: `u` and `t` (R', n_fine -
+    n_fine_depth) in [0, 1) pick the coarse stratum and the place inside it
+    (`sampling.sample_fine`); `noise` (R', n_fine_depth) ~ N(0, 1) places the
+    depth samples (`sampling.sample_fine_depth`). A part the config does
+    not use is None."""
+
+    u: Optional[torch.Tensor] = None
+    t: Optional[torch.Tensor] = None
+    noise: Optional[torch.Tensor] = None
+
+    @staticmethod
+    def draw(generator: torch.Generator, n_rays: int, cfg: RenderConfig) -> Optional["FineDraws"]:
+        """The draws `cfg` needs for `n_rays` flat rays, from `generator` (u,
+        t, then noise) on its device; None without a fine pass."""
+        if not cfg.using_fine:
+            return None
+        dev, n_imp = generator.device, cfg.n_fine - cfg.n_fine_depth
+        out = FineDraws()
+        if n_imp > 0:
+            out.u = torch.rand(n_rays, n_imp, generator=generator, device=dev)
+            out.t = torch.rand(n_rays, n_imp, generator=generator, device=dev)
+        if cfg.n_fine_depth > 0:
+            out.noise = torch.randn(n_rays, cfg.n_fine_depth, generator=generator, device=dev)
+        return out
+
+    def map(self, fn: Callable[[torch.Tensor], torch.Tensor]) -> "FineDraws":
+        """`fn` applied to every draw that is present."""
+        return FineDraws(*(None if x is None else fn(x) for x in (self.u, self.t, self.noise)))
+
 
 # (xyz (B, P, 3), only_density) -> (rgb (B, P, VC), invalid (B, P, V), sigma (B, P), dino (B, P, D))
 FieldFn = Callable[..., tuple]
@@ -39,20 +78,55 @@ FieldFn = Callable[..., tuple]
 
 def render_rays(field_fn: FieldFn, rays: torch.Tensor, u: torch.Tensor, cfg: RenderConfig,
                 want_weights: bool = False, want_alphas: bool = False, want_z_samps: bool = False,
-                want_rgb_samps: bool = False) -> Dict:
-    """rays (B, R, >=8); u (B*R, n_coarse) stratum draws in [0, 1).
-    Returns {"coarse": {...}} with per-ray outputs shaped (B, R, ...)."""
-    if cfg.n_fine > 0 or cfg.n_fine_depth > 0:
-        raise NotImplementedError("fine sampling is not ported; the shipped configs use n_fine: 0")
+                want_rgb_samps: bool = False, fine: Optional[FineDraws] = None) -> Dict:
+    """rays (B, R, >=8); u (B*R, n_coarse) stratum draws in [0, 1); `fine`
+    the fine pass's draws, needed when `cfg.n_fine > 0`. Returns {"coarse":
+    {...}} (and "fine" with a fine pass) with per-ray outputs shaped (B, R, ...)."""
     if cfg.render_mode != "volumetric" or cfg.noise_std > 0.0 or cfg.white_bkgd:
         raise NotImplementedError(
             "the port renders the shipped volumetric mode without sigma noise or a white background"
         )
+    if cfg.using_fine and fine is None:
+        raise ValueError(f"n_fine = {cfg.n_fine} needs the fine pass's draws (`fine`)")
     B, R, r_dim = rays.shape
     flat = rays.reshape(B * R, r_dim)
-    z = sampling.sample_coarse(flat, cfg.n_coarse, cfg.lindisp, u=u)
-    return {"coarse": _format(_composite(field_fn, flat, z, cfg, B), B, want_weights, want_alphas,
-                              want_z_samps, want_rgb_samps)}
+    z_coarse = sampling.sample_coarse(flat, cfg.n_coarse, cfg.lindisp, u=u)
+    coarse = _composite(field_fn, flat, z_coarse, cfg, B)
+    out = {"coarse": _format(coarse, B, want_weights, want_alphas, want_z_samps, want_rgb_samps)}
+    if cfg.using_fine:
+        samps = [z_coarse]
+        if cfg.n_fine - cfg.n_fine_depth > 0:
+            samps.append(sampling.sample_fine(flat, coarse["weights"], cfg.n_fine - cfg.n_fine_depth,
+                                              cfg.n_coarse, cfg.lindisp, u=fine.u, t=fine.t))
+        if cfg.n_fine_depth > 0:
+            samps.append(sampling.sample_fine_depth(flat, coarse["depth"], cfg.n_fine_depth, cfg.depth_std,
+                                                    noise=fine.noise))
+        z_all = torch.sort(torch.cat(samps, -1), -1).values
+        out["fine"] = _format(_composite(field_fn, flat, z_all, cfg, B), B, want_weights, want_alphas,
+                              want_z_samps, want_rgb_samps)
+    return out
+
+
+def render_rays_chunked(field_fn: FieldFn, rays: torch.Tensor, u: torch.Tensor, cfg: RenderConfig,
+                        chunk: int = 16384, fine: Optional[FineDraws] = None, **kwargs) -> Dict:
+    """`render_rays` over chunks of at most `chunk` rays of each item
+    (reference nerf.py:117-172, a Python loop here): the peak live set is
+    one chunk's samples; the outputs are concatenated along the ray axis
+    and equal `render_rays` on the same draws."""
+    B, R = rays.shape[:2]
+    if R <= chunk:
+        return render_rays(field_fn, rays, u, cfg, fine=fine, **kwargs)
+
+    def rows(x: torch.Tensor, s: slice) -> torch.Tensor:  # flat (B*R, n) draws of rays s of every item
+        return x.reshape(B, R, -1)[:, s].reshape(-1, x.shape[-1])
+
+    parts = []
+    for start in range(0, R, chunk):
+        s = slice(start, start + chunk)
+        parts.append(render_rays(field_fn, rays[:, s], rows(u, s), cfg,
+                                 fine=None if fine is None else fine.map(lambda x: rows(x, s)), **kwargs))
+    return {level: {k: torch.cat([p[level][k] for p in parts], 1) for k in parts[0][level]}
+            for level in parts[0]}
 
 
 def _composite(field_fn: FieldFn, rays: torch.Tensor, z_samp: torch.Tensor, cfg: RenderConfig, sb: int) -> Dict:

@@ -9,25 +9,27 @@ artifact compensation, the reconstruction loss, backward, then Adam on
 two learning-rate groups (the student ViT at lr x encoder_lr_factor) and
 on the artifact field, with the reference's non-finite step skip.
 
+`stage1_eval_forward` is the full-frame validation render.
+
 Every random draw of a step is an explicit input (`Stage1Draws`);
 `draw_stage1` draws them from a `torch.Generator` with the reference's
 distributions. Not ported yet (each raises): the uncertainty and
 consistency branches, `dino_upscaled`, gradient accumulation, the
-"alternate" frame split, the `debug_stats` scalars, fine sampling, the
-NeRF sample-count schedule (`ScheduledTrainStep`) and the validation
-render (`stage1_eval_forward`).
+"alternate" frame split, the `debug_stats` scalars, the NeRF sample-count
+schedule (`ScheduledTrainStep`) and the occupancy probe of the validation
+render.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
-from scenedino_torch.core.ray_sampler import PatchRaySampler
+from scenedino_torch.core.ray_sampler import ImageRaySampler, PatchRaySampler
 from scenedino_torch.losses.reconstruction import ReconstructionLossConfig, reconstruction_loss
 from scenedino_torch.models.field import SceneField
-from scenedino_torch.renderer.nerf import RenderConfig, render_rays
+from scenedino_torch.renderer.nerf import FineDraws, RenderConfig, render_rays, render_rays_chunked
 from scenedino_torch.training.scheduler import make_schedule
 
 Mark = Optional[Callable[[str], None]]
@@ -82,7 +84,8 @@ class Stage1Draws:
     split_coin: per stereo pair, 1 when the pair's second frame is the loss
     frame (p = 1/3); shift: the teacher-grid shift (sy, sx) in
     [-P/2, P/2), or None without the augmentation; flip: the flip coin;
-    pv, py, px: (B, PC) patch picks; u: (B * R, n_coarse) stratum draws.
+    pv, py, px: (B, PC) patch picks; u: (B * R, n_coarse) stratum draws;
+    fine: the fine pass's draws (None without one).
     """
 
     split_coin: Tuple[int, ...]
@@ -92,6 +95,7 @@ class Stage1Draws:
     py: torch.Tensor
     px: torch.Tensor
     u: torch.Tensor
+    fine: Optional[FineDraws] = None
 
 
 def draw_stage1(generator: torch.Generator, cfg: TrainConfig, rcfg: RenderConfig, B: int, V: int,
@@ -108,7 +112,7 @@ def draw_stage1(generator: torch.Generator, cfg: TrainConfig, rcfg: RenderConfig
     sampler = PatchRaySampler(cfg.z_near, cfg.z_far, cfg.ray_batch_size, cfg.patch_size)
     pv, py, px = sampler.draw(B, V // 2, H, W, shift is not None, generator, dev)
     u = torch.rand(B * cfg.ray_batch_size, rcfg.n_coarse, generator=generator, device=dev)
-    return Stage1Draws(coin, shift, flip, pv, py, px, u)
+    return Stage1Draws(coin, shift, flip, pv, py, px, u, FineDraws.draw(generator, B * cfg.ray_batch_size, rcfg))
 
 
 def sample_frame_split(split_coin: Tuple[int, ...]) -> Tuple[List[int], List[int]]:
@@ -165,7 +169,7 @@ def stage1_forward(field: SceneField, batch: Dict[str, torch.Tensor], draws: Sta
         dino_gt, dino_artifacts = dino_gt[..., :-Cd], dino_gt[..., -Cd:]
 
     out = render_rays(lambda xyz, only_density=False: field(state, xyz, only_density=only_density),
-                      rays[..., :8], draws.u, rcfg, want_weights=True)
+                      rays[..., :8], draws.u, rcfg, want_weights=True, fine=draws.fine)
     _mark(mark, "render")
 
     P, PC = cfg.patch_size, sampler.patch_count
@@ -192,9 +196,57 @@ def stage1_forward(field: SceneField, batch: Dict[str, torch.Tensor], draws: Sta
     return losses["rec_loss"], losses
 
 
-def stage1_eval_forward(*args, **kwargs):
-    """The full-frame validation render (trainer.py:429-514), not ported yet."""
-    raise NotImplementedError("stage1_eval_forward is not ported yet (ROADMAP queue 1, item 5)")
+@torch.no_grad()
+def stage1_eval_forward(field: SceneField, batch: Dict[str, torch.Tensor], cfg: TrainConfig, rcfg: RenderConfig,
+                        u: Optional[torch.Tensor] = None, fine: Optional[FineDraws] = None,
+                        generator: Optional[torch.Generator] = None, chunk: int = 16384) -> Dict[str, Any]:
+    """The full-frame validation render (trainer.py:429-514), no graph.
+
+    The poses are rebased to frame 0; the student encodes view 0, the
+    colours come from view 0 and the teacher sees every view (the shipped
+    eval split "single_renderer" with all frames); every pixel of every
+    view is rendered in chunks of `chunk` rays, the 64-d features expanded
+    to the teacher's space and pooled to its grid ("image" mode). u
+    (B*V*H*W, n_coarse) and `fine` are the render's draws, drawn from
+    `generator` (u first) where not given. Returns depth (B, V, H, W), rgb
+    (B, V, H, W, Vr, 3), dino_pred_grid / dino_gt_grid (B, V, Gh, Gw, Cd),
+    imgs_gt (B, V, 3, H, W) in [0, 1], projs (B, V, 3, 3) and, with
+    `batch["depths"]`, depths_gt.
+    """
+    if "occ_pts" in batch:
+        raise NotImplementedError("the occupancy probe of the validation render is not ported yet")
+    imgs, poses, projs = batch["imgs"], batch["poses"], batch["projs"]
+    B, V, _, H, W = imgs.shape
+    n_rays = B * V * H * W
+    if (u is None or (rcfg.using_fine and fine is None)) and generator is None:
+        raise ValueError("pass the render's draws (u, fine) or a generator to draw them from")
+    if u is None:
+        u = torch.rand(n_rays, rcfg.n_coarse, generator=generator, device=generator.device)
+    if fine is None:
+        fine = FineDraws.draw(generator, n_rays, rcfg) if rcfg.using_fine else None
+    poses = torch.linalg.inv_ex(poses[:, :1].float()).inverse @ poses.float()
+    ids_loss = list(range(V))
+    state = field.encode(imgs, projs, poses, ids_encoder=(0,), ids_render=(0,), ids_loss=ids_loss,
+                         with_loss_feats=True)
+    rays = ImageRaySampler(cfg.z_near, cfg.z_far, H, W).sample(poses, projs)  # (B, V*H*W, 11)
+    out = render_rays_chunked(lambda xyz, only_density=False: field(state, xyz, only_density=only_density),
+                              rays[..., :8], u, rcfg, chunk=chunk, fine=fine)
+    c = out["coarse"]
+    Vr = c["rgb"].shape[-1] // 3
+    dino_pred = field.expand_dim(c["dino_features"].reshape(B, V, H, W, 1, -1))
+    pooled = field.downsample(dino_pred, "image")
+    dino_gt = state.loss_feats.float().permute(0, 1, 3, 4, 2)  # (B, V, Gh, Gw, Cd)
+    data = {
+        "depth": c["depth"].reshape(B, V, H, W),
+        "rgb": c["rgb"].reshape(B, V, H, W, Vr, 3),
+        "dino_pred_grid": pooled.reshape(dino_gt.shape),
+        "dino_gt_grid": dino_gt,
+        "imgs_gt": imgs * 0.5 + 0.5,
+        "projs": projs,
+    }
+    if "depths" in batch:
+        data["depths_gt"] = batch["depths"]
+    return data
 
 
 @dataclasses.dataclass

@@ -1,0 +1,189 @@
+"""Stage-1 validation during training (counterpart of the stage-1 part of
+`scenedino_tpu/training/validation.py`): the full-frame render of each
+validation batch, host-side metric accumulation, and the `save_best`
+policy the loop applies.
+
+A `Validator` runs `fn(state, generator) -> metrics` every `every`
+iterations; the metrics are flat scalars named "<type>_<metric>"
+(`depth_abs_rel`, `dino_cos_sim`, `nvs_psnr`, ...). The TensorBoard image
+panels of the reference (`eval/vis2d.tb_visualize`) are not ported yet:
+no "images" key is returned.
+"""
+from __future__ import annotations
+
+import dataclasses
+import logging
+import math
+from typing import Any, Callable, Dict, Iterable, Optional
+
+import numpy as np
+import torch
+
+from scenedino_torch.core.geometry import distance_to_z
+from scenedino_torch.eval.metrics import depth_metrics, dino_cosine_similarity, psnr, ssim_skimage
+
+logger = logging.getLogger("validation")
+
+
+@dataclasses.dataclass(frozen=True)
+class SaveBestConfig:
+    """`save_best:` block of a validation config: checkpoint when
+    sign * metric improves."""
+
+    metric: str
+    sign: float = 1.0
+    update_model: bool = False
+    dry_run: bool = False
+
+    @staticmethod
+    def from_dict(d: Optional[dict]) -> Optional["SaveBestConfig"]:
+        if not d:
+            return None
+        return SaveBestConfig(
+            metric=d["metric"],
+            sign=float(d.get("sign", 1.0)),
+            update_model=bool(d.get("update_model", False)),
+            dry_run=bool(d.get("dry_run", False)),
+        )
+
+
+class DictMeanAccumulator:
+    """Mean of per-batch scalar dicts, keys flattened as f"{name}_{key}";
+    a NaN value is skipped and counts for its key only."""
+
+    def __init__(self, name: str):
+        self.name = name
+        self.reset()
+
+    def reset(self):
+        self._sums: Dict[str, float] = {}
+        self._counts: Dict[str, int] = {}
+
+    def update(self, values: Dict[str, Any]):
+        for k, v in values.items():
+            v = float(np.mean(np.asarray(v)))
+            if np.isnan(v):
+                logger.warning("metric %s/%s is NaN; skipped", self.name, k)
+                continue
+            self._sums[k] = self._sums.get(k, 0.0) + v
+            self._counts[k] = self._counts.get(k, 0) + 1
+
+    def compute(self) -> Dict[str, float]:
+        return {f"{self.name}_{k}": v / self._counts[k] for k, v in self._sums.items()}
+
+
+def compute_depth_metrics(data: Dict[str, np.ndarray], scaling: Optional[str] = None,
+                          to_z: bool = False) -> Dict[str, float]:
+    """The first view's depth against its ground truth (wrapper.py:12-26).
+    to_z converts the rendered ray distance to camera z first
+    (`core.geometry.distance_to_z`), for wide-angle cameras."""
+    if "depths_gt" not in data:
+        return {}
+    depth = np.asarray(data["depth"], np.float32)
+    if to_z and "projs" in data:
+        depth = distance_to_z(torch.from_numpy(depth), torch.from_numpy(np.asarray(data["projs"]))).numpy()
+    pred = depth[:, 0]
+    gt = np.asarray(data["depths_gt"], np.float32)
+    gt0 = gt.reshape(pred.shape[0], -1, *pred.shape[1:])[:, 0]
+    return {k: float(v) for k, v in depth_metrics(pred, gt0, scaling=scaling).items()}
+
+
+def compute_dino_metrics(data: Dict[str, np.ndarray]) -> Dict[str, float]:
+    """l1, l2 and cos_sim of the pooled prediction grid against the teacher's."""
+    pred = np.asarray(data["dino_pred_grid"], np.float32)
+    gt = np.asarray(data["dino_gt_grid"], np.float32)
+    return {
+        "l1": float(np.abs(pred - gt).mean()),
+        "l2": float(((pred - gt) ** 2).mean()),
+        "cos_sim": float(dino_cosine_similarity(pred, gt)),
+    }
+
+
+def compute_nvs_metrics(data: Dict[str, np.ndarray]) -> Dict[str, float]:
+    """Novel-view quality of the stereo frame (the middle view) of the first
+    item, 5 % border crop: PSNR and skimage SSIM. No LPIPS: its weights do
+    not ship."""
+    if "rgb" not in data:
+        return {}
+    rgb = np.asarray(data["rgb"], np.float32)  # (B, V, H, W, Vr, 3)
+    sf = rgb.shape[1] // 2
+    pred = rgb[:1, sf, :, :, 0, :]  # (1, H, W, 3)
+    gt = np.asarray(data["imgs_gt"], np.float32)[:1, sf].transpose(0, 2, 3, 1)
+    h, w = pred.shape[1:3]
+    y0, y1 = int(math.ceil(0.05 * h)), int(math.floor(0.95 * h))
+    x0, x1 = int(math.ceil(0.05 * w)), int(math.floor(0.95 * w))
+    pred, gt = pred[:, y0:y1, x0:x1], gt[:, y0:y1, x0:x1]
+    return {"psnr": float(psnr(pred, gt)), "ssim": ssim_skimage(pred[0], gt[0], data_range=1.0)}
+
+
+@dataclasses.dataclass
+class Validator:
+    """One validation config: `fn(state, generator) -> metrics` every `every`
+    training iterations; the loop applies `save_best`."""
+
+    name: str
+    fn: Callable[[Any, torch.Generator], Dict[str, Any]]
+    every: int = 5000
+    save_best: Optional[SaveBestConfig] = None
+
+    def __call__(self, state, generator: torch.Generator) -> Dict[str, Any]:
+        return self.fn(state, generator)
+
+
+def subset_indices(subset_conf: Optional[dict], n: int, seed: int = 0) -> np.ndarray:
+    """`subset:` block: {"type": "range", "args": {start, end}} or
+    {"type": "random", "args": {"size": k}}; all of range(n) when absent."""
+    if not subset_conf:
+        return np.arange(n)
+    t = subset_conf.get("type", "range")
+    args = subset_conf.get("args", {}) or {}
+    if t == "range":
+        return np.arange(args.get("start", 0), min(args.get("end", n), n))
+    if t == "random":
+        return np.random.RandomState(seed).choice(n, size=min(args.get("size", n), n), replace=False)
+    raise ValueError(f"unknown subset type: {t!r}")
+
+
+def _to_host(data: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    return {k: v.detach().float().cpu().numpy() for k, v in data.items()}
+
+
+def make_stage1_validator(name: str, val_cfg: dict, field, tcfg, rcfg,
+                          batches_fn: Callable[[], Iterable]) -> Validator:
+    """Stage-1 validator: `stage1_eval_forward` over each batch, then the
+    depth, dino and nvs metrics the config lists (configs/validation/
+    scenedino.yaml; save_best on dino_cos_sim). Batches are dicts of
+    tensors on the field's device."""
+    from scenedino_torch.training.trainer import stage1_eval_forward
+
+    metrics_conf = val_cfg.get("metrics", []) or []
+    metric_types = [m["type"] for m in metrics_conf]
+    metric_args = {m["type"]: (m.get("args") or {}) for m in metrics_conf}
+    if "occ" in metric_types:
+        raise NotImplementedError("the occupancy metric of the validation render is not ported yet")
+
+    def run(state, generator: torch.Generator) -> Dict[str, Any]:
+        accs = {t: DictMeanAccumulator(t) for t in metric_types if t in ("depth", "dino", "nvs")}
+        for batch in batches_fn():
+            data = _to_host(stage1_eval_forward(field, batch, tcfg, rcfg, generator=generator))
+            if "depth" in accs:
+                accs["depth"].update(compute_depth_metrics(data, **metric_args.get("depth", {})))
+            if "dino" in accs:
+                accs["dino"].update(compute_dino_metrics(data))
+            if "nvs" in accs:
+                accs["nvs"].update(compute_nvs_metrics(data))
+        metrics: Dict[str, Any] = {}
+        for acc in accs.values():
+            metrics.update(acc.compute())
+        return metrics
+
+    return Validator(name=name, fn=run, every=_events_every(val_cfg),
+                     save_best=SaveBestConfig.from_dict(val_cfg.get("save_best")))
+
+
+def _events_every(val_cfg: dict, default: int = 5000) -> int:
+    """The ITERATION_COMPLETED `every` of an `events:` list, else `every`."""
+    for ev in val_cfg.get("events", []) or []:
+        if ev.get("type") == "ITERATION_COMPLETED":
+            return int((ev.get("args") or {}).get("every", default))
+    return int(val_cfg.get("every", default))

@@ -1,5 +1,7 @@
 """The PyTorch port stands alone: no module of `scenedino_torch/`, and not
-`chip_smoke.py`, imports JAX, flax or the JAX package; its entry points
+`chip_smoke.py`, imports JAX, flax or the JAX package, nor PyYAML (the
+card's machine has none: the port reads configs with its own
+`utils.config`); its entry points
 refuse to run quietly on the CPU; its weight converter accounts for every
 leaf of a real parameter tree.
 
@@ -17,7 +19,7 @@ from scenedino_torch.models.factory import SCENEDINO_KITTI_360, make_model
 from scenedino_torch.utils.convert import TRAINING_ONLY, flatten_params, from_jax_params, load_jax_params
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "scenedino_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "scenedino_tpu", "yaml")
 SOURCES = sorted((ROOT / "scenedino_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
@@ -46,7 +48,9 @@ def test_the_scan_sees_the_whole_package():
             "scenedino_torch/training/trainer.py", "scenedino_torch/renderer/nerf.py",
             "scenedino_torch/losses/reconstruction.py", "scenedino_torch/kernels/row_gather.py",
             "scenedino_torch/tools/probe_gather.py", "scenedino_torch/tools/bench_gather.py",
-            "scenedino_torch/eval/sscbench.py", "scenedino_torch/utils/timing.py"} <= names
+            "scenedino_torch/eval/sscbench.py", "scenedino_torch/utils/timing.py",
+            "scenedino_torch/utils/config.py", "scenedino_torch/cli/train.py", "scenedino_torch/training/loop.py",
+            "scenedino_torch/training/validation.py", "scenedino_torch/datasets/synthetic.py"} <= names
 
 
 def test_entry_point_without_a_device_refuses_the_cpu():

@@ -275,8 +275,8 @@ def test_render_rays_matches_reference(models):
     for name, r in ref["coarse"].items():
         np.testing.assert_allclose(out["coarse"][name].detach().numpy(), np.asarray(r), atol=1e-4, rtol=1e-4,
                                    err_msg=name)
-    with pytest.raises(NotImplementedError):
-        render_rays(None, _t(rays), u, RenderConfig(n_coarse=N_COARSE, n_fine=4))
+    with pytest.raises(NotImplementedError):  # the surface mode is not ported
+        render_rays(None, _t(rays), u, RenderConfig(n_coarse=N_COARSE, render_mode="surface"))
 
 
 def test_l1_ssim_values_and_grads_match_reference():
@@ -577,8 +577,8 @@ def test_unported_options_raise(models):
                {"gradient_accum_factor": 2}):
         with pytest.raises(NotImplementedError):
             trainer.make_train_step(model, trainer.TrainConfig(**kw), RenderConfig(), rec.ReconstructionLossConfig())
-    with pytest.raises(NotImplementedError):
-        trainer.stage1_eval_forward(model)
+    with pytest.raises(NotImplementedError):  # the occupancy probe of the validation render
+        trainer.stage1_eval_forward(model, {"occ_pts": torch.zeros(1, 8, 3)}, trainer.TrainConfig(), RenderConfig())
     with pytest.raises(NotImplementedError):  # the reference's ScheduledTrainStep
         trainer.configs_from_dict({"model": MODEL, "renderer": {"sched": [[10], [16], [0]]}})
 
