@@ -8,7 +8,8 @@ Phases, one line each:
   0 device   the card's name and power limit; TF32 off for fp32 compares
   1 build    nvcc builds every kernel of the paths from csrc/ (sm_90a);
              the registers and spills (none allowed) of the K1 forward and
-             backward kernels and of the point kernels' ten instantiations
+             backward kernels, of the point kernels' ten instantiations and
+             of K6's two
   2 K1       the attention forward kernel vs its plain versions (output
              and log-sum-exp) at the three shapes its paths give it:
              ViT-B/8 @192x640 serving (1, 1921, 12, 64), the training
@@ -36,10 +37,20 @@ Phases, one line each:
              table), exact at both; kernel, plain and torch.index_select
              times, and at P1's its C function called alone (the host's
              floor of a launch)
+  3e K6      the encode-view kernel vs its plain version at 192x640 rays
+             x 32 samples from a 384x1280x128 folded grid (W_z 13x128, W2
+             128x65) through the render's own preamble: the bf16 serving
+             state of one frame, then stage 2's fp32 state of 4 frames in
+             one launch; then phase 7b's: 4 fp32 frames of 96x192 rays x 32
+             samples from a 192x384x64 grid (W2 64x17, the kernel's other
+             instantiation); expectation depth, then the weight-median depth;
+             two launches bitwise equal; kernel, plain and bound times (no
+             library call computes this function)
   Bounds: the larger of the bytes moved (each input read once, each
   output written once; of a folded grid only the distinct rows that the
   points' corner lookups read) over 3.35 TB/s and the FLOP over the bf16
-  tensor-core peak. Phases 3-3c also print the corner rows the kernels
+  tensor-core peak (K6's fp32 state: over the 67 TFLOP/s of fp32 outside
+  the tensor cores, as it asks for full fp32). Phases 3-3c also print the corner rows the kernels
   read (points x 4 x D x 2 B) and their time at 3.35 TB/s.
   4 slice    the flagship field (ViT-B/8 + DPT 256, bf16, seeded random
              weights) answers 3 novel-view requests (encode ->
@@ -47,7 +58,8 @@ Phases, one line each:
              3 probe requests (encode_prefolded -> render_novel_view_probe
              at its defaults), 3 SSC voxel queries (encode_prefolded ->
              fast_query_fused over the 2,097,152 voxel centres) and 3
-             encode-view renders (encode_prefolded -> render_encode_view);
+             encode-view renders (encode_prefolded -> render_encode_view,
+             K6);
              the launch counters, zeroed before each path and read after
              it, show each path's kernels ran; stage times and profiles;
              then small requests of the exact, probe and query paths are
@@ -78,9 +90,28 @@ Phases, one line each:
              state; the run resumed from it to step 9; the validation render
              at 32x64 on the GPU against the CPU; 3 steps and a validation of
              configs/train_synthetic_convergence.yaml (fp32, the fine pass)
-  kernels    one JSON line: launches (all serving paths, training and the
-             train run together), error, times and bound per kernel; the K1
-             forward's also at each of its three shapes ("shapes")
+  7 stage 2  the port's stage-2 run (cli.train.run_stage2) at full width:
+             train_synthetic_flagship.yaml's model (ViT-B/8, DPT 256,
+             d_hidden 128, bf16, 192x640) with train_semantic_kitti_360.yaml's
+             downstream, loss, optimizer and validation blocks, the synthetic
+             dataset at batch 4, resume_from phase 6's run directory; cuts
+             printed on its first line. Each step's losses and host ms, the
+             seeding's ms, each validation's metrics and ms, peak memory;
+             every step finite and applied, the head moved, the field
+             bitwise unchanged, the K1 and K6 launch counts the steps, the
+             seeding and the validations imply, each validation's pseudo
+             assignment written into both cluster heads, the checkpoint
+             loaded back equal, a resume to step 9; then downstream_forward
+             at 32x64 on the GPU against the CPU with the same draws, on the
+             front view (linear probes) and the side view (STEGO terms); a
+             loss 0 on both sides in both fails
+  7b         3 steps and a validation of
+             configs/train_semantic_synthetic_convergence.yaml (fp32, tiny
+             ViT, d_hidden 64) from tests/goldens/s1b_field_params.npz
+  kernels    one JSON line: launches (all serving paths, training, the
+             train run and stage 2 together), error, times and bound per
+             kernel; the K1 forward's and K6's also at each of their shapes
+             ("shapes")
 The line before the last is the card's name and power limit as
 nvidia-smi prints them; the last line is {"ok": true, "device": {...}}.
 Any failed phase exits non-zero before that line. Needs one CUDA card;
@@ -91,8 +122,10 @@ import copy
 import dataclasses
 import json
 import logging
+import os
 import re
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -144,6 +177,24 @@ TRAIN_STEPS = 3
 TRAIN_RUN_ITEMS = 8
 TRAIN_RUN_STEPS = 6
 TRAIN_RUN_RESUME_TO = 9
+# phase 7: the stage-2 run's cuts (dataset items, steps, the resume's last step,
+# validation items)
+STAGE2_ITEMS = 8
+STAGE2_STEPS = 6
+STAGE2_RESUME_TO = 9
+STAGE2_VAL_ITEMS = 4
+# downstream_forward at 32x64, GPU against CPU, the flagship's bf16 field with
+# the same draws, once on the front view (the only one with segmentation: the
+# linear probes' losses) and once on the side view (the draws' own coin and
+# view: the crops there are valid, so the STEGO terms are not 0). The render as
+# phase 6's (depth p99, feature cosine); the cluster and probe losses are means
+# over the 2 x 2048 pixels' bf16-rounded features, held relative; the STEGO
+# terms are means over 10 crops of terms near 0 (a few 1e-2), held absolute.
+# The errors measured on the card (NVIDIA H100 80GB HBM3, 700.00 W): head
+# losses 1.2e-4 relative, STEGO terms 2.0e-5 to 1.7e-4. A loss that is exactly
+# 0 on both sides compares nothing, and fails the check
+STAGE2_HEAD_LOSS_REL = 2e-3
+STAGE2_STEGO_ABS = 1e-3
 # the validation render at 32x64, GPU against CPU, bf16: its depths and colours
 # are the same kind of sums as phase 4's, over 4 views; the 99th percentile
 # allows a few rays whose weights move with bf16 rounding near a surface
@@ -152,6 +203,8 @@ EVAL_RGB_ABS = 2e-2
 # instantiations of csrc/point_render.cu's kernel: K2 and K4 at 2 hidden x 2
 # output widths each, K3 at 2 hidden widths
 POINT_KERNELS = 10
+# instantiations of csrc/encode_view.cu's kernel: d_out up to 20 and up to 68
+ENCODE_VIEW_KERNELS = 2
 
 
 def fail(msg):
@@ -582,6 +635,40 @@ def phase_gather(seed):
           f"index_select {m['index_select_ms']:.4f} ms, bound {b:.4f} ms ({by})", flush=True)
 
 
+def phase_k6(gen):
+    """K6 against its plain version at the shapes its paths give it (the
+    render's own preamble from a seeded state): the bf16 serving state of
+    one flagship frame, the fp32 stage-2 state of 4 flagship frames in one
+    launch (phase 7), the fp32 state of 4 frames of the stage-2 convergence
+    recipe (phase 7b: d_hidden 64, d_out 17, the kernel's other
+    instantiation)."""
+    from scenedino_torch.tools.bench_encode_view import SHAPES, check
+
+    shapes = {}
+    for shape in SHAPES:
+        r = check(gen, shape)
+        path = r["path"]
+        print(f"phase 3e K6 encode_view ({path}: {r['frames']} x {r['height']}x{r['width']} rays x {r['samples']} "
+              f"samples from a {2 * r['height']}x{2 * r['width']}x{r['d_hidden']} grid, {r['dtype']} state, d_out "
+              f"{r['d_out']}): errors {json.dumps(r['errors'])} (bounds {json.dumps(r['tolerance'])}); finite "
+              f"{r['finite']}; two launches bitwise equal {r['bitwise']}; median depth on a sample depth "
+              f"{r['median_on_sample']}, rays whose sample differs from the plain version's {r['median_flips']:.3e} "
+              f"(bound 1e-3), by at most {r['median_off']} (bound 1); kernel {r['ms']:.4f} ms (median depth "
+              f"{r['median_ms']:.4f} ms), plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']})", flush=True)
+        if not r["ok"]:
+            fail(f"K6 encode_view disagrees with its plain version ({path}): {r}")
+        shapes[path] = {k: r[k] for k in ("frames", "dtype", "height", "width", "d_hidden", "d_out", "ms",
+                                          "plain_ms", "bound_ms", "bound_by")}
+        shapes[path]["max_abs_err"] = max(r["errors"].values())
+    main = shapes["stage 2"]
+    return {"name": "encode_view", "route": "cuda", "source": "scenedino_torch/csrc/encode_view.cu",
+            "replaces": "scenedino_tpu/ops/fast_field.py:254",
+            "max_abs_err": max(v["max_abs_err"] for v in shapes.values()), "ms": main["ms"],
+            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": None, "shapes": shapes}
+
+
 def cameras_of(device):
     return intrinsics(device)[None, None], torch.eye(4, device=device)[None, None]
 
@@ -785,10 +872,11 @@ def phase_slice(seed):
           flush=True)
     print(f"phase 4 profile (SSC query): {profile_device(lambda: serve_query(model, *reqs[1]))}", flush=True)
 
-    # the encode-view render (no feature lookup, no kernel of its own)
+    # the encode-view render (no feature lookup; K6 per sample)
     reqs = [(img, torch.rand(H * W, K, generator=g, device="cuda"), "cuda") for img, g in zip(imgs, gens)]
     counts, times = run_path("encode-view", reqs, lambda *r: serve_encode_view(model, *r),
-                             lambda *o: check_depth("encode-view", *o), {"attention": (blocks, True)})
+                             lambda *o: check_depth("encode-view", *o),
+                             {"attention": (blocks, True), "encode_view": (1, True)})
     img, u, _ = reqs[0]
     stages = stages_of([
         ("encode_prefolded_ms", lambda _: encode_prefolded(model, img, Ks, poses)),
@@ -796,6 +884,7 @@ def phase_slice(seed):
     ])
     print(f"phase 4 encode view: 3 renders at {H}x{W}, ms per render {[round(t, 3) for t in times]}; stages of one "
           f"render {json.dumps(stages)}; launches {add(counts)}", flush=True)
+    print(f"phase 4 profile (encode view): {profile_device(lambda: serve_encode_view(model, *reqs[1]))}", flush=True)
 
     # small inputs: the same model on the GPU (kernels) and on the CPU (plain versions)
     cpu_model = copy.deepcopy(model).to("cpu")
@@ -1040,15 +1129,13 @@ def _finite(values) -> bool:
     return all(np.isfinite(float(v)) for v in values)
 
 
-def phase_train_run(seed):
+def phase_train_run(seed, scratch):
     """Phase 6: the port's stage-1 training run (`cli.train.run_stage1`) on
     configs/train_synthetic_flagship.yaml at full width, with the cuts
     printed on its first line; the resume from its checkpoint; three steps
     of configs/train_synthetic_convergence.yaml (the fine pass); the
     validation render at 32x64 on the GPU against the CPU. Returns the
-    flagship run's launch counts."""
-    import os
-    import tempfile
+    flagship run's launch counts and its run directory (phase 7's field)."""
 
     from scenedino_torch import kernels
     from scenedino_torch.cli import train as cli
@@ -1060,7 +1147,7 @@ def phase_train_run(seed):
     t_phase = time.perf_counter()
     root = os.path.dirname(os.path.abspath(__file__))
     conf = yaml_config.load(os.path.join(root, "configs", "train_synthetic_flagship.yaml"))
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    tmp = tempfile.mkdtemp(prefix="train_", dir=scratch)
     conf["dataset"]["length"] = TRAIN_RUN_ITEMS
     conf["training"].update(stop_iteration=TRAIN_RUN_STEPS, checkpoint_every=3, log_every=1)
     vconf = conf["validation"]["validation"]
@@ -1226,6 +1313,294 @@ def phase_train_run(seed):
     finally:
         log.removeHandler(records)
     print(f"phase 6 wall time {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return counts, out
+
+
+def _semantic_config(root, stage1_dir, out):
+    """Phase 7's stage-2 config, composed here: train_synthetic_flagship.yaml's
+    model, precision, batch and data; train_semantic_kitti_360.yaml's
+    downstream, training.loss, optimizer and validation blocks; cuts of scale
+    only (no width)."""
+    from scenedino_torch.utils import config as yaml_config
+
+    flag = yaml_config.load(os.path.join(root, "configs", "train_synthetic_flagship.yaml"))
+    sem = yaml_config.load(os.path.join(root, "configs", "train_semantic_kitti_360.yaml"))
+    conf = {k: copy.deepcopy(flag[k]) for k in ("seed", "with_amp", "batch_size", "dataset", "model", "renderer")}
+    conf["dataset"]["length"] = STAGE2_ITEMS
+    conf["downstream"] = copy.deepcopy(sem["downstream"])
+    conf["training"] = {**copy.deepcopy(sem["training"]), "num_epochs": 10, "stop_iteration": STAGE2_STEPS,
+                        "checkpoint_every": 3, "log_every": 1}
+    conf["validation"] = copy.deepcopy(sem["validation"])
+    vconf = conf["validation"]["validation"]
+    vconf["subset"] = {"type": "range", "args": {"start": 0, "end": STAGE2_VAL_ITEMS}}
+    vconf["events"][0]["args"]["every"] = 3
+    conf["resume_from"] = stage1_dir
+    conf["output"] = {"path": out}
+    conf["num_workers"] = 4
+    return conf
+
+
+def phase_stage2(seed, stage1_dir, scratch):
+    """Phase 7: the port's stage-2 run (`cli.train.run_stage2`) at full width
+    from phase 6's stage-1 run directory, its checks, the resume, and
+    downstream_forward at 32x64 on the GPU against the CPU. Returns the
+    run's launch counts."""
+
+    from scenedino_torch import kernels
+    from scenedino_torch.cli import train as cli
+    from scenedino_torch.datasets import make_datasets
+    from scenedino_torch.losses.stego import stego_loss
+    from scenedino_torch.models.downstream import SemanticHead, SemanticHeadConfig
+    from scenedino_torch.renderer.nerf import RenderConfig
+    from scenedino_torch.training import downstream as down
+    from scenedino_torch.utils.checkpoint import load_checkpoint, train_state_dict
+
+    t_phase = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.mkdtemp(prefix="stage2_", dir=scratch)
+    conf = _semantic_config(root, stage1_dir, os.path.join(tmp, "semantic"))
+    d, m, enc = conf["downstream"], conf["model"], conf["model"]["encoder"]
+    print(f"phase 7 stage 2: cli.train.run_stage2 at full width, composed from train_synthetic_flagship.yaml "
+          f"({enc['encoder_arch']} {enc['version']}, DPT {enc['decoder_out_dim']}, d_hidden "
+          f"{m['decoder_heads'][0]['args']['d_hidden']}, with_amp {conf['with_amp']}, {enc['image_size']}, batch "
+          f"{conf['batch_size']}) and train_semantic_kitti_360.yaml (downstream input_dim {d['input_dim']}, code_dim "
+          f"{d['code_dim']}, {d['n_classes']} clusters over {d['gt_classes']} classes, buffer {d['buffer_size']}, "
+          f"{d['patch_sample_size']} samples a crop, kNN {d['knn_neighbors']}, mode {d['mode']}, lr "
+          f"{conf['training']['optimizer']['args']['lr']}; its loss and validation blocks), resume_from phase 6's "
+          f"run; cuts: dataset.length 64 -> {STAGE2_ITEMS}, num_epochs 1 -> 10 (8 items are 2 steps an epoch), "
+          f"stop_iteration {STAGE2_STEPS}, validation every 100 -> 3 over items 0-{STAGE2_VAL_ITEMS - 1} (file: a "
+          f"random 32), checkpoint_every 5000 -> 3, log_every 250 -> 1; output into {tmp}", flush=True)
+
+    def fresh_head():
+        """The head as run_stage2 builds it before seeding: from `seed` on a CPU generator."""
+        return SemanticHead(SemanticHeadConfig.from_dict(d), generator=torch.Generator().manual_seed(conf["seed"])).to(
+            "cuda")
+
+    records = LogRecords()
+    loggers = [logging.getLogger(n) for n in ("training", "validation")]
+    for lg in loggers:
+        lg.setLevel(logging.INFO)
+        lg.addHandler(records)
+    try:
+        init = fresh_head().state_dict()
+        kernels.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        field, head, state = cli.run_stage2(conf, device="cuda")
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        counts = kernels.launches()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        steps = records.with_attr("losses")
+        vals = records.with_attr("validator")
+        written = records.with_attr("pseudo_assignment")
+        seeded = records.with_attr("seed_ms")
+        print(f"phase 7 cluster seeding (k-means++ over {d['n_classes']} clusters from the first batch's render): "
+              f"{seeded[0].seed_ms:.1f} ms", flush=True)
+        for r in steps:
+            print(f"phase 7 step {r.iteration}: {json.dumps({k: round(float(v), 6) for k, v in r.losses.items()})}; "
+                  f"host {r.step_ms:.1f} ms (data wait {r.data_ms:.1f} ms)", flush=True)
+        for r in vals:
+            print(f"phase 7 validation at {r.iteration} ({r.ms:.1f} ms): "
+                  f"{json.dumps({k: round(float(v), 6) for k, v in r.metrics.items()})}", flush=True)
+        blocks = field.encoder.vit_encoder.vit.cfg.depth
+        renders = STAGE2_STEPS + 1 + len(vals) * STAGE2_VAL_ITEMS  # steps, the seeding, validation items (batch 1)
+        expect = {**{name: 0 for name in kernels.WRAPPERS}, "attention": renders * blocks, "encode_view": renders}
+        print(f"phase 7 run: {len(steps)} steps in {run_s:.1f} s wall (model build, resume_from, seeding, data, "
+              f"steps, validations, checkpoints); peak memory allocated {peak:.3f} GiB; launches {json.dumps(counts)} "
+              f"(expected {json.dumps(expect)}: each step, the seeding and each validation item encode one view "
+              f"and render it through K6)", flush=True)
+        if (len(steps) != STAGE2_STEPS or state.step != STAGE2_STEPS or state.applied != STAGE2_STEPS
+                or state.total_notfinite != 0 or not _finite(v for r in steps for v in r.losses.values())):
+            fail(f"stage 2 took {len(steps)} steps, state step {state.step}, applied {state.applied}, non-finite "
+                 f"{state.total_notfinite}, or a loss was not finite")
+        if len(vals) != 2 or not all("stego_cluster_weighted_miou" in r.metrics and _finite(r.metrics.values())
+                                     for r in vals):
+            fail("a stage-2 validation is missing or not finite")
+        if counts != expect:
+            fail(f"stage 2 launched {counts}, expected {expect}")
+        moved = {k: not torch.equal(v, init[k]) for k, v in head.state_dict().items() if v.is_floating_point()}
+        if not all(moved.values()):
+            fail(f"stage 2 left head parameters unchanged: {[k for k, v in moved.items() if not v]}")
+        frozen = torch.load(cli.find_latest_checkpoint(stage1_dir), map_location="cuda", weights_only=True)["field"]
+        if not _state_equal(field.state_dict(), frozen):
+            fail("stage 2 changed the frozen field")
+        if len(written) != len(vals) or any(
+                w.pseudo_assignment[key] != v.arrays[key].tolist() for w, v in zip(written, vals)
+                for key in ("direct_cluster_assignment", "stego_cluster_assignment")):
+            fail("a validation's pseudo assignment is not what the cluster heads hold after it")
+        print(f"phase 7 checks: every step finite and applied; all {len(moved)} head tensors moved; the field "
+              f"bitwise equal to {os.path.basename(cli.find_latest_checkpoint(stage1_dir))}; after each validation "
+              f"both cluster heads hold its assignment "
+              f"{[w.pseudo_assignment['stego_cluster_assignment'] for w in written]} (stego)", flush=True)
+
+        # the loop writes the checkpoint, then validates: the step-6 checkpoint holds
+        # the final state but the assignment of the validation at 3 (the reference's order)
+        out = conf["output"]["path"]
+        ckpt = os.path.join(out, f"training_checkpoint_{STAGE2_STEPS}.pt")
+        saved = torch.load(ckpt, map_location="cuda", weights_only=True)
+        head2 = fresh_head()
+        state2 = down.init_downstream_state(head2, down.DownstreamTrainConfig())
+        load_checkpoint(ckpt, head2, state2)
+        reloaded = _state_equal(train_state_dict(head2, state2), saved)
+        assignments = {f"{name}_head.pseudo_assignment": f"{name}_assignment"
+                       for name in ("direct_cluster", "stego_cluster")}
+
+        def without_assignments(tree):
+            return {**tree, "head": {k: v for k, v in tree["head"].items() if k not in assignments}}
+
+        final = _state_equal(without_assignments(train_state_dict(head, state)), without_assignments(saved))
+        before_last = all(saved["head"][k].tolist() == written[0].pseudo_assignment[v] for k, v in assignments.items())
+        print(f"phase 7 checkpoint {os.path.basename(ckpt)} ({os.path.getsize(ckpt)} bytes) loads back equal: "
+              f"{reloaded}; equals the final state but for the assignments: {final}; holds the assignment of the "
+              f"validation at 3: {before_last}; field snapshot field_params.pt "
+              f"{os.path.getsize(os.path.join(out, cli.FIELD_SNAPSHOT))} bytes", flush=True)
+        if not (reloaded and final and before_last):
+            fail("the stage-2 checkpoint does not hold the run's state, or did not load back to it")
+        del head2, state2, saved
+
+        records.records.clear()
+        conf2 = copy.deepcopy(conf)
+        conf2["training"].update(stop_iteration=STAGE2_RESUME_TO)
+        conf2["training"]["continue"] = True
+        _, _, state2 = cli.run_stage2(conf2, device="cuda")
+        resumed = records.with_attr("resumed_from")
+        its = [r.iteration for r in records.with_attr("losses")]
+        print(f"phase 7 resume: from {[os.path.basename(r.resumed_from) for r in resumed]} at "
+              f"{[r.iteration for r in resumed]}, then iterations {its}, final step {state2.step}", flush=True)
+        if (len(resumed) != 1 or resumed[0].iteration != STAGE2_STEPS or state2.step != STAGE2_RESUME_TO
+                or its != list(range(STAGE2_STEPS + 1, STAGE2_RESUME_TO + 1))):
+            fail("the stage-2 run did not resume from its checkpoint as expected")
+        del state2
+
+        # one more step of the first run's head and state, profiled: where a stage-2 step's device time goes
+        B = conf["batch_size"]
+        batch = next(cli.make_val_batches_fn(make_datasets(conf["dataset"])[0], range(B), B, cli.SEMANTIC_KEYS,
+                                             "cuda")())
+        scfg = dataclasses.replace(down.DownstreamTrainConfig(), lr=conf["training"]["optimizer"]["args"]["lr"],
+                                   render_height=enc["image_size"][0], render_width=enc["image_size"][1],
+                                   n_samples=head.cfg.patch_sample_size)
+        srcfg = RenderConfig(n_coarse=conf["renderer"]["n_coarse"])
+        step = down.make_downstream_train_step(field, head, scfg, srcfg)
+        gp = torch.Generator(device="cuda").manual_seed(seed + 900)
+        step(state, batch, down.draw_stage2(gp, scfg, head.cfg, srcfg, B, batch["imgs"].shape[1]))  # warm
+        draws = down.draw_stage2(gp, scfg, head.cfg, srcfg, B, batch["imgs"].shape[1])
+        print(f"phase 7 profile (one stage-2 step, batch {B}): {profile_device(lambda: step(state, batch, draws))}",
+              flush=True)
+
+        # downstream_forward at 32x64 on the GPU against the CPU: the same field, head, buffers and draws, on the
+        # front view (the linear probes) and on the side view (the STEGO terms)
+        h, w = 32, 64
+        cfg = dataclasses.replace(down.DownstreamTrainConfig(), render_height=h, render_width=w,
+                                  n_samples=head.cfg.patch_sample_size)
+        rcfg = RenderConfig(n_coarse=K)
+        gc = torch.Generator().manual_seed(seed + 800)
+        small = {**train_batch(gc, 2, h, w, "cpu"),
+                 "segs": torch.randint(0, head.cfg.gt_classes, (2, 1, h, w), generator=gc)}
+        drawn = down.draw_stage2(gc, cfg, head.cfg, rcfg, 2, small["imgs"].shape[1])
+        cpu_field, cpu_head = copy.deepcopy(field).to("cpu"), copy.deepcopy(head).to("cpu")
+        p99s, coss, head_rel, stego_abs, losses, nonzero = [], [], 0.0, 0.0, {}, set()
+        for view, coin in (("front", False), ("side", True)):
+            draws = dataclasses.replace(drawn, side_coin=coin)
+            res = {}
+            for dev in ("cuda", "cpu"):
+                f, hd = (field, head) if dev == "cuda" else (cpu_field, cpu_head)
+                bufs = down.RingBufferState.create(hd.cfg.buffer_size, hd.cfg.patch_sample_size, hd.cfg.input_dim,
+                                                   dev)
+                seg, rend, _ = down.downstream_forward(f, hd, {k: v.to(dev) for k, v in small.items()}, bufs,
+                                                       _to(draws, dev), cfg, rcfg)
+                res[dev] = ({k: float(v.detach()) for k, v in stego_loss(seg).items()},
+                            {k: v.float().cpu() for k, v in rend.items()})
+            (lg, rg), (lc, rc) = res["cuda"], res["cpu"]
+            d_rel = ((rg["depth"] - rc["depth"]).abs() / rc["depth"]).flatten()
+            p99s.append(torch.quantile(d_rel, 0.99).item())
+            coss.append(torch.nn.functional.cosine_similarity(rg["dino_features"].flatten(0, -2),
+                                                              rc["dino_features"].flatten(0, -2), dim=-1)
+                        .median().item())
+            for k in lc:
+                if k == "total_loss":
+                    continue
+                if k.endswith(("cluster_loss", "linear_loss")):
+                    head_rel = max(head_rel, abs(lg[k] - lc[k]) / max(abs(lc[k]), 1e-6))
+                else:
+                    stego_abs = max(stego_abs, abs(lg[k] - lc[k]))
+                if lg[k] != 0.0 or lc[k] != 0.0:
+                    nonzero.add(k)
+            losses[view] = {"GPU": {k: round(v, 6) for k, v in lg.items()},
+                            "CPU": {k: round(v, 6) for k, v in lc.items()}}
+        zero = sorted({k for v in losses.values() for k in v["CPU"] if k != "total_loss"} - nonzero)
+        print(f"phase 7 small-input check of downstream_forward ({h}x{w}, batch 2, the run's field and head, the same "
+              f"draws, front and side view): depth rel err p99 {max(p99s):.3e} (bound {EVAL_DEPTH_REL_P99}); 768-d "
+              f"feature median cosine {min(coss):.6f} (bound {SLICE_COS}); cluster and probe losses max rel err "
+              f"{head_rel:.3e} (bound {STAGE2_HEAD_LOSS_REL}); STEGO terms max abs err {stego_abs:.3e} (bound "
+              f"{STAGE2_STEGO_ABS}); losses 0 on both sides in both views {zero}; losses {json.dumps(losses)}",
+              flush=True)
+        if not (max(p99s) <= EVAL_DEPTH_REL_P99 and min(coss) >= SLICE_COS and head_rel <= STAGE2_HEAD_LOSS_REL
+                and stego_abs <= STAGE2_STEGO_ABS and not zero):
+            fail("the GPU stage-2 forward disagrees with the CPU on the small input, or a loss compared nothing")
+    finally:
+        for lg in loggers:
+            lg.removeHandler(records)
+    print(f"phase 7 wall time {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return counts
+
+
+def _to(draws, device):
+    """A Stage2Draws with every tensor on `device`."""
+    from scenedino_torch.models.downstream import HeadDraws
+
+    def mv(x):
+        return x.to(device) if isinstance(x, torch.Tensor) else x
+
+    fields = {f.name: mv(getattr(draws, f.name)) for f in dataclasses.fields(draws)}
+    fields["head"] = HeadDraws(*(mv(getattr(draws.head, f.name)) for f in dataclasses.fields(draws.head)))
+    return type(draws)(**fields)
+
+
+def phase_stage2_convergence(seed, scratch):
+    """Phase 7b: 3 steps and a validation of
+    configs/train_semantic_synthetic_convergence.yaml (fp32, tiny ViT,
+    d_hidden 64) from tests/goldens/s1b_field_params.npz. Returns its
+    launch counts."""
+
+    from scenedino_torch import kernels
+    from scenedino_torch.cli import train as cli
+    from scenedino_torch.utils import config as yaml_config
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    conf = yaml_config.load(os.path.join(root, "configs", "train_semantic_synthetic_convergence.yaml"))
+    conf["resume_from"] = os.path.join(root, "tests", "goldens", "s1b_field_params.npz")
+    conf["dataset"]["length"] = STAGE2_ITEMS
+    conf["training"].update(stop_iteration=3, checkpoint_every=3, log_every=1)
+    conf["validation"]["validation"]["events"][0]["args"]["every"] = 3
+    conf["validation"]["validation"]["subset"]["args"] = {"start": 0, "end": 2}
+    conf["output"]["path"] = tempfile.mkdtemp(prefix="stage2_convergence_", dir=scratch)
+    records = LogRecords()
+    log = logging.getLogger("training")
+    log.addHandler(records)
+    try:
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        field, head, state = cli.run_stage2(conf, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = kernels.launches()
+    finally:
+        log.removeHandler(records)
+    steps, vals = records.with_attr("losses"), records.with_attr("validator")
+    expect = {**{name: 0 for name in kernels.WRAPPERS}, "encode_view": 3 + 1 + 2}
+    print(f"phase 7b stage-2 convergence recipe (configs/train_semantic_synthetic_convergence.yaml, fp32, "
+          f"{conf['dataset']['image_size']}, d_hidden {conf['model']['decoder_heads'][0]['args']['d_hidden']}, from "
+          f"s1b_field_params.npz; cuts: dataset.length 64 -> {STAGE2_ITEMS}, stop_iteration 3, checkpoint_every 3, "
+          f"log_every 1, validation at 3 over items 0-1): total losses "
+          f"{[round(float(r.losses['total_loss']), 6) for r in steps]}, host ms {[round(r.step_ms, 1) for r in steps]}; "
+          f"validation {json.dumps({k: round(float(v), 6) for r in vals for k, v in r.metrics.items()})}; "
+          f"{wall:.1f} s wall; launches {json.dumps(counts)} (expected {json.dumps(expect)}: the ViT's plain branch, "
+          f"K6 for the 3 steps, the seeding and 2 validation items)", flush=True)
+    if (len(steps) != 3 or state.applied != 3 or len(vals) != 1 or counts != expect
+            or not _finite(v for r in steps for v in r.losses.values()) or not _finite(vals[0].metrics.values())):
+        fail("the stage-2 convergence recipe's run was not 3 finite applied steps and one finite validation "
+             "through K6")
     return counts
 
 
@@ -1272,16 +1647,27 @@ def main():
           f"of 64; output tail), registers and spills in bytes: {json.dumps(pk)}", flush=True)
     if len(pk) != POINT_KERNELS or any(r.get("spill_stores", 1) or r.get("spill_loads", 1) for r in pk.values()):
         fail(f"ptxas spilled in a point kernel, or a report is missing ({len(pk)} of {POINT_KERNELS}): {pk}")
+    ev = {name.split("encode_view_kernel")[-1]: r
+          for name, r in build.ptxas_report(build.build_log("encode_view")).items() if "encode_view_kernel" in name}
+    print(f"phase 1 K6 encode_view kernels by output width (template argument 20 or 68), registers and spills in "
+          f"bytes: {json.dumps(ev)}", flush=True)
+    if len(ev) != ENCODE_VIEW_KERNELS or any(r.get("spill_stores", 1) or r.get("spill_loads", 1) for r in ev.values()):
+        fail(f"ptxas spilled in K6, or a report is missing ({len(ev)} of {ENCODE_VIEW_KERNELS}): {ev}")
 
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
-    entries = [phase_k1(gen), *phase_k1_bwd(gen), phase_k2(gen), *phase_probe(gen), phase_k4(gen)]
+    entries = [phase_k1(gen), *phase_k1_bwd(gen), phase_k2(gen), *phase_probe(gen), phase_k4(gen), phase_k6(gen)]
     phase_gather(args.seed)
     serving = phase_slice(args.seed)
     training = phase_train(args.seed)
     phase_train_fp32(args.seed)
-    train_run = phase_train_run(args.seed)
+    # the training phases' run directories (checkpoints of GBs) live and go with one temporary directory
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as scratch:
+        train_run, stage1_dir = phase_train_run(args.seed, scratch)
+        stage2 = phase_stage2(args.seed, stage1_dir, scratch)
+        stage2_conv = phase_stage2_convergence(args.seed, scratch)
+    paths = (serving, training, train_run, stage2, stage2_conv)
     for e in entries:
-        e["launches"] = serving[e["name"]] + training[e["name"]] + train_run[e["name"]]
+        e["launches"] = sum(p[e["name"]] for p in paths)
     if sorted(e["name"] for e in entries) != sorted(kernels.WRAPPERS):
         fail("the kernels line does not list every kernel")
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",

@@ -11,12 +11,16 @@ the repository unchanged). It covers these paths:
               -> training.trainer.make_train_step (the stage-1 step);
               cli.train (python -m scenedino_torch.cli.train --config ...):
               the stage-1 run, with training.loop, the validation render
-              (training.trainer.stage1_eval_forward) and checkpoints
+              (training.trainer.stage1_eval_forward) and checkpoints;
+              cli.train --stage semantic: stage 2, the semantic head
+              (models.downstream) distilled from a frozen field by
+              training.downstream, validated with the pseudo-assignment
+              write-back (training.validation)
 
 Hand-written CUDA kernels carry them (`kernels/`, sources in `csrc/`):
 the ViT attention forward and its backward (dq; dk and dv), the fused
 point pipeline of serving in three output modes (render, probe, query),
-and a row gather. Entry points run on the GPU unless the
+a row gather, and the encode-view render's per-sample work (K6). Entry points run on the GPU unless the
 caller asks for the CPU with `device="cpu"`; on the CPU every kernel
 wrapper takes its plain PyTorch version.
 """

@@ -1,22 +1,32 @@
-"""Stage-1 training from a config file (counterpart of `scenedino_tpu/cli/train.py`).
+"""Training from a config file (counterpart of `scenedino_tpu/cli/train.py`).
 
     python -m scenedino_torch.cli.train --config configs/train_synthetic_flagship.yaml
     python -m scenedino_torch.cli.train --config <config> --device cpu
+    python -m scenedino_torch.cli.train --config configs/train_semantic_synthetic_convergence.yaml --stage semantic
 
 The config is read by `utils.config` (no PyYAML). The run trains on the
 GPU unless `--device` names another device; without a GPU it raises
 unless `--device cpu` is given. It writes training_config.yaml, the
 checkpoints and TensorBoard scalars under `output.path`, validates as the
-`validation:` block says, and resumes from the newest checkpoint with
+`validation:` blocks say, and resumes from the newest checkpoint with
 `training.continue: true`. Each step's draws come from one
 `torch.Generator` on the device seeded from `seed`; the data order from a
 numpy RandomState seeded from it. One device: the reference's data-parallel
-mesh is not ported. `--stage semantic` (stage 2) is not ported yet.
+mesh is not ported.
+
+`--stage nvs` (the default) trains the field (stage 1). `--stage semantic`
+distills a frozen field into the semantic head (stage 2, `run_stage2`):
+the field comes from `resume_from` (a stage-1 run directory or checkpoint
+of the port, a field snapshot, or a JAX variables tree saved as a flat
+`.npz`), the cluster centres are seeded from the first batch, and each
+validation writes its pseudo assignment back into the cluster heads.
 """
 from __future__ import annotations
 
 import argparse
 import logging
+import os
+import time
 from typing import Dict, Iterable, Optional, Sequence, Tuple
 
 import numpy as np
@@ -26,13 +36,21 @@ from scenedino_torch import resolve_device
 from scenedino_torch.datasets import make_datasets
 from scenedino_torch.models.factory import make_model
 from scenedino_torch.training import trainer
-from scenedino_torch.training.loop import LoopConfig, fit
-from scenedino_torch.training.validation import Validator, make_stage1_validator, subset_indices
+from scenedino_torch.training.loop import LoopConfig, find_latest_checkpoint, fit
+from scenedino_torch.training.validation import (
+    Validator,
+    make_stage1_validator,
+    make_stage2_validator,
+    make_update_model_fn,
+    subset_indices,
+)
 from scenedino_torch.utils.config import load, save_run_config
 from scenedino_torch.utils.prefetch import ThreadedLoader, device_prefetch, to_device
 
 TRAIN_KEYS = ("imgs", "poses", "projs")
 VAL_KEYS = ("imgs", "poses", "projs", "depths")
+logger = logging.getLogger("training")
+SEMANTIC_KEYS = ("imgs", "poses", "projs", "segs")
 
 
 def batch_iterator(dataset, batch_size: int, key_seed: int = 0, shuffle: bool = True, drop_last: bool = True,
@@ -65,10 +83,9 @@ def make_val_batches_fn(dataset, indices, batch_size: int, keys: Sequence[str], 
     return it
 
 
-def build_validators(config: dict, dataset, keys: Sequence[str], field, tcfg, rcfg,
-                     device) -> Optional[Dict[str, Validator]]:
-    """`validation:` blocks -> {name: stage-1 Validator}; each validator's
-    batch size is its own `batch_size` (1 by default)."""
+def build_validators(config: dict, dataset, keys: Sequence[str], device, make) -> Optional[Dict[str, Validator]]:
+    """`validation:` blocks -> {name: make(name, block, batches_fn)}; each
+    validator's batch size is its own `batch_size` (1 by default)."""
     vconf_all = config.get("validation") or {}
     if not vconf_all:
         return None
@@ -76,7 +93,7 @@ def build_validators(config: dict, dataset, keys: Sequence[str], field, tcfg, rc
     for name, vconf in vconf_all.items():
         idx = subset_indices(vconf.get("subset"), len(dataset), seed=config.get("seed", 0))
         batches_fn = make_val_batches_fn(dataset, idx, vconf.get("batch_size", 1), keys, device)
-        validators[name] = make_stage1_validator(name, vconf, field, tcfg, rcfg, batches_fn)
+        validators[name] = make(name, vconf, batches_fn)
     return validators
 
 
@@ -118,35 +135,167 @@ def run_stage1(config: dict, device=None):
         yield from device_prefetch(batches(), put=lambda b: to_device(b, device, TRAIN_KEYS), buffer_size=2)
 
     tconf = config.get("training", {})
-    cfg = LoopConfig(
-        output_path=config.get("output", {}).get("path", "out/run"),
-        num_epochs=tconf.get("num_epochs", 50),
-        checkpoint_every=tconf.get("checkpoint_every", 10000),
-        log_every=tconf.get("log_every", 100),
-        stop_iteration=tconf.get("stop_iteration"),
-        resume=tconf.get("continue", False),
-        profile_start=tconf.get("profile_start"),
-        profile_stop=tconf.get("profile_stop"),
-    )
+    cfg = _loop_config(config, "out/run", 50, 10000, 100)
     model_conf = trainer.configs_from_dict(config)[0]
     save_run_config(cfg.output_path, {**config, "model": model_conf})
-    validators = build_validators(config, val_ds, VAL_KEYS, field, tcfg, rcfg, device)
+    validators = build_validators(config, val_ds, VAL_KEYS, device,
+                                  lambda name, vconf, fn: make_stage1_validator(name, vconf, field, tcfg, rcfg, fn))
     fit(field, state, train_step, data_iter, cfg, generator, validators=validators,
         steps_per_epoch=tconf.get("epoch_length"))
     return field, state
 
 
+def _loop_config(config: dict, default_path: str, default_epochs: int, default_ckpt: int,
+                 default_log: int) -> LoopConfig:
+    tconf = config.get("training", {})
+    return LoopConfig(
+        output_path=config.get("output", {}).get("path", default_path),
+        num_epochs=tconf.get("num_epochs", default_epochs),
+        checkpoint_every=tconf.get("checkpoint_every", default_ckpt),
+        log_every=tconf.get("log_every", default_log),
+        stop_iteration=tconf.get("stop_iteration"),
+        resume=tconf.get("continue", False),
+        profile_start=tconf.get("profile_start"),
+        profile_stop=tconf.get("profile_stop"),
+    )
+
+
+def load_field(field, resume_from: str) -> str:
+    """Load the frozen field of stage 2 from `resume_from`, strictly:
+    a port stage-1 run directory (its newest `training_checkpoint_<it>.pt`,
+    else a `field_params.pt` snapshot), a `training_checkpoint_<it>.pt`, a
+    field snapshot (`utils.checkpoint.save_field_snapshot`), or a JAX
+    variables tree saved as a flat `.npz` ("params/encoder/..." keys, as
+    tests/goldens/s1b_field_params.npz). Anything else raises, rather than
+    distill a random field. Returns the file read."""
+    from scenedino_torch.utils.convert import load_jax_params
+
+    path = resume_from
+    if os.path.isdir(path):
+        snapshot = os.path.join(path, FIELD_SNAPSHOT)
+        path = find_latest_checkpoint(path) or (snapshot if os.path.exists(snapshot) else None)
+        if path is None:
+            raise ValueError(f"resume_from={resume_from!r}: no training_checkpoint_<it>.pt or {FIELD_SNAPSHOT} in it")
+    if path.endswith(".npz"):
+        with np.load(path) as z:
+            load_jax_params(field, {k: z[k] for k in z.files})
+        return path
+    device = next(field.parameters()).device
+    ckpt = torch.load(path, map_location=device, weights_only=True)
+    if isinstance(ckpt, dict) and isinstance(ckpt.get("field"), dict):
+        ckpt = ckpt["field"]  # a stage-1 train state
+    if not (isinstance(ckpt, dict) and any(str(k).startswith(("encoder.", "heads.")) for k in ckpt)):
+        keys = sorted(ckpt)[:6] if isinstance(ckpt, dict) else type(ckpt).__name__
+        raise ValueError(f"resume_from={path!r}: unrecognized checkpoint layout ({keys}); refusing to train the "
+                         "semantic head against a random field")
+    field.load_state_dict(ckpt)
+    return path
+
+
+FIELD_SNAPSHOT = "field_params.pt"
+
+
+def init_stage2(config: dict, device):
+    """(field, head, train state, generator, DownstreamTrainConfig,
+    RenderConfig, StegoLossConfig) of a stage-2 run before its first step:
+    the field from `seed` then `resume_from`, frozen; the head from `seed`
+    (a CPU generator, the same weights on every device); the generator on
+    the device seeded from `seed`."""
+    from scenedino_torch.losses.stego import StegoLossConfig
+    from scenedino_torch.models.downstream import SemanticHead, SemanticHeadConfig
+    from scenedino_torch.renderer.nerf import RenderConfig
+    from scenedino_torch.training.downstream import DownstreamTrainConfig, init_downstream_state
+
+    device = resolve_device(device)
+    seed = config.get("seed", 0)
+    model_conf = {**config.get("model", {}), "encoder": dict(config.get("model", {}).get("encoder", {}))}
+    if config.get("with_amp", False) and not model_conf["encoder"].get("dtype"):
+        model_conf["encoder"]["dtype"] = "bfloat16"  # with_amp: the frozen encode in bf16
+    field = make_model(model_conf, device=device, seed=seed, training=True)
+    if config.get("resume_from"):
+        load_field(field, config["resume_from"])
+    field.eval().requires_grad_(False)
+
+    head_cfg = SemanticHeadConfig.from_dict(config.get("downstream", {}))
+    head = SemanticHead(head_cfg, generator=torch.Generator().manual_seed(seed)).to(device)
+    H, W = config["dataset"].get("image_size", (192, 640))
+    tconf = config.get("training", {})
+    cfg = DownstreamTrainConfig(
+        lr=tconf.get("optimizer", {}).get("args", {}).get("lr", 5e-4),
+        render_height=H, render_width=W,
+        n_samples=head_cfg.patch_sample_size,  # a crop's samples fill one ring-buffer row
+        sample_radius=config.get("model", {}).get("sample_radius_3d", 0.5),
+        use_fast_render=tconf.get("use_fast_render", True),
+    )
+    rcfg = RenderConfig(n_coarse=config.get("renderer", {}).get("n_coarse", 32))
+    generator = torch.Generator(device=device).manual_seed(seed)
+    state = init_downstream_state(head, cfg)
+    return field, head, state, generator, cfg, rcfg, StegoLossConfig.from_dict(tconf.get("loss"))
+
+
+def run_stage2(config: dict, device=None):
+    """Train stage 2 as `config` says (the reference's run_stage2,
+    cli/train.py:257-452); returns (field, head, train state)."""
+    from scenedino_torch.training.downstream import (
+        draw_seed,
+        draw_stage2,
+        make_downstream_train_step,
+        seed_cluster_centers,
+    )
+    from scenedino_torch.utils.checkpoint import save_field_snapshot
+
+    field, head, state, generator, cfg, rcfg, loss_cfg = init_stage2(config, device)
+    device = generator.device
+    train_ds, val_ds = make_datasets(config["dataset"])
+    batch_size = config.get("batch_size", 1)
+
+    # the cluster centres from the first batch (semantic_head.py:329-348)
+    init_type = config.get("downstream", {}).get("cluster_init", "kmeans++")
+    first = to_device(next(iter(batch_iterator(train_ds, batch_size)())), device, SEMANTIC_KEYS)
+    t0 = time.perf_counter()
+    seed_cluster_centers(field, head, first, draw_seed(generator, cfg, head.cfg, rcfg, batch_size, init_type),
+                         cfg, rcfg)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    seed_ms = (time.perf_counter() - t0) * 1e3
+    logger.info("cluster centres seeded (%s) in %.1f ms", init_type, seed_ms, extra={"seed_ms": seed_ms})
+
+    step = make_downstream_train_step(field, head, cfg, rcfg, loss_cfg)
+
+    def train_step(state, batch: Dict[str, torch.Tensor], gen: torch.Generator):
+        B, V = batch["imgs"].shape[:2]
+        return step(state, batch, draw_stage2(gen, cfg, head.cfg, rcfg, B, V))
+
+    batches = batch_iterator(train_ds, batch_size, key_seed=config.get("seed", 0),
+                             num_workers=config.get("num_workers", 4))
+
+    def data_iter() -> Iterable[Dict[str, torch.Tensor]]:
+        yield from device_prefetch(batches(), put=lambda b: to_device(b, device, SEMANTIC_KEYS), buffer_size=2)
+
+    loop_cfg = _loop_config(config, "out/semantic", 10, 5000, 100)
+    save_run_config(loop_cfg.output_path, config)
+    save_field_snapshot(os.path.join(loop_cfg.output_path, FIELD_SNAPSHOT), field)
+    validators = build_validators(
+        config, val_ds or train_ds, SEMANTIC_KEYS, device,
+        lambda name, vconf, fn: make_stage2_validator(name, vconf, field, head, cfg, rcfg, fn))
+    fit(head, state, train_step, data_iter, loop_cfg, generator, validators=validators,
+        steps_per_epoch=config.get("training", {}).get("epoch_length"),
+        update_model_fn=make_update_model_fn() if validators else None)
+    return field, head, state
+
+
 def main(argv: Optional[Sequence[str]] = None) -> None:
-    ap = argparse.ArgumentParser(description="Stage-1 training of the PyTorch port from a YAML config.")
+    ap = argparse.ArgumentParser(description="Training of the PyTorch port from a YAML config (stage 1 or 2).")
     ap.add_argument("--config", required=True)
     ap.add_argument("--stage", default="nvs", choices=["nvs", "semantic"])
     ap.add_argument("--device", default=None, help="torch device (default: cuda; 'cpu' runs the plain versions)")
     args = ap.parse_args(argv)
     logging.basicConfig(level=logging.INFO)
     config = load(args.config)
-    if args.stage != "nvs":
-        raise NotImplementedError("stage 2 (--stage semantic) is not ported yet")
-    run_stage1(config, device=args.device)
+    if args.stage == "nvs":
+        run_stage1(config, device=args.device)
+    else:
+        run_stage2(config, device=args.device)
 
 
 if __name__ == "__main__":

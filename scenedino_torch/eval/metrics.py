@@ -1,6 +1,8 @@
-"""Stage-1 validation metrics on the host (counterpart of
-`scenedino_tpu/eval/metrics.py:33-208`): depth errors, PSNR, the DINO
-cosine similarity and skimage's SSIM.
+"""Validation metrics on the host (counterpart of
+`scenedino_tpu/eval/metrics.py:33-273`): depth errors, PSNR, the DINO
+cosine similarity and skimage's SSIM (stage 1); the segmentation
+confusion, the pseudo-label assignment and the (weighted) IoU scores
+(stage 2).
 
 Inputs are numpy arrays or tensors (copied to the host); the depth and
 image metrics compute in float32 like the reference, SSIM in float64.
@@ -15,7 +17,8 @@ import torch
 
 def _host(x, dtype=np.float32) -> np.ndarray:
     if isinstance(x, torch.Tensor):
-        x = x.detach().float().cpu().numpy()
+        x = x.detach().cpu()
+        x = (x.float() if x.is_floating_point() else x).numpy()
     return np.asarray(x, dtype)
 
 
@@ -92,3 +95,73 @@ def ssim_skimage(pred, gt, data_range: float = 1.0, win_size: int = 7) -> float:
         s = ((2 * ux * uy + c1) * (2 * vxy + c2)) / ((ux ** 2 + uy ** 2 + c1) * (vx + vy + c2))
         vals.append(s[pad:-pad, pad:-pad].mean())
     return float(np.mean(vals))
+
+
+# ------------------------------------------------------------ segmentation
+# [road, sidewalk, building, wall, fence, pole, traffic light, traffic sign,
+#  vegetation, terrain, sky, person, rider, car, truck, bus, train,
+#  motorcycle, bicycle] (the reference's metrics.py:378-380), mean 1
+SEG_CLASS_WEIGHTS = np.array([4, 2, 2, 1, 1, 1, 1, 1, 2, 2, 1, 1, 1, 2, 1, 1, 1, 1, 1], np.float64)
+SEG_CLASS_WEIGHTS = SEG_CLASS_WEIGHTS / SEG_CLASS_WEIGHTS.mean()
+
+
+def seg_confusion_matrix(target, pred, n_gt: int, n_pred: Optional[int] = None, ignore_index: int = -1) -> np.ndarray:
+    """Confusion counts (actual x prediction) over the targets that are not
+    `ignore_index` (metrics.py:230-247): (n_gt, n_pred) int64."""
+    n_pred = n_pred or n_gt
+    target = _host(target, np.int64).reshape(-1)
+    pred = _host(pred, np.int64).reshape(-1)
+    valid = target != ignore_index
+    counts = np.bincount(target[valid] * n_pred + pred[valid], minlength=n_gt * n_pred)
+    return counts.reshape(n_gt, n_pred).astype(np.int64)
+
+
+def pseudo_label_assignment(confusion) -> np.ndarray:
+    """Pseudo class -> GT class map that maximizes the matched counts, every
+    GT class covered at least once (the reference's PuLP ILP,
+    metrics.py:431-456): each pseudo column defaults to its argmax GT row;
+    coverage forces an injective GT -> pseudo override, chosen by the
+    Hungarian method on the regret matrix conf[i, j] - colmax[j] (the cost of
+    moving column j off its argmax)."""
+    from scipy.optimize import linear_sum_assignment
+
+    conf = np.asarray(confusion, np.float64)
+    n_pseudo = conf.shape[1]
+    colmax_idx = np.argmax(conf, axis=0)
+    regret = conf - conf[colmax_idx, np.arange(n_pseudo)][None, :]
+    rows, cols = linear_sum_assignment(regret, maximize=True)
+    assignment = colmax_idx.copy()
+    assignment[cols] = rows
+    return assignment.astype(np.int64)
+
+
+def apply_assignment(confusion, assignment) -> np.ndarray:
+    """Fold the pseudo columns into their GT columns (metrics.py:401-409)."""
+    confusion = np.asarray(confusion)
+    out = np.zeros((confusion.shape[0],) * 2, confusion.dtype)
+    np.add.at(out.T, np.asarray(assignment), confusion.T)
+    return out
+
+
+def seg_scores(confusion, weights: Optional[np.ndarray] = None) -> Dict:
+    """Per-class IoU, mIoU, weighted mIoU and accuracy (metrics.py:411-428)."""
+    conf = np.asarray(confusion, np.float64)
+    tp = np.diag(conf)
+    denom = conf.sum(1) + conf.sum(0) - tp
+    iou = np.where(denom > 0, tp / np.maximum(denom, 1), 0.0)
+    w = weights if weights is not None else SEG_CLASS_WEIGHTS[:len(iou)]
+    return {"per_class_iou": iou, "miou": float(iou.mean()), "weighted_miou": float((iou * w).mean()),
+            "acc": float(tp.sum() / max(conf.sum(), 1))}
+
+
+def evaluate_confusion(confusion, assign_pseudo: bool = True, weights: Optional[np.ndarray] = None) -> Dict:
+    """SegmentationMetric.compute (metrics.py:393-428): the pseudo
+    assignment (when asked), the folded confusion and its scores."""
+    conf = np.asarray(confusion)
+    out: Dict = {}
+    if assign_pseudo:
+        out["assignment"] = pseudo_label_assignment(conf)
+        conf = apply_assignment(conf, out["assignment"])
+    out.update(seg_scores(conf, weights))
+    out["confusion_matrix"] = conf
+    return out

@@ -6,6 +6,7 @@ number of kernel launches it made, so a run can show that its path went
 through the kernel.
 """
 from scenedino_torch.kernels.attention import attention, attention_bwd_dkv, attention_bwd_dq
+from scenedino_torch.kernels.encode_view import encode_view
 from scenedino_torch.kernels.point_render import point_query, point_render, probe_weights
 from scenedino_torch.kernels.row_gather import row_gather
 
@@ -17,6 +18,7 @@ WRAPPERS = {
     "probe_weights": probe_weights,
     "point_query": point_query,
     "row_gather": row_gather,
+    "encode_view": encode_view,
 }
 
 

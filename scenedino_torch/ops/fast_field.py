@@ -10,7 +10,8 @@ lin_in([sample(F, xy), code]) = sample(F @ W_feat, xy) + code @ W_code + b.
 `encode_prefolded` folds it into the decoder's last conv instead, so the
 grid comes out folded. The per-point pipeline then runs in the kernels of
 `kernels.point_render`: K2 for the novel-view renders, K3 for the probe,
-K4 for the voxel query. The encode-view render needs no lookup at all.
+K4 for the voxel query. The encode-view render needs no lookup at all: its
+per-sample work runs in K6 (`kernels.encode_view`).
 """
 from __future__ import annotations
 
@@ -19,10 +20,11 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
-from scenedino_torch.core import cameras, compositing, encoding, grid_sample
+from scenedino_torch.core import cameras, encoding, grid_sample
 from scenedino_torch.core import rays as rays_mod
 from scenedino_torch.core import sampling
-from scenedino_torch.kernels import point_query, point_render, probe_weights, row_gather
+from scenedino_torch.kernels import encode_view, point_query, point_render, probe_weights, row_gather
+from scenedino_torch.kernels.encode_view import EncodeViewConfig
 from scenedino_torch.kernels.point_render import PointRenderConfig
 from scenedino_torch.models.dpt import DPTHead
 from scenedino_torch.models.field import FieldConfig, SceneState
@@ -326,74 +328,97 @@ def render_encode_view(fs: FastFieldState, cfg: FieldConfig, height: int, width:
     x/y channels are constant along a ray: W_code splits into a per-pixel
     bias (x, y channels) and the per-sample z channels. The colour is the
     render-view image itself times the ray's total weight, so it must be
-    the render size. The strata `u` (height*width, n_coarse) are an
+    the render size. The per-sample work runs in the K6 kernel
+    (`kernels.encode_view`). The strata `u` (height*width, n_coarse) are an
     explicit input (the reference draws them from the first of a
     five-way key split, :294), drawn from `generator` when None.
     Returns (depth (H, W), dino (H, W, d_out-1), rgb (H, W, 3)), fp32.
+
+    On CUDA the kernel takes n_coarse <= 32, d_hidden <= 128, d_out <= 68
+    and W_code's z rows <= 16 (every shipped config: 32 samples, d_hidden
+    64 or 128, d_out 17 or 65, 13 z rows), and raises on more; on the CPU
+    the plain version takes any size.
     """
     B, V = fs.folded_grid.shape[:2]
     if B != 1 or V != 1:
         raise ValueError(f"render_encode_view expects 1 view, got B={B}, V={V}")
-    rgb_map = fs.color_imgs[0, 0].float()
-    if rgb_map.shape[:2] != (height, width):
-        raise ValueError(f"render_encode_view: color image {tuple(rgb_map.shape[:2])} != render size "
-                         f"{(height, width)}; use the generic renderer")
-    kmat = fs.feat_ks[0, 0].float()
-    pose_c2w = torch.linalg.inv_ex(fs.feat_w2c[0, :1].float()).inverse  # no raise, no host sync, as in JAX
-    r, xy_img = rays_mod.rays_from_k(pose_c2w, kmat[None], width, height, cfg.z_near, cfg.z_far)
-    flat = r.reshape(-1, 8)
-    z = sampling.sample_coarse(flat, n_coarse, lindisp, u=u, generator=generator)  # (HW, K)
-    focal = torch.stack([kmat[0, 0], kmat[1, 1]])[None]
-    centre = torch.stack([kmat[0, 2], kmat[1, 2]])[None]
-    dirs_cam, _ = rays_mod.unproj_map(width, height, focal, c=centre, device=kmat.device)
-    z_cam = z * dirs_cam[0, ..., 2].reshape(-1, 1)  # camera-space depth; z is the ray distance
-
-    n_code = fs.w_code.shape[0]
-    z_mask = torch.arange(n_code, device=kmat.device) % 3 == 2
-    w_z, w_xy = fs.w_code[z_mask].float(), fs.w_code[~z_mask].float()
-    xy = xy_img.reshape(-1, 2)  # exact NDC pixel centres
-    code_xy = encoding.positional_encoding(torch.cat([xy, torch.zeros_like(xy[:, :1])], -1), cfg.num_freqs,
-                                           cfg.freq_factor, cfg.include_input)[:, ~z_mask]
-    pixel_bias = (code_xy.to(fs.w_code.dtype).float() @ w_xy)[:, None]  # (HW, 1, d_hidden)
-    depth_like = z_cam if cfg.code_mode == "z" else z
-    zn = encoding.normalize_z(depth_like, cfg.z_near, cfg.z_far, inv_z=cfg.inv_z)
-    code_z = encoding.positional_encoding(zn[..., None], cfg.num_freqs, cfg.freq_factor, cfg.include_input)
-
-    g2d = fs.folded_grid[0, 0]
-    Hg, Wg, D = g2d.shape
-    if (Hg, Wg) == (2 * height, 2 * width):
-        # render pixel centres fall midway between grid pixels: a 2x2 mean
-        g2d = g2d.float().reshape(height, 2, width, 2, D).mean((1, 3)).to(g2d.dtype)
-    elif (Hg, Wg) != (height, width):
-        xs = torch.linspace(-1 + 1 / width, 1 - 1 / width, width, device=kmat.device)
-        ys = torch.linspace(-1 + 1 / height, 1 - 1 / height, height, device=kmat.device)
-        gy, gx = torch.meshgrid(ys, xs, indexing="ij")
-        centres = torch.stack([gx, gy], -1).reshape(1, 1, -1, 2)
-        g2d = grid_sample.grid_sample_views_hwc(g2d[None, None], centres)[0, 0]
-    g = g2d.reshape(-1, 1, D).float()
-    h = torch.relu(g + pixel_bias + code_z.to(fs.w_code.dtype).float() @ w_z + fs.b1)
-    out = h.to(fs.w2.dtype).float() @ fs.w2.float() + fs.b2  # (HW, K, d_out)
-    comp = compositing.composite_rays(F.softplus(out[..., 0]), z, hard_alpha_cap, depth_statistic)
-    dino = compositing.weighted_reduce(comp.weights, out[..., 1:]).reshape(height, width, -1)
-    rgb = rgb_map * comp.weights.sum(-1).reshape(height, width)[..., None]
-    return comp.depth.reshape(height, width), dino, rgb
+    depth, dino, rgb = render_encode_view_batched(fs, cfg, height, width, None if u is None else u[None],
+                                                  generator, n_coarse, lindisp, hard_alpha_cap, depth_statistic)
+    return depth[0], dino[0], rgb[0]
 
 
 @torch.no_grad()
 def render_encode_view_batched(fs: FastFieldState, cfg: FieldConfig, height: int, width: int,
                                u: Optional[torch.Tensor] = None,
-                               generator: Optional[torch.Generator] = None, **kwargs):
-    """`render_encode_view` of every batch element of a (B, 1)-view state
-    (the stage-2 full-frame render: each sample renders its own encode
-    camera). u (B, height*width, n_coarse) or None. Returns (depth
-    (B, H, W), dino (B, H, W, D), rgb (B, H, W, 3))."""
-    outs = []
-    for b in range(fs.folded_grid.shape[0]):
-        sub = fs._replace(
-            folded_grid=fs.folded_grid[b:b + 1, :1], feat_ks=fs.feat_ks[b:b + 1, :1],
-            feat_w2c=fs.feat_w2c[b:b + 1, :1], color_imgs=fs.color_imgs[b:b + 1, :1],
-            color_ks=fs.color_ks[b:b + 1, :1], color_w2c=fs.color_w2c[b:b + 1, :1],
-        )
-        outs.append(render_encode_view(sub, cfg, height, width, u=None if u is None else u[b],
-                                       generator=generator, **kwargs))
-    return tuple(torch.stack(parts) for parts in zip(*outs))
+                               generator: Optional[torch.Generator] = None, n_coarse: int = 32,
+                               lindisp: bool = True, hard_alpha_cap: bool = True,
+                               depth_statistic: str = "expectation"):
+    """`render_encode_view` of every batch element of a (B, V)-view state,
+    view 0 of each (the stage-2 full-frame render: each sample renders its
+    own encode camera), all B frames in one K6 launch, with its size limits
+    on CUDA. u (B, height*width, n_coarse) or None. Returns (depth (B, H, W),
+    dino (B, H, W, D), rgb (B, H, W, 3))."""
+    B = fs.folded_grid.shape[0]
+    args, ecfg = encode_view_inputs(fs, cfg, height, width, u, generator, n_coarse, lindisp, hard_alpha_cap,
+                                    depth_statistic)
+    depth, dino, rgb = encode_view(*args, ecfg)
+    return depth.reshape(B, height, width), dino.reshape(B, height, width, -1), rgb.reshape(B, height, width, 3)
+
+
+def encode_view_inputs(fs: FastFieldState, cfg: FieldConfig, height: int, width: int,
+                       u: Optional[torch.Tensor] = None, generator: Optional[torch.Generator] = None,
+                       n_coarse: int = 32, lindisp: bool = True, hard_alpha_cap: bool = True,
+                       depth_statistic: str = "expectation"):
+    """The per-pixel preamble of the encode-view render of view 0 of each of
+    the B frames: the arguments of `kernels.encode_view` for all B x height x
+    width rays, (base, z, zscale, w_z, w2, b2, color), and its config.
+    u (B, height*width, n_coarse) or None (drawn from `generator`)."""
+    B = fs.folded_grid.shape[0]
+    R = height * width
+    rgb_map = fs.color_imgs[:, 0]
+    if rgb_map.shape[1:3] != (height, width):
+        raise ValueError(f"render_encode_view: color image {tuple(rgb_map.shape[1:3])} != render size "
+                         f"{(height, width)}; use the generic renderer")
+    kmat = fs.feat_ks[:, 0].float()
+    device = kmat.device
+    pose_c2w = torch.linalg.inv_ex(fs.feat_w2c[:, 0].float()).inverse  # no raise, no host sync, as in JAX
+    r, xy_img = rays_mod.rays_from_k(pose_c2w, kmat, width, height, cfg.z_near, cfg.z_far)
+    if u is not None:
+        if tuple(u.shape) != (B, R, n_coarse):
+            raise ValueError(f"u must be {(B, R, n_coarse)}, got {tuple(u.shape)}")
+        u = u.reshape(B * R, n_coarse)
+    z = sampling.sample_coarse(r.reshape(-1, 8), n_coarse, lindisp, u=u, generator=generator)  # (B R, K)
+    if cfg.code_mode == "z":  # the code's depth is camera z; z is the ray distance
+        focal = torch.stack([kmat[:, 0, 0], kmat[:, 1, 1]], -1)
+        centre = torch.stack([kmat[:, 0, 2], kmat[:, 1, 2]], -1)
+        dirs_cam, _ = rays_mod.unproj_map(width, height, focal, c=centre, device=device)
+        zscale = dirs_cam[..., 2].reshape(-1)
+    else:
+        zscale = torch.ones(B * R, device=device)
+
+    n_code = fs.w_code.shape[0]
+    z_mask = torch.arange(n_code, device=device) % 3 == 2
+    w_xy = fs.w_code[~z_mask].float()
+    xy = xy_img[0].reshape(-1, 2)  # exact NDC pixel centres, the same in every frame
+    code_xy = encoding.positional_encoding(torch.cat([xy, torch.zeros_like(xy[:, :1])], -1), cfg.num_freqs,
+                                           cfg.freq_factor, cfg.include_input)[:, ~z_mask]
+    pixel_bias = code_xy.to(fs.w_code.dtype).float() @ w_xy  # (R, d_hidden)
+
+    g2d = fs.folded_grid[:, 0]
+    Hg, Wg, D = g2d.shape[1:]
+    if (Hg, Wg) == (2 * height, 2 * width):
+        # render pixel centres fall midway between grid pixels: a 2x2 mean
+        g2d = g2d.float().reshape(B, height, 2, width, 2, D).mean((2, 4)).to(g2d.dtype)
+    elif (Hg, Wg) != (height, width):
+        xs = torch.linspace(-1 + 1 / width, 1 - 1 / width, width, device=device)
+        ys = torch.linspace(-1 + 1 / height, 1 - 1 / height, height, device=device)
+        gy, gx = torch.meshgrid(ys, xs, indexing="ij")
+        centres = torch.stack([gx, gy], -1).reshape(1, 1, -1, 2).expand(B, 1, R, 2)
+        g2d = grid_sample.grid_sample_views_hwc(g2d[:, None], centres)[:, 0]
+    base = (g2d.reshape(B, R, D).float() + pixel_bias + fs.b1).reshape(B * R, D)
+    ecfg = EncodeViewConfig(z_near=cfg.z_near, z_far=cfg.z_far, inv_z=cfg.inv_z, num_freqs=cfg.num_freqs,
+                            freq_factor=cfg.freq_factor, include_input=cfg.include_input,
+                            hard_alpha_cap=hard_alpha_cap, depth_statistic=depth_statistic)
+    args = (base.contiguous(), z.contiguous(), zscale.contiguous(), fs.w_code[z_mask].contiguous(), fs.w2, fs.b2,
+            rgb_map.reshape(B * R, 3).float().contiguous())
+    return args, ecfg

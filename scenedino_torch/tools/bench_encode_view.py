@@ -1,0 +1,170 @@
+"""K6, the encode-view kernel, on the card: its registers and spills,
+then the kernel against its plain version at the shapes its paths give it,
+and the kernel's, the plain version's and the bound's times.
+
+    python -m scenedino_torch.tools.bench_encode_view [--seed N]
+
+The shapes (`SHAPES`), each from a seeded folded grid at twice the render
+size through `ops.fast_field.encode_view_inputs` (the render's own
+preamble), 32 samples a ray: the flagship's 192x640 rays (W_code 39x128,
+W2 128x65) as the bf16 serving state of one frame and as stage 2's fp32
+state of 4 frames in one launch; the stage-2 convergence recipe's 96x192
+rays (W_code 39x64, W2 64x17; the other instantiation of the kernel) as
+its fp32 state of 4 frames. Expectation depth, then the weight-median
+depth. Needs a CUDA card; exits 1 if a check fails.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import sys
+
+import torch
+
+from scenedino_torch.kernels import build
+from scenedino_torch.kernels.encode_view import encode_view, encode_view_plain
+from scenedino_torch.models.field import FieldConfig
+from scenedino_torch.ops.fast_field import FastFieldState, encode_view_inputs
+from scenedino_torch.utils.timing import card_line, time_ms
+
+K, C = 32, 39
+
+
+@dataclasses.dataclass(frozen=True)
+class Shape:
+    """One path's K6 launch: `frames` x height x width rays from a folded
+    grid of width d_hidden at twice the render size, d_out outputs."""
+    path: str
+    frames: int
+    dtype: torch.dtype
+    height: int
+    width: int
+    d_hidden: int
+    d_out: int
+
+
+# serving (the encode-view request), stage 2 at flagship width (chip_smoke
+# phase 7), stage 2's synthetic convergence recipe (phase 7b)
+SHAPES = (Shape("serving", 1, torch.bfloat16, 192, 640, 128, 65),
+          Shape("stage 2", 4, torch.float32, 192, 640, 128, 65),
+          Shape("stage 2 convergence", 4, torch.float32, 96, 192, 64, 17))
+# H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, fp32 outside
+# the tensor cores (the fp32 state asks for full fp32, not TF32), HBM3
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_BYTES = 3.35e12
+# kernel against plain version. fp32: the same fp32 sums in another order
+# (a 141-term dot product a sample, compositing scans) — relative round-off
+# of a few 1e-7 through the weights' exponentials; bf16: h rounds to bf16
+# before W2, and a sum in another order can flip a rounding (ulp 2^-8 |h|),
+# moving a sample's output by about |W2| x ulp and the weights with it
+TOL = {torch.float32: {"depth": 1e-3, "feature": 1e-4, "rgb": 1e-4},
+       torch.bfloat16: {"depth": 5e-2, "feature": 5e-3, "rgb": 5e-3}}
+# the weight-median depth is a sample depth: the plain version's, or its
+# neighbour where a near tie of the CDF at 0.5 falls the other way
+MEDIAN_FLIPS = 1e-3
+
+
+def seeded_state(gen: torch.Generator, shape: Shape) -> FastFieldState:
+    """A seeded folded state of `shape.frames` encode views at the shape's
+    widths, stored in its dtype (bf16 serving, fp32 stage 2)."""
+    dev = gen.device
+    frames, dtype, H, W, D, E = (shape.frames, shape.dtype, shape.height, shape.width, shape.d_hidden,
+                                 shape.d_out)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device=dev) * scale
+
+    ks = torch.tensor([[0.7, 0.0, 0.0], [0.0, 2.3, 0.0], [0.0, 0.0, 1.0]], device=dev)
+    ks = ks.expand(frames, 1, 3, 3).contiguous()
+    w2c = torch.eye(4, device=dev).expand(frames, 1, 4, 4).contiguous()
+    b2 = randn(E, scale=0.1)
+    b2[0] += 0.5
+    return FastFieldState(
+        folded_grid=randn(frames, 1, 2 * H, 2 * W, D).to(dtype), w_code=randn(C, D, scale=C ** -0.5).to(dtype),
+        b1=randn(D, scale=0.1), w2=randn(D, E, scale=D ** -0.5).to(dtype), b2=b2, feat_ks=ks, feat_w2c=w2c,
+        color_imgs=torch.rand(frames, 1, H, W, 3, generator=gen, device=dev).to(dtype), color_ks=ks,
+        color_w2c=w2c)
+
+
+def bound(args, dtype: torch.dtype):
+    """(ms, "bytes" or "operations"): each input read once, each output
+    written once; the two products' operations at the state's type's peak."""
+    n, D = args[0].shape
+    k, E = args[1].shape[1], args[4].shape[1]
+    nbytes = sum(t.numel() * t.element_size() for t in args) + n * (1 + (E - 1) + 3) * 4
+    cz = args[3].shape[0]
+    flops = 2.0 * n * k * (cz * D + D * E)
+    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def check(gen: torch.Generator, shape: Shape, reps: int = 10) -> dict:
+    """The kernel against its plain version on one seeded state: errors by
+    output (expectation depth), the median depth's sample agreement, two
+    launches bitwise equal, and the times."""
+    fs = seeded_state(gen, shape)
+    args, cfg = encode_view_inputs(fs, FieldConfig(), shape.height, shape.width, generator=gen, n_coarse=K)
+    out = encode_view(*args, cfg)
+    again = encode_view(*args, cfg)
+    torch.cuda.synchronize()
+    ref = encode_view_plain(*args, cfg)
+    errs = {name: (o - p).abs().max().item() for name, o, p in zip(("depth", "feature", "rgb"), out, ref)}
+    finite = all(bool(torch.isfinite(o).all()) for o in out)
+    bitwise = all(torch.equal(a, b) for a, b in zip(out, again))
+
+    med = dataclasses.replace(cfg, depth_statistic="median")
+    z = args[1]
+    out_m = encode_view(*args, med)[0]
+    torch.cuda.synchronize()
+    ref_m = encode_view_plain(*args, med)[0]
+    k_idx = (z - out_m[:, None]).abs().argmin(-1)
+    p_idx = (z - ref_m[:, None]).abs().argmin(-1)
+    on_sample = torch.equal(z.gather(1, k_idx[:, None])[:, 0], out_m)
+    flips = (k_idx != p_idx).float().mean().item()
+    off = (k_idx - p_idx).abs().max().item()
+
+    ms = time_ms(lambda: encode_view(*args, cfg), reps=reps)
+    ms_median = time_ms(lambda: encode_view(*args, med), reps=reps)
+    plain_ms = time_ms(lambda: encode_view_plain(*args, cfg), reps=max(3, reps // 3), warmup=1)
+    b, by = bound(args, shape.dtype)
+    tol = TOL[shape.dtype]
+    ok = (finite and bitwise and all(errs[k] <= tol[k] for k in tol) and on_sample and off <= 1
+          and flips <= MEDIAN_FLIPS)
+    return {"path": shape.path, "frames": shape.frames, "dtype": str(shape.dtype).split(".")[-1],
+            "rays": args[0].shape[0], "height": shape.height, "width": shape.width, "d_hidden": shape.d_hidden,
+            "d_out": shape.d_out, "samples": K, "errors": errs,
+            "tolerance": tol, "finite": finite, "bitwise": bitwise, "median_on_sample": on_sample,
+            "median_flips": flips, "median_off": off, "ms": ms, "median_ms": ms_median, "plain_ms": plain_ms,
+            "bound_ms": b, "bound_by": by, "ok": ok}
+
+
+def ptxas() -> dict:
+    """ptxas' registers and spills of each instantiation (by its output width)."""
+    build.load("encode_view")
+    return {name.split("encode_view_kernel")[-1]: r
+            for name, r in build.ptxas_report(build.build_log("encode_view")).items() if "encode_view_kernel" in name}
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--seed", type=int, default=0)
+    args = parser.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("no CUDA device", flush=True)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    report = ptxas()
+    print(f"encode_view ptxas: {report}", flush=True)
+    ok = len(report) == 2 and not any(r.get("spill_stores", 1) or r.get("spill_loads", 1) for r in report.values())
+    gen = torch.Generator(device="cuda").manual_seed(args.seed)
+    for shape in SHAPES:
+        res = check(gen, shape)
+        print(f"encode_view {res}", flush=True)
+        ok = ok and res["ok"]
+    print(card_line(), flush=True)
+    print(f"correct={ok}", flush=True)
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

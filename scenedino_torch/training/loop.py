@@ -1,15 +1,17 @@
 """The training loop (counterpart of `scenedino_tpu/training/loop.py`):
 steps, logging, periodic and best-metric checkpoints, validation, resume,
-the non-finite policy and a profiler window.
+the non-finite policy, the model-update hook and a profiler window.
 
 `fit` drives `train_step(state, batch, generator) -> losses`, which updates
-the field and `state` in place. Checkpoints are `utils.checkpoint` files
-named as the reference names its directories: `training_checkpoint_<it>.pt`
-(the newest one kept) and `<metric>_best_<it>.pt` (one per metric). Log
-records carry their numbers as attributes (`losses`, `data_ms`, `step_ms`
-of a step, where step_ms counts the steps since the last log up to their
-losses on the host; `validator`, `metrics`, `ms` of a validation;
-`checkpoint`, `ms` of a write) for a caller that reads them.
+the trained module (stage 1's field, stage 2's semantic head) and `state`
+in place. Checkpoints are `utils.checkpoint` files named as the reference
+names its directories: `training_checkpoint_<it>.pt` (the newest one kept)
+and `<metric>_best_<it>.pt` (one per metric). Log records carry their
+numbers as attributes (`losses`, `data_ms`, `step_ms` of a step, where
+step_ms counts the steps since the last log up to their losses on the
+host; `validator`, `metrics` (scalars), `arrays` (the other values), `ms`
+of a validation; `checkpoint`, `ms` of a write) for a caller that reads
+them.
 """
 from __future__ import annotations
 
@@ -106,9 +108,13 @@ def _save_best_checkpoint(output_path: str, metric: str, it: int, score: float, 
 
 
 def run_validation(field, state, it: int, validators: Dict[str, Any], generator: torch.Generator,
-                   tb: MetricLogger, cfg: LoopConfig, best: Dict[str, float], force: bool = False) -> None:
-    """Run the validators due at iteration `it`; write a best checkpoint
-    where a validator's signed `save_best` metric improves."""
+                   tb: MetricLogger, cfg: LoopConfig, best: Dict[str, float], force: bool = False,
+                   update_model_fn: Optional[Callable] = None) -> None:
+    """Run the validators due at iteration `it`. After each run,
+    `update_model_fn(field, state, metrics)` (the pseudo-assignment
+    write-back) where its `save_best` asks for it, or for a validator
+    without `save_best`; then a best checkpoint where the signed `save_best`
+    metric improves, so it holds the written model (base_trainer.py:446-474)."""
     for name, v in validators.items():
         every = getattr(v, "every", None) or cfg.validate_every
         if not force and it % every != 0:
@@ -117,10 +123,13 @@ def run_validation(field, state, it: int, validators: Dict[str, Any], generator:
         metrics = v(state, generator)
         ms = (time.perf_counter() - t0) * 1e3
         scalars = {k: m for k, m in metrics.items() if np.ndim(m) == 0}
+        arrays = {k: m for k, m in metrics.items() if np.ndim(m) > 0}
         tb.scalars(f"val/{name}", scalars, it)
         logger.info("val[%s] iter %d (%.1f ms): %s", name, it, ms, {k: round(float(x), 5) for k, x in scalars.items()},
-                    extra={"validator": name, "iteration": it, "metrics": scalars, "ms": ms})
+                    extra={"validator": name, "iteration": it, "metrics": scalars, "arrays": arrays, "ms": ms})
         sb = getattr(v, "save_best", None)
+        if update_model_fn is not None and (sb is None or sb.update_model):
+            update_model_fn(field, state, metrics)
         if sb is None:
             continue
         if sb.metric not in metrics:
@@ -135,13 +144,15 @@ def run_validation(field, state, it: int, validators: Dict[str, Any], generator:
 
 def fit(field, state, train_step: Callable, data_iter_fn: Callable[[], Iterable], cfg: LoopConfig,
         generator: torch.Generator, validators: Optional[Dict[str, Any]] = None,
-        steps_per_epoch: Optional[int] = None):
+        steps_per_epoch: Optional[int] = None, update_model_fn: Optional[Callable] = None):
     """Run the loop from `state.step` (or the newest checkpoint, with
-    `cfg.resume`); returns `state`.
+    `cfg.resume`); returns `state`. `field` is the trained module, the one
+    the checkpoints save with `state`.
 
     Every `log_every` iterations the losses come to the host: a non-finite
-    loss raises `FloatingPointError` unless the step's update was skipped
-    (`nonfinite_gave_up` is 0), in which case it warns and goes on.
+    loss ("rec_loss", else "total_loss") raises `FloatingPointError` unless
+    the step's update was skipped (`nonfinite_gave_up` is 0), in which case
+    it warns and goes on. `update_model_fn` is `run_validation`'s hook.
     """
     os.makedirs(cfg.output_path, exist_ok=True)
     tb = MetricLogger(os.path.join(cfg.output_path, "tb"))
@@ -173,7 +184,7 @@ def fit(field, state, train_step: Callable, data_iter_fn: Callable[[], Iterable]
                     losses = {k: float(v) for k, v in losses.items()}  # waits for the steps since the last log
                 t_step += time.perf_counter() - t0
                 if log:
-                    if not np.isfinite(losses.get("rec_loss", 0.0)):
+                    if not np.isfinite(losses.get("rec_loss", losses.get("total_loss", 0.0))):
                         gave_up = losses.get("nonfinite_gave_up")
                         if gave_up is None or gave_up > 0:
                             raise FloatingPointError(f"non-finite loss at iter {it}: {losses}")
@@ -190,7 +201,8 @@ def fit(field, state, train_step: Callable, data_iter_fn: Callable[[], Iterable]
                 if it % cfg.checkpoint_every == 0:
                     _write_checkpoint(cfg.output_path, "training_checkpoint_", it, field, state)
                 if validators:
-                    run_validation(field, state, it, validators, generator, tb, cfg, best)
+                    run_validation(field, state, it, validators, generator, tb, cfg, best,
+                                   update_model_fn=update_model_fn)
                 if cfg.stop_iteration and it >= cfg.stop_iteration:
                     logger.info("stop_iteration %d reached", cfg.stop_iteration)
                     return state

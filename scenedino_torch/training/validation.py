@@ -1,13 +1,16 @@
-"""Stage-1 validation during training (counterpart of the stage-1 part of
-`scenedino_tpu/training/validation.py`): the full-frame render of each
-validation batch, host-side metric accumulation, and the `save_best`
-policy the loop applies.
+"""Validation during training (counterpart of
+`scenedino_tpu/training/validation.py`): per validation batch the stage-1
+full-frame render or the stage-2 downstream forward, host-side metric
+accumulation, the `save_best` policy the loop applies, and stage 2's
+write-back of the validation's pseudo assignment into the cluster heads.
 
 A `Validator` runs `fn(state, generator) -> metrics` every `every`
-iterations; the metrics are flat scalars named "<type>_<metric>"
-(`depth_abs_rel`, `dino_cos_sim`, `nvs_psnr`, ...). The TensorBoard image
-panels of the reference (`eval/vis2d.tb_visualize`) are not ported yet:
-no "images" key is returned.
+iterations; stage 1's metrics are flat scalars named "<type>_<metric>"
+(`depth_abs_rel`, `dino_cos_sim`, `nvs_psnr`, ...); stage 2's are
+"<head>_<score>" (`stego_cluster_weighted_miou`, ...) with the assignments
+and confusion matrices as arrays and the STEGO correlations concatenated.
+The TensorBoard image panels of the reference (`eval/vis2d.tb_visualize`)
+are not ported yet: no "images" key is returned.
 """
 from __future__ import annotations
 
@@ -20,7 +23,15 @@ import numpy as np
 import torch
 
 from scenedino_torch.core.geometry import distance_to_z
-from scenedino_torch.eval.metrics import depth_metrics, dino_cosine_similarity, psnr, ssim_skimage
+from scenedino_torch.eval.metrics import (
+    SEG_CLASS_WEIGHTS,
+    depth_metrics,
+    dino_cosine_similarity,
+    evaluate_confusion,
+    psnr,
+    seg_confusion_matrix,
+    ssim_skimage,
+)
 
 logger = logging.getLogger("validation")
 
@@ -72,6 +83,55 @@ class DictMeanAccumulator:
         return {f"{self.name}_{k}": v / self._counts[k] for k, v in self._sums.items()}
 
 
+class ConcatAccumulator:
+    """Per-batch arrays concatenated (ConcatenateMetric, metrics.py:459-480),
+    reported as f"{name}_{key}" arrays."""
+
+    def __init__(self, name: str):
+        self.name = name
+        self.reset()
+
+    def reset(self):
+        self._parts: Dict[str, list] = {}
+
+    def update(self, values: Dict[str, Any]):
+        for k, v in values.items():
+            self._parts.setdefault(k, []).append(np.asarray(v).reshape(-1))
+
+    def compute(self) -> Dict[str, np.ndarray]:
+        return {f"{self.name}_{k}": np.concatenate(v) for k, v in self._parts.items() if v}
+
+
+class SegmentationAccumulator:
+    """Summed confusion matrices by result name, then the pseudo assignment
+    and the scores (SegmentationMetric, metrics.py:370-456): compute() gives
+    f"{key}_assignment", f"{key}_per_class_iou", f"{key}_miou",
+    f"{key}_weighted_miou", f"{key}_acc" and f"{key}_confusion_matrix"."""
+
+    def __init__(self, name: str = "seg", assign_pseudo: bool = True):
+        self.name = name
+        self.assign_pseudo = assign_pseudo
+        self.reset()
+
+    def reset(self):
+        self._sums: Dict[str, np.ndarray] = {}
+
+    def update(self, confusions: Dict[str, Any]):
+        for k, m in confusions.items():
+            m = np.asarray(m, np.int64)
+            self._sums[k] = self._sums[k] + m if k in self._sums else m.copy()
+
+    def compute(self) -> Dict[str, Any]:
+        out: Dict[str, Any] = {}
+        for key, conf in self._sums.items():
+            ev = evaluate_confusion(conf, assign_pseudo=self.assign_pseudo, weights=SEG_CLASS_WEIGHTS[:conf.shape[0]])
+            if self.assign_pseudo:
+                out[key + "_assignment"] = ev["assignment"]
+            for score in ("per_class_iou", "miou", "weighted_miou", "acc", "confusion_matrix"):
+                out[f"{key}_{score}"] = ev[score]
+        return out
+
+
 def compute_depth_metrics(data: Dict[str, np.ndarray], scaling: Optional[str] = None,
                           to_z: bool = False) -> Dict[str, float]:
     """The first view's depth against its ground truth (wrapper.py:12-26).
@@ -114,6 +174,32 @@ def compute_nvs_metrics(data: Dict[str, np.ndarray]) -> Dict[str, float]:
     x0, x1 = int(math.ceil(0.05 * w)), int(math.floor(0.95 * w))
     pred, gt = pred[:, y0:y1, x0:x1], gt[:, y0:y1, x0:x1]
     return {"psnr": float(psnr(pred, gt)), "ssim": ssim_skimage(pred[0], gt[0], data_range=1.0)}
+
+
+def compute_seg_confusions(seg_data: Dict, target, n_classes: int, gt_classes: int) -> Dict[str, np.ndarray]:
+    """Per head result, the (gt, pseudo or gt) confusion of its view-0
+    predictions against `target` (metrics.py:230-247)."""
+    out = {}
+    tgt = np.asarray(target).reshape(-1)
+    for key, result in seg_data["results"].items():
+        pred = result.get("pseudo_segs_pred", result.get("segs_pred"))
+        pred = pred.detach().cpu().numpy() if isinstance(pred, torch.Tensor) else np.asarray(pred)
+        if pred.ndim >= 4:  # (B, V, H, W, ...): view 0
+            pred = pred[:, 0]
+        pred = pred.reshape(-1)
+        if pred.shape[0] != tgt.shape[0]:
+            raise ValueError(f"{key}: {pred.shape[0]} predictions for {tgt.shape[0]} targets")
+        n_pred = n_classes if "pseudo_segs_pred" in result else gt_classes
+        out[key] = seg_confusion_matrix(tgt, pred, gt_classes, n_pred)
+    return out
+
+
+def compute_stego_metrics(seg_data: Dict) -> Dict[str, np.ndarray]:
+    """The STEGO correlation tensors (metrics.py:218-228)."""
+    if "stego_corr" not in seg_data:
+        return {}
+    c = seg_data["stego_corr"]
+    return {k: c[k].detach().float().cpu().numpy() for k in ("stego_self_corr", "stego_nn_corr", "stego_random_corr")}
 
 
 @dataclasses.dataclass
@@ -179,6 +265,71 @@ def make_stage1_validator(name: str, val_cfg: dict, field, tcfg, rcfg,
 
     return Validator(name=name, fn=run, every=_events_every(val_cfg),
                      save_best=SaveBestConfig.from_dict(val_cfg.get("save_best")))
+
+
+def make_stage2_validator(name: str, val_cfg: dict, field, head, cfg, rcfg,
+                          batches_fn: Callable[[], Iterable]) -> Validator:
+    """Stage-2 validator: the deterministic downstream forward of each batch
+    (view 0, no buffer write, the buffers of the train state) -> the seg
+    confusions with the pseudo assignment, and the STEGO correlations
+    (configs/validation/semantic.yaml; save_best on
+    stego_cluster_weighted_miou with update_model). Each batch's draws come
+    from the loop's generator."""
+    from scenedino_torch.training.downstream import downstream_forward, draw_stage2
+
+    n_classes, gt_classes = head.cfg.n_classes, head.cfg.gt_classes
+    metric_confs = val_cfg.get("metrics", []) or []
+
+    def run(state, generator: torch.Generator) -> Dict[str, Any]:
+        seg_acc = stego_acc = None
+        for m in metric_confs:
+            if m["type"] == "seg":
+                args = m.get("args", {}) or {}
+                if "n_classes" in args and args["n_classes"] != n_classes:
+                    raise ValueError(f"validation {name}: seg n_classes {args['n_classes']} != the head's {n_classes}")
+                seg_acc = SegmentationAccumulator("seg", assign_pseudo=m.get("agg_type", "unsup_seg") == "unsup_seg")
+            elif m["type"] == "stego":
+                stego_acc = ConcatAccumulator("stego")
+        for batch in batches_fn():
+            B, V = batch["imgs"].shape[:2]
+            draws = draw_stage2(generator, cfg, head.cfg, rcfg, B, V, training=False)
+            with torch.no_grad():
+                seg_data = downstream_forward(field, head, batch, state.buffers, draws, cfg, rcfg, training=False)[0]
+            if seg_acc is not None and "segs" in batch:
+                seg_acc.update(compute_seg_confusions(seg_data, batch["segs"][:, 0].cpu().numpy(), n_classes,
+                                                      gt_classes))
+            if stego_acc is not None:
+                stego_acc.update(compute_stego_metrics(seg_data))
+        metrics: Dict[str, Any] = {}
+        for acc in (seg_acc, stego_acc):
+            if acc is not None:
+                metrics.update(acc.compute())
+        return metrics
+
+    return Validator(name=name, fn=run, every=_events_every(val_cfg),
+                     save_best=SaveBestConfig.from_dict(val_cfg.get("save_best")))
+
+
+def make_update_model_fn() -> Callable[[Any, Any, Dict[str, Any]], None]:
+    """The pseudo-assignment write-back (semantic_head.py:243-246 via
+    base_trainer.py:466-470): `update(head, state, metrics)` writes a
+    validation's assignments into the cluster heads' `pseudo_assignment`
+    and logs the buffers as they then read (record attribute
+    `pseudo_assignment`)."""
+
+    def update(head, state, metrics: Dict[str, Any]) -> None:
+        written = {}
+        for module, key in ((head.direct_cluster_head, "direct_cluster_assignment"),
+                            (head.stego_cluster_head, "stego_cluster_assignment")):
+            if key in metrics:
+                value = torch.as_tensor(np.asarray(metrics[key]), dtype=module.pseudo_assignment.dtype)
+                module.pseudo_assignment.copy_(value.to(module.pseudo_assignment.device))
+                written[key] = module.pseudo_assignment.tolist()
+        if written:
+            logger.info("pseudo assignments written at step %d: %s", state.step, written,
+                        extra={"iteration": state.step, "pseudo_assignment": written})
+
+    return update
 
 
 def _events_every(val_cfg: dict, default: int = 5000) -> int:

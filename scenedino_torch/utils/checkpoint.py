@@ -1,11 +1,16 @@
 """Training checkpoints (counterpart of `scenedino_tpu/utils/checkpoint.py:27-43`):
 `torch.save` / `torch.load` of the whole train state.
 
-A checkpoint holds the field's parameters (`state_dict`, the frozen
-teacher included), the optimizer's state (both Adam groups' moments, step
-counts and rates), the artifact field and its optimizer, the step and
-applied-update counts, and the non-finite counters. The run's random
-generator is not saved, as the reference saves no PRNG key.
+A stage-1 checkpoint holds the field's parameters (`state_dict`, the
+frozen teacher included), the optimizer's state (both Adam groups'
+moments, step counts and rates), the artifact field and its optimizer,
+the step and applied-update counts, and the non-finite counters. A
+stage-2 checkpoint holds the semantic head's parameters and buffers (the
+pseudo assignments), its optimizer (the STEGO and heads groups), the ring
+buffers (`patch_buffer`, `gap_buffer`, `idx`, `filled`), the counts and
+the counters; the frozen field is written once a run
+(`save_field_snapshot`), as the reference writes `field_params`. The
+run's random generator is not saved, as the reference saves no PRNG key.
 """
 from __future__ import annotations
 
@@ -14,47 +19,74 @@ from typing import Any, Dict
 
 import torch
 
-from scenedino_torch.training.trainer import TrainState
+from scenedino_torch.training.downstream import DownstreamTrainState
 
 _COUNTERS = ("step", "applied", "notfinite_count", "total_notfinite")
+_RING = ("idx", "filled")
 
 
-def train_state_dict(field: torch.nn.Module, state: TrainState) -> Dict[str, Any]:
-    """Everything a run resumes from, as tensors and Python numbers."""
+def train_state_dict(module: torch.nn.Module, state) -> Dict[str, Any]:
+    """Everything a run resumes from, as tensors and Python numbers: the
+    trained module (stage 1's field or stage 2's head) and `state`."""
+    key = "head" if isinstance(state, DownstreamTrainState) else "field"
     out: Dict[str, Any] = {
-        "field": field.state_dict(),
+        key: module.state_dict(),
         "optimizer": state.optimizer.state_dict(),
         **{k: getattr(state, k) for k in _COUNTERS},
     }
-    if state.artifact_field is not None:
+    if isinstance(state, DownstreamTrainState):
+        b = state.buffers
+        out["buffers"] = {"patch_buffer": b.patch_buffer, "gap_buffer": b.gap_buffer, "idx": b.idx,
+                          "filled": b.filled}
+    elif state.artifact_field is not None:
         out["artifact_field"] = state.artifact_field.detach()
         out["artifact_optimizer"] = state.artifact_optimizer.state_dict()
     return out
 
 
-def save_checkpoint(path: str, field: torch.nn.Module, state: TrainState) -> None:
-    """Write the train state to `path` (through a temporary file, so a
-    reader never sees a partial checkpoint)."""
+def _save(path: str, value: Any) -> None:
+    """torch.save through a temporary file, so a reader never sees a partial file."""
     tmp = f"{path}.tmp"
-    torch.save(train_state_dict(field, state), tmp)
+    torch.save(value, tmp)
     os.replace(tmp, path)
 
 
-def load_checkpoint(path: str, field: torch.nn.Module, state: TrainState) -> None:
-    """Restore `field` and `state` in place from `path`: parameters,
-    optimizer states and counters take the saved values; the artifact
-    field keeps its tensor (its optimizer holds it) and takes the saved
-    values. A checkpoint with or without an artifact field must match the
-    state's."""
-    device = next(field.parameters()).device
+def save_checkpoint(path: str, module: torch.nn.Module, state) -> None:
+    """Write the train state to `path`."""
+    _save(path, train_state_dict(module, state))
+
+
+def load_checkpoint(path: str, module: torch.nn.Module, state) -> None:
+    """Restore `module` and `state` in place from `path`: parameters,
+    buffers, optimizer states and counters take the saved values. A stage-1
+    artifact field keeps its tensor (its optimizer holds it) and takes the
+    saved values; a checkpoint with or without one must match the state's.
+    A stage-2 checkpoint's ring buffers are copied into the state's."""
+    device = next(module.parameters()).device
     ckpt = torch.load(path, map_location=device, weights_only=True)
-    if ("artifact_field" in ckpt) != (state.artifact_field is not None):
+    stage2 = isinstance(state, DownstreamTrainState)
+    if ("head" in ckpt) != stage2:
+        raise ValueError(f"{path}: a stage-{1 + ('head' in ckpt)} checkpoint cannot resume a stage-{1 + stage2} run")
+    if not stage2 and ("artifact_field" in ckpt) != (state.artifact_field is not None):
         raise ValueError(f"{path}: the checkpoint's artifact field does not match the train state's")
-    field.load_state_dict(ckpt["field"])
+    module.load_state_dict(ckpt["head" if stage2 else "field"])
     state.optimizer.load_state_dict(ckpt["optimizer"])
-    if state.artifact_field is not None:
+    if stage2:
+        b, saved = state.buffers, ckpt["buffers"]
+        b.patch_buffer.copy_(saved["patch_buffer"])
+        b.gap_buffer.copy_(saved["gap_buffer"])
+        for k in _RING:
+            setattr(b, k, int(saved[k]))
+    elif state.artifact_field is not None:
         with torch.no_grad():
             state.artifact_field.copy_(ckpt["artifact_field"])
         state.artifact_optimizer.load_state_dict(ckpt["artifact_optimizer"])
     for k in _COUNTERS:
         setattr(state, k, int(ckpt[k]))
+
+
+def save_field_snapshot(path: str, field: torch.nn.Module) -> None:
+    """The frozen field of a stage-2 run (`field_params` of the reference's
+    run_stage2, cli/train.py:395-407), so the run directory alone rebuilds
+    the whole model."""
+    _save(path, field.state_dict())

@@ -17,6 +17,8 @@ model holds no training-only subtree (TRAINING_ONLY: the frozen teacher,
 the FeatUp downsampler, the 64 -> 768 expansion); `load_jax_params`
 skips those subtrees for it and returns them by name. The artifact field
 of a train state is an array beside the tree (`artifact_from_jax`).
+`load_jax_head` loads stage 2's `SemanticHead` variables: its parameters
+and its `state` collection (the pseudo assignments, integer buffers).
 """
 from __future__ import annotations
 
@@ -110,3 +112,31 @@ def load_jax_params(module: torch.nn.Module, params: Mapping, skip=None) -> List
 def artifact_from_jax(artifact_field) -> torch.Tensor:
     """A train state's artifact field (Cd, Gh, Gw): same layout, fp32."""
     return torch.from_numpy(np.array(artifact_field, dtype=np.float32, order="C"))
+
+
+def load_jax_head(head: torch.nn.Module, variables: Mapping) -> None:
+    """Load a JAX `SemanticHead` variables tree ({"params": ..., "state":
+    ...}, nested or flat with "/"-joined keys) into `head`, strictly:
+    every leaf maps to one parameter or buffer and every one is given. The
+    state collection's `pseudo_assignment` leaves become int64 buffers."""
+    flat: Dict[str, np.ndarray] = {}
+
+    def walk(node, prefix):
+        for key, value in node.items():
+            path = f"{prefix}/{key}" if prefix else str(key)
+            if isinstance(value, Mapping):
+                walk(value, path)
+            else:
+                flat[path] = np.asarray(value)
+
+    walk(variables, "")
+    state: Dict[str, torch.Tensor] = {}
+    for path, value in sorted(flat.items()):
+        collection, _, rest = path.partition("/")
+        if collection == "params":
+            state[_torch_key(rest)] = _torch_value(rest, value)
+        elif collection == "state":
+            state[_torch_key(rest)] = torch.from_numpy(value.astype(np.int64))
+        else:
+            raise ValueError(f"{path}: a SemanticHead tree holds the collections 'params' and 'state'")
+    head.load_state_dict(state, strict=True)

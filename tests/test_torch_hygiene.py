@@ -50,7 +50,10 @@ def test_the_scan_sees_the_whole_package():
             "scenedino_torch/tools/probe_gather.py", "scenedino_torch/tools/bench_gather.py",
             "scenedino_torch/eval/sscbench.py", "scenedino_torch/utils/timing.py",
             "scenedino_torch/utils/config.py", "scenedino_torch/cli/train.py", "scenedino_torch/training/loop.py",
-            "scenedino_torch/training/validation.py", "scenedino_torch/datasets/synthetic.py"} <= names
+            "scenedino_torch/training/validation.py", "scenedino_torch/datasets/synthetic.py",
+            "scenedino_torch/kernels/encode_view.py", "scenedino_torch/ops/kmeans.py",
+            "scenedino_torch/models/downstream.py", "scenedino_torch/losses/stego.py",
+            "scenedino_torch/training/downstream.py", "scenedino_torch/tools/bench_encode_view.py"} <= names
 
 
 def test_entry_point_without_a_device_refuses_the_cpu():

@@ -15,7 +15,11 @@ the CDF across 0.5 only on a near tie), on at most 1% of rays; K3
 weights 5e-3; K4 sigma and feature 1e-2 (per point, not averaged over a
 ray); the row gather exactly; the
 log-sum-exp 1e-3 (fp32 statistics of bf16 inputs, summed in another
-order, exp2 approximate on the card); the backward's dq, dk, dv K1_BWD_REL of the largest magnitude of
+order, exp2 approximate on the card); K6 (the encode view) in fp32 depth
+1e-3 m, feature and colour 1e-4 (fp32 sums in another order), in bf16
+K2's bounds and its median rule, the feature's times its largest
+magnitude where that exceeds 1 (these tests' random inputs are larger
+than the path's, and a flip of h moves the feature in proportion); the backward's dq, dk, dv K1_BWD_REL of the largest magnitude of
 the plain result plus 1e-3 (P and dS are rounded to bf16 for the
 products, the results to bf16; at N = 1 dq and dk are round-off around
 0); two launches of the forward or the backward kernels give the same
@@ -44,6 +48,7 @@ from scenedino_torch.kernels.point_render import (
     probe_weights,
     probe_weights_plain,
 )
+from scenedino_torch.kernels.encode_view import EncodeViewConfig, encode_view, encode_view_plain
 from scenedino_torch.kernels.row_gather import row_gather, row_gather_plain
 
 
@@ -60,7 +65,7 @@ def cuda():
 
 def test_build_targets_hopper_and_keys_libraries_by_source():
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
-    assert build.all_names() == ["attention", "attention_bwd", "point_render", "row_gather"]
+    assert build.all_names() == ["attention", "attention_bwd", "encode_view", "point_render", "row_gather"]
     for name in build.all_names():
         path = build.library_path(name)
         assert path.parent == build.BUILD_DIR and path.name.startswith(f"lib{name}-")
@@ -99,9 +104,11 @@ def test_launch_counters_reset_and_ignore_cpu_calls():
     point_query(torch.rand(5, 3) + 3.0, *field, cfg)
     rays = torch.tensor([[0.0, 0.0, 0.0, 0.0, 0.0, 1.0, 3.0, 80.0]])
     probe_weights(rays, torch.tensor([[4.0, 9.0]]), *field[:3], field[3][:, :1], field[4][:1], *field[5:], cfg)
+    encode_view(torch.randn(3, 8), torch.rand(3, 4).sort(-1).values * 10 + 3, torch.ones(3), torch.randn(13, 8),
+                torch.randn(8, 5), torch.zeros(5), torch.rand(3, 3), EncodeViewConfig())
     assert launches() == {name: 0 for name in WRAPPERS}
     assert list(WRAPPERS) == ["attention", "attention_bwd_dq", "attention_bwd_dkv", "point_render",
-                              "probe_weights", "point_query", "row_gather"]
+                              "probe_weights", "point_query", "row_gather", "encode_view"]
 
 
 @pytest.mark.cuda
@@ -414,3 +421,56 @@ def test_row_gather_launches_on_the_current_stream(cuda):
         out = row_gather(table, idx)
     side.synchronize()
     assert torch.equal(out, source[idx.long()])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("K,D,E", [(7, 16, 7), (32, 64, 17), (32, 128, 65), (19, 128, 68)])
+@pytest.mark.parametrize("depth_statistic", ["expectation", "median"])
+def test_encode_view_kernel_matches_plain(cuda, dtype, K, D, E, depth_statistic):
+    g = torch.Generator(device=cuda).manual_seed(K * D + E)
+    N = 3000
+    cfg = EncodeViewConfig(depth_statistic=depth_statistic)
+    base = torch.randn(N, D, generator=g, device=cuda)
+    z = (torch.rand(N, K, generator=g, device=cuda) * 77 + 3).sort(-1).values
+    zscale = torch.rand(N, generator=g, device=cuda) * 0.2 + 0.8
+    w_z = (torch.randn(13, D, generator=g, device=cuda) * 0.3).to(dtype)
+    w2 = (torch.randn(D, E, generator=g, device=cuda) / D ** 0.5).to(dtype)
+    b2 = torch.randn(E, generator=g, device=cuda) * 0.2
+    color = torch.rand(N, 3, generator=g, device=cuda)
+    args = (base, z, zscale, w_z, w2, b2, color)
+    reset_launches()
+    out = encode_view(*args, cfg)
+    again = encode_view(*args, cfg)
+    assert launches()["encode_view"] == 2
+    ref = encode_view_plain(*args, cfg)
+    assert all(torch.equal(a, b) for a, b in zip(out, again))
+    if depth_statistic == "median":
+        k_o = (z - out[0][:, None]).abs().argmin(-1)
+        k_r = (z - ref[0][:, None]).abs().argmin(-1)
+        assert torch.equal(z.gather(1, k_o[:, None])[:, 0], out[0])
+        assert (k_o - k_r).abs().max().item() <= 1 and (k_o != k_r).float().mean().item() <= 1e-2
+    bounds = (1e-3, 1e-4, 1e-4) if dtype == torch.float32 else (5e-2, 5e-3, 5e-3)
+    for i, (o, r, b) in enumerate(zip(out, ref, bounds)):
+        if i == 0 and depth_statistic == "median":
+            continue
+        if dtype == torch.bfloat16 and i == 1:  # a flip of h moves the feature in proportion to its scale
+            b *= max(1.0, r.abs().max().item())
+        assert (o - r).abs().max().item() <= b, (i, (o - r).abs().max().item())
+
+
+@pytest.mark.cuda
+def test_encode_view_kernel_refuses_what_it_does_not_take(cuda):
+    cfg = EncodeViewConfig()
+    N, D, E, K = 8, 16, 7, 4
+    args = [torch.randn(N, D, device=cuda), torch.rand(N, K, device=cuda) * 10 + 3, torch.ones(N, device=cuda),
+            torch.randn(13, D, device=cuda), torch.randn(D, E, device=cuda), torch.zeros(E, device=cuda),
+            torch.rand(N, 3, device=cuda)]
+    encode_view(*args, cfg)
+    for bad in ({1: torch.rand(N, 33, device=cuda) + 3}, {4: torch.randn(D, 69, device=cuda), 5: torch.zeros(69, device=cuda)},
+                {0: torch.randn(N, 136, device=cuda), 3: torch.randn(13, 136, device=cuda),
+                 4: torch.randn(136, E, device=cuda)},
+                {0: torch.randn(D, N, device=cuda).T}, {6: torch.rand(N, 3, device=cuda).to(torch.float64)}):
+        call = [bad.get(i, a) for i, a in enumerate(args)]
+        with pytest.raises(ValueError, match="CUDA encode_view kernel"):
+            encode_view(*call, cfg)

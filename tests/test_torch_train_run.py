@@ -447,9 +447,14 @@ def test_cli_trains_validates_checkpoints_and_resumes(tmp_path, caplog):
 
 
 def test_cli_refuses_the_cpu_without_a_device_and_stage_two(tmp_path):
+    """Stage 2 is ported; what of it is not, the generic (unfolded)
+    full-frame render, still raises, and neither stage runs on the CPU
+    unless asked to."""
     cfg = tmp_path / "tiny.yaml"
-    cfg.write_text(TINY.format(out=tmp_path / "run", resume="false", stop=1))
-    with pytest.raises(NotImplementedError, match="stage 2"):
+    semantic = "downstream: {input_dim: 64, code_dim: 8, buffer_size: 8, patch_sample_size: 8}\n"
+    cfg.write_text(TINY.format(out=tmp_path / "run", resume="false", stop=1).replace(
+        "training:\n", "training:\n  use_fast_render: false\n") + semantic)
+    with pytest.raises(NotImplementedError, match="stage-2 render is not ported"):
         cli.main(["--config", str(cfg), "--stage", "semantic", "--device", "cpu"])
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the run rightly uses it")
@@ -457,3 +462,5 @@ def test_cli_refuses_the_cpu_without_a_device_and_stage_two(tmp_path):
         cli.main(["--config", str(cfg)])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         cli.run_stage1(yaml_config.load(str(cfg)))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cli.main(["--config", str(cfg), "--stage", "semantic"])
