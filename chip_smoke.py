@@ -9,7 +9,7 @@ Phases, one line each:
   1 build    nvcc builds every kernel of the paths from csrc/ (sm_90a);
              the registers and spills (none allowed) of the K1 forward and
              backward kernels, of the point kernels' ten instantiations and
-             of K6's two
+             of K6's eight
   2 K1       the attention forward kernel vs its plain versions (output
              and log-sum-exp) at the three shapes its paths give it:
              ViT-B/8 @192x640 serving (1, 1921, 12, 64), the training
@@ -42,15 +42,21 @@ Phases, one line each:
              128x65) through the render's own preamble: the bf16 serving
              state of one frame, then stage 2's fp32 state of 4 frames in
              one launch; then phase 7b's: 4 fp32 frames of 96x192 rays x 32
-             samples from a 192x384x64 grid (W2 64x17, the kernel's other
-             instantiation); expectation depth, then the weight-median depth;
-             two launches bitwise equal; kernel, plain and bound times (no
-             library call computes this function)
+             samples from a 192x384x64 grid (W2 64x17); then the bf16
+             serving state of one 192x640 frame at 48 samples (16 dead rows
+             a ray in the kernel's 64-row tiles), and of one 96x192 frame at
+             48 samples (W2 64x17: the encode view of a field of
+             configs/train_synthetic_convergence.yaml); expectation depth,
+             then the weight-median depth; two launches bitwise equal;
+             kernel, plain and bound times (no library call computes this
+             function); then the serving render stage split into its torch
+             preamble and K6
   Bounds: the larger of the bytes moved (each input read once, each
   output written once; of a folded grid only the distinct rows that the
   points' corner lookups read) over 3.35 TB/s and the FLOP over the bf16
-  tensor-core peak (K6's fp32 state: over the 67 TFLOP/s of fp32 outside
-  the tensor cores, as it asks for full fp32). Phases 3-3c also print the corner rows the kernels
+  tensor-core peak (K6's fp32 state: three TF32 passes at 495 TFLOP/s, the
+  least time for products of fp32 accuracy; beside it the 67 TFLOP/s of
+  fp32 outside the tensor cores). Phases 3-3c also print the corner rows the kernels
   read (points x 4 x D x 2 B) and their time at 3.35 TB/s.
   4 slice    the flagship field (ViT-B/8 + DPT 256, bf16, seeded random
              weights) answers 3 novel-view requests (encode ->
@@ -203,8 +209,6 @@ EVAL_RGB_ABS = 2e-2
 # instantiations of csrc/point_render.cu's kernel: K2 and K4 at 2 hidden x 2
 # output widths each, K3 at 2 hidden widths
 POINT_KERNELS = 10
-# instantiations of csrc/encode_view.cu's kernel: d_out up to 20 and up to 68
-ENCODE_VIEW_KERNELS = 2
 
 
 def fail(msg):
@@ -640,9 +644,11 @@ def phase_k6(gen):
     render's own preamble from a seeded state): the bf16 serving state of
     one flagship frame, the fp32 stage-2 state of 4 flagship frames in one
     launch (phase 7), the fp32 state of 4 frames of the stage-2 convergence
-    recipe (phase 7b: d_hidden 64, d_out 17, the kernel's other
-    instantiation)."""
-    from scenedino_torch.tools.bench_encode_view import SHAPES, check
+    recipe (phase 7b: d_hidden 64, d_out 17), and the bf16 serving state of
+    one frame at 48 samples (the dead rows of a 64-row tile) at flagship
+    width and at the stage-1 convergence recipe's (96x192, d_hidden 64,
+    d_out 17)."""
+    from scenedino_torch.tools.bench_encode_view import SHAPES, check, render_stage
 
     shapes = {}
     for shape in SHAPES:
@@ -655,12 +661,18 @@ def phase_k6(gen):
               f"{r['median_on_sample']}, rays whose sample differs from the plain version's {r['median_flips']:.3e} "
               f"(bound 1e-3), by at most {r['median_off']} (bound 1); kernel {r['ms']:.4f} ms (median depth "
               f"{r['median_ms']:.4f} ms), plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
-              f"({r['bound_by']})", flush=True)
+              f"({r['bound_by']}{'; three TF32 passes' if r['fp32_cores_bound_ms'] else ''})"
+              + (f", fp32 outside the tensor cores {r['fp32_cores_bound_ms']:.4f} ms" if r["fp32_cores_bound_ms"]
+                 else ""), flush=True)
         if not r["ok"]:
             fail(f"K6 encode_view disagrees with its plain version ({path}): {r}")
-        shapes[path] = {k: r[k] for k in ("frames", "dtype", "height", "width", "d_hidden", "d_out", "ms",
-                                          "plain_ms", "bound_ms", "bound_by")}
+        shapes[path] = {k: r[k] for k in ("frames", "dtype", "height", "width", "d_hidden", "d_out", "samples",
+                                          "ms", "plain_ms", "bound_ms", "bound_by")}
         shapes[path]["max_abs_err"] = max(r["errors"].values())
+    split = render_stage(gen, SHAPES[0])
+    print(f"phase 3e K6 the serving render stage split (render_encode_view_batched, one 192x640 frame): torch "
+          f"preamble {split['preamble_ms']:.4f} ms, K6 {split['kernel_ms']:.4f} ms, the whole render "
+          f"{split['render_ms']:.4f} ms; the preamble's {split['preamble_profile']}", flush=True)
     main = shapes["stage 2"]
     return {"name": "encode_view", "route": "cuda", "source": "scenedino_torch/csrc/encode_view.cu",
             "replaces": "scenedino_tpu/ops/fast_field.py:254",
@@ -714,32 +726,6 @@ def serve_encode_view(model, img, u, device):
                               n_coarse=K)
 
 
-def profile_device(fn):
-    """Device time of one call of `fn` by kernel (torch.profiler, CUPTI)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    events = prof.events()
-    cpu_ops = {e.name for e in events if e.device_type == torch.autograd.DeviceType.CPU}
-    by_name = {}
-    for e in events:
-        # device-side ranges named after a CPU operator repeat the time of its kernels
-        if e.device_type == torch.autograd.DeviceType.CUDA and e.name not in cpu_ops:
-            by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total / 1e3
-    times = sorted(((n, t) for n, t in by_name.items() if t > 0), key=lambda t: -t[1])
-    busy = sum(t for _, t in times)
-    if busy == 0:
-        return "profiler saw no device time"
-    top = "; ".join(f"{name[:70]} {t:.3f} ms" for name, t in times[:10])
-    return (f"device busy {busy:.3f} ms of {wall:.3f} ms wall (profiled), idle share "
-            f"{max(0.0, 1 - busy / wall):.3f}; top: {top}")
-
-
 def check_depth(name, depth, dino, rgb):
     """Shapes, finiteness and the [3, 80] m depth range of one full-frame answer."""
     if depth.shape != (H, W) or dino.shape != (H, W, 64) or rgb.shape != (H, W, 3):
@@ -790,7 +776,7 @@ def stages_of(steps):
 
 def phase_slice(seed):
     from scenedino_torch.models.factory import SCENEDINO_KITTI_360, make_model
-    from scenedino_torch.utils.timing import time_ms
+    from scenedino_torch.utils.timing import profile_device, time_ms
     from scenedino_torch.ops.fast_field import (
         build_fast_state,
         draw_probe,
@@ -960,6 +946,7 @@ def phase_train(seed):
     from scenedino_torch import kernels
     from scenedino_torch.models.factory import SCENEDINO_KITTI_360_TRAIN, make_model
     from scenedino_torch.training import trainer
+    from scenedino_torch.utils.timing import profile_device
 
     model_conf, tcfg, rcfg, lcfg = trainer.configs_from_dict(SCENEDINO_KITTI_360_TRAIN)
     Bt, V = SCENEDINO_KITTI_360_TRAIN["batch_size"], 4
@@ -1354,6 +1341,7 @@ def phase_stage2(seed, stage1_dir, scratch):
     from scenedino_torch.renderer.nerf import RenderConfig
     from scenedino_torch.training import downstream as down
     from scenedino_torch.utils.checkpoint import load_checkpoint, train_state_dict
+    from scenedino_torch.utils.timing import profile_device
 
     t_phase = time.perf_counter()
     root = os.path.dirname(os.path.abspath(__file__))
@@ -1614,6 +1602,7 @@ def main():
     try:
         from scenedino_torch import kernels
         from scenedino_torch.kernels import build
+        from scenedino_torch.tools import bench_encode_view
         from scenedino_torch.utils.timing import card_line
     except ImportError as e:
         fail(f"scenedino_torch is not importable ({e}): run from a checkout of the repository")
@@ -1647,12 +1636,12 @@ def main():
           f"of 64; output tail), registers and spills in bytes: {json.dumps(pk)}", flush=True)
     if len(pk) != POINT_KERNELS or any(r.get("spill_stores", 1) or r.get("spill_loads", 1) for r in pk.values()):
         fail(f"ptxas spilled in a point kernel, or a report is missing ({len(pk)} of {POINT_KERNELS}): {pk}")
-    ev = {name.split("encode_view_kernel")[-1]: r
-          for name, r in build.ptxas_report(build.build_log("encode_view")).items() if "encode_view_kernel" in name}
-    print(f"phase 1 K6 encode_view kernels by output width (template argument 20 or 68), registers and spills in "
-          f"bytes: {json.dumps(ev)}", flush=True)
-    if len(ev) != ENCODE_VIEW_KERNELS or any(r.get("spill_stores", 1) or r.get("spill_loads", 1) for r in ev.values()):
-        fail(f"ptxas spilled in K6, or a report is missing ({len(ev)} of {ENCODE_VIEW_KERNELS}): {ev}")
+    ev = bench_encode_view.ptxas()
+    print(f"phase 1 K6 encode_view kernels by template arguments (TF32: 1 for the fp32 state's three passes; "
+          f"hidden chunks of 64; output chunks of 64; output tail), registers and spills in bytes: "
+          f"{json.dumps(ev)}", flush=True)
+    if bench_encode_view.spilled(ev):
+        fail(f"ptxas spilled in K6, or a report is missing ({len(ev)} of {bench_encode_view.INSTANTIATIONS}): {ev}")
 
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     entries = [phase_k1(gen), *phase_k1_bwd(gen), phase_k2(gen), *phase_probe(gen), phase_k4(gen), phase_k6(gen)]

@@ -1,4 +1,4 @@
-// K6: the encode-view render, fused per sample.
+// K6: the encode-view render, fused per sample, on the tensor cores.
 //
 // Replaces scenedino_tpu/ops/fast_field.py:254 `render_encode_view` (and
 // its vmap `render_encode_view_batched`, :225), XLA in the reference: the
@@ -27,47 +27,89 @@
 // outputs reach memory: the plain version's (N, K, D) and (N, K, E)
 // intermediates (2 GB for one 192x640 frame at d_hidden 128) never exist.
 //
-// Types: the state's dtype. fp32 (stage 2's fold): every product and sum
-// in fp32 FMAs (not TF32). bf16 (serving): W_z and W2 are bf16, the code
-// and h are rounded to bf16 before their products, sums in fp32 — what the
-// plain version computes, since a bf16 x bf16 product is exact in fp32.
+// Types: the state's dtype.
+//   * bf16 (serving): W_z and W2 are bf16, the code and h are rounded to
+//     bf16 before their products, sums in fp32: what the plain version
+//     computes, since a bf16 x bf16 product is exact in fp32. Both products
+//     are bf16 wgmma.
+//   * fp32 (stage 2's fold): both products as three TF32 passes (3xTF32):
+//     x = x_hi + x_lo with x_hi = tf32(x), x_lo = tf32(x - x_hi) (round to
+//     nearest), for the code and h on the A side and W_z and W2 on the B
+//     side, and x y = x_hi y_hi + x_hi y_lo + x_lo y_hi, each a TF32 wgmma
+//     into one fp32 accumulator. The dropped x_lo y_lo and the splits'
+//     residues are ~2^-22 of a product: fp32's accuracy, where one TF32 pass
+//     keeps ~2^-11 (tests/test_torch_encode_view.py shows both against the
+//     fp32 bounds). The 13-term code product takes the three passes too.
 //
 // Bound on the H100 at 192x640 x 32 samples, d_hidden 128, d_out 65: 9,984
 // multiply-adds a sample (13 x 128 + 128 x 65), 78.5 GFLOP a frame; 111 MB
-// moved (base 62.9 MB, z 15.7 MB, outputs 32.4 MB). bf16 operations bound
-// it at the tensor cores' 989 TFLOP/s (0.079 ms); the fp32 state's at the
-// 67 TFLOP/s of fp32 outside the tensor cores (the fp32 fold asks for full
-// fp32, which the tensor cores do not give): 1.17 ms a frame.
+// moved (base 62.9 MB, z 15.7 MB, outputs 32.4 MB). Operations bound it:
+// bf16 at the tensor cores' 989 TFLOP/s (0.079 ms a frame); the fp32 state's
+// three passes at TF32's 495 TFLOP/s (0.476 ms a frame; 1.17 ms at the
+// 67 TFLOP/s of fp32 outside the tensor cores).
 //
-// Design (simple first; the K2 pipeline's wgmma is a later step):
-//   * One warp a ray, one lane a sample (K <= 32): lane k's 13 code values
-//     stay in registers, and it walks the hidden units j one at a time:
-//     h_j from 16 FMAs on a row of W_z, then 68 (or 20) FMAs into its
-//     output accumulators from a row of W2. Every lane of the warp reads
-//     the same shared-memory word (a broadcast, no bank conflict), four
-//     floats a load.
-//   * W_z (transposed, 16 columns) and W2 (rows padded to EP floats) sit in
-//     shared memory in fp32 for the block's life; blocks are persistent
-//     and walk rays in steps of the grid's warps.
-//   * Compositing is warp-parallel: the next sample's depth by a shuffle,
-//     the transmittance as an exclusive product scan, the depth and the
-//     weight total as butterfly sums, the median's CDF as a prefix sum and
-//     its index as a count of ballots; each feature column a butterfly sum,
-//     kept by the lane that writes it, so the row goes out coalesced.
-//   * The host side keeps the SM count per device: a launch asks the
-//     runtime nothing else.
+// Design (Hopper: wgmma; hopper.cuh):
+//   * A warpgroup owns a 64-row tile of samples (wgmma's M = 64): a ray's K
+//     samples padded with dead rows to Kp, the next of 8, 16, 32 and 64,
+//     and 64 / Kp rays a tile. Blocks are persistent, four warpgroups each
+//     (one block an SM, 128 registers a thread), and hold W_z and W2 in
+//     shared memory for their whole life as 128-byte-swizzled K-major tiles,
+//     zero-padded (code columns to 16, hidden units to 64 or 128, outputs
+//     to 64 + 8 or to 24): bf16, or the hi and lo TF32 copies of each
+//     (214 KB at d_hidden 128 with the warpgroups' buffers).
+//   * Each tile's base rows, depths and z factors arrive by cp.async into
+//     one of two buffers while the tile before it computes.
+//   * A thread holds rows r and r + 8 of the tile's accumulators. It forms
+//     the z code of its two rows in exactly the A fragment's columns (bf16:
+//     2q, 2q + 1, 2q + 8, 2q + 9; TF32: q, q + 4, 8 + q, 12 + q, q = lane % 4;
+//     no column twice). The code product is one k16 bf16 wgmma a 64-column
+//     hidden chunk, or two k8 steps of three TF32 passes (m64n32k8) a
+//     32-column half chunk.
+//   * The thread adds its rows' base values, applies relu, and rounds h to
+//     bf16 (pack_bf16 at a_index) or splits it into TF32 hi and lo; that is
+//     the A operand of out = h W2 (register-A wgmma): h never touches shared
+//     memory. TF32's A fragment takes columns t and t + 4 of a k-step where
+//     the accumulator holds 2t and 2t + 1: W2's rows are permuted within
+//     each group of 8 as they are copied in (tf32_k_column).
+//   * Registers set the time: the walk is a chain of dependent steps (the
+//     copies' wait, sinf, wgmma waits, barriers, shuffle scans), and more
+//     warpgroups an SM hide more of it (three, at 168 registers, ran slower
+//     on an H100). What keeps four within 128 registers without a spill:
+//     the TF32 path's 32-column halves (16 registers of code product and 32
+//     of h's hi and lo at a time), each wgmma's descriptor made where it is
+//     issued (desc), the tile counters in 32 bits, and divisions by a
+//     reciprocal multiply (quotient) or a shift (Kp).
+//   * out + b2 goes through a 64-row fp32 buffer in shared memory. One warp
+//     composites one ray, two samples a lane: the transmittance as an
+//     exclusive product scan by shuffles, the depth and the weight total as
+//     butterfly sums, the median's CDF as a prefix sum and its index as a
+//     count of ballots; dead rows carry weight 0. The weights return through
+//     shared memory and each thread forms one weighted feature sum, so a
+//     ray's row goes out coalesced.
+//   * The host side caches the shared-memory attribute, the SM count and
+//     the blocks an SM per device: a launch is the launch alone.
+// The state's type, the hidden chunks and the output layout are template
+// arguments; the wrapper's shapes map onto eight instantiations.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
-constexpr int WARPS = 8;
-constexpr int THREADS = 32 * WARPS;
-constexpr int MIN_BLOCKS = 2;   // blocks an SM the registers are divided for
+using namespace hopper;
+
+constexpr int TP = 64;          // sample rows a tile: wgmma's M
+constexpr int WG = 128;         // threads a warpgroup
+constexpr int WGS = 4;          // warpgroups a block, one block an SM: 128 registers a thread
 constexpr int CZ = 16;          // z-code columns, zero-padded
+constexpr int MAX_K = 64;
 constexpr int MAX_D = 128;
+constexpr int MAX_E = 68;
+constexpr int MAX_RAYS = TP / 8;  // rays a tile at the least padding
 constexpr float EPS = 1e-3f;
 constexpr float HALF_PI = 1.57079637f;
 constexpr unsigned FULL = 0xffffffffu;
@@ -83,191 +125,513 @@ struct Params {
   float* depth;         // (N,)
   float* dino;          // (N, E - 1)
   float* rgb;           // (N, 3)
-  long long N;
-  int K, D, E, Cz, bf16, num_freqs, include_input, inv_z, hard_cap, median;
+  int N, K, kshift, D, E, Cz, num_freqs, include_input, inv_z, hard_cap, median;
   float zn_sub, zn_den, freq_factor;
+  int vec, units;                       // a base row copied in 16-byte (vec) or 4-byte units, `units` a row
+  uint32_t inv_units, inv_k, inv_f;     // reciprocal() of units, K and E - 1
 };
 
-__device__ __forceinline__ float round_bf16(float x) { return __bfloat162float(__float2bfloat16_rn(x)); }
+// m such that quotient(n, m) = n / d where n d < 2^32: ceil(2^32 / d), or 0 for d = 1
+inline uint32_t reciprocal(uint32_t d) { return d == 1 ? 0u : (uint32_t)((0x100000000ull + d - 1) / d); }
 
-__device__ __forceinline__ float weight_at(const void* w, int i, int bf16) {
-  return bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(w)[i]) : static_cast<const float*>(w)[i];
+// n / d by a multiply (exact for n d < 2^32: here d <= 128 and n < 2^10)
+__device__ __forceinline__ int quotient(int n, uint32_t m) { return m ? (int)__umulhi((uint32_t)n, m) : n; }
+
+// Shared memory of a block. TF32: the fp32 state (two copies, hi and lo, of
+// each weight tile); DC hidden chunks of 64; EC output chunks of 64 and an
+// output tail of ET columns (8 or 24).
+template <int TF32, int DC, int EC, int ET>
+struct Layout {
+  static constexpr int DP = 64 * DC;
+  static constexpr int EP = 64 * EC + ET;
+  static constexpr int LDO = EP + ((8 - EP) % 32 + 32) % 32;  // row stride of the output buffer, = 8 mod 32
+  static constexpr int COPIES = TF32 ? 2 : 1;
+  static constexpr int KW = TF32 ? 32 : 64;                    // hidden units a 128-byte row holds
+  static constexpr int KT = DP / KW;                           // k-tiles of W2
+  static constexpr int WZ = 0;                                 // COPIES x DC tiles: rows n (hidden), columns k (code)
+  static constexpr int W2 = WZ + COPIES * DC * TILE_BYTES;     // COPIES x EC x KT tiles: rows e, columns hidden
+  static constexpr int W2T = W2 + COPIES * EC * KT * TILE_BYTES;  // COPIES x KT tail tiles of ET rows
+  static constexpr int B2 = W2T + COPIES * KT * ET * 128;
+  static constexpr int WG0 = (B2 + EP * 4 + 1023) / 1024 * 1024;
+  // a warpgroup's own: the output buffer, two of each prefetch buffer, the weights
+  static constexpr int OUT = 0;
+  static constexpr int BASE = OUT + TP * LDO * 4;             // 2 x (MAX_RAYS, DP)
+  static constexpr int Z = BASE + 2 * MAX_RAYS * DP * 4;      // 2 x TP
+  static constexpr int ZS = Z + 2 * TP * 4;                   // 2 x MAX_RAYS
+  static constexpr int W = ZS + 2 * MAX_RAYS * 4;             // TP
+  static constexpr int WG_BYTES = (W + TP * 4 + 1023) / 1024 * 1024;
+  static constexpr int TOTAL = WG0 + WGS * WG_BYTES;
+};
+
+// `v`, opaque to the compiler where it is called: what is computed from it
+// is computed there, inside the tile loop, and not held in a register across
+// the whole walk
+__device__ __forceinline__ uint32_t fresh(uint32_t v) {
+  asm volatile("" : "+r"(v));
+  return v;
+}
+
+// the descriptor of the tile at byte `offset` of the block's shared memory
+// (at s0), advanced by `ks` k-steps, made where the wgmma that reads it is
+// issued: descriptors made ahead of a batch and held in registers (two
+// each) are what a thread's registers ran out on
+__device__ __forceinline__ uint64_t desc(uint32_t s0, uint32_t offset, int ks) {
+  return wgmma_desc_at(fresh(s0) + offset) + ks * WGMMA_K_STEP;
 }
 
 __device__ inline float softplus(float x) { return fmaxf(x, 0.f) + log1pf(expf(-fabsf(x))); }
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o >= 1; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
-  return v;
+__device__ __forceinline__ float relu(float x) { return x < 0.f ? 0.f : x; }  // NaN stays NaN, as torch.relu
+
+__device__ __forceinline__ float weight_at(const void* w, int i, int tf32) {
+  return tf32 ? static_cast<const float*>(w)[i] : __bfloat162float(static_cast<const __nv_bfloat16*>(w)[i]);
 }
 
-template <int EP>
-__global__ void __launch_bounds__(THREADS, MIN_BLOCKS) encode_view_kernel(const Params P) {
-  extern __shared__ float4 smem4[];
-  float* s_wz = reinterpret_cast<float*>(smem4);  // (D, CZ): s_wz[j CZ + c] = W_z[c, j]
-  float* s_w2 = s_wz + MAX_D * CZ;                 // (D, EP)
-  float* s_b2 = s_w2 + MAX_D * EP;                 // (EP,)
-  float* s_base = s_b2 + EP;                       // (WARPS, D)
-  const int D = P.D, E = P.E, K = P.K;
-  for (int i = threadIdx.x; i < D * CZ; i += THREADS) {
-    const int j = i / CZ, c = i - j * CZ;
-    s_wz[i] = c < P.Cz ? weight_at(P.w_z, c * D + j, P.bf16) : 0.f;
+__device__ __forceinline__ float normalized_depth(const Params& P, float z, float zscale) {
+  const float dl = __fmul_rn(z, zscale);
+  const float zn01 = P.inv_z ? __fdiv_rn(__fsub_rn(__fdiv_rn(1.f, fmaxf(dl, EPS)), P.zn_sub), P.zn_den)
+                             : __fdiv_rn(__fsub_rn(dl, P.zn_sub), P.zn_den);
+  return __fsub_rn(__fmul_rn(2.f, zn01), 1.f);
+}
+
+// z-code column c of normalized depth zn: zn (c = 0 with the input),
+// sin(zn f + phase), or 0 past Cz
+__device__ __forceinline__ float code_value(const Params& P, float zn, int c) {
+  if (c >= P.Cz) return 0.f;
+  if (P.include_input && c == 0) return zn;
+  const int i = c - P.include_input;
+  const float freq = P.freq_factor * (float)(1 << (i >> 1));
+  return sinf(__fadd_rn(__fmul_rn(zn, freq), (i & 1) ? HALF_PI : 0.f));
+}
+
+// the tile's base rows (padded to DP columns), depths (padded to Kp a ray)
+// and z factors into one set of buffers, by the warpgroup's threads
+template <int DP>
+__device__ __forceinline__ void prefetch(const Params& P, int ray0, int rpt, float* s_base, float* s_z,
+                                         float* s_zs, int t) {
+  const int rays = min(rpt, P.N - ray0);
+  const int K = P.K, units = P.units;
+  const float* base = P.base + (size_t)ray0 * P.D;
+  for (int i = t; i < rays * units; i += WG) {
+    const int rl = quotient(i, P.inv_units), c = i - rl * units;
+    if (P.vec) {
+      cp_async_16(s_base + rl * DP + 4 * c, base + (size_t)i * 4);
+    } else {
+      cp_async_4(s_base + rl * DP + c, base + i);
+    }
   }
-  for (int i = threadIdx.x; i < D * EP; i += THREADS) {
-    const int j = i / EP, e = i - j * EP;
-    s_w2[i] = e < E ? weight_at(P.w2, j * E + e, P.bf16) : 0.f;
+  const float* z = P.z + (size_t)ray0 * K;
+  for (int i = t; i < rays * K; i += WG) {
+    const int rl = quotient(i, P.inv_k);
+    cp_async_4(s_z + (rl << P.kshift) + (i - rl * K), z + i);
   }
-  for (int e = threadIdx.x; e < EP; e += THREADS) s_b2[e] = e < E ? P.b2[e] : 0.f;
+  if (t < rays) cp_async_4(s_zs + t, P.zscale + ray0 + t);
+}
+
+// One ray's compositing by one warp, two samples a lane (k = 2 lane and
+// 2 lane + 1): the weights into s_w, the total weight to every lane; returns
+// the depth (E[z] or the weight median) to every lane.
+__device__ __forceinline__ float composite_ray(const Params& P, const float* s_out, int ldo, const float* s_z,
+                                               float* s_w, int pb, int lane, float& total) {
+  const int K = P.K;
+  float alpha[2], f[2], zk[2];
+#pragma unroll
+  for (int t = 0; t < 2; ++t) {
+    const int k = 2 * lane + t;
+    alpha[t] = 0.f;
+    f[t] = 1.f;
+    zk[t] = 0.f;
+    if (k < K) {
+      const float sigma = softplus(s_out[(pb + k) * ldo]);
+      zk[t] = s_z[pb + k];
+      const float delta = k + 1 < K ? __fsub_rn(s_z[pb + k + 1], zk[t]) : 1e10f;
+      alpha[t] = 1.f - expf(-fabsf(delta) * fmaxf(sigma, 0.f));
+      if (P.hard_cap && k == K - 1) alpha[t] = 1.f;
+      f[t] = fmaxf(1.f - alpha[t], 1e-10f);
+    }
+  }
+  // transmittance: the exclusive product of the floors, scanned over the lanes' pairs
+  float incl = f[0] * f[1];
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const float v = __shfl_up_sync(FULL, incl, o);
+    if (lane >= o) incl *= v;
+  }
+  float excl = __shfl_up_sync(FULL, incl, 1);
+  if (lane == 0) excl = 1.f;
+  const float w0 = alpha[0] * excl, w1 = alpha[1] * (excl * f[0]);
+  const int k0 = 2 * lane;
+  if (k0 < K) s_w[pb + k0] = w0;
+  if (k0 + 1 < K) s_w[pb + k0 + 1] = w1;
+  total = w0 + w1;
+#pragma unroll
+  for (int o = 16; o >= 1; o >>= 1) total += __shfl_xor_sync(FULL, total, o);
+  if (!P.median) {
+    float d = __fadd_rn(__fmul_rn(w0, zk[0]), __fmul_rn(w1, zk[1]));
+#pragma unroll
+    for (int o = 16; o >= 1; o >>= 1) d += __shfl_xor_sync(FULL, d, o);
+    return d;
+  }
+  // the median: count the samples whose CDF over the total is below 0.5
+  const float den = fmaxf(total, 1e-10f);
+  float cum = w0 + w1;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const float v = __shfl_up_sync(FULL, cum, o);
+    if (lane >= o) cum += v;
+  }
+  float before = __shfl_up_sync(FULL, cum, 1);
+  if (lane == 0) before = 0.f;
+  const float cdf0 = before + w0;
+  const unsigned below0 = __ballot_sync(FULL, k0 < K && __fdiv_rn(cdf0, den) < 0.5f);
+  const unsigned below1 = __ballot_sync(FULL, k0 + 1 < K && __fdiv_rn(cum, den) < 0.5f);
+  return s_z[pb + min(__popc(below0) + __popc(below1), K - 1)];
+}
+
+template <int TF32, int DC, int EC, int ET>
+__global__ void __launch_bounds__(WGS * WG, 1) encode_view_kernel(const Params P) {
+  using L = Layout<TF32, DC, EC, ET>;
+  constexpr int DP = L::DP, KW = L::KW, KT = L::KT;
+  constexpr int EN = EC > 0 ? EC : 1;  // extent of the 64-column accumulators (unused at EC = 0)
+  extern __shared__ unsigned char smem_raw[];
+  // the first 1024-byte boundary, reached by indexing the shared array
+  unsigned char* sm = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
+  float* s_b2 = reinterpret_cast<float*>(sm + L::B2);
+  const int tid = threadIdx.x;
+  const int D = P.D, E = P.E;
+
+  // the weights, zero-padded, once a block: bf16 as they are; fp32 as TF32
+  // hi and lo, W2's hidden units permuted within groups of 8 (tf32_k_column)
+  for (int i = tid; i < DP * KW; i += blockDim.x) {
+    const int n = i / KW, k = i % KW;
+    const float v = (k < P.Cz && n < D) ? weight_at(P.w_z, k * D + n, TF32) : 0.f;
+    unsigned char* tile = sm + L::WZ + (n / 64) * TILE_BYTES;
+    if (TF32) {
+      const float hi = tf32_rna(v);
+      *reinterpret_cast<float*>(tile + swizzled_element(n % 64, k, 4)) = hi;
+      *reinterpret_cast<float*>(tile + DC * TILE_BYTES + swizzled_element(n % 64, k, 4)) = tf32_rna(v - hi);
+    } else {
+      *reinterpret_cast<__nv_bfloat16*>(tile + swizzled_element(n % 64, k, 2)) = __float2bfloat16(v);
+    }
+  }
+  for (int i = tid; i < L::EP * DP; i += blockDim.x) {
+    const int e = i / DP, p = i % DP;
+    const int n = TF32 ? (p & ~7) + tf32_k_column(p & 7) : p;  // the hidden unit at k position p
+    const float v = (e < E && n < D) ? weight_at(P.w2, n * E + e, TF32) : 0.f;
+    const int kt = p / KW, k = p % KW;
+    unsigned char* tile;
+    int row, copy_stride;
+    if (e < 64 * EC) {
+      tile = sm + L::W2 + ((e / 64) * KT + kt) * TILE_BYTES;
+      row = e % 64;
+      copy_stride = EC * KT * TILE_BYTES;
+    } else {
+      tile = sm + L::W2T + kt * ET * 128;
+      row = e - 64 * EC;
+      copy_stride = KT * ET * 128;
+    }
+    if (TF32) {
+      const float hi = tf32_rna(v);
+      *reinterpret_cast<float*>(tile + swizzled_element(row, k, 4)) = hi;
+      *reinterpret_cast<float*>(tile + copy_stride + swizzled_element(row, k, 4)) = tf32_rna(v - hi);
+    } else {
+      *reinterpret_cast<__nv_bfloat16*>(tile + swizzled_element(row, k, 2)) = __float2bfloat16(v);
+    }
+  }
+  for (int e = tid; e < L::EP; e += blockDim.x) s_b2[e] = e < E ? P.b2[e] : 0.f;
+  // the prefetch buffers start at 0: what no copy writes (base columns past D,
+  // dead rows' depths) stays finite
+  for (int i = tid; i < WGS * L::WG_BYTES / 4; i += blockDim.x) {
+    const int w = i / (L::WG_BYTES / 4), o = i % (L::WG_BYTES / 4);
+    if (o * 4 >= L::BASE) reinterpret_cast<float*>(sm + L::WG0 + w * L::WG_BYTES)[o] = 0.f;
+  }
+  fence_proxy_async();  // the tiles were written by threads; wgmma reads them
   __syncthreads();
 
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  float* base = s_base + warp * MAX_D;
-  const bool live = lane < K;
-  for (long long r = (long long)blockIdx.x * WARPS + warp; r < P.N; r += (long long)gridDim.x * WARPS) {
-    for (int j = lane; j < D; j += 32) base[j] = __ldg(P.base + r * D + j);
+  const int wg = tid / WG, t = tid % WG, warp = t / 32, lane = t % 32, q = lane % 4;
+  unsigned char* own = sm + L::WG0 + wg * L::WG_BYTES;
+  float* s_out = reinterpret_cast<float*>(own + L::OUT);
+  float* s_w = reinterpret_cast<float*>(own + L::W);
+  const int row0 = warp * 16 + lane / 4;
+  const int K = P.K, kshift = P.kshift, rpt = TP >> kshift;
+  const int ntiles = (P.N + rpt - 1) / rpt;
+  const int stride = gridDim.x * WGS;
 
-    // the sample's z code, in registers
-    const float zk = live ? __ldg(P.z + r * K + lane) : 0.f;
-    const float dl = __fmul_rn(zk, __ldg(P.zscale + r));
-    const float zn01 = P.inv_z ? __fdiv_rn(__fsub_rn(__fdiv_rn(1.f, fmaxf(dl, EPS)), P.zn_sub), P.zn_den)
-                               : __fdiv_rn(__fsub_rn(dl, P.zn_sub), P.zn_den);
-    const float zn = __fsub_rn(__fmul_rn(2.f, zn01), 1.f);
-    float code[CZ];
+  int tile = blockIdx.x * WGS + wg;
+  if (tile < ntiles) {
+    prefetch<DP>(P, tile * rpt, rpt, reinterpret_cast<float*>(own + L::BASE), reinterpret_cast<float*>(own + L::Z),
+                 reinterpret_cast<float*>(own + L::ZS), t);
+  }
+  cp_async_commit();
+  for (int buf = 0; tile < ntiles; tile += stride, buf ^= 1) {
+    const int ray0 = tile * rpt;
+    float* s_base = reinterpret_cast<float*>(own + L::BASE) + buf * MAX_RAYS * DP;
+    float* s_z = reinterpret_cast<float*>(own + L::Z) + buf * TP;
+    float* s_zs = reinterpret_cast<float*>(own + L::ZS) + buf * MAX_RAYS;
+    if (tile + stride < ntiles) {
+      const int nb = buf ^ 1;
+      prefetch<DP>(P, (tile + stride) * rpt, rpt, reinterpret_cast<float*>(own + L::BASE) + nb * MAX_RAYS * DP,
+                   reinterpret_cast<float*>(own + L::Z) + nb * TP, reinterpret_cast<float*>(own + L::ZS) + nb * MAX_RAYS,
+                   t);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();  // this tile's copies have landed (the next tile's may not)
+    named_barrier_sync(1 + wg, WG);
+
+    const uint32_t s0 = fresh(smem_u32(sm));  // the descriptors below are made here, tile by tile
+    const float* brow[2];
+    float zn[2];
 #pragma unroll
-    for (int c = 0; c < CZ; ++c) {
-      const int f = (c - P.include_input) >> 1;
-      float v = 0.f;
-      if (c < P.Cz) {
-        if (P.include_input && c == 0) {
-          v = zn;
-        } else {
-          const float freq = P.freq_factor * (float)(1 << f);
-          const float phase = ((c - P.include_input) & 1) ? HALF_PI : 0.f;
-          v = sinf(__fadd_rn(__fmul_rn(zn, freq), phase));
+    for (int hi = 0; hi < 2; ++hi) {
+      const int row = row0 + 8 * hi, rl = row >> kshift;
+      zn[hi] = normalized_depth(P, s_z[row], s_zs[rl]);
+      brow[hi] = s_base + rl * DP;
+    }
+
+    float o[EN][32], ot[ET / 2];
+    if constexpr (!TF32) {
+      // the code in bf16, as the A fragment of one k16 step: rows r, r + 8 of
+      // columns 2q, 2q + 1 and 2q + 8, 2q + 9
+      uint32_t ca[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int c = 2 * q + 8 * (i >> 1);
+        ca[i] = pack_bf16(code_value(P, zn[i & 1], c), code_value(P, zn[i & 1], c + 1));
+      }
+#pragma unroll
+      for (int c = 0; c < DC; ++c) {
+        float acc[32];
+#pragma unroll
+        for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+        fence_registers(acc);
+        wgmma_fence();
+        wgmma_m64n64k16_rs<0>(acc, ca, desc(s0, L::WZ + c * TILE_BYTES, 0), 0);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_registers(acc);
+        // h = bf16(relu(base + acc)): the A operand of four k16 steps of out = h W2
+        uint32_t a[16];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+#pragma unroll
+          for (int hi = 0; hi < 2; ++hi) {
+            const float2 b = *reinterpret_cast<const float2*>(brow[hi] + 64 * c + 8 * j + 2 * q);
+            a[a_index(j, hi)] = pack_bf16(relu(__fadd_rn(b.x, acc[4 * j + 2 * hi])),
+                                          relu(__fadd_rn(b.y, acc[4 * j + 2 * hi + 1])));
+          }
+        }
+        if (c == 0) {
+#pragma unroll
+          for (int ec = 0; ec < EN; ++ec) {
+#pragma unroll
+            for (int i = 0; i < 32; ++i) o[ec][i] = 0.f;
+            if (EC > 0) fence_registers(o[ec]);
+          }
+#pragma unroll
+          for (int i = 0; i < ET / 2; ++i) ot[i] = 0.f;
+          fence_registers(ot);
+        }
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const int acc_on = c > 0 || kk > 0;
+#pragma unroll
+          for (int ec = 0; ec < EC; ++ec) {
+            wgmma_m64n64k16_rs<0>(o[ec], a + 4 * kk,
+                                  desc(s0, L::W2 + (ec * KT + c) * TILE_BYTES, kk), acc_on);
+          }
+          const uint64_t dt = desc(s0, L::W2T + c * ET * 128, kk);
+          if constexpr (ET == 8) {
+            wgmma_m64n8k16_rs(ot, a + 4 * kk, dt, acc_on);
+          } else {
+            wgmma_m64n24k16_rs(ot, a + 4 * kk, dt, acc_on);
+          }
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+#pragma unroll
+        for (int ec = 0; ec < EC; ++ec) fence_registers(o[ec]);
+        fence_registers(ot);
+      }
+    } else {
+      // the code split into TF32 hi and lo, as the A fragments of two k8
+      // steps: rows r, r + 8 of columns q, q + 4 (step 0) and 8 + q, 12 + q
+      uint32_t ch[2][4], cl[2][4];
+#pragma unroll
+      for (int s = 0; s < 2; ++s) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float v = code_value(P, zn[i & 1], 8 * s + q + 4 * (i >> 1));
+          const float hv = tf32_rna(v);
+          ch[s][i] = __float_as_uint(hv);
+          cl[s][i] = __float_as_uint(tf32_rna(__fsub_rn(v, hv)));
         }
       }
-      code[c] = P.bf16 ? round_bf16(v) : v;
+#pragma unroll
+      for (int i = 0; i < EN; ++i) {
+#pragma unroll
+        for (int k = 0; k < 32; ++k) o[i][k] = 0.f;
+        if (EC > 0) fence_registers(o[i]);
+      }
+#pragma unroll
+      for (int i = 0; i < ET / 2; ++i) ot[i] = 0.f;
+      fence_registers(ot);
+      // 32 hidden units at a time (half a chunk), so that 16 registers hold
+      // the code product and 32 its h
+#pragma unroll
+      for (int half = 0; half < 2 * DC; ++half) {
+        const int c = half / 2, n0 = 32 * half;  // chunk, first hidden unit
+        float acc[16];
+#pragma unroll
+        for (int i = 0; i < 16; ++i) acc[i] = 0.f;
+        fence_registers(acc);
+        wgmma_fence();
+#pragma unroll
+        for (int s = 0; s < 2; ++s) {  // rows 32 (half % 2) on of the chunk's W_z tiles
+          const uint64_t bh = desc(s0, L::WZ + c * TILE_BYTES + (half % 2) * 4096, s);
+          const uint64_t bl = desc(s0, L::WZ + (DC + c) * TILE_BYTES + (half % 2) * 4096, s);
+          wgmma_m64n32k8_tf32_rs(acc, cl[s], bh, s > 0);
+          wgmma_m64n32k8_tf32_rs(acc, ch[s], bl, 1);
+          wgmma_m64n32k8_tf32_rs(acc, ch[s], bh, 1);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_registers(acc);
+        // h = relu(base + acc) split into TF32 hi and lo: the A operands of
+        // four k8 steps of out = h W2, step jj's (d[4jj], d[4jj+2], d[4jj+1], d[4jj+3])
+        uint32_t hh[16], hl[16];
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+#pragma unroll
+          for (int hi = 0; hi < 2; ++hi) {
+            const float2 b = *reinterpret_cast<const float2*>(brow[hi] + n0 + 8 * jj + 2 * q);
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const float v = relu(__fadd_rn(e ? b.y : b.x, acc[4 * jj + 2 * hi + e]));
+              const float hv = tf32_rna(v);
+              hh[4 * jj + 2 * e + hi] = __float_as_uint(hv);
+              hl[4 * jj + 2 * e + hi] = __float_as_uint(tf32_rna(__fsub_rn(v, hv)));
+            }
+          }
+        }
+        wgmma_fence();
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {  // k-tile `half` of W2, its step jj
+          const int acc_on = half > 0 || jj > 0;
+#pragma unroll
+          for (int ec = 0; ec < EC; ++ec) {
+            const uint64_t bh = desc(s0, L::W2 + (ec * KT + half) * TILE_BYTES, jj);
+            const uint64_t bl = desc(s0, L::W2 + ((EC + ec) * KT + half) * TILE_BYTES, jj);
+            wgmma_m64n64k8_tf32_rs(o[ec], hl + 4 * jj, bh, acc_on);
+            wgmma_m64n64k8_tf32_rs(o[ec], hh + 4 * jj, bl, 1);
+            wgmma_m64n64k8_tf32_rs(o[ec], hh + 4 * jj, bh, 1);
+          }
+          const uint64_t th = desc(s0, L::W2T + half * ET * 128, jj);
+          const uint64_t tl = desc(s0, L::W2T + (KT + half) * ET * 128, jj);
+          if constexpr (ET == 8) {
+            wgmma_m64n8k8_tf32_rs(ot, hl + 4 * jj, th, acc_on);
+            wgmma_m64n8k8_tf32_rs(ot, hh + 4 * jj, tl, 1);
+            wgmma_m64n8k8_tf32_rs(ot, hh + 4 * jj, th, 1);
+          } else {
+            wgmma_m64n24k8_tf32_rs(ot, hl + 4 * jj, th, acc_on);
+            wgmma_m64n24k8_tf32_rs(ot, hh + 4 * jj, tl, 1);
+            wgmma_m64n24k8_tf32_rs(ot, hh + 4 * jj, th, 1);
+          }
+        }
+        wgmma_commit();
+        wgmma_wait<0>();  // before the next half's products take these registers
+#pragma unroll
+        for (int ec = 0; ec < EC; ++ec) fence_registers(o[ec]);
+        fence_registers(ot);
+      }
     }
-    __syncwarp();
 
-    // both products, one hidden unit at a time
-    float acc[EP];
+    // out + b2 into the warpgroup's buffer
 #pragma unroll
-    for (int e = 0; e < EP; ++e) acc[e] = 0.f;
-    for (int j = 0; j < D; ++j) {
-      const float4* wz = reinterpret_cast<const float4*>(s_wz + j * CZ);
-      float t = 0.f;
+    for (int hi = 0; hi < 2; ++hi) {
+      float* row = s_out + (row0 + 8 * hi) * L::LDO;
 #pragma unroll
-      for (int q = 0; q < CZ / 4; ++q) {
-        const float4 w = wz[q];
-        t = fmaf(code[4 * q], w.x, t);
-        t = fmaf(code[4 * q + 1], w.y, t);
-        t = fmaf(code[4 * q + 2], w.z, t);
-        t = fmaf(code[4 * q + 3], w.w, t);
+      for (int ec = 0; ec < EC; ++ec) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int col = 64 * ec + 8 * j + 2 * q;
+          *reinterpret_cast<float2*>(row + col) =
+              make_float2(o[ec][4 * j + 2 * hi] + s_b2[col], o[ec][4 * j + 2 * hi + 1] + s_b2[col + 1]);
+        }
       }
-      float h = __fadd_rn(base[j], t);
-      h = h < 0.f ? 0.f : h;  // relu; NaN stays NaN, as torch.relu
-      if (P.bf16) h = round_bf16(h);
-      const float4* w2 = reinterpret_cast<const float4*>(s_w2 + j * EP);
 #pragma unroll
-      for (int q = 0; q < EP / 4; ++q) {
-        const float4 w = w2[q];
-        acc[4 * q] = fmaf(h, w.x, acc[4 * q]);
-        acc[4 * q + 1] = fmaf(h, w.y, acc[4 * q + 1]);
-        acc[4 * q + 2] = fmaf(h, w.z, acc[4 * q + 2]);
-        acc[4 * q + 3] = fmaf(h, w.w, acc[4 * q + 3]);
+      for (int j = 0; j < ET / 8; ++j) {
+        const int col = 64 * EC + 8 * j + 2 * q;
+        *reinterpret_cast<float2*>(row + col) =
+            make_float2(ot[4 * j + 2 * hi] + s_b2[col], ot[4 * j + 2 * hi + 1] + s_b2[col + 1]);
       }
     }
+    named_barrier_sync(1 + wg, WG);
 
-    // compositing along the ray, one sample a lane
-    const float z_next = __shfl_down_sync(FULL, zk, 1);
-    float alpha = 0.f, fl = 1.f;
-    if (live) {
-      const float sigma = softplus(__fadd_rn(acc[0], s_b2[0]));
-      const float delta = lane + 1 < K ? __fsub_rn(z_next, zk) : 1e10f;
-      alpha = 1.f - expf(-fabsf(delta) * fmaxf(sigma, 0.f));
-      if (P.hard_cap && lane == K - 1) alpha = 1.f;
-      fl = fmaxf(1.f - alpha, 1e-10f);
+    const int rays = min(rpt, P.N - ray0);
+    for (int rl = warp; rl < rays; rl += WG / 32) {
+      const int r = ray0 + rl;
+      float total;
+      const float depth = composite_ray(P, s_out, L::LDO, s_z, s_w, rl << kshift, lane, total);
+      if (lane == 0) P.depth[r] = depth;
+      if (lane < 3) P.rgb[(size_t)r * 3 + lane] = __ldg(P.color + (size_t)r * 3 + lane) * total;
     }
-    float incl = fl;
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const float v = __shfl_up_sync(FULL, incl, o);
-      if (lane >= o) incl *= v;
+    named_barrier_sync(1 + wg, WG);
+    // the weighted feature, one output a thread
+    const int F = E - 1;
+    for (int i = t; i < rays * F; i += WG) {
+      const int rl = quotient(i, P.inv_f), col = i - rl * F;
+      const int pb = rl << kshift;
+      float sum = 0.f;
+#pragma unroll 4
+      for (int k = 0; k < K; ++k) sum = fmaf(s_w[pb + k], s_out[(pb + k) * L::LDO + 1 + col], sum);
+      P.dino[(size_t)ray0 * F + i] = sum;
     }
-    float excl = __shfl_up_sync(FULL, incl, 1);
-    if (lane == 0) excl = 1.f;
-    const float w = alpha * excl;  // 0 on dead lanes
-    const float total = warp_sum(w);
-    float depth;
-    if (!P.median) {
-      depth = warp_sum(w * zk);
-    } else {
-      float cum = w;
-#pragma unroll
-      for (int o = 1; o < 32; o <<= 1) {
-        const float v = __shfl_up_sync(FULL, cum, o);
-        if (lane >= o) cum += v;
-      }
-      const unsigned below = __ballot_sync(FULL, live && __fdiv_rn(cum, fmaxf(total, 1e-10f)) < 0.5f);
-      depth = __shfl_sync(FULL, zk, min(__popc(below), K - 1));
-    }
-
-    // the weighted feature columns 1..E-1: column e is kept by lane (e - 1) % 32
-    float mine[(EP + 31) / 32];
-#pragma unroll
-    for (int e = 1; e < EP; ++e) {
-      if (e < E) {
-        const float s = warp_sum(w * __fadd_rn(acc[e], s_b2[e]));
-        if (lane == ((e - 1) & 31)) mine[(e - 1) >> 5] = s;
-      }
-    }
-    float* dino = P.dino + r * (E - 1);
-#pragma unroll
-    for (int i = 0; i < (EP + 31) / 32; ++i) {
-      const int e = 32 * i + lane;
-      if (e < E - 1) dino[e] = mine[i];
-    }
-    if (lane < 3) P.rgb[r * 3 + lane] = __ldg(P.color + r * 3 + lane) * total;
-    if (lane == 0) P.depth[r] = depth;
-    __syncwarp();  // base is rewritten for the next ray
+    named_barrier_sync(1 + wg, WG);  // the buffers are free for the next tile's copies and products
   }
+  cp_async_wait<0>();
 }
 
-constexpr int MAX_DEVICES = 64;
+struct Cached {
+  bool ready = false;
+  int blocks = 0;  // blocks a launch: blocks an SM times SMs
+};
 
-template <int EP>
-size_t smem_bytes() {
-  return sizeof(float) * ((size_t)MAX_D * CZ + (size_t)MAX_D * EP + EP + (size_t)WARPS * MAX_D);
-}
-
-// the current device's SM count, asked of the runtime once per device
-cudaError_t sm_count(int* sms) {
-  static int known[MAX_DEVICES] = {};
+template <int TF32, int DC, int EC, int ET>
+int launch_shape(const Params& P, void* stream) {
+  const auto kernel = encode_view_kernel<TF32, DC, EC, ET>;
+  constexpr int smem = Layout<TF32, DC, EC, ET>::TOTAL + 1024;  // room to align the tiles
+  static_assert(smem <= 232448, "the block's shared memory must fit an H100 SM's 227 KB");
+  static Cached cached[MAX_DEVICES];
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev < 0 || dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
-  if (known[dev] == 0) {
-    err = cudaDeviceGetAttribute(&known[dev], cudaDevAttrMultiProcessorCount, dev);
-    if (err != cudaSuccess) return err;
+  if (err != cudaSuccess) return (int)err;
+  if (dev < 0 || dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  Cached& c = cached[dev];
+  if (!c.ready) {
+    if ((err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem)) != cudaSuccess) {
+      return (int)err;
+    }
+    int sms = 0, per_sm = 0;
+    if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess) return (int)err;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, WGS * WG, smem);
+    if (err != cudaSuccess) return (int)err;
+    c.blocks = (per_sm > 0 ? per_sm : 1) * sms;
+    c.ready = true;
   }
-  *sms = known[dev];
-  return cudaSuccess;
+  const int rpt = TP >> P.kshift;
+  const int ntiles = (P.N + rpt - 1) / rpt;
+  int blocks = (ntiles + WGS - 1) / WGS;
+  if (blocks > c.blocks) blocks = c.blocks;
+  kernel<<<blocks, WGS * WG, smem, (cudaStream_t)stream>>>(P);
+  return (int)cudaGetLastError();
 }
 
-template <int EP>
+// the hidden width to 64 or 128, the output width to 24 (E <= 24) or 64 + 8
+template <int TF32>
 int launch(const Params& P, void* stream) {
-  static_assert(sizeof(float) * ((size_t)MAX_D * CZ + (size_t)MAX_D * EP + EP + (size_t)WARPS * MAX_D) <= 48 * 1024,
-                "the kernel's shared memory must fit the default 48 KB");
-  int sms = 0;
-  cudaError_t err = sm_count(&sms);
-  if (err != cudaSuccess) return (int)err;
-  long long blocks = (P.N + WARPS - 1) / WARPS;
-  if (blocks > (long long)sms * MIN_BLOCKS) blocks = (long long)sms * MIN_BLOCKS;
-  encode_view_kernel<EP><<<(int)blocks, THREADS, smem_bytes<EP>(), (cudaStream_t)stream>>>(P);
-  return (int)cudaGetLastError();
+  if (P.D <= 64) return P.E <= 24 ? launch_shape<TF32, 1, 0, 24>(P, stream) : launch_shape<TF32, 1, 1, 8>(P, stream);
+  return P.E <= 24 ? launch_shape<TF32, 2, 0, 24>(P, stream) : launch_shape<TF32, 2, 1, 8>(P, stream);
 }
 
 }  // namespace
@@ -281,12 +645,15 @@ extern "C" int encode_view(
     long long N, int K, int D, int E, int Cz, int bf16,
     int num_freqs, int include_input, int inv_z, int hard_cap, int median,
     float zn_sub, float zn_den, float freq_factor, void* stream) {
-  if (N <= 0 || K <= 0 || K > 32 || D <= 0 || D > MAX_D || E < 2 || E > 68 || Cz <= 0 || Cz > CZ ||
+  if (N <= 0 || N > INT_MAX - TP || K <= 0 || K > MAX_K || D <= 0 || D > MAX_D || E < 2 || E > MAX_E || Cz <= 0 || Cz > CZ ||
       Cz != (include_input ? 1 : 0) + 2 * num_freqs)
     return (int)cudaErrorInvalidValue;
+  const int kshift = K <= 8 ? 3 : (K <= 16 ? 4 : (K <= 32 ? 5 : 6));  // Kp = 2^kshift
+  const int vec = D % 4 == 0 && (reinterpret_cast<uintptr_t>(base) & 15) == 0;
+  const int units = vec ? D / 4 : D;
   Params P = {(const float*)base, (const float*)z, (const float*)zscale, w_z, w2, (const float*)b2,
               (const float*)color, (float*)depth, (float*)dino, (float*)rgb,
-              N, K, D, E, Cz, bf16, num_freqs, include_input, inv_z, hard_cap, median,
-              zn_sub, zn_den, freq_factor};
-  return E <= 20 ? launch<20>(P, stream) : launch<68>(P, stream);
+              (int)N, K, kshift, D, E, Cz, num_freqs, include_input, inv_z, hard_cap, median,
+              zn_sub, zn_den, freq_factor, vec, units, reciprocal(units), reciprocal(K), reciprocal(E - 1)};
+  return bf16 ? launch<0>(P, stream) : launch<1>(P, stream);
 }

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks for the hand-written kernels: mbarriers,
-// TMA tile loads and stores with their tensor maps, and warpgroup matrix
-// products (wgmma) on 64 x 64 bf16 tiles kept in shared memory under the
-// 128-byte swizzle.
+// TMA tile loads and stores with their tensor maps, cp.async copies, and
+// warpgroup matrix products (wgmma) on 64 x 64 bf16 tiles (or 64 x 32 TF32
+// ones: the same 128-byte rows) kept in shared memory under the 128-byte
+// swizzle, with A from shared memory or from registers.
 //
 // One tile convention throughout: a tile is 64 rows of 64 bf16 (128 bytes a
 // row, 8 KB), 1024-byte aligned in shared memory, written by TMA with
@@ -246,6 +247,140 @@ __device__ __forceinline__ void wgmma_m64n8k16_ss(float (&d)[4], uint64_t desc_a
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// wgmma_m64n64k16_rs with an 8-column B (one 1024-byte swizzle atom of 8
+// rows, K-major): d as in wgmma_m64n8k16_ss, a as in wgmma_m64n64k16_rs
+__device__ __forceinline__ void wgmma_m64n8k16_rs(float (&d)[4], const uint32_t* a, uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {%0, %1, %2, %3}, {%4, %5, %6, %7}, %8, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
+}
+
+#define HOPPER_ACC12(d)                                                                                     \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),           \
+      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11])
+#define HOPPER_ACC12_LIST "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11}"
+
+// wgmma_m64n64k16_rs with a 24-column B (three 8-row atoms, K-major): d is
+// 64 x 24 fp32, d[4 j + 2 hi + e] as in the 64-column form for j < 3
+__device__ __forceinline__ void wgmma_m64n24k16_rs(float (&d)[12], const uint32_t* a, uint64_t desc_b,
+                                                   int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %17, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n24k16.f32.bf16.bf16 " HOPPER_ACC12_LIST
+      ", {%12, %13, %14, %15}, %16, p, 1, 1, 0;\n"
+      "}\n"
+      : HOPPER_ACC12(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
+}
+
+// ------------------------------------------------------------ wgmma, TF32
+//
+// d = or += A (64 x 8 tf32, registers) times B (8 x N tf32, shared memory,
+// K-major only: TF32 has no transposed form). A tile of B is the same
+// 128-byte-swizzled tile as above, a row holding 32 tf32 along K; a k-step of
+// 8 is 32 bytes, so WGMMA_K_STEP advances it as it does a bf16 k-step of 16.
+// d is laid out as in the bf16 forms. a[0..3] are the thread's 4 values of A,
+// the bits of fp32 numbers whose low 13 bits are 0 (tf32_rna): (r, t % 4),
+// (r + 8, t % 4), (r, t % 4 + 4), (r + 8, t % 4 + 4), r as for d. So the
+// accumulator's 8-column group j feeds a k-step of 8 as (d[4 j], d[4 j + 2],
+// d[4 j + 1], d[4 j + 3]) when B's rows of that step are the group's columns
+// in the order 0, 2, 4, 6, 1, 3, 5, 7 (tf32_k_column).
+__device__ __forceinline__ void wgmma_m64n64k8_tf32_rs(float (&d)[32], const uint32_t* a, uint64_t desc_b,
+                                                       int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 " HOPPER_ACC32_LIST
+      ", {%32, %33, %34, %35}, %36, p, 1, 1;\n"
+      "}\n"
+      : HOPPER_ACC32(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
+}
+
+#define HOPPER_ACC16(d)                                                                                     \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),           \
+      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+#define HOPPER_ACC16_LIST "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
+
+__device__ __forceinline__ void wgmma_m64n32k8_tf32_rs(float (&d)[16], const uint32_t* a, uint64_t desc_b,
+                                                       int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 " HOPPER_ACC16_LIST
+      ", {%16, %17, %18, %19}, %20, p, 1, 1;\n"
+      "}\n"
+      : HOPPER_ACC16(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_m64n8k8_tf32_rs(float (&d)[4], const uint32_t* a, uint64_t desc_b,
+                                                      int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k8.f32.tf32.tf32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, %8, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_m64n24k8_tf32_rs(float (&d)[12], const uint32_t* a, uint64_t desc_b,
+                                                       int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %17, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n24k8.f32.tf32.tf32 " HOPPER_ACC12_LIST
+      ", {%12, %13, %14, %15}, %16, p, 1, 1;\n"
+      "}\n"
+      : HOPPER_ACC12(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
+}
+
+// x rounded to TF32 (10 mantissa bits), to nearest with ties away from zero
+__device__ __forceinline__ float tf32_rna(float x) {
+  uint32_t y;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(y) : "f"(x));
+  return __uint_as_float(y);
+}
+
+// the accumulator column (0-7 within its group) that row k of a TF32 k-step's
+// B stands for, so that the accumulator feeds A without a shuffle
+__host__ __device__ __forceinline__ constexpr int tf32_k_column(int k) { return k < 4 ? 2 * k : 2 * (k - 4) + 1; }
+
+// byte offset of element k (of `bytes` bytes) of row n in a swizzled tile
+// (rows of 128 bytes; n may run past 8: a tile of 8-row atoms 1024 bytes apart)
+__device__ __forceinline__ uint32_t swizzled_element(int n, int k, int bytes) {
+  const int b = k * bytes;
+  return static_cast<uint32_t>(n * 128 + ((((b >> 4) ^ n) & 7) << 4) + (b & 15));
+}
+
+// ---------------------------------------------------------------- cp.async
+
+__device__ __forceinline__ void cp_async_16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(smem_u32(dst)), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(smem_u32(dst)), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;" ::: "memory"); }
+// returns once all but the newest N groups of the thread's copies have landed
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
 }
 
 // where the A operand of a product keeps element (row + 8 hi, 8 j + column)

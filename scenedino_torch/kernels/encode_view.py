@@ -6,9 +6,10 @@ reference. `ops.fast_field.render_encode_view(_batched)` computes the
 per-pixel preamble in torch (the folded grid at the pixel, the x/y code
 folded into a bias, b1, the sample depths and each ray's camera-z factor)
 and hands every ray of every frame to `encode_view` at once; the kernel,
-`csrc/encode_view.cu`, forms the z code, both head products, softplus,
-the compositing and the feature sum per sample, and writes only the
-per-ray depth, feature and colour.
+`csrc/encode_view.cu`, forms the z code, both head products on the tensor
+cores (bf16 wgmma for the bf16 state, three TF32 passes for the fp32 one),
+softplus, the compositing and the feature sum per sample, and writes only
+the per-ray depth, feature and colour.
 
 On CUDA tensors `encode_view` launches the kernel or raises; on CPU
 tensors it takes `encode_view_plain`, the same arithmetic in torch over
@@ -28,6 +29,9 @@ from scenedino_torch.kernels import build
 
 DEPTH_STATISTICS = ("expectation", "median")
 DTYPES = (torch.float32, torch.bfloat16)
+# what the CUDA kernel takes: samples a ray, hidden width, output width, z-code columns, rays
+MAX_SAMPLES, MAX_HIDDEN, MAX_OUT, MAX_CODE = 64, 128, 68, 16
+MAX_RAYS = 2 ** 31 - 1 - 64
 ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_longlong] + [ctypes.c_int] * 10 + [ctypes.c_float] * 3
             + [ctypes.c_void_p])
 
@@ -111,8 +115,10 @@ def encode_view(base, z, zscale, w_z, w2, b2, color, cfg: EncodeViewConfig):
     cfg.depth_statistic="median"), feature (N, E - 1) and rgb = color x
     the ray's total weight (N, 3), fp32.
 
-    On CUDA the kernel takes contiguous tensors, D <= 128, 2 <= E <= 68,
-    K <= 32 and code_dims <= 16, and raises on anything else.
+    On CUDA the kernel takes contiguous tensors, K <= 64 samples a ray
+    (padded to 8, 16, 32 or 64 in its 64-row tiles), D <= 128 (zero-padded
+    to 64 or 128), 2 <= E <= 68, code_dims <= 16 and N < 2^31 - 64, and
+    raises on anything else; the CPU's plain version takes any size.
     """
     _check(base, z, zscale, w_z, w2, b2, color, cfg)
     device = base.device
@@ -128,9 +134,10 @@ def encode_view(base, z, zscale, w_z, w2, b2, color, cfg: EncodeViewConfig):
     tensors = (base, z, zscale, w_z, w2, b2, color)
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("the CUDA encode_view kernel takes contiguous tensors")
-    if D > 128 or E > 68 or K > 32 or cfg.code_dims > 16:
-        raise ValueError(f"the CUDA encode_view kernel takes D <= 128, E <= 68, K <= 32 and code_dims <= 16; "
-                         f"got D={D}, E={E}, K={K}, code_dims={cfg.code_dims}")
+    if D > MAX_HIDDEN or E > MAX_OUT or K > MAX_SAMPLES or cfg.code_dims > MAX_CODE or N > MAX_RAYS:
+        raise ValueError(f"the CUDA encode_view kernel takes D <= {MAX_HIDDEN}, E <= {MAX_OUT}, K <= {MAX_SAMPLES}, "
+                         f"code_dims <= {MAX_CODE} and N <= {MAX_RAYS}; got D={D}, E={E}, K={K}, "
+                         f"code_dims={cfg.code_dims}, N={N}")
     depth = torch.empty(N, device=device, dtype=torch.float32)
     dino = torch.empty(N, E - 1, device=device, dtype=torch.float32)
     rgb = torch.empty(N, 3, device=device, dtype=torch.float32)

@@ -6,17 +6,24 @@ and the kernel's, the plain version's and the bound's times.
 
 The shapes (`SHAPES`), each from a seeded folded grid at twice the render
 size through `ops.fast_field.encode_view_inputs` (the render's own
-preamble), 32 samples a ray: the flagship's 192x640 rays (W_code 39x128,
-W2 128x65) as the bf16 serving state of one frame and as stage 2's fp32
-state of 4 frames in one launch; the stage-2 convergence recipe's 96x192
-rays (W_code 39x64, W2 64x17; the other instantiation of the kernel) as
-its fp32 state of 4 frames. Expectation depth, then the weight-median
-depth. Needs a CUDA card; exits 1 if a check fails.
+preamble): the flagship's 192x640 rays (W_code 39x128, W2 128x65) as the
+bf16 serving state of one frame at 32 samples, as stage 2's fp32 state of 4
+frames in one launch at 32 samples, and as the bf16 serving state of one
+frame at 48 samples (16 dead rows a ray in the kernel's 64-row tiles); the
+96x192 rays of the convergence recipes (W_code 39x64, W2 64x17) as the
+stage-2 recipe's fp32 state of 4 frames at 32 samples, and as the bf16
+serving state of one frame at configs/train_synthetic_convergence.yaml's
+n_coarse of 48. Expectation depth, then the weight-median depth. Then the
+serving render stage split into its torch preamble and K6. Every time is
+the median CUDA-event time of `utils.timing.time_ms` on the card that the
+last lines name. Needs a CUDA card; exits 1 if a check fails.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
+import re
 import sys
 
 import torch
@@ -24,16 +31,17 @@ import torch
 from scenedino_torch.kernels import build
 from scenedino_torch.kernels.encode_view import encode_view, encode_view_plain
 from scenedino_torch.models.field import FieldConfig
-from scenedino_torch.ops.fast_field import FastFieldState, encode_view_inputs
-from scenedino_torch.utils.timing import card_line, time_ms
+from scenedino_torch.ops.fast_field import FastFieldState, encode_view_inputs, render_encode_view_batched
+from scenedino_torch.utils.timing import card_line, profile_device, time_ms
 
-K, C = 32, 39
+C = 39
 
 
 @dataclasses.dataclass(frozen=True)
 class Shape:
-    """One path's K6 launch: `frames` x height x width rays from a folded
-    grid of width d_hidden at twice the render size, d_out outputs."""
+    """One path's K6 launch: `frames` x height x width rays of `samples`
+    samples from a folded grid of width d_hidden at twice the render size,
+    d_out outputs."""
     path: str
     frames: int
     dtype: torch.dtype
@@ -41,17 +49,25 @@ class Shape:
     width: int
     d_hidden: int
     d_out: int
+    samples: int = 32
 
 
 # serving (the encode-view request), stage 2 at flagship width (chip_smoke
-# phase 7), stage 2's synthetic convergence recipe (phase 7b)
+# phase 7), stage 2's synthetic convergence recipe (phase 7b), serving at
+# flagship width and 48 samples, and the encode view of a field of the
+# stage-1 convergence recipe (its widths, its 48 samples)
 SHAPES = (Shape("serving", 1, torch.bfloat16, 192, 640, 128, 65),
           Shape("stage 2", 4, torch.float32, 192, 640, 128, 65),
-          Shape("stage 2 convergence", 4, torch.float32, 96, 192, 64, 17))
-# H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, fp32 outside
-# the tensor cores (the fp32 state asks for full fp32, not TF32), HBM3
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+          Shape("stage 2 convergence", 4, torch.float32, 96, 192, 64, 17),
+          Shape("serving 48 samples", 1, torch.bfloat16, 192, 640, 128, 65, 48),
+          Shape("serving convergence 48 samples", 1, torch.bfloat16, 96, 192, 64, 17, 48))
+# H100 SXM peaks (NVIDIA data sheet, dense): bf16 and TF32 on the tensor
+# cores, fp32 outside them; HBM3
+PEAK_BF16, PEAK_TF32, PEAK_FP32 = 989e12, 495e12, 67e12
 PEAK_BYTES = 3.35e12
+# the least time of a multiply-add of the state's type at fp32's accuracy on
+# the tensor cores: bf16 one pass, fp32 three TF32 passes (3xTF32)
+SECONDS_PER_FLOP = {torch.bfloat16: 1 / PEAK_BF16, torch.float32: 3 / PEAK_TF32}
 # kernel against plain version. fp32: the same fp32 sums in another order
 # (a 141-term dot product a sample, compositing scans) — relative round-off
 # of a few 1e-7 through the weights' exponentials; bf16: h rounds to bf16
@@ -86,16 +102,27 @@ def seeded_state(gen: torch.Generator, shape: Shape) -> FastFieldState:
         color_w2c=w2c)
 
 
-def bound(args, dtype: torch.dtype):
-    """(ms, "bytes" or "operations"): each input read once, each output
-    written once; the two products' operations at the state's type's peak."""
+def flops(args) -> float:
+    """The two products' operations: 2 x rays x samples x (Cz D + D E)."""
     n, D = args[0].shape
     k, E = args[1].shape[1], args[4].shape[1]
+    return 2.0 * n * k * (args[3].shape[0] * D + D * E)
+
+
+def bound(args, dtype: torch.dtype):
+    """(ms, "bytes" or "operations"): each input read once, each output
+    written once; the products at the tensor cores' rate for the state's
+    type (fp32: three TF32 passes)."""
+    n, E = args[0].shape[0], args[4].shape[1]
     nbytes = sum(t.numel() * t.element_size() for t in args) + n * (1 + (E - 1) + 3) * 4
-    cz = args[3].shape[0]
-    flops = 2.0 * n * k * (cz * D + D * E)
-    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
+    t_ops, t_bytes = flops(args) * SECONDS_PER_FLOP[dtype], nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def fp32_cores_bound_ms(args) -> float:
+    """The products at the 67 TFLOP/s of fp32 outside the tensor cores (the
+    fp32 state's bound before it took three TF32 passes), ms."""
+    return flops(args) / PEAK_FP32 * 1e3
 
 
 def check(gen: torch.Generator, shape: Shape, reps: int = 10) -> dict:
@@ -103,7 +130,8 @@ def check(gen: torch.Generator, shape: Shape, reps: int = 10) -> dict:
     output (expectation depth), the median depth's sample agreement, two
     launches bitwise equal, and the times."""
     fs = seeded_state(gen, shape)
-    args, cfg = encode_view_inputs(fs, FieldConfig(), shape.height, shape.width, generator=gen, n_coarse=K)
+    args, cfg = encode_view_inputs(fs, FieldConfig(), shape.height, shape.width, generator=gen,
+                                   n_coarse=shape.samples)
     out = encode_view(*args, cfg)
     again = encode_view(*args, cfg)
     torch.cuda.synchronize()
@@ -132,17 +160,52 @@ def check(gen: torch.Generator, shape: Shape, reps: int = 10) -> dict:
           and flips <= MEDIAN_FLIPS)
     return {"path": shape.path, "frames": shape.frames, "dtype": str(shape.dtype).split(".")[-1],
             "rays": args[0].shape[0], "height": shape.height, "width": shape.width, "d_hidden": shape.d_hidden,
-            "d_out": shape.d_out, "samples": K, "errors": errs,
+            "d_out": shape.d_out, "samples": shape.samples, "errors": errs,
             "tolerance": tol, "finite": finite, "bitwise": bitwise, "median_on_sample": on_sample,
             "median_flips": flips, "median_off": off, "ms": ms, "median_ms": ms_median, "plain_ms": plain_ms,
-            "bound_ms": b, "bound_by": by, "ok": ok}
+            "bound_ms": b, "bound_by": by,
+            "fp32_cores_bound_ms": fp32_cores_bound_ms(args) if shape.dtype == torch.float32 else None, "ok": ok}
+
+
+def render_stage(gen: torch.Generator, shape: Shape, reps: int = 10) -> dict:
+    """The encode-view render stage at `shape` on a seeded state, split into
+    its torch preamble (`encode_view_inputs`: the rays, the strata's depths,
+    the grid's 2x2 mean, the x/y code's pixel bias, the base rows) and K6,
+    each timed alone, beside the whole render
+    (`render_encode_view_batched`), and the preamble's device profile."""
+    fs = seeded_state(gen, shape)
+    fcfg = FieldConfig()
+    u = torch.rand(shape.frames, shape.height * shape.width, shape.samples, generator=gen, device=gen.device)
+
+    def pre():
+        return encode_view_inputs(fs, fcfg, shape.height, shape.width, u=u, n_coarse=shape.samples)
+
+    args, cfg = pre()
+    return {"path": shape.path, "preamble_ms": time_ms(pre, reps=reps),
+            "kernel_ms": time_ms(lambda: encode_view(*args, cfg), reps=reps),
+            "render_ms": time_ms(lambda: render_encode_view_batched(fs, fcfg, shape.height, shape.width, u=u,
+                                                                    n_coarse=shape.samples), reps=reps),
+            "preamble_profile": profile_device(pre)}
+
+
+# instantiations of csrc/encode_view.cu's kernel: {bf16, TF32} x hidden
+# chunks {1, 2} x output {24, 64 + 8}
+INSTANTIATIONS = 8
 
 
 def ptxas() -> dict:
-    """ptxas' registers and spills of each instantiation (by its output width)."""
+    """ptxas' registers and spills of each instantiation, by its template
+    arguments "TF32,DC,EC,ET" (TF32 1 for the fp32 state; hidden chunks of
+    64; output chunks of 64; output tail)."""
     build.load("encode_view")
-    return {name.split("encode_view_kernel")[-1]: r
+    return {",".join(re.findall(r"Li(\d+)E", name.split("encode_view_kernel")[-1])): r
             for name, r in build.ptxas_report(build.build_log("encode_view")).items() if "encode_view_kernel" in name}
+
+
+def spilled(report: dict) -> bool:
+    """Whether an instantiation is missing or any spilled."""
+    return len(report) != INSTANTIATIONS or any(r.get("spill_stores", 1) or r.get("spill_loads", 1)
+                                                for r in report.values())
 
 
 def main(argv=None) -> int:
@@ -155,12 +218,13 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     report = ptxas()
     print(f"encode_view ptxas: {report}", flush=True)
-    ok = len(report) == 2 and not any(r.get("spill_stores", 1) or r.get("spill_loads", 1) for r in report.values())
+    ok = not spilled(report)
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     for shape in SHAPES:
         res = check(gen, shape)
         print(f"encode_view {res}", flush=True)
         ok = ok and res["ok"]
+    print(f"encode_view render stage: {json.dumps(render_stage(gen, SHAPES[0]))}", flush=True)
     print(card_line(), flush=True)
     print(f"correct={ok}", flush=True)
     return 0 if ok else 1

@@ -2,6 +2,7 @@
 from __future__ import annotations
 
 import subprocess
+import time
 
 import numpy as np
 import torch
@@ -35,3 +36,31 @@ def time_ms(fn, reps: int = 10, inner: int = 1, warmup: int = 2) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / inner)
     return float(np.median(times))
+
+
+def profile_device(fn) -> str:
+    """Device time of one call of `fn` by kernel (torch.profiler, CUPTI):
+    the busy time, the wall time, the idle share and the ten largest
+    kernels, as one line."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    events = prof.events()
+    cpu_ops = {e.name for e in events if e.device_type == torch.autograd.DeviceType.CPU}
+    by_name = {}
+    for e in events:
+        # device-side ranges named after a CPU operator repeat the time of its kernels
+        if e.device_type == torch.autograd.DeviceType.CUDA and e.name not in cpu_ops:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total / 1e3
+    times = sorted(((n, t) for n, t in by_name.items() if t > 0), key=lambda t: -t[1])
+    busy = sum(t for _, t in times)
+    if busy == 0:
+        return "profiler saw no device time"
+    top = "; ".join(f"{name[:70]} {t:.3f} ms" for name, t in times[:10])
+    return (f"device busy {busy:.3f} ms of {wall:.3f} ms wall (profiled), idle share "
+            f"{max(0.0, 1 - busy / wall):.3f}; top: {top}")

@@ -1,12 +1,15 @@
 """K6, the encode-view render: its plain version (what the CPU runs) against
 the JAX reference's `render_encode_view` and `render_encode_view_batched`
 on the same folded state and strata, in the state's two dtypes (the fp32
-fold of stage 2, the bf16 state of serving) and both depth statistics; a
-CPU emulation of the kernel's walk (one lane a sample: the z code, the
-hidden units one at a time, the warp's product scan, butterfly sums and
-ballot median) against the plain version; and the wrapper's refusals.
-The kernel against its plain version on a card is in
-tests/test_torch_kernels.py (which imports no JAX).
+fold of stage 2, the bf16 state of serving), both depth statistics and 8
+and 48 samples a ray; a CPU emulation of the kernel's walk (64-row tiles of
+rays padded with dead rows to 8, 16, 32 or 64 samples; the z code and both
+products as the kernel's wgmma steps, bf16-rounded code and h for the bf16
+state, three TF32 passes for the fp32 one; one warp a ray, two samples a
+lane: the product scan, butterfly sums and ballot median) against the
+plain version; one TF32 pass against three at the seeded state's widths and
+scales; and the wrapper's refusals. The kernel against its plain version
+on a card is in tests/test_torch_kernels.py (which imports no JAX).
 
 The strata are the JAX function's own, rebuilt from its key (`uniform`
 of `split(key, 5)[0]`, fast_field.py:294). Tolerances: fp32 (JAX under
@@ -17,8 +20,11 @@ in other orders, so a rounding can flip (ulp 2^-8 |h|, on a few of the
 ~1e5 hidden values): depth 5e-2 m, feature and colour 5e-3 (chip_smoke.py's
 K2 bounds, the same reason), the median ray's error below 1e-5; the
 median depth the reference's sample or its neighbour on at most 1 % of
-rays. The emulation: fp32 sums in the kernel's order against the plain
-version's, 1e-5 relative (1e-4 m in depth); the median's sample exactly.
+rays. The emulation: its sums (three TF32 passes of ~2^-22 a product for
+the fp32 state) against the plain version's fp32 ones, 1e-5 relative
+(1e-4 m in depth); the median's sample exactly. The TF32 case: three
+passes within a tenth of the fp32 state's bounds of the card (1e-3 m,
+1e-4, 1e-4), one pass outside them.
 """
 import jax
 import jax.numpy as jnp
@@ -95,8 +101,9 @@ def _check(out, ref, dtype, z=None, median=False):
 @pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16], ids=["fp32-fold", "bf16-state"])
 @pytest.mark.parametrize("depth_statistic", ["expectation", "median"])
 @pytest.mark.parametrize("D,E", [(16, 7), (64, 17)])
-def test_plain_matches_reference(dtype, depth_statistic, D, E):
-    H, W, K = 12, 24, 8
+@pytest.mark.parametrize("K", [8, 48])
+def test_plain_matches_reference(dtype, depth_statistic, D, E, K):
+    H, W = 12, 24
     jfs = _state(np.random.default_rng(D + E), 1, H, W, D, E, dtype)
     cfg = (JFieldConfig(dino_dims=E - 1), FieldConfig(dino_dims=E - 1))
     key = jax.random.PRNGKey(7)
@@ -109,8 +116,9 @@ def test_plain_matches_reference(dtype, depth_statistic, D, E):
 
 @pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16], ids=["fp32-fold", "bf16-state"])
 @pytest.mark.parametrize("code_mode", ["z", "distance"])
-def test_batched_plain_matches_reference(dtype, code_mode):
-    H, W, K, B = 8, 16, 8, 3
+@pytest.mark.parametrize("K", [8, 48])
+def test_batched_plain_matches_reference(dtype, code_mode, K):
+    H, W, B = 8, 16, 3
     jfs = _state(np.random.default_rng(5), B, H, W, 16, 9, dtype)
     cfg = (JFieldConfig(dino_dims=8, code_mode=code_mode), FieldConfig(dino_dims=8, code_mode=code_mode))
     keys = jax.random.split(jax.random.PRNGKey(9), B)
@@ -125,6 +133,41 @@ def test_batched_plain_matches_reference(dtype, code_mode):
 # ------------------------------------------------------------ the kernel's walk
 def _bf16(x):
     return torch.from_numpy(np.asarray(x, np.float32)).to(torch.bfloat16).float().numpy()
+
+
+def _tf32(x):
+    """cvt.rna.tf32.f32: fp32 to 10 mantissa bits, to nearest, ties away from
+    zero (on the magnitude's bits, so for either sign)."""
+    b = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    return ((b + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _split(x):
+    """x = hi + lo, each TF32: the kernel's 3xTF32 operands."""
+    hi = _tf32(x)
+    return hi, _tf32(x - hi)
+
+
+def _wgmma(a, b, k_step, passes=None):
+    """a (rows, k) @ b (k, n) as the kernel issues it: k in steps of `k_step`
+    (bf16 k16, TF32 k8), each step's products exact and summed into the fp32
+    accumulator. passes None: the operands as they are (bf16 values); 1: one
+    TF32 pass; 3: the three passes lo hi, hi lo, hi hi of each step. (W2's
+    rows are permuted within a TF32 step in the kernel; a step's sum is
+    exact here, so the order inside it does not show.)"""
+    if passes is None:
+        terms = [(a, b)]
+    elif passes == 1:
+        terms = [(_tf32(a), _tf32(b))]
+    else:
+        (ah, al), (bh, bl) = _split(a), _split(b)
+        terms = [(al, bh), (ah, bl), (ah, bh)]
+    acc = np.zeros((a.shape[0], b.shape[1]), np.float32)
+    for k0 in range(0, a.shape[1], k_step):
+        for x, y in terms:
+            step = x[:, k0:k0 + k_step].astype(np.float64) @ y[k0:k0 + k_step].astype(np.float64)
+            acc = (acc + step).astype(np.float32)
+    return acc
 
 
 def _butterfly(v):
@@ -144,92 +187,152 @@ def _scan(v, op):
     return v
 
 
-def emulate_kernel(base, z, zscale, w_z, w2, b2, color, cfg: EncodeViewConfig, bf16: bool):
-    """csrc/encode_view.cu's arithmetic in numpy fp32, one ray a row and one
-    sample a lane: the code, the hidden units one at a time, then the
-    warp-parallel compositing."""
+def emulate_kernel(base, z, zscale, w_z, w2, b2, color, cfg: EncodeViewConfig, bf16: bool, passes: int = 3):
+    """csrc/encode_view.cu's walk in numpy fp32. The rays' samples padded with
+    dead rows to Kp (the next of 8, 16, 32, 64) in 64-row tiles of 64 / Kp
+    rays, the last tile's rays past N and the dead rows at depth 0 and base 0
+    (the kernel's zeroed buffers); per row the z code (16 columns), its
+    product with W_z and out = h W2 + b2 by `_wgmma` (bf16: code and h
+    rounded to bf16, k16 steps; fp32: `passes` TF32 passes, k8 steps, with
+    W_z and W2 zero-padded to 16 x 64 DC and 64 DC x (64 + 8 or 24)); then
+    one warp a ray, two samples a lane: the product scan, the butterfly sums,
+    the ballot median; each feature column summed over the ray's samples in
+    order by one thread (fused multiply-adds)."""
     f = np.float32
     N, D = base.shape
     K, E, Cz = z.shape[1], w2.shape[1], w_z.shape[0]
-    lane = np.arange(32)
-    live = lane < K
-    zk = np.zeros((N, 32), f)
-    zk[:, :K] = z
-    dl = zk * zscale[:, None]
+    Kp = next(p for p in (8, 16, 32, 64) if K <= p)
+    rpt = 64 // Kp
+    tiles = -(-N // rpt)
+    DP = 64 * -(-D // 64)
+    EP = 24 if E <= 24 else 72
+    # the tiles' rows: ray tile * rpt + row // Kp, sample row % Kp
+    ray = np.arange(tiles * 64) // Kp
+    k = np.arange(tiles * 64) % Kp
+    live = (ray < N) & (k < K)
+    rr = np.minimum(ray, N - 1)
+    zrow = np.where(live, z[rr, np.minimum(k, K - 1)], f(0))
+    brow = np.zeros((tiles * 64, DP), f)
+    brow[ray < N, :D] = base[rr[ray < N]]
+    zs = np.where(ray < N, zscale[rr], f(0))
+
+    dl = zrow * zs
     if cfg.inv_z:
         zn01 = (f(1) / np.maximum(dl, f(1e-3)) - f(1 / cfg.z_far)) / f(1 / cfg.z_near - 1 / cfg.z_far)
     else:
         zn01 = (dl - f(cfg.z_near)) / f(cfg.z_far - cfg.z_near)
     zn = f(2) * zn01 - f(1)
-    code = np.zeros((N, 32, 16), f)
+    code = np.zeros((tiles * 64, 16), f)
     for c in range(Cz):
         if cfg.include_input and c == 0:
-            code[..., c] = zn
+            code[:, c] = zn
         else:
             i = c - int(cfg.include_input)
             arg = zn * f(cfg.freq_factor * 2 ** (i // 2)) + (f(np.pi / 2) if i % 2 else f(0))
-            code[..., c] = np.sin(arg.astype(np.float64)).astype(f)
+            code[:, c] = np.sin(arg.astype(np.float64)).astype(f)
+    wz = np.zeros((16, DP), f)
+    wz[:Cz, :D] = w_z
+    w2p = np.zeros((DP, EP), f)
+    w2p[:D, :E] = w2
     if bf16:
-        code = _bf16(code)
-    wz = np.zeros((D, 16), f)
-    wz[:, :Cz] = w_z.T
-    acc = np.zeros((N, 32, E), f)
-    for j in range(D):
-        t = np.zeros((N, 32), f)
-        for c in range(16):
-            t = t + code[..., c] * wz[j, c]
-        h = base[:, j:j + 1] + t
-        h = np.where(h < 0, f(0), h)
-        if bf16:
-            h = _bf16(h)
-        acc = acc + h[..., None] * w2[j]
-    out = acc + b2
-    x = out[..., 0]
+        acc = _wgmma(_bf16(code), wz, 16)
+        h = _bf16(np.maximum(brow + acc, f(0)))
+        out = _wgmma(h, w2p, 16)
+    else:
+        acc = _wgmma(code, wz, 8, passes)
+        h = np.maximum(brow + acc, f(0))
+        out = _wgmma(h, w2p, 8, passes)
+    out = (out[:, :E] + b2).reshape(tiles * rpt, Kp, E)[:N]
+    zk = zrow.reshape(tiles * rpt, Kp)[:N]
+
+    # one warp a ray: sample 2 lane + t
+    samp = np.arange(64)
+    live = samp < K
+    pad = lambda a, v: np.concatenate([a, np.full((N, 64 - Kp), v, f)], 1)  # noqa: E731
+    x, zz = pad(out[..., 0], 0), pad(zk, 0)
     sigma = np.maximum(x, 0) + np.log1p(np.exp(-np.abs(x)))
-    z_next = zk[:, np.minimum(lane + 1, 31)]
-    delta = np.where(lane + 1 < K, z_next - zk, f(1e10))
+    delta = np.where(samp + 1 < K, zz[:, np.minimum(samp + 1, 63)] - zz, f(1e10))
     alpha = np.where(live, f(1) - np.exp(-np.abs(delta) * np.maximum(sigma, 0)), f(0))
     if cfg.hard_alpha_cap:
         alpha[:, K - 1] = 1.0
     fl = np.where(live, np.maximum(f(1) - alpha, f(1e-10)), f(1))
-    incl = _scan(fl, np.multiply)
+    incl = _scan(fl[:, 0::2] * fl[:, 1::2], np.multiply)
     excl = np.concatenate([np.ones((N, 1), f), incl[:, :-1]], 1)
-    w = alpha * excl
-    total = _butterfly(w)
+    w = np.zeros((N, 64), f)
+    w[:, 0::2] = alpha[:, 0::2] * excl
+    w[:, 1::2] = alpha[:, 1::2] * (excl * fl[:, 0::2])
+    pair = w[:, 0::2] + w[:, 1::2]
+    total = _butterfly(pair)
     if cfg.depth_statistic == "median":
-        below = live & (_scan(w, np.add) / np.maximum(total, f(1e-10))[:, None] < 0.5)
-        depth = zk[np.arange(N), np.minimum(below.sum(1), K - 1)]
+        den = np.maximum(total, f(1e-10))[:, None]
+        cum = _scan(pair, np.add)
+        before = np.concatenate([np.zeros((N, 1), f), cum[:, :-1]], 1)
+        below = ((live[0::2] & ((before + w[:, 0::2]) / den < 0.5)).sum(1)
+                 + (live[1::2] & (cum / den < 0.5)).sum(1))
+        depth = zz[np.arange(N), np.minimum(below, K - 1)]
     else:
-        depth = _butterfly(w * zk)
-    dino = np.stack([_butterfly(w * out[..., e]) for e in range(1, E)], -1)
+        depth = _butterfly(w[:, 0::2] * zz[:, 0::2] + w[:, 1::2] * zz[:, 1::2])
+    dino = np.zeros((N, E - 1), f)
+    for s in range(K):  # fmaf(w, out, sum): the product exact, one rounding
+        dino = (w[:, s, None].astype(np.float64) * out[:, s, 1:] + dino).astype(f)
     return depth, dino, color * total[:, None]
 
 
-@pytest.mark.parametrize("K", [5, 12, 32])
-@pytest.mark.parametrize("bf16", [False, True], ids=["fp32", "bf16"])
-@pytest.mark.parametrize("depth_statistic", ["expectation", "median"])
-def test_kernel_walk_matches_plain(K, bf16, depth_statistic):
-    rng = np.random.default_rng(K)
-    N, D, E = 64, 16, 7
-    cfg = EncodeViewConfig(depth_statistic=depth_statistic)
+def _walk_inputs(rng, N, K, D, E, bf16, w_scale):
     base = rng.normal(size=(N, D)).astype(np.float32)
     z = np.sort(rng.uniform(3, 80, size=(N, K)), -1).astype(np.float32)
     zscale = rng.uniform(0.8, 1.0, size=N).astype(np.float32)
-    w_z, w2 = rng.normal(size=(13, D)).astype(np.float32) * 0.3, rng.normal(size=(D, E)).astype(np.float32) * 0.3
+    w_z = (rng.normal(size=(13, D)) * w_scale[0]).astype(np.float32)
+    w2 = (rng.normal(size=(D, E)) * w_scale[1]).astype(np.float32)
     if bf16:
         w_z, w2 = _bf16(w_z), _bf16(w2)
-    b2 = rng.normal(size=E).astype(np.float32) * 0.2
+    b2 = (rng.normal(size=E) * 0.2).astype(np.float32)
+    b2[0] += 0.5
     color = rng.uniform(size=(N, 3)).astype(np.float32)
+    return base, z, zscale, w_z, w2, b2, color
+
+
+def _plain(args, cfg, bf16):
     dt = torch.bfloat16 if bf16 else torch.float32
-    plain = encode_view_plain(torch.from_numpy(base), torch.from_numpy(z), torch.from_numpy(zscale),
-                              torch.from_numpy(w_z).to(dt), torch.from_numpy(w2).to(dt), torch.from_numpy(b2),
-                              torch.from_numpy(color), cfg)
-    emu = emulate_kernel(base, z, zscale, w_z, w2, b2, color, cfg, bf16)
+    base, z, zscale, w_z, w2, b2, color = map(torch.from_numpy, args)
+    return encode_view_plain(base, z, zscale, w_z.to(dt), w2.to(dt), b2, color, cfg)
+
+
+@pytest.mark.parametrize("K", [5, 12, 32, 48, 64])
+@pytest.mark.parametrize("bf16", [False, True], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("depth_statistic", ["expectation", "median"])
+def test_kernel_walk_matches_plain(K, bf16, depth_statistic):
+    cfg = EncodeViewConfig(depth_statistic=depth_statistic)
+    args = _walk_inputs(np.random.default_rng(K), 37, K, 16, 7, bf16, (0.3, 0.3))
+    plain = _plain(args, cfg, bf16)
+    emu = emulate_kernel(*args, cfg, bf16)
     for name, p, e in zip(("depth", "feature", "rgb"), plain, emu):
         if name == "depth" and depth_statistic == "median":
             np.testing.assert_array_equal(p.numpy(), e)
         else:
             np.testing.assert_allclose(p.numpy(), e, rtol=1e-5, atol=1e-4 if name == "depth" else 1e-5, err_msg=name)
+
+
+def test_three_tf32_passes_hold_the_fp32_bounds_where_one_does_not():
+    """The fp32 state at d_hidden 128, d_out 65 with the seeded state's weight
+    scales (W_code x 39^-0.5, W2 x 128^-0.5; tools/bench_encode_view.py):
+    the kernel's three TF32 passes stay within the fp32 state's bounds of the
+    plain version (depth 1e-3 m, feature and colour 1e-4:
+    bench_encode_view.TOL, tests/test_torch_kernels.py), one pass does not."""
+    from scenedino_torch.tools.bench_encode_view import TOL
+
+    cfg = EncodeViewConfig()
+    args = _walk_inputs(np.random.default_rng(3), 64, 32, 128, 65, False, (39 ** -0.5, 128 ** -0.5))
+    plain = [t.numpy() for t in _plain(args, cfg, False)]
+    tol = TOL[torch.float32]
+
+    def errors(passes):
+        emu = emulate_kernel(*args, cfg, False, passes)
+        return {name: float(np.abs(p - e).max()) for name, p, e in zip(tol, plain, emu)}
+
+    three, one = errors(3), errors(1)
+    assert all(three[name] <= tol[name] / 10 for name in tol), three
+    assert any(one[name] > tol[name] for name in tol), one
 
 
 def test_wrapper_refuses_what_the_function_does_not_take():

@@ -15,8 +15,9 @@ the CDF across 0.5 only on a near tie), on at most 1% of rays; K3
 weights 5e-3; K4 sigma and feature 1e-2 (per point, not averaged over a
 ray); the row gather exactly; the
 log-sum-exp 1e-3 (fp32 statistics of bf16 inputs, summed in another
-order, exp2 approximate on the card); K6 (the encode view) in fp32 depth
-1e-3 m, feature and colour 1e-4 (fp32 sums in another order), in bf16
+order, exp2 approximate on the card); K6 (the encode view) up to 64
+samples a ray, in fp32 depth 1e-3 m, feature and colour 1e-4 (three TF32
+passes: fp32's accuracy, summed in another order), in bf16
 K2's bounds and its median rule, the feature's times its largest
 magnitude where that exceeds 1 (these tests' random inputs are larger
 than the path's, and a flip of h moves the feature in proportion); the backward's dq, dk, dv K1_BWD_REL of the largest magnitude of
@@ -425,7 +426,8 @@ def test_row_gather_launches_on_the_current_stream(cuda):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("K,D,E", [(7, 16, 7), (32, 64, 17), (32, 128, 65), (19, 128, 68)])
+@pytest.mark.parametrize("K,D,E", [(7, 16, 7), (32, 64, 17), (32, 128, 65), (19, 128, 68), (48, 128, 65),
+                                   (64, 64, 17), (9, 64, 33), (40, 96, 24), (5, 18, 3)])
 @pytest.mark.parametrize("depth_statistic", ["expectation", "median"])
 def test_encode_view_kernel_matches_plain(cuda, dtype, K, D, E, depth_statistic):
     g = torch.Generator(device=cuda).manual_seed(K * D + E)
@@ -467,7 +469,7 @@ def test_encode_view_kernel_refuses_what_it_does_not_take(cuda):
             torch.randn(13, D, device=cuda), torch.randn(D, E, device=cuda), torch.zeros(E, device=cuda),
             torch.rand(N, 3, device=cuda)]
     encode_view(*args, cfg)
-    for bad in ({1: torch.rand(N, 33, device=cuda) + 3}, {4: torch.randn(D, 69, device=cuda), 5: torch.zeros(69, device=cuda)},
+    for bad in ({1: torch.rand(N, 65, device=cuda) + 3}, {4: torch.randn(D, 69, device=cuda), 5: torch.zeros(69, device=cuda)},
                 {0: torch.randn(N, 136, device=cuda), 3: torch.randn(13, 136, device=cuda),
                  4: torch.randn(136, E, device=cuda)},
                 {0: torch.randn(D, N, device=cuda).T}, {6: torch.rand(N, 3, device=cuda).to(torch.float64)}):
