@@ -114,10 +114,34 @@ Phases, one line each:
   7b         3 steps and a validation of
              configs/train_semantic_synthetic_convergence.yaml (fp32, tiny
              ViT, d_hidden 64) from tests/goldens/s1b_field_params.npz
+  8 eval     evaluation from phase 7's run directory. 8a: a seeded
+             SSCBench-KITTI-360 tree of 3 frames of sequence 09 (376x1408
+             PNGs written by the port, the release's P_rect_00 and camera
+             -> velodyne, poses, voxel GT of SSCBench ids and 255) through
+             cli.evaluate_sscbench.main (encode_prefolded, K4 over 4 blocks
+             of 524,288 voxel centres a frame, the head, the
+             alpha-weighted argmax, the host accumulation); the table
+             finite in [0, 1], each range's occupancy numbers covering its
+             valid in-view voxels, 12 K1 and 4 K4 launches a frame; one
+             frame with --test-alpha-cutoffs; ties of the alpha-weighted
+             argmax take the first class; K4 on each block of one frame
+             against point_query_plain (phase 3c's error over each point's
+             largest output; the trained field's outputs exceed 1) and the
+             labels of both (99.9 % of in-view voxels); K4's times at the
+             block; the
+             fast path against --slow (printed, not gated). 8b: a seeded
+             Cityscapes tree of 3 frames at 1024x2048 through
+             cli.evaluate.main with configs/evaluate_semantic_cityscapes.yaml
+             and phase 7's model and downstream blocks (encode, the fp32
+             fold, K6, the 768-d expansion, four modes); every value finite
+             in [0, 1], 12 K1 and 1 K6 launches a frame; once with apply_crf
+             on one frame; K6 on one frame against its plain version (fp32
+             bounds) and the four modes' labels of both (99.9 %)
   kernels    one JSON line: launches (all serving paths, training, the
-             train run and stage 2 together), error, times and bound per
-             kernel; the K1 forward's and K6's also at each of their shapes
-             ("shapes")
+             train run, stage 2 and evaluation together), error, times and
+             bound per kernel; the K1 forward's, K4's and K6's also at
+             their shapes ("shapes": K4 at the evaluation's block, K6 at
+             the 2D evaluator's fp32 frame)
 The line before the last is the card's name and power limit as
 nvidia-smi prints them; the last line is {"ok": true, "device": {...}}.
 Any failed phase exits non-zero before that line. Needs one CUDA card;
@@ -1530,7 +1554,7 @@ def phase_stage2(seed, stage1_dir, scratch):
         for lg in loggers:
             lg.removeHandler(records)
     print(f"phase 7 wall time {time.perf_counter() - t_phase:.1f} s", flush=True)
-    return counts
+    return counts, conf["output"]["path"]
 
 
 def _to(draws, device):
@@ -1590,6 +1614,366 @@ def phase_stage2_convergence(seed, scratch):
         fail("the stage-2 convergence recipe's run was not 3 finite applied steps and one finite validation "
              "through K6")
     return counts
+
+
+# phase 8: the evaluations' cuts (frames of each synthetic tree), the label
+# agreement of a kernel's path with its plain version's on the same frame
+EVAL_FRAMES = 3
+EVAL_LABELS_AGREE = 0.999
+SSC_BLOCK = 128 * 128 * 32
+SSC_SEQ = "2013_05_28_drive_0009_sync"
+
+
+def _write_kv(path, rows):
+    with open(path, "w") as f:
+        for key, value in rows:
+            f.write(key + ": " + " ".join(repr(float(x)) for x in np.ravel(value)) + "\n")
+
+
+def write_sscbench_tree(root, rng):
+    """A seeded SSCBench-KITTI-360 tree of EVAL_FRAMES frames of sequence 09
+    in the release's layout: 376x1408 front images (the port's PNG writer),
+    calib_cam_to_pose.txt, calib_cam_to_velo.txt (the release's camera ->
+    velodyne), perspective.txt (the release's P_rect_00 and size), poses.txt,
+    and (256, 256, 32) uint8 voxel GT drawn from the SSCBench label ids and
+    255 (a ground layer, blocks above it, invalid patches)."""
+    from scenedino_torch.datasets.image_io import write_png
+    from scenedino_torch.eval.sscbench import CAM2VELO, CAM_K
+
+    calib = os.path.join(root, "calibration")
+    img_dir = os.path.join(root, "data_2d_raw", SSC_SEQ, "image_00", "data_rect")
+    for d in (calib, img_dir, os.path.join(root, "data_poses", SSC_SEQ), os.path.join(root, "voxel_gt", SSC_SEQ)):
+        os.makedirs(d, exist_ok=True)
+    _write_kv(os.path.join(calib, "calib_cam_to_pose.txt"),
+              [(f"image_0{i}", np.hstack([np.eye(3), [[0.8 * i], [0.3], [-0.1]]])) for i in range(4)])
+    with open(os.path.join(calib, "calib_cam_to_velo.txt"), "w") as f:
+        f.write(" ".join(repr(float(x)) for x in CAM2VELO[:3].ravel()) + "\n")
+    _write_kv(os.path.join(calib, "perspective.txt"),
+              [("P_rect_00", np.hstack([CAM_K, np.zeros((3, 1))])), ("R_rect_00", np.eye(3)),
+               ("R_rect_01", np.eye(3)), ("S_rect_00", [1408, 376])])
+    poses = []
+    for i in range(EVAL_FRAMES):
+        write_png(os.path.join(img_dir, f"{i:010d}.png"), rng.integers(0, 256, (376, 1408, 3), dtype=np.uint8))
+        poses.append([i] + list(np.hstack([np.eye(3), [[0.0], [0.0], [1.5 * i]]]).ravel()))
+        gt = np.zeros((256, 256, 32), np.uint8)
+        gt[:, :, :3] = rng.choice(np.array([7, 8, 9, 10], np.uint8), size=(256, 256, 3))
+        for _ in range(40):
+            x, y, z = rng.integers(0, 240), rng.integers(0, 240), rng.integers(3, 20)
+            gt[x:x + 16, y:y + 16, z:z + 8] = rng.choice(np.array([1, 2, 11, 13, 14, 15, 16, 18], np.uint8))
+        gt[rng.random((256, 256, 32)) < 0.05] = 255
+        np.save(os.path.join(root, "voxel_gt", SSC_SEQ, f"{i:06d}_1_1.npy"), gt)
+    np.savetxt(os.path.join(root, "data_poses", SSC_SEQ, "poses.txt"), np.asarray(poses))
+
+
+def write_cityscapes_tree(root, rng):
+    """A seeded Cityscapes tree of EVAL_FRAMES frames at the release's 1024x2048:
+    leftImg8bit/val/<city>/*_leftImg8bit.png and gtFine/val/<city>/*_gtFine_labelIds.png."""
+    from scenedino_torch.datasets.image_io import write_png
+
+    for i in range(EVAL_FRAMES):
+        city = ("frankfurt", "lindau", "munster")[i]
+        for d in ("leftImg8bit", "gtFine"):
+            os.makedirs(os.path.join(root, d, "val", city), exist_ok=True)
+        base = f"{city}_000000_{i:06d}"
+        write_png(os.path.join(root, "leftImg8bit", "val", city, f"{base}_leftImg8bit.png"),
+                  rng.integers(0, 256, (1024, 2048, 3), dtype=np.uint8))
+        write_png(os.path.join(root, "gtFine", "val", city, f"{base}_gtFine_labelIds.png"),
+                  rng.integers(0, 34, (1024, 2048), dtype=np.uint8))
+
+
+def _run_logged(fn, argv):
+    """fn(argv) with the launch counters zeroed before and read after, the
+    "evaluation" logger's records and the peak memory: (result, launches,
+    per-frame records, peak GiB, wall s)."""
+    from scenedino_torch import kernels
+
+    records = LogRecords()
+    log = logging.getLogger("evaluation")
+    log.setLevel(logging.INFO)
+    log.addHandler(records)
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        out = fn(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = kernels.launches()
+    finally:
+        log.removeHandler(records)
+    return out, counts, records.with_attr("frame"), torch.cuda.max_memory_allocated() / 2 ** 30, wall
+
+
+def _in_unit(values) -> bool:
+    return all(np.isfinite(float(v)) and 0.0 <= float(v) <= 1.0 for v in values)
+
+
+def phase_eval_sscbench(seed, stage2_dir, scratch, device="cuda"):
+    """Phase 8a: `cli.evaluate_sscbench.main` on a seeded SSCBench tree with
+    phase 7's stage-2 run; then with --test-alpha-cutoffs on one frame; K4
+    against its plain version on every block of one frame and the labels
+    of both; the fast path against --slow (printed). Returns (the main
+    run's launches, K4's block measurement)."""
+    from scenedino_torch import kernels
+    from scenedino_torch.cli import evaluate_sscbench as cli
+    from scenedino_torch.cli.evaluate import eval_model
+    from scenedino_torch.datasets.sscbench import SSCBenchDataset
+    from scenedino_torch.eval import sscbench as S
+    from scenedino_torch.kernels.point_render import point_query, point_query_plain
+    from scenedino_torch.ops import fast_field
+    from scenedino_torch.utils.config import load_run_config
+    from scenedino_torch.utils.timing import profile_device, time_ms
+
+    root = tempfile.mkdtemp(prefix="sscbench_", dir=scratch)
+    t0 = time.perf_counter()
+    write_sscbench_tree(root, np.random.default_rng(seed + 80))
+    write_s = time.perf_counter() - t0
+    config = load_run_config(stage2_dir)
+    field, head = eval_model(config, stage2_dir, device)
+    depth = field.encoder.vit_encoder.vit.cfg.depth
+    argv = ["--data", root, "--voxel-gt", os.path.join(root, "voxel_gt"), "--ckpt", stage2_dir,
+            "--config", stage2_dir, "--device", device]
+    (table, acc), counts, frames, peak, wall = _run_logged(cli.main, argv)
+    blocks = 256 * 256 * 32 // SSC_BLOCK
+    enc = config["model"]["encoder"]
+    stages = ("read_ms", "encode_ms", "query_ms", "accumulate_ms")
+    expect = {**{name: 0 for name in kernels.WRAPPERS}, "attention": EVAL_FRAMES * depth,
+              "point_query": EVAL_FRAMES * blocks}
+    print(f"phase 8a SSCBench: cli.evaluate_sscbench.main on a seeded tree of {EVAL_FRAMES} frames "
+          f"(376x1408 PNGs, written in {write_s:.1f} s) with phase 7's run ({enc['encoder_arch']} {enc['version']}, "
+          f"DPT {enc['decoder_out_dim']}, with_amp {config.get('with_amp')}, {enc['image_size']}, "
+          f"{config['downstream']['n_classes']} clusters), fast path: {json.dumps(table)}; per frame host ms "
+          f"{json.dumps([{k: round(getattr(r, k), 1) for k in stages} for r in frames])}; "
+          f"{wall:.1f} s wall (model build and load included); peak memory allocated {peak:.3f} GiB; launches "
+          f"{json.dumps(counts)} (expected {json.dumps(expect)}: {depth} K1 and {blocks} K4 blocks of {SSC_BLOCK} "
+          f"points a frame)", flush=True)
+    if not all(_in_unit(table[s].values()) for s in ("12.8", "25.6", "51.2")) or not table["sec_per_frame"] > 0:
+        fail(f"the SSCBench table is not finite in [0, 1]: {table}")
+    if counts != expect or len(frames) != EVAL_FRAMES:
+        fail(f"the SSCBench evaluation launched {counts} over {len(frames)} frames, expected {expect}")
+    # every range's occupancy numbers cover the valid in-view voxels of all frames
+    dataset = SSCBenchDataset(data_path=root, voxel_gt_path=os.path.join(root, "voxel_gt"))
+    fov = S.get_fov_mask()
+    valid = {size: 0 for size in S.SIZES}
+    for i in range(EVAL_FRAMES):
+        target = S.convert_voxels(dataset[i]["voxel_gt"], S.SSCBENCH_TO_LABEL)
+        target = np.where(S.identify_additional_invalids(target), 255, target)
+        for size in S.SIZES:
+            nv = int(size // 0.2)
+            sl = np.s_[:nv, 128 - nv // 2:128 + nv // 2, :]
+            valid[size] += int(((target[sl] != 255) & fov[sl]).sum())
+    covered = {size: sum(acc.results[size][k] for k in ("tp", "fp", "tn", "fn")) for size in S.SIZES}
+    print(f"phase 8a occupancy numbers per range (tp + fp + tn + fn) {covered}, valid in-view voxels {valid}",
+          flush=True)
+    if covered != valid:
+        fail("the SSCBench occupancy numbers do not cover the valid in-view voxels")
+
+    (diag, _), _, dframes, _, dwall = _run_logged(cli.main, argv + ["--max-frames", "1", "--test-alpha-cutoffs"])
+    print(f"phase 8a --test-alpha-cutoffs on one frame ({dwall:.1f} s, accumulation "
+          f"{dframes[0].accumulate_ms:.1f} ms): best cutoffs {json.dumps(diag['best_alpha_cutoffs'])}; tradeoff "
+          f"{json.dumps(diag['sigma_tradeoff'][:3])} ...", flush=True)
+    if len(diag["best_alpha_cutoffs"]) != 15 or not all(np.isfinite(r["iou"]) for r in diag["sigma_tradeoff"]):
+        fail("the sigma-cutoff search is incomplete or not finite")
+
+    # the alpha-weighted argmax on the card: equal weighted scores (a tie, or sigma 0) give the first class
+    tie_sigma = torch.tensor([0.0, 1.0, 1.0], device=device)
+    tie_scores = torch.tensor([[0.0, 1.0, 1.0], [0.5, 0.5, 0.2], [0.1, 0.3, 0.3]], device=device)
+    ties = S.make_grid_predictor(lambda b, _: (tie_sigma[None], tie_scores[None]), chunk_points=3, grow=False,
+                                 grid_dim=(3, 1, 1), coherent=False)(torch.zeros(3, 3, device=device), None)[1]
+    print(f"phase 8a alpha-weighted argmax of tied scores on the card: {ties.reshape(-1).tolist()} (the first "
+          f"class of each tie: [0, 0, 1])", flush=True)
+    if ties.reshape(-1).tolist() != [0, 0, 1]:
+        fail("the alpha-weighted argmax does not take the first class of a tie on the card")
+
+    # K4 on every block of frame 0 against its plain version on the card, and the labels of the two
+    sample = dataset[0]
+    frame = [torch.from_numpy(sample[k])[None].to(device) for k in ("imgs", "projs", "poses")]
+    pts, fov_flat = S.generate_point_grid()
+    pts = torch.from_numpy(pts).to(device)
+    fs = cli.make_encode_fn(field, fast=True)(*frame)
+    coherent = pts.reshape(256, 256, 32, 3).permute(2, 0, 1, 3).reshape(-1, SSC_BLOCK, 3)
+    view = fast_field._single_view(fs, "phase 8a")
+    pcfg = fast_field._point_config(field.cfg)
+    # errors as phase 3c's; a trained field's outputs exceed 1, where one bf16 flip of h moves an output in
+    # proportion to its size: the gate is the error over each point's largest output (at least 1)
+    err_abs, err_range, err_scaled, size_at_range = 0.0, 0.0, 0.0, 0.0
+    for block in coherent:
+        sigma, feat = point_query(block, *view, pcfg)
+        ref_s, ref_f = point_query_plain(block, *view, pcfg)
+        d = torch.maximum((sigma - ref_s).abs(), (feat - ref_f).abs().amax(-1))
+        size = torch.maximum(ref_s, ref_f.abs().amax(-1))
+        near = (block[:, 2] >= pcfg.z_near) & (block[:, 2] <= pcfg.z_far)
+        err_abs = max(err_abs, d.max().item())
+        i = torch.argmax(torch.where(near, d, torch.zeros_like(d)))
+        if d[i].item() > err_range:
+            err_range, size_at_range = d[i].item(), size[i].item()
+        err_scaled = max(err_scaled, (d / torch.clamp_min(size, 1.0)).max().item())
+    one_hot = torch.eye(cli.N_CLASSES, device=device)
+    mode = "stego_kmeans"
+
+    def plain_query(block, state):
+        sigma, feat = point_query_plain(block[0], *view, pcfg)
+        return sigma[None], one_hot[field.segment_features(feat, head, mode)[1]][None]
+
+    with torch.no_grad():
+        sig_k, seg_k = S.make_grid_predictor(cli.make_query_fn(field, head, mode, True))(pts, fs)
+        sig_p, seg_p = S.make_grid_predictor(plain_query)(pts, fs)
+    fov3 = torch.from_numpy(fov_flat.reshape(256, 256, 32)).to(device)
+    agree = (seg_k == seg_p)[fov3].float().mean().item()
+    print(f"phase 8a K4 on frame 0's {blocks} blocks against point_query_plain: error over each point's largest "
+          f"output (at least 1) {err_scaled:.3e} (bound {K4_TOL}); max abs error on points in [{pcfg.z_near}, "
+          f"{pcfg.z_far}] m {err_range:.3e} at a point whose largest output is {size_at_range:.3f}, on all points "
+          f"{err_abs:.3e}; grown sigma max abs difference {(sig_k - sig_p).abs().max().item():.3e}; labels equal on "
+          f"{agree:.6f} of the {int(fov3.sum())} in-view voxels (bound {EVAL_LABELS_AGREE})", flush=True)
+    if not (err_scaled <= K4_TOL and agree >= EVAL_LABELS_AGREE):
+        fail("K4 on the SSCBench blocks disagrees with its plain version, or the labels do")
+
+    # K4 at the block shape: times and the bound (distinct grid rows read, points, sigma and features moved)
+    block = coherent[0].contiguous()
+    grid, w_code, b1, w2, b2, feat_w2c, feat_k = view
+    ms = time_ms(lambda: point_query(block, *view, pcfg))
+    plain_ms = time_ms(lambda: point_query_plain(block, *view, pcfg), reps=5)
+    P, D, E, C = block.shape[0], grid.shape[-1], w2.shape[-1], w_code.shape[0]
+    rows = grid_rows_read(block, grid, feat_w2c, feat_k)
+    in_bytes = rows * D * 2 + nbytes(block, w_code, b1, w2, b2, feat_w2c, feat_k)
+    out_bytes = P * 4 * E
+    b, by = bound_ms(2.0 * P * (C * D + D * E), in_bytes + out_bytes)
+    block_entry = {"points": P, "ms": ms, "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
+                   "max_abs_err": err_abs}
+    print(f"phase 8a K4 point_query at the evaluation's block ({P} points, the phase-7 field's "
+          f"{grid.shape[0]}x{grid.shape[1]}x{D} bf16 folded grid, d_out {E}): kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, bound {b:.4f} ms ({by}: {rows} distinct grid rows, inputs {in_bytes / 1e6:.1f} MB, "
+          f"sigma and features {out_bytes / 1e6:.1f} MB); {corner_traffic(P, D)}", flush=True)
+    predict = S.make_grid_predictor(cli.make_query_fn(field, head, mode, True))
+    print(f"phase 8a profile (one frame's grid query: 4 x K4, the 768-d expansion and the head, the argmax, the "
+          f"pool): {profile_device(lambda: predict(pts, fs))}", flush=True)
+
+    # the fast path against --slow on the card (printed): both fold in bf16, at different points
+    with torch.no_grad():
+        state = cli.make_encode_fn(field, fast=False)(*frame)
+        sig_s, seg_s = S.make_grid_predictor(cli.make_query_fn(field, head, mode, False), coherent=False)(pts, state)
+    print(f"phase 8a fast path against --slow (the unfolded bf16 field in plain torch), frame 0: grown sigma max abs "
+          f"difference {(sig_k - sig_s).abs().max().item():.3e} (largest sigma {sig_s.abs().max().item():.3e}); "
+          f"labels equal on {(seg_k == seg_s)[fov3].float().mean().item():.6f} of the in-view voxels", flush=True)
+    del field, head, fs, state
+    return counts, block_entry
+
+
+def _eval_config(root, stage2_dir, data):
+    """configs/evaluate_semantic_cityscapes.yaml with phase 7's model,
+    precision and downstream blocks (it has none: `variant: dino`), the data
+    path set to the seeded tree."""
+    from scenedino_torch.utils.config import load, load_run_config
+
+    conf = load(os.path.join(root, "configs", "evaluate_semantic_cityscapes.yaml"))
+    run = load_run_config(stage2_dir)
+    conf.pop("variant", None)
+    conf["model"], conf["with_amp"] = copy.deepcopy(run["model"]), run.get("with_amp", False)
+    conf["downstream"] = {**conf.get("downstream", {}), **copy.deepcopy(run["downstream"])}
+    conf["dataset"]["data_path"] = data
+    return conf
+
+
+def phase_eval_seg2d(seed, stage2_dir, scratch, device="cuda"):
+    """Phase 8b: `cli.evaluate.main` on a seeded Cityscapes tree with phase
+    7's run, then once with apply_crf on one frame; the evaluator's K6 render
+    against K6's plain version on one frame, and the labels of the four
+    modes. Returns the main run's launches and K6's measurement at the frame."""
+    from scenedino_torch import kernels
+    from scenedino_torch.cli import evaluate as cli
+    from scenedino_torch.datasets import make_test_dataset
+    from scenedino_torch.kernels.encode_view import encode_view, encode_view_plain
+    from scenedino_torch.ops.fast_field import build_fast_state, encode_view_inputs
+    from scenedino_torch.tools.bench_encode_view import TOL, bound
+    from scenedino_torch.utils.config import save_run_config
+    from scenedino_torch.utils.timing import time_ms
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    data = tempfile.mkdtemp(prefix="cityscapes_", dir=scratch)
+    t0 = time.perf_counter()
+    write_cityscapes_tree(data, np.random.default_rng(seed + 81))
+    write_s = time.perf_counter() - t0
+    conf = _eval_config(root, stage2_dir, data)
+    conf_dir = tempfile.mkdtemp(prefix="eval_config_", dir=scratch)
+    save_run_config(conf_dir, conf)
+    out, counts, frames, peak, wall = _run_logged(cli.main, ["--config", conf_dir, "--ckpt", stage2_dir,
+                                                              "--device", device])
+    depth = conf["model"]["encoder"].get("vit_overrides", {}).get("depth", 12)
+    expect = {**{name: 0 for name in kernels.WRAPPERS}, "attention": EVAL_FRAMES * depth,
+              "encode_view": EVAL_FRAMES}
+    summary = {m: {k: round(v, 6) for k, v in r.items()} for m, r in out.items() if isinstance(r, dict)}
+    print(f"phase 8b 2D segmentation: cli.evaluate.main on a seeded Cityscapes tree of {EVAL_FRAMES} frames "
+          f"(1024x2048 PNGs, written in {write_s:.1f} s), configs/evaluate_semantic_cityscapes.yaml with phase 7's "
+          f"model and downstream blocks: {json.dumps(summary)}; per frame host ms "
+          f"{json.dumps([{k: round(getattr(r, k), 1) for k in ('read_ms', 'frame_ms')} for r in frames])}; "
+          f"{wall:.1f} s wall (model build and load included); peak memory allocated {peak:.3f} GiB; launches "
+          f"{json.dumps(counts)} (expected {json.dumps(expect)}: {depth} K1 and one K6 a frame)", flush=True)
+    if out["n_frames"] != EVAL_FRAMES or not all(_in_unit(r.values()) for r in summary.values()):
+        fail(f"the 2D evaluation is not {EVAL_FRAMES} frames of finite values in [0, 1]: {out}")
+    if counts != expect:
+        fail(f"the 2D evaluation launched {counts}, expected {expect}")
+
+    conf_crf = copy.deepcopy(conf)
+    conf_crf["downstream"]["apply_crf"] = True
+    crf_dir = tempfile.mkdtemp(prefix="eval_config_crf_", dir=scratch)
+    save_run_config(crf_dir, conf_crf)
+    out_crf, _, crf_frames, _, crf_wall = _run_logged(cli.main, ["--config", crf_dir, "--ckpt", stage2_dir,
+                                                                 "--max-frames", "1", "--device", device])
+    crf_summary = {m: {k: round(v, 6) for k, v in r.items()} for m, r in out_crf.items() if isinstance(r, dict)}
+    print(f"phase 8b apply_crf (the window CRF, one frame, {crf_wall:.1f} s wall; the frame "
+          f"{crf_frames[0].frame_ms:.1f} ms against {frames[0].frame_ms:.1f} ms without): "
+          f"{json.dumps({m: v for m, v in crf_summary.items() if m.endswith('_crf')})}", flush=True)
+    if len(crf_summary) != 8 or not all(_in_unit(r.values()) for r in crf_summary.values()):
+        fail(f"the CRF rows are missing or not finite in [0, 1]: {out_crf}")
+
+    # K6 as the evaluator launches it (one frame, the fp32 fold) against its plain version on the same inputs
+    from scenedino_torch.eval.seg2d import MODES, Seg2DEvaluator
+
+    field, head = cli.eval_model(conf, stage2_dir, device)
+    H, W = conf["dataset"]["image_size"]
+    ev = Seg2DEvaluator(field=field, head=head, image_size=(H, W))
+    sample = make_test_dataset(conf["dataset"])[0]
+    frame = [torch.as_tensor(sample[k])[None].to(device) for k in ("imgs", "projs", "poses")]
+    with torch.no_grad():
+        state = field.encode(*frame, ids_encoder=(0,))
+        fs = build_fast_state(field, state, compute_dtype=torch.float32)
+        args, ecfg = encode_view_inputs(fs, field.cfg, H, W, u=ev.draws(0, device)[None], n_coarse=ev.n_coarse)
+        out_k = encode_view(*args, ecfg)
+        out_p = encode_view_plain(*args, ecfg)
+        errs = {name: (a - b).abs().max().item() for name, a, b in zip(("depth", "feature", "rgb"), out_k, out_p)}
+        feats = [field.expand_dim(o[1].reshape(H, W, -1)) for o in (out_k, out_p)]
+        agree = {m: (head(feats[0], mode=m) == head(feats[1], mode=m)).float().mean().item() for m in MODES}
+        rendered = ev.render(*frame, ev.draws(0, device))
+        evaluator_err = max((rendered[i].reshape(out_k[i].shape) - out_k[i]).abs().max().item() for i in range(3))
+    tol = TOL[torch.float32]
+    ms = time_ms(lambda: encode_view(*args, ecfg))
+    plain_ms = time_ms(lambda: encode_view_plain(*args, ecfg), reps=3, warmup=1)
+    b, by = bound(args, torch.float32)
+    print(f"phase 8b K6 on frame 0 as the evaluator launches it (fp32 fold, {H}x{W} rays x {ev.n_coarse}): errors "
+          f"{json.dumps(errs)} (bounds {json.dumps(tol)}); the evaluator's own render of the frame differs from this "
+          f"launch's by {evaluator_err:.3e} (bound {tol['feature']}); labels equal "
+          f"{json.dumps({m: round(v, 6) for m, v in agree.items()})} (bound "
+          f"{EVAL_LABELS_AGREE}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b:.4f} ms ({by}; three TF32 "
+          f"passes)", flush=True)
+    if not (all(errs[k] <= tol[k] for k in tol) and evaluator_err <= tol["feature"]
+            and min(agree.values()) >= EVAL_LABELS_AGREE):
+        fail("K6 on the 2D evaluation frame disagrees with its plain version, or the labels do")
+    del field, head, fs, state
+    shape = {"frames": 1, "dtype": "float32", "height": H, "width": W, "d_hidden": args[0].shape[1],
+             "d_out": args[4].shape[1], "samples": ev.n_coarse, "ms": ms, "plain_ms": plain_ms, "bound_ms": b,
+             "bound_by": by, "max_abs_err": max(errs.values())}
+    return counts, shape
+
+
+def phase_eval(seed, stage2_dir, scratch, device="cuda"):
+    """Phase 8: evaluation on the card (8a SSCBench, 8b 2D segmentation) from
+    phase 7's stage-2 run directory. Returns (the two main runs' launches, K4
+    at the evaluation's block, K6 at the evaluator's frame)."""
+    t_phase = time.perf_counter()
+    ssc_counts, k4_block = phase_eval_sscbench(seed, stage2_dir, scratch, device)
+    seg_counts, k6_frame = phase_eval_seg2d(seed, stage2_dir, scratch, device)
+    print(f"phase 8 wall time {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return {k: ssc_counts[k] + seg_counts[k] for k in ssc_counts}, k4_block, k6_frame
 
 
 def main():
@@ -1652,11 +2036,18 @@ def main():
     # the training phases' run directories (checkpoints of GBs) live and go with one temporary directory
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as scratch:
         train_run, stage1_dir = phase_train_run(args.seed, scratch)
-        stage2 = phase_stage2(args.seed, stage1_dir, scratch)
+        stage2, stage2_dir = phase_stage2(args.seed, stage1_dir, scratch)
         stage2_conv = phase_stage2_convergence(args.seed, scratch)
-    paths = (serving, training, train_run, stage2, stage2_conv)
+        evaluation, k4_block, k6_frame = phase_eval(args.seed, stage2_dir, scratch)
+    paths = (serving, training, train_run, stage2, stage2_conv, evaluation)
     for e in entries:
         e["launches"] = sum(p[e["name"]] for p in paths)
+        if e["name"] == "point_query":
+            e["shapes"] = {"SSCBench evaluation block": k4_block}
+            e["max_abs_err"] = max(e["max_abs_err"], k4_block["max_abs_err"])
+        elif e["name"] == "encode_view":
+            e["shapes"]["2D evaluation"] = k6_frame
+            e["max_abs_err"] = max(e["max_abs_err"], k6_frame["max_abs_err"])
     if sorted(e["name"] for e in entries) != sorted(kernels.WRAPPERS):
         fail("the kernels line does not list every kernel")
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",

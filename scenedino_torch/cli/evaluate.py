@@ -1,0 +1,107 @@
+"""2D unsupervised segmentation evaluation (counterpart of
+`scenedino_tpu/cli/evaluate.py`; reference `eval.py` with
+`unified_evaluator.py`):
+
+    python -m scenedino_torch.cli.evaluate --config configs/evaluate_semantic_cityscapes.yaml --ckpt <stage-2 run>
+    python -m scenedino_torch.cli.evaluate --config <run dir or yaml> --ckpt <stage-2 run> --device cpu
+
+`--config` is a YAML file or a run directory holding training_config.yaml
+(read by `utils.config`). With a `model:` block the trained model is
+rebuilt from it (its `with_amp` encodes in bf16, as the port's training
+does), else the `variant: dino` preset at the dataset's image size. The
+checkpoint (`--ckpt`, else the config's `checkpoint:`) is anything
+`utils.checkpoint.load_eval_state` reads that holds a head. Runs on the
+GPU unless `--device` names another device; without a GPU it raises.
+`downstream.apply_crf: true` adds the window CRF's "<mode>_crf" rows.
+Prints each mode's mIoU, weighted mIoU and accuracy as JSON.
+"""
+from __future__ import annotations
+
+import argparse
+import copy
+import json
+import logging
+from typing import Optional, Sequence, Tuple
+
+import torch
+
+from scenedino_torch import resolve_device
+
+
+def eval_model(config: dict, ckpt: str, device, image_size=(192, 640)) -> Tuple[torch.nn.Module, Optional[
+        torch.nn.Module]]:
+    """(field, head or None) for evaluation: the field from the config's
+    `model:` block (its training `with_amp` as a bf16 encoder) or the
+    `variant: dino` preset at `image_size`, the head from its `downstream:`
+    block (the preset's defaults without a model block, as the reference);
+    both frozen, in eval mode, with the weights of `ckpt` loaded strictly."""
+    from scenedino_torch.models.downstream import SemanticHead, SemanticHeadConfig
+    from scenedino_torch.models.factory import SCENEDINO_KITTI_360, make_model
+    from scenedino_torch.utils.checkpoint import load_eval_state
+
+    variant = config.get("variant", "dino")
+    if "model" not in config and variant != "dino":
+        raise NotImplementedError(f"variant {variant!r}: the DINOv2 encoder is not ported (ROADMAP queue 1, item 6)")
+    if "model" in config:
+        model_conf = copy.deepcopy(config["model"])
+        model_conf["encoder"] = dict(model_conf.get("encoder", {}))
+        if config.get("with_amp", False) and not model_conf["encoder"].get("dtype"):
+            model_conf["encoder"]["dtype"] = "bfloat16"
+        head_cfg = SemanticHeadConfig.from_dict(config.get("downstream", {}))
+    else:
+        model_conf = {**SCENEDINO_KITTI_360, "encoder": {**SCENEDINO_KITTI_360["encoder"],
+                                                        "image_size": tuple(image_size)}}
+        head_cfg = SemanticHeadConfig()
+    field = make_model(model_conf, device=device, training=True)
+    field_sd, head_sd = load_eval_state(ckpt, device=device)
+    field.load_state_dict(field_sd)
+    field.eval().requires_grad_(False)
+    head = None
+    if head_sd is not None:
+        head = SemanticHead(head_cfg).to(device)
+        head.load_state_dict(head_sd)
+        head.eval().requires_grad_(False)
+    return field, head
+
+
+def main(argv: Optional[Sequence[str]] = None) -> dict:
+    ap = argparse.ArgumentParser(description="2D unsupervised segmentation evaluation of the PyTorch port.")
+    ap.add_argument("--config", required=True, help="a YAML file or a run directory")
+    ap.add_argument("--ckpt", default=None, help="a stage-2 run directory or checkpoint (default: the config's "
+                                                 "`checkpoint:`)")
+    ap.add_argument("--max-frames", type=int, default=None)
+    ap.add_argument("--data-parallel", action="store_true",
+                    help="frame-parallel over the cards; one card evaluates the frames in turn")
+    ap.add_argument("--device", default=None, help="torch device (default: cuda; 'cpu' runs the plain versions)")
+    args = ap.parse_args(argv)
+    logging.basicConfig(level=logging.INFO)
+
+    from scenedino_torch.datasets import make_test_dataset
+    from scenedino_torch.eval.seg2d import Seg2DEvaluator
+    from scenedino_torch.utils.config import load_run_config
+
+    device = resolve_device(args.device)
+    if args.data_parallel and device.type == "cuda" and torch.cuda.device_count() > 1:
+        raise NotImplementedError("--data-parallel over several cards is not ported (ROADMAP queue 1, item 3)")
+    config = load_run_config(args.config)
+    ckpt = args.ckpt or config.get("checkpoint")
+    if not ckpt:
+        ap.error("--ckpt required (or set `checkpoint:` in the config)")
+    dataset = make_test_dataset(config["dataset"])
+    H, W = config["dataset"].get("image_size", (192, 640))
+    field, head = eval_model(config, ckpt, device, (H, W))
+    if head is None:
+        raise ValueError(f"{ckpt!r} has no semantic head: 2D segmentation evaluation needs a stage-2 checkpoint")
+    evaluator = Seg2DEvaluator(field=field, head=head, image_size=(H, W),
+                               n_classes=max(head.cfg.n_classes, head.cfg.gt_classes), apply_crf=head.cfg.apply_crf,
+                               seed=config.get("seed", 0))
+    results = evaluator.run(dataset, max_frames=args.max_frames)
+    out = {mode: {k: r[k] for k in ("miou", "weighted_miou", "acc")} for mode, r in results.items()
+           if isinstance(r, dict)}
+    out["n_frames"] = results["n_frames"]
+    print(json.dumps(out, indent=2))
+    return out
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,179 @@
+"""SSCBench-KITTI-360 voxel evaluation (counterpart of
+`scenedino_tpu/cli/evaluate_sscbench.py`; reference
+`sscbench/evaluate_model_sscbench.py`):
+
+    python -m scenedino_torch.cli.evaluate_sscbench --data <kitti360 root> --voxel-gt <voxel gt dir> \\
+        --ckpt <stage-2 run> --config <stage-2 run or yaml> [--prediction-mode stego_kmeans] [--max-frames N]
+
+Each frame: encode the front image, query the 256x256x32 voxel grid
+through the field and the semantic head, accumulate occupancy and
+per-class numbers over the ranges 12.8 / 25.6 / 51.2 m; then the direct
+and Hungarian mIoU tables, printed as JSON with the reference's keys. The
+fast path (default) is `encode_prefolded` (K1 in the ViT) and K4 over each
+block of 524,288 voxel centres, the head on each block's features, and the
+alpha-weighted argmax; `--slow` queries the unfolded field in plain torch.
+Runs on the GPU unless `--device` names another device; without a GPU it
+raises. Each frame's host ms (read, encode, query, accumulation) is logged.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import logging
+import time
+from typing import Optional, Sequence
+
+import torch
+
+from scenedino_torch import resolve_device
+
+N_CLASSES = 19
+logger = logging.getLogger("evaluation")
+
+
+def make_query_fn(field, head, prediction_mode: str, fast: bool):
+    """The per-block query (`net.forward(pts, predict_segmentation=True)`,
+    bts.py:553-593): (block (1, P, 3), qstate) -> (sigma (1, P), the one-hot
+    of the head's label (1, P, 19)). qstate is the frame's `FastFieldState`
+    (fast) or `SceneState` (slow)."""
+    from scenedino_torch.ops.fast_field import fast_query_fused
+
+    if head is None:
+        raise RuntimeError("the checkpoint has no semantic head")
+
+    def one_hot(seg):  # zero rows for labels beyond the 19 classes, as jax.nn.one_hot
+        return (seg[..., None] == torch.arange(N_CLASSES, device=seg.device)).float()
+
+    def query_fn(block, qstate):
+        if fast:
+            sigma, seg = fast_query_fused(qstate, field.cfg, block[0],
+                                          seg_fn=lambda d: field.segment_features(d, head, prediction_mode)[1])
+            return sigma[None], one_hot(seg[None])
+        _, sigma, seg = field.query_segmentation(qstate, block, head, prediction_mode)
+        return sigma, one_hot(seg)
+
+    return query_fn
+
+
+def make_encode_fn(field, fast: bool):
+    """Frame -> query state: the poses rebased on the first view, then
+    `encode_prefolded` (fast; the folded grid in bf16, as the reference's)
+    or `SceneField.encode` (slow)."""
+    from scenedino_torch.ops.fast_field import encode_prefolded
+
+    @torch.no_grad()
+    def encode(imgs, projs, poses):
+        poses = torch.linalg.inv_ex(poses[:, :1]).inverse @ poses
+        if fast:
+            return encode_prefolded(field, imgs, projs, poses, ids_encoder=(0,), ids_render=(0,))
+        return field.encode(imgs, projs, poses, ids_encoder=(0,), ids_render=(0,))
+
+    return encode
+
+
+def main(argv: Optional[Sequence[str]] = None):
+    """Run the evaluation; returns (the printed table, the `SSCAccumulator`)."""
+    ap = argparse.ArgumentParser(description="SSCBench-KITTI-360 voxel evaluation of the PyTorch port.")
+    ap.add_argument("--data", required=True)
+    ap.add_argument("--voxel-gt", required=True)
+    ap.add_argument("--ckpt", required=True)
+    ap.add_argument("--variant", default="dino", choices=["dino", "dinov2"])
+    ap.add_argument("--mode", "-m", default="scenedino", choices=["scenedino", "s4c"])
+    ap.add_argument("--resolution", type=int, nargs=2, default=None, metavar=("H", "W"),
+                    help="input resolution (default: the config's image_size, else 192 640)")
+    ap.add_argument("--config", default=None, help="a run directory or YAML to rebuild the trained model from "
+                                                   "(default: the --variant preset)")
+    ap.add_argument("--prediction-mode", default="stego_kmeans",
+                    choices=["stego_kmeans", "direct_linear", "direct_kmeans", "stego_linear"])
+    ap.add_argument("--max-frames", type=int, default=None)
+    ap.add_argument("--calib", default=None, help="semantic-KITTI-style calib.txt (default: the release's values)")
+    ap.add_argument("--slow", action="store_true", help="query the unfolded field (the reference's path)")
+    ap.add_argument("--test-alpha-cutoffs", action="store_true",
+                    help="the per-class sigma-cutoff search and the precision/recall tradeoff")
+    ap.add_argument("--data-parallel", action="store_true",
+                    help="frame-parallel over the cards; one card evaluates the frames in turn")
+    ap.add_argument("--pipelined", action="store_true", help="not ported (ROADMAP queue 1, item 3)")
+    ap.add_argument("--device", default=None, help="torch device (default: cuda; 'cpu' runs the plain versions)")
+    args = ap.parse_args(argv)
+    logging.basicConfig(level=logging.INFO)
+
+    from scenedino_torch.cli.evaluate import eval_model
+    from scenedino_torch.datasets.sscbench import SSCBenchDataset
+    from scenedino_torch.eval import sscbench as S
+    from scenedino_torch.utils.config import load_run_config
+
+    if args.mode == "s4c":
+        raise NotImplementedError("--mode s4c: the monodepth2 baseline is not ported (ROADMAP queue 1, item 8)")
+    if args.variant == "dinov2":
+        raise NotImplementedError("--variant dinov2: the DINOv2 encoder is not ported (ROADMAP queue 1, item 6)")
+    if args.pipelined:
+        raise NotImplementedError("--pipelined: the pipelined grid step is not ported (ROADMAP queue 1, item 3)")
+    device = resolve_device(args.device)
+    if args.data_parallel and device.type == "cuda" and torch.cuda.device_count() > 1:
+        raise NotImplementedError("--data-parallel over several cards is not ported (ROADMAP queue 1, item 3)")
+
+    config = load_run_config(args.config) if args.config else {}
+    H, W = config.get("dataset", {}).get("image_size", (192, 640))
+    if args.resolution is not None:
+        H, W = args.resolution
+    field, head = eval_model(config, args.ckpt, device, (H, W))
+    dataset = SSCBenchDataset(data_path=args.data, voxel_gt_path=args.voxel_gt, target_image_size=(H, W))
+
+    calib = S.read_calib(args.calib)
+    pts, fov_mask = S.generate_point_grid(calib=calib)
+    fov3 = fov_mask.reshape(256, 256, 32)
+    pts = torch.from_numpy(pts).to(device)
+    fast = not args.slow
+    encode = make_encode_fn(field, fast)
+    predict = S.make_grid_predictor(make_query_fn(field, head, args.prediction_mode, fast), coherent=fast)
+
+    acc = S.SSCAccumulator()
+    diag = S.SigmaDiagnostics() if args.test_alpha_cutoffs else None
+    n = len(dataset) if args.max_frames is None else min(args.max_frames, len(dataset))
+    t_total = 0.0
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    for i in range(n):
+        t0 = time.perf_counter()
+        sample = dataset[i]
+        imgs, projs, poses = (torch.from_numpy(sample[k])[None].to(device) for k in ("imgs", "projs", "poses"))
+        sync()
+        t1 = time.perf_counter()
+        with torch.no_grad():
+            qstate = encode(imgs, projs, poses)
+            sync()
+            t2 = time.perf_counter()
+            sigmas, segs = predict(pts, qstate)
+            sigmas, segs = sigmas.cpu().numpy(), segs.cpu().numpy()
+        t3 = time.perf_counter()
+        acc.add_frame(sigmas, segs, sample["voxel_gt"], fov3)
+        if diag is not None:
+            diag.add_frame(sigmas, segs, sample["voxel_gt"], fov3)
+        t4 = time.perf_counter()
+        t_total += t3 - t1
+        ms = {"read_ms": (t1 - t0) * 1e3, "encode_ms": (t2 - t1) * 1e3, "query_ms": (t3 - t2) * 1e3,
+              "accumulate_ms": (t4 - t3) * 1e3}
+        logger.info("frame %d/%d: %s", i + 1, n, ", ".join(f"{k} {v:.1f}" for k, v in ms.items()),
+                    extra={"frame": i, **ms})
+        if (i + 1) % 50 == 0:
+            part = acc.summarize()[51.2]
+            logger.info("frame %d/%d occIoU %.3f mIoU %.3f (%.2f s/frame)", i + 1, n, part["occ_iou"],
+                        part["hungarian_miou"], t_total / (i + 1))
+
+    results = acc.summarize()
+    table = {str(size): {k: r[k] for k in ("occ_iou", "direct_miou", "hungarian_miou")}
+             for size, r in results.items()}
+    table["sec_per_frame"] = t_total / max(n, 1)
+    if diag is not None:
+        table["best_alpha_cutoffs"] = {str(k): v for k, v in diag.best_cutoffs().items()}
+        table["sigma_tradeoff"] = [{"sigma": s_, "precision": p_, "recall": r_, "iou": i_}
+                                   for s_, p_, r_, i_ in diag.tradeoff_curve()]
+    print(json.dumps(table, indent=2))
+    return table, acc
+
+
+if __name__ == "__main__":
+    main()

@@ -44,6 +44,7 @@ from scenedino_torch.training.validation import (
     make_update_model_fn,
     subset_indices,
 )
+from scenedino_torch.utils.checkpoint import FIELD_SNAPSHOT, is_field_state, resolve_run_path
 from scenedino_torch.utils.config import load, save_run_config
 from scenedino_torch.utils.prefetch import ThreadedLoader, device_prefetch, to_device
 
@@ -170,12 +171,7 @@ def load_field(field, resume_from: str) -> str:
     distill a random field. Returns the file read."""
     from scenedino_torch.utils.convert import load_jax_params
 
-    path = resume_from
-    if os.path.isdir(path):
-        snapshot = os.path.join(path, FIELD_SNAPSHOT)
-        path = find_latest_checkpoint(path) or (snapshot if os.path.exists(snapshot) else None)
-        if path is None:
-            raise ValueError(f"resume_from={resume_from!r}: no training_checkpoint_<it>.pt or {FIELD_SNAPSHOT} in it")
+    path = resolve_run_path(resume_from)
     if path.endswith(".npz"):
         with np.load(path) as z:
             load_jax_params(field, {k: z[k] for k in z.files})
@@ -184,15 +180,13 @@ def load_field(field, resume_from: str) -> str:
     ckpt = torch.load(path, map_location=device, weights_only=True)
     if isinstance(ckpt, dict) and isinstance(ckpt.get("field"), dict):
         ckpt = ckpt["field"]  # a stage-1 train state
-    if not (isinstance(ckpt, dict) and any(str(k).startswith(("encoder.", "heads.")) for k in ckpt)):
+    if not is_field_state(ckpt):
         keys = sorted(ckpt)[:6] if isinstance(ckpt, dict) else type(ckpt).__name__
         raise ValueError(f"resume_from={path!r}: unrecognized checkpoint layout ({keys}); refusing to train the "
                          "semantic head against a random field")
     field.load_state_dict(ckpt)
     return path
 
-
-FIELD_SNAPSHOT = "field_params.pt"
 
 
 def init_stage2(config: dict, device):

@@ -196,6 +196,23 @@ class SceneField(nn.Module):
         """64-d field feature -> 768-d DINO space."""
         return self.encoder.expand_dim(features)
 
+    def segment_features(self, dino: torch.Tensor, head: Optional[nn.Module], mode: str = "stego_kmeans"):
+        """The semantic tail of `query_segmentation` for precomputed field
+        features: (768-d features, the head's labels in `mode`, or None
+        without a head). The head is an argument (the reference's field
+        carries it as `downstream`), so the field's parameters stay those
+        of stage 1."""
+        dino_full = self.expand_dim(dino)
+        return dino_full, (head(dino_full, mode=mode) if head is not None else None)
+
+    def query_segmentation(self, state: SceneState, xyz: torch.Tensor, head: Optional[nn.Module],
+                           mode: str = "stego_kmeans"):
+        """The SSC query (bts.py:553-593): xyz (B, P, 3) -> (768-d features,
+        sigma (B, P), labels (B, P) or None without a head)."""
+        _, _, sigma, dino = self(state, xyz, only_density=True)
+        dino_full, seg = self.segment_features(dino, head, mode)
+        return dino_full, sigma, seg
+
     def downsample(self, features: torch.Tensor, mode: str = "patch") -> torch.Tensor:
         """Pool rendered pixel features back to the teacher's patch grid."""
         return self.encoder.downsample(features, mode)

@@ -264,6 +264,9 @@ def render_novel_view_probe(fs: FastFieldState, cfg: FieldConfig, target_pose_c2
     return depth.reshape(height, width), dino.reshape(height, width, -1), rgb
 
 
+SEG_BLOCK = 128 * 128 * 32  # points a call of fast_query_fused's seg_fn takes at most
+
+
 @torch.no_grad()
 def fast_query_fused(fs: FastFieldState, cfg: FieldConfig, xyz: torch.Tensor,
                      segments: int = 64, band: int = 128, seg_fn=None):
@@ -272,14 +275,19 @@ def fast_query_fused(fs: FastFieldState, cfg: FieldConfig, xyz: torch.Tensor,
     (sigma (P,), feature (P, d_out-1)) fp32, or (sigma, seg_fn(feature))
     when `seg_fn` is given.
 
-    seg_fn: a callable on the (P, d_out-1) feature, applied after the
-    kernel (the reference runs it inside its per-segment map). The
-    stage-2 heads it would call are not ported yet. `segments` and `band`
-    tune the TPU's banded gather; the port takes them and ignores them.
+    seg_fn: a callable on a (p, d_out-1) block of features, such as the
+    SSC path's expansion to 768 and the stage-2 head
+    (`SceneField.segment_features`). It runs on blocks of at most
+    `SEG_BLOCK` points, as the reference runs it inside its per-segment
+    map: at 2,097,152 voxel centres the 768-wide fp32 features alone would
+    take 6.4 GB. `segments` and `band` tune the TPU's banded gather; the
+    port takes them and ignores them.
     """
     sigma, feat = point_query(xyz.float().contiguous(), *_single_view(fs, "fast_query_fused"),
                               _point_config(cfg))
-    return sigma, (seg_fn(feat) if seg_fn is not None else feat)
+    if seg_fn is None:
+        return sigma, feat
+    return sigma, torch.cat([seg_fn(feat[p0:p0 + SEG_BLOCK]) for p0 in range(0, feat.shape[0], SEG_BLOCK)])
 
 
 @torch.no_grad()

@@ -11,11 +11,14 @@ buffers (`patch_buffer`, `gap_buffer`, `idx`, `filled`), the counts and
 the counters; the frozen field is written once a run
 (`save_field_snapshot`), as the reference writes `field_params`. The
 run's random generator is not saved, as the reference saves no PRNG key.
+
+`load_eval_state` resolves what the evaluation CLIs are given into the
+field's and the head's weights.
 """
 from __future__ import annotations
 
 import os
-from typing import Any, Dict
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -90,3 +93,75 @@ def save_field_snapshot(path: str, field: torch.nn.Module) -> None:
     run_stage2, cli/train.py:395-407), so the run directory alone rebuilds
     the whole model."""
     _save(path, field.state_dict())
+
+
+FIELD_SNAPSHOT = "field_params.pt"
+
+
+def is_field_state(sd) -> bool:
+    """Whether `sd` is a field's state_dict (keys under encoder. or heads.)."""
+    return isinstance(sd, dict) and any(str(k).startswith(("encoder.", "heads.")) for k in sd)
+
+
+def resolve_run_path(path: str) -> str:
+    """A run directory -> its newest `training_checkpoint_<it>.pt`, else its
+    field snapshot; any other path as given. A directory with neither raises."""
+    from scenedino_torch.training.loop import find_latest_checkpoint
+
+    if not os.path.isdir(path):
+        return path
+    snapshot = os.path.join(path, FIELD_SNAPSHOT)
+    found = find_latest_checkpoint(path) or (snapshot if os.path.exists(snapshot) else None)
+    if found is None:
+        raise ValueError(f"{path!r}: no training_checkpoint_<it>.pt or {FIELD_SNAPSHOT} in it")
+    return found
+
+
+def _from_jax_npz(path: str):
+    """A flat JAX variables tree: the field's parameters, and the head's
+    under params/downstream and state/downstream (the reference's layout)."""
+    import numpy as np
+
+    from scenedino_torch.utils.convert import from_jax_params, head_state_from_jax
+
+    with np.load(path) as z:
+        flat = {k: z[k] for k in z.files}
+    field = {k: v for k, v in flat.items() if k.startswith("params/") and not k.startswith("params/downstream/")}
+    head = {k.replace("/downstream/", "/", 1): v for k, v in flat.items()
+            if k.startswith(("params/downstream/", "state/downstream/"))}
+    if not field:
+        raise ValueError(f"{path}: no params/ leaves of a field")
+    return from_jax_params(field)[0], (head_state_from_jax(head) if head else None)
+
+
+def load_eval_state(ckpt_path: str, device="cpu") -> Tuple[Dict[str, Any], Optional[Dict[str, Any]]]:
+    """(field state_dict, head state_dict or None) from what an evaluation
+    is pointed at (the counterpart of scenedino_tpu/utils/checkpoint.py:72-130):
+
+      * a stage-2 run directory of the port: the head of its newest
+        `training_checkpoint_<it>.pt`, the field of its `field_params.pt`;
+        also such a checkpoint file, with the snapshot beside it;
+      * a stage-1 run directory of the port (its newest checkpoint, else a
+        field snapshot), a stage-1 checkpoint or a field snapshot: no head;
+      * a JAX variables tree saved as a flat `.npz` ("params/..." keys,
+        the head under params/downstream and state/downstream).
+
+    Anything else raises, rather than evaluate random weights. The
+    reference's published torch checkpoints are not read: `utils.convert`
+    maps JAX trees only."""
+    path = resolve_run_path(ckpt_path)
+    if path.endswith(".npz"):
+        return _from_jax_npz(path)
+    ckpt = torch.load(path, map_location=device, weights_only=True)
+    if isinstance(ckpt, dict) and isinstance(ckpt.get("head"), dict):
+        snapshot = os.path.join(os.path.dirname(os.path.abspath(path)), FIELD_SNAPSHOT)
+        if not os.path.exists(snapshot):
+            raise FileNotFoundError(f"stage-2 checkpoint {path!r} has no field snapshot at {snapshot!r}: point the "
+                                    "evaluation at the run directory that the stage-2 run wrote")
+        return torch.load(snapshot, map_location=device, weights_only=True), ckpt["head"]
+    if isinstance(ckpt, dict) and isinstance(ckpt.get("field"), dict):
+        ckpt = ckpt["field"]
+    if not is_field_state(ckpt):
+        keys = sorted(ckpt)[:6] if isinstance(ckpt, dict) else type(ckpt).__name__
+        raise ValueError(f"{path!r}: unrecognized checkpoint layout ({keys})")
+    return ckpt, None

@@ -18,7 +18,8 @@ the FeatUp downsampler, the 64 -> 768 expansion); `load_jax_params`
 skips those subtrees for it and returns them by name. The artifact field
 of a train state is an array beside the tree (`artifact_from_jax`).
 `load_jax_head` loads stage 2's `SemanticHead` variables: its parameters
-and its `state` collection (the pseudo assignments, integer buffers).
+and its `state` collection (the pseudo assignments, integer buffers);
+`head_state_from_jax` gives them as a `state_dict`.
 """
 from __future__ import annotations
 
@@ -114,11 +115,10 @@ def artifact_from_jax(artifact_field) -> torch.Tensor:
     return torch.from_numpy(np.array(artifact_field, dtype=np.float32, order="C"))
 
 
-def load_jax_head(head: torch.nn.Module, variables: Mapping) -> None:
-    """Load a JAX `SemanticHead` variables tree ({"params": ..., "state":
-    ...}, nested or flat with "/"-joined keys) into `head`, strictly:
-    every leaf maps to one parameter or buffer and every one is given. The
-    state collection's `pseudo_assignment` leaves become int64 buffers."""
+def head_state_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """A JAX `SemanticHead` variables tree ({"params": ..., "state": ...},
+    nested or flat with "/"-joined keys) as the port head's `state_dict`:
+    the state collection's `pseudo_assignment` leaves become int64 buffers."""
     flat: Dict[str, np.ndarray] = {}
 
     def walk(node, prefix):
@@ -139,4 +139,10 @@ def load_jax_head(head: torch.nn.Module, variables: Mapping) -> None:
             state[_torch_key(rest)] = torch.from_numpy(value.astype(np.int64))
         else:
             raise ValueError(f"{path}: a SemanticHead tree holds the collections 'params' and 'state'")
-    head.load_state_dict(state, strict=True)
+    return state
+
+
+def load_jax_head(head: torch.nn.Module, variables: Mapping) -> None:
+    """Load a JAX `SemanticHead` variables tree into `head`, strictly: every
+    leaf maps to one parameter or buffer and every one is given."""
+    head.load_state_dict(head_state_from_jax(variables), strict=True)

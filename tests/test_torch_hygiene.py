@@ -1,7 +1,7 @@
 """The PyTorch port stands alone: no module of `scenedino_torch/`, and not
-`chip_smoke.py`, imports JAX, flax or the JAX package, nor PyYAML (the
-card's machine has none: the port reads configs with its own
-`utils.config`); its entry points
+`chip_smoke.py`, imports JAX, flax or the JAX package, nor PyYAML, PIL or
+OpenCV (the card's machine has none of the three: the port reads configs
+with its own `utils.config` and PNGs with `datasets.image_io`); its entry points
 refuse to run quietly on the CPU; its weight converter accounts for every
 leaf of a real parameter tree.
 
@@ -19,7 +19,7 @@ from scenedino_torch.models.factory import SCENEDINO_KITTI_360, make_model
 from scenedino_torch.utils.convert import TRAINING_ONLY, flatten_params, from_jax_params, load_jax_params
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "scenedino_tpu", "yaml")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "scenedino_tpu", "yaml", "PIL", "cv2")
 SOURCES = sorted((ROOT / "scenedino_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
@@ -53,7 +53,9 @@ def test_the_scan_sees_the_whole_package():
             "scenedino_torch/training/validation.py", "scenedino_torch/datasets/synthetic.py",
             "scenedino_torch/kernels/encode_view.py", "scenedino_torch/ops/kmeans.py",
             "scenedino_torch/models/downstream.py", "scenedino_torch/losses/stego.py",
-            "scenedino_torch/training/downstream.py", "scenedino_torch/tools/bench_encode_view.py"} <= names
+            "scenedino_torch/training/downstream.py", "scenedino_torch/tools/bench_encode_view.py",
+            "scenedino_torch/datasets/image_io.py", "scenedino_torch/eval/seg2d.py", "scenedino_torch/eval/crf.py",
+            "scenedino_torch/cli/evaluate.py", "scenedino_torch/cli/evaluate_sscbench.py"} <= names
 
 
 def test_entry_point_without_a_device_refuses_the_cpu():

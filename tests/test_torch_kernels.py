@@ -476,3 +476,74 @@ def test_encode_view_kernel_refuses_what_it_does_not_take(cuda):
         call = [bad.get(i, a) for i, a in enumerate(args)]
         with pytest.raises(ValueError, match="CUDA encode_view kernel"):
             encode_view(*call, cfg)
+
+
+@pytest.mark.cuda
+def test_point_query_kernel_at_an_ssc_block_then_the_heads_labels(cuda):
+    """K4 at the SSC evaluator's block: the first 524,288 voxel centres of
+    the 256x256x32 grid in the coherent (z, x, y) order, over the
+    flagship's 384x1280x128 bf16 folded grid (W2 128x65), against
+    `point_query_plain` within 1e-2 on the points in [z_near, z_far]; then
+    a seeded 64 -> 768 expansion and stage-2 head in stego_kmeans mode give
+    the same labels to at least 99.9% of those points."""
+    from scenedino_torch.eval.sscbench import generate_point_grid
+    from scenedino_torch.models.downstream import SemanticHead, SemanticHeadConfig
+    from scenedino_torch.models.encoder import MlpDimReduction
+
+    g = torch.Generator(device=cuda).manual_seed(11)
+    pts, _ = generate_point_grid()
+    block = torch.from_numpy(pts.reshape(256, 256, 32, 3).transpose(2, 0, 1, 3).reshape(-1, 3)[:128 * 128 * 32].copy())
+    block = block.to(cuda)
+    cfg = PointRenderConfig()
+    D, E, C = 128, 65, 39
+    b2 = torch.randn(E, generator=g, device=cuda) * 0.1
+    b2[0] += 0.5
+    field = (torch.randn(384, 1280, D, generator=g, device=cuda).to(torch.bfloat16),
+             (torch.randn(C, D, generator=g, device=cuda) * C ** -0.5).to(torch.bfloat16),
+             torch.randn(D, generator=g, device=cuda) * 0.1,
+             (torch.randn(D, E, generator=g, device=cuda) * D ** -0.5).to(torch.bfloat16), b2,
+             torch.eye(4, device=cuda), torch.tensor([[0.7, 0.0, 0.0], [0.0, 2.3, 0.0], [0.0, 0.0, 1.0]], device=cuda))
+    before = point_query.launches
+    sigma, feat = point_query(block, *field, cfg)
+    torch.cuda.synchronize()
+    assert point_query.launches == before + 1
+    ref_sigma, ref_feat = point_query_plain(block, *field, cfg)
+    near = (block[:, 2] >= cfg.z_near) & (block[:, 2] <= cfg.z_far)
+    assert near.float().mean().item() > 0.5
+    assert (sigma - ref_sigma)[near].abs().max().item() <= 1e-2
+    assert (feat - ref_feat)[near].abs().max().item() <= 1e-2
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        expand = MlpDimReduction(64, 768).to(cuda)
+    head = SemanticHead(SemanticHeadConfig(), generator=torch.Generator().manual_seed(0)).to(cuda)
+    with torch.no_grad():
+        labels = head(expand(feat), mode="stego_kmeans")
+        ref_labels = head(expand(ref_feat), mode="stego_kmeans")
+    assert (labels == ref_labels)[near].float().mean().item() >= 0.999
+
+
+@pytest.mark.cuda
+def test_encode_view_kernel_on_one_fp32_evaluation_frame(cuda):
+    """K6 as the 2D evaluator launches it: one frame of the fp32 state (its
+    fold in fp32, three TF32 passes) at 192x640 rays x 32 samples from a
+    384x1280x128 grid, W2 128x65: within the fp32 bounds of its plain
+    version, two launches bitwise equal, the median on a sample depth."""
+    from scenedino_torch.tools.bench_encode_view import Shape, check
+
+    r = check(torch.Generator(device=cuda).manual_seed(12), Shape("2D evaluation", 1, torch.float32, 192, 640, 128, 65),
+              reps=2)
+    assert r["ok"], r
+
+
+@pytest.mark.cuda
+def test_grid_predictor_argmax_takes_the_first_of_a_tie_on_the_card(cuda):
+    """The SSC predictor's alpha-weighted argmax on CUDA tensors: equal
+    weighted scores (a tie, or sigma 0) give the first class, as on the CPU
+    and as jnp.argmax."""
+    from scenedino_torch.eval.sscbench import make_grid_predictor
+
+    sigma = torch.tensor([0.0, 1.0, 1.0, 2.0], device=cuda)
+    scores = torch.tensor([[0.0, 1.0, 1.0], [0.5, 0.5, 0.2], [0.1, 0.3, 0.3], [0.2, 0.2, 0.2]], device=cuda)
+    predict = make_grid_predictor(lambda b, _: (sigma[None], scores[None]), chunk_points=4, grow=False,
+                                  grid_dim=(4, 1, 1), coherent=False)
+    assert predict(torch.zeros(4, 3, device=cuda), None)[1].reshape(-1).tolist() == [0, 0, 1, 0]
