@@ -137,17 +137,40 @@ Phases, one line each:
              in [0, 1], 12 K1 and 1 K6 launches a frame; once with apply_crf
              on one frame; K6 on one frame against its plain version (fp32
              bounds) and the four modes' labels of both (99.9 %)
+  9 reference the reference's checkpoints: for the published
+             ssc-kitti-360-dino (configs/train_semantic_kitti_360.yaml's
+             model: ViT-B/8) and -dinov2 (configs/
+             train_scenedino_kitti_360_dinov2.yaml: ViT-B/14, LayerScale,
+             a 37x37 position embedding) architectures, a seeded full-width
+             field and head of 19 clusters written as the reference's
+             trainer writes checkpoint.pt ({"model": BTSWrapper names}, with
+             the artifact field); load_eval_state loads each strictly, bit
+             for bit; cli.evaluate_sscbench.main on phase 8a's tree with
+             --ckpt <x>.pt --config <yaml> (bf16 through with_amp; 12 K1
+             and 4 K4 a frame for v1, 0 K1 for v2's 481 tokens) prints the
+             same table and accumulates the same numbers as on the same
+             weights saved as a port run; K1 (v1) and K4 (both) against
+             their plain versions on the inputs those runs give them; the v2
+             encoder on the GPU against the CPU (the 14/16 pre-resize at
+             192x640, the fp32 ViT at 64x128); one novel-view request on
+             the v2 field (K2) and K2 on its inputs; cli.evaluate.main with
+             evaluate_semantic_cityscapes.yaml's variant: dinov2 on phase
+             8b's tree (one K6 a frame) and K6 on its first frame; the
+             encode times (per frame, and the encoder alone by CUDA events)
+             and sec_per_frame of both, beside the card's name and limit
   kernels    one JSON line: launches (all serving paths, training, the
-             train run, stage 2 and evaluation together), error, times and
+             train run, stage 2, evaluation and phase 9 together), error, times and
              bound per kernel; the K1 forward's, K4's and K6's also at
              their shapes ("shapes": K4 at the evaluation's block, K6 at
-             the 2D evaluator's fp32 frame)
+             the 2D evaluator's fp32 frame; phase 9's holds of K1, K2, K4
+             and K6 under "reference checkpoints")
 The line before the last is the card's name and power limit as
 nvidia-smi prints them; the last line is {"ok": true, "device": {...}}.
 Any failed phase exits non-zero before that line. Needs one CUDA card;
 exits non-zero without one, and outside a checkout of the repository.
 """
 import argparse
+import contextlib
 import copy
 import dataclasses
 import json
@@ -1713,7 +1736,7 @@ def phase_eval_sscbench(seed, stage2_dir, scratch, device="cuda"):
     phase 7's stage-2 run; then with --test-alpha-cutoffs on one frame; K4
     against its plain version on every block of one frame and the labels
     of both; the fast path against --slow (printed). Returns (the main
-    run's launches, K4's block measurement)."""
+    run's launches, K4's block measurement, the tree's root)."""
     from scenedino_torch import kernels
     from scenedino_torch.cli import evaluate_sscbench as cli
     from scenedino_torch.cli.evaluate import eval_model
@@ -1856,7 +1879,7 @@ def phase_eval_sscbench(seed, stage2_dir, scratch, device="cuda"):
           f"difference {(sig_k - sig_s).abs().max().item():.3e} (largest sigma {sig_s.abs().max().item():.3e}); "
           f"labels equal on {(seg_k == seg_s)[fov3].float().mean().item():.6f} of the in-view voxels", flush=True)
     del field, head, fs, state
-    return counts, block_entry
+    return counts, block_entry, root
 
 
 def _eval_config(root, stage2_dir, data):
@@ -1878,7 +1901,7 @@ def phase_eval_seg2d(seed, stage2_dir, scratch, device="cuda"):
     """Phase 8b: `cli.evaluate.main` on a seeded Cityscapes tree with phase
     7's run, then once with apply_crf on one frame; the evaluator's K6 render
     against K6's plain version on one frame, and the labels of the four
-    modes. Returns the main run's launches and K6's measurement at the frame."""
+    modes. Returns the main run's launches, K6's measurement at the frame and the tree's root."""
     from scenedino_torch import kernels
     from scenedino_torch.cli import evaluate as cli
     from scenedino_torch.datasets import make_test_dataset
@@ -1962,18 +1985,299 @@ def phase_eval_seg2d(seed, stage2_dir, scratch, device="cuda"):
     shape = {"frames": 1, "dtype": "float32", "height": H, "width": W, "d_hidden": args[0].shape[1],
              "d_out": args[4].shape[1], "samples": ev.n_coarse, "ms": ms, "plain_ms": plain_ms, "bound_ms": b,
              "bound_by": by, "max_abs_err": max(errs.values())}
-    return counts, shape
+    return counts, shape, data
 
 
 def phase_eval(seed, stage2_dir, scratch, device="cuda"):
     """Phase 8: evaluation on the card (8a SSCBench, 8b 2D segmentation) from
     phase 7's stage-2 run directory. Returns (the two main runs' launches, K4
-    at the evaluation's block, K6 at the evaluator's frame)."""
+    at the evaluation's block, K6 at the evaluator's frame, the SSCBench and
+    Cityscapes trees' roots)."""
     t_phase = time.perf_counter()
-    ssc_counts, k4_block = phase_eval_sscbench(seed, stage2_dir, scratch, device)
-    seg_counts, k6_frame = phase_eval_seg2d(seed, stage2_dir, scratch, device)
+    ssc_counts, k4_block, ssc_root = phase_eval_sscbench(seed, stage2_dir, scratch, device)
+    seg_counts, k6_frame, city_root = phase_eval_seg2d(seed, stage2_dir, scratch, device)
     print(f"phase 8 wall time {time.perf_counter() - t_phase:.1f} s", flush=True)
-    return {k: ssc_counts[k] + seg_counts[k] for k in ssc_counts}, k4_block, k6_frame
+    return {k: ssc_counts[k] + seg_counts[k] for k in ssc_counts}, k4_block, k6_frame, (ssc_root, city_root)
+
+
+# phase 9: the reference's checkpoints. The configs each variant's SSCBench
+# run rebuilds its model from; the v2 encoder's GPU-CPU check: the pre-resize
+# (the same float32 matrices, summed in another order) and the fp32 ViT-B/14
+# with TF32 off (fp32 sums in other orders through 12 blocks), relative to
+# the largest output
+REFERENCE_CONFIGS = {"v1": "train_semantic_kitti_360.yaml", "v2": "train_scenedino_kitti_360_dinov2.yaml"}
+RESIZE_GPU_TOL = 1e-6
+V2_ENCODER_REL = 1e-4
+
+
+@contextlib.contextmanager
+def first_call(module, name):
+    """Keep the arguments of the first call of `module.name` (a kernel
+    wrapper as its caller sees it) in the yielded list; calls pass through."""
+    calls, original = [], getattr(module, name)
+
+    def spy(*args):
+        if not calls:
+            calls.append(args)
+        return original(*args)
+
+    setattr(module, name, spy)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, original)
+
+
+def reference_checkpoint(conf, seed, path, device="cuda"):
+    """A field and head of `conf` (a config's model and downstream blocks)
+    at full width, drawn from `seed` (LayerScale drawn around 0.1, not the
+    initial 1e-5), written to `path` as the reference's trainer writes
+    checkpoint.pt: {"model": BTSWrapper state dict}, on the host. Returns
+    the field's and the head's state_dicts as drawn, and the head."""
+    from scenedino_torch.models.downstream import SemanticHead, SemanticHeadConfig
+    from scenedino_torch.models.factory import make_model
+    from scenedino_torch.utils.convert import to_reference_layout
+
+    field = make_model(conf["model"], device=device, seed=seed, training=True)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    with torch.no_grad():
+        for name, p in field.named_parameters():
+            if name.endswith((".ls1", ".ls2")):
+                p.copy_(0.1 + 0.05 * torch.randn(p.shape, generator=gen, device=device))
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed + 1)
+        head = SemanticHead(SemanticHeadConfig.from_dict(conf.get("downstream", {}))).to(device)
+    enc = field.encoder
+    H_, W_ = conf["model"].get("encoder", {}).get("image_size", (H, W))
+    artifact = 1e-3 * torch.randn(enc.gt_encoder.latent_size, H_ // enc.gt_patch_size, W_ // enc.gt_patch_size,
+                                  generator=gen, device=device)
+    sd = to_reference_layout(field.state_dict(), head.state_dict(), artifact)
+    torch.save({"model": {k: v.cpu() for k, v in sd.items()}}, path)
+    return field.state_dict(), head.state_dict(), head
+
+
+def _bitwise(got, want) -> bool:
+    return got.keys() == want.keys() and all(torch.equal(got[k], want[k]) for k in want)
+
+
+def phase_reference(seed, scratch, ssc_root, city_root, device="cuda"):
+    """Phase 9: checkpoints in the reference's torch layout (the published
+    ssc-kitti-360-dino and -dinov2 architectures) at full width from `seed`,
+    loaded bit for bit; cli.evaluate_sscbench.main on phase 8a's tree with
+    each `.pt` against the same weights as a port run (the tables and the
+    accumulated numbers identical); cli.evaluate.main with `variant: dinov2`
+    on phase 8b's tree; one novel-view request on the v2 field; the v2
+    encoder on the GPU against the CPU; K1, K4, K6 and K2 against their plain
+    versions on this phase's inputs. Returns (the main runs' launches, the
+    holds by kernel)."""
+    from scenedino_torch import kernels
+    from scenedino_torch.cli import evaluate as cli_eval
+    from scenedino_torch.cli import evaluate_sscbench as cli_ssc
+    from scenedino_torch.core.resize import antialias_resize
+    from scenedino_torch.datasets.sscbench import SSCBenchDataset
+    from scenedino_torch.eval import sscbench as S
+    from scenedino_torch.kernels.attention import attention_plain
+    from scenedino_torch.kernels.encode_view import encode_view_plain
+    from scenedino_torch.kernels.point_render import point_query_plain, point_render_plain
+    from scenedino_torch.models import vit as vit_mod
+    from scenedino_torch.models.encoder import DinoViTEncoder, normalize_input
+    from scenedino_torch.ops import fast_field
+    from scenedino_torch.tools.bench_encode_view import TOL
+    from scenedino_torch.training.downstream import DownstreamTrainConfig, init_downstream_state
+    from scenedino_torch.utils.checkpoint import load_eval_state, save_checkpoint
+    from scenedino_torch.utils.config import load, save_run_config
+    from scenedino_torch.utils.timing import card_line, profile_device, time_ms
+
+    t_phase = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    total = {name: 0 for name in kernels.WRAPPERS}
+    holds, encode_ms, spf = {}, {}, {}
+    sample = SSCBenchDataset(data_path=ssc_root, voxel_gt_path=os.path.join(ssc_root, "voxel_gt"))[0]
+    frame = [torch.from_numpy(sample[k])[None].to(device) for k in ("imgs", "projs", "poses")]
+    pts = torch.from_numpy(S.generate_point_grid()[0]).to(device)
+    block = pts.reshape(256, 256, 32, 3).permute(2, 0, 1, 3).reshape(-1, SSC_BLOCK, 3)[0].contiguous()
+    paths = {}
+    for i, (version, config_name) in enumerate(REFERENCE_CONFIGS.items()):
+        config_path = os.path.join(root, "configs", config_name)
+        conf = load(config_path)
+        ckpt = os.path.join(scratch, f"ssc-kitti-360-{version}.pt")
+        t0 = time.perf_counter()
+        field_sd, head_sd, head = reference_checkpoint(conf, seed + 90 + i, ckpt, device)
+        size_gb = os.path.getsize(ckpt) / 1e9
+        write_s = time.perf_counter() - t0
+        # the same weights as a stage-2 run directory of the port
+        run = tempfile.mkdtemp(prefix=f"port_{version}_", dir=scratch)
+        torch.save(field_sd, os.path.join(run, "field_params.pt"))
+        save_checkpoint(os.path.join(run, "training_checkpoint_0.pt"), head,
+                        init_downstream_state(head, DownstreamTrainConfig()))
+        del head
+        t0 = time.perf_counter()
+        got_field, got_head = load_eval_state(ckpt, device=device)
+        load_s = time.perf_counter() - t0
+        n_ref = len(torch.load(ckpt, map_location="cpu", weights_only=True)["model"])
+        exact = _bitwise(got_field, field_sd) and _bitwise(got_head, head_sd)
+        print(f"phase 9 {version}: {config_name}'s model, a reference-layout checkpoint of {n_ref} tensors "
+              f"({size_gb:.3f} GB, drawn and written in {write_s:.1f} s) loaded strictly by load_eval_state in "
+              f"{load_s:.1f} s: {len(got_field)} field and {len(got_head)} head tensors, equal bit for bit to the "
+              f"drawn ones: {exact}", flush=True)
+        if not exact:
+            fail(f"the {version} reference checkpoint did not load bit for bit")
+        del got_field, got_head, field_sd, head_sd
+
+        argv = ["--data", ssc_root, "--voxel-gt", os.path.join(ssc_root, "voxel_gt"), "--config", config_path,
+                "--device", device]
+        (table, acc), counts, frames, peak, wall = _run_logged(cli_ssc.main, argv + ["--ckpt", ckpt])
+        (port_table, port_acc), port_counts, _, _, _ = _run_logged(cli_ssc.main, argv + ["--ckpt", run])
+        blocks = 256 * 256 * 32 // SSC_BLOCK
+        depth = 12 if version == "v1" else 0  # v2: 481 tokens, under K1's 512
+        expect = {**{name: 0 for name in kernels.WRAPPERS}, "attention": EVAL_FRAMES * depth,
+                  "point_query": EVAL_FRAMES * blocks}
+        spf[version] = table["sec_per_frame"]
+        encode_ms[version] = [round(r.encode_ms, 1) for r in frames]
+        same = ({k: v for k, v in table.items() if k != "sec_per_frame"}
+                == {k: v for k, v in port_table.items() if k != "sec_per_frame"}
+                and all(np.array_equal(acc.results[s][k], port_acc.results[s][k]) for s in S.SIZES
+                        for k in acc.results[s]))
+        stages = ("read_ms", "encode_ms", "query_ms", "accumulate_ms")
+        print(f"phase 9 {version} SSCBench: cli.evaluate_sscbench.main --ckpt {os.path.basename(ckpt)} --config "
+              f"{config_name} on phase 8a's {EVAL_FRAMES} frames: {json.dumps(table)}; per frame host ms "
+              f"{json.dumps([{k: round(getattr(r, k), 1) for k in stages} for r in frames])}; "
+              f"{wall:.1f} s wall; peak {peak:.3f} GiB; launches {json.dumps(counts)} (expected {json.dumps(expect)}: "
+              f"{depth} K1 and {blocks} K4 a frame); the same weights as a port run: table and accumulated numbers "
+              f"identical {same}", flush=True)
+        if counts != expect or port_counts != expect or len(frames) != EVAL_FRAMES:
+            fail(f"the {version} SSCBench evaluation launched {counts} / {port_counts}, expected {expect}")
+        if not same or not all(_in_unit(table[s].values()) for s in ("12.8", "25.6", "51.2")):
+            fail(f"the {version} reference checkpoint's SSCBench table differs from the port run's or leaves [0, 1]")
+        for name, n in counts.items():
+            total[name] += n + port_counts[name]
+
+        # the kernels against their plain versions on this checkpoint's inputs
+        field, head = cli_eval.eval_model(conf, ckpt, device)
+        fs = cli_ssc.make_encode_fn(field, fast=True)(*frame)
+        img = frame[0][:, 0]
+
+        def encode_once():
+            with torch.inference_mode():
+                return field.encoder(img)
+
+        encoder_ms = time_ms(encode_once, reps=5)
+        encode_ms[f"{version} encoder (CUDA events)"] = round(encoder_ms, 3)
+        print(f"phase 9 {version} profile (the encoder alone, 192x640, bf16): {profile_device(encode_once)}",
+              flush=True)
+        with torch.no_grad(), first_call(vit_mod, "attention") as k1_calls, \
+                first_call(fast_field, "point_query") as k4_calls:
+            field.encoder(img)
+            fast_field.fast_query_fused(fs, field.cfg, block)
+        if version == "v1":
+            q, k, v = k1_calls[0]
+            err = (vit_mod.attention(q, k, v).float() - attention_plain(q, k, v).float()).abs().max().item()
+            holds["attention"] = {"shape": list(q.shape), "max_abs_err": err}
+            print(f"phase 9 v1 K1 on the checkpoint's first block {tuple(q.shape)} {q.dtype}: max abs err "
+                  f"{err:.3e} (bound {K1_TOL})", flush=True)
+            if not err <= K1_TOL:
+                fail("K1 disagrees with its plain version on the v1 checkpoint's attention")
+        elif k1_calls:
+            fail("the v2 encoder (481 tokens) called K1")
+        args = k4_calls[0]
+        sigma, feat = kernels.point_query(*args)
+        ref_s, ref_f = point_query_plain(*args)
+        d = torch.maximum((sigma - ref_s).abs(), (feat - ref_f).abs().amax(-1))
+        scaled = (d / torch.clamp_min(torch.maximum(ref_s, ref_f.abs().amax(-1)), 1.0)).max().item()
+        holds.setdefault("point_query", {})[version] = {"points": block.shape[0], "max_abs_err": d.max().item(),
+                                                         "err_over_largest_output": scaled}
+        print(f"phase 9 {version} K4 on the first 524,288-point block: error over each point's largest output "
+              f"{scaled:.3e} (bound {K4_TOL}), max abs {d.max().item():.3e}", flush=True)
+        if not scaled <= K4_TOL:
+            fail(f"K4 disagrees with its plain version on the {version} checkpoint's block")
+        paths[version] = (ckpt, field, head)
+        del fs
+
+    # the v2 encoder on the GPU against the CPU: the pre-resize at 192x640, the fp32 ViT at 64x128
+    ckpt, field, head = paths["v2"]
+    x = normalize_input(frame[0][:, 0].float())
+    resize_err = (antialias_resize(x, (168, 560)).cpu() - antialias_resize(x.cpu(), (168, 560))).abs().max().item()
+    ecfg = field.encoder.cfg  # the same encoder in fp32
+    enc32 = DinoViTEncoder(ecfg.encoder_arch, ecfg.version, tuple(ecfg.intermediate_features),
+                           vit_overrides=ecfg.vit_overrides).to(device).eval()
+    enc32.load_state_dict(field.encoder.vit_encoder.state_dict())
+    small = torch.nn.functional.interpolate(frame[0][:, 0].float(), (64, 128), mode="area")
+    with torch.no_grad():
+        gpu = enc32(small)
+        cpu = enc32.cpu()(small.cpu())
+    rel = max(((g.cpu() - c).abs().max() / c.abs().max()).item() for g, c in zip(gpu, cpu))
+    print(f"phase 9 v2 encoder GPU against CPU: the 14/16 pre-resize 192x640 -> 168x560 max abs err "
+          f"{resize_err:.3e} (bound {RESIZE_GPU_TOL}); the fp32 ViT-B/14 at 64x128 (56x112, a 4x8 grid), each grid's "
+          f"max abs err over its largest value {rel:.3e} (bound {V2_ENCODER_REL})", flush=True)
+    if not (resize_err <= RESIZE_GPU_TOL and rel <= V2_ENCODER_REL):
+        fail("the v2 encoder on the GPU disagrees with the CPU")
+    del enc32, gpu, cpu
+
+    # one novel-view request on the v2 field (K2), then K2 on its inputs
+    g = torch.Generator(device=device).manual_seed(seed + 95)
+    u = torch.rand(H * W, K, generator=g, device=device)
+    kernels.reset_launches()
+    with first_call(fast_field, "point_render") as k2_calls:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = serve(field, frame[0][:, :1], u, device)
+        torch.cuda.synchronize()
+        serve_ms = (time.perf_counter() - t0) * 1e3
+    counts = kernels.launches()
+    check_depth("v2 novel-view", *out)
+    expect = {**{name: 0 for name in kernels.WRAPPERS}, "point_render": 1}
+    args = k2_calls[0]
+    k2 = kernels.point_render(*args)
+    ref = point_render_plain(*args)
+    errs = [(a - b).abs().max().item() for a, b in zip(k2, ref)]
+    holds["point_render"] = {"rays": args[0].shape[0], "samples": args[1].shape[1], "max_abs_err": max(errs)}
+    print(f"phase 9 v2 novel-view request: {serve_ms:.1f} ms, launches {json.dumps(counts)} (expected "
+          f"{json.dumps(expect)}); K2 on its inputs: errors depth {errs[0]:.3e} m, feature {errs[1]:.3e}, rgb "
+          f"{errs[2]:.3e} (bounds {K2_DEPTH_TOL}, {K2_FEAT_TOL}, {K2_RGB_TOL})", flush=True)
+    if counts != expect:
+        fail(f"the v2 novel-view request launched {counts}, expected {expect}")
+    if not (errs[0] <= K2_DEPTH_TOL and errs[1] <= K2_FEAT_TOL and errs[2] <= K2_RGB_TOL):
+        fail("K2 disagrees with its plain version on the v2 request")
+    for name, n in counts.items():
+        total[name] += n
+    del field, head, paths
+
+    # the 2D evaluator on the v2 checkpoint: the variant: dinov2 preset (fp32), phase 8b's tree
+    conf = load(os.path.join(root, "configs", "evaluate_semantic_cityscapes.yaml"))
+    conf["variant"] = "dinov2"
+    conf["dataset"]["data_path"] = city_root
+    conf_dir = tempfile.mkdtemp(prefix="eval_config_v2_", dir=scratch)
+    save_run_config(conf_dir, conf)
+    with first_call(fast_field, "encode_view") as k6_calls:
+        out, counts, frames, peak, wall = _run_logged(cli_eval.main, ["--config", conf_dir, "--ckpt", ckpt,
+                                                                      "--device", device])
+    expect = {**{name: 0 for name in kernels.WRAPPERS}, "encode_view": EVAL_FRAMES}
+    summary = {m: {k: round(v, 6) for k, v in r.items()} for m, r in out.items() if isinstance(r, dict)}
+    args = k6_calls[0]
+    k6 = kernels.encode_view(*args)
+    ref = encode_view_plain(*args)
+    tol = TOL[torch.float32]  # the preset encodes in fp32 and folds in fp32
+    errs = {name: (a - b).abs().max().item() for name, a, b in zip(("depth", "feature", "rgb"), k6, ref)}
+    holds["encode_view"] = {"frames": 1, "max_abs_err": max(errs.values())}
+    print(f"phase 9 v2 2D segmentation: cli.evaluate.main, evaluate_semantic_cityscapes.yaml with variant: dinov2, "
+          f"--ckpt {os.path.basename(ckpt)}, phase 8b's {EVAL_FRAMES} frames: {json.dumps(summary)}; per frame host "
+          f"ms {json.dumps([round(r.frame_ms, 1) for r in frames])}; {wall:.1f} s wall; peak {peak:.3f} GiB; "
+          f"launches {json.dumps(counts)} (expected {json.dumps(expect)}: the fp32 preset takes the ViT's plain "
+          f"attention, one K6 a frame); K6 on its first frame: errors {json.dumps(errs)} (bounds {json.dumps(tol)})",
+          flush=True)
+    if out["n_frames"] != EVAL_FRAMES or not all(_in_unit(r.values()) for r in summary.values()):
+        fail(f"the v2 2D evaluation is not {EVAL_FRAMES} frames of finite values in [0, 1]: {out}")
+    if counts != expect:
+        fail(f"the v2 2D evaluation launched {counts}, expected {expect}")
+    if not all(errs[k] <= tol[k] for k in tol):
+        fail("K6 disagrees with its plain version on the v2 2D evaluation frame")
+    for name, n in counts.items():
+        total[name] += n
+    print(f"phase 9 encode: host ms per SSCBench frame v1 {encode_ms['v1']}, v2 {encode_ms['v2']}; the encoder "
+          f"alone (CUDA events, 192x640, bf16) v1 {encode_ms['v1 encoder (CUDA events)']} ms, v2 "
+          f"{encode_ms['v2 encoder (CUDA events)']} ms; sec_per_frame v1 {spf['v1']:.4f}, v2 {spf['v2']:.4f}; "
+          f"{card_line()}; phase 9 wall time {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return total, holds
 
 
 def main():
@@ -2038,8 +2342,9 @@ def main():
         train_run, stage1_dir = phase_train_run(args.seed, scratch)
         stage2, stage2_dir = phase_stage2(args.seed, stage1_dir, scratch)
         stage2_conv = phase_stage2_convergence(args.seed, scratch)
-        evaluation, k4_block, k6_frame = phase_eval(args.seed, stage2_dir, scratch)
-    paths = (serving, training, train_run, stage2, stage2_conv, evaluation)
+        evaluation, k4_block, k6_frame, trees = phase_eval(args.seed, stage2_dir, scratch)
+        reference, holds = phase_reference(args.seed, scratch, *trees)
+    paths = (serving, training, train_run, stage2, stage2_conv, evaluation, reference)
     for e in entries:
         e["launches"] = sum(p[e["name"]] for p in paths)
         if e["name"] == "point_query":
@@ -2048,6 +2353,11 @@ def main():
         elif e["name"] == "encode_view":
             e["shapes"]["2D evaluation"] = k6_frame
             e["max_abs_err"] = max(e["max_abs_err"], k6_frame["max_abs_err"])
+        if e["name"] in holds:
+            if isinstance(e.get("shapes"), list):
+                e["shapes"].append({"path": "reference checkpoints", **holds[e["name"]]})
+            else:
+                e.setdefault("shapes", {})["reference checkpoints"] = holds[e["name"]]
     if sorted(e["name"] for e in entries) != sorted(kernels.WRAPPERS):
         fail("the kernels line does not list every kernel")
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",

@@ -8,10 +8,13 @@
 `--config` is a YAML file or a run directory holding training_config.yaml
 (read by `utils.config`). With a `model:` block the trained model is
 rebuilt from it (its `with_amp` encodes in bf16, as the port's training
-does), else the `variant: dino` preset at the dataset's image size. The
-checkpoint (`--ckpt`, else the config's `checkpoint:`) is anything
-`utils.checkpoint.load_eval_state` reads that holds a head. Runs on the
-GPU unless `--device` names another device; without a GPU it raises.
+does), else the `variant:` preset (`dino`, ViT-B/8, the default; `dinov2`,
+ViT-B/14) at the dataset's image size. The checkpoint (`--ckpt`, else the
+config's `checkpoint:`) is anything `utils.checkpoint.load_eval_state`
+reads that holds a head: a stage-2 run of the port, a JAX `.npz`, or a
+`.pt` in the reference's torch layout (its published checkpoints). Runs
+on the GPU unless `--device` names another device; without a GPU it
+raises.
 `downstream.apply_crf: true` adds the window CRF's "<mode>_crf" rows.
 Prints each mode's mIoU, weighted mIoU and accuracy as JSON.
 """
@@ -32,16 +35,14 @@ def eval_model(config: dict, ckpt: str, device, image_size=(192, 640)) -> Tuple[
         torch.nn.Module]]:
     """(field, head or None) for evaluation: the field from the config's
     `model:` block (its training `with_amp` as a bf16 encoder) or the
-    `variant: dino` preset at `image_size`, the head from its `downstream:`
-    block (the preset's defaults without a model block, as the reference);
+    `variant:` preset ("dino" or "dinov2") at `image_size`, the head from
+    its `downstream:` block (the preset's defaults without a model block, as
+    the reference);
     both frozen, in eval mode, with the weights of `ckpt` loaded strictly."""
     from scenedino_torch.models.downstream import SemanticHead, SemanticHeadConfig
-    from scenedino_torch.models.factory import SCENEDINO_KITTI_360, make_model
+    from scenedino_torch.models.factory import make_model, variant_config
     from scenedino_torch.utils.checkpoint import load_eval_state
 
-    variant = config.get("variant", "dino")
-    if "model" not in config and variant != "dino":
-        raise NotImplementedError(f"variant {variant!r}: the DINOv2 encoder is not ported (ROADMAP queue 1, item 6)")
     if "model" in config:
         model_conf = copy.deepcopy(config["model"])
         model_conf["encoder"] = dict(model_conf.get("encoder", {}))
@@ -49,8 +50,7 @@ def eval_model(config: dict, ckpt: str, device, image_size=(192, 640)) -> Tuple[
             model_conf["encoder"]["dtype"] = "bfloat16"
         head_cfg = SemanticHeadConfig.from_dict(config.get("downstream", {}))
     else:
-        model_conf = {**SCENEDINO_KITTI_360, "encoder": {**SCENEDINO_KITTI_360["encoder"],
-                                                        "image_size": tuple(image_size)}}
+        model_conf = variant_config(config.get("variant", "dino"), image_size)
         head_cfg = SemanticHeadConfig()
     field = make_model(model_conf, device=device, training=True)
     field_sd, head_sd = load_eval_state(ckpt, device=device)
@@ -82,7 +82,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
 
     device = resolve_device(args.device)
     if args.data_parallel and device.type == "cuda" and torch.cuda.device_count() > 1:
-        raise NotImplementedError("--data-parallel over several cards is not ported (ROADMAP queue 1, item 3)")
+        raise NotImplementedError("--data-parallel over several cards is not ported (ROADMAP queue 1, item 6)")
     config = load_run_config(args.config)
     ckpt = args.ckpt or config.get("checkpoint")
     if not ckpt:

@@ -4,6 +4,12 @@
 
     python -m scenedino_torch.cli.evaluate_sscbench --data <kitti360 root> --voxel-gt <voxel gt dir> \\
         --ckpt <stage-2 run> --config <stage-2 run or yaml> [--prediction-mode stego_kmeans] [--max-frames N]
+    python -m scenedino_torch.cli.evaluate_sscbench --data <kitti360 root> --voxel-gt <voxel gt dir> \\
+        --ckpt <checkpoint.pt of the reference> [--variant dinov2 | --config <yaml>]
+
+`--ckpt` is anything `utils.checkpoint.load_eval_state` reads with a
+head; `--config` rebuilds the trained model, else the `--variant` preset
+(`dino`: ViT-B/8, `dinov2`: ViT-B/14; fp32) at 192x640.
 
 Each frame: encode the front image, query the 256x256x32 voxel grid
 through the field and the semantic head, accumulate occupancy and
@@ -92,7 +98,7 @@ def main(argv: Optional[Sequence[str]] = None):
                     help="the per-class sigma-cutoff search and the precision/recall tradeoff")
     ap.add_argument("--data-parallel", action="store_true",
                     help="frame-parallel over the cards; one card evaluates the frames in turn")
-    ap.add_argument("--pipelined", action="store_true", help="not ported (ROADMAP queue 1, item 3)")
+    ap.add_argument("--pipelined", action="store_true", help="not ported (ROADMAP queue 1, item 6)")
     ap.add_argument("--device", default=None, help="torch device (default: cuda; 'cpu' runs the plain versions)")
     args = ap.parse_args(argv)
     logging.basicConfig(level=logging.INFO)
@@ -103,16 +109,14 @@ def main(argv: Optional[Sequence[str]] = None):
     from scenedino_torch.utils.config import load_run_config
 
     if args.mode == "s4c":
-        raise NotImplementedError("--mode s4c: the monodepth2 baseline is not ported (ROADMAP queue 1, item 8)")
-    if args.variant == "dinov2":
-        raise NotImplementedError("--variant dinov2: the DINOv2 encoder is not ported (ROADMAP queue 1, item 6)")
+        raise NotImplementedError("--mode s4c: the monodepth2 baseline is not ported (ROADMAP queue 1, item 9)")
     if args.pipelined:
-        raise NotImplementedError("--pipelined: the pipelined grid step is not ported (ROADMAP queue 1, item 3)")
+        raise NotImplementedError("--pipelined: the pipelined grid step is not ported (ROADMAP queue 1, item 6)")
     device = resolve_device(args.device)
     if args.data_parallel and device.type == "cuda" and torch.cuda.device_count() > 1:
-        raise NotImplementedError("--data-parallel over several cards is not ported (ROADMAP queue 1, item 3)")
+        raise NotImplementedError("--data-parallel over several cards is not ported (ROADMAP queue 1, item 6)")
 
-    config = load_run_config(args.config) if args.config else {}
+    config = load_run_config(args.config) if args.config else {"variant": args.variant}
     H, W = config.get("dataset", {}).get("image_size", (192, 640))
     if args.resolution is not None:
         H, W = args.resolution

@@ -17,9 +17,10 @@ mesh is not ported.
 `--stage nvs` (the default) trains the field (stage 1). `--stage semantic`
 distills a frozen field into the semantic head (stage 2, `run_stage2`):
 the field comes from `resume_from` (a stage-1 run directory or checkpoint
-of the port, a field snapshot, or a JAX variables tree saved as a flat
-`.npz`), the cluster centres are seeded from the first batch, and each
-validation writes its pseudo assignment back into the cluster heads.
+of the port, a field snapshot, a JAX variables tree saved as a flat
+`.npz`, or a `.pt` in the reference's torch layout), the cluster centres
+are seeded from the first batch, and each validation writes its pseudo
+assignment back into the cluster heads.
 """
 from __future__ import annotations
 
@@ -165,11 +166,14 @@ def load_field(field, resume_from: str) -> str:
     """Load the frozen field of stage 2 from `resume_from`, strictly:
     a port stage-1 run directory (its newest `training_checkpoint_<it>.pt`,
     else a `field_params.pt` snapshot), a `training_checkpoint_<it>.pt`, a
-    field snapshot (`utils.checkpoint.save_field_snapshot`), or a JAX
+    field snapshot (`utils.checkpoint.save_field_snapshot`), a JAX
     variables tree saved as a flat `.npz` ("params/encoder/..." keys, as
-    tests/goldens/s1b_field_params.npz). Anything else raises, rather than
+    tests/goldens/s1b_field_params.npz), or a checkpoint in the reference's
+    torch layout (its published weights among them; the counterpart of
+    converting one, then resuming from the result,
+    scenedino_tpu/cli/train.py:296-312). Anything else raises, rather than
     distill a random field. Returns the file read."""
-    from scenedino_torch.utils.convert import load_jax_params
+    from scenedino_torch.utils.convert import load_jax_params, reference_checkpoint_of
 
     path = resolve_run_path(resume_from)
     if path.endswith(".npz"):
@@ -178,7 +182,10 @@ def load_field(field, resume_from: str) -> str:
         return path
     device = next(field.parameters()).device
     ckpt = torch.load(path, map_location=device, weights_only=True)
-    if isinstance(ckpt, dict) and isinstance(ckpt.get("field"), dict):
+    reference = reference_checkpoint_of(ckpt)
+    if reference is not None:
+        ckpt = reference.field
+    elif isinstance(ckpt, dict) and isinstance(ckpt.get("field"), dict):
         ckpt = ckpt["field"]  # a stage-1 train state
     if not is_field_state(ckpt):
         keys = sorted(ckpt)[:6] if isinstance(ckpt, dict) else type(ckpt).__name__

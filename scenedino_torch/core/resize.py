@@ -1,13 +1,23 @@
-"""`F.interpolate(..., align_corners=False, antialias=False)` as two matmuls
-(counterpart of `scenedino_tpu/core/resize.py:35-95`).
+"""Resizes as two matmuls: `F.interpolate(..., align_corners=False,
+antialias=False)` (counterpart of `scenedino_tpu/core/resize.py:35-95`)
+and the antialiased bilinear filter of `jax.image.resize` (the DINOv2
+encoders' 14/16 pre-resize, `scenedino_tpu/models/encoder.py:91-96`).
 
 Each 1-D resampling is a dense (n_out, n_in) matrix built once in numpy
-(float64 taps summed, then rounded to float32, exactly as the reference
-builds it) and kept on the device per (n_in, n_out, mode, device); an
-NHWC tensor is resized by one matmul per spatial axis. The matmuls keep
-the input differentiable (the student's position embedding) and replace
+and kept on the device per (n_in, n_out, mode, device); a tensor is
+resized by one matmul per spatial axis. The matmuls keep the input
+differentiable (the student's position embedding and image) and replace
 torch's `upsample_bicubic2d`, which on the card ran as a slow scalar
-kernel. Border taps clamp to the edge sample (torch's bounded accessor).
+kernel.
+
+  * "nearest", "bilinear", "bicubic": torch's taps in float64, summed,
+    then rounded to float32, exactly as the reference builds them; border
+    taps clamp to the edge sample (torch's bounded accessor).
+  * "antialias": `jax.image.resize(..., "bilinear")`, i.e. JAX's
+    `scale_and_translate` with the triangle kernel widened by 1/scale on a
+    downscale, in float32 as JAX computes it, each output's weights
+    normalized to sum 1. Bilinear without the widening misses it by about 1
+    on ImageNet-normalized images at 192x640 -> 168x560.
 """
 from __future__ import annotations
 
@@ -61,12 +71,34 @@ def torch_resize_matrix(n_in: int, n_out: int, mode: str = "bilinear") -> np.nda
 
 
 @lru_cache(maxsize=None)
+def antialias_resize_matrix(n_in: int, n_out: int) -> np.ndarray:
+    """(n_out, n_in) float32 M with out = M @ in: one axis of
+    `jax.image.resize(..., method="bilinear")` (antialias on, no
+    translation), built in float32 as `jax._src.image.scale.compute_weight_mat`
+    builds it. Callers must not write to the returned array (it is shared)."""
+    if n_in == n_out:  # jax.image.resize skips an axis whose size is unchanged
+        return np.eye(n_in, dtype=np.float32)
+    f32 = np.float32
+    inv_scale = f32(1.0 / (n_out / n_in))
+    kernel_scale = max(inv_scale, f32(1.0))  # widen the triangle on a downscale only
+    sample = (np.arange(n_out, dtype=f32) + f32(0.5)) * inv_scale - f32(0.5)
+    x = np.abs(sample[None, :] - np.arange(n_in, dtype=f32)[:, None]) / kernel_scale
+    w = np.maximum(f32(0.0), f32(1.0) - x)  # (n_in, n_out)
+    total = w.sum(0, keepdims=True, dtype=f32)
+    w = np.where(np.abs(total) > 1000.0 * np.finfo(f32).eps, w / np.where(total != 0, total, f32(1.0)), f32(0.0))
+    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
+    return np.ascontiguousarray(np.where(inside[None, :], w, f32(0.0)).T, dtype=f32)
+
+
+@lru_cache(maxsize=None)
 def resize_matrix(n_in: int, n_out: int, mode: str, device: torch.device) -> torch.Tensor:
-    """`torch_resize_matrix` as a float32 tensor on `device`, built once.
-    It is built outside inference mode even when first asked for inside it
-    (a serving request), so a later training step can save it for backward."""
+    """`torch_resize_matrix` (or, for mode "antialias", `antialias_resize_matrix`)
+    as a float32 tensor on `device`, built once. It is built outside
+    inference mode even when first asked for inside it (a serving request),
+    so a later training step can save it for backward."""
+    m = antialias_resize_matrix(n_in, n_out) if mode == "antialias" else torch_resize_matrix(n_in, n_out, mode)
     with torch.inference_mode(False):
-        return torch.from_numpy(torch_resize_matrix(n_in, n_out, mode)).to(device)
+        return torch.from_numpy(m).to(device)
 
 
 def torch_interpolate(x: torch.Tensor, size: Tuple[int, int], mode: str = "bilinear") -> torch.Tensor:
@@ -77,4 +109,16 @@ def torch_interpolate(x: torch.Tensor, size: Tuple[int, int], mode: str = "bilin
     mx = resize_matrix(W, int(size[1]), mode, x.device)
     y = torch.einsum("oh,...hwc->...owc", my, x.float())
     y = torch.einsum("ow,...hwc->...hoc", mx, y)
+    return y.to(x.dtype)
+
+
+def antialias_resize(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
+    """`jax.image.resize(x, (..., *size), method="bilinear")` for NCHW input
+    x (..., H, W): the antialiased bilinear filter, computed in fp32 and
+    returned in x's dtype."""
+    H, W = x.shape[-2], x.shape[-1]
+    my = resize_matrix(H, int(size[0]), "antialias", x.device)
+    mx = resize_matrix(W, int(size[1]), "antialias", x.device)
+    y = torch.einsum("oh,...hw->...ow", my, x.float())
+    y = torch.einsum("pw,...ow->...op", mx, y)
     return y.to(x.dtype)

@@ -1,13 +1,18 @@
 """The DINO encoder stack (counterpart of `scenedino_tpu/models/encoder.py`).
 
 Inputs are images in [-1, 1]; the ViTs see ImageNet-normalized [0, 1]
-images. `DinoModule` is the student (ViT + DPT decoder) that serving runs;
-built with `training=True` it also holds the training-only parts: the
-frozen teacher ViT (`gt_encoder`, run without a graph like the
-reference's `stop_gradient`), the FeatUp `PatchSalienceDownsampler` that
-pools rendered pixel features back to the teacher's patch grid, and the
-`MlpDimReduction` that expands the 64-d field feature to the 768-d DINO
-space.
+images. The DINOv2 family (versions v2, reg and fit3d: internal patch 14)
+sees them resized by 14/16 with `jax.image.resize`'s antialiased bilinear
+filter (`core.resize.antialias_resize`), so its grid is that of an
+external patch of 16. `DinoModule` is the student (ViT + DPT decoder)
+that serving runs; built with `training=True` it also holds the
+training-only parts: the frozen teacher ViT (`gt_encoder`, run without a
+graph like the reference's `stop_gradient`), the FeatUp
+`PatchSalienceDownsampler` that pools rendered pixel features back to the
+teacher's patch grid, and the dimension reduction that expands the 64-d
+field feature to the 768-d DINO space (`MlpDimReduction`, or
+`OrthogonalLinearDimReduction` for `dim_reduction_arch:
+orthogonal-linear`).
 """
 from __future__ import annotations
 
@@ -18,6 +23,7 @@ import torch
 from torch import nn
 
 from scenedino_torch.core import safe_normalize
+from scenedino_torch.core.resize import antialias_resize
 from scenedino_torch.models.dpt import DPTHead
 from scenedino_torch.models.vit import make_vit
 
@@ -32,15 +38,29 @@ def normalize_input(x: torch.Tensor) -> torch.Tensor:
     return (x * 0.5 + 0.5 - mean) / std
 
 
+# versions whose ViT has patch 14 and sees the image resized by 14/16
+RESIZED_VERSIONS = ("v2", "reg", "fit3d")
+
+
 def _vit_name(backbone: str, version: str) -> str:
     size = {"vit-s": "small", "vit-b": "base"}[backbone]
     if version == "v1":
         return f"dino_{size}8"
     if version == "v1_16":
         return f"dino_{size}16"
-    # v2 / reg / fit3d resize the input with jax.image.resize's antialiased
-    # bilinear filter before the ViT; that resize is not ported yet
-    raise NotImplementedError(f"the port covers DINO v1 encoders, got version {version!r}")
+    if version == "v2":
+        return f"dinov2_{size}"
+    if version == "reg":
+        return f"dinov2_reg_{size}"
+    if version == "fit3d":  # FiT3D: DINOv2-reg fine-tuned, the same architecture
+        return f"fit3d_{size}"
+    raise NotImplementedError(f"unknown DINO version {version!r}")
+
+
+def external_patch_size(version: str) -> int:
+    """The patch of the grid a version's encoder returns: 16 for v1_16 and
+    the DINOv2 family (14 inside, after the 14/16 resize), else 8."""
+    return 16 if version in RESIZED_VERSIONS + ("v1_16",) else 8
 
 
 class DinoViTEncoder(nn.Module):
@@ -51,6 +71,7 @@ class DinoViTEncoder(nn.Module):
                  dtype=None, vit_overrides: Optional[Tuple[Tuple[str, int], ...]] = None,
                  grad_checkpointing: bool = False):
         super().__init__()
+        self.version = version
         self.n_taps = len(intermediate_features)
         self.key_features = key_features
         overrides = dict(vit_overrides or ())
@@ -68,8 +89,16 @@ class DinoViTEncoder(nn.Module):
     def latent_size(self) -> int:
         return self.vit.cfg.width
 
+    @property
+    def patch_size(self) -> int:
+        """External patch size: the stride of the returned grids in input pixels."""
+        return external_patch_size(self.version)
+
     def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
         x = normalize_input(x)
+        if self.version in RESIZED_VERSIONS:
+            H, W = x.shape[-2:]
+            x = antialias_resize(x, (H * 14 // 16, W * 14 // 16))
         out = self.vit(x)
         p = self.vit.cfg.patch_size
         gh, gw = x.shape[-2] // p, x.shape[-1] // p
@@ -99,6 +128,23 @@ class MlpDimReduction(nn.Module):
     def forward(self, features: torch.Tensor) -> torch.Tensor:
         h = torch.relu(self.linear_in(features.float()))
         return safe_normalize(self.linear_out(h), eps=1e-12)
+
+
+class OrthogonalLinearDimReduction(nn.Module):
+    """A learned (full, reduced) matrix, initialized to the identity's first
+    columns, applied transposed, plus a bias, then L2-normalized
+    (encoder.py:145-161)."""
+
+    def __init__(self, reduced_channels: int = 64, full_channels: int = 768):
+        super().__init__()
+        self.weights = nn.Parameter(torch.eye(full_channels, reduced_channels))
+        self.bias = nn.Parameter(torch.zeros(full_channels))
+
+    def forward(self, features: torch.Tensor) -> torch.Tensor:
+        return safe_normalize(features.float() @ self.weights.T + self.bias, eps=1e-12)
+
+
+DIM_REDUCTIONS = {"mlp": MlpDimReduction, "orthogonal-linear": OrthogonalLinearDimReduction}
 
 
 class PatchSalienceDownsampler(nn.Module):
@@ -194,15 +240,15 @@ class DinoModule(nn.Module):
             "mode": cfg.mode != "downsample-prediction",
             "downsampler_arch": cfg.downsampler_arch != "featup",
             "separate_gt_version": cfg.separate_gt_version is None,
-            "dim_reduction_arch": cfg.dim_reduction_arch != "mlp",
+            "dim_reduction_arch": cfg.dim_reduction_arch not in DIM_REDUCTIONS,
             "encoder_freeze": cfg.encoder_freeze,
             "flip_avg_gt": cfg.flip_avg_gt,
         }
         bad = [name for name, is_bad in unsupported.items() if is_bad]
         if bad:
             raise NotImplementedError(
-                f"the port trains the downsample-prediction featup configuration with a separate "
-                f"teacher and the MLP expansion; unsupported: {[(n, getattr(cfg, n)) for n in bad]}"
+                f"the port trains the downsample-prediction featup configuration with a separate teacher and "
+                f"the MLP or orthogonal-linear expansion; unsupported: {[(n, getattr(cfg, n)) for n in bad]}"
             )
         self.gt_encoder = DinoViTEncoder(
             backbone=cfg.encoder_arch,
@@ -214,7 +260,7 @@ class DinoModule(nn.Module):
         )
         self.gt_encoder.requires_grad_(False)
         self.downsampler = PatchSalienceDownsampler(self.gt_encoder.latent_size, self.gt_patch_size)
-        self.dim_reduction = MlpDimReduction(cfg.dino_pca_dim, self.vit_encoder.latent_size)
+        self.dim_reduction = DIM_REDUCTIONS[cfg.dim_reduction_arch](cfg.dino_pca_dim, self.vit_encoder.latent_size)
 
     @property
     def latent_size(self) -> int:
@@ -222,8 +268,9 @@ class DinoModule(nn.Module):
 
     @property
     def gt_patch_size(self) -> int:
-        """External patch size of the teacher (8 for DINO v1)."""
-        return self.gt_encoder.vit.cfg.patch_size
+        """External patch size of the teacher (8 for DINO v1, 16 for v1_16 and
+        the DINOv2 family), read from the config as the reference reads it."""
+        return external_patch_size(self.cfg.separate_gt_version or self.cfg.version)
 
     def forward(self, x: torch.Tensor, ground_truth: bool = False,
                 fold_matrix: Optional[torch.Tensor] = None) -> List[torch.Tensor]:

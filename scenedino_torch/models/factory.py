@@ -115,6 +115,26 @@ SCENEDINO_KITTI_360 = {
 }
 
 
+def scenedino_dinov2_config() -> Dict[str, Any]:
+    """configs/model/dinov2_downsampler.yaml: the flagship with a DINOv2
+    ViT-B/14 student and teacher (the ssc-kitti-360-dinov2 checkpoint's)."""
+    conf = {**SCENEDINO_KITTI_360}
+    conf["encoder"] = {**conf["encoder"], "version": "v2", "separate_gt_version": "v2"}
+    return conf
+
+
+def variant_config(variant: str = "dino", image_size=(192, 640)) -> Dict[str, Any]:
+    """The model of an evaluation's `variant` preset (the reference's
+    `cli/demo.py` build_model): "dino" (ViT-B/8) or "dinov2" (ViT-B/14), fp32,
+    at `image_size`."""
+    presets = {"dino": SCENEDINO_KITTI_360, "dinov2": scenedino_dinov2_config()}
+    if variant not in presets:
+        raise ValueError(f"variant must be one of {sorted(presets)}, got {variant!r}")
+    conf = dict(presets[variant])
+    conf["encoder"] = {**conf["encoder"], "image_size": tuple(image_size)}
+    return conf
+
+
 # The shipped stage-1 recipe (configs/train_scenedino_kitti_360.yaml): the
 # model block with the artifact field on, and the blocks the training step
 # reads. Data paths and validation are not part of the step.

@@ -88,8 +88,6 @@ class SceneField(nn.Module):
                  head_confs: Tuple[Tuple[str, Any], ...] = _DEFAULT_HEADS,
                  final_pred_head: str = "normal_head"):
         super().__init__()
-        if cfg.learn_empty:
-            raise NotImplementedError("the port's field has no learned empty feature")
         self.encoder = encoder
         self.cfg = cfg
         self.final_pred_head = final_pred_head
@@ -98,6 +96,8 @@ class SceneField(nn.Module):
         self.heads = nn.ModuleDict(
             {name: make_head(dict(conf), d_in, cfg.d_out) for name, conf in head_confs}
         )
+        if cfg.learn_empty:  # the feature of a point outside a view (field.py:99-101)
+            self.empty_feature = nn.Parameter(torch.randn(encoder.latent_size))
 
     def encode(self, images: torch.Tensor, ks: torch.Tensor, poses_c2w: torch.Tensor,
                ids_encoder: Optional[Sequence[int]] = None,
@@ -162,6 +162,8 @@ class SceneField(nn.Module):
         coords = encoding.encode_coords(xy, z, dist, cfg.z_near, cfg.z_far, mode=cfg.code_mode, inv_z=cfg.inv_z)
         code = encoding.positional_encoding(coords, cfg.num_freqs, cfg.freq_factor, cfg.include_input)
         sampled = grid_sample.grid_sample_views(state.feat_grid, xy)  # (B, V, P, C)
+        if cfg.learn_empty:
+            sampled = torch.where(invalid, self.empty_feature.to(sampled.dtype), sampled)
         feats = torch.cat([sampled, code.to(sampled.dtype)], -1)
         return feats.transpose(1, 2), invalid[..., 0].transpose(1, 2)
 
@@ -174,9 +176,8 @@ class SceneField(nn.Module):
     def forward(self, state: SceneState, xyz: torch.Tensor, only_density: bool = False):
         """Field query: xyz (B, P, 3) -> (rgb (B, P, Vr*3) or None,
         invalid (B, P, Vr) fp32, sigma (B, P) fp32, dino (B, P, dino_dims))."""
-        if self.cfg.learn_empty or not (self.cfg.sample_color and self.cfg.predict_dino):
-            raise NotImplementedError("the port's field query samples colours and predicts DINO features, "
-                                      "without a learned empty feature")
+        if not (self.cfg.sample_color and self.cfg.predict_dino):
+            raise NotImplementedError("the port's field query samples colours and predicts DINO features")
         feats, invalid_features = self.sample_features(state, xyz)
         mlp_out = self.heads[self.final_pred_head](feats)
         B, P = xyz.shape[:2]

@@ -13,7 +13,8 @@ the counters; the frozen field is written once a run
 run's random generator is not saved, as the reference saves no PRNG key.
 
 `load_eval_state` resolves what the evaluation CLIs are given into the
-field's and the head's weights.
+field's and the head's weights, the reference's own torch checkpoints
+(its published weights among them) included.
 """
 from __future__ import annotations
 
@@ -144,15 +145,21 @@ def load_eval_state(ckpt_path: str, device="cpu") -> Tuple[Dict[str, Any], Optio
       * a stage-1 run directory of the port (its newest checkpoint, else a
         field snapshot), a stage-1 checkpoint or a field snapshot: no head;
       * a JAX variables tree saved as a flat `.npz` ("params/..." keys,
-        the head under params/downstream and state/downstream).
+        the head under params/downstream and state/downstream);
+      * a checkpoint in the reference's torch layout, its published ones
+        among them (`utils.convert.reference_checkpoint_of`, strict): the
+        head where it has one.
 
-    Anything else raises, rather than evaluate random weights. The
-    reference's published torch checkpoints are not read: `utils.convert`
-    maps JAX trees only."""
+    Anything else raises, rather than evaluate random weights."""
+    from scenedino_torch.utils.convert import reference_checkpoint_of
+
     path = resolve_run_path(ckpt_path)
     if path.endswith(".npz"):
         return _from_jax_npz(path)
     ckpt = torch.load(path, map_location=device, weights_only=True)
+    reference = reference_checkpoint_of(ckpt)
+    if reference is not None:
+        return reference.field, reference.head
     if isinstance(ckpt, dict) and isinstance(ckpt.get("head"), dict):
         snapshot = os.path.join(os.path.dirname(os.path.abspath(path)), FIELD_SNAPSHOT)
         if not os.path.exists(snapshot):

@@ -55,7 +55,9 @@ def test_the_scan_sees_the_whole_package():
             "scenedino_torch/models/downstream.py", "scenedino_torch/losses/stego.py",
             "scenedino_torch/training/downstream.py", "scenedino_torch/tools/bench_encode_view.py",
             "scenedino_torch/datasets/image_io.py", "scenedino_torch/eval/seg2d.py", "scenedino_torch/eval/crf.py",
-            "scenedino_torch/cli/evaluate.py", "scenedino_torch/cli/evaluate_sscbench.py"} <= names
+            "scenedino_torch/cli/evaluate.py", "scenedino_torch/cli/evaluate_sscbench.py",
+            "scenedino_torch/core/resize.py", "scenedino_torch/models/encoder.py", "scenedino_torch/models/field.py",
+            "scenedino_torch/models/factory.py", "scenedino_torch/utils/checkpoint.py"} <= names
 
 
 def test_entry_point_without_a_device_refuses_the_cpu():
