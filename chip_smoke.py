@@ -158,8 +158,31 @@ Phases, one line each:
              8b's tree (one K6 a frame) and K6 on its first frame; the
              encode times (per frame, and the encoder alone by CUDA events)
              and sec_per_frame of both, beside the card's name and limit
+  10 kitti   the KITTI-360 data path. 10a: a seeded tree in the release's
+             layout (56 posed frames of one sequence, 376x1408 perspective
+             and 1400x1400 fisheye pairs as Paeth-filtered PNGs, the
+             release's calibration with the fisheye YAMLs in its
+             FileStorage layout, velodyne scans, KITTI-360 labels, the
+             repository's SSCBench training lines that the tree holds and 3
+             test items), cli.preprocess_kitti_360 resize, an item through
+             the cache against the same item resampled on the fly (one 8-bit
+             step), the loader's host ms per item (raw, cached) and per batch
+             of 4; 10b: cli.train.main on train_scenedino_kitti_360.yaml at
+             full width (3 steps, one validation of 2 test items on the
+             velodyne depths, a checkpoint; each step's host ms and loader
+             wait); 10c: cli.train.main --stage semantic on
+             train_semantic_kitti_360.yaml from 10b's run (3 steps, one
+             validation on the labels as train ids; the head moved, the field
+             bitwise unchanged); 10d: cli.evaluate.main on
+             evaluate_semantic_kitti_360.yaml with 10c's model over the 3
+             test items (12 K1 and 1 K6 a frame), K6 on the first frame
+             against its plain version; 10e, on the host: KITTI_360_v2 items
+             (overlap sampling) and SSCBench items with the fisheye views;
+             then K1's forward at the shapes 10b-10d gave it that phase 2
+             does not time (the stage-1 teacher's 16 frames, stage 2's 4
+             frames without the log-sum-exp), as phase 2 times its own
   kernels    one JSON line: launches (all serving paths, training, the
-             train run, stage 2, evaluation and phase 9 together), error, times and
+             train run, stage 2, evaluation, phase 9 and phase 10 together), error, times and
              bound per kernel; the K1 forward's, K4's and K6's also at
              their shapes ("shapes": K4 at the evaluation's block, K6 at
              the 2D evaluator's fp32 frame; phase 9's holds of K1, K2, K4
@@ -188,6 +211,8 @@ H, W, K = 192, 640, 32
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, HBM3
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
+# phase 2's K1 forward shapes: (batch, with the log-sum-exp) at 1921 tokens, 12 heads of 64
+K1_PHASE2_SHAPES = ((1, False), (4, True), (8, False))
 # bounds of the kernel-vs-plain comparisons
 K1_TOL = 2e-2  # bf16 output (ulp 2^-8 at |x| ~ 1) plus P rounded to bf16 for P @ V
 K1_LSE_TOL = 1e-3  # fp32 statistics of the same bf16 logits, another order, approximate exp2
@@ -279,42 +304,45 @@ def intrinsics(device):
     return torch.tensor([[0.7, 0.0, 0.0], [0.0, 2.3, 0.0], [0.0, 0.0, 1.0]], device=device)
 
 
-def phase_k1(gen):
-    """The forward at the three shapes its paths give it: output and (where
-    the path asks for it) log-sum-exp against the plain versions, two
-    launches bitwise equal, kernel, plain, SDPA and bound times."""
+def k1_forward_shape(gen, B, with_lse, path, phase="phase 2"):
+    """K1's forward at (B, 1921, 12, 64) bf16: output and (where the path
+    asks for it) log-sum-exp against the plain versions, two launches
+    bitwise equal, kernel, plain, SDPA and bound times; the shape's entry."""
     from scenedino_torch.kernels.attention import attention_fwd, attention_lse_plain, attention_plain
     from scenedino_torch.utils.timing import time_ms
 
-    shapes = []
-    for B, with_lse, path in ((1, False, "serving"), (4, True, "student"), (8, False, "teacher")):
-        N, Hh, D = 1921, 12, 64
-        q, k, v = (torch.randn(B, N, Hh, D, generator=gen, device="cuda").to(torch.bfloat16) for _ in range(3))
-        out, lse = attention_fwd(q, k, v, with_lse=with_lse)
-        again = attention_fwd(q, k, v, with_lse=with_lse)
-        torch.cuda.synchronize()
-        if not (torch.equal(out, again[0]) and (lse is None or torch.equal(lse, again[1]))):
-            fail(f"K1 forward ({B}, {N}, {Hh}, {D}): two launches on the same inputs differ")
-        err = (out.float() - attention_plain(q, k, v).float()).abs().max().item()
-        lse_err = (lse - attention_lse_plain(q, k)).abs().max().item() if with_lse else None
-        if not (torch.isfinite(out).all() and err <= K1_TOL and (lse_err is None or lse_err <= K1_LSE_TOL)):
-            fail(f"K1 forward ({B}, {N}, {Hh}, {D}) disagrees with its plain version: max abs err {err} (bound "
-                 f"{K1_TOL}), lse {lse_err} (bound {K1_LSE_TOL})")
-        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-        ms = time_ms(lambda: attention_fwd(q, k, v, with_lse=with_lse), inner=10)
-        plain_ms = time_ms(lambda: attention_plain(q, k, v), reps=5)
-        lib_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt), inner=10)
-        flops = 4.0 * B * Hh * N * N * D
-        b, by = bound_ms(flops, (4 * B * N * Hh * D * 2) + (B * Hh * N * 4 if with_lse else 0))
-        lse_text = f", lse {lse_err:.3e} (bound {K1_LSE_TOL})" if with_lse else ""
-        print(f"phase 2 K1 forward ({B}, {N}, {Hh}, {D}) bf16, {path}{' with the lse' if with_lse else ''}: "
-              f"max_abs_err {err:.3e} (bound {K1_TOL}){lse_text}; two launches bitwise equal; kernel {ms:.4f} ms "
-              f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms "
-              f"({flops / lib_ms / 1e9:.1f} TFLOP/s; the kernel takes {ms / lib_ms:.2f} of it), bound {b:.4f} ms "
-              f"({by})", flush=True)
-        shapes.append({"shape": [B, N, Hh, D], "lse": with_lse, "max_abs_err": err, "lse_err": lse_err, "ms": ms,
-                       "plain_ms": plain_ms, "bound_ms": b, "bound_by": by, "library_ms": lib_ms})
-        del q, k, v, qt, kt, vt, out, lse, again
+    N, Hh, D = 1921, 12, 64
+    q, k, v = (torch.randn(B, N, Hh, D, generator=gen, device="cuda").to(torch.bfloat16) for _ in range(3))
+    out, lse = attention_fwd(q, k, v, with_lse=with_lse)
+    again = attention_fwd(q, k, v, with_lse=with_lse)
+    torch.cuda.synchronize()
+    if not (torch.equal(out, again[0]) and (lse is None or torch.equal(lse, again[1]))):
+        fail(f"K1 forward ({B}, {N}, {Hh}, {D}): two launches on the same inputs differ")
+    err = (out.float() - attention_plain(q, k, v).float()).abs().max().item()
+    lse_err = (lse - attention_lse_plain(q, k)).abs().max().item() if with_lse else None
+    if not (torch.isfinite(out).all() and err <= K1_TOL and (lse_err is None or lse_err <= K1_LSE_TOL)):
+        fail(f"K1 forward ({B}, {N}, {Hh}, {D}) disagrees with its plain version: max abs err {err} (bound "
+             f"{K1_TOL}), lse {lse_err} (bound {K1_LSE_TOL})")
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    ms = time_ms(lambda: attention_fwd(q, k, v, with_lse=with_lse), inner=10)
+    plain_ms = time_ms(lambda: attention_plain(q, k, v), reps=5)
+    lib_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt), inner=10)
+    flops = 4.0 * B * Hh * N * N * D
+    b, by = bound_ms(flops, (4 * B * N * Hh * D * 2) + (B * Hh * N * 4 if with_lse else 0))
+    lse_text = f", lse {lse_err:.3e} (bound {K1_LSE_TOL})" if with_lse else ""
+    print(f"{phase} K1 forward ({B}, {N}, {Hh}, {D}) bf16, {path}{' with the lse' if with_lse else ''}: "
+          f"max_abs_err {err:.3e} (bound {K1_TOL}){lse_text}; two launches bitwise equal; kernel {ms:.4f} ms "
+          f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms "
+          f"({flops / lib_ms / 1e9:.1f} TFLOP/s; the kernel takes {ms / lib_ms:.2f} of it), bound {b:.4f} ms "
+          f"({by})", flush=True)
+    return {"shape": [B, N, Hh, D], "lse": with_lse, "max_abs_err": err, "lse_err": lse_err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b, "bound_by": by, "library_ms": lib_ms}
+
+
+def phase_k1(gen):
+    """The forward at the three shapes its paths give it (`k1_forward_shape`)."""
+    shapes = [k1_forward_shape(gen, B, with_lse, path)
+              for (B, with_lse), path in zip(K1_PHASE2_SHAPES, ("serving", "student", "teacher"))]
     serving = shapes[0]
     return {"name": "attention", "route": "cuda", "source": "scenedino_torch/csrc/attention.cu",
             "replaces": "scenedino_tpu/models/vit.py:126",
@@ -1704,27 +1732,37 @@ def write_cityscapes_tree(root, rng):
                   rng.integers(0, 34, (1024, 2048), dtype=np.uint8))
 
 
-def _run_logged(fn, argv):
-    """fn(argv) with the launch counters zeroed before and read after, the
-    "evaluation" logger's records and the peak memory: (result, launches,
-    per-frame records, peak GiB, wall s)."""
+def _logged(fn, loggers=("evaluation",)):
+    """fn() with the launch counters zeroed before and read after, the
+    loggers' records and the peak memory: (records, launches, peak GiB,
+    wall s)."""
     from scenedino_torch import kernels
 
     records = LogRecords()
-    log = logging.getLogger("evaluation")
-    log.setLevel(logging.INFO)
-    log.addHandler(records)
+    logs = [logging.getLogger(n) for n in loggers]
+    for lg in logs:
+        lg.setLevel(logging.INFO)
+        lg.addHandler(records)
     try:
         torch.cuda.reset_peak_memory_stats()
         kernels.reset_launches()
         t0 = time.perf_counter()
-        out = fn(argv)
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = kernels.launches()
     finally:
-        log.removeHandler(records)
-    return out, counts, records.with_attr("frame"), torch.cuda.max_memory_allocated() / 2 ** 30, wall
+        for lg in logs:
+            lg.removeHandler(records)
+    return records, counts, torch.cuda.max_memory_allocated() / 2 ** 30, wall
+
+
+def _run_logged(fn, argv):
+    """fn(argv) through `_logged` with the "evaluation" logger: (result,
+    launches, per-frame records, peak GiB, wall s)."""
+    out = []
+    records, counts, peak, wall = _logged(lambda: out.append(fn(argv)))
+    return out[0], counts, records.with_attr("frame"), peak, wall
 
 
 def _in_unit(values) -> bool:
@@ -2028,6 +2066,26 @@ def first_call(module, name):
         setattr(module, name, original)
 
 
+@contextlib.contextmanager
+def k1_batches():
+    """Keep (batch, with the log-sum-exp) of every K1 forward call of the ViT
+    in the yielded set (the lse where a gradient is wanted, as
+    `kernels.attention.attention` decides); calls pass through."""
+    from scenedino_torch.models import vit as vit_mod
+
+    seen, original = set(), vit_mod.attention
+
+    def spy(q, k, v):
+        seen.add((q.shape[0], torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad)))
+        return original(q, k, v)
+
+    vit_mod.attention = spy
+    try:
+        yield seen
+    finally:
+        vit_mod.attention = original
+
+
 def reference_checkpoint(conf, seed, path, device="cuda"):
     """A field and head of `conf` (a config's model and downstream blocks)
     at full width, drawn from `seed` (LayerScale drawn around 0.1, not the
@@ -2280,6 +2338,470 @@ def phase_reference(seed, scratch, ssc_root, city_root, device="cuda"):
     return total, holds
 
 
+# phase 10: the KITTI-360 data path. The seeded tree: one sequence of
+# KITTI_FRAMES posed frames at the release's sizes (the training split's items
+# reach 41 frames ahead with the recipe's fisheye offsets of up to 40, and the
+# resize cache holds every frame but the last); its test items; the cuts of the
+# three recipes' runs
+KITTI_SEQ = "2013_05_28_drive_0000_sync"
+KITTI_FRAMES = 56
+KITTI_TEST_IDS = (20, 30, 40)
+KITTI_STEPS = 3
+KITTI_VAL_ITEMS = 2
+# an item through the cache against the same item resampled on the fly: one
+# 8-bit step after the [-1, 1] scaling (the cache truncates), and float32
+# round-off
+KITTI_CACHE_TOL = 2 / 255 + 1e-6
+# processes that write the tree and the resize cache (the card's host has 8 cores)
+KITTI_WORKERS = 8
+# the release's fisheye calibrations (image_02.yaml, image_03.yaml), 1400x1400
+KITTI_FISHEYE = {
+    "02": (2.2134047507854890, 1.6798235660113681e-02, 1.6548773243373522, 1336.3220825849971, 1335.7883350012958,
+           716.94323510126321, 705.76498308221585),
+    "03": (2.5535139132482758, 4.9370396274089505e-02, 4.5068455478645308, 1485.4455462304386, 1484.7933577069786,
+           698.47345726911731, 698.97203136519401),
+}
+
+
+def _texture(seed, shape, shift):
+    """A seeded low-frequency RGB field (H, W, 3) uint8, moved `shift` pixels
+    along x: a few sinusoids per channel, so the photometric loss has
+    structure to fit."""
+    rng = np.random.default_rng(seed)
+    h, w = shape
+    y = np.arange(h, dtype=np.float32)[:, None] / h
+    x = (np.arange(w, dtype=np.float32)[None, :] + shift) / w
+    img = np.empty((h, w, 3), np.float32)
+    for c in range(3):
+        fx, fy, ph = rng.uniform(1, 6, 3), rng.uniform(1, 6, 3), rng.uniform(0, 2 * np.pi, 3)
+        img[..., c] = 128 + sum(40 / (k + 1) * np.sin(2 * np.pi * (fx[k] * x + fy[k] * y) + ph[k]) for k in range(3))
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def _write_kitti_frame(root, i, seed):
+    """Frame i of the tree: the two rectified perspective images (376x1408)
+    and the two fisheye images (1400x1400), Paeth-filtered PNGs."""
+    from scenedino_torch.datasets.image_io import write_png
+
+    raw = os.path.join(root, "data_2d_raw", KITTI_SEQ)
+    for cam, folder, shape in (("00", "data_rect", (376, 1408)), ("01", "data_rect", (376, 1408)),
+                               ("02", "data_rgb", (1400, 1400)), ("03", "data_rgb", (1400, 1400))):
+        write_png(os.path.join(raw, f"image_{cam}", folder, f"{i:010d}.png"),
+                  _texture(seed + int(cam), shape, 12.0 * i), filter_type=4)
+    return i
+
+
+def kitti_train_lines(repo_root, max_id):
+    """The lines of datasets/kitti_360/splits/sscbench/train_files.txt of the
+    tree's sequence whose index is at most `max_id` (l and r entries)."""
+    lines = []
+    with open(os.path.join(repo_root, "datasets", "kitti_360", "splits", "sscbench", "train_files.txt")) as f:
+        for line in f:
+            seq, idx, _ = line.split()
+            if seq == KITTI_SEQ and int(idx) <= max_id:
+                lines.append(line.strip())
+            elif seq == KITTI_SEQ and int(idx) > max_id:
+                break
+    return lines
+
+
+def write_kitti_tree(root, repo_root, seed, workers=8):
+    """A seeded KITTI-360 tree in the release's layout: KITTI_FRAMES frames of
+    one sequence (perspective pairs 376x1408, fisheye pairs 1400x1400, the
+    port's PNG writer with the Paeth filter, written by `workers` processes),
+    calibration (the release's P_rect_00 and camera -> velodyne, phase 8a's
+    camera -> pose, the fisheye YAMLs in the release's FileStorage layout),
+    poses, velodyne scans and KITTI-360 semantic PNGs of the items' frames,
+    and a split directory: the training lines of the repository's SSCBench
+    split that the tree holds, and KITTI_TEST_IDS. Returns (the split's
+    training lines, seconds)."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    from scenedino_torch.datasets.image_io import write_png
+    from scenedino_torch.eval.sscbench import CAM2VELO, CAM_K
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(seed)
+    calib = os.path.join(root, "calibration")
+    raw = os.path.join(root, "data_2d_raw", KITTI_SEQ)
+    velo = os.path.join(root, "data_3d_raw", KITTI_SEQ, "velodyne_points", "data")
+    sem = os.path.join(root, "data_2d_semantics", "train", KITTI_SEQ, "image_00", "semantic")
+    for d in [calib, velo, sem, os.path.join(root, "data_poses", KITTI_SEQ), os.path.join(root, "splits")] + [
+            os.path.join(raw, f"image_{cam}", folder) for cam, folder in (("00", "data_rect"), ("01", "data_rect"),
+                                                                          ("02", "data_rgb"), ("03", "data_rgb"))]:
+        os.makedirs(d, exist_ok=True)
+    _write_kv(os.path.join(calib, "calib_cam_to_pose.txt"),
+              [(f"image_0{i}", np.hstack([np.eye(3), [[0.8 * i], [0.3], [-0.1]]])) for i in range(4)])
+    with open(os.path.join(calib, "calib_cam_to_velo.txt"), "w") as f:
+        f.write(" ".join(repr(float(x)) for x in CAM2VELO[:3].ravel()) + "\n")
+    _write_kv(os.path.join(calib, "perspective.txt"),
+              [("P_rect_00", np.hstack([CAM_K, np.zeros((3, 1))])), ("R_rect_00", np.eye(3)),
+               ("R_rect_01", np.eye(3)), ("S_rect_00", [1408, 376])])
+    for cam, (xi, k1, k2, g1, g2, u0, v0) in KITTI_FISHEYE.items():
+        with open(os.path.join(calib, f"image_{cam}.yaml"), "w") as f:
+            f.write(f"%YAML:1.0\n---\nmodel_type: MEI\ncamera_name: image_{cam}\nimage_width: 1400\n"
+                    f"image_height: 1400\nmirror_parameters:\n   xi: {xi:.16e}\ndistortion_parameters:\n"
+                    f"   k1: {k1:.16e}\n   k2: {k2:.16e}\n   p1: 4.2223943394772046e-04\n"
+                    f"   p2: 4.2462134260997584e-04\nprojection_parameters:\n   gamma1: {g1:.16e}\n"
+                    f"   gamma2: {g2:.16e}\n   u0: {u0:.16e}\n   v0: {v0:.16e}\n")
+    poses = []
+    for i in range(KITTI_FRAMES):
+        a = 0.004 * i
+        poses.append([i] + list(np.array([[np.cos(a), 0, np.sin(a), 0.05 * i], [0, 1, 0, 0.0],
+                                          [-np.sin(a), 0, np.cos(a), 0.8 * i]]).ravel()))
+    np.savetxt(os.path.join(root, "data_poses", KITTI_SEQ, "poses.txt"), np.asarray(poses))
+    train = kitti_train_lines(repo_root, KITTI_FRAMES - 2 - 41)
+    with open(os.path.join(root, "splits", "train_files.txt"), "w") as f:
+        f.write("\n".join(train) + "\n")
+    with open(os.path.join(root, "splits", "test_files.txt"), "w") as f:
+        f.write("".join(f"{KITTI_SEQ} {i:010d} l\n" for i in KITTI_TEST_IDS))
+    # the items' first frames: a velodyne scan (a road plane and walls ahead, x forward) and the labels
+    ids = sorted({int(line.split()[1]) for line in train} | set(KITTI_TEST_IDS))
+    for i in ids:
+        n = 60000
+        x = rng.uniform(2, 60, n)
+        y = rng.uniform(-12, 12, n)
+        z = np.where(rng.random(n) < 0.6, -1.7, rng.uniform(-1.7, 3.0, n))
+        y = np.where(z > -1.7, np.sign(y) * rng.uniform(6, 12, n), y)
+        np.stack([x, y, z, rng.random(n)], -1).astype(np.float32).tofile(os.path.join(velo, f"{i:010d}.bin"))
+        labels = np.zeros((376, 1408), np.uint8)
+        labels[:150] = 23  # sky
+        labels[150:250] = rng.choice(np.array([11, 21, 26, 17, 13], np.uint8), size=(1, 1408)).repeat(100, 0)
+        labels[250:] = rng.choice(np.array([7, 8, 9, 22], np.uint8), size=(1, 1408)).repeat(126, 0)
+        write_png(os.path.join(sem, f"{i:010d}.png"), labels, filter_type=2)
+    with ProcessPoolExecutor(workers, mp_context=multiprocessing.get_context("spawn")) as pool:
+        list(pool.map(_write_kitti_frame, [root] * KITTI_FRAMES, range(KITTI_FRAMES), [seed] * KITTI_FRAMES))
+    return train, time.perf_counter() - t0
+
+
+def _kitti_dataset_block(conf, root):
+    conf["dataset"].update(data_path=root, pose_path=os.path.join(root, "data_poses"),
+                           split_path=os.path.join(root, "splits"))
+
+
+def phase_kitti_tree(seed, scratch):
+    """Phase 10a: the tree, the preprocess CLI's cache, one item through the
+    cache against the same item resampled on the fly, and the loader's host
+    ms. Returns (the tree's root, the loader's ms)."""
+    from scenedino_torch.cli import preprocess_kitti_360
+    from scenedino_torch.datasets.kitti_360 import KITTI360Dataset
+    from scenedino_torch.utils.prefetch import ThreadedLoader
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    root = tempfile.mkdtemp(prefix="kitti360_", dir=scratch)
+    train, write_s = write_kitti_tree(root, repo, seed + 100, KITTI_WORKERS)
+    t0 = time.perf_counter()
+    preprocess_kitti_360.main(["resize", "-d", root, "-r", str(H), str(W), "-f", "0", "-15",
+                               "--workers", str(KITTI_WORKERS)])
+    cache_s = time.perf_counter() - t0
+    size_mb = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(root) for f in fs) / 1e6
+    print(f"phase 10a tree: {KITTI_FRAMES} frames of {KITTI_SEQ} (376x1408 perspective and 1400x1400 fisheye pairs, "
+          f"Paeth-filtered PNGs by the port's writer, {KITTI_WORKERS} processes), the release's calibration with the "
+          f"fisheye YAMLs in its FileStorage layout, {len(train)} training lines of the repository's SSCBench split "
+          f"({', '.join(train)}), test items {list(KITTI_TEST_IDS)}: written in {write_s:.1f} s, {size_mb:.0f} MB; "
+          f"cli.preprocess_kitti_360 resize (192x640, rotation 0x-15, {KITTI_WORKERS} processes) in {cache_s:.1f} s",
+          flush=True)
+
+    kw = dict(data_path=root, pose_path=os.path.join(root, "data_poses"),
+              split_path=os.path.join(root, "splits", "train_files.txt"), fisheye_offset=(10, 25, 40),
+              return_segmentation=True)
+    raw, cached = KITTI360Dataset(**kw), KITTI360Dataset(is_preprocessed=True, **kw)
+    worst, raw_ms, cached_ms = 0.0, [], []
+    for i in range(len(cached)):
+        items = []
+        for ds, times in ((raw, raw_ms), (cached, cached_ms)) if i == 0 else ((cached, cached_ms),):
+            ds._rng_local.rng = np.random.RandomState(seed + i)
+            t0 = time.perf_counter()
+            items.append(ds[i])
+            times.append((time.perf_counter() - t0) * 1e3)
+        if len(items) == 2:  # the first item also resampled from the raw frames
+            if not np.array_equal(items[0]["poses"], items[1]["poses"]):
+                fail("an item's poses through the cache differ from the raw item's")
+            worst = max(worst, float(np.abs(items[0]["imgs"] - items[1]["imgs"]).max()))
+    # the PNG decode of one file of each kind (the port's reader, host ms)
+    from scenedino_torch.datasets.image_io import read_png, write_png
+
+    raw_dir = os.path.join(root, "data_2d_raw", KITTI_SEQ)
+    decode = {}
+    for name, path in (("fisheye 1400x1400", os.path.join(raw_dir, "image_02", "data_rgb", "0000000001.png")),
+                       ("perspective 376x1408", os.path.join(raw_dir, "image_00", "data_rect", "0000000001.png")),
+                       ("labels 376x1408", os.path.join(root, "data_2d_semantics", "train", KITTI_SEQ, "image_00",
+                                                        "semantic", "0000000001.png")),
+                       ("cached 192x640", os.path.join(raw_dir, "image_00", f"data_{H}x{W}", "0000000001.png"))):
+        t0 = time.perf_counter()
+        pixels = read_png(path)
+        decode[name] = round((time.perf_counter() - t0) * 1e3, 1)
+    # the port's cache is written without row filters; a cache written with them (as PIL does) decodes so
+    paeth = os.path.join(root, "paeth_192x640.png")
+    write_png(paeth, pixels, filter_type=4)
+    t0 = time.perf_counter()
+    read_png(paeth)
+    decode["cached 192x640 if Paeth-filtered"] = round((time.perf_counter() - t0) * 1e3, 1)
+    plan = [list(range(i, i + 4)) for i in range(0, len(cached) - 3, 4)] * 3
+    t0 = time.perf_counter()
+    n = sum(1 for _ in ThreadedLoader(cached, plan, num_workers=4))
+    batch_ms = (time.perf_counter() - t0) * 1e3 / n
+    ms = {"raw_item": float(np.median(raw_ms)), "cached_item": float(np.median(cached_ms)), "batch_of_4": batch_ms}
+    print(f"phase 10a loader (host): an item of 8 views at 192x640 with its labels, raw (2 perspective reads and "
+          f"resizes, 2 fisheye reads and MEI resamples a timestep) {json.dumps([round(t, 1) for t in raw_ms])} ms, "
+          f"through the cache {json.dumps([round(t, 1) for t in cached_ms])} ms; a batch of 4 through the cache by "
+          f"ThreadedLoader (4 threads, {n} batches) {batch_ms:.1f} ms; the cached items against the raw ones: max abs "
+          f"difference {worst:.3e} (bound {KITTI_CACHE_TOL:.3e}, one 8-bit step in [-1, 1]); one PNG's decode, host "
+          f"ms: {json.dumps(decode)}", flush=True)
+    if not worst <= KITTI_CACHE_TOL:
+        fail("an item read through the cache differs from the same item resampled on the fly")
+    return root, ms
+
+
+def phase_kitti_stage1(root, scratch):
+    """Phase 10b: cli.train.main on configs/train_scenedino_kitti_360.yaml at
+    full width on the tree. Returns (its launches, its run directory, each
+    step's host and loader-wait ms)."""
+    from scenedino_torch import kernels
+    from scenedino_torch.cli import train as cli
+    from scenedino_torch.training import trainer
+    from scenedino_torch.utils.config import load, save_run_config
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    conf = load(os.path.join(repo, "configs", "train_scenedino_kitti_360.yaml"))
+    _kitti_dataset_block(conf, root)
+    out = tempfile.mkdtemp(prefix="kitti_s1_", dir=scratch)
+    conf["output"]["path"] = out
+    conf["training"].update(stop_iteration=KITTI_STEPS, checkpoint_every=KITTI_STEPS, log_every=1)
+    vconf = conf["validation"]["validation"]
+    vconf["events"][0]["args"]["every"] = KITTI_STEPS
+    vconf["subset"]["args"] = {"start": 0, "end": KITTI_VAL_ITEMS}
+    cfg_dir = tempfile.mkdtemp(prefix="kitti_s1_config_", dir=scratch)
+    path = save_run_config(cfg_dir, conf)
+    model_conf = trainer.configs_from_dict(conf)[0]
+    enc = model_conf["encoder"]
+    print(f"phase 10b stage 1: cli.train.main --config configs/train_scenedino_kitti_360.yaml at full width "
+          f"({enc['encoder_arch']} {enc['version']} student and teacher, DPT {enc['decoder_out_dim']}, d_hidden "
+          f"{model_conf['decoder_heads'][0]['args']['d_hidden']}, with_amp {conf['with_amp']}, {enc['image_size']}, "
+          f"batch {conf['batch_size']}, 8 views, fisheye offsets 10-40, is_preprocessed); cuts: data_path, pose_path "
+          f"and split_path -> the seeded tree, stop_iteration {KITTI_STEPS}, validation every 5000 -> {KITTI_STEPS} "
+          f"over test items 0-{KITTI_VAL_ITEMS - 1} (file: 0-127), checkpoint_every 10000 -> {KITTI_STEPS}, "
+          f"log_every 1, output into {out}", flush=True)
+    records, counts, peak, wall = _logged(lambda: cli.main(["--config", path]), ("training", "validation"))
+    steps, vals = records.with_attr("losses"), records.with_attr("validator")
+    for r in steps:
+        print(f"phase 10b step {r.iteration}: loss {r.losses['rec_loss']:.6f}; host ms: waiting on the loader "
+              f"{r.data_ms:.1f}, then the step {r.step_ms:.1f}", flush=True)
+    for r in vals:
+        print(f"phase 10b validation at {r.iteration} ({r.ms:.1f} ms, the velodyne depths): "
+              f"{json.dumps({k: round(float(v), 6) for k, v in r.metrics.items()})}", flush=True)
+    depth = 12
+    remat = depth if enc.get("grad_checkpointing") else 0
+    expect = {**{name: 0 for name in kernels.WRAPPERS},
+              "attention": KITTI_STEPS * (2 * depth + remat) + len(vals) * KITTI_VAL_ITEMS * 2 * depth,
+              "attention_bwd_dq": KITTI_STEPS * depth, "attention_bwd_dkv": KITTI_STEPS * depth}
+    ckpt = os.path.join(out, f"training_checkpoint_{KITTI_STEPS}.pt")
+    print(f"phase 10b run: {len(steps)} steps in {wall:.1f} s wall (model build, data, steps, validation, checkpoints);"
+          f" peak memory allocated {peak:.3f} GiB; launches {json.dumps(counts)} (expected {json.dumps(expect)}: a "
+          f"step the student's and the teacher's 12 blocks and the backward's 12, a validation item 12 + 12); "
+          f"{os.path.basename(ckpt)} written: {os.path.exists(ckpt)}", flush=True)
+    if (len(steps) != KITTI_STEPS or not _finite(v for r in steps for v in r.losses.values())
+            or steps[-1].losses["nonfinite_total"] != 0):
+        fail("the KITTI-360 stage-1 run did not take its steps finite and applied")
+    if len(vals) != 1 or not _finite(vals[0].metrics.values()) or "dino_cos_sim" not in vals[0].metrics or not any(
+            k.startswith("depth_") for k in vals[0].metrics):
+        fail("the KITTI-360 stage-1 validation is missing a depth or dino metric, or one is not finite")
+    if counts != expect:
+        fail(f"the KITTI-360 stage-1 run launched {counts}, expected {expect}")
+    if not os.path.exists(ckpt):
+        fail(f"{ckpt} was not written")
+    return counts, out, [(r.step_ms, r.data_ms) for r in steps]
+
+
+def phase_kitti_stage2(root, stage1_dir, scratch):
+    """Phase 10c: cli.train.main --stage semantic on
+    configs/train_semantic_kitti_360.yaml from phase 10b's run. Returns
+    (its launches, its run directory)."""
+    from scenedino_torch import kernels
+    from scenedino_torch.cli import train as cli
+    from scenedino_torch.utils.config import load, save_run_config
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    conf = load(os.path.join(repo, "configs", "train_semantic_kitti_360.yaml"))
+    _kitti_dataset_block(conf, root)
+    out = tempfile.mkdtemp(prefix="kitti_s2_", dir=scratch)
+    conf["output"]["path"] = out
+    conf["resume_from"] = stage1_dir
+    conf["training"].update(stop_iteration=KITTI_STEPS, checkpoint_every=KITTI_STEPS, log_every=1, num_epochs=10)
+    vconf = conf["validation"]["validation"]
+    vconf["events"][0]["args"]["every"] = KITTI_STEPS
+    vconf["subset"] = {"type": "range", "args": {"start": 0, "end": KITTI_VAL_ITEMS}}
+    path = save_run_config(tempfile.mkdtemp(prefix="kitti_s2_config_", dir=scratch), conf)
+    d = conf["downstream"]
+    print(f"phase 10c stage 2: cli.train.main --stage semantic --config configs/train_semantic_kitti_360.yaml "
+          f"(its model: ViT-B/8, DPT 256, with_amp {conf['with_amp']}; downstream {d['n_classes']} clusters, "
+          f"buffer {d['buffer_size']}, {d['patch_sample_size']} samples a crop; batch {conf['batch_size']}, "
+          f"num_workers {conf['num_workers']}); cuts: the data paths -> the seeded tree, resume_from phase 10b's run, "
+          f"num_epochs 1 -> 10 (4 training items are one step an epoch), stop_iteration {KITTI_STEPS}, validation "
+          f"every 100 -> {KITTI_STEPS} over test items 0-{KITTI_VAL_ITEMS - 1} (file: a random 32), "
+          f"checkpoint_every 5000 -> {KITTI_STEPS}, log_every 250 -> 1; the labels read as train ids", flush=True)
+    captured, run_stage2 = [], cli.run_stage2
+
+    def keep(config, device=None):  # the run's field and head, as main's call of run_stage2 returns them
+        captured.append(run_stage2(config, device=device))
+        return captured[-1]
+
+    cli.run_stage2 = keep
+    try:
+        records, counts, peak, wall = _logged(lambda: cli.main(["--config", path, "--stage", "semantic"]),
+                                              ("training", "validation"))
+    finally:
+        cli.run_stage2 = run_stage2
+    field, head, _ = captured[0]
+    steps, vals = records.with_attr("losses"), records.with_attr("validator")
+    for r in steps:
+        print(f"phase 10c step {r.iteration}: {json.dumps({k: round(float(v), 6) for k, v in r.losses.items()})}; "
+              f"host ms: waiting on the loader {r.data_ms:.1f}, then the step {r.step_ms:.1f}", flush=True)
+    seg = {}
+    for r in vals:
+        seg = {k: float(v) for k, v in r.metrics.items() if k.endswith(("_miou", "_acc"))}
+        print(f"phase 10c validation at {r.iteration} ({r.ms:.1f} ms, the tree's labels): "
+              f"{json.dumps({k: round(float(v), 6) for k, v in r.metrics.items()})}", flush=True)
+    depth = 12
+    renders = KITTI_STEPS + 1 + len(vals) * KITTI_VAL_ITEMS
+    expect = {**{name: 0 for name in kernels.WRAPPERS}, "attention": renders * depth, "encode_view": renders}
+    # the head moved from its draw, and the field is phase 10b's, bit for bit
+    from scenedino_torch.models.downstream import SemanticHead, SemanticHeadConfig
+
+    init = SemanticHead(SemanticHeadConfig.from_dict(d), generator=torch.Generator().manual_seed(conf["seed"]))
+    moved = {k: not torch.equal(v.cpu(), init.state_dict()[k]) for k, v in head.state_dict().items()
+             if v.is_floating_point()}
+    frozen = torch.load(cli.find_latest_checkpoint(stage1_dir), map_location="cuda", weights_only=True)["field"]
+    unchanged = _state_equal(field.state_dict(), frozen)
+    del field, head, captured
+    print(f"phase 10c run: {len(steps)} steps in {wall:.1f} s wall; peak memory allocated {peak:.3f} GiB; launches "
+          f"{json.dumps(counts)} (expected {json.dumps(expect)}: each step, the seeding and each validation item "
+          f"encode one view and render it through K6); head tensors moved {sum(moved.values())} of {len(moved)}; "
+          f"the field after the run bitwise equal to phase 10b's checkpoint: {unchanged}", flush=True)
+    if (len(steps) != KITTI_STEPS or not _finite(v for r in steps for v in r.losses.values())
+            or steps[-1].losses.get("nonfinite_total", 0) != 0):
+        fail("the KITTI-360 stage-2 run did not take its steps finite and applied")
+    if len(vals) != 1 or not seg or not _in_unit(seg.values()):
+        fail(f"the KITTI-360 stage-2 validation's seg metrics are missing or leave [0, 1]: {seg}")
+    if counts != expect:
+        fail(f"the KITTI-360 stage-2 run launched {counts}, expected {expect}")
+    if not all(moved.values()) or not unchanged:
+        fail("the KITTI-360 stage 2 left a head tensor unchanged or changed the field")
+    return counts, out
+
+
+def phase_kitti_eval(root, stage2_dir, scratch, device="cuda"):
+    """Phase 10d: cli.evaluate.main on configs/evaluate_semantic_kitti_360.yaml
+    with phase 10c's model, precision and downstream blocks, over the
+    tree's test items; K6 on the first frame against its plain version.
+    Returns (its launches, K6's error)."""
+    from scenedino_torch import kernels
+    from scenedino_torch.cli import evaluate as cli
+    from scenedino_torch.kernels.encode_view import encode_view_plain
+    from scenedino_torch.ops import fast_field
+    from scenedino_torch.tools.bench_encode_view import TOL
+    from scenedino_torch.utils.config import load, load_run_config, save_run_config
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    conf = load(os.path.join(repo, "configs", "evaluate_semantic_kitti_360.yaml"))
+    _kitti_dataset_block(conf, root)
+    run = load_run_config(stage2_dir)
+    conf.pop("variant", None)
+    conf["model"], conf["with_amp"] = copy.deepcopy(run["model"]), run.get("with_amp", False)
+    conf["downstream"] = {**conf.get("downstream", {}), **copy.deepcopy(run["downstream"])}
+    conf_dir = tempfile.mkdtemp(prefix="kitti_eval_config_", dir=scratch)
+    save_run_config(conf_dir, conf)
+    with first_call(fast_field, "encode_view") as k6_calls:
+        out, counts, frames, peak, wall = _run_logged(cli.main, ["--config", conf_dir, "--ckpt", stage2_dir,
+                                                                  "--device", device])
+    n = len(KITTI_TEST_IDS)
+    expect = {**{name: 0 for name in kernels.WRAPPERS}, "attention": n * 12, "encode_view": n}
+    summary = {m: {k: round(v, 6) for k, v in r.items()} for m, r in out.items() if isinstance(r, dict)}
+    args = k6_calls[0]
+    k6, ref = kernels.encode_view(*args), encode_view_plain(*args)
+    tol = TOL[torch.float32]
+    errs = {name: (a - b).abs().max().item() for name, a, b in zip(("depth", "feature", "rgb"), k6, ref)}
+    print(f"phase 10d evaluation: cli.evaluate.main, configs/evaluate_semantic_kitti_360.yaml (raw frames, fisheye "
+          f"offset 10) with phase 10c's model, with_amp and downstream blocks, the tree's {n} test items (8 views, "
+          f"view 0 encoded), labels as train ids: {json.dumps(summary)}; per frame host ms "
+          f"{json.dumps([{k: round(getattr(r, k), 1) for k in ('read_ms', 'frame_ms')} for r in frames])}; "
+          f"{wall:.1f} s wall; peak {peak:.3f} GiB; launches {json.dumps(counts)} (expected {json.dumps(expect)}: 12 "
+          f"K1 and one K6 a frame); K6 on the first frame against its plain version: {json.dumps(errs)} (bounds "
+          f"{json.dumps(tol)})", flush=True)
+    if out["n_frames"] != n or len(summary) != 4 or not all(_in_unit(r.values()) for r in summary.values()):
+        fail(f"the KITTI-360 evaluation is not {n} frames of finite values in [0, 1]: {out}")
+    if counts != expect:
+        fail(f"the KITTI-360 evaluation launched {counts}, expected {expect}")
+    if not all(errs[k] <= tol[k] for k in tol):
+        fail("K6 disagrees with its plain version on the KITTI-360 evaluation frame")
+    return counts, max(errs.values())
+
+
+def phase_kitti_layouts(root):
+    """Phase 10e (host): KITTI_360_v2 items (the overlap sampling) and
+    SSCBench items with the fisheye views on the same tree."""
+    from scenedino_torch.datasets import make_datasets
+    from scenedino_torch.datasets.kitti_360 import estimate_frustum_overlap
+    from scenedino_torch.datasets.sscbench import SSCBenchDataset
+
+    from scenedino_torch.utils.config import load
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    conf = load(os.path.join(repo, "configs", "train_scenedino_kitti_360.yaml"))["dataset"]
+    conf.update(type="KITTI_360_v2", data_path=root, pose_path=os.path.join(root, "data_poses"), data_fc=4,
+                split_path=None, data_segmentation=False)
+    train, _ = make_datasets(conf)
+    overlaps, shapes, ok = [], [], True
+    for i in (0, 41):
+        train._rng_local.rng = np.random.RandomState(i)
+        t0 = time.perf_counter()
+        item = train[2 * i]
+        ms = (time.perf_counter() - t0) * 1e3
+        ok &= item["imgs"].shape == (4, 3, H, W) and all(np.isfinite(item[k]).all() for k in ("imgs", "poses"))
+        overlaps.append([round(estimate_frustum_overlap(item["projs"][v], item["poses"][v], item["projs"][0],
+                                                        item["poses"][0]), 4) for v in range(1, 4)])
+        shapes.append((list(item["imgs"].shape), [int(t) for t in item["ts"]], round(ms, 1)))
+    ssc = SSCBenchDataset(data_path=root, sequences=(KITTI_SEQ,), load_fisheye=True)
+    for i in (50,):
+        item = ssc[i]
+        ok &= item["imgs"].shape == (3, 3, H, W) and all(np.isfinite(item[k]).all() for k in ("imgs", "poses"))
+        shapes.append(list(item["imgs"].shape))
+    print(f"phase 10e layouts (host): type KITTI_360_v2 ({len(train)} datapoints of the full split), 2 items of 4 "
+          f"frames through the cache (shape, timesteps, ms): {shapes[:2]}, each frame's overlap with the encoder "
+          f"camera {overlaps}; SSCBenchDataset(load_fisheye=True) item 50 (raw fisheyes): {shapes[2:]}; shapes and "
+          f"finite values: {ok}",
+          flush=True)
+    if not ok:
+        fail("a KITTI_360_v2 or SSCBench fisheye item has the wrong shape or a non-finite value")
+
+
+def phase_kitti(seed, scratch):
+    """Phase 10: the KITTI-360 data path (10a-10e). Returns the launches of
+    10b, 10c and 10d together, and K1 at the forward shapes they gave it
+    that phase 2 does not time."""
+    from scenedino_torch.utils.timing import card_line
+
+    t_phase = time.perf_counter()
+    root, loader_ms = phase_kitti_tree(seed, scratch)
+    with k1_batches() as seen:
+        s1_counts, s1_dir, step_ms = phase_kitti_stage1(root, scratch)
+        s2_counts, s2_dir = phase_kitti_stage2(root, s1_dir, scratch)
+        ev_counts, _ = phase_kitti_eval(root, s2_dir, scratch)
+    phase_kitti_layouts(root)
+    # K1 at the forward shapes phase 2 does not time: 8 views give the teacher 16 frames a step
+    gen = torch.Generator(device="cuda").manual_seed(seed + 110)
+    new_shapes = [k1_forward_shape(gen, B, lse, "KITTI-360 path", "phase 10") for B, lse in sorted(seen)
+                  if (B, lse) not in K1_PHASE2_SHAPES]
+    wait = [round(d / (s + d), 3) for s, d in step_ms]
+    print(f"phase 10 loader against the step: an item {loader_ms['cached_item']:.1f} ms through the cache "
+          f"({loader_ms['raw_item']:.1f} ms raw), a batch of 4 {loader_ms['batch_of_4']:.1f} ms; stage-1 steps' host "
+          f"ms {[round(s, 1) for s, _ in step_ms]} after loader waits of {[round(d, 1) for _, d in step_ms]}: the "
+          f"wait's share of each step's wall {wait}; {card_line()}; "
+          f"phase 10 wall time {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return {k: s1_counts[k] + s2_counts[k] + ev_counts[k] for k in s1_counts}, new_shapes
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -2344,7 +2866,8 @@ def main():
         stage2_conv = phase_stage2_convergence(args.seed, scratch)
         evaluation, k4_block, k6_frame, trees = phase_eval(args.seed, stage2_dir, scratch)
         reference, holds = phase_reference(args.seed, scratch, *trees)
-    paths = (serving, training, train_run, stage2, stage2_conv, evaluation, reference)
+        kitti, k1_kitti = phase_kitti(args.seed, scratch)
+    paths = (serving, training, train_run, stage2, stage2_conv, evaluation, reference, kitti)
     for e in entries:
         e["launches"] = sum(p[e["name"]] for p in paths)
         if e["name"] == "point_query":
@@ -2353,6 +2876,9 @@ def main():
         elif e["name"] == "encode_view":
             e["shapes"]["2D evaluation"] = k6_frame
             e["max_abs_err"] = max(e["max_abs_err"], k6_frame["max_abs_err"])
+        if e["name"] == "attention":
+            e["shapes"] += [{"path": "KITTI-360", **shape} for shape in k1_kitti]
+            e["max_abs_err"] = max([e["max_abs_err"]] + [shape["max_abs_err"] for shape in k1_kitti])
         if e["name"] in holds:
             if isinstance(e.get("shapes"), list):
                 e["shapes"].append({"path": "reference checkpoints", **holds[e["name"]]})

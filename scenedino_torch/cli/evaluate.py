@@ -16,6 +16,9 @@ reads that holds a head: a stage-2 run of the port, a JAX `.npz`, or a
 on the GPU unless `--device` names another device; without a GPU it
 raises.
 `downstream.apply_crf: true` adds the window CRF's "<mode>_crf" rows.
+The KITTI-360 kinds (configs/evaluate_semantic_kitti_360.yaml) score the
+test split's view 0 against its labels mapped to the 19 train ids
+(`datasets.TrainIdSegs`).
 Prints each mode's mIoU, weighted mIoU and accuracy as JSON.
 """
 from __future__ import annotations
@@ -76,7 +79,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     args = ap.parse_args(argv)
     logging.basicConfig(level=logging.INFO)
 
-    from scenedino_torch.datasets import make_test_dataset
+    from scenedino_torch.datasets import make_test_dataset, with_train_ids
     from scenedino_torch.eval.seg2d import Seg2DEvaluator
     from scenedino_torch.utils.config import load_run_config
 
@@ -87,7 +90,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     ckpt = args.ckpt or config.get("checkpoint")
     if not ckpt:
         ap.error("--ckpt required (or set `checkpoint:` in the config)")
-    dataset = make_test_dataset(config["dataset"])
+    dataset = with_train_ids(make_test_dataset(config["dataset"]), config["dataset"])
     H, W = config["dataset"].get("image_size", (192, 640))
     field, head = eval_model(config, ckpt, device, (H, W))
     if head is None:

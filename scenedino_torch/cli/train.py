@@ -3,6 +3,8 @@
     python -m scenedino_torch.cli.train --config configs/train_synthetic_flagship.yaml
     python -m scenedino_torch.cli.train --config <config> --device cpu
     python -m scenedino_torch.cli.train --config configs/train_semantic_synthetic_convergence.yaml --stage semantic
+    python -m scenedino_torch.cli.train --config configs/train_scenedino_kitti_360.yaml
+    python -m scenedino_torch.cli.train --config configs/train_semantic_kitti_360.yaml --stage semantic
 
 The config is read by `utils.config` (no PyYAML). The run trains on the
 GPU unless `--device` names another device; without a GPU it raises
@@ -11,8 +13,11 @@ checkpoints and TensorBoard scalars under `output.path`, validates as the
 `validation:` blocks say, and resumes from the newest checkpoint with
 `training.continue: true`. Each step's draws come from one
 `torch.Generator` on the device seeded from `seed`; the data order from a
-numpy RandomState seeded from it. One device: the reference's data-parallel
-mesh is not ported.
+numpy RandomState seeded from it, the items loaded by `num_workers` threads
+(4 by default). The KITTI-360 recipes read a tree in the release's layout
+(`dataset.data_path`, `pose_path`, `split_path`); with `is_preprocessed:
+true` run `scenedino_torch.cli.preprocess_kitti_360 resize` on it once
+first. One device: the reference's data-parallel mesh is not ported.
 
 `--stage nvs` (the default) trains the field (stage 1). `--stage semantic`
 distills a frozen field into the semantic head (stage 2, `run_stage2`):
@@ -34,7 +39,7 @@ import numpy as np
 import torch
 
 from scenedino_torch import resolve_device
-from scenedino_torch.datasets import make_datasets
+from scenedino_torch.datasets import make_datasets, with_train_ids
 from scenedino_torch.models.factory import make_model
 from scenedino_torch.training import trainer
 from scenedino_torch.training.loop import LoopConfig, find_latest_checkpoint, fit
@@ -49,10 +54,12 @@ from scenedino_torch.utils.checkpoint import FIELD_SNAPSHOT, is_field_state, res
 from scenedino_torch.utils.config import load, save_run_config
 from scenedino_torch.utils.prefetch import ThreadedLoader, device_prefetch, to_device
 
+# the items' keys that go to the device; the rest ("ts", "index", the ragged
+# "3d_bboxes" of a KITTI-360 item) stay on the host
 TRAIN_KEYS = ("imgs", "poses", "projs")
 VAL_KEYS = ("imgs", "poses", "projs", "depths")
-logger = logging.getLogger("training")
 SEMANTIC_KEYS = ("imgs", "poses", "projs", "segs")
+logger = logging.getLogger("training")
 
 
 def batch_iterator(dataset, batch_size: int, key_seed: int = 0, shuffle: bool = True, drop_last: bool = True,
@@ -247,12 +254,15 @@ def run_stage2(config: dict, device=None):
 
     field, head, state, generator, cfg, rcfg, loss_cfg = init_stage2(config, device)
     device = generator.device
-    train_ds, val_ds = make_datasets(config["dataset"])
+    # KITTI-360 labels as train ids, as the reference's head takes them (datasets.TrainIdSegs)
+    train_ds, val_ds = (with_train_ids(ds, config["dataset"]) for ds in make_datasets(config["dataset"]))
     batch_size = config.get("batch_size", 1)
 
     # the cluster centres from the first batch (semantic_head.py:329-348)
     init_type = config.get("downstream", {}).get("cluster_init", "kmeans++")
-    first = to_device(next(iter(batch_iterator(train_ds, batch_size)())), device, SEMANTIC_KEYS)
+    num_workers = config.get("num_workers", 4)
+    first = to_device(next(iter(batch_iterator(train_ds, batch_size, num_workers=num_workers)())), device,
+                      SEMANTIC_KEYS)
     t0 = time.perf_counter()
     seed_cluster_centers(field, head, first, draw_seed(generator, cfg, head.cfg, rcfg, batch_size, init_type),
                          cfg, rcfg)
@@ -267,8 +277,7 @@ def run_stage2(config: dict, device=None):
         B, V = batch["imgs"].shape[:2]
         return step(state, batch, draw_stage2(gen, cfg, head.cfg, rcfg, B, V))
 
-    batches = batch_iterator(train_ds, batch_size, key_seed=config.get("seed", 0),
-                             num_workers=config.get("num_workers", 4))
+    batches = batch_iterator(train_ds, batch_size, key_seed=config.get("seed", 0), num_workers=num_workers)
 
     def data_iter() -> Iterable[Dict[str, torch.Tensor]]:
         yield from device_prefetch(batches(), put=lambda b: to_device(b, device, SEMANTIC_KEYS), buffer_size=2)

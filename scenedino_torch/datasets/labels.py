@@ -81,3 +81,21 @@ def map_id_to_train_id(labels):
     """KITTI/Cityscapes ids -> trainIds with 255 -> -1
     (semantic_head.py:247-254)."""
     return _ID_TO_TRAIN[np.asarray(labels, np.int64)]
+
+# KITTI-360's own annotation ids (the "kittiId" column of the canonical
+# table): the 3D bbox XMLs store these, not the Cityscapes ids
+# (scenedino_tpu/datasets/labels.py:74-93)
+KITTI_ID_BY_NAME = {
+    "road": 1, "parking": 2, "sidewalk": 3, "terrain": 4, "vegetation": 5,
+    "gate": 6, "wall": 7, "fence": 8, "sky": 9, "rail track": 10,
+    "building": 11, "garage": 12, "car": 13, "truck": 14, "trailer": 15,
+    "caravan": 16, "motorcycle": 17, "bicycle": 18, "person": 19,
+    "rider": 20, "pole": 21, "smallpole": 22, "traffic light": 23,
+    "traffic sign": 24, "lamp": 25, "trash bin": 26, "vending machine": 27,
+    "box": 28, "stop": 29, "guard rail": 30, "bridge": 31, "tunnel": 32,
+    "train": 33, "bus": 34, "unknown construction": 35,
+    "unknown vehicle": 36, "unknown object": 37,
+}
+
+NAME2LABEL = {l.name: l for l in LABELS}
+KITTIID2LABEL = {KITTI_ID_BY_NAME[l.name]: l for l in LABELS if l.name in KITTI_ID_BY_NAME}

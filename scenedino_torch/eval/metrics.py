@@ -107,12 +107,18 @@ SEG_CLASS_WEIGHTS = SEG_CLASS_WEIGHTS / SEG_CLASS_WEIGHTS.mean()
 
 def seg_confusion_matrix(target, pred, n_gt: int, n_pred: Optional[int] = None, ignore_index: int = -1) -> np.ndarray:
     """Confusion counts (actual x prediction) over the targets that are not
-    `ignore_index` (metrics.py:230-247): (n_gt, n_pred) int64."""
+    `ignore_index` (metrics.py:230-247): (n_gt, n_pred) int64. As the JAX
+    package counts (`jnp.bincount` with a length): a pair whose flat index
+    target * n_pred + pred lies past the table is dropped, one below 0 is
+    counted at [0, 0] (targets outside the classes, such as KITTI-360's
+    unmapped semantic ids >= n_gt, reach it)."""
     n_pred = n_pred or n_gt
     target = _host(target, np.int64).reshape(-1)
     pred = _host(pred, np.int64).reshape(-1)
     valid = target != ignore_index
-    counts = np.bincount(target[valid] * n_pred + pred[valid], minlength=n_gt * n_pred)
+    idx = np.maximum(np.where(valid, target * n_pred + pred, 0), 0)
+    keep = valid & (idx < n_gt * n_pred)
+    counts = np.bincount(idx[keep], minlength=n_gt * n_pred)
     return counts.reshape(n_gt, n_pred).astype(np.int64)
 
 

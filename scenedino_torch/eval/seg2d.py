@@ -14,7 +14,7 @@ encode-view render, K6 on the three-TF32-pass state. Otherwise the generic
 path: `ImageRaySampler` rays through `render_rays_chunked` of the field.
 The strata of frame i are an explicit input (`draws(i)`), else drawn from
 a generator seeded from `seed + i`. The frame-parallel `run_sharded` is
-not ported (ROADMAP queue 1, item 3), nor the exact permutohedral CRF.
+not ported (ROADMAP queue 1, item 6), nor the exact permutohedral CRF (item 5).
 """
 from __future__ import annotations
 
@@ -59,7 +59,7 @@ class Seg2DEvaluator:
     def __post_init__(self):
         if self.crf_method != "window":
             raise NotImplementedError(f"crf_method {self.crf_method!r}: the port has the window CRF only (the exact "
-                                      "permutohedral lattice waits in ROADMAP queue 1, item 7)")
+                                      "permutohedral lattice waits in ROADMAP queue 1, item 5)")
         H, W = self.image_size
         self.sampler = ImageRaySampler(self.z_near, self.z_far, H, W)
         self.rcfg = RenderConfig(n_coarse=self.n_coarse)
@@ -78,9 +78,11 @@ class Seg2DEvaluator:
 
     @torch.no_grad()
     def render(self, imgs: torch.Tensor, projs: torch.Tensor, poses: torch.Tensor, u: torch.Tensor):
-        """Encode and render one frame's encode view: imgs (1, 1, 3, H, W);
-        u (H*W, n_coarse) the strata. Returns (depth (H, W), dino64 (H, W,
-        D), rgb (H, W, 3))."""
+        """Encode and render one frame's encode view: imgs (1, V, 3, H, W),
+        the whole sample (V = 1 for Cityscapes and BDD, 8 for a KITTI-360
+        item), of which view 0 is encoded (`ids_encoder=(0,)`, as
+        scenedino_tpu/eval/seg2d.py:77-80); u (H*W, n_coarse) the strata.
+        Returns (depth (H, W), dino64 (H, W, D), rgb (H, W, 3))."""
         H, W = self.image_size
         field, rcfg = self.field, self.rcfg
         state = field.encode(imgs, projs, poses, ids_encoder=(0,))
@@ -128,8 +130,9 @@ class Seg2DEvaluator:
 
     def run(self, dataset: Sequence, max_frames: Optional[int] = None,
             draws: Optional[Callable[[int], torch.Tensor]] = None) -> Dict:
-        """Accumulate the confusions over a dataset of seg2d samples and score
-        them. `draws(i)` gives frame i's strata (default `self.draws`). Each
+        """Accumulate the confusions over a dataset (seg2d samples, or
+        KITTI-360 items with "segs") against each sample's "segs"[0] and
+        score them. `draws(i)` gives frame i's strata (default `self.draws`). Each
         frame's host ms (read, predict with the confusions) is logged."""
         device = next(self.field.parameters()).device
         conf = {m: np.zeros((self.n_classes, self.n_classes), np.int64) for m in self.result_modes}

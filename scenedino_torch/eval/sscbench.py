@@ -16,7 +16,7 @@ occupancy and per-class numbers over the ranges 12.8 / 25.6 / 51.2 m,
 and the direct and Hungarian mIoU tables (`SSCAccumulator`), with the
 sigma-cutoff search and the precision/recall tradeoff beside them
 (`SigmaDiagnostics`). The frame-parallel and pipelined predictors of the
-reference wait in ROADMAP queue 1, item 3.
+reference wait in ROADMAP queue 1, item 6.
 """
 from __future__ import annotations
 

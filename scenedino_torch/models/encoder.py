@@ -248,7 +248,8 @@ class DinoModule(nn.Module):
         if bad:
             raise NotImplementedError(
                 f"the port trains the downsample-prediction featup configuration with a separate teacher and "
-                f"the MLP or orthogonal-linear expansion; unsupported: {[(n, getattr(cfg, n)) for n in bad]}"
+                f"the MLP or orthogonal-linear expansion (the rest, the upsample-gt mode among it, waits in ROADMAP "
+                f"queue 1, item 3); unsupported: {[(n, getattr(cfg, n)) for n in bad]}"
             )
         self.gt_encoder = DinoViTEncoder(
             backbone=cfg.encoder_arch,

@@ -214,10 +214,17 @@ def test_sscbench_items_match_jax(ssc_root, size):
 
 
 def test_sscbench_without_fisheyes_and_kitti_360_raise(ssc_root):
-    with pytest.raises(NotImplementedError, match="queue 1, item 7"):
-        SSCBenchDataset(data_path=str(ssc_root), load_fisheye=True)
-    with pytest.raises(NotImplementedError, match="queue 1, item 7"):
-        make_test_dataset({"type": "KITTI_360", "data_path": str(ssc_root)})
+    # the fisheye views and the KITTI-360 loader are ported (their parity is
+    # tests/test_torch_kitti360.py's): SSCBench builds the fisheye resamplers,
+    # make_test_dataset the KITTI-360 test instance; RealEstate10K raises
+    from scenedino_torch.datasets.kitti_360 import KITTI360Dataset
+
+    assert sorted(SSCBenchDataset(data_path=str(ssc_root), load_fisheye=True)._resamplers) == ["02", "03"]
+    kitti = make_test_dataset({"type": "KITTI_360", "data_path": str(ssc_root),
+                               "pose_path": str(ssc_root / "data_poses")})
+    assert isinstance(kitti, KITTI360Dataset) and kitti.return_depth and kitti.fisheye_offset == (1,)
+    with pytest.raises(NotImplementedError, match="queue 1, item 8"):
+        make_test_dataset({"type": "re10k", "data_path": str(ssc_root)})
     with pytest.raises(ValueError, match="unknown"):
         make_test_dataset({"type": "nope"})
     ds = make_test_dataset({"type": "SSCBench", "data_path": str(ssc_root),

@@ -59,8 +59,9 @@ def test_synthetic_items_equal_the_references(size):
 def test_synthetic_dataset_refusals():
     with pytest.raises(ValueError, match="even"):
         SyntheticMultiViewDataset(length=1, n_views=3)[0]
-    with pytest.raises(NotImplementedError, match="synthetic"):
-        make_datasets({"type": "old_KITTI_360"})
+    # the KITTI-360 kinds are ported (tests/test_torch_kitti360.py); RealEstate10K is not
+    with pytest.raises(NotImplementedError, match="RealEstate10K"):
+        make_datasets({"type": "re10k"})
 
 
 # --------------------------------------------------------- the YAML subset
