@@ -181,8 +181,33 @@ Phases, one line each:
              then K1's forward at the shapes 10b-10d gave it that phase 2
              does not time (the stage-1 teacher's 16 frames, stage 2's 4
              frames without the log-sum-exp), as phase 2 times its own
+  11 d80 and upsample-gt. 11a: K1 at head dim 80 (csrc/attention_d80.cu):
+             the forward without and with the log-sum-exp, dq and dkv
+             against their plain versions (phase 2's bounds) at (1, 585,
+             16, 80) and (4, 585, 16, 80), I-JEPA-H/14's forward at 192x640
+             and four of it, and (2, 1921, 12, 80), the student of 11's
+             D = 80 training step; two launches bitwise equal; kernel,
+             plain, SDPA (forward and backward) and bound times. 11b: the
+             I-JEPA-H/14 backbone (32 blocks, width 1280, 16 heads of 80, no
+             class token) from seeded weights in the reference's layout
+             through utils.convert.convert_ssl_vit into make_vit
+             ("i_jepa_huge") in bf16: the 192x640 forward, 32 launches of
+             the D = 80 forward; its first 2 blocks at 196x518 on the GPU
+             against the CPU; then 2 steps of the flagship stage-1 step
+             (trainer.make_train_step, bf16, 192x640, batch 2) with
+             vit_overrides width 960, 12 heads: heads of 80 through the
+             training entry point, each step 24 forward, 12 dq and 12 dkv
+             launches at D = 80. 11c: cli.train.main on
+             configs/train_scenedino_kitti_360_upsampler.yaml (upsample-gt,
+             the multiscale-crop teacher: 4 views of each of the 16 loss
+             images a step, a per-pixel target) at full width on phase 10's
+             tree and cache: 3 steps and a validation of 2 items; each
+             step's host ms and loader wait, peak memory, the launches, the
+             losses finite, no step skipped, every student parameter moved,
+             the validation finite; the teacher's K1 shape (64, 1921, 12,
+             64) timed as phase 2 times its own
   kernels    one JSON line: launches (all serving paths, training, the
-             train run, stage 2, evaluation, phase 9 and phase 10 together), error, times and
+             train run, stage 2, evaluation, phases 9, 10 and 11 together), error, times and
              bound per kernel; the K1 forward's, K4's and K6's also at
              their shapes ("shapes": K4 at the evaluation's block, K6 at
              the 2D evaluator's fp32 frame; phase 9's holds of K1, K2, K4
@@ -281,6 +306,18 @@ EVAL_RGB_ABS = 2e-2
 # instantiations of csrc/point_render.cu's kernel: K2 and K4 at 2 hidden x 2
 # output widths each, K3 at 2 hidden widths
 POINT_KERNELS = 10
+# phase 11a: K1 at head dim 80 (csrc/attention_d80.cu) at I-JEPA-H/14's
+# 192x640 forward (13 x 45 = 585 tokens, 16 heads), four of them, and phase
+# 11's D = 80 training step (1921 tokens, 12 heads of 80): its teacher on the
+# 4 loss images and, last, its student, each with its backward
+D80_SHAPES = ((1, 585, 16), (4, 585, 16), (4, 1921, 12), (2, 1921, 12))
+# phase 11: the D = 80 training step's cuts (its ViTs: ViT-B/8 with 12 heads
+# of 80; batch, steps) and the upsampler recipe's (steps, validation items)
+D80_TRAIN_WIDTH, D80_TRAIN_B, D80_TRAIN_STEPS = 960, 2, 2
+UPSAMPLER_STEPS, UPSAMPLER_VAL_ITEMS = 3, 2
+# phase 11b: the I-JEPA-H/14 ViT's first blocks at 196x518 (14 x 37 = 518
+# tokens, so the card takes K1) on the GPU against the CPU, both bf16
+IJEPA_CHECK_DEPTH, IJEPA_CHECK_SIZE = 2, (196, 518)
 
 
 def fail(msg):
@@ -2131,7 +2168,7 @@ def phase_reference(seed, scratch, ssc_root, city_root, device="cuda"):
     from scenedino_torch import kernels
     from scenedino_torch.cli import evaluate as cli_eval
     from scenedino_torch.cli import evaluate_sscbench as cli_ssc
-    from scenedino_torch.core.resize import antialias_resize
+    from scenedino_torch.core.resize import jax_resize
     from scenedino_torch.datasets.sscbench import SSCBenchDataset
     from scenedino_torch.eval import sscbench as S
     from scenedino_torch.kernels.attention import attention_plain
@@ -2254,7 +2291,7 @@ def phase_reference(seed, scratch, ssc_root, city_root, device="cuda"):
     # the v2 encoder on the GPU against the CPU: the pre-resize at 192x640, the fp32 ViT at 64x128
     ckpt, field, head = paths["v2"]
     x = normalize_input(frame[0][:, 0].float())
-    resize_err = (antialias_resize(x, (168, 560)).cpu() - antialias_resize(x.cpu(), (168, 560))).abs().max().item()
+    resize_err = (jax_resize(x, (168, 560)).cpu() - jax_resize(x.cpu(), (168, 560))).abs().max().item()
     ecfg = field.encoder.cfg  # the same encoder in fp32
     enc32 = DinoViTEncoder(ecfg.encoder_arch, ecfg.version, tuple(ecfg.intermediate_features),
                            vit_overrides=ecfg.vit_overrides).to(device).eval()
@@ -2778,8 +2815,8 @@ def phase_kitti_layouts(root):
 
 def phase_kitti(seed, scratch):
     """Phase 10: the KITTI-360 data path (10a-10e). Returns the launches of
-    10b, 10c and 10d together, and K1 at the forward shapes they gave it
-    that phase 2 does not time."""
+    10b, 10c and 10d together, K1 at the forward shapes they gave it that
+    phase 2 does not time, and the tree's root (phase 11c reads it)."""
     from scenedino_torch.utils.timing import card_line
 
     t_phase = time.perf_counter()
@@ -2799,7 +2836,313 @@ def phase_kitti(seed, scratch):
           f"ms {[round(s, 1) for s, _ in step_ms]} after loader waits of {[round(d, 1) for _, d in step_ms]}: the "
           f"wait's share of each step's wall {wait}; {card_line()}; "
           f"phase 10 wall time {time.perf_counter() - t_phase:.1f} s", flush=True)
-    return {k: s1_counts[k] + s2_counts[k] + ev_counts[k] for k in s1_counts}, new_shapes
+    return {k: s1_counts[k] + s2_counts[k] + ev_counts[k] for k in s1_counts}, new_shapes, root
+
+
+def k1_d80_shape(gen, B, N, Hh):
+    """Phase 11a at one shape (B, N, Hh, 80) bf16: the forward without and
+    with the log-sum-exp, dq and dkv against the plain versions, two
+    launches bitwise equal; kernel, plain, SDPA and bound times."""
+    from scenedino_torch.kernels.attention import (
+        attention_bwd_dkv,
+        attention_bwd_dq,
+        attention_bwd_plain,
+        attention_fwd,
+        attention_lse_plain,
+        attention_plain,
+    )
+    from scenedino_torch.utils.timing import time_ms
+
+    D = 80
+    shape = (B, N, Hh, D)
+    q, k, v, do = (torch.randn(*shape, generator=gen, device="cuda").to(torch.bfloat16) for _ in range(4))
+    out = attention_fwd(q, k, v)[0]
+    out_l, lse = attention_fwd(q, k, v, with_lse=True)
+    dq, di = attention_bwd_dq(q, k, v, out_l, do, lse)
+    dk, dv = attention_bwd_dkv(q, k, v, do, lse, di)
+    again = (attention_fwd(q, k, v)[0], attention_bwd_dq(q, k, v, out_l, do, lse)[0],
+             *attention_bwd_dkv(q, k, v, do, lse, di))
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip((out, dq, dk, dv), again)) or not torch.equal(out, out_l):
+        fail(f"K1 at D = 80 {shape}: two launches on the same inputs differ")
+    err = (out.float() - attention_plain(q, k, v).float()).abs().max().item()
+    lse_err = (lse - attention_lse_plain(q, k)).abs().max().item()
+    if not (torch.isfinite(out).all() and err <= K1_TOL and lse_err <= K1_LSE_TOL):
+        fail(f"K1 forward at D = 80 {shape} disagrees with its plain version: max abs err {err} (bound {K1_TOL}), "
+             f"lse {lse_err} (bound {K1_LSE_TOL})")
+    errs, bounds = [], []
+    for name, got, r in zip(("dq", "dk", "dv"), (dq, dk, dv), attention_bwd_plain(q, k, v, out_l, do, lse)):
+        errs.append((got.float() - r.float()).abs().max().item())
+        bounds.append(K1_BWD_REL * r.float().abs().max().item() + 1e-3)
+        if not (torch.isfinite(got).all() and errs[-1] <= bounds[-1]):
+            fail(f"K1 backward {name} at D = 80 {shape} disagrees with the plain backward: max abs err "
+                 f"{errs[-1]} > {bounds[-1]}")
+    ms = time_ms(lambda: attention_fwd(q, k, v), inner=10)
+    ms_lse = time_ms(lambda: attention_fwd(q, k, v, with_lse=True), inner=10)
+    ms_dq = time_ms(lambda: attention_bwd_dq(q, k, v, out_l, do, lse), inner=10)
+    ms_dkv = time_ms(lambda: attention_bwd_dkv(q, k, v, do, lse, di), inner=10)
+    plain_ms = time_ms(lambda: attention_plain(q, k, v), reps=5)
+    plain_bwd_ms = time_ms(lambda: attention_bwd_plain(q, k, v, out_l, do, lse), reps=5)
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True) for t in (q, k, v))
+    lib_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt), inner=10)
+    sdpa = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt)
+    dot = do.transpose(1, 2).contiguous()
+    lib_bwd_ms = time_ms(lambda: torch.autograd.grad(sdpa, (qt, kt, vt), dot, retain_graph=True), inner=10)
+    unit = 2.0 * B * Hh * N * N * D  # one N x N x D product
+    t_bytes, s_bytes = B * N * Hh * D * 2, B * Hh * N * 4
+    b_fwd, by_fwd = bound_ms(2 * unit, 4 * t_bytes)  # q k v out
+    b_lse, by_lse = bound_ms(2 * unit, 4 * t_bytes + s_bytes)
+    b_dq, by_dq = bound_ms(3 * unit, 6 * t_bytes + 2 * s_bytes)  # q k v o dO dq; lse, di
+    b_dkv, by_dkv = bound_ms(4 * unit, 6 * t_bytes + 2 * s_bytes)  # q k v dO dk dv; lse, di
+    b_bwd, by_bwd = bound_ms(5 * unit, 8 * t_bytes + s_bytes)
+    print(f"phase 11a K1 at D = 80 {shape} bf16: max_abs_err forward {err:.3e} (bound {K1_TOL}), lse {lse_err:.3e} "
+          f"(bound {K1_LSE_TOL}), dq {errs[0]:.3e} (bound {bounds[0]:.3e}), dk {errs[1]:.3e} (bound "
+          f"{bounds[1]:.3e}), dv {errs[2]:.3e} (bound {bounds[2]:.3e}); two launches bitwise equal; kernel forward "
+          f"{ms:.4f} ms, with the lse {ms_lse:.4f} ms ({2 * unit / ms_lse / 1e9:.1f} TFLOP/s), dq {ms_dq:.4f} ms, "
+          f"dkv {ms_dkv:.4f} ms ({7 * unit / (ms_dq + ms_dkv) / 1e9:.1f} TFLOP/s over their 7 products); plain "
+          f"forward {plain_ms:.4f} ms, backward {plain_bwd_ms:.4f} ms; sdpa forward {lib_ms:.4f} ms (the kernel "
+          f"takes {ms / lib_ms:.2f} of it), backward {lib_bwd_ms:.4f} ms (dq + dkv take "
+          f"{(ms_dq + ms_dkv) / lib_bwd_ms:.2f} of it); bound forward {b_fwd:.4f} ms ({by_fwd}), with the lse "
+          f"{b_lse:.4f} ms ({by_lse}), dq {b_dq:.4f} ms ({by_dq}), dkv {b_dkv:.4f} ms ({by_dkv}), the whole backward "
+          f"at 10 N^2 D B H FLOP {b_bwd:.4f} ms ({by_bwd})", flush=True)
+    return {"shape": list(shape), "max_abs_err": err, "lse_err": lse_err, "bwd_errs": errs, "ms": ms,
+            "ms_lse": ms_lse, "ms_dq": ms_dq, "ms_dkv": ms_dkv, "plain_ms": plain_ms, "plain_bwd_ms": plain_bwd_ms,
+            "library_ms": lib_ms, "library_bwd_ms": lib_bwd_ms, "bound_ms": b_fwd, "bound_by": by_fwd,
+            "bound_dq_ms": b_dq, "bound_dq_by": by_dq, "bound_dkv_ms": b_dkv, "bound_dkv_by": by_dkv}
+
+
+def phase_d80_kernels(gen):
+    """Phase 11a: the three D = 80 kernels at `D80_SHAPES`; their entries
+    (the forward timed at I-JEPA-H/14's serving shape, the backward at the
+    D = 80 training step's)."""
+    shapes = [k1_d80_shape(gen, *shape) for shape in D80_SHAPES]
+    fwd, bwd = shapes[0], shapes[-1]
+    common = {"route": "cuda", "source": "scenedino_torch/csrc/attention_d80.cu", "shapes": shapes}
+    return [
+        {"name": "attention_d80", "replaces": "scenedino_tpu/models/vit.py:126",
+         "max_abs_err": max(e["max_abs_err"] for e in shapes),
+         **{key: fwd[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}, **common},
+        {"name": "attention_d80_bwd_dq", "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:1287",
+         "max_abs_err": max(e["bwd_errs"][0] for e in shapes), "ms": bwd["ms_dq"], "plain_ms": bwd["plain_bwd_ms"],
+         "bound_ms": bwd["bound_dq_ms"], "bound_by": bwd["bound_dq_by"], "library_ms": bwd["library_bwd_ms"],
+         **common},
+        {"name": "attention_d80_bwd_dkv", "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:941",
+         "max_abs_err": max(max(e["bwd_errs"][1:]) for e in shapes), "ms": bwd["ms_dkv"],
+         "plain_ms": bwd["plain_bwd_ms"], "bound_ms": bwd["bound_dkv_ms"], "bound_by": bwd["bound_dkv_by"],
+         "library_ms": bwd["library_bwd_ms"], **common},
+    ]
+
+
+def ijepa_reference_weights(gen, depth):
+    """Seeded I-JEPA-H/14 weights in the published checkpoint's layout
+    ("module." + timm names, a 16 x 16 position embedding, no class token,
+    the predictor's head keys that the import drops), on the card: matrices
+    and kernels ~ N(0, 1/fan_in), norm weights 1, biases and the position
+    embedding ~ N(0, 0.02^2)."""
+    from scenedino_torch.models.vit import VIT_PRESETS
+
+    cfg = VIT_PRESETS["i_jepa_huge"]
+    dim, p = cfg.width, cfg.patch_size
+
+    def randn(*shape, scale):
+        return torch.randn(*shape, generator=gen, device="cuda") * scale
+
+    raw = {"patch_embed.proj.weight": randn(dim, 3, p, p, scale=(3 * p * p) ** -0.5),
+           "patch_embed.proj.bias": randn(dim, scale=0.02), "pos_embed": randn(1, 256, dim, scale=0.02),
+           "norm.weight": torch.ones(dim, device="cuda"), "norm.bias": randn(dim, scale=0.02),
+           "fc.weight": randn(2, dim, scale=0.02)}
+    for i in range(depth):
+        for name, shape in (("attn.qkv", (3 * dim, dim)), ("attn.proj", (dim, dim)), ("mlp.fc1", (4 * dim, dim)),
+                            ("mlp.fc2", (dim, 4 * dim))):
+            raw[f"blocks.{i}.{name}.weight"] = randn(*shape, scale=shape[1] ** -0.5)
+            raw[f"blocks.{i}.{name}.bias"] = randn(shape[0], scale=0.02)
+        for name in ("norm1", "norm2"):
+            raw[f"blocks.{i}.{name}.weight"] = torch.ones(dim, device="cuda")
+            raw[f"blocks.{i}.{name}.bias"] = randn(dim, scale=0.02)
+    return {f"module.{k}": v for k, v in raw.items()}
+
+
+def phase_ijepa(seed):
+    """Phase 11b, first part: the I-JEPA-H/14 backbone at 192x640 in bf16.
+    Returns its launches."""
+    from scenedino_torch import kernels
+    from scenedino_torch.models.encoder import normalize_input
+    from scenedino_torch.models.vit import VIT_PRESETS, make_vit
+    from scenedino_torch.utils.convert import convert_ssl_vit
+    from scenedino_torch.utils.timing import time_ms
+
+    cfg = VIT_PRESETS["i_jepa_huge"]
+    gen = torch.Generator(device="cuda").manual_seed(seed + 111)
+    t0 = time.perf_counter()
+    state = convert_ssl_vit("i_jepa_huge", ijepa_reference_weights(gen, cfg.depth))
+    model = make_vit("i_jepa_huge", dtype=torch.bfloat16).to("cuda").eval()
+    model.load_state_dict(state)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    x = normalize_input(torch.rand(1, 3, H, W, generator=gen, device="cuda") * 2 - 1)
+    with torch.inference_mode():
+        kernels.reset_launches()
+        out = model(x)
+        torch.cuda.synchronize()
+        counts = kernels.launches()
+        ms = time_ms(lambda: model(x), reps=5)
+    feats = out["features_normalized"]
+    n_tokens = (H // cfg.patch_size) * (W // cfg.patch_size)
+    expect = {**{name: 0 for name in kernels.WRAPPERS}, "attention_d80": cfg.depth}
+    print(f"phase 11b I-JEPA-H/14 ({cfg.depth} blocks, width {cfg.width}, {cfg.num_heads} heads of "
+          f"{cfg.width // cfg.num_heads}, patch {cfg.patch_size}, no class token; {sum(v.numel() for v in state.values())} "
+          f"parameters) from seeded weights in the reference's layout through convert_ssl_vit in {load_s:.1f} s; the "
+          f"192x640 forward in bf16: {n_tokens} tokens, features {tuple(feats.shape)}, {ms:.2f} ms a forward "
+          f"(CUDA events); launches {json.dumps(counts)}", flush=True)
+    if tuple(feats.shape) != (1, n_tokens, cfg.width) or not torch.isfinite(feats).all():
+        fail(f"the I-JEPA-H/14 forward gave {tuple(feats.shape)} or non-finite features")
+    if counts != expect:
+        fail(f"the I-JEPA-H/14 forward launched {counts}, expected {expect}")
+
+    # its first blocks at 196x518 (518 tokens: the card takes K1) against the same bf16 ViT on the CPU
+    depth = IJEPA_CHECK_DEPTH
+    small = {k: v for k, v in state.items() if not (k.startswith("blocks.") and int(k.split(".")[1]) >= depth)}
+    cut = make_vit("i_jepa_huge", intermediate_layers=(0,), dtype=torch.bfloat16, overrides={"depth": depth})
+    cut.load_state_dict(small)
+    xs = normalize_input(torch.rand(1, 3, *IJEPA_CHECK_SIZE, generator=gen, device="cuda") * 2 - 1)
+    with torch.inference_mode():
+        kernels.reset_launches()
+        gpu = cut.to("cuda")(xs)["features_normalized"].float().cpu()
+        torch.cuda.synchronize()
+        small_counts = kernels.launches()
+        cpu = cut.cpu()(xs.cpu())["features_normalized"].float()
+    cos = torch.nn.functional.cosine_similarity(gpu, cpu, dim=-1).min().item()
+    err = (gpu - cpu).abs().max().item()
+    print(f"phase 11b I-JEPA-H/14's first {depth} blocks at {IJEPA_CHECK_SIZE[0]}x{IJEPA_CHECK_SIZE[1]} "
+          f"({gpu.shape[1]} tokens), GPU (kernels: {small_counts['attention_d80']} D = 80 launches) against the "
+          f"CPU (plain), both bf16: least token cosine {cos:.6f} (bound {SLICE_COS}), max abs err {err:.3e}",
+          flush=True)
+    if small_counts["attention_d80"] != depth or not cos >= SLICE_COS:
+        fail("the I-JEPA-H/14 check at 196x518 did not run through the D = 80 kernel or disagrees with the CPU")
+    return counts
+
+
+def phase_train_d80(seed):
+    """Phase 11b, second part: the flagship stage-1 step with heads of 80
+    (vit_overrides width 960, 12 heads) through trainer.make_train_step.
+    Returns its launches."""
+    from scenedino_torch import kernels
+    from scenedino_torch.models.factory import SCENEDINO_KITTI_360_TRAIN, make_model
+    from scenedino_torch.training import trainer
+
+    conf = copy.deepcopy(SCENEDINO_KITTI_360_TRAIN)
+    conf["model"]["encoder"]["vit_overrides"] = {"width": D80_TRAIN_WIDTH, "num_heads": 12}
+    model_conf, tcfg, rcfg, lcfg = trainer.configs_from_dict(conf)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 112)
+    model = make_model(model_conf, device="cuda", seed=seed, training=True)
+    B, depth = D80_TRAIN_B, model.encoder.vit_encoder.vit.cfg.depth
+    state = trainer.init_train_state(model, tcfg, artifact_shape=(D80_TRAIN_WIDTH, H // 8, W // 8), generator=gen)
+    step = trainer.make_train_step(model, tcfg, rcfg, lcfg)
+    batch = train_batch(gen, B, H, W, "cuda")
+    before = {n: p.detach().clone() for n, p in model.named_parameters() if p.requires_grad}
+    kernels.reset_launches()
+    losses, ms = [], []
+    for _ in range(D80_TRAIN_STEPS):
+        t0 = time.perf_counter()
+        out = step(state, batch, trainer.draw_stage1(gen, tcfg, rcfg, B, 4, H, W, 8))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(out["rec_loss"]))
+    counts = kernels.launches()
+    moved = sum(not torch.equal(p.detach(), before[n]) for n, p in model.named_parameters() if n in before)
+    expect = {**{name: 0 for name in kernels.WRAPPERS}, "attention_d80": D80_TRAIN_STEPS * 2 * depth,
+              "attention_d80_bwd_dq": D80_TRAIN_STEPS * depth, "attention_d80_bwd_dkv": D80_TRAIN_STEPS * depth}
+    print(f"phase 11b stage-1 step with heads of 80 (configs/train_scenedino_kitti_360.yaml's model, vit_overrides "
+          f"width {D80_TRAIN_WIDTH}, 12 heads; bf16, 192x640, batch {B}, V = 4): losses {losses}, host ms "
+          f"{[round(m, 1) for m in ms]}, {moved} of {len(before)} trainable tensors moved, applied "
+          f"{state.applied}; launches {json.dumps(counts)}", flush=True)
+    if not (all(np.isfinite(losses)) and state.applied == D80_TRAIN_STEPS and moved == len(before)):
+        fail("the D = 80 training steps were not finite and applied, or a parameter did not move")
+    if counts != expect:
+        fail(f"the D = 80 training steps launched {counts}, expected {expect}")
+    return counts
+
+
+def phase_upsampler(seed, root, scratch):
+    """Phase 11c: cli.train.main on configs/train_scenedino_kitti_360_upsampler.yaml
+    on phase 10's tree. Returns (its launches, K1 at the forward shapes it
+    gave that phases 2 and 10 do not time)."""
+    from scenedino_torch import kernels
+    from scenedino_torch.cli import train as cli
+    from scenedino_torch.models.factory import make_model
+    from scenedino_torch.training import trainer
+    from scenedino_torch.utils.config import load, save_run_config
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    conf = load(os.path.join(repo, "configs", "train_scenedino_kitti_360_upsampler.yaml"))
+    _kitti_dataset_block(conf, root)
+    out = tempfile.mkdtemp(prefix="kitti_up_", dir=scratch)
+    conf["output"]["path"] = out
+    conf["training"].update(stop_iteration=UPSAMPLER_STEPS, checkpoint_every=UPSAMPLER_STEPS, log_every=1)
+    vconf = conf["validation"]["validation"]
+    vconf["events"][0]["args"]["every"] = UPSAMPLER_STEPS
+    vconf["subset"]["args"] = {"start": 0, "end": UPSAMPLER_VAL_ITEMS}
+    path = save_run_config(tempfile.mkdtemp(prefix="kitti_up_config_", dir=scratch), conf)
+    model_conf = trainer.configs_from_dict(conf)[0]
+    enc = model_conf["encoder"]
+    print(f"phase 11c upsample-gt: cli.train.main --config configs/train_scenedino_kitti_360_upsampler.yaml at full "
+          f"width ({enc['encoder_arch']} {enc['version']} student and teacher, DPT {enc['decoder_out_dim']}, "
+          f"{enc['mode']} with the {enc['upsampler_arch']} teacher, dino_upscaled, compensate_artifacts "
+          f"{model_conf['compensate_artifacts']}, with_amp {conf['with_amp']}, batch {conf['batch_size']}, 8 views); "
+          f"cuts: the paths -> phase 10's tree and cache, stop_iteration {UPSAMPLER_STEPS}, validation every 5000 -> "
+          f"{UPSAMPLER_STEPS} over test items 0-{UPSAMPLER_VAL_ITEMS - 1} (file: 0-127), checkpoint_every 10000 -> "
+          f"{UPSAMPLER_STEPS}, log_every 1", flush=True)
+    with k1_batches() as seen:
+        records, counts, peak, wall = _logged(lambda: cli.main(["--config", path]), ("training", "validation"))
+    steps, vals = records.with_attr("losses"), records.with_attr("validator")
+    for r in steps:
+        print(f"phase 11c step {r.iteration}: loss {r.losses['rec_loss']:.6f} (dino {r.losses['loss_dino_coarse']:.6f}); "
+              f"host ms: waiting on the loader {r.data_ms:.1f}, then the step {r.step_ms:.1f}", flush=True)
+    for r in vals:
+        print(f"phase 11c validation at {r.iteration} ({r.ms:.1f} ms): "
+              f"{json.dumps({k: round(float(v), 6) for k, v in r.metrics.items()})}", flush=True)
+    depth = 12
+    # a step: the teacher's 12 blocks on all 64 views at once, the student's 12, the backward's 12;
+    # a validation item: the student's 12 and the teacher's 12 on its 8 views x 4
+    expect = {**{name: 0 for name in kernels.WRAPPERS},
+              "attention": UPSAMPLER_STEPS * 2 * depth + len(vals) * UPSAMPLER_VAL_ITEMS * 2 * depth,
+              "attention_bwd_dq": UPSAMPLER_STEPS * depth, "attention_bwd_dkv": UPSAMPLER_STEPS * depth}
+    ckpt_path = os.path.join(out, f"training_checkpoint_{UPSAMPLER_STEPS}.pt")
+    fresh = make_model(model_conf, device="cuda", seed=conf.get("seed", 0), training=True)
+    field = torch.load(ckpt_path, map_location="cuda", weights_only=True)["field"]
+    student = [n for n, p in fresh.named_parameters() if p.requires_grad]
+    still = [n for n in student if torch.equal(field[n], fresh.get_parameter(n))]
+    print(f"phase 11c run: {len(steps)} steps in {wall:.1f} s wall (model build, data, steps, validation, "
+          f"checkpoint); peak memory allocated {peak:.3f} GiB; launches {json.dumps(counts)} (expected "
+          f"{json.dumps(expect)}); K1 forward batches seen {sorted(seen)}; {len(student) - len(still)} of "
+          f"{len(student)} student tensors moved", flush=True)
+    if (len(steps) != UPSAMPLER_STEPS or not _finite(v for r in steps for v in r.losses.values())
+            or steps[-1].losses["nonfinite_total"] != 0):
+        fail("the upsample-gt run did not take its steps finite and applied")
+    if len(vals) != 1 or not _finite(vals[0].metrics.values()) or "dino_cos_sim" not in vals[0].metrics:
+        fail("the upsample-gt validation is missing its dino metric, or a metric is not finite")
+    if still:
+        fail(f"student parameters did not move in the upsample-gt run: {still[:8]}")
+    if counts != expect:
+        fail(f"the upsample-gt run launched {counts}, expected {expect}")
+    gen = torch.Generator(device="cuda").manual_seed(seed + 113)
+    timed = {(16, False)} | set(K1_PHASE2_SHAPES)  # phases 2 and 10 time these
+    shapes = [k1_forward_shape(gen, B, lse, "upsample-gt recipe", "phase 11c") for B, lse in sorted(seen)
+              if (B, lse) not in timed]
+    return counts, shapes
+
+
+def phase_d80_and_upsample_gt(seed, root, scratch):
+    """Phase 11b and 11c (11a ran with the other kernel phases). Returns
+    their launches together and K1 at the upsample-gt recipe's new shapes."""
+    from scenedino_torch.utils.timing import card_line
+
+    t0 = time.perf_counter()
+    ijepa = phase_ijepa(seed)
+    train = phase_train_d80(seed)
+    up, shapes = phase_upsampler(seed, root, scratch)
+    print(f"phase 11 wall time (11b and 11c) {time.perf_counter() - t0:.1f} s; {card_line()}", flush=True)
+    return {k: ijepa[k] + train[k] + up[k] for k in ijepa}, shapes
 
 
 def main():
@@ -2839,6 +3182,13 @@ def main():
     if sorted(k1) != ["dkv", "dq", "fwd"] or any(r.get("spill_stores", 1) or r.get("spill_loads", 1)
                                                  for r in k1.values()):
         fail(f"ptxas spilled in a K1 kernel, or its report is missing: {k1}")
+    d80 = {("fwd" if "fwd" in entry else "dq" if "bwd_dq" in entry else "dkv"): r
+           for entry, r in build.ptxas_report(build.build_log("attention_d80")).items()}
+    print(f"phase 1 K1 kernels at head dim 80 (csrc/attention_d80.cu: forward, dq, dkv; 128 threads a block), "
+          f"registers and spills in bytes: {json.dumps(d80)}", flush=True)
+    if sorted(d80) != ["dkv", "dq", "fwd"] or any(r.get("spill_stores", 1) or r.get("spill_loads", 1)
+                                                  for r in d80.values()):
+        fail(f"ptxas spilled in a D = 80 K1 kernel, or its report is missing: {d80}")
     # the point kernels (K2, K3, K4) in each of their hidden and output widths: mode, DC, EC, ET
     pk = {",".join(re.findall(r"Li(\d+)E", name.split("point_kernel")[-1])): r
           for name, r in build.ptxas_report(build.build_log("point_render")).items() if "point_kernel" in name}
@@ -2854,7 +3204,8 @@ def main():
         fail(f"ptxas spilled in K6, or a report is missing ({len(ev)} of {bench_encode_view.INSTANTIATIONS}): {ev}")
 
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
-    entries = [phase_k1(gen), *phase_k1_bwd(gen), phase_k2(gen), *phase_probe(gen), phase_k4(gen), phase_k6(gen)]
+    entries = [phase_k1(gen), *phase_k1_bwd(gen), phase_k2(gen), *phase_probe(gen), phase_k4(gen), phase_k6(gen),
+               *phase_d80_kernels(gen)]
     phase_gather(args.seed)
     serving = phase_slice(args.seed)
     training = phase_train(args.seed)
@@ -2866,8 +3217,9 @@ def main():
         stage2_conv = phase_stage2_convergence(args.seed, scratch)
         evaluation, k4_block, k6_frame, trees = phase_eval(args.seed, stage2_dir, scratch)
         reference, holds = phase_reference(args.seed, scratch, *trees)
-        kitti, k1_kitti = phase_kitti(args.seed, scratch)
-    paths = (serving, training, train_run, stage2, stage2_conv, evaluation, reference, kitti)
+        kitti, k1_kitti, kitti_root = phase_kitti(args.seed, scratch)
+        d80_paths, k1_upsampler = phase_d80_and_upsample_gt(args.seed, kitti_root, scratch)
+    paths = (serving, training, train_run, stage2, stage2_conv, evaluation, reference, kitti, d80_paths)
     for e in entries:
         e["launches"] = sum(p[e["name"]] for p in paths)
         if e["name"] == "point_query":
@@ -2878,7 +3230,8 @@ def main():
             e["max_abs_err"] = max(e["max_abs_err"], k6_frame["max_abs_err"])
         if e["name"] == "attention":
             e["shapes"] += [{"path": "KITTI-360", **shape} for shape in k1_kitti]
-            e["max_abs_err"] = max([e["max_abs_err"]] + [shape["max_abs_err"] for shape in k1_kitti])
+            e["shapes"] += [{"path": "upsample-gt recipe", **shape} for shape in k1_upsampler]
+            e["max_abs_err"] = max([e["max_abs_err"]] + [shape["max_abs_err"] for shape in k1_kitti + k1_upsampler])
         if e["name"] in holds:
             if isinstance(e.get("shapes"), list):
                 e["shapes"].append({"path": "reference checkpoints", **holds[e["name"]]})

@@ -4,6 +4,7 @@
     python -m scenedino_torch.cli.train --config <config> --device cpu
     python -m scenedino_torch.cli.train --config configs/train_semantic_synthetic_convergence.yaml --stage semantic
     python -m scenedino_torch.cli.train --config configs/train_scenedino_kitti_360.yaml
+    python -m scenedino_torch.cli.train --config configs/train_scenedino_kitti_360_upsampler.yaml
     python -m scenedino_torch.cli.train --config configs/train_semantic_kitti_360.yaml --stage semantic
 
 The config is read by `utils.config` (no PyYAML). The run trains on the
@@ -110,7 +111,8 @@ def init_stage1(config: dict, device) -> Tuple:
     """(field, train state, generator, TrainConfig, RenderConfig,
     ReconstructionLossConfig) of a run, before any step: the model from
     `seed`, then the generator seeded from `seed` on the device, the
-    artifact field drawn from it."""
+    artifact field (the teacher's width on its grid; none with
+    `compensate_artifacts: false`) drawn from it."""
     device = resolve_device(device)
     seed = config.get("seed", 0)
     model_conf, tcfg, rcfg, lcfg = trainer.configs_from_dict(config)
@@ -119,7 +121,7 @@ def init_stage1(config: dict, device) -> Tuple:
     H, W = model_conf["encoder"].get("image_size", (192, 640))
     gp = enc.gt_patch_size
     generator = torch.Generator(device=device).manual_seed(seed)
-    state = trainer.init_train_state(field, tcfg, artifact_shape=(enc.gt_encoder.latent_size, H // gp, W // gp),
+    state = trainer.init_train_state(field, tcfg, artifact_shape=(enc.teacher.latent_size, H // gp, W // gp),
                                      generator=generator)
     return field, state, generator, tcfg, rcfg, lcfg
 
@@ -129,12 +131,12 @@ def run_stage1(config: dict, device=None):
     field, state, generator, tcfg, rcfg, lcfg = init_stage1(config, device)
     device = generator.device
     train_ds, val_ds = make_datasets(config["dataset"])
-    gp = field.encoder.gt_patch_size
+    gp, crop_views = field.encoder.gt_patch_size, field.encoder.crop_views
     step = trainer.make_train_step(field, tcfg, rcfg, lcfg)
 
     def train_step(state, batch: Dict[str, torch.Tensor], gen: torch.Generator):
         B, V, _, H, W = batch["imgs"].shape
-        return step(state, batch, trainer.draw_stage1(gen, tcfg, rcfg, B, V, H, W, gp))
+        return step(state, batch, trainer.draw_stage1(gen, tcfg, rcfg, B, V, H, W, gp, crop_views))
 
     batch_size = config.get("batch_size", 4)
     batches = batch_iterator(train_ds, batch_size, key_seed=config.get("seed", 0),

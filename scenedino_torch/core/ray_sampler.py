@@ -31,12 +31,14 @@ def build_frame_rays(poses_c2w: torch.Tensor, ks: torch.Tensor, z_near: float, z
 @dataclasses.dataclass(frozen=True)
 class PatchRaySampler:
     """Patches of patch_size^2 rays aligned to the DINO teacher grid; each
-    patch carries one teacher feature vector."""
+    patch carries one teacher feature vector, or with `dino_upscaled` (a
+    per-pixel teacher, upsample-gt mode) each ray its pixel's."""
 
     z_near: float
     z_far: float
     ray_batch_size: int = 2048
     patch_size: int = 8
+    dino_upscaled: bool = False
 
     @property
     def patch_count(self) -> int:
@@ -61,7 +63,7 @@ class PatchRaySampler:
         """images (B, V, C, H, W); poses_c2w (B, V, 4, 4); ks (B, V, 3, 3);
         pv, py, px (B, PC); dino_features (B, V, Cd, Gh, Gw); grid_shift (2,)
         ints in [-P/2, P/2). Returns (rays (B, R, 11), rgb_gt (B, R, C),
-        dino_gt (B, PC, Cd) or None)."""
+        dino_gt (B, PC, Cd), or (B, R, Cd) with `dino_upscaled`, or None)."""
         B, V, C, H, W = images.shape
         P = self.patch_size
         if grid_shift is not None:
@@ -85,6 +87,14 @@ class PatchRaySampler:
         if dino_features is None:
             return rays, rgb_gt, None
         _, Vd, Cd, Gh, Gw = dino_features.shape
+        if self.dino_upscaled:
+            # the ray's own pixel, sliced like the rgb (ray_sampler.py:122-131);
+            # under a grid shift the teacher saw the shifted image and is still
+            # read at the shifted pixel, as the reference reads it
+            if (Gh, Gw) != (H, W):
+                raise ValueError(f"an upscaled teacher map must be {(H, W)}, got {(Gh, Gw)}")
+            rows = torch.arange(B, device=flat.device)[:, None]
+            return rays, rgb_gt, dino_features.reshape(B, Vd, Cd, H * W)[rows, flat // (H * W), :, flat % (H * W)]
         dflat = dino_features.permute(0, 1, 3, 4, 2).reshape(B, Vd * Gh * Gw, Cd)
         didx = (pv * Gh + patch_y) * Gw + patch_x
         dino_gt = torch.gather(dflat, 1, didx[..., None].expand(B, didx.shape[1], Cd))

@@ -13,11 +13,17 @@ kernel.
   * "nearest", "bilinear", "bicubic": torch's taps in float64, summed,
     then rounded to float32, exactly as the reference builds them; border
     taps clamp to the edge sample (torch's bounded accessor).
-  * "antialias": `jax.image.resize(..., "bilinear")`, i.e. JAX's
+  * "jax_bilinear": `jax.image.resize(..., "bilinear")`, i.e. JAX's
     `scale_and_translate` with the triangle kernel widened by 1/scale on a
     downscale, in float32 as JAX computes it, each output's weights
     normalized to sum 1. Bilinear without the widening misses it by about 1
     on ImageNet-normalized images at 192x640 -> 168x560.
+  * "jax_bicubic", "jax_nearest": `jax.image.resize(..., "bicubic")`
+    (Keys' cubic with a = -0.5, the same widening and normalization: at a
+    border the taps outside are dropped and the rest renormalized, where
+    torch clamps them onto the edge) and `jax.image.resize(..., "nearest")`
+    (the half-pixel rule floor((i + 0.5) n_in / n_out), where torch's
+    nearest takes floor(i n_in / n_out)). `NoDecoder` resizes with them.
 """
 from __future__ import annotations
 
@@ -70,33 +76,55 @@ def torch_resize_matrix(n_in: int, n_out: int, mode: str = "bilinear") -> np.nda
     return m.astype(np.float32)
 
 
+def _keys_cubic(x: np.ndarray) -> np.ndarray:
+    """JAX's `_fill_keys_cubic_kernel` (a = -0.5) in float32, x >= 0."""
+    f32 = np.float32
+    out = ((f32(1.5) * x - f32(2.5)) * x) * x + f32(1.0)
+    out = np.where(x >= 1.0, ((f32(-0.5) * x + f32(2.5)) * x - f32(4.0)) * x + f32(2.0), out)
+    return np.where(x >= 2.0, f32(0.0), out).astype(f32)
+
+
 @lru_cache(maxsize=None)
-def antialias_resize_matrix(n_in: int, n_out: int) -> np.ndarray:
+def jax_resize_matrix(n_in: int, n_out: int, method: str = "bilinear") -> np.ndarray:
     """(n_out, n_in) float32 M with out = M @ in: one axis of
-    `jax.image.resize(..., method="bilinear")` (antialias on, no
-    translation), built in float32 as `jax._src.image.scale.compute_weight_mat`
-    builds it. Callers must not write to the returned array (it is shared)."""
+    `jax.image.resize(..., method=method)` ("nearest", "bilinear" or
+    "bicubic"; antialias on, no translation), built in float32 as
+    `jax._src.image.scale` builds it. Callers must not write to the
+    returned array (it is shared)."""
     if n_in == n_out:  # jax.image.resize skips an axis whose size is unchanged
         return np.eye(n_in, dtype=np.float32)
     f32 = np.float32
+    if method == "nearest":
+        idx = np.floor((np.arange(n_out, dtype=f32) + f32(0.5)) * f32(n_in) / f32(n_out)).astype(np.int64)
+        m = np.zeros((n_out, n_in), dtype=f32)
+        m[np.arange(n_out), idx] = 1.0
+        return m
+    kernels = {"bilinear": lambda x: np.maximum(f32(0.0), f32(1.0) - x), "bicubic": _keys_cubic}
+    if method not in kernels:
+        raise ValueError(f"unsupported jax.image.resize method: {method!r}")
     inv_scale = f32(1.0 / (n_out / n_in))
-    kernel_scale = max(inv_scale, f32(1.0))  # widen the triangle on a downscale only
+    kernel_scale = max(inv_scale, f32(1.0))  # widen the kernel on a downscale only
     sample = (np.arange(n_out, dtype=f32) + f32(0.5)) * inv_scale - f32(0.5)
     x = np.abs(sample[None, :] - np.arange(n_in, dtype=f32)[:, None]) / kernel_scale
-    w = np.maximum(f32(0.0), f32(1.0) - x)  # (n_in, n_out)
+    w = kernels[method](x).astype(f32)  # (n_in, n_out)
     total = w.sum(0, keepdims=True, dtype=f32)
     w = np.where(np.abs(total) > 1000.0 * np.finfo(f32).eps, w / np.where(total != 0, total, f32(1.0)), f32(0.0))
     inside = (sample >= -0.5) & (sample <= n_in - 0.5)
     return np.ascontiguousarray(np.where(inside[None, :], w, f32(0.0)).T, dtype=f32)
 
 
+# resize_matrix's modes that are jax.image.resize methods
+JAX_MODES = {"jax_bilinear": "bilinear", "jax_bicubic": "bicubic", "jax_nearest": "nearest"}
+
+
 @lru_cache(maxsize=None)
 def resize_matrix(n_in: int, n_out: int, mode: str, device: torch.device) -> torch.Tensor:
-    """`torch_resize_matrix` (or, for mode "antialias", `antialias_resize_matrix`)
+    """`torch_resize_matrix` (or, for a mode of `JAX_MODES`, `jax_resize_matrix`)
     as a float32 tensor on `device`, built once. It is built outside
     inference mode even when first asked for inside it (a serving request),
     so a later training step can save it for backward."""
-    m = antialias_resize_matrix(n_in, n_out) if mode == "antialias" else torch_resize_matrix(n_in, n_out, mode)
+    m = (jax_resize_matrix(n_in, n_out, JAX_MODES[mode]) if mode in JAX_MODES
+         else torch_resize_matrix(n_in, n_out, mode))
     with torch.inference_mode(False):
         return torch.from_numpy(m).to(device)
 
@@ -112,13 +140,13 @@ def torch_interpolate(x: torch.Tensor, size: Tuple[int, int], mode: str = "bilin
     return y.to(x.dtype)
 
 
-def antialias_resize(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
-    """`jax.image.resize(x, (..., *size), method="bilinear")` for NCHW input
-    x (..., H, W): the antialiased bilinear filter, computed in fp32 and
-    returned in x's dtype."""
+def jax_resize(x: torch.Tensor, size: Tuple[int, int], method: str = "bilinear") -> torch.Tensor:
+    """`jax.image.resize(x, (..., *size), method=method)` for NCHW input x
+    (..., H, W), method "nearest", "bilinear" or "bicubic", computed in fp32
+    and returned in x's dtype."""
     H, W = x.shape[-2], x.shape[-1]
-    my = resize_matrix(H, int(size[0]), "antialias", x.device)
-    mx = resize_matrix(W, int(size[1]), "antialias", x.device)
+    my = resize_matrix(H, int(size[0]), f"jax_{method}", x.device)
+    mx = resize_matrix(W, int(size[1]), f"jax_{method}", x.device)
     y = torch.einsum("oh,...hw->...ow", my, x.float())
     y = torch.einsum("pw,...ow->...op", mx, y)
     return y.to(x.dtype)

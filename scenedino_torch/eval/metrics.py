@@ -61,12 +61,13 @@ def psnr(pred, gt) -> np.float32:
     return np.float32(-10.0) * np.log10(np.maximum(mse, np.float32(1e-12)))
 
 
-def dino_cosine_similarity(pred, gt, eps: float = 1e-8) -> np.float32:
-    """Mean cosine similarity over the channel axis (metrics.py:195-215)."""
-    pred, gt = _host(pred), _host(gt)
-    pn = pred / np.maximum(np.linalg.norm(pred, axis=-1, keepdims=True), np.float32(eps))
-    gn = gt / np.maximum(np.linalg.norm(gt, axis=-1, keepdims=True), np.float32(eps))
-    return np.mean(np.sum(pn * gn, axis=-1), dtype=np.float32)
+def dino_cosine_similarity(pred, gt, eps: float = 1e-8) -> torch.Tensor:
+    """Mean cosine similarity over the channel axis (metrics.py:195-215), in
+    fp32 on the inputs' device: a 0-d tensor."""
+    pred, gt = (torch.as_tensor(x).float() for x in (pred, gt))
+    pn = pred / torch.clamp(torch.linalg.vector_norm(pred, dim=-1, keepdim=True), min=eps)
+    gn = gt / torch.clamp(torch.linalg.vector_norm(gt, dim=-1, keepdim=True), min=eps)
+    return (pn * gn).sum(-1).mean()
 
 
 def ssim_skimage(pred, gt, data_range: float = 1.0, win_size: int = 7) -> float:

@@ -8,22 +8,27 @@ writes the rows' log-sum-exp when a gradient is needed, and the backward
 launches the two kernels of `csrc/attention_bwd.cu` (wgmma products on
 tiles that TMA loads; the primitives are in `csrc/hopper.cuh`):
 `attention_bwd_dq` (dQ, and di = rowsum(dO o)) then `attention_bwd_dkv`
-(dK, dV). On CPU
-tensors the same Function takes `attention_plain` and
-`attention_bwd_plain`. Anything else raises. It replaces the Pallas TPU
-flash attention reached from `scenedino_tpu/models/vit.py:126` and its
-custom VJP (`_flash_attention_bwd_dkv`, `_flash_attention_bwd_dq`).
+(dK, dV). At D = 80 (the I-JEPA-H/14 backbone) the same three functions
+launch the kernels of `csrc/attention_d80.cu` (mma.sync products on
+cp.async tiles), each with a launch count of its own (`D80_COUNTS`). On
+CPU tensors the same Function takes `attention_plain` and
+`attention_bwd_plain` (any D). Anything else raises. It replaces the
+Pallas TPU flash attention reached from `scenedino_tpu/models/vit.py:126`
+and its custom VJP (`_flash_attention_bwd_dkv`, `_flash_attention_bwd_dq`).
 """
 from __future__ import annotations
 
 import ctypes
+from types import SimpleNamespace
 from typing import Optional, Tuple
 
 import torch
 
 from scenedino_torch.kernels import build
 
-HEAD_DIM = 64
+# the head dims the CUDA kernels take: 64 (attention.cu, attention_bwd.cu)
+# and 80 (attention_d80.cu)
+HEAD_DIMS = (64, 80)
 
 
 def _scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
@@ -83,10 +88,10 @@ def _check_cuda(*ts: torch.Tensor) -> None:
     if q.device.type != "cuda":
         raise ValueError(f"attention runs on cuda or cpu tensors, got {q.device}")
     D = q.shape[-1]
-    if q.dtype != torch.bfloat16 or D != HEAD_DIM:
+    if q.dtype != torch.bfloat16 or D not in HEAD_DIMS:
         raise ValueError(
-            f"the CUDA attention kernels take bf16 with head dim {HEAD_DIM}, "
-            f"got {q.dtype} with head dim {D}"
+            f"the CUDA attention kernels take bf16 with head dim in {HEAD_DIMS}, "
+            f"got {q.dtype} with head dim {D} (no other head dim has a kernel: ROADMAP.md, queue 1, item 3)"
         )
     if not all(t.is_contiguous() for t in ts):
         raise ValueError("the CUDA attention kernels take contiguous tensors")
@@ -103,13 +108,17 @@ def _check_aligned(*ts: torch.Tensor) -> None:
                              f"{t.data_ptr():#x} (storage offset {t.storage_offset()})")
 
 
-def _launch(lib_name: str, fn_name: str, n_ptrs: int, ptrs, dims, device) -> None:
-    fn = build.function(lib_name, fn_name, [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 4
+def _launch(step: str, ptrs, q: torch.Tensor) -> None:
+    """Launch K1's `step` ("fwd", "bwd_dq" or "bwd_dkv") at q's head dim and
+    add one to its launch count."""
+    B, N, H, D = q.shape
+    lib_name, fn_name, counter = _KERNELS[D][step]
+    fn = build.function(lib_name, fn_name, [ctypes.c_void_p] * len(ptrs) + [ctypes.c_int] * 4
                         + [ctypes.c_float, ctypes.c_void_p])
-    B, N, H, D = dims
-    err = build.call_on_stream(fn, device, *ptrs, B, N, H, D, D ** -0.5)
+    err = build.call_on_stream(fn, q.device, *ptrs, B, N, H, D, D ** -0.5)
     if err != 0:
         raise RuntimeError(f"{fn_name} kernel launch failed: cudaError {err}")
+    counter.launches += 1
 
 
 def attention_fwd(q, k, v, with_lse: bool = False) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
@@ -121,10 +130,8 @@ def attention_fwd(q, k, v, with_lse: bool = False) -> Tuple[torch.Tensor, Option
     B, N, H, D = q.shape
     out = torch.empty_like(q)
     lse = torch.empty(B, H, N, device=q.device, dtype=torch.float32) if with_lse else None
-    _launch("attention", "attention_fwd", 5,
-            (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr() if with_lse else None),
-            q.shape, q.device)
-    attention.launches += 1
+    _launch("fwd", (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                    lse.data_ptr() if with_lse else None), q)
     return out, lse
 
 
@@ -139,9 +146,7 @@ def attention_bwd_dq(q, k, v, o, do, lse) -> Tuple[torch.Tensor, torch.Tensor]:
     B, N, H, D = q.shape
     dq = torch.empty_like(q)
     di = torch.empty(B, H, N, device=q.device, dtype=torch.float32)
-    _launch("attention_bwd", "attention_bwd_dq", 8,
-            tuple(t.data_ptr() for t in (q, k, v, o, do, lse, dq, di)), q.shape, q.device)
-    attention_bwd_dq.launches += 1
+    _launch("bwd_dq", tuple(t.data_ptr() for t in (q, k, v, o, do, lse, dq, di)), q)
     return dq, di
 
 
@@ -155,9 +160,7 @@ def attention_bwd_dkv(q, k, v, do, lse, di) -> Tuple[torch.Tensor, torch.Tensor]
     _check_stats(di, q)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    _launch("attention_bwd", "attention_bwd_dkv", 8,
-            tuple(t.data_ptr() for t in (q, k, v, do, lse, di, dk, dv)), q.shape, q.device)
-    attention_bwd_dkv.launches += 1
+    _launch("bwd_dkv", tuple(t.data_ptr() for t in (q, k, v, do, lse, di, dk, dv)), q)
     return dk, dv
 
 
@@ -199,3 +202,15 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor
 attention.launches = 0
 attention_bwd_dq.launches = 0
 attention_bwd_dkv.launches = 0
+# the launch counts of the D = 80 kernels, which the same three wrappers launch
+D80_COUNTS = {name: SimpleNamespace(launches=0)
+              for name in ("attention_d80", "attention_d80_bwd_dq", "attention_d80_bwd_dkv")}
+# (library, C function, launch count) of each step of K1 at each head dim
+_KERNELS = {
+    64: {"fwd": ("attention", "attention_fwd", attention),
+         "bwd_dq": ("attention_bwd", "attention_bwd_dq", attention_bwd_dq),
+         "bwd_dkv": ("attention_bwd", "attention_bwd_dkv", attention_bwd_dkv)},
+    80: {"fwd": ("attention_d80", "attention_d80_fwd", D80_COUNTS["attention_d80"]),
+         "bwd_dq": ("attention_d80", "attention_d80_bwd_dq", D80_COUNTS["attention_d80_bwd_dq"]),
+         "bwd_dkv": ("attention_d80", "attention_d80_bwd_dkv", D80_COUNTS["attention_d80_bwd_dkv"])},
+}

@@ -7,6 +7,11 @@ fusion from the deepest level up, each with a x2 bilinear upsample
 conv, 3x3 conv) -> a full-resolution d_out map (2x the image for patch 8).
 The convolutions are plain `F.conv2d` / `F.conv_transpose2d` calls: plain
 products that the JAX package left to XLA.
+
+The other decoders of `scenedino_tpu/models/dpt.py:168-219`:
+`SimpleFeaturePyramidDecoder` (five maps from the last ViT grid, then the
+monodepth2 decoder) and `NoDecoder` (the last grid resized to the image
+and L2-normalized, as `jax.image.resize` resizes it).
 """
 from __future__ import annotations
 
@@ -16,7 +21,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from scenedino_torch.core import safe_normalize
+from scenedino_torch.core.resize import jax_resize
 from scenedino_torch.models.layers import cast, conv2d, conv_transpose2d
+from scenedino_torch.models.monodepth2 import Monodepth2Decoder
 
 
 def _resize_bilinear(x: torch.Tensor, size, align_corners: bool) -> torch.Tensor:
@@ -132,3 +140,69 @@ class DPTHead(nn.Module):
         out = conv2d(out, self.head_conv0, dt)
         out = conv_transpose2d(out, self.head_deconv, dt)
         return [self.head_conv1(out, fold=fold_matrix)]
+
+
+class _StridedConvTranspose(nn.Module):
+    """flax's `nn.ConvTranspose` (transpose_kernel=False) with kernel size =
+    stride: each input pixel paints one output block with the kernel
+    mirrored. `weight` (out, in, k, k) holds the flax kernel in a conv's
+    layout (`utils.convert`'s for any 4-D kernel)."""
+
+    def __init__(self, cin: int, cout: int, k: int):
+        super().__init__()
+        self.k = k
+        self.weight = nn.Parameter(torch.empty(cout, cin, k, k))
+        self.bias = nn.Parameter(torch.zeros(cout))
+        nn.init.kaiming_normal_(self.weight, mode="fan_in", nonlinearity="linear")
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.conv_transpose2d(x, self.weight.transpose(0, 1).flip(-2, -1), self.bias, stride=self.k)
+
+
+class SimpleFeaturePyramidDecoder(nn.Module):
+    """The last ViT grid -> five maps at x8, x4, x2, x1 and x1/2 (transposed
+    convs, a conv, a stride-2 conv) -> the monodepth2 decoder
+    (dpt.py:168-198): forward(grids) -> [(B, d_out, ...) for each scale],
+    in fp32. `num_ch_enc` must name the five maps' widths."""
+
+    def __init__(self, latent_size: int = 768, num_ch_enc: Sequence[int] = (64, 64, 128, 256, 512),
+                 num_ch_dec: Sequence[int] = (128, 128, 256, 256, 512), d_out: int = 64,
+                 scales: Sequence[int] = (0,), use_skips: bool = True):
+        super().__init__()
+        ch = tuple(num_ch_enc)
+        if len(ch) != 5:
+            # the JAX decoder reads num_ch_enc[4] and raises IndexError on the
+            # four entries of the DPT default (dpt.py:188)
+            raise ValueError(f"the simple-feature-pyramid decoder takes five num_ch_enc widths, got {ch}")
+        self.scales = tuple(scales)
+        self.resize_0 = _StridedConvTranspose(latent_size, ch[0], 8)
+        self.resize_1 = _StridedConvTranspose(latent_size, ch[1], 4)
+        self.resize_2 = _StridedConvTranspose(latent_size, ch[2], 2)
+        self.resize_3 = nn.Conv2d(latent_size, ch[3], 3, padding=1)
+        self.resize_4 = nn.Conv2d(latent_size, ch[4], 3, stride=2, padding=1)
+        self.monodepth2 = Monodepth2Decoder(ch, tuple(max(d_out, c) for c in num_ch_dec), d_out, self.scales,
+                                            use_skips)
+
+    def forward(self, inputs: List[torch.Tensor]) -> List[torch.Tensor]:
+        x = inputs[-1].float()
+        feats = [self.resize_0(x), self.resize_1(x), self.resize_2(x), self.resize_3(x), self.resize_4(x)]
+        outs = self.monodepth2(feats)
+        return [outs[s] for s in self.scales]
+
+
+class NoDecoder(nn.Module):
+    """The last grid resized to `image_size` by `jax.image.resize`'s
+    `interpolation` ("nearest", "bilinear" or "bicubic"), then L2-normalized
+    over channels (dpt.py:201-219). The reference resizes with
+    `F.interpolate`, whose bicubic (a = -0.75, edge clamped) and nearest
+    (no half-pixel shift) differ from JAX's; the port follows the JAX
+    package."""
+
+    def __init__(self, image_size, interpolation: str = "bilinear"):
+        super().__init__()
+        self.image_size = tuple(image_size)
+        self.interpolation = interpolation
+
+    def forward(self, inputs: List[torch.Tensor]) -> List[torch.Tensor]:
+        x = jax_resize(inputs[-1], self.image_size, self.interpolation)
+        return [safe_normalize(x, dim=1, eps=1e-12)]

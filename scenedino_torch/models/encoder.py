@@ -3,16 +3,24 @@
 Inputs are images in [-1, 1]; the ViTs see ImageNet-normalized [0, 1]
 images. The DINOv2 family (versions v2, reg and fit3d: internal patch 14)
 sees them resized by 14/16 with `jax.image.resize`'s antialiased bilinear
-filter (`core.resize.antialias_resize`), so its grid is that of an
-external patch of 16. `DinoModule` is the student (ViT + DPT decoder)
-that serving runs; built with `training=True` it also holds the
-training-only parts: the frozen teacher ViT (`gt_encoder`, run without a
-graph like the reference's `stop_gradient`), the FeatUp
-`PatchSalienceDownsampler` that pools rendered pixel features back to the
-teacher's patch grid, and the dimension reduction that expands the 64-d
-field feature to the 768-d DINO space (`MlpDimReduction`, or
+filter (`core.resize.jax_resize`), so its grid is that of an
+external patch of 16. `DinoModule` is the student (ViT + decoder: DPT,
+the simple feature pyramid, or `NoDecoder`'s resize for `decoder_arch`
+nearest / bilinear / bicubic) that serving runs; built with
+`training=True` it also holds the training-only parts: the frozen teacher
+ViT (`gt_encoder`, run without a graph like the reference's
+`stop_gradient`; with `separate_gt_version: None` the student is its own
+teacher), and for `mode: downsample-prediction` the FeatUp
+`PatchSalienceDownsampler` (or, for `downsampler_arch: bilinear`, the
+`BilinearDownsampler`) that pools rendered pixel features back to the
+teacher's patch grid, or for `mode: upsample-gt` the teacher upsampler
+(`models.upsampler`: `InterpolatedGT`, `MultiScaleCropGT`) that brings
+the teacher to the pixels; and the dimension reduction that expands the
+64-d field feature to the 768-d DINO space (`MlpDimReduction`,
 `OrthogonalLinearDimReduction` for `dim_reduction_arch:
-orthogonal-linear`).
+orthogonal-linear`, the identity for `none`). `flip_avg_gt` averages the
+teacher with its run on the mirrored image; `encoder_freeze` passes no
+gradient into the student ViT.
 """
 from __future__ import annotations
 
@@ -23,8 +31,9 @@ import torch
 from torch import nn
 
 from scenedino_torch.core import safe_normalize
-from scenedino_torch.core.resize import antialias_resize
-from scenedino_torch.models.dpt import DPTHead
+from scenedino_torch.core.resize import jax_resize, torch_interpolate
+from scenedino_torch.models.dpt import DPTHead, NoDecoder, SimpleFeaturePyramidDecoder
+from scenedino_torch.models.upsampler import InterpolatedGT, MultiScaleCropGT
 from scenedino_torch.models.vit import make_vit
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
@@ -98,7 +107,7 @@ class DinoViTEncoder(nn.Module):
         x = normalize_input(x)
         if self.version in RESIZED_VERSIONS:
             H, W = x.shape[-2:]
-            x = antialias_resize(x, (H * 14 // 16, W * 14 // 16))
+            x = jax_resize(x, (H * 14 // 16, W * 14 // 16), "bilinear")
         out = self.vit(x)
         p = self.vit.cfg.patch_size
         gh, gw = x.shape[-2] // p, x.shape[-1] // p
@@ -145,6 +154,23 @@ class OrthogonalLinearDimReduction(nn.Module):
 
 
 DIM_REDUCTIONS = {"mlp": MlpDimReduction, "orthogonal-linear": OrthogonalLinearDimReduction}
+
+
+class BilinearDownsampler(nn.Module):
+    """Pixel features to the patch grid by `F.interpolate(mode="bilinear")`,
+    a 2x2-tap point sample at the output pixel centres, not an area mean
+    (encoder.py:164-184): x (B, V, H, W, 1, C) -> (B, V, H/P, W/P, C). A
+    patch batch (B, PC, P, P, 1, C) gives (B, PC, 1, 1, C)."""
+
+    def __init__(self, patch_size: int = 16):
+        super().__init__()
+        self.patch_size = patch_size
+
+    def forward(self, x: torch.Tensor, mode: str = "image") -> torch.Tensor:
+        B, V, H, W, _, C = x.shape
+        th, tw = H // self.patch_size, W // self.patch_size
+        out = torch_interpolate(x.reshape(B * V, H, W, C).float(), (th, tw), mode="bilinear")
+        return out.reshape(B, V, th, tw, C)
 
 
 class PatchSalienceDownsampler(nn.Module):
@@ -194,35 +220,60 @@ class DinoModuleConfig:
     teacher, downsampler and dimension-reduction fields are read only
     when the module is built for training."""
 
-    mode: str = "downsample-prediction"
-    downsampler_arch: Optional[str] = "featup"
+    mode: str = "downsample-prediction"  # | "upsample-gt"
+    downsampler_arch: Optional[str] = "featup"  # | "bilinear"
+    upsampler_arch: Optional[str] = None  # upsample-gt: "nearest" | "bilinear" | "bicubic" | "multiscale-crop"
     separate_gt_version: Optional[str] = "v1"
     dim_reduction_arch: str = "mlp"
     dino_pca_dim: int = 64
     encoder_freeze: bool = False
     flip_avg_gt: bool = False
-    decoder_arch: str = "dpt"
+    decoder_arch: str = "dpt"  # | "spf" | "nearest" | "bilinear" | "bicubic"
     encoder_arch: str = "vit-b"
     version: str = "v1"
     num_ch_enc: Tuple[int, ...] = (64, 64, 128, 256)
     intermediate_features: Tuple[int, ...] = (3, 6, 9)
     decoder_out_dim: int = 256
+    image_size: Tuple[int, int] = (192, 640)  # the NoDecoder and teacher-upsampler output size
     key_features: bool = False
     grad_checkpointing: bool = False  # recompute the *student* ViT blocks in the backward
     dtype: Optional[torch.dtype] = None  # compute dtype: None (fp32) or torch.bfloat16
     vit_overrides: Optional[Tuple[Tuple[str, int], ...]] = None  # e.g. (("depth", 3), ("width", 64))
 
 
+NO_DECODERS = ("nearest", "bilinear", "bicubic")
+
+
+def make_decoder(cfg: DinoModuleConfig, vit_width: int) -> nn.Module:
+    """The student's decoder for `cfg.decoder_arch` (encoder.py:291-319)."""
+    if cfg.decoder_arch == "dpt":
+        return DPTHead(vit_width, tuple(cfg.num_ch_enc), cfg.decoder_out_dim, cfg.dtype)
+    if cfg.decoder_arch in NO_DECODERS:
+        return NoDecoder(cfg.image_size, cfg.decoder_arch)
+    if cfg.decoder_arch == "spf":  # fixed decoder widths, 4 scales, skips (dinov2_module.py:37-47)
+        return SimpleFeaturePyramidDecoder(vit_width, tuple(cfg.num_ch_enc), (128, 128, 256, 256, 512),
+                                           cfg.decoder_out_dim, (0, 1, 2, 3), True)
+    raise NotImplementedError(f"unknown decoder_arch {cfg.decoder_arch!r}")
+
+
+def make_gt_upsampler(cfg: DinoModuleConfig) -> nn.Module:
+    """The teacher upsampler of `mode: upsample-gt` (encoder.py:344-352)."""
+    if cfg.upsampler_arch in ("nearest", "bilinear", "bicubic"):
+        return InterpolatedGT(cfg.upsampler_arch, cfg.image_size)
+    if cfg.upsampler_arch == "multiscale-crop":
+        return MultiScaleCropGT(4)
+    raise NotImplementedError(f"unknown upsampler_arch {cfg.upsampler_arch!r}")
+
+
 class DinoModule(nn.Module):
-    """Student encoder: forward(x (B, 3, H, W) in [-1, 1]) -> [(B, d_out, Hf, Wf)];
+    """Student encoder: forward(x (B, 3, H, W) in [-1, 1]) -> [(B, d_out, Hf, Wf), ...];
     with `training=True` also the teacher (`forward(x, ground_truth=True)`),
     `downsample` and `expand_dim`."""
 
     def __init__(self, cfg: DinoModuleConfig, training: bool = False):
         super().__init__()
-        if cfg.decoder_arch != "dpt":
-            raise NotImplementedError(f"the port covers the DPT decoder, got {cfg.decoder_arch!r}")
         self.cfg = cfg
+        self.training_parts = training
         self.vit_encoder = DinoViTEncoder(
             backbone=cfg.encoder_arch,
             version=cfg.version,
@@ -232,40 +283,57 @@ class DinoModule(nn.Module):
             vit_overrides=cfg.vit_overrides,
             grad_checkpointing=cfg.grad_checkpointing,
         )
-        self.decoder = DPTHead(self.vit_encoder.latent_size, tuple(cfg.num_ch_enc),
-                               cfg.decoder_out_dim, cfg.dtype)
+        self.decoder = make_decoder(cfg, self.vit_encoder.latent_size)
         if not training:
             return
-        unsupported = {
-            "mode": cfg.mode != "downsample-prediction",
-            "downsampler_arch": cfg.downsampler_arch != "featup",
-            "separate_gt_version": cfg.separate_gt_version is None,
-            "dim_reduction_arch": cfg.dim_reduction_arch not in DIM_REDUCTIONS,
-            "encoder_freeze": cfg.encoder_freeze,
-            "flip_avg_gt": cfg.flip_avg_gt,
-        }
-        bad = [name for name, is_bad in unsupported.items() if is_bad]
-        if bad:
-            raise NotImplementedError(
-                f"the port trains the downsample-prediction featup configuration with a separate teacher and "
-                f"the MLP or orthogonal-linear expansion (the rest, the upsample-gt mode among it, waits in ROADMAP "
-                f"queue 1, item 3); unsupported: {[(n, getattr(cfg, n)) for n in bad]}"
+        if cfg.mode not in ("downsample-prediction", "upsample-gt"):
+            raise NotImplementedError(f"unknown encoder mode {cfg.mode!r}")
+        if cfg.dim_reduction_arch not in DIM_REDUCTIONS and cfg.dim_reduction_arch != "none":
+            raise NotImplementedError(f"unknown dim_reduction_arch {cfg.dim_reduction_arch!r}")
+        if cfg.separate_gt_version is not None:
+            self.gt_encoder = DinoViTEncoder(
+                backbone=cfg.encoder_arch,
+                version=cfg.separate_gt_version,
+                intermediate_features=(),
+                key_features=cfg.key_features,
+                dtype=cfg.dtype,
+                vit_overrides=cfg.vit_overrides,
             )
-        self.gt_encoder = DinoViTEncoder(
-            backbone=cfg.encoder_arch,
-            version=cfg.separate_gt_version,
-            intermediate_features=(),
-            key_features=cfg.key_features,
-            dtype=cfg.dtype,
-            vit_overrides=cfg.vit_overrides,
-        )
-        self.gt_encoder.requires_grad_(False)
-        self.downsampler = PatchSalienceDownsampler(self.gt_encoder.latent_size, self.gt_patch_size)
-        self.dim_reduction = DIM_REDUCTIONS[cfg.dim_reduction_arch](cfg.dino_pca_dim, self.vit_encoder.latent_size)
+            self.gt_encoder.requires_grad_(False)
+        if cfg.mode == "downsample-prediction":
+            if cfg.downsampler_arch == "featup":
+                self.downsampler = PatchSalienceDownsampler(self.teacher.latent_size, self.gt_patch_size)
+            elif cfg.downsampler_arch == "bilinear":
+                self.downsampler = BilinearDownsampler(self.gt_patch_size)
+            else:
+                raise NotImplementedError(f"unknown downsampler_arch {cfg.downsampler_arch!r}")
+        else:
+            self.gt_upsampler = make_gt_upsampler(cfg)
+        if cfg.dim_reduction_arch != "none":
+            self.dim_reduction = DIM_REDUCTIONS[cfg.dim_reduction_arch](cfg.dino_pca_dim,
+                                                                        self.vit_encoder.latent_size)
 
     @property
     def latent_size(self) -> int:
+        """Channels of the student's feature map: the decoder's width, or
+        the ViT's where the grid is only resized (`NoDecoder`)."""
+        if self.cfg.decoder_arch in NO_DECODERS:
+            return self.vit_encoder.latent_size
         return self.cfg.decoder_out_dim
+
+    @property
+    def teacher(self) -> "DinoViTEncoder":
+        """The frozen teacher ViT: `gt_encoder`, or the student's ViT itself
+        with `separate_gt_version: None`."""
+        gt = self._modules.get("gt_encoder")
+        return self.vit_encoder if gt is None else gt
+
+    @property
+    def crop_views(self) -> int:
+        """Crops the teacher draws per image (`models.upsampler.CropDraws`):
+        0 unless its upsampler is the multiscale-crop one."""
+        up = self._modules.get("gt_upsampler")
+        return up.crop_views if up is not None else 0
 
     @property
     def gt_patch_size(self) -> int:
@@ -274,17 +342,35 @@ class DinoModule(nn.Module):
         return external_patch_size(self.cfg.separate_gt_version or self.cfg.version)
 
     def forward(self, x: torch.Tensor, ground_truth: bool = False,
-                fold_matrix: Optional[torch.Tensor] = None) -> List[torch.Tensor]:
+                fold_matrix: Optional[torch.Tensor] = None, crops=None) -> List[torch.Tensor]:
+        """The student's maps; with `ground_truth` the teacher's features,
+        without a graph: the patch grid, or with `mode: upsample-gt` the
+        per-pixel map (`crops`: the multiscale-crop teacher's draws)."""
+        cfg = self.cfg
         if ground_truth:
-            if not hasattr(self, "gt_encoder"):
+            if not self.training_parts:
                 raise RuntimeError("the teacher exists only in a DinoModule built with training=True")
             with torch.no_grad():
-                return [self.gt_encoder(x)[-1]]
-        feats = self.vit_encoder(x)
-        return self.decoder(feats, fold_matrix=fold_matrix)
+                if cfg.mode == "upsample-gt":
+                    return [self.gt_upsampler(self.teacher, x, crops)]
+                gt = self.teacher(x)[-1]
+                if cfg.flip_avg_gt:
+                    gt = safe_normalize(gt + self.teacher(x.flip(-1))[-1].flip(-1), dim=1, eps=1e-12)
+                return [gt]
+        with torch.set_grad_enabled(torch.is_grad_enabled() and not cfg.encoder_freeze):
+            feats = self.vit_encoder(x)
+        if cfg.decoder_arch == "dpt":
+            return self.decoder(feats, fold_matrix=fold_matrix)
+        if fold_matrix is not None:
+            raise NotImplementedError("fold_matrix requires the DPT decoder")
+        return self.decoder(feats)
 
-    def downsample(self, x: torch.Tensor, mode: str = "patch") -> torch.Tensor:
+    def downsample(self, x: torch.Tensor, mode: str = "patch") -> Optional[torch.Tensor]:
+        """The prediction pooled to the teacher's grid; None in upsample-gt mode."""
+        if self.cfg.mode != "downsample-prediction":
+            return None
         return self.downsampler(x, mode)
 
     def expand_dim(self, features: torch.Tensor) -> torch.Tensor:
-        return self.dim_reduction(features)
+        dim_reduction = self._modules.get("dim_reduction")
+        return features if dim_reduction is None else dim_reduction(features)

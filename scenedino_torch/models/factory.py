@@ -24,6 +24,7 @@ def encoder_config_from_dict(conf: Dict[str, Any]) -> DinoModuleConfig:
     return DinoModuleConfig(
         mode=conf.get("mode", "downsample-prediction"),
         downsampler_arch=conf.get("downsampler_arch", "featup"),
+        upsampler_arch=conf.get("upsampler_arch"),
         separate_gt_version=conf.get("separate_gt_version", "v1"),
         dim_reduction_arch=conf.get("dim_reduction_arch", "mlp"),
         dino_pca_dim=conf.get("dino_pca_dim", 64),
@@ -35,6 +36,7 @@ def encoder_config_from_dict(conf: Dict[str, Any]) -> DinoModuleConfig:
         num_ch_enc=tuple(conf.get("num_ch_enc", (64, 64, 128, 256))),
         intermediate_features=tuple(conf.get("intermediate_features", (3, 6, 9))),
         decoder_out_dim=conf.get("decoder_out_dim", 256),
+        image_size=tuple(conf.get("image_size", (192, 640))),
         key_features=conf.get("key_features", False),
         grad_checkpointing=conf.get("grad_checkpointing", False),
         dtype=_dtype(conf.get("dtype")),

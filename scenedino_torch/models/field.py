@@ -106,7 +106,8 @@ class SceneField(nn.Module):
                with_loss_feats: bool = False,
                loss_feature_grid_shift: Optional[Tuple[int, int]] = None,
                flip: bool = False,
-               fold_matrix: Optional[torch.Tensor] = None) -> SceneState:
+               fold_matrix: Optional[torch.Tensor] = None,
+               crops=None) -> SceneState:
         """images (B, V, 3, H, W) in [-1, 1]; ks (B, V, 3, 3); poses_c2w (B, V, 4, 4).
 
         The student sees the `ids_encoder` views (all by default); the colour
@@ -133,7 +134,8 @@ class SceneField(nn.Module):
         if flip:
             feats = feats.flip(-1)
 
-        loss_feats = self.loss_features(images, ids_loss, loss_feature_grid_shift) if with_loss_feats else None
+        loss_feats = (self.loss_features(images, ids_loss, loss_feature_grid_shift, crops) if with_loss_feats
+                      else None)
         return SceneState(
             feat_grid=feats.reshape(B, ne, *feats.shape[1:]),
             feat_ks=ks[:, ids_encoder],
@@ -145,14 +147,15 @@ class SceneField(nn.Module):
         )
 
     def loss_features(self, images: torch.Tensor, ids_loss: Sequence[int],
-                      shift: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+                      shift: Optional[Tuple[int, int]] = None, crops=None) -> torch.Tensor:
         """The frozen teacher's feature maps of the `ids_loss` views, the
-        images shifted by `shift` first: (B, Vl, Cd, Gh, Gw), no graph."""
+        images shifted by `shift` first: (B, Vl, Cd, Gh, Gw), no graph
+        (`crops`: the multiscale-crop teacher's draws of the B x Vl images)."""
         imgs = images[:, list(ids_loss)]
         if shift is not None:
             imgs = shift_pad_crop(imgs, shift)
         B, nl = imgs.shape[:2]
-        lf = self.encoder(imgs.reshape(B * nl, *imgs.shape[2:]), ground_truth=True)[0]
+        lf = self.encoder(imgs.reshape(B * nl, *imgs.shape[2:]), ground_truth=True, crops=crops)[0]
         return lf.reshape(B, nl, *lf.shape[1:])
 
     def sample_features(self, state: SceneState, xyz: torch.Tensor):

@@ -14,7 +14,7 @@ on the artifact field, with the reference's non-finite step skip.
 Every random draw of a step is an explicit input (`Stage1Draws`);
 `draw_stage1` draws them from a `torch.Generator` with the reference's
 distributions. Not ported yet (each raises): the uncertainty and
-consistency branches, `dino_upscaled`, gradient accumulation, the
+consistency branches, gradient accumulation, the
 "alternate" frame split, the `debug_stats` scalars, the NeRF sample-count
 schedule (`ScheduledTrainStep`) and the occupancy probe of the validation
 render.
@@ -29,6 +29,7 @@ import torch
 from scenedino_torch.core.ray_sampler import ImageRaySampler, PatchRaySampler
 from scenedino_torch.losses.reconstruction import ReconstructionLossConfig, reconstruction_loss
 from scenedino_torch.models.field import SceneField
+from scenedino_torch.models.upsampler import CropDraws, sample_crop_params
 from scenedino_torch.renderer.nerf import FineDraws, RenderConfig, render_rays, render_rays_chunked
 from scenedino_torch.training.scheduler import make_schedule
 
@@ -67,7 +68,6 @@ def _check_supported(cfg: TrainConfig) -> None:
     unsupported = {
         "predict_uncertainty": cfg.predict_uncertainty,
         "predict_consistency": cfg.predict_consistency,
-        "dino_upscaled": cfg.dino_upscaled,
         "gradient_accum_factor": cfg.gradient_accum_factor > 1,
         "loss_renderer_strategy": cfg.loss_renderer_strategy != "kitti_360",
         "debug_stats": cfg.debug_stats,
@@ -85,7 +85,9 @@ class Stage1Draws:
     frame (p = 1/3); shift: the teacher-grid shift (sy, sx) in
     [-P/2, P/2), or None without the augmentation; flip: the flip coin;
     pv, py, px: (B, PC) patch picks; u: (B * R, n_coarse) stratum draws;
-    fine: the fine pass's draws (None without one).
+    fine: the fine pass's draws (None without one); crops: the
+    multiscale-crop teacher's crops of the B x V/2 loss images (None for
+    any other teacher).
     """
 
     split_coin: Tuple[int, ...]
@@ -96,11 +98,13 @@ class Stage1Draws:
     px: torch.Tensor
     u: torch.Tensor
     fine: Optional[FineDraws] = None
+    crops: Optional[CropDraws] = None
 
 
 def draw_stage1(generator: torch.Generator, cfg: TrainConfig, rcfg: RenderConfig, B: int, V: int,
-                H: int, W: int, gt_patch: int = 8) -> Stage1Draws:
-    """A step's draws from `generator`, on the generator's device."""
+                H: int, W: int, gt_patch: int = 8, crop_views: int = 0) -> Stage1Draws:
+    """A step's draws from `generator`, on the generator's device;
+    `crop_views` crops of each loss image last (the encoder's `crop_views`)."""
     dev = generator.device
 
     def randint(low, high, n):
@@ -112,7 +116,9 @@ def draw_stage1(generator: torch.Generator, cfg: TrainConfig, rcfg: RenderConfig
     sampler = PatchRaySampler(cfg.z_near, cfg.z_far, cfg.ray_batch_size, cfg.patch_size)
     pv, py, px = sampler.draw(B, V // 2, H, W, shift is not None, generator, dev)
     u = torch.rand(B * cfg.ray_batch_size, rcfg.n_coarse, generator=generator, device=dev)
-    return Stage1Draws(coin, shift, flip, pv, py, px, u, FineDraws.draw(generator, B * cfg.ray_batch_size, rcfg))
+    fine = FineDraws.draw(generator, B * cfg.ray_batch_size, rcfg)
+    crops = sample_crop_params(generator, B * (V // 2), crop_views) if crop_views else None
+    return Stage1Draws(coin, shift, flip, pv, py, px, u, fine, crops)
 
 
 def sample_frame_split(split_coin: Tuple[int, ...]) -> Tuple[List[int], List[int]]:
@@ -146,14 +152,17 @@ def stage1_forward(field: SceneField, batch: Dict[str, torch.Tensor], draws: Sta
     ids_loss, ids_render = sample_frame_split(draws.split_coin)
     shift = draws.shift if cfg.grid_shift_augmentation else None
 
-    loss_feats = field.loss_features(imgs, ids_loss, shift).float()  # (B, Vl, Cd, Gh, Gw)
+    if artifact_field is not None and cfg.dino_upscaled:
+        raise ValueError("artifact compensation is tied to the patch-grid teacher (downsample-prediction configs)")
+    # (B, Vl, Cd, Gh, Gw); per pixel (Gh, Gw) = (H, W) in upsample-gt mode
+    loss_feats = field.loss_features(imgs, ids_loss, shift, crops=draws.crops).float()
     _mark(mark, "teacher")
     state = field.encode(imgs, projs, poses, ids_encoder=(0,), ids_render=ids_render,
                          flip=draws.flip and cfg.flip_augmentation)
     state.loss_feats = loss_feats
     _mark(mark, "student")
 
-    sampler = PatchRaySampler(cfg.z_near, cfg.z_far, cfg.ray_batch_size, cfg.patch_size)
+    sampler = PatchRaySampler(cfg.z_near, cfg.z_far, cfg.ray_batch_size, cfg.patch_size, cfg.dino_upscaled)
     dino_feats = loss_feats
     if artifact_field is not None:
         af = artifact_field[None, None].expand(B, loss_feats.shape[1], *artifact_field.shape)
@@ -182,15 +191,17 @@ def stage1_forward(field: SceneField, batch: Dict[str, torch.Tensor], draws: Sta
         "weights": sampler.reconstruct(c["weights"]),
     }
     # expand 64 -> 768 per pixel (the smoothness term reads it), pool each
-    # patch to one vector for the cosine loss, add the artifact field
+    # patch to one vector for the cosine loss (per pixel with dino_upscaled),
+    # add the artifact field
     dino_768 = field.expand_dim(sampler.reconstruct(c["dino_features"]))
     coarse["dino_features"] = dino_768
-    pooled = field.downsample(dino_768.reshape(B, PC, P, P, 1, -1), "patch").reshape(B, PC, 1, 1, -1)
+    pooled = None if cfg.dino_upscaled else field.downsample(dino_768.reshape(B, PC, P, P, 1, -1), "patch")
+    pooled = dino_768 if pooled is None else pooled.reshape(B, PC, 1, 1, -1)
     if dino_artifacts is not None:
         pooled = pooled + dino_artifacts.reshape(B, PC, 1, 1, -1)
     coarse["dino_features_downsampled"] = pooled
-    data = {"rgb_gt": sampler.reconstruct(rgb_gt), "dino_gt": dino_gt.reshape(B, PC, 1, 1, -1),
-            "coarse": coarse}
+    dino_gt = sampler.reconstruct(dino_gt) if cfg.dino_upscaled else dino_gt.reshape(B, PC, 1, 1, -1)
+    data = {"rgb_gt": sampler.reconstruct(rgb_gt), "dino_gt": dino_gt, "coarse": coarse}
     losses = reconstruction_loss(data, lcfg)
     _mark(mark, "loss")
     return losses["rec_loss"], losses
@@ -199,16 +210,20 @@ def stage1_forward(field: SceneField, batch: Dict[str, torch.Tensor], draws: Sta
 @torch.no_grad()
 def stage1_eval_forward(field: SceneField, batch: Dict[str, torch.Tensor], cfg: TrainConfig, rcfg: RenderConfig,
                         u: Optional[torch.Tensor] = None, fine: Optional[FineDraws] = None,
-                        generator: Optional[torch.Generator] = None, chunk: int = 16384) -> Dict[str, Any]:
+                        generator: Optional[torch.Generator] = None, chunk: int = 16384,
+                        crops: Optional[CropDraws] = None) -> Dict[str, Any]:
     """The full-frame validation render (trainer.py:429-514), no graph.
 
     The poses are rebased to frame 0; the student encodes view 0, the
     colours come from view 0 and the teacher sees every view (the shipped
     eval split "single_renderer" with all frames); every pixel of every
     view is rendered in chunks of `chunk` rays, the 64-d features expanded
-    to the teacher's space and pooled to its grid ("image" mode). u
-    (B*V*H*W, n_coarse) and `fine` are the render's draws, drawn from
-    `generator` (u first) where not given. Returns depth (B, V, H, W), rgb
+    to the teacher's space and pooled to its grid ("image" mode; a
+    per-pixel teacher, upsample-gt mode, compares them per pixel). u
+    (B*V*H*W, n_coarse) and `fine` are the render's draws, and `crops` the
+    multiscale-crop teacher's (B*V images), each drawn from `generator` (u
+    first, then fine, then crops) where not given. JAX's own validation
+    render draws no crops and raises on that teacher. Returns depth (B, V, H, W), rgb
     (B, V, H, W, Vr, 3), dino_pred_grid / dino_gt_grid (B, V, Gh, Gw, Cd),
     imgs_gt (B, V, 3, H, W) in [0, 1], projs (B, V, 3, 3) and, with
     `batch["depths"]`, depths_gt.
@@ -218,16 +233,19 @@ def stage1_eval_forward(field: SceneField, batch: Dict[str, torch.Tensor], cfg: 
     imgs, poses, projs = batch["imgs"], batch["poses"], batch["projs"]
     B, V, _, H, W = imgs.shape
     n_rays = B * V * H * W
-    if (u is None or (rcfg.using_fine and fine is None)) and generator is None:
-        raise ValueError("pass the render's draws (u, fine) or a generator to draw them from")
+    n_crops = field.encoder.crop_views
+    if (u is None or (rcfg.using_fine and fine is None) or (n_crops and crops is None)) and generator is None:
+        raise ValueError("pass the draws (u, fine, crops) or a generator to draw them from")
     if u is None:
         u = torch.rand(n_rays, rcfg.n_coarse, generator=generator, device=generator.device)
     if fine is None:
         fine = FineDraws.draw(generator, n_rays, rcfg) if rcfg.using_fine else None
+    if crops is None and n_crops:
+        crops = sample_crop_params(generator, B * V, n_crops)
     poses = torch.linalg.inv_ex(poses[:, :1].float()).inverse @ poses.float()
     ids_loss = list(range(V))
     state = field.encode(imgs, projs, poses, ids_encoder=(0,), ids_render=(0,), ids_loss=ids_loss,
-                         with_loss_feats=True)
+                         with_loss_feats=True, crops=crops)
     rays = ImageRaySampler(cfg.z_near, cfg.z_far, H, W).sample(poses, projs)  # (B, V*H*W, 11)
     out = render_rays_chunked(lambda xyz, only_density=False: field(state, xyz, only_density=only_density),
                               rays[..., :8], u, rcfg, chunk=chunk, fine=fine)
@@ -236,6 +254,9 @@ def stage1_eval_forward(field: SceneField, batch: Dict[str, torch.Tensor], cfg: 
     dino_pred = field.expand_dim(c["dino_features"].reshape(B, V, H, W, 1, -1))
     pooled = field.downsample(dino_pred, "image")
     dino_gt = state.loss_feats.float().permute(0, 1, 3, 4, 2)  # (B, V, Gh, Gw, Cd)
+    if pooled is None:  # a per-pixel teacher: the mean over each of its cells (one pixel)
+        Gh, Gw = dino_gt.shape[2:4]
+        pooled = dino_pred.reshape(B, V, Gh, H // Gh, Gw, W // Gw, -1).mean((3, 5))
     data = {
         "depth": c["depth"].reshape(B, V, H, W),
         "rgb": c["rgb"].reshape(B, V, H, W, Vr, 3),

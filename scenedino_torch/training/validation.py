@@ -148,13 +148,15 @@ def compute_depth_metrics(data: Dict[str, np.ndarray], scaling: Optional[str] = 
     return {k: float(v) for k, v in depth_metrics(pred, gt0, scaling=scaling).items()}
 
 
-def compute_dino_metrics(data: Dict[str, np.ndarray]) -> Dict[str, float]:
-    """l1, l2 and cos_sim of the pooled prediction grid against the teacher's."""
-    pred = np.asarray(data["dino_pred_grid"], np.float32)
-    gt = np.asarray(data["dino_gt_grid"], np.float32)
+def compute_dino_metrics(data: Dict[str, Any]) -> Dict[str, float]:
+    """l1, l2 and cos_sim of the pooled prediction grid against the
+    teacher's, in fp32 where the grids lie (the validator passes them on the
+    device: a per-pixel teacher's grids are 768 x H x W a view)."""
+    pred, gt = (torch.as_tensor(data[k]).float() for k in ("dino_pred_grid", "dino_gt_grid"))
+    diff = pred - gt
     return {
-        "l1": float(np.abs(pred - gt).mean()),
-        "l2": float(((pred - gt) ** 2).mean()),
+        "l1": float(diff.abs().mean()),
+        "l2": float(diff.square().mean()),
         "cos_sim": float(dino_cosine_similarity(pred, gt)),
     }
 
@@ -251,11 +253,12 @@ def make_stage1_validator(name: str, val_cfg: dict, field, tcfg, rcfg,
     def run(state, generator: torch.Generator) -> Dict[str, Any]:
         accs = {t: DictMeanAccumulator(t) for t in metric_types if t in ("depth", "dino", "nvs")}
         for batch in batches_fn():
-            data = _to_host(stage1_eval_forward(field, batch, tcfg, rcfg, generator=generator))
+            out = stage1_eval_forward(field, batch, tcfg, rcfg, generator=generator)
+            if "dino" in accs:  # on the device: the grids never go to the host
+                accs["dino"].update(compute_dino_metrics(out))
+            data = _to_host({k: v for k, v in out.items() if k not in ("dino_pred_grid", "dino_gt_grid")})
             if "depth" in accs:
                 accs["depth"].update(compute_depth_metrics(data, **metric_args.get("depth", {})))
-            if "dino" in accs:
-                accs["dino"].update(compute_dino_metrics(data))
             if "nvs" in accs:
                 accs["nvs"].update(compute_nvs_metrics(data))
         metrics: Dict[str, Any] = {}

@@ -12,7 +12,9 @@ as in tests/goldens/s1b_field_params.npz). Layouts:
   LayerNorm scale                        -> weight
 
 Module paths keep the JAX names except `VisionTransformer_0` -> `vit`,
-`blocks_<i>` -> `blocks.<i>` and `heads_<name>` -> `heads.<name>`.
+`blocks_<i>` -> `blocks.<i>`, `heads_<name>` -> `heads.<name>` and, in
+the simple-feature-pyramid decoder, `Monodepth2Decoder_0` -> `monodepth2`
+and a conv block's `Conv_0` -> `conv`.
 The mapping is strict: every leaf maps to one port tensor. A serving
 model holds no training-only subtree (TRAINING_ONLY: the frozen teacher,
 the FeatUp downsampler, the 64 -> 768 expansion); `load_jax_params`
@@ -68,6 +70,10 @@ def flatten_params(tree: Mapping) -> Dict[str, np.ndarray]:
     return flat
 
 
+# unnamed flax submodules of the monodepth2 decoder (dpt.py:188, monodepth2.py:38)
+_RENAMED = {"Monodepth2Decoder_0": "monodepth2", "Conv_0": "conv"}
+
+
 def _torch_key(path: str) -> str:
     parts = []
     for seg in path.split("/"):
@@ -77,6 +83,8 @@ def _torch_key(path: str) -> str:
             seg = "blocks." + seg.split("_")[1]
         elif seg.startswith("heads_"):
             seg = "heads." + seg[len("heads_"):]
+        elif seg in _RENAMED:
+            seg = _RENAMED[seg]
         parts.append(seg)
     leaf = parts[-1]
     if leaf in ("kernel", "scale"):

@@ -1,7 +1,7 @@
 """The DINOv2 encoder family in the port against the JAX package on the
 CPU, on the same numpy-drawn weights and inputs:
 
-  * `core.resize.antialias_resize` against `jax.image.resize(...,
+  * `core.resize.jax_resize` against `jax.image.resize(...,
     "bilinear")` at 192x640 -> 168x560 (the DINOv2 pre-resize) and at an
     odd size, on ImageNet-normalized images (|x| < 2.7): values within
     1e-6 (float32 weights built as JAX builds them, summed in another
@@ -30,7 +30,7 @@ import scenedino_tpu.models.encoder as jenc
 import scenedino_tpu.models.factory as jfactory
 from scenedino_tpu.models.factory import make_model as j_make_model
 from scenedino_tpu.models.field import SceneField as JSceneField
-from scenedino_torch.core.resize import antialias_resize
+from scenedino_torch.core.resize import jax_resize
 from scenedino_torch.models import encoder, factory
 from scenedino_torch.models.factory import make_model
 from scenedino_torch.utils.convert import load_jax_params
@@ -64,7 +64,7 @@ def test_antialias_resize_matches_jax_image_resize(shape, size):
     x = _normalized_images(0, shape)
     ref = jax.image.resize(jnp.asarray(x), (*shape[:2], *size), "bilinear")
     xt = _t(x).requires_grad_(True)
-    out = antialias_resize(xt, size)
+    out = jax_resize(xt, size, "bilinear")
     np.testing.assert_allclose(out.detach().numpy(), np.asarray(ref), atol=1e-6, rtol=0)
     # the gradient: the transposed matrices on the upstream gradient
     g = np.random.default_rng(1).normal(size=(*shape[:2], *size)).astype(np.float32)

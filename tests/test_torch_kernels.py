@@ -68,7 +68,8 @@ def cuda():
 
 def test_build_targets_hopper_and_keys_libraries_by_source():
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
-    assert build.all_names() == ["attention", "attention_bwd", "encode_view", "point_render", "row_gather"]
+    assert build.all_names() == ["attention", "attention_bwd", "attention_d80", "encode_view", "point_render",
+                                 "row_gather"]
     for name in build.all_names():
         path = build.library_path(name)
         assert path.parent == build.BUILD_DIR and path.name.startswith(f"lib{name}-")
@@ -96,10 +97,11 @@ def test_library_hash_covers_included_headers(tmp_path, monkeypatch):
 
 def test_launch_counters_reset_and_ignore_cpu_calls():
     reset_launches()
-    q = torch.randn(1, 5, 2, 64)
-    attention(q, q, q)
-    q.requires_grad_(True)
-    attention(q, q, q).sum().backward()
+    for d in (64, 80):
+        q = torch.randn(1, 5, 2, d)
+        attention(q, q, q)
+        q.requires_grad_(True)
+        attention(q, q, q).sum().backward()
     row_gather(torch.randn(4, 16), torch.tensor([3, 0], dtype=torch.int32))
     cfg = PointRenderConfig()
     field = (torch.randn(4, 6, 8), torch.randn(39, 8), torch.zeros(8), torch.randn(8, 3), torch.zeros(3),
@@ -110,7 +112,8 @@ def test_launch_counters_reset_and_ignore_cpu_calls():
     encode_view(torch.randn(3, 8), torch.rand(3, 4).sort(-1).values * 10 + 3, torch.ones(3), torch.randn(13, 8),
                 torch.randn(8, 5), torch.zeros(5), torch.rand(3, 3), EncodeViewConfig())
     assert launches() == {name: 0 for name in WRAPPERS}
-    assert list(WRAPPERS) == ["attention", "attention_bwd_dq", "attention_bwd_dkv", "point_render",
+    assert list(WRAPPERS) == ["attention", "attention_bwd_dq", "attention_bwd_dkv", "attention_d80",
+                              "attention_d80_bwd_dq", "attention_d80_bwd_dkv", "point_render",
                               "probe_weights", "point_query", "row_gather", "encode_view"]
 
 
@@ -128,10 +131,10 @@ def test_attention_kernel_matches_plain(cuda, n):
 
 @pytest.mark.cuda
 def test_attention_kernel_refuses_what_it_does_not_take(cuda):
-    q80 = torch.randn(1, 8, 2, 80, device=cuda).to(torch.bfloat16)
+    q96 = torch.randn(1, 8, 2, 96, device=cuda).to(torch.bfloat16)  # head dims 64 and 80 only
     q32 = torch.randn(1, 8, 2, 64, device=cuda)
     qnc = torch.randn(1, 8, 64, 2, device=cuda).to(torch.bfloat16).transpose(2, 3)
-    for q in (q80, q32, qnc):
+    for q in (q96, q32, qnc):
         with pytest.raises(ValueError):
             attention(q, q, q)
 
@@ -551,6 +554,45 @@ def test_grid_predictor_argmax_takes_the_first_of_a_tie_on_the_card(cuda):
     assert predict(torch.zeros(4, 3, device=cuda), None)[1].reshape(-1).tolist() == [0, 0, 1, 0]
 
 
+def _gpu_cpu_step(model, batch, draws, tcfg, rcfg, lcfg, device, art=None):
+    """One stage-1 forward and backward: (loss, {name: grad on the CPU})."""
+    import dataclasses
+
+    from scenedino_torch.training import trainer
+
+    model.zero_grad(set_to_none=True)
+    moved = {f: getattr(draws, f).to(device) for f in ("pv", "py", "px", "u")}
+    d = dataclasses.replace(draws, **moved, crops=None if draws.crops is None else draws.crops.to(device))
+    a = None if art is None else art.to(device).requires_grad_(True)
+    loss, _ = trainer.stage1_forward(model, {k: v.to(device) for k, v in batch.items()}, d, tcfg, rcfg, lcfg, a)
+    loss.backward()
+    grads = {n: p.grad.float().cpu() for n, p in model.named_parameters() if p.grad is not None}
+    if a is not None:
+        grads["artifact_field"] = a.grad.float().cpu()
+    return loss.item(), grads
+
+
+def _assert_step_close(gpu, cpu):
+    """chip_smoke.py phase 5's small-step bounds: the loss 1e-2 relative,
+    each gradient's relative L2 error 0.1, a gradient under 1e-3 of the
+    largest of its module measured against that 1e-3."""
+    (gpu_loss, gpu_grads), (cpu_loss, cpu_grads) = gpu, cpu
+    assert np.isfinite(gpu_loss) and abs(gpu_loss - cpu_loss) <= 1e-2 * abs(cpu_loss)
+    assert sorted(gpu_grads) == sorted(cpu_grads)
+
+    def module(n):
+        return n.rpartition(".")[0]
+
+    norms = {n: torch.linalg.vector_norm(r).item() for n, r in cpu_grads.items()}
+    largest = {}
+    for n, v in norms.items():
+        largest[module(n)] = max(largest.get(module(n), 0.0), v)
+    errs = {n: torch.linalg.vector_norm(gpu_grads[n] - r).item() / max(norms[n], 1e-3 * largest[module(n)])
+            for n, r in cpu_grads.items() if norms[n] > 0}
+    worst = max(errs, key=errs.get)
+    assert errs[worst] <= 0.1, (worst, errs[worst])
+
+
 @pytest.mark.cuda
 def test_stage1_step_on_a_kitti_360_batch_matches_the_cpu(cuda, tmp_path):
     """One stage-1 step of the shipped KITTI-360 recipe's model (ViT-B/8 and
@@ -569,7 +611,6 @@ def test_stage1_step_on_a_kitti_360_batch_matches_the_cpu(cuda, tmp_path):
     relative error 0.11 with the kernels and 0.05 without them, the rest
     at most 0.022; NVIDIA H100 80GB HBM3, 700.00 W)."""
     import copy
-    import dataclasses
 
     from scenedino_torch.datasets.kitti_360 import KITTI360Dataset
     from scenedino_torch.models.factory import SCENEDINO_KITTI_360_TRAIN, make_model
@@ -595,32 +636,114 @@ def test_stage1_step_on_a_kitti_360_batch_matches_the_cpu(cuda, tmp_path):
     draws = trainer.draw_stage1(gc, tcfg, rcfg, B, V, h, w, gp)
     art = 1e-3 * torch.randn(enc.gt_encoder.latent_size, h // gp, w // gp, generator=gc)
 
-    def one_step(m, device):
-        m.zero_grad(set_to_none=True)
-        a = art.to(device).requires_grad_(True)
-        d = dataclasses.replace(draws, **{f: getattr(draws, f).to(device) for f in ("pv", "py", "px", "u")})
-        loss, _ = trainer.stage1_forward(m, {k: v.to(device) for k, v in batch.items()}, d, tcfg, rcfg, lcfg, a)
-        loss.backward()
-        grads = {n: p.grad.float().cpu() for n, p in m.named_parameters() if p.grad is not None}
-        grads["artifact_field"] = a.grad.float().cpu()
-        return loss.item(), grads
-
     reset_launches()
-    gpu_loss, gpu_grads = one_step(model, cuda)
+    gpu = _gpu_cpu_step(model, batch, draws, tcfg, rcfg, lcfg, cuda, art)
     torch.cuda.synchronize()
     counts = launches()
     assert counts["attention"] > 0 and counts["attention_bwd_dq"] > 0 and counts["attention_bwd_dkv"] > 0, counts
-    cpu_loss, cpu_grads = one_step(copy.deepcopy(model).to("cpu"), "cpu")
-    assert np.isfinite(gpu_loss) and abs(gpu_loss - cpu_loss) <= 1e-2 * abs(cpu_loss)
-    assert sorted(gpu_grads) == sorted(cpu_grads)
-    def module(n):
-        return n.rpartition(".")[0]
+    _assert_step_close(gpu, _gpu_cpu_step(copy.deepcopy(model).to("cpu"), batch, draws, tcfg, rcfg, lcfg, "cpu",
+                                          art))
 
-    norms = {n: torch.linalg.vector_norm(r).item() for n, r in cpu_grads.items()}
-    largest = {}
-    for n, v in norms.items():
-        largest[module(n)] = max(largest.get(module(n), 0.0), v)
-    errs = {n: torch.linalg.vector_norm(gpu_grads[n] - r).item() / max(norms[n], 1e-3 * largest[module(n)])
-            for n, r in cpu_grads.items() if norms[n] > 0}
-    worst = max(errs, key=errs.get)
-    assert errs[worst] <= 0.1, (worst, errs[worst])
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,batch", [(1, 2), (31, 2), (32, 2), (33, 2), (63, 2), (64, 2), (65, 2), (200, 2),
+                                     (585, 1), (585, 4)])
+def test_attention_d80_kernels_match_plain(cuda, n, batch):
+    """K1 at head dim 80 (csrc/attention_d80.cu): the forward with and
+    without the log-sum-exp, dq and dkv against the plain versions, around
+    the 32-row query tile of dkv, the 64-row key tile and the 64-row block,
+    and at the I-JEPA-H/14 shapes; two launches bitwise equal."""
+    from scenedino_torch.kernels.attention import attention_bwd_dkv, attention_bwd_dq
+
+    g = torch.Generator(device=cuda).manual_seed(200 + n)
+    q, k, v, do = (torch.randn(batch, n, 16 if n == 585 else 3, 80, generator=g, device=cuda).to(torch.bfloat16)
+                   for _ in range(4))
+    before = launches()
+    out, lse = attention_fwd(q, k, v, with_lse=True)
+    plain_out = attention_fwd(q, k, v)[0]
+    dq, di = attention_bwd_dq(q, k, v, out, do, lse)
+    dk, dv = attention_bwd_dkv(q, k, v, do, lse, di)
+    again = attention_bwd_dq(q, k, v, out, do, lse)[0], attention_bwd_dkv(q, k, v, do, lse, di)
+    torch.cuda.synchronize()
+    after = launches()
+    assert after["attention_d80"] == before["attention_d80"] + 2
+    assert after["attention_d80_bwd_dq"] == before["attention_d80_bwd_dq"] + 2
+    assert after["attention_d80_bwd_dkv"] == before["attention_d80_bwd_dkv"] + 2
+    assert after["attention"] == before["attention"]
+    assert torch.equal(out, plain_out) and torch.equal(dq, again[0]) and torch.equal(dk, again[1][0])
+    assert (out.float() - attention_plain(q, k, v).float()).abs().max().item() <= 2e-2
+    assert (lse - attention_lse_plain(q, k)).abs().max().item() <= 1e-3
+    assert (di - (do.float() * out.float()).sum(-1).transpose(1, 2)).abs().max().item() <= 1e-3
+    for got, ref in zip((dq, dk, dv), attention_bwd_plain(q, k, v, out, do, lse)):
+        assert torch.isfinite(got).all()
+        err = (got.float() - ref.float()).abs().max().item()
+        assert err <= K1_BWD_REL * ref.float().abs().max().item() + 1e-3, err
+
+
+def _seeded_batch(B, V, h, w, seed):
+    rng = np.random.default_rng(seed)
+    poses = np.broadcast_to(np.eye(4, dtype=np.float32), (B, V, 4, 4)).copy()
+    poses[:, :, 0, 3] += np.arange(V) * 0.3
+    poses[:, :, 2, 3] += rng.uniform(0.0, 0.5, size=(B, V))
+    projs = np.broadcast_to(np.array([[0.7, 0, 0], [0, 2.3, 0], [0, 0, 1]], np.float32), (B, V, 3, 3)).copy()
+    return {"imgs": torch.from_numpy(rng.uniform(-1, 1, size=(B, V, 3, h, w)).astype(np.float32)),
+            "poses": torch.from_numpy(poses), "projs": torch.from_numpy(projs)}
+
+
+@pytest.mark.cuda
+def test_stage1_step_at_head_dim_80_matches_the_cpu(cuda):
+    """The flagship step with its ViTs cut to heads of 80 (vit_overrides
+    width 160, num_heads 2) at 64x512, 513 tokens: the card's step
+    launches the D = 80 forward, dq and dkv and no D = 64 kernel; its loss
+    and gradients against the CPU's within phase 5's bounds."""
+    import copy
+
+    from scenedino_torch.models.factory import SCENEDINO_KITTI_360_TRAIN, make_model
+    from scenedino_torch.training import trainer
+
+    h, w = 64, 512
+    conf = copy.deepcopy(SCENEDINO_KITTI_360_TRAIN)
+    conf["model"]["encoder"]["vit_overrides"] = {"width": 160, "num_heads": 2}
+    model_conf, tcfg, rcfg, lcfg = trainer.configs_from_dict(conf)
+    model = make_model(model_conf, device=cuda, seed=0, training=True)
+    batch = _seeded_batch(2, 4, h, w, 1)
+    gc = torch.Generator().manual_seed(6)
+    draws = trainer.draw_stage1(gc, tcfg, rcfg, 2, 4, h, w, model.encoder.gt_patch_size)
+    art = 1e-3 * torch.randn(160, h // 8, w // 8, generator=gc)
+    reset_launches()
+    gpu = _gpu_cpu_step(model, batch, draws, tcfg, rcfg, lcfg, cuda, art)
+    torch.cuda.synchronize()
+    counts = launches()
+    assert counts["attention_d80"] == 24 and counts["attention_d80_bwd_dq"] == 12, counts
+    assert counts["attention_d80_bwd_dkv"] == 12 and counts["attention"] == 0, counts
+    _assert_step_close(gpu, _gpu_cpu_step(copy.deepcopy(model).to("cpu"), batch, draws, tcfg, rcfg, lcfg, "cpu",
+                                          art))
+
+
+@pytest.mark.cuda
+def test_upsample_gt_step_matches_the_cpu(cuda):
+    """configs/train_scenedino_kitti_360_upsampler.yaml's model (bf16,
+    ViT-B/8 student and teacher, the multiscale-crop teacher, a per-pixel
+    target) at 64x512, B = 1, V = 4: the card's step runs the teacher's 8
+    views and the student through K1; its loss and gradients against the
+    CPU's on the same crops, within phase 5's bounds."""
+    import copy
+
+    from scenedino_torch.models.factory import make_model
+    from scenedino_torch.training import trainer
+    from scenedino_torch.utils.config import load
+
+    h, w = 64, 512
+    conf = load("configs/train_scenedino_kitti_360_upsampler.yaml")
+    conf["model"]["encoder"]["image_size"] = [h, w]
+    model_conf, tcfg, rcfg, lcfg = trainer.configs_from_dict(conf)
+    model = make_model(model_conf, device=cuda, seed=0, training=True)
+    assert model.encoder.crop_views == 2 and tcfg.dino_upscaled and not tcfg.compensate_artifacts
+    batch = _seeded_batch(1, 4, h, w, 2)
+    draws = trainer.draw_stage1(torch.Generator().manual_seed(7), tcfg, rcfg, 1, 4, h, w, 8, crop_views=2)
+    reset_launches()
+    gpu = _gpu_cpu_step(model, batch, draws, tcfg, rcfg, lcfg, cuda)
+    torch.cuda.synchronize()
+    counts = launches()
+    assert counts["attention"] == 24 and counts["attention_bwd_dq"] == 12, counts  # teacher 12 + student 12
+    _assert_step_close(gpu, _gpu_cpu_step(copy.deepcopy(model).to("cpu"), batch, draws, tcfg, rcfg, lcfg, "cpu"))

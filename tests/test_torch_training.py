@@ -573,8 +573,7 @@ def test_training_entry_points_refuse_the_cpu_without_a_device():
 
 def test_unported_options_raise(models):
     _, _, model = models
-    for kw in ({"predict_uncertainty": True}, {"predict_consistency": True}, {"dino_upscaled": True},
-               {"gradient_accum_factor": 2}):
+    for kw in ({"predict_uncertainty": True}, {"predict_consistency": True}, {"gradient_accum_factor": 2}):
         with pytest.raises(NotImplementedError):
             trainer.make_train_step(model, trainer.TrainConfig(**kw), RenderConfig(), rec.ReconstructionLossConfig())
     with pytest.raises(NotImplementedError):  # the occupancy probe of the validation render
