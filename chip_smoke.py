@@ -181,13 +181,16 @@ Phases, one line each:
              then K1's forward at the shapes 10b-10d gave it that phase 2
              does not time (the stage-1 teacher's 16 frames, stage 2's 4
              frames without the log-sum-exp), as phase 2 times its own
-  11 d80 and upsample-gt. 11a: K1 at head dim 80 (csrc/attention_d80.cu):
+  11 d80 and upsample-gt. 11a: K1 at head dim 80 (csrc/attention_d80.cu,
+             the forward; csrc/attention_d80_bwd.cu, dq and dkv):
              the forward without and with the log-sum-exp, dq and dkv
              against their plain versions (phase 2's bounds) at (1, 585,
              16, 80) and (4, 585, 16, 80), I-JEPA-H/14's forward at 192x640
-             and four of it, and (2, 1921, 12, 80), the student of 11's
-             D = 80 training step; two launches bitwise equal; kernel,
-             plain, SDPA (forward and backward) and bound times. 11b: the
+             and four of it, and (4, 1921, 12, 80) and (2, 1921, 12, 80),
+             the teacher and the student of 11's D = 80 training step; two launches bitwise equal; kernel,
+             plain, SDPA (forward and backward, the backward also as its
+             kernels' device time) and bound times, dq + dkv's TFLOP/s
+             over their 7 products and share of the SDPA backward. 11b: the
              I-JEPA-H/14 backbone (32 blocks, width 1280, 16 heads of 80, no
              class token) from seeded weights in the reference's layout
              through utils.convert.convert_ssl_vit into make_vit
@@ -306,8 +309,8 @@ EVAL_RGB_ABS = 2e-2
 # instantiations of csrc/point_render.cu's kernel: K2 and K4 at 2 hidden x 2
 # output widths each, K3 at 2 hidden widths
 POINT_KERNELS = 10
-# phase 11a: K1 at head dim 80 (csrc/attention_d80.cu) at I-JEPA-H/14's
-# 192x640 forward (13 x 45 = 585 tokens, 16 heads), four of them, and phase
+# phase 11a: K1 at head dim 80 (csrc/attention_d80.cu, attention_d80_bwd.cu) at
+# I-JEPA-H/14's 192x640 forward (13 x 45 = 585 tokens, 16 heads), four of them, and phase
 # 11's D = 80 training step (1921 tokens, 12 heads of 80): its teacher on the
 # 4 loss images and, last, its student, each with its backward
 D80_SHAPES = ((1, 585, 16), (4, 585, 16), (4, 1921, 12), (2, 1921, 12))
@@ -2851,7 +2854,7 @@ def k1_d80_shape(gen, B, N, Hh):
         attention_lse_plain,
         attention_plain,
     )
-    from scenedino_torch.utils.timing import time_ms
+    from scenedino_torch.utils.timing import device_ms, time_ms
 
     D = 80
     shape = (B, N, Hh, D)
@@ -2888,6 +2891,10 @@ def k1_d80_shape(gen, B, N, Hh):
     sdpa = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt)
     dot = do.transpose(1, 2).contiguous()
     lib_bwd_ms = time_ms(lambda: torch.autograd.grad(sdpa, (qt, kt, vt), dot, retain_graph=True), inner=10)
+    # the same call's kernels alone (torch.profiler): a small backward's CUDA-event time is the host's autograd
+    lib_bwd_dev_ms = device_ms(lambda: torch.autograd.grad(sdpa, (qt, kt, vt), dot, retain_graph=True))
+    bwd_dev_ms = device_ms(lambda: (attention_bwd_dq(q, k, v, out_l, do, lse),
+                                    attention_bwd_dkv(q, k, v, do, lse, di)))
     unit = 2.0 * B * Hh * N * N * D  # one N x N x D product
     t_bytes, s_bytes = B * N * Hh * D * 2, B * Hh * N * 4
     b_fwd, by_fwd = bound_ms(2 * unit, 4 * t_bytes)  # q k v out
@@ -2902,12 +2909,14 @@ def k1_d80_shape(gen, B, N, Hh):
           f"dkv {ms_dkv:.4f} ms ({7 * unit / (ms_dq + ms_dkv) / 1e9:.1f} TFLOP/s over their 7 products); plain "
           f"forward {plain_ms:.4f} ms, backward {plain_bwd_ms:.4f} ms; sdpa forward {lib_ms:.4f} ms (the kernel "
           f"takes {ms / lib_ms:.2f} of it), backward {lib_bwd_ms:.4f} ms (dq + dkv take "
-          f"{(ms_dq + ms_dkv) / lib_bwd_ms:.2f} of it); bound forward {b_fwd:.4f} ms ({by_fwd}), with the lse "
-          f"{b_lse:.4f} ms ({by_lse}), dq {b_dq:.4f} ms ({by_dq}), dkv {b_dkv:.4f} ms ({by_dkv}), the whole backward "
-          f"at 10 N^2 D B H FLOP {b_bwd:.4f} ms ({by_bwd})", flush=True)
+          f"{(ms_dq + ms_dkv) / lib_bwd_ms:.2f} of it), its kernels' device time {lib_bwd_dev_ms:.4f} ms (dq + dkv's "
+          f"{bwd_dev_ms:.4f} take {bwd_dev_ms / lib_bwd_dev_ms:.2f} of it); bound forward {b_fwd:.4f} ms ({by_fwd}), "
+          f"with the lse {b_lse:.4f} ms ({by_lse}), dq {b_dq:.4f} ms ({by_dq}), dkv {b_dkv:.4f} ms ({by_dkv}), the "
+          f"whole backward at 10 N^2 D B H FLOP {b_bwd:.4f} ms ({by_bwd})", flush=True)
     return {"shape": list(shape), "max_abs_err": err, "lse_err": lse_err, "bwd_errs": errs, "ms": ms,
             "ms_lse": ms_lse, "ms_dq": ms_dq, "ms_dkv": ms_dkv, "plain_ms": plain_ms, "plain_bwd_ms": plain_bwd_ms,
-            "library_ms": lib_ms, "library_bwd_ms": lib_bwd_ms, "bound_ms": b_fwd, "bound_by": by_fwd,
+            "library_ms": lib_ms, "library_bwd_ms": lib_bwd_ms, "library_bwd_device_ms": lib_bwd_dev_ms,
+            "bwd_device_ms": bwd_dev_ms, "bound_ms": b_fwd, "bound_by": by_fwd,
             "bound_dq_ms": b_dq, "bound_dq_by": by_dq, "bound_dkv_ms": b_dkv, "bound_dkv_by": by_dkv}
 
 
@@ -2917,19 +2926,21 @@ def phase_d80_kernels(gen):
     D = 80 training step's)."""
     shapes = [k1_d80_shape(gen, *shape) for shape in D80_SHAPES]
     fwd, bwd = shapes[0], shapes[-1]
-    common = {"route": "cuda", "source": "scenedino_torch/csrc/attention_d80.cu", "shapes": shapes}
+    route = {"route": "cuda", "shapes": shapes}
+    bwd_source = {"source": "scenedino_torch/csrc/attention_d80_bwd.cu", **route}
     return [
         {"name": "attention_d80", "replaces": "scenedino_tpu/models/vit.py:126",
          "max_abs_err": max(e["max_abs_err"] for e in shapes),
-         **{key: fwd[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}, **common},
+         **{key: fwd[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+         "source": "scenedino_torch/csrc/attention_d80.cu", **route},
         {"name": "attention_d80_bwd_dq", "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:1287",
          "max_abs_err": max(e["bwd_errs"][0] for e in shapes), "ms": bwd["ms_dq"], "plain_ms": bwd["plain_bwd_ms"],
          "bound_ms": bwd["bound_dq_ms"], "bound_by": bwd["bound_dq_by"], "library_ms": bwd["library_bwd_ms"],
-         **common},
+         **bwd_source},
         {"name": "attention_d80_bwd_dkv", "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:941",
          "max_abs_err": max(max(e["bwd_errs"][1:]) for e in shapes), "ms": bwd["ms_dkv"],
          "plain_ms": bwd["plain_bwd_ms"], "bound_ms": bwd["bound_dkv_ms"], "bound_by": bwd["bound_dkv_by"],
-         "library_ms": bwd["library_bwd_ms"], **common},
+         "library_ms": bwd["library_bwd_ms"], **bwd_source},
     ]
 
 
@@ -3155,7 +3166,7 @@ def main():
     try:
         from scenedino_torch import kernels
         from scenedino_torch.kernels import build
-        from scenedino_torch.tools import bench_encode_view
+        from scenedino_torch.tools import bench_attention_bwd, bench_encode_view
         from scenedino_torch.utils.timing import card_line
     except ImportError as e:
         fail(f"scenedino_torch is not importable ({e}): run from a checkout of the repository")
@@ -3182,10 +3193,12 @@ def main():
     if sorted(k1) != ["dkv", "dq", "fwd"] or any(r.get("spill_stores", 1) or r.get("spill_loads", 1)
                                                  for r in k1.values()):
         fail(f"ptxas spilled in a K1 kernel, or its report is missing: {k1}")
-    d80 = {("fwd" if "fwd" in entry else "dq" if "bwd_dq" in entry else "dkv"): r
+    d80 = {("fwd" if "fwd" in entry else entry): r
            for entry, r in build.ptxas_report(build.build_log("attention_d80")).items()}
-    print(f"phase 1 K1 kernels at head dim 80 (csrc/attention_d80.cu: forward, dq, dkv; 128 threads a block), "
-          f"registers and spills in bytes: {json.dumps(d80)}", flush=True)
+    d80.update(bench_attention_bwd.backward_report(build.build_log("attention_d80_bwd")))
+    print(f"phase 1 K1 kernels at head dim 80 (csrc/attention_d80.cu: the forward, 128 threads a block; "
+          f"csrc/attention_d80_bwd.cu: dq and dkv, registers at launch, then setmaxnreg's split of the producer "
+          f"warpgroup and each consumer warpgroup), registers and spills in bytes: {json.dumps(d80)}", flush=True)
     if sorted(d80) != ["dkv", "dq", "fwd"] or any(r.get("spill_stores", 1) or r.get("spill_loads", 1)
                                                   for r in d80.values()):
         fail(f"ptxas spilled in a D = 80 K1 kernel, or its report is missing: {d80}")

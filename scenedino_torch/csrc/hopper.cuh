@@ -429,6 +429,97 @@ __device__ __forceinline__ void store_accumulator(unsigned char* tile, const flo
   }
 }
 
+#define HOPPER_ACC8(d) \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+#define HOPPER_ACC8_LIST "{%0, %1, %2, %3, %4, %5, %6, %7}"
+
+// wgmma_m64n64k16_rs with a 32-column B: d is 64 x 32 fp32, d[4 j + 2 hi + e]
+// as in the 64-column form for j < 4
+template <int TransB>
+__device__ __forceinline__ void wgmma_m64n32k16_rs(float (&d)[16], const uint32_t* a, uint64_t desc_b,
+                                                   int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 " HOPPER_ACC16_LIST
+      ", {%16, %17, %18, %19}, %20, p, 1, 1, %22;\n"
+      "}\n"
+      : HOPPER_ACC16(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate), "n"(TransB));
+}
+
+// wgmma_m64n64k16_rs with a 16-column B: d is 64 x 16 fp32, d[4 j + 2 hi + e]
+// as in the 64-column form for j < 2
+template <int TransB>
+__device__ __forceinline__ void wgmma_m64n16k16_rs(float (&d)[8], const uint32_t* a, uint64_t desc_b,
+                                                   int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 " HOPPER_ACC8_LIST
+      ", {%8, %9, %10, %11}, %12, p, 1, 1, %14;\n"
+      "}\n"
+      : HOPPER_ACC8(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate), "n"(TransB));
+}
+
+// ------------------------------------------------- 16-column side tiles
+//
+// A row of 80 bf16 (160 bytes) is split 64 + 16: columns 0-63 are a tile of
+// the convention above, columns 64-79 a side tile of 32-byte rows written by
+// TMA with CU_TENSOR_MAP_SWIZZLE_32B: the 16-byte chunk c of row r lies at
+// r * 32 + ((c ^ ((r / 4) % 2)) * 16), the pattern repeating every 8 rows
+// (256 bytes), so a side tile is 256-byte aligned. `wgmma_desc_b32`
+// describes it (layout type B32, 8-row groups 256 bytes apart), again for
+// both operand orders:
+//   * K-major: its 16 columns are one k-step, B's N its rows;
+//   * MN-major: its 16 columns are B's N, k-step kk starts 16 rows = 512 * kk
+//     bytes on (`WGMMA_B32_MN_STEP`).
+constexpr int SIDE = 16;  // columns of a side tile
+constexpr uint64_t WGMMA_B32_MN_STEP = 512 >> 4;
+
+__device__ __forceinline__ uint64_t wgmma_desc_b32_at(uint32_t addr) {
+  uint64_t d = (addr & 0x3FFFFu) >> 4;            // start address
+  d |= uint64_t(1) << 16;                         // leading offset: unused by a 16-wide swizzled tile
+  d |= uint64_t(256 >> 4) << 32;                  // stride between 8-row groups
+  d |= uint64_t(3) << 62;                         // 32-byte swizzle
+  return d;
+}
+
+__device__ __forceinline__ uint64_t wgmma_desc_b32(const void* tile) { return wgmma_desc_b32_at(smem_u32(tile)); }
+
+// byte offset of columns [col, col + 8) (col 0 or 8) of row `row` in a side tile
+__device__ __forceinline__ uint32_t side_offset(int row, int col) {
+  return static_cast<uint32_t>(row * 32 + ((((col >> 3) ^ (row >> 2)) & 1) << 4));
+}
+
+// the thread's share of a side tile's 64 rows as the A operand of one k-step
+__device__ __forceinline__ void load_a_side(uint32_t (&a)[4], const unsigned char* side, int warp, int lane) {
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+#pragma unroll
+    for (int hi = 0; hi < 2; ++hi) {
+      const int row = warp * 16 + hi * 8 + lane / 4;
+      a[2 * half + hi] = *reinterpret_cast<const uint32_t*>(side + side_offset(row, 8 * half) + (lane % 4) * 4);
+    }
+  }
+}
+
+// a 64 x 16 accumulator (wgmma_m64n16k16_rs) -> bf16 in a side tile
+__device__ __forceinline__ void store_side(unsigned char* side, const float (&d)[8], int warp, int lane) {
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+#pragma unroll
+    for (int hi = 0; hi < 2; ++hi) {
+      const int row = warp * 16 + hi * 8 + lane / 4;
+      *reinterpret_cast<uint32_t*>(side + side_offset(row, 8 * j) + (lane % 4) * 4) =
+          pack_bf16(d[4 * j + 2 * hi], d[4 * j + 2 * hi + 1]);
+    }
+  }
+}
+
 // -------------------------------------------------------- tensor maps (host)
 
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
@@ -480,6 +571,29 @@ int encode_maps(CUtensorMap (&maps)[COUNT], const void* const (&bases)[COUNT], i
     if (bad) return bad;
   }
   return 0;
+}
+
+// the map of a box of `cols` columns by `rows` rows of one head of a
+// contiguous (B, N, H, D) bf16 tensor at `base` (16-byte aligned, D * 2 a
+// multiple of 16): dimensions (D, H, N, B) innermost first, box (cols, 1,
+// rows, 1) under `swizzle`, whose span a box row must fill (64 columns for
+// the 128-byte swizzle, 16 for the 32-byte one). The box's first column is
+// the load's or store's c0. Rows past N are zero-filled on a load and cut on
+// a store. Returns a cudaError_t (0 = encoded).
+inline int encode_head_box_map(CUtensorMap* map, const void* base, int B, int N, int H, int D, int cols, int rows,
+                               CUtensorMapSwizzle swizzle) {
+  const EncodeTiledFn encode = encode_tiled_fn();
+  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const cuuint64_t row = 2ull * D;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(H), static_cast<cuuint64_t>(N),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {row, row * H, row * H * N};  // bytes, dims 1..3
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(cols), 1, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides, box,
+                              elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 
 constexpr int MAX_DEVICES = 64;

@@ -9,8 +9,10 @@ launches the two kernels of `csrc/attention_bwd.cu` (wgmma products on
 tiles that TMA loads; the primitives are in `csrc/hopper.cuh`):
 `attention_bwd_dq` (dQ, and di = rowsum(dO o)) then `attention_bwd_dkv`
 (dK, dV). At D = 80 (the I-JEPA-H/14 backbone) the same three functions
-launch the kernels of `csrc/attention_d80.cu` (mma.sync products on
-cp.async tiles), each with a launch count of its own (`D80_COUNTS`). On
+launch the forward of `csrc/attention_d80.cu` (mma.sync products on
+cp.async tiles) and the backward pair of `csrc/attention_d80_bwd.cu`
+(wgmma on TMA tiles, a row of 80 split into a 64-column tile and a
+16-column side tile), each with a launch count of its own (`D80_COUNTS`). On
 CPU tensors the same Function takes `attention_plain` and
 `attention_bwd_plain` (any D). Anything else raises. It replaces the
 Pallas TPU flash attention reached from `scenedino_tpu/models/vit.py:126`
@@ -27,7 +29,7 @@ import torch
 from scenedino_torch.kernels import build
 
 # the head dims the CUDA kernels take: 64 (attention.cu, attention_bwd.cu)
-# and 80 (attention_d80.cu)
+# and 80 (attention_d80.cu, attention_d80_bwd.cu)
 HEAD_DIMS = (64, 80)
 
 
@@ -211,6 +213,6 @@ _KERNELS = {
          "bwd_dq": ("attention_bwd", "attention_bwd_dq", attention_bwd_dq),
          "bwd_dkv": ("attention_bwd", "attention_bwd_dkv", attention_bwd_dkv)},
     80: {"fwd": ("attention_d80", "attention_d80_fwd", D80_COUNTS["attention_d80"]),
-         "bwd_dq": ("attention_d80", "attention_d80_bwd_dq", D80_COUNTS["attention_d80_bwd_dq"]),
-         "bwd_dkv": ("attention_d80", "attention_d80_bwd_dkv", D80_COUNTS["attention_d80_bwd_dkv"])},
+         "bwd_dq": ("attention_d80_bwd", "attention_d80_bwd_dq", D80_COUNTS["attention_d80_bwd_dq"]),
+         "bwd_dkv": ("attention_d80_bwd", "attention_d80_bwd_dkv", D80_COUNTS["attention_d80_bwd_dkv"])},
 }

@@ -9,6 +9,8 @@ side on one card.
     python -m scenedino_torch.tools.bench_attention_bwd --fwd-variants 3,3,1 3,2,1 2,3,1 --fwd-other old/attention.cu
     python -m scenedino_torch.tools.bench_attention_bwd --forward
     python -m scenedino_torch.tools.bench_attention_bwd --wgmma-rate
+    python -m scenedino_torch.tools.bench_attention_bwd --head-dim 80 --check --variants 2,3,1/2,3,1,32 \
+        --other old/attention_d80.cu
 
 `--check` builds `csrc/attention_bwd.cu` as the port loads it, prints what
 ptxas said of its kernels and holds dq, di, dk, dv against the plain
@@ -36,6 +38,20 @@ m64n64k16 with A in registers, reaches on an SM when nothing else runs: 1
 to 3 warpgroups start batches of 8 (two accumulators, k-steps alternating,
 as the kernels' first products) and wait for each batch, or keep one batch
 in flight; cycles per instruction by `clock64`.
+`--head-dim 80` does the same for the D = 80 backward,
+`csrc/attention_d80_bwd.cu`: `--probe` (also the first step of `--check`)
+runs one wgmma on a 16-column side tile, K-major (m64n64k16 and m64n32k16,
+a k-step over its 16 columns) and MN-major (m64n16k16 over its rows, 512
+bytes a k-step), loaded by TMA as the kernels load it, against
+`torch.matmul` of the same values; `--check` prints ptxas' registers and
+spills per kernel with the setmaxnreg split and holds dq, di, dk, dv
+against the plain backward at the four D = 80 shapes of `chip_smoke.py`
+and at ragged token counts around the tile edges; a variant is
+`a,b,c/d,e,f,g` (the BWD80_* macros: dkv's g is the rows of its walked
+query tile, 32 or 64); builds and `--other` sources (say an earlier
+revision's `attention_d80.cu` with its mma.sync dq and dkv, which has the
+same C functions) are timed in turns at the four shapes beside one
+`scaled_dot_product_attention` backward.
 Every time is the median CUDA-event time of `utils.timing.time_ms` on the
 card that the first line names.
 """
@@ -45,6 +61,7 @@ import argparse
 import ctypes
 import hashlib
 import json
+import re
 import subprocess
 from pathlib import Path
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -61,6 +78,10 @@ from scenedino_torch.kernels.attention import (
 from scenedino_torch.utils.timing import card_line, time_ms
 
 TRAIN_SHAPE = (4, 1921, 12, 64)
+# the D = 80 backward's shapes on the paths (chip_smoke.py phase 11a):
+# I-JEPA-H/14 at 192x640, four of it, the D = 80 training step's teacher and student
+D80_SHAPES = ((1, 585, 16, 80), (4, 585, 16, 80), (4, 1921, 12, 80), (2, 1921, 12, 80))
+D80_RAGGED = (1, 15, 16, 17, 31, 32, 33, 63, 64, 65, 127, 128, 129, 200)
 # the forward's shapes on the paths: serving, the student (with the
 # log-sum-exp), the teacher
 FWD_SHAPES = (((1, 1921, 12, 64), False), ((4, 1921, 12, 64), True), ((8, 1921, 12, 64), False))
@@ -69,6 +90,32 @@ K1_TOL = 2e-2  # chip_smoke.py's bounds of the forward's output and log-sum-exp
 LSE_TOL = 1e-3
 MACROS = ("BWD_DQ_WGS", "BWD_DQ_STAGES", "BWD_DQ_BLOCKS", "BWD_DKV_WGS", "BWD_DKV_STAGES", "BWD_DKV_BLOCKS")
 FWD_MACROS = ("FWD_WGS", "FWD_STAGES", "FWD_BLOCKS")
+MACROS80 = ("BWD80_DQ_WGS", "BWD80_DQ_STAGES", "BWD80_DQ_BLOCKS", "BWD80_DKV_WGS", "BWD80_DKV_STAGES",
+            "BWD80_DKV_BLOCKS", "BWD80_DKV_QT")
+
+
+class HeadDim:
+    """What the backward tool does at one head dim: the source, its C
+    functions, its macros, the shapes it is checked and timed at."""
+
+    def __init__(self, head_dim: int):
+        self.head_dim = head_dim
+        if head_dim == 64:
+            self.source = build.CSRC / "attention_bwd.cu"
+            self.names = ("attention_bwd_dq", "attention_bwd_dkv")
+            self.macros = MACROS
+            self.time_shapes = (TRAIN_SHAPE,)
+            self.check_shapes = [TRAIN_SHAPE, (1, 1921, 12, 64)] + [(2, n, 3, 64) for n in (1, 63, 64, 65, 128, 129,
+                                                                                              200)]
+        elif head_dim == 80:
+            self.source = build.CSRC / "attention_d80_bwd.cu"
+            self.names = ("attention_d80_bwd_dq", "attention_d80_bwd_dkv")
+            self.macros = MACROS80
+            self.time_shapes = D80_SHAPES
+            self.check_shapes = list(D80_SHAPES) + [(2, n, 3, 80) for n in D80_RAGGED]
+        else:
+            raise ValueError(f"the backward kernels take head dim 64 or 80, got {head_dim}")
+        self.same_shape = self.time_shapes[-1]
 
 
 def compile_sources(jobs: Sequence[Tuple[Path, Optional[Dict[str, int]]]]) -> List[Tuple[ctypes.CDLL, str]]:
@@ -101,9 +148,10 @@ def compile_source(source: Path, defines: Optional[Dict[str, int]] = None) -> Tu
 class Backward:
     """The two C functions of one build, called as the port's wrappers call them."""
 
-    def __init__(self, lib: ctypes.CDLL):
+    def __init__(self, lib: ctypes.CDLL, names=("attention_bwd_dq", "attention_bwd_dkv")):
+        self.names = names
         self.fns = {}
-        for name in ("attention_bwd_dq", "attention_bwd_dkv"):
+        for name in names:
             fn = getattr(lib, name)
             fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
             fn.restype = ctypes.c_int
@@ -119,12 +167,12 @@ class Backward:
     def dq(self, q, k, v, o, do, lse):
         B, N, H, _ = q.shape
         dq, di = torch.empty_like(q), torch.empty(B, H, N, device=q.device, dtype=torch.float32)
-        self._call("attention_bwd_dq", (q, k, v, o, do, lse, dq, di), q.shape)
+        self._call(self.names[0], (q, k, v, o, do, lse, dq, di), q.shape)
         return dq, di
 
     def dkv(self, q, k, v, do, lse, di):
         dk, dv = torch.empty_like(k), torch.empty_like(v)
-        self._call("attention_bwd_dkv", (q, k, v, do, lse, di, dk, dv), q.shape)
+        self._call(self.names[1], (q, k, v, do, lse, di, dk, dv), q.shape)
         return dk, dv
 
 
@@ -222,16 +270,39 @@ def check(bwd: Backward, shape, seed=0) -> bool:
     return ok
 
 
+def register_split(wgs: int, blocks: int) -> Tuple[int, int]:
+    """hopper.cuh's Registers<WGS, BLOCKS>: the producer's and each
+    consumer's registers a thread after setmaxnreg."""
+    start = min(65536 // (blocks * (wgs + 1) * 128), 255) // 8 * 8
+    return 24, min(((wgs + 1) * start - 24) // wgs // 8 * 8, 240)
+
+
+def backward_report(log: str) -> Dict[str, Dict[str, int]]:
+    """ptxas' registers (at launch) and spills of each backward kernel in
+    nvcc's output `log`, by "dq" and "dkv"; a kernel with template arguments
+    (warpgroups, ring slots, blocks per SM, ...) also gets the setmaxnreg
+    split, `producer` and `consumer` registers a thread."""
+    out = {}
+    for name, r in build.ptxas_report(log).items():
+        if "bwd" not in name:
+            continue
+        args = [int(x) for x in re.findall(r"Li(\d+)E", name)]
+        if len(args) >= 3:
+            r = {**r, **dict(zip(("wgs", "stages", "blocks", "qt"), args)),
+                 **dict(zip(("producer", "consumer"), register_split(args[0], args[2])))}
+        out["dq" if "bwd_dq" in name else "dkv"] = r
+    return out
+
+
 def kernel_lines(log: str) -> str:
-    report = build.ptxas_report(log)
-    return json.dumps({("dq" if "bwd_dq" in name else "dkv"): r for name, r in report.items() if "attention_bwd" in name})
+    return json.dumps(backward_report(log))
 
 
-def parse_variant(text: str) -> Dict[str, int]:
+def parse_variant(text: str, macros: Sequence[str] = MACROS) -> Dict[str, int]:
     values = [int(x) for part in text.split("/") for x in part.split(",")]
-    if len(values) != len(MACROS):
-        raise ValueError(f"a variant is a,b,c/d,e,f, got {text!r}")
-    return dict(zip(MACROS, values))
+    if len(values) != len(macros):
+        raise ValueError(f"a variant sets {', '.join(macros)}, got {text!r}")
+    return dict(zip(macros, values))
 
 
 def time_sdpa_backward(q, k, v, do) -> float:
@@ -309,6 +380,116 @@ def wgmma_rate():
                   f"and 1.98 GHz an SM does one in {131072 / (989e12 / blocks / 1.98e9):.1f})", flush=True)
 
 
+SIDE_PROBE_SOURCE = r"""
+#include "attention_d80_bwd.cu"
+// One warpgroup: TMA loads `rows` rows of a (1, rows, 1, 80) tensor as the
+// kernels load a walked tile (main and side boxes), then one product on the
+// side tile, A (64 x 16 or 64 x rows, row-major bf16) from registers:
+//   mode 0, K-major:  out (64 x rows) = A B_side^T, one k-step over its 16 columns;
+//   mode 1, MN-major: out (64 x 16) = A B_side, rows / 16 k-steps down its rows.
+namespace {
+template <int ROWS>
+__global__ void __launch_bounds__(128) side_probe_kernel(const __grid_constant__ MapPair map,
+                                                         const __nv_bfloat16* a, float* out, int mode) {
+  extern __shared__ unsigned char raw[];
+  Rows80<ROWS>& tile = aligned_smem<Rows80<ROWS>>(raw);
+  __shared__ uint64_t bar;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  if (tid == 0) {
+    mbar_init(&bar, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_arrive_expect_tx(&bar, Rows80<ROWS>::BYTES);
+    load_rows(tile, map, &bar, 0, 0, 0);
+  }
+  mbar_wait(&bar, 0);
+  const int width = mode == 0 ? 16 : ROWS;  // A's columns
+  uint32_t ar[4 * (ROWS / 16)];
+#pragma unroll
+  for (int kk = 0; kk < ROWS / 16; ++kk)
+#pragma unroll
+    for (int half = 0; half < 2; ++half)
+#pragma unroll
+      for (int hi = 0; hi < 2; ++hi) {
+        const int r = warp * 16 + hi * 8 + lane / 4, c = 16 * kk + 8 * half + (lane % 4) * 2;
+        ar[4 * kk + 2 * half + hi] = c < width ? *reinterpret_cast<const uint32_t*>(a + r * width + c) : 0u;
+      }
+  const uint64_t side = wgmma_desc_b32(tile.side);
+  const int r = warp * 16 + lane / 4, c = (lane % 4) * 2;
+  if (mode == 0) {
+    constexpr int NA = ROWS / 2;
+    float d[NA];
+#pragma unroll
+    for (int i = 0; i < NA; ++i) d[i] = 0.f;
+    wgmma_fence();
+    mma_nt(d, ar, side, 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_registers(d);
+#pragma unroll
+    for (int i = 0; i < NA; ++i) out[(r + 8 * ((i / 2) % 2)) * ROWS + 8 * (i / 4) + c + i % 2] = d[i];
+  } else {
+    float d[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) d[i] = 0.f;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < ROWS / 16; ++kk) wgmma_m64n16k16_rs<1>(d, &ar[4 * kk], side + kk * WGMMA_B32_MN_STEP, kk > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_registers(d);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) out[(r + 8 * ((i / 2) % 2)) * 16 + 8 * (i / 4) + c + i % 2] = d[i];
+  }
+}
+}  // namespace
+
+extern "C" int side_probe(const void* b, const void* a, float* out, int rows, int mode) {
+  MapPair map;
+  const int bad = encode_pair(&map, b, 1, rows, 1, rows);
+  if (bad) return bad;
+  const __nv_bfloat16* a16 = (const __nv_bfloat16*)a;
+  if (rows == 64) side_probe_kernel<64><<<1, 128, sizeof(Rows80<64>) + 1024>>>(map, a16, out, mode);
+  else if (rows == 32) side_probe_kernel<32><<<1, 128, sizeof(Rows80<32>) + 1024>>>(map, a16, out, mode);
+  else return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
+}
+"""
+
+
+def side_probe(seed: int = 0) -> bool:
+    """One wgmma on a side tile of 64 and of 32 rows, each operand order,
+    against torch.matmul of the same bf16 values (fp32 sums of at most 64
+    products: the bound 1e-3 is far above their rounding)."""
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    source = build.BUILD_DIR / "side_probe.cu"
+    source.write_text(SIDE_PROBE_SOURCE.replace('"attention_d80_bwd.cu"', f'"{build.CSRC / "attention_d80_bwd.cu"}"'))
+    lib, _ = compile_source(source)
+    lib.side_probe.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
+    lib.side_probe.restype = ctypes.c_int
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    ok = True
+    for mode, rows in ((0, 64), (0, 32), (1, 64), (1, 32)):
+        b = torch.randn(1, rows, 1, 80, generator=g, device="cuda").to(torch.bfloat16)
+        a = torch.randn(64, 16 if mode == 0 else rows, generator=g, device="cuda").to(torch.bfloat16)
+        out = torch.zeros(64, rows if mode == 0 else 16, device="cuda")
+        err = lib.side_probe(b.data_ptr(), a.data_ptr(), out.data_ptr(), rows, mode)
+        torch.cuda.synchronize()
+        if err != 0:
+            raise RuntimeError(f"side_probe launch failed: cudaError {err}")
+        side = b[0, :, 0, 64:].float()
+        ref = a.float() @ (side.T if mode == 0 else side)
+        diff = (out - ref).abs().max().item()
+        good = diff <= 1e-3
+        ok = ok and good
+        print(f"side-tile probe, {'K' if mode == 0 else 'MN'}-major B of {rows} rows "
+              f"({'m64n%dk16, one k-step' % rows if mode == 0 else 'm64n16k16, %d k-steps' % (rows // 16)}): "
+              f"max abs err {diff:.3e} against torch.matmul{'' if good else ', FAIL'}", flush=True)
+    return ok
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--check", action="store_true")
@@ -319,24 +500,28 @@ def main():
     parser.add_argument("--fwd-other", nargs="*", default=[], type=Path)
     parser.add_argument("--forward", action="store_true")
     parser.add_argument("--wgmma-rate", action="store_true")
+    parser.add_argument("--head-dim", type=int, default=64, choices=(64, 80),
+                        help="the backward that --check, --variants and --other work on")
+    parser.add_argument("--probe", action="store_true", help="the side-tile descriptor probe (D = 80)")
     parser.add_argument("--seed", type=int, default=0)
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("bench_attention_bwd needs a CUDA card")
     print(f"{torch.cuda.get_device_name(0)}; {card_line()}; torch {torch.__version__}, CUDA {torch.version.cuda}",
           flush=True)
-    source = build.CSRC / "attention_bwd.cu"
+    hd = HeadDim(args.head_dim)
     ok = True
 
+    if args.probe or (args.check and hd.head_dim == 80):
+        ok = side_probe() and ok
     if args.check:
-        lib, log = compile_source(source)
+        lib, log = compile_source(hd.source)
         print(f"ptxas: {kernel_lines(log)}", flush=True)
         print_warnings(log)
-        bwd = Backward(lib)
-        shapes = [TRAIN_SHAPE, (1, 1921, 12, 64)] + [(2, n, 3, 64) for n in (1, 63, 64, 65, 128, 129, 200)]
-        for shape in shapes:
+        bwd = Backward(lib, hd.names)
+        for shape in hd.check_shapes:
             ok = check(bwd, shape, args.seed) and ok
-        q, k, v, o, do, lse = inputs(TRAIN_SHAPE, args.seed)
+        q, k, v, o, do, lse = inputs(hd.same_shape, args.seed)
         first = bwd.dq(q, k, v, o, do, lse)
         again = bwd.dq(q, k, v, o, do, lse)
         same = all(torch.equal(a, b) for a, b in zip(first + bwd.dkv(q, k, v, do, lse, first[1]),
@@ -344,24 +529,31 @@ def main():
         print(f"two launches bitwise equal: {same}", flush=True)
         ok = ok and same
 
-    jobs = [(source, parse_variant(text)) for text in args.variants] + [(p, None) for p in args.other]
+    jobs = [(hd.source, parse_variant(text, hd.macros)) for text in args.variants] + [(p, None) for p in args.other]
     names = list(args.variants) + [str(p) for p in args.other]
-    builds = [(name, Backward(lib), log) for name, (lib, log) in zip(names, compile_sources(jobs))]
-    if builds:
-        q, k, v, o, do, lse = inputs(TRAIN_SHAPE, args.seed)
+    builds = [(name, Backward(lib, hd.names), log) for name, (lib, log) in zip(names, compile_sources(jobs))]
+    for name, bwd, log in builds:
+        print(f"build {name}: ptxas {kernel_lines(log)}", flush=True)
+        print_warnings(log)
+        ok = check(bwd, hd.same_shape, args.seed) and ok
+    for shape in hd.time_shapes if builds else ():
+        q, k, v, o, do, lse = inputs(shape, args.seed)
         unit = 2.0 * q.shape[0] * q.shape[2] * q.shape[1] ** 2 * q.shape[3]
-        for name, bwd, log in builds:
-            print(f"build {name}: ptxas {kernel_lines(log)}", flush=True)
-            ok = check(bwd, TRAIN_SHAPE, args.seed) and ok
+        lib_ms = time_sdpa_backward(q, k, v, do)  # before and after the builds: the yardstick's own spread
+        for _, bwd, _ in builds:  # the card's clocks up before the first timed build
+            time_ms(lambda: bwd.dkv(q, k, v, do, lse, bwd.dq(q, k, v, o, do, lse)[1]), inner=5)
         for turn, order in enumerate((builds, builds[::-1])):
             for name, bwd, _ in order:
                 _, di = bwd.dq(q, k, v, o, do, lse)
                 ms_dq = time_ms(lambda: bwd.dq(q, k, v, o, do, lse), inner=5)
                 ms_dkv = time_ms(lambda: bwd.dkv(q, k, v, do, lse, di), inner=5)
-                print(f"pass {turn + 1} {name}: dq {ms_dq:.4f} ms ({3 * unit / ms_dq / 1e9:.1f} TFLOP/s), dkv "
-                      f"{ms_dkv:.4f} ms ({4 * unit / ms_dkv / 1e9:.1f} TFLOP/s), together {ms_dq + ms_dkv:.4f} ms",
+                both = ms_dq + ms_dkv
+                print(f"pass {turn + 1} {tuple(shape)} {name}: dq {ms_dq:.4f} ms ({3 * unit / ms_dq / 1e9:.1f} "
+                      f"TFLOP/s), dkv {ms_dkv:.4f} ms ({4 * unit / ms_dkv / 1e9:.1f} TFLOP/s), together {both:.4f} ms "
+                      f"({7 * unit / both / 1e9:.1f} TFLOP/s over the 7 products; {both / lib_ms:.2f} of SDPA's)",
                       flush=True)
-        print(f"scaled_dot_product_attention backward: {time_sdpa_backward(q, k, v, do):.4f} ms", flush=True)
+        print(f"scaled_dot_product_attention backward {tuple(shape)}: {lib_ms:.4f} ms before the builds, "
+              f"{time_sdpa_backward(q, k, v, do):.4f} ms after", flush=True)
 
     fwd_source = build.CSRC / "attention.cu"
     if args.fwd_check:

@@ -38,10 +38,9 @@ def time_ms(fn, reps: int = 10, inner: int = 1, warmup: int = 2) -> float:
     return float(np.median(times))
 
 
-def profile_device(fn) -> str:
-    """Device time of one call of `fn` by kernel (torch.profiler, CUPTI):
-    the busy time, the wall time, the idle share and the ten largest
-    kernels, as one line."""
+def _kernel_times(fn):
+    """({kernel name: device ms}, wall ms) of one call of `fn` under
+    torch.profiler (CUPTI)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -57,6 +56,27 @@ def profile_device(fn) -> str:
         # device-side ranges named after a CPU operator repeat the time of its kernels
         if e.device_type == torch.autograd.DeviceType.CUDA and e.name not in cpu_ops:
             by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total / 1e3
+    return by_name, wall
+
+
+def device_ms(fn, calls: int = 10) -> float:
+    """The card's busy time a call of `fn`: its kernels' device time summed
+    over `calls` calls (after one unprofiled call) over `calls`. Unlike
+    `time_ms`, it leaves out the host's launch overhead."""
+    fn()
+
+    def run():
+        for _ in range(calls):
+            fn()
+
+    return sum(_kernel_times(run)[0].values()) / calls
+
+
+def profile_device(fn) -> str:
+    """Device time of one call of `fn` by kernel (torch.profiler, CUPTI):
+    the busy time, the wall time, the idle share and the ten largest
+    kernels, as one line."""
+    by_name, wall = _kernel_times(fn)
     times = sorted(((n, t) for n, t in by_name.items() if t > 0), key=lambda t: -t[1])
     busy = sum(t for _, t in times)
     if busy == 0:

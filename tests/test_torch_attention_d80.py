@@ -1,6 +1,8 @@
 """K1 at head dim 80 on the CPU: the plain versions against JAX, the
-walk of `csrc/attention_d80.cu` emulated against the plain versions, and
-the I-JEPA-H/14 ViT (16 heads of 80) cut to size against JAX's.
+walks of `csrc/attention_d80.cu` (the forward) and
+`csrc/attention_d80_bwd.cu` (dq, dkv) emulated against the plain
+versions, and the I-JEPA-H/14 ViT (16 heads of 80) cut to size against
+JAX's.
 
 The plain forward, log-sum-exp and backward are generic in D; here they
 meet `jax.nn.dot_product_attention` and its VJP, and the Pallas module's
@@ -8,15 +10,19 @@ meet `jax.nn.dot_product_attention` and its VJP, and the Pallas module's
 ("i_jepa_huge")` at 192x640, padded to 1024 with segment ids as
 `scenedino_tpu/models/vit.py:_flash_mhsa` pads for the TPU kernel.
 
-The emulation walks as the D = 80 kernels do: the forward and dq own 16
-query rows a warp and walk 64-row key tiles zero-filled past N, with key
-columns at or past N set to -inf; the forward's online softmax in base 2
-(scale * log2(e) folded in), its row max moved on every tile, P rounded
-to bf16 before P V, the row sum of the unrounded P, the output rounded to
-bf16 and LSE = (m scale log2(e) + log2 l) ln 2; dq's dS rounded to bf16
-before dS K; dkv owns 16 key rows a warp and walks 32-row query tiles,
-a query row past N given lse = +inf (P = 0), P and dS rounded to bf16
-for P^T dO and dS^T Q.
+The forward's emulation walks as its kernel does: 16 query rows a warp,
+64-row key tiles zero-filled past N, key columns at or past N set to -inf;
+the online softmax in base 2 (scale * log2(e) folded in), its row max
+moved on every tile, P rounded to bf16 before P V, the row sum of the
+unrounded P, the output rounded to bf16 and
+LSE = (m scale log2(e) + log2 l) ln 2. The backward's walks as its two
+kernels do: a warpgroup owns 64 rows, zero-filled past N; dq walks 64-row
+key tiles and sets dS to 0 in the last tile's columns past N (only that
+tile is masked), a query row past N having lse = +inf; dkv walks query
+tiles of 32 or 64 rows (BWD80_DKV_QT), a query row past N having
+lse = +inf and di = 0, so its P and dS are 0 without a mask; P and dS are
+rounded to bf16 before their products, the sums over walked tiles kept
+in fp32 and the results rounded to bf16.
 
 Tolerances: the plain versions against JAX atol/rtol 1e-5 (fp32, sums in
 another order); the emulation's output within K1_TOL = 2e-2 and its
@@ -26,6 +32,7 @@ dS rounded to bf16); its log-sum-exp within 1e-5 (on the card 1e-3,
 where exp2 is approximate); the tiny ViT atol/rtol 1e-4.
 """
 import dataclasses
+import re
 
 import jax
 import jax.numpy as jnp
@@ -52,7 +59,9 @@ K1_TOL = 2e-2
 K1_BWD_REL = 2e-2
 TOL = dict(atol=1e-5, rtol=1e-5)
 LOG2E, LN2 = 1.4426950408889634, 0.6931471805599453
-KT, QT = 64, 32  # the walked key tile (forward, dq) and query tile (dkv)
+KT = 64  # the forward's walked key tile
+BT = 64  # the backward's own rows a warpgroup and dq's walked key tile
+QTS = (32, 64)  # the rows of dkv's walked query tile (BWD80_DKV_QT)
 
 
 @pytest.fixture(autouse=True)
@@ -77,12 +86,39 @@ def _bf16(x):
 
 def test_the_kernels_take_head_dims_64_and_80_from_their_own_sources():
     assert HEAD_DIMS == (64, 80)
-    assert "attention_d80" in build.all_names()
+    assert {"attention_d80", "attention_d80_bwd"} <= set(build.all_names())
     assert [p.name for p in build.sources("attention_d80")] == ["attention_d80.cu"]
-    src = (build.CSRC / "attention_d80.cu").read_text()
-    for name in ("attention_d80_fwd", "attention_d80_bwd_dq", "attention_d80_bwd_dkv"):
-        assert f'extern "C" int {name}(' in src
-    assert "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" in src and "cp.async" in src
+    assert [p.name for p in build.sources("attention_d80_bwd")] == ["attention_d80_bwd.cu", "hopper.cuh"]
+    fwd = (build.CSRC / "attention_d80.cu").read_text()
+    assert 'extern "C" int attention_d80_fwd(' in fwd
+    assert "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" in fwd and "cp.async" in fwd
+    assert "attention_d80_bwd_dq" not in fwd and "attention_d80_bwd_dkv" not in fwd
+    bwd = (build.CSRC / "attention_d80_bwd.cu").read_text()
+    for name in ("attention_d80_bwd_dq", "attention_d80_bwd_dkv"):
+        assert f'extern "C" int {name}(' in bwd
+    # wgmma on TMA tiles (the 64-column tile and the 16-column side tile), a
+    # producer and setmaxnreg; no warp-level product and no atomics
+    for used in ("wgmma_m64n64k16_rs", "wgmma_m64n16k16_rs", "wgmma_desc_b32", "tma_load_4d", "tma_store_4d",
+                 "CU_TENSOR_MAP_SWIZZLE_32B", "registers_take", "registers_release"):
+        assert used in bwd, used
+    code = re.sub(r"//[^\n]*", "", bwd)
+    assert "mma.sync" not in code and not re.search(r"\batomic\w*\(|\batom\.|\bred\.", code)
+    from scenedino_torch.kernels.attention import _KERNELS
+    assert {step: _KERNELS[80][step][:2] for step in _KERNELS[80]} == {
+        "fwd": ("attention_d80", "attention_d80_fwd"), "bwd_dq": ("attention_d80_bwd", "attention_d80_bwd_dq"),
+        "bwd_dkv": ("attention_d80_bwd", "attention_d80_bwd_dkv")}
+
+
+def test_hopper_header_offers_the_side_tile_primitives():
+    """The 16-column side tile's wgmma forms, descriptor and swizzle,
+    beside hopper.cuh's 64-column convention (which the D = 64 kernels,
+    K2-K4 and K6 use unchanged)."""
+    src = (build.CSRC / "hopper.cuh").read_text()
+    for name in ("wgmma_m64n16k16_rs", "wgmma_m64n32k16_rs", "wgmma_desc_b32_at", "WGMMA_B32_MN_STEP",
+                 "side_offset", "load_a_side", "store_side", "encode_head_box_map"):
+        assert name in src, name
+    assert "uint64_t(3) << 62" in src and "uint64_t(256 >> 4) << 32" in src  # B32, 8-row groups 256 bytes apart
+    assert "constexpr uint64_t WGMMA_B32_MN_STEP = 512 >> 4;" in src  # 16 rows of 32 bytes a k-step
 
 
 @pytest.mark.parametrize("n", [1, 65, 130])
@@ -136,7 +172,7 @@ def test_plain_versions_match_mha_reference_at_the_i_jepa_token_count():
 
 
 def _rows(x, start, count):
-    """Rows [start, start + count) of (N, D), zero-filled past N as cp.async fills them."""
+    """Rows [start, start + count) of (N, D), zero-filled past N as cp.async and TMA fill them."""
     out = torch.zeros(count, x.shape[1])
     part = x[start:start + count]
     out[:part.shape[0]] = part
@@ -163,46 +199,73 @@ def _emulate_forward(q, k, v, mask=True):
     return _bf16(o / l[:, None]), (m * sl2 + torch.log2(l)) * LN2
 
 
-def _emulate_backward(q, k, v, o, do, lse):
-    """One head: the dq walk then the dkv walk; (dq, dk, dv) bf16 values, di."""
+def _padded(x, rows, fill):
+    out = torch.full((rows,), fill)
+    out[:x.shape[0]] = x
+    return out
+
+
+def _emulate_backward(q, k, v, o, do, lse, qt=64, mask=True):
+    """One head, as attention_d80_bwd.cu walks: the dq kernel, then dkv
+    with query tiles of `qt` rows; (dq, dk, dv) bf16 values, di."""
     N = q.shape[0]
     scale = D ** -0.5
     sl2 = scale * LOG2E
+    inf = float("inf")
     di = (do * o).sum(-1)
-    dq = torch.zeros(N, D)
-    for t in range(-(-N // KT)):  # dq: the warp's rows against each 64-row key tile
-        kt, vt = _rows(k, t * KT, KT), _rows(v, t * KT, KT)
-        s = q @ kt.T
-        s[:, max(N - t * KT, 0):] = -float("inf")
-        p = torch.exp2(s * sl2 - (lse * LOG2E)[:, None])
-        dq += _bf16(p * (do @ vt.T - di[:, None]) * scale) @ kt
-    dk, dv = torch.zeros(N, D), torch.zeros(N, D)
-    for t in range(-(-N // QT)):  # dkv: the warp's key rows against each 32-row query tile
-        qt, dot = _rows(q, t * QT, QT), _rows(do, t * QT, QT)
-        lse_t = torch.full((QT,), float("inf"))
-        di_t = torch.zeros(QT)
-        n = min(QT, N - t * QT)
-        lse_t[:n], di_t[:n] = lse[t * QT:t * QT + n] * LOG2E, di[t * QT:t * QT + n]
-        pt = torch.exp2(k @ qt.T * sl2 - lse_t[None])
-        dst = pt * (v @ dot.T - di_t[None]) * scale
-        dv += _bf16(pt) @ dot
-        dk += _bf16(dst) @ qt
-    return [_bf16(x) for x in (dq, dk, dv)], di
+    rows = -(-N // BT) * BT  # the warpgroups' own rows, zero-filled past N
+    q_own, do_own, k_own, v_own = (_rows(x, 0, rows) for x in (q, do, k, v))
+    lse2_own, dis_own = _padded(lse * LOG2E, rows, inf), _padded(di * scale, rows, 0.0)
+    dq = torch.zeros(rows, D)
+    for t in range(-(-N // BT)):  # dq: each 64-row key tile
+        kt, vt = _rows(k, t * BT, BT), _rows(v, t * BT, BT)
+        p = torch.exp2(q_own @ kt.T * sl2 - lse2_own[:, None])
+        ds = p * (do_own @ vt.T * scale - dis_own[:, None])
+        if mask and N - t * BT < BT:  # the last tile: key columns past N
+            ds[:, N - t * BT:] = 0.0
+        dq += _bf16(ds) @ kt
+    dk, dv = torch.zeros(rows, D), torch.zeros(rows, D)
+    for t in range(-(-N // qt)):  # dkv: each query tile, lse +inf and di 0 past N
+        q_t, do_t = _rows(q, t * qt, qt), _rows(do, t * qt, qt)
+        lse2_t = _padded(lse[t * qt:(t + 1) * qt] * LOG2E, qt, inf)
+        dis_t = _padded(di[t * qt:(t + 1) * qt] * scale, qt, 0.0)
+        pt = torch.exp2(k_own @ q_t.T * sl2 - lse2_t[None])
+        dst = pt * (v_own @ do_t.T * scale - dis_t[None])
+        dv += _bf16(pt) @ do_t
+        dk += _bf16(dst) @ q_t
+    return [_bf16(x[:N]) for x in (dq, dk, dv)], di
+
+
+def _head(x, h):
+    return x[0, :, h].float()
 
 
 @pytest.mark.parametrize("n", [1, 31, 32, 33, 63, 64, 65, 130, 585])
 def test_tile_walk_emulation_matches_the_plain_versions(n):
-    q, k, v, do = (_t(a).to(torch.bfloat16) for a in _inputs(n, seed=30 + n, B=1))
+    """The forward's walk: output and log-sum-exp."""
+    q, k, v = (_t(a).to(torch.bfloat16) for a in _inputs(n, seed=30 + n, B=1, count=3))
     out, lse = attention_fwd(q, k, v, with_lse=True)  # CPU: the plain versions
+    for h in range(q.shape[2]):
+        o, l2 = _emulate_forward(_head(q, h), _head(k, h), _head(v, h))
+        assert (o - _head(out, h)).abs().max().item() <= K1_TOL
+        np.testing.assert_allclose(l2.numpy(), lse[0, h].numpy(), atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("qt", QTS)
+@pytest.mark.parametrize("n", [1, 15, 16, 17, 31, 32, 33, 63, 64, 65, 127, 128, 129, 585, 1921])
+def test_backward_tile_walk_emulation_matches_the_plain_backward(n, qt):
+    """The backward's walk, around the 16-row k-steps, the 32- and 64-row
+    tiles and the 128-row block, and at the I-JEPA-H/14 and D = 80 step
+    token counts: dq, dk, dv and di."""
+    q, k, v, do = (_t(a).to(torch.bfloat16) for a in _inputs(n, seed=30 + n, B=1))
+    out, lse = attention_fwd(q, k, v, with_lse=True)
     ref = attention_bwd_plain(q, k, v, out, do, lse)
     for h in range(q.shape[2]):
-        qh, kh, vh, doh = (x[0, :, h].float() for x in (q, k, v, do))
-        o, l2 = _emulate_forward(qh, kh, vh)
-        assert (o - out[0, :, h].float()).abs().max().item() <= K1_TOL
-        np.testing.assert_allclose(l2.numpy(), lse[0, h].numpy(), atol=1e-5, rtol=0)
-        got, _ = _emulate_backward(qh, kh, vh, out[0, :, h].float(), doh, lse[0, h])
+        got, di = _emulate_backward(*(_head(x, h) for x in (q, k, v, out, do)), lse[0, h], qt=qt)
+        np.testing.assert_allclose(di.numpy(), (_head(do, h) * _head(out, h)).sum(-1).numpy(), atol=1e-6, rtol=0)
         for name, g, r in zip(("dq", "dk", "dv"), got, ref):
-            r = r[0, :, h].float()
+            r = _head(r, h)
+            assert torch.isfinite(g).all(), name
             assert (g - r).abs().max().item() <= K1_BWD_REL * r.abs().max().item() + 1e-3, name
 
 
@@ -214,6 +277,28 @@ def test_tile_walk_emulation_needs_its_mask():
     plain = attention_plain(q, k, v)[0, :, 0].float()
     unmasked, _ = _emulate_forward(*(x[0, :, 0].float() for x in (q, k, v)), mask=False)
     assert (unmasked - plain).abs().max().item() > 10 * K1_TOL
+
+
+def test_backward_walk_needs_the_dq_mask():
+    """In dq a zero-filled key row's S = 0 gives P = exp(-lse), and dS
+    meets a zero row of K, so the mask changes nothing while P is finite.
+    Where every logit is far below 0, lse is too, exp(-lse) overflows and
+    inf times the zero row is NaN: the mask keeps dq finite."""
+    n = 65
+    rng = np.random.default_rng(4)
+    q = torch.full((1, n, 1, D), 12.0)
+    k = torch.full((1, n, 1, D), -12.0) + torch.from_numpy(rng.normal(size=(1, n, 1, D)).astype(np.float32))
+    v, do = (torch.from_numpy(rng.normal(size=(1, n, 1, D)).astype(np.float32)) for _ in range(2))
+    q, k, v, do = (x.to(torch.bfloat16) for x in (q, k, v, do))
+    out, lse = attention_fwd(q, k, v, with_lse=True)
+    assert lse.max().item() < -1000
+    args = [_head(x, 0) for x in (q, k, v, out, do)] + [lse[0, 0]]
+    masked, _ = _emulate_backward(*args)
+    unmasked, _ = _emulate_backward(*args, mask=False)
+    ref = attention_bwd_plain(q, k, v, out, do, lse)[0][0, :, 0].float()
+    assert torch.isfinite(masked[0]).all()
+    assert (masked[0] - ref).abs().max().item() <= K1_BWD_REL * ref.abs().max().item() + 1e-3
+    assert torch.isnan(unmasked[0]).all()
 
 
 def test_autograd_function_at_d80_is_the_plain_backward_on_the_cpu():
@@ -259,3 +344,28 @@ def test_i_jepa_vit_cut_to_size_matches_reference():
     for name in ref:
         np.testing.assert_allclose(out[name].detach().numpy(), np.asarray(ref[name]), atol=1e-4, rtol=1e-4,
                                    err_msg=name)
+
+
+def test_the_ptxas_gate_reads_each_kernels_setmaxnreg_split():
+    """chip_smoke.py's phase 1 gate and the bench tool read the backward
+    kernels' registers, spills and template arguments from nvcc's output;
+    the producer / consumer split mirrors hopper.cuh's Registers."""
+    from scenedino_torch.tools.bench_attention_bwd import backward_report, register_split
+
+    src = (build.CSRC / "hopper.cuh").read_text()
+    assert "static constexpr int PRODUCER = 24;" in src and "SHARE > 240 ? 240 : SHARE" in src
+    assert register_split(2, 1) == (24, 240) and register_split(1, 2) == (24, 232)
+    entry = "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_1{}' for 'sm_90a'"
+    log = "\n".join([
+        entry.format("27attention_d80_bwd_dq_kernelILi2ELi3ELi1EEEvNS_6DqMapsENS_6DqArgsE"),
+        "ptxas info    : Used 168 registers, used 16 barriers",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        entry.format("28attention_d80_bwd_dkv_kernelILi1ELi2ELi2ELi32EEEvNS_7DkvMapsENS_7DkvArgsE"),
+        "ptxas info    : Used 128 registers, used 16 barriers",
+        "    0 bytes stack frame, 8 bytes spill stores, 8 bytes spill loads",
+    ])
+    assert backward_report(log) == {
+        "dq": {"registers": 168, "stack": 0, "spill_stores": 0, "spill_loads": 0, "wgs": 2, "stages": 3, "blocks": 1,
+               "producer": 24, "consumer": 240},
+        "dkv": {"registers": 128, "stack": 0, "spill_stores": 8, "spill_loads": 8, "wgs": 1, "stages": 2, "blocks": 2,
+                "qt": 32, "producer": 24, "consumer": 232}}

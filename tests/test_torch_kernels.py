@@ -68,8 +68,8 @@ def cuda():
 
 def test_build_targets_hopper_and_keys_libraries_by_source():
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
-    assert build.all_names() == ["attention", "attention_bwd", "attention_d80", "encode_view", "point_render",
-                                 "row_gather"]
+    assert build.all_names() == ["attention", "attention_bwd", "attention_d80", "attention_d80_bwd", "encode_view",
+                                 "point_render", "row_gather"]
     for name in build.all_names():
         path = build.library_path(name)
         assert path.parent == build.BUILD_DIR and path.name.startswith(f"lib{name}-")
@@ -646,18 +646,19 @@ def test_stage1_step_on_a_kitti_360_batch_matches_the_cpu(cuda, tmp_path):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,batch", [(1, 2), (31, 2), (32, 2), (33, 2), (63, 2), (64, 2), (65, 2), (200, 2),
-                                     (585, 1), (585, 4)])
+@pytest.mark.parametrize("n,batch", [(1, 2), (31, 2), (32, 2), (33, 2), (63, 2), (64, 2), (65, 2), (127, 2),
+                                     (128, 2), (129, 2), (200, 2), (585, 1), (585, 4), (1921, 2)])
 def test_attention_d80_kernels_match_plain(cuda, n, batch):
-    """K1 at head dim 80 (csrc/attention_d80.cu): the forward with and
-    without the log-sum-exp, dq and dkv against the plain versions, around
-    the 32-row query tile of dkv, the 64-row key tile and the 64-row block,
-    and at the I-JEPA-H/14 shapes; two launches bitwise equal."""
+    """K1 at head dim 80 (csrc/attention_d80.cu's forward, csrc/
+    attention_d80_bwd.cu's dq and dkv): the forward with and without the
+    log-sum-exp, dq and dkv against the plain versions, around the 32- and
+    64-row tiles and the 128-row block, at the I-JEPA-H/14 shapes and at
+    the D = 80 training step's token count; two launches bitwise equal."""
     from scenedino_torch.kernels.attention import attention_bwd_dkv, attention_bwd_dq
 
     g = torch.Generator(device=cuda).manual_seed(200 + n)
-    q, k, v, do = (torch.randn(batch, n, 16 if n == 585 else 3, 80, generator=g, device=cuda).to(torch.bfloat16)
-                   for _ in range(4))
+    heads = {585: 16, 1921: 12}.get(n, 3)
+    q, k, v, do = (torch.randn(batch, n, heads, 80, generator=g, device=cuda).to(torch.bfloat16) for _ in range(4))
     before = launches()
     out, lse = attention_fwd(q, k, v, with_lse=True)
     plain_out = attention_fwd(q, k, v)[0]
