@@ -8,8 +8,9 @@ Phases, one line each:
   0 device   the card's name and power limit; TF32 off for fp32 compares
   1 build    nvcc builds every kernel of the paths from csrc/ (sm_90a);
              the registers and spills (none allowed) of the K1 forward and
-             backward kernels, of the point kernels' ten instantiations and
-             of K6's eight
+             backward kernels (at D = 80 with setmaxnreg's split: the
+             forward's two instantiations, dq, dkv), of the point kernels'
+             ten instantiations and of K6's eight
   2 K1       the attention forward kernel vs its plain versions (output
              and log-sum-exp) at the three shapes its paths give it:
              ViT-B/8 @192x640 serving (1, 1921, 12, 64), the training
@@ -188,13 +189,16 @@ Phases, one line each:
              16, 80) and (4, 585, 16, 80), I-JEPA-H/14's forward at 192x640
              and four of it, and (4, 1921, 12, 80) and (2, 1921, 12, 80),
              the teacher and the student of 11's D = 80 training step; two launches bitwise equal; kernel,
-             plain, SDPA (forward and backward, the backward also as its
-             kernels' device time) and bound times, dq + dkv's TFLOP/s
-             over their 7 products and share of the SDPA backward. 11b: the
+             plain, SDPA (forward and backward, both also as their
+             kernels' device time beside the kernels') and bound times,
+             dq + dkv's TFLOP/s over their 7 products and share of the
+             SDPA backward; the kernels line's D = 80 entries are timed at
+             the student's shape. 11b: the
              I-JEPA-H/14 backbone (32 blocks, width 1280, 16 heads of 80, no
              class token) from seeded weights in the reference's layout
              through utils.convert.convert_ssl_vit into make_vit
-             ("i_jepa_huge") in bf16: the 192x640 forward, 32 launches of
+             ("i_jepa_huge") in bf16: the 192x640 forward (CUDA events,
+             and one forward profiled: device busy, idle share), 32 launches of
              the D = 80 forward; its first 2 blocks at 196x518 on the GPU
              against the CPU; then 2 steps of the flagship stage-1 step
              (trainer.make_train_step, bf16, 192x640, batch 2) with
@@ -2842,10 +2846,16 @@ def phase_kitti(seed, scratch):
     return {k: s1_counts[k] + s2_counts[k] + ev_counts[k] for k in s1_counts}, new_shapes, root
 
 
+def ratio_text(part, whole):
+    """The text " take x of it" for two device times; nothing where one is missing."""
+    return "" if part is None or whole is None else f" take {part / whole:.2f} of it"
+
+
 def k1_d80_shape(gen, B, N, Hh):
     """Phase 11a at one shape (B, N, Hh, 80) bf16: the forward without and
     with the log-sum-exp, dq and dkv against the plain versions, two
-    launches bitwise equal; kernel, plain, SDPA and bound times."""
+    launches bitwise equal; kernel, plain, SDPA and bound times, and the
+    kernels' and SDPA's device times (the profiler)."""
     from scenedino_torch.kernels.attention import (
         attention_bwd_dkv,
         attention_bwd_dq,
@@ -2854,7 +2864,7 @@ def k1_d80_shape(gen, B, N, Hh):
         attention_lse_plain,
         attention_plain,
     )
-    from scenedino_torch.utils.timing import device_ms, time_ms
+    from scenedino_torch.utils.timing import device_ms, ms_text, time_ms
 
     D = 80
     shape = (B, N, Hh, D)
@@ -2888,6 +2898,9 @@ def k1_d80_shape(gen, B, N, Hh):
     plain_bwd_ms = time_ms(lambda: attention_bwd_plain(q, k, v, out_l, do, lse), reps=5)
     qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True) for t in (q, k, v))
     lib_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt), inner=10)
+    # the forwards' kernels alone (torch.profiler): at one image SDPA's CUDA-event time is its host's
+    dev_ms = device_ms(lambda: attention_fwd(q, k, v))
+    lib_dev_ms = device_ms(lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt))
     sdpa = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt)
     dot = do.transpose(1, 2).contiguous()
     lib_bwd_ms = time_ms(lambda: torch.autograd.grad(sdpa, (qt, kt, vt), dot, retain_graph=True), inner=10)
@@ -2908,24 +2921,25 @@ def k1_d80_shape(gen, B, N, Hh):
           f"{ms:.4f} ms, with the lse {ms_lse:.4f} ms ({2 * unit / ms_lse / 1e9:.1f} TFLOP/s), dq {ms_dq:.4f} ms, "
           f"dkv {ms_dkv:.4f} ms ({7 * unit / (ms_dq + ms_dkv) / 1e9:.1f} TFLOP/s over their 7 products); plain "
           f"forward {plain_ms:.4f} ms, backward {plain_bwd_ms:.4f} ms; sdpa forward {lib_ms:.4f} ms (the kernel "
-          f"takes {ms / lib_ms:.2f} of it), backward {lib_bwd_ms:.4f} ms (dq + dkv take "
-          f"{(ms_dq + ms_dkv) / lib_bwd_ms:.2f} of it), its kernels' device time {lib_bwd_dev_ms:.4f} ms (dq + dkv's "
-          f"{bwd_dev_ms:.4f} take {bwd_dev_ms / lib_bwd_dev_ms:.2f} of it); bound forward {b_fwd:.4f} ms ({by_fwd}), "
+          f"takes {ms / lib_ms:.2f} of it), its kernels' device time {ms_text(lib_dev_ms)} (the forward's "
+          f"{ms_text(dev_ms)}{ratio_text(dev_ms, lib_dev_ms)}), backward {lib_bwd_ms:.4f} ms (dq + dkv take "
+          f"{(ms_dq + ms_dkv) / lib_bwd_ms:.2f} of it), its kernels' device time {ms_text(lib_bwd_dev_ms)} (dq + dkv's "
+          f"{ms_text(bwd_dev_ms)}{ratio_text(bwd_dev_ms, lib_bwd_dev_ms)}); bound forward {b_fwd:.4f} ms ({by_fwd}), "
           f"with the lse {b_lse:.4f} ms ({by_lse}), dq {b_dq:.4f} ms ({by_dq}), dkv {b_dkv:.4f} ms ({by_dkv}), the "
           f"whole backward at 10 N^2 D B H FLOP {b_bwd:.4f} ms ({by_bwd})", flush=True)
     return {"shape": list(shape), "max_abs_err": err, "lse_err": lse_err, "bwd_errs": errs, "ms": ms,
             "ms_lse": ms_lse, "ms_dq": ms_dq, "ms_dkv": ms_dkv, "plain_ms": plain_ms, "plain_bwd_ms": plain_bwd_ms,
-            "library_ms": lib_ms, "library_bwd_ms": lib_bwd_ms, "library_bwd_device_ms": lib_bwd_dev_ms,
-            "bwd_device_ms": bwd_dev_ms, "bound_ms": b_fwd, "bound_by": by_fwd,
+            "library_ms": lib_ms, "device_ms": dev_ms, "library_device_ms": lib_dev_ms, "library_bwd_ms": lib_bwd_ms,
+            "library_bwd_device_ms": lib_bwd_dev_ms, "bwd_device_ms": bwd_dev_ms, "bound_ms": b_fwd, "bound_by": by_fwd,
             "bound_dq_ms": b_dq, "bound_dq_by": by_dq, "bound_dkv_ms": b_dkv, "bound_dkv_by": by_dkv}
 
 
 def phase_d80_kernels(gen):
     """Phase 11a: the three D = 80 kernels at `D80_SHAPES`; their entries
-    (the forward timed at I-JEPA-H/14's serving shape, the backward at the
-    D = 80 training step's)."""
+    timed at the D = 80 training step's student (2, 1921, 12, 80), where the
+    card's time is the kernels' and not the host's."""
     shapes = [k1_d80_shape(gen, *shape) for shape in D80_SHAPES]
-    fwd, bwd = shapes[0], shapes[-1]
+    fwd = bwd = shapes[-1]
     route = {"route": "cuda", "shapes": shapes}
     bwd_source = {"source": "scenedino_torch/csrc/attention_d80_bwd.cu", **route}
     return [
@@ -2980,7 +2994,7 @@ def phase_ijepa(seed):
     from scenedino_torch.models.encoder import normalize_input
     from scenedino_torch.models.vit import VIT_PRESETS, make_vit
     from scenedino_torch.utils.convert import convert_ssl_vit
-    from scenedino_torch.utils.timing import time_ms
+    from scenedino_torch.utils.timing import profile_device, time_ms
 
     cfg = VIT_PRESETS["i_jepa_huge"]
     gen = torch.Generator(device="cuda").manual_seed(seed + 111)
@@ -2997,6 +3011,7 @@ def phase_ijepa(seed):
         torch.cuda.synchronize()
         counts = kernels.launches()
         ms = time_ms(lambda: model(x), reps=5)
+        profiled = profile_device(lambda: model(x))  # the host's share of that time
     feats = out["features_normalized"]
     n_tokens = (H // cfg.patch_size) * (W // cfg.patch_size)
     expect = {**{name: 0 for name in kernels.WRAPPERS}, "attention_d80": cfg.depth}
@@ -3004,7 +3019,7 @@ def phase_ijepa(seed):
           f"{cfg.width // cfg.num_heads}, patch {cfg.patch_size}, no class token; {sum(v.numel() for v in state.values())} "
           f"parameters) from seeded weights in the reference's layout through convert_ssl_vit in {load_s:.1f} s; the "
           f"192x640 forward in bf16: {n_tokens} tokens, features {tuple(feats.shape)}, {ms:.2f} ms a forward "
-          f"(CUDA events); launches {json.dumps(counts)}", flush=True)
+          f"(CUDA events); one forward profiled: {profiled}; launches {json.dumps(counts)}", flush=True)
     if tuple(feats.shape) != (1, n_tokens, cfg.width) or not torch.isfinite(feats).all():
         fail(f"the I-JEPA-H/14 forward gave {tuple(feats.shape)} or non-finite features")
     if counts != expect:
@@ -3193,14 +3208,16 @@ def main():
     if sorted(k1) != ["dkv", "dq", "fwd"] or any(r.get("spill_stores", 1) or r.get("spill_loads", 1)
                                                  for r in k1.values()):
         fail(f"ptxas spilled in a K1 kernel, or its report is missing: {k1}")
-    d80 = {("fwd" if "fwd" in entry else entry): r
-           for entry, r in build.ptxas_report(build.build_log("attention_d80")).items()}
+    d80 = bench_attention_bwd.forward_report(build.build_log("attention_d80"))
     d80.update(bench_attention_bwd.backward_report(build.build_log("attention_d80_bwd")))
-    print(f"phase 1 K1 kernels at head dim 80 (csrc/attention_d80.cu: the forward, 128 threads a block; "
-          f"csrc/attention_d80_bwd.cu: dq and dkv, registers at launch, then setmaxnreg's split of the producer "
-          f"warpgroup and each consumer warpgroup), registers and spills in bytes: {json.dumps(d80)}", flush=True)
-    if sorted(d80) != ["dkv", "dq", "fwd"] or any(r.get("spill_stores", 1) or r.get("spill_loads", 1)
-                                                  for r in d80.values()):
+    print(f"phase 1 K1 kernels at head dim 80 (csrc/attention_d80.cu: the forward's two instantiations, by "
+          f"warpgroups, ring slots and blocks per SM; csrc/attention_d80_bwd.cu: dq and dkv), registers at launch, "
+          f"then setmaxnreg's split of the producer warpgroup and each consumer warpgroup, and spills in bytes: "
+          f"{json.dumps(d80)}", flush=True)
+    forwards = [name for name in d80 if name.startswith("fwd")]
+    if (len(forwards) != 2 or sorted(set(d80) - set(forwards)) != ["dkv", "dq"]
+            or any("consumer" not in d80[name] for name in forwards)
+            or any(r.get("spill_stores", 1) or r.get("spill_loads", 1) for r in d80.values())):
         fail(f"ptxas spilled in a D = 80 K1 kernel, or its report is missing: {d80}")
     # the point kernels (K2, K3, K4) in each of their hidden and output widths: mode, DC, EC, ET
     pk = {",".join(re.findall(r"Li(\d+)E", name.split("point_kernel")[-1])): r

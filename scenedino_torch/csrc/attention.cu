@@ -115,90 +115,8 @@ __device__ __forceinline__ void fwd_produce(FwdSmem<WGS, STAGES>& sm, const CUte
   }
 }
 
-// One tile of the online softmax on the registers of S: the rows' running
-// max m (scaled, base 2) and per-lane partial sums l move on, `alpha` =
-// exp2(m_old - m_new) is what O must be scaled by (`rescale`), and S is
-// replaced by P = exp2(S scale log2(e) - m_new) in place (`pack_p` makes
-// it the A operand of O += P V). Maxima and sums are taken as trees, not
-// chains. MASK: columns at or past `nvalid` (key rows past N) are -inf.
-// The rescale is lazy: m moves only when a row's max of this tile exceeds
-// it by more than 8 (P then stays below 2^8) somewhere in the warp;
-// otherwise alpha is 1 and O is left as it is (exact: O and l share the
-// same m). Returns whether O must be rescaled (the same in every lane of
-// the warp).
-template <bool MASK>
-__device__ __forceinline__ bool softmax_scores(float (&s)[32], float (&m)[2], float (&l)[2], float (&alpha)[2],
-                                               float scale_log2, int nvalid, int col0) {
-  if (MASK) {
-#pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      if (8 * (i / 4) + col0 + i % 2 >= nvalid) s[i] = -INFINITY;
-    }
-  }
-  float mx[2];
-#pragma unroll
-  for (int hi = 0; hi < 2; ++hi) {
-    float t[8];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) t[j] = fmaxf(s[4 * j + 2 * hi], s[4 * j + 2 * hi + 1]);
-#pragma unroll
-    for (int w = 4; w >= 1; w /= 2) {
-#pragma unroll
-      for (int j = 0; j < w; ++j) t[j] = fmaxf(t[j], t[j + w]);
-    }
-    mx[hi] = fmaxf(t[0], __shfl_xor_sync(0xffffffffu, t[0], 1));
-    mx[hi] = fmaxf(mx[hi], __shfl_xor_sync(0xffffffffu, mx[hi], 2));
-    mx[hi] *= scale_log2;  // finite: every walked tile has a column below N
-  }
-  const bool move = __any_sync(0xffffffffu, mx[0] > m[0] + 8.f || mx[1] > m[1] + 8.f);
-#pragma unroll
-  for (int hi = 0; hi < 2; ++hi) {
-    alpha[hi] = 1.f;
-    if (move) {
-      const float m_new = fmaxf(m[hi], mx[hi]);
-      alpha[hi] = fast_exp2(m[hi] - m_new);  // 0 on the first tile (m = -inf)
-      m[hi] = m_new;
-    }
-    const float neg_m = -m[hi];
-    float t[8];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int i = 4 * j + 2 * hi;
-      s[i] = fast_exp2(fmaf(s[i], scale_log2, neg_m));
-      s[i + 1] = fast_exp2(fmaf(s[i + 1], scale_log2, neg_m));
-      t[j] = s[i] + s[i + 1];
-    }
-#pragma unroll
-    for (int w = 4; w >= 1; w /= 2) {
-#pragma unroll
-      for (int j = 0; j < w; ++j) t[j] += t[j + w];
-    }
-    l[hi] = fmaf(l[hi], alpha[hi], t[0]);
-  }
-  return move;
-}
-
-// P (the exponents left in S's registers) to bf16 as the A operand of O += P V
-__device__ __forceinline__ void pack_p(const float (&s)[32], uint32_t (&p)[16]) {
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-#pragma unroll
-    for (int hi = 0; hi < 2; ++hi) p[a_index(j, hi)] = pack_bf16(s[4 * j + 2 * hi], s[4 * j + 2 * hi + 1]);
-  }
-}
-
-__device__ __forceinline__ void rescale(float (&o)[32], const float (&alpha)[2]) {
-#pragma unroll
-  for (int i = 0; i < 32; ++i) o[i] *= alpha[(i / 2) % 2];
-}
-
-// softmax_scores of walked tile t, masked where it is the ragged last one
-__device__ __forceinline__ bool softmax_tile(int t, float (&s)[32], float (&m)[2], float (&l)[2],
-                                             float (&alpha)[2], float scale_log2, int N, int col0) {
-  const int nvalid = N - t * BT;  // columns of this tile below N
-  if (nvalid >= BT) return softmax_scores<false>(s, m, l, alpha, scale_log2, nvalid, col0);
-  return softmax_scores<true>(s, m, l, alpha, scale_log2, nvalid, col0);
-}
+// The online softmax (softmax_tile, pack_p, rescale) is hopper.cuh's, shared
+// with the D = 80 forward (attention_d80.cu).
 
 // S = Q K^T for the walked key tile at desc_k (64 x 64, fp32 registers)
 __device__ __forceinline__ void scores(float (&s)[32], const uint32_t (&a_q)[16], uint64_t desc_k) {

@@ -99,50 +99,15 @@ namespace {
 
 using namespace hopper;
 
-constexpr int D = 80;       // head dim
-constexpr int MAIN = TILE;  // columns of the main tile; the side tile has the other SIDE
-constexpr int BT = 64;      // rows of a warpgroup's own tile and of dq's walked tile
+constexpr int D = ROW80;  // head dim
+constexpr int BT = TILE;  // rows of a warpgroup's own tile and of dq's walked tile
 constexpr float LOG2E = 1.4426950408889634f;
 
-static_assert(MAIN + SIDE == D, "a row of 80 is a main tile of 64 columns and a side tile of 16");
 static_assert(BWD80_DKV_QT == 32 || BWD80_DKV_QT == 64, "dkv walks query tiles of 32 or 64 rows");
 
-// ROWS rows of one head: columns 0-63 as a main tile, 64-79 as a side tile
-template <int ROWS>
-struct Rows80 {
-  alignas(1024) unsigned char main[ROWS * MAIN * 2];
-  alignas(256) unsigned char side[ROWS * SIDE * 2];
-  static constexpr int BYTES = ROWS * D * 2;
-};
-
-// the two tensor maps of a tensor: the main box and the side box
-struct MapPair {
-  CUtensorMap main, side;
-};
-
-template <int ROWS>
-__device__ __forceinline__ void load_rows(Rows80<ROWS>& dst, const MapPair& map, uint64_t* bar, int row0, int h,
-                                          int b) {
-  tma_load_4d(dst.main, &map.main, bar, 0, h, row0, b);
-  tma_load_4d(dst.side, &map.side, bar, MAIN, h, row0, b);
-}
-
-__device__ __forceinline__ void store_rows(const MapPair& map, const Rows80<BT>& src, int row0, int h, int b) {
-  tma_store_4d(&map.main, src.main, 0, h, row0, b);
-  tma_store_4d(&map.side, src.side, MAIN, h, row0, b);
-}
-
-// a 64-row own tile as A-operand registers: four k-steps from the main
-// tile, the fifth from the side tile
-struct OwnRows {
-  uint32_t main[16];
-  uint32_t side[4];
-};
-
-__device__ __forceinline__ void load_own(OwnRows& a, const Rows80<BT>& rows, int warp, int lane) {
-  load_a_operand(a.main, rows.main, warp, lane);
-  load_a_side(a.side, rows.side, warp, lane);
-}
+// Rows80, MapPair, load_rows / store_rows, OwnRows / load_own, Acc80,
+// product_rows80, store_acc80 and encode_pair are hopper.cuh's, shared with
+// the forward (attention_d80.cu).
 
 // one k-step of acc (64 x 64 or 64 x 32: NA = 32 or 16) += A times B^T, B K-major
 template <int NA>
@@ -162,7 +127,7 @@ template <int NA>
 __device__ __forceinline__ void products_nt(float (&acc0)[NA], const OwnRows& a0, uint64_t main0, uint64_t side0,
                                             float (&acc1)[NA], const OwnRows& a1, uint64_t main1, uint64_t side1) {
 #pragma unroll
-  for (int kk = 0; kk < MAIN / 16; ++kk) {
+  for (int kk = 0; kk < TILE / 16; ++kk) {
     mma_nt(acc0, &a0.main[4 * kk], main0 + kk * WGMMA_K_STEP, kk > 0);
     mma_nt(acc1, &a1.main[4 * kk], main1 + kk * WGMMA_K_STEP, kk > 0);
   }
@@ -170,38 +135,8 @@ __device__ __forceinline__ void products_nt(float (&acc0)[NA], const OwnRows& a0
   mma_nt(acc1, a1.side, side1, 1);
 }
 
-// a 64 x 80 fp32 accumulator: columns 0-63 and 64-79
-struct Acc80 {
-  float main[32];
-  float side[8];
-};
-
-__device__ __forceinline__ void zero(Acc80& d) {
-#pragma unroll
-  for (int i = 0; i < 32; ++i) d.main[i] = 0.f;
-#pragma unroll
-  for (int i = 0; i < 8; ++i) d.side[i] = 0.f;
-  fence_registers(d.main);
-  fence_registers(d.side);
-}
-
-__device__ __forceinline__ void fence(Acc80& d) {
-  fence_registers(d.main);
-  fence_registers(d.side);
-}
-
-// acc += A (64 x 16 KSTEPS bf16 in registers) times the walked tile (main
-// and side descriptors) read down its rows
-template <int KSTEPS>
-__device__ __forceinline__ void product_rows(Acc80& acc, const uint32_t* a, uint64_t desc_main, uint64_t desc_side) {
-#pragma unroll
-  for (int kk = 0; kk < KSTEPS; ++kk) {
-    wgmma_m64n64k16_rs<1>(acc.main, &a[4 * kk], desc_main + kk * WGMMA_MN_STEP, 1);
-    wgmma_m64n16k16_rs<1>(acc.side, &a[4 * kk], desc_side + kk * WGMMA_B32_MN_STEP, 1);
-  }
-}
-
-// the same for two independent products, k-steps alternating
+// acc0 += a0 times walked tile 0 and acc1 += a1 times walked tile 1, both
+// read down their rows (product_rows80 twice), k-steps alternating
 template <int KSTEPS>
 __device__ __forceinline__ void products_rows(Acc80& acc0, const uint32_t* a0, uint64_t main0, uint64_t side0,
                                               Acc80& acc1, const uint32_t* a1, uint64_t main1, uint64_t side1) {
@@ -212,12 +147,6 @@ __device__ __forceinline__ void products_rows(Acc80& acc0, const uint32_t* a0, u
     wgmma_m64n16k16_rs<1>(acc0.side, &a0[4 * kk], side0 + kk * WGMMA_B32_MN_STEP, 1);
     wgmma_m64n16k16_rs<1>(acc1.side, &a1[4 * kk], side1 + kk * WGMMA_B32_MN_STEP, 1);
   }
-}
-
-// the accumulator -> bf16 in an own tile (the layout the TMA store reads)
-__device__ __forceinline__ void store_acc(Rows80<BT>& rows, const Acc80& d, int warp, int lane) {
-  store_accumulator(rows.main, d.main, warp, lane);
-  store_side(rows.side, d.side, warp, lane);
 }
 
 // ---------------------------------------------------------------------- dq
@@ -345,7 +274,7 @@ __device__ __forceinline__ void dq_consume(DqSmem<WGS, STAGES>& sm, const MapPai
   Acc80 dq;
   float s[32], dp[32];
   uint32_t ds[16];
-  zero(dq);
+  zero_registers(dq);
 
   mbar_wait(&sm.own, 0);
   OwnRows a_q, a_do;  // the own rows stay in registers for the whole walk
@@ -375,16 +304,16 @@ __device__ __forceinline__ void dq_consume(DqSmem<WGS, STAGES>& sm, const MapPai
       dq_elementwise<true>(s, dp, ds, lse2_r, dis_r, scale, scale_log2, nvalid, col0);
     }
 
-    fence(dq);
+    fence_registers(dq);
     wgmma_fence();
-    product_rows<BT / 16>(dq, ds, k_main, k_side);  // dQ += dS K, left in flight under the next tile's first products
+    product_rows80<BT / 16>(dq, ds, k_main, k_side);  // dQ += dS K, left in flight under the next tile's first products
     wgmma_commit();
   }
   wgmma_wait<0>();
-  fence(dq);
+  fence_registers(dq);
 
   named_barrier_sync(1 + wg, 128);  // every warp has read its rows of the Q tile
-  store_acc(sm.q[wg], dq, warp, lane);
+  store_acc80(sm.q[wg], dq, warp, lane);
   fence_proxy_async();
   named_barrier_sync(1 + wg, 128);
   if (tid == 0) {
@@ -539,8 +468,8 @@ __device__ __forceinline__ void dkv_consume(DkvSmem<WGS, STAGES, QT>& sm, const 
   Acc80 dk, dv;
   float st[NA], dpt[NA];
   uint32_t p[NA / 2], ds[NA / 2];
-  zero(dk);
-  zero(dv);
+  zero_registers(dk);
+  zero_registers(dv);
 
   mbar_wait(&sm.own, 0);
   OwnRows a_k, a_v;  // the own rows stay in registers for the whole walk
@@ -564,20 +493,20 @@ __device__ __forceinline__ void dkv_consume(DkvSmem<WGS, STAGES, QT>& sm, const 
 
     dkv_elementwise(st, dpt, p, ds, sm.lse2[slot], sm.dis[slot], scale, scale_log2, col0);
 
-    fence(dv);
-    fence(dk);
+    fence_registers(dv);
+    fence_registers(dk);
     wgmma_fence();
     products_rows<QT / 16>(dv, p, do_main, do_side, dk, ds, q_main, q_side);  // dV += P^T dO, dK += dS^T Q
     wgmma_commit();
     wgmma_wait<0>();
     if (lane == 0) mbar_arrive(&sm.empty[slot]);
   }
-  fence(dv);
-  fence(dk);
+  fence_registers(dv);
+  fence_registers(dk);
 
   named_barrier_sync(1 + wg, 128);  // every warp has read its rows of the K and V tiles
-  store_acc(sm.k[wg], dk, warp, lane);
-  store_acc(sm.v[wg], dv, warp, lane);
+  store_acc80(sm.k[wg], dk, warp, lane);
+  store_acc80(sm.v[wg], dv, warp, lane);
   fence_proxy_async();
   named_barrier_sync(1 + wg, 128);
   if (tid == 0) {
@@ -621,16 +550,6 @@ attention_d80_bwd_dkv_kernel(const __grid_constant__ DkvMaps maps, const DkvArgs
 
 // ------------------------------------------------------------------ launch
 
-bool bad_shape(int B, int N, int H, int head_dim) {
-  return head_dim != D || B <= 0 || N <= 0 || H <= 0 || B > 65535 || H > 65535;
-}
-
-// the main and side maps of a (B, N, H, 80) tensor at `base`, boxes of `rows` rows
-int encode_pair(MapPair* pair, const void* base, int B, int N, int H, int rows) {
-  const int bad = encode_head_box_map(&pair->main, base, B, N, H, D, MAIN, rows, CU_TENSOR_MAP_SWIZZLE_128B);
-  return bad ? bad : encode_head_box_map(&pair->side, base, B, N, H, D, SIDE, rows, CU_TENSOR_MAP_SWIZZLE_32B);
-}
-
 }  // namespace
 
 // q, k, v, o, dout, dq: (B, N, H, 80) bf16; lse, di: (B, H, N) fp32; all
@@ -639,18 +558,18 @@ int encode_pair(MapPair* pair, const void* base, int B, int N, int H, int rows) 
 extern "C" int attention_d80_bwd_dq(const void* q, const void* k, const void* v, const void* o, const void* dout,
                                     const void* lse, void* dq, void* di, int B, int N, int H, int head_dim,
                                     float scale, void* stream) {
-  if (bad_shape(B, N, H, head_dim)) return (int)cudaErrorInvalidValue;
+  if (hopper::bad_shape80(B, N, H, head_dim)) return (int)cudaErrorInvalidValue;
   const auto kernel = attention_d80_bwd_dq_kernel<BWD80_DQ_WGS, BWD80_DQ_STAGES, BWD80_DQ_BLOCKS>;
   const int smem = (int)sizeof(DqSmem<BWD80_DQ_WGS, BWD80_DQ_STAGES>) + 1024;  // room to align the tiles
   static bool allowed[hopper::MAX_DEVICES] = {};
   const cudaError_t err = hopper::allow_smem(kernel, smem, allowed);
   if (err != cudaSuccess) return (int)err;
   DqMaps maps;
-  int bad = encode_pair(&maps.q, q, B, N, H, BT);
-  if (!bad) bad = encode_pair(&maps.k, k, B, N, H, BT);
-  if (!bad) bad = encode_pair(&maps.v, v, B, N, H, BT);
-  if (!bad) bad = encode_pair(&maps.dout, dout, B, N, H, BT);
-  if (!bad) bad = encode_pair(&maps.dq, dq, B, N, H, BT);
+  int bad = hopper::encode_pair(&maps.q, q, B, N, H, BT);
+  if (!bad) bad = hopper::encode_pair(&maps.k, k, B, N, H, BT);
+  if (!bad) bad = hopper::encode_pair(&maps.v, v, B, N, H, BT);
+  if (!bad) bad = hopper::encode_pair(&maps.dout, dout, B, N, H, BT);
+  if (!bad) bad = hopper::encode_pair(&maps.dq, dq, B, N, H, BT);
   if (bad) return bad;
   const dim3 grid((N + BWD80_DQ_WGS * BT - 1) / (BWD80_DQ_WGS * BT), H, B);
   kernel<<<grid, (BWD80_DQ_WGS + 1) * 128, smem, (cudaStream_t)stream>>>(
@@ -664,7 +583,7 @@ extern "C" int attention_d80_bwd_dq(const void* q, const void* k, const void* v,
 extern "C" int attention_d80_bwd_dkv(const void* q, const void* k, const void* v, const void* dout, const void* lse,
                                      const void* di, void* dk, void* dv, int B, int N, int H, int head_dim,
                                      float scale, void* stream) {
-  if (bad_shape(B, N, H, head_dim)) return (int)cudaErrorInvalidValue;
+  if (hopper::bad_shape80(B, N, H, head_dim)) return (int)cudaErrorInvalidValue;
   constexpr int QT = BWD80_DKV_QT;
   const auto kernel = attention_d80_bwd_dkv_kernel<BWD80_DKV_WGS, BWD80_DKV_STAGES, BWD80_DKV_BLOCKS, QT>;
   const int smem = (int)sizeof(DkvSmem<BWD80_DKV_WGS, BWD80_DKV_STAGES, QT>) + 1024;
@@ -672,12 +591,12 @@ extern "C" int attention_d80_bwd_dkv(const void* q, const void* k, const void* v
   const cudaError_t err = hopper::allow_smem(kernel, smem, allowed);
   if (err != cudaSuccess) return (int)err;
   DkvMaps maps;
-  int bad = encode_pair(&maps.q, q, B, N, H, QT);
-  if (!bad) bad = encode_pair(&maps.dout, dout, B, N, H, QT);
-  if (!bad) bad = encode_pair(&maps.k, k, B, N, H, BT);
-  if (!bad) bad = encode_pair(&maps.v, v, B, N, H, BT);
-  if (!bad) bad = encode_pair(&maps.dk, dk, B, N, H, BT);
-  if (!bad) bad = encode_pair(&maps.dv, dv, B, N, H, BT);
+  int bad = hopper::encode_pair(&maps.q, q, B, N, H, QT);
+  if (!bad) bad = hopper::encode_pair(&maps.dout, dout, B, N, H, QT);
+  if (!bad) bad = hopper::encode_pair(&maps.k, k, B, N, H, BT);
+  if (!bad) bad = hopper::encode_pair(&maps.v, v, B, N, H, BT);
+  if (!bad) bad = hopper::encode_pair(&maps.dk, dk, B, N, H, BT);
+  if (!bad) bad = hopper::encode_pair(&maps.dv, dv, B, N, H, BT);
   if (bad) return bad;
   const dim3 grid((N + BWD80_DKV_WGS * BT - 1) / (BWD80_DKV_WGS * BT), H, B);
   kernel<<<grid, (BWD80_DKV_WGS + 1) * 128, smem, (cudaStream_t)stream>>>(

@@ -19,6 +19,7 @@
 #include <cuda.h>  // CUtensorMap and its enums; the encoder itself is fetched at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace hopper {
@@ -520,6 +521,204 @@ __device__ __forceinline__ void store_side(unsigned char* side, const float (&d)
   }
 }
 
+// ------------------------------------------------------------ rows of 80
+//
+// What both D = 80 attention files (attention_d80.cu, attention_d80_bwd.cu)
+// build on. A row of 80 bf16 is a tile of its first 64 columns and a side
+// tile of the other 16, so each own or walked tile is two TMA boxes (the
+// main and side maps of `encode_pair`). A product that reduces over the 80
+// columns takes four k-steps on the main tile and a fifth on the side tile
+// (`product_nt80`); one whose N is the 80 columns is m64n64k16 on the main
+// tile plus m64n16k16 on the side tile, both with B read down its rows
+// (`product_rows80`), into a 64 x 80 fp32 accumulator of 32 + 8 registers a
+// thread (`Acc80`). No product is padded.
+constexpr int ROW80 = TILE + SIDE;
+
+// ROWS rows of one head: columns 0-63 as a main tile, 64-79 as a side tile
+template <int ROWS>
+struct Rows80 {
+  alignas(1024) unsigned char main[ROWS * TILE * 2];
+  alignas(256) unsigned char side[ROWS * SIDE * 2];
+  static constexpr int BYTES = ROWS * ROW80 * 2;
+};
+
+// the two tensor maps of a (B, N, H, 80) tensor: the main box and the side box
+struct MapPair {
+  CUtensorMap main, side;
+};
+
+template <int ROWS>
+__device__ __forceinline__ void load_rows(Rows80<ROWS>& dst, const MapPair& map, uint64_t* bar, int row0, int h,
+                                          int b) {
+  tma_load_4d(dst.main, &map.main, bar, 0, h, row0, b);
+  tma_load_4d(dst.side, &map.side, bar, TILE, h, row0, b);
+}
+
+template <int ROWS>
+__device__ __forceinline__ void store_rows(const MapPair& map, const Rows80<ROWS>& src, int row0, int h, int b) {
+  tma_store_4d(&map.main, src.main, 0, h, row0, b);
+  tma_store_4d(&map.side, src.side, TILE, h, row0, b);
+}
+
+// a 64-row own tile as A-operand registers: four k-steps from the main
+// tile, the fifth from the side tile
+struct OwnRows {
+  uint32_t main[16];
+  uint32_t side[4];
+};
+
+__device__ __forceinline__ void load_own(OwnRows& a, const Rows80<TILE>& rows, int warp, int lane) {
+  load_a_operand(a.main, rows.main, warp, lane);
+  load_a_side(a.side, rows.side, warp, lane);
+}
+
+// acc (64 x 64) = A B^T over the 80 columns: A the own rows in registers, B
+// a walked tile by its main and side descriptors, read K-major
+__device__ __forceinline__ void product_nt80(float (&acc)[32], const OwnRows& a, uint64_t desc_main,
+                                             uint64_t desc_side) {
+#pragma unroll
+  for (int kk = 0; kk < TILE / 16; ++kk) {
+    wgmma_m64n64k16_rs<0>(acc, &a.main[4 * kk], desc_main + kk * WGMMA_K_STEP, kk > 0);
+  }
+  wgmma_m64n64k16_rs<0>(acc, a.side, desc_side, 1);
+}
+
+// a 64 x 80 fp32 accumulator: columns 0-63 and 64-79
+struct Acc80 {
+  float main[32];
+  float side[8];
+};
+
+__device__ __forceinline__ void fence_registers(Acc80& d) {
+  fence_registers(d.main);
+  fence_registers(d.side);
+}
+
+__device__ __forceinline__ void zero_registers(Acc80& d) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) d.main[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) d.side[i] = 0.f;
+  fence_registers(d);
+}
+
+// acc += A (64 x 16 KSTEPS bf16 in registers) times the walked tile (main
+// and side descriptors) read down its rows
+template <int KSTEPS>
+__device__ __forceinline__ void product_rows80(Acc80& acc, const uint32_t* a, uint64_t desc_main,
+                                               uint64_t desc_side) {
+#pragma unroll
+  for (int kk = 0; kk < KSTEPS; ++kk) {
+    wgmma_m64n64k16_rs<1>(acc.main, &a[4 * kk], desc_main + kk * WGMMA_MN_STEP, 1);
+    wgmma_m64n16k16_rs<1>(acc.side, &a[4 * kk], desc_side + kk * WGMMA_B32_MN_STEP, 1);
+  }
+}
+
+// the accumulator -> bf16 in an own tile (the layout the TMA stores read)
+__device__ __forceinline__ void store_acc80(Rows80<TILE>& rows, const Acc80& d, int warp, int lane) {
+  store_accumulator(rows.main, d.main, warp, lane);
+  store_side(rows.side, d.side, warp, lane);
+}
+
+// ------------------------------------- online softmax of the K1 forwards
+//
+// attention.cu (D = 64) and attention_d80.cu (D = 80) walk 64-row key tiles
+// with S = Q K^T of a warpgroup's 64 query rows in wgmma's accumulator
+// registers (float[32], the layout of wgmma_m64n64k16_rs).
+
+// One tile of the online softmax on the registers of S: the rows' running
+// max m (scaled, base 2) and per-lane partial sums l move on, `alpha` =
+// exp2(m_old - m_new) is what O must be scaled by (`rescale`), and S is
+// replaced by P = exp2(S scale log2(e) - m_new) in place (`pack_p` makes
+// it the A operand of O += P V). Maxima and sums are taken as trees, not
+// chains. MASK: columns at or past `nvalid` (key rows past N) are -inf.
+// The rescale is lazy: m moves only when a row's max of this tile exceeds
+// it by more than 8 (P then stays below 2^8) somewhere in the warp;
+// otherwise alpha is 1 and O is left as it is (exact: O and l share the
+// same m). Returns whether O must be rescaled (the same in every lane of
+// the warp).
+template <bool MASK>
+__device__ __forceinline__ bool softmax_scores(float (&s)[32], float (&m)[2], float (&l)[2], float (&alpha)[2],
+                                               float scale_log2, int nvalid, int col0) {
+  if (MASK) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      if (8 * (i / 4) + col0 + i % 2 >= nvalid) s[i] = -INFINITY;
+    }
+  }
+  float mx[2];
+#pragma unroll
+  for (int hi = 0; hi < 2; ++hi) {
+    float t[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) t[j] = fmaxf(s[4 * j + 2 * hi], s[4 * j + 2 * hi + 1]);
+#pragma unroll
+    for (int w = 4; w >= 1; w /= 2) {
+#pragma unroll
+      for (int j = 0; j < w; ++j) t[j] = fmaxf(t[j], t[j + w]);
+    }
+    mx[hi] = fmaxf(t[0], __shfl_xor_sync(0xffffffffu, t[0], 1));
+    mx[hi] = fmaxf(mx[hi], __shfl_xor_sync(0xffffffffu, mx[hi], 2));
+    mx[hi] *= scale_log2;  // finite: every walked tile has a column below N
+  }
+  const bool move = __any_sync(0xffffffffu, mx[0] > m[0] + 8.f || mx[1] > m[1] + 8.f);
+#pragma unroll
+  for (int hi = 0; hi < 2; ++hi) {
+    alpha[hi] = 1.f;
+    if (move) {
+      const float m_new = fmaxf(m[hi], mx[hi]);
+      alpha[hi] = fast_exp2(m[hi] - m_new);  // 0 on the first tile (m = -inf)
+      m[hi] = m_new;
+    }
+    const float neg_m = -m[hi];
+    float t[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int i = 4 * j + 2 * hi;
+      s[i] = fast_exp2(fmaf(s[i], scale_log2, neg_m));
+      s[i + 1] = fast_exp2(fmaf(s[i + 1], scale_log2, neg_m));
+      t[j] = s[i] + s[i + 1];
+    }
+#pragma unroll
+    for (int w = 4; w >= 1; w /= 2) {
+#pragma unroll
+      for (int j = 0; j < w; ++j) t[j] += t[j + w];
+    }
+    l[hi] = fmaf(l[hi], alpha[hi], t[0]);
+  }
+  return move;
+}
+
+// softmax_scores of walked tile t (64 key rows from 64 t), masked where it
+// is the ragged last one
+__device__ __forceinline__ bool softmax_tile(int t, float (&s)[32], float (&m)[2], float (&l)[2],
+                                             float (&alpha)[2], float scale_log2, int N, int col0) {
+  const int nvalid = N - t * TILE;  // columns of this tile below N
+  if (nvalid >= TILE) return softmax_scores<false>(s, m, l, alpha, scale_log2, nvalid, col0);
+  return softmax_scores<true>(s, m, l, alpha, scale_log2, nvalid, col0);
+}
+
+// P (the exponents left in S's registers) to bf16 as the A operand of O += P V
+__device__ __forceinline__ void pack_p(const float (&s)[32], uint32_t (&p)[16]) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+#pragma unroll
+    for (int hi = 0; hi < 2; ++hi) p[a_index(j, hi)] = pack_bf16(s[4 * j + 2 * hi], s[4 * j + 2 * hi + 1]);
+  }
+}
+
+// an accumulator's rows r and r + 8 (see wgmma_m64n64k16_rs) times f[0] and f[1]
+template <int N>
+__device__ __forceinline__ void rescale(float (&o)[N], const float (&f)[2]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) o[i] *= f[(i / 2) % 2];
+}
+
+__device__ __forceinline__ void rescale(Acc80& o, const float (&f)[2]) {
+  rescale(o.main, f);
+  rescale(o.side, f);
+}
+
 // -------------------------------------------------------- tensor maps (host)
 
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
@@ -594,6 +793,18 @@ inline int encode_head_box_map(CUtensorMap* map, const void* base, int B, int N,
                               elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// the main and side maps of a contiguous (B, N, H, 80) bf16 tensor at
+// `base`, boxes of `rows` rows. Returns a cudaError_t (0 = encoded).
+inline int encode_pair(MapPair* pair, const void* base, int B, int N, int H, int rows) {
+  const int bad = encode_head_box_map(&pair->main, base, B, N, H, ROW80, TILE, rows, CU_TENSOR_MAP_SWIZZLE_128B);
+  return bad ? bad : encode_head_box_map(&pair->side, base, B, N, H, ROW80, SIDE, rows, CU_TENSOR_MAP_SWIZZLE_32B);
+}
+
+// a shape the D = 80 kernels refuse (the grid's y and z are H and B)
+inline bool bad_shape80(int B, int N, int H, int head_dim) {
+  return head_dim != ROW80 || B <= 0 || N <= 0 || H <= 0 || B > 65535 || H > 65535;
 }
 
 constexpr int MAX_DEVICES = 64;

@@ -9,10 +9,10 @@ launches the two kernels of `csrc/attention_bwd.cu` (wgmma products on
 tiles that TMA loads; the primitives are in `csrc/hopper.cuh`):
 `attention_bwd_dq` (dQ, and di = rowsum(dO o)) then `attention_bwd_dkv`
 (dK, dV). At D = 80 (the I-JEPA-H/14 backbone) the same three functions
-launch the forward of `csrc/attention_d80.cu` (mma.sync products on
-cp.async tiles) and the backward pair of `csrc/attention_d80_bwd.cu`
-(wgmma on TMA tiles, a row of 80 split into a 64-column tile and a
-16-column side tile), each with a launch count of its own (`D80_COUNTS`). On
+launch the forward of `csrc/attention_d80.cu` and the backward pair of
+`csrc/attention_d80_bwd.cu`, all three wgmma on TMA tiles with a row of 80
+split into a 64-column tile and a 16-column side tile (`csrc/hopper.cuh`'s
+rows of 80), each with a launch count of its own (`D80_COUNTS`). On
 CPU tensors the same Function takes `attention_plain` and
 `attention_bwd_plain` (any D). Anything else raises. It replaces the
 Pallas TPU flash attention reached from `scenedino_tpu/models/vit.py:126`

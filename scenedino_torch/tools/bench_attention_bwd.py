@@ -10,7 +10,9 @@ side on one card.
     python -m scenedino_torch.tools.bench_attention_bwd --forward
     python -m scenedino_torch.tools.bench_attention_bwd --wgmma-rate
     python -m scenedino_torch.tools.bench_attention_bwd --head-dim 80 --check --variants 2,3,1/2,3,1,32 \
-        --other old/attention_d80.cu
+        --other old/attention_d80_bwd.cu
+    python -m scenedino_torch.tools.bench_attention_bwd --head-dim 80 --fwd-check --fwd-variants 3,3,1 1,3,2 \
+        --fwd-other old/attention_d80.cu
 
 `--check` builds `csrc/attention_bwd.cu` as the port loads it, prints what
 ptxas said of its kernels and holds dq, di, dk, dv against the plain
@@ -29,17 +31,20 @@ log-sum-exp and teacher (8, ...) without) and at ragged token counts, and
 two launches bitwise equal. A forward variant `a,b,c` rebuilds it with
 warpgroups per block, ring slots and blocks per SM (the FWD_* macros);
 `--fwd-other` adds another
-forward source with the same C interface. Forward builds are timed in
-turns at the three shapes beside `scaled_dot_product_attention`.
-`--forward` times the port's forward kernel at the three shapes beside
+forward source with the same C interface. Forward builds are checked,
+compared bit for bit with the first of them, and timed in turns at the
+forward's shapes beside `scaled_dot_product_attention` (CUDA events, and
+the kernels' device time from the profiler).
+`--forward` times the port's forward kernel at the forward's shapes beside
 `scaled_dot_product_attention`.
 `--wgmma-rate` measures what the kernels' one instruction, wgmma
 m64n64k16 with A in registers, reaches on an SM when nothing else runs: 1
 to 3 warpgroups start batches of 8 (two accumulators, k-steps alternating,
 as the kernels' first products) and wait for each batch, or keep one batch
 in flight; cycles per instruction by `clock64`.
-`--head-dim 80` does the same for the D = 80 backward,
-`csrc/attention_d80_bwd.cu`: `--probe` (also the first step of `--check`)
+`--head-dim 80` does the same for the D = 80 kernels,
+`csrc/attention_d80_bwd.cu` and `csrc/attention_d80.cu`: `--probe` (also
+the first step of `--check` and `--fwd-check`)
 runs one wgmma on a 16-column side tile, K-major (m64n64k16 and m64n32k16,
 a k-step over its 16 columns) and MN-major (m64n16k16 over its rows, 512
 bytes a k-step), loaded by TMA as the kernels load it, against
@@ -51,9 +56,16 @@ and at ragged token counts around the tile edges; a variant is
 query tile, 32 or 64); builds and `--other` sources (say an earlier
 revision's `attention_d80.cu` with its mma.sync dq and dkv, which has the
 same C functions) are timed in turns at the four shapes beside one
-`scaled_dot_product_attention` backward.
+`scaled_dot_product_attention` backward; builds of the backward are also
+compared bit for bit with the first of them. The forward's options check
+`attention_d80.cu` at the four shapes (the student's (2, 1921, 12, 80) with
+the log-sum-exp), at ragged token counts and with keys that drift along the
+walk (the lazy rescale's jump); its variant is `a,b,c` (the FWD80_*
+macros) or `a,b,c/d,e,f` (also FWD80_SMALL_*, the small grids' build), and
+`--fwd-other` takes, say, an earlier revision's mma.sync `attention_d80.cu`.
 Every time is the median CUDA-event time of `utils.timing.time_ms` on the
-card that the first line names.
+card that the first line names; forward builds also print the kernels'
+device time (`utils.timing.device_ms`).
 """
 from __future__ import annotations
 
@@ -75,7 +87,7 @@ from scenedino_torch.kernels.attention import (
     attention_lse_plain,
     attention_plain,
 )
-from scenedino_torch.utils.timing import card_line, time_ms
+from scenedino_torch.utils.timing import card_line, device_ms, ms_text, time_ms
 
 TRAIN_SHAPE = (4, 1921, 12, 64)
 # the D = 80 backward's shapes on the paths (chip_smoke.py phase 11a):
@@ -85,18 +97,23 @@ D80_RAGGED = (1, 15, 16, 17, 31, 32, 33, 63, 64, 65, 127, 128, 129, 200)
 # the forward's shapes on the paths: serving, the student (with the
 # log-sum-exp), the teacher
 FWD_SHAPES = (((1, 1921, 12, 64), False), ((4, 1921, 12, 64), True), ((8, 1921, 12, 64), False))
+# at D = 80: an I-JEPA-H/14 image, four, the D = 80 step's teacher, its student (with the log-sum-exp)
+FWD80_SHAPES = tuple((shape, shape == D80_SHAPES[-1]) for shape in D80_SHAPES)
 K1_BWD_REL = 2e-2  # chip_smoke.py's bound: this share of the largest |plain| value plus 1e-3
 K1_TOL = 2e-2  # chip_smoke.py's bounds of the forward's output and log-sum-exp
 LSE_TOL = 1e-3
 MACROS = ("BWD_DQ_WGS", "BWD_DQ_STAGES", "BWD_DQ_BLOCKS", "BWD_DKV_WGS", "BWD_DKV_STAGES", "BWD_DKV_BLOCKS")
 FWD_MACROS = ("FWD_WGS", "FWD_STAGES", "FWD_BLOCKS")
+FWD80_MACROS = ("FWD80_WGS", "FWD80_STAGES", "FWD80_BLOCKS", "FWD80_SMALL_WGS", "FWD80_SMALL_STAGES",
+                "FWD80_SMALL_BLOCKS")
 MACROS80 = ("BWD80_DQ_WGS", "BWD80_DQ_STAGES", "BWD80_DQ_BLOCKS", "BWD80_DKV_WGS", "BWD80_DKV_STAGES",
             "BWD80_DKV_BLOCKS", "BWD80_DKV_QT")
 
 
 class HeadDim:
-    """What the backward tool does at one head dim: the source, its C
-    functions, its macros, the shapes it is checked and timed at."""
+    """What the tool does at one head dim: the backward's source, its C
+    functions, its macros, the shapes it is checked and timed at; the same
+    for the forward."""
 
     def __init__(self, head_dim: int):
         self.head_dim = head_dim
@@ -107,15 +124,26 @@ class HeadDim:
             self.time_shapes = (TRAIN_SHAPE,)
             self.check_shapes = [TRAIN_SHAPE, (1, 1921, 12, 64)] + [(2, n, 3, 64) for n in (1, 63, 64, 65, 128, 129,
                                                                                               200)]
+            self.fwd_source = build.CSRC / "attention.cu"
+            self.fwd_name = "attention_fwd"
+            self.fwd_macros = FWD_MACROS
+            self.fwd_shapes = FWD_SHAPES
+            self.fwd_ragged = [(2, n, 3, 64) for n in (1, 63, 64, 65, 128, 129, 191, 192, 193, 200, 385)]
         elif head_dim == 80:
             self.source = build.CSRC / "attention_d80_bwd.cu"
             self.names = ("attention_d80_bwd_dq", "attention_d80_bwd_dkv")
             self.macros = MACROS80
             self.time_shapes = D80_SHAPES
             self.check_shapes = list(D80_SHAPES) + [(2, n, 3, 80) for n in D80_RAGGED]
+            self.fwd_source = build.CSRC / "attention_d80.cu"
+            self.fwd_name = "attention_d80_fwd"
+            self.fwd_macros = FWD80_MACROS
+            self.fwd_shapes = FWD80_SHAPES
+            self.fwd_ragged = [(2, n, 3, 80) for n in D80_RAGGED + (191, 192, 193, 385)]
         else:
-            raise ValueError(f"the backward kernels take head dim 64 or 80, got {head_dim}")
+            raise ValueError(f"the attention kernels take head dim 64 or 80, got {head_dim}")
         self.same_shape = self.time_shapes[-1]
+        self.fwd_same_shape = self.fwd_shapes[-1][0]
 
 
 def compile_sources(jobs: Sequence[Tuple[Path, Optional[Dict[str, int]]]]) -> List[Tuple[ctypes.CDLL, str]]:
@@ -179,8 +207,9 @@ class Backward:
 class Forward:
     """The forward's C function of one build, called as the port's wrapper calls it."""
 
-    def __init__(self, lib: ctypes.CDLL):
-        self.fn = lib.attention_fwd
+    def __init__(self, lib: ctypes.CDLL, name: str = "attention_fwd"):
+        self.name = name
+        self.fn = getattr(lib, name)
         self.fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
         self.fn.restype = ctypes.c_int
 
@@ -191,7 +220,7 @@ class Forward:
         err = self.fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr() if with_lse else None,
                       B, N, H, D, D ** -0.5, torch.cuda.current_stream().cuda_stream)
         if err != 0:
-            raise RuntimeError(f"attention_fwd launch failed: cudaError {err}")
+            raise RuntimeError(f"{self.name} launch failed: cudaError {err}")
         return out, lse
 
 
@@ -200,19 +229,34 @@ def qkv(shape, seed):
     return tuple(torch.randn(*shape, generator=g, device="cuda").to(torch.bfloat16) for _ in range(3))
 
 
-def check_forward(fwd: Forward, shape, with_lse=True, seed=0) -> bool:
-    """The output and (with_lse) the log-sum-exp of `fwd` against the plain versions at `shape`."""
+def drifting_keys(shape, seed):
+    """q, k, v whose keys drift along the walk (12 n / N added to every
+    value of key row n): a row's logits move by 12 n / N times its q's value
+    sum over sqrt(D), so where that sum is positive the logits of the last
+    tiles exceed the first tile's by more than the lazy rescale's
+    threshold and the running max moves during the walk, while the weight
+    stays spread over the many keys of the last tiles."""
     q, k, v = qkv(shape, seed)
+    drift = 12 * torch.arange(shape[1], device="cuda", dtype=torch.float32) / shape[1]
+    return q, (k.float() + drift[None, :, None, None]).to(torch.bfloat16), v
+
+
+def check_forward(fwd: Forward, shape, with_lse=True, seed=0, drift=False) -> bool:
+    """The output and (with_lse) the log-sum-exp of `fwd` against the plain
+    versions at `shape`; `drift`: keys that drift along the walk (`drifting_keys`)."""
+    q, k, v = drifting_keys(shape, seed) if drift else qkv(shape, seed)
     out, lse = fwd(q, k, v, with_lse)
     torch.cuda.synchronize()
-    err = (out.float() - attention_plain(q, k, v).float()).abs().max().item()
+    ref = attention_plain(q, k, v)
+    err = (out.float() - ref.float()).abs().max().item()
     ok = bool(torch.isfinite(out).all()) and err <= K1_TOL
-    text = f"out {err:.3e} (bound {K1_TOL})"
+    text = f"out {err:.3e} (bound {K1_TOL}; |plain| <= {ref.abs().max().item():.2f})"
     if with_lse:
         lse_err = (lse - attention_lse_plain(q, k)).abs().max().item()
         ok = ok and lse_err <= LSE_TOL
         text += f", lse {lse_err:.3e} (bound {LSE_TOL})"
-    print(f"forward check {tuple(shape)}: max abs err {text}{'' if ok else ', FAIL'}", flush=True)
+    print(f"forward check {tuple(shape)}{', keys drifting' if drift else ''}: max abs err {text}"
+          f"{'' if ok else ', FAIL'}", flush=True)
     return ok
 
 
@@ -224,14 +268,16 @@ def print_warnings(log: str) -> None:
 
 
 def forward_lines(log: str) -> str:
-    return json.dumps({name: r for name, r in build.ptxas_report(log).items() if "attention_fwd" in name})
+    return json.dumps(forward_report(log))
 
 
-def parse_fwd_variant(text: str) -> Dict[str, int]:
-    values = [int(x) for x in text.split(",")]
-    if len(values) != len(FWD_MACROS):
-        raise ValueError(f"a forward variant is a,b,c, got {text!r}")
-    return dict(zip(FWD_MACROS, values))
+def parse_fwd_variant(text: str, macros: Sequence[str] = FWD_MACROS) -> Dict[str, int]:
+    """`a,b,c` sets the first three macros; at D = 80 `a,b,c/d,e,f` also sets
+    the small grids' three (else they keep the source's)."""
+    values = [int(x) for part in text.split("/") for x in part.split(",")]
+    if len(values) not in (3, len(macros)):
+        raise ValueError(f"a forward variant sets 3 or {len(macros)} of {', '.join(macros)}, got {text!r}")
+    return dict(zip(macros, values))
 
 
 def forward_flops(shape) -> float:
@@ -242,6 +288,17 @@ def forward_flops(shape) -> float:
 def time_sdpa(q, k, v) -> float:
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     return time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt), inner=5)
+
+
+def rate_text(ms: Optional[float], flops: float) -> str:
+    return ms_text(ms) + ("" if ms is None else f" ({flops / ms / 1e9:.1f} TFLOP/s)")
+
+
+def device_sdpa(q, k, v) -> Optional[float]:
+    """`scaled_dot_product_attention`'s kernels' device time (the profiler):
+    at a small shape its CUDA-event time is its host's."""
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    return device_ms(lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt))
 
 
 def inputs(shape, seed):
@@ -277,20 +334,34 @@ def register_split(wgs: int, blocks: int) -> Tuple[int, int]:
     return 24, min(((wgs + 1) * start - 24) // wgs // 8 * 8, 240)
 
 
+def _with_split(name: str, r: Dict[str, int]) -> Dict[str, int]:
+    """A kernel's ptxas report and, where its name carries template arguments
+    (warpgroups, ring slots, blocks per SM, ...), those and the setmaxnreg
+    split, `producer` and `consumer` registers a thread."""
+    args = [int(x) for x in re.findall(r"Li(\d+)E", name)]
+    if len(args) < 3:
+        return r
+    return {**r, **dict(zip(("wgs", "stages", "blocks", "qt"), args)),
+            **dict(zip(("producer", "consumer"), register_split(args[0], args[2])))}
+
+
 def backward_report(log: str) -> Dict[str, Dict[str, int]]:
     """ptxas' registers (at launch) and spills of each backward kernel in
-    nvcc's output `log`, by "dq" and "dkv"; a kernel with template arguments
-    (warpgroups, ring slots, blocks per SM, ...) also gets the setmaxnreg
-    split, `producer` and `consumer` registers a thread."""
+    nvcc's output `log`, by "dq" and "dkv", with the setmaxnreg split
+    (`_with_split`)."""
+    return {("dq" if "bwd_dq" in name else "dkv"): _with_split(name, r)
+            for name, r in build.ptxas_report(log).items() if "bwd" in name}
+
+
+def forward_report(log: str) -> Dict[str, Dict[str, int]]:
+    """The same for each instantiation of the forward kernel, as "fwd" and,
+    where its name carries them, its warpgroups, ring slots and blocks per
+    SM ("fwd 3,3,1")."""
     out = {}
     for name, r in build.ptxas_report(log).items():
-        if "bwd" not in name:
-            continue
-        args = [int(x) for x in re.findall(r"Li(\d+)E", name)]
-        if len(args) >= 3:
-            r = {**r, **dict(zip(("wgs", "stages", "blocks", "qt"), args)),
-                 **dict(zip(("producer", "consumer"), register_split(args[0], args[2])))}
-        out["dq" if "bwd_dq" in name else "dkv"] = r
+        if "fwd" in name:
+            args = re.findall(r"Li(\d+)E", name)[:3]
+            out[" ".join(["fwd"] + [",".join(args)] * bool(args))] = _with_split(name, r)
     return out
 
 
@@ -447,12 +518,12 @@ __global__ void __launch_bounds__(128) side_probe_kernel(const __grid_constant__
 }  // namespace
 
 extern "C" int side_probe(const void* b, const void* a, float* out, int rows, int mode) {
-  MapPair map;
-  const int bad = encode_pair(&map, b, 1, rows, 1, rows);
+  hopper::MapPair map;
+  const int bad = hopper::encode_pair(&map, b, 1, rows, 1, rows);
   if (bad) return bad;
   const __nv_bfloat16* a16 = (const __nv_bfloat16*)a;
-  if (rows == 64) side_probe_kernel<64><<<1, 128, sizeof(Rows80<64>) + 1024>>>(map, a16, out, mode);
-  else if (rows == 32) side_probe_kernel<32><<<1, 128, sizeof(Rows80<32>) + 1024>>>(map, a16, out, mode);
+  if (rows == 64) side_probe_kernel<64><<<1, 128, sizeof(hopper::Rows80<64>) + 1024>>>(map, a16, out, mode);
+  else if (rows == 32) side_probe_kernel<32><<<1, 128, sizeof(hopper::Rows80<32>) + 1024>>>(map, a16, out, mode);
   else return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }
@@ -501,7 +572,7 @@ def main():
     parser.add_argument("--forward", action="store_true")
     parser.add_argument("--wgmma-rate", action="store_true")
     parser.add_argument("--head-dim", type=int, default=64, choices=(64, 80),
-                        help="the backward that --check, --variants and --other work on")
+                        help="the kernels that the backward's and the forward's options work on")
     parser.add_argument("--probe", action="store_true", help="the side-tile descriptor probe (D = 80)")
     parser.add_argument("--seed", type=int, default=0)
     args = parser.parse_args()
@@ -512,7 +583,7 @@ def main():
     hd = HeadDim(args.head_dim)
     ok = True
 
-    if args.probe or (args.check and hd.head_dim == 80):
+    if args.probe or (hd.head_dim == 80 and (args.check or args.fwd_check)):
         ok = side_probe() and ok
     if args.check:
         lib, log = compile_source(hd.source)
@@ -536,6 +607,18 @@ def main():
         print(f"build {name}: ptxas {kernel_lines(log)}", flush=True)
         print_warnings(log)
         ok = check(bwd, hd.same_shape, args.seed) and ok
+    if builds:
+        q, k, v, o, do, lse = inputs(hd.same_shape, args.seed)
+
+        def grads(bwd):
+            dq, di = bwd.dq(q, k, v, o, do, lse)
+            return (dq, di) + bwd.dkv(q, k, v, do, lse, di)
+
+        first = grads(builds[0][1])
+        for name, bwd, _ in builds[1:]:
+            same = all(torch.equal(a, b) for a, b in zip(first, grads(bwd)))
+            print(f"build {name}: dq, di, dk, dv bitwise equal to build {builds[0][0]}'s at {hd.same_shape}: {same}",
+                  flush=True)
     for shape in hd.time_shapes if builds else ():
         q, k, v, o, do, lse = inputs(shape, args.seed)
         unit = 2.0 * q.shape[0] * q.shape[2] * q.shape[1] ** 2 * q.shape[3]
@@ -555,44 +638,56 @@ def main():
         print(f"scaled_dot_product_attention backward {tuple(shape)}: {lib_ms:.4f} ms before the builds, "
               f"{time_sdpa_backward(q, k, v, do):.4f} ms after", flush=True)
 
-    fwd_source = build.CSRC / "attention.cu"
     if args.fwd_check:
-        lib, log = compile_source(fwd_source)
+        lib, log = compile_source(hd.fwd_source)
         print(f"forward ptxas: {forward_lines(log)}", flush=True)
         print_warnings(log)
-        fwd = Forward(lib)
-        for shape, with_lse in FWD_SHAPES:
+        fwd = Forward(lib, hd.fwd_name)
+        for shape, with_lse in hd.fwd_shapes:
             ok = check_forward(fwd, shape, with_lse, args.seed) and ok
-        for n in (1, 63, 64, 65, 128, 129, 191, 192, 193, 200, 385):
-            ok = check_forward(fwd, (2, n, 3, 64), True, args.seed + n) and ok
-        q, k, v = qkv(FWD_SHAPES[1][0], args.seed)
+        for shape in hd.fwd_ragged:
+            ok = check_forward(fwd, shape, True, args.seed + shape[1]) and ok
+        ok = check_forward(fwd, hd.fwd_same_shape, True, args.seed, drift=True) and ok
+        q, k, v = qkv(hd.fwd_same_shape, args.seed)
         first, again = fwd(q, k, v, True), fwd(q, k, v, True)
         same = all(torch.equal(a, b) for a, b in zip(first, again)) and torch.equal(first[0], fwd(q, k, v)[0])
         print(f"forward: two launches bitwise equal, and the output the same without the lse: {same}", flush=True)
         ok = ok and same
 
-    jobs = [(fwd_source, parse_fwd_variant(text)) for text in args.fwd_variants] + [(p, None) for p in args.fwd_other]
+    jobs = [(hd.fwd_source, parse_fwd_variant(text, hd.fwd_macros)) for text in args.fwd_variants]
+    jobs += [(p, None) for p in args.fwd_other]
     names = list(args.fwd_variants) + [str(p) for p in args.fwd_other]
-    fwd_builds = [(name, Forward(lib), log) for name, (lib, log) in zip(names, compile_sources(jobs))]
+    fwd_builds = [(name, Forward(lib, hd.fwd_name), log) for name, (lib, log) in zip(names, compile_sources(jobs))]
     if fwd_builds:
         for name, fwd, log in fwd_builds:
             print(f"forward build {name}: ptxas {forward_lines(log)}", flush=True)
             print_warnings(log)
-            for shape, with_lse in FWD_SHAPES:
+            for shape, with_lse in hd.fwd_shapes:
                 ok = check_forward(fwd, shape, with_lse, args.seed) and ok
-        for shape, with_lse in FWD_SHAPES:
+        q, k, v = qkv(hd.fwd_same_shape, args.seed)
+        first = fwd_builds[0][1](q, k, v, True)
+        for name, fwd, _ in fwd_builds[1:]:
+            same = all(torch.equal(a, b) for a, b in zip(first, fwd(q, k, v, True)))
+            print(f"forward build {name}: output and lse bitwise equal to build {fwd_builds[0][0]}'s at "
+                  f"{hd.fwd_same_shape}: {same}", flush=True)
+        for shape, with_lse in hd.fwd_shapes:
             q, k, v = qkv(shape, args.seed)
+            lib_ms = time_sdpa(q, k, v)  # before and after the builds: the yardstick's own spread
+            for _, fwd, _ in fwd_builds:  # the card's clocks up before the first timed build
+                time_ms(lambda: fwd(q, k, v, with_lse), inner=5)
             for turn, order in enumerate((fwd_builds, fwd_builds[::-1])):
                 for name, fwd, _ in order:
                     ms = time_ms(lambda: fwd(q, k, v, with_lse), inner=5)
+                    dev = device_ms(lambda: fwd(q, k, v, with_lse))
                     print(f"pass {turn + 1} forward {tuple(shape)}{' with lse' if with_lse else ''} {name}: "
-                          f"{ms:.4f} ms ({forward_flops(shape) / ms / 1e9:.1f} TFLOP/s)", flush=True)
-            lib_ms = time_sdpa(q, k, v)
-            print(f"scaled_dot_product_attention {tuple(shape)}: {lib_ms:.4f} ms "
-                  f"({forward_flops(shape) / lib_ms / 1e9:.1f} TFLOP/s)", flush=True)
+                          f"{ms:.4f} ms ({forward_flops(shape) / ms / 1e9:.1f} TFLOP/s), device time "
+                          f"{rate_text(dev, forward_flops(shape))}", flush=True)
+            print(f"scaled_dot_product_attention {tuple(shape)}: {lib_ms:.4f} ms before the builds, "
+                  f"{time_sdpa(q, k, v):.4f} ms after ({forward_flops(shape) / lib_ms / 1e9:.1f} TFLOP/s), device "
+                  f"time {rate_text(device_sdpa(q, k, v), forward_flops(shape))}", flush=True)
 
     if args.forward:
-        for shape, with_lse in FWD_SHAPES:
+        for shape, with_lse in hd.fwd_shapes:
             q, k, v = qkv(shape, args.seed)
             ms = time_ms(lambda: attention_fwd(q, k, v, with_lse=with_lse), inner=5)
             lib_ms = time_sdpa(q, k, v)

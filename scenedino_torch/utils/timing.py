@@ -3,6 +3,7 @@ from __future__ import annotations
 
 import subprocess
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -59,17 +60,28 @@ def _kernel_times(fn):
     return by_name, wall
 
 
-def device_ms(fn, calls: int = 10) -> float:
+def device_ms(fn, calls: int = 10, tries: int = 3) -> Optional[float]:
     """The card's busy time a call of `fn`: its kernels' device time summed
     over `calls` calls (after one unprofiled call) over `calls`. Unlike
-    `time_ms`, it leaves out the host's launch overhead."""
+    `time_ms`, it leaves out the host's launch overhead. A window in which
+    the profiler saw no kernel (it has happened to kernels that ran) is
+    profiled again, up to `tries` windows; None if none saw one."""
     fn()
 
     def run():
         for _ in range(calls):
             fn()
 
-    return sum(_kernel_times(run)[0].values()) / calls
+    for _ in range(tries):
+        busy = sum(_kernel_times(run)[0].values())
+        if busy > 0:
+            return busy / calls
+    return None
+
+
+def ms_text(ms: Optional[float]) -> str:
+    """A time in ms for a printed line; "not measured" for None."""
+    return "not measured" if ms is None else f"{ms:.4f} ms"
 
 
 def profile_device(fn) -> str:

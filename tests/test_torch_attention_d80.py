@@ -10,12 +10,16 @@ meet `jax.nn.dot_product_attention` and its VJP, and the Pallas module's
 ("i_jepa_huge")` at 192x640, padded to 1024 with segment ids as
 `scenedino_tpu/models/vit.py:_flash_mhsa` pads for the TPU kernel.
 
-The forward's emulation walks as its kernel does: 16 query rows a warp,
-64-row key tiles zero-filled past N, key columns at or past N set to -inf;
-the online softmax in base 2 (scale * log2(e) folded in), its row max
-moved on every tile, P rounded to bf16 before P V, the row sum of the
+The forward's emulation walks as its kernel does: a warpgroup owns 64
+query rows (zero-filled past N) and walks 64-row key tiles zero-filled
+past N; only the last tile, peeled off the walk, sets its key columns at
+or past N to -inf; the online softmax in base 2 (scale * log2(e) folded
+in) with the lazy rescale (the running max of a warp's 16 rows moves only
+when one of them grows by more than 8, so P < 2^8; `lazy=False` moves it
+on every tile), P rounded to bf16 before P V, the row sum of the
 unrounded P, the output rounded to bf16 and
-LSE = (m scale log2(e) + log2 l) ln 2. The backward's walks as its two
+LSE = (m scale log2(e) + log2 l) ln 2, m the logits' running max. The
+backward's walks as its two
 kernels do: a warpgroup owns 64 rows, zero-filled past N; dq walks 64-row
 key tiles and sets dS to 0 in the last tile's columns past N (only that
 tile is masked), a query row past N having lse = +inf; dkv walks query
@@ -84,25 +88,38 @@ def _bf16(x):
     return x.to(torch.bfloat16).float()
 
 
+def _library_code(name):
+    """The code of `csrc/<name>.cu` and of every file it includes, comments dropped."""
+    return re.sub(r"//[^\n]*", "", "".join(p.read_text() for p in build.sources(name)))
+
+
 def test_the_kernels_take_head_dims_64_and_80_from_their_own_sources():
     assert HEAD_DIMS == (64, 80)
     assert {"attention_d80", "attention_d80_bwd"} <= set(build.all_names())
-    assert [p.name for p in build.sources("attention_d80")] == ["attention_d80.cu"]
+    assert [p.name for p in build.sources("attention_d80")] == ["attention_d80.cu", "hopper.cuh"]
     assert [p.name for p in build.sources("attention_d80_bwd")] == ["attention_d80_bwd.cu", "hopper.cuh"]
     fwd = (build.CSRC / "attention_d80.cu").read_text()
     assert 'extern "C" int attention_d80_fwd(' in fwd
-    assert "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" in fwd and "cp.async" in fwd
     assert "attention_d80_bwd_dq" not in fwd and "attention_d80_bwd_dkv" not in fwd
     bwd = (build.CSRC / "attention_d80_bwd.cu").read_text()
     for name in ("attention_d80_bwd_dq", "attention_d80_bwd_dkv"):
         assert f'extern "C" int {name}(' in bwd
-    # wgmma on TMA tiles (the 64-column tile and the 16-column side tile), a
-    # producer and setmaxnreg; no warp-level product and no atomics
-    for used in ("wgmma_m64n64k16_rs", "wgmma_m64n16k16_rs", "wgmma_desc_b32", "tma_load_4d", "tma_store_4d",
-                 "CU_TENSOR_MAP_SWIZZLE_32B", "registers_take", "registers_release"):
-        assert used in bwd, used
-    code = re.sub(r"//[^\n]*", "", bwd)
-    assert "mma.sync" not in code and not re.search(r"\batomic\w*\(|\batom\.|\bred\.", code)
+    # both on wgmma on TMA tiles (the 64-column tile and the 16-column side
+    # tile, from hopper.cuh's rows of 80), a producer and setmaxnreg; no
+    # warp-level product, no cp.async and no atomics
+    for name, source in (("attention_d80", fwd), ("attention_d80_bwd", bwd)):
+        code = _library_code(name)
+        for used in ("wgmma_m64n64k16_rs", "wgmma_m64n16k16_rs", "wgmma_desc_b32", "tma_load_4d", "tma_store_4d",
+                     "CU_TENSOR_MAP_SWIZZLE_32B", "registers_take", "registers_release"):
+            assert used in code, (name, used)
+        for shared in ("Rows80", "load_rows", "store_rows", "load_own", "product_rows80", "store_acc80",
+                       "encode_pair", "registers_take"):
+            assert shared in source, (name, shared)
+        source_code = re.sub(r"//[^\n]*", "", source)
+        assert "mma.sync" not in code and "cp.async.cg" not in source_code, name
+        assert not re.search(r"\batomic\w*\(|\batom\.|\bred\.", source_code), name
+    for used in ("product_nt80", "softmax_tile", "pack_p", "rescale", "FWD80_SMALL_WGS"):
+        assert used in fwd, used
     from scenedino_torch.kernels.attention import _KERNELS
     assert {step: _KERNELS[80][step][:2] for step in _KERNELS[80]} == {
         "fwd": ("attention_d80", "attention_d80_fwd"), "bwd_dq": ("attention_d80_bwd", "attention_d80_bwd_dq"),
@@ -112,13 +129,23 @@ def test_the_kernels_take_head_dims_64_and_80_from_their_own_sources():
 def test_hopper_header_offers_the_side_tile_primitives():
     """The 16-column side tile's wgmma forms, descriptor and swizzle,
     beside hopper.cuh's 64-column convention (which the D = 64 kernels,
-    K2-K4 and K6 use unchanged)."""
+    K2-K4 and K6 use unchanged); the rows of 80 that both D = 80 files
+    build on, in one copy; the K1 forwards' online softmax, in one copy."""
     src = (build.CSRC / "hopper.cuh").read_text()
     for name in ("wgmma_m64n16k16_rs", "wgmma_m64n32k16_rs", "wgmma_desc_b32_at", "WGMMA_B32_MN_STEP",
-                 "side_offset", "load_a_side", "store_side", "encode_head_box_map"):
+                 "side_offset", "load_a_side", "store_side", "encode_head_box_map",
+                 "struct Rows80", "struct MapPair", "void load_rows(", "void store_rows(", "struct OwnRows",
+                 "void load_own(", "void product_nt80(", "struct Acc80", "void product_rows80(", "void store_acc80(",
+                 "int encode_pair(", "bool bad_shape80(", "bool softmax_scores(", "bool softmax_tile(",
+                 "void pack_p(", "void rescale("):
         assert name in src, name
     assert "uint64_t(3) << 62" in src and "uint64_t(256 >> 4) << 32" in src  # B32, 8-row groups 256 bytes apart
     assert "constexpr uint64_t WGMMA_B32_MN_STEP = 512 >> 4;" in src  # 16 rows of 32 bytes a k-step
+    for name in ("attention.cu", "attention_d80.cu", "attention_d80_bwd.cu"):
+        text = (build.CSRC / name).read_text()
+        for one_copy in ("struct Rows80", "struct Acc80", "int encode_pair(", "bool softmax_scores(",
+                         "void pack_p("):
+            assert one_copy not in text, (name, one_copy)
 
 
 @pytest.mark.parametrize("n", [1, 65, 130])
@@ -137,9 +164,9 @@ def test_plain_forward_and_backward_match_jax_dot_product_attention(n):
         np.testing.assert_allclose(g.numpy(), np.asarray(r), err_msg=f"d{name}", **TOL)
 
 
-def _mha_reference_pad(N, block=512):
+def _mha_reference_pad(N, B=2, block=512):
     NP = -(-N // block) * block
-    ids = jnp.broadcast_to((jnp.arange(NP) < N).astype(jnp.int32)[None], (2, NP))
+    ids = jnp.broadcast_to((jnp.arange(NP) < N).astype(jnp.int32)[None], (B, NP))
 
     def prep(x):
         return jnp.pad(x.transpose(0, 2, 1, 3), ((0, 0), (0, 0), (0, NP - N), (0, 0)))
@@ -179,24 +206,42 @@ def _rows(x, start, count):
     return out
 
 
-def _emulate_forward(q, k, v, mask=True):
-    """One head, (N, D) bf16 values in fp32: (out (N, D), lse (N,))."""
+def _emulate_forward(q, k, v, mask=True, lazy=True, trace=None):
+    """One head, (N, D) bf16 values in fp32, as attention_d80.cu walks:
+    (out (N, D), lse (N,)). `mask`: the peeled last tile's key columns at or
+    past N are -inf; `lazy`: the running max of a warp's 16 rows moves only
+    when one of them grows by more than 8 (base 2), else on every tile;
+    `trace`, a list: gets (query tile, walked tile, warps whose max moved,
+    the largest P) for each step."""
     N = q.shape[0]
     sl2 = D ** -0.5 * LOG2E
-    m = torch.full((N,), -float("inf"))
-    l = torch.zeros(N)
-    o = torch.zeros(N, D)
-    for t in range(-(-N // KT)):
-        s = q @ _rows(k, t * KT, KT).T
-        if mask:
-            s[:, max(N - t * KT, 0):] = -float("inf")
-        m_new = torch.maximum(m, s.max(-1).values)
-        alpha = torch.exp2((m - m_new) * sl2)
-        p = torch.exp2(s * sl2 - (m_new * sl2)[:, None])
-        l = l * alpha + p.sum(-1)
-        o = o * alpha[:, None] + _bf16(p) @ _rows(v, t * KT, KT)
-        m = m_new
-    return _bf16(o / l[:, None]), (m * sl2 + torch.log2(l)) * LN2
+    tiles = -(-N // KT)
+    out, lse = torch.zeros(tiles * KT, D), torch.zeros(tiles * KT)
+    for i in range(tiles):  # a warpgroup's 64 query rows
+        qi = _rows(q, i * KT, KT)
+        m = torch.full((KT,), -float("inf"))  # the logits' running max, scaled to base 2
+        l = torch.zeros(KT)
+        o = torch.zeros(KT, D)
+        for t in range(tiles):  # the walked key and value tiles, the last one peeled off
+            s = qi @ _rows(k, t * KT, KT).T
+            if mask and t == tiles - 1:
+                s[:, N - t * KT:] = -float("inf")
+            mx = s.max(-1).values * sl2
+            move = torch.ones(KT, dtype=torch.bool)
+            if lazy:  # per warp: 4 warps of 16 rows
+                move = (mx > m + 8).reshape(4, 16).any(-1).repeat_interleave(16)
+            m_new = torch.where(move, torch.maximum(m, mx), m)
+            alpha = torch.exp2(m - m_new)
+            p = torch.exp2(s * sl2 - m_new[:, None])
+            if trace is not None:
+                trace.append((i, t, int(move[::16].sum()), p.max().item()))
+            l = l * alpha + p.sum(-1)
+            o = o * alpha[:, None] + _bf16(p) @ _rows(v, t * KT, KT)
+            m = m_new
+        rows = slice(i * KT, (i + 1) * KT)
+        out[rows] = _bf16(o / l[:, None])
+        lse[rows] = (m + torch.log2(l)) * LN2
+    return out[:N], lse[:N]
 
 
 def _padded(x, rows, fill):
@@ -240,15 +285,68 @@ def _head(x, h):
     return x[0, :, h].float()
 
 
+@pytest.mark.parametrize("lazy", [True, False])
 @pytest.mark.parametrize("n", [1, 31, 32, 33, 63, 64, 65, 130, 585])
-def test_tile_walk_emulation_matches_the_plain_versions(n):
-    """The forward's walk: output and log-sum-exp."""
+def test_tile_walk_emulation_matches_the_plain_versions(n, lazy):
+    """The forward's walk, with the lazy rescale (the kernel's) and with O
+    rescaled on every tile: output and log-sum-exp against the plain
+    versions and the Pallas module's mha_reference, padded to a multiple of
+    512 tokens (1024 at I-JEPA-H/14's 585) and masked by segment ids."""
     q, k, v = (_t(a).to(torch.bfloat16) for a in _inputs(n, seed=30 + n, B=1, count=3))
     out, lse = attention_fwd(q, k, v, with_lse=True)  # CPU: the plain versions
+    NP, ids, prep = _mha_reference_pad(n, B=1)
+    ref, ref_l, ref_m = mha_reference_no_custom_vjp(*(prep(jnp.asarray(x.float().numpy())) for x in (q, k, v)),
+                                                    None, ids, sm_scale=D ** -0.5, save_residuals=True)
+    ref_lse = np.asarray((ref_m + jnp.log(ref_l))[0, :, :n])
     for h in range(q.shape[2]):
-        o, l2 = _emulate_forward(_head(q, h), _head(k, h), _head(v, h))
+        o, l2 = _emulate_forward(_head(q, h), _head(k, h), _head(v, h), lazy=lazy)
         assert (o - _head(out, h)).abs().max().item() <= K1_TOL
+        assert np.abs(o.numpy() - np.asarray(ref[0, h, :n])).max() <= K1_TOL
         np.testing.assert_allclose(l2.numpy(), lse[0, h].numpy(), atol=1e-5, rtol=0)
+        np.testing.assert_allclose(l2.numpy(), ref_lse[h], atol=1e-5, rtol=0)
+
+
+def test_lazy_rescale_at_d80_keeps_p_below_two_to_the_eight_and_moves_on_a_jump():
+    """Keys that grow along the walk: with the lazy rescale the running max
+    stays put while the logits grow by less than 8 (so P < 2^8 before its
+    bf16 rounding) and moves on a larger jump; the result is the plain
+    version's either way."""
+    n = 256
+    rng = np.random.default_rng(3)
+    q, base = (_bf16(torch.from_numpy(np.abs(rng.normal(size=(n, D))).astype(np.float32))) for _ in range(2))
+    # a row's logits in the four walked tiles: about 8 (base 2, a tile's max
+    # about 11) times 1, 1.05, 1.1, 2; q and k are drawn apart, so no row
+    # meets a key of its own
+    grow = np.repeat(np.array([0.0, 0.05, 0.1, 1.0], np.float32), 64)[:, None]
+    k = _bf16(base * torch.from_numpy(1 + grow))
+    v = _bf16(_t(_inputs(n, seed=4, B=1, H=1, count=1)[0][0, :, 0]))
+    trace = []
+    out, lse = _emulate_forward(q, k, v, lazy=True, trace=trace)
+    qb, kb, vb = (x[None, :, None].to(torch.bfloat16) for x in (q, k, v))
+    assert (out - attention_plain(qb, kb, vb)[0, :, 0].float()).abs().max().item() <= K1_TOL
+    assert (lse - attention_lse_plain(qb, kb)[0, 0]).abs().max().item() <= 1e-5
+    moves = {(i, t): moved for i, t, moved, _ in trace}
+    assert all(moves[i, 0] == 4 for i in range(4))  # the first tile sets the max of every warp
+    assert all(moves[i, 1] == 0 and moves[i, 2] == 0 for i in range(4))  # growth below 8: no move
+    assert all(moves[i, 3] > 0 for i in range(4))  # the jump
+    assert max(p for *_, p in trace) < 2 ** 8
+
+
+def test_drifting_keys_move_the_running_max_along_the_walk():
+    """The card's case of keys that drift along the walk (12 n / N added
+    to every value of key row n, tools/bench_attention_bwd.drifting_keys;
+    tests/test_torch_kernels.py): at 1921 tokens the running max of some
+    warps moves after the first tile, so the lazy rescale's jump runs, and
+    the walk still meets the plain versions."""
+    n = 1921
+    q, k, v = (_t(a).to(torch.bfloat16) for a in _inputs(n, seed=11, B=1, H=1, count=3))
+    k = (k.float() + 12 * torch.arange(n, dtype=torch.float32)[None, :, None, None] / n).to(torch.bfloat16)
+    trace = []
+    out, lse = _emulate_forward(_head(q, 0), _head(k, 0), _head(v, 0), trace=trace)
+    assert sum(moved for _, t, moved, _ in trace if t > 0) > 0
+    assert max(p for *_, p in trace) < 2 ** 8
+    assert (out - attention_plain(q, k, v)[0, :, 0].float()).abs().max().item() <= K1_TOL
+    assert (lse - attention_lse_plain(q, k)[0, 0]).abs().max().item() <= 1e-5
 
 
 @pytest.mark.parametrize("qt", QTS)
@@ -369,3 +467,31 @@ def test_the_ptxas_gate_reads_each_kernels_setmaxnreg_split():
                "producer": 24, "consumer": 240},
         "dkv": {"registers": 128, "stack": 0, "spill_stores": 8, "spill_loads": 8, "wgs": 1, "stages": 2, "blocks": 2,
                 "qt": 32, "producer": 24, "consumer": 232}}
+
+
+def test_the_ptxas_gate_reads_the_forwards_two_instantiations():
+    """The D = 80 forward is built in two instantiations (the block shape
+    of most grids and of grids short of one wave); the gate and the bench
+    tool key each by its warpgroups, ring slots and blocks per SM, with its
+    setmaxnreg split, and a spill shows."""
+    from scenedino_torch.tools.bench_attention_bwd import FWD80_MACROS, forward_report, parse_fwd_variant
+
+    src = (build.CSRC / "attention_d80.cu").read_text()
+    for macro, value in zip(FWD80_MACROS, (3, 3, 1, 2, 3, 1)):
+        assert f"#define {macro} {value}\n" in src, macro
+    assert parse_fwd_variant("3,3,1", FWD80_MACROS) == {"FWD80_WGS": 3, "FWD80_STAGES": 3, "FWD80_BLOCKS": 1}
+    assert parse_fwd_variant("3,3,1/1,3,2", FWD80_MACROS)["FWD80_SMALL_BLOCKS"] == 2
+    entry = "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_1{}' for 'sm_90a'"
+    log = "\n".join([
+        entry.format("24attention_d80_fwd_kernelILi3ELi3ELi1EEEvNS_9Fwd80MapsENS_9Fwd80ArgsE"),
+        "ptxas info    : Used 128 registers, used 16 barriers",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        entry.format("24attention_d80_fwd_kernelILi2ELi3ELi1EEEvNS_9Fwd80MapsENS_9Fwd80ArgsE"),
+        "ptxas info    : Used 168 registers, used 16 barriers",
+        "    0 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads",
+    ])
+    assert forward_report(log) == {
+        "fwd 3,3,1": {"registers": 128, "stack": 0, "spill_stores": 0, "spill_loads": 0, "wgs": 3, "stages": 3,
+                      "blocks": 1, "producer": 24, "consumer": 160},
+        "fwd 2,3,1": {"registers": 168, "stack": 0, "spill_stores": 4, "spill_loads": 4, "wgs": 2, "stages": 3,
+                      "blocks": 1, "producer": 24, "consumer": 240}}

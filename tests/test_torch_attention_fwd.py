@@ -204,7 +204,9 @@ def test_forward_library_hashes_the_hopper_header():
     assert names == ["attention.cu", "hopper.cuh"]
     text = (build.CSRC / "attention.cu").read_text()
     for needle in ("wgmma_m64n64k16_rs", "tma_load_4d", "tma_store_4d", "mbar_wait",
-                   "mbar_arrive", "registers_take", "fast_exp2", "allow_smem"):
+                   "mbar_arrive", "registers_take", "softmax_tile", "allow_smem"):
         assert needle in text, needle
+    # the online softmax (ex2.approx) is hopper.cuh's, shared with the D = 80 forward
+    assert "fast_exp2(fmaf(" in (build.CSRC / "hopper.cuh").read_text()
     for gone in ("wmma::", "cudaFuncSetAttribute"):  # the WMMA kernel it replaced; the attribute is set once per device
         assert gone not in text, gone

@@ -74,6 +74,9 @@ def test_build_targets_hopper_and_keys_libraries_by_source():
         path = build.library_path(name)
         assert path.parent == build.BUILD_DIR and path.name.startswith(f"lib{name}-")
         assert (build.CSRC / f"{name}.cu").exists()
+    # the K1 kernels at both head dims include hopper.cuh (the D = 80 pair its rows of 80 too), and nothing else
+    for name in ("attention", "attention_bwd", "attention_d80", "attention_d80_bwd"):
+        assert [p.name for p in build.sources(name)] == [f"{name}.cu", "hopper.cuh"], name
 
 
 def test_library_hash_covers_included_headers(tmp_path, monkeypatch):
@@ -646,19 +649,28 @@ def test_stage1_step_on_a_kitti_360_batch_matches_the_cpu(cuda, tmp_path):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,batch", [(1, 2), (31, 2), (32, 2), (33, 2), (63, 2), (64, 2), (65, 2), (127, 2),
-                                     (128, 2), (129, 2), (200, 2), (585, 1), (585, 4), (1921, 2)])
-def test_attention_d80_kernels_match_plain(cuda, n, batch):
+@pytest.mark.parametrize("n,batch,drift", [(1, 2, False), (31, 2, False), (32, 2, False), (33, 2, False),
+                                           (63, 2, False), (64, 2, False), (65, 2, False), (127, 2, False),
+                                           (128, 2, False), (129, 2, False), (200, 2, False), (585, 1, False),
+                                           (585, 4, False), (1921, 2, False), (1921, 2, True)])
+def test_attention_d80_kernels_match_plain(cuda, n, batch, drift):
     """K1 at head dim 80 (csrc/attention_d80.cu's forward, csrc/
     attention_d80_bwd.cu's dq and dkv): the forward with and without the
     log-sum-exp, dq and dkv against the plain versions, around the 32- and
-    64-row tiles and the 128-row block, at the I-JEPA-H/14 shapes and at
-    the D = 80 training step's token count; two launches bitwise equal."""
+    64-row tiles and the 128-row block, at the I-JEPA-H/14 shapes (one image
+    takes the forward's small-grid instantiation) and at the D = 80 training
+    step's token count; two launches bitwise equal. `drift`: keys that drift
+    along the walk (12 n / N added to key row n), so that the forward's
+    running max moves after the first tile (the lazy rescale's jump;
+    tests/test_torch_attention_d80.py shows it moves)."""
     from scenedino_torch.kernels.attention import attention_bwd_dkv, attention_bwd_dq
 
     g = torch.Generator(device=cuda).manual_seed(200 + n)
     heads = {585: 16, 1921: 12}.get(n, 3)
     q, k, v, do = (torch.randn(batch, n, heads, 80, generator=g, device=cuda).to(torch.bfloat16) for _ in range(4))
+    if drift:
+        k = (k.float() + 12 * torch.arange(n, device=cuda, dtype=torch.float32)[None, :, None, None] / n).to(
+            torch.bfloat16)
     before = launches()
     out, lse = attention_fwd(q, k, v, with_lse=True)
     plain_out = attention_fwd(q, k, v)[0]
