@@ -193,7 +193,12 @@ Phases, one line each:
              kernels' device time beside the kernels') and bound times,
              dq + dkv's TFLOP/s over their 7 products and share of the
              SDPA backward; the kernels line's D = 80 entries are timed at
-             the student's shape. 11b: the
+             the student's shape; then keys scaled by 1 + 4 n / N
+             (ROADMAP queue 3): the card test's input (2, 1921, 12, 80)
+             through the D = 80 forward (held at K1's bound), SDPA, the
+             D = 64 forward on the same construction at D = 64 and the fp32
+             plain version, and the same construction at 4 seeds and 4
+             shapes at both head dims, printed. 11b: the
              I-JEPA-H/14 backbone (32 blocks, width 1280, 16 heads of 80, no
              class token) from seeded weights in the reference's layout
              through utils.convert.convert_ssl_vit into make_vit
@@ -213,12 +218,31 @@ Phases, one line each:
              losses finite, no step skipped, every student parameter moved,
              the validation finite; the teacher's K1 shape (64, 1921, 12,
              64) timed as phase 2 times its own
+  12 re10k  the RealEstate10K path. 12a: a seeded tree in the release's
+             layout (2 sequences of 100 camera rows as train/<seq>.txt,
+             through cli.process_re10k process into train.pickle; the 10
+             frames a sequence that the loader's ::10 subsample reads, as
+             640x360 baseline 4:2:0 JPEGs by image_io.write_jpeg), the
+             decode of each frame against what was written (PSNR), a
+             frame's decode and INTER_AREA resize, an item and a batch of 4
+             (host ms); 12b: cli.train.main on train_scenedino_re10k.yaml at
+             full width (ViT-B/8 student and teacher, DPT 256, FeatUp, bf16,
+             288x512, batch 4, 4 frames, the "alternate" split; cuts: 3
+             steps, a validation of 2 items, one checkpoint): each step's
+             host ms and loader wait, peak memory, the losses finite, no
+             step skipped, every student tensor moved, the launches; 12c:
+             K1's forward at the batches 12b gave it at 2305 tokens
+             (the student's (4, 2305, 12, 64) with the log-sum-exp, the
+             teacher's 8, the validation's 1 and 4) and dq + dkv at (4, 2305,
+             12, 64) against their plain versions (phase 2's bounds), two
+             launches bitwise equal, kernel, plain, SDPA and bound times
   kernels    one JSON line: launches (all serving paths, training, the
-             train run, stage 2, evaluation, phases 9, 10 and 11 together), error, times and
+             train run, stage 2, evaluation, phases 9-12 together), error, times and
              bound per kernel; the K1 forward's, K4's and K6's also at
              their shapes ("shapes": K4 at the evaluation's block, K6 at
              the 2D evaluator's fp32 frame; phase 9's holds of K1, K2, K4
-             and K6 under "reference checkpoints")
+             and K6 under "reference checkpoints"; K1's forward, dq and dkv at
+             the RE10K recipe's 2305 tokens under "RE10K recipe")
 The line before the last is the card's name and power limit as
 nvidia-smi prints them; the last line is {"ok": true, "device": {...}}.
 Any failed phase exits non-zero before that line. Needs one CUDA card;
@@ -322,6 +346,22 @@ D80_SHAPES = ((1, 585, 16), (4, 585, 16), (4, 1921, 12), (2, 1921, 12))
 # of 80; batch, steps) and the upsampler recipe's (steps, validation items)
 D80_TRAIN_WIDTH, D80_TRAIN_B, D80_TRAIN_STEPS = 960, 2, 2
 UPSAMPLER_STEPS, UPSAMPLER_VAL_ITEMS = 3, 2
+# phase 11a, keys scaled by 1 + 4 n / N along the walk (ROADMAP queue 3):
+# tests/test_torch_kernels.py::test_attention_d80_kernels_match_plain's input
+# (its seed 200 + N), held at K1_TOL like every shape; the same construction
+# at other seeds and shapes, both head dims and SDPA, printed beside it
+SCALED_KEYS = (2, 1921, 12)
+SCALED_SWEEP = ((4, 585, 16), (2, 1921, 12), (4, 1921, 12), (4, 2305, 12))
+SCALED_SEEDS = (1, 2, 3)
+# phase 12: the RealEstate10K tree (sequences, camera rows each; frames are
+# the rows the loader's ::10 subsample reads, 640x360 as the repository's
+# download fetches them), the JPEGs' quality and the least PSNR of the
+# decoded frames against what was written, the recipe's cuts (steps,
+# validation items)
+RE10K_SEQS, RE10K_ROWS, RE10K_FRAME = 2, 100, (360, 640)
+RE10K_QUALITY, RE10K_PSNR_MIN = 90, 30.0
+RE10K_STEPS, RE10K_VAL_ITEMS = 3, 2
+RE10K_H, RE10K_W = 288, 512  # the recipe's image_size: 36 x 64 patches of 8 and the class token, 2305 tokens
 # phase 11b: the I-JEPA-H/14 ViT's first blocks at 196x518 (14 x 37 = 518
 # tokens, so the card takes K1) on the GPU against the CPU, both bf16
 IJEPA_CHECK_DEPTH, IJEPA_CHECK_SIZE = 2, (196, 518)
@@ -348,14 +388,15 @@ def intrinsics(device):
     return torch.tensor([[0.7, 0.0, 0.0], [0.0, 2.3, 0.0], [0.0, 0.0, 1.0]], device=device)
 
 
-def k1_forward_shape(gen, B, with_lse, path, phase="phase 2"):
-    """K1's forward at (B, 1921, 12, 64) bf16: output and (where the path
-    asks for it) log-sum-exp against the plain versions, two launches
-    bitwise equal, kernel, plain, SDPA and bound times; the shape's entry."""
+def k1_forward_shape(gen, B, with_lse, path, phase="phase 2", N=1921):
+    """K1's forward at (B, N, 12, 64) bf16 (N = 1921 at 192x640, 2305 at
+    288x512): output and (where the path asks for it) log-sum-exp against
+    the plain versions, two launches bitwise equal, kernel, plain, SDPA and
+    bound times; the shape's entry."""
     from scenedino_torch.kernels.attention import attention_fwd, attention_lse_plain, attention_plain
     from scenedino_torch.utils.timing import time_ms
 
-    N, Hh, D = 1921, 12, 64
+    Hh, D = 12, 64
     q, k, v = (torch.randn(B, N, Hh, D, generator=gen, device="cuda").to(torch.bfloat16) for _ in range(3))
     out, lse = attention_fwd(q, k, v, with_lse=with_lse)
     again = attention_fwd(q, k, v, with_lse=with_lse)
@@ -395,7 +436,10 @@ def phase_k1(gen):
             "shapes": shapes}
 
 
-def phase_k1_bwd(gen):
+def k1_backward_shape(gen, B, N, phase="phase 2b"):
+    """The backward kernels (dq; dk and dv) at (B, N, 12, 64) bf16 against
+    the plain fp32 backward, two launches bitwise equal, kernel, plain, SDPA
+    and bound times; the shape's entry."""
     from scenedino_torch.kernels.attention import (
         attention_bwd_dkv,
         attention_bwd_dq,
@@ -404,7 +448,7 @@ def phase_k1_bwd(gen):
     )
     from scenedino_torch.utils.timing import time_ms
 
-    B, N, Hh, D = 4, 1921, 12, 64
+    Hh, D = 12, 64
     q, k, v, do = (torch.randn(B, N, Hh, D, generator=gen, device="cuda").to(torch.bfloat16) for _ in range(4))
     o, lse = attention_fwd(q, k, v, with_lse=True)
     dq, di = attention_bwd_dq(q, k, v, o, do, lse)
@@ -414,14 +458,15 @@ def phase_k1_bwd(gen):
     dk2, dv2 = attention_bwd_dkv(q, k, v, do, lse, di2)
     torch.cuda.synchronize()
     if not all(torch.equal(a, b) for a, b in ((dq, dq2), (di, di2), (dk, dk2), (dv, dv2))):
-        fail("K1 backward: two launches on the same inputs differ")
+        fail(f"K1 backward ({B}, {N}, {Hh}, {D}): two launches on the same inputs differ")
     ref = attention_bwd_plain(q, k, v, o, do, lse)
     errs, bounds = [], []
     for name, got, r in zip(("dq", "dk", "dv"), (dq, dk, dv), ref):
         errs.append((got.float() - r.float()).abs().max().item())
         bounds.append(K1_BWD_REL * r.float().abs().max().item() + 1e-3)
         if not (torch.isfinite(got).all() and errs[-1] <= bounds[-1]):
-            fail(f"K1 backward {name} disagrees with the plain backward: max abs err {errs[-1]} > {bounds[-1]}")
+            fail(f"K1 backward {name} ({B}, {N}, {Hh}, {D}) disagrees with the plain backward: max abs err "
+                 f"{errs[-1]} > {bounds[-1]}")
 
     ms_dq = time_ms(lambda: attention_bwd_dq(q, k, v, o, do, lse), inner=5)
     ms_dkv = time_ms(lambda: attention_bwd_dkv(q, k, v, do, lse, di), inner=5)
@@ -439,7 +484,7 @@ def phase_k1_bwd(gen):
     b_dkv, by_dkv = bound_ms(4 * unit, 6 * t_bytes + 2 * s_bytes)  # q k v dO dk dv; lse, di
     b_all, by_all = bound_ms(5 * unit, 8 * t_bytes + s_bytes)
     bytes_ms = [n / PEAK_BYTES * 1e3 for n in (6 * t_bytes + 2 * s_bytes, 8 * t_bytes + s_bytes)]
-    print(f"phase 2b K1 backward ({B}, {N}, {Hh}, {D}) bf16: max_abs_err dq {errs[0]:.3e} (bound {bounds[0]:.3e}), "
+    print(f"{phase} K1 backward ({B}, {N}, {Hh}, {D}) bf16: max_abs_err dq {errs[0]:.3e} (bound {bounds[0]:.3e}), "
           f"dk {errs[1]:.3e} (bound {bounds[1]:.3e}), dv {errs[2]:.3e} (bound {bounds[2]:.3e}); kernel dq "
           f"{ms_dq:.4f} ms, dkv {ms_dkv:.4f} ms, together {ms_dq + ms_dkv:.4f} ms "
           f"({7 * unit / (ms_dq + ms_dkv) / 1e9:.1f} TFLOP/s over their 7 products; two launches bitwise equal); "
@@ -448,13 +493,28 @@ def phase_k1_bwd(gen):
           f"{b_dkv:.4f} ms ({by_dkv}), the whole backward at 10 N^2 D B H FLOP {b_all:.4f} ms ({by_all}); "
           f"bytes terms: each kernel {bytes_ms[0]:.4f} ms, the whole backward {bytes_ms[1]:.4f} ms",
           flush=True)
-    common = {"route": "cuda", "source": "scenedino_torch/csrc/attention_bwd.cu", "plain_ms": plain_ms,
-              "library_ms": lib_ms}
+    return {"shape": [B, N, Hh, D], "bwd_errs": errs, "ms_dq": ms_dq, "ms_dkv": ms_dkv, "plain_ms": plain_ms,
+            "library_ms": lib_ms, "bound_dq_ms": b_dq, "bound_dq_by": by_dq, "bound_dkv_ms": b_dkv,
+            "bound_dkv_by": by_dkv}
+
+
+def bwd_entries(e):
+    """A `k1_backward_shape` entry as the kernels line's dq and dkv fields."""
+    return ({"max_abs_err": e["bwd_errs"][0], "ms": e["ms_dq"], "bound_ms": e["bound_dq_ms"],
+             "bound_by": e["bound_dq_by"], "plain_ms": e["plain_ms"], "library_ms": e["library_ms"]},
+            {"max_abs_err": max(e["bwd_errs"][1:]), "ms": e["ms_dkv"], "bound_ms": e["bound_dkv_ms"],
+             "bound_by": e["bound_dkv_by"], "plain_ms": e["plain_ms"], "library_ms": e["library_ms"]})
+
+
+def phase_k1_bwd(gen):
+    """Phase 2b: the backward kernels at the training step's student (4, 1921, 12, 64)."""
+    dq, dkv = bwd_entries(k1_backward_shape(gen, 4, 1921))
+    common = {"route": "cuda", "source": "scenedino_torch/csrc/attention_bwd.cu"}
     return [
         {"name": "attention_bwd_dq", "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:1287",
-         "max_abs_err": errs[0], "ms": ms_dq, "bound_ms": b_dq, "bound_by": by_dq, **common},
+         **dq, **common},
         {"name": "attention_bwd_dkv", "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:941",
-         "max_abs_err": max(errs[1:]), "ms": ms_dkv, "bound_ms": b_dkv, "bound_by": by_dkv, **common},
+         **dkv, **common},
     ]
 
 
@@ -2934,11 +2994,63 @@ def k1_d80_shape(gen, B, N, Hh):
             "bound_dq_ms": b_dq, "bound_dq_by": by_dq, "bound_dkv_ms": b_dkv, "bound_dkv_by": by_dkv}
 
 
+def _scaled_keys(B, N, Hh, D, seed):
+    """q, k, v of (B, N, Hh, D) bf16 from `seed`, key row n scaled by 1 + 4 n / N."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v = (torch.randn(B, N, Hh, D, generator=g, device="cuda").to(torch.bfloat16) for _ in range(3))
+    ramp = torch.arange(N, device="cuda", dtype=torch.float32)[None, :, None, None] / N
+    return q, (k.float() * (1 + 4 * ramp)).to(torch.bfloat16), v
+
+
+def _scaled_errors(q, k, v):
+    """The K1 forward (at q's head dim) and SDPA against the fp32 plain
+    version rounded to bf16 (`attention_plain`, the card test's yardstick)
+    and unrounded; the rounding's own error; the largest |out|."""
+    from scenedino_torch.kernels.attention import attention_fwd, attention_plain
+
+    s = torch.einsum("bnhd,bmhd->bhnm", q.float(), k.float()) * q.shape[-1] ** -0.5
+    fp32 = torch.einsum("bhnm,bmhd->bnhd", torch.softmax(s, -1), v.float())
+    plain = attention_plain(q, k, v).float()
+    kernel = attention_fwd(q, k, v)[0].float()
+    sdpa = torch.nn.functional.scaled_dot_product_attention(*(t.transpose(1, 2) for t in (q, k, v)))
+    sdpa = sdpa.transpose(1, 2).float()
+    return {"kernel": (kernel - plain).abs().max().item(), "sdpa": (sdpa - plain).abs().max().item(),
+            "kernel_fp32": (kernel - fp32).abs().max().item(), "sdpa_fp32": (sdpa - fp32).abs().max().item(),
+            "plain_fp32": (plain - fp32).abs().max().item(), "max_out": fp32.abs().max().item()}
+
+
+def phase_scaled_keys():
+    """Phase 11a, ROADMAP queue 3 item A: the card test's scaled-keys input
+    through the D = 80 forward, SDPA, the D = 64 forward on the same
+    construction at D = 64, and the fp32 plain version; the D = 80 forward
+    held at K1_TOL against `attention_plain` there. Then the same
+    construction at other seeds and shapes, printed (the record of where
+    each implementation lands: one bf16 step at |out| >= 4 is 3.125e-2)."""
+    B, N, Hh = SCALED_KEYS
+    at = {D: _scaled_errors(*_scaled_keys(B, N, Hh, D, 200 + N)) for D in (80, 64)}
+    print(f"phase 11a scaled keys ({B}, {N}, {Hh}, D) bf16, key row n x (1 + 4 n / N), seed {200 + N}: D = 80 "
+          f"forward {at[80]['kernel']:.4e} against the plain version rounded to bf16 (bound {K1_TOL}), SDPA "
+          f"{at[80]['sdpa']:.4e}, the D = 64 forward on the same construction {at[64]['kernel']:.4e} (SDPA "
+          f"{at[64]['sdpa']:.4e}); against the fp32 plain version unrounded: D = 80 forward "
+          f"{at[80]['kernel_fp32']:.4e}, SDPA {at[80]['sdpa_fp32']:.4e}, D = 64 forward {at[64]['kernel_fp32']:.4e}, "
+          f"the bf16 rounding itself {at[80]['plain_fp32']:.4e}; largest |out| {at[80]['max_out']:.3f}", flush=True)
+    if not at[80]["kernel"] <= K1_TOL:
+        fail(f"the D = 80 forward on scaled keys reads {at[80]['kernel']} against its plain version (bound {K1_TOL})")
+    sweep = {}
+    for D in (80, 64):
+        for b, n, h in SCALED_SWEEP:
+            errs = [_scaled_errors(*_scaled_keys(b, n, h, D, seed)) for seed in (200 + n,) + SCALED_SEEDS]
+            sweep[f"D{D} ({b}, {n}, {h})"] = [[round(e["kernel"], 6), round(e["sdpa"], 6)] for e in errs]
+    print(f"phase 11a scaled keys at seeds {[200] + list(SCALED_SEEDS)} (the first 200 + N), [forward, SDPA] "
+          f"against the plain version rounded to bf16, not gated: {json.dumps(sweep)}", flush=True)
+
+
 def phase_d80_kernels(gen):
-    """Phase 11a: the three D = 80 kernels at `D80_SHAPES`; their entries
-    timed at the D = 80 training step's student (2, 1921, 12, 80), where the
-    card's time is the kernels' and not the host's."""
+    """Phase 11a: the three D = 80 kernels at `D80_SHAPES`, and the scaled
+    keys; their entries timed at the D = 80 training step's student (2, 1921,
+    12, 80), where the card's time is the kernels' and not the host's."""
     shapes = [k1_d80_shape(gen, *shape) for shape in D80_SHAPES]
+    phase_scaled_keys()
     fwd = bwd = shapes[-1]
     route = {"route": "cuda", "shapes": shapes}
     bwd_source = {"source": "scenedino_torch/csrc/attention_d80_bwd.cu", **route}
@@ -3171,6 +3283,209 @@ def phase_d80_and_upsample_gt(seed, root, scratch):
     return {k: ijepa[k] + train[k] + up[k] for k in ijepa}, shapes
 
 
+def _re10k_frame(seq, row):
+    """Frame `row` of sequence `seq`: phase 10's low-frequency field moved
+    along x, a finer pattern and noise (sigma 4), so that its coefficients
+    are not all zero (uint8, 360x640x3)."""
+    base = _texture(1200 + seq, RE10K_FRAME, 3.0 * row).astype(np.float32)
+    y, x = np.mgrid[0:RE10K_FRAME[0], 0:RE10K_FRAME[1]].astype(np.float32)
+    detail = 25 * np.sin((x + 3.0 * row) / 3.1 + 4 * np.sin(y / 17.0))[..., None] * np.array([1.0, 0.8, 0.6])
+    noise = np.random.default_rng(1300 + 97 * seq + row).normal(0, 4, base.shape)
+    return np.clip(base + detail + noise, 0, 255).astype(np.uint8)
+
+
+def write_re10k_tree(root, seed):
+    """A RealEstate10K tree in the release's layout: `train/<seq>.txt` camera
+    files (a URL line, then per row the microsecond timestamp, fx fy cx cy in
+    units of the frame, two zeros and the 3x4 world-to-camera pose of a
+    camera walking forward and turning slowly), through `cli.process_re10k
+    process` into `train.pickle`; `frames_720/train/<seq>/<ms>.jpg` for the
+    rows the loader's ::10 subsample reads, written by `image_io.write_jpeg`.
+    Returns (the pickle's path, the frames written, the least PSNR of their
+    decode against the pixels written, write ms and decode ms per frame)."""
+    from scenedino_torch.cli import process_re10k
+    from scenedino_torch.datasets.image_io import read_jpeg, write_jpeg
+
+    rng = np.random.default_rng(seed)
+    os.makedirs(os.path.join(root, "train"))
+    psnr, write_ms, decode_ms, n = [], [], [], 0
+    for s in range(RE10K_SEQS):
+        name = f"{seed:08x}{s:08x}"
+        ts = 1_000_000 * (s + 1) + np.arange(RE10K_ROWS, dtype=np.int64) * 33_367
+        lines = [f"https://www.youtube.com/watch?v=seq{s}"]
+        for i, t in enumerate(ts):
+            a = 0.003 * i + 0.2 * s
+            c2w = np.eye(4)
+            c2w[:3, :3] = [[np.cos(a), 0, np.sin(a)], [0, 1, 0], [-np.sin(a), 0, np.cos(a)]]
+            c2w[:3, 3] = [0.01 * i, 0.002 * rng.standard_normal(), 0.04 * i]
+            w2c = np.linalg.inv(c2w)[:3]
+            intr = [0.5, 0.5 * RE10K_FRAME[1] / RE10K_FRAME[0], 0.5, 0.5, 0.0, 0.0]
+            lines.append(" ".join([str(int(t))] + [f"{v:.9f}" for v in intr + w2c.reshape(-1).tolist()]))
+        with open(os.path.join(root, "train", f"{name}.txt"), "w") as f:
+            f.write("\n".join(lines))
+        frames = os.path.join(root, "frames_720", "train", name)
+        os.makedirs(frames)
+        for i in range(0, RE10K_ROWS, 10):
+            img = _re10k_frame(s, i)
+            path = os.path.join(frames, f"{int(ts[i]) // 1000}.jpg")
+            t0 = time.perf_counter()
+            write_jpeg(path, img, quality=RE10K_QUALITY)
+            t1 = time.perf_counter()
+            back = read_jpeg(path)
+            decode_ms.append((time.perf_counter() - t1) * 1e3)
+            write_ms.append((t1 - t0) * 1e3)
+            psnr.append(10 * np.log10(255.0 ** 2 / np.mean((back.astype(np.float64) - img) ** 2)))
+            n += 1
+    process_re10k.main(["process", "-m", "train", "-d", root])
+    return os.path.join(root, "train.pickle"), n, min(psnr), write_ms, decode_ms
+
+
+def phase_re10k_tree(seed, scratch):
+    """Phase 12a: the tree, the decode's fidelity, and the loader's host ms
+    (a frame's decode and resize, an item, a batch of 4). Returns (the
+    pickle's path, the loader's ms)."""
+    from scenedino_torch.datasets import make_datasets
+    from scenedino_torch.datasets.image_io import read_jpeg, resize_area
+    from scenedino_torch.datasets.re10k import center_crop_to_aspect
+    from scenedino_torch.utils.config import load
+    from scenedino_torch.utils.prefetch import ThreadedLoader
+
+    root = tempfile.mkdtemp(prefix="re10k_", dir=scratch)
+    t0 = time.perf_counter()
+    data_path, n, psnr, write_ms, decode_ms = write_re10k_tree(root, seed + 120)
+    tree_s = time.perf_counter() - t0
+    repo = os.path.dirname(os.path.abspath(__file__))
+    conf = load(os.path.join(repo, "configs", "train_scenedino_re10k.yaml"))["dataset"]
+    conf["data_path"] = data_path
+    train, test = make_datasets(conf)
+    h, w = conf["image_size"]
+    frames = os.path.join(root, "frames_720", "train")
+    seq_dir = os.path.join(frames, sorted(os.listdir(frames))[0])
+    img = read_jpeg(os.path.join(seq_dir, sorted(os.listdir(seq_dir))[0])).astype(np.float32) / 255.0
+    crop = center_crop_to_aspect(img, w / h)[0]
+    resize_ms = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        resize_area(crop, (h, w))
+        resize_ms.append((time.perf_counter() - t0) * 1e3)
+    item_ms = []
+    for i in range(4):
+        t0 = time.perf_counter()
+        item = train[i]
+        item_ms.append((time.perf_counter() - t0) * 1e3)
+    ok = item["imgs"].shape == (conf["data_fc"], 3, h, w) and all(np.isfinite(item[k]).all() for k in item)
+    plan = [list(range(i, i + 4)) for i in range(0, len(train) - 3, 4)]
+    t0 = time.perf_counter()
+    nb = sum(1 for _ in ThreadedLoader(train, plan, num_workers=4))
+    batch_ms = (time.perf_counter() - t0) * 1e3 / nb
+    ms = {"decode": float(np.median(decode_ms)), "resize": float(np.median(resize_ms)),
+          "item": float(np.median(item_ms)), "batch_of_4": batch_ms}
+    print(f"phase 12a tree: {RE10K_SEQS} sequences of {RE10K_ROWS} camera rows (train/<seq>.txt) through "
+          f"cli.process_re10k process into train.pickle, {n} frames at {RE10K_FRAME[1]}x{RE10K_FRAME[0]} (the rows "
+          f"the ::10 subsample reads) as baseline 4:2:0 JPEGs by image_io.write_jpeg at quality {RE10K_QUALITY}, in "
+          f"{tree_s:.1f} s; decode(write(x)) against x: least PSNR {psnr:.2f} dB (bound {RE10K_PSNR_MIN}); "
+          f"configs/train_scenedino_re10k.yaml's dataset block: {len(train)} windows of {conf['data_fc']} frames "
+          f"{conf['dilation']} rows apart, the test instance {'the training set' if test is train else len(test)}; "
+          f"an item {tuple(item['imgs'].shape)} finite: {ok}", flush=True)
+    print(f"phase 12a loader (host ms): a frame's write {np.median(write_ms):.1f}, its decode {ms['decode']:.1f} "
+          f"(each: {json.dumps([round(t, 1) for t in decode_ms])}), the crop's INTER_AREA resize {w}x{h} "
+          f"{ms['resize']:.2f}, an item of {conf['data_fc']} frames {json.dumps([round(t, 1) for t in item_ms])}, "
+          f"a batch of 4 by ThreadedLoader (4 threads, {nb} batches) {batch_ms:.1f}", flush=True)
+    if not (psnr >= RE10K_PSNR_MIN and ok and len(train) > 0):
+        fail("the RE10K tree's frames do not decode to what was written, or an item is wrong")
+    return data_path, ms
+
+
+def phase_re10k_train(data_path, scratch):
+    """Phase 12b: cli.train.main on configs/train_scenedino_re10k.yaml at full
+    width on the tree. Returns (its launches, each step's host and
+    loader-wait ms)."""
+    from scenedino_torch import kernels
+    from scenedino_torch.cli import train as cli
+    from scenedino_torch.models.factory import make_model
+    from scenedino_torch.training import trainer
+    from scenedino_torch.utils.config import load, save_run_config
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    conf = load(os.path.join(repo, "configs", "train_scenedino_re10k.yaml"))
+    conf["dataset"]["data_path"] = data_path
+    out = tempfile.mkdtemp(prefix="re10k_s1_", dir=scratch)
+    conf["output"]["path"] = out
+    conf["training"].update(stop_iteration=RE10K_STEPS, checkpoint_every=RE10K_STEPS, log_every=1)
+    vconf = conf["validation"]["validation"]
+    vconf["events"][0]["args"]["every"] = RE10K_STEPS
+    vconf["subset"]["args"] = {"start": 0, "end": RE10K_VAL_ITEMS}
+    path = save_run_config(tempfile.mkdtemp(prefix="re10k_s1_config_", dir=scratch), conf)
+    model_conf, tcfg = trainer.configs_from_dict(conf)[:2]
+    enc = model_conf["encoder"]
+    print(f"phase 12b stage 1: cli.train.main --config configs/train_scenedino_re10k.yaml at full width "
+          f"({enc['encoder_arch']} {enc['version']} student and teacher, DPT {enc['decoder_out_dim']}, "
+          f"{enc['downsampler_arch']}, with_amp {conf['with_amp']}, {enc['image_size']}, batch {conf['batch_size']}, "
+          f"{conf['dataset']['data_fc']} frames, loss_renderer_strategy {tcfg.loss_renderer_strategy}); cuts: "
+          f"data_path -> the seeded tree, stop_iteration {RE10K_STEPS}, validation every 5000 -> {RE10K_STEPS} over "
+          f"items 0-{RE10K_VAL_ITEMS - 1} (file: 0-127), checkpoint_every 10000 -> {RE10K_STEPS}, log_every 1",
+          flush=True)
+    with k1_batches() as seen:
+        records, counts, peak, wall = _logged(lambda: cli.main(["--config", path]), ("training", "validation"))
+    steps, vals = records.with_attr("losses"), records.with_attr("validator")
+    for r in steps:
+        print(f"phase 12b step {r.iteration}: loss {r.losses['rec_loss']:.6f}; host ms: waiting on the loader "
+              f"{r.data_ms:.1f}, then the step {r.step_ms:.1f}", flush=True)
+    for r in vals:
+        print(f"phase 12b validation at {r.iteration} ({r.ms:.1f} ms, no depth ground truth): "
+              f"{json.dumps({k: round(float(v), 6) for k, v in r.metrics.items()})}", flush=True)
+    depth = 12
+    # a step: the student's 12 blocks on frame 0 of the 4 items, the teacher's 12 on their 8 loss frames, the
+    # backward's 12; a validation item: 12 + 12
+    expect = {**{name: 0 for name in kernels.WRAPPERS},
+              "attention": RE10K_STEPS * 2 * depth + len(vals) * RE10K_VAL_ITEMS * 2 * depth,
+              "attention_bwd_dq": RE10K_STEPS * depth, "attention_bwd_dkv": RE10K_STEPS * depth}
+    ckpt_path = os.path.join(out, f"training_checkpoint_{RE10K_STEPS}.pt")
+    fresh = make_model(model_conf, device="cuda", seed=conf.get("seed", 0), training=True)
+    field = torch.load(ckpt_path, map_location="cuda", weights_only=True)["field"]
+    student = [n for n, p in fresh.named_parameters() if p.requires_grad]
+    still = [n for n in student if torch.equal(field[n], fresh.get_parameter(n))]
+    del fresh, field
+    print(f"phase 12b run: {len(steps)} steps in {wall:.1f} s wall (model build, data, steps, validation, "
+          f"checkpoint); peak memory allocated {peak:.3f} GiB; launches {json.dumps(counts)} (expected "
+          f"{json.dumps(expect)}); K1 forward (batch, with the lse) seen at 2305 tokens {sorted(seen)}; "
+          f"{len(student) - len(still)} of {len(student)} student tensors moved", flush=True)
+    if (len(steps) != RE10K_STEPS or not _finite(v for r in steps for v in r.losses.values())
+            or steps[-1].losses["nonfinite_total"] != 0):
+        fail("the RE10K run did not take its steps finite and applied")
+    if len(vals) != 1 or not _finite(vals[0].metrics.values()) or "dino_cos_sim" not in vals[0].metrics:
+        fail("the RE10K validation is missing its dino metric, or a metric is not finite")
+    if still:
+        fail(f"student parameters did not move in the RE10K run: {still[:8]}")
+    if counts != expect or not all(counts[k] > 0 for k in ("attention", "attention_bwd_dq", "attention_bwd_dkv")):
+        fail(f"the RE10K run launched {counts}, expected {expect}")
+    if not {(4, True), (8, False)} <= seen:
+        fail(f"the RE10K run gave K1 the batches {sorted(seen)}, expected the student's (4, lse) and teacher's 8")
+    return counts, [(r.step_ms, r.data_ms) for r in steps], seen
+
+
+def phase_re10k(seed, scratch):
+    """Phase 12: the RealEstate10K path (12a-12c). Returns its launches, K1's
+    forward at the shapes the run gave it (2305 tokens) and the backward at
+    the student's (4, 2305, 12, 64)."""
+    from scenedino_torch.utils.timing import card_line
+
+    t_phase = time.perf_counter()
+    data_path, loader_ms = phase_re10k_tree(seed, scratch)
+    counts, step_ms, seen = phase_re10k_train(data_path, scratch)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 121)
+    n = (RE10K_H // 8) * (RE10K_W // 8) + 1
+    forwards = [k1_forward_shape(gen, B, lse, "RE10K recipe", "phase 12c", N=n) for B, lse in sorted(seen)]
+    backward = k1_backward_shape(gen, 4, n, "phase 12c")
+    wait = [round(d / (s + d), 3) for s, d in step_ms]
+    print(f"phase 12 loader against the step: a frame's decode {loader_ms['decode']:.1f} ms, its resize "
+          f"{loader_ms['resize']:.2f} ms, an item {loader_ms['item']:.1f} ms, a batch of 4 "
+          f"{loader_ms['batch_of_4']:.1f} ms; stage-1 steps' host ms {[round(s, 1) for s, _ in step_ms]} after loader "
+          f"waits of {[round(d, 1) for _, d in step_ms]}: the wait's share of each step's wall {wait}; {card_line()}; "
+          f"phase 12 wall time {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return counts, forwards, backward
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -3249,7 +3564,8 @@ def main():
         reference, holds = phase_reference(args.seed, scratch, *trees)
         kitti, k1_kitti, kitti_root = phase_kitti(args.seed, scratch)
         d80_paths, k1_upsampler = phase_d80_and_upsample_gt(args.seed, kitti_root, scratch)
-    paths = (serving, training, train_run, stage2, stage2_conv, evaluation, reference, kitti, d80_paths)
+        re10k, k1_re10k, bwd_re10k = phase_re10k(args.seed, scratch)
+    paths = (serving, training, train_run, stage2, stage2_conv, evaluation, reference, kitti, d80_paths, re10k)
     for e in entries:
         e["launches"] = sum(p[e["name"]] for p in paths)
         if e["name"] == "point_query":
@@ -3261,7 +3577,13 @@ def main():
         if e["name"] == "attention":
             e["shapes"] += [{"path": "KITTI-360", **shape} for shape in k1_kitti]
             e["shapes"] += [{"path": "upsample-gt recipe", **shape} for shape in k1_upsampler]
-            e["max_abs_err"] = max([e["max_abs_err"]] + [shape["max_abs_err"] for shape in k1_kitti + k1_upsampler])
+            e["shapes"] += [{"path": "RE10K recipe", **shape} for shape in k1_re10k]
+            e["max_abs_err"] = max([e["max_abs_err"]] + [shape["max_abs_err"] for shape in
+                                                         k1_kitti + k1_upsampler + k1_re10k])
+        if e["name"] in ("attention_bwd_dq", "attention_bwd_dkv"):
+            shape = dict(zip(("attention_bwd_dq", "attention_bwd_dkv"), bwd_entries(bwd_re10k)))[e["name"]]
+            e["shapes"] = [{"path": "RE10K recipe", "shape": bwd_re10k["shape"], **shape}]
+            e["max_abs_err"] = max(e["max_abs_err"], shape["max_abs_err"])
         if e["name"] in holds:
             if isinstance(e.get("shapes"), list):
                 e["shapes"].append({"path": "reference checkpoints", **holds[e["name"]]})

@@ -6,6 +6,7 @@
     python -m scenedino_torch.cli.train --config configs/train_scenedino_kitti_360.yaml
     python -m scenedino_torch.cli.train --config configs/train_scenedino_kitti_360_upsampler.yaml
     python -m scenedino_torch.cli.train --config configs/train_semantic_kitti_360.yaml --stage semantic
+    python -m scenedino_torch.cli.train --config configs/train_scenedino_re10k.yaml
 
 The config is read by `utils.config` (no PyYAML). The run trains on the
 GPU unless `--device` names another device; without a GPU it raises
@@ -18,7 +19,10 @@ numpy RandomState seeded from it, the items loaded by `num_workers` threads
 (4 by default). The KITTI-360 recipes read a tree in the release's layout
 (`dataset.data_path`, `pose_path`, `split_path`); with `is_preprocessed:
 true` run `scenedino_torch.cli.preprocess_kitti_360 resize` on it once
-first. One device: the reference's data-parallel mesh is not ported.
+first. The RealEstate10K recipe reads `dataset.data_path`, a
+`<split>.pickle` beside `frames_720/<split>/` (`scenedino_torch.cli.process_re10k
+process` writes it from the release's camera files). One device: the
+reference's data-parallel mesh is not ported.
 
 `--stage nvs` (the default) trains the field (stage 1). `--stage semantic`
 distills a frozen field into the semantic head (stage 2, `run_stage2`):

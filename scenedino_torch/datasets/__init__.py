@@ -1,8 +1,8 @@
 """Dataset factories (counterpart of `scenedino_tpu/datasets/__init__.py`):
 the KITTI-360 loader (types old_KITTI_360, KITTI_360, KITTI_360_v2), the
+RealEstate10K loader (types RealEstate10k, RealEstate10K, re10k), the
 synthetic training set, and the evaluation sets SSCBench, Cityscapes_seg
-and BDD_seg. The RealEstate10K loader is not ported (ROADMAP queue 1,
-item 8)."""
+and BDD_seg."""
 from __future__ import annotations
 
 import os
@@ -66,8 +66,25 @@ def make_datasets(config: dict) -> Tuple:
                                return_depth=True, **common)
         return train, test
     if kind in RE10K_KINDS:
-        raise NotImplementedError(f"dataset type {kind!r}: the RealEstate10K loader is not ported (ROADMAP queue 1, "
-                                  "item 8)")
+        from scenedino_torch.datasets.re10k import RealEstate10kDataset
+
+        # a directory split_path: its train_files.txt where there is one (else
+        # the full windows) and its val_files.txt for the test instance
+        # (scenedino_tpu/datasets/__init__.py:92-116); no test split: the
+        # training set serves as the test instance
+        split_path = config.get("split_path")
+        test_split_path = config.get("test_split_path")
+        if split_path is not None and os.path.isdir(split_path):
+            if test_split_path is None:
+                test_split_path = os.path.join(split_path, "val_files.txt")
+            train_file = os.path.join(split_path, "train_files.txt")
+            split_path = train_file if os.path.isfile(train_file) else None
+        common = dict(data_path=config["data_path"], image_size=tuple(config.get("image_size", (256, 384))),
+                      frame_count=config.get("data_fc", 4), dilation=config.get("dilation", 3))
+        train = RealEstate10kDataset(split_path=split_path, **common)
+        if test_split_path is None:
+            return train, train
+        return train, RealEstate10kDataset(split_path=test_split_path, **common)
     if kind == "synthetic":
         from scenedino_torch.datasets.synthetic import SyntheticMultiViewDataset
 
@@ -120,7 +137,8 @@ def make_test_dataset(config: dict):
     build the test instance from the block's test split (a directory's
     test_files.txt) with depth, the block's fisheye offset (default 1, not
     make_datasets' pinned 10; scenedino/datasets/__init__.py:220-240) and
-    no colour jitter; other kinds take make_datasets' test instance."""
+    no colour jitter; other kinds (RealEstate10K among them) take
+    make_datasets' test instance."""
     kind = config.get("type")
     size = tuple(config.get("image_size", (192, 640)))
     if kind == "Cityscapes_seg":

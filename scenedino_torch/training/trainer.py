@@ -13,11 +13,13 @@ on the artifact field, with the reference's non-finite step skip.
 
 Every random draw of a step is an explicit input (`Stage1Draws`);
 `draw_stage1` draws them from a `torch.Generator` with the reference's
-distributions. Not ported yet (each raises): the uncertainty and
-consistency branches, gradient accumulation, the
-"alternate" frame split, the `debug_stats` scalars, the NeRF sample-count
-schedule (`ScheduledTrainStep`) and the occupancy probe of the validation
-render.
+distributions. The loss/render frame split is the KITTI-360 recipe's
+("kitti_360": a coin per stereo pair) or the RealEstate10K recipe's
+("alternate": one coin for the sample, the even or the odd frames give the
+loss), the two that the JAX step runs. Not ported yet (each raises): the
+uncertainty and consistency branches, gradient accumulation, the
+`debug_stats` scalars, the NeRF sample-count schedule
+(`ScheduledTrainStep`) and the occupancy probe of the validation render.
 """
 from __future__ import annotations
 
@@ -64,12 +66,16 @@ class TrainConfig:
     debug_stats: bool = False
 
 
+# the frame splits of the JAX step (scenedino_tpu/training/trainer.py:182-190)
+LOSS_RENDERER_STRATEGIES = ("kitti_360", "alternate")
+
+
 def _check_supported(cfg: TrainConfig) -> None:
     unsupported = {
         "predict_uncertainty": cfg.predict_uncertainty,
         "predict_consistency": cfg.predict_consistency,
         "gradient_accum_factor": cfg.gradient_accum_factor > 1,
-        "loss_renderer_strategy": cfg.loss_renderer_strategy != "kitti_360",
+        "loss_renderer_strategy": cfg.loss_renderer_strategy not in LOSS_RENDERER_STRATEGIES,
         "debug_stats": cfg.debug_stats,
     }
     bad = [name for name, is_bad in unsupported.items() if is_bad]
@@ -81,8 +87,9 @@ def _check_supported(cfg: TrainConfig) -> None:
 class Stage1Draws:
     """Every random draw of one step.
 
-    split_coin: per stereo pair, 1 when the pair's second frame is the loss
-    frame (p = 1/3); shift: the teacher-grid shift (sy, sx) in
+    split_coin: per pair of frames (2p, 2p + 1), 1 when the second is the
+    loss frame (p = 1/3; with the "alternate" split one coin repeated for
+    every pair); shift: the teacher-grid shift (sy, sx) in
     [-P/2, P/2), or None without the augmentation; flip: the flip coin;
     pv, py, px: (B, PC) patch picks; u: (B * R, n_coarse) stratum draws;
     fine: the fine pass's draws (None without one); crops: the
@@ -110,7 +117,10 @@ def draw_stage1(generator: torch.Generator, cfg: TrainConfig, rcfg: RenderConfig
     def randint(low, high, n):
         return torch.randint(low, high, (n,), generator=generator, device=dev).tolist()
 
-    coin = tuple(int(c == 0) for c in randint(0, 3, V // 2))
+    if cfg.loss_renderer_strategy == "alternate":  # one coin for the sample (core/strategies.py)
+        coin = (int(randint(0, 3, 1)[0] == 0),) * (V // 2)
+    else:
+        coin = tuple(int(c == 0) for c in randint(0, 3, V // 2))
     shift = tuple(randint(-(gt_patch // 2), gt_patch // 2, 2)) if cfg.grid_shift_augmentation else None
     flip = bool(randint(0, 2, 1)[0]) if cfg.flip_augmentation else False
     sampler = PatchRaySampler(cfg.z_near, cfg.z_far, cfg.ray_batch_size, cfg.patch_size)
@@ -122,8 +132,9 @@ def draw_stage1(generator: torch.Generator, cfg: TrainConfig, rcfg: RenderConfig
 
 
 def sample_frame_split(split_coin: Tuple[int, ...]) -> Tuple[List[int], List[int]]:
-    """Per stereo pair (2p, 2p + 1): the coin picks the loss frame, the
-    other renders (trainer.py:131-142). Returns (ids_loss, ids_render)."""
+    """Per pair (2p, 2p + 1): the coin picks the loss frame, the other
+    renders (trainer.py:131-142, and core/strategies.py's alternate split
+    with one coin for all pairs). Returns (ids_loss, ids_render)."""
     ids_loss = [2 * p + c for p, c in enumerate(split_coin)]
     ids_render = [2 * p + 1 - c for p, c in enumerate(split_coin)]
     return ids_loss, ids_render

@@ -12,6 +12,7 @@ PIL and OpenCV comparisons skip where either is absent, as on the card's
 machine.
 """
 import os
+import pickle
 
 import numpy as np
 import pytest
@@ -213,18 +214,21 @@ def test_sscbench_items_match_jax(ssc_root, size):
     assert len(listed) == N_FRAMES and "voxel_gt" not in listed[0]
 
 
-def test_sscbench_without_fisheyes_and_kitti_360_raise(ssc_root):
+def test_sscbench_without_fisheyes_and_kitti_360_raise(ssc_root, tmp_path):
     # the fisheye views and the KITTI-360 loader are ported (their parity is
     # tests/test_torch_kitti360.py's): SSCBench builds the fisheye resamplers,
-    # make_test_dataset the KITTI-360 test instance; RealEstate10K raises
+    # make_test_dataset the KITTI-360 test instance, and RealEstate10K's (make_datasets' test instance)
     from scenedino_torch.datasets.kitti_360 import KITTI360Dataset
 
     assert sorted(SSCBenchDataset(data_path=str(ssc_root), load_fisheye=True)._resamplers) == ["02", "03"]
     kitti = make_test_dataset({"type": "KITTI_360", "data_path": str(ssc_root),
                                "pose_path": str(ssc_root / "data_poses")})
     assert isinstance(kitti, KITTI360Dataset) and kitti.return_depth and kitti.fisheye_offset == (1,)
-    with pytest.raises(NotImplementedError, match="queue 1, item 8"):
-        make_test_dataset({"type": "re10k", "data_path": str(ssc_root)})
+    from scenedino_torch.datasets.re10k import RealEstate10kDataset
+
+    (tmp_path / "train.pickle").write_bytes(pickle.dumps({}))
+    re10k = make_test_dataset({"type": "re10k", "data_path": str(tmp_path / "train.pickle")})
+    assert isinstance(re10k, RealEstate10kDataset) and len(re10k) == 0
     with pytest.raises(ValueError, match="unknown"):
         make_test_dataset({"type": "nope"})
     ds = make_test_dataset({"type": "SSCBench", "data_path": str(ssc_root),

@@ -1,7 +1,7 @@
 """The PyTorch port stands alone: no module of `scenedino_torch/`, and not
 `chip_smoke.py`, imports JAX, flax or the JAX package, nor PyYAML, PIL or
 OpenCV (the card's machine has none of the three: the port reads configs
-with its own `utils.config` and PNGs with `datasets.image_io`); its entry points
+with its own `utils.config` and PNGs and JPEGs with `datasets.image_io`); its entry points
 refuse to run quietly on the CPU; its weight converter accounts for every
 leaf of a real parameter tree.
 
@@ -57,7 +57,9 @@ def test_the_scan_sees_the_whole_package():
             "scenedino_torch/datasets/image_io.py", "scenedino_torch/eval/seg2d.py", "scenedino_torch/eval/crf.py",
             "scenedino_torch/cli/evaluate.py", "scenedino_torch/cli/evaluate_sscbench.py",
             "scenedino_torch/core/resize.py", "scenedino_torch/models/encoder.py", "scenedino_torch/models/field.py",
-            "scenedino_torch/models/factory.py", "scenedino_torch/utils/checkpoint.py"} <= names
+            "scenedino_torch/models/factory.py", "scenedino_torch/utils/checkpoint.py",
+            "scenedino_torch/datasets/re10k.py", "scenedino_torch/core/strategies.py",
+            "scenedino_torch/cli/process_re10k.py"} <= names
 
 
 def test_entry_point_without_a_device_refuses_the_cpu():

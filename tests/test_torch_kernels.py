@@ -652,7 +652,8 @@ def test_stage1_step_on_a_kitti_360_batch_matches_the_cpu(cuda, tmp_path):
 @pytest.mark.parametrize("n,batch,drift", [(1, 2, False), (31, 2, False), (32, 2, False), (33, 2, False),
                                            (63, 2, False), (64, 2, False), (65, 2, False), (127, 2, False),
                                            (128, 2, False), (129, 2, False), (200, 2, False), (585, 1, False),
-                                           (585, 4, False), (1921, 2, False), (1921, 2, True)])
+                                           (585, 4, False), (1921, 2, False), (1921, 2, True),
+                                           (1921, 2, "scaled")])
 def test_attention_d80_kernels_match_plain(cuda, n, batch, drift):
     """K1 at head dim 80 (csrc/attention_d80.cu's forward, csrc/
     attention_d80_bwd.cu's dq and dkv): the forward with and without the
@@ -662,15 +663,20 @@ def test_attention_d80_kernels_match_plain(cuda, n, batch, drift):
     step's token count; two launches bitwise equal. `drift`: keys that drift
     along the walk (12 n / N added to key row n), so that the forward's
     running max moves after the first tile (the lazy rescale's jump;
-    tests/test_torch_attention_d80.py shows it moves)."""
+    tests/test_torch_attention_d80.py shows it moves); "scaled": key row n
+    scaled by 1 + 4 n / N instead, where the softmax lands on one key and
+    |out| reaches 4 (ROADMAP queue 3: at this seed the kernel and SDPA both
+    read 1.5625e-2 against the fp32 plain version rounded to bf16)."""
     from scenedino_torch.kernels.attention import attention_bwd_dkv, attention_bwd_dq
 
     g = torch.Generator(device=cuda).manual_seed(200 + n)
     heads = {585: 16, 1921: 12}.get(n, 3)
     q, k, v, do = (torch.randn(batch, n, heads, 80, generator=g, device=cuda).to(torch.bfloat16) for _ in range(4))
-    if drift:
-        k = (k.float() + 12 * torch.arange(n, device=cuda, dtype=torch.float32)[None, :, None, None] / n).to(
-            torch.bfloat16)
+    ramp = torch.arange(n, device=cuda, dtype=torch.float32)[None, :, None, None] / n
+    if drift == "scaled":
+        k = (k.float() * (1 + 4 * ramp)).to(torch.bfloat16)
+    elif drift:
+        k = (k.float() + 12 * ramp).to(torch.bfloat16)
     before = launches()
     out, lse = attention_fwd(q, k, v, with_lse=True)
     plain_out = attention_fwd(q, k, v)[0]

@@ -25,6 +25,7 @@ without the jitter, 1.7e-6 with it).
 """
 import copy
 import dataclasses
+import pickle
 import shutil
 
 import numpy as np
@@ -475,9 +476,13 @@ def test_factories_match_jax(kitti_root, kind):
     assert make_test_dataset({k: v for k, v in config.items() if k != "fisheye_offset"}).fisheye_offset == (1,)
 
 
-def test_factory_refusals():
-    with pytest.raises(NotImplementedError, match="queue 1, item 8"):
-        make_datasets({"type": "re10k"})
+def test_factory_refusals(tmp_path):
+    # RealEstate10K builds (its parity: tests/test_torch_re10k.py); an empty metadata pickle has no windows
+    from scenedino_torch.datasets.re10k import RealEstate10kDataset
+
+    (tmp_path / "train.pickle").write_bytes(pickle.dumps({}))
+    train, test = make_datasets({"type": "re10k", "data_path": str(tmp_path / "train.pickle")})
+    assert isinstance(train, RealEstate10kDataset) and test is train and len(train) == 0
     with pytest.raises(ValueError, match="unknown"):
         make_datasets({"type": "nope"})
 

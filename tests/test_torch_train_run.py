@@ -59,8 +59,9 @@ def test_synthetic_items_equal_the_references(size):
 def test_synthetic_dataset_refusals():
     with pytest.raises(ValueError, match="even"):
         SyntheticMultiViewDataset(length=1, n_views=3)[0]
-    # the KITTI-360 kinds are ported (tests/test_torch_kitti360.py); RealEstate10K is not
-    with pytest.raises(NotImplementedError, match="RealEstate10K"):
+    # the KITTI-360 kinds are ported (tests/test_torch_kitti360.py), RealEstate10K too
+    # (tests/test_torch_re10k.py): it now builds, and asks for its data
+    with pytest.raises(KeyError, match="data_path"):
         make_datasets({"type": "re10k"})
 
 
