@@ -256,6 +256,7 @@ import json
 import logging
 import os
 import re
+import socket
 import sys
 import tempfile
 import time
@@ -353,6 +354,17 @@ UPSAMPLER_STEPS, UPSAMPLER_VAL_ITEMS = 3, 2
 SCALED_KEYS = (2, 1921, 12)
 SCALED_SWEEP = ((4, 585, 16), (2, 1921, 12), (4, 1921, 12), (4, 2305, 12))
 SCALED_SEEDS = (1, 2, 3)
+# phase 13: the stage-1 branches on train_synthetic_flagship.yaml's model (the
+# plain steps, then the branches' micro-steps with gradient_accum_factor 2), the
+# sample-count ramp (renderer.sched: 16 coarse samples, 24 from step 1, 32 from
+# step 2), the dinov2 recipe's cuts on phase 10's tree, the items the depth
+# diagnosis renders of phase 6's run
+BRANCH_PLAIN_STEPS = 2
+BRANCH_MICRO_STEPS = 4
+SCHED_RAMP = [[1, 2], [24, 32], [0, 0]]
+DINOV2_STEPS = 3
+DINOV2_VAL_ITEMS = 2
+DIAG_ITEMS = 2
 # phase 12: the RealEstate10K tree (sequences, camera rows each; frames are
 # the rows the loader's ::10 subsample reads, 640x360 as the repository's
 # download fetches them), the JPEGs' quality and the least PSNR of the
@@ -3486,6 +3498,308 @@ def phase_re10k(seed, scratch):
     return counts, forwards, backward
 
 
+def _trainable_snapshot(state):
+    return [p.detach().clone() for group in state.optimizer.param_groups for p in group["params"]] + \
+        [state.artifact_field.detach().clone()]
+
+
+def _timed_step(step, state, batch, draws):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = step(state, batch, draws)
+    torch.cuda.synchronize()
+    return losses, (time.perf_counter() - t0) * 1e3
+
+
+def phase_branches(seed):
+    """Phase 13a-d on configs/train_synthetic_flagship.yaml's model at full
+    width (bf16, batch 4, remat): plain steps, then the uncertainty
+    (a Monodepth2 predictor), consistency and debug_stats branches with
+    gradient_accum_factor 2 for BRANCH_MICRO_STEPS micro-steps; the
+    uncertainty gradient through the rendered channel; the sample-count
+    ramp through ScheduledTrainStep; the four render options on the card
+    against the CPU; one step through the data-parallel wrapper under NCCL
+    at world size 1 against the plain step. Returns the launches of the
+    steps (13a, 13b, 13d)."""
+    from scenedino_torch import kernels
+    from scenedino_torch.core.ray_sampler import ImageRaySampler
+    from scenedino_torch.models.factory import make_model
+    from scenedino_torch.models.monodepth2 import Monodepth2
+    from scenedino_torch.parallel.data_parallel import DataParallel
+    from scenedino_torch.renderer.nerf import RenderConfig, render_rays
+    from scenedino_torch.training import trainer
+    from scenedino_torch.utils import config as yaml_config
+
+    t_phase = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    conf = yaml_config.load(os.path.join(root, "configs", "train_synthetic_flagship.yaml"))
+    model_conf, tcfg, rcfg, lcfg = trainer.configs_from_dict(conf)
+    Bt, V = conf["batch_size"], conf["dataset"]["n_views"]
+    torch.manual_seed(seed + 1300)  # the predictor's initialization
+    model = make_model(model_conf, device="cuda", seed=seed, training=True)
+    model.uncertainty_predictor = Monodepth2(1, (0,)).cuda()
+    enc = model.encoder
+    gp, depth = enc.gt_patch_size, enc.vit_encoder.vit.cfg.depth
+    g = torch.Generator(device="cuda").manual_seed(seed + 1300)
+    batch = train_batch(g, Bt, H, W, "cuda")
+    art0 = 1e-3 * torch.randn(enc.gt_encoder.latent_size, H // gp, W // gp, generator=g, device="cuda")
+    branched = dataclasses.replace(tcfg, predict_uncertainty=True, predict_consistency=True, debug_stats=True,
+                                   gradient_accum_factor=2)
+    print(f"phase 13a stage-1 branches: configs/train_synthetic_flagship.yaml's model at full width (ViT-B/8 student "
+          f"and teacher, bf16, remat, batch {Bt}, {V} views, {H}x{W}, {tcfg.ray_batch_size} rays x {rcfg.n_coarse} "
+          f"samples) with a Monodepth2(d_out 1) uncertainty predictor; {BRANCH_PLAIN_STEPS} plain steps, then "
+          f"predict_uncertainty, predict_consistency ({branched.consistency_rays} rays), debug_stats and "
+          f"gradient_accum_factor 2 for {BRANCH_MICRO_STEPS} micro-steps; seeded images (phase 5's)", flush=True)
+
+    kernels.reset_launches()
+    expect_plain = {**{n: 0 for n in kernels.WRAPPERS}, "attention": 3 * depth, "attention_bwd_dq": depth,
+                    "attention_bwd_dkv": depth}
+    runs = {}
+    for name, cfg, n_steps in (("plain", tcfg, BRANCH_PLAIN_STEPS), ("branches", branched, BRANCH_MICRO_STEPS)):
+        state = trainer.init_train_state(model, cfg, artifact_field=art0)
+        step = trainer.make_train_step(model, cfg, rcfg, lcfg)
+        up = [p for n, p in model.named_parameters() if n.startswith("uncertainty_predictor.")]
+        torch.cuda.reset_peak_memory_stats()
+        ms, per_step, moved = [], [], []
+        for i in range(n_steps):
+            draws = trainer.draw_stage1(g, cfg, rcfg, Bt, V, H, W, gp)
+            before = _trainable_snapshot(state)
+            counts = kernels.launches()
+            losses, t = _timed_step(step, state, batch, draws)
+            ms.append(t)
+            per_step.append({k: c - counts[k] for k, c in kernels.launches().items()})
+            after = _trainable_snapshot(state)
+            # the predictor gets no gradient from rec_loss (the loss reads the colours only), so it stays put
+            changed = [not torch.equal(a, b) for a, b, p in zip(before, after, [*(p for grp in
+                       state.optimizer.param_groups for p in grp["params"]), state.artifact_field])
+                       if not any(p is q for q in up)]
+            moved.append(sum(changed) / len(changed))
+            if not _finite(float(v) for v in losses.values()):
+                fail(f"phase 13a {name} step {i + 1}: a non-finite loss {losses}")
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        runs[name] = dict(ms=ms, launches=per_step, moved=moved, peak=peak, losses=losses)
+        print(f"phase 13a {name}: host ms per step {[round(t, 1) for t in ms]} (the first with cuDNN's search); "
+              f"share of trainable tensors moved by each step {[round(m, 4) for m in moved]}; peak memory allocated "
+              f"{peak:.3f} GiB; launches per step {json.dumps(per_step[-1])}; last losses "
+              f"{json.dumps({k: round(float(v), 6) for k, v in losses.items()})}", flush=True)
+    # each branch alone: 2 steps (the first with cuDNN's search), the second's host ms and the peak
+    alone = {}
+    for name, kw in (("uncertainty", dict(predict_uncertainty=True)), ("consistency", dict(predict_consistency=True)),
+                     ("debug_stats", dict(debug_stats=True)), ("accumulation", dict(gradient_accum_factor=2))):
+        cfg = dataclasses.replace(tcfg, **kw)
+        state = trainer.init_train_state(model, cfg, artifact_field=art0)
+        step = trainer.make_train_step(model, cfg, rcfg, lcfg)
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(2):
+            losses, t = _timed_step(step, state, batch, trainer.draw_stage1(g, cfg, rcfg, Bt, V, H, W, gp))
+        if not np.isfinite(float(losses["rec_loss"])):
+            fail(f"phase 13a {name} alone: loss {losses['rec_loss']}")
+        alone[name] = {"host_ms": round(t, 1), "peak_gib": round(torch.cuda.max_memory_allocated() / 2 ** 30, 3)}
+    print(f"phase 13a each branch alone (its second step; accumulation: the second micro-step, which applies): "
+          f"{json.dumps(alone)}", flush=True)
+    plain, br = runs["plain"], runs["branches"]
+    # 24 more forwards a step: consistency encodes views 0 and 1 again (12 blocks each, no graph); the
+    # backward is rec_loss's, which the consistency diagnostic does not enter
+    expect_branch = {**expect_plain, "attention": 3 * depth + 2 * depth}
+    if any(c != expect_plain for c in plain["launches"]) or any(c != expect_branch for c in br["launches"]):
+        fail(f"phase 13a launches {plain['launches']} / {br['launches']}, expected {expect_plain} / {expect_branch}")
+    if plain["moved"] != [1.0] * BRANCH_PLAIN_STEPS or br["moved"] != [0.0, 1.0, 0.0, 1.0]:
+        fail(f"phase 13a: the parameters moved {plain['moved']} / {br['moved']}; accumulation over 2 micro-steps "
+             f"must leave them after 1 and 3 and move them after 2 and 4")
+    for key in ("uncert_mean", "consistency_depth_abs", "dbg_depth_min", "dbg_artifact_absmax"):
+        if key not in br["losses"]:
+            fail(f"phase 13a: the branches' loss dict lacks {key}")
+    # the uncertainty predictor's gradient through the rendered channel (rec_loss + uncert_mean)
+    state = trainer.init_train_state(model, branched, artifact_field=art0)
+    model.zero_grad(set_to_none=True)
+    draws = trainer.draw_stage1(g, branched, rcfg, Bt, V, H, W, gp)
+    loss, losses = trainer.stage1_forward(model, batch, draws, branched, rcfg, lcfg, state.artifact_field)
+    (loss + losses["uncert_mean"]).backward()
+    up_grads = [p.grad for n, p in model.named_parameters() if n.startswith("uncertainty_predictor.")]
+    up_norm = float(torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(gr.float()) for gr in up_grads
+                                                          if gr is not None])))
+    print(f"phase 13a uncertainty gradient (rec_loss + uncert_mean, {len(up_grads)} predictor tensors): L2 norm "
+          f"{up_norm:.4e}; host ms plain {np.median(plain['ms'][1:]):.1f} vs branches (a micro-step) "
+          f"{np.median(br['ms'][1:]):.1f}; peak memory {plain['peak']:.3f} vs {br['peak']:.3f} GiB; attention "
+          f"launches a step {plain['launches'][-1]['attention']} vs {br['launches'][-1]['attention']}", flush=True)
+    if not (np.isfinite(up_norm) and up_norm > 0):
+        fail(f"phase 13a: the uncertainty predictor's gradient is {up_norm}")
+    model.zero_grad(set_to_none=True)
+    model.uncertainty_predictor = None
+
+    # 13b: the sample-count ramp
+    base = dataclasses.replace(rcfg, n_coarse=16)
+    state = trainer.init_train_state(model, tcfg, artifact_field=art0)
+    seen = []
+
+    def make_step(rc):
+        step = trainer.make_train_step(model, tcfg, rc, lcfg)
+
+        def train_step(state, batch, gen):
+            draws = trainer.draw_stage1(gen, tcfg, rc, Bt, V, H, W, gp)
+            seen.append(draws.u.shape[1])
+            return _timed_step(step, state, batch, draws)
+
+        return train_step
+
+    sts = trainer.ScheduledTrainStep(make_step, base, SCHED_RAMP)
+    for it in range(3):
+        losses, t = sts.for_iteration(it)(state, batch, g)
+        print(f"phase 13b step {it + 1}: n_coarse {seen[-1]} (config_at {sts.config_at(it)}), loss "
+              f"{float(losses['rec_loss']):.6f}, host {t:.1f} ms", flush=True)
+        if not np.isfinite(float(losses["rec_loss"])):
+            fail(f"phase 13b step {it + 1}: loss {losses['rec_loss']}")
+    if seen != [16, 24, 32]:
+        fail(f"phase 13b: the ramp rendered {seen} coarse samples, expected [16, 24, 32]")
+    counts = kernels.launches()
+
+    # 13c: the render options, the card against the CPU (no kernel at 32x96)
+    h, w = 32, 96
+    gc = torch.Generator().manual_seed(seed + 1301)
+    small = train_batch(gc, 1, h, w, "cpu")
+    cpu_model = copy.deepcopy(model).to("cpu")
+    poses = torch.linalg.inv(small["poses"][:, :1]) @ small["poses"]
+    rays = ImageRaySampler(tcfg.z_near, tcfg.z_far, h, w).sample(poses[:, 1:2], small["projs"][:, 1:2])[..., :8]
+    R, Kc = rays.shape[1], 16
+    u, noise = torch.rand(R, Kc, generator=gc), torch.randn(R, Kc, generator=gc)
+    results = {}
+    for mode, kw, training in (("surface", dict(render_mode="surface"), False),
+                               ("neus", dict(render_mode="neus", surface_sigmoid_scale=0.5), False),
+                               ("noise", dict(noise_std=1.0), True), ("white_bkgd", dict(white_bkgd=True), False)):
+        cfg = RenderConfig(n_coarse=Kc, **kw)
+        outs = []
+        for m, dev in ((model, "cuda"), (cpu_model, "cpu")):
+            with torch.no_grad():
+                b = {k: v.to(dev) for k, v in small.items()}
+                st = m.encode(b["imgs"], b["projs"], poses.to(dev), ids_encoder=(0,), ids_render=(0, 1))
+                outs.append(render_rays(lambda xyz, only_density=False: m(st, xyz, only_density=only_density),
+                                        rays.to(dev), u.to(dev), cfg, noise=noise.to(dev), training=training)["coarse"])
+        gpu, cpu = outs
+        d_rel = ((gpu["depth"].float().cpu() - cpu["depth"]).abs() / cpu["depth"].abs()).flatten()
+        p99 = torch.quantile(d_rel, 0.99).item()
+        rgb_err = 0.0 if cpu["rgb"] is None else (gpu["rgb"].float().cpu() - cpu["rgb"]).abs().max().item()
+        cos = torch.nn.functional.cosine_similarity(gpu["dino_features"].float().cpu(), cpu["dino_features"], dim=-1)
+        results[mode] = {"depth_rel_p99": p99, "rgb_abs": rgb_err, "feature_cos_median": cos.median().item(),
+                         "rgb": "none" if gpu["rgb"] is None else list(gpu["rgb"].shape)}
+        if not (p99 <= EVAL_DEPTH_REL_P99 and rgb_err <= EVAL_RGB_ABS and cos.median().item() >= SLICE_COS
+                and (gpu["rgb"] is None) == (mode == "surface")):
+            fail(f"phase 13c {mode}: the card's render disagrees with the CPU's: {results[mode]}")
+    print(f"phase 13c renders at {h}x{w} ({R} rays x {Kc} samples, the flagship bf16 field, GPU vs CPU, phase 6's "
+          f"render bounds: depth rel p99 {EVAL_DEPTH_REL_P99}, rgb abs {EVAL_RGB_ABS}, feature cosine median >= "
+          f"{SLICE_COS}): {json.dumps(results)}", flush=True)
+    del cpu_model
+
+    # 13d: one step through the data-parallel wrapper (NCCL, world size 1) against the plain step
+    saved = {k: v.clone() for k, v in model.state_dict().items()}
+    draws = trainer.draw_stage1(g, tcfg, rcfg, Bt, V, H, W, gp)
+    results = []
+    for wrapped in (False, True):
+        model.load_state_dict(saved)
+        state = trainer.init_train_state(model, tcfg, artifact_field=art0)
+        if wrapped:
+            with socket.socket() as sock:
+                sock.bind(("localhost", 0))
+                port = sock.getsockname()[1]
+            dp = DataParallel.init(0, 1, torch.device("cuda"), init_method=f"tcp://localhost:{port}")
+            try:
+                step = trainer.make_train_step(model, tcfg, rcfg, lcfg, average_gradients=dp.average_)
+                losses, t = _timed_step(lambda s, b, d: dp.reduce_losses(step(s, b, d)), state, batch,
+                                        dp.shard_draws(draws, Bt))
+            finally:
+                torch.distributed.destroy_process_group()
+        else:
+            losses, t = _timed_step(trainer.make_train_step(model, tcfg, rcfg, lcfg), state, batch, draws)
+        results.append((float(losses["rec_loss"]), t, [p.detach().float() - saved[n].float()
+                                                        for n, p in model.named_parameters() if n in saved]))
+    (l0, t0_, u0), (l1, t1_, u1) = results
+    loss_rel = abs(l1 - l0) / abs(l0)
+    upd_rel = float(torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(a - b) for a, b in zip(u1, u0)]))
+                    / torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(a) for a in u0])))
+    print(f"phase 13d data-parallel wrapper (NCCL, world size 1) against the plain step: loss {l1:.6f} vs {l0:.6f} "
+          f"(rel {loss_rel:.3e}, bound {TRAIN_LOSS_REL}); the parameters' updates, relative L2 difference "
+          f"{upd_rel:.3e} (bound {TRAIN_GRAD_REL}); host {t1_:.1f} vs {t0_:.1f} ms", flush=True)
+    if not (loss_rel <= TRAIN_LOSS_REL and upd_rel <= TRAIN_GRAD_REL):
+        fail("phase 13d: the data-parallel step disagrees with the plain step")
+    counts = kernels.launches()
+    print(f"phase 13a-d launches {json.dumps(counts)}; {time.perf_counter() - t_phase:.1f} s", flush=True)
+    del model, state
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_dinov2_and_diag(root, stage1_dir, scratch):
+    """Phase 13e: cli.train.main on configs/train_scenedino_kitti_360_dinov2.yaml
+    at full width on phase 10's tree: the file as shipped is refused (its
+    8-pixel ray patches miss the 16-pixel teacher's grid), then 3 steps at
+    the teacher's patch size (481 tokens a view: below K1's 512, so the
+    step and the validation launch no K1); 13f: the depth-convergence tool
+    on phase 6's run directory. Returns 13e's launches."""
+    from scenedino_torch import kernels
+    from scenedino_torch.cli import train as cli
+    from scenedino_torch.tools import diag_depth_convergence
+    from scenedino_torch.training import trainer
+    from scenedino_torch.utils.config import load, save_run_config
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    conf = load(os.path.join(repo, "configs", "train_scenedino_kitti_360_dinov2.yaml"))
+    _kitti_dataset_block(conf, root)
+    out = tempfile.mkdtemp(prefix="kitti_dinov2_", dir=scratch)
+    conf["output"]["path"] = out
+    conf["training"].update(stop_iteration=DINOV2_STEPS, checkpoint_every=DINOV2_STEPS, log_every=1)
+    vconf = conf["validation"]["validation"]
+    vconf["events"][0]["args"]["every"] = DINOV2_STEPS
+    vconf["subset"]["args"] = {"start": 0, "end": DINOV2_VAL_ITEMS}
+    cfg_dir = tempfile.mkdtemp(prefix="kitti_dinov2_config_", dir=scratch)
+    enc = trainer.configs_from_dict(conf)[0]["encoder"]
+    patch = conf["training"]["ray_sampler"]["args"]["patch_size"]
+    # the file's 8-pixel ray patches miss the 16-pixel DINOv2 teacher's grid: JAX fails to broadcast in its
+    # downsampler, the port refuses at the sampler (ROADMAP queue 3); the run takes the teacher's patch size
+    t0 = time.perf_counter()
+    try:
+        cli.main(["--config", save_run_config(cfg_dir, conf)])
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    print(f"phase 13e the file as shipped (ray patch_size {patch}): refused in {time.perf_counter() - t0:.1f} s: "
+          f"{refused}", flush=True)
+    if refused is None or "teacher's patch size" not in refused:
+        fail("the dinov2 recipe's 8-pixel patches against its 16-pixel teacher were not refused")
+    conf["training"]["ray_sampler"]["args"]["patch_size"] = 16
+    path = save_run_config(cfg_dir, conf)
+    print(f"phase 13e stage 1: cli.train.main --config configs/train_scenedino_kitti_360_dinov2.yaml at full width "
+          f"({enc['encoder_arch']} {enc['version']} student and teacher, DPT {enc['decoder_out_dim']}, with_amp "
+          f"{conf['with_amp']}, {enc['image_size']}, batch {conf['batch_size']}); cuts: the data paths -> phase 10's "
+          f"tree, stop_iteration {DINOV2_STEPS}, validation every {DINOV2_STEPS} over test items "
+          f"0-{DINOV2_VAL_ITEMS - 1}, checkpoint_every {DINOV2_STEPS}, log_every 1, output into {out}; the ray "
+          f"sampler's patch_size {patch} -> 16, the teacher's", flush=True)
+    records, counts, peak, wall = _logged(lambda: cli.main(["--config", path]), ("training", "validation"))
+    steps, vals = records.with_attr("losses"), records.with_attr("validator")
+    for r in steps:
+        print(f"phase 13e step {r.iteration}: loss {r.losses['rec_loss']:.6f}; host ms: waiting on the loader "
+              f"{r.data_ms:.1f}, then the step {r.step_ms:.1f}", flush=True)
+    for r in vals:
+        print(f"phase 13e validation at {r.iteration} ({r.ms:.1f} ms): "
+              f"{json.dumps({k: round(float(v), 6) for k, v in r.metrics.items()})}", flush=True)
+    print(f"phase 13e run: {len(steps)} steps in {wall:.1f} s wall; peak memory allocated {peak:.3f} GiB; launches "
+          f"{json.dumps(counts)} (481 tokens a view: the ViT's plain attention, as JAX's dispatch floor of 512 "
+          f"gives it)", flush=True)
+    if (len(steps) != DINOV2_STEPS or not _finite(v for r in steps for v in r.losses.values())
+            or steps[-1].losses["nonfinite_total"] != 0 or len(vals) != 1 or not _finite(vals[0].metrics.values())):
+        fail("the dinov2 recipe did not take its steps finite and applied, or its validation failed")
+    if any(counts.values()):
+        fail(f"the dinov2 recipe launched {counts}: at 481 tokens no K1 is expected")
+    if not os.path.exists(os.path.join(out, f"training_checkpoint_{DINOV2_STEPS}.pt")):
+        fail("the dinov2 recipe wrote no checkpoint")
+
+    t0 = time.perf_counter()
+    print(f"phase 13f tools/diag_depth_convergence (port) on phase 6's run directory, {DIAG_ITEMS} items:", flush=True)
+    rc = diag_depth_convergence.main([stage1_dir, "--items", str(DIAG_ITEMS)])
+    print(f"phase 13f rc {rc} in {time.perf_counter() - t0:.1f} s", flush=True)
+    if rc != 0:
+        fail("the depth-convergence tool failed on phase 6's run directory")
+    return counts
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -3565,7 +3879,12 @@ def main():
         kitti, k1_kitti, kitti_root = phase_kitti(args.seed, scratch)
         d80_paths, k1_upsampler = phase_d80_and_upsample_gt(args.seed, kitti_root, scratch)
         re10k, k1_re10k, bwd_re10k = phase_re10k(args.seed, scratch)
-    paths = (serving, training, train_run, stage2, stage2_conv, evaluation, reference, kitti, d80_paths, re10k)
+        t13 = time.perf_counter()
+        branches = phase_branches(args.seed)
+        dinov2 = phase_dinov2_and_diag(kitti_root, stage1_dir, scratch)
+        print(f"phase 13 wall time {time.perf_counter() - t13:.1f} s; {card_line()}", flush=True)
+    paths = (serving, training, train_run, stage2, stage2_conv, evaluation, reference, kitti, d80_paths, re10k,
+             branches, dinov2)
     for e in entries:
         e["launches"] = sum(p[e["name"]] for p in paths)
         if e["name"] == "point_query":

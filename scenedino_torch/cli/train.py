@@ -21,8 +21,19 @@ numpy RandomState seeded from it, the items loaded by `num_workers` threads
 true` run `scenedino_torch.cli.preprocess_kitti_360 resize` on it once
 first. The RealEstate10K recipe reads `dataset.data_path`, a
 `<split>.pickle` beside `frames_720/<split>/` (`scenedino_torch.cli.process_re10k
-process` writes it from the release's camera files). One device: the
-reference's data-parallel mesh is not ported.
+process` writes it from the release's camera files).
+`gradient_accum_factor` accumulates that many batches a step and
+`renderer.sched` ramps the sample counts, as the reference's CLI reads them.
+
+Stage 1 trains data-parallel under `torchrun`, one process a card (NCCL;
+with `--device cpu`, gloo), the batch `batch_size` the global one:
+
+    torchrun --nproc_per_node 4 -m scenedino_torch.cli.train --config <config>
+    torchrun --nproc_per_node 2 -m scenedino_torch.cli.train --config <config> --device cpu
+
+Each rank loads its slice of every global batch, draws the global step's
+draws and keeps its rows, and averages the gradients (`parallel.data_parallel`);
+rank 0 alone writes checkpoints, scalars and validations.
 
 `--stage nvs` (the default) trains the field (stage 1). `--stage semantic`
 distills a frozen field into the semantic head (stage 2, `run_stage2`):
@@ -68,17 +79,18 @@ logger = logging.getLogger("training")
 
 
 def batch_iterator(dataset, batch_size: int, key_seed: int = 0, shuffle: bool = True, drop_last: bool = True,
-                   num_workers: int = 4):
+                   num_workers: int = 4, rows: slice = slice(None)):
     """A factory of epochs: each call yields one epoch's collated host
     batches, a fresh permutation from one RandomState(key_seed) per epoch,
-    loaded by `num_workers` threads."""
+    loaded by `num_workers` threads; `rows` of each batch of `batch_size`
+    (a data-parallel rank's slice)."""
     n = len(dataset)
     rng = np.random.RandomState(key_seed)
 
     def it():
         order = rng.permutation(n) if shuffle else np.arange(n)
         stop = n - (batch_size - 1 if drop_last else 0)
-        plan = [[int(j) for j in order[i:i + batch_size]] for i in range(0, stop, batch_size)]
+        plan = [[int(j) for j in order[i:i + batch_size]][rows] for i in range(0, stop, batch_size)]
         yield from ThreadedLoader(dataset, plan, num_workers=num_workers)
 
     return it
@@ -111,12 +123,13 @@ def build_validators(config: dict, dataset, keys: Sequence[str], device, make) -
     return validators
 
 
-def init_stage1(config: dict, device) -> Tuple:
+def init_stage1(config: dict, device, dp=None) -> Tuple:
     """(field, train state, generator, TrainConfig, RenderConfig,
     ReconstructionLossConfig) of a run, before any step: the model from
     `seed`, then the generator seeded from `seed` on the device, the
     artifact field (the teacher's width on its grid; none with
-    `compensate_artifacts: false`) drawn from it."""
+    `compensate_artifacts: false`) drawn from it. Under data parallelism
+    (`dp`) every rank takes rank 0's parameters and artifact field."""
     device = resolve_device(device)
     seed = config.get("seed", 0)
     model_conf, tcfg, rcfg, lcfg = trainer.configs_from_dict(config)
@@ -127,24 +140,51 @@ def init_stage1(config: dict, device) -> Tuple:
     generator = torch.Generator(device=device).manual_seed(seed)
     state = trainer.init_train_state(field, tcfg, artifact_shape=(enc.teacher.latent_size, H // gp, W // gp),
                                      generator=generator)
+    if dp is not None:
+        dp.broadcast_([*field.parameters(), *field.buffers()]
+                      + ([state.artifact_field] if state.artifact_field is not None else []))
     return field, state, generator, tcfg, rcfg, lcfg
 
 
 def run_stage1(config: dict, device=None):
-    """Train stage 1 as `config` says; returns (field, train state)."""
-    field, state, generator, tcfg, rcfg, lcfg = init_stage1(config, device)
+    """Train stage 1 as `config` says; returns (field, train state). Under
+    `torchrun` (WORLD_SIZE > 1) each process trains its share of the
+    global batch, data-parallel."""
+    from scenedino_torch.parallel.data_parallel import from_environment, local_device
+
+    device = local_device(resolve_device(device))
+    dp = from_environment(device)
+    try:
+        return _run_stage1(config, device, dp)
+    finally:
+        if dp is not None:
+            torch.distributed.destroy_process_group()
+
+
+def _run_stage1(config: dict, device, dp):
+    field, state, generator, tcfg, rcfg, lcfg = init_stage1(config, device, dp)
     device = generator.device
     train_ds, val_ds = make_datasets(config["dataset"])
     gp, crop_views = field.encoder.gt_patch_size, field.encoder.crop_views
-    step = trainer.make_train_step(field, tcfg, rcfg, lcfg)
-
-    def train_step(state, batch: Dict[str, torch.Tensor], gen: torch.Generator):
-        B, V, _, H, W = batch["imgs"].shape
-        return step(state, batch, trainer.draw_stage1(gen, tcfg, rcfg, B, V, H, W, gp, crop_views))
-
     batch_size = config.get("batch_size", 4)
+    mine = slice(None) if dp is None else dp.rows(batch_size)
+
+    def make_step(rc):
+        step = trainer.make_train_step(field, tcfg, rc, lcfg, average_gradients=None if dp is None else dp.average_)
+
+        def train_step(state, batch: Dict[str, torch.Tensor], gen: torch.Generator):
+            B, V, _, H, W = batch["imgs"].shape
+            draws = trainer.draw_stage1(gen, tcfg, rc, B if dp is None else batch_size, V, H, W, gp, crop_views)
+            if dp is None:
+                return step(state, batch, draws)
+            return dp.reduce_losses(step(state, batch, dp.shard_draws(draws, batch_size)))
+
+        return train_step
+
+    sched = config.get("renderer", {}).get("sched") or []
+    train_step = trainer.ScheduledTrainStep(make_step, rcfg, sched) if sched else make_step(rcfg)
     batches = batch_iterator(train_ds, batch_size, key_seed=config.get("seed", 0),
-                             num_workers=config.get("num_workers", 4))
+                             num_workers=config.get("num_workers", 4), rows=mine)
 
     def data_iter() -> Iterable[Dict[str, torch.Tensor]]:
         yield from device_prefetch(batches(), put=lambda b: to_device(b, device, TRAIN_KEYS), buffer_size=2)
@@ -152,11 +192,14 @@ def run_stage1(config: dict, device=None):
     tconf = config.get("training", {})
     cfg = _loop_config(config, "out/run", 50, 10000, 100)
     model_conf = trainer.configs_from_dict(config)[0]
-    save_run_config(cfg.output_path, {**config, "model": model_conf})
+    main_process = dp is None or dp.main
+    if main_process:
+        save_run_config(cfg.output_path, {**config, "model": model_conf})
     validators = build_validators(config, val_ds, VAL_KEYS, device,
                                   lambda name, vconf, fn: make_stage1_validator(name, vconf, field, tcfg, rcfg, fn))
-    fit(field, state, train_step, data_iter, cfg, generator, validators=validators,
-        steps_per_epoch=tconf.get("epoch_length"))
+    fit(field, state, train_step, data_iter, cfg, generator, validators=validators if main_process else None,
+        steps_per_epoch=tconf.get("epoch_length"), main_process=main_process,
+        sync_generator=None if dp is None else dp.sync_generator)
     return field, state
 
 

@@ -76,3 +76,13 @@ def composite_rays(sigmas: torch.Tensor, z_samp: torch.Tensor, hard_alpha_cap: b
 def weighted_reduce(weights: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
     """sum_k w_k * v_k: (..., K) x (..., K, C) -> (..., C) fp32."""
     return torch.sum(weights[..., None] * values.float(), -2)
+
+
+def neus_reweight(weights: torch.Tensor, surface_sigmoid_scale: float) -> torch.Tensor:
+    """NeuS-style surface re-weighting (reference compositing.py:108): a
+    gaussian over sample indices around the weights' mean index, normalized."""
+    K = weights.shape[-1]
+    indices = torch.arange(K, device=weights.device, dtype=weights.dtype)
+    surface_index = torch.sum(weights * indices, -1, keepdim=True)
+    w = torch.exp(-0.5 * ((surface_index - indices) * surface_sigmoid_scale) ** 2)
+    return w / torch.sum(w, -1, keepdim=True)

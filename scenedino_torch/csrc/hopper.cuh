@@ -637,6 +637,25 @@ __device__ __forceinline__ void store_acc80(Rows80<TILE>& rows, const Acc80& d, 
 // otherwise alpha is 1 and O is left as it is (exact: O and l share the
 // same m). Returns whether O must be rescaled (the same in every lane of
 // the warp).
+// K1_RESCALE_SLACK is that threshold (0: the max moves whenever it grows,
+// the exact rescale, so the dominant key's P is 1 before its bf16
+// rounding); K1_L_FROM_BF16 = 1 sums l from P as pack_p rounds it, so
+// that O's numerator and its denominator l hold the same P.
+#ifndef K1_RESCALE_SLACK
+#define K1_RESCALE_SLACK 8
+#endif
+#ifndef K1_L_FROM_BF16
+#define K1_L_FROM_BF16 0
+#endif
+
+__device__ __forceinline__ float p_summed(float p) {
+#if K1_L_FROM_BF16
+  return __bfloat162float(__float2bfloat16_rn(p));
+#else
+  return p;
+#endif
+}
+
 template <bool MASK>
 __device__ __forceinline__ bool softmax_scores(float (&s)[32], float (&m)[2], float (&l)[2], float (&alpha)[2],
                                                float scale_log2, int nvalid, int col0) {
@@ -661,7 +680,8 @@ __device__ __forceinline__ bool softmax_scores(float (&s)[32], float (&m)[2], fl
     mx[hi] = fmaxf(mx[hi], __shfl_xor_sync(0xffffffffu, mx[hi], 2));
     mx[hi] *= scale_log2;  // finite: every walked tile has a column below N
   }
-  const bool move = __any_sync(0xffffffffu, mx[0] > m[0] + 8.f || mx[1] > m[1] + 8.f);
+  const bool move = __any_sync(0xffffffffu, mx[0] > m[0] + float(K1_RESCALE_SLACK) ||
+                                                  mx[1] > m[1] + float(K1_RESCALE_SLACK));
 #pragma unroll
   for (int hi = 0; hi < 2; ++hi) {
     alpha[hi] = 1.f;
@@ -677,7 +697,7 @@ __device__ __forceinline__ bool softmax_scores(float (&s)[32], float (&m)[2], fl
       const int i = 4 * j + 2 * hi;
       s[i] = fast_exp2(fmaf(s[i], scale_log2, neg_m));
       s[i + 1] = fast_exp2(fmaf(s[i + 1], scale_log2, neg_m));
-      t[j] = s[i] + s[i + 1];
+      t[j] = p_summed(s[i]) + p_summed(s[i + 1]);
     }
 #pragma unroll
     for (int w = 4; w >= 1; w /= 2) {

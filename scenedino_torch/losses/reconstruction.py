@@ -1,23 +1,28 @@
 """The stage-1 reconstruction loss (counterpart of
-`scenedino_tpu/losses/reconstruction.py:134-199`) with the shipped terms
-(configs/training/loss/scenedino.yaml):
+`scenedino_tpu/losses/reconstruction.py:134-199`):
 
-  * photometric "l1+ssim", amin over the render views, masked by the
-    "weight_guided" invalid policy;
+  * the photometric error ("l1", "l2" or "l1+ssim"), amin over the render
+    views, masked by the invalid policy ("none", "strict",
+    "weight_guided", "weight_guided_diverse" or "occ_weight_guided");
   * cosine DINO distance between the patch-pooled prediction and the
-    teacher, `nanmean`;
-  * edge-aware smoothness of the normalized inverse depth (1e-3) and of
-    the per-pixel 768-d DINO prediction (0.25, temperature 25).
+    teacher, `nanmean` (the reference computes the cosine whatever
+    `dino_criterion` says, and so does the port);
+  * edge-aware smoothness of the normalized inverse depth and of the
+    per-pixel 768-d DINO prediction (temperature 25).
+
+`lambda_fine` and `median_thresholding` are stored and never read, as in
+the reference, whose body reads only `data["coarse"]`.
 
 Data are patch-shaped: rgb (B, PC, P, P, V, 3), rgb_gt (B, PC, P, P, 3),
 depth (B, PC, P, P), invalid (B, PC, P, P, K, V), weights
-(B, PC, P, P, K), dino_features (B, PC, P, P, C),
-dino_features_downsampled and dino_gt (B, PC, 1, 1, C).
+(B, PC, P, P, K), rgb_samps (B, PC, P, P, K, V, 3) and occ
+(B, PC, P, P, 1) where a policy needs them, dino_features
+(B, PC, P, P, C), dino_features_downsampled and dino_gt (B, PC, 1, 1, C).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -46,11 +51,43 @@ def cosine_error(pred: torch.Tensor, gt: torch.Tensor, eps: float = 1e-8) -> tor
     return 1.0 - torch.sum(safe_normalize(pred, eps=eps) * safe_normalize(gt, eps=eps), -1)
 
 
-def invalid_mask(invalids: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
-    """"weight_guided": a ray is invalid when, in every render view, more
-    than 0.9 of its weight lies on invalid samples. (..., K, V), (..., K) -> (..., 1) bool."""
-    w = torch.sum(invalids * weights[..., None], -2)
-    return torch.all(w > 0.9, -1, keepdim=True)
+def reconstruction_error(pred: torch.Tensor, gt: torch.Tensor, criterion: str) -> torch.Tensor:
+    """Per-pixel error of (B*, C, H, W) images -> (B*, H, W) (reconstruction.py:47-58)."""
+    if criterion == "l1":
+        return absolute(pred - gt).mean(1)
+    if criterion == "l2":
+        return ((pred - gt) ** 2 / 2.0).mean(1)
+    if criterion == "l1+ssim":
+        return l1_ssim(pred, gt)
+    raise ValueError(criterion)
+
+
+def invalid_mask(invalids: torch.Tensor, weights: torch.Tensor, policy: str = "weight_guided",
+                 rgb_samps: Optional[torch.Tensor] = None, occ: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Per-ray bool mask of unreliable supervision (reconstruction.py:71-108):
+    invalids (..., K, V) in [0, 1], weights (..., K) -> (..., 1).
+    "weight_guided": in every render view more than 0.9 of the weight lies
+    on invalid samples; "weight_guided_diverse" also drops rays whose
+    colour samples (rgb_samps (..., K, V, 3)) barely vary along the ray;
+    "occ_weight_guided" also drops rays without an occupancy proposal
+    (occ (..., 1) <= 0.5)."""
+    if policy in (None, "none"):
+        return torch.zeros(invalids.shape[:-2] + (1,), dtype=torch.bool, device=invalids.device)
+    if policy == "strict":
+        return torch.all(torch.any(invalids > 0.5, -2), -1, keepdim=True)
+    if policy not in ("weight_guided", "weight_guided_diverse", "occ_weight_guided"):
+        raise ValueError(policy)
+    w = torch.sum(invalids * weights[..., None], -2)  # (..., V)
+    if policy == "weight_guided":
+        return torch.all(w > 0.9, -1, keepdim=True)
+    if policy == "weight_guided_diverse":
+        if rgb_samps is None:
+            raise ValueError("invalid_policy 'weight_guided_diverse' needs the colour samples (rgb_samps)")
+        ray_std = torch.std(rgb_samps, -3, correction=0).mean(-1)  # (..., V)
+        return torch.all((w > 0.9) | (ray_std < 0.01), -1, keepdim=True)
+    if occ is None:
+        raise ValueError("invalid_policy 'occ_weight_guided' needs the occupancy proposals (occ)")
+    return torch.all(w > 0.9, -1, keepdim=True) | ~(occ > 0.5)
 
 
 def edge_aware_smoothness(gt_img: torch.Tensor, inp: torch.Tensor, temperature: float = 1.0) -> torch.Tensor:
@@ -74,40 +111,35 @@ def _to_image_layout(x: torch.Tensor) -> torch.Tensor:
 def reconstruction_loss(data: Dict, cfg: ReconstructionLossConfig = ReconstructionLossConfig()
                         ) -> Dict[str, torch.Tensor]:
     """The stage-1 loss dict; "rec_loss" is the optimized total."""
-    if (cfg.criterion, cfg.dino_criterion, cfg.invalid_policy) != ("l1+ssim", "cosine", "weight_guided") \
-            or cfg.lambda_fine > 0 or cfg.median_thresholding:
-        raise NotImplementedError(
-            "the port's reconstruction loss has the shipped terms: l1+ssim, cosine DINO, the "
-            f"weight_guided invalid policy, coarse only; got {cfg}"
-        )
     losses = {}
     coarse = data["coarse"]
-    inv = invalid_mask(coarse["invalid"], coarse["weights"])
+    inv = invalid_mask(coarse["invalid"], coarse["weights"], cfg.invalid_policy,
+                       rgb_samps=coarse.get("rgb_samps"), occ=coarse.get("occ"))
 
     rgb = coarse["rgb"]  # (B, PC, H, W, V, 3)
     B, PC, H, W, V, C = rgb.shape
     gt = data["rgb_gt"][..., None, :3].expand(rgb.shape)
     pred = rgb.permute(0, 1, 4, 5, 2, 3).reshape(-1, C, H, W)
     gt = gt.permute(0, 1, 4, 5, 2, 3).reshape(-1, C, H, W)
-    err = l1_ssim(pred, gt).reshape(B, PC, V, H, W).permute(0, 1, 3, 4, 2)
+    err = reconstruction_error(pred, gt, cfg.criterion).reshape(B, PC, V, H, W).permute(0, 1, 3, 4, 2)
     err = torch.amin(err, -1) * (1.0 - inv[..., 0].to(err.dtype))
     losses["loss_rgb_coarse"] = err.mean()
     total = losses["loss_rgb_coarse"] * cfg.lambda_coarse
 
-    if cfg.reconstruct_dino:
+    if cfg.reconstruct_dino and "dino_features" in coarse:
         dino = coarse.get("dino_features_downsampled", coarse["dino_features"])
         d_err = cosine_error(cfg.temperature_dino * dino, cfg.temperature_dino * data["dino_gt"])
         losses["loss_dino_coarse"] = torch.nanmean(d_err)
         total = total + losses["loss_dino_coarse"] * cfg.lambda_coarse * cfg.lambda_dino_coarse
 
     gt_img = _to_image_layout(data["rgb_gt"][..., :3])
-    if cfg.lambda_edge_aware_smoothness > 0:
+    if cfg.lambda_edge_aware_smoothness > 0 and "depth" in coarse:
         disp = 1.0 / clip(coarse["depth"].reshape(-1, 1, H, W), 1e-3, 80.0)
         disp = disp / disp.mean((2, 3), keepdim=True)
         losses["edge_aware_smoothness"] = edge_aware_smoothness(gt_img, disp, temperature=1.0).mean()
         total = total + losses["edge_aware_smoothness"] * cfg.lambda_edge_aware_smoothness
 
-    if cfg.lambda_dino_edge_aware_smoothness > 0:
+    if cfg.lambda_dino_edge_aware_smoothness > 0 and "dino_features" in coarse:
         dino_img = _to_image_layout(coarse["dino_features"])
         losses["dino_edge_aware_smoothness"] = edge_aware_smoothness(gt_img, dino_img, temperature=25.0).mean()
         total = total + losses["dino_edge_aware_smoothness"] * cfg.lambda_dino_edge_aware_smoothness

@@ -11,6 +11,11 @@ head, and samples the render views' colours.
 
 `encode` builds an autograd graph like any module call; serving callers
 wrap their request in `torch.inference_mode()`.
+
+An optional `uncertainty_predictor` (a `monodepth2.Monodepth2` in the
+reference's research configs; no factory builds one) gives a per-pixel
+uncertainty map (`predict_uncertainty`) that the training step renders as
+an extra colour channel (`encode(extra_color_channels=...)`).
 """
 from __future__ import annotations
 
@@ -22,12 +27,14 @@ import torch.nn.functional as F
 from torch import nn
 
 from scenedino_torch.core import cameras, encoding, grid_sample
+from scenedino_torch.core.resize import jax_resize
 from scenedino_torch.models.heads import make_head
 
 
 @dataclasses.dataclass
 class SceneState:
-    """feat_grid (B, Ve, C, Hf, Wf); color_imgs (B, Vr, 3, H, W) in [0, 1];
+    """feat_grid (B, Ve, C, Hf, Wf); color_imgs (B, Vr, 3 + extra, H, W), the
+    colours in [0, 1] and any extra channels;
     ks normalized intrinsics (B, V, 3, 3); poses world->camera (B, V, 4, 4);
     loss_feats the teacher's maps (B, Vl, Cd, Gh, Gw), or None."""
 
@@ -86,9 +93,10 @@ class SceneField(nn.Module):
 
     def __init__(self, encoder: nn.Module, cfg: FieldConfig,
                  head_confs: Tuple[Tuple[str, Any], ...] = _DEFAULT_HEADS,
-                 final_pred_head: str = "normal_head"):
+                 final_pred_head: str = "normal_head", uncertainty_predictor: Optional[nn.Module] = None):
         super().__init__()
         self.encoder = encoder
+        self.uncertainty_predictor = uncertainty_predictor
         self.cfg = cfg
         self.final_pred_head = final_pred_head
         self.head_confs = head_confs
@@ -107,7 +115,7 @@ class SceneField(nn.Module):
                loss_feature_grid_shift: Optional[Tuple[int, int]] = None,
                flip: bool = False,
                fold_matrix: Optional[torch.Tensor] = None,
-               crops=None) -> SceneState:
+               crops=None, extra_color_channels: Optional[torch.Tensor] = None) -> SceneState:
         """images (B, V, 3, H, W) in [-1, 1]; ks (B, V, 3, 3); poses_c2w (B, V, 4, 4).
 
         The student sees the `ids_encoder` views (all by default); the colour
@@ -118,7 +126,8 @@ class SceneField(nn.Module):
         flipped. Poses are inverted to world->camera in fp32.
         `fold_matrix` (C, d) is folded into the decoder's last conv (serving,
         `ops.fast_field.encode_prefolded`): the grid comes out already
-        projected, (B, Ve, d, Hf, Wf).
+        projected, (B, Ve, d, Hf, Wf). `extra_color_channels` (B, V, Ce, H, W)
+        of the `ids_render` views ride along the colours (field.py:183-188).
         """
         B, V = images.shape[:2]
         all_ids = list(range(V))
@@ -136,11 +145,14 @@ class SceneField(nn.Module):
 
         loss_feats = (self.loss_features(images, ids_loss, loss_feature_grid_shift, crops) if with_loss_feats
                       else None)
+        color_imgs = images[:, ids_render] * 0.5 + 0.5
+        if extra_color_channels is not None:
+            color_imgs = torch.cat([color_imgs, extra_color_channels[:, ids_render].to(color_imgs.dtype)], 2)
         return SceneState(
             feat_grid=feats.reshape(B, ne, *feats.shape[1:]),
             feat_ks=ks[:, ids_encoder],
             feat_w2c=poses_w2c[:, ids_encoder],
-            color_imgs=images[:, ids_render] * 0.5 + 0.5,
+            color_imgs=color_imgs,
             color_ks=ks[:, ids_render],
             color_w2c=poses_w2c[:, ids_render],
             loss_feats=loss_feats,
@@ -171,8 +183,8 @@ class SceneField(nn.Module):
         return feats.transpose(1, 2), invalid[..., 0].transpose(1, 2)
 
     def sample_colors(self, state: SceneState, xyz: torch.Tensor):
-        """Colours of world points in the render views: (colors (B, Vr, P, 3),
-        invalid (B, Vr, P, 1))."""
+        """Colours (and extra channels) of world points in the render views:
+        (colors (B, Vr, P, 3 + extra), invalid (B, Vr, P, 1))."""
         xy, _, _, invalid = cameras.project_points(xyz, state.color_w2c, state.color_ks)
         return grid_sample.grid_sample_views(state.color_imgs, xy), invalid
 
@@ -195,6 +207,17 @@ class SceneField(nn.Module):
         inv_c = invalid_colors[..., 0].transpose(1, 2)  # (B, P, Vr)
         invalid = (inv_c | invalid_features.all(-1, keepdim=True)).to(rgb.dtype)
         return rgb, invalid, sigma, dino
+
+    def predict_uncertainty(self, images: torch.Tensor, res: int = 0) -> torch.Tensor:
+        """images (B, V, 3, H, W) in [-1, 1] -> (B, V, 1, H, W): the predictor's
+        map at scale `res`, resized to the image bilinearly as
+        `jax.image.resize` resizes (half-pixel centres) where it is coarser,
+        then softplus'd (field.py:337-349)."""
+        B, V, C, H, W = images.shape
+        u = self.uncertainty_predictor(images.reshape(B * V, C, H, W))[res]
+        if tuple(u.shape[-2:]) != (H, W):
+            u = jax_resize(u, (H, W), "bilinear")
+        return F.softplus(u).reshape(B, V, 1, H, W)
 
     def expand_dim(self, features: torch.Tensor) -> torch.Tensor:
         """64-d field feature -> 768-d DINO space."""

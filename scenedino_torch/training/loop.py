@@ -4,8 +4,10 @@ the non-finite policy, the model-update hook and a profiler window.
 
 `fit` drives `train_step(state, batch, generator) -> losses`, which updates
 the trained module (stage 1's field, stage 2's semantic head) and `state`
-in place. Checkpoints are `utils.checkpoint` files named as the reference
-names its directories: `training_checkpoint_<it>.pt` (the newest one kept)
+in place; a `train_step` with `for_iteration(it)` (the sample-count
+schedule, `trainer.ScheduledTrainStep`) gives the step of each iteration.
+Checkpoints are `utils.checkpoint` files named as the reference names its
+directories: `training_checkpoint_<it>.pt` (the newest one kept)
 and `<metric>_best_<it>.pt` (one per metric). Log records carry their
 numbers as attributes (`losses`, `data_ms`, `step_ms` of a step, where
 step_ms counts the steps since the last log up to their losses on the
@@ -49,8 +51,10 @@ class MetricLogger:
     """TensorBoard scalars through `torch.utils.tensorboard`; writes nothing
     when it cannot be imported (it needs the tensorboard package)."""
 
-    def __init__(self, logdir: str):
+    def __init__(self, logdir: Optional[str]):
         self.writer = None
+        if logdir is None:  # writes nothing
+            return
         try:
             from torch.utils.tensorboard import SummaryWriter
         except ImportError:
@@ -144,7 +148,8 @@ def run_validation(field, state, it: int, validators: Dict[str, Any], generator:
 
 def fit(field, state, train_step: Callable, data_iter_fn: Callable[[], Iterable], cfg: LoopConfig,
         generator: torch.Generator, validators: Optional[Dict[str, Any]] = None,
-        steps_per_epoch: Optional[int] = None, update_model_fn: Optional[Callable] = None):
+        steps_per_epoch: Optional[int] = None, update_model_fn: Optional[Callable] = None,
+        main_process: bool = True, sync_generator: Optional[Callable[[torch.Generator], None]] = None):
     """Run the loop from `state.step` (or the newest checkpoint, with
     `cfg.resume`); returns `state`. `field` is the trained module, the one
     the checkpoints save with `state`.
@@ -153,9 +158,16 @@ def fit(field, state, train_step: Callable, data_iter_fn: Callable[[], Iterable]
     loss ("rec_loss", else "total_loss") raises `FloatingPointError` unless
     the step's update was skipped (`nonfinite_gave_up` is 0), in which case
     it warns and goes on. `update_model_fn` is `run_validation`'s hook.
+    A data-parallel rank other than the first passes `main_process=False`:
+    it trains and logs, and writes no scalars, checkpoints or validations;
+    `sync_generator(generator)`, called after each iteration's validations,
+    then gives every rank the first rank's generator, which its validations
+    drew from.
     """
     os.makedirs(cfg.output_path, exist_ok=True)
-    tb = MetricLogger(os.path.join(cfg.output_path, "tb"))
+    tb = MetricLogger(os.path.join(cfg.output_path, "tb")) if main_process else MetricLogger(None)
+    if not main_process:
+        validators = None
     if cfg.resume:
         latest = find_latest_checkpoint(cfg.output_path)
         if latest:
@@ -174,7 +186,8 @@ def fit(field, state, train_step: Callable, data_iter_fn: Callable[[], Iterable]
                 t0 = time.perf_counter()
                 if cfg.profile_start is not None and it == cfg.profile_start and prof is None:
                     prof = _start_profiler()
-                losses = train_step(state, batch, generator)
+                step_fn = train_step.for_iteration(it) if hasattr(train_step, "for_iteration") else train_step
+                losses = step_fn(state, batch, generator)
                 it += 1
                 if prof is not None and cfg.profile_stop is not None and it >= cfg.profile_stop:
                     _stop_profiler(prof, cfg.output_path)
@@ -198,11 +211,13 @@ def fit(field, state, train_step: Callable, data_iter_fn: Callable[[], Iterable]
                                 {k: round(v, 5) for k, v in losses.items()}, data_ms, step_ms,
                                 extra={"iteration": it, "losses": losses, "data_ms": data_ms, "step_ms": step_ms})
                     t_data = t_step = 0.0
-                if it % cfg.checkpoint_every == 0:
+                if main_process and it % cfg.checkpoint_every == 0:
                     _write_checkpoint(cfg.output_path, "training_checkpoint_", it, field, state)
                 if validators:
                     run_validation(field, state, it, validators, generator, tb, cfg, best,
                                    update_model_fn=update_model_fn)
+                if sync_generator is not None:
+                    sync_generator(generator)
                 if cfg.stop_iteration and it >= cfg.stop_iteration:
                     logger.info("stop_iteration %d reached", cfg.stop_iteration)
                     return state

@@ -4,7 +4,8 @@
 A stage-1 checkpoint holds the field's parameters (`state_dict`, the
 frozen teacher included), the optimizer's state (both Adam groups'
 moments, step counts and rates), the artifact field and its optimizer,
-the step and applied-update counts, and the non-finite counters. A
+the step and applied-update counts, the non-finite counters and, with
+gradient accumulation, the accumulator and its micro-step count. A
 stage-2 checkpoint holds the semantic head's parameters and buffers (the
 pseudo assignments), its optimizer (the STEGO and heads groups), the ring
 buffers (`patch_buffer`, `gap_buffer`, `idx`, `filled`), the counts and
@@ -42,9 +43,13 @@ def train_state_dict(module: torch.nn.Module, state) -> Dict[str, Any]:
         b = state.buffers
         out["buffers"] = {"patch_buffer": b.patch_buffer, "gap_buffer": b.gap_buffer, "idx": b.idx,
                           "filled": b.filled}
-    elif state.artifact_field is not None:
-        out["artifact_field"] = state.artifact_field.detach()
-        out["artifact_optimizer"] = state.artifact_optimizer.state_dict()
+    else:
+        if state.artifact_field is not None:
+            out["artifact_field"] = state.artifact_field.detach()
+            out["artifact_optimizer"] = state.artifact_optimizer.state_dict()
+        if state.acc_grads is not None:
+            out["acc_grads"] = [a.detach() for a in state.acc_grads]
+            out["mini_step"] = state.mini_step
     return out
 
 
@@ -81,10 +86,13 @@ def load_checkpoint(path: str, module: torch.nn.Module, state) -> None:
         b.gap_buffer.copy_(saved["gap_buffer"])
         for k in _RING:
             setattr(b, k, int(saved[k]))
-    elif state.artifact_field is not None:
-        with torch.no_grad():
-            state.artifact_field.copy_(ckpt["artifact_field"])
-        state.artifact_optimizer.load_state_dict(ckpt["artifact_optimizer"])
+    else:
+        if state.artifact_field is not None:
+            with torch.no_grad():
+                state.artifact_field.copy_(ckpt["artifact_field"])
+            state.artifact_optimizer.load_state_dict(ckpt["artifact_optimizer"])
+        state.acc_grads = [a.clone() for a in ckpt["acc_grads"]] if "acc_grads" in ckpt else None
+        state.mini_step = int(ckpt.get("mini_step", 0))
     for k in _COUNTERS:
         setattr(state, k, int(ckpt[k]))
 

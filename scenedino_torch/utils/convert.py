@@ -14,7 +14,9 @@ as in tests/goldens/s1b_field_params.npz). Layouts:
 Module paths keep the JAX names except `VisionTransformer_0` -> `vit`,
 `blocks_<i>` -> `blocks.<i>`, `heads_<name>` -> `heads.<name>` and, in
 the simple-feature-pyramid decoder, `Monodepth2Decoder_0` -> `monodepth2`
-and a conv block's `Conv_0` -> `conv`.
+and a conv block's `Conv_0` -> `conv`. Monodepth2's frozen batch norms
+(`models.monodepth2.FrozenBatchNorm`: scale, bias and the stored mean and
+var, all in the "params" collection) map by name, the scale to `weight`.
 The mapping is strict: every leaf maps to one port tensor. A serving
 model holds no training-only subtree (TRAINING_ONLY: the frozen teacher,
 the FeatUp downsampler, the 64 -> 768 expansion); `load_jax_params`

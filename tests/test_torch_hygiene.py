@@ -46,6 +46,9 @@ def test_the_scan_sees_the_whole_package():
     assert {"chip_smoke.py", "scenedino_torch/kernels/attention.py",
             "scenedino_torch/ops/fast_field.py", "scenedino_torch/utils/convert.py",
             "scenedino_torch/training/trainer.py", "scenedino_torch/renderer/nerf.py",
+            "scenedino_torch/losses/errors.py", "scenedino_torch/parallel/data_parallel.py",
+            "scenedino_torch/tools/diag_depth_convergence.py", "scenedino_torch/tools/softmax_sweep.py",
+            "scenedino_torch/models/monodepth2.py", "scenedino_torch/core/ray_sampler.py",
             "scenedino_torch/losses/reconstruction.py", "scenedino_torch/kernels/row_gather.py",
             "scenedino_torch/tools/probe_gather.py", "scenedino_torch/tools/bench_gather.py",
             "scenedino_torch/eval/sscbench.py", "scenedino_torch/utils/timing.py",

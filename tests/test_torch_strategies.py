@@ -156,10 +156,21 @@ def test_draw_stage1_alternate_draws_one_coin_for_the_sample(V):
 
 
 def test_the_step_takes_the_two_splits_the_jax_step_runs():
-    trainer._check_supported(trainer.TrainConfig(loss_renderer_strategy="alternate"))
-    trainer._check_supported(trainer.TrainConfig(loss_renderer_strategy="kitti_360"))
-    for name in ("single_view", "stereo_view"):
-        with pytest.raises(NotImplementedError, match="loss_renderer_strategy"):
-            trainer._check_supported(trainer.TrainConfig(loss_renderer_strategy=name))
+    """"alternate" draws one coin for the sample; every other name takes the
+    KITTI-360 split (a coin per pair), as JAX's stage1_forward does
+    (trainer.py:182-188): the same generator gives the same draws for each."""
+    rcfg = RenderConfig(n_coarse=4)
+    ref = trainer.draw_stage1(torch.Generator().manual_seed(3), trainer.TrainConfig(ray_batch_size=64), rcfg,
+                              1, 8, 16, 32)
+    for name in ("kitti_360", "single_view", "stereo_view", "anything_else"):
+        cfg = trainer.TrainConfig(loss_renderer_strategy=name, ray_batch_size=64)
+        d = trainer.draw_stage1(torch.Generator().manual_seed(3), cfg, rcfg, 1, 8, 16, 32)
+        assert d.split_coin == ref.split_coin and torch.equal(d.u, ref.u), name
+    alt = trainer.draw_stage1(torch.Generator().manual_seed(3),
+                              trainer.TrainConfig(loss_renderer_strategy="alternate", ray_batch_size=64),
+                              rcfg, 1, 8, 16, 32)
+    assert len(set(alt.split_coin)) == 1
     conf = {"model": {"loss_renderer_strategy": {"name": "alternate"}}}
     assert trainer.configs_from_dict(conf)[1].loss_renderer_strategy == "alternate"
+    assert trainer.configs_from_dict({"model": {"loss_renderer_strategy": {"name": "single_view"}}}
+                                     )[1].loss_renderer_strategy == "single_view"
