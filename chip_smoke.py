@@ -236,8 +236,36 @@ Phases, one line each:
              teacher's 8, the validation's 1 and 4) and dq + dkv at (4, 2305,
              12, 64) against their plain versions (phase 2's bounds), two
              launches bitwise equal, kernel, plain, SDPA and bound times
+  13 stage1 the rest of stage 1: the uncertainty and consistency branches,
+             gradient accumulation, the sample-count schedule, the render
+             modes, the data-parallel wrapper, the dinov2 recipe, the
+             depth-convergence tool
+  14 serve  serving, the rest, on the flagship model (ViT-B/8, DPT 256,
+             bf16, 192x640, seeded weights). 14a: one frame's folded state
+             exact (bf16) and int8 (`build_fast_state(quantize_grid=True)`):
+             the unfused render_novel_view of both on the same strata within
+             the reference's closeness bounds (tests/test_fast_field.py:178-183:
+             mean depth difference < 0.8 m, mean feature cosine > 0.995, mean
+             colour difference < 0.05), fast_query of both over the 2,097,152
+             SSCBench voxel centres (the mean sigma difference within 0.1 of
+             its spread + 0.05, the mean feature cosine > 0.995), the int8
+             encode view through K6 against its plain version (phase 3e's
+             bf16 bounds), the fused paths' refusal of the int8 state; 14b:
+             the unfused exact render against render_novel_view_fused (K2)
+             on the same state and strata (phase 3's bounds; colour 1e-2,
+             the unfused lookup blends the bf16 image in bf16); 14c:
+             make_pipelined_stream_step over 4 frames against the two calls,
+             bit for bit, host ms of each; 14d: cli.generate_ply_sequence on
+             phase 8a's tree with phase 7's run, 2 frames at the evaluation's
+             0.2 m grid, fast and --pipelined: the same bytes, each frame's
+             host ms and the launches; 14e: cli.demo on a seeded 192x640 PNG
+             with phase 7's run: host ms of the encode, the 2D render, the
+             PCA and the 3D grid, peak memory, every file written and finite;
+             14f: the probe-serving bound on the trained s1b field through
+             K3, the row gather and K2 (tools/probe_quality_trained; the
+             exact render through K2, the 128-sample gold unfused)
   kernels    one JSON line: launches (all serving paths, training, the
-             train run, stage 2, evaluation, phases 9-12 together), error, times and
+             train run, stage 2, evaluation, phases 9-14 together), error, times and
              bound per kernel; the K1 forward's, K4's and K6's also at
              their shapes ("shapes": K4 at the evaluation's block, K6 at
              the 2D evaluator's fp32 frame; phase 9's holds of K1, K2, K4
@@ -3800,6 +3828,277 @@ def phase_dinov2_and_diag(root, stage1_dir, scratch):
     return counts
 
 
+# phase 14: serving, the rest. The int8 state's closeness to the exact one
+# (the reference's own bounds, tests/test_fast_field.py:178-183); the unfused
+# render's colour against K2's (the unfused lookup blends the bf16 image in
+# bf16, as the reference's packed-quad gather does, K2 in fp32: a few bf16
+# ulps of a value in [0, 1]); the stream's frames; the PLY sequence's frames
+# and voxel size (the evaluation's grid, not the CLI's 0.1 m default, to keep
+# the files small)
+INT8_DEPTH_MEAN = 0.8
+INT8_COS_MEAN = 0.995
+INT8_RGB_MEAN = 0.05
+UNFUSED_RGB_TOL = 1e-2
+STREAM_FRAMES = 4
+PLY_FRAMES = 2
+PLY_VOXEL = 0.2
+
+
+def _synced_ms(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _mean_cosine(a, b):
+    return (torch.nn.functional.cosine_similarity(a.float(), b.float(), dim=-1, eps=1e-9)).mean().item()
+
+
+def phase_int8_and_unfused(model, seed):
+    """Phases 14a and 14b on one frame of `model`. Returns the launches."""
+    from scenedino_torch import kernels
+    from scenedino_torch.kernels.encode_view import encode_view_plain
+    from scenedino_torch.ops import fast_field as ff
+    from scenedino_torch.tools.bench_encode_view import TOL
+
+    g = torch.Generator(device="cuda").manual_seed(seed + 140)
+    img = torch.rand(1, 1, 3, H, W, generator=g, device="cuda") * 2 - 1
+    u = torch.rand(H * W, K, generator=g, device="cuda")
+    pose, k, cfg = novel_pose("cuda"), intrinsics("cuda"), model.cfg
+    kernels.reset_launches()
+    with torch.inference_mode():
+        state = model.encode(img, *cameras_of("cuda"), ids_encoder=(0,))
+        exact = ff.build_fast_state(model, state)
+        q = ff.build_fast_state(model, state, quantize_grid=True)
+        (da, fa, ra), exact_ms = _synced_ms(lambda: ff.render_novel_view(exact, cfg, pose, k, H, W, u=u, n_coarse=K))
+        (db, fb, rb), int8_ms = _synced_ms(lambda: ff.render_novel_view(q, cfg, pose, k, H, W, u=u, n_coarse=K))
+        close = {"depth_mean_abs": (da - db).abs().mean().item(), "feature_cos_mean": _mean_cosine(fa, fb),
+                 "rgb_mean_abs": (ra - rb).abs().mean().item()}
+        print(f"phase 14a int8 grid ({tuple(q.folded_grid.shape)} int8, per-channel scale in "
+              f"[{q.grid_scale.min().item():.3e}, {q.grid_scale.max().item():.3e}]) against the exact bf16 state, "
+              f"render_novel_view (unfused, plain torch, {H}x{W} x {K} samples, the same strata): "
+              f"{json.dumps(close)} (bounds: < {INT8_DEPTH_MEAN} m, > {INT8_COS_MEAN}, < {INT8_RGB_MEAN}); "
+              f"host ms exact {exact_ms:.1f}, int8 {int8_ms:.1f}; peak memory allocated "
+              f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB", flush=True)
+        if not all(bool(torch.isfinite(t).all()) for t in (da, fa, ra, db, fb, rb)) or not (
+                close["depth_mean_abs"] < INT8_DEPTH_MEAN and close["feature_cos_mean"] > INT8_COS_MEAN
+                and close["rgb_mean_abs"] < INT8_RGB_MEAN):
+            fail(f"the int8 render is not within the reference's closeness bounds: {close}")
+
+        pts = ssc_points("cuda")[None]
+        _, _, sa, fqa = ff.fast_query(exact, cfg, pts, only_density=True)
+        _, _, sb, fqb = ff.fast_query(q, cfg, pts, only_density=True)
+        spread = sa.std().item()
+        qc = {"sigma_mean_abs": (sa - sb).abs().mean().item(), "sigma_max_abs": (sa - sb).abs().max().item(),
+              "sigma_std": spread, "feature_cos_mean": _mean_cosine(fqa, fqb),
+              "feature_cos_min": torch.nn.functional.cosine_similarity(fqa.float(), fqb.float(), -1,
+                                                                        1e-9).min().item()}
+        print(f"phase 14a fast_query over {pts.shape[1]} voxel centres, int8 against exact: {json.dumps(qc)} "
+              f"(gated: the mean sigma difference < 0.1 x its spread + 0.05, the mean cosine > {INT8_COS_MEAN})",
+              flush=True)
+        if not (torch.isfinite(sb).all() and qc["sigma_mean_abs"] < 0.1 * spread + 0.05
+                and qc["feature_cos_mean"] > INT8_COS_MEAN):
+            fail(f"fast_query on the int8 grid is not close to the exact grid's: {qc}")
+
+        before = kernels.launches()["encode_view"]
+        args, ecfg = ff.encode_view_inputs(q, cfg, H, W, u[None], n_coarse=K)
+        out = ff.render_encode_view(q, cfg, H, W, u=u, n_coarse=K)
+        if kernels.launches()["encode_view"] != before + 1:
+            fail("the int8 encode view did not launch K6 once")
+        ref = encode_view_plain(*args, ecfg)
+        tol = TOL[torch.bfloat16]
+        errs = {name: (o.reshape(r.shape) - r).abs().max().item() for name, o, r in zip(tol, out, ref)}
+        print(f"phase 14a int8 encode view through K6 (base fp32 after the dequantization, W_z and W2 "
+              f"{args[3].dtype}): errors against its plain version {json.dumps(errs)} (phase 3e's bounds "
+              f"{json.dumps(tol)})", flush=True)
+        if args[0].dtype != torch.float32 or any(errs[n] > tol[n] for n in tol):
+            fail(f"K6 on the int8 grid disagrees with its plain version: {errs}")
+
+        refused = []
+        for name, call in (("render_novel_view_fused", lambda: ff.render_novel_view_fused(q, cfg, pose, k, H, W, u=u)),
+                           ("render_novel_view_probe", lambda: ff.render_novel_view_probe(q, cfg, pose, k, H, W)),
+                           ("fast_query_fused", lambda: ff.fast_query_fused(q, cfg, pts[0]))):
+            try:
+                call()
+            except NotImplementedError as e:
+                if str(e) == ff.INT8_REFUSAL:
+                    refused.append(name)
+        print(f"phase 14a the fused paths refuse the int8 state: {refused}", flush=True)
+        if len(refused) != 3:
+            fail(f"a fused path took the int8 state: refused only {refused}")
+
+        (dk, fk, rk), fused_ms = _synced_ms(lambda: ff.render_novel_view_fused(exact, cfg, pose, k, H, W, u=u,
+                                                                                n_coarse=K))
+        errs = {"depth": (dk - da).abs().max().item(), "feature": (fk - fa).abs().max().item(),
+                "rgb": (rk - ra).abs().max().item()}
+        print(f"phase 14b the unfused exact render against render_novel_view_fused (K2) on the same state and "
+              f"strata: max abs errors {json.dumps(errs)} (phase 3's bounds: depth {K2_DEPTH_TOL} m, feature "
+              f"{K2_FEAT_TOL}; colour {UNFUSED_RGB_TOL}); host ms unfused {exact_ms:.1f}, fused {fused_ms:.1f}",
+              flush=True)
+        if errs["depth"] > K2_DEPTH_TOL or errs["feature"] > K2_FEAT_TOL or errs["rgb"] > UNFUSED_RGB_TOL:
+            fail(f"the unfused exact render and K2 disagree: {errs}")
+    return kernels.launches()
+
+
+def phase_stream(model, seed):
+    """Phase 14c: make_pipelined_stream_step over STREAM_FRAMES frames
+    against the two-call sequence, bit for bit. Returns the launches of
+    the pipelined run."""
+    from scenedino_torch import kernels
+    from scenedino_torch.ops import fast_field as ff
+
+    g = torch.Generator(device="cuda").manual_seed(seed + 141)
+    frames = [torch.rand(1, 1, 3, H, W, generator=g, device="cuda") * 2 - 1 for _ in range(STREAM_FRAMES)]
+    strata = [torch.rand(H * W, K, generator=g, device="cuda") for _ in range(STREAM_FRAMES)]
+    Ks, poses = cameras_of("cuda")
+    pose, k = novel_pose("cuda"), intrinsics("cuda")
+
+    def fold(img):
+        return ff.build_fast_state(model, model.encode(img, Ks, poses, ids_encoder=(0,)))
+
+    step = ff.make_pipelined_stream_step(model, H, W, n_coarse=K)
+    with torch.inference_mode():
+        fs = fold(frames[0])
+        kernels.reset_launches()
+        piped, piped_ms = [], []
+        for i in range(STREAM_FRAMES):
+            nxt = frames[min(i + 1, STREAM_FRAMES - 1)]  # the last step re-feeds its frame, its encode unused
+            (fs, out), ms = _synced_ms(lambda: step(fs, nxt, Ks, poses, pose, k, u=strata[i]))
+            piped.append(out)
+            piped_ms.append(ms)
+        counts = kernels.launches()
+        fs_p = fs
+        fs = fold(frames[0])
+        seq, seq_ms = [], []
+        for i in range(STREAM_FRAMES):
+            nxt = frames[min(i + 1, STREAM_FRAMES - 1)]
+
+            def two_calls():
+                out = ff.render_novel_view_fused(fs, model.cfg, pose, k, H, W, u=strata[i], n_coarse=K)
+                return out, fold(nxt)
+
+            (out, fs), ms = _synced_ms(two_calls)
+            seq.append(out)
+            seq_ms.append(ms)
+    same = all(torch.equal(a, b) for o, r in zip(piped, seq) for a, b in zip(o, r)) and all(
+        (getattr(fs_p, n) is None and getattr(fs, n) is None) or torch.equal(getattr(fs_p, n), getattr(fs, n))
+        for n in ff.FastFieldState._fields)
+    depth = model.encoder.vit_encoder.vit.cfg.depth
+    print(f"phase 14c make_pipelined_stream_step over {STREAM_FRAMES} frames ({H}x{W}, {K} samples): equal to the "
+          f"two calls bit for bit {same}; host ms a step {[round(t, 2) for t in piped_ms]}, the two calls "
+          f"{[round(t, 2) for t in seq_ms]}; launches {json.dumps(counts)}", flush=True)
+    if not same:
+        fail("the pipelined stream step differs from the two-call sequence")
+    if counts["attention"] != STREAM_FRAMES * depth or counts["point_render"] != STREAM_FRAMES:
+        fail(f"the stream step did not run K1 and K2 as expected: {counts}")
+    for d, f, r in piped:
+        check_depth("stream step", d, f, r)
+    return counts
+
+
+def phase_ply_sequence(ssc_root, stage2_dir, scratch):
+    """Phase 14d: cli.generate_ply_sequence fast and --pipelined on phase
+    8a's tree with phase 7's run. Returns the two runs' launches."""
+    from scenedino_torch.cli import generate_ply_sequence as cli
+
+    files, total = {}, {}
+    from scenedino_torch.eval.sscbench import SCENE_SIZE
+
+    centres = int(np.prod([np.ceil(s_ / PLY_VOXEL) for s_ in SCENE_SIZE]))
+    expect_k4 = PLY_FRAMES * -(-centres // cli.CHUNK)  # the grid padded to whole blocks
+    for mode in ("fast", "pipelined"):
+        out = tempfile.mkdtemp(prefix=f"ply_{mode}_", dir=scratch)
+        argv = ["--data", ssc_root, "--ckpt", stage2_dir, "--config", stage2_dir, "--out", out, "--max-frames",
+                str(PLY_FRAMES), "--voxel-size", str(PLY_VOXEL)] + (["--pipelined"] if mode == "pipelined" else [])
+        res = []
+        _, counts, peak, wall = _logged(lambda: res.append(cli.main(argv)), ("ply_sequence",))
+        res = res[0]
+        files[mode] = {os.path.relpath(p, out): open(p, "rb").read() for p in res["paths"]}
+        sizes = {name: len(b) for name, b in files[mode].items()}
+        print(f"phase 14d cli.generate_ply_sequence {mode} ({PLY_FRAMES} frames of phase 8a's tree, "
+              f"--voxel-size {PLY_VOXEL}): frame host ms {[round(t, 1) for t in res['frame_ms']]}, sec_per_frame "
+              f"{res['sec_per_frame']:.3f}, {wall:.1f} s wall (model build and load included), peak "
+              f"{peak:.2f} GiB; file bytes {json.dumps(sizes)}; launches {json.dumps(counts)}", flush=True)
+        if counts["point_query"] != expect_k4 or counts["attention"] == 0:
+            fail(f"the PLY sequence ({mode}) launched {counts}, expected {expect_k4} K4 blocks and K1")
+        for k_, n in counts.items():
+            total[k_] = total.get(k_, 0) + n
+    same = files["fast"] == files["pipelined"]
+    print(f"phase 14d the fast and pipelined files byte-identical: {same} ({len(files['fast'])} files)", flush=True)
+    if not same or len(files["fast"]) != 3 * PLY_FRAMES:
+        fail("the pipelined PLY sequence differs from the fast one")
+    return total
+
+
+def phase_demo(seed, stage2_dir, scratch):
+    """Phase 14e: cli.demo on a seeded 192x640 PNG with phase 7's run.
+    Returns its launches."""
+    from scenedino_torch.cli import demo
+    from scenedino_torch.datasets.image_io import read_png, write_png
+
+    out = tempfile.mkdtemp(prefix="demo_", dir=scratch)
+    png = os.path.join(out, "input.png")
+    write_png(png, np.random.default_rng(seed + 142).integers(0, 256, (H, W, 3), dtype=np.uint8))
+    res = []
+    _, counts, peak, wall = _logged(lambda: res.append(demo.main(["--image", png, "--config", stage2_dir, "--ckpt",
+                                                                  stage2_dir, "--out", out])), ())
+    ms = {k_: round(v, 1) for k_, v in res[0].items() if k_.endswith("_ms")}
+    arrays = {name: np.load(os.path.join(out, name)) for name in ("depth.npy", "dino_features.npy", "grid_sigma.npy")}
+    pngs = {name: read_png(os.path.join(out, name)).shape for name in
+            ("input_image.png", "feat_pca_00_02.png", "feat_pca_03_05.png", "feat_pca_06_08.png")}
+    occupied = int((arrays["grid_sigma.npy"] > 0.2).sum())
+    print(f"phase 14e cli.demo (phase 7's run, {H}x{W}): host ms {json.dumps(ms)}, {wall:.1f} s wall (model build "
+          f"and load included); peak memory allocated {peak:.2f} GiB; depth [{arrays['depth.npy'].min():.2f}, "
+          f"{arrays['depth.npy'].max():.2f}] m, features {arrays['dino_features.npy'].shape}, grid "
+          f"{arrays['grid_sigma.npy'].shape[0]} points, {occupied} occupied; panels {json.dumps(pngs)}; launches "
+          f"{json.dumps(counts)}", flush=True)
+    if not all(np.isfinite(a.astype(np.float32)).all() for a in arrays.values()) or arrays["depth.npy"].shape != (H, W) \
+            or arrays["dino_features.npy"].shape != (H, W, 768) or arrays["grid_sigma.npy"].shape != (101 * 51 * 101,):
+        fail("the demo's arrays are not finite or not of the expected shapes")
+    if any(shape != (H, W, 3) for shape in pngs.values()) or (occupied and not os.path.exists(
+            os.path.join(out, "grid_points.ply"))):
+        fail("the demo did not write every file")
+    if counts["attention"] != 12:
+        fail(f"the demo's encode did not run K1: {counts}")
+    return counts
+
+
+def phase_probe_trained():
+    """Phase 14f: the probe-serving bound on the trained s1b field through
+    the kernels. Returns the launches."""
+    from scenedino_torch.tools import probe_quality_trained as pq
+
+    (err_p, err_e, cos, counts), ms = _synced_ms(lambda: pq.probe_errors("cuda"))
+    stats, failed = pq.bound(err_p, err_e, cos)
+    print(f"phase 14f the probe bound on the trained s1b field ({pq.H}x{pq.W}, bf16 state): "
+          f"{json.dumps({k_: round(v, 6) for k_, v in stats.items()})}; failed {failed}; launches "
+          f"{json.dumps(counts)}; {ms:.0f} ms", flush=True)
+    if failed or counts["point_render"] != 2 or counts["probe_weights"] != 1 or counts["row_gather"] != 1:
+        fail(f"the probe bound on the trained field failed on the card: {failed}, launches {counts}")
+    return counts
+
+
+def phase_serving_rest(seed, ssc_root, stage2_dir, scratch):
+    """Phase 14: serving, the rest. Returns the launches of its paths."""
+    from scenedino_torch.models.factory import SCENEDINO_KITTI_360, make_model
+    from scenedino_torch.utils.timing import card_line
+
+    t_phase = time.perf_counter()
+    conf = {**SCENEDINO_KITTI_360}
+    conf["encoder"] = {**conf["encoder"], "dtype": "bfloat16"}
+    model = make_model(conf, device="cuda", seed=seed)
+    torch.cuda.reset_peak_memory_stats()
+    parts = [phase_int8_and_unfused(model, seed), phase_stream(model, seed)]
+    del model
+    torch.cuda.empty_cache()
+    parts += [phase_ply_sequence(ssc_root, stage2_dir, scratch), phase_demo(seed, stage2_dir, scratch),
+              phase_probe_trained()]
+    print(f"phase 14 wall time {time.perf_counter() - t_phase:.1f} s; {card_line()}", flush=True)
+    return {name: sum(p[name] for p in parts) for name in parts[0]}
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -3883,8 +4182,9 @@ def main():
         branches = phase_branches(args.seed)
         dinov2 = phase_dinov2_and_diag(kitti_root, stage1_dir, scratch)
         print(f"phase 13 wall time {time.perf_counter() - t13:.1f} s; {card_line()}", flush=True)
+        serving_rest = phase_serving_rest(args.seed, trees[0], stage2_dir, scratch)
     paths = (serving, training, train_run, stage2, stage2_conv, evaluation, reference, kitti, d80_paths, re10k,
-             branches, dinov2)
+             branches, dinov2, serving_rest)
     for e in entries:
         e["launches"] = sum(p[e["name"]] for p in paths)
         if e["name"] == "point_query":

@@ -34,14 +34,16 @@ import torch
 from scenedino_torch import resolve_device
 
 
-def eval_model(config: dict, ckpt: str, device, image_size=(192, 640)) -> Tuple[torch.nn.Module, Optional[
+def eval_model(config: dict, ckpt: Optional[str], device, image_size=(192, 640)) -> Tuple[torch.nn.Module, Optional[
         torch.nn.Module]]:
     """(field, head or None) for evaluation: the field from the config's
     `model:` block (its training `with_amp` as a bf16 encoder) or the
     `variant:` preset ("dino" or "dinov2") at `image_size`, the head from
     its `downstream:` block (the preset's defaults without a model block, as
     the reference);
-    both frozen, in eval mode, with the weights of `ckpt` loaded strictly."""
+    both frozen, in eval mode, with the weights of `ckpt` loaded strictly
+    (None: the seeded random weights of a fresh model and head, as the
+    demo takes them without a checkpoint)."""
     from scenedino_torch.models.downstream import SemanticHead, SemanticHeadConfig
     from scenedino_torch.models.factory import make_model, variant_config
     from scenedino_torch.utils.checkpoint import load_eval_state
@@ -56,13 +58,16 @@ def eval_model(config: dict, ckpt: str, device, image_size=(192, 640)) -> Tuple[
         model_conf = variant_config(config.get("variant", "dino"), image_size)
         head_cfg = SemanticHeadConfig()
     field = make_model(model_conf, device=device, training=True)
-    field_sd, head_sd = load_eval_state(ckpt, device=device)
-    field.load_state_dict(field_sd)
+    head = SemanticHead(head_cfg, generator=torch.Generator().manual_seed(0)).to(device)
+    if ckpt is not None:
+        field_sd, head_sd = load_eval_state(ckpt, device=device)
+        field.load_state_dict(field_sd)
+        if head_sd is None:
+            head = None
+        else:
+            head.load_state_dict(head_sd)
     field.eval().requires_grad_(False)
-    head = None
-    if head_sd is not None:
-        head = SemanticHead(head_cfg).to(device)
-        head.load_state_dict(head_sd)
+    if head is not None:
         head.eval().requires_grad_(False)
     return field, head
 
@@ -85,7 +90,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
 
     device = resolve_device(args.device)
     if args.data_parallel and device.type == "cuda" and torch.cuda.device_count() > 1:
-        raise NotImplementedError("--data-parallel over several cards is not ported (ROADMAP queue 1, item 6)")
+        raise NotImplementedError("--data-parallel over several cards is not ported (ROADMAP queue 1, item 6: "
+                                  "the multi-card slice)")
     config = load_run_config(args.config)
     ckpt = args.ckpt or config.get("checkpoint")
     if not ckpt:

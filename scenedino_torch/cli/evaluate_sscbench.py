@@ -18,8 +18,12 @@ and Hungarian mIoU tables, printed as JSON with the reference's keys. The
 fast path (default) is `encode_prefolded` (K1 in the ViT) and K4 over each
 block of 524,288 voxel centres, the head on each block's features, and the
 alpha-weighted argmax; `--slow` queries the unfolded field in plain torch.
+`--pipelined` runs `eval.sscbench.make_pipelined_grid_step`: one step
+queries frame N's grid and encodes frame N+1 (the same grids; the
+bootstrap encode of frame 0 counts towards `sec_per_frame`).
 Runs on the GPU unless `--device` names another device; without a GPU it
-raises. Each frame's host ms (read, encode, query, accumulation) is logged.
+raises. Each frame's host ms (read, encode, query, accumulation; read,
+step, accumulation when pipelined) is logged.
 """
 from __future__ import annotations
 
@@ -98,7 +102,8 @@ def main(argv: Optional[Sequence[str]] = None):
                     help="the per-class sigma-cutoff search and the precision/recall tradeoff")
     ap.add_argument("--data-parallel", action="store_true",
                     help="frame-parallel over the cards; one card evaluates the frames in turn")
-    ap.add_argument("--pipelined", action="store_true", help="not ported (ROADMAP queue 1, item 6)")
+    ap.add_argument("--pipelined", action="store_true",
+                    help="query frame N and encode frame N+1 in one step (the same grids)")
     ap.add_argument("--device", default=None, help="torch device (default: cuda; 'cpu' runs the plain versions)")
     args = ap.parse_args(argv)
     logging.basicConfig(level=logging.INFO)
@@ -110,11 +115,10 @@ def main(argv: Optional[Sequence[str]] = None):
 
     if args.mode == "s4c":
         raise NotImplementedError("--mode s4c: the monodepth2 baseline is not ported (ROADMAP queue 1, item 9)")
-    if args.pipelined:
-        raise NotImplementedError("--pipelined: the pipelined grid step is not ported (ROADMAP queue 1, item 6)")
     device = resolve_device(args.device)
     if args.data_parallel and device.type == "cuda" and torch.cuda.device_count() > 1:
-        raise NotImplementedError("--data-parallel over several cards is not ported (ROADMAP queue 1, item 6)")
+        raise NotImplementedError("--data-parallel over several cards is not ported (ROADMAP queue 1, item 6: "
+                                  "the multi-card slice)")
 
     config = load_run_config(args.config) if args.config else {"variant": args.variant}
     H, W = config.get("dataset", {}).get("image_size", (192, 640))
@@ -140,26 +144,50 @@ def main(argv: Optional[Sequence[str]] = None):
         if device.type == "cuda":
             torch.cuda.synchronize(device)
 
-    for i in range(n):
-        t0 = time.perf_counter()
+    def frame_inputs(i):
         sample = dataset[i]
-        imgs, projs, poses = (torch.from_numpy(sample[k])[None].to(device) for k in ("imgs", "projs", "poses"))
+        return sample, tuple(torch.from_numpy(sample[k])[None].to(device) for k in ("imgs", "projs", "poses"))
+
+    pipelined = args.pipelined and n > 1
+    if pipelined:
+        step = S.make_pipelined_grid_step(encode, predict)
+        cur = frame_inputs(0)
         sync()
         t1 = time.perf_counter()
-        with torch.no_grad():
-            qstate = encode(imgs, projs, poses)
+        qstate = encode(*cur[1])  # the bootstrap encode is the run's cost too
+        sync()
+        t_total += time.perf_counter() - t1
+    for i in range(n):
+        t0 = time.perf_counter()
+        if pipelined:
+            # feed frame i + 1 (the last step re-feeds frame i, its encode unused); the grids are frame i's
+            sample = cur[0]
+            cur = frame_inputs(i + 1) if i + 1 < n else cur
             sync()
-            t2 = time.perf_counter()
-            sigmas, segs = predict(pts, qstate)
-            sigmas, segs = sigmas.cpu().numpy(), segs.cpu().numpy()
-        t3 = time.perf_counter()
+            t1 = time.perf_counter()
+            with torch.no_grad():
+                qstate, (sigmas, segs) = step(qstate, pts, *cur[1])
+                sigmas, segs = sigmas.cpu().numpy(), segs.cpu().numpy()
+            t3 = time.perf_counter()
+            ms = {"read_ms": (t1 - t0) * 1e3, "step_ms": (t3 - t1) * 1e3}
+        else:
+            sample, (imgs, projs, poses) = frame_inputs(i)
+            sync()
+            t1 = time.perf_counter()
+            with torch.no_grad():
+                qstate = encode(imgs, projs, poses)
+                sync()
+                t2 = time.perf_counter()
+                sigmas, segs = predict(pts, qstate)
+                sigmas, segs = sigmas.cpu().numpy(), segs.cpu().numpy()
+            t3 = time.perf_counter()
+            ms = {"read_ms": (t1 - t0) * 1e3, "encode_ms": (t2 - t1) * 1e3, "query_ms": (t3 - t2) * 1e3}
         acc.add_frame(sigmas, segs, sample["voxel_gt"], fov3)
         if diag is not None:
             diag.add_frame(sigmas, segs, sample["voxel_gt"], fov3)
         t4 = time.perf_counter()
         t_total += t3 - t1
-        ms = {"read_ms": (t1 - t0) * 1e3, "encode_ms": (t2 - t1) * 1e3, "query_ms": (t3 - t2) * 1e3,
-              "accumulate_ms": (t4 - t3) * 1e3}
+        ms["accumulate_ms"] = (t4 - t3) * 1e3
         logger.info("frame %d/%d: %s", i + 1, n, ", ".join(f"{k} {v:.1f}" for k, v in ms.items()),
                     extra={"frame": i, **ms})
         if (i + 1) % 50 == 0:

@@ -71,6 +71,16 @@ LABELS = [
 
 N_TRAIN_CLASSES = 19
 
+# trainId -> its first label in the table (the reference's trainId2label)
+TRAINID2LABEL = {}
+for _l in LABELS:
+    TRAINID2LABEL.setdefault(_l.trainId, _l)
+
+# the 19 train classes' colours in [0, 1], then black (the PLY sequence's class colours)
+TRAIN_CLASS_COLORS = np.array(
+    [TRAINID2LABEL[t].color for t in range(N_TRAIN_CLASSES)] + [(0, 0, 0)], np.float32
+) / 255.0
+
 _ID_TO_TRAIN = np.full(256, -1, np.int64)
 for _l in LABELS:
     if 0 <= _l.id < 256:

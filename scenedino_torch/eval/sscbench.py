@@ -15,8 +15,9 @@ visibility carving (`remove_invisible`), the additional-invalids rule,
 occupancy and per-class numbers over the ranges 12.8 / 25.6 / 51.2 m,
 and the direct and Hungarian mIoU tables (`SSCAccumulator`), with the
 sigma-cutoff search and the precision/recall tradeoff beside them
-(`SigmaDiagnostics`). The frame-parallel and pipelined predictors of the
-reference wait in ROADMAP queue 1, item 6.
+(`SigmaDiagnostics`). `make_pipelined_grid_step` queries one frame's grid
+and encodes the next in one step (one card); the reference's
+frame-parallel predictor over several cards waits in ROADMAP queue 1.
 """
 from __future__ import annotations
 
@@ -218,6 +219,26 @@ def make_grid_predictor(query_fn: QueryFn, chunk_points: int = 128 * 128 * 32, g
         return sigmas, segs
 
     return predict
+
+
+def make_pipelined_grid_step(encode_fn, predict_fn):
+    """The pipelined SSC / PLY frame stream on one card (reference
+    eval/sscbench.py:286-312): one step queries the previous frame's scene
+    state over the voxel grid, then encodes the next frame.
+
+        step(qstate_prev, pts, imgs, projs, poses) -> (qstate_next, (sigmas, segs))
+
+    encode_fn(imgs, projs, poses) -> qstate; predict_fn: a
+    `make_grid_predictor`. Bootstrap qstate_prev by encoding frame 0, then
+    feed frame N+1's inputs to get frame N's grids. The two halves run in
+    turn, so the grids are the two-call sequence's bit for bit (the
+    reference measured that XLA does not overlap them either)."""
+
+    def step(qstate_prev, pts, imgs, projs, poses):
+        sigmas, segs = predict_fn(pts, qstate_prev)
+        return encode_fn(imgs, projs, poses), (sigmas, segs)
+
+    return step
 
 
 def compute_occupancy_numbers(y_pred, y_true, fov_mask):

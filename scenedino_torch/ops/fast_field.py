@@ -1,7 +1,8 @@
 """Serving paths of the shipped field head (counterpart of
-`scenedino_tpu/ops/fast_field.py`): the linear fold, the novel-view
-renders (exact and probe-guided), the encode-view render and the voxel
-query.
+`scenedino_tpu/ops/fast_field.py`): the linear fold (exact, or onto an
+int8 grid), the novel-view renders (exact fused, unfused and
+probe-guided), the encode-view render, the voxel query and the pipelined
+stream step.
 
 The head is lin_out(relu(lin_in([feat, code]))). Bilinear sampling is
 linear, so the first layer's feature block commutes with the lookup:
@@ -12,6 +13,12 @@ grid comes out folded. The per-point pipeline then runs in the kernels of
 `kernels.point_render`: K2 for the novel-view renders, K3 for the probe,
 K4 for the voxel query. The encode-view render needs no lookup at all: its
 per-sample work runs in K6 (`kernels.encode_view`).
+
+The int8 grid (`build_fast_state(quantize_grid=True)`) is a serving
+option of the reference that is not exact: it runs where the reference
+runs it, through the unfused `render_novel_view` and `fast_query` in
+plain torch and through K6 after a dequantization. The fused paths (K2,
+K3, K4) refuse it, as the reference's do.
 """
 from __future__ import annotations
 
@@ -20,12 +27,12 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
-from scenedino_torch.core import cameras, encoding, grid_sample
+from scenedino_torch.core import cameras, compositing, encoding, grid_sample
 from scenedino_torch.core import rays as rays_mod
 from scenedino_torch.core import sampling
 from scenedino_torch.kernels import encode_view, point_query, point_render, probe_weights, row_gather
 from scenedino_torch.kernels.encode_view import EncodeViewConfig
-from scenedino_torch.kernels.point_render import PointRenderConfig
+from scenedino_torch.kernels.point_render import PointRenderConfig, _sample_quads, _sample_grid
 from scenedino_torch.models.dpt import DPTHead
 from scenedino_torch.models.field import FieldConfig, SceneState
 from scenedino_torch.models.heads import ResnetFC
@@ -44,6 +51,26 @@ class FastFieldState(NamedTuple):
     color_imgs: torch.Tensor  # (B, V, H, W, 3)
     color_ks: torch.Tensor
     color_w2c: torch.Tensor
+    # (d_hidden,) fp32 per-channel scale of an int8 folded grid; None: the exact grid
+    grid_scale: Optional[torch.Tensor] = None
+
+
+INT8_REFUSAL = "fused path is exact-only (no int8 grid)"
+
+
+def _refuse_int8(fs: FastFieldState) -> None:
+    if fs.grid_scale is not None:
+        raise NotImplementedError(INT8_REFUSAL)
+
+
+def quantize_folded(folded: torch.Tensor):
+    """Symmetric per-channel int8 of a folded grid (B, V, Hg, Wg, D), fp32
+    (reference fast_field.py:94-98): scale = max(amax, 1e-12) / 127 over
+    (B, V, Hg, Wg), values clip(round(folded / scale), -127, 127), rounded
+    half to even as jnp.round. Returns (int8 grid, scale (D,) fp32)."""
+    amax = folded.abs().amax(dim=(0, 1, 2, 3))
+    scale = torch.clamp_min(amax, 1e-12) / 127.0
+    return torch.clamp(torch.round(folded / scale), -127, 127).to(torch.int8), scale
 
 
 def can_fold(field, head_name: str = "normal_head", head_confs=None) -> bool:
@@ -79,10 +106,11 @@ def _refuse_unfoldable(field, head_name: str, caller: str) -> None:
 
 
 def _fast_state(head, state: SceneState, folded: torch.Tensor, w_code: torch.Tensor,
-                compute_dtype: torch.dtype) -> FastFieldState:
-    """The state around a folded grid (B, V, Hg, Wg, d_hidden)."""
+                compute_dtype: torch.dtype, grid_scale: Optional[torch.Tensor] = None) -> FastFieldState:
+    """The state around a folded grid (B, V, Hg, Wg, d_hidden), stored in
+    `compute_dtype` unless it is int8 (then `grid_scale` is its scale)."""
     return FastFieldState(
-        folded_grid=folded.to(compute_dtype).contiguous(),
+        folded_grid=(folded if grid_scale is not None else folded.to(compute_dtype)).contiguous(),
         w_code=w_code.to(compute_dtype).contiguous(),
         b1=head.lin_in.bias.detach().float().contiguous(),
         w2=head.lin_out.weight.detach().float().T.to(compute_dtype).contiguous(),
@@ -92,20 +120,29 @@ def _fast_state(head, state: SceneState, folded: torch.Tensor, w_code: torch.Ten
         color_imgs=state.color_imgs.permute(0, 1, 3, 4, 2).to(compute_dtype).contiguous(),
         color_ks=state.color_ks.float().contiguous(),
         color_w2c=state.color_w2c.float().contiguous(),
+        grid_scale=grid_scale,
     )
 
 
 @torch.no_grad()
 def build_fast_state(field, state: SceneState, head_name: str = "normal_head",
-                     compute_dtype: torch.dtype = torch.bfloat16) -> FastFieldState:
+                     compute_dtype: torch.dtype = torch.bfloat16, quantize_grid: bool = False) -> FastFieldState:
     """Fold the head's first layer into the feature grid (exact; fp32 fold,
-    stored in `compute_dtype`)."""
+    stored in `compute_dtype`).
+
+    quantize_grid: store the folded grid int8 with a per-channel scale
+    (`quantize_folded`; reference fast_field.py:49-111), a serving option that is not
+    exact; the scale is applied after the bilinear blend, which it commutes
+    with. The weights and colours stay in `compute_dtype`."""
     _refuse_unfoldable(field, head_name, "build_fast_state")
     head = field.heads[head_name]
     k1 = head.lin_in.weight.detach().float().T  # (C + code, d_hidden)
     C = state.feat_grid.shape[2]
     folded = torch.einsum("bvchw,cd->bvhwd", state.feat_grid.float(), k1[:C])
-    return _fast_state(head, state, folded, k1[C:], compute_dtype)
+    grid_scale = None
+    if quantize_grid:
+        folded, grid_scale = quantize_folded(folded)
+    return _fast_state(head, state, folded, k1[C:], compute_dtype, grid_scale)
 
 
 @torch.no_grad()
@@ -173,14 +210,77 @@ def render_novel_view_fused(fs: FastFieldState, cfg: FieldConfig, target_pose_c2
     target_pose_c2w (4, 4); target_k (3, 3) normalized intrinsics. The
     stratum draws `u` (height*width, n_coarse) are an explicit input, drawn
     from `generator` when None. Returns (depth (H, W) as E[z] or the weight
-    median, dino (H, W, d_out-1), rgb (H, W, 3)), fp32.
+    median, dino (H, W, d_out-1), rgb (H, W, 3)), fp32. An int8 state
+    raises `NotImplementedError`, as the reference's fused path does.
     """
+    _refuse_int8(fs)
     field_args = _single_view(fs, "render_novel_view_fused")
     flat = _target_rays(cfg, target_pose_c2w, target_k, height, width).reshape(-1, 8).contiguous()
     z = sampling.sample_coarse(flat, n_coarse, lindisp, u=u, generator=generator).contiguous()
     depth, dino, rgb = point_render(flat, z, *field_args, *_colour_view(fs),
                                     _point_config(cfg, hard_alpha_cap, depth_statistic))
     return depth.reshape(height, width), dino.reshape(height, width, -1), rgb.reshape(height, width, 3)
+
+
+@torch.no_grad()
+def render_novel_view(fs: FastFieldState, cfg: FieldConfig, target_pose_c2w: torch.Tensor,
+                      target_k: torch.Tensor, height: int, width: int,
+                      u: Optional[torch.Tensor] = None, generator: Optional[torch.Generator] = None,
+                      n_coarse: int = 32, lindisp: bool = True, hard_alpha_cap: bool = True,
+                      want_rgb: bool = True, depth_statistic: str = "expectation"):
+    """The unfused full-frame render of an arbitrary camera from one encode
+    view (reference fast_field.py:393-529), in plain torch as the reference
+    runs it in XLA: every sample point's projection, code, bilinear lookup
+    in the folded grid and the head's two products, then compositing.
+
+    Takes the exact grid and the int8 grid: the int8 corners are blended in
+    fp32 and scaled after the blend (:470-481). On a bf16 state the (P,
+    d_hidden) activation is stored in bf16 between the two products, as the
+    reference stores it (:496-500). Colours come from the first render view
+    through the reference's packed-quad lookup, blended in the image's dtype
+    (`kernels.point_render._sample_quads`). The strata
+    `u` (height*width, n_coarse) are an explicit input (the reference draws
+    them from the first of a five-way key split, :446), drawn from
+    `generator` when None. Returns (depth (H, W), dino (H, W, d_out-1), rgb
+    (H, W, 3) or None), fp32.
+    """
+    B, V = fs.folded_grid.shape[:2]
+    if B != 1 or V != 1:
+        raise ValueError(f"render_novel_view expects 1 encode view, got B={B}, V={V}")
+    K = n_coarse
+    flat = _target_rays(cfg, target_pose_c2w, target_k, height, width).reshape(-1, 8)
+    z = sampling.sample_coarse(flat, K, lindisp, u=u, generator=generator)  # (R, K)
+    pts = (flat[:, None, :3] + z[..., None] * flat[:, None, 3:6]).reshape(1, -1, 3)  # (1, P, 3)
+
+    xy, zc, dist, _ = cameras.project_points(pts, fs.feat_w2c, fs.feat_ks)
+    coords = encoding.encode_coords(xy, zc, dist, cfg.z_near, cfg.z_far, mode=cfg.code_mode, inv_z=cfg.inv_z)
+    code = encoding.positional_encoding(coords, cfg.num_freqs, cfg.freq_factor, cfg.include_input)[0, 0]
+    g2d = fs.folded_grid[0, 0]
+    Hg, Wg = g2d.shape[:2]
+    px = (xy[0, 0, :, 0] + 1.0) * 0.5 * Wg - 0.5
+    py = (xy[0, 0, :, 1] + 1.0) * 0.5 * Hg - 0.5
+    if fs.grid_scale is not None:
+        sampled = _sample_quads(g2d, px, py) * fs.grid_scale
+    else:
+        sampled = _sample_grid(g2d, px, py)  # (P, d_hidden) fp32
+    h = torch.relu(sampled + code.to(fs.w_code.dtype).float() @ fs.w_code.float() + fs.b1)
+    if fs.w2.dtype == torch.bfloat16:
+        h = h.to(torch.bfloat16)
+    out = h.float() @ fs.w2.float() + fs.b2  # (P, d_out)
+    sigma = F.softplus(out[:, 0]).reshape(-1, K)
+    comp = compositing.composite_rays(sigma, z, hard_alpha_cap, depth_statistic=depth_statistic)
+    depth = comp.depth.reshape(height, width)
+    dino = compositing.weighted_reduce(comp.weights, out[:, 1:].reshape(-1, K, out.shape[1] - 1))
+    rgb = None
+    if want_rgb:
+        img = fs.color_imgs[0, 0]  # (Hc, Wc, 3)
+        Hc, Wc = img.shape[:2]
+        xy_c = cameras.project_points(pts, fs.color_w2c[:, :1], fs.color_ks[:, :1])[0]
+        cx = (xy_c[0, 0, :, 0] + 1.0) * 0.5 * Wc - 0.5
+        cy = (xy_c[0, 0, :, 1] + 1.0) * 0.5 * Hc - 0.5
+        rgb_k = _sample_quads(img, cx, cy).float().reshape(-1, K, img.shape[-1])
+        rgb = compositing.weighted_reduce(comp.weights, rgb_k).reshape(height, width, -1)
+    return depth, dino.reshape(height, width, -1), rgb
 
 
 class ProbeDraws(NamedTuple):
@@ -227,8 +327,10 @@ def render_novel_view_probe(fs: FastFieldState, cfg: FieldConfig, target_pose_c2
     samples are placed unlike `render_novel_view_fused`'s.
 
     `draws` holds every draw (drawn from `generator` when None). Returns
-    (depth (H, W), dino (H, W, d_out-1), rgb (H, W, 3) or None), fp32.
+    (depth (H, W), dino (H, W, d_out-1), rgb (H, W, 3) or None), fp32. An
+    int8 state raises `NotImplementedError`, as the reference's does.
     """
+    _refuse_int8(fs)
     field_args = _single_view(fs, "render_novel_view_probe")
     s = probe_stride
     if height % s or width % s:
@@ -281,8 +383,10 @@ def fast_query_fused(fs: FastFieldState, cfg: FieldConfig, xyz: torch.Tensor,
     `SEG_BLOCK` points, as the reference runs it inside its per-segment
     map: at 2,097,152 voxel centres the 768-wide fp32 features alone would
     take 6.4 GB. `segments` and `band` tune the TPU's banded gather; the
-    port takes them and ignores them.
+    port takes them and ignores them. An int8 state raises
+    `NotImplementedError`, as the reference's does.
     """
+    _refuse_int8(fs)
     sigma, feat = point_query(xyz.float().contiguous(), *_single_view(fs, "fast_query_fused"),
                               _point_config(cfg))
     if seg_fn is None:
@@ -297,13 +401,16 @@ def fast_query(fs: FastFieldState, cfg: FieldConfig, xyz: torch.Tensor, only_den
     fast_field.py:1038-1114), in plain torch as the reference computes it
     in XLA: xyz (B, P, 3) -> (rgb (B, P, Vr*3) or None, invalid, sigma
     (B, P), dino (B, P, dino_dims)). `segments` and `band` tune the TPU's
-    banded gather; the port takes them and ignores them.
+    banded gather; the port takes them and ignores them. An int8 grid is
+    sampled in fp32 and scaled after the blend (reference :1075-1083).
     """
     B, P, _ = xyz.shape
     xy, z, dist, invalid_f = cameras.project_points(xyz, fs.feat_w2c, fs.feat_ks)
     coords = encoding.encode_coords(xy, z, dist, cfg.z_near, cfg.z_far, mode=cfg.code_mode, inv_z=cfg.inv_z)
     code = encoding.positional_encoding(coords, cfg.num_freqs, cfg.freq_factor, cfg.include_input)
     sampled = grid_sample.grid_sample_views_hwc(fs.folded_grid, xy)  # (B, V, P, d_hidden) fp32
+    if fs.grid_scale is not None:
+        sampled = sampled * fs.grid_scale
     h = torch.relu(sampled + code.to(fs.w_code.dtype).float() @ fs.w_code.float() + fs.b1)
     out = h.to(fs.w2.dtype).float() @ fs.w2.float() + fs.b2
     out = out.transpose(1, 2).mean(2)  # collapse the (single) view axis
@@ -415,6 +522,8 @@ def encode_view_inputs(fs: FastFieldState, cfg: FieldConfig, height: int, width:
     pixel_bias = code_xy.to(fs.w_code.dtype).float() @ w_xy  # (R, d_hidden)
 
     g2d = fs.folded_grid[:, 0]
+    if fs.grid_scale is not None:  # no lookup here: dequantize first (reference :334-336); the mean stays fp32
+        g2d = g2d.float() * fs.grid_scale
     Hg, Wg, D = g2d.shape[1:]
     if (Hg, Wg) == (2 * height, 2 * width):
         # render pixel centres fall midway between grid pixels: a 2x2 mean
@@ -432,3 +541,30 @@ def encode_view_inputs(fs: FastFieldState, cfg: FieldConfig, height: int, width:
     args = (base.contiguous(), z.contiguous(), zscale.contiguous(), fs.w_code[z_mask].contiguous(), fs.w2, fs.b2,
             rgb_map.reshape(B * R, 3).float().contiguous())
     return args, ecfg
+
+
+def make_pipelined_stream_step(field, height: int, width: int, n_coarse: int = 32):
+    """The pipelined video/novel-view stream (reference fast_field.py:1117-1173):
+    one step renders the previous frame's folded bf16 state at a novel
+    camera through `render_novel_view_fused` (K2), then encodes the next
+    frame and folds it (`build_fast_state`).
+
+        step(fs_prev, imgs, projs, poses, target_pose, target_k, u=None,
+             generator=None) -> (fs_next, (depth, dino, rgb))
+
+    imgs (1, 1, 3, H, W), projs (1, 1, 3, 3), poses (1, 1, 4, 4) are the next
+    frame's encode inputs; target_pose (4, 4) cam2world and target_k (3, 3)
+    the rendered camera; `u` the render's strata (drawn from `generator`
+    when None). Bootstrap `fs_prev` with the same encode and fold of frame
+    0. The two halves run in turn on the current stream, so the outputs are
+    the two-call sequence's bit for bit (the reference measured that XLA
+    does not overlap them either, :1131-1140).
+    """
+
+    @torch.no_grad()
+    def step(fs_prev, imgs, projs, poses, target_pose, target_k, u=None, generator=None):
+        out = render_novel_view_fused(fs_prev, field.cfg, target_pose, target_k, height, width, u=u,
+                                      generator=generator, n_coarse=n_coarse)
+        return build_fast_state(field, field.encode(imgs, projs, poses, ids_encoder=(0,))), out
+
+    return step

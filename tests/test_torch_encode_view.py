@@ -72,7 +72,8 @@ def _to_port(jfs) -> ff.FastFieldState:
         t = torch.from_numpy(np.asarray(a, np.float32))
         return t.to(torch.bfloat16) if a.dtype == jnp.bfloat16 else t
 
-    return ff.FastFieldState(*(conv(getattr(jfs, f)) for f in ff.FastFieldState._fields))
+    return ff.FastFieldState(*(None if getattr(jfs, f) is None else conv(getattr(jfs, f))
+                               for f in ff.FastFieldState._fields))
 
 
 def _strata(key, R, K):

@@ -103,7 +103,8 @@ def _to_port(jfs) -> FastFieldState:
         dt = torch.bfloat16 if x.dtype == jnp.bfloat16 else torch.float32
         return _t(np.asarray(x.astype(jnp.float32)), dt)
 
-    return FastFieldState(*(conv(getattr(jfs, f)) for f in FastFieldState._fields))
+    return FastFieldState(*(None if getattr(jfs, f) is None else conv(getattr(jfs, f))
+                            for f in FastFieldState._fields))
 
 
 @pytest.mark.parametrize("dtype", ["fp32", "bf16"])

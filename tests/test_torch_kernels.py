@@ -3,7 +3,9 @@ the card, at shapes beyond the main path's: ragged token counts, other
 sample counts and widths, both code modes, rays that leave the encode
 view; and the attention backward kernels against the plain backward;
 and one stage-1 step on a batch of the KITTI-360 loader through the
-kernels against the same step on the CPU.
+kernels against the same step on the CPU; serving's rest: the int8
+grid's encode view through K6, the unfused render against K2, and the
+trained-field probe bound through K3, the row gather and K2.
 The `cuda` tests skip without a card; on one, run them with
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels.py
@@ -766,3 +768,96 @@ def test_upsample_gt_step_matches_the_cpu(cuda):
     counts = launches()
     assert counts["attention"] == 24 and counts["attention_bwd_dq"] == 12, counts  # teacher 12 + student 12
     _assert_step_close(gpu, _gpu_cpu_step(copy.deepcopy(model).to("cpu"), batch, draws, tcfg, rcfg, lcfg, "cpu"))
+
+
+def _serving_state(cuda, h, w, D=128, E=65, quantize=False, seed=0):
+    """A random folded serving state of one 2h x 2w grid on the card: bf16
+    weights and colours, the grid bf16 or int8 with its per-channel scale
+    (`quantize_folded`), an encode camera at the origin."""
+    from scenedino_torch.ops import fast_field as ff
+
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    folded = torch.randn(1, 1, 2 * h, 2 * w, D, generator=g, device=cuda)
+    scale = None
+    if quantize:
+        folded, scale = ff.quantize_folded(folded)
+    k = torch.tensor([[1.1, 0.0, 0.02], [0.0, 2.2, -0.01], [0.0, 0.0, 1.0]], device=cuda)[None, None]
+    eye = torch.eye(4, device=cuda)[None, None]
+    b2 = torch.randn(E, generator=g, device=cuda) * 0.2
+    b2[0] += 0.5
+    bf16 = torch.bfloat16
+    return ff.FastFieldState(
+        folded_grid=folded if quantize else folded.to(bf16),
+        w_code=(torch.randn(39, D, generator=g, device=cuda) * 0.3).to(bf16),
+        b1=torch.randn(D, generator=g, device=cuda) * 0.1,
+        w2=(torch.randn(D, E, generator=g, device=cuda) / D ** 0.5).to(bf16), b2=b2, feat_ks=k, feat_w2c=eye,
+        color_imgs=torch.rand(1, 1, h, w, 3, generator=g, device=cuda).to(bf16), color_ks=k, color_w2c=eye,
+        grid_scale=scale)
+
+
+@pytest.mark.cuda
+def test_encode_view_kernel_on_the_int8_grid(cuda):
+    """The int8 state's encode view: its preamble dequantizes the grid to the
+    fp32 base, K6 takes it with the bf16 W_z and W2; against the plain
+    version at the bf16 bounds (the feature's times its largest magnitude)."""
+    from scenedino_torch.models.field import FieldConfig
+    from scenedino_torch.ops import fast_field as ff
+
+    h, w = 48, 160
+    fs = _serving_state(cuda, h, w, quantize=True)
+    cfg = FieldConfig()
+    u = torch.rand(h * w, 32, generator=torch.Generator(device=cuda).manual_seed(1), device=cuda)
+    args, ecfg = ff.encode_view_inputs(fs, cfg, h, w, u[None])
+    assert args[0].dtype == torch.float32 and args[3].dtype == args[4].dtype == torch.bfloat16
+    reset_launches()
+    out = ff.render_encode_view(fs, cfg, h, w, u=u)
+    assert launches()["encode_view"] == 1
+    ref = encode_view_plain(*args, ecfg)
+    for i, (o, r, b) in enumerate(zip(out, ref, (5e-2, 5e-3, 5e-3))):
+        if i == 1:
+            b *= max(1.0, r.abs().max().item())
+        assert (o.reshape(r.shape) - r).abs().max().item() <= b, i
+
+
+@pytest.mark.cuda
+def test_unfused_render_against_the_point_render_kernel(cuda):
+    """render_novel_view (plain torch on the card) against
+    render_novel_view_fused (K2) on one bf16 state and the same strata:
+    K2's depth and feature bounds; colours to 1e-2 (the unfused lookup
+    blends the bf16 image in bf16 as the reference does, K2 in fp32); the
+    int8 state refused by K2's path and rendered by the unfused one."""
+    from scenedino_torch.models.field import FieldConfig
+    from scenedino_torch.ops import fast_field as ff
+
+    h, w, K = 48, 160, 32
+    fs = _serving_state(cuda, h, w, seed=2)
+    cfg = FieldConfig()
+    c, s = np.cos(0.05), np.sin(0.05)
+    pose = torch.tensor([[c, 0, s, 0.3], [0, 1, 0, -0.1], [-s, 0, c, 0.0], [0, 0, 0, 1]], device=cuda)
+    k = fs.feat_ks[0, 0]
+    u = torch.rand(h * w, K, generator=torch.Generator(device=cuda).manual_seed(3), device=cuda)
+    reset_launches()
+    ref = ff.render_novel_view(fs, cfg, pose, k, h, w, u=u, n_coarse=K)
+    assert not any(launches().values())
+    out = ff.render_novel_view_fused(fs, cfg, pose, k, h, w, u=u, n_coarse=K)
+    assert launches()["point_render"] == 1
+    errs = [(o - r).abs().max().item() for o, r in zip(out, ref)]
+    assert errs[0] <= 5e-2 and errs[1] <= 5e-3 * max(1.0, ref[1].abs().max().item()) and errs[2] <= 1e-2, errs
+    q = _serving_state(cuda, h, w, seed=2, quantize=True)
+    with pytest.raises(NotImplementedError, match="exact-only"):
+        ff.render_novel_view_fused(q, cfg, pose, k, h, w, u=u, n_coarse=K)
+    d, f, rgb = ff.render_novel_view(q, cfg, pose, k, h, w, u=u, n_coarse=K)
+    assert all(torch.isfinite(t).all() for t in (d, f, rgb))
+
+
+@pytest.mark.cuda
+def test_probe_bound_on_the_trained_field_through_the_kernels(cuda):
+    """tests/test_torch_probe_trained.py's bound with the renders on the
+    card (bf16 state): the exact render through K2, the probe through K3,
+    the row gather and K2 (the 128-sample gold through the unfused render)."""
+    from scenedino_torch.tools import probe_quality_trained as pq
+
+    err_p, err_e, cos, counts = pq.probe_errors(cuda)
+    assert counts["point_render"] == 2 and counts["probe_weights"] == 1 and counts["row_gather"] == 1, counts
+    stats, failed = pq.bound(err_p, err_e, cos)
+    assert not failed, (failed, stats)

@@ -119,7 +119,8 @@ def _random_state(rng, H, W, D=16, E=9):
 
 
 def _to_port(jfs) -> ff.FastFieldState:
-    return ff.FastFieldState(*(_t(np.asarray(getattr(jfs, f), np.float32)) for f in ff.FastFieldState._fields))
+    return ff.FastFieldState(*(None if getattr(jfs, f) is None else _t(np.asarray(getattr(jfs, f), np.float32))
+                               for f in ff.FastFieldState._fields))
 
 
 # ------------------------------------------------------------ sampling

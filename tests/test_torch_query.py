@@ -70,7 +70,8 @@ def _random_state(rng, grid_hw, img_hw, V=1, B=1, D=16, E=7):
 
 
 def _to_port(jfs) -> ff.FastFieldState:
-    return ff.FastFieldState(*(_t(np.asarray(getattr(jfs, f), np.float32)) for f in ff.FastFieldState._fields))
+    return ff.FastFieldState(*(None if getattr(jfs, f) is None else _t(np.asarray(getattr(jfs, f), np.float32))
+                               for f in ff.FastFieldState._fields))
 
 
 def _points(rng, P):

@@ -18,6 +18,17 @@ scores differ by more than 1e-4, a margin that at least 90% of the points
 clear. The port's fast path against its slow path as the JAX package holds
 its own (tests/test_fast_field.py:262-300): sigma to 2e-4, at least 95% of
 the labels equal.
+
+The pipelined paths, the PLY sequence and the demo (slice 19):
+`make_pipelined_grid_step` against JAX's on a stub encode and query,
+exactly; the SSCBench CLI's --pipelined against its sequential run on both
+frames of the tree, the accumulated numbers exactly (a stand-in query:
+the real one is the CLI test's above); `cli.generate_ply_sequence` fast
+and --pipelined at 0.8 m, the same grids and bytes, and each file the
+bytes of JAX's post-processing of those grids; the demo's functions
+against JAX's (the strata from JAX's key; depth to rtol 1e-4 + atol 1e-4,
+the 768-d features to 1e-4 of their largest magnitude, sigma to 1e-4,
+labels as the grid predictor's) and its CLI's files.
 """
 import dataclasses
 import json
@@ -158,21 +169,34 @@ def _points():
 
 
 @pytest.fixture(scope="module")
-def predictions(setup):  # noqa: F811
-    """Both packages' grid predictions (fast and slow) of one frame on the same weights."""
+def headed(setup):  # noqa: F811
+    """The tiny field with its head in both packages (JAX's as one model with
+    `downstream`), one frame's inputs and both packages' encodings of it."""
     from scenedino_tpu.models.downstream import SemanticHead as JSemanticHead
     from scenedino_tpu.models.downstream import SemanticHeadConfig as JSemanticHeadConfig
     from scenedino_tpu.models.factory import make_model as j_make_model
 
     b = _batch(1)
     imgs, projs, poses = b["imgs"][:1, :1], b["projs"][:1, :1], np.eye(4, dtype=np.float32)[None, None]
-    pts = _points()
-    jhead = JSemanticHead(cfg=JSemanticHeadConfig(**HEAD))
-    jfield = j_make_model(MODEL, downstream=jhead)
+    jfield = j_make_model(MODEL, downstream=JSemanticHead(cfg=JSemanticHeadConfig(**HEAD)))
     variables = {"params": {**setup["params"]["params"], "downstream": setup["hvars"]["params"]},
                  "state": {"downstream": setup["hvars"]["state"]}}
     jstate = jfield.apply(variables, jnp.asarray(imgs), jnp.asarray(projs), jnp.asarray(poses), ids_encoder=(0,),
                           ids_render=(0,), method=JSceneField.encode)
+    head = SemanticHead(SemanticHeadConfig(**HEAD))
+    load_jax_head(head, setup["hvars"])
+    head.eval()
+    with torch.no_grad():
+        state = setup["model"].encode(torch.from_numpy(imgs), torch.from_numpy(projs), torch.from_numpy(poses),
+                                      ids_encoder=(0,), ids_render=(0,))
+    return dict(jfield=jfield, variables=variables, jstate=jstate, field=setup["model"], head=head, state=state)
+
+
+@pytest.fixture(scope="module")
+def predictions(headed):
+    """Both packages' grid predictions (fast and slow) of one frame on the same weights."""
+    pts = _points()
+    jfield, variables, jstate = headed["jfield"], headed["variables"], headed["jstate"]
     out = {}
     for fast in (True, False):
         qstate = {"vars": variables,
@@ -182,13 +206,8 @@ def predictions(setup):  # noqa: F811
                                         chunk_points=CHUNK, grid_dim=GRID, coherent=fast)
         out[("jax", fast)] = tuple(np.asarray(x) for x in predict(jnp.asarray(pts), qstate))
 
-    field = setup["model"]
-    head = SemanticHead(SemanticHeadConfig(**HEAD))
-    load_jax_head(head, setup["hvars"])
-    head.eval()
+    field, head, state = headed["field"], headed["head"], headed["state"]
     with torch.no_grad():
-        state = field.encode(torch.from_numpy(imgs), torch.from_numpy(projs), torch.from_numpy(poses),
-                             ids_encoder=(0,), ids_render=(0,))
         for fast in (True, False):
             qstate = build_fast_state(field, state, compute_dtype=torch.float32) if fast else state
             predict = S.make_grid_predictor(evaluate_sscbench.make_query_fn(field, head, "stego_kmeans", fast),
@@ -350,7 +369,7 @@ def test_accumulated_counts_cover_the_valid_voxels(grids):
         assert r["tp"] + r["fp"] + r["tn"] + r["fn"] == int(((target[sl] != 255) & fov[sl]).sum()) > 0
 
 
-@pytest.mark.parametrize("flags,item", [(["--mode", "s4c"], "item 9"), (["--pipelined"], "item 6")])
+@pytest.mark.parametrize("flags,item", [(["--mode", "s4c"], "item 9")])
 def test_cli_refuses_what_is_not_ported(flags, item):
     with pytest.raises(NotImplementedError, match=item):
         evaluate_sscbench.main(["--data", "x", "--voxel-gt", "x", "--ckpt", "x", "--device", "cpu"] + flags)
@@ -374,3 +393,235 @@ def test_eval_model_loads_the_run_strictly(runs):
     with pytest.raises(RuntimeError, match="size mismatch"):
         eval_model({"model": MODEL, "downstream": wrong}, str(runs["stage2"]), "cpu")
     assert os.path.exists(runs["stage2"] / "training_config.yaml")
+
+
+# ---------------------------------------------------------------- the pipelined paths, the PLY sequence, the demo
+
+
+def test_pipelined_grid_step_matches_jax():
+    """make_pipelined_grid_step against JAX's on the same stub encode and
+    query (tests/test_eval.py's): the grids are the previous state's, the
+    next state the fed frame's encode."""
+    X, Y, Z = 8, 8, 4
+    pts = np.random.default_rng(1).uniform(-5, 5, (X * Y * Z, 3)).astype(np.float32)
+    kw = dict(chunk_points=X * Y * Z // 4, grid_dim=(X, Y, Z))
+
+    def query(block, h, lib):
+        sigma = lib.where(block[0, :, 2] > h, 50.0, 0.0)
+        scores = lib.stack([block[0, :, 0], block[0, :, 1], -block[0, :, 0]], -1)
+        return sigma[None], scores[None]
+
+    step = S.make_pipelined_grid_step(lambda imgs, projs, poses: float(imgs),
+                                      S.make_grid_predictor(lambda b, h: query(b, h, torch), **kw))
+    jstep = J.make_pipelined_grid_step(lambda v, imgs, projs, poses: imgs,
+                                       J.make_grid_predictor(lambda b, q: query(b, q, jnp), jit=False, **kw))
+    nxt, (sig, seg) = step(4.0, torch.from_numpy(pts), 1.5, None, None)
+    jnxt, (jsig, jseg) = jstep({}, 4.0, jnp.asarray(pts), 1.5, None, None)
+    assert nxt == jnxt == 1.5
+    np.testing.assert_array_equal(sig.numpy(), np.asarray(jsig))
+    np.testing.assert_array_equal(seg.numpy(), np.asarray(jseg))
+    assert 0 < (sig.numpy() > 0).mean() < 1 and len(np.unique(seg.numpy())) == 3
+
+
+def test_cli_pipelined_equals_the_sequential_path(runs, ssc_tree, caplog, monkeypatch):
+    """cli.evaluate_sscbench on both frames of the tree, sequential and
+    --pipelined (the bootstrap encode, frame i's grids from the step fed
+    frame i + 1, the last step re-fed): the same accumulated numbers and
+    table. The per-block query is a cheap stand-in that depends on the
+    frame's encoding (its folded grid's mean) and the points, so a frame
+    taken out of turn changes the numbers; the real query through K4's
+    plain version and the head is test_cli_evaluates_a_stage2_run_on_the_cpu's
+    and, pipelined, test_ply_sequence_fast_and_pipelined_write_the_same_files's."""
+
+    means = []
+
+    def stand_in(field, head, prediction_mode, fast):
+        def query_fn(block, qstate):
+            m = qstate.folded_grid.float().mean()
+            means.append(m.item())
+            x, z = block[0, :, 0], block[0, :, 2]
+            sigma = torch.nn.functional.softplus(40.0 * torch.sin(3.0 * x + 100.0 * m) - 0.1 * z)
+            label = (torch.floor(7.0 * z + 1e3 * m) % S.N_LABELS).long()
+            return sigma[None], (label[:, None] == torch.arange(19)).float()[None]
+
+        return query_fn
+
+    monkeypatch.setattr(evaluate_sscbench, "make_query_fn", stand_in)
+    args = _ssc_args(runs, ssc_tree) + ["--voxel-gt", str(ssc_tree / "voxel_gt")]
+    caplog.set_level("INFO", logger="evaluation")
+    table, acc = evaluate_sscbench.main(args)
+    ptable, pacc = evaluate_sscbench.main(args + ["--pipelined"])
+    _equal_tree(pacc.results, acc.results)
+    assert {k: v for k, v in ptable.items() if k != "sec_per_frame"} == {
+        k: v for k, v in table.items() if k != "sec_per_frame"}
+    assert ptable["sec_per_frame"] > 0 and acc.results[51.2]["tp"] > 0
+    assert [r.frame for r in caplog.records if hasattr(r, "step_ms")] == [0, 1]
+    assert len(set(means)) == 2  # the two frames' queries differ
+
+
+def _ssc_args(runs, ssc_tree):
+    return ["--data", str(ssc_tree), "--ckpt", str(runs["stage2"]), "--config", str(runs["stage2"]),
+            "--device", "cpu"]
+
+
+def _jax_ply_files(root, grids, frame_ids, vs, sizes, sigma_cutoff=0.25):
+    """The JAX CLI's post-processing (scenedino_tpu/cli/generate_ply_sequence.py:189-217)
+    of the given (sigmas, segs) grids, through the JAX package's own functions."""
+    from scenedino_tpu.datasets.labels import TRAIN_CLASS_COLORS
+    from scenedino_tpu.eval.voxel_io import save_as_voxel_ply
+
+    _, fov_mask = J.generate_point_grid(voxel_size=vs)
+    grid_dim = tuple(int(np.ceil(s / vs)) for s in J.SCENE_SIZE)
+    out = {}
+    for i, (sigmas, segs) in zip(frame_ids, grids):
+        occupied = np.asarray(J.remove_invisible((sigmas > sigma_cutoff) & fov_mask.reshape(grid_dim)))
+        colors = TRAIN_CLASS_COLORS[np.clip(segs, 0, 19)]
+        for size in sizes:
+            nv = int(size / vs)
+            y0 = grid_dim[1] // 2 - nv // 2
+            sl = np.s_[:nv, y0:y0 + nv, :]
+            path = root / f"{int(size)}_{i}.ply"
+            save_as_voxel_ply(str(path), occupied[sl], origin=(J.VOX_ORIGIN[0], J.VOX_ORIGIN[1] + y0 * vs,
+                                                               J.VOX_ORIGIN[2]), voxel_size=vs, colors=colors[sl])
+            out[os.path.join(str(int(size)), f"{int(i):06d}.ply")] = path.read_bytes()
+    return out
+
+
+def test_ply_sequence_fast_and_pipelined_write_the_same_files(runs, ssc_tree, tmp_path, monkeypatch):
+    """cli.generate_ply_sequence on both frames at 0.8 m (a 64x64x8 grid of
+    32,768 centres, padded with the first to one block; the block cut from
+    524,288 centres to 65,536 for the CPU), fast and --pipelined, through
+    K4's plain version and the head: the same grids and the same bytes, and
+    each file the bytes that the JAX CLI's cut, carving, colours, crop and
+    crop origin make of those grids."""
+    from scenedino_torch.cli import generate_ply_sequence
+
+    monkeypatch.setattr(generate_ply_sequence, "CHUNK", 65536)
+
+    grids = []
+    make = S.make_grid_predictor
+
+    def recording(*a, **kw):
+        predict = make(*a, **kw)
+
+        def wrapped(pts, qstate):
+            out = predict(pts, qstate)
+            grids.append(tuple(x.numpy() for x in out))
+            return out
+
+        return wrapped
+
+    monkeypatch.setattr(S, "make_grid_predictor", recording)
+    sizes = ["12.8", "25.6", "51.2"]
+    runs_out = {}
+    for mode in ("fast", "pipelined"):
+        out = tmp_path / mode
+        res = generate_ply_sequence.main(_ssc_args(runs, ssc_tree) + ["--out", str(out), "--voxel-size", "0.8",
+                                                                       "--sizes", *sizes]
+                                         + (["--pipelined"] if mode == "pipelined" else []))
+        assert len(res["frame_ms"]) == 2 and len(res["paths"]) == 6 and res["sec_per_frame"] > 0
+        runs_out[mode] = {os.path.relpath(p, out): open(p, "rb").read() for p in res["paths"]}
+    assert len(grids) == 4 and all(g[0].shape == (64, 64, 8) for g in grids)
+    for a, b in zip(grids[:2], grids[2:]):
+        np.testing.assert_array_equal(a[0], b[0])
+        np.testing.assert_array_equal(a[1], b[1])
+    assert runs_out["fast"] == runs_out["pipelined"]
+    ref = _jax_ply_files(tmp_path, grids[:2], [0, 1], 0.8, [float(x) for x in sizes])
+    assert sorted(ref) == sorted(runs_out["fast"])
+    for name, data in runs_out["fast"].items():
+        assert data == ref[name], name
+    assert all(len(d) > 400 for d in ref.values())  # every crop holds voxels
+
+
+class _Jitted:
+    """A flax module whose `apply` runs under jax.jit (the demo's JAX
+    functions call it eagerly, which compiles op by op on the CPU)."""
+
+    def __init__(self, module):
+        self.downstream = module.downstream
+        self._apply = jax.jit(module.apply, static_argnames=("only_density", "method", "mode"))
+
+    def apply(self, *args, **kwargs):
+        return self._apply(*args, **kwargs)
+
+
+def test_demo_functions_match_jax(headed, tmp_path, monkeypatch):
+    """inference_rendered_2d (the strata of JAX's key) and inference_3d on a
+    coarse grid: depth to rtol 1e-4 + atol 1e-4, the 768-d features to 1e-4 of
+    their largest magnitude, sigma as the grid predictor's (1e-4), labels
+    where the head's top two cluster scores differ by more than 1e-4; the
+    grid axes and the image reader (PNG, INTER_LINEAR) as JAX's."""
+    import scenedino_tpu.cli.demo as jdemo
+    from scenedino_torch.cli import demo
+
+    import scenedino_tpu.renderer.nerf as jnerf
+
+    monkeypatch.setattr(jnerf, "render_rays_chunked", jax.jit(jnerf.render_rays_chunked,
+                                                              static_argnames=("field_fn", "cfg", "chunk")))
+    jfield, variables, jstate = _Jitted(headed["jfield"]), headed["variables"], headed["jstate"]
+    field, head, state = headed["field"], headed["head"], headed["state"]
+    size = MODEL["encoder"]["image_size"]
+    jd, jf = jdemo.inference_rendered_2d(jfield, variables, jstate, image_size=size, seed=0)
+    u = torch.from_numpy(np.array(jax.random.uniform(jax.random.split(jax.random.PRNGKey(0), 5)[0],
+                                                     (size[0] * size[1], 32))))
+    d, f = demo.inference_rendered_2d(field, state, size, u=u)
+    np.testing.assert_allclose(d.numpy(), jd, rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(f.numpy(), jf, atol=1e-4 * float(np.abs(jf).max()), rtol=0)
+
+    grid = dict(x_range=(-6, 6), y_range=(-2, 2), z_range=(4, 28), resolution=1.0)
+    jxyz, jdino, jsigma, jseg = jdemo.inference_3d(jfield, variables, jstate, **grid)
+    xyz, dino, sigma, seg = demo.inference_3d(field, head, state, **grid)
+    np.testing.assert_array_equal(xyz, jxyz)
+    np.testing.assert_allclose(sigma, jsigma, rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(dino, jdino, atol=1e-4 * float(np.abs(jdino).max()), rtol=0)
+    with torch.no_grad():
+        ip = _norm(head.stego_head(_norm(torch.from_numpy(dino)))) @ _norm(head.stego_cluster_head.cluster_centers).T
+    top2 = torch.topk(ip, 2, -1).values
+    clear = (top2[:, 0] - top2[:, 1]).numpy() > MARGIN
+    assert clear.mean() >= 0.9 and len(np.unique(seg)) > 1
+    np.testing.assert_array_equal(seg[clear], np.asarray(jseg)[clear])
+    _, _, sigma_free, seg_free = demo.inference_3d(field, None, state, **grid)
+    assert seg_free is None and np.array_equal(sigma_free, sigma)
+    for res in (0.2, 0.25):
+        for a, b in zip(demo.grid_axes(resolution=res), jdemo.grid_axes(resolution=res)):
+            np.testing.assert_array_equal(a, b)
+    assert [len(a) for a in demo.grid_axes()] == [101, 51, 101]
+    img = (np.random.default_rng(5).random((20, 30, 3)) * 255).astype(np.uint8)
+    write_png(tmp_path / "img.png", img)
+    np.testing.assert_allclose(demo.load_image(tmp_path / "img.png", (12, 40)),
+                               jdemo.load_image(str(tmp_path / "img.png"), (12, 40)), atol=1e-6, rtol=0)
+    for a, b in zip(demo.default_camera(), jdemo.default_camera()):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_demo_cli_writes_every_file(runs, tmp_path, capsys):
+    from scenedino_torch.cli import demo
+    from scenedino_torch.datasets.image_io import read_png
+
+    write_png(tmp_path / "in.png", (np.random.default_rng(6).random((40, 80, 3)) * 255).astype(np.uint8))
+    out = tmp_path / "out"
+    ms = demo.main(["--image", str(tmp_path / "in.png"), "--config", str(runs["stage2"]), "--ckpt",
+                    str(runs["stage2"]), "--out", str(out), "--device", "cpu"])
+    assert all(ms[k] > 0 for k in ("encode_ms", "render_2d_ms", "pca_ms", "grid_3d_ms"))
+    assert "depth range" in capsys.readouterr().out
+    depth, dino, sigma = (np.load(out / f) for f in ("depth.npy", "dino_features.npy", "grid_sigma.npy"))
+    assert depth.shape == (32, 64) and dino.shape == (32, 64, 64) and dino.dtype == np.float16
+    assert sigma.shape == (101 * 51 * 101,)
+    assert all(np.isfinite(a).all() for a in (depth, dino, sigma)) and ((depth >= 3) & (depth <= 80)).all()
+    for name in ("input_image.png", "feat_pca_00_02.png", "feat_pca_03_05.png", "feat_pca_06_08.png"):
+        assert read_png(out / name).shape == (32, 64, 3), name
+    occupied = int((sigma > 0.2).sum())
+    if occupied:
+        header = (out / "grid_points.ply").read_bytes().split(b"end_header\n")[0].decode()
+        assert f"element vertex {occupied}" in header
+    assert occupied or not (out / "grid_points.ply").exists()
+
+
+def test_eval_model_without_a_checkpoint_is_seeded():
+    """No checkpoint (the demo's default): the config's model and head with
+    their seeded weights, frozen; the same weights twice."""
+    a_field, a_head = eval_model({"model": MODEL, "downstream": HEAD}, None, "cpu")
+    b_field, b_head = eval_model({"model": MODEL, "downstream": HEAD}, None, "cpu")
+    _same(a_field.state_dict(), b_field)
+    _same(a_head.state_dict(), b_head)
+    assert not a_head.training and not any(p.requires_grad for p in a_head.parameters())
