@@ -264,8 +264,30 @@ Phases, one line each:
              14f: the probe-serving bound on the trained s1b field through
              K3, the row gather and K2 (tools/probe_quality_trained; the
              exact render through K2, the 128-sample gold unfused)
+  15 multi  the device-parallel paths, on the one card named several times
+             (its shares run in turn) and on make_mesh() (every visible
+             card). 15a, the flagship serving model (bf16, 192x640, 32
+             samples): render_novel_view_fused_sharded over [cuda:0] x 4 and
+             over make_mesh() against render_novel_view_fused on the same
+             state and strata, bit for bit, one K2 launch a share, host ms of
+             each; make_sharded_renderer over [cuda:0] x 4 against
+             render_rays on the same draws (12,288 rays through the unfolded
+             field). 15b: cli.evaluate_sscbench on phase 8a's tree with phase
+             7's run, in turn, --data-parallel with the CLI's mesh set to
+             [cuda:0] x 2 (make_sharded_frame_predictor over the card twice:
+             a group of 2 frames, then a short group of 1) and --data-parallel
+             over make_mesh(): the same tables and accumulated numbers, the
+             launches (12 K1, 4 K4 a frame), sec_per_frame of each. 15c:
+             cli.evaluate on phase 8b's tree, the same three runs
+             (Seg2DEvaluator.run_sharded over [cuda:0] x 2): the same metrics
+             exactly, 12 K1 and one K6 a frame. 15d: 2 stage-2 steps of phase 7's config
+             through the data-parallel wrapper (NCCL, world size 1) against
+             the plain step (losses and head equal), the generic (unfolded)
+             stage-2 render against the folded one (K6) on one batch within
+             phase 7's render bounds with both host times, and a
+             downstream.mode 2d step (the head's five crops)
   kernels    one JSON line: launches (all serving paths, training, the
-             train run, stage 2, evaluation, phases 9-14 together), error, times and
+             train run, stage 2, evaluation, phases 9-15 together), error, times and
              bound per kernel; the K1 forward's, K4's and K6's also at
              their shapes ("shapes": K4 at the evaluation's block, K6 at
              the 2D evaluator's fp32 frame; phase 9's holds of K1, K2, K4
@@ -4099,6 +4121,278 @@ def phase_serving_rest(seed, ssc_root, stage2_dir, scratch):
     return {name: sum(p[name] for p in parts) for name in parts[0]}
 
 
+# phase 15: the sharded render's devices (the card named this many times; 48
+# strips of 4 rows deal 12 to each), the generic ray renderer's rays, the
+# evaluators' devices (phase 8's trees of 3 frames: a group of 2, then a short
+# group of 1), the stage-2 steps through the data-parallel wrapper
+MESH_REPEAT = 4
+MESH_RAYS = 12288
+EVAL_MESH = 2
+STAGE2_DP_STEPS = 2
+
+
+def _max_diffs(names, got, want):
+    return {n: (a.float() - b.float()).abs().max().item() for n, a, b in zip(names, got, want)}
+
+
+def phase_sharded_serving(seed):
+    """Phase 15a: the sharded fused render and the ray-sharded renderer on
+    the flagship serving model. Returns the launches."""
+    from scenedino_torch import kernels
+    from scenedino_torch.models.factory import SCENEDINO_KITTI_360, make_model
+    from scenedino_torch.ops import fast_field as ff
+    from scenedino_torch.parallel.mesh import make_mesh
+    from scenedino_torch.parallel.render_sharding import make_sharded_renderer
+    from scenedino_torch.renderer.nerf import RenderConfig, render_rays
+
+    conf = {**SCENEDINO_KITTI_360}
+    conf["encoder"] = {**conf["encoder"], "dtype": "bfloat16"}
+    model = make_model(conf, device="cuda", seed=seed)
+    g = torch.Generator(device="cuda").manual_seed(seed + 150)
+    img = torch.rand(1, 1, 3, H, W, generator=g, device="cuda") * 2 - 1
+    u = torch.rand(H * W, K, generator=g, device="cuda")
+    pose, k, cfg = novel_pose("cuda"), intrinsics("cuda"), model.cfg
+    meshes = {f"[cuda:0] x {MESH_REPEAT}": [torch.device("cuda", 0)] * MESH_REPEAT, "make_mesh()": make_mesh()}
+    names = ("depth", "feature", "rgb")
+    kernels.reset_launches()
+    with torch.inference_mode():
+        Ks, poses = cameras_of("cuda")
+        state = model.encode(img, Ks, poses, ids_encoder=(0,))
+        fs = ff.build_fast_state(model, state)
+        one, one_ms = _synced_ms(lambda: ff.render_novel_view_fused(fs, cfg, pose, k, H, W, u=u, n_coarse=K))
+        results = {}
+        for name, devs in meshes.items():
+            before = kernels.launches()["point_render"]
+            out, ms = _synced_ms(lambda: ff.render_novel_view_fused_sharded(fs, cfg, pose, k, H, W, devs, u=u,
+                                                                             n_coarse=K))
+            results[name] = {"devices": len(devs), "max_abs_diff": _max_diffs(names, out, one),
+                             "k2_launches": kernels.launches()["point_render"] - before, "host_ms": round(ms, 2)}
+            check_depth(f"sharded render over {name}", *out)
+        print(f"phase 15a render_novel_view_fused_sharded ({H}x{W}, {K} samples, strips of 4 rows) against "
+              f"render_novel_view_fused ({one_ms:.2f} host ms, 1 K2 launch): {json.dumps(results)}", flush=True)
+        for name, r in results.items():
+            if any(r["max_abs_diff"].values()) or r["k2_launches"] != r["devices"]:
+                fail(f"the sharded fused render over {name} is not the one-card render through one K2 a share: {r}")
+
+        rays = ff._target_rays(cfg, pose, k, H, W).reshape(1, -1, 8)[:, :MESH_RAYS].contiguous()
+        u_r = u[:MESH_RAYS]
+        rcfg = RenderConfig(n_coarse=K)
+
+        def field_fn(xyz, only_density=False):
+            return model(state, xyz, only_density=only_density)
+
+        ref, ref_ms = _synced_ms(lambda: render_rays(field_fn, rays, u_r, rcfg, want_z_samps=True)["coarse"])
+        run = make_sharded_renderer(lambda d: field_fn, rcfg, meshes[f"[cuda:0] x {MESH_REPEAT}"], want_z_samps=True)
+        got, got_ms = _synced_ms(lambda: run(rays, u_r)["coarse"])
+        keys = ("depth", "dino_features", "rgb", "z_samps")
+        diffs = _max_diffs(keys, [got[n] for n in keys], [ref[n] for n in keys])
+        print(f"phase 15a make_sharded_renderer over [cuda:0] x {MESH_REPEAT} against render_rays on the same "
+              f"draws ({MESH_RAYS} rays x {K} samples through the unfolded field): max abs differences "
+              f"{json.dumps(diffs)} (gated: 0 in every output); host ms {got_ms:.1f} against {ref_ms:.1f}",
+              flush=True)
+        if any(diffs.values()):
+            fail(f"the ray-sharded renderer is not render_rays bit for bit: {diffs}")
+    counts = kernels.launches()
+    del model, state, fs
+    torch.cuda.empty_cache()
+    return counts
+
+
+CARD = torch.device("cuda", 0)
+TWICE = f"--data-parallel over [cuda:0] x {EVAL_MESH}"
+
+
+@contextlib.contextmanager
+def _mesh_of(cli, devices):
+    """The CLI module's `make_mesh` giving `devices` inside the block (None:
+    the CLI's own): a CLI's --data-parallel runs over every visible card, so
+    the frame-parallel path runs here over the one card named again."""
+    if devices is None:
+        yield
+        return
+    own = cli.make_mesh
+    cli.make_mesh = lambda device: list(devices)
+    try:
+        yield
+    finally:
+        cli.make_mesh = own
+
+
+def phase_sharded_eval(ssc_root, city_root, stage2_dir, scratch):
+    """Phases 15b and 15c: both evaluation CLIs in turn and --data-parallel
+    on phase 8's trees. Returns the launches."""
+    from scenedino_torch import kernels
+    from scenedino_torch.cli import evaluate, evaluate_sscbench
+    from scenedino_torch.utils.config import load_run_config, save_run_config
+
+    argv = ["--data", ssc_root, "--voxel-gt", os.path.join(ssc_root, "voxel_gt"), "--ckpt", stage2_dir,
+            "--config", stage2_dir, "--device", "cuda"]
+    depth = load_run_config(stage2_dir)["model"]["encoder"].get("vit_overrides", {}).get("depth", 12)
+    blocks = 256 * 256 * 32 // SSC_BLOCK
+    expect = {**{name: 0 for name in kernels.WRAPPERS}, "attention": EVAL_FRAMES * depth,
+              "point_query": EVAL_FRAMES * blocks}
+    total = {name: 0 for name in kernels.WRAPPERS}
+    runs = {}
+    for name, extra, devs in (("in turn", [], None), (TWICE, ["--data-parallel"], [CARD] * EVAL_MESH),
+                              ("--data-parallel over make_mesh()", ["--data-parallel"], None)):
+        with _mesh_of(evaluate_sscbench, devs):
+            (table, acc), counts, frames, peak, wall = _run_logged(evaluate_sscbench.main, argv + extra)
+        runs[name] = (table, acc)
+        for k_, n in counts.items():
+            total[k_] += n
+        print(f"phase 15b cli.evaluate_sscbench {name} (phase 8a's tree, {EVAL_FRAMES} frames): sec_per_frame "
+              f"{table['sec_per_frame']:.4f}; per frame host ms "
+              f"{json.dumps([{k_: round(v, 1) for k_, v in vars(r).items() if k_.endswith('_ms')} for r in frames])}; "
+              f"{wall:.1f} s wall (model build and load included), peak {peak:.3f} GiB; launches {json.dumps(counts)}",
+              flush=True)
+        if counts != expect:
+            fail(f"the SSCBench evaluation ({name}) launched {counts}, expected {expect}")
+    base, base_acc = runs["in turn"]
+    for name, (table, acc) in runs.items():
+        same = {k_: v for k_, v in table.items() if k_ != "sec_per_frame"} == {
+            k_: v for k_, v in base.items() if k_ != "sec_per_frame"} and _results_equal(acc.results, base_acc.results)
+        print(f"phase 15b {name}: the table and accumulated numbers equal to the run in turn: {same}", flush=True)
+        if not same:
+            fail(f"the SSCBench evaluation {name} differs from the run in turn")
+
+    conf = _eval_config(os.path.dirname(os.path.abspath(__file__)), stage2_dir, city_root)
+    conf_dir = tempfile.mkdtemp(prefix="eval_config_dp_", dir=scratch)
+    save_run_config(conf_dir, conf)
+    argv = ["--config", conf_dir, "--ckpt", stage2_dir, "--device", "cuda"]
+    expect = {**{name: 0 for name in kernels.WRAPPERS}, "attention": EVAL_FRAMES * depth, "encode_view": EVAL_FRAMES}
+    outs = {}
+    for name, extra, devs in (("in turn", [], None), (TWICE, ["--data-parallel"], [CARD] * EVAL_MESH),
+                              ("--data-parallel over make_mesh()", ["--data-parallel"], None)):
+        with _mesh_of(evaluate, devs):
+            out, counts, frames, peak, wall = _run_logged(evaluate.main, argv + extra)
+        outs[name] = out
+        for k_, n in counts.items():
+            total[k_] += n
+        ms = [{k_: round(v, 1) for k_, v in vars(r).items() if k_.endswith("_ms")} for r in frames]
+        print(f"phase 15c cli.evaluate {name} (phase 8b's tree, {EVAL_FRAMES} frames): "
+              f"{json.dumps({m: r['miou'] for m, r in out.items() if isinstance(r, dict)})} (mIoU); host ms "
+              f"{json.dumps(ms)}; {wall:.1f} s wall, peak {peak:.3f} GiB; launches {json.dumps(counts)}", flush=True)
+        if counts != expect:
+            fail(f"the 2D evaluation ({name}) launched {counts}, expected {expect}")
+    same = len(set(json.dumps(o, sort_keys=True) for o in outs.values())) == 1
+    print(f"phase 15c both data-parallel runs' metrics equal to the run in turn (atol 0): {same}", flush=True)
+    if not same:
+        fail("the data-parallel 2D evaluation differs from the run in turn")
+    return total
+
+
+def _results_equal(a, b) -> bool:
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_results_equal(a[k_], b[k_]) for k_ in a)
+    return np.array_equal(np.asarray(a), np.asarray(b))
+
+
+def phase_stage2_parallel(stage2_dir):
+    """Phase 15d: stage-2 steps through the data-parallel wrapper (NCCL,
+    world size 1) against the plain step, the generic stage-2 render against
+    the folded one, and a mode 2d step, on phase 7's config. Returns the
+    launches."""
+    from scenedino_torch import kernels
+    from scenedino_torch.cli import train as cli
+    from scenedino_torch.datasets import make_datasets, with_train_ids
+    from scenedino_torch.models.downstream import SemanticHead
+    from scenedino_torch.parallel.data_parallel import DataParallel
+    from scenedino_torch.training import downstream as down
+    from scenedino_torch.utils.config import load_run_config
+    from scenedino_torch.utils.prefetch import to_device
+
+    config = load_run_config(stage2_dir)
+    field, head, _, gen, cfg, rcfg, loss_cfg = cli.init_stage2(config, "cuda")
+    train_ds = with_train_ids(make_datasets(config["dataset"])[0], config["dataset"])
+    batch = to_device(next(iter(cli.batch_iterator(train_ds, config["batch_size"])())), "cuda", cli.SEMANTIC_KEYS)
+    B, V = batch["imgs"].shape[:2]
+    init = {n: t.clone() for n, t in head.state_dict().items()}
+    draws = [down.draw_stage2(gen, cfg, head.cfg, rcfg, B, V) for _ in range(STAGE2_DP_STEPS)]
+    kernels.reset_launches()
+    runs = {}
+    for wrapped in (False, True):
+        head.load_state_dict(init)
+        state = down.init_downstream_state(head, cfg)
+        dp = None
+        if wrapped:
+            with socket.socket() as sock:
+                sock.bind(("localhost", 0))
+                port = sock.getsockname()[1]
+            dp = DataParallel.init(0, 1, torch.device("cuda"), init_method=f"tcp://localhost:{port}")
+        try:
+            step = down.make_downstream_train_step(field, head, cfg, rcfg, loss_cfg, dp=dp)
+            losses, ms = [], []
+            for d in draws:
+                if dp is not None:
+                    d = down.shard_stage2_draws(d, dp, B, head, cfg)
+                out, t = _synced_ms(lambda: step(state, batch, d) if dp is None else dp.reduce_losses(
+                    step(state, batch, d)))
+                losses.append({k_: float(v) for k_, v in out.items()})
+                ms.append(round(t, 1))
+        finally:
+            if dp is not None:
+                torch.distributed.destroy_process_group()
+        runs[wrapped] = (losses, {n: p.detach().clone() for n, p in head.named_parameters()}, ms, state.buffers)
+    (l0, p0, ms0, b0), (l1, p1, ms1, b1) = runs[False], runs[True]
+    same = l0 == l1 and all(torch.equal(p0[n], p1[n]) for n in p0) and torch.equal(b0.patch_buffer, b1.patch_buffer)
+    print(f"phase 15d {STAGE2_DP_STEPS} stage-2 steps of phase 7's config through the data-parallel wrapper (NCCL, "
+          f"world size 1) against the plain step: losses, head and buffers equal bit for bit {same}; total_loss "
+          f"{[l_['total_loss'] for l_ in l1]}; host ms {ms1} against {ms0}", flush=True)
+    if not same or not all(np.isfinite(list(l_.values())).all() for l_ in l1):
+        fail("phase 15d: the data-parallel stage-2 step differs from the plain step")
+
+    generic_cfg = dataclasses.replace(cfg, use_fast_render=False)
+    u = draws[0].u
+    with torch.no_grad():
+        (fold, *_), fold_ms = _synced_ms(lambda: down.render_frames(field, batch, u, 0, cfg, rcfg))
+        (gen_r, *_), gen_ms = _synced_ms(lambda: down.render_frames(field, batch, u, 0, generic_cfg, rcfg))
+    d_rel = ((gen_r["depth"] - fold["depth"]).abs() / fold["depth"].abs()).flatten().float()
+    close = {"depth_rel_p99": torch.quantile(d_rel[::7], 0.99).item(),
+             "rgb_abs": (gen_r["rgb"] - fold["rgb"]).abs().max().item(),
+             "feature_cos_median": torch.nn.functional.cosine_similarity(
+                 gen_r["dino_features"].float(), fold["dino_features"].float(), dim=-1).median().item()}
+    print(f"phase 15d the generic stage-2 render (ImageRaySampler + render_rays_chunked of the unfolded field, "
+          f"chunks of {cfg.render_chunk} rays) against the folded one (K6, fp32 fold) on one batch of {B} frames: "
+          f"{json.dumps(close)} (phase 7's render bounds: depth rel p99 {EVAL_DEPTH_REL_P99}, rgb abs {EVAL_RGB_ABS}, "
+          f"feature cosine median >= {SLICE_COS}); host ms generic {gen_ms:.1f}, folded {fold_ms:.1f}", flush=True)
+    if not (close["depth_rel_p99"] <= EVAL_DEPTH_REL_P99 and close["rgb_abs"] <= EVAL_RGB_ABS
+            and close["feature_cos_median"] >= SLICE_COS):
+        fail(f"phase 15d: the generic stage-2 render disagrees with the folded one: {close}")
+
+    two_d = dataclasses.replace(cfg, mode="2d")
+    head2 = SemanticHead(dataclasses.replace(head.cfg, mode="2d")).to("cuda")
+    head2.load_state_dict(init)
+    state2 = down.init_downstream_state(head2, two_d)
+    before = kernels.launches()["encode_view"]
+    out, ms = _synced_ms(lambda: down.make_downstream_train_step(field, head2, two_d, rcfg, loss_cfg)(
+        state2, batch, down.draw_stage2(gen, two_d, head2.cfg, rcfg, B, V)))
+    print(f"phase 15d a downstream.mode 2d step (the head's five crops, {head2.cfg.patch_sample_size} samples each, "
+          f"no 3D crops): {json.dumps({k_: round(float(v), 6) for k_, v in out.items()})}; {ms:.1f} host ms; the "
+          f"buffers' cursor {state2.buffers.idx}, mark {state2.buffers.filled}", flush=True)
+    if not np.isfinite([float(v) for v in out.values()]).all() or kernels.launches()["encode_view"] != before + 1 \
+            or state2.applied != 1:
+        fail("phase 15d: the 2d stage-2 step is not finite, skipped, or did not render through K6")
+    counts = kernels.launches()
+    del field, head, head2, state, state2
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_multi_device(seed, ssc_root, city_root, stage2_dir, scratch):
+    """Phase 15: the device-parallel paths. Returns their launches."""
+    from scenedino_torch.utils.timing import card_line
+
+    t_phase = time.perf_counter()
+    parts = [phase_sharded_serving(seed), phase_sharded_eval(ssc_root, city_root, stage2_dir, scratch),
+             phase_stage2_parallel(stage2_dir)]
+    counts = {name: sum(p[name] for p in parts) for name in parts[0]}
+    print(f"phase 15 launches {json.dumps(counts)}; wall time {time.perf_counter() - t_phase:.1f} s; {card_line()}",
+          flush=True)
+    if not all(counts[n] for n in ("attention", "point_render", "point_query", "encode_view")):
+        fail(f"phase 15 did not launch K1, K2, K4 and K6: {counts}")
+    return counts
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -4183,8 +4477,9 @@ def main():
         dinov2 = phase_dinov2_and_diag(kitti_root, stage1_dir, scratch)
         print(f"phase 13 wall time {time.perf_counter() - t13:.1f} s; {card_line()}", flush=True)
         serving_rest = phase_serving_rest(args.seed, trees[0], stage2_dir, scratch)
+        multi = phase_multi_device(args.seed, *trees, stage2_dir, scratch)
     paths = (serving, training, train_run, stage2, stage2_conv, evaluation, reference, kitti, d80_paths, re10k,
-             branches, dinov2, serving_rest)
+             branches, dinov2, serving_rest, multi)
     for e in entries:
         e["launches"] = sum(p[e["name"]] for p in paths)
         if e["name"] == "point_query":

@@ -16,6 +16,9 @@ reads that holds a head: a stage-2 run of the port, a JAX `.npz`, or a
 on the GPU unless `--device` names another device; without a GPU it
 raises.
 `downstream.apply_crf: true` adds the window CRF's "<mode>_crf" rows.
+`--data-parallel` evaluates a group of frames at a time over every
+visible card, one frame a card (`Seg2DEvaluator.run_sharded`: the same
+metrics); with one card, or with `--device cpu`, it evaluates in turn.
 The KITTI-360 kinds (configs/evaluate_semantic_kitti_360.yaml) score the
 test split's view 0 against its labels mapped to the 19 train ids
 (`datasets.TrainIdSegs`).
@@ -32,6 +35,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from scenedino_torch import resolve_device
+from scenedino_torch.parallel.mesh import make_mesh
 
 
 def eval_model(config: dict, ckpt: Optional[str], device, image_size=(192, 640)) -> Tuple[torch.nn.Module, Optional[
@@ -79,7 +83,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                                                  "`checkpoint:`)")
     ap.add_argument("--max-frames", type=int, default=None)
     ap.add_argument("--data-parallel", action="store_true",
-                    help="frame-parallel over the cards; one card evaluates the frames in turn")
+                    help="frame-parallel over the cards, one frame a card; one card evaluates the frames in turn")
     ap.add_argument("--device", default=None, help="torch device (default: cuda; 'cpu' runs the plain versions)")
     args = ap.parse_args(argv)
     logging.basicConfig(level=logging.INFO)
@@ -89,9 +93,6 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     from scenedino_torch.utils.config import load_run_config
 
     device = resolve_device(args.device)
-    if args.data_parallel and device.type == "cuda" and torch.cuda.device_count() > 1:
-        raise NotImplementedError("--data-parallel over several cards is not ported (ROADMAP queue 1, item 6: "
-                                  "the multi-card slice)")
     config = load_run_config(args.config)
     ckpt = args.ckpt or config.get("checkpoint")
     if not ckpt:
@@ -104,7 +105,11 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     evaluator = Seg2DEvaluator(field=field, head=head, image_size=(H, W),
                                n_classes=max(head.cfg.n_classes, head.cfg.gt_classes), apply_crf=head.cfg.apply_crf,
                                seed=config.get("seed", 0))
-    results = evaluator.run(dataset, max_frames=args.max_frames)
+    devices = make_mesh(device=device) if args.data_parallel else [device]
+    if len(devices) > 1:
+        results = evaluator.run_sharded(dataset, devices, max_frames=args.max_frames)
+    else:
+        results = evaluator.run(dataset, max_frames=args.max_frames)
     out = {mode: {k: r[k] for k in ("miou", "weighted_miou", "acc")} for mode, r in results.items()
            if isinstance(r, dict)}
     out["n_frames"] = results["n_frames"]

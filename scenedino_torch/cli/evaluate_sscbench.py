@@ -21,9 +21,16 @@ alpha-weighted argmax; `--slow` queries the unfolded field in plain torch.
 `--pipelined` runs `eval.sscbench.make_pipelined_grid_step`: one step
 queries frame N's grid and encodes frame N+1 (the same grids; the
 bootstrap encode of frame 0 counts towards `sec_per_frame`).
+`--data-parallel` evaluates a group of frames at a time over every
+visible card, one frame a card (`eval.sscbench.make_sharded_frame_predictor`);
+the frames reach the accumulator in dataset order, so the tables are the
+sequential run's. With one device it evaluates in turn, and it takes
+precedence over `--pipelined`, as in the reference (`--device cpu` is
+one device).
 Runs on the GPU unless `--device` names another device; without a GPU it
 raises. Each frame's host ms (read, encode, query, accumulation; read,
-step, accumulation when pipelined) is logged.
+step, accumulation when pipelined; its group's read and step when
+data-parallel) is logged.
 """
 from __future__ import annotations
 
@@ -33,9 +40,11 @@ import logging
 import time
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 
 from scenedino_torch import resolve_device
+from scenedino_torch.parallel.mesh import make_mesh, replicate
 
 N_CLASSES = 19
 logger = logging.getLogger("evaluation")
@@ -101,7 +110,7 @@ def main(argv: Optional[Sequence[str]] = None):
     ap.add_argument("--test-alpha-cutoffs", action="store_true",
                     help="the per-class sigma-cutoff search and the precision/recall tradeoff")
     ap.add_argument("--data-parallel", action="store_true",
-                    help="frame-parallel over the cards; one card evaluates the frames in turn")
+                    help="frame-parallel over the cards, one frame a card; one card evaluates the frames in turn")
     ap.add_argument("--pipelined", action="store_true",
                     help="query frame N and encode frame N+1 in one step (the same grids)")
     ap.add_argument("--device", default=None, help="torch device (default: cuda; 'cpu' runs the plain versions)")
@@ -116,9 +125,6 @@ def main(argv: Optional[Sequence[str]] = None):
     if args.mode == "s4c":
         raise NotImplementedError("--mode s4c: the monodepth2 baseline is not ported (ROADMAP queue 1, item 9)")
     device = resolve_device(args.device)
-    if args.data_parallel and device.type == "cuda" and torch.cuda.device_count() > 1:
-        raise NotImplementedError("--data-parallel over several cards is not ported (ROADMAP queue 1, item 6: "
-                                  "the multi-card slice)")
 
     config = load_run_config(args.config) if args.config else {"variant": args.variant}
     H, W = config.get("dataset", {}).get("image_size", (192, 640))
@@ -148,46 +154,76 @@ def main(argv: Optional[Sequence[str]] = None):
         sample = dataset[i]
         return sample, tuple(torch.from_numpy(sample[k])[None].to(device) for k in ("imgs", "projs", "poses"))
 
-    pipelined = args.pipelined and n > 1
-    if pipelined:
-        step = S.make_pipelined_grid_step(encode, predict)
-        cur = frame_inputs(0)
-        sync()
-        t1 = time.perf_counter()
-        qstate = encode(*cur[1])  # the bootstrap encode is the run's cost too
-        sync()
-        t_total += time.perf_counter() - t1
-    for i in range(n):
-        t0 = time.perf_counter()
+    def sequential():
+        """(sample, sigmas, segs, timed seconds, host ms) of each frame in turn."""
+        pipelined = args.pipelined and n > 1
         if pipelined:
-            # feed frame i + 1 (the last step re-feeds frame i, its encode unused); the grids are frame i's
-            sample = cur[0]
-            cur = frame_inputs(i + 1) if i + 1 < n else cur
+            step = S.make_pipelined_grid_step(encode, predict)
+            cur = frame_inputs(0)
             sync()
             t1 = time.perf_counter()
-            with torch.no_grad():
-                qstate, (sigmas, segs) = step(qstate, pts, *cur[1])
-                sigmas, segs = sigmas.cpu().numpy(), segs.cpu().numpy()
-            t3 = time.perf_counter()
-            ms = {"read_ms": (t1 - t0) * 1e3, "step_ms": (t3 - t1) * 1e3}
-        else:
-            sample, (imgs, projs, poses) = frame_inputs(i)
+            qstate = encode(*cur[1])  # the bootstrap encode is the run's cost too
             sync()
-            t1 = time.perf_counter()
-            with torch.no_grad():
-                qstate = encode(imgs, projs, poses)
+            boot = time.perf_counter() - t1
+        for i in range(n):
+            t0 = time.perf_counter()
+            if pipelined:
+                # feed frame i + 1 (the last step re-feeds frame i, its encode unused); the grids are frame i's
+                sample = cur[0]
+                cur = frame_inputs(i + 1) if i + 1 < n else cur
                 sync()
-                t2 = time.perf_counter()
-                sigmas, segs = predict(pts, qstate)
-                sigmas, segs = sigmas.cpu().numpy(), segs.cpu().numpy()
+                t1 = time.perf_counter()
+                with torch.no_grad():
+                    qstate, (sigmas, segs) = step(qstate, pts, *cur[1])
+                    sigmas, segs = sigmas.cpu().numpy(), segs.cpu().numpy()
+                t3 = time.perf_counter()
+                ms = {"read_ms": (t1 - t0) * 1e3, "step_ms": (t3 - t1) * 1e3}
+            else:
+                sample, (imgs, projs, poses) = frame_inputs(i)
+                sync()
+                t1 = time.perf_counter()
+                with torch.no_grad():
+                    qstate = encode(imgs, projs, poses)
+                    sync()
+                    t2 = time.perf_counter()
+                    sigmas, segs = predict(pts, qstate)
+                    sigmas, segs = sigmas.cpu().numpy(), segs.cpu().numpy()
+                t3 = time.perf_counter()
+                ms = {"read_ms": (t1 - t0) * 1e3, "encode_ms": (t2 - t1) * 1e3, "query_ms": (t3 - t2) * 1e3}
+            yield sample, sigmas, segs, t3 - t1 + (boot if pipelined and i == 0 else 0.0), ms
+
+    def frame_parallel(devices):
+        """The same, a group of frames a step, frame j of a group on device j
+        (exact); a group's step time is its first frame's."""
+        fields, heads = (replicate(m, devices) for m in (field, head))
+
+        def frame_fns(d):
+            return (make_encode_fn(fields[d], fast),
+                    S.make_grid_predictor(make_query_fn(fields[d], heads[d], args.prediction_mode, fast),
+                                          coherent=fast))
+
+        step = S.make_sharded_frame_predictor(frame_fns, devices)
+        for g0 in range(0, n, len(devices)):
+            t0 = time.perf_counter()
+            samples = [dataset[i] for i in range(g0, min(g0 + len(devices), n))]
+            inputs = [torch.from_numpy(np.stack([s[k] for s in samples])) for k in ("imgs", "projs", "poses")]
+            t1 = time.perf_counter()
+            with torch.no_grad():
+                sigmas, segs = (t.cpu().numpy() for t in step(pts, *inputs))
             t3 = time.perf_counter()
-            ms = {"read_ms": (t1 - t0) * 1e3, "encode_ms": (t2 - t1) * 1e3, "query_ms": (t3 - t2) * 1e3}
+            ms = {"read_ms": (t1 - t0) * 1e3, "group_step_ms": (t3 - t1) * 1e3}
+            for j, sample in enumerate(samples):
+                yield sample, sigmas[j], segs[j], (t3 - t1) if j == 0 else 0.0, ms
+
+    devices = make_mesh(device=device) if args.data_parallel else [device]
+    for i, (sample, sigmas, segs, seconds, ms) in enumerate(
+            frame_parallel(devices) if len(devices) > 1 else sequential()):
+        t3 = time.perf_counter()
         acc.add_frame(sigmas, segs, sample["voxel_gt"], fov3)
         if diag is not None:
             diag.add_frame(sigmas, segs, sample["voxel_gt"], fov3)
-        t4 = time.perf_counter()
-        t_total += t3 - t1
-        ms["accumulate_ms"] = (t4 - t3) * 1e3
+        t_total += seconds
+        ms = {**ms, "accumulate_ms": (time.perf_counter() - t3) * 1e3}
         logger.info("frame %d/%d: %s", i + 1, n, ", ".join(f"{k} {v:.1f}" for k, v in ms.items()),
                     extra={"frame": i, **ms})
         if (i + 1) % 50 == 0:

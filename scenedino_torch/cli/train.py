@@ -33,7 +33,11 @@ with `--device cpu`, gloo), the batch `batch_size` the global one:
 
 Each rank loads its slice of every global batch, draws the global step's
 draws and keeps its rows, and averages the gradients (`parallel.data_parallel`);
-rank 0 alone writes checkpoints, scalars and validations.
+rank 0 alone writes checkpoints, scalars and validations. Stage 2 trains
+so too (`torchrun ... --stage semantic`): the ring buffers take every
+rank's crops and the ratio losses divide by the global counts
+(`training.downstream`), and rank 0 seeds the cluster centres on the
+global first batch and gives them to the others.
 
 `--stage nvs` (the default) trains the field (stage 1). `--stage semantic`
 distills a frozen field into the semantic head (stage 2, `run_stage2`):
@@ -41,7 +45,10 @@ the field comes from `resume_from` (a stage-1 run directory or checkpoint
 of the port, a field snapshot, a JAX variables tree saved as a flat
 `.npz`, or a `.pt` in the reference's torch layout), the cluster centres
 are seeded from the first batch, and each validation writes its pseudo
-assignment back into the cluster heads.
+assignment back into the cluster heads. `downstream.mode: "2d"` trains on
+the head's five crops of the rendered map and samples no 3D crops (the
+reference's CLI leaves its train config at 3d and samples crops that the
+2d head then ignores).
 """
 from __future__ import annotations
 
@@ -282,6 +289,7 @@ def init_stage2(config: dict, device):
         render_height=H, render_width=W,
         n_samples=head_cfg.patch_sample_size,  # a crop's samples fill one ring-buffer row
         sample_radius=config.get("model", {}).get("sample_radius_3d", 0.5),
+        mode=head_cfg.mode,
         use_fast_render=tconf.get("use_fast_render", True),
     )
     rcfg = RenderConfig(n_coarse=config.get("renderer", {}).get("n_coarse", 32))
@@ -292,12 +300,27 @@ def init_stage2(config: dict, device):
 
 def run_stage2(config: dict, device=None):
     """Train stage 2 as `config` says (the reference's run_stage2,
-    cli/train.py:257-452); returns (field, head, train state)."""
+    cli/train.py:257-452); returns (field, head, train state). Under
+    `torchrun` (WORLD_SIZE > 1) each process trains its share of the global
+    batch, data-parallel."""
+    from scenedino_torch.parallel.data_parallel import from_environment, local_device
+
+    device = local_device(resolve_device(device))
+    dp = from_environment(device)
+    try:
+        return _run_stage2(config, device, dp)
+    finally:
+        if dp is not None:
+            torch.distributed.destroy_process_group()
+
+
+def _run_stage2(config: dict, device, dp):
     from scenedino_torch.training.downstream import (
         draw_seed,
         draw_stage2,
         make_downstream_train_step,
-        seed_cluster_centers,
+        seed_cluster_centers_everywhere,
+        shard_stage2_draws,
     )
     from scenedino_torch.utils.checkpoint import save_field_snapshot
 
@@ -306,40 +329,49 @@ def run_stage2(config: dict, device=None):
     # KITTI-360 labels as train ids, as the reference's head takes them (datasets.TrainIdSegs)
     train_ds, val_ds = (with_train_ids(ds, config["dataset"]) for ds in make_datasets(config["dataset"]))
     batch_size = config.get("batch_size", 1)
+    mine = slice(None) if dp is None else dp.rows(batch_size)
+    main_process = dp is None or dp.main
 
-    # the cluster centres from the first batch (semantic_head.py:329-348)
+    # the cluster centres from the global first batch (semantic_head.py:329-348)
     init_type = config.get("downstream", {}).get("cluster_init", "kmeans++")
     num_workers = config.get("num_workers", 4)
-    first = to_device(next(iter(batch_iterator(train_ds, batch_size, num_workers=num_workers)())), device,
-                      SEMANTIC_KEYS)
+    seed_draws = draw_seed(generator, cfg, head.cfg, rcfg, batch_size, init_type)
     t0 = time.perf_counter()
-    seed_cluster_centers(field, head, first, draw_seed(generator, cfg, head.cfg, rcfg, batch_size, init_type),
-                         cfg, rcfg)
+    seed_cluster_centers_everywhere(
+        field, head, lambda: to_device(next(iter(batch_iterator(train_ds, batch_size, num_workers=num_workers)())),
+                                       device, SEMANTIC_KEYS), seed_draws, cfg, rcfg, dp)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     seed_ms = (time.perf_counter() - t0) * 1e3
     logger.info("cluster centres seeded (%s) in %.1f ms", init_type, seed_ms, extra={"seed_ms": seed_ms})
 
-    step = make_downstream_train_step(field, head, cfg, rcfg, loss_cfg)
+    step = make_downstream_train_step(field, head, cfg, rcfg, loss_cfg, dp=dp)
 
     def train_step(state, batch: Dict[str, torch.Tensor], gen: torch.Generator):
-        B, V = batch["imgs"].shape[:2]
-        return step(state, batch, draw_stage2(gen, cfg, head.cfg, rcfg, B, V))
+        V = batch["imgs"].shape[1]
+        if dp is None:
+            return step(state, batch, draw_stage2(gen, cfg, head.cfg, rcfg, batch["imgs"].shape[0], V))
+        draws = shard_stage2_draws(draw_stage2(gen, cfg, head.cfg, rcfg, batch_size, V), dp, batch_size, head, cfg)
+        return dp.reduce_losses(step(state, batch, draws))
 
-    batches = batch_iterator(train_ds, batch_size, key_seed=config.get("seed", 0), num_workers=num_workers)
+    batches = batch_iterator(train_ds, batch_size, key_seed=config.get("seed", 0), num_workers=num_workers,
+                             rows=mine)
 
     def data_iter() -> Iterable[Dict[str, torch.Tensor]]:
         yield from device_prefetch(batches(), put=lambda b: to_device(b, device, SEMANTIC_KEYS), buffer_size=2)
 
     loop_cfg = _loop_config(config, "out/semantic", 10, 5000, 100)
-    save_run_config(loop_cfg.output_path, config)
-    save_field_snapshot(os.path.join(loop_cfg.output_path, FIELD_SNAPSHOT), field)
-    validators = build_validators(
-        config, val_ds or train_ds, SEMANTIC_KEYS, device,
-        lambda name, vconf, fn: make_stage2_validator(name, vconf, field, head, cfg, rcfg, fn))
+    validators = None
+    if main_process:
+        save_run_config(loop_cfg.output_path, config)
+        save_field_snapshot(os.path.join(loop_cfg.output_path, FIELD_SNAPSHOT), field)
+        validators = build_validators(
+            config, val_ds or train_ds, SEMANTIC_KEYS, device,
+            lambda name, vconf, fn: make_stage2_validator(name, vconf, field, head, cfg, rcfg, fn))
     fit(head, state, train_step, data_iter, loop_cfg, generator, validators=validators,
         steps_per_epoch=config.get("training", {}).get("epoch_length"),
-        update_model_fn=make_update_model_fn() if validators else None)
+        update_model_fn=make_update_model_fn() if validators else None, main_process=main_process,
+        sync_generator=None if dp is None else dp.sync_generator)
     return field, head, state
 
 

@@ -13,8 +13,10 @@ foldable head, the field's own z range): the fp32 fold and the
 encode-view render, K6 on the three-TF32-pass state. Otherwise the generic
 path: `ImageRaySampler` rays through `render_rays_chunked` of the field.
 The strata of frame i are an explicit input (`draws(i)`), else drawn from
-a generator seeded from `seed + i`. The frame-parallel `run_sharded` is
-not ported (ROADMAP queue 1, item 6), nor the exact permutohedral CRF (item 5).
+a generator seeded from `seed + i`. `run_sharded` evaluates a group of
+frames at a time over a list of devices, one frame each, with the same
+draws, so its confusions and metrics are `run()`'s exactly. The exact
+permutohedral CRF is not ported (ROADMAP queue 1, item 5).
 """
 from __future__ import annotations
 
@@ -29,6 +31,7 @@ import torch
 from scenedino_torch.core.ray_sampler import ImageRaySampler
 from scenedino_torch.eval.metrics import evaluate_confusion, seg_confusion_matrix
 from scenedino_torch.ops.fast_field import build_fast_state, can_fold, render_encode_view
+from scenedino_torch.parallel import mesh
 from scenedino_torch.renderer.nerf import RenderConfig, render_rays_chunked
 
 MODES = ("stego_kmeans", "stego_linear", "direct_kmeans", "direct_linear")
@@ -151,6 +154,48 @@ class Seg2DEvaluator:
             read_ms, frame_ms = (t1 - t0) * 1e3, (t2 - t1) * 1e3
             logger.info("frame %d: read %.1f ms, predict and confusions %.1f ms", i, read_ms, frame_ms,
                         extra={"frame": i, "read_ms": read_ms, "frame_ms": frame_ms})
+        results = {m: evaluate_confusion(conf[m], assign_pseudo="kmeans" in m) for m in self.result_modes}
+        results["n_frames"] = n
+        return results
+
+    def run_sharded(self, dataset: Sequence, devices=None, max_frames: Optional[int] = None,
+                    draws: Optional[Callable[[int], torch.Tensor]] = None) -> Dict:
+        """`run` over a list of devices (reference seg2d.py:179-279; default:
+        every visible card, or the one device the field is on): frame g0 + j
+        of each group goes to device j, which renders it through its replica
+        of the field and head with frame g0 + j's draws; the integer
+        confusions come back to the host and are summed in frame order, so
+        every metric is `run()`'s exactly. The last group may be short. Each
+        group's host ms (read, predict with the confusions) is logged."""
+        if self.apply_crf and self.crf_method == "exact":
+            raise ValueError("crf_method='exact' is supported by run() only")
+        home = next(self.field.parameters()).device
+        devices = mesh.make_mesh(device=home) if devices is None else [torch.device(d) for d in devices]
+        fields, heads = (mesh.replicate(m, devices) for m in (self.field, self.head))
+        evaluators = {d: dataclasses.replace(self, field=fields[d], head=heads[d]) for d in fields}
+        conf = {m: np.zeros((self.n_classes, self.n_classes), np.int64) for m in self.result_modes}
+        n = len(dataset) if max_frames is None else min(max_frames, len(dataset))
+        for g0 in range(0, n, len(devices)):
+            t0 = time.perf_counter()
+            samples = [dataset[i] for i in range(g0, min(g0 + len(devices), n))]
+            t1 = time.perf_counter()
+
+            def share(j: int, d: torch.device) -> Dict[str, np.ndarray]:
+                sample = samples[j]
+                u = draws(g0 + j) if draws is not None else self.draws(g0 + j, d)
+                batch = [torch.as_tensor(sample[k])[None].to(d) for k in ("imgs", "projs", "poses")]
+                preds = evaluators[d].predict(*batch, u=u.to(d))
+                target = np.asarray(sample["segs"][0])
+                return {m: seg_confusion_matrix(target, preds[m], self.n_classes) for m in self.result_modes}
+
+            for frame in mesh.run_shares(share, devices[:len(samples)]):
+                for m in self.result_modes:
+                    conf[m] += frame[m]
+            t2 = time.perf_counter()
+            read_ms, group_ms = (t1 - t0) * 1e3, (t2 - t1) * 1e3
+            logger.info("frames %d-%d: read %.1f ms, predict and confusions %.1f ms", g0, g0 + len(samples) - 1,
+                        read_ms, group_ms, extra={"frame": g0, "frames": list(range(g0, g0 + len(samples))),
+                                                  "read_ms": read_ms, "group_ms": group_ms})
         results = {m: evaluate_confusion(conf[m], assign_pseudo="kmeans" in m) for m in self.result_modes}
         results["n_frames"] = n
         return results

@@ -16,8 +16,8 @@ occupancy and per-class numbers over the ranges 12.8 / 25.6 / 51.2 m,
 and the direct and Hungarian mIoU tables (`SSCAccumulator`), with the
 sigma-cutoff search and the precision/recall tradeoff beside them
 (`SigmaDiagnostics`). `make_pipelined_grid_step` queries one frame's grid
-and encodes the next in one step (one card); the reference's
-frame-parallel predictor over several cards waits in ROADMAP queue 1.
+and encodes the next in one step (one card); `make_sharded_frame_predictor`
+predicts a group of frames over a list of devices, one frame each.
 """
 from __future__ import annotations
 
@@ -29,6 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from scenedino_torch.eval.metrics import apply_assignment, pseudo_label_assignment
+from scenedino_torch.parallel import mesh
 
 SIGMA_CUTOFF = 0.2
 VOXEL_SIZE = 0.2
@@ -219,6 +220,43 @@ def make_grid_predictor(query_fn: QueryFn, chunk_points: int = 128 * 128 * 32, g
         return sigmas, segs
 
     return predict
+
+
+def make_sharded_frame_predictor(make_frame_fns: Callable[[torch.device], tuple], devices):
+    """Frame-parallel grid prediction over a list of devices (reference
+    eval/sscbench.py:241-283): frame j of a group goes to device j, which
+    encodes it and queries the whole voxel grid on its own, with no
+    collective, so each frame's grids are the single-device predictor's
+    bit for bit.
+
+    make_frame_fns(device) -> (encode_fn, predict_fn) on that device
+    (`encode_fn(imgs, projs, poses) -> qstate`, a `make_grid_predictor`),
+    called once per distinct device. Returns
+    `step(pts (N, 3), imgs, projs, poses) -> (sigmas (D, *grid), segs (D, *grid))`
+    with every per-frame argument's leading axis holding D <= len(devices)
+    frames, one each (a short last group needs no padding); the grids land
+    on the first device."""
+    devices = [torch.device(d) for d in devices]
+    fns = {d: make_frame_fns(d) for d in mesh.distinct(devices)}
+    placed: Dict = {}
+
+    def step(pts: torch.Tensor, imgs: torch.Tensor, projs: torch.Tensor, poses: torch.Tensor):
+        D = imgs.shape[0]
+        if D > len(devices):
+            raise ValueError(f"{D} frames for {len(devices)} devices")
+        if placed.get("src") is not pts:  # the grid's points, once per distinct device
+            placed.clear()
+            placed.update({d: pts.to(d) for d in fns}, src=pts)
+
+        def share(j: int, d: torch.device):
+            encode_fn, predict_fn = fns[d]
+            qstate = encode_fn(*(x[j:j + 1].to(d) for x in (imgs, projs, poses)))
+            return [t.to(devices[0]) for t in predict_fn(placed[d], qstate)]
+
+        sigmas, segs = zip(*mesh.run_shares(share, devices[:D]))
+        return torch.stack(sigmas), torch.stack(segs)
+
+    return step
 
 
 def make_pipelined_grid_step(encode_fn, predict_fn):

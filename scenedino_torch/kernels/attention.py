@@ -120,7 +120,7 @@ def _launch(step: str, ptrs, q: torch.Tensor) -> None:
     err = build.call_on_stream(fn, q.device, *ptrs, B, N, H, D, D ** -0.5)
     if err != 0:
         raise RuntimeError(f"{fn_name} kernel launch failed: cudaError {err}")
-    counter.launches += 1
+    build.count_launch(counter)
 
 
 def attention_fwd(q, k, v, with_lse: bool = False) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:

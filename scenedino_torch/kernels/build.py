@@ -164,6 +164,16 @@ def function(name: str, fn_name: str, argtypes: Sequence) -> ctypes._CFuncPtr:
     return fn
 
 
+_launch_lock = threading.Lock()
+
+
+def count_launch(wrapper) -> None:
+    """Add one to `wrapper.launches`, under a lock: the device-parallel paths
+    (`parallel.mesh.run_shares`) launch kernels from a thread a card."""
+    with _launch_lock:
+        wrapper.launches += 1
+
+
 def call_on_stream(fn: ctypes._CFuncPtr, device: torch.device, *args) -> int:
     """`fn(*args, stream)` with the current stream of CUDA `device`, that
     device made the current one only where it is not already; returns what

@@ -150,7 +150,7 @@ def encode_view(base, z, zscale, w_z, w2, b2, color, cfg: EncodeViewConfig):
         cfg.freq_factor)
     if err != 0:
         raise RuntimeError(f"encode_view kernel launch failed: cudaError {err}")
-    encode_view.launches += 1
+    build.count_launch(encode_view)
     return depth, dino, rgb
 
 

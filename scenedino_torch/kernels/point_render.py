@@ -288,7 +288,7 @@ def point_render(rays, z, folded_grid, w_code, b1, w2, b2, feat_w2c, feat_k,
     _launch("point_render", rays.device, (*args, depth, dino, rgb),
             (R, K, Hg, Wg, D, E, cfg.code_dims, Hc, Wc, *ints, int(cfg.hard_alpha_cap),
              int(cfg.depth_statistic == "median")), floats)
-    point_render.launches += 1
+    build.count_launch(point_render)
     return depth, dino, rgb
 
 
@@ -318,7 +318,7 @@ def probe_weights(rays, z, folded_grid, w_code, b1, w2, b2, feat_w2c, feat_k, cf
     ints, floats = _field_consts(cfg)
     _launch("probe_weights", rays.device, (*args, weights),
             (R, K, Hg, Wg, D, cfg.code_dims, *ints, int(cfg.hard_alpha_cap)), floats)
-    probe_weights.launches += 1
+    build.count_launch(probe_weights)
     return weights
 
 
@@ -347,7 +347,7 @@ def point_query(pts, folded_grid, w_code, b1, w2, b2, feat_w2c, feat_k, cfg: Poi
     feat = torch.empty(P, E - 1, device=pts.device, dtype=torch.float32)
     ints, floats = _field_consts(cfg)
     _launch("point_query", pts.device, (*args, sigma, feat), (P, Hg, Wg, D, E, cfg.code_dims, *ints), floats)
-    point_query.launches += 1
+    build.count_launch(point_query)
     return sigma, feat
 
 

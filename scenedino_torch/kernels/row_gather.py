@@ -69,7 +69,7 @@ def row_gather(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
                                idx.data_ptr(), out.data_ptr(), n, rows, row_bytes)
     if err != 0:
         raise RuntimeError(f"row_gather kernel launch failed: cudaError {err}")
-    row_gather.launches += 1
+    build.count_launch(row_gather)
     return out
 
 

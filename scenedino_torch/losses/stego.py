@@ -5,6 +5,13 @@
 
 `max(stego, 0)` goes through `core.maximum`, so at a tie (a correlation of
 exactly 0) the gradient splits as `jnp.maximum`'s does.
+
+Under data parallelism (`dp`, a `parallel.data_parallel.DataParallel`) each
+rank holds its share of the global batch; the ratio terms then divide by
+the global count (the valid crops, the labelled pixels) and `pointwise`
+centres on the global mean, each rank's term scaled by the world size, so
+that the mean over the ranks of each term, and of its gradient, is the
+global batch's. The plain means are over equal shares and need nothing.
 """
 from __future__ import annotations
 
@@ -33,24 +40,32 @@ class StegoLossConfig:
         return cls(**{k: v for k, v in (conf or {}).items() if k in known})
 
 
-def _stego_term(dino_corr, stego_corr, weight, shift, pointwise, valid=None):
+def _mean(x: torch.Tensor, dp=None) -> torch.Tensor:
+    """The mean of x, over every rank's equal share under `dp` (no gradient then)."""
+    return torch.mean(x) if dp is None else dp.sum(torch.mean(x)) / dp.world
+
+
+def _stego_term(dino_corr, stego_corr, weight, shift, pointwise, valid=None, dp=None):
     """-w max(stego, 0) (dino - shift), averaged (stego_loss.py:73-81); with
     `valid` (Nc,) the mean runs over the valid crops only."""
-    if pointwise:
-        old_mean = torch.mean(dino_corr)
+    if pointwise:  # the DINO correlations carry no gradient
+        old_mean = _mean(dino_corr, dp)
         dino_corr = dino_corr - torch.mean(dino_corr, -1, keepdim=True)
-        dino_corr = dino_corr - torch.mean(dino_corr) + old_mean
+        dino_corr = dino_corr - _mean(dino_corr, dp) + old_mean
     loss = -weight * maximum(stego_corr, 0.0) * (dino_corr - shift)
     if valid is None:
         return torch.mean(loss)
     w = valid.to(loss.dtype)
     per_crop = torch.mean(loss.reshape(loss.shape[0], -1), -1)
-    return torch.sum(per_crop * w) / torch.clamp_min(torch.sum(w), 1.0)
+    if dp is None:
+        return torch.sum(per_crop * w) / torch.clamp_min(torch.sum(w), 1.0)
+    return torch.sum(per_crop * w) * dp.world / torch.clamp_min(dp.sum(torch.sum(w)), 1.0)
 
 
-def stego_loss(seg_data: Dict, cfg: StegoLossConfig = StegoLossConfig()) -> Dict[str, torch.Tensor]:
+def stego_loss(seg_data: Dict, cfg: StegoLossConfig = StegoLossConfig(), dp=None) -> Dict[str, torch.Tensor]:
     """seg_data: `SemanticHead.forward_training`'s output. Returns the loss
-    dict; "total_loss" is what the step minimizes (stego_loss.py:26-71)."""
+    dict; "total_loss" is what the step minimizes (stego_loss.py:26-71).
+    `dp`: this rank's terms of the global batch's loss (module docstring)."""
     losses = {}
     total = 0.0
     if "stego_corr" in seg_data:
@@ -61,11 +76,15 @@ def stego_loss(seg_data: Dict, cfg: StegoLossConfig = StegoLossConfig()) -> Dict
             kind = name.split("_")[0]
             losses[name] = _stego_term(sc[f"dino_{corr}_corr"], sc[f"stego_{corr}_corr"],
                                        getattr(cfg, f"{kind}_weight"), getattr(cfg, f"{kind}_shift"),
-                                       cfg.pointwise, valid)
+                                       cfg.pointwise, valid, dp)
         total = losses["self_loss"] + losses["knn_loss"] + losses["random_loss"]
     results = seg_data.get("results", {})
     for name in ("direct_cluster", "stego_cluster", "direct_linear", "stego_linear"):
         term = results.get(name, {}).get("loss")
+        if term is not None and dp is not None and name.endswith("_linear"):
+            # the probes' mean over this rank's labelled pixels -> its share of the global mean
+            n = seg_data["n_labelled"].to(term.dtype)
+            term = term * (dp.world * torch.clamp_min(n, 1.0) / torch.clamp_min(dp.sum(n), 1.0))
         if term is not None:
             losses[f"{name}_loss"] = term
             total = total + term

@@ -24,7 +24,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import math
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -282,15 +282,19 @@ class SemanticHead(nn.Module):
 
     def forward_training(self, dino_features: torch.Tensor, buffers: RingBufferState, draws: HeadDraws,
                          crop_features: Optional[torch.Tensor] = None, seg_target: Optional[torch.Tensor] = None,
-                         deterministic: bool = False, crop_valid: Optional[torch.Tensor] = None):
+                         deterministic: bool = False, crop_valid: Optional[torch.Tensor] = None,
+                         gather_crops: Optional[Callable] = None):
         """The training forward (semantic_head.py:122-235).
 
         dino_features (n, v, h, w, 1, C) rendered features (detached);
         crop_features (Nc, P, C) the 3D surface crops and crop_valid (Nc,)
         their validity (invalid crops stay in the arrays, are not written to
-        the buffer and are masked out of the loss). Returns ({"stego_corr":
-        the six correlation tensors (+ crop_valid), "results": each head's
-        outputs}, buffers, updated in place unless deterministic).
+        the buffer and are masked out of the loss). gather_crops(crops, gaps,
+        valid) -> the global batch's (data parallelism: every rank's crops in
+        the global order) gives the rows the buffers take. Returns
+        ({"stego_corr": the six correlation tensors (+ crop_valid), "results":
+        each head's outputs, and with seg_target "n_labelled", its count of
+        labelled pixels}, buffers, updated in place unless deterministic).
         """
         c = self.cfg
         masks: List[Optional[torch.Tensor]] = [None] * 4 if deterministic else list(draws.dropout)
@@ -314,7 +318,10 @@ class SemanticHead(nn.Module):
         gap = _norm(torch.mean(cropped, -2))
 
         if not deterministic:
-            update_ring_buffer(buffers, cropped.detach(), gap.detach(), valid=crop_valid)
+            written = (cropped.detach(), gap.detach(), crop_valid)
+            if gather_crops is not None:
+                written = gather_crops(*written)
+            update_ring_buffer(buffers, *written[:2], valid=written[2])
 
         # kNN and random pairs from the buffer (semantic_head.py:168-179)
         sims = gap @ buffers.gap_buffer.T
@@ -348,7 +355,9 @@ class SemanticHead(nn.Module):
         det_dino, det_stego = dino_features.detach(), stego_features.detach()
         results = {"direct_cluster": self.direct_cluster_head(det_dino),
                    "stego_cluster": self.stego_cluster_head(det_stego)}
+        out = {"stego_corr": stego_corr, "results": results}
         if seg_target is not None:
             results["direct_linear"] = self.direct_linear_head(det_dino, seg_target)
             results["stego_linear"] = self.stego_linear_head(det_stego, seg_target)
-        return {"stego_corr": stego_corr, "results": results}, buffers
+            out["n_labelled"] = torch.sum(seg_target != -1)
+        return out, buffers

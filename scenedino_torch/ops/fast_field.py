@@ -36,6 +36,7 @@ from scenedino_torch.kernels.point_render import PointRenderConfig, _sample_quad
 from scenedino_torch.models.dpt import DPTHead
 from scenedino_torch.models.field import FieldConfig, SceneState
 from scenedino_torch.models.heads import ResnetFC
+from scenedino_torch.parallel import mesh
 
 
 class FastFieldState(NamedTuple):
@@ -219,6 +220,52 @@ def render_novel_view_fused(fs: FastFieldState, cfg: FieldConfig, target_pose_c2
     z = sampling.sample_coarse(flat, n_coarse, lindisp, u=u, generator=generator).contiguous()
     depth, dino, rgb = point_render(flat, z, *field_args, *_colour_view(fs),
                                     _point_config(cfg, hard_alpha_cap, depth_statistic))
+    return depth.reshape(height, width), dino.reshape(height, width, -1), rgb.reshape(height, width, 3)
+
+
+def replicate_state(fs: FastFieldState, devices) -> dict:
+    """The state on each distinct device of `devices` (itself where it lies)."""
+    return {d: FastFieldState(*(None if t is None else t.to(d) for t in fs)) for d in mesh.distinct(devices)}
+
+
+@torch.no_grad()
+def render_novel_view_fused_sharded(fs: FastFieldState, cfg: FieldConfig, target_pose_c2w: torch.Tensor,
+                                    target_k: torch.Tensor, height: int, width: int, devices,
+                                    u: Optional[torch.Tensor] = None,
+                                    generator: Optional[torch.Generator] = None,
+                                    n_coarse: int = 32, lindisp: bool = True, hard_alpha_cap: bool = True,
+                                    depth_statistic: str = "expectation", rows_per_seg: int = 4,
+                                    states: Optional[dict] = None):
+    """`render_novel_view_fused` over a list of devices (reference
+    fast_field.py:600-676): the frame splits into `height // rows_per_seg`
+    strips of rows, dealt to `devices` in contiguous blocks; each device
+    renders its block through K2 against its replica of the state, with no
+    collective. Rays and strata are made once for the whole frame (`u`,
+    else drawn from `generator`), so the result is the single-device
+    render's bit for bit for any list of devices. `states` maps each
+    device to its replica (`replicate_state`; built here when None). The
+    outputs land on the first device."""
+    _refuse_int8(fs)
+    devices = [torch.device(d) for d in devices]
+    if height % rows_per_seg:
+        raise AssertionError(f"height {height} is not a multiple of rows_per_seg {rows_per_seg}")
+    n_seg, n_dev = height // rows_per_seg, len(devices)
+    if n_seg % n_dev:
+        raise AssertionError(f"{n_seg} segments not divisible over {n_dev} devices")
+    _single_view(fs, "render_novel_view_fused_sharded")
+    flat = _target_rays(cfg, target_pose_c2w, target_k, height, width).reshape(-1, 8).contiguous()
+    z = sampling.sample_coarse(flat, n_coarse, lindisp, u=u, generator=generator)
+    states = states or replicate_state(fs, devices)
+    pcfg = _point_config(cfg, hard_alpha_cap, depth_statistic)
+    flats, zs = flat.tensor_split(n_dev), z.tensor_split(n_dev)
+
+    def share(i: int, d: torch.device):
+        fs_d = states[d]
+        out = point_render(flats[i].to(d).contiguous(), zs[i].to(d).contiguous(),
+                           *_single_view(fs_d, "render_novel_view_fused_sharded"), *_colour_view(fs_d), pcfg)
+        return [t.to(devices[0]) for t in out]
+
+    depth, dino, rgb = (torch.cat(parts) for parts in zip(*mesh.run_shares(share, devices)))
     return depth.reshape(height, width), dino.reshape(height, width, -1), rgb.reshape(height, width, 3)
 
 

@@ -78,6 +78,20 @@ class DataParallel:
             for t, part in zip(group, torch.split(flat, [t.numel() for t in group])):
                 t.copy_(part.view_as(t))
 
+    def sum(self, t: torch.Tensor) -> torch.Tensor:
+        """`t` summed over the ranks: a new tensor, outside autograd."""
+        out = t.detach().clone()
+        dist.all_reduce(out)
+        return out
+
+    def gather_rows(self, t: torch.Tensor) -> torch.Tensor:
+        """Every rank's `t` (one shape on all) concatenated along the first
+        axis in rank order; a bool tensor travels as uint8."""
+        x = t.detach().to(torch.uint8 if t.dtype == torch.bool else t.dtype).contiguous()
+        parts = [torch.empty_like(x) for _ in range(self.world)]
+        dist.all_gather(parts, x)
+        return torch.cat(parts).to(t.dtype)
+
     def broadcast_(self, tensors: List[torch.Tensor]) -> None:
         """Give every rank rank 0's values of `tensors`."""
         with torch.no_grad():

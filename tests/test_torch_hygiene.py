@@ -62,7 +62,8 @@ def test_the_scan_sees_the_whole_package():
             "scenedino_torch/core/resize.py", "scenedino_torch/models/encoder.py", "scenedino_torch/models/field.py",
             "scenedino_torch/models/factory.py", "scenedino_torch/utils/checkpoint.py",
             "scenedino_torch/datasets/re10k.py", "scenedino_torch/core/strategies.py",
-            "scenedino_torch/cli/process_re10k.py"} <= names
+            "scenedino_torch/cli/process_re10k.py", "scenedino_torch/parallel/mesh.py",
+            "scenedino_torch/parallel/render_sharding.py"} <= names
 
 
 def test_entry_point_without_a_device_refuses_the_cpu():

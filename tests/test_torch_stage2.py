@@ -29,6 +29,7 @@ tests/test_torch_training.py argues, and after the second to 1e-2 x lr
 nearly cancel, by the second's root).
 """
 import dataclasses
+import functools
 import logging
 import os
 
@@ -38,7 +39,6 @@ import numpy as np
 import pytest
 import torch
 
-import scenedino_tpu.losses.stego as jstego
 import scenedino_tpu.models.downstream as jds
 import scenedino_tpu.training.downstream as jdown
 import scenedino_tpu.training.validation as jval
@@ -53,6 +53,7 @@ from scenedino_torch.training import validation
 from scenedino_torch.utils import config as yaml_config
 from scenedino_torch.utils.checkpoint import load_checkpoint, save_checkpoint, train_state_dict
 from scenedino_torch.utils.convert import load_jax_head, load_jax_params
+from tests.test_torch_ddp import _adam_mu
 from tests.test_torch_downstream import _head_draws, _jbuffers, dropout_masks
 from tests.test_torch_training import MODEL, _batch, _random_params
 
@@ -185,10 +186,14 @@ def test_sample_3d_crops_matches_reference_and_flags_empty_strata(setup):
     key = jax.random.PRNGKey(4)
     poses = np.broadcast_to(np.eye(4, dtype=np.float32), (B, 1, 4, 4)).copy()
     projs = batch["projs"][:, :1]
-    jstate = s["jfield"].apply(s["params"], jnp.asarray(batch["imgs"][:, :1]), jnp.asarray(projs),
-                               jnp.asarray(poses), ids_encoder=(0,), method=type(s["jfield"]).encode)
-    ref, ref_valid = jdown.sample_3d_crops(s["jfield"], s["params"], jstate, jnp.asarray(depth), jnp.asarray(poses),
-                                           jnp.asarray(projs), key, s["jcfg"])
+
+    @jax.jit
+    def jcrops(params, imgs, depth, poses, projs):  # the encode and the crops in one compiled call
+        jstate = s["jfield"].apply(params, imgs, projs, poses, ids_encoder=(0,), method=type(s["jfield"]).encode)
+        return jdown.sample_3d_crops(s["jfield"], params, jstate, depth, poses, projs, key, s["jcfg"])
+
+    ref, ref_valid = jcrops(s["params"], jnp.asarray(batch["imgs"][:, :1]), jnp.asarray(depth), jnp.asarray(poses),
+                            jnp.asarray(projs))
     state = s["model"].encode(_t(batch["imgs"][:, :1]), _t(projs), _t(poses), ids_encoder=(0,))
     draws = down.Stage2Draws(False, 0, None, *_crop_draws(key, s["cfg"]), None)
     out, valid = down.sample_3d_crops(s["model"], state, _t(depth), _t(poses), _t(projs), draws, s["cfg"])
@@ -198,18 +203,25 @@ def test_sample_3d_crops_matches_reference_and_flags_empty_strata(setup):
     _close(out, ref)
 
 
+@pytest.fixture(scope="module")
+def jax_forward(setup):
+    """JAX's downstream_forward, compiled once for each value of `training`."""
+    s = setup
+    return {training: jax.jit(lambda b, buf, k, training=training: jdown.downstream_forward(
+        s["jfield"], s["params"], s["jhead"], s["hvars"], b, buf, k, s["jcfg"], s["jrcfg"], training=training))
+        for training in (True, False)}
+
+
 @pytest.mark.parametrize("mode", ["train-front", "train-side", "eval"])
-def test_downstream_forward_matches_reference(setup, mode):
+def test_downstream_forward_matches_reference(setup, jax_forward, mode):
     s = setup
     training = mode != "eval"
     key = _key_with_side(mode != "train-front")
     batch = _stage2_batch(1)
     head = _port_head(s)
     buffers = _filled_buffers()
-    with dropout_masks() as masks:
-        jseg, jrend, jbuf, _ = jdown.downstream_forward(s["jfield"], s["params"], s["jhead"], s["hvars"],
-                                                        _jbatch(batch), _jbuffers(buffers), key, s["jcfg"],
-                                                        s["jrcfg"], training=training)
+    jseg, jrend, jbuf, _ = jax_forward[training](_jbatch(batch), _jbuffers(buffers), key)
+    masks = _step_masks(s, key) if training else None
     draws = _stage2_draws(key, s["cfg"], int(jbuf.filled), masks, training)
     assert draws.side_coin == (mode != "train-front")
     seg, rend, pbuf = down.downstream_forward(s["model"], head, _tbatch(batch), buffers, draws, s["cfg"], s["rcfg"],
@@ -239,8 +251,9 @@ def test_seed_cluster_centers_matches_reference(setup, init_type):
     s = setup
     batch = _stage2_batch(2)
     key, max_points = jax.random.PRNGKey(8), 1000
-    ref = jdown.seed_cluster_centers(s["jfield"], s["params"], s["jhead"], s["hvars"], _jbatch(batch), key,
-                                     s["jcfg"], s["jrcfg"], init_type=init_type, max_points=max_points)
+    ref = jax.jit(lambda b, k: jdown.seed_cluster_centers(s["jfield"], s["params"], s["jhead"], s["hvars"], b, k,
+                                                          s["jcfg"], s["jrcfg"], init_type=init_type,
+                                                          max_points=max_points))(_jbatch(batch), key)
     k_fwd, k_sub, k_d, k_s = jax.random.split(key, 4)
     n = B * H * W
     sub = _t(np.asarray(jax.random.choice(k_sub, n, (max_points,), replace=False)).astype(np.int64))
@@ -279,20 +292,17 @@ def jax_steps(setup):
     step = jdown.make_downstream_train_step(s["jfield"], s["params"], s["jhead"], s["jcfg"], s["jrcfg"], tx)
     keys = [jax.random.PRNGKey(30), jax.random.PRNGKey(31)]
     batches = [_stage2_batch(3), _stage2_batch(4)]
-
-    def loss_fn(hp, batch, key):
-        seg = jdown.downstream_forward(s["jfield"], s["params"], s["jhead"],
-                                       {"params": hp, "state": state.head_variables["state"]}, batch,
-                                       state.buffers, key, s["jcfg"], s["jrcfg"])[0]
-        return jstego.stego_loss(seg)["total_loss"]
-
-    out = {"states": [state], "losses": [], "masks": [], "keys": keys, "batches": batches, "step": step,
-           "grads": jax.jit(jax.grad(loss_fn))(state.head_variables["params"], _jbatch(batches[0]), keys[0])}
+    out = {"states": [state], "losses": [], "masks": [], "keys": keys, "batches": batches, "step": step}
     for key, batch in zip(keys, batches):
         state, losses = step(state, _jbatch(batch), key)
         out["losses"].append(losses)
         out["masks"].append(_step_masks(s, key))
         out["states"].append(state)
+    # the first step's gradients, read back from Adam's first moment (mu = (1 - b1) g): one compile serves
+    out["grads"] = {}
+    for path, mu in _adam_mu(out["states"][1].opt_state).items():
+        *keys_, leaf = path.split("/")
+        functools.reduce(lambda d, k: d.setdefault(k, {}), keys_, out["grads"])[leaf] = mu / 0.1
     return out
 
 

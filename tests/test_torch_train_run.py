@@ -448,16 +448,19 @@ def test_cli_trains_validates_checkpoints_and_resumes(tmp_path, caplog):
     assert torch.load(out / "training_checkpoint_4.pt", weights_only=True)["step"] == 4
 
 
-def test_cli_refuses_the_cpu_without_a_device_and_stage_two(tmp_path):
-    """Stage 2 is ported; what of it is not, the generic (unfolded)
-    full-frame render, still raises, and neither stage runs on the CPU
+def test_cli_refuses_the_cpu_without_a_device_and_stage_two(tmp_path, caplog):
+    """Stage 2 with `use_fast_render: false` trains through the generic
+    (unfolded) full-frame render (held against JAX in
+    tests/test_torch_stage2_parallel.py), and neither stage runs on the CPU
     unless asked to."""
     cfg = tmp_path / "tiny.yaml"
     semantic = "downstream: {input_dim: 64, code_dim: 8, buffer_size: 8, patch_sample_size: 8}\n"
     cfg.write_text(TINY.format(out=tmp_path / "run", resume="false", stop=1).replace(
         "training:\n", "training:\n  use_fast_render: false\n") + semantic)
-    with pytest.raises(NotImplementedError, match="stage-2 render is not ported"):
+    with caplog.at_level(logging.INFO, logger="training"):
         cli.main(["--config", str(cfg), "--stage", "semantic", "--device", "cpu"])
+    steps = [r for r in caplog.records if hasattr(r, "losses")]
+    assert [r.iteration for r in steps] == [1] and np.isfinite(list(steps[0].losses.values())).all()
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the run rightly uses it")
     with pytest.raises(RuntimeError, match="device='cpu'"):

@@ -188,7 +188,14 @@ def test_teacher_downsampler_and_dim_reduction_match_reference(models):
     p_enc = {"params": params["params"]["encoder"]}
     rng = np.random.default_rng(1)
     x = rng.uniform(-1, 1, size=(3, 3, H, W)).astype(np.float32)
-    ref = enc.apply(p_enc, jnp.asarray(x), ground_truth=True)[0]
+    feats = rng.normal(size=(2, 5, 8)).astype(np.float32)
+    patches = rng.normal(size=(2, 3, 8, 8, 1, 64)).astype(np.float32)
+    image = rng.normal(size=(2, 2, 16, 24, 1, 64)).astype(np.float32)
+    refs = jax.jit(lambda p: (enc.apply(p, jnp.asarray(x), ground_truth=True)[0],  # one compiled call
+                              enc.apply(p, jnp.asarray(feats), method=type(enc).expand_dim),
+                              enc.apply(p, jnp.asarray(patches), "patch", method=type(enc).downsample),
+                              enc.apply(p, jnp.asarray(image), "image", method=type(enc).downsample)))(p_enc)
+    ref = refs[0]
     with torch.no_grad():
         out = model.encoder(_t(x), ground_truth=True)[0]
     assert out.shape == (3, 64, H // 8, W // 8)
@@ -196,14 +203,10 @@ def test_teacher_downsampler_and_dim_reduction_match_reference(models):
     # the teacher is frozen and builds no graph even with grad enabled
     assert not out.requires_grad and not any(p.requires_grad for p in model.encoder.gt_encoder.parameters())
 
-    feats = rng.normal(size=(2, 5, 8)).astype(np.float32)
-    ref = enc.apply(p_enc, jnp.asarray(feats), method=type(enc).expand_dim)
+    ref = refs[1]
     np.testing.assert_allclose(model.encoder.expand_dim(_t(feats)).detach().numpy(), np.asarray(ref),
                                atol=1e-5, rtol=1e-5)
-    patches = rng.normal(size=(2, 3, 8, 8, 1, 64)).astype(np.float32)
-    image = rng.normal(size=(2, 2, 16, 24, 1, 64)).astype(np.float32)
-    for arr, mode in ((patches, "patch"), (image, "image")):
-        ref = enc.apply(p_enc, jnp.asarray(arr), mode, method=type(enc).downsample)
+    for arr, mode, ref in ((patches, "patch", refs[2]), (image, "image", refs[3])):
         out = model.encoder.downsample(_t(arr), mode)
         assert out.shape == ref.shape
         np.testing.assert_allclose(out.detach().numpy(), np.asarray(ref), atol=1e-5, rtol=1e-5, err_msg=mode)
@@ -215,9 +218,9 @@ def test_encode_with_loss_features_and_shift_matches_reference(models, shift):
     batch = _batch(2)
     jb, tb = _jbatch(batch), _tbatch(batch)
     kw = dict(ids_encoder=(0,), ids_render=(1, 2), ids_loss=(0, 3))
-    ref = jfield.apply(params, jb["imgs"], jb["projs"], jb["poses"], with_loss_feats=True,
-                       loss_feature_grid_shift=None if shift is None else jnp.asarray(shift),
-                       method=JSceneField.encode, **kw)
+    ref = jax.jit(lambda p, b: jfield.apply(p, b["imgs"], b["projs"], b["poses"], with_loss_feats=True,
+                                            loss_feature_grid_shift=None if shift is None else jnp.asarray(shift),
+                                            method=JSceneField.encode, **kw))(params, jb)
     state = model.encode(tb["imgs"], tb["projs"], tb["poses"], with_loss_feats=True,
                          loss_feature_grid_shift=shift, **kw)
     assert state.feat_grid.requires_grad  # training builds the student's graph
@@ -254,8 +257,6 @@ def test_render_rays_matches_reference(models):
     jfield, params, model = models
     batch = _batch(4)
     jb, tb = _jbatch(batch), _tbatch(batch)
-    jstate = jfield.apply(params, jb["imgs"], jb["projs"], jb["poses"], ids_encoder=(0,), ids_render=(1, 2),
-                          method=JSceneField.encode)
     state = model.encode(tb["imgs"], tb["projs"], tb["poses"], ids_encoder=(0,), ids_render=(1, 2))
     rng = np.random.default_rng(5)
     R = 48
@@ -263,10 +264,21 @@ def test_render_rays_matches_reference(models):
     dirs = rng.normal(size=(B, R, 3)) * [0.3, 0.2, 0.0] + [0, 0, 1]
     rays = np.concatenate([origins, dirs, np.full((B, R, 1), 3.0), np.full((B, R, 1), 80.0)], -1).astype(np.float32)
     key = jax.random.PRNGKey(6)
-    rcfg = jnerf.RenderConfig(n_coarse=N_COARSE)
-    ref = jnerf.render_rays(lambda xyz, only_density=False: jfield.apply(params, jstate, xyz,
-                                                                         only_density=only_density),
-                            jnp.asarray(rays), key, rcfg, want_weights=True, want_alphas=True, want_z_samps=True)
+
+    @jax.jit
+    def jrender(p, b):  # the encode, then the volumetric and the surface render, in one compiled call
+        jstate = jfield.apply(p, b["imgs"], b["projs"], b["poses"], ids_encoder=(0,), ids_render=(1, 2),
+                              method=JSceneField.encode)
+
+        def field_fn(xyz, only_density=False):
+            return jfield.apply(p, jstate, xyz, only_density=only_density)
+
+        return (jnerf.render_rays(field_fn, jnp.asarray(rays), key, jnerf.RenderConfig(n_coarse=N_COARSE),
+                                  want_weights=True, want_alphas=True, want_z_samps=True),
+                jnerf.render_rays(field_fn, jnp.asarray(rays), key,
+                                  jnerf.RenderConfig(n_coarse=N_COARSE, render_mode="surface")))
+
+    ref, surface = jrender(params, jb)
     u = _t(jax.random.uniform(jax.random.split(key, 5)[0], (B * R, N_COARSE)))
     out = render_rays(lambda xyz, only_density=False: model(state, xyz, only_density=only_density),
                       _t(rays), u, RenderConfig(n_coarse=N_COARSE), want_weights=True, want_alphas=True,
@@ -276,9 +288,7 @@ def test_render_rays_matches_reference(models):
         np.testing.assert_allclose(out["coarse"][name].detach().numpy(), np.asarray(r), atol=1e-4, rtol=1e-4,
                                    err_msg=name)
     # the surface mode: a density-only query, no colour
-    ref = jnerf.render_rays(lambda xyz, only_density=False: jfield.apply(params, jstate, xyz,
-                                                                         only_density=only_density),
-                            jnp.asarray(rays), key, jnerf.RenderConfig(n_coarse=N_COARSE, render_mode="surface"))
+    ref = surface
     out = render_rays(lambda xyz, only_density=False: model(state, xyz, only_density=only_density),
                       _t(rays), u, RenderConfig(n_coarse=N_COARSE, render_mode="surface"))
     assert out["coarse"]["rgb"] is None and ref["coarse"]["rgb"] is None
@@ -339,7 +349,8 @@ def test_reconstruction_loss_values_and_grads_match_reference():
         losses = jrec.reconstruction_loss(d)
         return losses["rec_loss"], losses
 
-    (_, ref), ref_grads = jax.value_and_grad(jloss, has_aux=True)({k: jnp.asarray(data["coarse"][k]) for k in diff})
+    (_, ref), ref_grads = jax.jit(jax.value_and_grad(jloss, has_aux=True))(
+        {k: jnp.asarray(data["coarse"][k]) for k in diff})
     leaves = {k: _t(data["coarse"][k]).requires_grad_(True) for k in diff}
     d = {"rgb_gt": _t(data["rgb_gt"]), "dino_gt": _t(data["dino_gt"]),
          "coarse": {**{k: _t(v) for k, v in data["coarse"].items()}, **leaves}}
@@ -390,9 +401,10 @@ def test_frame_split_and_draws():
 @pytest.fixture(scope="module")
 def jax_step(models):
     """The JAX step's loss dict and gradients at init, and the state after
-    one step, on the shared weights and key."""
+    one step, on the shared weights and key. Its skip budget is 1 (a finite
+    step does not read it), so that the skip tests below reuse its compile."""
     jfield, params, _ = models
-    jt, _, jr, _ = _configs()
+    jt, _, jr, _ = _configs(skip_nonfinite_steps=1)
     lcfg = jrec.ReconstructionLossConfig()
     state, tx = jtrain.init_train_state(jfield, params, jt, artifact_shape=ART_SHAPE, key=jax.random.PRNGKey(3))
     batch, key = _jbatch(_batch()), jax.random.PRNGKey(12)
@@ -485,9 +497,7 @@ def test_nonfinite_step_is_skipped_like_optax(models, jax_step):
     jfield, _, model = models
     jt, tt, _, rcfg = _configs(skip_nonfinite_steps=1)
     lcfg = rec.ReconstructionLossConfig()
-    jstate, jtx = jtrain.init_train_state(jfield, jax_step["state"].params, jt, artifact_shape=ART_SHAPE,
-                                          key=jax.random.PRNGKey(3))
-    jstep = jax.jit(jtrain.make_train_step(jfield, jt, jnerf.RenderConfig(n_coarse=N_COARSE), jrec.ReconstructionLossConfig(), jtx))
+    jstate, jstep = jax_step["state"], jax_step["step"]  # the step's skip budget is 1
     state = _port_state(model, jax_step["state"], tt)
     step = trainer.make_train_step(model, tt, rcfg, lcfg)
     good = _batch()
@@ -539,7 +549,8 @@ def test_singular_pose_encodes_to_nonfinite_values_like_the_reference(models):
     assert load_jax_params(model, params["params"]) == []  # earlier steps of this module moved the weights
     batch = _singular_pose_batch(10)
     jb, tb = _jbatch(batch), _tbatch(batch)
-    ref = jfield.apply(params, jb["imgs"], jb["projs"], jb["poses"], ids_encoder=(0,), method=JSceneField.encode)
+    ref = jax.jit(lambda p, b: jfield.apply(p, b["imgs"], b["projs"], b["poses"], ids_encoder=(0,),
+                                            method=JSceneField.encode))(params, jb)
     with torch.no_grad():
         state = model.encode(tb["imgs"], tb["projs"], tb["poses"], ids_encoder=(0,))
     for name in ("feat_w2c", "color_w2c", "feat_grid"):
@@ -556,10 +567,7 @@ def test_singular_pose_step_is_skipped_like_the_reference(models, jax_step):
     the artifact field unchanged, on both packages."""
     jfield, _, model = models
     jt, tt, _, rcfg = _configs(skip_nonfinite_steps=1)
-    jstate, jtx = jtrain.init_train_state(jfield, jax_step["state"].params, jt, artifact_shape=ART_SHAPE,
-                                          key=jax.random.PRNGKey(3))
-    jstep = jax.jit(jtrain.make_train_step(jfield, jt, jnerf.RenderConfig(n_coarse=N_COARSE),
-                                           jrec.ReconstructionLossConfig(), jtx))
+    jstate, jstep = jax_step["state"], jax_step["step"]  # the step's skip budget is 1
     state = _port_state(model, jax_step["state"], tt)
     step = trainer.make_train_step(model, tt, rcfg, rec.ReconstructionLossConfig())
     batch = _singular_pose_batch(11)

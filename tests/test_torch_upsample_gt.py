@@ -222,16 +222,19 @@ def test_spf_decoder_matches_reference_and_four_widths_are_refused_on_both_sides
     conf = _spf_conf([8, 8, 16, 16, 16])
     jfield, params, model = _pair(conf, seed=10)
     x = np.random.default_rng(11).uniform(-1, 1, size=(2, 3, H, W)).astype(np.float32)
-    ref = jfield.encoder.apply({"params": params["params"]["encoder"]}, jnp.asarray(x))
+    shapes = [(2, 16, 2 * H >> s, 2 * W >> s) for s in range(4)]
+    # the outputs and the gradients of the whole decoder against JAX's, in one compiled call
+    w = [np.random.default_rng(12 + i).normal(size=shape).astype(np.float32) for i, shape in enumerate(shapes)]
+
+    def weighted(p):
+        outs = jfield.encoder.apply({"params": p}, jnp.asarray(x))
+        return sum(jnp.sum(o * wi) for o, wi in zip(outs, w)), outs
+
+    (_, ref), jgrads = jax.jit(jax.value_and_grad(weighted, has_aux=True))(params["params"]["encoder"])
     out = model.encoder(_t(x))
-    assert [tuple(o.shape) for o in out] == [r.shape for r in ref] == [(2, 16, 2 * H >> s, 2 * W >> s)
-                                                                      for s in range(4)]
+    assert [tuple(o.shape) for o in out] == [r.shape for r in ref] == shapes
     for o, r in zip(out, ref):
         np.testing.assert_allclose(o.detach().numpy(), np.asarray(r), atol=1e-4, rtol=1e-4)
-    # gradients of the whole decoder against JAX's
-    w = [np.random.default_rng(12 + i).normal(size=r.shape).astype(np.float32) for i, r in enumerate(ref)]
-    jgrads = jax.grad(lambda p: sum(jnp.sum(o * wi) for o, wi in zip(
-        jfield.encoder.apply({"params": p}, jnp.asarray(x)), w)))(params["params"]["encoder"])
     ref_grads = from_jax_params({"decoder": jgrads["decoder"]})[0]
     sum(torch.sum(o * _t(wi)) for o, wi in zip(out, w)).backward()
     for name, p in model.encoder.decoder.named_parameters():
@@ -291,7 +294,7 @@ def test_encoder_freeze_passes_no_gradient_into_the_student_vit():
     jfield, params, model = _pair(conf, seed=18)
     x = np.random.default_rng(19).uniform(-1, 1, size=(2, 3, H, W)).astype(np.float32)
     w = np.random.default_rng(20).normal(size=(2, 16, 2 * H, 2 * W)).astype(np.float32)
-    jgrads = jax.grad(lambda p: jnp.sum(jfield.encoder.apply({"params": p}, jnp.asarray(x))[0] * w))(
+    jgrads = jax.jit(jax.grad(lambda p: jnp.sum(jfield.encoder.apply({"params": p}, jnp.asarray(x))[0] * w)))(
         params["params"]["encoder"])
     ref = from_jax_params(jgrads)[0]
     out = model.encoder(_t(x))[0]
@@ -450,10 +453,11 @@ def test_eval_forward_with_the_crop_teacher_matches_reference_given_the_key(crop
     jr, tr = jnerf.RenderConfig(n_coarse=N_COARSE), RenderConfig(n_coarse=N_COARSE)
     batch = {k: jnp.asarray(v[:1]) for k, v in b.items()}
     key, k_aug = jax.random.PRNGKey(26), jax.random.PRNGKey(27)
-    with pytest.raises(flax.errors.InvalidRngError):
-        jtrain.stage1_eval_forward(jfield, params, batch, key, jt, jr)
+    with pytest.raises(flax.errors.InvalidRngError):  # raised while tracing
+        jax.jit(lambda p, b: jtrain.stage1_eval_forward(jfield, p, b, key, jt, jr))(params, batch)
     with caught_crop_keys() as keys:
-        ref = jtrain.stage1_eval_forward(_WithAugment(jfield, k_aug), params, batch, key, jt, jr)
+        ref = jax.jit(lambda p, b: jtrain.stage1_eval_forward(_WithAugment(jfield, k_aug), p, b, key, jt, jr))(
+            params, batch)
     assert len(keys) == 1
     u = _t(jax.random.uniform(jax.random.split(key, 5)[0], (V * H * W, N_COARSE)))
     out = trainer.stage1_eval_forward(model, {k: _t(v[:1]) for k, v in b.items()}, tt, tr, u=u,
