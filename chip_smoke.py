@@ -286,8 +286,28 @@ Phases, one line each:
              stage-2 render against the folded one (K6) on one batch within
              phase 7's render bounds with both host times, and a
              downstream.mode 2d step (the head's five crops)
+  16 eval    evaluation, the rest: 16a the stage-1 validator (phase 6's
+             run, bf16, one 192x640 item of the synthetic dataset with
+             occupancy probe points and labels) with metrics depth, dino,
+             nvs (LPIPS alex from a seeded state dict written in the lpips
+             naming) and occ, and its "images"; the same bf16 validator at
+             128x256 (513 tokens: K1 on the card, plain attention on the
+             CPU) on the card and on the CPU with the same draws, at bounds
+             read from that pair (VAL_BF16); the same validator in fp32 at
+             64x128 on the card and on the CPU with the same draws (the
+             CPU tests' bounds: the render's depths and colours and every
+             metric within 1e-4, the occupancy metrics equal; the panels
+             within one level), cuDNN on and TF32 off for both. 16b
+             cli.evaluate_sscbench --mode s4c on phase 8a's tree with a
+             seeded S4C field snapshot (Monodepth2, d_hidden 64, 20 outputs:
+             K4 at D = 64, E = 20), K4 against its plain version on one
+             block, timed. 16c cli.evaluate with apply_crf and crf_method
+             exact on one frame of phase 8b's tree (the CRF's host ms). 16d
+             two 192x640 depth frames rendered by K2 fused into a TSDF volume
+             on the card and on the CPU (weights equal, TSDF within 1e-5), a
+             surface PLY
   kernels    one JSON line: launches (all serving paths, training, the
-             train run, stage 2, evaluation, phases 9-15 together), error, times and
+             train run, stage 2, evaluation, phases 9-16 together), error, times and
              bound per kernel; the K1 forward's, K4's and K6's also at
              their shapes ("shapes": K4 at the evaluation's block, K6 at
              the 2D evaluator's fp32 frame; phase 9's holds of K1, K2, K4
@@ -4393,6 +4413,374 @@ def phase_multi_device(seed, ssc_root, city_root, stage2_dir, scratch):
     return counts
 
 
+# phase 16: the validator's occupancy probe grid (points ahead of the first
+# camera), the fp32 small-input check's size and its bounds (the CPU tests':
+# the render's depths relative and its colours absolute 1e-4, each metric
+# relative 1e-4, the occupancy metrics exactly), the bf16 pair's size (the
+# smallest at which the ViT takes K1) and its bounds, read from that pair
+# on an H100 with some room (PERF.md), and the TSDF volume (x, y, z bounds
+# in m and the voxel size) with its GPU-CPU bound
+OCC_GRID = (16, 8, 32)
+OCC_THRESHOLD = 1.0
+VAL_SMALL = (64, 128)
+VAL_REL = 1e-4
+VAL_BF16_SIZE = (128, 256)
+VAL_BF16 = {"depth_rel_p99": 3e-2, "depth_rel_median": 1e-2, "metrics_rel": 3e-2, "panel_within_one": 0.85}
+TSDF_BOUNDS, TSDF_VOXEL, TSDF_TOL = ((-12.0, 12.0), (-4.0, 2.0), (3.0, 40.0)), 0.2, 1e-5
+
+
+def _occupancy_batch(item, gen, device):
+    """One dataset item as a batch with the occupancy probe's inputs: a grid
+    of OCC_GRID points 4 to 40 m ahead and seeded is_occupied / is_visible."""
+    batch = {k: torch.as_tensor(item[k])[None].to(device) for k in ("imgs", "poses", "projs", "depths")}
+    axes = [torch.linspace(a, b, n) for (a, b), n in zip(((-8, 8), (-2, 1), (4, 40)), OCC_GRID)]
+    pts = torch.stack(torch.meshgrid(*axes, indexing="ij"), -1).reshape(1, -1, 3)
+    n = pts.shape[1]
+    batch["occ_pts"] = pts.to(device)
+    batch["is_occupied"] = (torch.rand(1, n, generator=gen) < 0.4).to(device)
+    batch["is_visible"] = (torch.rand(1, n, generator=gen) < 0.5).to(device)
+    return batch
+
+
+def _resized(batch, h, w):
+    """A batch's images resized to h x w (bilinear), its depths (nearest)."""
+    return {**batch, "imgs": torch.nn.functional.interpolate(batch["imgs"][0], size=(h, w), mode="bilinear")[None],
+            "depths": torch.nn.functional.interpolate(batch["depths"], size=(h, w), mode="nearest")}
+
+
+def _lpips_file(path, seed):
+    """A seeded AlexNet LPIPS state dict in the published `lpips` naming
+    (torchvision's trunk under net.<i>, the heads as lin<k>.model.1.weight)."""
+    from scenedino_torch.eval.lpips import ALEX_CHANNELS
+
+    g = torch.Generator().manual_seed(seed)
+    sd = {}
+    for i, cin, cout, k in ((0, 3, 64, 11), (3, 64, 192, 5), (6, 192, 384, 3), (8, 384, 256, 3), (10, 256, 256, 3)):
+        sd[f"net.{i}.weight"] = torch.randn(cout, cin, k, k, generator=g) / (cin * k * k) ** 0.5
+        sd[f"net.{i}.bias"] = 0.1 * torch.randn(cout, generator=g)
+    for j, c in enumerate(ALEX_CHANNELS):
+        sd[f"lin{j}.model.1.weight"] = torch.rand(1, c, 1, 1, generator=g)
+    torch.save(sd, path)
+    return path
+
+
+@contextlib.contextmanager
+def _fixed_render_draws(u):
+    """The validator's render takes the strata `u` (moved to the batch's
+    device) instead of drawing them: the same draws on every device.
+    Yields the list its outputs are appended to."""
+    from scenedino_torch.training import trainer
+
+    real = trainer.stage1_eval_forward
+    outputs = []
+
+    def with_draws(field, batch, cfg, rcfg, generator=None, **kw):
+        outputs.append(real(field, batch, cfg, rcfg, u=u.to(batch["imgs"].device), **kw))
+        return outputs[-1]
+
+    trainer.stage1_eval_forward = with_draws
+    try:
+        yield outputs
+    finally:
+        trainer.stage1_eval_forward = real
+
+
+def _validate(config, stage1_dir, device, batch, u, val_cfg, tcfg, rcfg, lpips_path, seed):
+    """The stage-1 validator of the run in `stage1_dir` (built from `config`)
+    on `device` over one batch, the render taking the strata `u`: (its
+    metrics, its panels, the render's outputs on the CPU, the field)."""
+    from scenedino_torch.cli.evaluate import eval_model
+    from scenedino_torch.eval.lpips import load_lpips
+    from scenedino_torch.training.validation import make_stage1_validator
+
+    field = eval_model(config, stage1_dir, device)[0]
+    b = {k: v.to(device) for k, v in batch.items()}
+    with _fixed_render_draws(u) as rendered:  # the validator binds the render when it is made
+        v = make_stage1_validator("validation", val_cfg, field, tcfg, rcfg, lambda: iter([b]),
+                                  load_lpips(lpips_path, "alex", device=device))
+        metrics = v(None, torch.Generator(device=device).manual_seed(seed))
+    panels = metrics.pop("images")
+    return metrics, panels, {k: x.float().cpu() for k, x in rendered[0].items()}, field
+
+
+def _validator_diffs(gpu, cpu):
+    """How far the card's _validate result lies from the CPU's: the render's
+    depth relative (max, 99th percentile, median), its colours and pooled
+    features absolute, each metric relative, each panel's largest difference
+    in levels of 255 and its share of pixels within one level."""
+    (gm, gp, gr, _), (cm, cp, cr, _) = gpu, cpu
+    d = ((gr["depth"] - cr["depth"]).abs() / cr["depth"]).flatten()
+    levels = {k: np.abs(np.round(gp[k] * 255) - np.round(cp[k] * 255)) for k in cp}
+    return {"keys_equal": sorted(gm) == sorted(cm) and sorted(gp) == sorted(cp),
+            "depth_rel": d.max().item(), "depth_rel_p99": torch.quantile(d[::max(1, d.numel() // 2 ** 20)], 0.99).item(),
+            "depth_rel_median": d.median().item(), "rgb_abs": (gr["rgb"] - cr["rgb"]).abs().max().item(),
+            "features_abs": (gr["dino_pred_grid"] - cr["dino_pred_grid"]).abs().max().item(),
+            "metrics_rel": {k: float(f"{abs(gm[k] - cm[k]) / max(abs(cm[k]), 1e-12):.3e}") for k in cm},
+            "panel_levels": {k: int(x.max()) for k, x in levels.items()},
+            "panel_within_one": {k: round(float((x <= 1).all(-1).mean()), 4) for k, x in levels.items()}}
+
+
+def phase_validator(seed, stage1_dir, scratch):
+    """Phase 16a: the stage-1 validator of phase 6's run (bf16, as it
+    trained) on one 192x640 item of the synthetic dataset with occupancy
+    inputs, metrics depth, dino, nvs (with LPIPS) and occ, and its panels;
+    the same validator at VAL_BF16_SIZE on the card and on the CPU with
+    the same render draws (K1 against plain attention, at the bounds
+    VAL_BF16); then the fp32 field at VAL_SMALL on the card and on the CPU
+    (the CPU tests' bounds). Returns
+    (the card's full-size run's launches, its bf16 field, the item)."""
+    from scenedino_torch import kernels
+    from scenedino_torch.datasets import make_datasets
+    from scenedino_torch.training import trainer
+    from scenedino_torch.utils.config import load_run_config
+
+    config = load_run_config(stage1_dir)
+    _, tcfg, rcfg, _ = trainer.configs_from_dict(config)
+    val_cfg = {"metrics": [{"type": "depth", "args": None}, {"type": "dino", "args": None},
+                           {"type": "nvs", "args": None}, {"type": "occ", "args": {"occ_threshold": OCC_THRESHOLD}}]}
+    lpips_path = _lpips_file(os.path.join(scratch, "lpips_alex.pt"), seed + 160)
+    item = make_datasets(config["dataset"])[1][0]
+    gen = torch.Generator().manual_seed(seed + 161)
+    batch = _occupancy_batch(item, gen, "cpu")
+    u = torch.rand(batch["imgs"].shape[1] * batch["imgs"][0, 0, 0].numel(), rcfg.n_coarse, generator=gen)
+    args = (val_cfg, tcfg, rcfg, lpips_path, seed + 162)
+    out = []
+    _, counts, peak, wall = _logged(lambda: out.append(_validate(config, stage1_dir, "cuda", batch, u, *args)))
+    metrics, panels, _, field = gpu = out[0]
+    depth = config["model"]["encoder"].get("vit_overrides", {}).get("depth", 12)
+    expect = {**{name: 0 for name in kernels.WRAPPERS}, "attention": 2 * depth}
+    H0, W0 = item["imgs"].shape[-2:]
+    print(f"phase 16a the stage-1 validator of phase 6's run ({config['model']['encoder']['encoder_arch']}, with_amp "
+          f"{config.get('with_amp')}) on one {H0}x{W0} item of {item['imgs'].shape[0]} views with "
+          f"{batch['occ_pts'].shape[1]} occupancy probe points (threshold {OCC_THRESHOLD}) and LPIPS alex from a "
+          f"seeded lpips-named state dict: {json.dumps({k: round(float(v), 6) for k, v in metrics.items()})}; panels "
+          f"{json.dumps({k: list(v.shape) for k, v in panels.items()})}; {wall:.1f} s wall (the field's load "
+          f"included), peak {peak:.3f} GiB; launches {json.dumps(counts)} (expected {json.dumps(expect)}: the "
+          f"student's {depth} K1 and the teacher's {depth})", flush=True)
+    want = {f"{t}_{k}" for t, ks in (("depth", ("abs_rel", "a1")), ("dino", ("cos_sim",)),
+                                    ("nvs", ("psnr", "ssim", "lpips")), ("occ", ("o_acc", "ie_acc", "t_ie")))
+            for k in ks}
+    if (not want <= set(metrics) or not _finite(metrics.values()) or len(panels) != 8
+            or not all(np.isfinite(p).all() and p.min() >= 0 and p.max() <= 1 for p in panels.values())):
+        fail(f"the validator's metrics or panels are missing or not finite: {sorted(metrics)}, {sorted(panels)}")
+    if counts != expect:
+        fail(f"the validator launched {counts}, expected {expect}")
+
+    # the same bf16 validator at VAL_BF16_SIZE on the card and on the CPU, the same draws: K1 against the plain
+    # attention in bf16 (at 192x640 the CPU side took 103 s on an H100 machine's 8 host threads, beyond the
+    # phase's budget)
+    h, w = VAL_BF16_SIZE
+    gc = torch.Generator().manual_seed(seed + 163)
+    small = _resized(_occupancy_batch(item, gc, "cpu"), h, w)
+    u = torch.rand(small["imgs"].shape[1] * h * w, rcfg.n_coarse, generator=gc)
+    out = []
+    _, pair_counts, _, _ = _logged(lambda: out.append(_validate(config, stage1_dir, "cuda", small, u, *args)))
+    t0 = time.perf_counter()
+    diffs = _validator_diffs(out[0], _validate(config, stage1_dir, "cpu", small, u, *args))
+    print(f"phase 16a the bf16 validator at {h}x{w} ({1 + (h // 8) * (w // 8)} tokens), the card (launches "
+          f"{json.dumps(pair_counts)}) against the CPU ({time.perf_counter() - t0:.1f} s wall, "
+          f"{torch.get_num_threads()} threads; the same draws): {json.dumps(diffs)} (bounds {json.dumps(VAL_BF16)})",
+          flush=True)
+    if (pair_counts != expect or not diffs["keys_equal"]
+            or any(diffs[k] > VAL_BF16[k] for k in ("depth_rel_p99", "depth_rel_median"))
+            or any(r > VAL_BF16["metrics_rel"] for r in diffs["metrics_rel"].values())
+            or any(s < VAL_BF16["panel_within_one"] for s in diffs["panel_within_one"].values())):
+        fail("the bf16 validator on the card did not take K1 or disagrees with the CPU beyond VAL_BF16")
+
+    # the fp32 validator at 64x128, the card against the CPU, the same draws
+    conf32 = copy.deepcopy(config)
+    conf32["with_amp"] = False
+    conf32["model"]["encoder"].pop("dtype", None)  # the run's config may name its bf16 encoder
+    h, w = VAL_SMALL
+    small = _resized(_occupancy_batch(item, gc, "cpu"), h, w)
+    u = torch.rand(small["imgs"].shape[1] * h * w, rcfg.n_coarse, generator=gc)
+    runs = [_validate(conf32, stage1_dir, device, small, u, val_cfg, tcfg, rcfg, lpips_path, seed + 164)
+            for device in ("cuda", "cpu")]
+    diffs = _validator_diffs(*runs)
+    occ_equal = all(runs[0][0][k] == runs[1][0][k] for k in runs[1][0] if k.startswith("occ_"))
+    levels = {k: v for k, v in diffs["panel_levels"].items() if k != "dino_kmeans"}
+    print(f"phase 16a fp32 at {h}x{w}, the card against the CPU (the same draws; the ViT's plain attention at "
+          f"{1 + (h // 8) * (w // 8)} tokens; cuDNN's convolutions, TF32 off): {json.dumps(diffs)} (bounds: the "
+          f"render's depth relative and rgb absolute {VAL_REL}, each metric relative {VAL_REL}, the occupancy metrics "
+          f"equal: {occ_equal}; each panel within one level, the k-means map, whose labels can flip where two "
+          f"clusters tie within round-off, by its share of pixels within one level >= 0.95)", flush=True)
+    if (not diffs["keys_equal"] or not occ_equal or max(levels.values()) > 1
+            or diffs["panel_within_one"]["dino_kmeans"] < 0.95 or diffs["depth_rel"] > VAL_REL
+            or diffs["rgb_abs"] > VAL_REL or any(r > VAL_REL for r in diffs["metrics_rel"].values())):
+        fail("the fp32 validator on the card disagrees with the CPU")
+    return counts, field, item
+
+
+def phase_s4c(seed, ssc_root, scratch):
+    """Phase 16b: cli.evaluate_sscbench --mode s4c on phase 8a's tree with a
+    seeded S4C field snapshot; K4 at the S4C field's (D = 64, E = 20)
+    against its plain version on one block of frame 0, timed, with its
+    bound. Returns (the run's launches, K4's entry at that shape)."""
+    from scenedino_torch import kernels
+    from scenedino_torch.cli import evaluate_sscbench as cli
+    from scenedino_torch.datasets.sscbench import SSCBenchDataset
+    from scenedino_torch.eval import sscbench as S
+    from scenedino_torch.kernels.point_render import point_query, point_query_plain
+    from scenedino_torch.models.factory import make_model, s4c_baseline_config
+    from scenedino_torch.ops import fast_field
+    from scenedino_torch.utils.checkpoint import save_field_snapshot
+    from scenedino_torch.utils.timing import time_ms
+
+    field = make_model(s4c_baseline_config(), device="cuda", seed=seed + 164).eval()
+    ckpt = os.path.join(scratch, "s4c_field.pt")
+    save_field_snapshot(ckpt, field)
+    argv = ["--data", ssc_root, "--voxel-gt", os.path.join(ssc_root, "voxel_gt"), "--ckpt", ckpt, "--mode", "s4c"]
+    (table, _), counts, frames, peak, wall = _run_logged(cli.main, argv)
+    blocks = 256 * 256 * 32 // SSC_BLOCK
+    expect = {**{name: 0 for name in kernels.WRAPPERS}, "point_query": EVAL_FRAMES * blocks}
+    stages = ("read_ms", "encode_ms", "query_ms", "accumulate_ms")
+    print(f"phase 16b cli.evaluate_sscbench --mode s4c on phase 8a's tree ({EVAL_FRAMES} frames) with a seeded "
+          f"S4C field (Monodepth2 d_out 64, head d_hidden 64, 19 logits): {json.dumps(table)}; per frame host ms "
+          f"{json.dumps([{k: round(getattr(r, k), 1) for k in stages} for r in frames])}; {wall:.1f} s wall, peak "
+          f"{peak:.3f} GiB; launches {json.dumps(counts)} (expected {json.dumps(expect)})", flush=True)
+    if not all(_in_unit(table[s].values()) for s in ("12.8", "25.6", "51.2")) or counts != expect:
+        fail(f"the S4C evaluation is not finite in [0, 1] or launched {counts}, expected {expect}")
+
+    sample = SSCBenchDataset(data_path=ssc_root, voxel_gt_path=os.path.join(ssc_root, "voxel_gt"))[0]
+    frame = [torch.from_numpy(sample[k])[None].cuda() for k in ("imgs", "projs", "poses")]
+    fs = cli.make_encode_fn(field, fast=True)(*frame)
+    view = fast_field._single_view(fs, "phase 16b")
+    pcfg = fast_field._point_config(field.cfg)
+    pts = torch.from_numpy(S.generate_point_grid()[0]).cuda()
+    block = pts.reshape(256, 256, 32, 3).permute(2, 0, 1, 3).reshape(-1, SSC_BLOCK, 3)[0].contiguous()
+    kernels.reset_launches()
+    sigma, feat = point_query(block, *view, pcfg)
+    ref_s, ref_f = point_query_plain(block, *view, pcfg)
+    d = torch.maximum((sigma - ref_s).abs(), (feat - ref_f).abs().amax(-1))
+    size = torch.maximum(ref_s, ref_f.abs().amax(-1))
+    err_abs, err_scaled = d.max().item(), (d / torch.clamp_min(size, 1.0)).max().item()
+    probs_err = (torch.softmax(feat, -1) - torch.softmax(ref_f, -1)).abs().max().item()
+    grid, w_code, b1, w2, b2, feat_w2c, feat_k = view
+    ms = time_ms(lambda: point_query(block, *view, pcfg))
+    plain_ms = time_ms(lambda: point_query_plain(block, *view, pcfg), reps=5)
+    P, D, E, C = block.shape[0], grid.shape[-1], w2.shape[-1], w_code.shape[0]
+    rows = grid_rows_read(block, grid, feat_w2c, feat_k)
+    in_bytes = rows * D * 2 + nbytes(block, w_code, b1, w2, b2, feat_w2c, feat_k)
+    b, by = bound_ms(2.0 * P * (C * D + D * E), in_bytes + P * 4 * E)
+    print(f"phase 16b K4 point_query at the S4C field's block ({P} points, {grid.shape[0]}x{grid.shape[1]}x{D} bf16 "
+          f"folded grid, d_out {E}: the (1, 1, 8) layout, 20 of its 72 output columns live): error over each point's "
+          f"largest output (at least 1) {err_scaled:.3e} (bound {K4_TOL}), max abs {err_abs:.3e}, softmax "
+          f"probabilities {probs_err:.3e}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b:.4f} ms ({by}: {rows} "
+          f"distinct grid rows)", flush=True)
+    if not err_scaled <= K4_TOL:
+        fail("K4 at the S4C field's width disagrees with its plain version")
+    del field, fs
+    entry = {"points": P, "d_hidden": D, "d_out": E, "ms": ms, "plain_ms": plain_ms, "bound_ms": b,
+             "bound_by": by, "max_abs_err": err_abs}
+    return counts, entry
+
+
+def phase_exact_crf(city_root, stage2_dir, scratch):
+    """Phase 16c: cli.evaluate with apply_crf and crf_method exact on one
+    frame of phase 8b's tree: the CRF rows and the exact CRF's host ms.
+    Returns its launches."""
+    from scenedino_torch import kernels
+    from scenedino_torch.cli import evaluate as cli
+    from scenedino_torch.utils.config import save_run_config
+
+    conf = _eval_config(os.path.dirname(os.path.abspath(__file__)), stage2_dir, city_root)
+    conf["downstream"].update(apply_crf=True, crf_method="exact")
+    conf_dir = tempfile.mkdtemp(prefix="eval_config_exact_", dir=scratch)
+    save_run_config(conf_dir, conf)
+    out = []
+    records, counts, peak, wall = _logged(lambda: out.append(cli.main(
+        ["--config", conf_dir, "--ckpt", stage2_dir, "--max-frames", "1", "--device", "cuda"])))
+    frames, crf = records.with_attr("frame_ms"), records.with_attr("crf_ms")
+    depth = conf["model"]["encoder"].get("vit_overrides", {}).get("depth", 12)
+    expect = {**{name: 0 for name in kernels.WRAPPERS}, "attention": depth, "encode_view": 1}
+    rows = {m: {k: round(v, 6) for k, v in r.items()} for m, r in out[0].items() if isinstance(r, dict)}
+    print(f"phase 16c cli.evaluate with apply_crf and crf_method exact (the permutohedral lattice on the host, "
+          f"{os.cpu_count()} CPUs) on one frame of phase 8b's tree: CRF rows "
+          f"{json.dumps({m: v for m, v in rows.items() if m.endswith('_crf')})}; the exact CRF of the frame's four "
+          f"modes {[round(r.crf_ms, 1) for r in crf]} host ms, the frame {[round(r.frame_ms, 1) for r in frames]} ms; "
+          f"{wall:.1f} s wall, peak {peak:.3f} GiB; launches {json.dumps(counts)} (expected {json.dumps(expect)})",
+          flush=True)
+    if len(rows) != 8 or not all(_in_unit(r.values()) for r in rows.values()) or len(crf) != 1:
+        fail(f"the exact CRF rows are missing or not finite in [0, 1]: {out[0]}")
+    if counts != expect:
+        fail(f"the exact-CRF evaluation launched {counts}, expected {expect}")
+    return counts
+
+
+def _render_depths(field, item, device):
+    """Two 192x640 depth frames of one encoded image rendered by K2 (the
+    identity camera and phase 4's novel camera), as camera z; with their
+    pixel intrinsics, camera-to-world poses and colours."""
+    from scenedino_torch.core.geometry import distance_to_z
+    from scenedino_torch.ops.fast_field import build_fast_state, render_novel_view_fused
+
+    img = torch.as_tensor(item["imgs"][:1])[None].to(device)
+    k = torch.as_tensor(item["projs"][0]).to(device)
+    h, w = img.shape[-2:]
+    with torch.inference_mode():
+        state = field.encode(img, k[None, None], torch.eye(4, device=device)[None, None], ids_encoder=(0,))
+        fs = build_fast_state(field, state, compute_dtype=torch.bfloat16)
+        frames = []
+        for pose in (torch.eye(4, device=device), novel_pose(device)):
+            u = torch.rand(h * w, K, generator=torch.Generator(device=device).manual_seed(len(frames)), device=device)
+            depth, _, rgb = render_novel_view_fused(fs, field.cfg, pose, k, h, w, u=u, n_coarse=K)
+            z = distance_to_z(depth.reshape(1, 1, h, w).float(), k[None, None])[0, 0]
+            frames.append((z, pose, rgb.reshape(h, w, 3).float() * 255))
+    # the normalized intrinsics (x_ndc = fx X / Z + cx on [-1, 1]) in pixels
+    pix = torch.tensor([[k[0, 0] * w / 2, 0, (k[0, 2] + 1) * w / 2 - 0.5],
+                        [0, k[1, 1] * h / 2, (k[1, 2] + 1) * h / 2 - 0.5], [0, 0, 1]])
+    return [torch.stack(t) for t in zip(*frames)], pix
+
+
+def phase_fusion(field, item, scratch):
+    """Phase 16d: two depth frames rendered by K2 fused into a TSDF volume on
+    the card and on the CPU: equal weights, TSDF within TSDF_TOL; a surface
+    PLY. Returns the launches."""
+    from scenedino_torch import kernels
+    from scenedino_torch.eval import fusion
+
+    kernels.reset_launches()
+    (depths, poses, colors), pix = _render_depths(field, item, "cuda")
+    counts = kernels.launches()
+    cfg = fusion.TSDFVolumeConfig(TSDF_BOUNDS, TSDF_VOXEL)
+    intrs = pix.expand(2, 3, 3)
+    t0 = time.perf_counter()
+    gpu = fusion.integrate_frames(cfg, depths, intrs.cuda(), poses, colors)
+    torch.cuda.synchronize()
+    gpu_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    cpu = fusion.integrate_frames(cfg, depths.cpu(), intrs, poses.cpu(), colors.cpu())
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    w_equal = torch.equal(gpu.weight.cpu(), cpu.weight)
+    seen = cpu.weight > 0
+    tsdf_err = (gpu.tsdf.cpu() - cpu.tsdf).abs().max().item()
+    ply = os.path.join(scratch, "surface.ply")
+    n_vert, n_face = fusion.save_surface_ply(ply, gpu, cfg)
+    print(f"phase 16d TSDF fusion of 2 depth frames rendered by K2 ({tuple(depths.shape[1:])}, z "
+          f"{depths.min().item():.2f}-{depths.max().item():.2f} m) into a {cfg.vol_dim} volume of "
+          f"{TSDF_VOXEL} m voxels: {int(seen.sum())} voxels observed ({int((cpu.weight == 2).sum())} by both frames); "
+          f"the card against the CPU: weights equal {w_equal}, TSDF max abs difference {tsdf_err:.3e} (bound "
+          f"{TSDF_TOL}); {gpu_ms:.1f} ms on the card, {cpu_ms:.1f} ms on the CPU (host clocks); surface PLY "
+          f"{n_vert} vertices, {n_face} faces, {os.path.getsize(ply)} bytes; launches {json.dumps(counts)}",
+          flush=True)
+    if not (w_equal and tsdf_err <= TSDF_TOL and seen.any() and n_face > 0):
+        fail("the TSDF fusion on the card disagrees with the CPU, or observed nothing")
+    return counts
+
+
+def phase_eval_rest(seed, stage1_dir, stage2_dir, ssc_root, city_root, scratch):
+    """Phase 16: evaluation, the rest. Returns (its launches, K4's entry at the S4C shape)."""
+    t_phase = time.perf_counter()
+    val_counts, field, item = phase_validator(seed, stage1_dir, scratch)
+    s4c_counts, k4_s4c = phase_s4c(seed, ssc_root, scratch)
+    crf_counts = phase_exact_crf(city_root, stage2_dir, scratch)
+    fusion_counts = phase_fusion(field, item, scratch)
+    parts = (val_counts, s4c_counts, crf_counts, fusion_counts)
+    counts = {name: sum(p[name] for p in parts) for name in val_counts}
+    print(f"phase 16 launches {json.dumps(counts)}; wall time {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return counts, k4_s4c
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -4478,13 +4866,14 @@ def main():
         print(f"phase 13 wall time {time.perf_counter() - t13:.1f} s; {card_line()}", flush=True)
         serving_rest = phase_serving_rest(args.seed, trees[0], stage2_dir, scratch)
         multi = phase_multi_device(args.seed, *trees, stage2_dir, scratch)
+        eval_rest, k4_s4c = phase_eval_rest(args.seed, stage1_dir, stage2_dir, *trees, scratch)
     paths = (serving, training, train_run, stage2, stage2_conv, evaluation, reference, kitti, d80_paths, re10k,
-             branches, dinov2, serving_rest, multi)
+             branches, dinov2, serving_rest, multi, eval_rest)
     for e in entries:
         e["launches"] = sum(p[e["name"]] for p in paths)
         if e["name"] == "point_query":
-            e["shapes"] = {"SSCBench evaluation block": k4_block}
-            e["max_abs_err"] = max(e["max_abs_err"], k4_block["max_abs_err"])
+            e["shapes"] = {"SSCBench evaluation block": k4_block, "S4C baseline block": k4_s4c}
+            e["max_abs_err"] = max(e["max_abs_err"], k4_block["max_abs_err"], k4_s4c["max_abs_err"])
         elif e["name"] == "encode_view":
             e["shapes"]["2D evaluation"] = k6_frame
             e["max_abs_err"] = max(e["max_abs_err"], k6_frame["max_abs_err"])

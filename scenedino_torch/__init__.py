@@ -16,6 +16,10 @@ the repository unchanged). It covers these paths:
               (models.downstream) distilled from a frozen field by
               training.downstream, validated with the pseudo-assignment
               write-back (training.validation)
+    evaluation: cli.evaluate_sscbench (the SSCBench voxel grid; --mode s4c
+              the S4C baseline), cli.evaluate (2D segmentation, the window
+              or the exact CRF), the validator's occupancy, LPIPS and
+              panels, TSDF fusion (eval/)
 
 Hand-written CUDA kernels carry them (`kernels/`, sources in `csrc/`):
 the ViT attention forward and its backward (dq; dk and dv), the fused

@@ -15,7 +15,9 @@ reads that holds a head: a stage-2 run of the port, a JAX `.npz`, or a
 `.pt` in the reference's torch layout (its published checkpoints). Runs
 on the GPU unless `--device` names another device; without a GPU it
 raises.
-`downstream.apply_crf: true` adds the window CRF's "<mode>_crf" rows.
+`downstream.apply_crf: true` adds the CRF's "<mode>_crf" rows: the window
+CRF, or with `downstream.crf_method: exact` the exact permutohedral CRF on
+the host.
 `--data-parallel` evaluates a group of frames at a time over every
 visible card, one frame a card (`Seg2DEvaluator.run_sharded`: the same
 metrics); with one card, or with `--device cpu`, it evaluates in turn.
@@ -104,6 +106,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         raise ValueError(f"{ckpt!r} has no semantic head: 2D segmentation evaluation needs a stage-2 checkpoint")
     evaluator = Seg2DEvaluator(field=field, head=head, image_size=(H, W),
                                n_classes=max(head.cfg.n_classes, head.cfg.gt_classes), apply_crf=head.cfg.apply_crf,
+                               crf_method=config.get("downstream", {}).get("crf_method", "window"),
                                seed=config.get("seed", 0))
     devices = make_mesh(device=device) if args.data_parallel else [device]
     if len(devices) > 1:

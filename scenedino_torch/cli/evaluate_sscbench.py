@@ -10,6 +10,11 @@
 `--ckpt` is anything `utils.checkpoint.load_eval_state` reads with a
 head; `--config` rebuilds the trained model, else the `--variant` preset
 (`dino`: ViT-B/8, `dinov2`: ViT-B/14; fp32) at 192x640.
+`--mode s4c` evaluates the S4C baseline instead (`models.factory.
+s4c_baseline_config`: a Monodepth2 encoder, a d_hidden 64 head whose 19
+feature channels are class logits) with the field weights of `--ckpt`
+(no head): each block's scores are the softmax of the logits, K4 at
+d_hidden 64 and 20 outputs on the fast path.
 
 Each frame: encode the front image, query the 256x256x32 voxel grid
 through the field and the semantic head, accumulate occupancy and
@@ -37,6 +42,7 @@ from __future__ import annotations
 import argparse
 import json
 import logging
+import os
 import time
 from typing import Optional, Sequence
 
@@ -54,9 +60,23 @@ def make_query_fn(field, head, prediction_mode: str, fast: bool):
     """The per-block query (`net.forward(pts, predict_segmentation=True)`,
     bts.py:553-593): (block (1, P, 3), qstate) -> (sigma (1, P), the one-hot
     of the head's label (1, P, 19)). qstate is the frame's `FastFieldState`
-    (fast) or `SceneState` (slow)."""
+    (fast) or `SceneState` (slow). prediction_mode "s4c" (the S4C
+    baseline, no head): the scores are the fp32 softmax of the field's 19
+    feature channels (reference evaluate_model_sscbench.py:727-731)."""
     from scenedino_torch.ops.fast_field import fast_query_fused
 
+    if prediction_mode == "s4c":
+        def probs(logits):
+            return torch.softmax(logits.float(), -1)
+
+        def s4c_query_fn(block, qstate):
+            if fast:
+                sigma, p = fast_query_fused(qstate, field.cfg, block[0], seg_fn=probs)
+                return sigma[None], p[None]
+            _, _, sigma, logits = field(qstate, block, only_density=True)
+            return sigma, probs(logits)
+
+        return s4c_query_fn
     if head is None:
         raise RuntimeError("the checkpoint has no semantic head")
 
@@ -122,15 +142,24 @@ def main(argv: Optional[Sequence[str]] = None):
     from scenedino_torch.eval import sscbench as S
     from scenedino_torch.utils.config import load_run_config
 
-    if args.mode == "s4c":
-        raise NotImplementedError("--mode s4c: the monodepth2 baseline is not ported (ROADMAP queue 1, item 9)")
     device = resolve_device(args.device)
+    if args.mode == "s4c":  # the S4C baseline through the same grid pipeline
+        from scenedino_torch.models.factory import make_model, s4c_baseline_config
+        from scenedino_torch.utils.checkpoint import load_eval_state
 
-    config = load_run_config(args.config) if args.config else {"variant": args.variant}
-    H, W = config.get("dataset", {}).get("image_size", (192, 640))
-    if args.resolution is not None:
-        H, W = args.resolution
-    field, head = eval_model(config, args.ckpt, device, (H, W))
+        if not os.path.exists(args.ckpt):  # no S4C weights ship with the repository
+            raise FileNotFoundError(f"no S4C checkpoint at {args.ckpt!r}")
+        H, W = args.resolution or (192, 640)
+        field, head = make_model(s4c_baseline_config(), device=device), None
+        field.load_state_dict(load_eval_state(args.ckpt, device=device)[0])
+        field.eval().requires_grad_(False)
+    else:
+        config = load_run_config(args.config) if args.config else {"variant": args.variant}
+        H, W = config.get("dataset", {}).get("image_size", (192, 640))
+        if args.resolution is not None:
+            H, W = args.resolution
+        field, head = eval_model(config, args.ckpt, device, (H, W))
+    prediction_mode = "s4c" if args.mode == "s4c" else args.prediction_mode
     dataset = SSCBenchDataset(data_path=args.data, voxel_gt_path=args.voxel_gt, target_image_size=(H, W))
 
     calib = S.read_calib(args.calib)
@@ -139,7 +168,7 @@ def main(argv: Optional[Sequence[str]] = None):
     pts = torch.from_numpy(pts).to(device)
     fast = not args.slow
     encode = make_encode_fn(field, fast)
-    predict = S.make_grid_predictor(make_query_fn(field, head, args.prediction_mode, fast), coherent=fast)
+    predict = S.make_grid_predictor(make_query_fn(field, head, prediction_mode, fast), coherent=fast)
 
     acc = S.SSCAccumulator()
     diag = S.SigmaDiagnostics() if args.test_alpha_cutoffs else None
@@ -195,11 +224,12 @@ def main(argv: Optional[Sequence[str]] = None):
     def frame_parallel(devices):
         """The same, a group of frames a step, frame j of a group on device j
         (exact); a group's step time is its first frame's."""
-        fields, heads = (replicate(m, devices) for m in (field, head))
+        fields = replicate(field, devices)
+        heads = replicate(head, devices) if head is not None else dict.fromkeys(fields)
 
         def frame_fns(d):
             return (make_encode_fn(fields[d], fast),
-                    S.make_grid_predictor(make_query_fn(fields[d], heads[d], args.prediction_mode, fast),
+                    S.make_grid_predictor(make_query_fn(fields[d], heads[d], prediction_mode, fast),
                                           coherent=fast))
 
         step = S.make_sharded_frame_predictor(frame_fns, devices)

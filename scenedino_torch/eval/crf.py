@@ -9,7 +9,7 @@ JAX package: each pixel gathers from a (2R+1)^2 window of dilated taps
 (radius 10 x dilation 4, +/-40 px) and the 1-px ring, each kernel
 symmetrically normalized (D^-1/2 K D^-1/2, pydensecrf's default). An
 approximation of pydensecrf's permutohedral lattice, not a twin; the
-exact lattice (`crf_method="exact"`, eval/permutohedral.py) is not ported.
+exact lattice is eval/permutohedral.py (`crf_method="exact"`, on the host).
 
 A tap reads a slice of the scores padded once by the window's reach, the
 shift of the JAX code without a copy per tap.

@@ -1,6 +1,7 @@
 """Validation metrics on the host (counterpart of
 `scenedino_tpu/eval/metrics.py:33-273`): depth errors, PSNR, the DINO
-cosine similarity and skimage's SSIM (stage 1); the segmentation
+cosine similarity, skimage's SSIM and the SSIM index (stage 1); the
+occupancy metrics and the foreground adjusted Rand index; the segmentation
 confusion, the pseudo-label assignment and the (weighted) IoU scores
 (stage 2).
 
@@ -68,6 +69,85 @@ def dino_cosine_similarity(pred, gt, eps: float = 1e-8) -> torch.Tensor:
     pn = pred / torch.clamp(torch.linalg.vector_norm(pred, dim=-1, keepdim=True), min=eps)
     gn = gt / torch.clamp(torch.linalg.vector_norm(gt, dim=-1, keepdim=True), min=eps)
     return (pn * gn).sum(-1).mean()
+
+
+def ssim_index(pred, gt) -> torch.Tensor:
+    """Mean SSIM index of NCHW image batches (the 3x3 Gaussian window of
+    `losses.ssim`, zero pad): a 0-d tensor where the inputs lie."""
+    from scenedino_torch.losses.ssim import ssim_error
+
+    return ssim_error(torch.as_tensor(pred).float(), torch.as_tensor(gt).float(), eval_mode=True).mean()
+
+
+def occupancy_metrics(pred_occ, gt_occ, mask=None) -> Dict[str, np.float32]:
+    """Occupancy accuracy, precision, recall and IoU over `mask` (all points
+    by default) (metrics.py:116-151); no invisible-empty metrics, which
+    need a visibility mask (`compute_occ_metrics_visible`)."""
+    pred = _host(pred_occ, bool).reshape(-1)
+    gt = _host(gt_occ, bool).reshape(-1)
+    mask = np.ones_like(gt) if mask is None else _host(mask, bool).reshape(-1)
+    tp = np.sum(pred & gt & mask)
+    fp = np.sum(pred & ~gt & mask)
+    fn = np.sum(~pred & gt & mask)
+    tn = np.sum(~pred & ~gt & mask)
+
+    def ratio(a, b):
+        return np.float32(a / max(b, 1))
+
+    return {"o_acc": ratio(tp + tn, tp + tn + fp + fn), "o_prec": ratio(tp, tp + fp), "o_rec": ratio(tp, tp + fn),
+            "o_iou": ratio(tp, tp + fp + fn)}
+
+
+def compute_occ_metrics_visible(pred_occ, gt_occ, is_visible) -> Dict[str, np.float32]:
+    """Occupancy metrics with the visibility rule (metrics.py:116-151,
+    wrapper.py create_occ_eval): only points that are not visible can be
+    occupied (gt &= ~visible); o_* over all points, ie_* over the
+    invisible-empty set; t_ie and t_no_nop_nv are counts."""
+    pred = _host(pred_occ, bool).reshape(-1)
+    vis = _host(is_visible, bool).reshape(-1)
+    gt = _host(gt_occ, bool).reshape(-1) & ~vis
+
+    def mean_where(x, m):
+        return np.float32(np.sum(x & m) / max(int(np.sum(m)), 1))
+
+    def mean(x):  # as XLA takes a mean: the fp32 sum times the fp32 reciprocal of the count
+        return np.float32(np.sum(x)) * (np.float32(1) / np.float32(x.size))
+
+    return {
+        "o_acc": mean(pred == gt),
+        "o_prec": mean_where(gt, pred),
+        "o_rec": mean_where(pred, gt),
+        "ie_acc": mean_where(pred == gt, ~vis),
+        "ie_prec": mean_where(~gt, ~pred & ~vis),
+        "ie_rec": mean_where(~pred, ~gt & ~vis),
+        "ie_r": mean(~gt & ~vis),
+        "t_ie": np.int64(np.sum(~gt & ~vis)),
+        "t_no_nop_nv": np.int64(np.sum((~gt & ~pred) & (~vis & ~gt))),
+    }
+
+
+def fg_ari(pred_labels, gt_labels, fg_mask) -> float:
+    """Foreground adjusted Rand index (metrics.py FG_ARI:483) of the labels
+    under `fg_mask`, from their contingency table; 0 without foreground."""
+    fg = _host(fg_mask, bool).reshape(-1)
+    pred = _host(pred_labels, np.int64).reshape(-1)[fg]
+    gt = _host(gt_labels, np.int64).reshape(-1)[fg]
+    if len(gt) == 0:
+        return 0.0
+    _, pi = np.unique(pred, return_inverse=True)
+    _, gi = np.unique(gt, return_inverse=True)
+    cont = np.zeros((gi.max() + 1, pi.max() + 1), np.int64)
+    np.add.at(cont, (gi, pi), 1)
+    nij = (cont * (cont - 1) / 2).sum()
+    a, b = cont.sum(1), cont.sum(0)
+    ai, bj = (a * (a - 1) / 2).sum(), (b * (b - 1) / 2).sum()
+    n = len(gt)
+    total = n * (n - 1) / 2
+    expected = ai * bj / total if total > 0 else 0.0
+    max_idx = (ai + bj) / 2
+    if max_idx == expected:
+        return 1.0
+    return float((nij - expected) / (max_idx - expected))
 
 
 def ssim_skimage(pred, gt, data_range: float = 1.0, win_size: int = 7) -> float:

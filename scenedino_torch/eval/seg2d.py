@@ -15,8 +15,13 @@ path: `ImageRaySampler` rays through `render_rays_chunked` of the field.
 The strata of frame i are an explicit input (`draws(i)`), else drawn from
 a generator seeded from `seed + i`. `run_sharded` evaluates a group of
 frames at a time over a list of devices, one frame each, with the same
-draws, so its confusions and metrics are `run()`'s exactly. The exact
-permutohedral CRF is not ported (ROADMAP queue 1, item 5).
+draws, so its confusions and metrics are `run()`'s exactly.
+
+The CRF (`apply_crf`) is the window CRF where the tensors lie
+(`crf_method="window"`, eval/crf.py) or the exact permutohedral lattice on
+the host (`"exact"`, eval/permutohedral.py), as the reference's pydensecrf
+call runs; the exact CRF refines a frame's four modes in one
+pass over the frame's lattices and logs its host ms (`crf_ms`).
 """
 from __future__ import annotations
 
@@ -52,17 +57,16 @@ class Seg2DEvaluator:
     chunk: int = 15360
     n_classes: int = 19
     modes: tuple = MODES
-    # the window CRF over each mode's labels (semantic_head.py:224-240: the
-    # one-hot labels as unary, the rendered colours as appearance)
+    # the CRF over each mode's labels (semantic_head.py:224-240: the one-hot
+    # labels as unary, the rendered colours as appearance): "window" or "exact"
     apply_crf: bool = False
     crf_method: str = "window"
     use_fast_render: bool = True
     seed: int = 0
 
     def __post_init__(self):
-        if self.crf_method != "window":
-            raise NotImplementedError(f"crf_method {self.crf_method!r}: the port has the window CRF only (the exact "
-                                      "permutohedral lattice waits in ROADMAP queue 1, item 5)")
+        if self.crf_method not in ("window", "exact"):
+            raise ValueError(f"crf_method must be 'window' or 'exact', got {self.crf_method!r}")
         H, W = self.image_size
         self.sampler = ImageRaySampler(self.z_near, self.z_far, H, W)
         self.rcfg = RenderConfig(n_coarse=self.n_coarse)
@@ -110,15 +114,33 @@ class Seg2DEvaluator:
         dino768 = self.field.expand_dim(dino64)
         preds = {mode: self.head(dino768, mode=mode).reshape(H, W) for mode in self.modes}
         if self.apply_crf:
-            from scenedino_torch.eval.crf import dense_crf
-
             # the rendered colours are in [0, 1] already (encode stores them so)
             image = torch.clamp(rgb, 0.0, 1.0)
-            eye = torch.eye(self.n_classes, device=dino768.device)
-            for mode in self.modes:
-                preds[mode + "_crf"] = torch.argmax(dense_crf(image, eye[preds[mode]]), -1)
+            if self.crf_method == "exact":
+                preds.update(self._exact_crf(image, preds))
+            else:
+                from scenedino_torch.eval.crf import dense_crf
+
+                eye = torch.eye(self.n_classes, device=dino768.device)
+                for mode in self.modes:
+                    preds[mode + "_crf"] = torch.argmax(dense_crf(image, eye[preds[mode]]), -1)
         preds["depth"] = depth.reshape(H, W)
         return preds
+
+    def _exact_crf(self, image: torch.Tensor, preds: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """Each mode's "<mode>_crf" labels by the exact CRF on the host (the
+        reference's pydensecrf placement), back on the labels' device."""
+        from scenedino_torch.eval.permutohedral import crf_kernels, dense_crf_exact
+
+        t0 = time.perf_counter()
+        eye = np.eye(self.n_classes, dtype=np.float32)
+        onehots = np.stack([eye[preds[mode].cpu().numpy()] for mode in self.modes])
+        probs = dense_crf_exact(None, onehots, kernels=crf_kernels(image.float().cpu().numpy()))
+        out = {mode + "_crf": torch.from_numpy(p.argmax(-1)).to(preds[mode].device)
+               for mode, p in zip(self.modes, probs)}
+        crf_ms = (time.perf_counter() - t0) * 1e3
+        logger.info("exact CRF of %d modes: %.1f ms", len(self.modes), crf_ms, extra={"crf_ms": crf_ms})
+        return out
 
     def predict(self, imgs: torch.Tensor, projs: torch.Tensor, poses: torch.Tensor,
                 u: torch.Tensor) -> Dict[str, torch.Tensor]:

@@ -21,8 +21,10 @@ def _gaussian_avg(x: torch.Tensor) -> torch.Tensor:
     return F.conv2d(x, kernel, groups=C)
 
 
-def ssim_error(x: torch.Tensor, y: torch.Tensor, pad: bool = True, comp_mode: bool = True) -> torch.Tensor:
-    """SSIM error map, (B, C, H, W) -> (B, C, H, W) with the zero pad."""
+def ssim_error(x: torch.Tensor, y: torch.Tensor, pad: bool = True, comp_mode: bool = True,
+               eval_mode: bool = False) -> torch.Tensor:
+    """SSIM error map, (B, C, H, W) -> (B, C, H, W) with the zero pad;
+    `eval_mode` returns the SSIM index itself, unclamped."""
     if pad:
         x = F.pad(x, (1, 1, 1, 1))
         y = F.pad(y, (1, 1, 1, 1))
@@ -33,6 +35,8 @@ def ssim_error(x: torch.Tensor, y: torch.Tensor, pad: bool = True, comp_mode: bo
     sigma_xy = _gaussian_avg(x * y) - mu_x * mu_y
     n = (2 * mu_x * mu_y + _C1) * (2 * sigma_xy + _C2)
     d = (mu_x ** 2 + mu_y ** 2 + _C1) * (sigma_x + sigma_y + _C2)
+    if eval_mode:
+        return n / d
     if comp_mode:
         return clip(1 - n / d, 0.0, 1.0) / 2.0
     return clip((1 - n / d) / 2.0, 0.0, 1.0)

@@ -1,5 +1,6 @@
-"""Model factory (counterpart of `scenedino_tpu/models/factory.py`) for the
-DINO encoder family."""
+"""Model factory (counterpart of `scenedino_tpu/models/factory.py`): the
+DINO encoder family, and through `backbone_util.make_backbone` the other
+encoders (Monodepth2, the S4C baseline's: `s4c_baseline_config`)."""
 from __future__ import annotations
 
 from typing import Any, Dict
@@ -7,7 +8,7 @@ from typing import Any, Dict
 import torch
 
 from scenedino_torch import resolve_device
-from scenedino_torch.models.encoder import DinoModule, DinoModuleConfig
+from scenedino_torch.models.encoder import DinoModuleConfig
 from scenedino_torch.models.field import FieldConfig, SceneField
 
 _DTYPES = {"float32": None, "bfloat16": torch.bfloat16}
@@ -50,10 +51,10 @@ def make_model(conf: Dict[str, Any], device=None, seed: int = 0, training: bool 
     (`training=False`, in eval mode) hold the student only; training
     models also hold the frozen teacher, the downsampler and the
     dimension reduction, drawn after the student's parameters."""
+    from scenedino_torch.models.backbone_util import make_backbone
+
     device = resolve_device(device)
     enc_conf = conf.get("encoder", {})
-    if enc_conf.get("type", "dino") not in ("dino", "dinov2"):
-        raise NotImplementedError(f"the port covers the DINO encoder, got {enc_conf.get('type')!r}")
     code = conf.get("code", {})
     fcfg = FieldConfig(
         z_near=conf.get("z_near", 3.0),
@@ -79,7 +80,7 @@ def make_model(conf: Dict[str, Any], device=None, seed: int = 0, training: bool 
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
         field = SceneField(
-            DinoModule(encoder_config_from_dict(enc_conf), training=training), fcfg, head_confs,
+            make_backbone(enc_conf, training=training), fcfg, head_confs,
             final_pred_head=conf.get("final_prediction_head", head_confs[0][0]),
         )
     return field.to(device).train(training)
@@ -123,6 +124,29 @@ def scenedino_dinov2_config() -> Dict[str, Any]:
     conf = {**SCENEDINO_KITTI_360}
     conf["encoder"] = {**conf["encoder"], "version": "v2", "separate_gt_version": "v2"}
     return conf
+
+
+def s4c_baseline_config(n_classes: int = 19) -> Dict[str, Any]:
+    """The S4C baseline that the reference's SSC evaluator builds for
+    `-m s4c` (evaluate_model_sscbench.py:179-217): a Monodepth2 encoder
+    (d_out 64), the n_blocks=0 head with d_hidden 64, code_mode "z",
+    learn_empty off. The S4C net's class logits are the field's feature
+    channels (dino_dims = n_classes), so the SSC query runs unchanged: the
+    encoder's `expand_dim` is the identity and the evaluator softmaxes the
+    channels into the class probabilities it alpha-weights."""
+    return {
+        "predict_dino": True,
+        "dino_dims": n_classes,
+        "inv_z": True,
+        "learn_empty": False,
+        "code_mode": "z",
+        "z_near": 3.0,
+        "z_far": 80.0,
+        "encoder": {"type": "monodepth2", "d_out": 64, "scales": (0, 1, 2, 3)},
+        "code": {"num_freqs": 6, "freq_factor": 1.5, "include_input": True},
+        "decoder_heads": [{"type": "resnet", "name": "normal_head", "args": {"n_blocks": 0, "d_hidden": 64}}],
+        "final_prediction_head": "normal_head",
+    }
 
 
 def variant_config(variant: str = "dino", image_size=(192, 640)) -> Dict[str, Any]:

@@ -190,15 +190,19 @@ class SceneField(nn.Module):
 
     def forward(self, state: SceneState, xyz: torch.Tensor, only_density: bool = False):
         """Field query: xyz (B, P, 3) -> (rgb (B, P, Vr*3) or None,
-        invalid (B, P, Vr) fp32, sigma (B, P) fp32, dino (B, P, dino_dims))."""
-        if not (self.cfg.sample_color and self.cfg.predict_dino):
-            raise NotImplementedError("the port's field query samples colours and predicts DINO features")
+        invalid (B, P, Vr) fp32, sigma (B, P) fp32, dino (B, P, dino_dims)
+        or None without `predict_dino`). A field that does not sample colours
+        predicts them (bts.py:545-552): relu sigma and sigmoid rgb (B, P, 3)
+        from the head, invalid (B, P, V) the encode views', and no dino."""
         feats, invalid_features = self.sample_features(state, xyz)
         mlp_out = self.heads[self.final_pred_head](feats)
         B, P = xyz.shape[:2]
         mlp_out = mlp_out.reshape(B, P, -1, mlp_out.shape[-1]).mean(2)
+        if not self.cfg.sample_color:
+            rgb = torch.sigmoid(mlp_out[..., 1:4])
+            return rgb, invalid_features.to(rgb.dtype), torch.relu(mlp_out[..., 0].float()), None
         sigma = F.softplus(mlp_out[..., 0].float())
-        dino = mlp_out[..., 1:]
+        dino = mlp_out[..., 1:] if self.cfg.predict_dino else None
         if only_density:
             return None, invalid_features.float(), sigma, dino
         colors, invalid_colors = self.sample_colors(state, xyz)

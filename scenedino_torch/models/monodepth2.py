@@ -10,7 +10,9 @@ encoder normalizes its [0, 1] input uniformly, (x - 0.45) / 0.225, and
 its batch norms are frozen: a per-channel affine of stored statistics
 (`mean`, `var`), which are parameters as in the reference's tree. The
 whole model is the stage-1 step's uncertainty predictor
-(`SceneField(uncertainty_predictor=...)`).
+(`SceneField(uncertainty_predictor=...)`) and the S4C baseline's
+pixel-aligned encoder (`backbone_util.make_backbone`, the field's
+`encoder`: its scale-0 map is the feature grid, `expand_dim` the identity).
 """
 from __future__ import annotations
 
@@ -168,6 +170,17 @@ class Monodepth2(nn.Module):
     def latent_size(self) -> int:
         return self.d_out
 
-    def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
+    def forward(self, x: torch.Tensor, fold_matrix: Optional[torch.Tensor] = None, ground_truth: bool = False,
+                crops=None) -> List[torch.Tensor]:
+        """The field's encoder call: `ground_truth` and `crops` (a DINO
+        encoder's) change nothing here; there is no conv to fold a
+        `fold_matrix` into, so one raises (`fast_field.encode_prefolded`
+        folds this encoder's grid in two steps)."""
+        if fold_matrix is not None:
+            raise ValueError("a Monodepth2 encoder has no final conv to fold a matrix into")
         outs = self.decoder(self.encoder(x * 0.5 + 0.5))
         return [outs[s] for s in self.scales]
+
+    def expand_dim(self, features: torch.Tensor) -> torch.Tensor:
+        """The identity: a legacy backbone's field features are its own."""
+        return features

@@ -95,7 +95,8 @@ def can_fold(field, head_name: str = "normal_head", head_confs=None) -> bool:
             return False
         if args.get("beta", 0.0) > 0 or args.get("d_latent", 0) > 0:
             return False
-    return list(field.heads.keys()) == [head_name] and isinstance(field.heads[head_name], ResnetFC)
+    head = field.heads[head_name] if list(field.heads.keys()) == [head_name] else None
+    return isinstance(head, ResnetFC) and head.n_blocks == 0
 
 
 def _refuse_unfoldable(field, head_name: str, caller: str) -> None:

@@ -13,10 +13,11 @@ construction (key row n scaled by 1 + 4 n / N; seeds 200 + N, 1, 2, 3;
 shapes (4, 585, 16), (2, 1921, 12), (4, 1921, 12), (4, 2305, 12)) and is
 held, as SDPA is, against the fp32 plain version rounded to bf16
 (`attention_plain`). A case is "at SDPA's error" when the build's error is
-no larger than SDPA's on the same inputs. Then the D = 64 builds are timed
-in turns at the forward's three shapes (phase 2's) for `--rounds` rounds
-(the median CUDA-event time of each round; the spread of the rounds is the
-run-to-run spread), on the card that the first line names.
+no larger than SDPA's on the same inputs. Then the builds are timed in
+turns, D = 64 at the forward's three shapes (phase 2's) and D = 80 at
+(2, 1921, 12, 80) with the log-sum-exp and (4, 1921, 12, 80), for
+`--rounds` rounds (the median CUDA-event time of each round; the spread of
+the rounds is the run-to-run spread), on the card that the first line names.
 """
 from __future__ import annotations
 
@@ -33,6 +34,7 @@ from scenedino_torch.utils.timing import card_line, time_ms
 SWEEP = ((4, 585, 16), (2, 1921, 12), (4, 1921, 12), (4, 2305, 12))
 SEEDS = (1, 2, 3)
 BUILDS = {"as built": {}, "l from bf16 P": {"K1_L_FROM_BF16": 1}, "exact rescale": {"K1_RESCALE_SLACK": 0}}
+TIMED = {64: FWD_SHAPES, 80: (((2, 1921, 12, 80), True), ((4, 1921, 12, 80), False))}
 SOURCES = {64: ("attention.cu", "attention_fwd"), 80: ("attention_d80.cu", "attention_d80_fwd")}
 
 
@@ -77,16 +79,17 @@ def main() -> None:
         print(f"D = {D}, {len(rows)} cases: {json.dumps(summary)}", flush=True)
 
     times = {}
-    for shape, with_lse in FWD_SHAPES:
-        g = torch.Generator(device="cuda").manual_seed(0)
-        q, k, v = (torch.randn(*shape, generator=g, device="cuda").to(torch.bfloat16) for _ in range(3))
-        per = {name: [] for name in BUILDS}
-        for _ in range(args.rounds):
-            for name in BUILDS:
-                per[name].append(time_ms(lambda: fwds[64, name](q, k, v, with_lse), reps=50))
-        times[f"{tuple(shape)}{' lse' if with_lse else ''}"] = {
-            name: {"median": sorted(t)[len(t) // 2], "min": min(t), "max": max(t)} for name, t in per.items()}
-    print(f"D = 64 forward ms, {args.rounds} rounds in turns (median of 50 CUDA-event times each): "
+    for D, shapes in TIMED.items():
+        for shape, with_lse in shapes:
+            g = torch.Generator(device="cuda").manual_seed(0)
+            q, k, v = (torch.randn(*shape, generator=g, device="cuda").to(torch.bfloat16) for _ in range(3))
+            per = {name: [] for name in BUILDS}
+            for _ in range(args.rounds):
+                for name in BUILDS:
+                    per[name].append(time_ms(lambda: fwds[D, name](q, k, v, with_lse), reps=50))
+            times[f"{tuple(shape)}{' lse' if with_lse else ''}"] = {
+                name: {"median": sorted(t)[len(t) // 2], "min": min(t), "max": max(t)} for name, t in per.items()}
+    print(f"forward ms, {args.rounds} rounds in turns (median of 50 CUDA-event times each): "
           f"{json.dumps(times)}", flush=True)
     print(card_line(), flush=True)
 

@@ -11,9 +11,9 @@ directories: `training_checkpoint_<it>.pt` (the newest one kept)
 and `<metric>_best_<it>.pt` (one per metric). Log records carry their
 numbers as attributes (`losses`, `data_ms`, `step_ms` of a step, where
 step_ms counts the steps since the last log up to their losses on the
-host; `validator`, `metrics` (scalars), `arrays` (the other values), `ms`
-of a validation; `checkpoint`, `ms` of a write) for a caller that reads
-them.
+host; `validator`, `metrics` (scalars), `arrays` (the other values but
+the "images" panels, which go to TensorBoard), `ms` of a validation;
+`checkpoint`, `ms` of a write) for a caller that reads them.
 """
 from __future__ import annotations
 
@@ -71,6 +71,13 @@ class MetricLogger:
             except (TypeError, ValueError):
                 pass
 
+    def images(self, tag: str, values: Dict[str, Any], step: int):
+        """(H, W, 3) float panels in [0, 1] (the reference's VisualizationHandler)."""
+        if self.writer is None:
+            return
+        for k, v in values.items():
+            self.writer.add_image(f"{tag}/{k}", np.asarray(v), step, dataformats="HWC")
+
     def close(self):
         if self.writer is not None:
             self.writer.close()
@@ -126,9 +133,11 @@ def run_validation(field, state, it: int, validators: Dict[str, Any], generator:
         t0 = time.perf_counter()
         metrics = v(state, generator)
         ms = (time.perf_counter() - t0) * 1e3
-        scalars = {k: m for k, m in metrics.items() if np.ndim(m) == 0}
-        arrays = {k: m for k, m in metrics.items() if np.ndim(m) > 0}
+        panels = metrics.get("images", {})
+        scalars = {k: m for k, m in metrics.items() if k != "images" and np.ndim(m) == 0}
+        arrays = {k: m for k, m in metrics.items() if k != "images" and np.ndim(m) > 0}
         tb.scalars(f"val/{name}", scalars, it)
+        tb.images(f"val/{name}", panels, it)
         logger.info("val[%s] iter %d (%.1f ms): %s", name, it, ms, {k: round(float(x), 5) for k, x in scalars.items()},
                     extra={"validator": name, "iteration": it, "metrics": scalars, "arrays": arrays, "ms": ms})
         sb = getattr(v, "save_best", None)

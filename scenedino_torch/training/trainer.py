@@ -24,8 +24,7 @@ Every random draw of a step is an explicit input (`Stage1Draws`);
 distributions. The loss/render frame split is the RealEstate10K recipe's
 for "alternate" (one coin for the sample: the even or the odd frames give
 the loss) and the KITTI-360 recipe's (a coin per stereo pair) for every
-other name, as in the JAX step. Not ported yet: the occupancy probe of the
-validation render.
+other name, as in the JAX step.
 """
 from __future__ import annotations
 
@@ -330,11 +329,11 @@ def stage1_eval_forward(field: SceneField, batch: Dict[str, torch.Tensor], cfg: 
     first, then fine, then crops) where not given. JAX's own validation
     render draws no crops and raises on that teacher. Returns depth (B, V, H, W), rgb
     (B, V, H, W, Vr, 3), dino_pred_grid / dino_gt_grid (B, V, Gh, Gw, Cd),
-    imgs_gt (B, V, 3, H, W) in [0, 1], projs (B, V, 3, 3) and, with
-    `batch["depths"]`, depths_gt.
+    imgs_gt (B, V, 3, H, W) in [0, 1], projs (B, V, 3, 3), with
+    `batch["depths"]` depths_gt and, with `batch["occ_pts"]` (B, ..., 3),
+    occ_densities (B, P): the field's density at those points
+    (wrapper.py create_occ_eval:128-183).
     """
-    if "occ_pts" in batch:
-        raise NotImplementedError("the occupancy probe of the validation render is not ported yet")
     imgs, poses, projs = batch["imgs"], batch["poses"], batch["projs"]
     B, V, _, H, W = imgs.shape
     n_rays = B * V * H * W
@@ -372,6 +371,8 @@ def stage1_eval_forward(field: SceneField, batch: Dict[str, torch.Tensor], cfg: 
     }
     if "depths" in batch:
         data["depths_gt"] = batch["depths"]
+    if "occ_pts" in batch:
+        data["occ_densities"] = field(state, batch["occ_pts"].reshape(B, -1, 3).float(), only_density=True)[2]
     return data
 
 

@@ -6,11 +6,11 @@ write-back of the validation's pseudo assignment into the cluster heads.
 
 A `Validator` runs `fn(state, generator) -> metrics` every `every`
 iterations; stage 1's metrics are flat scalars named "<type>_<metric>"
-(`depth_abs_rel`, `dino_cos_sim`, `nvs_psnr`, ...); stage 2's are
-"<head>_<score>" (`stego_cluster_weighted_miou`, ...) with the assignments
-and confusion matrices as arrays and the STEGO correlations concatenated.
-The TensorBoard image panels of the reference (`eval/vis2d.tb_visualize`)
-are not ported yet: no "images" key is returned.
+(`depth_abs_rel`, `dino_cos_sim`, `nvs_psnr`, `occ_o_acc`, ...) and, under
+"images", the TensorBoard panels of the first batch
+(`eval.vis2d.tb_visualize`); stage 2's are "<head>_<score>"
+(`stego_cluster_weighted_miou`, ...) with the assignments and confusion
+matrices as arrays and the STEGO correlations concatenated.
 """
 from __future__ import annotations
 
@@ -25,6 +25,7 @@ import torch
 from scenedino_torch.core.geometry import distance_to_z
 from scenedino_torch.eval.metrics import (
     SEG_CLASS_WEIGHTS,
+    compute_occ_metrics_visible,
     depth_metrics,
     dino_cosine_similarity,
     evaluate_confusion,
@@ -161,10 +162,12 @@ def compute_dino_metrics(data: Dict[str, Any]) -> Dict[str, float]:
     }
 
 
-def compute_nvs_metrics(data: Dict[str, np.ndarray]) -> Dict[str, float]:
+def compute_nvs_metrics(data: Dict[str, np.ndarray], lpips_fn: Optional[Callable] = None) -> Dict[str, float]:
     """Novel-view quality of the stereo frame (the middle view) of the first
-    item, 5 % border crop: PSNR and skimage SSIM. No LPIPS: its weights do
-    not ship."""
+    item, 5 % border crop: PSNR, skimage SSIM and, given `lpips_fn` (such as
+    `eval.lpips.load_lpips`'s module: NCHW images -> (B,) distances), LPIPS.
+    As the reference does (metrics.py:185), LPIPS sees the [0, 1] images
+    unchanged, though its scaling layer expects [-1, 1]."""
     if "rgb" not in data:
         return {}
     rgb = np.asarray(data["rgb"], np.float32)  # (B, V, H, W, Vr, 3)
@@ -175,7 +178,16 @@ def compute_nvs_metrics(data: Dict[str, np.ndarray]) -> Dict[str, float]:
     y0, y1 = int(math.ceil(0.05 * h)), int(math.floor(0.95 * h))
     x0, x1 = int(math.ceil(0.05 * w)), int(math.floor(0.95 * w))
     pred, gt = pred[:, y0:y1, x0:x1], gt[:, y0:y1, x0:x1]
-    return {"psnr": float(psnr(pred, gt)), "ssim": ssim_skimage(pred[0], gt[0], data_range=1.0)}
+    out = {"psnr": float(psnr(pred, gt)), "ssim": ssim_skimage(pred[0], gt[0], data_range=1.0)}
+    if lpips_fn is not None:
+        device = next(lpips_fn.parameters()).device if isinstance(lpips_fn, torch.nn.Module) else "cpu"
+
+        def nchw(x):  # on the LPIPS module's device
+            return torch.from_numpy(np.ascontiguousarray(x.transpose(0, 3, 1, 2))).to(device)
+
+        with torch.no_grad():
+            out["lpips"] = float(lpips_fn(nchw(pred), nchw(gt)).float().mean())
+    return out
 
 
 def compute_seg_confusions(seg_data: Dict, target, n_classes: int, gt_classes: int) -> Dict[str, np.ndarray]:
@@ -237,21 +249,26 @@ def _to_host(data: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
 
 
 def make_stage1_validator(name: str, val_cfg: dict, field, tcfg, rcfg,
-                          batches_fn: Callable[[], Iterable]) -> Validator:
+                          batches_fn: Callable[[], Iterable], lpips_fn: Optional[Callable] = None) -> Validator:
     """Stage-1 validator: `stage1_eval_forward` over each batch, then the
-    depth, dino and nvs metrics the config lists (configs/validation/
-    scenedino.yaml; save_best on dino_cos_sim). Batches are dicts of
-    tensors on the field's device."""
+    depth, dino, nvs and occ metrics the config lists (configs/validation/
+    scenedino.yaml; save_best on dino_cos_sim) and, under "images", the
+    panels of the first batch's first item. Batches are dicts of tensors on
+    the field's device; the occupancy metric reads a batch's `occ_pts`,
+    `is_occupied` and `is_visible` (wrapper.py create_occ_eval:128-183,
+    the density above the metric's `occ_threshold`, 0.5 by default).
+    `lpips_fn` adds LPIPS to the nvs metrics (the JAX validator passes
+    none)."""
+    from scenedino_torch.eval.vis2d import tb_visualize
     from scenedino_torch.training.trainer import stage1_eval_forward
 
     metrics_conf = val_cfg.get("metrics", []) or []
     metric_types = [m["type"] for m in metrics_conf]
     metric_args = {m["type"]: (m.get("args") or {}) for m in metrics_conf}
-    if "occ" in metric_types:
-        raise NotImplementedError("the occupancy metric of the validation render is not ported yet")
 
     def run(state, generator: torch.Generator) -> Dict[str, Any]:
-        accs = {t: DictMeanAccumulator(t) for t in metric_types if t in ("depth", "dino", "nvs")}
+        accs = {t: DictMeanAccumulator(t) for t in metric_types if t in ("depth", "dino", "nvs", "occ")}
+        panels = None
         for batch in batches_fn():
             out = stage1_eval_forward(field, batch, tcfg, rcfg, generator=generator)
             if "dino" in accs:  # on the device: the grids never go to the host
@@ -260,10 +277,26 @@ def make_stage1_validator(name: str, val_cfg: dict, field, tcfg, rcfg,
             if "depth" in accs:
                 accs["depth"].update(compute_depth_metrics(data, **metric_args.get("depth", {})))
             if "nvs" in accs:
-                accs["nvs"].update(compute_nvs_metrics(data))
+                accs["nvs"].update(compute_nvs_metrics(data, lpips_fn))
+            if "occ" in accs and "occ_densities" in data:
+                thr = metric_args.get("occ", {}).get("occ_threshold", 0.5)
+                occ = compute_occ_metrics_visible(data["occ_densities"] > thr, batch["is_occupied"],
+                                                  batch["is_visible"])
+                accs["occ"].update({k: float(v) for k, v in occ.items()})
+            if panels is None:  # the reference logs its visualization of each validation (base_trainer.py:368-378)
+                panels = tb_visualize({
+                    "imgs": batch["imgs"][0],
+                    "depth": data["depth"][0, 0],
+                    "rgb": data["rgb"][0, 0, :, :, 0, :],
+                    "rgb_gt": data["imgs_gt"][0, 0].transpose(1, 2, 0),
+                    "dino_features": out["dino_pred_grid"][0, 0],
+                    "dino_gt": out["dino_gt_grid"][0, 0],
+                })
         metrics: Dict[str, Any] = {}
         for acc in accs.values():
             metrics.update(acc.compute())
+        if panels:
+            metrics["images"] = panels
         return metrics
 
     return Validator(name=name, fn=run, every=_events_every(val_cfg),

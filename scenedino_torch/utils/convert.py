@@ -17,6 +17,10 @@ the simple-feature-pyramid decoder, `Monodepth2Decoder_0` -> `monodepth2`
 and a conv block's `Conv_0` -> `conv`. Monodepth2's frozen batch norms
 (`models.monodepth2.FrozenBatchNorm`: scale, bias and the stored mean and
 var, all in the "params" collection) map by name, the scale to `weight`.
+The field heads' residual blocks (`block_<i>/fc_0`, `fc_1`, `shortcut`),
+latent layers (`lin_z_<i>`) and the "mlp" ImplicitNet's `lin_<i>`, the
+S4C field's Monodepth2 encoder and LPIPS (`trunk/conv<j>`, the heads
+`lin<k>`) keep their JAX names.
 The mapping is strict: every leaf maps to one port tensor. A serving
 model holds no training-only subtree (TRAINING_ONLY: the frozen teacher,
 the FeatUp downsampler, the 64 -> 768 expansion); `load_jax_params`

@@ -137,15 +137,18 @@ def test_learned_empty_feature_and_orthogonal_expansion_match_reference():
     batch = _batch(4)
     jb, tb = _jbatch(batch), _tbatch(batch)
     kw = dict(ids_encoder=(0, 1), ids_render=(2,))
-    jstate = jfield.apply(params, jb["imgs"], jb["projs"], jb["poses"], method=JSceneField.encode, **kw)
     with torch.no_grad():
         state = model.encode(tb["imgs"], tb["projs"], tb["poses"], **kw)
         # points in front of the cameras and behind them: the latter are outside every view
         xyz = np.random.default_rng(5).uniform([-4, -2, -20], [4, 2, 30], size=(2, 64, 3)).astype(np.float32)
         rgb, invalid, sigma, dino = model(state, _t(xyz))
         full = model.expand_dim(dino)
-    jrgb, jinvalid, jsigma, jdino = jfield.apply(params, jstate, jnp.asarray(xyz))
-    jfull = jfield.apply(params, jdino, method=JSceneField.expand_dim)
+    def jquery(p, imgs, projs, poses, pts):  # compiled once: op by op the encode takes most of the test
+        out = jfield.apply(p, jfield.apply(p, imgs, projs, poses, method=JSceneField.encode, **kw), pts)
+        return out + (jfield.apply(p, out[3], method=JSceneField.expand_dim),)
+
+    jrgb, jinvalid, jsigma, jdino, jfull = jax.jit(jquery)(params, jb["imgs"], jb["projs"], jb["poses"],
+                                                           jnp.asarray(xyz))
     assert 0 < invalid.mean() < 1  # both kinds of points are present
     np.testing.assert_array_equal(invalid.numpy(), np.asarray(jinvalid))
     for name, a, b in (("rgb", rgb, jrgb), ("sigma", sigma, jsigma), ("dino", dino, jdino), ("768", full, jfull)):
@@ -160,8 +163,8 @@ def test_dinov2_field_encode_matches_reference():
     batch = _batch(6)
     jb, tb = _jbatch(batch), _tbatch(batch)
     kw = dict(ids_encoder=(0,), ids_render=(1,), ids_loss=(0, 3))
-    ref = jfield.apply(params, jb["imgs"], jb["projs"], jb["poses"], with_loss_feats=True,
-                       method=JSceneField.encode, **kw)
+    ref = jax.jit(lambda p, i, k, c: jfield.apply(p, i, k, c, with_loss_feats=True, method=JSceneField.encode,
+                                                  **kw))(params, jb["imgs"], jb["projs"], jb["poses"])
     with torch.no_grad():
         state = model.encode(tb["imgs"], tb["projs"], tb["poses"], with_loss_feats=True, **kw)
     assert state.loss_feats.shape == (2, 2, 64, 2, 4)

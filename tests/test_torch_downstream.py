@@ -270,10 +270,11 @@ def _heads(mode: str):
     jhead = jds.SemanticHead(cfg=jds.SemanticHeadConfig(**conf))
     k = jax.random.PRNGKey(0)
     C, P = conf["input_dim"], conf["patch_sample_size"]
-    variables = jhead.init({"params": k, "dropout": k}, jnp.zeros((1, 1, 16, 16, 1, C)),
-                           jds.RingBufferState.create(conf["buffer_size"], P, C), k,
-                           crop_features=jnp.zeros((2, P, C)), seg_target=jnp.zeros((1, 16, 16), jnp.int32),
-                           deterministic=True, method=jds.SemanticHead.forward_training)
+    variables = jax.jit(lambda: jhead.init(  # compiled once: op by op the init takes ~10 s
+        {"params": k, "dropout": k}, jnp.zeros((1, 1, 16, 16, 1, C)),
+        jds.RingBufferState.create(conf["buffer_size"], P, C), k, crop_features=jnp.zeros((2, P, C)),
+        seg_target=jnp.zeros((1, 16, 16), jnp.int32), deterministic=True,
+        method=jds.SemanticHead.forward_training))()
     rng = np.random.default_rng(11)
 
     def draw(path, leaf):
@@ -384,9 +385,12 @@ def _run_both(mode, deterministic, filled, seed=14, with_target=True):
                            crop_valid=None if crop_valid is None else jnp.asarray(crop_valid),
                            method=jds.SemanticHead.forward_training, rngs={"dropout": kd}, mutable=["state"])
 
-    with dropout_masks() as masks:
-        (jseg, jbuf), _ = japply(jvars["params"])
-        rgrad = jax.grad(lambda p: jstego.stego_loss(japply(p)[0][0])["total_loss"])(jvars["params"])
+    def jloss(params):
+        out = japply(params)[0]
+        return jstego.stego_loss(out[0])["total_loss"], out
+
+    with dropout_masks() as masks:  # one pass: the forward's outputs ride along the gradient
+        (_, (jseg, jbuf)), rgrad = jax.value_and_grad(jloss, has_aux=True)(jvars["params"])
     n_crops = 3 if three_d else 5 * n
     calls = 4 if three_d else 3
     pick, u = _head_draws(key, n_crops, conf["knn_neighbors"], int(jbuf.filled))

@@ -139,9 +139,9 @@ def test_stage1_eval_forward_draws_and_refusals(models):
     batch = {k: _t(v) for k, v in _eval_batch(5, 1).items()}
     with pytest.raises(ValueError, match="draws"):
         trainer.stage1_eval_forward(model, batch, tt, tr)
-    with pytest.raises(NotImplementedError, match="occupancy"):
-        trainer.stage1_eval_forward(model, {**batch, "occ_pts": torch.zeros(1, 8, 3)}, tt, tr,
-                                    generator=torch.Generator())
+    occ = trainer.stage1_eval_forward(model, {**batch, "occ_pts": torch.zeros(1, 2, 4, 3)}, tt, tr,
+                                      generator=torch.Generator())  # the occupancy probe (tests/test_torch_occ.py)
+    assert occ["occ_densities"].shape == (1, 8) and bool(torch.isfinite(occ["occ_densities"]).all())
     a = trainer.stage1_eval_forward(model, batch, tt, tr, generator=torch.Generator().manual_seed(1), chunk=1000)
     b = trainer.stage1_eval_forward(model, batch, tt, tr, generator=torch.Generator().manual_seed(1))
     torch.testing.assert_close(a["depth"], b["depth"], rtol=1e-6, atol=1e-6)  # chunking changes nothing
@@ -182,7 +182,7 @@ def test_image_and_feature_metrics_match_reference():
 
 def test_stage1_validator_matches_reference(models, monkeypatch):
     """Two batches of one item each: the reference's validator (its panels
-    aside) against the port's, the port's render fed the draws the
+    aside but for their names) against the port's, the port's render fed the draws the
     reference's validator derives from its key."""
     jfield, params, model = models
     jt, tt, jr, tr = _configs()
@@ -191,7 +191,7 @@ def test_stage1_validator_matches_reference(models, monkeypatch):
     jv = jvalidation.make_stage1_validator("validation", VAL_CFG, jfield, jt, jr,
                                            lambda: iter([{k: jnp.asarray(v) for k, v in b.items()} for b in batches]))
     ref = jv(types.SimpleNamespace(params=params), key)
-    ref.pop("images")
+    jvalidation_panels = ref.pop("images")
 
     draws = []
     k = key
@@ -209,6 +209,7 @@ def test_stage1_validator_matches_reference(models, monkeypatch):
     assert v.every == jv.every == 7 and v.save_best == validation.SaveBestConfig("dino_cos_sim", 1.0)
     out = v(None, torch.Generator())
     assert not draws
+    assert sorted(out.pop("images")) == sorted(jvalidation_panels)  # the panels: tests/test_torch_vis2d.py
     assert sorted(out) == sorted(ref)
     for name, r in ref.items():
         np.testing.assert_allclose(out[name], float(r), rtol=1e-4, atol=1e-7, err_msg=name)

@@ -316,6 +316,7 @@ def test_probe_weights_kernel_matches_plain(cuda, K, D, cfg):
     (128, 65, PointRenderConfig()),
     (16, 9, PointRenderConfig(code_mode="distance", inv_z=False)),
     (8, 2, PointRenderConfig(num_freqs=4, include_input=False)),
+    (64, 20, PointRenderConfig()),  # the S4C baseline's field (d_hidden 64, 19 logits)
 ])
 def test_point_query_kernel_matches_plain(cuda, D, E, cfg):
     rays, z, grid, w_code, b1, w2, b2, fw, fk = _k2_inputs(cuda, 24, 40, 8, D, E, cfg, seed=D)[:9]

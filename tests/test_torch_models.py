@@ -161,8 +161,9 @@ def test_resnetfc_matches_reference():
     load_jax_params(model, params["params"])
     np.testing.assert_allclose(model(_t(x)).detach().numpy(), np.asarray(jmodel.apply(params, jnp.asarray(x))),
                                atol=1e-5, rtol=1e-5)
+    assert heads.make_head({"type": "resnet", "args": {"n_blocks": 2}}, 20, 9).n_blocks == 2  # tests/test_torch_s4c.py
     with pytest.raises(NotImplementedError):
-        heads.make_head({"type": "resnet", "args": {"n_blocks": 2}}, 20, 9)
+        heads.make_head({"type": "MultiViewHead"}, 20, 9)
 
 
 def test_flagship_config_is_the_references():

@@ -106,8 +106,9 @@ def test_the_evaluated_v2_field_matches_the_jax_field(checkpoints):
     jfield, params = checkpoints["v2-jax"]
     b = _batch(3)
     imgs, projs, poses = b["imgs"][:1, :2], b["projs"][:1, :2], b["poses"][:1, :2]
-    ref = jfield.apply(params, jnp.asarray(imgs), jnp.asarray(projs), jnp.asarray(poses), ids_encoder=(0,),
-                       with_loss_feats=True, method=JSceneField.encode)
+    ref = jax.jit(lambda p, i, k, c: jfield.apply(p, i, k, c, ids_encoder=(0,), with_loss_feats=True,
+                                                  method=JSceneField.encode))(
+        params, jnp.asarray(imgs), jnp.asarray(projs), jnp.asarray(poses))
     with torch.no_grad():
         state = field.encode(*(torch.from_numpy(a) for a in (imgs, projs, poses)), ids_encoder=(0,),
                              with_loss_feats=True)

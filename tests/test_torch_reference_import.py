@@ -344,12 +344,14 @@ def test_field_from_a_reference_checkpoint_matches_the_jax_field(converted, tmp_
     imgs = rng.uniform(-1, 1, size=(1, 1, 3, *IMG)).astype(np.float32)
     ks = np.array([[[[1.2, 0, 0], [0, 2.4, 0], [0, 0, 1]]]], np.float32)
     poses = np.eye(4, dtype=np.float32)[None, None]
-    jstate = jfield.apply(variables, jnp.asarray(imgs), jnp.asarray(ks), jnp.asarray(poses), ids_encoder=(0,),
-                          method=JSceneField.encode)
     pts = np.stack(np.meshgrid(np.linspace(-6, 6, 8), np.linspace(-2, 2, 4), np.linspace(4, 40, 8),
                                indexing="ij"), -1).reshape(1, -1, 3).astype(np.float32)
-    jdino, jsigma, jseg = jfield.apply(variables, jstate, jnp.asarray(pts), mode="stego_kmeans",
-                                       method=JSceneField.query_segmentation)
+
+    def jquery(v, i, k, c, x):  # compiled once: op by op the encode takes most of the test
+        state = jfield.apply(v, i, k, c, ids_encoder=(0,), method=JSceneField.encode)
+        return state, jfield.apply(v, state, x, mode="stego_kmeans", method=JSceneField.query_segmentation)
+
+    jstate, (jdino, jsigma, jseg) = jax.jit(jquery)(variables, *(jnp.asarray(a) for a in (imgs, ks, poses, pts)))
     with torch.no_grad():
         state = model.encode(*(torch.from_numpy(a) for a in (imgs, ks, poses)), ids_encoder=(0,))
         dino, sigma, seg = model.query_segmentation(state, torch.from_numpy(pts), head)

@@ -161,8 +161,9 @@ def test_seg2d_evaluator_crf_rows(evaluators):
         assert torch.equal(preds[mode], plain[mode])
         probs = dense_crf(torch.clamp(rendered[2], 0, 1), torch.eye(5)[preds[mode]])
         assert torch.equal(preds[mode + "_crf"], torch.argmax(probs, -1))
-    with pytest.raises(NotImplementedError, match="window CRF only"):
-        Seg2DEvaluator(field=ours.field, head=ours.head, crf_method="exact")
+    assert Seg2DEvaluator(field=ours.field, head=ours.head, crf_method="exact").crf_method == "exact"
+    with pytest.raises(ValueError, match="crf_method"):
+        Seg2DEvaluator(field=ours.field, head=ours.head, crf_method="lattice")
 
 
 def test_fast_render_condition(evaluators):

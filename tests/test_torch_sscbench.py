@@ -181,8 +181,9 @@ def headed(setup):  # noqa: F811
     jfield = j_make_model(MODEL, downstream=JSemanticHead(cfg=JSemanticHeadConfig(**HEAD)))
     variables = {"params": {**setup["params"]["params"], "downstream": setup["hvars"]["params"]},
                  "state": {"downstream": setup["hvars"]["state"]}}
-    jstate = jfield.apply(variables, jnp.asarray(imgs), jnp.asarray(projs), jnp.asarray(poses), ids_encoder=(0,),
-                          ids_render=(0,), method=JSceneField.encode)
+    jstate = jax.jit(lambda v, i, k, c: jfield.apply(v, i, k, c, ids_encoder=(0,), ids_render=(0,),  # once
+                                                     method=JSceneField.encode))(
+        variables, jnp.asarray(imgs), jnp.asarray(projs), jnp.asarray(poses))
     head = SemanticHead(SemanticHeadConfig(**HEAD))
     load_jax_head(head, setup["hvars"])
     head.eval()
@@ -371,7 +372,11 @@ def test_accumulated_counts_cover_the_valid_voxels(grids):
 
 @pytest.mark.parametrize("flags,item", [(["--mode", "s4c"], "item 9")])
 def test_cli_refuses_what_is_not_ported(flags, item):
-    with pytest.raises(NotImplementedError, match=item):
+    """What the CLI once refused (`--mode s4c`, ROADMAP queue 1 `item`) now
+    runs: it builds the S4C field and reads its checkpoint, so a missing
+    one raises FileNotFoundError naming it (tests/test_torch_s4c.py
+    evaluates with one)."""
+    with pytest.raises(FileNotFoundError, match="no S4C checkpoint at 'x'"):
         evaluate_sscbench.main(["--data", "x", "--voxel-gt", "x", "--ckpt", "x", "--device", "cpu"] + flags)
 
 

@@ -102,10 +102,10 @@ def setup():
     model.eval().requires_grad_(False)
     jhead = jds.SemanticHead(cfg=jds.SemanticHeadConfig(**HEAD))
     k = jax.random.PRNGKey(0)
-    variables = jhead.init({"params": k, "dropout": k}, jnp.zeros((1, 1, H, W, 1, 64)),
-                           jds.RingBufferState.create(10, 8, 64), k, crop_features=jnp.zeros((3, 8, 64)),
-                           seg_target=jnp.zeros((1, H, W), jnp.int32), deterministic=True,
-                           method=jds.SemanticHead.forward_training)
+    variables = jax.jit(lambda: jhead.init(  # compiled once: op by op the init takes ~10 s
+        {"params": k, "dropout": k}, jnp.zeros((1, 1, H, W, 1, 64)), jds.RingBufferState.create(10, 8, 64), k,
+        crop_features=jnp.zeros((3, 8, 64)), seg_target=jnp.zeros((1, H, W), jnp.int32), deterministic=True,
+        method=jds.SemanticHead.forward_training))()
     rng = np.random.default_rng(3)
     hparams = jax.tree_util.tree_map(lambda x: jnp.asarray(rng.normal(size=x.shape).astype(np.float32)
                                                            / np.sqrt(x.shape[0] if x.ndim == 2 else 10)),

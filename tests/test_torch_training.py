@@ -592,15 +592,18 @@ def test_training_entry_points_refuse_the_cpu_without_a_device():
 
 
 def test_unported_options_raise(models):
-    """The research branches, accumulation and the schedule now build;
-    the occupancy probe of the validation render stays unported."""
+    """The research branches, accumulation, the schedule and the occupancy
+    probe of the validation render now build or run."""
     _, _, model = models
     for kw in ({"predict_uncertainty": True}, {"predict_consistency": True}, {"gradient_accum_factor": 2},
                {"debug_stats": True}, {"loss_renderer_strategy": "stereo_view"}):
         assert callable(trainer.make_train_step(model, trainer.TrainConfig(**kw), RenderConfig(),
                                                 rec.ReconstructionLossConfig()))
-    with pytest.raises(NotImplementedError):  # the occupancy probe of the validation render
-        trainer.stage1_eval_forward(model, {"occ_pts": torch.zeros(1, 8, 3)}, trainer.TrainConfig(), RenderConfig())
+    batch = {k: v[:1] for k, v in _tbatch(_batch()).items()}
+    batch["occ_pts"] = torch.zeros(1, 8, 3)  # the occupancy probe of the validation render
+    out = trainer.stage1_eval_forward(model, batch, trainer.TrainConfig(), RenderConfig(n_coarse=2),
+                                      generator=torch.Generator(), chunk=8192)
+    assert out["occ_densities"].shape == (1, 8)
     # the reference's ScheduledTrainStep: the config maps, the schedule is the caller's
     assert trainer.configs_from_dict({"model": MODEL, "renderer": {"sched": [[10], [16], [0]]}})[2].n_coarse == 32
 
