@@ -306,8 +306,24 @@ Phases, one line each:
              two 192x640 depth frames rendered by K2 fused into a TSDF volume
              on the card and on the CPU (weights equal, TSDF within 1e-5), a
              surface PLY
+  17 rest    the port's last slice: 17a cli.sweep.run_sweep (random
+             backend) over configs/train_synthetic_flagship.yaml at full
+             width, 2 trials of 3 steps and one validation each (cuts
+             printed): each trial's drawn lr, status and best score, the K1
+             forward / dq / dkv launches against what the steps and
+             validations need; 17b one stage-1 step of that config's field
+             with a MultiViewHead over 2 encode views at 192x640 (a finite
+             loss, every head parameter a gradient, K1's launches), then the
+             four multi-view head types at a small width on the card and on
+             the CPU with the same weights (fp32, MVH_TOL); 17c
+             cli.demo_gradio.demo_run with phase 7's run at 192x640 in each
+             of the five modes (panel, occupied voxels, 12 K1 launches each)
+             and its voxel guard; 17d RAFT (12 iterations) and both pixelNeRF
+             encoders with seeded weights on the card and on the CPU (fp32,
+             RAFT_TOL, PIXELNERF_TOL); the phase's wall time against its
+             120 s target
   kernels    one JSON line: launches (all serving paths, training, the
-             train run, stage 2, evaluation, phases 9-16 together), error, times and
+             train run, stage 2, evaluation, phases 9-17 together), error, times and
              bound per kernel; the K1 forward's, K4's and K6's also at
              their shapes ("shapes": K4 at the evaluation's block, K6 at
              the 2D evaluator's fp32 frame; phase 9's holds of K1, K2, K4
@@ -4599,14 +4615,28 @@ def phase_validator(seed, stage1_dir, scratch):
     diffs = _validator_diffs(*runs)
     occ_equal = all(runs[0][0][k] == runs[1][0][k] for k in runs[1][0] if k.startswith("occ_"))
     levels = {k: v for k, v in diffs["panel_levels"].items() if k != "dino_kmeans"}
+    # depth_a1-a3 are shares of view 0's pixels whose depth ratio to the ground truth lies under 1.25^k: a
+    # pixel whose ratio lies within the devices' depth difference of a threshold counts on either side, so
+    # those shares may differ by the share of such pixels (eval.metrics.depth_metrics, no scaling)
+    pred = runs[1][2]["depth"][:, 0].clamp_min(1e-3)
+    gt = small["depths"].reshape(pred.shape[0], -1, *pred.shape[1:])[:, 0].float()
+    ratio = torch.maximum(gt / pred, pred / gt.clamp_min(1e-8))[gt > 0]
+    n_px = max(ratio.numel(), 1)
+    ties = {f"depth_a{k}": int(((ratio - 1.25 ** k).abs() <= 2 * diffs["depth_rel"] * ratio).sum()) for k in (1, 2, 3)}
+    shares = {m: abs(runs[0][0][m] - runs[1][0][m]) * n_px for m in ties}
     print(f"phase 16a fp32 at {h}x{w}, the card against the CPU (the same draws; the ViT's plain attention at "
           f"{1 + (h // 8) * (w // 8)} tokens; cuDNN's convolutions, TF32 off): {json.dumps(diffs)} (bounds: the "
-          f"render's depth relative and rgb absolute {VAL_REL}, each metric relative {VAL_REL}, the occupancy metrics "
-          f"equal: {occ_equal}; each panel within one level, the k-means map, whose labels can flip where two "
-          f"clusters tie within round-off, by its share of pixels within one level >= 0.95)", flush=True)
+          f"render's depth relative and rgb absolute {VAL_REL}, each metric relative {VAL_REL}, the threshold shares "
+          f"depth_a1-a3 by at most the pixels whose ratio lies within twice the depth difference of the threshold "
+          f"({json.dumps({m: round(shares[m], 3) for m in ties})} pixels of {n_px} moved, "
+          f"{json.dumps(ties)} within it), the occupancy metrics equal: {occ_equal}; each panel within one level, the "
+          f"k-means map, whose labels can flip where two clusters tie within round-off, by its share of pixels "
+          f"within one level >= 0.95)", flush=True)
     if (not diffs["keys_equal"] or not occ_equal or max(levels.values()) > 1
             or diffs["panel_within_one"]["dino_kmeans"] < 0.95 or diffs["depth_rel"] > VAL_REL
-            or diffs["rgb_abs"] > VAL_REL or any(r > VAL_REL for r in diffs["metrics_rel"].values())):
+            or diffs["rgb_abs"] > VAL_REL
+            or any(r > VAL_REL and not (m in ties and shares[m] <= ties[m] + 0.01)
+                   for m, r in diffs["metrics_rel"].items())):
         fail("the fp32 validator on the card disagrees with the CPU")
     return counts, field, item
 
@@ -4781,6 +4811,266 @@ def phase_eval_rest(seed, stage1_dir, stage2_dir, ssc_root, city_root, scratch):
     return counts, k4_s4c
 
 
+# phase 17: the sweep's cuts (trials, steps and validation items a trial, its
+# learning-rate range), the multi-view step's head (MultiViewHead, an "ff"
+# embedding to 64, 2 attention layers of 4 heads) over 2 encode views, the four
+# head types at a small width on the card and on the CPU (fp32, TF32 off: the
+# same sums in other orders through at most 3 attention layers and 2 residual
+# blocks), the demo's grid (its sliders' default ranges, x and y +-10 m, z 0-20
+# m, at 0.4 m: at their default 0.2 m the grid is 101^3 > MAX_VOXEL_COUNT and
+# raises in both packages; at 0.2 m over y +-5 the PCA modes' host PCA of
+# 452,344 occupied voxels took most of the phase), RAFT's iterations and the CPU's shape for RAFT and the pixelNeRF
+# encoders, and their fp32 bounds over the largest output (RAFT: 12 recurrent
+# updates of cuDNN against the CPU's convolutions)
+SWEEP_TRIALS, SWEEP_STEPS, SWEEP_VAL_ITEMS, SWEEP_LR = 2, 3, 1, {"min": 1e-5, "max": 3e-4, "log": True}
+MVH_ARGS = {"embedding_encoder": {"type": "ff", "d_out": 64}, "attn_layers": {"n_layers": 2, "n_heads": 4}}
+MVH_HEADS = {
+    "MultiViewHead": {"embedding_encoder": {"type": "pwf", "d_out": 32},
+                      "attn_layers": {"n_layers": 2, "n_heads": 4, "IBRAttn": True},
+                      "independent_token": {"type": "DataViewIndependentToken"}},
+    "SimpleMultiViewHead": {"mlp": {"args": {"n_blocks": 2, "d_hidden": 32}}},
+    "MultiViewHead2": {"mlp": {"args": {"n_blocks": 1, "d_hidden": 32}}, "mlp2": {"d_in": 16, "args": {
+        "n_blocks": 1, "d_hidden": 32}}, "attn_layers": {"n_layers": 1, "n_heads": 4},
+        "independent_token": {"type": "FixedViewIndependentToken"}},
+    "MultiViewHead3": {"mlp": {"args": {"n_blocks": 2, "d_hidden": 32}}, "mlp2": {"d_in": 16, "args": {
+        "n_blocks": 2, "d_hidden": 32}}},
+}
+MVH_POINTS, MVH_VIEWS, MVH_D_IN, MVH_TOL = 8192, 3, 55, 1e-4
+DEMO_GRID = dict(x_range=10.0, y_range=10.0, z_range=20.0, resolution=0.4)
+RAFT_ITERS, RAFT_SIZE, RAFT_TOL = 12, (128, 192), 1e-3
+PIXELNERF_SIZE, PIXELNERF_TOL = (96, 320), 1e-4
+
+
+def phase_sweep(seed, scratch, card):
+    """Phase 17a: cli.sweep.run_sweep (random backend) over
+    configs/train_synthetic_flagship.yaml at full width, SWEEP_TRIALS
+    trials of SWEEP_STEPS steps and one validation each. Returns its launches."""
+    from scenedino_torch.cli import sweep
+    from scenedino_torch.utils import config as yaml_config
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    conf = yaml_config.load(os.path.join(root, "configs", "train_synthetic_flagship.yaml"))
+    out = tempfile.mkdtemp(prefix="sweep_", dir=scratch)
+    conf["dataset"]["length"] = TRAIN_RUN_ITEMS
+    conf["training"].update(stop_iteration=SWEEP_STEPS, log_every=1)
+    vconf = conf["validation"]["validation"]
+    vconf["events"][0]["args"]["every"] = SWEEP_STEPS
+    vconf["subset"]["args"] = {"start": 0, "end": SWEEP_VAL_ITEMS}
+    vconf["save_best"]["dry_run"] = True
+    conf["output"]["path"] = out
+    base = os.path.join(out, "base.yaml")
+    with open(base, "w") as f:
+        f.write(yaml_config.dumps(conf))
+    spec = {"base": base, "trials": SWEEP_TRIALS, "stage": "nvs", "metric": "validation",
+            "params": {"training.optimizer.args.lr": SWEEP_LR}}
+    enc = conf["model"]["encoder"]
+    print(f"phase 17a sweep: cli.sweep.run_sweep, random backend, seed {seed}, over "
+          f"configs/train_synthetic_flagship.yaml read by scenedino_torch.utils.config, every width as the file gives "
+          f"it ({enc['encoder_arch']} {enc['version']} student and teacher, {enc['image_size']}, batch "
+          f"{conf['batch_size']}, {conf['dataset']['n_views']} views, with_amp {conf['with_amp']}); the lr drawn "
+          f"{json.dumps(SWEEP_LR)}; cuts: trials 8 -> {SWEEP_TRIALS}, dataset.length 64 -> {TRAIN_RUN_ITEMS}, "
+          f"stop_iteration {SWEEP_STEPS}, validation every 500 -> {SWEEP_STEPS} over subset 0-{SWEEP_VAL_ITEMS - 1} "
+          f"(file: 0-7), save_best dry_run (no best checkpoint written), log_every 50 -> 1; {card}", flush=True)
+    res = []
+    _, counts, peak, wall = _logged(lambda: res.append(sweep.run_sweep(spec, seed=seed, device="cuda")), ())
+    result = res[0]
+    for t in result["trials"]:
+        print(f"phase 17a trial {t['trial']}: lr {t['training.optimizer.args.lr']:.6e}, status {t['status']}, best "
+              f"validation score (dino_cos_sim) {t['best']:.6f}; {card}", flush=True)
+    depth = 12
+    expect = {"attention": SWEEP_TRIALS * (SWEEP_STEPS * 3 * depth + SWEEP_VAL_ITEMS * 2 * depth),
+              "attention_bwd_dq": SWEEP_TRIALS * SWEEP_STEPS * depth,
+              "attention_bwd_dkv": SWEEP_TRIALS * SWEEP_STEPS * depth}
+    k1 = {k: counts[k] for k in expect}
+    print(f"phase 17a sweep: {wall:.1f} s wall ({SWEEP_TRIALS} model builds, {SWEEP_TRIALS * SWEEP_STEPS} steps, "
+          f"{SWEEP_TRIALS} validations), peak memory allocated {peak:.2f} GiB; best trial {result['best']['trial']}; "
+          f"K1 launches {json.dumps(k1)} (expected {json.dumps(expect)}); {card}", flush=True)
+    if len(result["trials"]) != SWEEP_TRIALS or any(t["status"] not in ("complete", "pruned") or
+                                                    not np.isfinite(t["best"]) for t in result["trials"]):
+        fail(f"the sweep's trials did not all finish with a finite score: {result['trials']}")
+    if k1 != expect or min(k1.values()) == 0:
+        fail(f"the sweep launched {k1}, expected {expect}")
+    return counts
+
+
+def _mvh_inputs(gen, device):
+    x = torch.randn(MVH_POINTS, MVH_VIEWS, MVH_D_IN, generator=gen).to(device)
+    inv = (torch.rand(MVH_POINTS, MVH_VIEWS, generator=gen) < 0.3).to(device)
+    return x, inv
+
+
+def phase_multi_view(seed, card):
+    """Phase 17b: one stage-1 step of the flagship field with a
+    MultiViewHead over 2 encode views at 192x640 on the card (K1 forward,
+    dq, dkv; finite loss, every head parameter a gradient); then the four
+    head types at a small width on the card and on the CPU with the same
+    weights (MVH_TOL). Returns the step's launches."""
+    from scenedino_torch import kernels
+    from scenedino_torch.models.factory import make_model
+    from scenedino_torch.models.heads import make_head
+    from scenedino_torch.training import trainer
+    from scenedino_torch.utils import config as yaml_config
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    conf = yaml_config.load(os.path.join(root, "configs", "train_synthetic_flagship.yaml"))
+    conf["model"]["decoder_heads"] = [{"type": "MultiViewHead", "name": "normal_head", "args": MVH_ARGS}]
+    model_conf, tcfg, rcfg, lcfg = trainer.configs_from_dict(conf)
+    tcfg = dataclasses.replace(tcfg, ids_encoder=(0, 1))
+    torch.cuda.reset_peak_memory_stats()
+    model = make_model(model_conf, device="cuda", seed=seed + 170, training=True)
+    enc = model.encoder
+    gp, depth = enc.gt_patch_size, enc.vit_encoder.vit.cfg.depth
+    g = torch.Generator(device="cuda").manual_seed(seed + 171)
+    state = trainer.init_train_state(model, tcfg, artifact_shape=(enc.teacher.latent_size, H // gp, W // gp),
+                                     generator=g)
+    step = trainer.make_train_step(model, tcfg, rcfg, lcfg)
+    Bt = conf["batch_size"]
+    batch = train_batch(g, Bt, H, W, "cuda")
+    draws = trainer.draw_stage1(g, tcfg, rcfg, Bt, 4, H, W, gp)
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = step(state, batch, draws)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    counts = kernels.launches()
+    loss = float(losses["rec_loss"])
+    head = {n: p for n, p in model.heads.named_parameters()}
+    no_grad = [n for n, p in head.items() if p.grad is None or not bool((p.grad != 0).any())]
+    expect = {"attention": 3 * depth, "attention_bwd_dq": depth, "attention_bwd_dkv": depth}
+    k1 = {k: counts[k] for k in expect}
+    print(f"phase 17b multi-view step: configs/train_synthetic_flagship.yaml's field (ViT-B/8, DPT 256, bf16, "
+          f"remat) with decoder_heads MultiViewHead {json.dumps(MVH_ARGS)} ({sum(p.numel() for p in head.values())} "
+          f"parameters), the student over encode views (0, 1), batch {Bt}, 4 views, {H}x{W}, "
+          f"{tcfg.ray_batch_size} rays x {rcfg.n_coarse} samples: loss {loss:.6f}, {ms:.1f} ms (the first step), "
+          f"peak memory allocated {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB, {len(head) - len(no_grad)} "
+          f"of {len(head)} head tensors with a gradient; K1 launches {json.dumps(k1)} (expected {json.dumps(expect)})"
+          f"; {card}", flush=True)
+    if not np.isfinite(loss) or state.applied != 1:
+        fail(f"the multi-view step gave loss {loss}, applied {state.applied}")
+    if no_grad:
+        fail(f"head parameters without a gradient: {no_grad}")
+    if k1 != expect:
+        fail(f"the multi-view step launched {k1}, expected {expect}")
+    del model, state, step, batch
+
+    gen = torch.Generator().manual_seed(seed + 172)
+    x, inv = _mvh_inputs(gen, "cpu")
+    errs = {}
+    for kind, args in MVH_HEADS.items():
+        torch.manual_seed(seed + 173)
+        head_cpu = make_head({"type": kind, "args": args}, MVH_D_IN, 65)
+        head_gpu = copy.deepcopy(head_cpu).cuda()
+        with torch.no_grad():
+            ref = head_cpu(x, invalid_features=inv)
+            out = head_gpu(x.cuda(), invalid_features=inv.cuda()).cpu()
+        errs[kind] = float((out - ref).abs().max() / ref.abs().max().clamp_min(1e-12))
+        if not torch.isfinite(out).all() or out.shape != (MVH_POINTS, 1, 65):
+            fail(f"{kind} on the card: shape {tuple(out.shape)} or non-finite values")
+    print(f"phase 17b the four head types ({MVH_POINTS} points x {MVH_VIEWS} views x {MVH_D_IN} channels -> 65, "
+          f"~30 % of views invalid, fp32) on the card against the CPU, the same weights: max error over the largest "
+          f"output {json.dumps({k: float(f'{v:.3e}') for k, v in errs.items()})} (bound {MVH_TOL}); {card}",
+          flush=True)
+    if max(errs.values()) > MVH_TOL:
+        fail(f"a multi-view head on the card disagrees with the CPU: {errs}")
+    return counts
+
+
+def phase_demo_gradio(seed, stage2_dir, scratch, card):
+    """Phase 17c: cli.demo_gradio.demo_run with phase 7's run at 192x640 in
+    each of the five modes; the voxel guard. Returns its launches."""
+    from scenedino_torch import kernels
+    from scenedino_torch.cli import demo_gradio
+    from scenedino_torch.cli.evaluate import eval_model
+    from scenedino_torch.datasets.image_io import write_png
+    from scenedino_torch.utils.config import load_run_config
+
+    out = tempfile.mkdtemp(prefix="demo_gradio_", dir=scratch)
+    png = os.path.join(out, "input.png")
+    write_png(png, np.random.default_rng(seed + 174).integers(0, 256, (H, W, 3), dtype=np.uint8))
+    field, head = eval_model(load_run_config(stage2_dir), stage2_dir, "cuda", (H, W))
+    total = {name: 0 for name in kernels.WRAPPERS}
+    t_phase = time.perf_counter()
+    for mode in demo_gradio.MODES:
+        res = []
+        _, counts, peak, wall = _logged(lambda: res.append(demo_gradio.demo_run(
+            field, head, png, mode=mode, image_size=(H, W), generator=torch.Generator(device="cuda").manual_seed(
+                seed + 175), **DEMO_GRID)), ())
+        vis, ply = res[0]
+        with open(ply, "rb") as f:
+            header = f.read(512).split(b"end_header\n")[0].decode()
+        n_vert = int(next(line for line in header.splitlines() if line.startswith("element vertex")).split()[-1])
+        print(f"phase 17c demo_run {mode!r} (phase 7's run, {H}x{W}, grid x +-{DEMO_GRID['x_range']:g}, y "
+              f"+-{DEMO_GRID['y_range']:g}, z 0-{DEMO_GRID['z_range']:g} m at {DEMO_GRID['resolution']} m): panel "
+              f"{vis.shape} {vis.dtype}, {n_vert // 8} occupied voxels ({os.path.getsize(ply)} PLY bytes), "
+              f"{wall:.2f} s wall, peak memory allocated {peak:.2f} GiB, K1 launches {counts['attention']}; {card}",
+              flush=True)
+        if vis.shape != (H, W, 3) or vis.dtype != np.uint8 or counts["attention"] != 12:
+            fail(f"demo_run in {mode!r}: panel {vis.shape} {vis.dtype}, launches {counts}")
+        total = {k: total[k] + counts[k] for k in total}
+    try:
+        demo_gradio.demo_run(field, head, png, resolution=0.05, x_range=50.0, y_range=50.0, z_range=100.0,
+                             image_size=(H, W))
+    except ValueError as e:
+        print(f"phase 17c the voxel guard: {e}; {card}", flush=True)
+    else:
+        fail("demo_run's voxel guard did not raise")
+    print(f"phase 17c: the five modes in {time.perf_counter() - t_phase:.1f} s wall; {card}", flush=True)
+    return total
+
+
+def phase_raft_pixelnerf(seed, card):
+    """Phase 17d: RAFT (RAFT_ITERS iterations) and both pixelNeRF encoders
+    with seeded weights on the card and on the CPU, fp32."""
+    from scenedino_torch.models.pixelnerf import ImageEncoder, SpatialEncoder
+    from scenedino_torch.models.raft import RAFT
+
+    gen = torch.Generator().manual_seed(seed + 176)
+    img0 = torch.rand(1, 3, *RAFT_SIZE, generator=gen) * 2 - 1
+    img1 = torch.roll(img0, 3, -1) * 0.95
+    imgs = torch.rand(2, 3, *PIXELNERF_SIZE, generator=gen) * 2 - 1
+    torch.manual_seed(seed + 177)
+    models = {"RAFT": (RAFT(iters=RAFT_ITERS).eval(), (img0, img1), RAFT_TOL),
+              "SpatialEncoder": (SpatialEncoder().eval(), (imgs,), PIXELNERF_TOL),
+              "ImageEncoder": (ImageEncoder().eval(), (imgs,), PIXELNERF_TOL)}
+    for name, (m, inputs, tol) in models.items():
+        with torch.no_grad():
+            t0 = time.perf_counter()
+            ref = m(*inputs)
+            cpu_s = time.perf_counter() - t0
+            gm = copy.deepcopy(m).cuda()
+            out = gm(*(t.cuda() for t in inputs))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = gm(*(t.cuda() for t in inputs))
+            torch.cuda.synchronize()
+            gpu_ms = (time.perf_counter() - t0) * 1e3
+        if isinstance(ref, list):
+            ref, out = ref[0], out[0]
+        err = float((out.cpu() - ref).abs().max() / ref.abs().max().clamp_min(1e-12))
+        print(f"phase 17d {name} ({'%d iterations, ' % RAFT_ITERS if name == 'RAFT' else ''}input "
+              f"{tuple(inputs[0].shape)}, output {tuple(out.shape)}, largest |output| {float(ref.abs().max()):.4g}): "
+              f"the card against the CPU, fp32, max error over the largest output {err:.3e} (bound {tol}); card "
+              f"{gpu_ms:.2f} ms warm, CPU {cpu_s:.2f} s; {card}", flush=True)
+        if not torch.isfinite(out).all() or err > tol:
+            fail(f"{name} on the card disagrees with the CPU: {err:.3e} > {tol}")
+
+
+def phase_port_rest(seed, stage2_dir, scratch):
+    """Phase 17: the port's last slice. Returns its launches."""
+    from scenedino_torch.utils.timing import card_line
+
+    card = card_line()
+    t_phase = time.perf_counter()
+    parts = (phase_sweep(seed, scratch, card), phase_multi_view(seed, card),
+             phase_demo_gradio(seed, stage2_dir, scratch, card))
+    phase_raft_pixelnerf(seed, card)
+    counts = {name: sum(p[name] for p in parts) for name in parts[0]}
+    wall = time.perf_counter() - t_phase
+    print(f"phase 17 launches {json.dumps(counts)}; wall time {wall:.1f} s (target 120 s); {card}", flush=True)
+    return counts
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -4867,8 +5157,9 @@ def main():
         serving_rest = phase_serving_rest(args.seed, trees[0], stage2_dir, scratch)
         multi = phase_multi_device(args.seed, *trees, stage2_dir, scratch)
         eval_rest, k4_s4c = phase_eval_rest(args.seed, stage1_dir, stage2_dir, *trees, scratch)
+        port_rest = phase_port_rest(args.seed, stage2_dir, scratch)
     paths = (serving, training, train_run, stage2, stage2_conv, evaluation, reference, kitti, d80_paths, re10k,
-             branches, dinov2, serving_rest, multi, eval_rest)
+             branches, dinov2, serving_rest, multi, eval_rest, port_rest)
     for e in entries:
         e["launches"] = sum(p[e["name"]] for p in paths)
         if e["name"] == "point_query":

@@ -20,6 +20,11 @@ the repository unchanged). It covers these paths:
               the S4C baseline), cli.evaluate (2D segmentation, the window
               or the exact CRF), the validator's occupancy, LPIPS and
               panels, TSDF fusion (eval/)
+    the rest: the multi-view heads and IBRNet (models.multi_view_head),
+              pixelNeRF's encoders (models.pixelnerf), RAFT and the image
+              processors (models.raft, core.image_processor, core.flow),
+              the dummy encoders, the hyperparameter sweep (cli.sweep) and
+              the interactive demo's runner (cli.demo_gradio.demo_run)
 
 Hand-written CUDA kernels carry them (`kernels/`, sources in `csrc/`):
 the ViT attention forward and its backward (dq; dk and dv), the fused

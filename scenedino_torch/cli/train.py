@@ -153,22 +153,24 @@ def init_stage1(config: dict, device, dp=None) -> Tuple:
     return field, state, generator, tcfg, rcfg, lcfg
 
 
-def run_stage1(config: dict, device=None):
+def run_stage1(config: dict, device=None, sweep_trial=None):
     """Train stage 1 as `config` says; returns (field, train state). Under
     `torchrun` (WORLD_SIZE > 1) each process trains its share of the
-    global batch, data-parallel."""
+    global batch, data-parallel. `sweep_trial` is a sweep's trial
+    (`cli.sweep`), given the best score of the validator
+    `training.sweep_validator` ("validation") after each of its passes."""
     from scenedino_torch.parallel.data_parallel import from_environment, local_device
 
     device = local_device(resolve_device(device))
     dp = from_environment(device)
     try:
-        return _run_stage1(config, device, dp)
+        return _run_stage1(config, device, dp, sweep_trial)
     finally:
         if dp is not None:
             torch.distributed.destroy_process_group()
 
 
-def _run_stage1(config: dict, device, dp):
+def _run_stage1(config: dict, device, dp, sweep_trial=None):
     field, state, generator, tcfg, rcfg, lcfg = init_stage1(config, device, dp)
     device = generator.device
     train_ds, val_ds = make_datasets(config["dataset"])
@@ -206,7 +208,8 @@ def _run_stage1(config: dict, device, dp):
                                   lambda name, vconf, fn: make_stage1_validator(name, vconf, field, tcfg, rcfg, fn))
     fit(field, state, train_step, data_iter, cfg, generator, validators=validators if main_process else None,
         steps_per_epoch=tconf.get("epoch_length"), main_process=main_process,
-        sync_generator=None if dp is None else dp.sync_generator)
+        sync_generator=None if dp is None else dp.sync_generator, sweep_trial=sweep_trial,
+        sweep_validator=tconf.get("sweep_validator", "validation"))
     return field, state
 
 
@@ -298,23 +301,23 @@ def init_stage2(config: dict, device):
     return field, head, state, generator, cfg, rcfg, StegoLossConfig.from_dict(tconf.get("loss"))
 
 
-def run_stage2(config: dict, device=None):
+def run_stage2(config: dict, device=None, sweep_trial=None):
     """Train stage 2 as `config` says (the reference's run_stage2,
     cli/train.py:257-452); returns (field, head, train state). Under
     `torchrun` (WORLD_SIZE > 1) each process trains its share of the global
-    batch, data-parallel."""
+    batch, data-parallel. `sweep_trial` as `run_stage1` takes it."""
     from scenedino_torch.parallel.data_parallel import from_environment, local_device
 
     device = local_device(resolve_device(device))
     dp = from_environment(device)
     try:
-        return _run_stage2(config, device, dp)
+        return _run_stage2(config, device, dp, sweep_trial)
     finally:
         if dp is not None:
             torch.distributed.destroy_process_group()
 
 
-def _run_stage2(config: dict, device, dp):
+def _run_stage2(config: dict, device, dp, sweep_trial=None):
     from scenedino_torch.training.downstream import (
         draw_seed,
         draw_stage2,
@@ -371,7 +374,8 @@ def _run_stage2(config: dict, device, dp):
     fit(head, state, train_step, data_iter, loop_cfg, generator, validators=validators,
         steps_per_epoch=config.get("training", {}).get("epoch_length"),
         update_model_fn=make_update_model_fn() if validators else None, main_process=main_process,
-        sync_generator=None if dp is None else dp.sync_generator)
+        sync_generator=None if dp is None else dp.sync_generator, sweep_trial=sweep_trial,
+        sweep_validator=config.get("training", {}).get("sweep_validator", "validation"))
     return field, head, state
 
 

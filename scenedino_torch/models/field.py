@@ -195,7 +195,7 @@ class SceneField(nn.Module):
         predicts them (bts.py:545-552): relu sigma and sigmoid rgb (B, P, 3)
         from the head, invalid (B, P, V) the encode views', and no dino."""
         feats, invalid_features = self.sample_features(state, xyz)
-        mlp_out = self.heads[self.final_pred_head](feats)
+        mlp_out = self.heads[self.final_pred_head](feats, invalid_features=invalid_features)
         B, P = xyz.shape[:2]
         mlp_out = mlp_out.reshape(B, P, -1, mlp_out.shape[-1]).mean(2)
         if not self.cfg.sample_color:
@@ -247,3 +247,20 @@ class SceneField(nn.Module):
     def downsample(self, features: torch.Tensor, mode: str = "patch") -> torch.Tensor:
         """Pool rendered pixel features back to the teacher's patch grid."""
         return self.encoder.downsample(features, mode)
+
+
+class EncoderDummy(nn.Module):
+    """A learned constant feature map, the overfit runs' encoder
+    (field.py:392; trainer_overfit.py:21-29): forward(x) gives the map
+    (B, feat_dim, H, W) itself, not a list, as the reference's does."""
+
+    def __init__(self, size: Tuple[int, int], feat_dim: int, latent_size: int = 0):
+        super().__init__()
+        self.size, self.feat_dim, self.latent_size = tuple(size), feat_dim, latent_size
+        self.feat = nn.Parameter(torch.randn(1, feat_dim, *self.size))
+
+    def forward(self, x: torch.Tensor, ground_truth: bool = False) -> torch.Tensor:
+        return self.feat.expand(x.shape[0], self.feat_dim, *self.size)
+
+    def expand_dim(self, x: torch.Tensor) -> torch.Tensor:
+        return x

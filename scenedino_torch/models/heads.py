@@ -6,8 +6,9 @@ d_in = feature + positional code, d_out = 1 + dino_dims; the serving path
 folds it (ops/fast_field.py). The general ResnetFC (residual blocks, a
 softplus activation for beta > 0, latent conditioning through `lin_z_<i>`,
 the views combined at `combine_layer`) and the "mlp" `ImplicitNet` (skip
-connections) are the reference's other heads. Inputs are (..., V, d_in).
-The multi-view heads come in slice 22 (ROADMAP queue 1).
+connections) are the reference's other heads. Inputs are (..., V, d_in);
+a head's call may carry the field's `invalid_features` (..., V), which
+only the multi-view heads (`models.multi_view_head`) read.
 """
 from __future__ import annotations
 
@@ -92,7 +93,7 @@ class ResnetFC(nn.Module):
             if hasattr(self, f"lin_z_{i}"):
                 _kaiming(getattr(self, f"lin_z_{i}"))
 
-    def forward(self, zx: torch.Tensor) -> torch.Tensor:
+    def forward(self, zx: torch.Tensor, **kwargs) -> torch.Tensor:
         z, x = (zx[..., :self.d_latent], zx[..., self.d_latent:]) if self.d_latent > 0 else (None, zx)
         x = self.lin_in(x)
         for i in range(self.n_blocks):
@@ -123,7 +124,7 @@ class ImplicitNet(nn.Module):
             width = d
         self.lin_out = nn.Linear(width, d_out)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, **kwargs) -> torch.Tensor:
         inp = x
         for i in range(len(self.dims)):
             if i == self.combine_layer:
@@ -148,6 +149,8 @@ def make_head(conf: dict, d_in: int, d_out: int) -> nn.Module:
         return ImplicitNet(d_in, d_out, dims=tuple(args.get("dims", (128, 128, 128, 128))),
                            skip_in=tuple(args.get("skip_in", ())), combine_layer=args.get("combine_layer", 1000),
                            combine_type=args.get("combine_type", "average"))
-    if kind in MULTI_VIEW_HEADS:
-        raise NotImplementedError(f"the multi-view head {kind!r} comes in slice 22 (ROADMAP queue 1)")
+    if kind in MULTI_VIEW_HEADS:  # the legacy BTS attention-aggregation heads
+        from scenedino_torch.models.multi_view_head import make_multi_view_head
+
+        return make_multi_view_head(kind, args or dict(conf), conf.get("d_in", d_in), d_out)
     raise ValueError(f"unknown head type: {kind}")

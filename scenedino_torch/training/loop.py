@@ -155,10 +155,16 @@ def run_validation(field, state, it: int, validators: Dict[str, Any], generator:
                 _save_best_checkpoint(cfg.output_path, sb.metric, it, score, field, state)
 
 
+class TrialPruned(Exception):
+    """Aborts a sweep trial (optuna.TrialPruned's stand-in where optuna is
+    not installed)."""
+
+
 def fit(field, state, train_step: Callable, data_iter_fn: Callable[[], Iterable], cfg: LoopConfig,
         generator: torch.Generator, validators: Optional[Dict[str, Any]] = None,
         steps_per_epoch: Optional[int] = None, update_model_fn: Optional[Callable] = None,
-        main_process: bool = True, sync_generator: Optional[Callable[[torch.Generator], None]] = None):
+        main_process: bool = True, sync_generator: Optional[Callable[[torch.Generator], None]] = None,
+        sweep_trial: Optional[Any] = None, sweep_validator: str = "validation"):
     """Run the loop from `state.step` (or the newest checkpoint, with
     `cfg.resume`); returns `state`. `field` is the trained module, the one
     the checkpoints save with `state`.
@@ -172,6 +178,13 @@ def fit(field, state, train_step: Callable, data_iter_fn: Callable[[], Iterable]
     `sync_generator(generator)`, called after each iteration's validations,
     then gives every rank the first rank's generator, which its validations
     drew from.
+
+    `sweep_trial` (an optuna-style trial of a hyperparameter sweep,
+    `cli.sweep`): after each pass of the `sweep_validator` validator it is
+    given that validator's best signed `save_best` score so far
+    (`report(score, it)`), and where `should_prune()` says so the run ends
+    with optuna.TrialPruned, or `TrialPruned` without optuna
+    (base_trainer.py:131-134).
     """
     os.makedirs(cfg.output_path, exist_ok=True)
     tb = MetricLogger(os.path.join(cfg.output_path, "tb")) if main_process else MetricLogger(None)
@@ -225,6 +238,16 @@ def fit(field, state, train_step: Callable, data_iter_fn: Callable[[], Iterable]
                 if validators:
                     run_validation(field, state, it, validators, generator, tb, cfg, best,
                                    update_model_fn=update_model_fn)
+                    v = validators.get(sweep_validator)
+                    due = v is not None and it % (getattr(v, "every", None) or cfg.validate_every) == 0
+                    if sweep_trial is not None and due and sweep_validator in best:
+                        sweep_trial.report(best[sweep_validator], it)
+                        if sweep_trial.should_prune():
+                            try:
+                                import optuna
+                            except ImportError:
+                                raise TrialPruned(f"pruned at iter {it}") from None
+                            raise optuna.TrialPruned()
                 if sync_generator is not None:
                     sync_generator(generator)
                 if cfg.stop_iteration and it >= cfg.stop_iteration:

@@ -87,6 +87,9 @@ class TrainConfig:
     dino_upscaled: bool = False
     loss_renderer_strategy: str = "kitti_360"
     debug_stats: bool = False
+    # the views the student encodes (the reference's step: view 0); a
+    # multi-view head (models.multi_view_head) aggregates several
+    ids_encoder: Tuple[int, ...] = (0,)
 
 
 @dataclasses.dataclass
@@ -201,7 +204,7 @@ def stage1_forward(field: SceneField, batch: Dict[str, torch.Tensor], draws: Sta
     # (B, Vl, Cd, Gh, Gw); per pixel (Gh, Gw) = (H, W) in upsample-gt mode
     loss_feats = field.loss_features(imgs, ids_loss, shift, crops=draws.crops).float()
     _mark(mark, "teacher")
-    state = field.encode(imgs, projs, poses, ids_encoder=(0,), ids_render=ids_render,
+    state = field.encode(imgs, projs, poses, ids_encoder=cfg.ids_encoder, ids_render=ids_render,
                          flip=draws.flip and cfg.flip_augmentation, extra_color_channels=uncert)
     state.loss_feats = loss_feats
     _mark(mark, "student")

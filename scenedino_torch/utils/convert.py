@@ -20,7 +20,13 @@ var, all in the "params" collection) map by name, the scale to `weight`.
 The field heads' residual blocks (`block_<i>/fc_0`, `fc_1`, `shortcut`),
 latent layers (`lin_z_<i>`) and the "mlp" ImplicitNet's `lin_<i>`, the
 S4C field's Monodepth2 encoder and LPIPS (`trunk/conv<j>`, the heads
-`lin<k>`) keep their JAX names.
+`lin<k>`) keep their JAX names, as do the modules of the last slice: the
+dummy encoders (`feat`, `gt_feat`), the multi-view heads (`emb_encoder`,
+`independent_token/readout_token`, `attn/layer_<i>/in_proj`, ...,
+`density_<k>`, the inner `mlp` / `mlp2` ResnetFCs), IBRNet's NeuRay core
+(`core/<mlp>_<i>`), pixelNeRF's trunk (`model/layer<s>_<b>`, frozen batch
+norms with `mean` / `var`) and RAFT (`feature_encoder`, `context_encoder`
+with its frozen batch-norm statistics, `update/...`, `mask_predictor`).
 The mapping is strict: every leaf maps to one port tensor. A serving
 model holds no training-only subtree (TRAINING_ONLY: the frozen teacher,
 the FeatUp downsampler, the 64 -> 768 expansion); `load_jax_params`

@@ -63,7 +63,10 @@ def test_the_scan_sees_the_whole_package():
             "scenedino_torch/models/factory.py", "scenedino_torch/utils/checkpoint.py",
             "scenedino_torch/datasets/re10k.py", "scenedino_torch/core/strategies.py",
             "scenedino_torch/cli/process_re10k.py", "scenedino_torch/parallel/mesh.py",
-            "scenedino_torch/parallel/render_sharding.py"} <= names
+            "scenedino_torch/parallel/render_sharding.py", "scenedino_torch/models/dummy.py",
+            "scenedino_torch/models/raft.py", "scenedino_torch/models/pixelnerf.py",
+            "scenedino_torch/models/multi_view_head.py", "scenedino_torch/core/image_processor.py",
+            "scenedino_torch/core/flow.py", "scenedino_torch/cli/sweep.py", "scenedino_torch/cli/demo_gradio.py"} <= names
 
 
 def test_entry_point_without_a_device_refuses_the_cpu():

@@ -162,8 +162,11 @@ def test_resnetfc_matches_reference():
     np.testing.assert_allclose(model(_t(x)).detach().numpy(), np.asarray(jmodel.apply(params, jnp.asarray(x))),
                                atol=1e-5, rtol=1e-5)
     assert heads.make_head({"type": "resnet", "args": {"n_blocks": 2}}, 20, 9).n_blocks == 2  # tests/test_torch_s4c.py
-    with pytest.raises(NotImplementedError):
-        heads.make_head({"type": "MultiViewHead"}, 20, 9)
+    from scenedino_torch.models.multi_view_head import MultiViewHead
+
+    assert isinstance(heads.make_head({"type": "MultiViewHead"}, 20, 9), MultiViewHead)
+    with pytest.raises(ValueError):
+        heads.make_head({"type": "no_such_head"}, 20, 9)
 
 
 def test_flagship_config_is_the_references():

@@ -86,9 +86,12 @@ def test_head_types_match_jax(name):
 
 
 def test_multi_view_heads_name_their_slice():
+    """The multi-view heads are built by type (models.multi_view_head; their
+    parity is tests/test_torch_multi_view_head.py's)."""
+    from scenedino_torch.models import multi_view_head
+
     for kind in heads.MULTI_VIEW_HEADS:
-        with pytest.raises(NotImplementedError, match="slice 22"):
-            heads.make_head({"type": kind}, 20, 4)
+        assert isinstance(heads.make_head({"type": kind}, 20, 4), getattr(multi_view_head, kind))
 
 
 def _imgs(seed, n=1):
