@@ -9,8 +9,9 @@ Phases, one line each:
   1 build    nvcc builds every kernel of the paths from csrc/ (sm_90a);
              the registers and spills (none allowed) of the K1 forward and
              backward kernels (at D = 80 with setmaxnreg's split: the
-             forward's two instantiations, dq, dkv), of the point kernels'
-             ten instantiations and of K6's eight
+             forward's two instantiations, dq, dkv; at every other head dim
+             the forward, dq and dkv at seven padded widths), of the point
+             kernels' sixteen instantiations and of K6's thirty-two
   2 K1       the attention forward kernel vs its plain versions (output
              and log-sum-exp) at the three shapes its paths give it:
              ViT-B/8 @192x640 serving (1, 1921, 12, 64), the training
@@ -263,7 +264,7 @@ Phases, one line each:
              PCA and the 3D grid, peak memory, every file written and finite;
              14f: the probe-serving bound on the trained s1b field through
              K3, the row gather and K2 (tools/probe_quality_trained; the
-             exact render through K2, the 128-sample gold unfused)
+             exact render and the 128-sample gold through K2)
   15 multi  the device-parallel paths, on the one card named several times
              (its shares run in turn) and on make_mesh() (every visible
              card). 15a, the flagship serving model (bf16, 192x640, 32
@@ -322,13 +323,39 @@ Phases, one line each:
              encoders with seeded weights on the card and on the CPU (fp32,
              RAFT_TOL, PIXELNERF_TOL); the phase's wall time against its
              120 s target
+  18 shapes every shape the JAX package takes, on the flagship's widths:
+             18a render_novel_view_fused at 128 and 256 samples a ray (two and
+             four of K2's 64-point tiles a ray), expectation and weight-median
+             depth, and render_novel_view_probe at n_probe 96 (K3 over two
+             tiles a probe ray), each through its entry point with the counts
+             zeroed just before it and read just after, equal to its kernel's
+             launch on the same inputs, which is held against its plain
+             version (phase 3's bounds and median rule), timed beside the
+             plain version and the bound; 18b render_encode_view at 128
+             samples, and at 32 on a field of num_freqs 8 (17 z-code
+             columns: K6's second k16 step), the same way (phase 3e's bf16
+             bounds); 18c the smoke recipe's ViT (vit_overrides: width 64,
+             depth 3, 2 heads of 32) in bf16 at 192x640 (1921 tokens), one
+             stage-1 step on the card (K1's forward, dq and dkv at head dim
+             32 from csrc/attention_any.cu, counted) against the same step on
+             the CPU (phase 5's bounds), then K1 at (2, 1921, 2, 32) and (2,
+             1921, 6, 128) against the plain versions, two launches bitwise
+             equal, kernel, plain, SDPA and bound times; 18d phase 11a's 16
+             scaled-keys cases at head dims 64 and 80 with the shipped build
+             (the exact rescale), every forward within K1_TOL, counts above
+             SDPA and above 1.5625e-2; the phase's wall time against its 60 s
+             target
   kernels    one JSON line: launches (all serving paths, training, the
-             train run, stage 2, evaluation, phases 9-17 together), error, times and
-             bound per kernel; the K1 forward's, K4's and K6's also at
+             train run, stage 2, evaluation, phases 9-18 together), error, times and
+             bound per kernel (K1 at every other head dim as attention_any,
+             attention_any_bwd_dq and attention_any_bwd_dkv, at phase 18c's
+             (2, 1921, 2, 32)); the K1 forward's, K4's and K6's also at
              their shapes ("shapes": K4 at the evaluation's block, K6 at
              the 2D evaluator's fp32 frame; phase 9's holds of K1, K2, K4
              and K6 under "reference checkpoints"; K1's forward, dq and dkv at
-             the RE10K recipe's 2305 tokens under "RE10K recipe")
+             the RE10K recipe's 2305 tokens under "RE10K recipe"; phase 18's
+             K2 at 128 and 256 samples, K3 at n_probe 96, K6 at 128 samples
+             and at num_freqs 8, K1 at head dims 32 and 128)
 The line before the last is the card's name and power limit as
 nvidia-smi prints them; the last line is {"ok": true, "device": {...}}.
 Any failed phase exits non-zero before that line. Needs one CUDA card;
@@ -422,8 +449,11 @@ STAGE2_STEGO_ABS = 1e-3
 EVAL_DEPTH_REL_P99 = 1e-2
 EVAL_RGB_ABS = 2e-2
 # instantiations of csrc/point_render.cu's kernel: K2 and K4 at 2 hidden x 2
-# output widths each, K3 at 2 hidden widths
-POINT_KERNELS = 10
+# output widths each, K3 at 2 hidden widths; K2 and K3 again for the
+# multi-tile walk
+POINT_KERNELS = 16
+# instantiations of csrc/attention_any.cu: the forward, dq and dkv at 7 padded head dims
+ANY_KERNELS = 21
 # phase 11a: K1 at head dim 80 (csrc/attention_d80.cu, attention_d80_bwd.cu) at
 # I-JEPA-H/14's 192x640 forward (13 x 45 = 585 tokens, 16 heads), four of them, and phase
 # 11's D = 80 training step (1921 tokens, 12 heads of 80): its teacher on the
@@ -4133,7 +4163,7 @@ def phase_probe_trained():
     print(f"phase 14f the probe bound on the trained s1b field ({pq.H}x{pq.W}, bf16 state): "
           f"{json.dumps({k_: round(v, 6) for k_, v in stats.items()})}; failed {failed}; launches "
           f"{json.dumps(counts)}; {ms:.0f} ms", flush=True)
-    if failed or counts["point_render"] != 2 or counts["probe_weights"] != 1 or counts["row_gather"] != 1:
+    if failed or counts["point_render"] != 3 or counts["probe_weights"] != 1 or counts["row_gather"] != 1:
         fail(f"the probe bound on the trained field failed on the card: {failed}, launches {counts}")
     return counts
 
@@ -5071,6 +5101,418 @@ def phase_port_rest(seed, stage2_dir, scratch):
     return counts
 
 
+# phase 18: every shape the JAX package takes. 18a: the flagship serving model's
+# render_novel_view_fused at these samples a ray (tests/
+# test_probe_quality_trained.py renders at 128, tests/test_probe_quality.py and
+# tools/probe_quality_trained.py at 256) and render_novel_view_probe at this
+# n_probe; 18b: render_encode_view at LONG_K6 samples and, on a field of
+# num_freqs LONG_FREQS (17 z-code columns), at 32; 18c: the ViT of the smoke
+# recipe's vit_overrides (width 64, depth 3, 2 heads: head dim 32) in bf16 at
+# 192x640 (1921 tokens, so the card takes K1), one stage-1 step of a batch of
+# ANY_STEP_B on the card and on the CPU (phase 5's bounds), and K1 at head dim
+# 128 (ANY_D128; and head dim 32 at the step's shape ANY_D32) against its plain
+# version and SDPA; 18d: phase 11a's 16 scaled-keys cases at both shipped head
+# dims, each within K1_TOL
+LONG_RAYS = (128, 256)
+LONG_PROBE = 96
+LONG_K6, LONG_FREQS = 128, 8
+ANY_STEP_B = 1
+ANY_D32 = (2, 1921, 2, 32)
+ANY_D128 = (2, 1921, 6, 128)
+
+
+def _driven(fn):
+    """`fn()` with the launch counts zeroed just before and read just after:
+    (its result, the counts)."""
+    from scenedino_torch import kernels
+
+    kernels.reset_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, kernels.launches()
+
+
+def _expect_launches(name, counts, expect):
+    from scenedino_torch import kernels
+
+    want = {**{k: 0 for k in kernels.WRAPPERS}, **expect}
+    if counts != want:
+        fail(f"{name} did not run through its kernels: launches {counts}, expected {want}")
+
+
+def _median_rule(z, got, ref):
+    """The weight-median depth rule of phase 3: on a sample depth, the plain
+    version's sample or its neighbour on at most K2_MEDIAN_FLIPS of rays.
+    Returns (holds, share of rays off the plain version's sample)."""
+    k_idx = (z - got[:, None]).abs().argmin(-1)
+    p_idx = (z - ref[:, None]).abs().argmin(-1)
+    flips = (k_idx != p_idx).float().mean().item()
+    holds = (torch.equal(z.gather(1, k_idx[:, None])[:, 0], got) and (k_idx - p_idx).abs().max().item() <= 1
+             and flips <= K2_MEDIAN_FLIPS)
+    return holds, flips
+
+
+def phase_long_rays(seed):
+    """Phase 18a: render_novel_view_fused at LONG_RAYS samples a ray, both
+    depth statistics, and render_novel_view_probe at n_probe LONG_PROBE, on
+    the flagship serving model (bf16); each driven through its entry point
+    alone, then its K2 / K3 launch against the plain version on the same
+    inputs. Returns (the launches, K2's and K3's shape entries)."""
+    from scenedino_torch.core import sampling
+    from scenedino_torch.kernels.point_render import (
+        point_render,
+        point_render_plain,
+        probe_weights,
+        probe_weights_plain,
+    )
+    from scenedino_torch.models.factory import SCENEDINO_KITTI_360, make_model
+    from scenedino_torch.ops import fast_field as ff
+    from scenedino_torch.utils.timing import time_ms
+
+    conf = {**SCENEDINO_KITTI_360}
+    conf["encoder"] = {**conf["encoder"], "dtype": "bfloat16"}
+    model = make_model(conf, device="cuda", seed=seed)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1800)
+    img = torch.rand(1, 1, 3, H, W, generator=gen, device="cuda") * 2 - 1
+    with torch.inference_mode():
+        fs = ff.encode_prefolded(model, img, *cameras_of("cuda"))
+    pose, kmat = novel_pose("cuda"), intrinsics("cuda")
+    field, colour = ff._single_view(fs, "phase 18a"), ff._colour_view(fs)
+    flat = ff._target_rays(model.cfg, pose, kmat, H, W).reshape(-1, 8).contiguous()
+    grid, w_code, b1, w2, b2 = field[:5]
+    D, E, C = grid.shape[-1], w2.shape[-1], w_code.shape[0]
+    total, k2_shapes = {}, {}
+
+    def add(counts):
+        for k_, n in counts.items():
+            total[k_] = total.get(k_, 0) + n
+
+    for Kr in LONG_RAYS:
+        u = torch.rand(H * W, Kr, generator=gen, device="cuda")
+        z = sampling.sample_coarse(flat, Kr, True, u=u).contiguous()
+        args = (flat, z, *field, *colour)
+        entry = {}
+        for stat in ("expectation", "median"):
+            (depth, dino, rgb), counts = _driven(lambda: ff.render_novel_view_fused(
+                fs, model.cfg, pose, kmat, H, W, u=u, n_coarse=Kr, depth_statistic=stat))
+            _expect_launches(f"render_novel_view_fused at {Kr} samples ({stat})", counts, {"point_render": 1})
+            add(counts)
+            if stat == "expectation":
+                check_depth(f"render_novel_view_fused at {Kr} samples", depth, dino, rgb)
+            pcfg = ff._point_config(model.cfg, True, stat)
+            out = point_render(*args, pcfg)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a.reshape(b.shape), b) for a, b in zip((depth, dino, rgb), out)):
+                fail(f"render_novel_view_fused at {Kr} samples ({stat}) is not its K2 launch")
+            ref = point_render_plain(*args, pcfg)
+            errs = [(o - r).abs().max().item() for o, r in zip(out, ref)]
+            if stat == "median":
+                holds, flips = _median_rule(z, out[0], ref[0])
+                entry["median_flips"] = flips
+                ok = holds and errs[1] <= K2_FEAT_TOL and errs[2] <= K2_RGB_TOL
+            else:
+                ok = errs[0] <= K2_DEPTH_TOL and errs[1] <= K2_FEAT_TOL and errs[2] <= K2_RGB_TOL
+                entry["max_abs_err"] = max(errs)
+            print(f"phase 18a render_novel_view_fused at {Kr} samples a ray ({H}x{W}, {stat}; {-(-Kr // 64)} of K2's "
+                  f"64-point tiles a ray): launches {json.dumps({k_: n for k_, n in counts.items() if n})}; K2 "
+                  f"against its plain version: depth {errs[0]:.3e}, feature {errs[1]:.3e}, rgb {errs[2]:.3e}"
+                  + (f", rays off the plain version's median sample {flips:.3e} (bound {K2_MEDIAN_FLIPS})"
+                     if stat == "median" else ""), flush=True)
+            if not ok or not all(bool(torch.isfinite(o).all()) for o in out):
+                fail(f"K2 at {Kr} samples ({stat}) disagrees with its plain version: {errs}")
+        pcfg = ff._point_config(model.cfg)
+        ms = time_ms(lambda: point_render(*args, pcfg), reps=5)
+        plain_ms = time_ms(lambda: point_render_plain(*args, pcfg), reps=3, warmup=1)
+        R = flat.shape[0]
+        rows = grid_rows_read(_ray_points(flat, z), grid, *field[5:7])
+        b, by = bound_ms(2.0 * R * Kr * (C * D + D * E),
+                         rows * D * 2 + nbytes(*args[:2], *args[3:]) + R * (1 + (E - 1) + 3) * 4)
+        print(f"phase 18a K2 point_render ({R} rays x {Kr}): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+              f"{b:.4f} ms ({by}; {rows} distinct grid rows read); {corner_traffic(R * Kr, D)}", flush=True)
+        k2_shapes[f"{Kr} samples"] = {"rays": R, "samples": Kr, "ms": ms, "plain_ms": plain_ms, "bound_ms": b,
+                                      "bound_by": by, **entry}
+
+    # the probe at n_probe LONG_PROBE: K3 over two tiles a probe ray
+    draws = ff.draw_probe(H, W, gen, "cuda", n_probe=LONG_PROBE)
+    (depth, dino, rgb), counts = _driven(lambda: ff.render_novel_view_probe(
+        fs, model.cfg, pose, kmat, H, W, draws=draws, n_probe=LONG_PROBE))
+    _expect_launches(f"render_novel_view_probe at n_probe {LONG_PROBE}", counts,
+                     {"probe_weights": 1, "row_gather": 1, "point_render": 1})
+    add(counts)
+    check_depth(f"render_novel_view_probe at n_probe {LONG_PROBE}", depth, dino, rgb)
+    rays = flat.reshape(H, W, 8)[::4, ::4].reshape(-1, 8).contiguous()
+    zp = sampling.sample_coarse(rays, LONG_PROBE, True, u=draws.u_probe).contiguous()
+    args = (rays, zp, grid, w_code, b1, w2[:, :1].contiguous(), b2[:1].contiguous(), *field[5:7])
+    pcfg = ff._point_config(model.cfg)
+    w_probe = probe_weights(*args, pcfg)
+    torch.cuda.synchronize()
+    err = (w_probe - probe_weights_plain(*args, pcfg)).abs().max().item()
+    ms = time_ms(lambda: probe_weights(*args, pcfg), inner=10)
+    plain_ms = time_ms(lambda: probe_weights_plain(*args, pcfg), reps=3, warmup=1)
+    R = rays.shape[0]
+    rows = grid_rows_read(_ray_points(rays, zp), grid, *field[5:7])
+    b, by = bound_ms(2.0 * R * LONG_PROBE * (C * D + D), rows * D * 2 + nbytes(*args[:2], *args[3:])
+                     + R * LONG_PROBE * 4)
+    print(f"phase 18a render_novel_view_probe at n_probe {LONG_PROBE} ({H}x{W}): launches "
+          f"{json.dumps({k_: n for k_, n in counts.items() if n})}; K3 ({R} probe rays x {LONG_PROBE}, two 64-point "
+          f"tiles a ray) against its plain version: weights {err:.3e} (bound {K3_TOL}); kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, bound {b:.4f} ms ({by}; {rows} distinct grid rows read)", flush=True)
+    if not (err <= K3_TOL and bool(torch.isfinite(w_probe).all())):
+        fail(f"K3 at {LONG_PROBE} samples disagrees with its plain version: {err}")
+    k3_shape = {f"n_probe {LONG_PROBE}": {"rays": R, "samples": LONG_PROBE, "max_abs_err": err, "ms": ms,
+                                          "plain_ms": plain_ms, "bound_ms": b, "bound_by": by}}
+    return total, k2_shapes, k3_shape
+
+
+def phase_long_encode_view(seed):
+    """Phase 18b: render_encode_view of the flagship serving model at LONG_K6
+    samples a ray, and of the same model at num_freqs LONG_FREQS (17 z-code
+    columns) at 32, each through its entry point alone, then its K6 launch
+    against the plain version on the same inputs, both depth statistics.
+    Returns (the launches, K6's shape entries)."""
+    from scenedino_torch.kernels.encode_view import encode_view, encode_view_plain
+    from scenedino_torch.models.factory import SCENEDINO_KITTI_360, make_model
+    from scenedino_torch.ops import fast_field as ff
+    from scenedino_torch.tools import bench_encode_view as bev
+    from scenedino_torch.utils.timing import time_ms
+
+    total, shapes = {}, {}
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1810)
+    img = torch.rand(1, 1, 3, H, W, generator=gen, device="cuda") * 2 - 1
+    for name, Kr, freqs in ((f"{LONG_K6} samples", LONG_K6, 6), (f"num_freqs {LONG_FREQS}", K, LONG_FREQS)):
+        conf = {**SCENEDINO_KITTI_360, "code": {**SCENEDINO_KITTI_360["code"], "num_freqs": freqs}}
+        conf["encoder"] = {**conf["encoder"], "dtype": "bfloat16"}
+        model = make_model(conf, device="cuda", seed=seed)
+        with torch.inference_mode():
+            fs = ff.encode_prefolded(model, img, *cameras_of("cuda"))
+        u = torch.rand(H * W, Kr, generator=gen, device="cuda")
+        args, ecfg = ff.encode_view_inputs(fs, model.cfg, H, W, u=u[None], n_coarse=Kr)
+        entry = {"samples": Kr, "code_columns": ecfg.code_dims}
+        for stat in ("expectation", "median"):
+            (depth, dino, rgb), counts = _driven(lambda: ff.render_encode_view(
+                fs, model.cfg, H, W, u=u, n_coarse=Kr, depth_statistic=stat))
+            _expect_launches(f"render_encode_view ({name}, {stat})", counts, {"encode_view": 1})
+            for k_, n in counts.items():
+                total[k_] = total.get(k_, 0) + n
+            if stat == "expectation":
+                check_depth(f"render_encode_view ({name})", depth, dino, rgb)
+            scfg = dataclasses.replace(ecfg, depth_statistic=stat)
+            out = encode_view(*args, scfg)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a.reshape(b.shape), b) for a, b in zip((depth, dino, rgb), out)):
+                fail(f"render_encode_view ({name}, {stat}) is not its K6 launch")
+            ref = encode_view_plain(*args, scfg)
+            errs = {n_: (o - r).abs().max().item() for n_, o, r in zip(("depth", "feature", "rgb"), out, ref)}
+            tol = bev.TOL[torch.bfloat16]
+            if stat == "median":
+                holds, flips = _median_rule(args[1], out[0], ref[0])
+                ok = holds and errs["feature"] <= tol["feature"] and errs["rgb"] <= tol["rgb"]
+                entry["median_flips"] = flips
+            else:
+                ok = all(errs[n_] <= tol[n_] for n_ in tol)
+                entry["max_abs_err"] = max(errs.values())
+            print(f"phase 18b render_encode_view ({name}: {H}x{W} rays x {Kr} samples, {ecfg.code_dims} z-code "
+                  f"columns, {stat}): launches {json.dumps({k_: n for k_, n in counts.items() if n})}; K6 against "
+                  f"its plain version {json.dumps(errs)} (bounds {json.dumps(tol)})"
+                  + (f", rays off the plain version's median sample {flips:.3e}" if stat == "median" else ""),
+                  flush=True)
+            if not ok or not all(bool(torch.isfinite(o).all()) for o in out):
+                fail(f"K6 ({name}, {stat}) disagrees with its plain version: {errs}")
+        ms = time_ms(lambda: encode_view(*args, ecfg), reps=5)
+        plain_ms = time_ms(lambda: encode_view_plain(*args, ecfg), reps=3, warmup=1)
+        b, by = bev.bound(args, torch.bfloat16)
+        print(f"phase 18b K6 encode_view ({name}): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b:.4f} ms "
+              f"({by})", flush=True)
+        shapes[name] = {**entry, "ms": ms, "plain_ms": plain_ms, "bound_ms": b, "bound_by": by}
+    return total, shapes
+
+
+def k1_any_shape(gen, B, N, Hh, D):
+    """K1 at head dim D through csrc/attention_any.cu: the forward (with the
+    log-sum-exp), dq and dkv against the plain versions, two launches bitwise
+    equal, kernel, plain, SDPA and bound times; the shape's entry."""
+    from scenedino_torch.kernels.attention import (
+        attention_bwd_dkv,
+        attention_bwd_dq,
+        attention_bwd_plain,
+        attention_fwd,
+        attention_lse_plain,
+        attention_plain,
+    )
+    from scenedino_torch.utils.timing import time_ms
+
+    q, k, v, do = (torch.randn(B, N, Hh, D, generator=gen, device="cuda").to(torch.bfloat16) for _ in range(4))
+    out, lse = attention_fwd(q, k, v, with_lse=True)
+    dq, di = attention_bwd_dq(q, k, v, out, do, lse)
+    dk, dv = attention_bwd_dkv(q, k, v, do, lse, di)
+    again = (attention_fwd(q, k, v)[0], attention_bwd_dq(q, k, v, out, do, lse)[0],
+             *attention_bwd_dkv(q, k, v, do, lse, di))
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip((out, dq, dk, dv), again)):
+        fail(f"K1 at head dim {D} ({B}, {N}, {Hh}): two launches on the same inputs differ")
+    err = (out.float() - attention_plain(q, k, v).float()).abs().max().item()
+    lse_err = (lse - attention_lse_plain(q, k)).abs().max().item()
+    errs, bounds = [], []
+    for got, r in zip((dq, dk, dv), attention_bwd_plain(q, k, v, out, do, lse)):
+        errs.append((got.float() - r.float()).abs().max().item())
+        bounds.append(K1_BWD_REL * r.float().abs().max().item() + 1e-3)
+    if not (err <= K1_TOL and lse_err <= K1_LSE_TOL and all(e <= b_ for e, b_ in zip(errs, bounds))
+            and all(bool(torch.isfinite(t).all()) for t in (out, dq, dk, dv))):
+        fail(f"K1 at head dim {D} ({B}, {N}, {Hh}) disagrees with its plain versions: out {err}, lse {lse_err}, "
+             f"dq dk dv {errs} (bounds {bounds})")
+    ms = time_ms(lambda: attention_fwd(q, k, v), inner=10)
+    ms_dq = time_ms(lambda: attention_bwd_dq(q, k, v, out, do, lse), inner=5)
+    ms_dkv = time_ms(lambda: attention_bwd_dkv(q, k, v, do, lse, di), inner=5)
+    plain_ms = time_ms(lambda: attention_plain(q, k, v), reps=5)
+    plain_bwd_ms = time_ms(lambda: attention_bwd_plain(q, k, v, out, do, lse), reps=5)
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True) for t in (q, k, v))
+    lib_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt), inner=10)
+    sd = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt)
+    dot = do.transpose(1, 2).contiguous()
+    lib_bwd_ms = time_ms(lambda: torch.autograd.grad(sd, (qt, kt, vt), dot, retain_graph=True), inner=5)
+    unit = 2.0 * B * Hh * N * N * D
+    t_bytes, s_bytes = B * N * Hh * D * 2, B * Hh * N * 4
+    b, by = bound_ms(2 * unit, 4 * t_bytes)
+    b_dq, by_dq = bound_ms(3 * unit, 6 * t_bytes + 2 * s_bytes)
+    b_dkv, by_dkv = bound_ms(4 * unit, 6 * t_bytes + 2 * s_bytes)
+    print(f"phase 18c K1 at head dim {D} ({B}, {N}, {Hh}, {D}) bf16 (csrc/attention_any.cu, padded inside to "
+          f"{next(w_ for w_ in (32, 48, 64, 96, 128, 192, 256) if D <= w_)}): max_abs_err out {err:.3e} (bound "
+          f"{K1_TOL}), lse {lse_err:.3e}, dq {errs[0]:.3e}, dk {errs[1]:.3e}, dv {errs[2]:.3e} (bounds "
+          f"{[round(x, 5) for x in bounds]}); two launches bitwise equal; forward {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {b:.4f} ms ({by}); dq {ms_dq:.4f} ms (bound {b_dq:.4f}, "
+          f"{by_dq}), dkv {ms_dkv:.4f} ms (bound {b_dkv:.4f}, {by_dkv}), plain backward {plain_bwd_ms:.4f} ms, sdpa "
+          f"backward {lib_bwd_ms:.4f} ms", flush=True)
+    return {"shape": [B, N, Hh, D], "max_abs_err": err, "lse_err": lse_err, "bwd_errs": errs, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b, "bound_by": by, "library_ms": lib_ms, "ms_dq": ms_dq,
+            "ms_dkv": ms_dkv, "plain_bwd_ms": plain_bwd_ms, "library_bwd_ms": lib_bwd_ms, "bound_dq_ms": b_dq,
+            "bound_dq_by": by_dq, "bound_dkv_ms": b_dkv, "bound_dkv_by": by_dkv}
+
+
+def phase_any_head_dim(seed):
+    """Phase 18c: the smoke recipe's ViT (head dim 32) in bf16 at 192x640, one
+    stage-1 step on the card (K1's forward, dq and dkv at head dim 32,
+    counted) and the same step on the CPU; then K1 at ANY_D32 and ANY_D128
+    against the plain versions and SDPA. Returns (the step's launches, the
+    three kernels' entries)."""
+    from scenedino_torch.models.factory import SYNTHETIC_SMOKE_TRAIN, make_model
+    from scenedino_torch.training import trainer
+
+    conf = copy.deepcopy(SYNTHETIC_SMOKE_TRAIN)
+    conf["dataset"]["image_size"] = (H, W)
+    conf["model"]["encoder"].update(image_size=(H, W), dtype="bfloat16")
+    model_conf, tcfg, rcfg, lcfg = trainer.configs_from_dict(conf)
+    model = make_model(model_conf, device="cuda", seed=seed, training=True)
+    enc = model.encoder
+    vit, gp = enc.vit_encoder.vit, enc.gt_patch_size
+    blocks, t_blocks = vit.cfg.depth, enc.gt_encoder.vit.cfg.depth
+    V = conf["dataset"]["n_views"]
+    gc = torch.Generator().manual_seed(seed + 1820)
+    batch = train_batch(gc, ANY_STEP_B, H, W, "cpu")
+    draws = trainer.draw_stage1(gc, tcfg, rcfg, ANY_STEP_B, V, H, W, gp)
+    art = 1e-3 * torch.randn(enc.gt_encoder.latent_size, H // gp, W // gp, generator=gc)
+
+    def one_step(m, device):
+        m.zero_grad(set_to_none=True)
+        a = art.to(device).requires_grad_(True)
+        d = dataclasses.replace(draws, **{f: getattr(draws, f).to(device) for f in ("pv", "py", "px", "u")})
+        loss, _ = trainer.stage1_forward(m, {k_: v.to(device) for k_, v in batch.items()}, d, tcfg, rcfg, lcfg, a)
+        loss.backward()
+        grads = {n: p.grad.float().cpu() for n, p in m.named_parameters() if p.grad is not None}
+        grads["artifact_field"] = a.grad.float().cpu()
+        return loss.item(), grads
+
+    t0 = time.perf_counter()
+    (gpu_loss, gpu_grads), counts = _driven(lambda: one_step(model, "cuda"))
+    gpu_ms = (time.perf_counter() - t0) * 1e3
+    _expect_launches("the head-dim-32 stage-1 step", counts, {"attention_any": blocks + t_blocks,
+                                                              "attention_any_bwd_dq": blocks,
+                                                              "attention_any_bwd_dkv": blocks})
+    t0 = time.perf_counter()
+    cpu_loss, cpu_grads = one_step(copy.deepcopy(model).to("cpu"), "cpu")
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    loss_rel = abs(gpu_loss - cpu_loss) / abs(cpu_loss)
+    if sorted(gpu_grads) != sorted(cpu_grads):
+        fail("the GPU and CPU head-dim-32 steps gave gradients to different parameters")
+    errs = {n: (torch.linalg.vector_norm(gpu_grads[n] - r) / torch.linalg.vector_norm(r)).item()
+            for n, r in cpu_grads.items() if torch.linalg.vector_norm(r) > 0}
+    worst = max(errs, key=errs.get)
+    tokens = 1 + (H // vit.cfg.patch_size) * (W // vit.cfg.patch_size)
+    print(f"phase 18c the smoke recipe's ViT in bf16 at {H}x{W} (width {vit.cfg.width}, depth {blocks}, "
+          f"{vit.cfg.num_heads} heads of {vit.cfg.width // vit.cfg.num_heads}, {tokens} tokens), one stage-1 step "
+          f"of batch {ANY_STEP_B}, {V} views: launches {json.dumps({k_: n for k_, n in counts.items() if n})}; "
+          f"loss {gpu_loss:.6f} on the card ({gpu_ms:.0f} ms, the kernels' first launches included) vs "
+          f"{cpu_loss:.6f} on the CPU ({cpu_ms:.0f} ms), rel err {loss_rel:.3e} (bound {TRAIN_LOSS_REL}); gradients "
+          f"of {len(errs)} tensors, relative L2 error median {float(np.median(list(errs.values()))):.3e}, worst "
+          f"{errs[worst]:.3e} ({worst}; bound {TRAIN_GRAD_REL})", flush=True)
+    if not (np.isfinite(gpu_loss) and loss_rel <= TRAIN_LOSS_REL and errs[worst] <= TRAIN_GRAD_REL):
+        fail("the head-dim-32 training step on the card disagrees with the CPU")
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1830)
+    shapes = [k1_any_shape(gen, *shape) for shape in (ANY_D32, ANY_D128)]
+    main = shapes[0]
+    common = {"route": "cuda", "source": "scenedino_torch/csrc/attention_any.cu", "shapes": shapes}
+    entries = [
+        {"name": "attention_any", "replaces": "scenedino_tpu/models/vit.py:126",
+         "max_abs_err": max(e["max_abs_err"] for e in shapes),
+         **{k_: main[k_] for k_ in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}, **common},
+        {"name": "attention_any_bwd_dq", "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:1287",
+         "max_abs_err": max(e["bwd_errs"][0] for e in shapes), "ms": main["ms_dq"], "plain_ms": main["plain_bwd_ms"],
+         "bound_ms": main["bound_dq_ms"], "bound_by": main["bound_dq_by"], "library_ms": main["library_bwd_ms"],
+         **common},
+        {"name": "attention_any_bwd_dkv", "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:941",
+         "max_abs_err": max(max(e["bwd_errs"][1:]) for e in shapes), "ms": main["ms_dkv"],
+         "plain_ms": main["plain_bwd_ms"], "bound_ms": main["bound_dkv_ms"], "bound_by": main["bound_dkv_by"],
+         "library_ms": main["library_bwd_ms"], **common},
+    ]
+    return counts, entries
+
+
+def phase_scaled_sweep():
+    """Phase 18d: item C of ROADMAP queue 3 with the shipped build (the exact
+    rescale): phase 11a's 16 scaled-keys cases at head dims 64 and 80, each
+    forward and SDPA against the fp32 plain version rounded to bf16, every
+    forward within K1_TOL."""
+    from scenedino_torch.kernels.attention import attention_fwd, attention_plain
+
+    summary, worst = {}, 0.0
+    for D in (64, 80):
+        rows = []
+        for b, n, h in SCALED_SWEEP:
+            for seed in (200 + n,) + SCALED_SEEDS:
+                q, k, v = _scaled_keys(b, n, h, D, seed)
+                plain = attention_plain(q, k, v).float()
+                sdpa = torch.nn.functional.scaled_dot_product_attention(*(t.transpose(1, 2) for t in (q, k, v)))
+                rows.append(((attention_fwd(q, k, v)[0].float() - plain).abs().max().item(),
+                             (sdpa.transpose(1, 2).float() - plain).abs().max().item()))
+        summary[f"D{D}"] = {"cases": len(rows), "max": max(r[0] for r in rows),
+                            "above SDPA": sum(r[0] > r[1] for r in rows),
+                            "above 1.5625e-2": sum(r[0] > 1.5625e-2 for r in rows),
+                            "SDPA max": max(r[1] for r in rows)}
+        worst = max(worst, summary[f"D{D}"]["max"])
+    print(f"phase 18d scaled keys, the shipped build (exact rescale), 16 cases a head dim ({list(SCALED_SWEEP)} x "
+          f"seeds 200 + N, {list(SCALED_SEEDS)}), against the fp32 plain version rounded to bf16: "
+          f"{json.dumps(summary)} (bound {K1_TOL} every case)", flush=True)
+    if not worst <= K1_TOL:
+        fail(f"a K1 forward on scaled keys reads {worst} against its plain version (bound {K1_TOL})")
+    return summary
+
+
+def phase_every_shape(seed):
+    """Phase 18: every shape the JAX package takes. Returns (the launches of
+    its paths, the shape entries of K2, K3 and K6, the entries of K1 at every
+    other head dim)."""
+    from scenedino_torch.utils.timing import card_line
+
+    t_phase = time.perf_counter()
+    serving, k2_shapes, k3_shape = phase_long_rays(seed)
+    encode, k6_shapes = phase_long_encode_view(seed)
+    step, any_entries = phase_any_head_dim(seed)
+    phase_scaled_sweep()
+    counts = {k_: serving.get(k_, 0) + encode.get(k_, 0) + step.get(k_, 0) for k_ in serving}
+    print(f"phase 18 launches {json.dumps(counts)}; wall time {time.perf_counter() - t_phase:.1f} s (target 60 s); "
+          f"{card_line()}", flush=True)
+    return counts, {"point_render": k2_shapes, "probe_weights": k3_shape, "encode_view": k6_shapes}, any_entries
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -5119,17 +5561,25 @@ def main():
             or any("consumer" not in d80[name] for name in forwards)
             or any(r.get("spill_stores", 1) or r.get("spill_loads", 1) for r in d80.values())):
         fail(f"ptxas spilled in a D = 80 K1 kernel, or its report is missing: {d80}")
+    # K1 at every other head dim: forward, dq and dkv at each padded width (csrc/attention_any.cu)
+    anyk = {" ".join(m.groups()): r for name, r in build.ptxas_report(build.build_log("attention_any")).items()
+            for m in [re.search(r"(fwd|dq|dkv)_kernelILi(\d+)E", name)] if m}
+    print(f"phase 1 K1 kernels at every other head dim (csrc/attention_any.cu: the forward, dq and dkv at each "
+          f"padded width), registers and spills in bytes: {json.dumps(anyk)}", flush=True)
+    if len(anyk) != ANY_KERNELS or any(r.get("spill_stores", 1) or r.get("spill_loads", 1) for r in anyk.values()):
+        fail(f"ptxas spilled in csrc/attention_any.cu, or a report is missing ({len(anyk)} of {ANY_KERNELS}): {anyk}")
     # the point kernels (K2, K3, K4) in each of their hidden and output widths: mode, DC, EC, ET
     pk = {",".join(re.findall(r"Li(\d+)E", name.split("point_kernel")[-1])): r
           for name, r in build.ptxas_report(build.build_log("point_render")).items() if "point_kernel" in name}
     print(f"phase 1 point kernels by template arguments (mode 0 K2, 1 K3, 2 K4; hidden chunks of 64; output chunks "
-          f"of 64; output tail), registers and spills in bytes: {json.dumps(pk)}", flush=True)
+          f"of 64; output tail; the walk, 1 for several tiles a ray), registers and spills in bytes: {json.dumps(pk)}",
+          flush=True)
     if len(pk) != POINT_KERNELS or any(r.get("spill_stores", 1) or r.get("spill_loads", 1) for r in pk.values()):
         fail(f"ptxas spilled in a point kernel, or a report is missing ({len(pk)} of {POINT_KERNELS}): {pk}")
     ev = bench_encode_view.ptxas()
     print(f"phase 1 K6 encode_view kernels by template arguments (TF32: 1 for the fp32 state's three passes; "
-          f"hidden chunks of 64; output chunks of 64; output tail), registers and spills in bytes: "
-          f"{json.dumps(ev)}", flush=True)
+          f"the code's k16 steps; the walk, 1 for several tiles a ray; hidden chunks of 64; output chunks of 64; output "
+          f"tail), registers and spills in bytes: {json.dumps(ev)}", flush=True)
     if bench_encode_view.spilled(ev):
         fail(f"ptxas spilled in K6, or a report is missing ({len(ev)} of {bench_encode_view.INSTANTIATIONS}): {ev}")
 
@@ -5158,9 +5608,15 @@ def main():
         multi = phase_multi_device(args.seed, *trees, stage2_dir, scratch)
         eval_rest, k4_s4c = phase_eval_rest(args.seed, stage1_dir, stage2_dir, *trees, scratch)
         port_rest = phase_port_rest(args.seed, stage2_dir, scratch)
+    every_shape, long_shapes, any_entries = phase_every_shape(args.seed)
+    entries += any_entries
     paths = (serving, training, train_run, stage2, stage2_conv, evaluation, reference, kitti, d80_paths, re10k,
-             branches, dinov2, serving_rest, multi, eval_rest, port_rest)
+             branches, dinov2, serving_rest, multi, eval_rest, port_rest, every_shape)
     for e in entries:
+        if e["name"] in long_shapes:
+            e.setdefault("shapes", {}).update(long_shapes[e["name"]])
+            e["max_abs_err"] = max([e["max_abs_err"]] + [shape["max_abs_err"] for shape in
+                                                         long_shapes[e["name"]].values()])
         e["launches"] = sum(p[e["name"]] for p in paths)
         if e["name"] == "point_query":
             e["shapes"] = {"SSCBench evaluation block": k4_block, "S4C baseline block": k4_s4c}

@@ -34,9 +34,10 @@
 //     scale * log2(e) folded into one fma before ex2.approx: a row's max
 //     over the quad of lanes that hold it (two shuffles), maxima and sums
 //     as trees, the row sum kept per lane and summed over the quad once at
-//     the end. The rescale of O is lazy: the running max of a warp's rows
-//     moves only when a row's grows by more than 8 (P stays below 2^8), so
-//     after the first tiles O is seldom touched.
+//     the end. The rescale of O is exact (hopper.cuh): the running max of a
+//     warp's rows moves whenever a row's grows, so the dominant key's P is
+//     1 before its bf16 rounding, as in the plain softmax; O is touched only
+//     on the tiles where some row's max grew.
 //   * P is packed to bf16 in the order of the A operand (a_index), and
 //     O += P V reads the same walked V tile MN-major. S, P and O never
 //     touch shared memory during the walk.

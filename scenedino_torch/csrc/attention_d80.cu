@@ -42,9 +42,9 @@
 //   * The online softmax (hopper.cuh, shared with attention.cu) runs on S's
 //     registers in fp32, base 2, scale * log2(e) folded into one fma before
 //     ex2.approx; a row's max over its quad of lanes by two shuffles; the
-//     lazy rescale (a warp's running max moves only when a row's max grows by
-//     more than 8, so P stays below 2^8 before its bf16 rounding); the row
-//     sum kept per lane and summed over the quad once at the end.
+//     exact rescale (a warp's running max moves whenever a row's max grows,
+//     so the dominant key's P is 1 before its bf16 rounding); the row sum
+//     kept per lane and summed over the quad once at the end.
 //   * S of tile t + 1 is issued before O += P V of tile t, and the softmax of
 //     tile t + 1 runs while that product is in flight. The last tile is
 //     peeled off the loop, so that no wgmma commit depends on a branch.

@@ -86,10 +86,37 @@
 //     count of ballots; dead rows carry weight 0. The weights return through
 //     shared memory and each thread forms one weighted feature sum, so a
 //     ray's row goes out coalesced.
+//   * A ray of K > 64 samples spans ceil(K / 64) tiles of one ray each
+//     (samples [64 s, 64 s + 64) in tile s, the rows past K dead), which the
+//     same warpgroup walks in order; the copies of a ray's next tile (its
+//     base row again, 64 depths) land while this one computes, as between
+//     rays. One warp composites a tile from the transmittance the ray's
+//     earlier tiles left (a tile's last delta reads the next tile's first
+//     depth from memory), and the threads add the tile's weighted feature
+//     to the ray's running sums. The transmittance, E[z], the weight total
+//     and the feature sums are carried in the warpgroup's shared memory (the
+//     registers have nothing to spare); for the weight median the ray's
+//     weights stay there until its last tile, which counts the samples whose
+//     CDF over the total is below 0.5, 64 at a time. That array sets the
+//     ceiling: MAX_K = 256 samples a ray (1 KB a warpgroup, within the 227 KB
+//     of the fp32 state at d_hidden 128). K <= 64 keeps the packed tiles,
+//     in instantiations of their own (MULTI = 0) built as they were before
+//     the multi-tile walk: with one kernel for both, the one-tile walk ran
+//     12 % slower on an H100 (the serving frame, 0.808 against 0.718 ms).
+//     The multi-tile instantiations run three warpgroups a block (168
+//     registers a thread; `warpgroups`).
+//   * A z code of more than 16 columns (num_freqs 8-15 with the input, up to
+//     32) takes one more k16 step of the code product (bf16), or two more k8
+//     steps of three TF32 passes, whose A fragments are formed where each
+//     half chunk issues them (held for the whole tile they would not fit in
+//     128 registers). It is an instantiation of its own (CS = 2), so that the
+//     16-column kernels' products stay as they were, at three warpgroups a
+//     block as the multi-tile walk's.
 //   * The host side caches the shared-memory attribute, the SM count and
 //     the blocks an SM per device: a launch is the launch alone.
-// The state's type, the hidden chunks and the output layout are template
-// arguments; the wrapper's shapes map onto eight instantiations.
+// The state's type, the code's k16 steps, the walk (one tile a ray or
+// several), the hidden chunks and the output layout are template arguments;
+// the wrapper's shapes map onto thirty-two instantiations.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -105,8 +132,15 @@ using namespace hopper;
 constexpr int TP = 64;          // sample rows a tile: wgmma's M
 constexpr int WG = 128;         // threads a warpgroup
 constexpr int WGS = 4;          // warpgroups a block, one block an SM: 128 registers a thread
-constexpr int CZ = 16;          // z-code columns, zero-padded
-constexpr int MAX_K = 64;
+// warpgroups a block of the multi-tile walk and of the 32-column code: three,
+// 168 registers a thread (at 128 ptxas spilled in three of their TF32
+// instantiations)
+template <int CS, int MULTI>
+__host__ __device__ constexpr int warpgroups() {
+  return CS == 2 || MULTI ? 3 : WGS;
+}
+constexpr int CZ = 32;          // z-code columns at most (16 a k16 step)
+constexpr int MAX_K = 256;      // samples a ray: a multi-tile ray's weights stay in shared memory
 constexpr int MAX_D = 128;
 constexpr int MAX_E = 68;
 constexpr int MAX_RAYS = TP / 8;  // rays a tile at the least padding
@@ -125,7 +159,7 @@ struct Params {
   float* depth;         // (N,)
   float* dino;          // (N, E - 1)
   float* rgb;           // (N, 3)
-  int N, K, kshift, D, E, Cz, num_freqs, include_input, inv_z, hard_cap, median;
+  int N, K, kshift, nseg, D, E, Cz, num_freqs, include_input, inv_z, hard_cap, median;  // nseg: tiles a ray
   float zn_sub, zn_den, freq_factor;
   int vec, units;                       // a base row copied in 16-byte (vec) or 4-byte units, `units` a row
   uint32_t inv_units, inv_k, inv_f;     // reciprocal() of units, K and E - 1
@@ -139,8 +173,9 @@ __device__ __forceinline__ int quotient(int n, uint32_t m) { return m ? (int)__u
 
 // Shared memory of a block. TF32: the fp32 state (two copies, hi and lo, of
 // each weight tile); DC hidden chunks of 64; EC output chunks of 64 and an
-// output tail of ET columns (8 or 24).
-template <int TF32, int DC, int EC, int ET>
+// output tail of ET columns (8 or 24); MULTI: the multi-tile walk's weights
+// of a whole ray and its carried state.
+template <int TF32, int DC, int EC, int ET, int MULTI, int NWG>
 struct Layout {
   static constexpr int DP = 64 * DC;
   static constexpr int EP = 64 * EC + ET;
@@ -158,9 +193,11 @@ struct Layout {
   static constexpr int BASE = OUT + TP * LDO * 4;             // 2 x (MAX_RAYS, DP)
   static constexpr int Z = BASE + 2 * MAX_RAYS * DP * 4;      // 2 x TP
   static constexpr int ZS = Z + 2 * TP * 4;                   // 2 x MAX_RAYS
-  static constexpr int W = ZS + 2 * MAX_RAYS * 4;             // TP
-  static constexpr int WG_BYTES = (W + TP * 4 + 1023) / 1024 * 1024;
-  static constexpr int TOTAL = WG0 + WGS * WG_BYTES;
+  static constexpr int W = ZS + 2 * MAX_RAYS * 4;             // TP, or MAX_K: a multi-tile ray's weights
+  // a multi-tile ray's carried state: transmittance, depth, weight total, then its feature sums
+  static constexpr int CARRY = W + (MULTI ? MAX_K : TP) * 4;
+  static constexpr int WG_BYTES = (CARRY + (MULTI ? 3 + MAX_E : 0) * 4 + 1023) / 1024 * 1024;
+  static constexpr int TOTAL = WG0 + NWG * WG_BYTES;
 };
 
 // `v`, opaque to the compiler where it is called: what is computed from it
@@ -204,10 +241,11 @@ __device__ __forceinline__ float code_value(const Params& P, float zn, int c) {
   return sinf(__fadd_rn(__fmul_rn(zn, freq), (i & 1) ? HALF_PI : 0.f));
 }
 
-// the tile's base rows (padded to DP columns), depths (padded to Kp a ray)
-// and z factors into one set of buffers, by the warpgroup's threads
-template <int DP>
-__device__ __forceinline__ void prefetch(const Params& P, int ray0, int rpt, float* s_base, float* s_z,
+// the tile's base rows (padded to DP columns), depths (padded to Kp a ray;
+// of a ray of K > 64, samples [64 seg, 64 seg + 64)) and z factors into one
+// set of buffers, by the warpgroup's threads
+template <int DP, int MULTI>
+__device__ __forceinline__ void prefetch(const Params& P, int ray0, int rpt, int seg, float* s_base, float* s_z,
                                          float* s_zs, int t) {
   const int rays = min(rpt, P.N - ray0);
   const int K = P.K, units = P.units;
@@ -221,9 +259,14 @@ __device__ __forceinline__ void prefetch(const Params& P, int ray0, int rpt, flo
     }
   }
   const float* z = P.z + (size_t)ray0 * K;
-  for (int i = t; i < rays * K; i += WG) {
-    const int rl = quotient(i, P.inv_k);
-    cp_async_4(s_z + (rl << P.kshift) + (i - rl * K), z + i);
+  if constexpr (MULTI) {
+    const int k0 = seg * TP;
+    for (int i = t; i < min(TP, K - k0); i += WG) cp_async_4(s_z + i, z + k0 + i);
+  } else {
+    for (int i = t; i < rays * K; i += WG) {
+      const int rl = quotient(i, P.inv_k);
+      cp_async_4(s_z + (rl << P.kshift) + (i - rl * K), z + i);
+    }
   }
   if (t < rays) cp_async_4(s_zs + t, P.zscale + ray0 + t);
 }
@@ -288,10 +331,93 @@ __device__ __forceinline__ float composite_ray(const Params& P, const float* s_o
   return s_z[pb + min(__popc(below0) + __popc(below1), K - 1)];
 }
 
-template <int TF32, int DC, int EC, int ET>
-__global__ void __launch_bounds__(WGS * WG, 1) encode_view_kernel(const Params P) {
-  using L = Layout<TF32, DC, EC, ET>;
+// Tile `seg` of ray r of K > 64 samples, by one warp, two samples a lane:
+// its weights from the transmittance carried in s_carry[0] into s_w[64 seg
+// + k]; E[z] and the weight total added to s_carry[1] and s_carry[2]; the
+// transmittance carried on. On the ray's last tile the weight median, if
+// asked for, replaces s_carry[1]. The delta of the tile's last sample reads
+// the next tile's first depth from memory.
+__device__ __forceinline__ void composite_segment(const Params& P, const float* s_out, int ldo, const float* s_z,
+                                                  float* s_w, float* s_carry, int seg, int r, int lane) {
+  const int K = P.K, k0 = seg * TP;
+  const float* zr = P.z + (size_t)r * K;
+  float alpha[2], f[2], zk[2];
+#pragma unroll
+  for (int t = 0; t < 2; ++t) {
+    const int p = 2 * lane + t, k = k0 + p;
+    alpha[t] = 0.f;
+    f[t] = 1.f;
+    zk[t] = 0.f;
+    if (k < K) {
+      const float sigma = softplus(s_out[p * ldo]);
+      zk[t] = s_z[p];
+      const float znext = p + 1 < TP ? s_z[p + 1] : (k + 1 < K ? __ldg(zr + k + 1) : 0.f);
+      const float delta = k + 1 < K ? __fsub_rn(znext, zk[t]) : 1e10f;
+      alpha[t] = 1.f - expf(-fabsf(delta) * fmaxf(sigma, 0.f));
+      if (P.hard_cap && k == K - 1) alpha[t] = 1.f;
+      f[t] = fmaxf(1.f - alpha[t], 1e-10f);
+    }
+  }
+  float incl = f[0] * f[1];
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const float v = __shfl_up_sync(FULL, incl, o);
+    if (lane >= o) incl *= v;
+  }
+  const float carried = s_carry[0];
+  float excl = __shfl_up_sync(FULL, incl, 1);
+  if (lane == 0) excl = 1.f;
+  excl *= carried;
+  const float w0 = alpha[0] * excl, w1 = alpha[1] * (excl * f[0]);
+  const int k = k0 + 2 * lane;
+  if (k < K) s_w[k] = w0;
+  if (k + 1 < K) s_w[k + 1] = w1;
+  float total = w0 + w1, d = __fadd_rn(__fmul_rn(w0, zk[0]), __fmul_rn(w1, zk[1]));
+#pragma unroll
+  for (int o = 16; o >= 1; o >>= 1) {
+    total += __shfl_xor_sync(FULL, total, o);
+    d += __shfl_xor_sync(FULL, d, o);
+  }
+  const float t_next = carried * __shfl_sync(FULL, incl, 31);
+  __syncwarp();
+  if (lane == 0) {
+    s_carry[0] = t_next;
+    s_carry[1] += d;
+    s_carry[2] += total;
+  }
+  if (!P.median || k0 + TP < K) return;
+  __syncwarp();  // every weight of the ray and its total are in shared memory
+  // the median: count the samples whose CDF over the total is below 0.5, 64 at a time
+  const float den = fmaxf(s_carry[2], 1e-10f);
+  float base = 0.f;
+  int count = 0;
+  for (int c = 0; c < K; c += TP) {
+    const int kc = c + 2 * lane;
+    const float v0 = kc < K ? s_w[kc] : 0.f, v1 = kc + 1 < K ? s_w[kc + 1] : 0.f;
+    float cum = v0 + v1;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const float v = __shfl_up_sync(FULL, cum, o);
+      if (lane >= o) cum += v;
+    }
+    cum += base;
+    float before = __shfl_up_sync(FULL, cum, 1);
+    if (lane == 0) before = base;
+    const unsigned below0 = __ballot_sync(FULL, kc < K && __fdiv_rn(before + v0, den) < 0.5f);
+    const unsigned below1 = __ballot_sync(FULL, kc + 1 < K && __fdiv_rn(cum, den) < 0.5f);
+    count += __popc(below0) + __popc(below1);
+    base = __shfl_sync(FULL, cum, 31);
+  }
+  __syncwarp();
+  if (lane == 0) s_carry[1] = __ldg(zr + min(count, K - 1));
+}
+
+template <int TF32, int CS, int MULTI, int DC, int EC, int ET>
+__global__ void __launch_bounds__(warpgroups<CS, MULTI>() * WG, 1) encode_view_kernel(const Params P) {
+  constexpr int NWG = warpgroups<CS, MULTI>();
+  using L = Layout<TF32, DC, EC, ET, MULTI, NWG>;
   constexpr int DP = L::DP, KW = L::KW, KT = L::KT;
+  static_assert(CS * 16 <= KW, "a W_z tile row holds the code's columns");
   constexpr int EN = EC > 0 ? EC : 1;  // extent of the 64-column accumulators (unused at EC = 0)
   extern __shared__ unsigned char smem_raw[];
   // the first 1024-byte boundary, reached by indexing the shared array
@@ -341,7 +467,7 @@ __global__ void __launch_bounds__(WGS * WG, 1) encode_view_kernel(const Params P
   for (int e = tid; e < L::EP; e += blockDim.x) s_b2[e] = e < E ? P.b2[e] : 0.f;
   // the prefetch buffers start at 0: what no copy writes (base columns past D,
   // dead rows' depths) stays finite
-  for (int i = tid; i < WGS * L::WG_BYTES / 4; i += blockDim.x) {
+  for (int i = tid; i < NWG * L::WG_BYTES / 4; i += blockDim.x) {
     const int w = i / (L::WG_BYTES / 4), o = i % (L::WG_BYTES / 4);
     if (o * 4 >= L::BASE) reinterpret_cast<float*>(sm + L::WG0 + w * L::WG_BYTES)[o] = 0.f;
   }
@@ -352,25 +478,36 @@ __global__ void __launch_bounds__(WGS * WG, 1) encode_view_kernel(const Params P
   unsigned char* own = sm + L::WG0 + wg * L::WG_BYTES;
   float* s_out = reinterpret_cast<float*>(own + L::OUT);
   float* s_w = reinterpret_cast<float*>(own + L::W);
+  float* s_carry = reinterpret_cast<float*>(own + L::CARRY);
   const int row0 = warp * 16 + lane / 4;
   const int K = P.K, kshift = P.kshift, rpt = TP >> kshift;
   const int ntiles = (P.N + rpt - 1) / rpt;
-  const int stride = gridDim.x * WGS;
+  const int stride = gridDim.x * NWG;
 
-  int tile = blockIdx.x * WGS + wg;
+  // the walk: tile after tile of this warpgroup, and within a ray of K > 64
+  // samples its P.nseg tiles `seg` in order; each step's copies are issued
+  // one step ahead
+  int tile = blockIdx.x * NWG + wg, seg = 0;
   if (tile < ntiles) {
-    prefetch<DP>(P, tile * rpt, rpt, reinterpret_cast<float*>(own + L::BASE), reinterpret_cast<float*>(own + L::Z),
-                 reinterpret_cast<float*>(own + L::ZS), t);
+    prefetch<DP, MULTI>(P, tile * rpt, rpt, 0, reinterpret_cast<float*>(own + L::BASE),
+                 reinterpret_cast<float*>(own + L::Z), reinterpret_cast<float*>(own + L::ZS), t);
   }
   cp_async_commit();
-  for (int buf = 0; tile < ntiles; tile += stride, buf ^= 1) {
+  for (int buf = 0; tile < ntiles; buf ^= 1) {
     const int ray0 = tile * rpt;
     float* s_base = reinterpret_cast<float*>(own + L::BASE) + buf * MAX_RAYS * DP;
     float* s_z = reinterpret_cast<float*>(own + L::Z) + buf * TP;
     float* s_zs = reinterpret_cast<float*>(own + L::ZS) + buf * MAX_RAYS;
-    if (tile + stride < ntiles) {
+    int next_tile = tile + stride, next_seg = 0;
+    if constexpr (MULTI) {
+      if (seg + 1 < P.nseg) {
+        next_tile = tile;
+        next_seg = seg + 1;
+      }
+    }
+    if (next_tile < ntiles) {
       const int nb = buf ^ 1;
-      prefetch<DP>(P, (tile + stride) * rpt, rpt, reinterpret_cast<float*>(own + L::BASE) + nb * MAX_RAYS * DP,
+      prefetch<DP, MULTI>(P, next_tile * rpt, rpt, next_seg, reinterpret_cast<float*>(own + L::BASE) + nb * MAX_RAYS * DP,
                    reinterpret_cast<float*>(own + L::Z) + nb * TP, reinterpret_cast<float*>(own + L::ZS) + nb * MAX_RAYS,
                    t);
     }
@@ -404,8 +541,17 @@ __global__ void __launch_bounds__(WGS * WG, 1) encode_view_kernel(const Params P
 #pragma unroll
         for (int i = 0; i < 32; ++i) acc[i] = 0.f;
         fence_registers(acc);
+        uint32_t ca2[4];  // CS = 2: columns 16-31, formed chunk by chunk
+        if constexpr (CS == 2) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int cc = 16 + 2 * q + 8 * (i >> 1);
+            ca2[i] = pack_bf16(code_value(P, zn[i & 1], cc), code_value(P, zn[i & 1], cc + 1));
+          }
+        }
         wgmma_fence();
         wgmma_m64n64k16_rs<0>(acc, ca, desc(s0, L::WZ + c * TILE_BYTES, 0), 0);
+        if constexpr (CS == 2) wgmma_m64n64k16_rs<0>(acc, ca2, desc(s0, L::WZ + c * TILE_BYTES, 1), 1);
         wgmma_commit();
         wgmma_wait<0>();
         fence_registers(acc);
@@ -494,6 +640,24 @@ __global__ void __launch_bounds__(WGS * WG, 1) encode_view_kernel(const Params P
           wgmma_m64n32k8_tf32_rs(acc, ch[s], bl, 1);
           wgmma_m64n32k8_tf32_rs(acc, ch[s], bh, 1);
         }
+        if constexpr (CS == 2) {
+#pragma unroll
+          for (int s = 2; s < 4; ++s) {  // columns 16-31, formed here: held for the tile they would not fit
+            uint32_t sh[4], sl[4];
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              const float v = code_value(P, zn[i & 1], 8 * s + q + 4 * (i >> 1));
+              const float hv = tf32_rna(v);
+              sh[i] = __float_as_uint(hv);
+              sl[i] = __float_as_uint(tf32_rna(__fsub_rn(v, hv)));
+            }
+            const uint64_t bh = desc(s0, L::WZ + c * TILE_BYTES + (half % 2) * 4096, s);
+            const uint64_t bl = desc(s0, L::WZ + (DC + c) * TILE_BYTES + (half % 2) * 4096, s);
+            wgmma_m64n32k8_tf32_rs(acc, sl, bh, 1);
+            wgmma_m64n32k8_tf32_rs(acc, sh, bl, 1);
+            wgmma_m64n32k8_tf32_rs(acc, sh, bh, 1);
+          }
+        }
         wgmma_commit();
         wgmma_wait<0>();
         fence_registers(acc);
@@ -568,26 +732,53 @@ __global__ void __launch_bounds__(WGS * WG, 1) encode_view_kernel(const Params P
     }
     named_barrier_sync(1 + wg, WG);
 
-    const int rays = min(rpt, P.N - ray0);
-    for (int rl = warp; rl < rays; rl += WG / 32) {
-      const int r = ray0 + rl;
-      float total;
-      const float depth = composite_ray(P, s_out, L::LDO, s_z, s_w, rl << kshift, lane, total);
-      if (lane == 0) P.depth[r] = depth;
-      if (lane < 3) P.rgb[(size_t)r * 3 + lane] = __ldg(P.color + (size_t)r * 3 + lane) * total;
-    }
-    named_barrier_sync(1 + wg, WG);
-    // the weighted feature, one output a thread
-    const int F = E - 1;
-    for (int i = t; i < rays * F; i += WG) {
-      const int rl = quotient(i, P.inv_f), col = i - rl * F;
-      const int pb = rl << kshift;
-      float sum = 0.f;
+    if constexpr (!MULTI) {
+      const int rays = min(rpt, P.N - ray0);
+      for (int rl = warp; rl < rays; rl += WG / 32) {
+        const int r = ray0 + rl;
+        float total;
+        const float depth = composite_ray(P, s_out, L::LDO, s_z, s_w, rl << kshift, lane, total);
+        if (lane == 0) P.depth[r] = depth;
+        if (lane < 3) P.rgb[(size_t)r * 3 + lane] = __ldg(P.color + (size_t)r * 3 + lane) * total;
+      }
+      named_barrier_sync(1 + wg, WG);
+      // the weighted feature, one output a thread
+      const int F = E - 1;
+      for (int i = t; i < rays * F; i += WG) {
+        const int rl = quotient(i, P.inv_f), col = i - rl * F;
+        const int pb = rl << kshift;
+        float sum = 0.f;
 #pragma unroll 4
-      for (int k = 0; k < K; ++k) sum = fmaf(s_w[pb + k], s_out[(pb + k) * L::LDO + 1 + col], sum);
-      P.dino[(size_t)ray0 * F + i] = sum;
+        for (int k = 0; k < K; ++k) sum = fmaf(s_w[pb + k], s_out[(pb + k) * L::LDO + 1 + col], sum);
+        P.dino[(size_t)ray0 * F + i] = sum;
+      }
+    } else {
+      // tile `seg` of a ray of K > 64 samples
+      const int F = E - 1;
+      if (seg == 0) {
+        for (int i = t; i < 3 + F; i += WG) s_carry[i] = i == 0 ? 1.f : 0.f;
+        named_barrier_sync(1 + wg, WG);
+      }
+      if (warp == 0) composite_segment(P, s_out, L::LDO, s_z, s_w, s_carry, seg, ray0, lane);
+      named_barrier_sync(1 + wg, WG);
+      // the tile's weighted feature added to the ray's sums, one output a thread
+      const int k0 = seg * TP, n = min(TP, K - k0);
+      const bool last = k0 + TP >= K;
+      for (int col = t; col < F; col += WG) {
+        float sum = s_carry[3 + col];
+        for (int p = 0; p < n; ++p) sum = fmaf(s_w[k0 + p], s_out[p * L::LDO + 1 + col], sum);
+        if (last) {
+          P.dino[(size_t)ray0 * F + col] = sum;
+        } else {
+          s_carry[3 + col] = sum;
+        }
+      }
+      if (last && t == 0) P.depth[ray0] = s_carry[1];
+      if (last && t < 3) P.rgb[(size_t)ray0 * 3 + t] = __ldg(P.color + (size_t)ray0 * 3 + t) * s_carry[2];
     }
     named_barrier_sync(1 + wg, WG);  // the buffers are free for the next tile's copies and products
+    tile = next_tile;
+    seg = next_seg;
   }
   cp_async_wait<0>();
 }
@@ -597,10 +788,11 @@ struct Cached {
   int blocks = 0;  // blocks a launch: blocks an SM times SMs
 };
 
-template <int TF32, int DC, int EC, int ET>
+template <int TF32, int CS, int MULTI, int DC, int EC, int ET>
 int launch_shape(const Params& P, void* stream) {
-  const auto kernel = encode_view_kernel<TF32, DC, EC, ET>;
-  constexpr int smem = Layout<TF32, DC, EC, ET>::TOTAL + 1024;  // room to align the tiles
+  const auto kernel = encode_view_kernel<TF32, CS, MULTI, DC, EC, ET>;
+  constexpr int NWG = warpgroups<CS, MULTI>();
+  constexpr int smem = Layout<TF32, DC, EC, ET, MULTI, NWG>::TOTAL + 1024;  // room to align the tiles
   static_assert(smem <= 232448, "the block's shared memory must fit an H100 SM's 227 KB");
   static Cached cached[MAX_DEVICES];
   int dev = 0;
@@ -614,24 +806,36 @@ int launch_shape(const Params& P, void* stream) {
     }
     int sms = 0, per_sm = 0;
     if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess) return (int)err;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, WGS * WG, smem);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, NWG * WG, smem);
     if (err != cudaSuccess) return (int)err;
     c.blocks = (per_sm > 0 ? per_sm : 1) * sms;
     c.ready = true;
   }
   const int rpt = TP >> P.kshift;
   const int ntiles = (P.N + rpt - 1) / rpt;
-  int blocks = (ntiles + WGS - 1) / WGS;
+  int blocks = (ntiles + NWG - 1) / NWG;
   if (blocks > c.blocks) blocks = c.blocks;
-  kernel<<<blocks, WGS * WG, smem, (cudaStream_t)stream>>>(P);
+  kernel<<<blocks, NWG * WG, smem, (cudaStream_t)stream>>>(P);
   return (int)cudaGetLastError();
 }
 
 // the hidden width to 64 or 128, the output width to 24 (E <= 24) or 64 + 8
+template <int TF32, int CS, int MULTI>
+int launch(const Params& P, void* stream) {
+  if (P.D <= 64) {
+    return P.E <= 24 ? launch_shape<TF32, CS, MULTI, 1, 0, 24>(P, stream)
+                     : launch_shape<TF32, CS, MULTI, 1, 1, 8>(P, stream);
+  }
+  return P.E <= 24 ? launch_shape<TF32, CS, MULTI, 2, 0, 24>(P, stream)
+                   : launch_shape<TF32, CS, MULTI, 2, 1, 8>(P, stream);
+}
+
+// the code to one k16 step (16 columns) or two (32); the one-tile walk up to
+// 64 samples a ray, the multi-tile walk past it
 template <int TF32>
 int launch(const Params& P, void* stream) {
-  if (P.D <= 64) return P.E <= 24 ? launch_shape<TF32, 1, 0, 24>(P, stream) : launch_shape<TF32, 1, 1, 8>(P, stream);
-  return P.E <= 24 ? launch_shape<TF32, 2, 0, 24>(P, stream) : launch_shape<TF32, 2, 1, 8>(P, stream);
+  if (P.Cz <= 16) return P.nseg > 1 ? launch<TF32, 1, 1>(P, stream) : launch<TF32, 1, 0>(P, stream);
+  return P.nseg > 1 ? launch<TF32, 2, 1>(P, stream) : launch<TF32, 2, 0>(P, stream);
 }
 
 }  // namespace
@@ -648,12 +852,12 @@ extern "C" int encode_view(
   if (N <= 0 || N > INT_MAX - TP || K <= 0 || K > MAX_K || D <= 0 || D > MAX_D || E < 2 || E > MAX_E || Cz <= 0 || Cz > CZ ||
       Cz != (include_input ? 1 : 0) + 2 * num_freqs)
     return (int)cudaErrorInvalidValue;
-  const int kshift = K <= 8 ? 3 : (K <= 16 ? 4 : (K <= 32 ? 5 : 6));  // Kp = 2^kshift
+  const int kshift = K <= 8 ? 3 : (K <= 16 ? 4 : (K <= 32 ? 5 : 6));  // Kp = 2^kshift; 64 past 64 samples
   const int vec = D % 4 == 0 && (reinterpret_cast<uintptr_t>(base) & 15) == 0;
   const int units = vec ? D / 4 : D;
   Params P = {(const float*)base, (const float*)z, (const float*)zscale, w_z, w2, (const float*)b2,
               (const float*)color, (float*)depth, (float*)dino, (float*)rgb,
-              (int)N, K, kshift, D, E, Cz, num_freqs, include_input, inv_z, hard_cap, median,
+              (int)N, K, kshift, (K + TP - 1) / TP, D, E, Cz, num_freqs, include_input, inv_z, hard_cap, median,
               zn_sub, zn_den, freq_factor, vec, units, reciprocal(units), reciprocal(K), reciprocal(E - 1)};
   return bf16 ? launch<0>(P, stream) : launch<1>(P, stream);
 }

@@ -632,29 +632,19 @@ __device__ __forceinline__ void store_acc80(Rows80<TILE>& rows, const Acc80& d, 
 // replaced by P = exp2(S scale log2(e) - m_new) in place (`pack_p` makes
 // it the A operand of O += P V). Maxima and sums are taken as trees, not
 // chains. MASK: columns at or past `nvalid` (key rows past N) are -inf.
-// The rescale is lazy: m moves only when a row's max of this tile exceeds
-// it by more than 8 (P then stays below 2^8) somewhere in the warp;
-// otherwise alpha is 1 and O is left as it is (exact: O and l share the
-// same m). Returns whether O must be rescaled (the same in every lane of
-// the warp).
-// K1_RESCALE_SLACK is that threshold (0: the max moves whenever it grows,
-// the exact rescale, so the dominant key's P is 1 before its bf16
-// rounding); K1_L_FROM_BF16 = 1 sums l from P as pack_p rounds it, so
-// that O's numerator and its denominator l hold the same P.
+// The rescale is exact: m moves whenever a row's max of this tile exceeds
+// it somewhere in the warp, so the dominant key's P is 1 before its bf16
+// rounding, as in the plain version's softmax; otherwise alpha is 1 and O is
+// left as it is. Returns whether O must be rescaled (the same in every lane
+// of the warp).
+// K1_RESCALE_SLACK = s > 0 builds the lazy rescale instead (m moves only
+// where the max exceeds it by more than s, so P stays below 2^s): the
+// rescale these kernels shipped with until the exact one replaced it, built
+// only by tools/softmax_sweep.py for comparison. At s = 8 it read one bf16
+// step more than scaled_dot_product_attention on a peaked softmax (PERF.md).
 #ifndef K1_RESCALE_SLACK
-#define K1_RESCALE_SLACK 8
+#define K1_RESCALE_SLACK 0
 #endif
-#ifndef K1_L_FROM_BF16
-#define K1_L_FROM_BF16 0
-#endif
-
-__device__ __forceinline__ float p_summed(float p) {
-#if K1_L_FROM_BF16
-  return __bfloat162float(__float2bfloat16_rn(p));
-#else
-  return p;
-#endif
-}
 
 template <bool MASK>
 __device__ __forceinline__ bool softmax_scores(float (&s)[32], float (&m)[2], float (&l)[2], float (&alpha)[2],
@@ -697,7 +687,7 @@ __device__ __forceinline__ bool softmax_scores(float (&s)[32], float (&m)[2], fl
       const int i = 4 * j + 2 * hi;
       s[i] = fast_exp2(fmaf(s[i], scale_log2, neg_m));
       s[i + 1] = fast_exp2(fmaf(s[i + 1], scale_log2, neg_m));
-      t[j] = p_summed(s[i]) + p_summed(s[i + 1]);
+      t[j] = s[i] + s[i + 1];
     }
 #pragma unroll
     for (int w = 4; w >= 1; w /= 2) {

@@ -88,10 +88,28 @@
 //     through shared memory and the threads form the per-ray sums of the
 //     feature and colour columns, each output one thread, coalesced. K4
 //     writes the buffer out with coalesced stores.
+//   * A ray of K > 64 samples (K2, K3) spans ceil(K / 64) tiles, and its
+//     tiles are walked in order by one warpgroup, one ray at a time: tile s
+//     holds samples [64 s, 64 s + 64), the rows past K dead (they repeat the
+//     last sample; weight 0). One warp composites the tile's 64 samples as
+//     above, from the transmittance the ray's earlier tiles left (the
+//     delta of a tile's last sample reads the next tile's first depth from
+//     memory), and the threads add the tile's weighted feature and colour
+//     to the ray's running sums. The transmittance, E[z] and those sums are
+//     carried from tile to tile in the warpgroup's shared memory, not in
+//     registers (the D = 128 instantiations run at 168 registers a thread
+//     without a spill, with nothing to spare). For the weight median the
+//     ray's weights stay in shared memory until its last tile, which then
+//     counts the samples whose CDF over the total is below 0.5 in chunks of
+//     64, as the one-tile walk does. That array sets the ceiling: KMAX = 256
+//     samples a ray (1 KB a warpgroup; the JAX package's own tests and tools
+//     render at up to 256). K <= 64 keeps the packed layout above.
 //   * The host side caches the shared-memory attribute, the SM count and
 //     the blocks an SM per device: a launch is the launch alone.
-// The output mode, the hidden chunks and the output layout are template
-// arguments; the wrappers' shapes map onto ten instantiations.
+// The output mode, the hidden chunks, the output layout and the walk (one
+// tile a ray or several) are template arguments, so that the one-tile
+// kernels are built as they were before the multi-tile walk; the wrappers'
+// shapes map onto sixteen instantiations.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -123,6 +141,7 @@ using namespace hopper;
 enum Mode { RENDER = 0, PROBE = 1, QUERY = 2 };
 
 constexpr int TP = 64;          // points a tile: wgmma's M
+constexpr int KMAX = 256;       // samples a ray: the multi-tile walk keeps a ray's weights in shared memory
 constexpr int WG = 128;         // threads a warpgroup
 constexpr int CODE_COLS = 64;   // code columns, zero-padded: four k-steps
 constexpr float EPS = 1e-3f;
@@ -152,8 +171,9 @@ struct Params {
 };
 
 // Shared memory of a block: DC hidden chunks of 64, EC output chunks of 64
-// and an 8-column output tail (ET = 8) or none (ET = 0).
-template <int DC, int EC, int ET>
+// and an 8-column output tail (ET = 8) or none (ET = 0); MULTI: the
+// multi-tile walk's weights of a whole ray and its carried state.
+template <int DC, int EC, int ET, int MULTI>
 struct Layout {
   static constexpr int DP = 64 * DC;
   static constexpr int EP = 64 * EC + ET;
@@ -174,9 +194,12 @@ struct Layout {
   static constexpr int H = TILE_BYTES;
   static constexpr int OUT = 0;
   static constexpr int Z = OUT_BYTES;
-  static constexpr int W = Z + TP * 4;
-  static constexpr int RGB = W + TP * 4;
-  static constexpr int WG_BYTES = (RGB + TP * 3 * 4 + 1023) / 1024 * 1024;
+  static constexpr int W = Z + TP * 4;                         // TP, or KMAX: a multi-tile ray's weights
+  static constexpr int RGB = W + (MULTI ? KMAX : TP) * 4;
+  // a multi-tile ray's carried state: transmittance, depth, weight total,
+  // then its feature and colour sums (at most 127 + 3)
+  static constexpr int CARRY = RGB + TP * 3 * 4;
+  static constexpr int WG_BYTES = (CARRY + (MULTI ? 3 + 130 : 0) * 4 + 1023) / 1024 * 1024;
   static constexpr int TOTAL = WG0 + PR_WGS * WG_BYTES;
 };
 
@@ -267,12 +290,18 @@ __device__ __forceinline__ float code_value(const CodeColumn& col, float x, floa
 // One row p of the tile, as thread lane q sees it: the code's inputs
 // (x, y, zz), the corner rows and weights of the feature grid; lanes 0-2
 // the colour channel q (RENDER), lane 3 the sample depth.
-template <int MODE>
-__device__ __forceinline__ void setup_row(const Params& P, const float* cam, int p, int ray0, int rpt, int q,
+template <int MODE, int MULTI>
+__device__ __forceinline__ void setup_row(const Params& P, const float* cam, int p, int ray0, int rpt, int seg, int q,
                                           float3& in, int4& idx, float2& wxy, float* s_z, float* s_rgb) {
   const int K = MODE == QUERY ? 1 : P.K;
-  const int rl = p / K;
-  const int k = p - rl * K;
+  int rl, k;
+  if constexpr (MULTI) {  // tile `seg` of one ray: rows past K repeat its last sample; nobody reads them
+    rl = 0;
+    k = min(seg * TP + p, K - 1);
+  } else {
+    rl = p / K;
+    k = p - rl * K;
+  }
   const int r = ray0 + rl;
   const int rr = (rl < rpt && r < P.R) ? r : 0;  // rows past the tile's rays compute ray 0; nobody reads them
   float pt[3], zv = 0.f;
@@ -458,9 +487,95 @@ __device__ __forceinline__ float composite_ray(const Params& P, const float* s_o
   return s_z[pb + at];
 }
 
-template <int MODE, int DC, int EC, int ET>
+// Tile `seg` of ray r of K > 64 samples, by one warp, two samples a lane:
+// its weights from the transmittance carried in s_carry[0] into s_w[64 seg
+// + k] (K3: and out), E[z] and the weight total added to s_carry[1] and
+// s_carry[2]; the transmittance carried on. On the ray's last tile (K2) the
+// weight median, if asked for, replaces s_carry[1]. The delta of the tile's
+// last sample reads the next tile's first depth from memory.
+template <int MODE>
+__device__ __forceinline__ void composite_segment(const Params& P, const float* s_out, int ldo, const float* s_z,
+                                                  float* s_w, float* s_carry, int seg, int r, int lane) {
+  const int K = P.K, k0 = seg * TP;
+  const float* zr = P.z + (size_t)r * K;
+  float alpha[2], f[2], zk[2];
+#pragma unroll
+  for (int t = 0; t < 2; ++t) {
+    const int p = 2 * lane + t, k = k0 + p;
+    alpha[t] = 0.f;
+    f[t] = 1.f;
+    zk[t] = 0.f;
+    if (k < K) {
+      const float sigma = softplus(s_out[p * ldo]);
+      zk[t] = s_z[p];
+      const float znext = p + 1 < TP ? s_z[p + 1] : (k + 1 < K ? __ldg(zr + k + 1) : 0.f);
+      const float delta = k + 1 < K ? znext - zk[t] : 1e10f;
+      alpha[t] = 1.f - expf(-fabsf(delta) * fmaxf(sigma, 0.f));
+      if (P.hard_cap && k == K - 1) alpha[t] = 1.f;
+      f[t] = fmaxf(1.f - alpha[t], 1e-10f);
+    }
+  }
+  float incl = f[0] * f[1];
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const float v = __shfl_up_sync(FULL, incl, o);
+    if (lane >= o) incl *= v;
+  }
+  const float carried = s_carry[0];
+  float excl = __shfl_up_sync(FULL, incl, 1);
+  if (lane == 0) excl = 1.f;
+  excl *= carried;
+  const float w0 = alpha[0] * excl, w1 = alpha[1] * (excl * f[0]);
+  const int k = k0 + 2 * lane;
+  if (k < K) s_w[k] = w0;
+  if (k + 1 < K) s_w[k + 1] = w1;
+  if (MODE == PROBE) {
+    if (k < K) P.out[(size_t)r * K + k] = w0;
+    if (k + 1 < K) P.out[(size_t)r * K + k + 1] = w1;
+  }
+  float total = w0 + w1, d = w0 * zk[0] + w1 * zk[1];
+#pragma unroll
+  for (int o = 16; o >= 1; o >>= 1) {
+    total += __shfl_xor_sync(FULL, total, o);
+    d += __shfl_xor_sync(FULL, d, o);
+  }
+  const float t_next = carried * __shfl_sync(FULL, incl, 31);
+  __syncwarp();
+  if (lane == 0) {
+    s_carry[0] = t_next;
+    s_carry[1] += d;
+    s_carry[2] += total;
+  }
+  if (MODE != RENDER || !P.median || k0 + TP < K) return;
+  __syncwarp();  // every weight of the ray and its total are in shared memory
+  // the median: count the samples whose CDF over the total is below 0.5, 64 at a time
+  const float den = fmaxf(s_carry[2], 1e-10f);
+  float base = 0.f;
+  int count = 0;
+  for (int c = 0; c < K; c += TP) {
+    const int kc = c + 2 * lane;
+    const float v0 = kc < K ? s_w[kc] : 0.f, v1 = kc + 1 < K ? s_w[kc + 1] : 0.f;
+    float cum = v0 + v1;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const float v = __shfl_up_sync(FULL, cum, o);
+      if (lane >= o) cum += v;
+    }
+    cum += base;
+    float before = __shfl_up_sync(FULL, cum, 1);
+    if (lane == 0) before = base;
+    const unsigned below0 = __ballot_sync(FULL, kc < K && __fdiv_rn(before + v0, den) < 0.5f);
+    const unsigned below1 = __ballot_sync(FULL, kc + 1 < K && __fdiv_rn(cum, den) < 0.5f);
+    count += __popc(below0) + __popc(below1);
+    base = __shfl_sync(FULL, cum, 31);
+  }
+  __syncwarp();
+  if (lane == 0) s_carry[1] = __ldg(zr + min(count, K - 1));
+}
+
+template <int MODE, int DC, int EC, int ET, int MULTI>
 __global__ void __launch_bounds__(PR_WGS * WG, PR_BLOCKS) point_kernel(const Params P) {
-  using L = Layout<DC, EC, ET>;
+  using L = Layout<DC, EC, ET, MULTI>;
   constexpr int EN = EC > 0 ? EC : 1;  // extent of the output accumulators (unused at EC = 0)
   extern __shared__ unsigned char smem_raw[];
   // the first 1024-byte boundary, reached by indexing the shared array (not
@@ -507,9 +622,11 @@ __global__ void __launch_bounds__(PR_WGS * WG, PR_BLOCKS) point_kernel(const Par
   float* s_z = reinterpret_cast<float*>(own + L::Z);
   float* s_w = reinterpret_cast<float*>(own + L::W);
   float* s_rgb = reinterpret_cast<float*>(own + L::RGB);
+  float* s_carry = reinterpret_cast<float*>(own + L::CARRY);
   const int row0 = warp * 16 + lane / 4;
   const int K = MODE == QUERY ? 1 : P.K;
-  const int rpt = TP / K;
+  const int rpt = MULTI ? 1 : TP / K;
+  const int nseg = MULTI ? (K + TP - 1) / TP : 1;  // tiles a ray
   const int ntiles = (P.R + rpt - 1) / rpt;
   constexpr int NB = 4 * DC;  // corner-load batches of a thread
 
@@ -517,156 +634,189 @@ __global__ void __launch_bounds__(PR_WGS * WG, PR_BLOCKS) point_kernel(const Par
 
   for (int tile = blockIdx.x * PR_WGS + wg; tile < ntiles; tile += gridDim.x * PR_WGS) {
     const int ray0 = tile * rpt;
-    const uint32_t s0 = fresh(smem_u32(sm));  // the descriptors below are made here, tile by tile
-    const uint64_t desc_code = wgmma_desc_at(s0 + (uint32_t)(code - sm));
-    int4 idx[2];
-    float2 wxy[2];
-    float3 in[2];
-    setup_row<MODE>(P, s_cam, row0, ray0, rpt, q, in[0], idx[0], wxy[0], s_z, s_rgb);
-    setup_row<MODE>(P, s_cam, row0 + 8, ray0, rpt, q, in[1], idx[1], wxy[1], s_z, s_rgb);
-    write_code(P, s_tab, code, row0, q, in);
-    fence_proxy_async();  // the code tile was written by threads; wgmma reads it
-    named_barrier_sync(1 + wg, WG);
+    for (int seg = 0; seg < nseg; ++seg) {
+      const uint32_t s0 = fresh(smem_u32(sm));  // the descriptors below are made here, tile by tile
+      const uint64_t desc_code = wgmma_desc_at(s0 + (uint32_t)(code - sm));
+      int4 idx[2];
+      float2 wxy[2];
+      float3 in[2];
+      setup_row<MODE, MULTI>(P, s_cam, row0, ray0, rpt, seg, q, in[0], idx[0], wxy[0], s_z, s_rgb);
+      setup_row<MODE, MULTI>(P, s_cam, row0 + 8, ray0, rpt, seg, q, in[1], idx[1], wxy[1], s_z, s_rgb);
+      write_code(P, s_tab, code, row0, q, in);
+      fence_proxy_async();  // the code tile was written by threads; wgmma reads it
+      named_barrier_sync(1 + wg, WG);
 
-    // chunk by chunk: acc = code W_code (from zero, in flight while the
-    // chunk's first corner rows load), then the blend into it, then h. The
-    // loads run PR_AHEAD batches ahead through a ring, across chunks.
-    constexpr int SLOTS = PR_AHEAD + 1;
-    float acc[32];  // one 64-column chunk of the hidden layer
-    uint4 buf[SLOTS][4];
-#pragma unroll
-    for (int b = 0; b < NB; ++b) {
-      const int c = b / 4;
-      if (b % 4 == 0) {
-#pragma unroll
-        for (int i = 0; i < 32; ++i) acc[i] = 0.f;  // nothing in flight: zeroed here, not live across the tile
-        fence_registers(acc);
-        wgmma_fence();
-#pragma unroll
-        for (int kk = 0; kk < CODE_COLS / 16; ++kk) {
-          wgmma_m64n64k16_ss(acc, desc_code + kk * WGMMA_K_STEP,
-                             wgmma_desc_at(s0 + L::WC + c * TILE_BYTES) + kk * WGMMA_K_STEP, kk > 0);
+      // chunk by chunk: acc = code W_code (from zero, in flight while the
+      // chunk's first corner rows load), then the blend into it, then h. The
+      // loads run PR_AHEAD batches ahead through a ring, across chunks.
+      constexpr int SLOTS = PR_AHEAD + 1;
+      float acc[32];  // one 64-column chunk of the hidden layer
+      uint4 buf[SLOTS][4];
+  #pragma unroll
+      for (int b = 0; b < NB; ++b) {
+        const int c = b / 4;
+        if (b % 4 == 0) {
+  #pragma unroll
+          for (int i = 0; i < 32; ++i) acc[i] = 0.f;  // nothing in flight: zeroed here, not live across the tile
+          fence_registers(acc);
+          wgmma_fence();
+  #pragma unroll
+          for (int kk = 0; kk < CODE_COLS / 16; ++kk) {
+            wgmma_m64n64k16_ss(acc, desc_code + kk * WGMMA_K_STEP,
+                               wgmma_desc_at(s0 + L::WC + c * TILE_BYTES) + kk * WGMMA_K_STEP, kk > 0);
+          }
+          wgmma_commit();
+          if (b == 0) {
+  #pragma unroll
+            for (int a = 0; a < SLOTS && a < NB; ++a) load_batch<DC>(buf[a], P, idx, a, q);
+          }
+          wgmma_wait<0>();
+          fence_registers(acc);
         }
-        wgmma_commit();
-        if (b == 0) {
-#pragma unroll
-          for (int a = 0; a < SLOTS && a < NB; ++a) load_batch<DC>(buf[a], P, idx, a, q);
-        }
-        wgmma_wait<0>();
-        fence_registers(acc);
-      }
-      if (b > 0 && b + PR_AHEAD < NB) load_batch<DC>(buf[(b + PR_AHEAD) % SLOTS], P, idx, b + PR_AHEAD, q);
-      blend_batch<DC>(acc, buf[b % SLOTS], wxy, s_b1, b, q);
-      if (b % 4 == 3) {
-        // chunk c of h to bf16, into its swizzled tile: the A operand of out = h W2
-        unsigned char* ht = own + L::H + c * TILE_BYTES;
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-#pragma unroll
-          for (int hi = 0; hi < 2; ++hi) {
-            *reinterpret_cast<uint32_t*>(ht + swizzled_offset(row0 + 8 * hi, 8 * j) + 4 * q) =
-                pack_bf16(acc[4 * j + 2 * hi], acc[4 * j + 2 * hi + 1]);
+        if (b > 0 && b + PR_AHEAD < NB) load_batch<DC>(buf[(b + PR_AHEAD) % SLOTS], P, idx, b + PR_AHEAD, q);
+        blend_batch<DC>(acc, buf[b % SLOTS], wxy, s_b1, b, q);
+        if (b % 4 == 3) {
+          // chunk c of h to bf16, into its swizzled tile: the A operand of out = h W2
+          unsigned char* ht = own + L::H + c * TILE_BYTES;
+  #pragma unroll
+          for (int j = 0; j < 8; ++j) {
+  #pragma unroll
+            for (int hi = 0; hi < 2; ++hi) {
+              *reinterpret_cast<uint32_t*>(ht + swizzled_offset(row0 + 8 * hi, 8 * j) + 4 * q) =
+                  pack_bf16(acc[4 * j + 2 * hi], acc[4 * j + 2 * hi + 1]);
+            }
           }
         }
       }
-    }
-    fence_proxy_async();  // h was written by threads; wgmma reads it
-    named_barrier_sync(1 + wg, WG);
+      fence_proxy_async();  // h was written by threads; wgmma reads it
+      named_barrier_sync(1 + wg, WG);
 
-    // out = h W2 + b2 into the warpgroup's buffer: every 64-column chunk and
-    // the 8-column tail in one batch (the buffer lies over h), then written
-    const uint32_t h0 = s0 + (uint32_t)(own - sm) + L::H;
-    float o[EN][32], ot[4];
-#pragma unroll
-    for (int c = 0; c < EN; ++c) {
-#pragma unroll
-      for (int i = 0; i < 32; ++i) o[c][i] = 0.f;
-      if (EC > 0) fence_registers(o[c]);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) ot[i] = 0.f;
-    if (ET > 0) fence_registers(ot);
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < 4 * DC; ++kk) {
-      const uint64_t desc_h = wgmma_desc_at(h0 + (kk / 4) * TILE_BYTES) + (kk % 4) * WGMMA_K_STEP;
-#pragma unroll
-      for (int c = 0; c < EC; ++c) {
-        wgmma_m64n64k16_ss(o[c], desc_h,
-                           wgmma_desc_at(s0 + L::W2 + (c * DC + kk / 4) * TILE_BYTES) + (kk % 4) * WGMMA_K_STEP,
-                           kk > 0);
+      // out = h W2 + b2 into the warpgroup's buffer: every 64-column chunk and
+      // the 8-column tail in one batch (the buffer lies over h), then written
+      const uint32_t h0 = s0 + (uint32_t)(own - sm) + L::H;
+      float o[EN][32], ot[4];
+  #pragma unroll
+      for (int c = 0; c < EN; ++c) {
+  #pragma unroll
+        for (int i = 0; i < 32; ++i) o[c][i] = 0.f;
+        if (EC > 0) fence_registers(o[c]);
       }
-      if (ET > 0) {
-        wgmma_m64n8k16_ss(ot, desc_h, wgmma_desc_at(s0 + L::W2T + (kk / 4) * 1024) + (kk % 4) * WGMMA_K_STEP,
-                          kk > 0);
-      }
-    }
-    wgmma_commit();
-    wgmma_wait<0>();
-#pragma unroll
-    for (int c = 0; c < EC; ++c) fence_registers(o[c]);
-    if (ET > 0) fence_registers(ot);
-#pragma unroll
-    for (int hi = 0; hi < 2; ++hi) {
-      float* row = s_out + (row0 + 8 * hi) * L::LDO;
-#pragma unroll
-      for (int c = 0; c < EC; ++c) {
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const int col = 64 * c + 8 * j + 2 * q;
-          *reinterpret_cast<float2*>(row + col) =
-              make_float2(o[c][4 * j + 2 * hi] + s_b2[col], o[c][4 * j + 2 * hi + 1] + s_b2[col + 1]);
+  #pragma unroll
+      for (int i = 0; i < 4; ++i) ot[i] = 0.f;
+      if (ET > 0) fence_registers(ot);
+      wgmma_fence();
+  #pragma unroll
+      for (int kk = 0; kk < 4 * DC; ++kk) {
+        const uint64_t desc_h = wgmma_desc_at(h0 + (kk / 4) * TILE_BYTES) + (kk % 4) * WGMMA_K_STEP;
+  #pragma unroll
+        for (int c = 0; c < EC; ++c) {
+          wgmma_m64n64k16_ss(o[c], desc_h,
+                             wgmma_desc_at(s0 + L::W2 + (c * DC + kk / 4) * TILE_BYTES) + (kk % 4) * WGMMA_K_STEP,
+                             kk > 0);
+        }
+        if (ET > 0) {
+          wgmma_m64n8k16_ss(ot, desc_h, wgmma_desc_at(s0 + L::W2T + (kk / 4) * 1024) + (kk % 4) * WGMMA_K_STEP,
+                            kk > 0);
         }
       }
-      if (ET > 0) {
-        const int col = 64 * EC + 2 * q;
-        *reinterpret_cast<float2*>(row + col) = make_float2(ot[2 * hi] + s_b2[col], ot[2 * hi + 1] + s_b2[col + 1]);
-      }
-    }
-    named_barrier_sync(1 + wg, WG);
-
-    if (MODE == QUERY) {
-      // sigma and the feature rows of the tile's points: a warp a row, coalesced
-      const int E = P.E;
-      for (int p = warp; p < TP && ray0 + p < P.R; p += WG / 32) {
-        const int r = ray0 + p;
-        for (int e = lane; e < E; e += 32) {
-          const float v = s_out[p * L::LDO + e];
-          if (e == 0) {
-            P.out[r] = softplus(v);
-          } else {
-            P.dino[(size_t)r * (E - 1) + e - 1] = v;
+      wgmma_commit();
+      wgmma_wait<0>();
+  #pragma unroll
+      for (int c = 0; c < EC; ++c) fence_registers(o[c]);
+      if (ET > 0) fence_registers(ot);
+  #pragma unroll
+      for (int hi = 0; hi < 2; ++hi) {
+        float* row = s_out + (row0 + 8 * hi) * L::LDO;
+  #pragma unroll
+        for (int c = 0; c < EC; ++c) {
+  #pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const int col = 64 * c + 8 * j + 2 * q;
+            *reinterpret_cast<float2*>(row + col) =
+                make_float2(o[c][4 * j + 2 * hi] + s_b2[col], o[c][4 * j + 2 * hi + 1] + s_b2[col + 1]);
           }
         }
+        if (ET > 0) {
+          const int col = 64 * EC + 2 * q;
+          *reinterpret_cast<float2*>(row + col) = make_float2(ot[2 * hi] + s_b2[col], ot[2 * hi + 1] + s_b2[col + 1]);
+        }
       }
-    } else {
-      for (int rl = warp; rl < rpt; rl += WG / 32) {
-        const int r = ray0 + rl;
-        if (r >= P.R) break;
-        const float depth = composite_ray<MODE>(P, s_out, L::LDO, s_z, s_w, rl * K, r, lane);
-        if (MODE == RENDER && lane == 0) P.depth[r] = depth;
-      }
-      if (MODE == RENDER) {
-        named_barrier_sync(1 + wg, WG);
-        // the weighted feature and colour, one output a thread
-        const int F = P.E - 1, NO = F + 3;
-        for (int i = t; i < rpt * NO; i += WG) {
-          const int rl = i / NO, col = i - rl * NO;
+      named_barrier_sync(1 + wg, WG);
+
+      if (MODE == QUERY) {
+        // sigma and the feature rows of the tile's points: a warp a row, coalesced
+        const int E = P.E;
+        for (int p = warp; p < TP && ray0 + p < P.R; p += WG / 32) {
+          const int r = ray0 + p;
+          for (int e = lane; e < E; e += 32) {
+            const float v = s_out[p * L::LDO + e];
+            if (e == 0) {
+              P.out[r] = softplus(v);
+            } else {
+              P.dino[(size_t)r * (E - 1) + e - 1] = v;
+            }
+          }
+        }
+      } else if constexpr (!MULTI) {
+        for (int rl = warp; rl < rpt; rl += WG / 32) {
           const int r = ray0 + rl;
           if (r >= P.R) break;
-          const int pb = rl * K;
-          float sum = 0.f;
-          if (col < F) {
-            for (int k = 0; k < K; ++k) sum += s_w[pb + k] * s_out[(pb + k) * L::LDO + 1 + col];
-            P.dino[(size_t)r * F + col] = sum;
-          } else {
-            for (int k = 0; k < K; ++k) sum += s_w[pb + k] * s_rgb[(pb + k) * 3 + col - F];
-            P.rgb[(size_t)r * 3 + col - F] = sum;
+          const float depth = composite_ray<MODE>(P, s_out, L::LDO, s_z, s_w, rl * K, r, lane);
+          if (MODE == RENDER && lane == 0) P.depth[r] = depth;
+        }
+        if (MODE == RENDER) {
+          named_barrier_sync(1 + wg, WG);
+          // the weighted feature and colour, one output a thread
+          const int F = P.E - 1, NO = F + 3;
+          for (int i = t; i < rpt * NO; i += WG) {
+            const int rl = i / NO, col = i - rl * NO;
+            const int r = ray0 + rl;
+            if (r >= P.R) break;
+            const int pb = rl * K;
+            float sum = 0.f;
+            if (col < F) {
+              for (int k = 0; k < K; ++k) sum += s_w[pb + k] * s_out[(pb + k) * L::LDO + 1 + col];
+              P.dino[(size_t)r * F + col] = sum;
+            } else {
+              for (int k = 0; k < K; ++k) sum += s_w[pb + k] * s_rgb[(pb + k) * 3 + col - F];
+              P.rgb[(size_t)r * 3 + col - F] = sum;
+            }
           }
         }
+      } else {
+        // tile `seg` of a ray of K > 64 samples
+        const int F = P.E - 1, NO = MODE == RENDER ? F + 3 : 0;
+        if (seg == 0) {
+          for (int i = t; i < 3 + NO; i += WG) s_carry[i] = i == 0 ? 1.f : 0.f;
+          named_barrier_sync(1 + wg, WG);
+        }
+        if (warp == 0) composite_segment<MODE>(P, s_out, L::LDO, s_z, s_w, s_carry, seg, ray0, lane);
+        if (MODE == RENDER) {
+          named_barrier_sync(1 + wg, WG);
+          // the tile's weighted feature and colour added to the ray's sums, one output a thread
+          const int k0 = seg * TP, n = min(TP, K - k0);
+          const bool last = k0 + TP >= K;
+          for (int col = t; col < NO; col += WG) {
+            float sum = s_carry[3 + col];
+            if (col < F) {
+              for (int p = 0; p < n; ++p) sum += s_w[k0 + p] * s_out[p * L::LDO + 1 + col];
+            } else {
+              for (int p = 0; p < n; ++p) sum += s_w[k0 + p] * s_rgb[p * 3 + col - F];
+            }
+            if (!last) {
+              s_carry[3 + col] = sum;
+            } else if (col < F) {
+              P.dino[(size_t)ray0 * F + col] = sum;
+            } else {
+              P.rgb[(size_t)ray0 * 3 + col - F] = sum;
+            }
+          }
+          if (last && t == 0) P.depth[ray0] = s_carry[1];
+        }
       }
+
+      named_barrier_sync(1 + wg, WG);  // the buffers are free for the next tile
     }
-    named_barrier_sync(1 + wg, WG);  // the buffers are free for the next tile
   }
 }
 
@@ -675,10 +825,10 @@ struct Cached {
   int blocks = 0;  // blocks a launch: blocks an SM times SMs
 };
 
-template <int MODE, int DC, int EC, int ET>
+template <int MODE, int DC, int EC, int ET, int MULTI>
 int launch_shape(const Params& P, void* stream) {
-  const auto kernel = point_kernel<MODE, DC, EC, ET>;
-  constexpr int smem = Layout<DC, EC, ET>::TOTAL + 1024;  // room to align the tiles
+  const auto kernel = point_kernel<MODE, DC, EC, ET, MULTI>;
+  constexpr int smem = Layout<DC, EC, ET, MULTI>::TOTAL + 1024;  // room to align the tiles
   static Cached cached[MAX_DEVICES];
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -697,7 +847,7 @@ int launch_shape(const Params& P, void* stream) {
     c.ready = true;
   }
   const int K = MODE == QUERY ? 1 : P.K;
-  const int rpt = TP / K;
+  const int rpt = K > TP ? 1 : TP / K;
   const int ntiles = (P.R + rpt - 1) / rpt;
   int blocks = (ntiles + PR_WGS - 1) / PR_WGS;
   if (blocks > c.blocks) blocks = c.blocks;
@@ -706,18 +856,30 @@ int launch_shape(const Params& P, void* stream) {
 }
 
 // the hidden width to 64 or 128, the output width to 64 + 8 (E <= 72), 128, or 8 (K3's density column)
-template <int MODE>
+template <int MODE, int MULTI>
 int launch(const Params& P, void* stream) {
   if constexpr (MODE == PROBE) {
-    return P.D <= 64 ? launch_shape<MODE, 1, 0, 8>(P, stream) : launch_shape<MODE, 2, 0, 8>(P, stream);
+    return P.D <= 64 ? launch_shape<MODE, 1, 0, 8, MULTI>(P, stream) : launch_shape<MODE, 2, 0, 8, MULTI>(P, stream);
   } else {
-    if (P.D <= 64) return P.E <= 72 ? launch_shape<MODE, 1, 1, 8>(P, stream) : launch_shape<MODE, 1, 2, 0>(P, stream);
-    return P.E <= 72 ? launch_shape<MODE, 2, 1, 8>(P, stream) : launch_shape<MODE, 2, 2, 0>(P, stream);
+    if (P.D <= 64) {
+      return P.E <= 72 ? launch_shape<MODE, 1, 1, 8, MULTI>(P, stream) : launch_shape<MODE, 1, 2, 0, MULTI>(P, stream);
+    }
+    return P.E <= 72 ? launch_shape<MODE, 2, 1, 8, MULTI>(P, stream) : launch_shape<MODE, 2, 2, 0, MULTI>(P, stream);
+  }
+}
+
+// the one-tile walk up to 64 samples a ray, the multi-tile walk past it (K4: one point, one tile)
+template <int MODE>
+int launch(const Params& P, void* stream) {
+  if constexpr (MODE == QUERY) {
+    return launch<MODE, 0>(P, stream);
+  } else {
+    return P.K > TP ? launch<MODE, 1>(P, stream) : launch<MODE, 0>(P, stream);
   }
 }
 
 bool bad_field(int R, int K, int D, int E, int C, int num_freqs, int include_input, int min_e) {
-  return R <= 0 || K <= 0 || K > TP || D <= 0 || D > 128 || D % 8 || E < min_e || E > 128 ||
+  return R <= 0 || K <= 0 || K > KMAX || D <= 0 || D > 128 || D % 8 || E < min_e || E > 128 ||
          C <= 0 || C > CODE_COLS || C != 3 * (include_input ? 1 : 0) + 6 * num_freqs;
 }
 

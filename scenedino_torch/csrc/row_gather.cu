@@ -18,7 +18,9 @@
 // Design: one warp per group of rows. A row of V 16-byte vectors (V <= 32,
 // rows of at most 512 bytes) takes V lanes, so a warp copies 32 / V rows
 // at once: 1 of P1's 512-byte rows, 2 of P2's 256-byte rows, 4 of the
-// probe path's 128-byte rows. The lanes of the group read the group's
+// probe path's 128-byte rows. A longer row (the probe path's at n_probe >
+// 64: its weights and depths, 8 n_probe bytes) is one warp's, each lane
+// copying every 32nd vector of it. The lanes of the group read the group's
 // indices once (one coalesced load), and each lane takes its row's index
 // by a shuffle. Table rows are read with 16-byte read-only loads; output
 // rows are written with 16-byte streaming stores, so the written rows do
@@ -44,9 +46,9 @@ __global__ void __launch_bounds__(THREADS) row_gather_kernel(
   const int lane = threadIdx.x & 31;
   const long long nwarps = (long long)gridDim.x * WARPS;
   const long long ngroups = (n + group - 1) / group;
-  // the row of the group this lane copies, and its vector of that row
+  // the row of the group this lane copies, and its first vector of that row
   const int j = lane / vpr;
-  const int v = lane % vpr;
+  const int v0 = lane % vpr;
   for (long long g = (long long)blockIdx.x * WARPS + threadIdx.x / 32; g < ngroups; g += nwarps) {
     const long long row0 = g * group;
     int mine = -1;
@@ -54,9 +56,11 @@ __global__ void __launch_bounds__(THREADS) row_gather_kernel(
     const int src = __shfl_sync(0xffffffffu, mine, j < group ? j : 0);
     const long long i = row0 + j;
     if (j >= group || i >= n) continue;
-    const uint4 val =
-        src >= 0 && src < rows ? __ldg(table + (size_t)src * vpr + v) : make_uint4(0u, 0u, 0u, 0u);
-    __stcs(out + (size_t)i * vpr + v, val);
+    for (int v = v0; v < vpr; v += 32) {  // once, unless a row is longer than 512 bytes
+      const uint4 val =
+          src >= 0 && src < rows ? __ldg(table + (size_t)src * vpr + v) : make_uint4(0u, 0u, 0u, 0u);
+      __stcs(out + (size_t)i * vpr + v, val);
+    }
   }
 }
 
@@ -84,12 +88,10 @@ cudaError_t sm_count(int* sms) {
 // (0 = launched).
 extern "C" int row_gather(const void* table, const void* idx, void* out, long long n, int rows,
                           int row_bytes, void* stream) {
-  if (n < 0 || rows <= 0 || row_bytes <= 0 || row_bytes % 16 || row_bytes > 512) {
-    return (int)cudaErrorInvalidValue;
-  }
+  if (n < 0 || rows <= 0 || row_bytes <= 0 || row_bytes % 16) return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
   const int vpr = row_bytes / 16;
-  const int group = 32 / vpr;
+  const int group = vpr <= 32 ? 32 / vpr : 1;
   int sms = 0;
   const cudaError_t err = sm_count(&sms);
   if (err != cudaSuccess) return (int)err;

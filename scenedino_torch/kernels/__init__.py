@@ -3,9 +3,16 @@
 Each wrapper launches its kernel for CUDA tensors (or raises) and takes
 its plain PyTorch version for CPU tensors. Each keeps `launches`, the
 number of kernel launches it made, so a run can show that its path went
-through the kernel; K1's wrappers keep the D = 80 kernels' counts apart.
+through the kernel; K1's wrappers keep the counts of the D = 80 kernels and
+of the kernels of every other head dim apart.
 """
-from scenedino_torch.kernels.attention import D80_COUNTS, attention, attention_bwd_dkv, attention_bwd_dq
+from scenedino_torch.kernels.attention import (
+    ANY_COUNTS,
+    D80_COUNTS,
+    attention,
+    attention_bwd_dkv,
+    attention_bwd_dq,
+)
 from scenedino_torch.kernels.encode_view import encode_view
 from scenedino_torch.kernels.point_render import point_query, point_render, probe_weights
 from scenedino_torch.kernels.row_gather import row_gather
@@ -15,6 +22,7 @@ WRAPPERS = {
     "attention_bwd_dq": attention_bwd_dq,
     "attention_bwd_dkv": attention_bwd_dkv,
     **D80_COUNTS,
+    **ANY_COUNTS,
     "point_render": point_render,
     "probe_weights": probe_weights,
     "point_query": point_query,

@@ -12,8 +12,12 @@ tiles that TMA loads; the primitives are in `csrc/hopper.cuh`):
 launch the forward of `csrc/attention_d80.cu` and the backward pair of
 `csrc/attention_d80_bwd.cu`, all three wgmma on TMA tiles with a row of 80
 split into a 64-column tile and a 16-column side tile (`csrc/hopper.cuh`'s
-rows of 80), each with a launch count of its own (`D80_COUNTS`). On
-CPU tensors the same Function takes `attention_plain` and
+rows of 80), each with a launch count of its own (`D80_COUNTS`). At every
+other head dim up to 256 (D = 32 in the ViTs of the configs'
+`vit_overrides`, 8 and 16 in the JAX package's tests) they launch the three
+kernels of `csrc/attention_any.cu`, FlashAttention-2 on mma.sync with D
+padded to 32, 48, 64, 96, 128, 192 or 256 inside the kernel (`ANY_COUNTS`).
+On CPU tensors the same Function takes `attention_plain` and
 `attention_bwd_plain` (any D). Anything else raises. It replaces the
 Pallas TPU flash attention reached from `scenedino_tpu/models/vit.py:126`
 and its custom VJP (`_flash_attention_bwd_dkv`, `_flash_attention_bwd_dq`).
@@ -28,9 +32,11 @@ import torch
 
 from scenedino_torch.kernels import build
 
-# the head dims the CUDA kernels take: 64 (attention.cu, attention_bwd.cu)
-# and 80 (attention_d80.cu, attention_d80_bwd.cu)
+# the head dims with kernels of their own: 64 (attention.cu, attention_bwd.cu)
+# and 80 (attention_d80.cu, attention_d80_bwd.cu); every other head dim up to
+# MAX_HEAD_DIM takes attention_any.cu
 HEAD_DIMS = (64, 80)
+MAX_HEAD_DIM = 256
 
 
 def _scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
@@ -90,10 +96,10 @@ def _check_cuda(*ts: torch.Tensor) -> None:
     if q.device.type != "cuda":
         raise ValueError(f"attention runs on cuda or cpu tensors, got {q.device}")
     D = q.shape[-1]
-    if q.dtype != torch.bfloat16 or D not in HEAD_DIMS:
+    if q.dtype != torch.bfloat16 or D > MAX_HEAD_DIM:
         raise ValueError(
-            f"the CUDA attention kernels take bf16 with head dim in {HEAD_DIMS}, "
-            f"got {q.dtype} with head dim {D} (no other head dim has a kernel: ROADMAP.md, queue 1, item 3)"
+            f"the CUDA attention kernels take bf16 with a head dim of at most {MAX_HEAD_DIM}, "
+            f"got {q.dtype} with head dim {D}"
         )
     if not all(t.is_contiguous() for t in ts):
         raise ValueError("the CUDA attention kernels take contiguous tensors")
@@ -114,7 +120,7 @@ def _launch(step: str, ptrs, q: torch.Tensor) -> None:
     """Launch K1's `step` ("fwd", "bwd_dq" or "bwd_dkv") at q's head dim and
     add one to its launch count."""
     B, N, H, D = q.shape
-    lib_name, fn_name, counter = _KERNELS[D][step]
+    lib_name, fn_name, counter = _KERNELS[D if D in HEAD_DIMS else "any"][step]
     fn = build.function(lib_name, fn_name, [ctypes.c_void_p] * len(ptrs) + [ctypes.c_int] * 4
                         + [ctypes.c_float, ctypes.c_void_p])
     err = build.call_on_stream(fn, q.device, *ptrs, B, N, H, D, D ** -0.5)
@@ -204,9 +210,12 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor
 attention.launches = 0
 attention_bwd_dq.launches = 0
 attention_bwd_dkv.launches = 0
-# the launch counts of the D = 80 kernels, which the same three wrappers launch
+# the launch counts of the D = 80 kernels and of the kernels of every other
+# head dim, which the same three wrappers launch
 D80_COUNTS = {name: SimpleNamespace(launches=0)
               for name in ("attention_d80", "attention_d80_bwd_dq", "attention_d80_bwd_dkv")}
+ANY_COUNTS = {name: SimpleNamespace(launches=0)
+              for name in ("attention_any", "attention_any_bwd_dq", "attention_any_bwd_dkv")}
 # (library, C function, launch count) of each step of K1 at each head dim
 _KERNELS = {
     64: {"fwd": ("attention", "attention_fwd", attention),
@@ -215,4 +224,7 @@ _KERNELS = {
     80: {"fwd": ("attention_d80", "attention_d80_fwd", D80_COUNTS["attention_d80"]),
          "bwd_dq": ("attention_d80_bwd", "attention_d80_bwd_dq", D80_COUNTS["attention_d80_bwd_dq"]),
          "bwd_dkv": ("attention_d80_bwd", "attention_d80_bwd_dkv", D80_COUNTS["attention_d80_bwd_dkv"])},
+    "any": {"fwd": ("attention_any", "attention_any_fwd", ANY_COUNTS["attention_any"]),
+            "bwd_dq": ("attention_any", "attention_any_bwd_dq", ANY_COUNTS["attention_any_bwd_dq"]),
+            "bwd_dkv": ("attention_any", "attention_any_bwd_dkv", ANY_COUNTS["attention_any_bwd_dkv"])},
 }

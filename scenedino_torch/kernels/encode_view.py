@@ -29,8 +29,11 @@ from scenedino_torch.kernels import build
 
 DEPTH_STATISTICS = ("expectation", "median")
 DTYPES = (torch.float32, torch.bfloat16)
-# what the CUDA kernel takes: samples a ray, hidden width, output width, z-code columns, rays
-MAX_SAMPLES, MAX_HIDDEN, MAX_OUT, MAX_CODE = 64, 128, 68, 16
+# what the CUDA kernel takes: samples a ray (a ray of more than 64 spans
+# several of the kernel's 64-row tiles; its weights are kept in shared
+# memory for the median), hidden width, output width, z-code columns (two
+# k16 steps of the code product), rays
+MAX_SAMPLES, MAX_HIDDEN, MAX_OUT, MAX_CODE = 256, 128, 68, 32
 MAX_RAYS = 2 ** 31 - 1 - 64
 ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_longlong] + [ctypes.c_int] * 10 + [ctypes.c_float] * 3
             + [ctypes.c_void_p])
@@ -115,9 +118,10 @@ def encode_view(base, z, zscale, w_z, w2, b2, color, cfg: EncodeViewConfig):
     cfg.depth_statistic="median"), feature (N, E - 1) and rgb = color x
     the ray's total weight (N, 3), fp32.
 
-    On CUDA the kernel takes contiguous tensors, K <= 64 samples a ray
-    (padded to 8, 16, 32 or 64 in its 64-row tiles), D <= 128 (zero-padded
-    to 64 or 128), 2 <= E <= 68, code_dims <= 16 and N < 2^31 - 64, and
+    On CUDA the kernel takes contiguous tensors, K <= 256 samples a ray
+    (padded to 8, 16, 32 or 64 in its 64-row tiles; past 64 a ray spans
+    several tiles), D <= 128 (zero-padded to 64 or 128), 2 <= E <= 68,
+    code_dims <= 32 (num_freqs <= 15 with the input) and N < 2^31 - 64, and
     raises on anything else; the CPU's plain version takes any size.
     """
     _check(base, z, zscale, w_z, w2, b2, color, cfg)

@@ -28,6 +28,10 @@ from scenedino_torch.core import cameras, compositing, encoding
 from scenedino_torch.kernels import build
 
 DEPTH_STATISTICS = ("expectation", "median")
+# what the CUDA kernels take: samples a ray (a ray of more than 64 spans
+# several of the kernel's 64-point tiles; the ray's weights are kept in
+# shared memory for the median), hidden width, output width, code columns
+MAX_SAMPLES, MAX_HIDDEN, MAX_OUT, MAX_CODE = 256, 128, 128, 64
 
 
 @dataclasses.dataclass(frozen=True)
@@ -211,10 +215,10 @@ def _cuda_ready(name: str, bf16: dict, f32: dict, D: int, E: int, K: int, cfg: P
     for arg, t in {**bf16, **f32}.items():
         if not t.is_contiguous():
             raise ValueError(f"the CUDA {name} kernel takes a contiguous {arg}")
-    if D > 128 or D % 8 or E > 128 or K > 64 or cfg.code_dims > 64:
+    if D > MAX_HIDDEN or D % 8 or E > MAX_OUT or K > MAX_SAMPLES or cfg.code_dims > MAX_CODE:
         raise ValueError(
-            f"the CUDA {name} kernel takes D <= 128 (multiple of 8), E <= 128, K <= 64 "
-            f"and code_dims <= 64; got D={D}, E={E}, K={K}, code_dims={cfg.code_dims}"
+            f"the CUDA {name} kernel takes D <= {MAX_HIDDEN} (multiple of 8), E <= {MAX_OUT}, "
+            f"K <= {MAX_SAMPLES} and code_dims <= {MAX_CODE}; got D={D}, E={E}, K={K}, code_dims={cfg.code_dims}"
         )
     if bf16["folded_grid"].data_ptr() % 16:
         raise ValueError(f"the CUDA {name} kernel takes a 16-byte aligned folded_grid")
@@ -264,7 +268,8 @@ def point_render(rays, z, folded_grid, w_code, b1, w2, b2, feat_w2c, feat_k,
 
     On CUDA the kernel takes bf16 grid, weights and colour image, fp32
     rays, depths, biases and cameras, D <= 128 with D % 8 == 0, E <= 128,
-    K <= 64, code_dims <= 64, and raises on anything else.
+    K <= 256 (a ray of more than 64 samples spans several of the kernel's
+    64-point tiles), code_dims <= 64, and raises on anything else.
     """
     _check_field("point_render", folded_grid, w_code, b1, w2, b2, feat_w2c, feat_k, cfg, min_e=2)
     R, K = z.shape

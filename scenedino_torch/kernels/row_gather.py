@@ -35,8 +35,8 @@ def row_gather(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """Rows of `table` (rows, C) at int32 indices `idx` (n,): (n, C).
 
     On CUDA the kernel takes a contiguous fp32 or bf16 table whose
-    row is a multiple of 16 bytes and at most 512 bytes, 16-byte aligned,
-    and contiguous int32 indices, and raises on anything else. It reads nothing outside the
+    row is a multiple of 16 bytes, 16-byte aligned, and contiguous int32
+    indices, and raises on anything else. It reads nothing outside the
     table: an index outside [0, rows) gives a row of zero bytes (the plain
     version raises on one; nothing in the port passes one).
     """
@@ -58,9 +58,9 @@ def row_gather(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"the CUDA row_gather kernel takes an fp32 or bf16 table, got {table.dtype}")
     if not (table.is_contiguous() and idx.is_contiguous()):
         raise ValueError("the CUDA row_gather kernel takes a contiguous table and indices")
-    if row_bytes % 16 or row_bytes > 512 or table.data_ptr() % 16:
-        raise ValueError(f"the CUDA row_gather kernel takes 16-byte aligned rows of a multiple of 16 bytes, "
-                         f"at most 512; got {row_bytes} bytes a row")
+    if row_bytes % 16 or table.data_ptr() % 16:
+        raise ValueError(f"the CUDA row_gather kernel takes 16-byte aligned rows of a multiple of 16 bytes; "
+                         f"got {row_bytes} bytes a row")
     if rows >= 2 ** 31:
         raise ValueError(f"the CUDA row_gather kernel takes fewer than 2^31 rows, got {rows}")
     n = idx.shape[0]

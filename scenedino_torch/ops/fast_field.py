@@ -401,8 +401,10 @@ def render_novel_view_probe(fs: FastFieldState, cfg: FieldConfig, target_pose_c2
     rows = torch.arange(height, device=device) // s
     cols = torch.arange(width, device=device) // s
     idx = (rows[:, None] * Wp + cols[None]).reshape(-1).to(torch.int32)
-    full = row_gather(torch.cat([w_probe, zp], -1).contiguous(), idx)
-    w_full, z_full = full[:, :n_probe], full[:, n_probe:]
+    table = torch.cat([w_probe, zp], -1)
+    table = F.pad(table, (0, -table.shape[1] % 4)).contiguous()  # the card's gather takes rows of 16-byte multiples
+    full = row_gather(table, idx)
+    w_full, z_full = full[:, :n_probe], full[:, n_probe:2 * n_probe]
 
     z = sampling.sample_coarse_from_dist(flat, w_full, z_full, n_fine, lindisp,
                                          u=draws.u_fine, t=draws.t_fine)
@@ -497,10 +499,10 @@ def render_encode_view(fs: FastFieldState, cfg: FieldConfig, height: int, width:
     five-way key split, :294), drawn from `generator` when None.
     Returns (depth (H, W), dino (H, W, d_out-1), rgb (H, W, 3)), fp32.
 
-    On CUDA the kernel takes n_coarse <= 64, d_hidden <= 128, d_out <= 68
-    and W_code's z rows <= 16 (every shipped config: 8, 32 or 48 samples,
-    d_hidden 64 or 128, d_out 17 or 65, 13 z rows), and raises on more; on
-    the CPU the plain version takes any size.
+    On CUDA the kernel takes n_coarse <= 256, d_hidden <= 128, d_out <= 68
+    and W_code's z rows <= 32 (num_freqs <= 15 with the input; every shipped
+    config: 8, 32 or 48 samples, d_hidden 64 or 128, d_out 17 or 65, 13 z
+    rows), and raises on more; on the CPU the plain version takes any size.
     """
     B, V = fs.folded_grid.shape[:2]
     if B != 1 or V != 1:
@@ -519,8 +521,8 @@ def render_encode_view_batched(fs: FastFieldState, cfg: FieldConfig, height: int
     """`render_encode_view` of every batch element of a (B, V)-view state,
     view 0 of each (the stage-2 full-frame render: each sample renders its
     own encode camera), all B frames in one K6 launch. On CUDA the kernel
-    takes n_coarse <= 64, d_hidden <= 128, d_out <= 68 and W_code's z rows
-    <= 16, and raises on more; the CPU takes any size. u (B, height*width,
+    takes n_coarse <= 256, d_hidden <= 128, d_out <= 68 and W_code's z rows
+    <= 32, and raises on more; the CPU takes any size. u (B, height*width,
     n_coarse) or None. Returns (depth (B, H, W), dino (B, H, W, D), rgb
     (B, H, W, 3))."""
     B = fs.folded_grid.shape[0]

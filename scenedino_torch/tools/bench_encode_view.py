@@ -188,15 +188,17 @@ def render_stage(gen: torch.Generator, shape: Shape, reps: int = 10) -> dict:
             "preamble_profile": profile_device(pre)}
 
 
-# instantiations of csrc/encode_view.cu's kernel: {bf16, TF32} x hidden
-# chunks {1, 2} x output {24, 64 + 8}
-INSTANTIATIONS = 8
+# instantiations of csrc/encode_view.cu's kernel: {bf16, TF32} x the code's
+# k16 steps {1, 2} x the walk {one tile a ray, several} x hidden chunks
+# {1, 2} x output {24, 64 + 8}
+INSTANTIATIONS = 32
 
 
 def ptxas() -> dict:
     """ptxas' registers and spills of each instantiation, by its template
-    arguments "TF32,DC,EC,ET" (TF32 1 for the fp32 state; hidden chunks of
-    64; output chunks of 64; output tail)."""
+    arguments "TF32,CS,MULTI,DC,EC,ET" (TF32 1 for the fp32 state; the
+    code's k16 steps; MULTI 1 for the multi-tile walk; hidden chunks of 64;
+    output chunks of 64; output tail)."""
     build.load("encode_view")
     return {",".join(re.findall(r"Li(\d+)E", name.split("encode_view_kernel")[-1])): r
             for name, r in build.ptxas_report(build.build_log("encode_view")).items() if "encode_view_kernel" in name}

@@ -10,15 +10,15 @@ the port through `utils.convert.load_jax_params` (strict, over
 `from_jax_params`; the training-only leaves are skipped). On the last item
 of configs/train_synthetic_convergence.yaml's synthetic dataset and a
 held-out novel camera, at the 96x192 serving raster, it renders a gold of
-128 stratified samples (through the unfused `render_novel_view`: K2 takes
-at most 64 samples a ray; the reference's gold is its fused renderer, the
-same function), the exact 32-sample render and the probe-guided render at
-its defaults, and holds the reference's bound: the probe's
+128 stratified samples through `render_novel_view_fused` (K2 on the card,
+two of its 64-point tiles a ray), as the reference's gold is its fused
+renderer, the exact 32-sample render and the probe-guided render at its
+defaults, and holds the reference's bound: the probe's
 median and 95th-percentile depth error within 3.5x the exact render's
 (+1e-6), its median below 0.25, its feature cosine to the gold median
 above 0.999 and 5th percentile above 0.99. The state is fp32 on the CPU (the
-plain versions) and bf16 on the card (K2 for the exact render; K3, the row
-gather and K2 for the probe). Prints one JSON line; exits 1
+plain versions) and bf16 on the card (K2 for the gold and the exact
+render; K3, the row gather and K2 for the probe). Prints one JSON line; exits 1
 outside the bound.
 """
 from __future__ import annotations
@@ -70,9 +70,8 @@ def probe_errors(device="cpu", seed: int = 0):
         fs = ff.build_fast_state(model, model.encode(imgs, projs, poses, ids_encoder=(0,)), compute_dtype=dtype)
         kernels.reset_launches()
         gen = torch.Generator(device=device)
-        # the gold through the unfused renderer: K2 takes at most 64 samples a ray
-        dg, fg, _ = ff.render_novel_view(fs, model.cfg, pose, k, H, W, generator=gen.manual_seed(seed),
-                                         n_coarse=128, want_rgb=False)
+        dg, fg, _ = ff.render_novel_view_fused(fs, model.cfg, pose, k, H, W, generator=gen.manual_seed(seed),
+                                               n_coarse=128)
         de, _, _ = ff.render_novel_view_fused(fs, model.cfg, pose, k, H, W, generator=gen.manual_seed(seed + 1),
                                               n_coarse=32)
         dp, fp, _ = ff.render_novel_view_probe(fs, model.cfg, pose, k, H, W, generator=gen.manual_seed(seed + 2))

@@ -11,9 +11,13 @@ The emulation walks as the kernel does: 64-row query tiles (one a
 warpgroup), 64-row key and value tiles zero-filled past N, S = Q K^T in
 fp32 from bf16 values, the online softmax in base 2 with scale * log2(e)
 folded in, the last tile's columns at or past N set to -inf, O rescaled
-by alpha (lazily: the running max of a warp's 16 rows moves only when one
-of them grows by more than 8), P rounded to bf16 before P V, the output
-rounded to bf16 and LSE = (m + log2 l) ln 2.
+by alpha (exactly, as the kernel is built: the running max moves whenever
+it grows; `lazy=True` walks as the kernel did before, with the lazy
+rescale: the running max of a warp's 16 rows moves only when one of them
+grows by more than 8), P rounded to bf16 before P V, the output rounded to
+bf16 and LSE = (m + log2 l) ln 2. On keys scaled along the walk, where the
+softmax lands on one key, the lazy walk reads a whole bf16 step more than
+the exact one (ROADMAP queue 3, item C).
 
 Tolerances: the output within K1_TOL = 2e-2, the bound the kernel is held
 to on the card (bf16 output, ulp 2^-8 at |x| ~ 1, plus P rounded to bf16
@@ -59,18 +63,19 @@ def _tile(x, t):
     return out
 
 
-def _emulate_kernel(q, k, v, mask=True, lazy=True, trace=None):
+def _emulate_kernel(q, k, v, mask=True, lazy=True, trace=None, query_tiles=None):
     """One head, (N, D) bf16 values held in fp32: the forward kernel's walk.
-    `lazy`: the lazy rescale (FWD_LAZY_RESCALE): the running max of the 16
+    `lazy`: the lazy rescale (K1_RESCALE_SLACK 8): the running max of the 16
     rows of a warp moves only when one of them grows by more than 8.
     `trace`, a list: gets (query tile, walked tile, warps whose max moved,
-    the largest P) for each step. Returns the output (N, D), bf16 values
-    in fp32, and the LSE (N,)."""
+    the largest P) for each step. `query_tiles`: the warpgroups' query tiles
+    to walk (each walks on its own), all by default; the rows of the others
+    are 0. Returns the output (N, D), bf16 values in fp32, and the LSE (N,)."""
     N, D = q.shape
     scale_log2 = D ** -0.5 * LOG2E
     tiles = -(-N // TILE)
     out, lse = torch.zeros(tiles * TILE, D), torch.zeros(tiles * TILE)
-    for i in range(tiles):  # a warpgroup's query tile
+    for i in range(tiles) if query_tiles is None else query_tiles:  # a warpgroup's query tile
         qi = _tile(q, i)
         m = torch.full((TILE,), -float("inf"))
         l = torch.zeros(TILE)
@@ -131,8 +136,7 @@ def _mha_reference(q, k, v, block=128):
 @pytest.mark.parametrize("n", [1, 63, 64, 65, 191, 192, 193])
 def test_tile_walk_emulation_matches_the_plain_forward_and_mha_reference(n, lazy):
     """Around the 64-row tile and the 192-row block of three warpgroups;
-    with the lazy rescale (the kernel's default) and with O rescaled on
-    every tile."""
+    with the exact rescale (the kernel's) and with the lazy one."""
     q, k, v = _inputs(n, seed=40 + n)
     out, lse = _emulate_all(q, k, v, lazy=lazy)
     plain = attention_plain(q, k, v).float()
@@ -163,6 +167,43 @@ def test_tile_walk_emulation_needs_its_mask(n):
     unmasked, unmasked_lse = _emulate_all(q, k, v, mask=False)
     assert (unmasked - plain).abs().max().item() > K1_TOL
     assert (unmasked_lse - plain_lse).abs().max().item() > 1e-2
+
+
+def test_exact_rescale_stays_within_one_step_where_the_lazy_one_reads_two():
+    """Item C of ROADMAP queue 3: keys scaled along the walk (key row n by
+    1 + 4 n / N), the construction of tools/softmax_sweep.py and chip_smoke.py
+    phase 11a at their (2, 1921, 12, 64) shape and seeds (200 + N, 1, 2, 3),
+    drawn with numpy. Where the fp32 output reaches 4 a bf16 step is
+    3.125e-2; there the lazy walk (P of the dominant key up to 2^8, rounded
+    to bf16 for P V while l sums it unrounded) reads a whole step against the
+    fp32 plain version rounded to bf16, the exact walk (that P is 1) stays
+    within 1.5625e-2. Only the query tiles that hold such a row are walked:
+    each walks on its own."""
+    B, N, Hh, D = 2, 1921, 12, 64
+    ramp = torch.arange(N, dtype=torch.float32)[:, None, None] / N
+    cases = []
+    for seed in (200 + N, 1, 2, 3):
+        rng = np.random.default_rng(seed)
+        q, k, v = (torch.from_numpy(rng.normal(size=(B, N, Hh, D)).astype(np.float32)).to(torch.bfloat16)
+                   for _ in range(3))
+        for b in range(B):
+            qb, vb = q[b:b + 1], v[b:b + 1]
+            kb = (k[b:b + 1].float() * (1 + 4 * ramp)).to(torch.bfloat16)
+            ref = attention_plain(qb, kb, vb).float()[0]  # (N, H, D)
+            for h in range(Hh):
+                rows = (ref[:, h].abs() >= 4).any(-1).nonzero()[:, 0]
+                if rows.numel() == 0:
+                    continue
+                tiles = sorted({int(r) // TILE for r in rows})
+                args = (qb[0, :, h].float(), kb[0, :, h].float(), vb[0, :, h].float())
+                at = torch.cat([torch.arange(t * TILE, min((t + 1) * TILE, N)) for t in tiles])
+                errs = [(_emulate_kernel(*args, lazy=lazy, query_tiles=tiles)[0][at] - ref[at, h]).abs().max().item()
+                        for lazy in (True, False)]
+                cases.append((seed, b, h, *errs))
+    lazy_two = [c for c in cases if c[3] >= 3.125e-2]
+    assert lazy_two, cases  # the fault shows on the CPU too
+    assert all(c[4] <= 1.5625e-2 for c in lazy_two), lazy_two
+    assert all(c[4] <= 1.5625e-2 for c in cases), cases
 
 
 def test_lazy_rescale_keeps_p_below_two_to_the_eight_and_moves_on_a_jump():

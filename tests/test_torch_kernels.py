@@ -5,7 +5,11 @@ view; and the attention backward kernels against the plain backward;
 and one stage-1 step on a batch of the KITTI-360 loader through the
 kernels against the same step on the CPU; serving's rest: the int8
 grid's encode view through K6, the unfused render against K2, and the
-trained-field probe bound through K3, the row gather and K2.
+trained-field probe bound through K3, the row gather and K2; every shape
+the JAX package takes: K2 and K3 at 96, 128 and 256 samples a ray, K6 at
+96 and 128 and with a z code of 17 and 31 columns, K1 at head dims 8 to 256
+(csrc/attention_any.cu), each wrapper's refusal past its ceiling, and the
+scaled-keys sweep of both shipped K1 forwards (ROADMAP queue 3, item C).
 The `cuda` tests skip without a card; on one, run them with
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels.py
@@ -19,7 +23,7 @@ the CDF across 0.5 only on a near tie), on at most 1% of rays; K3
 weights 5e-3; K4 sigma and feature 1e-2 (per point, not averaged over a
 ray); the row gather exactly; the
 log-sum-exp 1e-3 (fp32 statistics of bf16 inputs, summed in another
-order, exp2 approximate on the card); K6 (the encode view) up to 64
+order, exp2 approximate on the card); K6 (the encode view) up to 256
 samples a ray, in fp32 depth 1e-3 m, feature and colour 1e-4 (three TF32
 passes: fp32's accuracy, summed in another order), in bf16
 K2's bounds and its median rule, the feature's times its largest
@@ -70,14 +74,14 @@ def cuda():
 
 def test_build_targets_hopper_and_keys_libraries_by_source():
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
-    assert build.all_names() == ["attention", "attention_bwd", "attention_d80", "attention_d80_bwd", "encode_view",
-                                 "point_render", "row_gather"]
+    assert build.all_names() == ["attention", "attention_any", "attention_bwd", "attention_d80", "attention_d80_bwd",
+                                 "encode_view", "point_render", "row_gather"]
     for name in build.all_names():
         path = build.library_path(name)
         assert path.parent == build.BUILD_DIR and path.name.startswith(f"lib{name}-")
         assert (build.CSRC / f"{name}.cu").exists()
-    # the K1 kernels at both head dims include hopper.cuh (the D = 80 pair its rows of 80 too), and nothing else
-    for name in ("attention", "attention_bwd", "attention_d80", "attention_d80_bwd"):
+    # the K1 kernels at every head dim include hopper.cuh (the D = 80 pair its rows of 80 too), and nothing else
+    for name in ("attention", "attention_bwd", "attention_d80", "attention_d80_bwd", "attention_any"):
         assert [p.name for p in build.sources(name)] == [f"{name}.cu", "hopper.cuh"], name
 
 
@@ -102,7 +106,7 @@ def test_library_hash_covers_included_headers(tmp_path, monkeypatch):
 
 def test_launch_counters_reset_and_ignore_cpu_calls():
     reset_launches()
-    for d in (64, 80):
+    for d in (64, 80, 32):
         q = torch.randn(1, 5, 2, d)
         attention(q, q, q)
         q.requires_grad_(True)
@@ -118,7 +122,8 @@ def test_launch_counters_reset_and_ignore_cpu_calls():
                 torch.randn(8, 5), torch.zeros(5), torch.rand(3, 3), EncodeViewConfig())
     assert launches() == {name: 0 for name in WRAPPERS}
     assert list(WRAPPERS) == ["attention", "attention_bwd_dq", "attention_bwd_dkv", "attention_d80",
-                              "attention_d80_bwd_dq", "attention_d80_bwd_dkv", "point_render",
+                              "attention_d80_bwd_dq", "attention_d80_bwd_dkv", "attention_any",
+                              "attention_any_bwd_dq", "attention_any_bwd_dkv", "point_render",
                               "probe_weights", "point_query", "row_gather", "encode_view"]
 
 
@@ -136,12 +141,14 @@ def test_attention_kernel_matches_plain(cuda, n):
 
 @pytest.mark.cuda
 def test_attention_kernel_refuses_what_it_does_not_take(cuda):
-    q96 = torch.randn(1, 8, 2, 96, device=cuda).to(torch.bfloat16)  # head dims 64 and 80 only
+    q264 = torch.randn(1, 8, 2, 264, device=cuda).to(torch.bfloat16)  # head dims up to 256
     q32 = torch.randn(1, 8, 2, 64, device=cuda)
     qnc = torch.randn(1, 8, 64, 2, device=cuda).to(torch.bfloat16).transpose(2, 3)
-    for q in (q96, q32, qnc):
+    for q in (q264, q32, qnc):
         with pytest.raises(ValueError):
             attention(q, q, q)
+    with pytest.raises(ValueError, match="at most 256"):
+        attention(q264, q264, q264)
 
 
 @pytest.mark.cuda
@@ -266,7 +273,7 @@ def test_point_render_kernel_refuses_what_it_does_not_take(cuda):
     args = list(_k2_inputs(cuda, 8, 16, 32, 16, 9, cfg, seed=0))
     bad = [
         (2, args[2].float()),  # fp32 grid
-        (1, torch.cat([args[1]] * 3, 1)[:, :96].contiguous()),  # K = 96
+        (1, torch.cat([args[1]] * 9, 1)[:, :257].contiguous()),  # K = 257
         (0, args[0].t().contiguous().t()),  # non-contiguous rays
     ]
     for i, value in bad:
@@ -358,6 +365,9 @@ def test_probe_and_query_kernels_refuse_what_they_do_not_take(cuda):
     (1000, 16, torch.float32),  # 64 B rows, 8 a warp
     (300, 24, torch.bfloat16),  # 48 B: 3 vectors, a warp copies 10 rows
     (64, 8, torch.bfloat16),  # 16 B: one vector a row
+    (7680, 192, torch.float32),  # the probe path's at n_probe 96: 768 B rows, one warp a row
+    (300, 512, torch.float32),  # the probe path's at n_probe 256: 2 KB rows
+    (100, 520, torch.bfloat16),  # 1040 B: 65 vectors, a warp's lanes one, two or three each
 ])
 def test_row_gather_kernel_is_exact(cuda, rows, C, dtype):
     g = torch.Generator(device=cuda).manual_seed(rows)
@@ -386,7 +396,6 @@ def _row_gather_refusals(dev):
     return [
         (table, idx.long()),  # int64 indices
         (torch.randn(64, 2, device=dev), idx),  # 8-byte rows
-        (torch.randn(64, 256, device=dev), idx),  # 1 KB rows, wider than 512 B
         (torch.randn(64, 32, device=dev)[:, ::2], idx),  # not contiguous
         (table.double(), idx),  # fp64
         (table.half(), idx),  # fp16
@@ -480,7 +489,7 @@ def test_encode_view_kernel_refuses_what_it_does_not_take(cuda):
             torch.randn(13, D, device=cuda), torch.randn(D, E, device=cuda), torch.zeros(E, device=cuda),
             torch.rand(N, 3, device=cuda)]
     encode_view(*args, cfg)
-    for bad in ({1: torch.rand(N, 65, device=cuda) + 3}, {4: torch.randn(D, 69, device=cuda), 5: torch.zeros(69, device=cuda)},
+    for bad in ({1: torch.rand(N, 257, device=cuda) + 3}, {4: torch.randn(D, 69, device=cuda), 5: torch.zeros(69, device=cuda)},
                 {0: torch.randn(N, 136, device=cuda), 3: torch.randn(13, 136, device=cuda),
                  4: torch.randn(136, E, device=cuda)},
                 {0: torch.randn(D, N, device=cuda).T}, {6: torch.rand(N, 3, device=cuda).to(torch.float64)}):
@@ -854,11 +863,185 @@ def test_unfused_render_against_the_point_render_kernel(cuda):
 @pytest.mark.cuda
 def test_probe_bound_on_the_trained_field_through_the_kernels(cuda):
     """tests/test_torch_probe_trained.py's bound with the renders on the
-    card (bf16 state): the exact render through K2, the probe through K3,
-    the row gather and K2 (the 128-sample gold through the unfused render)."""
+    card (bf16 state): the 128-sample gold and the exact render through
+    K2, the probe through K3, the row gather and K2."""
     from scenedino_torch.tools import probe_quality_trained as pq
 
     err_p, err_e, cos, counts = pq.probe_errors(cuda)
-    assert counts["point_render"] == 2 and counts["probe_weights"] == 1 and counts["row_gather"] == 1, counts
+    assert counts["point_render"] == 3 and counts["probe_weights"] == 1 and counts["row_gather"] == 1, counts
     stats, failed = pq.bound(err_p, err_e, cos)
     assert not failed, (failed, stats)
+
+
+# ---------------------------------------------- every shape the JAX package takes
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [96, 128, 256])
+@pytest.mark.parametrize("depth_statistic", ["expectation", "median"])
+def test_point_render_kernel_past_64_samples_matches_plain(cuda, K, depth_statistic):
+    """K2 with a ray over two to four of its 64-point tiles (96 leaves 32
+    dead rows in the last): the transmittance and sums carried from tile to
+    tile, the median from the ray's stored weights; K2's bounds and median
+    rule."""
+    cfg = PointRenderConfig(depth_statistic=depth_statistic)
+    args = _k2_inputs(cuda, 12, 20, K, 128, 65, cfg, seed=K)
+    before = point_render.launches
+    out = point_render(*args, cfg)
+    torch.cuda.synchronize()
+    assert point_render.launches == before + 1
+    ref = point_render_plain(*args, cfg)
+    assert all(bool(torch.isfinite(o).all()) for o in out)
+    if depth_statistic == "median":
+        z = args[1]
+        k_idx = (z - out[0][:, None]).abs().argmin(-1)
+        p_idx = (z - ref[0][:, None]).abs().argmin(-1)
+        assert torch.equal(z.gather(1, k_idx[:, None])[:, 0], out[0])
+        assert (k_idx - p_idx).abs().max().item() <= 1 and (k_idx != p_idx).float().mean().item() <= 0.01
+    else:
+        assert (out[0] - ref[0]).abs().max().item() <= 5e-2
+    assert (out[1] - ref[1]).abs().max().item() <= 5e-3 and (out[2] - ref[2]).abs().max().item() <= 5e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [96, 128, 256])
+def test_probe_weights_kernel_past_64_samples_matches_plain(cuda, K):
+    cfg = PointRenderConfig()
+    rays, z, grid, w_code, b1, w2, b2, fw, fk = _k2_inputs(cuda, 12, 20, K, 128, 3, cfg, seed=K + 5)[:9]
+    args = (rays, z, grid, w_code, b1, w2[:, :1].contiguous(), b2[:1].contiguous(), fw, fk)
+    before = probe_weights.launches
+    out = probe_weights(*args, cfg)
+    torch.cuda.synchronize()
+    assert probe_weights.launches == before + 1
+    assert out.shape == z.shape and bool(torch.isfinite(out).all())
+    assert (out - probe_weights_plain(*args, cfg)).abs().max().item() <= 5e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,num_freqs,dtype", [(96, 6, torch.float32), (96, 6, torch.bfloat16),
+                                               (128, 6, torch.float32), (128, 6, torch.bfloat16),
+                                               (48, 8, torch.float32), (48, 8, torch.bfloat16),
+                                               (128, 8, torch.float32), (128, 8, torch.bfloat16),
+                                               (32, 15, torch.bfloat16)])
+@pytest.mark.parametrize("depth_statistic", ["expectation", "median"])
+def test_encode_view_kernel_past_64_samples_and_16_code_columns_matches_plain(cuda, dtype, K, num_freqs,
+                                                                             depth_statistic):
+    """K6 with a ray over two of its 64-row tiles, and with a z code of 17
+    columns (num_freqs 8) and of 31 (num_freqs 15): the second k16 step of
+    the code product; the bounds of test_encode_view_kernel_matches_plain.
+    num_freqs 15 is held in bf16: its top frequency is 1.5 x 2^14, so one ulp
+    of the normalized depth (torch divides by a scalar through its
+    reciprocal, the kernel divides) moves a code argument by ~1e-3 rad, and
+    fp32 states then differ by up to 6.4e-3 (an H100 run), past the fp32
+    bounds but not the bf16 ones."""
+    g = torch.Generator(device=cuda).manual_seed(K + num_freqs)
+    N, D, E = 3000, 128, 65
+    cfg = EncodeViewConfig(num_freqs=num_freqs, depth_statistic=depth_statistic)
+    base = torch.randn(N, D, generator=g, device=cuda)
+    z = (torch.rand(N, K, generator=g, device=cuda) * 77 + 3).sort(-1).values
+    zscale = torch.rand(N, generator=g, device=cuda) * 0.2 + 0.8
+    w_z = (torch.randn(cfg.code_dims, D, generator=g, device=cuda) * 0.3).to(dtype)
+    w2 = (torch.randn(D, E, generator=g, device=cuda) / D ** 0.5).to(dtype)
+    b2 = torch.randn(E, generator=g, device=cuda) * 0.2
+    color = torch.rand(N, 3, generator=g, device=cuda)
+    args = (base, z, zscale, w_z, w2, b2, color)
+    reset_launches()
+    out = encode_view(*args, cfg)
+    again = encode_view(*args, cfg)
+    assert launches()["encode_view"] == 2
+    assert all(torch.equal(a, b) for a, b in zip(out, again))
+    ref = encode_view_plain(*args, cfg)
+    if depth_statistic == "median":
+        k_o = (z - out[0][:, None]).abs().argmin(-1)
+        k_r = (z - ref[0][:, None]).abs().argmin(-1)
+        assert torch.equal(z.gather(1, k_o[:, None])[:, 0], out[0])
+        assert (k_o - k_r).abs().max().item() <= 1 and (k_o != k_r).float().mean().item() <= 1e-2
+    bounds = (1e-3, 1e-4, 1e-4) if dtype == torch.float32 else (5e-2, 5e-3, 5e-3)
+    for i, (o, r, b) in enumerate(zip(out, ref, bounds)):
+        if i == 0 and depth_statistic == "median":
+            continue
+        if dtype == torch.bfloat16 and i == 1:
+            b *= max(1.0, r.abs().max().item())
+        assert (o - r).abs().max().item() <= b, (i, (o - r).abs().max().item())
+
+
+@pytest.mark.cuda
+def test_point_kernels_and_encode_view_refuse_past_their_ceilings(cuda):
+    """Past 256 samples a ray, and past 32 z-code columns (num_freqs 16 with
+    the input): the wrappers name the ceiling and never run the plain
+    version on the card."""
+    cfg = PointRenderConfig()
+    args = list(_k2_inputs(cuda, 4, 8, 257, 16, 9, cfg, seed=0))
+    before = launches()
+    with pytest.raises(ValueError, match="K <= 256"):
+        point_render(*args, cfg)
+    with pytest.raises(ValueError, match="K <= 256"):
+        probe_weights(*args[:5], args[5][:, :1].contiguous(), args[6][:1].contiguous(), *args[7:9], cfg)
+    N, D, E = 8, 16, 7
+    ev = [torch.randn(N, D, device=cuda), torch.rand(N, 4, device=cuda).sort(-1).values * 10 + 3,
+          torch.ones(N, device=cuda), None, torch.randn(D, E, device=cuda), torch.zeros(E, device=cuda),
+          torch.rand(N, 3, device=cuda)]
+    wide = EncodeViewConfig(num_freqs=16)
+    ev[3] = torch.randn(wide.code_dims, D, device=cuda)
+    with pytest.raises(ValueError, match="code_dims <= 32"):
+        encode_view(*ev, wide)
+    ev[1], ev[3] = torch.rand(N, 257, device=cuda).sort(-1).values * 10 + 3, torch.randn(13, D, device=cuda)
+    with pytest.raises(ValueError, match="K <= 256"):
+        encode_view(*ev, EncodeViewConfig())
+    assert launches() == before  # nothing launched or counted
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [32, 48, 96, 128, 256, 8, 20, 200])
+@pytest.mark.parametrize("n", [1, 65, 130, 600])
+def test_attention_any_kernels_match_plain(cuda, D, n):
+    """K1 at the head dims of csrc/attention_any.cu (8, 20 and 200 padded
+    inside the kernel to 32 and 256; 20 has rows that are not 16-byte
+    aligned): the forward with and without the log-sum-exp, dq and dkv
+    against the plain versions, ragged token counts around its 64-row
+    blocks and 32-row tiles, two launches bitwise equal, the D = 64 and
+    80 counts untouched."""
+    from scenedino_torch.kernels.attention import attention_bwd_dkv, attention_bwd_dq
+
+    g = torch.Generator(device=cuda).manual_seed(300 + D + n)
+    q, k, v, do = (torch.randn(2, n, 3, D, generator=g, device=cuda).to(torch.bfloat16) for _ in range(4))
+    before = launches()
+    out, lse = attention_fwd(q, k, v, with_lse=True)
+    plain_out = attention_fwd(q, k, v)[0]
+    dq, di = attention_bwd_dq(q, k, v, out, do, lse)
+    dk, dv = attention_bwd_dkv(q, k, v, do, lse, di)
+    again = attention_bwd_dq(q, k, v, out, do, lse)[0], attention_bwd_dkv(q, k, v, do, lse, di)
+    torch.cuda.synchronize()
+    after = launches()
+    assert after["attention_any"] == before["attention_any"] + 2
+    assert after["attention_any_bwd_dq"] == before["attention_any_bwd_dq"] + 2
+    assert after["attention_any_bwd_dkv"] == before["attention_any_bwd_dkv"] + 2
+    assert after["attention"] == before["attention"] and after["attention_d80"] == before["attention_d80"]
+    assert torch.equal(out, plain_out) and torch.equal(dq, again[0]) and torch.equal(dk, again[1][0])
+    assert (out.float() - attention_plain(q, k, v).float()).abs().max().item() <= 2e-2
+    assert (lse - attention_lse_plain(q, k)).abs().max().item() <= 1e-3
+    assert (di - (do.float() * out.float()).sum(-1).transpose(1, 2)).abs().max().item() <= 1e-3
+    for got, ref in zip((dq, dk, dv), attention_bwd_plain(q, k, v, out, do, lse)):
+        assert torch.isfinite(got).all()
+        err = (got.float() - ref.float()).abs().max().item()
+        assert err <= K1_BWD_REL * ref.float().abs().max().item() + 1e-3, err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 80])
+def test_attention_forwards_hold_the_scaled_keys_sweep(cuda, D):
+    """Item C of ROADMAP queue 3: both shipped forwards, built with the exact
+    rescale, on keys scaled along the walk (key row n by 1 + 4 n / N) at
+    chip_smoke.py phase 11a's 16 cases (4 shapes x seeds 200 + N, 1, 2, 3),
+    each within the card test's bound of 2e-2 of the fp32 plain version
+    rounded to bf16 (the lazy rescale read 3.125e-2 on 8 and 11 of them)."""
+    errs = {}
+    for b, n, h in ((4, 585, 16), (2, 1921, 12), (4, 1921, 12), (4, 2305, 12)):
+        for seed in (200 + n, 1, 2, 3):
+            g = torch.Generator(device=cuda).manual_seed(seed)
+            q, k, v = (torch.randn(b, n, h, D, generator=g, device=cuda).to(torch.bfloat16) for _ in range(3))
+            ramp = torch.arange(n, device=cuda, dtype=torch.float32)[None, :, None, None] / n
+            k = (k.float() * (1 + 4 * ramp)).to(torch.bfloat16)
+            out = attention_fwd(q, k, v)[0].float()
+            errs[b, n, h, seed] = (out - attention_plain(q, k, v).float()).abs().max().item()
+    assert len(errs) == 16 and max(errs.values()) <= 2e-2, errs

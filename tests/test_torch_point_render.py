@@ -20,6 +20,12 @@ What the emulation follows, as the kernel does it:
     count of ballots. Against `composite_rays` / `weight_median_depth` of
     both packages: weights and E[z] to rtol 1e-5 (fp32 products and sums in
     another order), the median exactly;
+  * a ray of K > 64 samples (K = 100, 128, 256: two to four tiles) walked
+    tile by tile: each tile one warp from the transmittance the ray's
+    earlier tiles left (a tile's last delta reads the next tile's first
+    depth), E[z] and the weight total added tile by tile, the rows past K
+    dead; the median from the ray's stored weights, 64 at a time, the CDF
+    carried from chunk to chunk. Held as the one-tile walk is;
   * the whole walk against `point_render_plain` / `probe_weights_plain` /
     `point_query_plain`, within chip_smoke.py's K2-K4 bounds (the
     emulation's code product is summed in another order than the plain
@@ -191,6 +197,47 @@ def warp_composite(sigma, z, hard_cap, median):
     return weights, z.gather(1, at[:, None])[:, 0]
 
 
+def warp_composite_segments(sigma, z, hard_cap, median):
+    """Rays (n, K) of K > 64 samples as the kernel walks them: 64-sample
+    tiles, each one warp as in `warp_composite` from the carried
+    transmittance. Returns the weights (n, K) and the depth (n,)."""
+    n, K = z.shape
+    trans, depth, total, weights = torch.ones(n), torch.zeros(n), torch.zeros(n), []
+    for k0 in range(0, K, TP):
+        k = k0 + torch.arange(TP)
+        live = k < K
+        at = k.clamp(max=K - 1)  # dead rows repeat the last sample
+        s = pr._softplus(sigma[:, at])
+        zz, znext = z[:, at], z[:, (k + 1).clamp(max=K - 1)]  # past the tile: the next tile's first depth
+        delta = torch.where(k + 1 < K, znext - zz, torch.tensor(1e10))
+        alpha = 1.0 - torch.exp(-torch.abs(delta) * torch.clamp_min(s, 0.0))
+        if hard_cap:
+            alpha = torch.where(k == K - 1, torch.tensor(1.0), alpha)
+        alpha = torch.where(live, alpha, torch.tensor(0.0))
+        f = torch.where(live, torch.clamp_min(1.0 - alpha, 1e-10), torch.tensor(1.0))
+        f2, a2, z2 = f.reshape(n, 32, 2), alpha.reshape(n, 32, 2), zz.reshape(n, 32, 2)
+        incl = _scan(f2[..., 0] * f2[..., 1], torch.mul)
+        excl = torch.cat([torch.ones(n, 1), incl[:, :-1]], -1) * trans[:, None]
+        w = torch.stack([a2[..., 0] * excl, a2[..., 1] * (excl * f2[..., 0])], -1)  # (n, 32, 2)
+        depth = depth + _butterfly(w[..., 0] * z2[..., 0] + w[..., 1] * z2[..., 1])[:, 0]
+        total = total + _butterfly(w[..., 0] + w[..., 1])[:, 0]
+        trans = trans * incl[:, 31]
+        weights.append(w.reshape(n, TP))
+    padded = torch.cat(weights, -1)
+    if not median:
+        return padded[:, :K], depth
+    den = torch.clamp_min(total, 1e-10)[:, None]
+    count, base = torch.zeros(n, dtype=torch.long), torch.zeros(n)
+    for c0 in range(0, K, TP):
+        kc = c0 + 2 * torch.arange(32)
+        v0, v1 = padded[:, kc], padded[:, kc + 1]
+        cum = _scan(v0 + v1, torch.add) + base[:, None]
+        before = torch.cat([base[:, None], cum[:, :-1]], -1)
+        count += ((kc < K) & ((before + v0) / den < 0.5)).sum(-1) + ((kc + 1 < K) & (cum / den < 0.5)).sum(-1)
+        base = cum[:, 31]
+    return padded[:, :K], z.gather(1, torch.clamp_max(count, K - 1)[:, None])[:, 0]
+
+
 def tiles_of(values, K, fill=float("nan")):
     """Rays (R, K) packed as the kernel packs them: 64-row tiles of 64 // K
     rays, rows past them (and past the last ray) `fill`. Returns (T, 64)."""
@@ -205,8 +252,11 @@ def tiles_of(values, K, fill=float("nan")):
 
 
 def composite_tiles(sigma, z, hard_cap, median):
-    """The walk over the packed tiles: each tile's rays read their own rows only."""
+    """The walk over the packed tiles: each tile's rays read their own rows
+    only; a ray of more than 64 samples over its own tiles."""
     R, K = z.shape
+    if K > TP:
+        return warp_composite_segments(sigma, z, hard_cap, median)
     rpt = TP // K
     st, zt = tiles_of(sigma, K), tiles_of(z, K)
     weights, depth = [], []
@@ -219,11 +269,11 @@ def composite_tiles(sigma, z, hard_cap, median):
     return torch.cat(weights), torch.cat(depth)
 
 
-@pytest.mark.parametrize("K", [7, 12, 32, 48, 64])
+@pytest.mark.parametrize("K", [7, 12, 32, 48, 64, 100, 128, 256])
 @pytest.mark.parametrize("hard_cap", [True, False])
 def test_warp_compositing_matches_both_packages(K, hard_cap):
     rng = np.random.default_rng(K + 100 * hard_cap)
-    R = 3 * (TP // K) + 2  # a ragged last tile
+    R = 3 * max(TP // K, 1) + 2  # a ragged last tile
     z = np.sort(rng.uniform(3.0, 80.0, size=(R, K)), -1).astype(np.float32)
     sigma = (rng.normal(size=(R, K)) * 2.0 - 1.0).astype(np.float32)
     sigma[0] = 50.0  # saturated alphas: the 1e-10 floor
@@ -291,7 +341,8 @@ def walk_points(pts, grid, w_code, b1, w2, b2, feat_w2c, feat_k, cfg):
     return kernel_head(code, g, w_code, b1, w2, b2, D)[1]
 
 
-@pytest.mark.parametrize("K,D,E", [(7, 8, 2), (12, 128, 65), (32, 64, 17), (48, 16, 9), (64, 128, 65)])
+@pytest.mark.parametrize("K,D,E", [(7, 8, 2), (12, 128, 65), (32, 64, 17), (48, 16, 9), (64, 128, 65),
+                                   (100, 16, 9), (128, 64, 17), (256, 128, 65)])
 def test_walk_matches_the_plain_kernels(K, D, E):
     cfg = pr.PointRenderConfig(num_freqs=4, include_input=False, code_mode="distance") if D == 8 \
         else pr.PointRenderConfig()

@@ -8,9 +8,8 @@ into the port through `utils.convert.from_jax_params` (strictly, by
 `load_jax_params`); the item is the last of
 configs/train_synthetic_convergence.yaml's synthetic dataset, built by the
 port's loader (equal to JAX's, tests/test_torch_train_run.py). At the
-96x192 serving raster: a gold render of 128 stratified samples (the
-unfused renderer: K2 takes at most 64 samples), the exact
-32-sample render and the probe-guided render at its defaults of the
+96x192 serving raster: a gold render of 128 stratified samples (the fused
+renderer, as the JAX test's: K2 on the card), the exact 32-sample render and the probe-guided render at its defaults of the
 held-out novel camera; the JAX test's bounds (:104-110): the probe's
 median and 95th-percentile depth error within 3.5x the exact path's
 (+1e-6), its median below 0.25, its feature cosine to the gold median >
