@@ -338,18 +338,23 @@ Phases, one line each:
              depth 3, 2 heads of 32) in bf16 at 192x640 (1921 tokens), one
              stage-1 step on the card (K1's forward, dq and dkv at head dim
              32 from csrc/attention_any.cu, counted) against the same step on
-             the CPU (phase 5's bounds), then K1 at (2, 1921, 2, 32) and (2,
-             1921, 6, 128) against the plain versions, two launches bitwise
-             equal, kernel, plain, SDPA and bound times; 18d phase 11a's 16
+             the CPU (phase 5's bounds), then K1 at (2, 1921, 2, 32), (2,
+             1921, 4, 96), (2, 1921, 6, 128) and (2, 1921, 2, 256) against
+             the plain versions, two launches bitwise equal, kernel, plain,
+             SDPA and bound times, CUDA events and device time, and at head
+             dim 20 (padded to 24 by the wrappers) against the plain
+             versions; 18d phase 11a's 16
              scaled-keys cases at head dims 64 and 80 with the shipped build
              (the exact rescale), every forward within K1_TOL, counts above
-             SDPA and above 1.5625e-2; the phase's wall time against its 60 s
+             SDPA and above 1.5625e-2; the phase's wall time against its 30 s
              target
   kernels    one JSON line: launches (all serving paths, training, the
              train run, stage 2, evaluation, phases 9-18 together), error, times and
              bound per kernel (K1 at every other head dim as attention_any,
              attention_any_bwd_dq and attention_any_bwd_dkv, at phase 18c's
-             (2, 1921, 2, 32)); the K1 forward's, K4's and K6's also at
+             (2, 1921, 2, 32), with the device times of the forward, of dq +
+             dkv and of SDPA's forward and backward beside the events');
+             the K1 forward's, K4's and K6's also at
              their shapes ("shapes": K4 at the evaluation's block, K6 at
              the 2D evaluator's fp32 frame; phase 9's holds of K1, K2, K4
              and K6 under "reference checkpoints"; K1's forward, dq and dkv at
@@ -381,6 +386,8 @@ H, W, K = 192, 640, 32
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, HBM3
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
+# the special-function unit's exp2: 16 a cycle an SM, 132 SMs at about 1.83 GHz
+PEAK_EXP2 = 3.9e12
 # phase 2's K1 forward shapes: (batch, with the log-sum-exp) at 1921 tokens, 12 heads of 64
 K1_PHASE2_SHAPES = ((1, False), (4, True), (8, False))
 # bounds of the kernel-vs-plain comparisons
@@ -452,7 +459,9 @@ EVAL_RGB_ABS = 2e-2
 # output widths each, K3 at 2 hidden widths; K2 and K3 again for the
 # multi-tile walk
 POINT_KERNELS = 16
-# instantiations of csrc/attention_any.cu: the forward, dq and dkv at 7 padded head dims
+# instantiations of csrc/attention_any.cu: the forward, dq and dkv at the 4
+# padded widths (64, 128, 192 and 256 columns), at 64 columns one for each
+# count of k-steps (1 to 4) of the products over the head dim
 ANY_KERNELS = 21
 # phase 11a: K1 at head dim 80 (csrc/attention_d80.cu, attention_d80_bwd.cu) at
 # I-JEPA-H/14's 192x640 forward (13 x 45 = 585 tokens, 16 heads), four of them, and phase
@@ -5109,16 +5118,18 @@ def phase_port_rest(seed, stage2_dir, scratch):
 # num_freqs LONG_FREQS (17 z-code columns), at 32; 18c: the ViT of the smoke
 # recipe's vit_overrides (width 64, depth 3, 2 heads: head dim 32) in bf16 at
 # 192x640 (1921 tokens, so the card takes K1), one stage-1 step of a batch of
-# ANY_STEP_B on the card and on the CPU (phase 5's bounds), and K1 at head dim
-# 128 (ANY_D128; and head dim 32 at the step's shape ANY_D32) against its plain
-# version and SDPA; 18d: phase 11a's 16 scaled-keys cases at both shipped head
+# ANY_STEP_B on the card and on the CPU (phase 5's bounds), and K1 at ANY_SHAPES
+# (head dim 32 at the step's shape; 96, where a third of the last tile is zero
+# columns; 128; 256, the widest) against its plain version and SDPA, and at
+# ANY_UNALIGNED (a head dim the wrappers pad to a multiple of 8) against its
+# plain version; 18d: phase 11a's 16 scaled-keys cases at both shipped head
 # dims, each within K1_TOL
 LONG_RAYS = (128, 256)
 LONG_PROBE = 96
 LONG_K6, LONG_FREQS = 128, 8
 ANY_STEP_B = 1
-ANY_D32 = (2, 1921, 2, 32)
-ANY_D128 = (2, 1921, 6, 128)
+ANY_SHAPES = ((2, 1921, 2, 32), (2, 1921, 4, 96), (2, 1921, 6, 128), (2, 1921, 2, 256))
+ANY_UNALIGNED = (2, 130, 3, 20)
 
 
 def _driven(fn):
@@ -5327,10 +5338,12 @@ def phase_long_encode_view(seed):
     return total, shapes
 
 
-def k1_any_shape(gen, B, N, Hh, D):
+def k1_any_shape(gen, B, N, Hh, D, timed=True):
     """K1 at head dim D through csrc/attention_any.cu: the forward (with the
     log-sum-exp), dq and dkv against the plain versions, two launches bitwise
-    equal, kernel, plain, SDPA and bound times; the shape's entry."""
+    equal; where `timed`, kernel, plain, SDPA and bound times (CUDA events,
+    and the kernels' device time by the profiler: at these grids SDPA's
+    events read its host); the shape's entry."""
     from scenedino_torch.kernels.attention import (
         attention_bwd_dkv,
         attention_bwd_dq,
@@ -5338,8 +5351,9 @@ def k1_any_shape(gen, B, N, Hh, D):
         attention_fwd,
         attention_lse_plain,
         attention_plain,
+        route,
     )
-    from scenedino_torch.utils.timing import time_ms
+    from scenedino_torch.utils.timing import device_ms, ms_text, time_ms
 
     q, k, v, do = (torch.randn(B, N, Hh, D, generator=gen, device="cuda").to(torch.bfloat16) for _ in range(4))
     out, lse = attention_fwd(q, k, v, with_lse=True)
@@ -5360,6 +5374,15 @@ def k1_any_shape(gen, B, N, Hh, D):
             and all(bool(torch.isfinite(t).all()) for t in (out, dq, dk, dv))):
         fail(f"K1 at head dim {D} ({B}, {N}, {Hh}) disagrees with its plain versions: out {err}, lse {lse_err}, "
              f"dq dk dv {errs} (bounds {bounds})")
+    _, width, pd = route(D)
+    entry = {"shape": [B, N, Hh, D], "max_abs_err": err, "lse_err": lse_err, "bwd_errs": errs}
+    text = (f"phase 18c K1 at head dim {D} ({B}, {N}, {Hh}, {D}) bf16 (csrc/attention_any.cu, handed {width} "
+            f"columns, computing at {pd}): max_abs_err out {err:.3e} (bound {K1_TOL}), lse {lse_err:.3e}, dq "
+            f"{errs[0]:.3e}, dk {errs[1]:.3e}, dv {errs[2]:.3e} (bounds {[round(x, 5) for x in bounds]}); two "
+            f"launches bitwise equal")
+    if not timed:
+        print(text, flush=True)
+        return entry
     ms = time_ms(lambda: attention_fwd(q, k, v), inner=10)
     ms_dq = time_ms(lambda: attention_bwd_dq(q, k, v, out, do, lse), inner=5)
     ms_dkv = time_ms(lambda: attention_bwd_dkv(q, k, v, do, lse, di), inner=5)
@@ -5370,30 +5393,41 @@ def k1_any_shape(gen, B, N, Hh, D):
     sd = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt)
     dot = do.transpose(1, 2).contiguous()
     lib_bwd_ms = time_ms(lambda: torch.autograd.grad(sd, (qt, kt, vt), dot, retain_graph=True), inner=5)
+    # the kernels alone (torch.profiler), as phase 11a times the D = 80 ones; more
+    # windows than its default (once the profiler saw no kernel of these in three)
+    dev_ms = device_ms(lambda: attention_fwd(q, k, v), calls=20, tries=6)
+    dev_bwd_ms = device_ms(lambda: (attention_bwd_dq(q, k, v, out, do, lse), attention_bwd_dkv(q, k, v, do, lse, di)),
+                           calls=20, tries=6)
+    lib_dev_ms = device_ms(lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt), calls=20, tries=6)
+    lib_bwd_dev_ms = device_ms(lambda: torch.autograd.grad(sd, (qt, kt, vt), dot, retain_graph=True))
+    if lib_bwd_dev_ms is not None and lib_dev_ms is not None and lib_bwd_dev_ms < lib_dev_ms:
+        # the window saw part of the backward's kernels (twenty-call windows did so here at three of
+        # four shapes, twice): SDPA's backward recomputes its forward's products, so it is not faster
+        lib_bwd_dev_ms = None
     unit = 2.0 * B * Hh * N * N * D
     t_bytes, s_bytes = B * N * Hh * D * 2, B * Hh * N * 4
     b, by = bound_ms(2 * unit, 4 * t_bytes)
     b_dq, by_dq = bound_ms(3 * unit, 6 * t_bytes + 2 * s_bytes)
     b_dkv, by_dkv = bound_ms(4 * unit, 6 * t_bytes + 2 * s_bytes)
-    print(f"phase 18c K1 at head dim {D} ({B}, {N}, {Hh}, {D}) bf16 (csrc/attention_any.cu, padded inside to "
-          f"{next(w_ for w_ in (32, 48, 64, 96, 128, 192, 256) if D <= w_)}): max_abs_err out {err:.3e} (bound "
-          f"{K1_TOL}), lse {lse_err:.3e}, dq {errs[0]:.3e}, dk {errs[1]:.3e}, dv {errs[2]:.3e} (bounds "
-          f"{[round(x, 5) for x in bounds]}); two launches bitwise equal; forward {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {b:.4f} ms ({by}); dq {ms_dq:.4f} ms (bound {b_dq:.4f}, "
-          f"{by_dq}), dkv {ms_dkv:.4f} ms (bound {b_dkv:.4f}, {by_dkv}), plain backward {plain_bwd_ms:.4f} ms, sdpa "
-          f"backward {lib_bwd_ms:.4f} ms", flush=True)
-    return {"shape": [B, N, Hh, D], "max_abs_err": err, "lse_err": lse_err, "bwd_errs": errs, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": b, "bound_by": by, "library_ms": lib_ms, "ms_dq": ms_dq,
-            "ms_dkv": ms_dkv, "plain_bwd_ms": plain_bwd_ms, "library_bwd_ms": lib_bwd_ms, "bound_dq_ms": b_dq,
-            "bound_dq_by": by_dq, "bound_dkv_ms": b_dkv, "bound_dkv_by": by_dkv}
+    exp_ms = B * Hh * N * N / PEAK_EXP2 * 1e3  # one exp2 a logit, each kernel
+    print(f"{text}; forward {ms:.4f} ms (device {ms_text(dev_ms)}), plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms "
+          f"(device {ms_text(lib_dev_ms)}), bound {b:.4f} ms ({by}; the exp2 {exp_ms:.4f} ms); dq {ms_dq:.4f} ms "
+          f"(bound {b_dq:.4f}, {by_dq}), dkv {ms_dkv:.4f} ms (bound {b_dkv:.4f}, {by_dkv}), dq + dkv device "
+          f"{ms_text(dev_bwd_ms)}, plain backward {plain_bwd_ms:.4f} ms, sdpa backward {lib_bwd_ms:.4f} ms (device "
+          f"{ms_text(lib_bwd_dev_ms)})", flush=True)
+    return {**entry, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
+            "exp2_ms": exp_ms, "library_ms": lib_ms, "library_device_ms": lib_dev_ms, "ms_dq": ms_dq,
+            "ms_dkv": ms_dkv, "bwd_device_ms": dev_bwd_ms, "plain_bwd_ms": plain_bwd_ms, "library_bwd_ms": lib_bwd_ms,
+            "library_bwd_device_ms": lib_bwd_dev_ms, "bound_dq_ms": b_dq, "bound_dq_by": by_dq,
+            "bound_dkv_ms": b_dkv, "bound_dkv_by": by_dkv}
 
 
 def phase_any_head_dim(seed):
     """Phase 18c: the smoke recipe's ViT (head dim 32) in bf16 at 192x640, one
     stage-1 step on the card (K1's forward, dq and dkv at head dim 32,
-    counted) and the same step on the CPU; then K1 at ANY_D32 and ANY_D128
-    against the plain versions and SDPA. Returns (the step's launches, the
-    three kernels' entries)."""
+    counted) and the same step on the CPU; then K1 at ANY_SHAPES against the
+    plain versions and SDPA, and at ANY_UNALIGNED against the plain versions.
+    Returns (the step's launches, the three kernels' entries)."""
     from scenedino_torch.models.factory import SYNTHETIC_SMOKE_TRAIN, make_model
     from scenedino_torch.training import trainer
 
@@ -5447,9 +5481,13 @@ def phase_any_head_dim(seed):
     if not (np.isfinite(gpu_loss) and loss_rel <= TRAIN_LOSS_REL and errs[worst] <= TRAIN_GRAD_REL):
         fail("the head-dim-32 training step on the card disagrees with the CPU")
     gen = torch.Generator(device="cuda").manual_seed(seed + 1830)
-    shapes = [k1_any_shape(gen, *shape) for shape in (ANY_D32, ANY_D128)]
+    shapes = [k1_any_shape(gen, *shape) for shape in ANY_SHAPES]
+    shapes.append(k1_any_shape(gen, *ANY_UNALIGNED, timed=False))
     main = shapes[0]
-    common = {"route": "cuda", "source": "scenedino_torch/csrc/attention_any.cu", "shapes": shapes}
+    # the device times beside the event times: at these grids the events read the host
+    common = {"route": "cuda", "source": "scenedino_torch/csrc/attention_any.cu",
+              **{k_: main[k_] for k_ in ("device_ms", "library_device_ms", "bwd_device_ms", "library_bwd_device_ms")},
+              "shapes": shapes}
     entries = [
         {"name": "attention_any", "replaces": "scenedino_tpu/models/vit.py:126",
          "max_abs_err": max(e["max_abs_err"] for e in shapes),
@@ -5508,7 +5546,7 @@ def phase_every_shape(seed):
     step, any_entries = phase_any_head_dim(seed)
     phase_scaled_sweep()
     counts = {k_: serving.get(k_, 0) + encode.get(k_, 0) + step.get(k_, 0) for k_ in serving}
-    print(f"phase 18 launches {json.dumps(counts)}; wall time {time.perf_counter() - t_phase:.1f} s (target 60 s); "
+    print(f"phase 18 launches {json.dumps(counts)}; wall time {time.perf_counter() - t_phase:.1f} s (target 30 s); "
           f"{card_line()}", flush=True)
     return counts, {"point_render": k2_shapes, "probe_weights": k3_shape, "encode_view": k6_shapes}, any_entries
 
@@ -5561,11 +5599,11 @@ def main():
             or any("consumer" not in d80[name] for name in forwards)
             or any(r.get("spill_stores", 1) or r.get("spill_loads", 1) for r in d80.values())):
         fail(f"ptxas spilled in a D = 80 K1 kernel, or its report is missing: {d80}")
-    # K1 at every other head dim: forward, dq and dkv at each padded width (csrc/attention_any.cu)
-    anyk = {" ".join(m.groups()): r for name, r in build.ptxas_report(build.build_log("attention_any")).items()
-            for m in [re.search(r"(fwd|dq|dkv)_kernelILi(\d+)E", name)] if m}
-    print(f"phase 1 K1 kernels at every other head dim (csrc/attention_any.cu: the forward, dq and dkv at each "
-          f"padded width), registers and spills in bytes: {json.dumps(anyk)}", flush=True)
+    # K1 at every other head dim: forward, dq and dkv at each padded width and k-steps (csrc/attention_any.cu)
+    anyk = bench_attention_bwd.any_report(build.build_log("attention_any"))
+    print(f"phase 1 K1 kernels at every other head dim (csrc/attention_any.cu: the forward, dq and dkv by the "
+          f"head-dim columns their k-steps cover, wgmma on TMA tiles), registers at launch (a consumer warpgroup "
+          f"then takes the producer's) and spills in bytes: {json.dumps(anyk)}", flush=True)
     if len(anyk) != ANY_KERNELS or any(r.get("spill_stores", 1) or r.get("spill_loads", 1) for r in anyk.values()):
         fail(f"ptxas spilled in csrc/attention_any.cu, or a report is missing ({len(anyk)} of {ANY_KERNELS}): {anyk}")
     # the point kernels (K2, K3, K4) in each of their hidden and output widths: mode, DC, EC, ET
@@ -5642,7 +5680,8 @@ def main():
     if sorted(e["name"] for e in entries) != sorted(kernels.WRAPPERS):
         fail("the kernels line does not list every kernel")
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
-            "bound_ms", "bound_by", "library_ms", "shapes"]
+            "bound_ms", "bound_by", "library_ms", "device_ms", "library_device_ms", "bwd_device_ms",
+            "library_bwd_device_ms", "shapes"]
     print(json.dumps({"kernels": [{k: e[k] for k in keys if k in e} for e in entries]}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

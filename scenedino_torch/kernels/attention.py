@@ -15,8 +15,12 @@ split into a 64-column tile and a 16-column side tile (`csrc/hopper.cuh`'s
 rows of 80), each with a launch count of its own (`D80_COUNTS`). At every
 other head dim up to 256 (D = 32 in the ViTs of the configs'
 `vit_overrides`, 8 and 16 in the JAX package's tests) they launch the three
-kernels of `csrc/attention_any.cu`, FlashAttention-2 on mma.sync with D
-padded to 32, 48, 64, 96, 128, 192 or 256 inside the kernel (`ANY_COUNTS`).
+kernels of `csrc/attention_any.cu` (`ANY_COUNTS`): the same design on a row
+of ceil(D / 64) whole 64-column tiles, whose columns past D TMA fills with
+zeros, at the padded widths 64, 128, 192 and 256. Where D % 8 != 0 the
+wrappers zero-pad q, k, v (and o, dO) to the next multiple of 8 with one
+copy each, launch those kernels at the true D's softmax scale and cut the
+results back to D (`route` names each head dim's kernels and widths).
 On CPU tensors the same Function takes `attention_plain` and
 `attention_bwd_plain` (any D). Anything else raises. It replaces the
 Pallas TPU flash attention reached from `scenedino_tpu/models/vit.py:126`
@@ -39,22 +43,37 @@ HEAD_DIMS = (64, 80)
 MAX_HEAD_DIM = 256
 
 
-def _scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
-    """q k^T / sqrt(D) in fp32, (B, H, N, N)."""
+def route(D: int) -> Tuple[object, int, int]:
+    """The kernels that K1 launches at head dim D: (their key in `_KERNELS`,
+    the width the wrappers hand them, the width they compute at). D = 64
+    and 80 take their own; every other D up to MAX_HEAD_DIM takes
+    attention_any.cu, handed D rounded up to a multiple of 8 (zero columns
+    added by the wrappers) and computing at the next multiple of 64 (zero
+    columns added by TMA)."""
+    if not 0 < D <= MAX_HEAD_DIM:
+        raise ValueError(f"the CUDA attention kernels take a head dim of at most {MAX_HEAD_DIM}, got {D}")
+    if D in HEAD_DIMS:
+        return D, D, D
+    aligned = -(-D // 8) * 8
+    return "any", aligned, -(-aligned // 64) * 64
+
+
+def _scores(q: torch.Tensor, k: torch.Tensor, scale: Optional[float] = None) -> torch.Tensor:
+    """q k^T times `scale` (default 1 / sqrt(D)) in fp32, (B, H, N, N)."""
     qf, kf = (t.float().transpose(1, 2) for t in (q, k))
-    return (qf @ kf.transpose(-1, -2)) * q.shape[-1] ** -0.5
+    return (qf @ kf.transpose(-1, -2)) * (q.shape[-1] ** -0.5 if scale is None else scale)
 
 
-def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """softmax(q k^T / sqrt(D)) v per head in fp32 math; the result takes
-    q's dtype."""
-    s = _scores(q, k)
+def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: Optional[float] = None) -> torch.Tensor:
+    """softmax(q k^T / sqrt(D)) v per head in fp32 math (`scale` in place of
+    1 / sqrt(D) where given); the result takes q's dtype."""
+    s = _scores(q, k, scale)
     return (torch.softmax(s, -1) @ v.float().transpose(1, 2)).transpose(1, 2).to(q.dtype)
 
 
-def attention_lse_plain(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+def attention_lse_plain(q: torch.Tensor, k: torch.Tensor, scale: Optional[float] = None) -> torch.Tensor:
     """The rows' log-sum-exp of the scaled logits, (B, H, N) fp32."""
-    return torch.logsumexp(_scores(q, k), -1)
+    return torch.logsumexp(_scores(q, k, scale), -1)
 
 
 def _row_dot(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
@@ -62,10 +81,10 @@ def _row_dot(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
     return (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
 
 
-def _bwd_from_di(q, k, v, do, lse, di):
-    scale = q.shape[-1] ** -0.5
+def _bwd_from_di(q, k, v, do, lse, di, scale=None):
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
     qf, kf, vf, dof = (t.float().transpose(1, 2) for t in (q, k, v, do))  # (B, H, N, D)
-    p = torch.exp(_scores(q, k) - lse.float()[..., None])
+    p = torch.exp(_scores(q, k, scale) - lse.float()[..., None])
     ds = p * (dof @ vf.transpose(-1, -2) - di.float()[..., None]) * scale
     dq = ds @ kf
     dk = ds.transpose(-1, -2) @ qf
@@ -73,11 +92,25 @@ def _bwd_from_di(q, k, v, do, lse, di):
     return tuple(t.transpose(1, 2).to(q.dtype) for t in (dq, dk, dv))
 
 
-def attention_bwd_plain(q, k, v, o, do, lse) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+def attention_bwd_plain(q, k, v, o, do, lse, scale=None) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The explicit fp32 backward: with P = exp(q k^T / sqrt(D) - lse),
-    di = rowsum(dO o), dS = P (dO v^T - di) / sqrt(D):
-    dq = dS k, dk = dS^T q, dv = P^T dO. Results take q's dtype."""
-    return _bwd_from_di(q, k, v, do, lse, _row_dot(o, do))
+    di = rowsum(dO o), dS = P (dO v^T - di) / sqrt(D) (`scale` in place of
+    1 / sqrt(D) where given): dq = dS k, dk = dS^T q, dv = P^T dO. Results
+    take q's dtype."""
+    return _bwd_from_di(q, k, v, do, lse, _row_dot(o, do), scale)
+
+
+def with_head_dim(width: int, fn, *ts: torch.Tensor):
+    """`fn` on the (B, N, H, D) tensors `ts` zero-padded along the head dim
+    to `width` (one copy each; none where D is `width`), with every 4-D
+    tensor of its results cut back to D. Zero columns leave q k^T, the
+    log-sum-exp, di and the other columns unchanged, so the cut results are
+    those at D when `fn` uses D's softmax scale."""
+    D = ts[0].shape[-1]
+    if width == D:
+        return fn(*ts)
+    out = fn(*(torch.nn.functional.pad(t, (0, width - D)) for t in ts))
+    return tuple(t[..., :D].contiguous() if t is not None and t.ndim == 4 else t for t in out)
 
 
 def _check(*ts: torch.Tensor) -> None:
@@ -116,17 +149,36 @@ def _check_aligned(*ts: torch.Tensor) -> None:
                              f"{t.data_ptr():#x} (storage offset {t.storage_offset()})")
 
 
-def _launch(step: str, ptrs, q: torch.Tensor) -> None:
-    """Launch K1's `step` ("fwd", "bwd_dq" or "bwd_dkv") at q's head dim and
+def _launch(step: str, ptrs, q: torch.Tensor, key, scale: float) -> None:
+    """Launch K1's `step` ("fwd", "bwd_dq" or "bwd_dkv") of the kernels
+    `_KERNELS[key]` at q's (padded) head dim with softmax scale `scale` and
     add one to its launch count."""
     B, N, H, D = q.shape
-    lib_name, fn_name, counter = _KERNELS[D if D in HEAD_DIMS else "any"][step]
+    lib_name, fn_name, counter = _KERNELS[key][step]
     fn = build.function(lib_name, fn_name, [ctypes.c_void_p] * len(ptrs) + [ctypes.c_int] * 4
                         + [ctypes.c_float, ctypes.c_void_p])
-    err = build.call_on_stream(fn, q.device, *ptrs, B, N, H, D, D ** -0.5)
+    err = build.call_on_stream(fn, q.device, *ptrs, B, N, H, D, scale)
     if err != 0:
         raise RuntimeError(f"{fn_name} kernel launch failed: cudaError {err}")
     build.count_launch(counter)
+
+
+def _on_kernels(fn, *ts: torch.Tensor):
+    """`fn(*ts, key, scale)` with the kernels' key and the width that `route`
+    gives D (the tensors padded and the results cut back where D % 8 != 0),
+    at D's softmax scale."""
+    D = ts[0].shape[-1]
+    key, width, _ = route(D)
+    return with_head_dim(width, lambda *padded: fn(*padded, key, D ** -0.5), *ts)
+
+
+def _fwd_kernel(q, k, v, with_lse, key, scale):
+    B, N, H, _ = q.shape
+    out = torch.empty_like(q)
+    lse = torch.empty(B, H, N, device=q.device, dtype=torch.float32) if with_lse else None
+    _launch("fwd", (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                    lse.data_ptr() if with_lse else None), q, key, scale)
+    return out, lse
 
 
 def attention_fwd(q, k, v, with_lse: bool = False) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
@@ -135,12 +187,7 @@ def attention_fwd(q, k, v, with_lse: bool = False) -> Tuple[torch.Tensor, Option
     if q.device.type == "cpu":
         return attention_plain(q, k, v), attention_lse_plain(q, k) if with_lse else None
     _check_cuda(q, k, v)
-    B, N, H, D = q.shape
-    out = torch.empty_like(q)
-    lse = torch.empty(B, H, N, device=q.device, dtype=torch.float32) if with_lse else None
-    _launch("fwd", (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                    lse.data_ptr() if with_lse else None), q)
-    return out, lse
+    return _on_kernels(lambda q, k, v, key, scale: _fwd_kernel(q, k, v, with_lse, key, scale), q, k, v)
 
 
 def attention_bwd_dq(q, k, v, o, do, lse) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -151,11 +198,15 @@ def attention_bwd_dq(q, k, v, o, do, lse) -> Tuple[torch.Tensor, torch.Tensor]:
         return _bwd_from_di(q, k, v, do, lse, di)[0], di
     _check_cuda(q, k, v, o, do)
     _check_stats(lse, q)
-    B, N, H, D = q.shape
-    dq = torch.empty_like(q)
-    di = torch.empty(B, H, N, device=q.device, dtype=torch.float32)
-    _launch("bwd_dq", tuple(t.data_ptr() for t in (q, k, v, o, do, lse, dq, di)), q)
-    return dq, di
+
+    def launch(q, k, v, o, do, key, scale):
+        B, N, H, _ = q.shape
+        dq = torch.empty_like(q)
+        di = torch.empty(B, H, N, device=q.device, dtype=torch.float32)
+        _launch("bwd_dq", tuple(t.data_ptr() for t in (q, k, v, o, do, lse, dq, di)), q, key, scale)
+        return dq, di
+
+    return _on_kernels(launch, q, k, v, o, do)
 
 
 def attention_bwd_dkv(q, k, v, do, lse, di) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -166,10 +217,14 @@ def attention_bwd_dkv(q, k, v, do, lse, di) -> Tuple[torch.Tensor, torch.Tensor]
     _check_cuda(q, k, v, do)
     _check_stats(lse, q)
     _check_stats(di, q)
-    dk = torch.empty_like(k)
-    dv = torch.empty_like(v)
-    _launch("bwd_dkv", tuple(t.data_ptr() for t in (q, k, v, do, lse, di, dk, dv)), q)
-    return dk, dv
+
+    def launch(q, k, v, do, key, scale):
+        dk = torch.empty_like(k)
+        dv = torch.empty_like(v)
+        _launch("bwd_dkv", tuple(t.data_ptr() for t in (q, k, v, do, lse, di, dk, dv)), q, key, scale)
+        return dk, dv
+
+    return _on_kernels(launch, q, k, v, do)
 
 
 def _check_stats(t: torch.Tensor, q: torch.Tensor) -> None:

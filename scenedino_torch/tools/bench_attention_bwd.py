@@ -13,6 +13,9 @@ side on one card.
         --other old/attention_d80_bwd.cu
     python -m scenedino_torch.tools.bench_attention_bwd --head-dim 80 --fwd-check --fwd-variants 3,3,1 1,3,2 \
         --fwd-other old/attention_d80.cu
+    python -m scenedino_torch.tools.bench_attention_bwd --head-dim 32 --probe --check --fwd-check \
+        --other scenedino_torch/csrc/attention_any.cu old/attention_any.cu \
+        --fwd-other scenedino_torch/csrc/attention_any.cu scenedino_torch/csrc/attention_any.cu old/attention_any.cu
 
 `--check` builds `csrc/attention_bwd.cu` as the port loads it, prints what
 ptxas said of its kernels and holds dq, di, dk, dv against the plain
@@ -34,9 +37,10 @@ warpgroups per block, ring slots and blocks per SM (the FWD_* macros);
 forward source with the same C interface. Forward builds are checked,
 compared bit for bit with the first of them, and timed in turns at the
 forward's shapes beside `scaled_dot_product_attention` (CUDA events, and
-the kernels' device time from the profiler).
+the kernels' device time from the profiler over 20 calls; SDPA's device
+time in each pass too).
 `--forward` times the port's forward kernel at the forward's shapes beside
-`scaled_dot_product_attention`.
+`scaled_dot_product_attention`, CUDA events and device time.
 `--wgmma-rate` measures what the kernels' one instruction, wgmma
 m64n64k16 with A in registers, reaches on an SM when nothing else runs: 1
 to 3 warpgroups start batches of 8 (two accumulators, k-steps alternating,
@@ -63,9 +67,24 @@ the log-sum-exp), at ragged token counts and with keys that drift along the
 walk (the lazy rescale's jump); its variant is `a,b,c` (the FWD80_*
 macros) or `a,b,c/d,e,f` (also FWD80_SMALL_*, the small grids' build), and
 `--fwd-other` takes, say, an earlier revision's mma.sync `attention_d80.cu`.
+`--head-dim D` at any other multiple of 8 up to 256 works on
+`csrc/attention_any.cu`: `--probe` (also the first step of `--check` and
+`--fwd-check`) runs one TMA load of a 64-column box over tensors whose inner
+dimension is 8 to 56 with a second head beside each row in memory, and
+checks that the tile holds the head's columns and zeros past them and that
+a TMA store of it writes nothing past D; `--check` and `--fwd-check` print
+ptxas' registers and spills by kernel and k-steps and hold the kernels
+against the plain versions at `chip_smoke.py` phase 18c's four shapes (head
+dims 32, 96, 128, 256) and at ragged token counts at D; the source has no
+build macros, so `--other` / `--fwd-other` take the builds to time: the
+port's `csrc/attention_any.cu` (twice for two identical builds, built once),
+say the parent's `attention_any.cu` (put beside its `hopper.cuh`); builds are
+compared bit for bit at the head-dim-32 shape and timed in turns at the
+four shapes beside SDPA's forward or backward.
 Every time is the median CUDA-event time of `utils.timing.time_ms` on the
-card that the first line names; forward builds also print the kernels'
-device time (`utils.timing.device_ms`).
+card that the first line names; forward builds, and backward builds at the
+other head dims, also print the kernels' device time
+(`utils.timing.device_ms`), and SDPA's beside them.
 """
 from __future__ import annotations
 
@@ -108,6 +127,11 @@ FWD80_MACROS = ("FWD80_WGS", "FWD80_STAGES", "FWD80_BLOCKS", "FWD80_SMALL_WGS", 
                 "FWD80_SMALL_BLOCKS")
 MACROS80 = ("BWD80_DQ_WGS", "BWD80_DQ_STAGES", "BWD80_DQ_BLOCKS", "BWD80_DKV_WGS", "BWD80_DKV_STAGES",
             "BWD80_DKV_BLOCKS", "BWD80_DKV_QT")
+# every other head dim (csrc/attention_any.cu): chip_smoke.py phase 18c's shapes (the
+# smoke recipe's ViT at 192x640, head dim 32; 96, 128 and the widest, 256), the
+# forward of the first with the log-sum-exp as its training step runs it
+ANY_SHAPES = ((2, 1921, 2, 32), (2, 1921, 4, 96), (2, 1921, 6, 128), (2, 1921, 2, 256))
+ANY_RAGGED = (1, 63, 64, 65, 127, 128, 129, 200)
 
 
 class HeadDim:
@@ -140,32 +164,49 @@ class HeadDim:
             self.fwd_macros = FWD80_MACROS
             self.fwd_shapes = FWD80_SHAPES
             self.fwd_ragged = [(2, n, 3, 80) for n in D80_RAGGED + (191, 192, 193, 385)]
+        elif 0 < head_dim <= 256 and head_dim % 8 == 0:
+            self.source = build.CSRC / "attention_any.cu"
+            self.names = ("attention_any_bwd_dq", "attention_any_bwd_dkv")
+            self.macros = ()
+            self.time_shapes = ANY_SHAPES
+            self.check_shapes = list(ANY_SHAPES) + [(2, n, 3, head_dim) for n in ANY_RAGGED]
+            self.fwd_source = self.source
+            self.fwd_name = "attention_any_fwd"
+            self.fwd_macros = ()
+            self.fwd_shapes = tuple((shape, shape == ANY_SHAPES[0]) for shape in ANY_SHAPES)
+            self.fwd_ragged = [(2, n, 3, head_dim) for n in ANY_RAGGED + (191, 192, 193, 385)]
         else:
-            raise ValueError(f"the attention kernels take head dim 64 or 80, got {head_dim}")
-        self.same_shape = self.time_shapes[-1]
-        self.fwd_same_shape = self.fwd_shapes[-1][0]
+            raise ValueError(f"the attention kernels' C functions take head dim 64, 80 or a multiple of 8 up to "
+                             f"256, got {head_dim}")
+        # the shape builds are compared at bit for bit: the last, or at the other
+        # head dims the main path's (phase 18c's training step)
+        self.same_shape = self.time_shapes[-1] if head_dim in (64, 80) else self.time_shapes[0]
+        self.fwd_same_shape = self.fwd_shapes[-1][0] if head_dim in (64, 80) else self.fwd_shapes[0][0]
 
 
 def compile_sources(jobs: Sequence[Tuple[Path, Optional[Dict[str, int]]]]) -> List[Tuple[ctypes.CDLL, str]]:
     """nvcc each (source, defines) of `jobs` with the port's flags and `-D`
-    for each define into `build/kernels/`, all at once; returns each loaded
-    library and nvcc's output, in order."""
+    for each define into `build/kernels/`, all at once (a job that repeats
+    another is built once); returns each loaded library and nvcc's output,
+    in order."""
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs = []
+    procs = {}
+    outs = []
     for source, defines in jobs:
         flags = [*build.NVCC_FLAGS, *(f"-D{k}={v}" for k, v in (defines or {}).items())]
         tag = hashlib.sha1((" ".join(flags) + str(source)).encode() + source.read_bytes()).hexdigest()[:12]
         out = build.BUILD_DIR / f"libbench-{source.stem}-{tag}.so"
-        cmd = [build.nvcc_path(), *flags, "-o", str(out), str(source)]
-        procs.append((source, defines, out, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                                             text=True)))
-    done = []
-    for source, defines, out, proc in procs:
-        log, _ = proc.communicate()
+        outs.append(out)
+        if out not in procs:
+            cmd = [build.nvcc_path(), *flags, "-o", str(out), str(source)]
+            procs[out] = (source, defines, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                                            text=True))
+    logs = {}
+    for out, (source, defines, proc) in procs.items():
+        logs[out], _ = proc.communicate()
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {source} {defines}:\n{log}")
-        done.append((ctypes.CDLL(str(out)), log))
-    return done
+            raise RuntimeError(f"nvcc failed for {source} {defines}:\n{logs[out]}")
+    return [(ctypes.CDLL(str(out)), logs[out]) for out in outs]
 
 
 def compile_source(source: Path, defines: Optional[Dict[str, int]] = None) -> Tuple[ctypes.CDLL, str]:
@@ -261,19 +302,27 @@ def check_forward(fwd: Forward, shape, with_lse=True, seed=0, drift=False) -> bo
 
 
 def print_warnings(log: str) -> None:
-    """nvcc's warnings, among them ptxas' notes on serialized wgmma (C75xx)."""
+    """nvcc's warnings, among them ptxas' notes on serialized wgmma (C75xx);
+    of its notes that it injected a warpgroup.arrive (C7519) only their count."""
+    injected = 0
     for line in log.splitlines():
-        if "warning" in line.lower() or "C75" in line:
+        if "C7519" in line:
+            injected += 1
+        elif "warning" in line.lower() or "C75" in line:
             print(f"nvcc: {line}", flush=True)
+    if injected:
+        print(f"nvcc: {injected} notes (C7519) of a warpgroup.arrive injected by ptxas", flush=True)
 
 
 def forward_lines(log: str) -> str:
-    return json.dumps(forward_report(log))
+    return json.dumps(any_report(log) or forward_report(log))
 
 
 def parse_fwd_variant(text: str, macros: Sequence[str] = FWD_MACROS) -> Dict[str, int]:
     """`a,b,c` sets the first three macros; at D = 80 `a,b,c/d,e,f` also sets
     the small grids' three (else they keep the source's)."""
+    if not macros:
+        raise ValueError("csrc/attention_any.cu has no build macros: give its builds with --fwd-other")
     values = [int(x) for part in text.split("/") for x in part.split(",")]
     if len(values) not in (3, len(macros)):
         raise ValueError(f"a forward variant sets 3 or {len(macros)} of {', '.join(macros)}, got {text!r}")
@@ -298,7 +347,7 @@ def device_sdpa(q, k, v) -> Optional[float]:
     """`scaled_dot_product_attention`'s kernels' device time (the profiler):
     at a small shape its CUDA-event time is its host's."""
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    return device_ms(lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt))
+    return device_ms(lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt), calls=20, tries=6)
 
 
 def inputs(shape, seed):
@@ -365,15 +414,48 @@ def forward_report(log: str) -> Dict[str, Dict[str, int]]:
     return out
 
 
+def any_report(log: str) -> Dict[str, Dict[str, int]]:
+    """ptxas' registers (at launch) and spills of each kernel of
+    csrc/attention_any.cu in nvcc's output `log`, by kernel and the head-dim
+    columns that its k-steps cover, 16 each ("fwd 16", "fwd 32", "fwd 48",
+    "fwd 64" at 64 padded columns, "fwd 128", ..., "dkv 256")."""
+    out = {}
+    for name, r in build.ptxas_report(log).items():
+        m = re.search(r"\d(fwd|dq|dkv)_kernelILi\d+ELi(\d+)E", name)
+        if m:
+            out[f"{m.group(1)} {16 * int(m.group(2))}"] = r
+    return out
+
+
 def kernel_lines(log: str) -> str:
-    return json.dumps(backward_report(log))
+    """The backward kernels' ptxas report, or at every other head dim all of
+    csrc/attention_any.cu's kernels'."""
+    return json.dumps(any_report(log) or backward_report(log))
+
+
+def build_names(variants: Sequence[str], others: Sequence[Path]) -> List[str]:
+    """The builds' names as printed: each variant, each other source's path,
+    a repeat with its count ("... #2")."""
+    names = list(variants) + [str(p) for p in others]
+    return [f"{n} #{names[:i + 1].count(n)}" if names[:i].count(n) else n for i, n in enumerate(names)]
 
 
 def parse_variant(text: str, macros: Sequence[str] = MACROS) -> Dict[str, int]:
+    if not macros:
+        raise ValueError("csrc/attention_any.cu has no build macros: give its builds with --other")
     values = [int(x) for part in text.split("/") for x in part.split(",")]
     if len(values) != len(macros):
         raise ValueError(f"a variant sets {', '.join(macros)}, got {text!r}")
     return dict(zip(macros, values))
+
+
+def device_sdpa_backward(q, k, v, do) -> Optional[float]:
+    """`scaled_dot_product_attention`'s backward kernels' device time (the
+    profiler): a small backward's CUDA-event time is the host's autograd."""
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True) for t in (q, k, v))
+    out = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt)
+    dot = do.transpose(1, 2).contiguous()
+    return device_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True))
 
 
 def time_sdpa_backward(q, k, v, do) -> float:
@@ -561,6 +643,83 @@ def side_probe(seed: int = 0) -> bool:
     return ok
 
 
+ZERO_FILL_SOURCE = r"""
+#include "hopper.cuh"
+using namespace hopper;
+// One block: TMA loads the 64-row, 64-column box at (0, head 0, row 0) of a
+// (1, 64, 2, D) bf16 tensor into a swizzled tile, as csrc/attention_any.cu
+// loads a tile of a row of D < 64 columns; copies the tile out unswizzled
+// (64 x 64); then stores the tile through the same box of a second tensor.
+__global__ void __launch_bounds__(128) zero_fill_kernel(const __grid_constant__ CUtensorMap in,
+                                                        const __grid_constant__ CUtensorMap out,
+                                                        __nv_bfloat16* tile_out) {
+  __shared__ alignas(1024) unsigned char tile[TILE_BYTES];
+  __shared__ uint64_t bar;
+  if (threadIdx.x == 0) {
+    mbar_init(&bar, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    mbar_arrive_expect_tx(&bar, TILE_BYTES);
+    tma_load_4d(tile, &in, &bar, 0, 0, 0, 0);
+  }
+  mbar_wait(&bar, 0);
+  for (int i = threadIdx.x; i < TILE * TILE; i += blockDim.x) {
+    const int r = i / TILE, c = i % TILE;
+    tile_out[i] = *reinterpret_cast<const __nv_bfloat16*>(tile + swizzled_offset(r, c & ~7) + (c & 7) * 2);
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    tma_store_4d(&out, tile, 0, 0, 0, 0);
+    tma_store_commit();
+    tma_store_wait_read();
+  }
+}
+extern "C" int zero_fill(const void* in, void* out, void* tile_out, int D) {
+  CUtensorMap a, b;
+  int bad = encode_head_box_map(&a, in, 1, TILE, 2, D, TILE, TILE, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (!bad) bad = encode_head_box_map(&b, out, 1, TILE, 2, D, TILE, TILE, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (bad) return bad;
+  zero_fill_kernel<<<1, 128>>>(a, b, (__nv_bfloat16*)tile_out);
+  return (int)cudaGetLastError();
+}
+"""
+
+
+def zero_fill_probe(seed: int = 0) -> bool:
+    """One TMA load of a 64-column box over a tensor whose inner dimension is
+    D < 64 (32, and 8, 16, 24, 56), with a second head beside it in memory:
+    the tile holds the head's D columns and zeros past them (not the next
+    head's values), the barrier sees the whole box's bytes, and a TMA store of
+    the tile writes the D columns and nothing past them."""
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    source = build.BUILD_DIR / "zero_fill_probe.cu"
+    source.write_text(ZERO_FILL_SOURCE.replace('"hopper.cuh"', f'"{build.CSRC / "hopper.cuh"}"'))
+    lib, _ = compile_source(source)
+    lib.zero_fill.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int]
+    lib.zero_fill.restype = ctypes.c_int
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    ok = True
+    for D in (32, 8, 16, 24, 56):
+        x = torch.randn(1, 64, 2, D, generator=g, device="cuda").to(torch.bfloat16)
+        out = torch.full_like(x, 7.0)
+        tile = torch.full((64, 64), 3.0, device="cuda", dtype=torch.bfloat16)
+        err = lib.zero_fill(x.data_ptr(), out.data_ptr(), tile.data_ptr(), D)
+        torch.cuda.synchronize()
+        if err != 0:
+            raise RuntimeError(f"zero_fill launch failed: cudaError {err}")
+        loaded = torch.equal(tile[:, :D], x[0, :, 0])
+        zeros = bool((tile[:, D:] == 0).all())
+        stored = torch.equal(out[0, :, 0], x[0, :, 0]) and bool((out[0, :, 1] == 7.0).all())
+        good = loaded and zeros and stored
+        ok = ok and good
+        print(f"zero-fill probe, a 64-column box over D = {D}: the head's columns loaded {loaded}, columns past D "
+              f"zero {zeros}, the store writes the D columns and nothing past them {stored}"
+              f"{'' if good else ', FAIL'}", flush=True)
+    return ok
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--check", action="store_true")
@@ -571,9 +730,12 @@ def main():
     parser.add_argument("--fwd-other", nargs="*", default=[], type=Path)
     parser.add_argument("--forward", action="store_true")
     parser.add_argument("--wgmma-rate", action="store_true")
-    parser.add_argument("--head-dim", type=int, default=64, choices=(64, 80),
-                        help="the kernels that the backward's and the forward's options work on")
-    parser.add_argument("--probe", action="store_true", help="the side-tile descriptor probe (D = 80)")
+    parser.add_argument("--head-dim", type=int, default=64,
+                        help="the kernels that the backward's and the forward's options work on: 64, 80, or any "
+                             "other multiple of 8 up to 256 (csrc/attention_any.cu, checked at that head dim and "
+                             "timed at chip_smoke.py phase 18c's shapes)")
+    parser.add_argument("--probe", action="store_true",
+                        help="the side-tile descriptor probe (D = 80), the zero-fill probe (any other head dim)")
     parser.add_argument("--seed", type=int, default=0)
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -584,7 +746,9 @@ def main():
     ok = True
 
     if args.probe or (hd.head_dim == 80 and (args.check or args.fwd_check)):
-        ok = side_probe() and ok
+        ok = (side_probe() if hd.head_dim == 80 else zero_fill_probe()) and ok
+    elif hd.head_dim not in (64, 80) and (args.check or args.fwd_check):
+        ok = zero_fill_probe() and ok
     if args.check:
         lib, log = compile_source(hd.source)
         print(f"ptxas: {kernel_lines(log)}", flush=True)
@@ -601,7 +765,7 @@ def main():
         ok = ok and same
 
     jobs = [(hd.source, parse_variant(text, hd.macros)) for text in args.variants] + [(p, None) for p in args.other]
-    names = list(args.variants) + [str(p) for p in args.other]
+    names = build_names(args.variants, args.other)
     builds = [(name, Backward(lib, hd.names), log) for name, (lib, log) in zip(names, compile_sources(jobs))]
     for name, bwd, log in builds:
         print(f"build {name}: ptxas {kernel_lines(log)}", flush=True)
@@ -630,13 +794,16 @@ def main():
                 _, di = bwd.dq(q, k, v, o, do, lse)
                 ms_dq = time_ms(lambda: bwd.dq(q, k, v, o, do, lse), inner=5)
                 ms_dkv = time_ms(lambda: bwd.dkv(q, k, v, do, lse, di), inner=5)
+                dev_dq = device_ms(lambda: bwd.dq(q, k, v, o, do, lse))
+                dev_dkv = device_ms(lambda: bwd.dkv(q, k, v, do, lse, di))
                 both = ms_dq + ms_dkv
                 print(f"pass {turn + 1} {tuple(shape)} {name}: dq {ms_dq:.4f} ms ({3 * unit / ms_dq / 1e9:.1f} "
                       f"TFLOP/s), dkv {ms_dkv:.4f} ms ({4 * unit / ms_dkv / 1e9:.1f} TFLOP/s), together {both:.4f} ms "
-                      f"({7 * unit / both / 1e9:.1f} TFLOP/s over the 7 products; {both / lib_ms:.2f} of SDPA's)",
-                      flush=True)
+                      f"({7 * unit / both / 1e9:.1f} TFLOP/s over the 7 products; {both / lib_ms:.2f} of SDPA's); "
+                      f"device time dq {rate_text(dev_dq, 3 * unit)}, dkv {rate_text(dev_dkv, 4 * unit)}", flush=True)
         print(f"scaled_dot_product_attention backward {tuple(shape)}: {lib_ms:.4f} ms before the builds, "
-              f"{time_sdpa_backward(q, k, v, do):.4f} ms after", flush=True)
+              f"{time_sdpa_backward(q, k, v, do):.4f} ms after, device time "
+              f"{rate_text(device_sdpa_backward(q, k, v, do), 7 * unit)}", flush=True)
 
     if args.fwd_check:
         lib, log = compile_source(hd.fwd_source)
@@ -656,7 +823,7 @@ def main():
 
     jobs = [(hd.fwd_source, parse_fwd_variant(text, hd.fwd_macros)) for text in args.fwd_variants]
     jobs += [(p, None) for p in args.fwd_other]
-    names = list(args.fwd_variants) + [str(p) for p in args.fwd_other]
+    names = build_names(args.fwd_variants, args.fwd_other)
     fwd_builds = [(name, Forward(lib, hd.fwd_name), log) for name, (lib, log) in zip(names, compile_sources(jobs))]
     if fwd_builds:
         for name, fwd, log in fwd_builds:
@@ -678,10 +845,12 @@ def main():
             for turn, order in enumerate((fwd_builds, fwd_builds[::-1])):
                 for name, fwd, _ in order:
                     ms = time_ms(lambda: fwd(q, k, v, with_lse), inner=5)
-                    dev = device_ms(lambda: fwd(q, k, v, with_lse))
+                    dev = device_ms(lambda: fwd(q, k, v, with_lse), calls=20, tries=6)
                     print(f"pass {turn + 1} forward {tuple(shape)}{' with lse' if with_lse else ''} {name}: "
                           f"{ms:.4f} ms ({forward_flops(shape) / ms / 1e9:.1f} TFLOP/s), device time "
                           f"{rate_text(dev, forward_flops(shape))}", flush=True)
+                print(f"pass {turn + 1} scaled_dot_product_attention {tuple(shape)}: device time "
+                      f"{rate_text(device_sdpa(q, k, v), forward_flops(shape))}", flush=True)
             print(f"scaled_dot_product_attention {tuple(shape)}: {lib_ms:.4f} ms before the builds, "
                   f"{time_sdpa(q, k, v):.4f} ms after ({forward_flops(shape) / lib_ms / 1e9:.1f} TFLOP/s), device "
                   f"time {rate_text(device_sdpa(q, k, v), forward_flops(shape))}", flush=True)
@@ -691,9 +860,12 @@ def main():
             q, k, v = qkv(shape, args.seed)
             ms = time_ms(lambda: attention_fwd(q, k, v, with_lse=with_lse), inner=5)
             lib_ms = time_sdpa(q, k, v)
-            print(f"forward {tuple(shape)} bf16{' with lse' if with_lse else ''}: kernel {ms:.4f} ms "
-                  f"({forward_flops(shape) / ms / 1e9:.1f} TFLOP/s), scaled_dot_product_attention {lib_ms:.4f} ms "
-                  f"({forward_flops(shape) / lib_ms / 1e9:.1f} TFLOP/s)", flush=True)
+            dev = device_ms(lambda: attention_fwd(q, k, v, with_lse=with_lse), calls=20, tries=6)
+            print(f"forward {tuple(shape)} bf16{' with lse' if with_lse else ''}: "
+                  f"kernel {ms:.4f} ms ({forward_flops(shape) / ms / 1e9:.1f} TFLOP/s), device time "
+                  f"{rate_text(dev, forward_flops(shape))}; scaled_dot_product_attention {lib_ms:.4f} ms "
+                  f"({forward_flops(shape) / lib_ms / 1e9:.1f} TFLOP/s), device time "
+                  f"{rate_text(device_sdpa(q, k, v), forward_flops(shape))}", flush=True)
     if args.wgmma_rate:
         wgmma_rate()
     if not ok:

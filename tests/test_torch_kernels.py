@@ -8,7 +8,8 @@ grid's encode view through K6, the unfused render against K2, and the
 trained-field probe bound through K3, the row gather and K2; every shape
 the JAX package takes: K2 and K3 at 96, 128 and 256 samples a ray, K6 at
 96 and 128 and with a z code of 17 and 31 columns, K1 at head dims 8 to 256
-(csrc/attention_any.cu), each wrapper's refusal past its ceiling, and the
+(csrc/attention_any.cu; its register operands at one tile over many tiles
+and seeds), each wrapper's refusal past its ceiling, and the
 scaled-keys sweep of both shipped K1 forwards (ROADMAP queue 3, item C).
 The `cuda` tests skip without a card; on one, run them with
 
@@ -992,17 +993,19 @@ def test_point_kernels_and_encode_view_refuse_past_their_ceilings(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("D", [32, 48, 96, 128, 256, 8, 20, 200])
+@pytest.mark.parametrize("D", [32, 48, 96, 128, 256, 8, 20, 200, 16, 56, 192, 76])
 @pytest.mark.parametrize("n", [1, 65, 130, 600])
 def test_attention_any_kernels_match_plain(cuda, D, n):
-    """K1 at the head dims of csrc/attention_any.cu (8, 20 and 200 padded
-    inside the kernel to 32 and 256; 20 has rows that are not 16-byte
-    aligned): the forward with and without the log-sum-exp, dq and dkv
-    against the plain versions, ragged token counts around its 64-row
-    blocks and 32-row tiles, two launches bitwise equal, the D = 64 and
-    80 counts untouched."""
-    from scenedino_torch.kernels.attention import attention_bwd_dkv, attention_bwd_dq
+    """K1 at the head dims of csrc/attention_any.cu (8 to 56 computed at 64
+    columns, 76 to 128 at 128, 192 and 200 at 192 and 256; 20 and 76 have
+    rows that are not 16-byte aligned, which the wrappers pad to 24 and 80
+    and still route to csrc/attention_any.cu): the forward with and without
+    the log-sum-exp, dq and dkv against the plain versions, ragged token
+    counts around its 64-row tiles, two launches bitwise equal, each launch
+    counted on the route of D, the D = 64 and 80 counts untouched."""
+    from scenedino_torch.kernels.attention import attention_bwd_dkv, attention_bwd_dq, route
 
+    assert route(D)[0] == "any"
     g = torch.Generator(device=cuda).manual_seed(300 + D + n)
     q, k, v, do = (torch.randn(2, n, 3, D, generator=g, device=cuda).to(torch.bfloat16) for _ in range(4))
     before = launches()
@@ -1016,8 +1019,11 @@ def test_attention_any_kernels_match_plain(cuda, D, n):
     assert after["attention_any"] == before["attention_any"] + 2
     assert after["attention_any_bwd_dq"] == before["attention_any_bwd_dq"] + 2
     assert after["attention_any_bwd_dkv"] == before["attention_any_bwd_dkv"] + 2
-    assert after["attention"] == before["attention"] and after["attention_d80"] == before["attention_d80"]
+    assert all(after[name] == before[name] for name in ("attention", "attention_bwd_dq", "attention_bwd_dkv",
+                                                        "attention_d80", "attention_d80_bwd_dq",
+                                                        "attention_d80_bwd_dkv"))
     assert torch.equal(out, plain_out) and torch.equal(dq, again[0]) and torch.equal(dk, again[1][0])
+    assert torch.equal(dv, again[1][1])
     assert (out.float() - attention_plain(q, k, v).float()).abs().max().item() <= 2e-2
     assert (lse - attention_lse_plain(q, k)).abs().max().item() <= 1e-3
     assert (di - (do.float() * out.float()).sum(-1).transpose(1, 2)).abs().max().item() <= 1e-3
@@ -1025,6 +1031,35 @@ def test_attention_any_kernels_match_plain(cuda, D, n):
         assert torch.isfinite(got).all()
         err = (got.float() - ref.float()).abs().max().item()
         assert err <= K1_BWD_REL * ref.float().abs().max().item() + 1e-3, err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [16, 32, 48, 56])
+def test_attention_any_register_operands_at_one_tile_over_many_tiles_and_seeds(cuda, D):
+    """At 64 padded columns the forward's Q and dq's Q and dO are wgmma's A
+    operand from registers, and the k-steps past D run under a predicate
+    (one to four of them at D = 16 to 56): over 11 to 31 walked tiles and
+    four seeds each, the forward, its log-sum-exp, dq, dk and dv hold the
+    plain versions and a second launch gives the same bits."""
+    from scenedino_torch.kernels.attention import attention_bwd_dkv, attention_bwd_dq
+
+    for n in (700, 1921):
+        for seed in range(4):
+            g = torch.Generator(device=cuda).manual_seed(1000 * seed + n + D)
+            q, k, v, do = (torch.randn(2, n, 3, D, generator=g, device=cuda).to(torch.bfloat16) for _ in range(4))
+            runs = []
+            for _ in range(2):
+                out, lse = attention_fwd(q, k, v, with_lse=True)
+                dq, di = attention_bwd_dq(q, k, v, out, do, lse)
+                runs.append((out, lse, dq, di) + attention_bwd_dkv(q, k, v, do, lse, di))
+            torch.cuda.synchronize()
+            assert all(torch.equal(a, b) for a, b in zip(*runs)), (n, seed)
+            out, lse, dq, di, dk, dv = runs[0]
+            assert (out.float() - attention_plain(q, k, v).float()).abs().max().item() <= 2e-2, (n, seed)
+            assert (lse - attention_lse_plain(q, k)).abs().max().item() <= 1e-3, (n, seed)
+            for name, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), attention_bwd_plain(q, k, v, out, do, lse)):
+                err = (got.float() - ref.float()).abs().max().item()
+                assert err <= K1_BWD_REL * ref.float().abs().max().item() + 1e-3, (name, n, seed, err)
 
 
 @pytest.mark.cuda
