@@ -11,7 +11,10 @@ Phases, one line each:
              backward kernels (at D = 80 with setmaxnreg's split: the
              forward's two instantiations, dq, dkv; at every other head dim
              the forward, dq and dkv at seven padded widths), of the point
-             kernels' sixteen instantiations and of K6's thirty-two
+             kernels' sixteen instantiations, their wide walk's five and its
+             weight packing, and of K6's thirty-two, its wide walk's four and
+             their packing's two; the build's wall time beside the 45.1 s it
+             took before the wide walk (an H100 at 700 W)
   2 K1       the attention forward kernel vs its plain versions (output
              and log-sum-exp) at the three shapes its paths give it:
              ViT-B/8 @192x640 serving (1, 1921, 12, 64), the training
@@ -348,6 +351,25 @@ Phases, one line each:
              (the exact rescale), every forward within K1_TOL, counts above
              SDPA and above 1.5625e-2; the phase's wall time against its 30 s
              target
+  19 widths every width the JAX package takes (the wide walk of
+             csrc/wide_walk.cuh). 19a the flagship with its head widened to
+             d_hidden 512, dino_dims 768, num_freqs 16 (E 769, 99 point-code
+             and 33 z-code columns): 3 requests through each serving path
+             (novel view: K1, K2; probe: K1, K3, the gather, K2; SSC query
+             over the 256x256x32 grid: K1, K4; encode view: K1, K6 bf16),
+             the counts zeroed before each path and read after it, exact,
+             and one render_encode_view of the fp32 fold (K6 fp32); outputs
+             finite, of the right shape, depth in [3, 80]; then K2, K3, K4
+             and both K6 states against their plain versions on a request's
+             inputs (phases 3-3e's bounds; a code of HIGH_FREQS or more:
+             K6 fp32 to the bf16 bounds, K4's scaled bound on the points at
+             or past z_near). 19b seeded fields at d_hidden 256 with 129
+             outputs, d_hidden 132, num_freqs 11 (69 code columns), each
+             kernel against its plain version at the paths' shapes; on the
+             shipped widths K2 and K6 at 512 samples (both depth
+             statistics) and K3 at n_probe 320. 19c each new shape's kernel,
+             plain and bound times; the phase's wall time against its 60 s
+             target
   kernels    one JSON line: launches (all serving paths, training, the
              train run, stage 2, evaluation, phases 9-18 together), error, times and
              bound per kernel (K1 at every other head dim as attention_any,
@@ -360,7 +382,8 @@ Phases, one line each:
              and K6 under "reference checkpoints"; K1's forward, dq and dkv at
              the RE10K recipe's 2305 tokens under "RE10K recipe"; phase 18's
              K2 at 128 and 256 samples, K3 at n_probe 96, K6 at 128 samples
-             and at num_freqs 8, K1 at head dims 32 and 128)
+             and at num_freqs 8, K1 at head dims 32 and 128; phase 19's K2,
+             K3, K4 and K6 at each new width, with their launches counted)
 The line before the last is the card's name and power limit as
 nvidia-smi prints them; the last line is {"ok": true, "device": {...}}.
 Any failed phase exits non-zero before that line. Needs one CUDA card;
@@ -455,10 +478,11 @@ STAGE2_STEGO_ABS = 1e-3
 # allows a few rays whose weights move with bf16 rounding near a surface
 EVAL_DEPTH_REL_P99 = 1e-2
 EVAL_RGB_ABS = 2e-2
-# instantiations of csrc/point_render.cu's kernel: K2 and K4 at 2 hidden x 2
-# output widths each, K3 at 2 hidden widths; K2 and K3 again for the
-# multi-tile walk
-POINT_KERNELS = 16
+# kernels of csrc/point_render.cu: the shipped instantiations, K2 and K4 at 2
+# hidden x 2 output widths each, K3 at 2 hidden widths, K2 and K3 again for
+# the multi-tile walk (16); the wide walk's (csrc/wide_walk.cuh), K2 and K3
+# by walk and K4 (5); its weight packing (1)
+POINT_KERNELS = 16 + 5 + 1
 # instantiations of csrc/attention_any.cu: the forward, dq and dkv at the 4
 # padded widths (64, 128, 192 and 256 columns), at 64 columns one for each
 # count of k-steps (1 to 4) of the products over the head dim
@@ -5551,6 +5575,355 @@ def phase_every_shape(seed):
     return counts, {"point_render": k2_shapes, "probe_weights": k3_shape, "encode_view": k6_shapes}, any_entries
 
 
+# phase 19: the field kernels at every width the JAX package takes. 19a: the
+# flagship (SCENEDINO_KITTI_360, ViT-B/8, DPT 256, bf16 encoder) with its head
+# widened to WIDE_HEAD (E = 769, 99 point-code and 33 z-code columns),
+# WIDE_REQUESTS seeded requests through each serving path and one fp32-fold
+# encode view; 19b: seeded fields of WIDE_OTHERS' widths (d_hidden, d_out,
+# num_freqs), each kernel against its plain version, and on the shipped
+# flagship widths K2 and K6 at WIDE_SAMPLES samples a ray and K3 at
+# WIDE_PROBE probe samples; 19c: the times of each new shape beside its plain
+# version's and its bound
+WIDE_HEAD = {"d_hidden": 512, "dino_dims": 768, "num_freqs": 16}
+WIDE_REQUESTS = 3
+WIDE_OTHERS = (("E 129", 256, 129, 6), ("D 132", 132, 65, 6), ("69 code columns", 128, 65, 11))
+WIDE_SAMPLES = 512
+WIDE_PROBE = 320
+# a code of HIGH_FREQS frequencies or more: at 1.5 x 2^14 or more one ulp of the
+# normalized depth (torch on the card divides by a scalar through its
+# reciprocal, the kernels divide) moves a code argument by ~1e-3 rad. K6 on an
+# fp32 state is then held to the bf16 bounds (as tests/test_torch_kernels.py
+# holds num_freqs 15); K4 holds its scaled bound on the points at or past
+# z_near only: nearer, the normalized inverse depth reaches ~6e3, an ulp of it
+# moves the code's top arguments by tens of radians, and kernel and plain
+# version sample unrelated points of the sines (phase 19a, the wide field:
+# scaled error 1.51e-2 and 3.52 absolute there, 7.81e-3 in [z_near, z_far])
+HIGH_FREQS = 15
+
+
+def wide_model(seed, d_hidden, dino_dims, num_freqs):
+    """The flagship serving model (bf16 encoder) with its head's widths."""
+    from scenedino_torch.models.factory import SCENEDINO_KITTI_360, make_model
+
+    conf = {**SCENEDINO_KITTI_360, "dino_dims": dino_dims,
+            "code": {**SCENEDINO_KITTI_360["code"], "num_freqs": num_freqs},
+            "decoder_heads": [{"type": "resnet", "name": "normal_head",
+                               "args": {"n_blocks": 0, "d_hidden": d_hidden}}]}
+    conf["encoder"] = {**conf["encoder"], "dtype": "bfloat16"}
+    return make_model(conf, device="cuda", seed=seed)
+
+
+def wide_field(gen, D, E, C, dev="cuda"):
+    """flagship_field's seeded draws at other widths: a 384x1280xD bf16 grid,
+    W_code CxD, W2 DxE."""
+    def randn(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device=dev) * scale
+
+    grid = randn(2 * H, 2 * W, D).to(torch.bfloat16)
+    w_code = randn(C, D, scale=C ** -0.5).to(torch.bfloat16)
+    b1 = randn(D, scale=0.1)
+    w2 = randn(D, E, scale=D ** -0.5).to(torch.bfloat16)
+    b2 = randn(E, scale=0.1)
+    b2[0] += 0.5
+    return grid, w_code, b1, w2, b2
+
+
+def _entry(tag, errors, fn, plain, flops, nbytes_, **info):
+    """19c: the shape's kernel, plain and bound times (CUDA events; the plain
+    version fewer times) and its entry."""
+    from scenedino_torch.utils.timing import time_ms
+
+    ms = time_ms(fn, reps=5)
+    plain_ms = time_ms(plain, reps=2, warmup=1)
+    b, by = bound_ms(flops, nbytes_)
+    print(f"phase 19c {tag}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b:.4f} ms ({by})", flush=True)
+    return {**info, "max_abs_err": max(errors.values()), "errors": errors, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b, "bound_by": by}
+
+
+def wide_k2(tag, args, cfg):
+    """K2 against its plain version (phase 3's bounds and median rule); the entry with its times."""
+    from scenedino_torch.kernels.point_render import point_render, point_render_plain
+
+    out = point_render(*args, cfg)
+    torch.cuda.synchronize()
+    ref = point_render_plain(*args, cfg)
+    errs = {n: (o - r).abs().max().item() for n, o, r in zip(("depth", "feature", "rgb"), out, ref)}
+    ok = all(bool(torch.isfinite(o).all()) for o in out) and errs["feature"] <= K2_FEAT_TOL and errs["rgb"] <= K2_RGB_TOL
+    extra = {}
+    if cfg.depth_statistic == "median":
+        holds, extra["median_flips"] = _median_rule(args[1], out[0], ref[0])
+        ok = ok and holds
+    else:
+        ok = ok and errs["depth"] <= K2_DEPTH_TOL
+    (R, Kr), (D, E), C = args[1].shape, args[5].shape, args[3].shape[0]
+    print(f"phase 19 K2 {tag} ({R} rays x {Kr}, D {D}, E {E}, {C} code columns, {cfg.depth_statistic}) against its "
+          f"plain version: {json.dumps(errs)} (bounds {K2_DEPTH_TOL}, {K2_FEAT_TOL}, {K2_RGB_TOL})"
+          + (f", rays off the plain version's median sample {extra['median_flips']:.3e}" if extra else ""), flush=True)
+    if not ok:
+        fail(f"K2 {tag} disagrees with its plain version: {errs} {extra}")
+    rows = grid_rows_read(_ray_points(*args[:2]), args[2], *args[7:9])
+    return _entry(f"K2 {tag}", errs, lambda: point_render(*args, cfg), lambda: point_render_plain(*args, cfg),
+                  2.0 * R * Kr * (C * D + D * E), rows * D * 2 + nbytes(*args[:2], *args[3:]) + R * (E + 3) * 4,
+                  rays=R, samples=Kr, d_hidden=D, d_out=E, code_columns=C, depth_statistic=cfg.depth_statistic,
+                  grid_rows_read=rows, **extra)
+
+
+def wide_k3(tag, args, cfg):
+    from scenedino_torch.kernels.point_render import probe_weights, probe_weights_plain
+
+    out = probe_weights(*args, cfg)
+    torch.cuda.synchronize()
+    err = (out - probe_weights_plain(*args, cfg)).abs().max().item()
+    (R, Kr), D, C = args[1].shape, args[2].shape[-1], args[3].shape[0]
+    print(f"phase 19 K3 {tag} ({R} rays x {Kr}, D {D}, {C} code columns) against its plain version: weights "
+          f"{err:.3e} (bound {K3_TOL})", flush=True)
+    if not (err <= K3_TOL and bool(torch.isfinite(out).all())):
+        fail(f"K3 {tag} disagrees with its plain version: {err}")
+    rows = grid_rows_read(_ray_points(*args[:2]), args[2], *args[7:9])
+    return _entry(f"K3 {tag}", {"weights": err}, lambda: probe_weights(*args, cfg),
+                  lambda: probe_weights_plain(*args, cfg), 2.0 * R * Kr * (C * D + D),
+                  rows * D * 2 + nbytes(*args[:2], *args[3:]) + R * Kr * 4, rays=R, samples=Kr, d_hidden=D,
+                  code_columns=C, grid_rows_read=rows)
+
+
+def wide_k4(tag, args, cfg):
+    """K4 against its plain version under phase 3c's rule: in [z_near, z_far]
+    and over each point's largest output (at least 1), each within K4_TOL;
+    at HIGH_FREQS frequencies or more the second on the points at or past
+    z_near."""
+    from scenedino_torch.kernels.point_render import point_query, point_query_plain
+
+    pts = args[0]
+    sigma, feat = point_query(*args, cfg)
+    torch.cuda.synchronize()
+    in_range = (pts[:, 2] >= cfg.z_near) & (pts[:, 2] <= cfg.z_far)
+    held = pts[:, 2] >= cfg.z_near if cfg.num_freqs >= HIGH_FREQS else torch.ones_like(in_range)
+    err_abs, err_range, err_scaled, err_held, chunk = 0.0, 0.0, 0.0, 0.0, 1 << 17
+    for p0 in range(0, pts.shape[0], chunk):
+        ref_s, ref_f = point_query_plain(pts[p0:p0 + chunk], *args[1:], cfg)
+        d = torch.maximum((sigma[p0:p0 + chunk] - ref_s).abs(), (feat[p0:p0 + chunk] - ref_f).abs().amax(-1))
+        scaled = d / torch.clamp_min(torch.maximum(ref_s, ref_f.abs().amax(-1)), 1.0)
+        err_abs = max(err_abs, d.max().item())
+        if bool(in_range[p0:p0 + chunk].any()):
+            err_range = max(err_range, d[in_range[p0:p0 + chunk]].max().item())
+        if bool(held[p0:p0 + chunk].any()):
+            err_held = max(err_held, scaled[held[p0:p0 + chunk]].max().item())
+        err_scaled = max(err_scaled, scaled.max().item())
+    P, (D, E), C = pts.shape[0], args[4].shape, args[2].shape[0]
+    errs = {"in_range": err_range, "scaled": err_scaled, "abs": err_abs, "scaled_held": err_held}
+    print(f"phase 19 K4 {tag} ({P} points, D {D}, E {E}, {C} code columns) against its plain version: "
+          f"{json.dumps(errs)} (bound {K4_TOL} in range and scaled on "
+          f"{'the points at or past z_near' if cfg.num_freqs >= HIGH_FREQS else 'every point'})", flush=True)
+    if not (err_range <= K4_TOL and err_held <= K4_TOL and bool(torch.isfinite(sigma).all())
+            and bool(torch.isfinite(feat).all())):
+        fail(f"K4 {tag} disagrees with its plain version: {errs}")
+    rows = grid_rows_read(pts, args[1], *args[6:8])
+    entry = _entry(f"K4 {tag}", errs, lambda: point_query(*args, cfg), lambda: point_query_plain(*args, cfg),
+                   2.0 * P * (C * D + D * E), rows * D * 2 + nbytes(args[0], *args[2:]) + P * E * 4, points=P,
+                   d_hidden=D, d_out=E, code_columns=C, grid_rows_read=rows)
+    entry["max_abs_err"] = max(err_range, err_held)
+    return entry
+
+
+def wide_k6(tag, args, ecfg):
+    """K6 against its plain version (phase 3e's bounds by the state's dtype,
+    the median rule; an fp32 state at HIGH_FREQS frequencies or more to the
+    bf16 bounds)."""
+    from scenedino_torch.kernels.encode_view import encode_view, encode_view_plain
+    from scenedino_torch.tools import bench_encode_view as bev
+
+    dtype = args[4].dtype
+    out = encode_view(*args, ecfg)
+    torch.cuda.synchronize()
+    ref = encode_view_plain(*args, ecfg)
+    errs = {n: (o - r).abs().max().item() for n, o, r in zip(("depth", "feature", "rgb"), out, ref)}
+    bf16_bounds = dtype == torch.bfloat16 or ecfg.num_freqs >= HIGH_FREQS
+    tol = bev.TOL[torch.bfloat16 if bf16_bounds else torch.float32]
+    extra = {}
+    if ecfg.depth_statistic == "median":
+        holds, extra["median_flips"] = _median_rule(args[1], out[0], ref[0])
+        ok = holds and errs["feature"] <= tol["feature"] and errs["rgb"] <= tol["rgb"]
+    else:
+        ok = all(errs[n] <= tol[n] for n in tol)
+    (N, D), Kr, E, Cz = args[0].shape, args[1].shape[1], args[4].shape[1], args[3].shape[0]
+    print(f"phase 19 K6 {tag} ({N} rays x {Kr}, {str(dtype).split('.')[-1]} state, D {D}, E {E}, {Cz} z-code "
+          f"columns, {ecfg.depth_statistic}) against its plain version: {json.dumps(errs)} (bounds {json.dumps(tol)})"
+          + (f", rays off the plain version's median sample {extra['median_flips']:.3e}" if extra else ""), flush=True)
+    if not ok or not all(bool(torch.isfinite(o).all()) for o in out):
+        fail(f"K6 {tag} disagrees with its plain version: {errs} {extra}")
+    return _entry(f"K6 {tag}", errs, lambda: encode_view(*args, ecfg), lambda: encode_view_plain(*args, ecfg),
+                  bev.flops(args) * (3 * PEAK_BF16_FLOPS / 495e12 if dtype == torch.float32 else 1.0),
+                  nbytes(*args) + N * (E + 3) * 4, rays=N, samples=Kr, dtype=str(dtype).split(".")[-1],
+                  d_hidden=D, d_out=E, z_code_columns=Cz, depth_statistic=ecfg.depth_statistic, **extra)
+
+
+def phase_wide_field(seed):
+    """Phase 19a: WIDE_HEAD's field through the four serving paths,
+    WIDE_REQUESTS requests each, the counts zeroed before each path and read
+    after it; one fp32-fold render_encode_view; then each kernel against its
+    plain version on a request's inputs. Returns (the launches, the shape
+    entries by kernel)."""
+    from scenedino_torch.core import sampling
+    from scenedino_torch.ops import fast_field as ff
+
+    model = wide_model(seed, **WIDE_HEAD)
+    blocks = model.encoder.vit_encoder.vit.cfg.depth
+    F = WIDE_HEAD["dino_dims"]
+    imgs, gens = [], []
+    for i in range(WIDE_REQUESTS):
+        g = torch.Generator(device="cuda").manual_seed(seed + 1900 + i)
+        imgs.append(torch.rand(1, 1, 3, H, W, generator=g, device="cuda") * 2 - 1)
+        gens.append(g)
+    Ks, poses = cameras_of("cuda")
+    pts = ssc_points("cuda")
+    total = {}
+
+    def add(counts):
+        for k_, n in counts.items():
+            total[k_] = total.get(k_, 0) + n
+        return json.dumps({k_: n for k_, n in counts.items() if n})
+
+    def check(name):
+        def fn(depth, dino, rgb):
+            if depth.shape != (H, W) or dino.shape != (H, W, F) or rgb.shape != (H, W, 3):
+                fail(f"19a {name} output shapes {depth.shape}, {dino.shape}, {rgb.shape}")
+            if not all(bool(torch.isfinite(t).all()) for t in (depth, dino, rgb)):
+                fail(f"19a {name} output is not finite")
+            if not (depth.min().item() >= 3.0 - 1e-3 and depth.max().item() <= 80.0 + 1e-3):
+                fail(f"19a {name} depth outside [3, 80]")
+        return fn
+
+    def check_query(sigma, feat):
+        if sigma.shape != (pts.shape[0],) or feat.shape != (pts.shape[0], F):
+            fail(f"19a SSC query output shapes {sigma.shape}, {feat.shape}")
+        if not (torch.isfinite(sigma).all() and torch.isfinite(feat).all() and sigma.min() >= 0):
+            fail("19a SSC query output is not finite, or sigma < 0")
+
+    us = [torch.rand(H * W, K, generator=g, device="cuda") for g in gens]
+    draws = [ff.draw_probe(H, W, g, "cuda") for g in gens]
+    paths = [
+        ("novel-view", [(img, u, "cuda") for img, u in zip(imgs, us)], lambda *r: serve(model, *r),
+         check("novel-view"), {"point_render": (1, True)}),
+        ("probe", [(img, d, "cuda") for img, d in zip(imgs, draws)], lambda *r: serve_probe(model, *r),
+         check("probe"), {"probe_weights": (1, True), "row_gather": (1, False), "point_render": (1, True)}),
+        ("SSC query", [(img, pts, "cuda") for img in imgs], lambda *r: serve_query(model, *r), check_query,
+         {"point_query": (1, True)}),
+        ("encode-view", [(img, u, "cuda") for img, u in zip(imgs, us)], lambda *r: serve_encode_view(model, *r),
+         check("encode-view"), {"encode_view": (1, True)}),
+    ]
+    for name, reqs, answer, chk, expect in paths:
+        counts, times = run_path(f"19a {name}", reqs, answer, chk, {"attention": (blocks, True), **expect})
+        print(f"phase 19a {name} on the wide field ({json.dumps(WIDE_HEAD)}): {len(reqs)} requests at {H}x{W}, ms "
+              f"per request {[round(t, 3) for t in times]}; launches {add(counts)}", flush=True)
+    with torch.inference_mode():
+        fs32 = ff.build_fast_state(model, model.encode(imgs[0], Ks, poses), compute_dtype=torch.float32)
+    out, counts = _driven(lambda: ff.render_encode_view(fs32, model.cfg, H, W, u=us[0], n_coarse=K))
+    _expect_launches("19a render_encode_view on the fp32 fold", counts, {"encode_view": 1})
+    check("fp32-fold encode-view")(*out)
+    print(f"phase 19a render_encode_view on the wide field's fp32 fold: launches {add(counts)}", flush=True)
+
+    # each kernel against its plain version on the first request's inputs
+    with torch.inference_mode():
+        fs = ff.encode_prefolded(model, imgs[0], Ks, poses)
+    field, colour = ff._single_view(fs, "phase 19a"), ff._colour_view(fs)
+    pcfg = ff._point_config(model.cfg)
+    flat = ff._target_rays(model.cfg, novel_pose("cuda"), intrinsics("cuda"), H, W).reshape(-1, 8).contiguous()
+    z = sampling.sample_coarse(flat, K, True, u=us[0]).contiguous()
+    tag = "wide field"
+    shapes = {"point_render": {tag: wide_k2(tag, (flat, z, *field, *colour), pcfg)}}
+    rays = flat.reshape(H, W, 8)[::4, ::4].reshape(-1, 8).contiguous()
+    zp = sampling.sample_coarse(rays, draws[0].u_probe.shape[1], True, u=draws[0].u_probe).contiguous()
+    grid, w_code, b1, w2, b2, fw, fk = field
+    shapes["probe_weights"] = {tag: wide_k3(tag, (rays, zp, grid, w_code, b1, w2[:, :1].contiguous(),
+                                                  b2[:1].contiguous(), fw, fk), pcfg)}
+    shapes["point_query"] = {tag: wide_k4(tag, (pts, *field), pcfg)}
+    shapes["encode_view"] = {}
+    for name, state in ((tag, fs), (f"{tag}, fp32 fold", fs32)):
+        args, ecfg = ff.encode_view_inputs(state, model.cfg, H, W, u=us[0][None], n_coarse=K)
+        shapes["encode_view"][name] = wide_k6(name, args, ecfg)
+    return total, shapes
+
+
+def phase_other_widths(seed):
+    """Phase 19b: WIDE_OTHERS' seeded fields, each kernel against its plain
+    version at the paths' shapes (K2 over the 192x640 novel view's rays at 32
+    samples, K3 over its 48x160 probe rays at 16, K4 over the SSCBench voxel
+    centres, K6 over the bf16 serving frame at 32); then on the shipped
+    flagship widths K2 and K6 at WIDE_SAMPLES samples (both depth
+    statistics) and K3 at WIDE_PROBE. Returns the shape entries by kernel."""
+    from scenedino_torch.core import sampling
+    from scenedino_torch.kernels.point_render import PointRenderConfig
+    from scenedino_torch.models.field import FieldConfig
+    from scenedino_torch.ops import fast_field as ff
+    from scenedino_torch.ops.fast_field import FastFieldState, encode_view_inputs
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1950)
+    cams = (torch.eye(4, device="cuda"), intrinsics("cuda"))
+    flat = ff._target_rays(FieldConfig(), novel_pose("cuda"), intrinsics("cuda"), H, W).reshape(-1, 8).contiguous()
+    rays = flat.reshape(H, W, 8)[::4, ::4].reshape(-1, 8).contiguous()
+    pts = ssc_points("cuda")[: 1 << 19].contiguous()  # the SSC evaluator's block
+    shapes = {"point_render": {}, "probe_weights": {}, "point_query": {}, "encode_view": {}}
+
+    def state_of(field, colour):
+        grid, w_code, b1, w2, b2 = field
+        return FastFieldState(folded_grid=grid[None, None], w_code=w_code, b1=b1, w2=w2, b2=b2,
+                              feat_ks=intrinsics("cuda")[None, None], feat_w2c=cams[0][None, None],
+                              color_imgs=colour[None, None], color_ks=intrinsics("cuda")[None, None],
+                              color_w2c=cams[0][None, None])
+
+    def k6(tag, field, colour, fcfg, Kr, stats=("expectation",)):
+        u = torch.rand(1, H * W, Kr, generator=gen, device="cuda")
+        args, ecfg = encode_view_inputs(state_of(field, colour), fcfg, H, W, u=u, n_coarse=Kr)
+        for stat in stats:
+            name = tag if stat == "expectation" else f"{tag}, {stat}"
+            shapes["encode_view"][name] = wide_k6(name, args, dataclasses.replace(ecfg, depth_statistic=stat))
+
+    for tag, D, E, nf in WIDE_OTHERS:
+        cfg = PointRenderConfig(num_freqs=nf)
+        field = wide_field(gen, D, E, cfg.code_dims)
+        colour = torch.rand(H, W, 3, generator=gen, device="cuda").to(torch.bfloat16)
+        z = sampling.sample_coarse(flat, K, generator=gen).contiguous()
+        shapes["point_render"][tag] = wide_k2(tag, (flat, z, *field, *cams, colour, *cams), cfg)
+        zp = sampling.sample_coarse(rays, 16, generator=gen).contiguous()
+        grid, w_code, b1, w2, b2 = field
+        shapes["probe_weights"][tag] = wide_k3(tag, (rays, zp, grid, w_code, b1, w2[:, :1].contiguous(),
+                                                     b2[:1].contiguous(), *cams), cfg)
+        shapes["point_query"][tag] = wide_k4(tag, (pts, *field, *cams), cfg)
+        k6(tag, field, colour, FieldConfig(dino_dims=E - 1, num_freqs=nf), K)
+
+    cfg = PointRenderConfig()
+    field = flagship_field(gen)
+    colour = torch.rand(H, W, 3, generator=gen, device="cuda").to(torch.bfloat16)
+    z = sampling.sample_coarse(flat, WIDE_SAMPLES, True, generator=gen).contiguous()
+    for stat in ("expectation", "median"):
+        tag = f"{WIDE_SAMPLES} samples" + ("" if stat == "expectation" else f", {stat}")
+        shapes["point_render"][tag] = wide_k2(tag, (flat, z, *field, *cams, colour, *cams),
+                                              dataclasses.replace(cfg, depth_statistic=stat))
+    zp = sampling.sample_coarse(rays, WIDE_PROBE, True, generator=gen).contiguous()
+    grid, w_code, b1, w2, b2 = field
+    shapes["probe_weights"][f"n_probe {WIDE_PROBE}"] = wide_k3(
+        f"n_probe {WIDE_PROBE}", (rays, zp, grid, w_code, b1, w2[:, :1].contiguous(), b2[:1].contiguous(), *cams),
+        cfg)
+    k6(f"{WIDE_SAMPLES} samples", field, colour, FieldConfig(), WIDE_SAMPLES, ("expectation", "median"))
+    return shapes
+
+
+def phase_every_width(seed):
+    """Phase 19: the field kernels at every width the JAX package takes.
+    Returns (the launches of 19a's paths, the shape entries of K2, K3, K4 and
+    K6)."""
+    from scenedino_torch.utils.timing import card_line
+
+    t_phase = time.perf_counter()
+    counts, shapes = phase_wide_field(seed)
+    for name, entries in phase_other_widths(seed).items():
+        shapes[name].update(entries)
+    print(f"phase 19 launches {json.dumps(counts)}; wall time {time.perf_counter() - t_phase:.1f} s (target 60 s); "
+          f"{card_line()}", flush=True)
+    return counts, shapes
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -5577,7 +5950,8 @@ def main():
     for name in secs:
         ptxas[name] = [line.split("ptxas info    : ")[-1] for line in build.build_log(name).splitlines()
                        if "Used" in line]
-    print(f"phase 1 build: {time.monotonic() - t0:.1f} s wall, per kernel {json.dumps(secs)}; "
+    print(f"phase 1 build: {time.monotonic() - t0:.1f} s wall (45.1 s before the wide walk, an H100 at 700 W), per kernel "
+          f"{json.dumps(secs)}; "
           f"ptxas {json.dumps(ptxas)}", flush=True)
     # the K1 kernels hold their accumulators in registers: a spill would put them in local memory
     k1 = {("fwd" if "fwd" in entry else "dq" if "bwd_dq" in entry else "dkv"): r
@@ -5606,12 +5980,15 @@ def main():
           f"then takes the producer's) and spills in bytes: {json.dumps(anyk)}", flush=True)
     if len(anyk) != ANY_KERNELS or any(r.get("spill_stores", 1) or r.get("spill_loads", 1) for r in anyk.values()):
         fail(f"ptxas spilled in csrc/attention_any.cu, or a report is missing ({len(anyk)} of {ANY_KERNELS}): {anyk}")
-    # the point kernels (K2, K3, K4) in each of their hidden and output widths: mode, DC, EC, ET
-    pk = {",".join(re.findall(r"Li(\d+)E", name.split("point_kernel")[-1])): r
-          for name, r in build.ptxas_report(build.build_log("point_render")).items() if "point_kernel" in name}
+    # the point kernels (K2, K3, K4) in each of their hidden and output widths: mode, DC, EC, ET; the wide walk's
+    pk = {}
+    for name, r in build.ptxas_report(build.build_log("point_render")).items():
+        for kernel, tag in (("point_kernel", ""), ("point_wide_kernel", "wide "), ("pack_units", "pack ")):
+            if kernel in name:
+                pk[tag + ",".join(re.findall(r"Li(\d+)E", name.split(kernel)[-1]))] = r
     print(f"phase 1 point kernels by template arguments (mode 0 K2, 1 K3, 2 K4; hidden chunks of 64; output chunks "
-          f"of 64; output tail; the walk, 1 for several tiles a ray), registers and spills in bytes: {json.dumps(pk)}",
-          flush=True)
+          f"of 64; output tail; the walk, 1 for several tiles a ray; \"wide\" the wide walk by mode and walk, "
+          f"\"pack\" its weight packing), registers and spills in bytes: {json.dumps(pk)}", flush=True)
     if len(pk) != POINT_KERNELS or any(r.get("spill_stores", 1) or r.get("spill_loads", 1) for r in pk.values()):
         fail(f"ptxas spilled in a point kernel, or a report is missing ({len(pk)} of {POINT_KERNELS}): {pk}")
     ev = bench_encode_view.ptxas()
@@ -5647,17 +6024,19 @@ def main():
         eval_rest, k4_s4c = phase_eval_rest(args.seed, stage1_dir, stage2_dir, *trees, scratch)
         port_rest = phase_port_rest(args.seed, stage2_dir, scratch)
     every_shape, long_shapes, any_entries = phase_every_shape(args.seed)
+    every_width, wide_shapes = phase_every_width(args.seed)
     entries += any_entries
     paths = (serving, training, train_run, stage2, stage2_conv, evaluation, reference, kitti, d80_paths, re10k,
-             branches, dinov2, serving_rest, multi, eval_rest, port_rest, every_shape)
+             branches, dinov2, serving_rest, multi, eval_rest, port_rest, every_shape, every_width)
     for e in entries:
-        if e["name"] in long_shapes:
-            e.setdefault("shapes", {}).update(long_shapes[e["name"]])
-            e["max_abs_err"] = max([e["max_abs_err"]] + [shape["max_abs_err"] for shape in
-                                                         long_shapes[e["name"]].values()])
+        for extra in (long_shapes, wide_shapes):
+            if e["name"] in extra:
+                e.setdefault("shapes", {}).update(extra[e["name"]])
+                e["max_abs_err"] = max([e["max_abs_err"]] + [shape["max_abs_err"] for shape in
+                                                             extra[e["name"]].values()])
         e["launches"] = sum(p[e["name"]] for p in paths)
         if e["name"] == "point_query":
-            e["shapes"] = {"SSCBench evaluation block": k4_block, "S4C baseline block": k4_s4c}
+            e.setdefault("shapes", {}).update({"SSCBench evaluation block": k4_block, "S4C baseline block": k4_s4c})
             e["max_abs_err"] = max(e["max_abs_err"], k4_block["max_abs_err"], k4_s4c["max_abs_err"])
         elif e["name"] == "encode_view":
             e["shapes"]["2D evaluation"] = k6_frame

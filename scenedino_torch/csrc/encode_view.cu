@@ -97,9 +97,9 @@
 //     and the feature sums are carried in the warpgroup's shared memory (the
 //     registers have nothing to spare); for the weight median the ray's
 //     weights stay there until its last tile, which counts the samples whose
-//     CDF over the total is below 0.5, 64 at a time. That array sets the
-//     ceiling: MAX_K = 256 samples a ray (1 KB a warpgroup, within the 227 KB
-//     of the fp32 state at d_hidden 128). K <= 64 keeps the packed tiles,
+//     CDF over the total is below 0.5, 64 at a time. That array bounds these
+//     instantiations: MAX_K = 256 samples a ray (1 KB a warpgroup, within the
+//     227 KB of the fp32 state at d_hidden 128). K <= 64 keeps the packed tiles,
 //     in instantiations of their own (MULTI = 0) built as they were before
 //     the multi-tile walk: with one kernel for both, the one-tile walk ran
 //     12 % slower on an H100 (the serving frame, 0.808 against 0.718 ms).
@@ -115,8 +115,18 @@
 //   * The host side caches the shared-memory attribute, the SM count and
 //     the blocks an SM per device: a launch is the launch alone.
 // The state's type, the code's k16 steps, the walk (one tile a ray or
-// several), the hidden chunks and the output layout are template arguments;
-// the wrapper's shapes map onto thirty-two instantiations.
+// several), the hidden chunks and the output layout are template arguments:
+// thirty-two instantiations, for K <= 256, D <= 128, E <= 68 and a z code
+// of at most 32 columns (`shipped`). Every other shape runs the wide walk
+// (csrc/wide_walk.cuh; `encode_wide_kernel` below), whose weights no longer
+// fit resident (W2 alone is 787 KB in bf16 at d_hidden 512 and 769 outputs,
+// 1.57 MB as the fp32 state's hi and lo copies): they stream from L2
+// through a ring in shared memory; the z code and h sit in a row-major
+// store, from which each product loads its A fragment (bf16, or fp32 split
+// into TF32 hi and lo there, three passes kept); the output goes in chunks
+// of 64 columns, the density column's chunk first; a ray's weights for the
+// median in global scratch. Four instantiations (the state's type by walk),
+// chosen on the host, so the thirty-two keep their code.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -124,6 +134,7 @@
 #include <stdint.h>
 
 #include "hopper.cuh"
+#include "wide_walk.cuh"
 
 namespace {
 
@@ -838,26 +849,329 @@ int launch(const Params& P, void* stream) {
   return P.nseg > 1 ? launch<TF32, 2, 1>(P, stream) : launch<TF32, 2, 0>(P, stream);
 }
 
+// ------------------------------------------------------------ the wide walk
+// (csrc/wide_walk.cuh): every shape the instantiations above do not take
+
+struct Wide {
+  const unsigned char* packed;  // the packed weight units
+  unsigned char* scratch;       // a block's share: the ray's weights (MULTI), then the A store if not in shared memory
+  long long scratch_block;      // bytes of a block's share
+  int DC, CT, EC, KT, NU;       // hidden chunks of 64, code tiles, output chunks of 64, hidden k-tiles; units a tile
+  int ldc, ldh;                 // row strides (elements) of the code and h stores
+  int a_shared, weights_bytes;  // the A store in shared memory; bytes of the weights in a block's share
+};
+
+// shared memory of a wide block: the ring (units of one bf16 tile, or the
+// hi and lo TF32 tiles), the output buffer of one 64-column chunk, depths,
+// weights, the carried state, the A store
+template <int TF32>
+struct WideLayout {
+  static constexpr int UNIT = (TF32 ? 2 : 1) * TILE_BYTES;
+  static constexpr int RING = 0;
+  static constexpr int OUT = RING + wide::SLOTS * UNIT;
+  static constexpr int Z = OUT + TP * wide::LDO * 4;
+  static constexpr int W = Z + TP * 4;
+  static constexpr int CARRY = W + TP * 4;
+  static constexpr int A = CARRY + 128;
+};
+
+// z-code column c at any code width: code_value's, the frequency f_0 2^i for any i
+__device__ __forceinline__ float wide_code_value(const Params& P, float zn, int c) {
+  if (c >= P.Cz) return 0.f;
+  if (P.include_input && c == 0) return zn;
+  const int i = c - P.include_input;
+  return sinf(__fadd_rn(__fmul_rn(zn, ldexpf(P.freq_factor, i >> 1)), (i & 1) ? HALF_PI : 0.f));
+}
+
+template <int TF32>
+struct Elem {
+  using type = __nv_bfloat16;
+};
+template <>
+struct Elem<1> {
+  using type = float;
+};
+
+// One block, one warpgroup, one 64-row tile at a time (64 / Kp rays of Kp
+// samples, or a ray's segment of 64 samples where MULTI): the z code into
+// the code store; per hidden chunk the code product over the code tiles,
+// then h = relu(base + acc) into the h store (bf16, or fp32 split into TF32
+// hi and lo where each product loads it); then per 64-column output chunk
+// the product over the hidden k-tiles into the output buffer. The first
+// chunk holds the density column: the compositing (composite_ray, or
+// composite_segment with the ray's weights in the block's scratch) runs
+// there, and every chunk's weighted columns are summed into the feature
+// output (across a ray's segments through the output itself).
+template <int TF32, int MULTI>
+__global__ void __launch_bounds__(wide::WG, 2) encode_wide_kernel(const Params P, const Wide Wd) {
+  using L = WideLayout<TF32>;
+  using T = typename Elem<TF32>::type;
+  constexpr int LDO = wide::LDO, KW = TF32 ? 32 : 64;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
+  float* s_out = reinterpret_cast<float*>(sm + L::OUT);
+  float* s_z = reinterpret_cast<float*>(sm + L::Z);
+  float* s_w = reinterpret_cast<float*>(sm + L::W);
+  float* s_carry = reinterpret_cast<float*>(sm + L::CARRY);
+  const int t = threadIdx.x, warp = t / 32, lane = t % 32, q = lane % 4;
+  const int row0 = warp * 16 + lane / 4;
+  unsigned char* mine = Wd.scratch + (size_t)blockIdx.x * Wd.scratch_block;
+  float* g_w = reinterpret_cast<float*>(mine);  // MULTI: the ray's weights
+  T* code = reinterpret_cast<T*>(Wd.a_shared ? sm + L::A : mine + Wd.weights_bytes);
+  T* h = code + TP * Wd.ldc;
+  const int DC = Wd.DC, CT = Wd.CT, EC = Wd.EC, KT = Wd.KT, D = P.D, E = P.E, F = E - 1, K = P.K, N = P.N;
+  const int kshift = P.kshift, rpt = TP >> kshift, nseg = MULTI ? P.nseg : 1;
+  const int ntiles = (N + rpt - 1) / rpt;
+  const wide::Ring ring{sm + L::RING, Wd.packed, (uint32_t)Wd.NU, L::UNIT};
+  wide::ring_start(ring, t);
+  uint32_t g = 0;  // units taken
+
+  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+    const int ray0 = tile * rpt, rays = min(rpt, N - ray0);
+    for (int seg = 0; seg < nseg; ++seg) {
+      const int k0 = seg * TP;
+      // rows r and r + 8: their ray (a row past the tile's rays reads the
+      // first ray; nobody reads its outputs), depth (0 past K) and normalized depth
+      int rrow[2];
+      float zn[2];
+#pragma unroll
+      for (int hi = 0; hi < 2; ++hi) {
+        const int row = row0 + 8 * hi, rl = MULTI ? 0 : row >> kshift, k = MULTI ? k0 + row : row - (rl << kshift);
+        rrow[hi] = rl < rays ? ray0 + rl : ray0;
+        const float zv = rl < rays && k < K ? __ldg(P.z + (size_t)rrow[hi] * K + k) : 0.f;
+        if (q == 0) s_z[row] = zv;
+        zn[hi] = normalized_depth(P, zv, __ldg(P.zscale + rrow[hi]));
+      }
+      // the z code: bf16 pairs (columns 8 m + 2 q and the next), or fp32 (columns 4 m + q)
+#pragma unroll
+      for (int hi = 0; hi < 2; ++hi) {
+        T* crow = code + (size_t)(row0 + 8 * hi) * Wd.ldc;
+        if constexpr (TF32) {
+          for (int c = q; c < KW * CT; c += 4) crow[c] = wide_code_value(P, zn[hi], c);
+        } else {
+          for (int c = 2 * q; c < KW * CT; c += 8) {
+            *reinterpret_cast<uint32_t*>(crow + c) =
+                pack_bf16(wide_code_value(P, zn[hi], c), wide_code_value(P, zn[hi], c + 1));
+          }
+        }
+      }
+
+      // h = relu(base + code W_z), 64 hidden units at a time
+      for (int c = 0; c < DC; ++c) {
+        float acc[32];
+        for (int s = 0; s < CT; ++s) {
+          const uint32_t unit = wide::ring_take(ring, g++, t);
+          if constexpr (TF32) {
+            wide::unit_tf32(acc, code, Wd.ldc, KW * s, unit, row0, q, s > 0);
+          } else {
+            wide::unit_bf16(acc, code, Wd.ldc, KW * s, unit, row0, q, s > 0);
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+#pragma unroll
+          for (int hi = 0; hi < 2; ++hi) {
+            const int n = 64 * c + 8 * j + 2 * q;
+            const float* brow = P.base + (size_t)rrow[hi] * D;
+            const float v0 = relu(__fadd_rn(n < D ? __ldg(brow + n) : 0.f, acc[4 * j + 2 * hi]));
+            const float v1 = relu(__fadd_rn(n + 1 < D ? __ldg(brow + n + 1) : 0.f, acc[4 * j + 2 * hi + 1]));
+            T* hrow = h + (size_t)(row0 + 8 * hi) * Wd.ldh + n;
+            if constexpr (TF32) {
+              *reinterpret_cast<float2*>(hrow) = make_float2(v0, v1);
+            } else {
+              *reinterpret_cast<uint32_t*>(hrow) = pack_bf16(v0, v1);
+            }
+          }
+        }
+      }
+
+      // out = h W2 + b2, 64 columns at a time; the density column's chunk first
+      for (int j = 0; j < EC; ++j) {
+        float o[32];
+        for (int kt = 0; kt < KT; ++kt) {
+          const uint32_t unit = wide::ring_take(ring, g++, t);
+          if constexpr (TF32) {
+            wide::unit_tf32(o, h, Wd.ldh, KW * kt, unit, row0, q, kt > 0);
+          } else {
+            wide::unit_bf16(o, h, Wd.ldh, KW * kt, unit, row0, q, kt > 0);
+          }
+        }
+#pragma unroll
+        for (int hi = 0; hi < 2; ++hi) {
+#pragma unroll
+          for (int jj = 0; jj < 8; ++jj) {
+            const int col = 8 * jj + 2 * q, e = 64 * j + col;
+            *reinterpret_cast<float2*>(s_out + (row0 + 8 * hi) * LDO + col) =
+                make_float2(o[4 * jj + 2 * hi] + (e < E ? __ldg(P.b2 + e) : 0.f),
+                            o[4 * jj + 2 * hi + 1] + (e + 1 < E ? __ldg(P.b2 + e + 1) : 0.f));
+          }
+        }
+        __syncthreads();
+
+        const int n = min(TP, K - k0);
+        if (j == 0) {
+          if constexpr (!MULTI) {
+            for (int rl = warp; rl < rays; rl += wide::WG / 32) {
+              const int r = ray0 + rl;
+              float total;
+              const float depth = composite_ray(P, s_out, LDO, s_z, s_w, rl << kshift, lane, total);
+              if (lane == 0) P.depth[r] = depth;
+              if (lane < 3) P.rgb[(size_t)r * 3 + lane] = __ldg(P.color + (size_t)r * 3 + lane) * total;
+            }
+          } else {
+            if (seg == 0 && t < 3) s_carry[t] = t == 0 ? 1.f : 0.f;
+            __syncthreads();
+            if (warp == 0) composite_segment(P, s_out, LDO, s_z, g_w, s_carry, seg, ray0, lane);
+          }
+          __syncthreads();
+          if (MULTI && k0 + TP >= K) {
+            if (t == 0) P.depth[ray0] = s_carry[1];
+            if (t < 3) P.rgb[(size_t)ray0 * 3 + t] = __ldg(P.color + (size_t)ray0 * 3 + t) * s_carry[2];
+          }
+        }
+        // the chunk's weighted feature columns, one output a thread
+        if constexpr (!MULTI) {
+          for (int i = t; i < rays * 64; i += wide::WG) {
+            const int rl = i / 64, cl = i % 64, f = 64 * j + cl - 1, pb = rl << kshift;
+            if (f < 0 || f >= F) continue;
+            float sum = 0.f;
+            for (int k = 0; k < K; ++k) sum = fmaf(s_w[pb + k], s_out[(pb + k) * LDO + cl], sum);
+            P.dino[(size_t)(ray0 + rl) * F + f] = sum;
+          }
+        } else {
+          for (int cl = t; cl < 64; cl += wide::WG) {
+            const int f = 64 * j + cl - 1;
+            if (f < 0 || f >= F) continue;
+            float sum = seg ? P.dino[(size_t)ray0 * F + f] : 0.f;
+            for (int p = 0; p < n; ++p) sum = fmaf(g_w[k0 + p], s_out[p * LDO + cl], sum);
+            P.dino[(size_t)ray0 * F + f] = sum;
+          }
+        }
+        __syncthreads();  // the output buffer, depths and weights are free
+      }
+    }
+  }
+  cp_async_wait<0>();
+}
+
+// the wide walk's shapes, shared memory, blocks and buffers for one launch
+struct WidePlan {
+  Wide W;
+  int smem, blocks;
+  long long packed_bytes, scratch_bytes;
+};
+
+template <int TF32, int MULTI>
+int wide_plan(const Params& P, WidePlan& pl) {
+  static bool ready[MAX_DEVICES];
+  static int sms[MAX_DEVICES];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev < 0 || dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  if (!sms[dev] && (err = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess) {
+    return (int)err;
+  }
+  constexpr int KW = TF32 ? 32 : 64, PAD = TF32 ? 4 : 8;  // PAD: a row = 4 words mod 32, no bank met twice
+  Wide& W = pl.W;
+  W.DC = (P.D + 63) / 64;
+  W.CT = (P.Cz + KW - 1) / KW;
+  W.EC = (P.E + 63) / 64;
+  W.KT = 64 * W.DC / KW;
+  W.NU = W.DC * W.CT + W.EC * W.KT;
+  W.ldc = KW * W.CT + PAD;
+  W.ldh = 64 * W.DC + PAD;
+  const long long a_bytes = wide::round_up((TF32 ? 4LL : 2LL) * TP * (W.ldc + W.ldh), 256);
+  W.a_shared = WideLayout<TF32>::A + a_bytes <= wide::SHARED_BUDGET;
+  W.weights_bytes = MULTI ? (int)wide::round_up(4LL * P.K, 256) : 0;
+  W.scratch_block = W.weights_bytes + (W.a_shared ? 0 : a_bytes);
+  pl.smem = WideLayout<TF32>::A + (W.a_shared ? (int)a_bytes : 0) + 1024;  // room to align the ring
+  int per_sm = 0;
+  if (int e = wide::blocks_per_sm(encode_wide_kernel<TF32, MULTI>, pl.smem, ready[dev], per_sm)) return e;
+  const long long most = (long long)per_sm * sms[dev];
+  const int rpt = TP >> P.kshift;
+  const long long ntiles = ((long long)P.N + rpt - 1) / rpt;
+  pl.blocks = (int)(ntiles < most ? ntiles : most);
+  pl.packed_bytes = (long long)W.NU * WideLayout<TF32>::UNIT;
+  pl.scratch_bytes = W.scratch_block * most;  // for the most blocks a launch takes
+  return 0;
+}
+
+template <int TF32, int MULTI>
+int launch_wide(const Params& P, void* packed, void* scratch, void* stream) {
+  WidePlan pl;
+  if (int err = wide_plan<TF32, MULTI>(P, pl)) return err;
+  if (!packed || (pl.scratch_bytes && !scratch)) return (int)cudaErrorInvalidValue;
+  pl.W.packed = static_cast<const unsigned char*>(packed);
+  pl.W.scratch = static_cast<unsigned char*>(scratch);
+  const long long elements = (long long)pl.W.NU * 64 * (TF32 ? 32 : 64);
+  const int pack_blocks = (int)(elements / 256 < 1024 ? (elements + 255) / 256 : 1024);
+  wide::pack_units<TF32, 0><<<pack_blocks, 256, 0, (cudaStream_t)stream>>>(
+      P.w_z, P.w2, P.D, P.E, P.Cz, pl.W.DC, pl.W.CT, pl.W.KT, pl.W.NU, static_cast<unsigned char*>(packed));
+  encode_wide_kernel<TF32, MULTI><<<pl.blocks, wide::WG, pl.smem, (cudaStream_t)stream>>>(P, pl.W);
+  return (int)cudaGetLastError();
+}
+
+// the shipped instantiations where they take the shape
+bool shipped(const Params& P) { return P.K <= MAX_K && P.D <= MAX_D && P.E <= MAX_E && P.Cz <= CZ; }
+
+template <int TF32>
+int launch_any(const Params& P, void* packed, void* scratch, void* stream) {
+  if (shipped(P)) return launch<TF32>(P, stream);
+  return P.nseg > 1 ? launch_wide<TF32, 1>(P, packed, scratch, stream) : launch_wide<TF32, 0>(P, packed, scratch, stream);
+}
+
+template <int TF32>
+int wide_bytes(const Params& P, long long* packed, long long* scratch) {
+  WidePlan pl;
+  const int err = P.nseg > 1 ? wide_plan<TF32, 1>(P, pl) : wide_plan<TF32, 0>(P, pl);
+  if (err) return err;
+  *packed = pl.packed_bytes;
+  *scratch = pl.scratch_bytes;
+  return 0;
+}
+
+Params make_params(const void* base, const void* z, const void* zscale, const void* w_z, const void* w2,
+                   const void* b2, const void* color, void* depth, void* dino, void* rgb, long long N, int K, int D,
+                   int E, int Cz, int num_freqs, int include_input, int inv_z, int hard_cap, int median,
+                   float zn_sub, float zn_den, float freq_factor) {
+  const int kshift = K <= 8 ? 3 : (K <= 16 ? 4 : (K <= 32 ? 5 : 6));  // Kp = 2^kshift; 64 past 64 samples
+  const int vec = D % 4 == 0 && (reinterpret_cast<uintptr_t>(base) & 15) == 0;
+  const int units = vec ? D / 4 : D;
+  return {(const float*)base, (const float*)z, (const float*)zscale, w_z, w2, (const float*)b2,
+          (const float*)color, (float*)depth, (float*)dino, (float*)rgb,
+          (int)N, K, kshift, (K + TP - 1) / TP, D, E, Cz, num_freqs, include_input, inv_z, hard_cap, median,
+          zn_sub, zn_den, freq_factor, vec, units, reciprocal(units), reciprocal(K), reciprocal(E - 1)};
+}
+
 }  // namespace
 
 // Pointers are device pointers on the current device; the wrapper
 // (kernels/encode_view.py) checks dtypes, shapes and contiguity. Returns a
-// cudaError_t (0 = launched).
+// cudaError_t (0 = launched). `packed` and `scratch` are the wide walk's
+// buffers, of the sizes encode_view_wide_bytes gives (null where it gives 0).
 extern "C" int encode_view(
     const void* base, const void* z, const void* zscale, const void* w_z, const void* w2, const void* b2,
-    const void* color, void* depth, void* dino, void* rgb,
+    const void* color, void* depth, void* dino, void* rgb, void* packed, void* scratch,
     long long N, int K, int D, int E, int Cz, int bf16,
     int num_freqs, int include_input, int inv_z, int hard_cap, int median,
     float zn_sub, float zn_den, float freq_factor, void* stream) {
-  if (N <= 0 || N > INT_MAX - TP || K <= 0 || K > MAX_K || D <= 0 || D > MAX_D || E < 2 || E > MAX_E || Cz <= 0 || Cz > CZ ||
+  if (N <= 0 || N > INT_MAX - TP || K <= 0 || D <= 0 || E < 2 || Cz <= 0 ||
       Cz != (include_input ? 1 : 0) + 2 * num_freqs)
     return (int)cudaErrorInvalidValue;
-  const int kshift = K <= 8 ? 3 : (K <= 16 ? 4 : (K <= 32 ? 5 : 6));  // Kp = 2^kshift; 64 past 64 samples
-  const int vec = D % 4 == 0 && (reinterpret_cast<uintptr_t>(base) & 15) == 0;
-  const int units = vec ? D / 4 : D;
-  Params P = {(const float*)base, (const float*)z, (const float*)zscale, w_z, w2, (const float*)b2,
-              (const float*)color, (float*)depth, (float*)dino, (float*)rgb,
-              (int)N, K, kshift, (K + TP - 1) / TP, D, E, Cz, num_freqs, include_input, inv_z, hard_cap, median,
-              zn_sub, zn_den, freq_factor, vec, units, reciprocal(units), reciprocal(K), reciprocal(E - 1)};
-  return bf16 ? launch<0>(P, stream) : launch<1>(P, stream);
+  const Params P = make_params(base, z, zscale, w_z, w2, b2, color, depth, dino, rgb, N, K, D, E, Cz, num_freqs,
+                               include_input, inv_z, hard_cap, median, zn_sub, zn_den, freq_factor);
+  return bf16 ? launch_any<0>(P, packed, scratch, stream) : launch_any<1>(P, packed, scratch, stream);
+}
+
+// The bytes of the wide walk's packed weights and scratch for a launch on
+// the current device: both 0 where the shipped instantiations take the shape.
+extern "C" int encode_view_wide_bytes(long long N, int K, int D, int E, int Cz, int bf16, long long* packed,
+                                      long long* scratch) {
+  *packed = *scratch = 0;
+  if (N <= 0 || N > INT_MAX - TP || K <= 0 || D <= 0 || E < 2 || Cz <= 0) return (int)cudaErrorInvalidValue;
+  const Params P = make_params(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                               nullptr, N, K, D, E, Cz, 0, 0, 0, 0, 0, 0.f, 1.f, 1.f);
+  if (shipped(P)) return 0;
+  return bf16 ? wide_bytes<0>(P, packed, scratch) : wide_bytes<1>(P, packed, scratch);
 }

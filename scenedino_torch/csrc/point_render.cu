@@ -101,21 +101,30 @@
 //     without a spill, with nothing to spare). For the weight median the
 //     ray's weights stay in shared memory until its last tile, which then
 //     counts the samples whose CDF over the total is below 0.5 in chunks of
-//     64, as the one-tile walk does. That array sets the ceiling: KMAX = 256
-//     samples a ray (1 KB a warpgroup; the JAX package's own tests and tools
-//     render at up to 256). K <= 64 keeps the packed layout above.
+//     64, as the one-tile walk does. That array bounds these instantiations:
+//     KMAX = 256 samples a ray (1 KB a warpgroup). K <= 64 keeps the packed
+//     layout above.
 //   * The host side caches the shared-memory attribute, the SM count and
 //     the blocks an SM per device: a launch is the launch alone.
 // The output mode, the hidden chunks, the output layout and the walk (one
 // tile a ray or several) are template arguments, so that the one-tile
-// kernels are built as they were before the multi-tile walk; the wrappers'
-// shapes map onto sixteen instantiations.
+// kernels are built as they were before the multi-tile walk: sixteen
+// instantiations, for D <= 128 (a multiple of 8), E <= 128, C <= 64 and
+// K <= 256 (`shipped`). Every other shape the JAX functions take runs the
+// wide walk (csrc/wide_walk.cuh; `point_wide_kernel` below): weights
+// streamed from L2 through a ring in shared memory instead of resident, h
+// in a row-major store, the output in chunks of 64 columns, the density
+// column's chunk first, a ray's weights for the median in global scratch;
+// five instantiations (K2 and K3 by walk, K4), chosen on the host, so the
+// sixteen keep their code. A D that is not a multiple of 8 loads its grid
+// rows element by element there.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 #include "hopper.cuh"
+#include "wide_walk.cuh"
 
 // warpgroups a block, blocks an SM the registers are divided for, and
 // corner-load batches issued ahead of the one being blended
@@ -878,21 +887,363 @@ int launch(const Params& P, void* stream) {
   }
 }
 
+// ------------------------------------------------------------ the wide walk
+// (csrc/wide_walk.cuh): every shape the instantiations above do not take
+
+struct Wide {
+  const unsigned char* packed;  // the packed weight units
+  unsigned char* scratch;       // a block's share: the ray's weights (MULTI), then the A store if not in shared memory
+  long long scratch_block;      // bytes of a block's share
+  int DC, CT, EC, NU;           // hidden chunks, code tiles, output chunks (64 each); units a tile
+  int ldc, ldh;                 // row strides (elements) of the code and h stores
+  int a_shared, weights_bytes;  // the A store in shared memory; bytes of the weights in a block's share
+};
+
+// shared memory of a wide block: the ring, the output buffer of one 64-column
+// chunk, depths, weights, colours, the carried state, cameras, the A store
+struct WideLayout {
+  static constexpr int RING = 0;
+  static constexpr int OUT = RING + wide::SLOTS * TILE_BYTES;
+  static constexpr int Z = OUT + TP * wide::LDO * 4;
+  static constexpr int W = Z + TP * 4;
+  static constexpr int RGB = W + TP * 4;
+  static constexpr int CARRY = RGB + TP * 3 * 4;
+  static constexpr int CAM = CARRY + 64;
+  static constexpr int A = (CAM + 48 * 4 + 127) / 128 * 128;
+};
+
+// code column c at any code width: code_column's, the frequency f_0 2^f for any f
+__device__ inline CodeColumn wide_code_column(const Params& P, int c) {
+  if (c >= P.C) return {0.f, 0.f, 6};
+  if (P.include_input) {
+    if (c < 3) return {0.f, 0.f, 3 + c};
+    c -= 3;
+  }
+  const int f = c / 6, rem = c - 6 * f, s = rem / 3;
+  return {ldexpf(P.freq_factor, f), s ? HALF_PI : 0.f, rem - 3 * s};
+}
+
+// channels [ch, ch + 8) of grid row `row`, zeros past D: one 16-byte load
+// where D is a multiple of 8 (`vec`), else element by element
+__device__ __forceinline__ uint4 wide_grid8(const Params& P, int vec, int row, int ch) {
+  const __nv_bfloat16* p = P.grid + (size_t)row * P.D + ch;
+  if (vec) return ch < P.D ? load16(p) : make_uint4(0u, 0u, 0u, 0u);
+  const unsigned short* e = reinterpret_cast<const unsigned short*>(p);
+  uint32_t w[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const uint32_t lo = ch + 2 * i < P.D ? __ldg(e + 2 * i) : 0u, hi = ch + 2 * i + 1 < P.D ? __ldg(e + 2 * i + 1) : 0u;
+    w[i] = lo | (hi << 16);
+  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// One block, one warpgroup, one 64-point tile at a time (a ray's segment of
+// 64 samples where MULTI): the point set-up of the shipped kernels; the code
+// into the code store; per hidden chunk its corner rows (in flight during
+// the chunk's code product), the code product over the code tiles, the
+// blend, relu and bf16 into the h store; then per 64-column output chunk the
+// product over the hidden k-tiles into the output buffer. The first chunk
+// holds the density column: the compositing (composite_ray, or
+// composite_segment with the ray's weights in the block's scratch) runs
+// there, and every chunk's weighted columns are summed into the outputs
+// (across a ray's segments through the outputs themselves).
+template <int MODE, int MULTI>
+__global__ void __launch_bounds__(wide::WG, 2) point_wide_kernel(const Params P, const Wide Wd) {
+  using L = WideLayout;
+  constexpr int LDO = wide::LDO;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
+  float* s_out = reinterpret_cast<float*>(sm + L::OUT);
+  float* s_z = reinterpret_cast<float*>(sm + L::Z);
+  float* s_w = reinterpret_cast<float*>(sm + L::W);
+  float* s_rgb = reinterpret_cast<float*>(sm + L::RGB);
+  float* s_carry = reinterpret_cast<float*>(sm + L::CARRY);
+  float* s_cam = reinterpret_cast<float*>(sm + L::CAM);
+  const int t = threadIdx.x, warp = t / 32, lane = t % 32, q = lane % 4;
+  const int row0 = warp * 16 + lane / 4;
+  if (t < (MODE == RENDER ? 42 : 21)) {
+    const int cam = t / 21, j = t % 21;
+    const float* w2c = cam ? P.color_w2c : P.feat_w2c;
+    const float* kmat = cam ? P.color_k : P.feat_k;
+    s_cam[t] = j < 9 ? w2c[(j / 3) * 4 + j % 3] : (j < 12 ? w2c[(j - 9) * 4 + 3] : kmat[j - 12]);
+  }
+  unsigned char* mine = Wd.scratch + (size_t)blockIdx.x * Wd.scratch_block;
+  float* g_w = reinterpret_cast<float*>(mine);  // MULTI: the ray's weights
+  __nv_bfloat16* code = reinterpret_cast<__nv_bfloat16*>(Wd.a_shared ? sm + L::A : mine + Wd.weights_bytes);
+  __nv_bfloat16* h = code + TP * Wd.ldc;
+  const int DC = Wd.DC, CT = Wd.CT, EC = Wd.EC, D = P.D, E = P.E, F = E - 1, vec = P.D % 8 == 0;
+  const int K = MODE == QUERY ? 1 : P.K;
+  const int rpt = MULTI ? 1 : TP / K;
+  const int nseg = MULTI ? (K + TP - 1) / TP : 1;
+  const int ntiles = (P.R + rpt - 1) / rpt;
+  const wide::Ring ring{sm + L::RING, Wd.packed, (uint32_t)Wd.NU, TILE_BYTES};
+  wide::ring_start(ring, t);
+  __syncthreads();  // the cameras
+  uint32_t g = 0;   // units taken
+
+  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+    const int ray0 = tile * rpt;
+    for (int seg = 0; seg < nseg; ++seg) {
+      int4 idx[2];
+      float2 wxy[2];
+      float3 in[2];
+      setup_row<MODE, MULTI>(P, s_cam, row0, ray0, rpt, seg, q, in[0], idx[0], wxy[0], s_z, s_rgb);
+      setup_row<MODE, MULTI>(P, s_cam, row0 + 8, ray0, rpt, seg, q, in[1], idx[1], wxy[1], s_z, s_rgb);
+      // the code in bf16: columns 8 m + 2 q and the next of rows r and r + 8, zero past C
+      for (int c = 2 * q; c < 64 * CT; c += 8) {
+        const CodeColumn c0 = wide_code_column(P, c), c1 = wide_code_column(P, c + 1);
+#pragma unroll
+        for (int hi = 0; hi < 2; ++hi) {
+          *reinterpret_cast<uint32_t*>(code + (size_t)(row0 + 8 * hi) * Wd.ldc + c) =
+              pack_bf16(code_value(c0, in[hi].x, in[hi].y, in[hi].z), code_value(c1, in[hi].x, in[hi].y, in[hi].z));
+        }
+      }
+
+      // h = bf16(relu((g + code W_code) + b1)), 64 hidden units at a time
+      for (int c = 0; c < DC; ++c) {
+        uint4 buf[2][2][4];  // row r + 8 hi, channel group, corner
+#pragma unroll
+        for (int hi = 0; hi < 2; ++hi) {
+#pragma unroll
+          for (int gq = 0; gq < 2; ++gq) {
+#pragma unroll
+            for (int corner = 0; corner < 4; ++corner) {
+              buf[hi][gq][corner] = wide_grid8(P, vec, corner_row(idx[hi], corner), q * 16 * DC + 16 * c + 8 * gq);
+            }
+          }
+        }
+        float acc[32];
+        for (int s = 0; s < CT; ++s) {
+          wide::unit_bf16(acc, code, Wd.ldc, 64 * s, wide::ring_take(ring, g++, t), row0, q, s > 0);
+        }
+#pragma unroll
+        for (int hi = 0; hi < 2; ++hi) {
+          const float wx = wxy[hi].x, wy = wxy[hi].y;
+#pragma unroll
+          for (int gq = 0; gq < 2; ++gq) {
+#pragma unroll
+            for (int i = 0; i < 8; ++i) {
+              const int ch = q * 16 * DC + 16 * c + 8 * gq + i;
+              const uint4(&b)[4] = buf[hi][gq];
+              const float top = bf16_at(b[0], i) * (1.f - wx) + bf16_at(b[1], i) * wx;
+              const float bot = bf16_at(b[2], i) * (1.f - wx) + bf16_at(b[3], i) * wx;
+              const float gv = top * (1.f - wy) + bot * wy;
+              float& a = acc[4 * (4 * gq + i / 2) + 2 * hi + (i % 2)];
+              a = fmaxf((gv + a) + (ch < D ? __ldg(P.b1 + ch) : 0.f), 0.f);
+            }
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+#pragma unroll
+          for (int hi = 0; hi < 2; ++hi) {
+            *reinterpret_cast<uint32_t*>(h + (size_t)(row0 + 8 * hi) * Wd.ldh + 64 * c + 8 * j + 2 * q) =
+                pack_bf16(acc[4 * j + 2 * hi], acc[4 * j + 2 * hi + 1]);
+          }
+        }
+      }
+
+      // out = h W2 + b2, 64 columns at a time; the density column's chunk first
+      for (int j = 0; j < EC; ++j) {
+        float o[32];
+        for (int kt = 0; kt < DC; ++kt) {
+          wide::unit_bf16(o, h, Wd.ldh, 64 * kt, wide::ring_take(ring, g++, t), row0, q, kt > 0);
+        }
+#pragma unroll
+        for (int hi = 0; hi < 2; ++hi) {
+#pragma unroll
+          for (int jj = 0; jj < 8; ++jj) {
+            const int col = 8 * jj + 2 * q, e = 64 * j + col;
+            *reinterpret_cast<float2*>(s_out + (row0 + 8 * hi) * LDO + col) =
+                make_float2(o[4 * jj + 2 * hi] + (e < E ? __ldg(P.b2 + e) : 0.f),
+                            o[4 * jj + 2 * hi + 1] + (e + 1 < E ? __ldg(P.b2 + e + 1) : 0.f));
+          }
+        }
+        __syncthreads();
+
+        if (MODE == QUERY) {
+          // sigma and the feature rows of the chunk's columns: a warp a point, coalesced
+          for (int p = warp; p < TP && ray0 + p < P.R; p += wide::WG / 32) {
+            const int r = ray0 + p;
+            for (int cl = lane; cl < 64; cl += 32) {
+              const int e = 64 * j + cl;
+              const float v = s_out[p * LDO + cl];
+              if (e == 0) {
+                P.out[r] = softplus(v);
+              } else if (e < E) {
+                P.dino[(size_t)r * F + e - 1] = v;
+              }
+            }
+          }
+        } else {
+          const int k0 = seg * TP, n = min(TP, K - k0);
+          if (j == 0) {
+            if constexpr (!MULTI) {
+              for (int rl = warp; rl < rpt; rl += wide::WG / 32) {
+                const int r = ray0 + rl;
+                if (r >= P.R) break;
+                const float depth = composite_ray<MODE>(P, s_out, LDO, s_z, s_w, rl * K, r, lane);
+                if (MODE == RENDER && lane == 0) P.depth[r] = depth;
+              }
+            } else {
+              if (seg == 0 && t < 3) s_carry[t] = t == 0 ? 1.f : 0.f;
+              __syncthreads();
+              if (warp == 0) composite_segment<MODE>(P, s_out, LDO, s_z, g_w, s_carry, seg, ray0, lane);
+            }
+            __syncthreads();
+            if (MODE == RENDER) {
+              // the weighted colour, one output a thread
+              if constexpr (!MULTI) {
+                for (int i = t; i < rpt * 3; i += wide::WG) {
+                  const int rl = i / 3, ch = i - 3 * rl, r = ray0 + rl, pb = rl * K;
+                  if (r >= P.R) break;
+                  float sum = 0.f;
+                  for (int k = 0; k < K; ++k) sum += s_w[pb + k] * s_rgb[(pb + k) * 3 + ch];
+                  P.rgb[(size_t)r * 3 + ch] = sum;
+                }
+              } else if (t < 3) {
+                float sum = seg ? P.rgb[(size_t)ray0 * 3 + t] : 0.f;
+                for (int p = 0; p < n; ++p) sum += g_w[k0 + p] * s_rgb[p * 3 + t];
+                P.rgb[(size_t)ray0 * 3 + t] = sum;
+                if (t == 0 && k0 + TP >= K) P.depth[ray0] = s_carry[1];
+              }
+            }
+          }
+          if (MODE == RENDER) {
+            // the chunk's weighted feature columns, one output a thread
+            if constexpr (!MULTI) {
+              for (int i = t; i < rpt * 64; i += wide::WG) {
+                const int rl = i / 64, cl = i % 64, f = 64 * j + cl - 1, r = ray0 + rl, pb = rl * K;
+                if (r >= P.R) break;
+                if (f < 0 || f >= F) continue;
+                float sum = 0.f;
+                for (int k = 0; k < K; ++k) sum += s_w[pb + k] * s_out[(pb + k) * LDO + cl];
+                P.dino[(size_t)r * F + f] = sum;
+              }
+            } else {
+              for (int cl = t; cl < 64; cl += wide::WG) {
+                const int f = 64 * j + cl - 1;
+                if (f < 0 || f >= F) continue;
+                float sum = seg ? P.dino[(size_t)ray0 * F + f] : 0.f;
+                for (int p = 0; p < n; ++p) sum += g_w[k0 + p] * s_out[p * LDO + cl];
+                P.dino[(size_t)ray0 * F + f] = sum;
+              }
+            }
+          }
+        }
+        __syncthreads();  // the output buffer, depths, weights and colours are free
+      }
+    }
+  }
+  cp_async_wait<0>();
+}
+
+// the wide walk's shapes, shared memory, blocks and buffers for one launch
+struct WidePlan {
+  Wide W;
+  int smem, blocks;
+  long long packed_bytes, scratch_bytes;
+};
+
+template <int MODE, int MULTI>
+int wide_plan(const Params& P, WidePlan& pl) {
+  static bool ready[MAX_DEVICES];
+  static int sms[MAX_DEVICES];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev < 0 || dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  if (!sms[dev] && (err = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess) {
+    return (int)err;
+  }
+  Wide& W = pl.W;
+  W.DC = (P.D + 63) / 64;
+  W.CT = (P.C + 63) / 64;
+  W.EC = (P.E + 63) / 64;
+  W.NU = W.DC * W.CT + W.EC * W.DC;
+  W.ldc = 64 * W.CT + 8;  // = 4 words mod 32: the A fragments' loads meet no bank twice
+  W.ldh = 64 * W.DC + 8;
+  const long long a_bytes = wide::round_up(2LL * TP * (W.ldc + W.ldh), 256);
+  W.a_shared = WideLayout::A + a_bytes <= wide::SHARED_BUDGET;
+  const int K = MODE == QUERY ? 1 : P.K;
+  W.weights_bytes = MULTI ? (int)wide::round_up(4LL * K, 256) : 0;
+  W.scratch_block = W.weights_bytes + (W.a_shared ? 0 : a_bytes);
+  pl.smem = WideLayout::A + (W.a_shared ? (int)a_bytes : 0) + 1024;  // room to align the ring
+  int per_sm = 0;
+  if (int e = wide::blocks_per_sm(point_wide_kernel<MODE, MULTI>, pl.smem, ready[dev], per_sm)) return e;
+  const long long most = (long long)per_sm * sms[dev];
+  const int rpt = MULTI ? 1 : TP / K;
+  const long long ntiles = ((long long)P.R + rpt - 1) / rpt;
+  pl.blocks = (int)(ntiles < most ? ntiles : most);
+  pl.packed_bytes = (long long)W.NU * TILE_BYTES;
+  pl.scratch_bytes = W.scratch_block * most;  // for the most blocks a launch takes
+  return 0;
+}
+
+template <int MODE, int MULTI>
+int launch_wide(const Params& P, void* packed, void* scratch, void* stream) {
+  WidePlan pl;
+  if (int err = wide_plan<MODE, MULTI>(P, pl)) return err;
+  if (!packed || (pl.scratch_bytes && !scratch)) return (int)cudaErrorInvalidValue;
+  pl.W.packed = static_cast<const unsigned char*>(packed);
+  pl.W.scratch = static_cast<unsigned char*>(scratch);
+  const long long elements = (long long)pl.W.NU * 64 * 64;
+  const int pack_blocks = (int)(elements / 256 < 1024 ? (elements + 255) / 256 : 1024);
+  wide::pack_units<0, 1><<<pack_blocks, 256, 0, (cudaStream_t)stream>>>(
+      P.w_code, P.w2, P.D, P.E, P.C, pl.W.DC, pl.W.CT, pl.W.DC, pl.W.NU, static_cast<unsigned char*>(packed));
+  point_wide_kernel<MODE, MULTI><<<pl.blocks, wide::WG, pl.smem, (cudaStream_t)stream>>>(P, pl.W);
+  return (int)cudaGetLastError();
+}
+
+// the shipped instantiations where they take the shape, else the wide walk
+template <int MODE>
+bool shipped(const Params& P) {
+  return P.D <= 128 && P.D % 8 == 0 && P.E <= 128 && P.C <= CODE_COLS && (MODE == QUERY || P.K <= KMAX);
+}
+
+template <int MODE>
+int launch_any(const Params& P, void* packed, void* scratch, void* stream) {
+  if (shipped<MODE>(P)) return launch<MODE>(P, stream);
+  if constexpr (MODE == QUERY) {
+    return launch_wide<MODE, 0>(P, packed, scratch, stream);
+  } else {
+    return P.K > TP ? launch_wide<MODE, 1>(P, packed, scratch, stream) : launch_wide<MODE, 0>(P, packed, scratch, stream);
+  }
+}
+
+template <int MODE>
+int wide_bytes(const Params& P, long long* packed, long long* scratch) {
+  *packed = *scratch = 0;
+  if (shipped<MODE>(P)) return 0;
+  WidePlan pl;
+  int err;
+  if constexpr (MODE == QUERY) {
+    err = wide_plan<MODE, 0>(P, pl);
+  } else {
+    err = P.K > TP ? wide_plan<MODE, 1>(P, pl) : wide_plan<MODE, 0>(P, pl);
+  }
+  if (err) return err;
+  *packed = pl.packed_bytes;
+  *scratch = pl.scratch_bytes;
+  return 0;
+}
+
 bool bad_field(int R, int K, int D, int E, int C, int num_freqs, int include_input, int min_e) {
-  return R <= 0 || K <= 0 || K > KMAX || D <= 0 || D > 128 || D % 8 || E < min_e || E > 128 ||
-         C <= 0 || C > CODE_COLS || C != 3 * (include_input ? 1 : 0) + 6 * num_freqs;
+  return R <= 0 || K <= 0 || D <= 0 || E < min_e || C <= 0 || C != 3 * (include_input ? 1 : 0) + 6 * num_freqs;
 }
 
 }  // namespace
 
 // Pointers are device pointers on the current device; the wrappers check
 // dtypes, shapes, contiguity and the grid's 16-byte alignment. Each returns
-// a cudaError_t (0 = launched).
+// a cudaError_t (0 = launched). `packed` and `scratch` are the wide walk's
+// buffers, of the sizes point_wide_bytes gives (null where it gives 0).
 extern "C" int point_render(
     const void* rays, const void* z, const void* grid, const void* w_code, const void* b1,
     const void* w2, const void* b2, const void* feat_w2c, const void* feat_k,
     const void* color, const void* color_w2c, const void* color_k,
-    void* depth, void* dino, void* rgb,
+    void* depth, void* dino, void* rgb, void* packed, void* scratch,
     int R, int K, int Hg, int Wg, int D, int E, int C, int Hc, int Wc,
     int num_freqs, int include_input, int inv_z, int code_distance, int hard_cap, int median,
     float zn_sub, float zn_den, float freq_factor, void* stream) {
@@ -905,15 +1256,15 @@ extern "C" int point_render(
               R, K, Hg, Wg, D, E, C, Hc, Wc,
               num_freqs, include_input, inv_z, code_distance, hard_cap, median,
               zn_sub, zn_den, freq_factor};
-  return launch<RENDER>(P, stream);
+  return launch_any<RENDER>(P, packed, scratch, stream);
 }
 
 // K3: w2 (D, 1) and b2 (1,) are the density column alone; writes the
 // compositing weights (R, K).
 extern "C" int probe_weights(
     const void* rays, const void* z, const void* grid, const void* w_code, const void* b1,
-    const void* w2, const void* b2, const void* feat_w2c, const void* feat_k, void* weights,
-    int R, int K, int Hg, int Wg, int D, int C,
+    const void* w2, const void* b2, const void* feat_w2c, const void* feat_k, void* weights, void* packed,
+    void* scratch, int R, int K, int Hg, int Wg, int D, int C,
     int num_freqs, int include_input, int inv_z, int code_distance, int hard_cap,
     float zn_sub, float zn_den, float freq_factor, void* stream) {
   if (bad_field(R, K, D, 1, C, num_freqs, include_input, 1)) return (int)cudaErrorInvalidValue;
@@ -924,13 +1275,13 @@ extern "C" int probe_weights(
               R, K, Hg, Wg, D, 1, C, 0, 0,
               num_freqs, include_input, inv_z, code_distance, hard_cap, 0,
               zn_sub, zn_den, freq_factor};
-  return launch<PROBE>(P, stream);
+  return launch_any<PROBE>(P, packed, scratch, stream);
 }
 
 // K4: points (R, 3); writes sigma (R,) and the feature (R, E - 1).
 extern "C" int point_query(
     const void* pts, const void* grid, const void* w_code, const void* b1, const void* w2,
-    const void* b2, const void* feat_w2c, const void* feat_k, void* sigma, void* feat,
+    const void* b2, const void* feat_w2c, const void* feat_k, void* sigma, void* feat, void* packed, void* scratch,
     int R, int Hg, int Wg, int D, int E, int C,
     int num_freqs, int include_input, int inv_z, int code_distance,
     float zn_sub, float zn_den, float freq_factor, void* stream) {
@@ -942,5 +1293,20 @@ extern "C" int point_query(
               R, 1, Hg, Wg, D, E, C, 0, 0,
               num_freqs, include_input, inv_z, code_distance, 0, 0,
               zn_sub, zn_den, freq_factor};
-  return launch<QUERY>(P, stream);
+  return launch_any<QUERY>(P, packed, scratch, stream);
+}
+
+// The bytes of the wide walk's packed weights and scratch for a launch of
+// `mode` (0 K2, 1 K3, 2 K4; K3 with E = 1, K4 with K = 1) on the current
+// device: both 0 where the shipped instantiations take the shape.
+extern "C" int point_wide_bytes(int mode, int R, int K, int D, int E, int C, long long* packed, long long* scratch) {
+  Params P = {};
+  P.R = R;
+  P.K = K;
+  P.D = D;
+  P.E = E;
+  P.C = C;
+  if (mode == RENDER) return wide_bytes<RENDER>(P, packed, scratch);
+  if (mode == PROBE) return wide_bytes<PROBE>(P, packed, scratch);
+  return wide_bytes<QUERY>(P, packed, scratch);
 }

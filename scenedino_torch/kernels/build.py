@@ -174,6 +174,18 @@ def count_launch(wrapper) -> None:
         wrapper.launches += 1
 
 
+def wide_buffers(name: str, device: torch.device, packed: int, scratch: int, out_bytes: int):
+    """The wide walk's packed weights and scratch of a launch (uint8 tensors
+    on CUDA `device`, `packed` and `scratch` bytes; None for a size of 0).
+    Raises, naming the sizes, where they and the launch's outputs
+    (`out_bytes`) would not fit in what the card has free."""
+    free = torch.cuda.mem_get_info(device)[0] + torch.cuda.memory_reserved(device) - torch.cuda.memory_allocated(device)
+    if packed + scratch + out_bytes > free:
+        raise ValueError(f"the CUDA {name} kernel's launch needs {out_bytes} bytes of outputs, {packed} of packed "
+                         f"weights and {scratch} of scratch; the card has {free} free")
+    return tuple(torch.empty(n, dtype=torch.uint8, device=device) if n else None for n in (packed, scratch))
+
+
 def call_on_stream(fn: ctypes._CFuncPtr, device: torch.device, *args) -> int:
     """`fn(*args, stream)` with the current stream of CUDA `device`, that
     device made the current one only where it is not already; returns what

@@ -29,14 +29,15 @@ from scenedino_torch.kernels import build
 
 DEPTH_STATISTICS = ("expectation", "median")
 DTYPES = (torch.float32, torch.bfloat16)
-# what the CUDA kernel takes: samples a ray (a ray of more than 64 spans
-# several of the kernel's 64-row tiles; its weights are kept in shared
-# memory for the median), hidden width, output width, z-code columns (two
-# k16 steps of the code product), rays
-MAX_SAMPLES, MAX_HIDDEN, MAX_OUT, MAX_CODE = 256, 128, 68, 32
+# what the shipped instantiations of the CUDA kernel hold (csrc/encode_view.cu's
+# `shipped`): samples a ray, hidden width, output width, z-code columns; past
+# any of them the wide walk runs. Rays the kernel takes (its tiles count rays
+# in 32 bits)
+SHIPPED_SAMPLES, SHIPPED_HIDDEN, SHIPPED_OUT, SHIPPED_CODE = 256, 128, 68, 32
 MAX_RAYS = 2 ** 31 - 1 - 64
-ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_longlong] + [ctypes.c_int] * 10 + [ctypes.c_float] * 3
+ARGTYPES = ([ctypes.c_void_p] * 12 + [ctypes.c_longlong] + [ctypes.c_int] * 10 + [ctypes.c_float] * 3
             + [ctypes.c_void_p])
+WIDE_ARGTYPES = [ctypes.c_longlong] + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2
 
 
 @dataclasses.dataclass(frozen=True)
@@ -118,11 +119,14 @@ def encode_view(base, z, zscale, w_z, w2, b2, color, cfg: EncodeViewConfig):
     cfg.depth_statistic="median"), feature (N, E - 1) and rgb = color x
     the ray's total weight (N, 3), fp32.
 
-    On CUDA the kernel takes contiguous tensors, K <= 256 samples a ray
-    (padded to 8, 16, 32 or 64 in its 64-row tiles; past 64 a ray spans
-    several tiles), D <= 128 (zero-padded to 64 or 128), 2 <= E <= 68,
-    code_dims <= 32 (num_freqs <= 15 with the input) and N < 2^31 - 64, and
-    raises on anything else; the CPU's plain version takes any size.
+    On CUDA the kernel takes contiguous tensors and N < 2^31 - 64, and
+    raises on anything else, at any D, E, code width and K: the shipped
+    instantiations hold K <= 256 samples a ray (padded to 8, 16, 32 or 64 in
+    their 64-row tiles; past 64 a ray spans several tiles), D <= 128
+    (zero-padded to 64 or 128), E <= 68 and code_dims <= 32; past them the
+    wide walk streams the weights (csrc/wide_walk.cuh), and the wrapper
+    raises only where its outputs and buffers would not fit in the card's
+    memory. The CPU's plain version takes any size.
     """
     _check(base, z, zscale, w_z, w2, b2, color, cfg)
     device = base.device
@@ -138,18 +142,27 @@ def encode_view(base, z, zscale, w_z, w2, b2, color, cfg: EncodeViewConfig):
     tensors = (base, z, zscale, w_z, w2, b2, color)
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("the CUDA encode_view kernel takes contiguous tensors")
-    if D > MAX_HIDDEN or E > MAX_OUT or K > MAX_SAMPLES or cfg.code_dims > MAX_CODE or N > MAX_RAYS:
-        raise ValueError(f"the CUDA encode_view kernel takes D <= {MAX_HIDDEN}, E <= {MAX_OUT}, K <= {MAX_SAMPLES}, "
-                         f"code_dims <= {MAX_CODE} and N <= {MAX_RAYS}; got D={D}, E={E}, K={K}, "
-                         f"code_dims={cfg.code_dims}, N={N}")
+    if N > MAX_RAYS:
+        raise ValueError(f"the CUDA encode_view kernel takes N <= {MAX_RAYS}, got N={N}")
+    bf16 = int(w2.dtype == torch.bfloat16)
+    wide = (None, None)
+    if not (K <= SHIPPED_SAMPLES and D <= SHIPPED_HIDDEN and E <= SHIPPED_OUT and cfg.code_dims <= SHIPPED_CODE):
+        # the wide walk's packed weights and scratch
+        sizes = (ctypes.c_longlong(0), ctypes.c_longlong(0))
+        with torch.cuda.device(device):
+            err = build.function("encode_view", "encode_view_wide_bytes", WIDE_ARGTYPES)(
+                N, K, D, E, cfg.code_dims, bf16, *map(ctypes.byref, sizes))
+        if err != 0:
+            raise RuntimeError(f"encode_view: sizing the wide walk failed: cudaError {err}")
+        wide = build.wide_buffers("encode_view", device, sizes[0].value, sizes[1].value, N * (E + 3) * 4)
     depth = torch.empty(N, device=device, dtype=torch.float32)
     dino = torch.empty(N, E - 1, device=device, dtype=torch.float32)
     rgb = torch.empty(N, 3, device=device, dtype=torch.float32)
     zn_sub, zn_den = _zn_consts(cfg)
     fn = build.function("encode_view", "encode_view", ARGTYPES)
     err = build.call_on_stream(
-        fn, device, *(t.data_ptr() for t in (*tensors, depth, dino, rgb)),
-        N, K, D, E, cfg.code_dims, int(w2.dtype == torch.bfloat16), cfg.num_freqs, int(cfg.include_input),
+        fn, device, *(None if t is None else t.data_ptr() for t in (*tensors, depth, dino, rgb, *wide)),
+        N, K, D, E, cfg.code_dims, bf16, cfg.num_freqs, int(cfg.include_input),
         int(cfg.inv_z), int(cfg.hard_alpha_cap), int(cfg.depth_statistic == "median"), zn_sub, zn_den,
         cfg.freq_factor)
     if err != 0:

@@ -28,10 +28,11 @@ from scenedino_torch.core import cameras, compositing, encoding
 from scenedino_torch.kernels import build
 
 DEPTH_STATISTICS = ("expectation", "median")
-# what the CUDA kernels take: samples a ray (a ray of more than 64 spans
-# several of the kernel's 64-point tiles; the ray's weights are kept in
-# shared memory for the median), hidden width, output width, code columns
-MAX_SAMPLES, MAX_HIDDEN, MAX_OUT, MAX_CODE = 256, 128, 128, 64
+MODES = {"point_render": 0, "probe_weights": 1, "point_query": 2}
+# what the shipped instantiations of the CUDA kernels hold (csrc/point_render.cu's
+# `shipped`): samples a ray, hidden width (a multiple of 8), output width,
+# code columns; past any of them the wide walk runs
+SHIPPED_SAMPLES, SHIPPED_HIDDEN, SHIPPED_OUT, SHIPPED_CODE = 256, 128, 128, 64
 
 
 @dataclasses.dataclass(frozen=True)
@@ -204,7 +205,7 @@ def _check_field(name, folded_grid, w_code, b1, w2, b2, feat_w2c, feat_k, cfg, m
         raise ValueError(f"depth_statistic must be 'expectation' or 'median', got {cfg.depth_statistic!r}")
 
 
-def _cuda_ready(name: str, bf16: dict, f32: dict, D: int, E: int, K: int, cfg: PointRenderConfig) -> None:
+def _cuda_ready(name: str, bf16: dict, f32: dict) -> None:
     """Raise on what the CUDA kernels do not take."""
     for arg, t in bf16.items():
         if t.dtype != torch.bfloat16:
@@ -215,11 +216,6 @@ def _cuda_ready(name: str, bf16: dict, f32: dict, D: int, E: int, K: int, cfg: P
     for arg, t in {**bf16, **f32}.items():
         if not t.is_contiguous():
             raise ValueError(f"the CUDA {name} kernel takes a contiguous {arg}")
-    if D > MAX_HIDDEN or D % 8 or E > MAX_OUT or K > MAX_SAMPLES or cfg.code_dims > MAX_CODE:
-        raise ValueError(
-            f"the CUDA {name} kernel takes D <= {MAX_HIDDEN} (multiple of 8), E <= {MAX_OUT}, "
-            f"K <= {MAX_SAMPLES} and code_dims <= {MAX_CODE}; got D={D}, E={E}, K={K}, code_dims={cfg.code_dims}"
-        )
     if bf16["folded_grid"].data_ptr() % 16:
         raise ValueError(f"the CUDA {name} kernel takes a 16-byte aligned folded_grid")
 
@@ -236,12 +232,27 @@ def _field_consts(cfg: PointRenderConfig):
     return ints, (zn_sub, zn_den, cfg.freq_factor)
 
 
+def _wide_buffers(entry: str, device, R: int, K: int, D: int, E: int, C: int, out_bytes: int):
+    """The wide walk's packed weights and scratch for this launch (None, None
+    where the shipped instantiations take the shape)."""
+    if D <= SHIPPED_HIDDEN and D % 8 == 0 and E <= SHIPPED_OUT and C <= SHIPPED_CODE and K <= SHIPPED_SAMPLES:
+        return None, None
+    fn = build.function("point_render", "point_wide_bytes", [ctypes.c_int] * 6 + [ctypes.c_void_p] * 2)
+    packed, scratch = ctypes.c_longlong(0), ctypes.c_longlong(0)
+    with torch.cuda.device(device):
+        err = fn(MODES[entry], R, K, D, E, C, ctypes.byref(packed), ctypes.byref(scratch))
+    if err != 0:
+        raise RuntimeError(f"{entry}: sizing the wide walk failed: cudaError {err}")
+    return build.wide_buffers(entry, device, packed.value, scratch.value, out_bytes)
+
+
 def _launch(entry: str, device, pointers, ints, floats) -> None:
     """Call `entry` of the point_render library on the current stream of
-    `device`; raises if the launch was refused."""
+    `device` (a pointer None is passed as null); raises if the launch was
+    refused."""
     fn = build.function("point_render", entry, [ctypes.c_void_p] * len(pointers) + [ctypes.c_int] * len(ints)
                         + [ctypes.c_float] * len(floats) + [ctypes.c_void_p])
-    err = build.call_on_stream(fn, device, *(t.data_ptr() for t in pointers), *ints, *floats)
+    err = build.call_on_stream(fn, device, *(None if t is None else t.data_ptr() for t in pointers), *ints, *floats)
     if err != 0:
         raise RuntimeError(f"{entry} kernel launch failed: cudaError {err}")
 
@@ -266,10 +277,14 @@ def point_render(rays, z, folded_grid, w_code, b1, w2, b2, feat_w2c, feat_k,
     Returns depth (R,) (E[z], or the weight median under
     cfg.depth_statistic="median"), feature (R, E - 1) and rgb (R, 3), fp32.
 
-    On CUDA the kernel takes bf16 grid, weights and colour image, fp32
-    rays, depths, biases and cameras, D <= 128 with D % 8 == 0, E <= 128,
-    K <= 256 (a ray of more than 64 samples spans several of the kernel's
-    64-point tiles), code_dims <= 64, and raises on anything else.
+    On CUDA the kernel takes contiguous tensors, a bf16 grid (16-byte
+    aligned), weights and colour image, fp32 rays, depths, biases and
+    cameras, and raises on anything else. Any D, E, code width and K: the
+    shipped instantiations hold D <= 128 (a multiple of 8), E <= 128,
+    code_dims <= 64 and K <= 256 (a ray of more than 64 samples spans
+    several of the kernel's 64-point tiles); past them the wide walk streams
+    the weights (csrc/wide_walk.cuh), and the wrapper raises only where its
+    outputs and buffers would not fit in the card's memory.
     """
     _check_field("point_render", folded_grid, w_code, b1, w2, b2, feat_w2c, feat_k, cfg, min_e=2)
     R, K = z.shape
@@ -285,12 +300,13 @@ def point_render(rays, z, folded_grid, w_code, b1, w2, b2, feat_w2c, feat_k,
     E = w2.shape[-1]
     _cuda_ready("point_render", {"folded_grid": folded_grid, "w_code": w_code, "w2": w2, "color_img": color_img},
                 {"rays": rays, "z": z, "b1": b1, "b2": b2, "feat_w2c": feat_w2c, "feat_k": feat_k,
-                 "color_w2c": color_w2c, "color_k": color_k}, D, E, K, cfg)
+                 "color_w2c": color_w2c, "color_k": color_k})
+    wide = _wide_buffers("point_render", rays.device, R, K, D, E, cfg.code_dims, R * (E + 3) * 4)
     depth = torch.empty(R, device=rays.device, dtype=torch.float32)
     dino = torch.empty(R, E - 1, device=rays.device, dtype=torch.float32)
     rgb = torch.empty(R, 3, device=rays.device, dtype=torch.float32)
     ints, floats = _field_consts(cfg)
-    _launch("point_render", rays.device, (*args, depth, dino, rgb),
+    _launch("point_render", rays.device, (*args, depth, dino, rgb, *wide),
             (R, K, Hg, Wg, D, E, cfg.code_dims, Hc, Wc, *ints, int(cfg.hard_alpha_cap),
              int(cfg.depth_statistic == "median")), floats)
     build.count_launch(point_render)
@@ -306,8 +322,8 @@ def probe_weights(rays, z, folded_grid, w_code, b1, w2, b2, feat_w2c, feat_k, cf
     softplus(out[0]) with the max(1 - a, 1e-10) floor and, under
     cfg.hard_alpha_cap, alpha 1 on the last sample.
 
-    On CUDA the kernel takes what `point_render`'s does and raises on
-    anything else.
+    On CUDA the kernel takes what `point_render`'s does, at any D, code
+    width and K, and raises on anything else.
     """
     _check_field("probe_weights", folded_grid, w_code, b1, w2, b2, feat_w2c, feat_k, cfg, min_e=1)
     R, K = z.shape
@@ -318,10 +334,11 @@ def probe_weights(rays, z, folded_grid, w_code, b1, w2, b2, feat_w2c, feat_k, cf
         return probe_weights_plain(*args, cfg)
     Hg, Wg, D = folded_grid.shape
     _cuda_ready("probe_weights", {"folded_grid": folded_grid, "w_code": w_code, "w2": w2},
-                {"rays": rays, "z": z, "b1": b1, "b2": b2, "feat_w2c": feat_w2c, "feat_k": feat_k}, D, 1, K, cfg)
+                {"rays": rays, "z": z, "b1": b1, "b2": b2, "feat_w2c": feat_w2c, "feat_k": feat_k})
+    wide = _wide_buffers("probe_weights", rays.device, R, K, D, 1, cfg.code_dims, R * K * 4)
     weights = torch.empty(R, K, device=rays.device, dtype=torch.float32)
     ints, floats = _field_consts(cfg)
-    _launch("probe_weights", rays.device, (*args, weights),
+    _launch("probe_weights", rays.device, (*args, weights, *wide),
             (R, K, Hg, Wg, D, cfg.code_dims, *ints, int(cfg.hard_alpha_cap)), floats)
     build.count_launch(probe_weights)
     return weights
@@ -333,8 +350,8 @@ def point_query(pts, folded_grid, w_code, b1, w2, b2, feat_w2c, feat_k, cfg: Poi
     pts (P, 3) fp32 world points (the rest as in `point_render`). Returns
     sigma = softplus(out[0]) (P,) and the feature out[1:] (P, E - 1), fp32.
 
-    On CUDA the kernel takes what `point_render`'s does and raises on
-    anything else.
+    On CUDA the kernel takes what `point_render`'s does, at any D, E and
+    code width, and raises on anything else.
     """
     _check_field("point_query", folded_grid, w_code, b1, w2, b2, feat_w2c, feat_k, cfg, min_e=2)
     if pts.ndim != 2 or pts.shape[-1] != 3:
@@ -347,11 +364,12 @@ def point_query(pts, folded_grid, w_code, b1, w2, b2, feat_w2c, feat_k, cfg: Poi
     Hg, Wg, D = folded_grid.shape
     E = w2.shape[-1]
     _cuda_ready("point_query", {"folded_grid": folded_grid, "w_code": w_code, "w2": w2},
-                {"pts": pts, "b1": b1, "b2": b2, "feat_w2c": feat_w2c, "feat_k": feat_k}, D, E, 1, cfg)
+                {"pts": pts, "b1": b1, "b2": b2, "feat_w2c": feat_w2c, "feat_k": feat_k})
+    wide = _wide_buffers("point_query", pts.device, P, 1, D, E, cfg.code_dims, P * E * 4)
     sigma = torch.empty(P, device=pts.device, dtype=torch.float32)
     feat = torch.empty(P, E - 1, device=pts.device, dtype=torch.float32)
     ints, floats = _field_consts(cfg)
-    _launch("point_query", pts.device, (*args, sigma, feat), (P, Hg, Wg, D, E, cfg.code_dims, *ints), floats)
+    _launch("point_query", pts.device, (*args, sigma, feat, *wide), (P, Hg, Wg, D, E, cfg.code_dims, *ints), floats)
     build.count_launch(point_query)
     return sigma, feat
 

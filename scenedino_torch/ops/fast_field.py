@@ -499,10 +499,10 @@ def render_encode_view(fs: FastFieldState, cfg: FieldConfig, height: int, width:
     five-way key split, :294), drawn from `generator` when None.
     Returns (depth (H, W), dino (H, W, d_out-1), rgb (H, W, 3)), fp32.
 
-    On CUDA the kernel takes n_coarse <= 256, d_hidden <= 128, d_out <= 68
-    and W_code's z rows <= 32 (num_freqs <= 15 with the input; every shipped
-    config: 8, 32 or 48 samples, d_hidden 64 or 128, d_out 17 or 65, 13 z
-    rows), and raises on more; on the CPU the plain version takes any size.
+    The kernel takes any n_coarse, d_hidden, d_out and z-code width: every
+    shipped config (8, 32 or 48 samples, d_hidden 64 or 128, d_out 17 or
+    65, 13 z rows) runs its shipped instantiations, wider fields its wide
+    walk (csrc/wide_walk.cuh); on the CPU the plain version takes any size.
     """
     B, V = fs.folded_grid.shape[:2]
     if B != 1 or V != 1:
@@ -520,9 +520,8 @@ def render_encode_view_batched(fs: FastFieldState, cfg: FieldConfig, height: int
                                depth_statistic: str = "expectation"):
     """`render_encode_view` of every batch element of a (B, V)-view state,
     view 0 of each (the stage-2 full-frame render: each sample renders its
-    own encode camera), all B frames in one K6 launch. On CUDA the kernel
-    takes n_coarse <= 256, d_hidden <= 128, d_out <= 68 and W_code's z rows
-    <= 32, and raises on more; the CPU takes any size. u (B, height*width,
+    own encode camera), all B frames in one K6 launch, at any n_coarse and
+    width (`render_encode_view`). u (B, height*width,
     n_coarse) or None. Returns (depth (B, H, W), dino (B, H, W, D), rgb
     (B, H, W, 3))."""
     B = fs.folded_grid.shape[0]

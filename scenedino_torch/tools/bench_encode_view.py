@@ -3,6 +3,7 @@ then the kernel against its plain version at the shapes its paths give it,
 and the kernel's, the plain version's and the bound's times.
 
     python -m scenedino_torch.tools.bench_encode_view [--seed N]
+    python -m scenedino_torch.tools.bench_encode_view --parent parent/scenedino_torch/csrc/encode_view.cu
 
 The shapes (`SHAPES`), each from a seeded folded grid at twice the render
 size through `ops.fast_field.encode_view_inputs` (the render's own
@@ -14,13 +15,19 @@ frame at 48 samples (16 dead rows a ray in the kernel's 64-row tiles); the
 stage-2 recipe's fp32 state of 4 frames at 32 samples, and as the bf16
 serving state of one frame at configs/train_synthetic_convergence.yaml's
 n_coarse of 48. Expectation depth, then the weight-median depth. Then the
-serving render stage split into its torch preamble and K6. Every time is
+serving render stage split into its torch preamble and K6. `--parent`
+adds a source from before the wide walk (its entry takes no packed-weight
+and scratch buffers): the ptxas lines of its kernels against the port's
+build's, then the serving and stage-2 shapes timed with each build in
+turns (parent, port, port, parent), each behind the same Python call.
+Every time is
 the median CUDA-event time of `utils.timing.time_ms` on the card that the
 last lines name. Needs a CUDA card; exits 1 if a check fails.
 """
 from __future__ import annotations
 
 import argparse
+import ctypes
 import dataclasses
 import json
 import re
@@ -29,7 +36,7 @@ import sys
 import torch
 
 from scenedino_torch.kernels import build
-from scenedino_torch.kernels.encode_view import encode_view, encode_view_plain
+from scenedino_torch.kernels.encode_view import ARGTYPES, encode_view, encode_view_plain
 from scenedino_torch.models.field import FieldConfig
 from scenedino_torch.ops.fast_field import FastFieldState, encode_view_inputs, render_encode_view_batched
 from scenedino_torch.utils.timing import card_line, profile_device, time_ms
@@ -188,20 +195,27 @@ def render_stage(gen: torch.Generator, shape: Shape, reps: int = 10) -> dict:
             "preamble_profile": profile_device(pre)}
 
 
-# instantiations of csrc/encode_view.cu's kernel: {bf16, TF32} x the code's
-# k16 steps {1, 2} x the walk {one tile a ray, several} x hidden chunks
-# {1, 2} x output {24, 64 + 8}
-INSTANTIATIONS = 32
+# kernels of csrc/encode_view.cu: the shipped instantiations, {bf16, TF32} x
+# the code's k16 steps {1, 2} x the walk {one tile a ray, several} x hidden
+# chunks {1, 2} x output {24, 64 + 8}; the wide walk's (csrc/wide_walk.cuh),
+# {bf16, TF32} x the walk; and its weight packing, {bf16, TF32}
+INSTANTIATIONS = 32 + 4 + 2
+KERNELS = {"encode_view_kernel": "", "encode_wide_kernel": "wide ", "pack_units": "pack "}
 
 
 def ptxas() -> dict:
-    """ptxas' registers and spills of each instantiation, by its template
-    arguments "TF32,CS,MULTI,DC,EC,ET" (TF32 1 for the fp32 state; the
-    code's k16 steps; MULTI 1 for the multi-tile walk; hidden chunks of 64;
-    output chunks of 64; output tail)."""
+    """ptxas' registers and spills of each kernel, by its template arguments:
+    "TF32,CS,MULTI,DC,EC,ET" for the shipped instantiations (TF32 1 for the
+    fp32 state; the code's k16 steps; MULTI 1 for the multi-tile walk;
+    hidden chunks of 64; output chunks of 64; output tail), "wide TF32,MULTI"
+    for the wide walk, "pack TF32,0" for its weight packing."""
     build.load("encode_view")
-    return {",".join(re.findall(r"Li(\d+)E", name.split("encode_view_kernel")[-1])): r
-            for name, r in build.ptxas_report(build.build_log("encode_view")).items() if "encode_view_kernel" in name}
+    report = {}
+    for name, r in build.ptxas_report(build.build_log("encode_view")).items():
+        for kernel, tag in KERNELS.items():
+            if kernel in name:
+                report[tag + ",".join(re.findall(r"Li(\d+)E", name.split(kernel)[-1]))] = r
+    return report
 
 
 def spilled(report: dict) -> bool:
@@ -210,14 +224,60 @@ def spilled(report: dict) -> bool:
                                                 for r in report.values())
 
 
+def against_parent(source: str, gen: torch.Generator, passes: int = 2) -> dict:
+    """The parent's ptxas lines against the port's build's, then the serving
+    and stage-2 shapes timed with the parent's build and the port's in turns
+    (parent, port, port, parent, ...), each entry behind the same Python
+    call: {"ptxas": ..., "ms": [{build: {shape: ms}} a pass]}."""
+    from pathlib import Path
+
+    from scenedino_torch.tools.bench_attention_bwd import compile_source
+    from scenedino_torch.tools.bench_point_render import compare_ptxas, through
+
+    lib, log = compile_source(Path(source).resolve())
+    port = build.load("encode_view")
+    report = compare_ptxas(log, build.build_log("encode_view"))
+    port_fn, parent_fn = port.encode_view, lib.encode_view
+    port_fn.argtypes, port_fn.restype = ARGTYPES, ctypes.c_int
+    parent_fn.argtypes = [a for i, a in enumerate(ARGTYPES) if i not in (10, 11)]
+    parent_fn.restype = ctypes.c_int
+    builds = {"parent": through(parent_fn, 10), "port": through(port_fn)}
+    inputs = {}
+    for shape in SHAPES[:2]:
+        fs = seeded_state(gen, shape)
+        inputs[shape.path] = encode_view_inputs(fs, FieldConfig(), shape.height, shape.width, generator=gen,
+                                                n_coarse=shape.samples)
+    saved = build._functions.get(("encode_view", "encode_view"))
+    times = []
+    try:
+        for p in range(passes):
+            order = ("parent", "port") if p % 2 == 0 else ("port", "parent")
+            row = {}
+            for name in order:
+                build._functions["encode_view", "encode_view"] = builds[name]
+                row[name] = {path: time_ms(lambda: encode_view(*a, c), reps=10) for path, (a, c) in inputs.items()}
+            times.append(row)
+    finally:
+        build._functions["encode_view", "encode_view"] = saved
+    return {"ptxas": report, "ms": times}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--parent", help="a source from before the wide walk, timed against the port's build")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("no CUDA device", flush=True)
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
+    if args.parent:
+        print(card_line(), flush=True)
+        print(f"encode_view against the parent: "
+              f"{json.dumps(against_parent(args.parent, torch.Generator(device='cuda').manual_seed(args.seed)))}",
+              flush=True)
+        print(card_line(), flush=True)
+        return 0
     report = ptxas()
     print(f"encode_view ptxas: {report}", flush=True)
     ok = not spilled(report)

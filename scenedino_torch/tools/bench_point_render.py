@@ -4,6 +4,7 @@ paths, in several builds side by side on one card.
 
     python -m scenedino_torch.tools.bench_point_render --check
     python -m scenedino_torch.tools.bench_point_render --variants 1,3,1 2,2,1 1,3,0 --other old/point_render.cu
+    python -m scenedino_torch.tools.bench_point_render --parent parent/scenedino_torch/csrc/point_render.cu
 
 `--check` builds the source as the port loads it, prints what ptxas said
 of its kernels (registers, spills) and nvcc's warnings, and holds K2
@@ -15,7 +16,11 @@ K4 over the 2,097,152 SSCBench voxel centres, all on a seeded
 `a,b,c` rebuilds it with warpgroups a block, blocks an SM the registers
 are divided for, and corner-load batches issued ahead of the blend (the
 PR_WGS, PR_BLOCKS, PR_AHEAD macros); `--other` adds another source with
-the same C interface (say an earlier revision's). Each build is checked as
+the same C interface (say an earlier revision's). `--parent` adds a source
+from before the wide walk (its entries take no packed-weight and scratch
+buffers) and the port's own build beside it, each behind the same Python
+call, and first compares the ptxas lines of the parent's kernels with the
+port's build's (the same instantiations, by name). Each build is checked as
 above, then every build is timed at the four shapes in turns, first to
 last and back again, and each pass is printed. Builds are driven through
 the port's own wrappers. Every time is the median CUDA-event time of
@@ -29,6 +34,7 @@ import ctypes
 import dataclasses
 import importlib
 import json
+import re
 from pathlib import Path
 from typing import Dict, List, Optional, Tuple
 
@@ -96,13 +102,58 @@ def shapes(seed: int) -> Dict[str, tuple]:
     return out
 
 
+# pointer arguments of each entry before the wide walk's two buffers (packed
+# weights, scratch), which a source from before the wide walk does not take
+SHIPPED_POINTERS = {"point_render": 15, "probe_weights": 10, "point_query": 10}
+
+
+def through(fn, drop_at: Optional[int] = None):
+    """`fn` behind one Python call; with `drop_at`, the two buffer pointers
+    after the first `drop_at` arguments are dropped (a parent's entry)."""
+    if drop_at is None:
+        return lambda *a: fn(*a)
+    return lambda *a: fn(*a[:drop_at], *a[drop_at + 2:])
+
+
+def entry_name(name: str) -> str:
+    """A kernel's mangled name without its anonymous namespace's tag (which
+    hashes the file, so that it differs between revisions)."""
+    return re.sub(r"_ZN\d+_GLOBAL__N__\w+?_cu_[0-9a-f]{8}", "_ZN", name)
+
+
+def ptxas_entries(log: str) -> Dict[str, List[str]]:
+    """ptxas' lines of each kernel in nvcc's output (registers, barriers,
+    stack, spills), by `entry_name`."""
+    out: Dict[str, List[str]] = {}
+    lines = None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            lines = out.setdefault(entry_name(m.group(1)), [])
+        elif lines is not None and ("bytes stack frame" in line or "Used" in line):
+            lines.append(line.split("ptxas info    :")[-1].strip())
+    return out
+
+
+def compare_ptxas(parent_log: str, port_log: str) -> dict:
+    """The parent's kernels whose ptxas lines the port's build repeats, and
+    the ones it changes or lacks."""
+    parent, port = ptxas_entries(parent_log), ptxas_entries(port_log)
+    changed = {k: {"parent": v, "port": port.get(k)} for k, v in parent.items() if port.get(k) != v}
+    return {"parent_kernels": len(parent), "unchanged": len(parent) - len(changed), "changed": changed,
+            "new": sorted(set(port) - set(parent))}
+
+
 @contextlib.contextmanager
-def library(lib: Optional[ctypes.CDLL]):
+def library(lib):
     """The port's wrappers call `lib`'s functions inside the block (None:
-    the port's own build)."""
+    the port's own build; a dict: entry name -> callable)."""
     saved = {e: build._functions.get(("point_render", e)) for e in ENTRIES}
     try:
-        if lib is not None:
+        if isinstance(lib, dict):
+            for e in ENTRIES:
+                build._functions["point_render", e] = lib[e]
+        elif lib is not None:
             for e in ENTRIES:
                 build._functions["point_render", e] = getattr(lib, e)
                 build._functions["point_render", e].restype = ctypes.c_int
@@ -115,12 +166,14 @@ def library(lib: Optional[ctypes.CDLL]):
                 build._functions["point_render", e] = fn
 
 
-def set_argtypes(lib: ctypes.CDLL) -> None:
-    """The argument types the wrappers give `build.function` (pointers, ints, floats, stream)."""
+def set_argtypes(lib: ctypes.CDLL, buffers: bool = True) -> None:
+    """The argument types the wrappers give `build.function` (pointers, ints,
+    floats, stream); without `buffers`, a parent's (no wide-walk buffers)."""
     counts = {"point_render": (15, 15, 3), "probe_weights": (10, 11, 3), "point_query": (10, 10, 3)}
     for e, (ptrs, ints, floats) in counts.items():
-        getattr(lib, e).argtypes = ([ctypes.c_void_p] * ptrs + [ctypes.c_int] * ints + [ctypes.c_float] * floats
-                                    + [ctypes.c_void_p])
+        getattr(lib, e).argtypes = ([ctypes.c_void_p] * (ptrs + 2 * buffers) + [ctypes.c_int] * ints
+                                    + [ctypes.c_float] * floats + [ctypes.c_void_p])
+        getattr(lib, e).restype = ctypes.c_int
 
 
 def check(inputs: Dict[str, tuple], label: str) -> bool:
@@ -186,6 +239,7 @@ def main():
     parser.add_argument("--check", action="store_true", help="the port's build: ptxas, then each shape's check")
     parser.add_argument("--variants", nargs="*", default=[], help="a,b,c = PR_WGS, PR_BLOCKS, PR_AHEAD")
     parser.add_argument("--other", nargs="*", default=[], help="other sources with the same C interface")
+    parser.add_argument("--parent", help="a source from before the wide walk, timed against the port's build")
     parser.add_argument("--passes", type=int, default=2)
     parser.add_argument("--seed", type=int, default=0)
     args = parser.parse_args()
@@ -206,8 +260,22 @@ def main():
                                                          for v in args.variants]
     jobs += [(Path(p).resolve(), None) for p in args.other]
     labels = [f"variant {v}" for v in args.variants] + [f"other {p}" for p in args.other]
+    if args.parent:
+        jobs.append((Path(args.parent).resolve(), None))
     builds = []
-    for label, (lib, log) in zip(labels, compile_sources(jobs)):
+    for i, (lib, log) in enumerate(compile_sources(jobs)):
+        if i == len(labels):  # the parent
+            port = build.load("point_render")
+            report = compare_ptxas(log, build.build_log("point_render"))
+            print(f"ptxas parent against the port's build: {json.dumps(report)}", flush=True)
+            set_argtypes(port)
+            set_argtypes(lib, buffers=False)
+            builds.append(("port", {e: through(getattr(port, e)) for e in ENTRIES}))
+            builds.append(("parent", {e: through(getattr(lib, e), SHIPPED_POINTERS[e]) for e in ENTRIES}))
+            with library(builds[-1][1]):
+                ok = check(inputs, "parent") and ok
+            continue
+        label = labels[i]
         print_warnings(log)
         print(f"ptxas {label}: {ptxas_lines(log)}", flush=True)
         set_argtypes(lib)

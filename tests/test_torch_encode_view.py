@@ -7,8 +7,18 @@ rays padded with dead rows to 8, 16, 32 or 64 samples; the z code and both
 products as the kernel's wgmma steps, bf16-rounded code and h for the bf16
 state, three TF32 passes for the fp32 one; one warp a ray, two samples a
 lane: the product scan, butterfly sums and ballot median) against the
-plain version; one TF32 pass against three at the seeded state's widths and
-scales; and the wrapper's refusals. The kernel against its plain version
+plain version; the wide walk (csrc/wide_walk.cuh, every shape the
+shipped instantiations do not take) emulated as it streams the weights:
+the z code padded to whole code tiles (64 bf16 or 32 TF32 columns), h
+formed 64 hidden units at a time and rounded (bf16) or split (TF32 hi and
+lo, three passes) where its products load it, the output columns in
+chunks of 64 with the density column's chunk first, the rays composited
+one tile or 64-sample segment at a time (tests/test_torch_point_render.py's
+`composite_tiles`, the warps the wide walk shares with the shipped one) and
+each chunk's features summed with those weights, against the plain version
+at D 136 and 512, E 129 and 769, 33 z-code columns and 320 samples a ray;
+one TF32 pass against three at the seeded state's widths and scales; and
+the wrapper's refusals. The kernel against its plain version
 on a card is in tests/test_torch_kernels.py (which imports no JAX).
 
 The strata are the JAX function's own, rebuilt from its key (`uniform`
@@ -312,6 +322,99 @@ def test_kernel_walk_matches_plain(K, bf16, depth_statistic):
             np.testing.assert_array_equal(p.numpy(), e)
         else:
             np.testing.assert_allclose(p.numpy(), e, rtol=1e-5, atol=1e-4 if name == "depth" else 1e-5, err_msg=name)
+
+
+def emulate_wide(base, z, zscale, w_z, w2, b2, color, cfg: EncodeViewConfig, bf16: bool):
+    """The wide walk in numpy fp32 (compositing in torch, as the kernels'
+    warps): per sample the z code at any width, zero-padded to whole code
+    tiles of KW columns (bf16 64, TF32 32); per 64-unit hidden chunk c the
+    code product over the code tiles (`_wgmma` over the tiles' k-steps in
+    order: a unit's steps continue the chunk's accumulator), h = relu(base +
+    acc) rounded to bf16 or kept fp32 (split into TF32 hi and lo by each
+    product that loads it); per 64-column output chunk j the product over
+    the hidden k-tiles, + b2, the density column's chunk first. Rays of K <=
+    64 samples pack 64 / Kp to a tile, longer ones take one 64-sample
+    segment a tile; `composite_tiles` composites them, and each chunk's
+    feature columns are summed over a ray's samples in order (fused
+    multiply-adds)."""
+    from test_torch_point_render import composite_tiles
+
+    f = np.float32
+    N, D = base.shape
+    K, E, Cz = z.shape[1], w2.shape[1], w_z.shape[0]
+    KW, k_step, passes = (64, 16, None) if bf16 else (32, 8, 3)
+    dc, ct, ec = -(-D // 64), -(-Cz // KW), -(-E // 64)
+    dl = z * zscale[:, None]
+    if cfg.inv_z:
+        zn01 = (f(1) / np.maximum(dl, f(1e-3)) - f(1 / cfg.z_far)) / f(1 / cfg.z_near - 1 / cfg.z_far)
+    else:
+        zn01 = (dl - f(cfg.z_near)) / f(cfg.z_far - cfg.z_near)
+    zn = (f(2) * zn01 - f(1)).reshape(-1)
+    code = np.zeros((N * K, KW * ct), f)
+    for c in range(Cz):
+        if cfg.include_input and c == 0:
+            code[:, c] = zn
+        else:
+            i = c - int(cfg.include_input)
+            arg = zn * f(cfg.freq_factor * 2 ** (i // 2)) + (f(np.pi / 2) if i % 2 else f(0))
+            code[:, c] = np.sin(arg.astype(np.float64)).astype(f)
+    if bf16:
+        code = _bf16(code)
+    wz = np.zeros((KW * ct, 64 * dc), f)
+    wz[:Cz, :D] = w_z
+    brow = np.zeros((N * K, 64 * dc), f)
+    brow[:, :D] = np.repeat(base, K, 0)
+    h = np.zeros((N * K, 64 * dc), f)
+    for c in range(dc):
+        n = slice(64 * c, 64 * c + 64)
+        hc = np.maximum(brow[:, n] + _wgmma(code, wz[:, n], k_step, passes), f(0))
+        h[:, n] = _bf16(hc) if bf16 else hc
+    w2p = np.zeros((64 * dc, 64 * ec), f)
+    w2p[:D, :E] = w2
+    b2p = np.zeros(64 * ec, f)
+    b2p[:E] = b2
+    chunks = [(_wgmma(h, w2p[:, 64 * j:64 * j + 64], k_step, passes) + b2p[64 * j:64 * j + 64]).reshape(N, K, 64)
+              for j in range(ec)]
+    w, depth = composite_tiles(torch.from_numpy(chunks[0][..., 0]), torch.from_numpy(z), cfg.hard_alpha_cap,
+                               cfg.depth_statistic == "median")  # the density column, before its softplus
+    w = w.numpy()
+    dino = np.zeros((N, 64 * ec), f)
+    for j, o in enumerate(chunks):
+        for s in range(K):
+            dino[:, 64 * j:64 * j + 64] = (w[:, s, None].astype(np.float64) * o[:, s]
+                                           + dino[:, 64 * j:64 * j + 64]).astype(f)
+    return depth.numpy(), dino[:, 1:E], color * w.sum(-1)[:, None]
+
+
+@pytest.mark.parametrize("K,D,E,num_freqs,bf16", [(32, 136, 129, 6, False), (32, 136, 129, 6, True),
+                                                  (12, 512, 769, 16, True), (320, 136, 769, 8, False),
+                                                  (48, 512, 129, 6, False)])
+@pytest.mark.parametrize("depth_statistic", ["expectation", "median"])
+def test_wide_walk_matches_plain(K, D, E, num_freqs, bf16, depth_statistic):
+    """The fp32 state to 1e-5 relative (1e-4 m in depth), the median's sample
+    exactly; the bf16 state to the card's bf16 bounds (depth 5e-2 m, feature
+    5e-3 times its largest magnitude where that exceeds 1, colour 5e-3; the
+    median the plain version's sample on all but 2 % of rays): at these
+    widths an h the two sum in other orders can round to the other bf16
+    neighbour."""
+    cfg = EncodeViewConfig(num_freqs=num_freqs, depth_statistic=depth_statistic)
+    rng = np.random.default_rng(K + D + E)
+    N = 9 if K > 64 else 37
+    args = list(_walk_inputs(rng, N, K, D, E, bf16, (0.3, D ** -0.5)))
+    args[3] = (rng.normal(size=(cfg.code_dims, D)) * 0.3).astype(np.float32)
+    if bf16:
+        args[3] = _bf16(args[3])
+    plain = _plain(args, cfg, bf16)
+    emu = emulate_wide(*args, cfg, bf16)
+    for name, p, e in zip(("depth", "feature", "rgb"), plain, emu):
+        p = p.numpy()
+        if name == "depth" and depth_statistic == "median":
+            assert np.mean(p != e) <= (0.02 if bf16 else 0.0)
+        elif bf16:
+            bound = {"depth": 5e-2, "feature": 5e-3 * max(1.0, float(np.abs(p).max())), "rgb": 5e-3}[name]
+            assert np.abs(p - e).max() <= bound, name
+        else:
+            np.testing.assert_allclose(p, e, rtol=1e-5, atol=1e-4 if name == "depth" else 1e-5, err_msg=name)
 
 
 def test_three_tf32_passes_hold_the_fp32_bounds_where_one_does_not():

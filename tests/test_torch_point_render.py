@@ -29,7 +29,19 @@ What the emulation follows, as the kernel does it:
   * the whole walk against `point_render_plain` / `probe_weights_plain` /
     `point_query_plain`, within chip_smoke.py's K2-K4 bounds (the
     emulation's code product is summed in another order than the plain
-    one, so an h may round to the other bf16 neighbour).
+    one, so an h may round to the other bf16 neighbour);
+  * the wide walk (csrc/wide_walk.cuh), which runs every shape the shipped
+    instantiations do not take: the same permutation at any count DC of
+    hidden chunks, the lanes' corner loads element by element past D (a D
+    that is not a multiple of 8 loads every channel once), the code padded
+    to whole tiles of 64 columns; h formed chunk by chunk, each chunk's code
+    product summed unit by unit over the code tiles and rounded where the
+    kernel rounds it (bf16(relu((g + acc) + b1))); then the output columns
+    in streamed chunks of 64, the density column's chunk first (its weights
+    composite the ray before any feature chunk is summed). Exactly the plain
+    head on dyadic inputs at D 132, 136 and 512; the whole walk within the
+    K2-K4 bounds at D 136 and 512, E 129 and 769, 99 code columns, 320
+    samples a ray.
 """
 import importlib
 
@@ -367,3 +379,139 @@ def test_walk_matches_the_plain_kernels(K, D, E):
     q_out = walk_points(pts, *args[2:9], cfg)
     assert (pr._softplus(q_out[:, 0]) - sigma).abs().max().item() <= K4_TOL
     assert (q_out[:, 1:] - qfeat).abs().max().item() <= K4_TOL
+
+
+# ---------------------------------------------------------------- the wide walk
+
+
+def wide_lane_columns(D):
+    """The wide walk's column of every grid channel, from its loads: lane q,
+    chunk c of DC, group G of 8 channels, channel base + i loaded where it is
+    below D (element by element past D), in column 64 c + 8 (4 G + i // 2) +
+    2 q + i % 2."""
+    dc = -(-D // 64)
+    cols = {}
+    for q in range(4):
+        for c in range(dc):
+            for G in range(2):
+                base = q * 16 * dc + 16 * c + 8 * G
+                for i in range(8):
+                    if base + i < D:
+                        cols[base + i] = 64 * c + 8 * (4 * G + i // 2) + 2 * q + i % 2
+    return dc, cols
+
+
+def wide_kernel_head(code, g, w_code, b1, w2, b2, D):
+    """The wide walk's two products on rows of code (P, C) and blended rows g
+    (P, D): the weights packed under pi into units of 64 x 64, h formed one
+    64-unit chunk at a time from the code product summed unit by unit over
+    the code tiles, rounded to bf16; the output in chunks of 64 columns over
+    the hidden k-tiles, the density column's chunk first. Returns h (P, 64
+    DC) in the kernel's hidden order and the output chunks, in order."""
+    dc, cols = wide_lane_columns(D)
+    dp = 64 * dc
+    ch = torch.tensor([hidden_channel(n, dc) for n in range(dp)])
+    live = ch < D
+    P, C = code.shape
+    ct, ec = -(-C // 64), -(-w2.shape[1] // 64)
+    gk = torch.zeros(P, dp)
+    gk[:, torch.tensor(list(cols.values()))] = g[:, torch.tensor(list(cols))]
+    code_p = torch.zeros(P, 64 * ct)
+    code_p[:, :C] = code.float()
+    wc = torch.zeros(64 * ct, dp)
+    wc[:C, live] = w_code.float()[:, ch[live]]
+    b1p = torch.zeros(dp)
+    b1p[live] = b1.float()[ch[live]]
+    w2p = torch.zeros(dp, 64 * ec)
+    w2p[live, :w2.shape[1]] = w2.float()[ch[live]]
+    b2p = torch.zeros(64 * ec)
+    b2p[:b2.shape[0]] = b2.float()
+    h = []
+    for c in range(dc):
+        n = slice(64 * c, 64 * c + 64)
+        acc = torch.zeros(P, 64)
+        for s in range(ct):  # one unit of the ring: code tile s of hidden chunk c
+            acc = acc + code_p[:, 64 * s:64 * s + 64] @ wc[64 * s:64 * s + 64, n]
+        h.append(torch.relu((gk[:, n] + acc) + b1p[n]).to(torch.bfloat16))
+    h = torch.cat(h, 1)
+    chunks = []
+    for j in range(ec):
+        e = slice(64 * j, 64 * j + 64)
+        o = torch.zeros(P, 64)
+        for kt in range(dc):  # one unit: output chunk j over hidden k-tile kt
+            o = o + h[:, 64 * kt:64 * kt + 64].float() @ w2p[64 * kt:64 * kt + 64, e]
+        chunks.append(o + b2p[e])
+    return h, chunks
+
+
+@pytest.mark.parametrize("D,E,C", [(132, 129, 69), (136, 769, 99), (512, 129, 39), (512, 769, 99)])
+def test_wide_walk_gives_the_plain_head_exactly(D, E, C):
+    """At any DC the lanes load every channel once and pi names it; on
+    dyadic inputs (no rounding anywhere) the wide walk's h and output equal
+    the plain version's exactly."""
+    dc, cols = wide_lane_columns(D)
+    assert sorted(cols) == list(range(D))
+    assert all(hidden_channel(n, dc) == channel for channel, n in cols.items())
+    rng = np.random.default_rng(D + E)
+    P = 70
+
+    def dyadic(*shape, scale):
+        return torch.from_numpy(rng.integers(-3, 4, size=shape).astype(np.float32) * scale)
+
+    code = dyadic(P, C, scale=0.25).to(torch.bfloat16)
+    g, w_code, b1 = dyadic(P, D, scale=1 / 16), dyadic(C, D, scale=1 / 8).to(torch.bfloat16), dyadic(D, scale=1 / 4)
+    w2, b2 = dyadic(D, E, scale=1 / 8).to(torch.bfloat16), dyadic(E, scale=1 / 2)
+    h_ref = torch.relu(g + code.float() @ w_code.float() + b1).to(torch.bfloat16)
+    out_ref = h_ref.float() @ w2.float() + b2
+    h, chunks = wide_kernel_head(code, g, w_code, b1, w2, b2, D)
+    ch = torch.tensor([hidden_channel(n, dc) for n in range(64 * dc)])
+    live = ch < D
+    assert torch.equal(h[:, live], h_ref[:, ch[live]]) and not h[:, ~live].float().any()
+    out = torch.cat(chunks, 1)
+    assert torch.equal(out[:, :E], out_ref) and not out[:, E:].any()
+
+
+def wide_walk_points(pts, grid, w_code, b1, w2, b2, feat_w2c, feat_k, cfg):
+    """Each point's output chunks as the wide walk forms them (`walk_points`'s set-up)."""
+    Hg, Wg, D = grid.shape
+    xy, zc, cam = cameras.project(pts, feat_w2c, feat_k)
+    depth_like = zc if cfg.code_mode == "z" else torch.linalg.vector_norm(cam, dim=-1, keepdim=True)
+    zn = encoding.normalize_z(depth_like, cfg.z_near, cfg.z_far, inv_z=cfg.inv_z)
+    code = encoding.positional_encoding(torch.cat([xy, zn], -1), cfg.num_freqs, cfg.freq_factor,
+                                        cfg.include_input).to(torch.bfloat16)
+    g = pr._sample_grid(grid, pr._to_pixel(xy[:, 0], Wg), pr._to_pixel(xy[:, 1], Hg))
+    return wide_kernel_head(code, g, w_code, b1, w2, b2, D)[1]
+
+
+@pytest.mark.parametrize("K,D,E,num_freqs", [(12, 136, 129, 6), (32, 512, 769, 16), (100, 136, 769, 11),
+                                             (320, 512, 129, 6)])
+def test_wide_walk_matches_the_plain_kernels(K, D, E, num_freqs):
+    """K2: the density column's chunk composites the rays (the one-tile or
+    the multi-tile walk's warps), then each chunk's feature columns are
+    summed with those weights; K3 the weights alone; K4 each point's chunks;
+    against the plain versions with chip_smoke.py's bounds (K4's over each
+    point's largest output, at least 1, as phase 3c holds it)."""
+    cfg = pr.PointRenderConfig(num_freqs=num_freqs)
+    hw = (4, 8) if K > 256 else (12, 20)
+    args = _inputs(K, D, E, cfg, seed=K + D + E, H=hw[0], W=hw[1])
+    rays, z = args[0], args[1]
+    R = z.shape[0]
+    chunks = wide_walk_points(pr._ray_points(rays, z), *args[2:9], cfg)
+    for median in (False, True):
+        mcfg = pr.PointRenderConfig(**{**cfg.__dict__, "depth_statistic": "median" if median else "expectation"})
+        w, depth = composite_tiles(chunks[0][:, 0].reshape(R, K), z, cfg.hard_alpha_cap, median)
+        feat = torch.cat([torch.stack([w[:, k, None] * o.reshape(R, K, 64)[:, k] for k in range(K)]).sum(0)
+                          for o in chunks], 1)[:, 1:E]
+        ref = pr.point_render_plain(*args, mcfg)
+        if median:
+            assert (depth != ref[0]).float().mean().item() <= 0.02
+        else:
+            assert (depth - ref[0]).abs().max().item() <= K2_DEPTH_TOL
+        assert (feat - ref[1]).abs().max().item() <= K2_FEAT_TOL
+    probe = pr.probe_weights_plain(*args[:5], args[5][:, :1].contiguous(), args[6][:1].contiguous(), *args[7:9], cfg)
+    assert (w - probe).abs().max().item() <= K3_TOL
+    pts = pr._ray_points(rays, z)[:1000]
+    sigma, qfeat = pr.point_query_plain(pts, *args[2:9], cfg)
+    q_out = torch.cat(wide_walk_points(pts, *args[2:9], cfg), 1)
+    d = torch.maximum((pr._softplus(q_out[:, 0]) - sigma).abs(), (q_out[:, 1:E] - qfeat).abs().amax(-1))
+    assert (d / torch.clamp_min(torch.maximum(sigma, qfeat.abs().amax(-1)), 1.0)).max().item() <= K4_TOL
