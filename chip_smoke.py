@@ -13,8 +13,10 @@ Phases, one line each:
              the forward, dq and dkv at seven padded widths), of the point
              kernels' sixteen instantiations, their wide walk's five and its
              weight packing, and of K6's thirty-two, its wide walk's four and
-             their packing's two; the build's wall time beside the 45.1 s it
-             took before the wide walk (an H100 at 700 W)
+             their packing's two, and of K1's forward, dq and dkv past head
+             dim 256 (with ptxas' notes on serialized wgmma: none allowed);
+             the build's wall time beside the 45.1 s it took before the wide
+             walk (an H100 at 700 W)
   2 K1       the attention forward kernel vs its plain versions (output
              and log-sum-exp) at the three shapes its paths give it:
              ViT-B/8 @192x640 serving (1, 1921, 12, 64), the training
@@ -361,15 +363,32 @@ Phases, one line each:
              and one render_encode_view of the fp32 fold (K6 fp32); outputs
              finite, of the right shape, depth in [3, 80]; then K2, K3, K4
              and both K6 states against their plain versions on a request's
-             inputs (phases 3-3e's bounds; a code of HIGH_FREQS or more:
-             K6 fp32 to the bf16 bounds, K4's scaled bound on the points at
-             or past z_near). 19b seeded fields at d_hidden 256 with 129
+             inputs (phases 3-3e's bounds, at num_freqs 16 too: the kernels
+             and the plain versions normalize depth with the same float32
+             constants and roundings, core/encoding.zn_constants). 19b seeded fields at d_hidden 256 with 129
              outputs, d_hidden 132, num_freqs 11 (69 code columns), each
              kernel against its plain version at the paths' shapes; on the
              shipped widths K2 and K6 at 512 samples (both depth
              statistics) and K3 at n_probe 320. 19c each new shape's kernel,
              plain and bound times; the phase's wall time against its 60 s
              target
+  20 heads   K1 past head dim 256 (csrc/attention_wide.cu). 20a the
+             forward (with the log-sum-exp), dq and dkv at (2, 1921, H, D)
+             for D 384 / 768 / 512 / 320 / 1280 / 264 (the ViTs of wide
+             heads) against the plain versions, two launches bitwise equal,
+             timed beside SDPA (its backend named) and the bound, CUDA events
+             and device time, and at D 300 (padded to 304) untimed; 20b the
+             flagship serving model (bf16) with vit_overrides num_heads 2 (D
+             384): 3 exact novel-view requests (K1 12 a request, K2), then
+             num_heads 1 (D 768), one request, each model against itself on
+             the CPU (a 64x640 frame encoded: 641 tokens, so the card takes
+             K1; a 32x96 view rendered; phase 4's bounds); 20c one stage-1
+             step of the flagship recipe with num_heads 2 at batch 4 (the
+             wide forward once a student and a teacher block, dq and dkv once
+             a student block, counted exactly; finite, every parameter
+             moves), then num_heads 2 at depth 3 (DPT taps 0, 1, 2), batch 1,
+             64x640 on the card and the CPU (phase 5's bounds); the phase's
+             wall time against its 60 s target
   kernels    one JSON line: launches (all serving paths, training, the
              train run, stage 2, evaluation, phases 9-18 together), error, times and
              bound per kernel (K1 at every other head dim as attention_any,
@@ -383,7 +402,10 @@ Phases, one line each:
              the RE10K recipe's 2305 tokens under "RE10K recipe"; phase 18's
              K2 at 128 and 256 samples, K3 at n_probe 96, K6 at 128 samples
              and at num_freqs 8, K1 at head dims 32 and 128; phase 19's K2,
-             K3, K4 and K6 at each new width, with their launches counted)
+             K3, K4 and K6 at each new width, with their launches counted;
+             K1 past head dim 256 as attention_wide, attention_wide_bwd_dq
+             and attention_wide_bwd_dkv at phase 20a's (2, 1921, 2, 384),
+             its six other shapes under "shapes", SDPA's backend beside)
 The line before the last is the card's name and power limit as
 nvidia-smi prints them; the last line is {"ok": true, "device": {...}}.
 Any failed phase exits non-zero before that line. Needs one CUDA card;
@@ -1026,11 +1048,12 @@ def cameras_of(device):
 
 
 @torch.inference_mode()
-def serve(model, img, u, device):
-    """One novel-view request: encode -> fold -> render the novel camera (no graph)."""
+def serve(model, img, u, device, size=None):
+    """One novel-view request: encode -> fold -> render the novel camera (no
+    graph), at the image's size or at `size` (h, w)."""
     from scenedino_torch.ops.fast_field import build_fast_state, render_novel_view_fused
 
-    h, w = img.shape[-2:]
+    h, w = size or img.shape[-2:]
     Ks, poses = cameras_of(device)
     state = model.encode(img, Ks, poses, ids_encoder=(0,))
     fs = build_fast_state(model, state, compute_dtype=torch.bfloat16)
@@ -5362,12 +5385,13 @@ def phase_long_encode_view(seed):
     return total, shapes
 
 
-def k1_any_shape(gen, B, N, Hh, D, timed=True):
-    """K1 at head dim D through csrc/attention_any.cu: the forward (with the
-    log-sum-exp), dq and dkv against the plain versions, two launches bitwise
-    equal; where `timed`, kernel, plain, SDPA and bound times (CUDA events,
-    and the kernels' device time by the profiler: at these grids SDPA's
-    events read its host); the shape's entry."""
+def k1_any_shape(gen, B, N, Hh, D, timed=True, phase="phase 18c"):
+    """K1 at head dim D through csrc/attention_any.cu (past 256:
+    csrc/attention_wide.cu): the forward (with the log-sum-exp), dq and dkv
+    against the plain versions, two launches bitwise equal; where `timed`,
+    kernel, plain, SDPA and bound times (CUDA events, and the kernels' device
+    time by the profiler: at these grids SDPA's events read its host) and the
+    SDPA backend that ran; the shape's entry."""
     from scenedino_torch.kernels.attention import (
         attention_bwd_dkv,
         attention_bwd_dq,
@@ -5377,7 +5401,8 @@ def k1_any_shape(gen, B, N, Hh, D, timed=True):
         attention_plain,
         route,
     )
-    from scenedino_torch.utils.timing import device_ms, ms_text, time_ms
+    from scenedino_torch.tools.bench_attention_wide import backend_of
+    from scenedino_torch.utils.timing import _kernel_times, device_ms, ms_text, time_ms
 
     q, k, v, do = (torch.randn(B, N, Hh, D, generator=gen, device="cuda").to(torch.bfloat16) for _ in range(4))
     out, lse = attention_fwd(q, k, v, with_lse=True)
@@ -5398,9 +5423,9 @@ def k1_any_shape(gen, B, N, Hh, D, timed=True):
             and all(bool(torch.isfinite(t).all()) for t in (out, dq, dk, dv))):
         fail(f"K1 at head dim {D} ({B}, {N}, {Hh}) disagrees with its plain versions: out {err}, lse {lse_err}, "
              f"dq dk dv {errs} (bounds {bounds})")
-    _, width, pd = route(D)
+    key, width, pd = route(D)
     entry = {"shape": [B, N, Hh, D], "max_abs_err": err, "lse_err": lse_err, "bwd_errs": errs}
-    text = (f"phase 18c K1 at head dim {D} ({B}, {N}, {Hh}, {D}) bf16 (csrc/attention_any.cu, handed {width} "
+    text = (f"{phase} K1 at head dim {D} ({B}, {N}, {Hh}, {D}) bf16 (csrc/attention_{key}.cu, handed {width} "
             f"columns, computing at {pd}): max_abs_err out {err:.3e} (bound {K1_TOL}), lse {lse_err:.3e}, dq "
             f"{errs[0]:.3e}, dk {errs[1]:.3e}, dv {errs[2]:.3e} (bounds {[round(x, 5) for x in bounds]}); two "
             f"launches bitwise equal")
@@ -5424,6 +5449,7 @@ def k1_any_shape(gen, B, N, Hh, D, timed=True):
                            calls=20, tries=6)
     lib_dev_ms = device_ms(lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt), calls=20, tries=6)
     lib_bwd_dev_ms = device_ms(lambda: torch.autograd.grad(sd, (qt, kt, vt), dot, retain_graph=True))
+    backend = backend_of(_kernel_times(lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt))[0])
     if lib_bwd_dev_ms is not None and lib_dev_ms is not None and lib_bwd_dev_ms < lib_dev_ms:
         # the window saw part of the backward's kernels (twenty-call windows did so here at three of
         # four shapes, twice): SDPA's backward recomputes its forward's products, so it is not faster
@@ -5435,14 +5461,14 @@ def k1_any_shape(gen, B, N, Hh, D, timed=True):
     b_dkv, by_dkv = bound_ms(4 * unit, 6 * t_bytes + 2 * s_bytes)
     exp_ms = B * Hh * N * N / PEAK_EXP2 * 1e3  # one exp2 a logit, each kernel
     print(f"{text}; forward {ms:.4f} ms (device {ms_text(dev_ms)}), plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms "
-          f"(device {ms_text(lib_dev_ms)}), bound {b:.4f} ms ({by}; the exp2 {exp_ms:.4f} ms); dq {ms_dq:.4f} ms "
+          f"(device {ms_text(lib_dev_ms)}; {backend}), bound {b:.4f} ms ({by}; the exp2 {exp_ms:.4f} ms); dq {ms_dq:.4f} ms "
           f"(bound {b_dq:.4f}, {by_dq}), dkv {ms_dkv:.4f} ms (bound {b_dkv:.4f}, {by_dkv}), dq + dkv device "
           f"{ms_text(dev_bwd_ms)}, plain backward {plain_bwd_ms:.4f} ms, sdpa backward {lib_bwd_ms:.4f} ms (device "
           f"{ms_text(lib_bwd_dev_ms)})", flush=True)
     return {**entry, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
             "exp2_ms": exp_ms, "library_ms": lib_ms, "library_device_ms": lib_dev_ms, "ms_dq": ms_dq,
             "ms_dkv": ms_dkv, "bwd_device_ms": dev_bwd_ms, "plain_bwd_ms": plain_bwd_ms, "library_bwd_ms": lib_bwd_ms,
-            "library_bwd_device_ms": lib_bwd_dev_ms, "bound_dq_ms": b_dq, "bound_dq_by": by_dq,
+            "library_bwd_device_ms": lib_bwd_dev_ms, "library_backend": backend, "bound_dq_ms": b_dq, "bound_dq_by": by_dq,
             "bound_dkv_ms": b_dkv, "bound_dkv_by": by_dkv}
 
 
@@ -5589,16 +5615,6 @@ WIDE_REQUESTS = 3
 WIDE_OTHERS = (("E 129", 256, 129, 6), ("D 132", 132, 65, 6), ("69 code columns", 128, 65, 11))
 WIDE_SAMPLES = 512
 WIDE_PROBE = 320
-# a code of HIGH_FREQS frequencies or more: at 1.5 x 2^14 or more one ulp of the
-# normalized depth (torch on the card divides by a scalar through its
-# reciprocal, the kernels divide) moves a code argument by ~1e-3 rad. K6 on an
-# fp32 state is then held to the bf16 bounds (as tests/test_torch_kernels.py
-# holds num_freqs 15); K4 holds its scaled bound on the points at or past
-# z_near only: nearer, the normalized inverse depth reaches ~6e3, an ulp of it
-# moves the code's top arguments by tens of radians, and kernel and plain
-# version sample unrelated points of the sines (phase 19a, the wide field:
-# scaled error 1.51e-2 and 3.52 absolute there, 7.81e-3 in [z_near, z_far])
-HIGH_FREQS = 15
 
 
 def wide_model(seed, d_hidden, dino_dims, num_freqs):
@@ -5689,17 +5705,14 @@ def wide_k3(tag, args, cfg):
 
 def wide_k4(tag, args, cfg):
     """K4 against its plain version under phase 3c's rule: in [z_near, z_far]
-    and over each point's largest output (at least 1), each within K4_TOL;
-    at HIGH_FREQS frequencies or more the second on the points at or past
-    z_near."""
+    and over each point's largest output (at least 1), each within K4_TOL."""
     from scenedino_torch.kernels.point_render import point_query, point_query_plain
 
     pts = args[0]
     sigma, feat = point_query(*args, cfg)
     torch.cuda.synchronize()
     in_range = (pts[:, 2] >= cfg.z_near) & (pts[:, 2] <= cfg.z_far)
-    held = pts[:, 2] >= cfg.z_near if cfg.num_freqs >= HIGH_FREQS else torch.ones_like(in_range)
-    err_abs, err_range, err_scaled, err_held, chunk = 0.0, 0.0, 0.0, 0.0, 1 << 17
+    err_abs, err_range, err_scaled, chunk = 0.0, 0.0, 0.0, 1 << 17
     for p0 in range(0, pts.shape[0], chunk):
         ref_s, ref_f = point_query_plain(pts[p0:p0 + chunk], *args[1:], cfg)
         d = torch.maximum((sigma[p0:p0 + chunk] - ref_s).abs(), (feat[p0:p0 + chunk] - ref_f).abs().amax(-1))
@@ -5707,29 +5720,25 @@ def wide_k4(tag, args, cfg):
         err_abs = max(err_abs, d.max().item())
         if bool(in_range[p0:p0 + chunk].any()):
             err_range = max(err_range, d[in_range[p0:p0 + chunk]].max().item())
-        if bool(held[p0:p0 + chunk].any()):
-            err_held = max(err_held, scaled[held[p0:p0 + chunk]].max().item())
         err_scaled = max(err_scaled, scaled.max().item())
     P, (D, E), C = pts.shape[0], args[4].shape, args[2].shape[0]
-    errs = {"in_range": err_range, "scaled": err_scaled, "abs": err_abs, "scaled_held": err_held}
+    errs = {"in_range": err_range, "scaled": err_scaled, "abs": err_abs}
     print(f"phase 19 K4 {tag} ({P} points, D {D}, E {E}, {C} code columns) against its plain version: "
-          f"{json.dumps(errs)} (bound {K4_TOL} in range and scaled on "
-          f"{'the points at or past z_near' if cfg.num_freqs >= HIGH_FREQS else 'every point'})", flush=True)
-    if not (err_range <= K4_TOL and err_held <= K4_TOL and bool(torch.isfinite(sigma).all())
+          f"{json.dumps(errs)} (bound {K4_TOL} in range and scaled)", flush=True)
+    if not (err_range <= K4_TOL and err_scaled <= K4_TOL and bool(torch.isfinite(sigma).all())
             and bool(torch.isfinite(feat).all())):
         fail(f"K4 {tag} disagrees with its plain version: {errs}")
     rows = grid_rows_read(pts, args[1], *args[6:8])
     entry = _entry(f"K4 {tag}", errs, lambda: point_query(*args, cfg), lambda: point_query_plain(*args, cfg),
                    2.0 * P * (C * D + D * E), rows * D * 2 + nbytes(args[0], *args[2:]) + P * E * 4, points=P,
                    d_hidden=D, d_out=E, code_columns=C, grid_rows_read=rows)
-    entry["max_abs_err"] = max(err_range, err_held)
+    entry["max_abs_err"] = max(err_range, err_scaled)
     return entry
 
 
 def wide_k6(tag, args, ecfg):
     """K6 against its plain version (phase 3e's bounds by the state's dtype,
-    the median rule; an fp32 state at HIGH_FREQS frequencies or more to the
-    bf16 bounds)."""
+    the median rule)."""
     from scenedino_torch.kernels.encode_view import encode_view, encode_view_plain
     from scenedino_torch.tools import bench_encode_view as bev
 
@@ -5738,8 +5747,7 @@ def wide_k6(tag, args, ecfg):
     torch.cuda.synchronize()
     ref = encode_view_plain(*args, ecfg)
     errs = {n: (o - r).abs().max().item() for n, o, r in zip(("depth", "feature", "rgb"), out, ref)}
-    bf16_bounds = dtype == torch.bfloat16 or ecfg.num_freqs >= HIGH_FREQS
-    tol = bev.TOL[torch.bfloat16 if bf16_bounds else torch.float32]
+    tol = bev.TOL[dtype]
     extra = {}
     if ecfg.depth_statistic == "median":
         holds, extra["median_flips"] = _median_rule(args[1], out[0], ref[0])
@@ -5924,6 +5932,218 @@ def phase_every_width(seed):
     return counts, shapes
 
 
+# phase 20: K1 past head dim 256 (csrc/attention_wide.cu). 20a: the forward,
+# dq and dkv at WIDE_K1_SHAPES (the ViTs of wide heads: ViT-B/8 with 2 heads
+# and 1, width 1024 with 2, width 1280 with 4 and 1; and D 264, whose fifth
+# 64-column chunk is 8 columns wide) against their plain versions, two
+# launches bitwise equal, timed beside SDPA and the bound, and at
+# WIDE_K1_PADDED (a head dim the wrappers pad to a multiple of 8) untimed;
+# 20b: the flagship serving model (bf16) with vit_overrides num_heads 2 (D
+# 384), WIDE_K1_REQUESTS exact novel-view requests, then num_heads 1 (D 768),
+# one request; each model against itself on the CPU, encoding a frame of
+# WIDE_K1_CHECK (the flagship's width cut to 64 rows: 8 x 80 patches + 1 =
+# 641 tokens, so the card takes K1, which it does from 512 tokens) and
+# rendering phase 4's small 32x96 view of it (a 64x640 render takes the CPU's
+# plain K2 about 4 s); 20c: one stage-1 step of SCENEDINO_KITTI_360_TRAIN with
+# num_heads 2 at its batch 4 on the card, then WIDE_K1_CPU_OVERRIDES at batch
+# 1 and WIDE_K1_CHECK on the card and on the CPU (phase 5's bounds): three
+# blocks, the fewest that give the DPT its three taps (WIDE_K1_CPU_TAPS, as
+# the smoke recipe's)
+WIDE_K1_SHAPES = ((2, 1921, 2, 384), (2, 1921, 1, 768), (2, 1921, 2, 512), (2, 1921, 4, 320), (2, 1921, 1, 1280),
+                  (2, 1921, 2, 264))
+WIDE_K1_PADDED = (2, 1921, 2, 300)
+WIDE_K1_REQUESTS = 3
+WIDE_K1_CHECK = (64, 640)
+WIDE_K1_CPU_OVERRIDES = {"num_heads": 2, "depth": 3}
+WIDE_K1_CPU_TAPS = (0, 1, 2)
+
+
+def phase_wide_k1_kernels(seed):
+    """Phase 20a: K1's three kernels past head dim 256 at WIDE_K1_SHAPES and
+    WIDE_K1_PADDED. Returns the three kernels' entries."""
+    gen = torch.Generator(device="cuda").manual_seed(seed + 2000)
+    shapes = [k1_any_shape(gen, *shape, phase="phase 20a") for shape in WIDE_K1_SHAPES]
+    shapes.append(k1_any_shape(gen, *WIDE_K1_PADDED, timed=False, phase="phase 20a"))
+    main = shapes[0]
+    common = {"route": "cuda", "source": "scenedino_torch/csrc/attention_wide.cu",
+              **{k_: main[k_] for k_ in ("device_ms", "library_device_ms", "bwd_device_ms", "library_bwd_device_ms",
+                                         "library_backend")},
+              "shapes": shapes}
+    return [
+        {"name": "attention_wide", "replaces": "scenedino_tpu/models/vit.py:126",
+         "max_abs_err": max(e["max_abs_err"] for e in shapes),
+         **{k_: main[k_] for k_ in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}, **common},
+        {"name": "attention_wide_bwd_dq", "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:1287",
+         "max_abs_err": max(e["bwd_errs"][0] for e in shapes), "ms": main["ms_dq"], "plain_ms": main["plain_bwd_ms"],
+         "bound_ms": main["bound_dq_ms"], "bound_by": main["bound_dq_by"], "library_ms": main["library_bwd_ms"],
+         **common},
+        {"name": "attention_wide_bwd_dkv", "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:941",
+         "max_abs_err": max(max(e["bwd_errs"][1:]) for e in shapes), "ms": main["ms_dkv"],
+         "plain_ms": main["plain_bwd_ms"], "bound_ms": main["bound_dkv_ms"], "bound_by": main["bound_dkv_by"],
+         "library_ms": main["library_bwd_ms"], **common},
+    ]
+
+
+def phase_wide_k1_serving(seed):
+    """Phase 20b: the flagship serving model with heads of 384 (then 768)
+    through the exact novel view, the counts zeroed before each model's
+    requests and read after them; then each model against itself on the CPU
+    at WIDE_K1_CHECK (phase 4's bounds). Returns the launches."""
+    from scenedino_torch.kernels.attention import route
+    from scenedino_torch.models.factory import SCENEDINO_KITTI_360, make_model
+
+    total = {}
+    for heads, n_req in ((2, WIDE_K1_REQUESTS), (1, 1)):
+        conf = {**SCENEDINO_KITTI_360}
+        conf["encoder"] = {**conf["encoder"], "dtype": "bfloat16", "vit_overrides": {"num_heads": heads}}
+        model = make_model(conf, device="cuda", seed=seed)
+        vit = model.encoder.vit_encoder.vit.cfg
+        D = vit.width // vit.num_heads
+        if route(D)[0] != "wide":
+            fail(f"phase 20b: head dim {D} does not take csrc/attention_wide.cu")
+        reqs = []
+        for i in range(n_req):
+            g = torch.Generator(device="cuda").manual_seed(seed + 2010 + 10 * heads + i)
+            img = torch.rand(1, 1, 3, H, W, generator=g, device="cuda") * 2 - 1
+            reqs.append((img, torch.rand(H * W, K, generator=g, device="cuda"), "cuda"))
+        name = f"novel-view at D {D}"
+        counts, times = run_path(f"20b {name}", reqs, lambda *r: serve(model, *r),
+                                 lambda *o: check_depth(f"20b {name}", *o),
+                                 {"attention_wide": (vit.depth, True), "point_render": (1, True)})
+        for k_, n in counts.items():
+            total[k_] = total.get(k_, 0) + n
+        print(f"phase 20b {name} (ViT-B/8, {vit.num_heads} heads of {D}, bf16): {n_req} requests at {H}x{W}, ms per "
+              f"request {[round(t, 3) for t in times]}; launches "
+              f"{json.dumps({k_: n for k_, n in counts.items() if n})}", flush=True)
+
+        g = torch.Generator().manual_seed(seed + 2030 + heads)
+        h, w = WIDE_K1_CHECK
+        img = torch.rand(1, 1, 3, h, w, generator=g) * 2 - 1
+        u = torch.rand(32 * 96, K, generator=g)
+        out, small = _driven(lambda: serve(model, img.cuda(), u.cuda(), "cuda", size=(32, 96)))
+        gpu = [t.float().cpu() for t in out]
+        cpu_model = copy.deepcopy(model).to("cpu")
+        t0 = time.perf_counter()
+        cpu = [t.float() for t in serve(cpu_model, img, u, "cpu", size=(32, 96))]
+        cpu_s = time.perf_counter() - t0
+        rel = ((gpu[0] - cpu[0]).abs() / cpu[0]).max().item()
+        cos = torch.nn.functional.cosine_similarity(gpu[1].reshape(-1, 64), cpu[1].reshape(-1, 64),
+                                                    dim=-1).median().item()
+        tokens = 1 + (h // vit.patch_size) * (w // vit.patch_size)
+        print(f"phase 20b small-input check at D {D} ({h}x{w} encoded, {tokens} tokens, 32x96 rendered; GPU kernels, "
+              f"{small['attention_wide']} wide K1 launches, vs CPU plain, bf16; the CPU {cpu_s:.1f} s): depth max rel "
+              f"err {rel:.3e} (bound {SLICE_DEPTH_REL}), feature median cosine {cos:.6f} (bound {SLICE_COS})",
+              flush=True)
+        if not (small["attention_wide"] == vit.depth and rel <= SLICE_DEPTH_REL and cos >= SLICE_COS):
+            fail(f"the GPU novel view at D {D} did not take the wide K1 or disagrees with the CPU on the small input")
+        del model, cpu_model
+    return total
+
+
+def phase_wide_k1_train(seed):
+    """Phase 20c: one stage-1 step of the flagship recipe with heads of 384
+    through trainer.make_train_step at its batch (the wide forward once a
+    student and a teacher block, dq and dkv once a student block), then
+    WIDE_K1_CPU_OVERRIDES at batch 1 and WIDE_K1_CHECK on the card and the
+    CPU. Returns the launches of the step."""
+    from scenedino_torch.models.factory import SCENEDINO_KITTI_360_TRAIN, make_model
+    from scenedino_torch.training import trainer
+
+    conf = copy.deepcopy(SCENEDINO_KITTI_360_TRAIN)
+    conf["model"]["encoder"]["vit_overrides"] = {"num_heads": 2}
+    model_conf, tcfg, rcfg, lcfg = trainer.configs_from_dict(conf)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 2040)
+    model = make_model(model_conf, device="cuda", seed=seed, training=True)
+    enc = model.encoder
+    B, V, gp = conf["batch_size"], 4, enc.gt_patch_size
+    vit = enc.vit_encoder.vit.cfg
+    blocks, t_blocks = vit.depth, enc.gt_encoder.vit.cfg.depth
+    state = trainer.init_train_state(model, tcfg, artifact_shape=(enc.gt_encoder.latent_size, H // gp, W // gp),
+                                     generator=gen)
+    step = trainer.make_train_step(model, tcfg, rcfg, lcfg)
+    batch = train_batch(gen, B, H, W, "cuda")
+    draws = trainer.draw_stage1(gen, tcfg, rcfg, B, V, H, W, gp)
+    trainable = [p for group in state.optimizer.param_groups for p in group["params"]]
+    before = [p.detach().clone() for p in trainable] + [state.artifact_field.detach().clone()]
+    t0 = time.perf_counter()
+    losses, counts = _driven(lambda: step(state, batch, draws))
+    ms = (time.perf_counter() - t0) * 1e3
+    loss = float(losses["rec_loss"])
+    unchanged = sum(torch.equal(a, p) for a, p in zip(before, trainable + [state.artifact_field]))
+    print(f"phase 20c stage-1 step with heads of {vit.width // vit.num_heads} (configs/train_scenedino_kitti_360.yaml's "
+          f"model, vit_overrides num_heads 2; bf16, {H}x{W}, batch {B}, V = {V}): loss {loss:.6f}, {ms:.1f} host ms "
+          f"(the first step: cuDNN's search and the kernels' load), {len(before) - unchanged} of {len(before)} "
+          f"tensors moved, applied {state.applied}; launches {json.dumps({k_: n for k_, n in counts.items() if n})}",
+          flush=True)
+    if not (np.isfinite(loss) and state.applied == 1 and losses["nonfinite_consecutive"] == 0 and unchanged == 0):
+        fail("the stage-1 step with heads of 384 was not finite and applied, or a parameter did not move")
+    _expect_launches("the stage-1 step with heads of 384", counts, {
+        "attention_wide": blocks + t_blocks, "attention_wide_bwd_dq": blocks, "attention_wide_bwd_dkv": blocks})
+    del state, step, model, before, trainable
+
+    # the same widths three blocks deep at batch 1: the card's kernels against the CPU's plain versions
+    conf["model"]["encoder"].update(vit_overrides=dict(WIDE_K1_CPU_OVERRIDES), intermediate_features=WIDE_K1_CPU_TAPS)
+    model_conf, tcfg, rcfg, lcfg = trainer.configs_from_dict(conf)
+    model = make_model(model_conf, device="cuda", seed=seed, training=True)
+    enc = model.encoder
+    h, w = WIDE_K1_CHECK
+    gc = torch.Generator().manual_seed(seed + 2050)
+    small = train_batch(gc, 1, h, w, "cpu")
+    sdraws = trainer.draw_stage1(gc, tcfg, rcfg, 1, V, h, w, gp)
+    art = 1e-3 * torch.randn(enc.gt_encoder.latent_size, h // gp, w // gp, generator=gc)
+
+    def one_step(m, device):
+        m.zero_grad(set_to_none=True)
+        a = art.to(device).requires_grad_(True)
+        d = dataclasses.replace(sdraws, **{f: getattr(sdraws, f).to(device) for f in ("pv", "py", "px", "u")})
+        loss_, _ = trainer.stage1_forward(m, {k_: v.to(device) for k_, v in small.items()}, d, tcfg, rcfg, lcfg, a)
+        loss_.backward()
+        grads = {n: p.grad.float().cpu() for n, p in m.named_parameters() if p.grad is not None}
+        grads["artifact_field"] = a.grad.float().cpu()
+        return loss_.item(), grads
+
+    (gpu_loss, gpu_grads), small_counts = _driven(lambda: one_step(model, "cuda"))
+    t0 = time.perf_counter()
+    cpu_loss, cpu_grads = one_step(copy.deepcopy(model).to("cpu"), "cpu")
+    cpu_s = time.perf_counter() - t0
+    loss_rel = abs(gpu_loss - cpu_loss) / abs(cpu_loss)
+    if sorted(gpu_grads) != sorted(cpu_grads):
+        fail("the GPU and CPU steps with heads of 384 gave gradients to different parameters")
+    errs = {n: (torch.linalg.vector_norm(gpu_grads[n] - r) / torch.linalg.vector_norm(r)).item()
+            for n, r in cpu_grads.items() if torch.linalg.vector_norm(r) > 0}
+    worst = max(errs, key=errs.get)
+    depth = WIDE_K1_CPU_OVERRIDES["depth"]
+    print(f"phase 20c small-step check ({json.dumps(WIDE_K1_CPU_OVERRIDES)}, {h}x{w}, batch 1, GPU kernels vs CPU "
+          f"plain, bf16; the CPU {cpu_s:.1f} s): launches {json.dumps({k_: n for k_, n in small_counts.items() if n})}; "
+          f"loss {gpu_loss:.6f} vs {cpu_loss:.6f}, rel err {loss_rel:.3e} (bound {TRAIN_LOSS_REL}); gradients of "
+          f"{len(errs)} tensors, relative L2 error median {float(np.median(list(errs.values()))):.3e}, worst "
+          f"{errs[worst]:.3e} ({worst}; bound {TRAIN_GRAD_REL})", flush=True)
+    _expect_launches("the small step with heads of 384", small_counts, {
+        "attention_wide": 2 * depth, "attention_wide_bwd_dq": depth, "attention_wide_bwd_dkv": depth})
+    if not (np.isfinite(gpu_loss) and loss_rel <= TRAIN_LOSS_REL and errs[worst] <= TRAIN_GRAD_REL):
+        fail("the GPU training step with heads of 384 disagrees with the CPU on the small input")
+    return counts
+
+
+def phase_wide_head_dims(seed):
+    """Phase 20: K1 past head dim 256. Returns (the launches of 20b's paths
+    and 20c's step, the three kernels' entries)."""
+    from scenedino_torch.utils.timing import card_line
+
+    t = [time.perf_counter()]
+    entries = phase_wide_k1_kernels(seed)
+    t.append(time.perf_counter())
+    serving = phase_wide_k1_serving(seed)
+    t.append(time.perf_counter())
+    step = phase_wide_k1_train(seed)
+    t.append(time.perf_counter())
+    counts = {k_: serving.get(k_, 0) + step.get(k_, 0) for k_ in serving}
+    parts = {f"20{c}": round(b - a, 1) for c, a, b in zip("abc", t, t[1:])}
+    print(f"phase 20 launches {json.dumps(counts)}; wall time {t[-1] - t[0]:.1f} s (target 60 s; "
+          f"{json.dumps(parts)}); {card_line()}", flush=True)
+    return counts, entries
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -5934,7 +6154,7 @@ def main():
     try:
         from scenedino_torch import kernels
         from scenedino_torch.kernels import build
-        from scenedino_torch.tools import bench_attention_bwd, bench_encode_view
+        from scenedino_torch.tools import bench_attention_bwd, bench_attention_wide, bench_encode_view
         from scenedino_torch.utils.timing import card_line
     except ImportError as e:
         fail(f"scenedino_torch is not importable ({e}): run from a checkout of the repository")
@@ -5980,6 +6200,15 @@ def main():
           f"then takes the producer's) and spills in bytes: {json.dumps(anyk)}", flush=True)
     if len(anyk) != ANY_KERNELS or any(r.get("spill_stores", 1) or r.get("spill_loads", 1) for r in anyk.values()):
         fail(f"ptxas spilled in csrc/attention_any.cu, or a report is missing ({len(anyk)} of {ANY_KERNELS}): {anyk}")
+    # K1 past head dim 256: one forward, dq and dkv (csrc/attention_wide.cu)
+    wide_log = build.build_log("attention_wide")
+    widek, wide_notes = bench_attention_wide.wide_report(wide_log), bench_attention_wide.wgmma_notes(wide_log)
+    print(f"phase 1 K1 kernels past head dim 256 (csrc/attention_wide.cu: the forward, dq and dkv, output columns in "
+          f"groups of {json.dumps(bench_attention_wide.GROUPS)} 64-column chunks; built in "
+          f"{secs['attention_wide']:.1f} s), registers at launch and spills in bytes: {json.dumps(widek)}; ptxas notes "
+          f"on wgmma {wide_notes}", flush=True)
+    if bench_attention_wide.spilled(widek) or wide_notes:
+        fail(f"ptxas spilled or serialized wgmma in csrc/attention_wide.cu, or a report is missing: {widek} {wide_notes}")
     # the point kernels (K2, K3, K4) in each of their hidden and output widths: mode, DC, EC, ET; the wide walk's
     pk = {}
     for name, r in build.ptxas_report(build.build_log("point_render")).items():
@@ -6025,9 +6254,10 @@ def main():
         port_rest = phase_port_rest(args.seed, stage2_dir, scratch)
     every_shape, long_shapes, any_entries = phase_every_shape(args.seed)
     every_width, wide_shapes = phase_every_width(args.seed)
-    entries += any_entries
+    wide_heads, wide_entries = phase_wide_head_dims(args.seed)
+    entries += any_entries + wide_entries
     paths = (serving, training, train_run, stage2, stage2_conv, evaluation, reference, kitti, d80_paths, re10k,
-             branches, dinov2, serving_rest, multi, eval_rest, port_rest, every_shape, every_width)
+             branches, dinov2, serving_rest, multi, eval_rest, port_rest, every_shape, every_width, wide_heads)
     for e in entries:
         for extra in (long_shapes, wide_shapes):
             if e["name"] in extra:
@@ -6060,7 +6290,7 @@ def main():
         fail("the kernels line does not list every kernel")
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms", "device_ms", "library_device_ms", "bwd_device_ms",
-            "library_bwd_device_ms", "shapes"]
+            "library_bwd_device_ms", "library_backend", "shapes"]
     print(json.dumps({"kernels": [{k: e[k] for k in keys if k in e} for e in entries]}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

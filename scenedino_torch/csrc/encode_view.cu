@@ -14,8 +14,9 @@
 //   zscale_r     = camera z per unit of distance (1 for code_mode distance)
 //
 // and the kernel computes, per sample,
-//   zn  = 2 ((1 / max(z zscale, 1e-3) - 1/far) / (1/near - 1/far)) - 1
-//         (or the linear normalization without inv_z),
+//   zn  = fma(1 / max(z zscale, 1e-3) - 1/far, 2 / (1/near - 1/far), -1)
+//         with the constants in float32 (jitted XLA's folding of the JAX
+//         package's normalize_z; or the linear normalization without inv_z),
 //   code = [zn?, sin(f_0 zn), sin(f_0 zn + pi/2), sin(f_1 zn), ...]
 //         (13 columns at 6 frequencies with the input; sinf, not __sinf:
 //         the arguments reach ~100 rad),
@@ -171,7 +172,7 @@ struct Params {
   float* dino;          // (N, E - 1)
   float* rgb;           // (N, 3)
   int N, K, kshift, nseg, D, E, Cz, num_freqs, include_input, inv_z, hard_cap, median;  // nseg: tiles a ray
-  float zn_sub, zn_den, freq_factor;
+  float zn_sub, zn_scale, freq_factor;
   int vec, units;                       // a base row copied in 16-byte (vec) or 4-byte units, `units` a row
   uint32_t inv_units, inv_k, inv_f;     // reciprocal() of units, K and E - 1
 };
@@ -237,9 +238,9 @@ __device__ __forceinline__ float weight_at(const void* w, int i, int tf32) {
 
 __device__ __forceinline__ float normalized_depth(const Params& P, float z, float zscale) {
   const float dl = __fmul_rn(z, zscale);
-  const float zn01 = P.inv_z ? __fdiv_rn(__fsub_rn(__fdiv_rn(1.f, fmaxf(dl, EPS)), P.zn_sub), P.zn_den)
-                             : __fdiv_rn(__fsub_rn(dl, P.zn_sub), P.zn_den);
-  return __fsub_rn(__fmul_rn(2.f, zn01), 1.f);
+  // as jitted XLA computes the JAX package's normalize_z: one rounding for the multiply-add
+  const float zx = P.inv_z ? __fdiv_rn(1.f, fmaxf(dl, EPS)) : dl;
+  return __fmaf_rn(__fsub_rn(zx, P.zn_sub), P.zn_scale, -1.f);
 }
 
 // z-code column c of normalized depth zn: zn (c = 0 with the input),
@@ -1134,14 +1135,14 @@ int wide_bytes(const Params& P, long long* packed, long long* scratch) {
 Params make_params(const void* base, const void* z, const void* zscale, const void* w_z, const void* w2,
                    const void* b2, const void* color, void* depth, void* dino, void* rgb, long long N, int K, int D,
                    int E, int Cz, int num_freqs, int include_input, int inv_z, int hard_cap, int median,
-                   float zn_sub, float zn_den, float freq_factor) {
+                   float zn_sub, float zn_scale, float freq_factor) {
   const int kshift = K <= 8 ? 3 : (K <= 16 ? 4 : (K <= 32 ? 5 : 6));  // Kp = 2^kshift; 64 past 64 samples
   const int vec = D % 4 == 0 && (reinterpret_cast<uintptr_t>(base) & 15) == 0;
   const int units = vec ? D / 4 : D;
   return {(const float*)base, (const float*)z, (const float*)zscale, w_z, w2, (const float*)b2,
           (const float*)color, (float*)depth, (float*)dino, (float*)rgb,
           (int)N, K, kshift, (K + TP - 1) / TP, D, E, Cz, num_freqs, include_input, inv_z, hard_cap, median,
-          zn_sub, zn_den, freq_factor, vec, units, reciprocal(units), reciprocal(K), reciprocal(E - 1)};
+          zn_sub, zn_scale, freq_factor, vec, units, reciprocal(units), reciprocal(K), reciprocal(E - 1)};
 }
 
 }  // namespace
@@ -1155,12 +1156,12 @@ extern "C" int encode_view(
     const void* color, void* depth, void* dino, void* rgb, void* packed, void* scratch,
     long long N, int K, int D, int E, int Cz, int bf16,
     int num_freqs, int include_input, int inv_z, int hard_cap, int median,
-    float zn_sub, float zn_den, float freq_factor, void* stream) {
+    float zn_sub, float zn_scale, float freq_factor, void* stream) {
   if (N <= 0 || N > INT_MAX - TP || K <= 0 || D <= 0 || E < 2 || Cz <= 0 ||
       Cz != (include_input ? 1 : 0) + 2 * num_freqs)
     return (int)cudaErrorInvalidValue;
   const Params P = make_params(base, z, zscale, w_z, w2, b2, color, depth, dino, rgb, N, K, D, E, Cz, num_freqs,
-                               include_input, inv_z, hard_cap, median, zn_sub, zn_den, freq_factor);
+                               include_input, inv_z, hard_cap, median, zn_sub, zn_scale, freq_factor);
   return bf16 ? launch_any<0>(P, packed, scratch, stream) : launch_any<1>(P, packed, scratch, stream);
 }
 

@@ -176,7 +176,7 @@ struct Params {
   float* out;                   // weights (R, K) PROBE; sigma (R,) QUERY
   int R, K, Hg, Wg, D, E, C, Hc, Wc;
   int num_freqs, include_input, inv_z, code_distance, hard_cap, median;
-  float zn_sub, zn_den, freq_factor;
+  float zn_sub, zn_scale, freq_factor;
 };
 
 // Shared memory of a block: DC hidden chunks of 64, EC output chunks of 64
@@ -328,9 +328,10 @@ __device__ __forceinline__ void setup_row(const Params& P, const float* cam, int
   float x, y, zc, pc[3];
   project(cam, pt, x, y, zc, pc);
   const float dl = P.code_distance ? sqrtf(pc[0] * pc[0] + pc[1] * pc[1] + pc[2] * pc[2]) : zc;
-  const float zn01 = P.inv_z ? __fdiv_rn(__fsub_rn(__fdiv_rn(1.f, fmaxf(dl, EPS)), P.zn_sub), P.zn_den)
-                             : __fdiv_rn(__fsub_rn(dl, P.zn_sub), P.zn_den);
-  in = make_float3(x, y, __fsub_rn(__fmul_rn(2.f, zn01), 1.f));
+  // the normalized depth as jitted XLA computes the JAX package's normalize_z
+  // (kernels/point_render.py `_config_args`): one rounding for the multiply-add
+  const float zx = P.inv_z ? __fdiv_rn(1.f, fmaxf(dl, EPS)) : dl;
+  in = make_float3(x, y, __fmaf_rn(__fsub_rn(zx, P.zn_sub), P.zn_scale, -1.f));
 
   // feature-grid corners (no weight collapse: coinciding corners blend to the corner)
   const float px = to_pixel(x, Wg), py = to_pixel(y, Hg);
@@ -1246,7 +1247,7 @@ extern "C" int point_render(
     void* depth, void* dino, void* rgb, void* packed, void* scratch,
     int R, int K, int Hg, int Wg, int D, int E, int C, int Hc, int Wc,
     int num_freqs, int include_input, int inv_z, int code_distance, int hard_cap, int median,
-    float zn_sub, float zn_den, float freq_factor, void* stream) {
+    float zn_sub, float zn_scale, float freq_factor, void* stream) {
   if (bad_field(R, K, D, E, C, num_freqs, include_input, 2)) return (int)cudaErrorInvalidValue;
   Params P = {(const float*)rays, (const float*)z, (const __nv_bfloat16*)grid,
               (const __nv_bfloat16*)w_code, (const float*)b1, (const __nv_bfloat16*)w2,
@@ -1255,7 +1256,7 @@ extern "C" int point_render(
               (float*)depth, (float*)dino, (float*)rgb, nullptr,
               R, K, Hg, Wg, D, E, C, Hc, Wc,
               num_freqs, include_input, inv_z, code_distance, hard_cap, median,
-              zn_sub, zn_den, freq_factor};
+              zn_sub, zn_scale, freq_factor};
   return launch_any<RENDER>(P, packed, scratch, stream);
 }
 
@@ -1266,7 +1267,7 @@ extern "C" int probe_weights(
     const void* w2, const void* b2, const void* feat_w2c, const void* feat_k, void* weights, void* packed,
     void* scratch, int R, int K, int Hg, int Wg, int D, int C,
     int num_freqs, int include_input, int inv_z, int code_distance, int hard_cap,
-    float zn_sub, float zn_den, float freq_factor, void* stream) {
+    float zn_sub, float zn_scale, float freq_factor, void* stream) {
   if (bad_field(R, K, D, 1, C, num_freqs, include_input, 1)) return (int)cudaErrorInvalidValue;
   Params P = {(const float*)rays, (const float*)z, (const __nv_bfloat16*)grid,
               (const __nv_bfloat16*)w_code, (const float*)b1, (const __nv_bfloat16*)w2,
@@ -1274,7 +1275,7 @@ extern "C" int probe_weights(
               nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, (float*)weights,
               R, K, Hg, Wg, D, 1, C, 0, 0,
               num_freqs, include_input, inv_z, code_distance, hard_cap, 0,
-              zn_sub, zn_den, freq_factor};
+              zn_sub, zn_scale, freq_factor};
   return launch_any<PROBE>(P, packed, scratch, stream);
 }
 
@@ -1284,7 +1285,7 @@ extern "C" int point_query(
     const void* b2, const void* feat_w2c, const void* feat_k, void* sigma, void* feat, void* packed, void* scratch,
     int R, int Hg, int Wg, int D, int E, int C,
     int num_freqs, int include_input, int inv_z, int code_distance,
-    float zn_sub, float zn_den, float freq_factor, void* stream) {
+    float zn_sub, float zn_scale, float freq_factor, void* stream) {
   if (bad_field(R, 1, D, E, C, num_freqs, include_input, 2)) return (int)cudaErrorInvalidValue;
   Params P = {(const float*)pts, nullptr, (const __nv_bfloat16*)grid,
               (const __nv_bfloat16*)w_code, (const float*)b1, (const __nv_bfloat16*)w2,
@@ -1292,7 +1293,7 @@ extern "C" int point_query(
               nullptr, nullptr, nullptr, nullptr, (float*)feat, nullptr, (float*)sigma,
               R, 1, Hg, Wg, D, E, C, 0, 0,
               num_freqs, include_input, inv_z, code_distance, 0, 0,
-              zn_sub, zn_den, freq_factor};
+              zn_sub, zn_scale, freq_factor};
   return launch_any<QUERY>(P, packed, scratch, stream);
 }
 

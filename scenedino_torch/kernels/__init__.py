@@ -3,12 +3,13 @@
 Each wrapper launches its kernel for CUDA tensors (or raises) and takes
 its plain PyTorch version for CPU tensors. Each keeps `launches`, the
 number of kernel launches it made, so a run can show that its path went
-through the kernel; K1's wrappers keep the counts of the D = 80 kernels and
-of the kernels of every other head dim apart.
+through the kernel; K1's wrappers keep the counts of the D = 80 kernels, of
+the kernels of every other head dim to 256 and of those past 256 apart.
 """
 from scenedino_torch.kernels.attention import (
     ANY_COUNTS,
     D80_COUNTS,
+    WIDE_COUNTS,
     attention,
     attention_bwd_dkv,
     attention_bwd_dq,
@@ -23,6 +24,7 @@ WRAPPERS = {
     "attention_bwd_dkv": attention_bwd_dkv,
     **D80_COUNTS,
     **ANY_COUNTS,
+    **WIDE_COUNTS,
     "point_render": point_render,
     "probe_weights": probe_weights,
     "point_query": point_query,

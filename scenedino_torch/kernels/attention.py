@@ -17,7 +17,12 @@ other head dim up to 256 (D = 32 in the ViTs of the configs'
 `vit_overrides`, 8 and 16 in the JAX package's tests) they launch the three
 kernels of `csrc/attention_any.cu` (`ANY_COUNTS`): the same design on a row
 of ceil(D / 64) whole 64-column tiles, whose columns past D TMA fills with
-zeros, at the padded widths 64, 128, 192 and 256. Where D % 8 != 0 the
+zeros, at the padded widths 64, 128, 192 and 256. Past 256 (a ViT of
+`vit_overrides` with wide heads: ViT-B/8 with 2 heads has D = 384) they
+launch the three kernels of `csrc/attention_wide.cu` (`WIDE_COUNTS`): the
+output columns in groups of 256 (dK and dV: 128) a block, each group
+recomputing the products over the whole head dim, every operand streamed
+through one ring in 64-column chunks. Where D % 8 != 0 the
 wrappers zero-pad q, k, v (and o, dO) to the next multiple of 8 with one
 copy each, launch those kernels at the true D's softmax scale and cut the
 results back to D (`route` names each head dim's kernels and widths).
@@ -38,24 +43,25 @@ from scenedino_torch.kernels import build
 
 # the head dims with kernels of their own: 64 (attention.cu, attention_bwd.cu)
 # and 80 (attention_d80.cu, attention_d80_bwd.cu); every other head dim up to
-# MAX_HEAD_DIM takes attention_any.cu
+# ANY_MAX_HEAD_DIM, attention_any.cu's widest, takes attention_any.cu, and
+# every one past it attention_wide.cu
 HEAD_DIMS = (64, 80)
-MAX_HEAD_DIM = 256
+ANY_MAX_HEAD_DIM = 256
 
 
 def route(D: int) -> Tuple[object, int, int]:
     """The kernels that K1 launches at head dim D: (their key in `_KERNELS`,
     the width the wrappers hand them, the width they compute at). D = 64
-    and 80 take their own; every other D up to MAX_HEAD_DIM takes
-    attention_any.cu, handed D rounded up to a multiple of 8 (zero columns
-    added by the wrappers) and computing at the next multiple of 64 (zero
-    columns added by TMA)."""
-    if not 0 < D <= MAX_HEAD_DIM:
-        raise ValueError(f"the CUDA attention kernels take a head dim of at most {MAX_HEAD_DIM}, got {D}")
+    and 80 take their own; every other D up to ANY_MAX_HEAD_DIM takes
+    attention_any.cu and every D past it attention_wide.cu, each handed D
+    rounded up to a multiple of 8 (zero columns added by the wrappers) and
+    computing at the next multiple of 64 (zero columns added by TMA)."""
+    if D <= 0:
+        raise ValueError(f"a head dim is positive, got {D}")
     if D in HEAD_DIMS:
         return D, D, D
     aligned = -(-D // 8) * 8
-    return "any", aligned, -(-aligned // 64) * 64
+    return "any" if D <= ANY_MAX_HEAD_DIM else "wide", aligned, -(-aligned // 64) * 64
 
 
 def _scores(q: torch.Tensor, k: torch.Tensor, scale: Optional[float] = None) -> torch.Tensor:
@@ -128,12 +134,8 @@ def _check_cuda(*ts: torch.Tensor) -> None:
     q = ts[0]
     if q.device.type != "cuda":
         raise ValueError(f"attention runs on cuda or cpu tensors, got {q.device}")
-    D = q.shape[-1]
-    if q.dtype != torch.bfloat16 or D > MAX_HEAD_DIM:
-        raise ValueError(
-            f"the CUDA attention kernels take bf16 with a head dim of at most {MAX_HEAD_DIM}, "
-            f"got {q.dtype} with head dim {D}"
-        )
+    if q.dtype != torch.bfloat16:
+        raise ValueError(f"the CUDA attention kernels take bf16, got {q.dtype}")
     if not all(t.is_contiguous() for t in ts):
         raise ValueError("the CUDA attention kernels take contiguous tensors")
     _check_aligned(*ts)
@@ -265,12 +267,14 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor
 attention.launches = 0
 attention_bwd_dq.launches = 0
 attention_bwd_dkv.launches = 0
-# the launch counts of the D = 80 kernels and of the kernels of every other
-# head dim, which the same three wrappers launch
+# the launch counts of the D = 80 kernels, of the kernels of every other head
+# dim to 256 and of those past it, which the same three wrappers launch
 D80_COUNTS = {name: SimpleNamespace(launches=0)
               for name in ("attention_d80", "attention_d80_bwd_dq", "attention_d80_bwd_dkv")}
 ANY_COUNTS = {name: SimpleNamespace(launches=0)
               for name in ("attention_any", "attention_any_bwd_dq", "attention_any_bwd_dkv")}
+WIDE_COUNTS = {name: SimpleNamespace(launches=0)
+               for name in ("attention_wide", "attention_wide_bwd_dq", "attention_wide_bwd_dkv")}
 # (library, C function, launch count) of each step of K1 at each head dim
 _KERNELS = {
     64: {"fwd": ("attention", "attention_fwd", attention),
@@ -282,4 +286,7 @@ _KERNELS = {
     "any": {"fwd": ("attention_any", "attention_any_fwd", ANY_COUNTS["attention_any"]),
             "bwd_dq": ("attention_any", "attention_any_bwd_dq", ANY_COUNTS["attention_any_bwd_dq"]),
             "bwd_dkv": ("attention_any", "attention_any_bwd_dkv", ANY_COUNTS["attention_any_bwd_dkv"])},
+    "wide": {"fwd": ("attention_wide", "attention_wide_fwd", WIDE_COUNTS["attention_wide"]),
+             "bwd_dq": ("attention_wide", "attention_wide_bwd_dq", WIDE_COUNTS["attention_wide_bwd_dq"]),
+             "bwd_dkv": ("attention_wide", "attention_wide_bwd_dkv", WIDE_COUNTS["attention_wide_bwd_dkv"])},
 }

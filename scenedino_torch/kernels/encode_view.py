@@ -98,13 +98,6 @@ def _check(base, z, zscale, w_z, w2, b2, color, cfg: EncodeViewConfig) -> None:
         raise ValueError(f"depth_statistic must be 'expectation' or 'median', got {cfg.depth_statistic!r}")
 
 
-def _zn_consts(cfg: EncodeViewConfig):
-    """normalized depth = (x - zn_sub) / zn_den, x = 1 / depth under inv_z."""
-    if cfg.inv_z:
-        return 1.0 / cfg.z_far, 1.0 / cfg.z_near - 1.0 / cfg.z_far
-    return cfg.z_near, cfg.z_far - cfg.z_near
-
-
 def encode_view(base, z, zscale, w_z, w2, b2, color, cfg: EncodeViewConfig):
     """Render N rays of encode-view pixels from their per-pixel preamble (K6).
 
@@ -158,12 +151,12 @@ def encode_view(base, z, zscale, w_z, w2, b2, color, cfg: EncodeViewConfig):
     depth = torch.empty(N, device=device, dtype=torch.float32)
     dino = torch.empty(N, E - 1, device=device, dtype=torch.float32)
     rgb = torch.empty(N, 3, device=device, dtype=torch.float32)
-    zn_sub, zn_den = _zn_consts(cfg)
+    zn_sub, zn_scale = encoding.zn_constants(cfg.z_near, cfg.z_far, cfg.inv_z)
     fn = build.function("encode_view", "encode_view", ARGTYPES)
     err = build.call_on_stream(
         fn, device, *(None if t is None else t.data_ptr() for t in (*tensors, depth, dino, rgb, *wide)),
         N, K, D, E, cfg.code_dims, bf16, cfg.num_freqs, int(cfg.include_input),
-        int(cfg.inv_z), int(cfg.hard_alpha_cap), int(cfg.depth_statistic == "median"), zn_sub, zn_den,
+        int(cfg.inv_z), int(cfg.hard_alpha_cap), int(cfg.depth_statistic == "median"), zn_sub, zn_scale,
         cfg.freq_factor)
     if err != 0:
         raise RuntimeError(f"encode_view kernel launch failed: cudaError {err}")

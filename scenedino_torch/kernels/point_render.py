@@ -222,14 +222,10 @@ def _cuda_ready(name: str, bf16: dict, f32: dict) -> None:
 
 def _field_consts(cfg: PointRenderConfig):
     """(num_freqs, include_input, inv_z, code_distance) as ints and
-    (zn_sub, zn_den, freq_factor): normalized depth = (x - zn_sub) / zn_den
-    with x = 1/depth under inv_z."""
-    if cfg.inv_z:
-        zn_sub, zn_den = 1.0 / cfg.z_far, 1.0 / cfg.z_near - 1.0 / cfg.z_far
-    else:
-        zn_sub, zn_den = cfg.z_near, cfg.z_far - cfg.z_near
+    (zn_sub, zn_scale, freq_factor): normalized depth = fma(x - zn_sub,
+    zn_scale, -1) with x = 1/depth under inv_z (`encoding.zn_constants`)."""
     ints = (cfg.num_freqs, int(cfg.include_input), int(cfg.inv_z), int(cfg.code_mode == "distance"))
-    return ints, (zn_sub, zn_den, cfg.freq_factor)
+    return ints, (*encoding.zn_constants(cfg.z_near, cfg.z_far, cfg.inv_z), cfg.freq_factor)
 
 
 def _wide_buffers(entry: str, device, R: int, K: int, D: int, E: int, C: int, out_bytes: int):

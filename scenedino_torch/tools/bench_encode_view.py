@@ -16,8 +16,9 @@ stage-2 recipe's fp32 state of 4 frames at 32 samples, and as the bf16
 serving state of one frame at configs/train_synthetic_convergence.yaml's
 n_coarse of 48. Expectation depth, then the weight-median depth. Then the
 serving render stage split into its torch preamble and K6. `--parent`
-adds a source from before the wide walk (its entry takes no packed-weight
-and scratch buffers): the ptxas lines of its kernels against the port's
+adds a source from before the normalized depth took jitted XLA's rounding
+(its entry takes the divisor where the port's takes the scale 2 / divisor,
+`bench_point_render.through`): the ptxas lines of its kernels against the port's
 build's, then the serving and stage-2 shapes timed with each build in
 turns (parent, port, port, parent), each behind the same Python call.
 Every time is
@@ -239,9 +240,8 @@ def against_parent(source: str, gen: torch.Generator, passes: int = 2) -> dict:
     report = compare_ptxas(log, build.build_log("encode_view"))
     port_fn, parent_fn = port.encode_view, lib.encode_view
     port_fn.argtypes, port_fn.restype = ARGTYPES, ctypes.c_int
-    parent_fn.argtypes = [a for i, a in enumerate(ARGTYPES) if i not in (10, 11)]
-    parent_fn.restype = ctypes.c_int
-    builds = {"parent": through(parent_fn, 10), "port": through(port_fn)}
+    parent_fn.argtypes, parent_fn.restype = ARGTYPES, ctypes.c_int
+    builds = {"parent": through(parent_fn, parent=True), "port": through(port_fn)}
     inputs = {}
     for shape in SHAPES[:2]:
         fs = seeded_state(gen, shape)
@@ -265,7 +265,7 @@ def against_parent(source: str, gen: torch.Generator, passes: int = 2) -> dict:
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
-    parser.add_argument("--parent", help="a source from before the wide walk, timed against the port's build")
+    parser.add_argument("--parent", help="a source from before the depth rounding, timed against the port's build")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("no CUDA device", flush=True)

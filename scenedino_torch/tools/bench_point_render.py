@@ -17,9 +17,10 @@ K4 over the 2,097,152 SSCBench voxel centres, all on a seeded
 are divided for, and corner-load batches issued ahead of the blend (the
 PR_WGS, PR_BLOCKS, PR_AHEAD macros); `--other` adds another source with
 the same C interface (say an earlier revision's). `--parent` adds a source
-from before the wide walk (its entries take no packed-weight and scratch
-buffers) and the port's own build beside it, each behind the same Python
-call, and first compares the ptxas lines of the parent's kernels with the
+from before the normalized depth took jitted XLA's rounding (its entries
+take the divisor 1/z_near - 1/z_far, or z_far - z_near, where the port's
+take the scale 2 / divisor) and the port's own build beside it, each behind
+the same Python call, and first compares the ptxas lines of the parent's kernels with the
 port's build's (the same instantiations, by name). Each build is checked as
 above, then every build is timed at the four shapes in turns, first to
 last and back again, and each pass is printed. Builds are driven through
@@ -102,17 +103,13 @@ def shapes(seed: int) -> Dict[str, tuple]:
     return out
 
 
-# pointer arguments of each entry before the wide walk's two buffers (packed
-# weights, scratch), which a source from before the wide walk does not take
-SHIPPED_POINTERS = {"point_render": 15, "probe_weights": 10, "point_query": 10}
-
-
-def through(fn, drop_at: Optional[int] = None):
-    """`fn` behind one Python call; with `drop_at`, the two buffer pointers
-    after the first `drop_at` arguments are dropped (a parent's entry)."""
-    if drop_at is None:
+def through(fn, parent: bool = False):
+    """`fn` behind one Python call; for a `parent`'s entry, the normalized
+    depth's scale (the third argument from the end, before freq_factor and
+    the stream) handed as the divisor the parent takes, 2 / scale."""
+    if not parent:
         return lambda *a: fn(*a)
-    return lambda *a: fn(*a[:drop_at], *a[drop_at + 2:])
+    return lambda *a: fn(*a[:-3], 2.0 / a[-3], *a[-2:])
 
 
 def entry_name(name: str) -> str:
@@ -239,7 +236,7 @@ def main():
     parser.add_argument("--check", action="store_true", help="the port's build: ptxas, then each shape's check")
     parser.add_argument("--variants", nargs="*", default=[], help="a,b,c = PR_WGS, PR_BLOCKS, PR_AHEAD")
     parser.add_argument("--other", nargs="*", default=[], help="other sources with the same C interface")
-    parser.add_argument("--parent", help="a source from before the wide walk, timed against the port's build")
+    parser.add_argument("--parent", help="a source from before the depth rounding, timed against the port's build")
     parser.add_argument("--passes", type=int, default=2)
     parser.add_argument("--seed", type=int, default=0)
     args = parser.parse_args()
@@ -269,9 +266,9 @@ def main():
             report = compare_ptxas(log, build.build_log("point_render"))
             print(f"ptxas parent against the port's build: {json.dumps(report)}", flush=True)
             set_argtypes(port)
-            set_argtypes(lib, buffers=False)
+            set_argtypes(lib)
             builds.append(("port", {e: through(getattr(port, e)) for e in ENTRIES}))
-            builds.append(("parent", {e: through(getattr(lib, e), SHIPPED_POINTERS[e]) for e in ENTRIES}))
+            builds.append(("parent", {e: through(getattr(lib, e), parent=True) for e in ENTRIES}))
             with library(builds[-1][1]):
                 ok = check(inputs, "parent") and ok
             continue

@@ -45,8 +45,8 @@ import torch
 
 from scenedino_torch.kernels import build
 from scenedino_torch.kernels.attention import (
+    ANY_MAX_HEAD_DIM,
     HEAD_DIMS,
-    MAX_HEAD_DIM,
     _KERNELS,
     attention,
     attention_bwd_plain,
@@ -104,7 +104,7 @@ def test_every_other_head_dim_takes_the_padded_kernel():
     widths, at 64 columns one instantiation for each count of k-steps (a
     template parameter: no wgmma under a predicate), a producer and
     consumers split by setmaxnreg, no mma.sync, cp.async or atomics."""
-    assert HEAD_DIMS == (64, 80) and MAX_HEAD_DIM == PADS[-1]
+    assert HEAD_DIMS == (64, 80) and ANY_MAX_HEAD_DIM == PADS[-1]
     assert {step: _KERNELS["any"][step][:2] for step in _KERNELS["any"]} == {
         "fwd": ("attention_any", "attention_any_fwd"), "bwd_dq": ("attention_any", "attention_any_bwd_dq"),
         "bwd_dkv": ("attention_any", "attention_any_bwd_dkv")}
@@ -129,7 +129,8 @@ def test_every_other_head_dim_takes_the_padded_kernel():
 
 def test_route_of_every_head_dim():
     """Each D from 1 to 256: the kernels' key, the width the wrappers hand
-    them (D, or the next multiple of 8) and the width they compute at."""
+    them (D, or the next multiple of 8) and the width they compute at; past
+    256 attention_wide.cu's (tests/test_torch_attention_wide.py)."""
     for D in range(1, 257):
         if D in (64, 80):
             want = (D, D, D)
@@ -140,9 +141,9 @@ def test_route_of_every_head_dim():
         assert route(D) == want, D
     assert route(20) == ("any", 24, 64) and route(60) == ("any", 64, 64) and route(76) == ("any", 80, 128)
     assert route(250) == ("any", 256, 256) and route(136) == ("any", 136, 192)
-    for bad in (0, 257, 264):
-        with pytest.raises(ValueError, match="at most 256"):
-            route(bad)
+    assert route(257) == ("wide", 264, 320) and route(264) == ("wide", 264, 320)
+    with pytest.raises(ValueError, match="positive"):
+        route(0)
 
 
 @pytest.mark.parametrize("D", [20, 36, 100])

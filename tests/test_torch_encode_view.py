@@ -44,6 +44,7 @@ import torch
 
 from scenedino_tpu.models.field import FieldConfig as JFieldConfig
 from scenedino_tpu.ops import fast_field as jff
+from scenedino_torch.core import encoding
 from scenedino_torch.kernels import launches, reset_launches
 from scenedino_torch.kernels.encode_view import EncodeViewConfig, encode_view, encode_view_plain
 from scenedino_torch.models.field import FieldConfig
@@ -198,6 +199,15 @@ def _scan(v, op):
     return v
 
 
+def _normalized_depth(dl, cfg):
+    """The kernel's normalized depth of depths `dl` (fp32): x = 1 / max(dl,
+    1e-3) under inv_z, else dl; then fma(x - zn_sub, zn_scale, -1) rounded
+    once, the constants of `encoding.zn_constants` (jitted XLA's)."""
+    f = np.float32
+    sub, scale = encoding.zn_constants(cfg.z_near, cfg.z_far, cfg.inv_z)
+    x = f(1) / np.maximum(dl, f(1e-3)) if cfg.inv_z else dl
+    return encoding.fma32(torch.from_numpy(np.ascontiguousarray(x - f(sub), f)), scale, -1.0).numpy()
+
 def emulate_kernel(base, z, zscale, w_z, w2, b2, color, cfg: EncodeViewConfig, bf16: bool, passes: int = 3):
     """csrc/encode_view.cu's walk in numpy fp32. The rays' samples padded with
     dead rows to Kp (the next of 8, 16, 32, 64) in 64-row tiles of 64 / Kp
@@ -227,12 +237,7 @@ def emulate_kernel(base, z, zscale, w_z, w2, b2, color, cfg: EncodeViewConfig, b
     brow[ray < N, :D] = base[rr[ray < N]]
     zs = np.where(ray < N, zscale[rr], f(0))
 
-    dl = zrow * zs
-    if cfg.inv_z:
-        zn01 = (f(1) / np.maximum(dl, f(1e-3)) - f(1 / cfg.z_far)) / f(1 / cfg.z_near - 1 / cfg.z_far)
-    else:
-        zn01 = (dl - f(cfg.z_near)) / f(cfg.z_far - cfg.z_near)
-    zn = f(2) * zn01 - f(1)
+    zn = _normalized_depth(zrow * zs, cfg)
     code = np.zeros((tiles * 64, 16), f)
     for c in range(Cz):
         if cfg.include_input and c == 0:
@@ -344,12 +349,7 @@ def emulate_wide(base, z, zscale, w_z, w2, b2, color, cfg: EncodeViewConfig, bf1
     K, E, Cz = z.shape[1], w2.shape[1], w_z.shape[0]
     KW, k_step, passes = (64, 16, None) if bf16 else (32, 8, 3)
     dc, ct, ec = -(-D // 64), -(-Cz // KW), -(-E // 64)
-    dl = z * zscale[:, None]
-    if cfg.inv_z:
-        zn01 = (f(1) / np.maximum(dl, f(1e-3)) - f(1 / cfg.z_far)) / f(1 / cfg.z_near - 1 / cfg.z_far)
-    else:
-        zn01 = (dl - f(cfg.z_near)) / f(cfg.z_far - cfg.z_near)
-    zn = (f(2) * zn01 - f(1)).reshape(-1)
+    zn = _normalized_depth(z * zscale[:, None], cfg).reshape(-1)
     code = np.zeros((N * K, KW * ct), f)
     for c in range(Cz):
         if cfg.include_input and c == 0:

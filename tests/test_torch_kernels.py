@@ -9,10 +9,11 @@ trained-field probe bound through K3, the row gather and K2; every shape
 the JAX package takes: K2 and K3 at 96, 128 and 256 samples a ray, K6 at
 96 and 128 and with a z code of 17 and 31 columns, K1 at head dims 8 to 256
 (csrc/attention_any.cu; its register operands at one tile over many tiles
-and seeds); every width the JAX package takes: K2, K3, K4 and K6 through
-their wide walk (csrc/wide_walk.cuh) past the shipped instantiations (D
-past 128 and not a multiple of 8, E past 128 and at 769, 69 and 99 code
-columns, 33 z-code columns, 257 to 512 samples a ray); and the
+and seeds) and past 256 (csrc/attention_wide.cu, 264 to 1280); every width
+the JAX package takes: K2, K3, K4 and K6 through their wide walk
+(csrc/wide_walk.cuh) past the shipped instantiations (D past 128 and not a
+multiple of 8, E past 128 and at 769, 69 and 99 code columns, 33 z-code
+columns, 257 to 512 samples a ray); and the
 scaled-keys sweep of both shipped K1 forwards (ROADMAP queue 3, item C).
 The `cuda` tests skip without a card; on one, run them with
 
@@ -42,7 +43,6 @@ import numpy as np
 import pytest
 import torch
 
-from scenedino_torch.core import cameras
 from scenedino_torch.core import rays as rays_mod
 from scenedino_torch.core.sampling import sample_coarse
 from scenedino_torch.kernels import WRAPPERS, build, launches, reset_launches
@@ -80,13 +80,13 @@ def cuda():
 def test_build_targets_hopper_and_keys_libraries_by_source():
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
     assert build.all_names() == ["attention", "attention_any", "attention_bwd", "attention_d80", "attention_d80_bwd",
-                                 "encode_view", "point_render", "row_gather"]
+                                 "attention_wide", "encode_view", "point_render", "row_gather"]
     for name in build.all_names():
         path = build.library_path(name)
         assert path.parent == build.BUILD_DIR and path.name.startswith(f"lib{name}-")
         assert (build.CSRC / f"{name}.cu").exists()
     # the K1 kernels at every head dim include hopper.cuh (the D = 80 pair its rows of 80 too), and nothing else
-    for name in ("attention", "attention_bwd", "attention_d80", "attention_d80_bwd", "attention_any"):
+    for name in ("attention", "attention_bwd", "attention_d80", "attention_d80_bwd", "attention_any", "attention_wide"):
         assert [p.name for p in build.sources(name)] == [f"{name}.cu", "hopper.cuh"], name
     # the field kernels also include their wide walk's header (which includes hopper.cuh)
     for name in ("point_render", "encode_view"):
@@ -114,7 +114,7 @@ def test_library_hash_covers_included_headers(tmp_path, monkeypatch):
 
 def test_launch_counters_reset_and_ignore_cpu_calls():
     reset_launches()
-    for d in (64, 80, 32):
+    for d in (64, 80, 32, 384):
         q = torch.randn(1, 5, 2, d)
         attention(q, q, q)
         q.requires_grad_(True)
@@ -131,7 +131,8 @@ def test_launch_counters_reset_and_ignore_cpu_calls():
     assert launches() == {name: 0 for name in WRAPPERS}
     assert list(WRAPPERS) == ["attention", "attention_bwd_dq", "attention_bwd_dkv", "attention_d80",
                               "attention_d80_bwd_dq", "attention_d80_bwd_dkv", "attention_any",
-                              "attention_any_bwd_dq", "attention_any_bwd_dkv", "point_render",
+                              "attention_any_bwd_dq", "attention_any_bwd_dkv", "attention_wide",
+                              "attention_wide_bwd_dq", "attention_wide_bwd_dkv", "point_render",
                               "probe_weights", "point_query", "row_gather", "encode_view"]
 
 
@@ -149,14 +150,23 @@ def test_attention_kernel_matches_plain(cuda, n):
 
 @pytest.mark.cuda
 def test_attention_kernel_refuses_what_it_does_not_take(cuda):
-    q264 = torch.randn(1, 8, 2, 264, device=cuda).to(torch.bfloat16)  # head dims up to 256
+    """fp32 and a non-contiguous tensor are refused and launch nothing; no
+    head dim is: D = 264, once refused, launches csrc/attention_wide.cu."""
+    q264 = torch.randn(1, 8, 2, 264, device=cuda).to(torch.bfloat16)
     q32 = torch.randn(1, 8, 2, 64, device=cuda)
     qnc = torch.randn(1, 8, 64, 2, device=cuda).to(torch.bfloat16).transpose(2, 3)
-    for q in (q264, q32, qnc):
+    before = launches()
+    for q in (q32, qnc):
         with pytest.raises(ValueError):
             attention(q, q, q)
-    with pytest.raises(ValueError, match="at most 256"):
-        attention(q264, q264, q264)
+    assert launches() == before
+    with pytest.raises(ValueError, match="bf16"):
+        attention(q32, q32, q32)
+    out = attention(q264, q264, q264)
+    torch.cuda.synchronize()
+    after = launches()
+    assert {k: after[k] - before[k] for k in after if after[k] != before[k]} == {"attention_wide": 1}
+    assert (out.float() - attention_plain(q264, q264, q264).float()).abs().max().item() <= 2e-2
 
 
 @pytest.mark.cuda
@@ -952,18 +962,17 @@ def test_probe_weights_kernel_past_64_samples_matches_plain(cuda, K):
                                                (128, 6, torch.float32), (128, 6, torch.bfloat16),
                                                (48, 8, torch.float32), (48, 8, torch.bfloat16),
                                                (128, 8, torch.float32), (128, 8, torch.bfloat16),
-                                               (32, 15, torch.bfloat16)])
+                                               (32, 15, torch.bfloat16), (32, 15, torch.float32)])
 @pytest.mark.parametrize("depth_statistic", ["expectation", "median"])
 def test_encode_view_kernel_past_64_samples_and_16_code_columns_matches_plain(cuda, dtype, K, num_freqs,
                                                                              depth_statistic):
     """K6 with a ray over two of its 64-row tiles, and with a z code of 17
     columns (num_freqs 8) and of 31 (num_freqs 15): the second k16 step of
     the code product; the bounds of test_encode_view_kernel_matches_plain.
-    num_freqs 15 is held in bf16: its top frequency is 1.5 x 2^14, so one ulp
-    of the normalized depth (torch divides by a scalar through its
-    reciprocal, the kernel divides) moves a code argument by ~1e-3 rad, and
-    fp32 states then differ by up to 6.4e-3 (an H100 run), past the fp32
-    bounds but not the bf16 ones."""
+    At num_freqs 15 (a top frequency of 1.5 x 2^14) one ulp of the normalized
+    depth moves a code argument by ~1e-3 rad, so the kernel and the plain
+    version normalize depth with the same float32 constants and roundings
+    (core/encoding.zn_constants) and the fp32 state meets the fp32 bounds."""
     g = torch.Generator(device=cuda).manual_seed(K + num_freqs)
     N, D, E = 3000, 128, 65
     cfg = EncodeViewConfig(num_freqs=num_freqs, depth_statistic=depth_statistic)
@@ -1019,7 +1028,7 @@ def test_point_kernels_and_encode_view_take_what_was_past_their_ceilings(cuda):
     ev = [torch.randn(N, D, device=cuda), torch.rand(N, 4, device=cuda).sort(-1).values * 10 + 3,
           torch.ones(N, device=cuda), None, torch.randn(D, E, device=cuda), torch.zeros(E, device=cuda),
           torch.rand(N, 3, device=cuda)]
-    # held in bf16, as num_freqs 15 is (test_encode_view_kernel_past_64_samples_and_16_code_columns_matches_plain)
+    # a bf16 state (the fp32 one at num_freqs 16: test_encode_view_kernel_at_every_width_matches_plain)
     wide = EncodeViewConfig(num_freqs=16)
     ev16 = list(ev)
     ev16[3] = (torch.randn(wide.code_dims, D, device=cuda) * 0.3).to(torch.bfloat16)
@@ -1098,10 +1107,9 @@ def test_probe_weights_kernel_at_every_width_matches_plain(cuda, K, D, num_freqs
 @pytest.mark.parametrize("D,E,num_freqs", [(132, 65, 6), (512, 769, 16), (128, 129, 11), (264, 200, 6), (8, 2, 11)])
 def test_point_query_kernel_at_every_width_matches_plain(cuda, D, E, num_freqs):
     """K4's bound as chip_smoke.py phase 3c holds it, over each point's largest
-    output (at least 1); at num_freqs 15 or more on the points at or past
-    z_near in the encode camera (nearer, an ulp of the normalized inverse
-    depth moves the code's top arguments by radians: chip_smoke.py's
-    HIGH_FREQS)."""
+    output (at least 1), on every point: at num_freqs 16 too, nearer than
+    z_near as well, where the normalized inverse depth reaches thousands, as
+    the kernel and the plain version round it alike."""
     cfg = PointRenderConfig(num_freqs=num_freqs)
     rays, z, grid, w_code, b1, w2, b2, fw, fk = _k2_inputs(cuda, 24, 40, 8, D, E, cfg, seed=D + E)[:9]
     pts = (rays[:, None, :3] + z[..., None] * rays[:, None, 3:6]).reshape(-1, 3)[:7000].contiguous()
@@ -1116,8 +1124,7 @@ def test_point_query_kernel_at_every_width_matches_plain(cuda, D, E, num_freqs):
     assert sigma.shape == (7000,) and feat.shape == (7000, E - 1)
     d = torch.maximum((sigma - ref_sigma).abs(), (feat - ref_feat).abs().amax(-1))
     scaled = d / torch.clamp_min(torch.maximum(ref_sigma, ref_feat.abs().amax(-1)), 1.0)
-    held = cameras.project(pts, fw, fk)[1][:, 0] >= cfg.z_near if num_freqs >= 15 else torch.ones_like(sigma).bool()
-    assert held.float().mean().item() > 0.5 and scaled[held].max().item() <= 1e-2
+    assert scaled.max().item() <= 1e-2
 
 
 @pytest.mark.cuda
@@ -1126,6 +1133,7 @@ def test_point_query_kernel_at_every_width_matches_plain(cuda, D, E, num_freqs):
       for shape in ((32, 264, 769, 8), (32, 132, 130, 6), (48, 200, 69, 6), (320, 128, 65, 6), (512, 128, 65, 6),
                     (32, 512, 769, 8))],
     (torch.bfloat16, 32, 264, 769, 16), (torch.bfloat16, 32, 512, 769, 16), (torch.bfloat16, 96, 136, 65, 16),
+    (torch.float32, 32, 264, 769, 16), (torch.float32, 96, 136, 65, 16),
 ])
 @pytest.mark.parametrize("depth_statistic", ["expectation", "median"])
 def test_encode_view_kernel_at_every_width_matches_plain(cuda, dtype, K, D, E, num_freqs, depth_statistic):
@@ -1133,10 +1141,10 @@ def test_encode_view_kernel_at_every_width_matches_plain(cuda, dtype, K, D, E, n
     not a multiple of 8), E past 68, a z code of 33 columns, 320 and 512
     samples a ray, in both states; the bounds of
     test_encode_view_kernel_matches_plain; two launches give the same bits.
-    The 33-column code (num_freqs 16) is held in bf16, as num_freqs 15 is
-    in test_encode_view_kernel_past_64_samples_and_16_code_columns_matches_plain
-    and for its reason: at a frequency of 1.5 x 2^15 one ulp of the
-    normalized depth moves a code argument past the fp32 bounds."""
+    The 33-column code (num_freqs 16) in both states: at a frequency of
+    1.5 x 2^15 one ulp of the normalized depth would move a code argument
+    past the fp32 bounds, and the kernel rounds it as the plain version
+    does (test_encode_view_kernel_past_64_samples_and_16_code_columns_matches_plain)."""
     g = torch.Generator(device=cuda).manual_seed(K * D + E)
     N = 1000
     cfg = EncodeViewConfig(num_freqs=num_freqs, depth_statistic=depth_statistic)
@@ -1204,6 +1212,57 @@ def test_attention_any_kernels_match_plain(cuda, D, n):
         assert torch.isfinite(got).all()
         err = (got.float() - ref.float()).abs().max().item()
         assert err <= K1_BWD_REL * ref.float().abs().max().item() + 1e-3, err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 1921, 2, 384), (2, 1921, 1, 768), (2, 1921, 2, 512), (2, 1921, 4, 320),
+                                   (2, 1921, 1, 1280), (2, 1921, 2, 264), (2, 130, 3, 300), (1, 65, 2, 448)])
+def test_attention_wide_kernels_match_plain(cuda, shape):
+    """K1 past head dim 256 (csrc/attention_wide.cu) at chip_smoke.py phase
+    20a's shapes, at D = 300 (padded to 304 by the wrappers) and at a ragged
+    token count: the forward with and without the log-sum-exp, dq and dkv
+    against the plain versions, two launches bitwise equal, each launch
+    counted on the wide route and no other count moved."""
+    from scenedino_torch.kernels.attention import attention_bwd_dkv, attention_bwd_dq, route
+
+    B, n, H, D = shape
+    assert route(D)[0] == "wide"
+    g = torch.Generator(device=cuda).manual_seed(700 + D + n)
+    q, k, v, do = (torch.randn(*shape, generator=g, device=cuda).to(torch.bfloat16) for _ in range(4))
+    before = launches()
+    out, lse = attention_fwd(q, k, v, with_lse=True)
+    plain_out = attention_fwd(q, k, v)[0]
+    dq, di = attention_bwd_dq(q, k, v, out, do, lse)
+    dk, dv = attention_bwd_dkv(q, k, v, do, lse, di)
+    again = attention_bwd_dq(q, k, v, out, do, lse)[0], attention_bwd_dkv(q, k, v, do, lse, di)
+    torch.cuda.synchronize()
+    after = launches()
+    wide = ("attention_wide", "attention_wide_bwd_dq", "attention_wide_bwd_dkv")
+    assert all(after[name] == before[name] + 2 for name in wide)
+    assert all(after[name] == before[name] for name in after if name not in wide)
+    assert torch.equal(out, plain_out) and torch.equal(dq, again[0]) and torch.equal(dk, again[1][0])
+    assert torch.equal(dv, again[1][1])
+    assert (out.float() - attention_plain(q, k, v).float()).abs().max().item() <= 2e-2
+    assert (lse - attention_lse_plain(q, k)).abs().max().item() <= 1e-3
+    assert (di - (do.float() * out.float()).sum(-1).transpose(1, 2)).abs().max().item() <= 1e-3
+    for got, ref in zip((dq, dk, dv), attention_bwd_plain(q, k, v, out, do, lse)):
+        assert torch.isfinite(got).all()
+        err = (got.float() - ref.float()).abs().max().item()
+        assert err <= K1_BWD_REL * ref.float().abs().max().item() + 1e-3, err
+
+
+@pytest.mark.cuda
+def test_attention_wide_kernels_neither_spill_nor_serialize(cuda):
+    """ptxas' report of csrc/attention_wide.cu's forward, dq and dkv: no
+    spill, and no note of serialized wgmma or of an injected
+    warpgroup.arrive (C75xx)."""
+    from scenedino_torch.tools import bench_attention_wide as baw
+
+    build.build(["attention_wide"])
+    log = build.build_log("attention_wide")
+    report = baw.wide_report(log)
+    assert not baw.spilled(report), report
+    assert not baw.wgmma_notes(log)
 
 
 @pytest.mark.cuda

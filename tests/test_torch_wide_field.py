@@ -19,11 +19,16 @@ kernels' wrappers take their plain versions.
 
 Tolerances: fp32 as tests/test_torch_long_rays.py's (rtol 1e-4; atol 1e-4,
 or 1e-5 x the largest magnitude where that is larger) at num_freqs 8; the
-same shapes at num_freqs 16 to rtol 1e-3 and an atol of 5e-3: under jit
-XLA folds `normalize_z`'s `(x / c) * 2` into `x * (2 / c)`, so 13 % of the
-normalized depths round one ulp (1.2e-7) away from the port's (and from JAX
-op by op), and the code's top frequency 1.5 x 2^15 turns that ulp into
-~6e-3 rad (features off by up to 1.3e-3 here, against 7e-6 at num_freqs 8).
+same shapes at num_freqs 16 to rtol 1e-3 and an atol of 5e-3: the code's
+top frequency 1.5 x 2^15 turns one ulp of a normalized depth (1.2e-7) into
+~6e-3 rad. The port's `normalize_z` now gives jitted XLA's bits
+(`core.encoding.zn_constants`), but the depths it is handed still differ
+by an ulp: jitted XLA's CPU code contracts the stratified samples'
+`z_steps + u * step` and blend and the ray directions' norm into fused
+multiply-adds (4008 of 131,072 lindisp samples and 2075 of 6144 direction
+components differ from the port's, or from JAX op by op). Features are off
+by up to 1.0e-3 here (1.3e-3 before normalize_z matched), against 7e-6 at
+num_freqs 8.
 The bf16 state as tests/test_torch_encode_view.py's (depth 5e-2 m, feature
 and colour 5e-3 with the median error below 1e-5; the median depth the
 reference's sample or its neighbour on at most 1 % of rays).
@@ -121,8 +126,8 @@ def test_render_novel_view_probe_at_every_width_matches_reference():
     """E 769, 320 probe samples a probe ray (K3 over five of its 64-point
     tiles on the card), at num_freqs 8: the probe's weights pick each
     pixel's depths from their CDF, and at num_freqs 16 the jitted
-    reference's normalized depths (the module's docstring) move 2 % of the
-    pixels' draws to the next bin here; the card holds that width's K3
+    reference's depths (the module's docstring) moved 2 % of the pixels'
+    draws to the next bin here (measured before normalize_z matched); the card holds that width's K3
     against its plain version (tests/test_torch_kernels.py, chip_smoke.py
     phase 19)."""
     D, E, n_probe, freqs = 264, 769, 320, 8
